@@ -1,0 +1,27 @@
+// Shared by every kernel library under csrc/.
+//
+// Each .cu file builds into its own shared library with a plain C interface
+// (kernels/_build.py). Every entry point returns cudaGetLastError() as an int;
+// the Python wrapper raises on a non-zero code and asks msa_error_string for
+// the message.
+#pragma once
+
+#include <cuda_runtime.h>
+
+extern "C" const char* msa_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Exact erf-GELU (torch nn.GELU default). The TPU kernels used a polynomial
+// erf because Mosaic has none; CUDA's erff is accurate to 2 ulp.
+__device__ __forceinline__ float gelu_erf(float v) {
+    return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+}
+
+// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(bytes));
+}

@@ -1,0 +1,117 @@
+// Bidirectional LSTM layer forward, both directions in one launch.
+//
+// Replaces multimodal_sentiment_aanalysis_tpu/kernels/lstm.py::_fwd_xproj_kernel
+// (the v6 in-kernel-projection forward): per step the gates are
+// x_t . W_ih^T + h . W_hh^T + (b_ih + b_hh) in torch (i, f, g, o) order, the
+// reverse direction walks time by index (no flipped copy), h and c stay fp32
+// on chip across the whole sweep, and only h_seq is written.
+//
+// What bounds it on the H100, at the flagship layer (B=64, T=73, I=256,
+// H=128, fp32): 3.67 GFLOP per layer, but T=73 dependent steps, and the
+// weights of one direction (W_ih 512 KiB + W_hh 256 KiB) do not fit the
+// 227 KB of shared memory a block can hold. So each block re-reads them from
+// L2 every step: the kernel is bound by the per-SM L2 read rate and the
+// serial step chain, not by FLOPs.
+//
+// Design: one block per (batch tile of kBt rows, direction) with a loop over
+// T inside the block; that loop takes the place of the TPU grid's
+// sequential time axis. Thread g of the 4H threads owns gate column g: it
+// streams column g of W_ih^T and W_hh^T (coalesced across the warp) and
+// reuses each weight for the kBt batch rows held in registers, against x_t
+// and h_{t-1} broadcast from shared memory. A cell phase then applies the
+// gate nonlinearities, with each thread owning two (row, unit) cells whose
+// c lives in registers. A cluster that splits the gate columns over SMs and
+// exchanges h through DSMEM, or bf16 weights resident in shared memory, is
+// later work.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBt = 8;  // batch rows per block; kBt * H == 2 * (4H threads)
+
+__device__ __forceinline__ float sigmoid_f(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+__global__ void bilstm_fwd_kernel(const float* __restrict__ x,       // (B, T, I)
+                                  const float* __restrict__ w_ih_t,  // (2, I, 4H)
+                                  const float* __restrict__ w_hh_t,  // (2, H, 4H)
+                                  const float* __restrict__ bias,    // (2, 4H)
+                                  float* __restrict__ h_seq,         // (B, T, 2H)
+                                  int B, int T, int I, int H) {
+    extern __shared__ float smem[];
+    const int G = 4 * H;
+    float* xs = smem;           // (kBt, I): x_t of this tile
+    float* hs = xs + kBt * I;   // (kBt, H): h_{t-1}
+    float* gs = hs + kBt * H;   // (kBt, G): gate pre-activations
+
+    const int d = blockIdx.y;
+    const int b0 = blockIdx.x * kBt;
+    const int g = threadIdx.x;
+    const float* wi = w_ih_t + static_cast<size_t>(d) * I * G;
+    const float* wh = w_hh_t + static_cast<size_t>(d) * H * G;
+    const float bg = bias[d * G + g];
+
+    for (int idx = g; idx < kBt * H; idx += G) hs[idx] = 0.0f;
+    float c[2] = {0.0f, 0.0f};
+
+    for (int s = 0; s < T; ++s) {
+        const int t = d == 0 ? s : T - 1 - s;
+        for (int idx = g; idx < kBt * I; idx += G) {
+            const int r = idx / I;
+            const int b = b0 + r;
+            xs[idx] = b < B ? x[(static_cast<size_t>(b) * T + t) * I + (idx - r * I)] : 0.0f;
+        }
+        __syncthreads();
+
+        float acc[kBt];
+#pragma unroll
+        for (int r = 0; r < kBt; ++r) acc[r] = bg;
+        for (int k = 0; k < I; ++k) {
+            const float w = wi[static_cast<size_t>(k) * G + g];
+#pragma unroll
+            for (int r = 0; r < kBt; ++r) acc[r] = fmaf(xs[r * I + k], w, acc[r]);
+        }
+        for (int k = 0; k < H; ++k) {
+            const float w = wh[static_cast<size_t>(k) * G + g];
+#pragma unroll
+            for (int r = 0; r < kBt; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < kBt; ++r) gs[r * G + g] = acc[r];
+        __syncthreads();
+
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+            const int cell = g + q * G;
+            const int r = cell / H;
+            const int j = cell - r * H;
+            const float* gr = gs + r * G;
+            const float ig = sigmoid_f(gr[j]);
+            const float fg = sigmoid_f(gr[H + j]);
+            const float gg = tanhf(gr[2 * H + j]);
+            const float og = sigmoid_f(gr[3 * H + j]);
+            c[q] = fg * c[q] + ig * gg;
+            const float h = og * tanhf(c[q]);
+            hs[r * H + j] = h;
+            const int b = b0 + r;
+            if (b < B) h_seq[(static_cast<size_t>(b) * T + t) * 2 * H + d * H + j] = h;
+        }
+        __syncthreads();
+    }
+}
+
+}  // namespace
+
+extern "C" int msa_bilstm_fwd(const float* x, const float* w_ih_t, const float* w_hh_t,
+                              const float* bias, float* h_seq, int B, int T, int I, int H,
+                              int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const size_t smem = sizeof(float) * kBt * (I + H + 4 * H);
+    err = allow_dynamic_smem(bilstm_fwd_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((B + kBt - 1) / kBt, 2);
+    bilstm_fwd_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+        x, w_ih_t, w_hh_t, bias, h_seq, B, T, I, H);
+    return cudaGetLastError();
+}

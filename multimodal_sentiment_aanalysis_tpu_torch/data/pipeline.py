@@ -1,0 +1,70 @@
+"""Device-resident data pipeline.
+
+Counterpart of ``multimodal_sentiment_aanalysis_tpu/data/pipeline.py``: the
+whole dataset (~36 MB at MAHNOB-HCI size) is copied to the device once, and
+a batch is an ``index_select`` gather on the device. Epochs are static
+``(n_batches, batch_size)`` index plans whose tail batch wraps around, with
+a validity mask for the padded rows.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def epoch_batch_indices(
+    n: int,
+    batch_size: int,
+    rng: np.random.Generator | None = None,
+    shuffle: bool = True,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Static-shape epoch index plan.
+
+    Returns ``(indices, mask)`` of shape ``(n_batches, batch_size)``:
+    ``indices`` covers a (shuffled) epoch with the tail batch wrap-padded,
+    ``mask`` is 1.0 for real samples and 0.0 for padding.
+    """
+    order = np.arange(n)
+    if shuffle:
+        if rng is None:
+            rng = np.random.default_rng(0)
+        order = rng.permutation(n)
+    n_batches = -(-n // batch_size)
+    padded = n_batches * batch_size
+    pad = np.resize(order, padded)  # wrap-around padding
+    mask = np.zeros(padded, np.float32)
+    mask[:n] = 1.0
+    return (
+        pad.reshape(n_batches, batch_size).astype(np.int32),
+        mask.reshape(n_batches, batch_size),
+    )
+
+
+class DeviceDataset:
+    """A dict of equal-length arrays resident on ``device``."""
+
+    def __init__(self, arrays: dict[str, np.ndarray], device: torch.device | str):
+        lengths = {k: len(v) for k, v in arrays.items()}
+        if len(set(lengths.values())) != 1:
+            raise ValueError(f"arrays differ in length: {lengths}")
+        self.n = next(iter(lengths.values()))
+        self.device = torch.device(device)
+        self.arrays = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                       for k, v in arrays.items()}
+
+    def __len__(self) -> int:
+        return self.n
+
+    def gather(self, idx: torch.Tensor | np.ndarray) -> dict[str, torch.Tensor]:
+        """One batch: rows ``idx`` of every array, gathered on the device."""
+        idx = torch.as_tensor(idx, dtype=torch.long, device=self.device)
+        return {k: v.index_select(0, idx) for k, v in self.arrays.items()}
+
+    def subset(self, idx: np.ndarray) -> "DeviceDataset":
+        """A new dataset of rows ``idx`` (made once per experiment)."""
+        out = object.__new__(DeviceDataset)
+        out.n = len(idx)
+        out.device = self.device
+        out.arrays = self.gather(idx)
+        return out

@@ -1,0 +1,165 @@
+"""Serving engine: the inference forward built from trained weights.
+
+Counterpart of ``multimodal_sentiment_aanalysis_tpu/eval/serving.py``. The
+model (:class:`..models.MultimodalTransformerModel`) is written for parity
+with the reference; this module exports the same eval-mode math as a lean
+functional forward:
+
+- both EEG conv stages fold BatchNorm and the conv bias into a per-channel
+  affine (:func:`..kernels.conv_stem.fold_bn`); with ``use_pallas=True``
+  each stage is the fused conv-stem kernel
+  (:func:`..kernels.conv_stem.fused_conv_bn_gelu_pool`), otherwise
+  ``F.conv1d`` followed by the affine, GELU and pool
+- every sequence-length-1 attention site (the eye/PPS self-attention and
+  both cross-modal blocks) collapses: softmax over one key is 1, so
+  ``MHA(q, k, v) == out_proj(v_proj(v))``
+- the positional encoding of a length-1 sequence is its row 0
+- BatchNorm in the fusion trunk and heads folds into the preceding Linear
+- the BiLSTM runs through :func:`..ops.rnn.bilstm_layer` (the kernel on
+  CUDA)
+
+``use_pallas`` keeps the JAX package's name for the switch to the fused
+stem kernel. Only fp32 is served so far.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Mapping
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..kernels.conv_stem import fold_bn, fused_conv_bn_gelu_pool, gelu_max_pool
+from ..models.layers import gelu, make_sincos_pe
+from ..ops.rnn import bilstm_layer
+
+Forward = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                   tuple[torch.Tensor, torch.Tensor]]
+
+
+def _linear(sd: Mapping[str, torch.Tensor], prefix: str):
+    return sd[f"{prefix}.weight"], sd[f"{prefix}.bias"]
+
+
+def _ln(sd: Mapping[str, torch.Tensor], prefix: str, x: torch.Tensor) -> torch.Tensor:
+    return F.layer_norm(x, x.shape[-1:], sd[f"{prefix}.weight"], sd[f"{prefix}.bias"], 1e-5)
+
+
+def _mha_seq1(sd: Mapping[str, torch.Tensor], prefix: str, value: torch.Tensor):
+    """MHA with a single key/query position: ``out_proj(v_proj(value))``."""
+    e = value.shape[-1]
+    v = F.linear(value, sd[f"{prefix}.in_proj_weight"][2 * e:],
+                 sd[f"{prefix}.in_proj_bias"][2 * e:])
+    return F.linear(v, *_linear(sd, f"{prefix}.out_proj"))
+
+
+def _folded_trunk(sd: Mapping[str, torch.Tensor], prefix: str) -> list:
+    """[Linear, BN, GELU, Dropout] blocks -> Linears with the running-stat BN
+    folded in: ``BN(W x + b) == (s W) x + (s b + shift)``."""
+    layers = []
+    j = 1
+    while f"{prefix}.{j}.running_mean" in sd:
+        w, b = _linear(sd, f"{prefix}.{j - 1}")
+        scale, shift = fold_bn(sd[f"{prefix}.{j}.weight"], sd[f"{prefix}.{j}.bias"],
+                               sd[f"{prefix}.{j}.running_mean"],
+                               sd[f"{prefix}.{j}.running_var"], b)
+        layers.append((w * scale[:, None], shift))
+        j += 4
+    return layers
+
+
+def _run_trunk(layers: list, x: torch.Tensor) -> torch.Tensor:
+    for w, b in layers:
+        x = gelu(F.linear(x, w, b))
+    return x
+
+
+def build_serving_forward(state_or_model: nn.Module | Mapping[str, torch.Tensor],
+                          feat_dim: int = 256, use_pallas: bool = False,
+                          compute_dtype: torch.dtype | None = None) -> Forward:
+    """Eval forward ``(eeg, eye, pps) -> (arousal, valence)`` from a
+    :class:`..models.MultimodalTransformerModel` or its ``state_dict``.
+
+    The forward runs on the device the weights are on. ``use_pallas=True``
+    runs both EEG conv stages through the fused conv-stem kernel.
+    """
+    if compute_dtype not in (None, torch.float32):
+        raise NotImplementedError(
+            f"serving in {compute_dtype} is not ported yet (ROADMAP queue B, bf16)"
+        )
+    sd = (state_or_model.state_dict() if isinstance(state_or_model, nn.Module)
+          else dict(state_or_model))
+    sd = {k: v.detach() for k, v in sd.items()}
+
+    stem = []
+    for conv, bn, padding, pool in (("0", "1", 7, 4), ("5", "6", 2, 2)):
+        w, b = _linear(sd, f"eeg_net.temp_conv.{conv}")
+        bn = f"eeg_net.temp_conv.{bn}"
+        scale, shift = fold_bn(sd[f"{bn}.weight"], sd[f"{bn}.bias"],
+                               sd[f"{bn}.running_mean"], sd[f"{bn}.running_var"], b)
+        stem.append((w, scale, shift, padding, pool))
+    lstm_layers = []
+    k = 0
+    while f"eeg_net.bilstm.weight_ih_l{k}" in sd:
+        lstm_layers.append(tuple(
+            tuple(sd[f"eeg_net.bilstm.{part}_l{k}{suffix}"]
+                  for part in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+            for suffix in ("", "_reverse")))
+        k += 1
+    pe0 = make_sincos_pe(feat_dim, 1, device=sd["eye_net.proj.weight"].device)[0]
+    trunks = {name: _folded_trunk(sd, name)
+              for name in ("fusion", "arousal_head", "valence_head")}
+    heads = {name: _linear(sd, f"{name}.{4 * len(trunks[name])}")
+             for name in ("arousal_head", "valence_head")}
+
+    def eeg_encoder(eeg: torch.Tensor) -> torch.Tensor:
+        h = eeg.transpose(1, 2).contiguous()  # (B, T, C)
+        for w, scale, shift, padding, pool in stem:
+            if use_pallas:
+                h = fused_conv_bn_gelu_pool(h, w, scale, shift, padding, pool)
+            else:
+                y = F.conv1d(h.transpose(1, 2), w, padding=padding).transpose(1, 2)
+                h = gelu_max_pool(y * scale + shift, pool)
+        freq = F.linear(gelu(F.linear(eeg.mean(dim=1), *_linear(sd, "eeg_net.freq_branch.0"))),
+                        *_linear(sd, "eeg_net.freq_branch.2"))
+        for fwd, bwd in lstm_layers:
+            h = bilstm_layer(h, fwd, bwd)
+        fused = F.linear(torch.cat([h.mean(dim=1), freq], dim=1),
+                         *_linear(sd, "eeg_net.fusion.0"))
+        return gelu(_ln(sd, "eeg_net.fusion.1", fused))
+
+    def subnetwork(prefix: str, x: torch.Tensor) -> torch.Tensor:
+        h = F.linear(x, *_linear(sd, f"{prefix}.proj")) + pe0
+        li = 0
+        while f"{prefix}.transformer.layers.{li}.linear1.weight" in sd:
+            lp = f"{prefix}.transformer.layers.{li}"
+            h = _ln(sd, f"{lp}.norm1", h + _mha_seq1(sd, f"{lp}.self_attn", h))
+            ff = F.linear(F.relu(F.linear(h, *_linear(sd, f"{lp}.linear1"))),
+                          *_linear(sd, f"{lp}.linear2"))
+            h = _ln(sd, f"{lp}.norm2", h + ff)
+            li += 1
+        return _ln(sd, f"{prefix}.norm", h)
+
+    def cross_modal(prefix: str, query: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+        attn = _mha_seq1(sd, f"{prefix}.multihead_attn", value)
+        gate = torch.sigmoid(F.linear(torch.cat([query, attn], dim=1),
+                                      *_linear(sd, f"{prefix}.gate.0")))
+        return _ln(sd, f"{prefix}.norm", gate * query + (1.0 - gate) * attn)
+
+    @torch.no_grad()
+    def forward(eeg: torch.Tensor, eye: torch.Tensor, pps: torch.Tensor):
+        eeg_feat = eeg_encoder(eeg)
+        eye_feat = subnetwork("eye_net", eye)
+        pps_feat = subnetwork("pps_net", pps)
+        eye_enh = cross_modal("cross_attn_e2p", eeg_feat, eye_feat)
+        pps_enh = cross_modal("cross_attn_p2e", eeg_feat, pps_feat)
+        concat = torch.cat([eeg_feat, eye_feat, pps_feat], dim=1)
+        hidden = gelu(F.linear(concat, *_linear(sd, "attention_weights.0")))
+        w = torch.softmax(F.linear(hidden, *_linear(sd, "attention_weights.2")), dim=1)
+        fused = _run_trunk(trunks["fusion"], torch.cat(
+            [eeg_feat * w[:, 0:1], eye_enh * w[:, 1:2], pps_enh * w[:, 2:3]], dim=1))
+        return tuple(F.linear(_run_trunk(trunks[name], fused), *heads[name])
+                     for name in ("arousal_head", "valence_head"))
+
+    return forward

@@ -1,0 +1,130 @@
+"""Build the CUDA sources under ``csrc/`` and launch them through ``ctypes``.
+
+Every ``csrc/*.cu`` compiles on first use, with ``nvcc`` for ``sm_90a``,
+into its own shared library with a plain C interface under
+``build/kernels/`` at the root of the checkout. The library's file name
+carries a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one loads at once. A missing ``nvcc`` or a failed build
+raises: there is no fallback to the plain PyTorch versions.
+
+Each C entry point takes device pointers, sizes, the device index and the
+stream, launches on that stream without synchronising, and returns
+``cudaGetLastError()``; :meth:`CudaKernel.launch` raises if that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # used when nvcc is not on PATH
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), DEFAULT_NVCC):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels build from source on first use "
+        "and need the CUDA toolkit"
+    )
+
+
+def _digest(source: Path) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its current build exists; return
+    the library's path."""
+    source = CSRC / f"{name}.cu"
+    lib = BUILD_DIR / f"{name}-{_digest(source)}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed to build {source.name} (exit {proc.returncode}):\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
+    return lib
+
+
+def build_all() -> list[Path]:
+    """Build every kernel library under ``csrc/``."""
+    return [build(src.stem) for src in sorted(CSRC.glob("*.cu"))]
+
+
+class CudaKernel:
+    """One C entry point of one kernel library, and its launch count.
+
+    ``argtypes`` lists the kernel's own arguments; the device index and the
+    stream are appended by :meth:`launch`. ``launches`` grows by one for
+    every launch that CUDA accepted, and nowhere else.
+    """
+
+    def __init__(self, source: str, symbol: str, argtypes: list):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+        self._lib = None
+
+    def _load(self):
+        self._lib = ctypes.CDLL(str(build(self.source)))
+        fn = getattr(self._lib, self.symbol)
+        fn.argtypes = [*self.argtypes, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        self._lib.msa_error_string.argtypes = [ctypes.c_int]
+        self._lib.msa_error_string.restype = ctypes.c_char_p
+        self._fn = fn
+        return fn
+
+    def launch(self, device: torch.device, *args) -> None:
+        fn = self._fn or self._load()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, device.index, stream)
+        if err != 0:
+            msg = self._lib.msa_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")
+        self.launches += 1
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check_cuda_f32(name: str, t: torch.Tensor, device: torch.device,
+                   shape: tuple[int, ...] | None = None) -> None:
+    """Raise unless ``t`` is a contiguous fp32 tensor on ``device`` (and of
+    ``shape``, where given)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} is {t.dtype}; the kernels take float32 only")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")

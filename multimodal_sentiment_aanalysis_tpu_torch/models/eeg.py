@@ -1,0 +1,101 @@
+"""EEG multi-scale encoder.
+
+Counterpart of ``multimodal_sentiment_aanalysis_tpu/models/eeg.py``, eval
+forward:
+
+- temporal branch: Conv1d(C->64, k15, pad 7) -> BN -> GELU -> MaxPool(4)
+  -> Conv1d(64->feat_dim, k5, pad 2) -> BN -> GELU -> MaxPool(2); each
+  conv is ``F.conv1d`` and each BN+GELU+pool tail is the stem-tail kernel
+  (:func:`..kernels.conv_stem_train.fused_stage_train`, running stats, p=0)
+- frequency branch: channel mean -> Linear(T->128) -> GELU -> Linear(128->64)
+- 2-layer BiLSTM (hidden feat_dim/2 per direction) through
+  :func:`..ops.rnn.bilstm_layer`, mean-pooled over time
+- fusion: Linear(feat_dim+64 -> feat_dim) -> LayerNorm -> GELU
+
+The public input is the reference's ``(B, C, T)``; the stem runs NLC
+``(B, T, C)`` inside, as the JAX package does. Module names follow the
+reference ``state_dict`` (``temp_conv.0``, ``freq_branch.2``,
+``bilstm.weight_ih_l0_reverse``, ``fusion.1``, ...).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..kernels.conv_stem_train import fused_stage_train
+from ..ops.rnn import bilstm_layer
+
+
+class BiLSTM(nn.Module):
+    """Parameters of a bidirectional multi-layer ``nn.LSTM``, under its
+    names, run through :func:`..ops.rnn.bilstm_layer` (``nn.LSTM``'s own
+    forward would be cuDNN's kernel)."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int, device=None):
+        super().__init__()
+        self.num_layers = num_layers
+        for k in range(num_layers):
+            in_dim = input_size if k == 0 else 2 * hidden_size
+            for suffix in ("", "_reverse"):
+                shapes = {"weight_ih": (4 * hidden_size, in_dim),
+                          "weight_hh": (4 * hidden_size, hidden_size),
+                          "bias_ih": (4 * hidden_size,),
+                          "bias_hh": (4 * hidden_size,)}
+                for part, shape in shapes.items():
+                    self.register_parameter(f"{part}_l{k}{suffix}",
+                                            nn.Parameter(torch.empty(shape, device=device)))
+
+    def layer_params(self, k: int):
+        """``(fwd, bwd)`` parameter tuples ``(w_ih, w_hh, b_ih, b_hh)`` of layer ``k``."""
+        return tuple(
+            tuple(getattr(self, f"{part}_l{k}{suffix}")
+                  for part in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+            for suffix in ("", "_reverse"))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for k in range(self.num_layers):
+            x = bilstm_layer(x, *self.layer_params(k))
+        return x
+
+
+class EEGMultiScaleNet(nn.Module):
+    """Input ``(B, in_channels, time_len)`` -> ``(B, feat_dim)``."""
+
+    def __init__(self, in_channels: int = 32, time_len: int = 585, feat_dim: int = 256,
+                 dropout: float = 0.4, device=None):
+        super().__init__()
+        self.temp_conv = nn.Sequential(
+            nn.Conv1d(in_channels, 64, 15, padding=7, device=device),
+            nn.BatchNorm1d(64, device=device), nn.GELU(), nn.Dropout(dropout),
+            nn.MaxPool1d(4),
+            nn.Conv1d(64, feat_dim, 5, padding=2, device=device),
+            nn.BatchNorm1d(feat_dim, device=device), nn.GELU(), nn.Dropout(dropout),
+            nn.MaxPool1d(2),
+        )
+        self.freq_branch = nn.Sequential(
+            nn.Linear(time_len, 128, device=device), nn.GELU(),
+            nn.Linear(128, 64, device=device),
+        )
+        self.bilstm = BiLSTM(feat_dim, feat_dim // 2, num_layers=2, device=device)
+        self.fusion = nn.Sequential(
+            nn.Linear(feat_dim + 64, feat_dim, device=device),
+            nn.LayerNorm(feat_dim, eps=1e-5, device=device), nn.GELU(),
+        )
+
+    def _stage(self, h: torch.Tensor, conv: nn.Conv1d, bn: nn.BatchNorm1d,
+               pool: nn.MaxPool1d) -> torch.Tensor:
+        """NLC in, NLC out: conv, then the fused BN + GELU + pool tail."""
+        y = F.conv1d(h.transpose(1, 2), conv.weight, conv.bias, padding=conv.padding)
+        return fused_stage_train(y.transpose(1, 2).contiguous(), bn.weight, bn.bias,
+                                 bn.running_mean, bn.running_var, 0.0,
+                                 pool.kernel_size, bn.eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tc = self.temp_conv
+        h = self._stage(x.transpose(1, 2), tc[0], tc[1], tc[4])  # (B, T/4, 64)
+        h = self._stage(h, tc[5], tc[6], tc[9])                  # (B, T/8, feat_dim)
+        freq = self.freq_branch(x.mean(dim=1))
+        temp_feat = self.bilstm(h).mean(dim=1)
+        return self.fusion(torch.cat([temp_feat, freq], dim=1))

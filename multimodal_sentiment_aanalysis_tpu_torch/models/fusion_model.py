@@ -1,0 +1,125 @@
+"""Flagship fusion model: MultimodalTransformerModel, eval forward.
+
+Counterpart of ``multimodal_sentiment_aanalysis_tpu/models/fusion_model.py``,
+with the reference's module names, so
+``torch_import.variables_from_torch_state_dict(model.state_dict())`` gives
+the JAX package's variables and :func:`.jax_import.state_dict_from_jax_variables`
+gives this model's ``state_dict``:
+
+- per-modality encoders ``eeg_net``, ``eye_net``, ``pps_net``
+- two EEG-queried gated cross-modal blocks ``cross_attn_e2p``/``cross_attn_p2e``
+- softmax modality weights ``attention_weights`` (3F -> 64 -> 3)
+- ``fusion`` trunk 3F -> F -> 128 of Linear/BN/GELU/Dropout blocks
+- ``arousal_head`` 128 -> 128 -> classes; ``valence_head``
+  128 -> 256 -> 256 -> 128 -> 64 -> classes
+- learnable ``contrastive_weight`` and ``temperature`` (used by the
+  training losses)
+
+This slice serves: the forward runs in eval mode with BN running stats and
+returns ``(arousal, valence)``. Train mode and the ``labels`` branch (three
+in-model InfoNCE losses) arrive with the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from .cross_modal import CrossModalTransformer
+from .eeg import BiLSTM, EEGMultiScaleNet
+from .layers import MultiheadAttention
+from .subnetwork import Subnetwork
+
+
+def _bn_blocks(widths, in_dim: int, dropout: float, device) -> list[nn.Module]:
+    """[Linear, BatchNorm1d, GELU, Dropout] per width (reference trunks)."""
+    mods: list[nn.Module] = []
+    for w in widths:
+        mods += [nn.Linear(in_dim, w, device=device), nn.BatchNorm1d(w, device=device),
+                 nn.GELU(), nn.Dropout(dropout)]
+        in_dim = w
+    return mods
+
+
+class MultimodalTransformerModel(nn.Module):
+    def __init__(self, num_classes: int = 3, temperature: float = 0.01,
+                 eeg_channels: int = 32, eeg_time: int = 585, eye_dim: int = 38,
+                 pps_dim: int = 230, feat_dim: int = 256, dropout: float | None = None,
+                 *, device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        d_eeg = 0.4 if dropout is None else dropout
+        d = 0.3 if dropout is None else dropout
+        f = feat_dim
+        self.eeg_net = EEGMultiScaleNet(eeg_channels, eeg_time, f, d_eeg, device=device)
+        self.eye_net = Subnetwork(eye_dim, f, device=device)
+        self.pps_net = Subnetwork(pps_dim, f, device=device)
+        self.cross_attn_e2p = CrossModalTransformer(f, device=device)
+        self.cross_attn_p2e = CrossModalTransformer(f, device=device)
+        self.attention_weights = nn.Sequential(
+            nn.Linear(3 * f, 64, device=device), nn.GELU(),
+            nn.Linear(64, 3, device=device), nn.Softmax(dim=1),
+        )
+        self.fusion = nn.Sequential(*_bn_blocks((f, 128), 3 * f, d, device))
+        self.arousal_head = nn.Sequential(*_bn_blocks((128,), 128, d, device),
+                                          nn.Linear(128, num_classes, device=device))
+        self.valence_head = nn.Sequential(*_bn_blocks((256, 256, 128, 64), 128, d, device),
+                                          nn.Linear(64, num_classes, device=device))
+        self.contrastive_weight = nn.Parameter(torch.ones(1, device=device))
+        self.temperature = nn.Parameter(torch.full((), temperature, device=device))
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """Draw every weight from ``generator`` (a CPU generator; seed 0
+        when None), with torch's default init rules: Linear and Conv1d
+        U(+-1/sqrt(fan_in)), attention ``in_proj`` Xavier-uniform with zero
+        biases, LSTM U(+-1/sqrt(H)), norms ones and zeros. The same seed
+        gives the same weights on every device."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+
+        def uniform_(p: torch.Tensor, bound: float) -> None:
+            p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
+
+        # children before parents, so the attention branch below zeroes
+        # the bias of its out_proj Linear after the Linear branch drew it
+        for module in reversed(list(self.modules())):
+            if isinstance(module, (nn.Linear, nn.Conv1d)):
+                bound = 1.0 / math.sqrt(module.weight[0].numel())
+                uniform_(module.weight, bound)
+                uniform_(module.bias, bound)
+            elif isinstance(module, MultiheadAttention):
+                e = module.embed_dim
+                uniform_(module.in_proj_weight, math.sqrt(6.0 / (4 * e)))
+                module.in_proj_bias.zero_()
+                module.out_proj.bias.zero_()
+            elif isinstance(module, BiLSTM):
+                hidden = module.weight_hh_l0.shape[1]
+                for p in module.parameters():
+                    uniform_(p, 1.0 / math.sqrt(hidden))
+            elif isinstance(module, (nn.LayerNorm, nn.BatchNorm1d)):
+                module.reset_parameters()
+
+    @torch.no_grad()
+    def forward(self, eeg: torch.Tensor, eye: torch.Tensor, pps: torch.Tensor,
+                labels=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """``eeg (B, C, T)``, ``eye (B, eye_dim)``, ``pps (B, pps_dim)`` ->
+        ``(arousal, valence)`` logits, each ``(B, num_classes)``."""
+        if labels is not None or self.training:
+            raise NotImplementedError(
+                "train mode and the labels branch (in-model InfoNCE losses) "
+                "belong to the training slice (ROADMAP queue A); call .eval()"
+            )
+        eeg_feat = self.eeg_net(eeg)
+        eye_feat = self.eye_net(eye)
+        pps_feat = self.pps_net(pps)
+        eye_enhanced = self.cross_attn_e2p(eeg_feat, eye_feat, eye_feat)
+        pps_enhanced = self.cross_attn_p2e(eeg_feat, pps_feat, pps_feat)
+        w = self.attention_weights(torch.cat([eeg_feat, eye_feat, pps_feat], dim=1))
+        fused = self.fusion(torch.cat(
+            [eeg_feat * w[:, 0:1], eye_enhanced * w[:, 1:2], pps_enhanced * w[:, 2:3]],
+            dim=1,
+        ))
+        return self.arousal_head(fused), self.valence_head(fused)

@@ -1,0 +1,125 @@
+"""JAX package variables -> this port's ``state_dict``.
+
+:func:`state_dict_from_jax_variables` is the exact inverse of
+``multimodal_sentiment_aanalysis_tpu/models/torch_import.py::
+variables_from_torch_state_dict`` for the flagship model: it takes the JAX
+``{"params": ..., "batch_stats": ...}`` tree (arrays of any kind numpy can
+read) and returns the reference-named ``state_dict`` that
+:class:`.fusion_model.MultimodalTransformerModel` loads with
+``strict=True``. Flax ``(in, out)`` Dense kernels transpose back to torch
+``(out, in)``; Conv1d, attention and LSTM weights are already in torch
+layout. Needs only numpy and torch.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _linear(p: Mapping[str, Any], prefix: str) -> dict:
+    return {f"{prefix}.weight": _t(np.asarray(p["kernel"]).T),
+            f"{prefix}.bias": _t(p["bias"])}
+
+
+def _norm(p: Mapping[str, Any], prefix: str) -> dict:
+    return {f"{prefix}.weight": _t(p["scale"]), f"{prefix}.bias": _t(p["bias"])}
+
+
+def _bn(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str) -> dict:
+    return {**_norm(p, prefix),
+            f"{prefix}.running_mean": _t(stats["mean"]),
+            f"{prefix}.running_var": _t(stats["var"]),
+            f"{prefix}.num_batches_tracked": torch.tensor(0)}
+
+
+def _mha(p: Mapping[str, Any], prefix: str) -> dict:
+    return {f"{prefix}.in_proj_weight": _t(p["in_proj_weight"]),
+            f"{prefix}.in_proj_bias": _t(p["in_proj_bias"]),
+            f"{prefix}.out_proj.weight": _t(p["out_proj_weight"]),
+            f"{prefix}.out_proj.bias": _t(p["out_proj_bias"])}
+
+
+def _trunk(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str) -> dict:
+    """``dense_j``/``bn_j`` -> Sequential positions ``4j`` and ``4j + 1``."""
+    sd: dict = {}
+    j = 0
+    while f"dense_{j}" in p:
+        sd.update(_linear(p[f"dense_{j}"], f"{prefix}.{4 * j}"))
+        sd.update(_bn(p[f"bn_{j}"], stats[f"bn_{j}"], f"{prefix}.{4 * j + 1}"))
+        j += 1
+    return sd
+
+
+def _head(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str) -> dict:
+    blocks = sum(name.startswith("dense_") for name in p["trunk"])
+    return {**_trunk(p["trunk"], stats["trunk"], prefix),
+            **_linear(p["out"], f"{prefix}.{4 * blocks}")}
+
+
+def _subnetwork(p: Mapping[str, Any], prefix: str) -> dict:
+    sd = {**_linear(p["proj"], f"{prefix}.proj"), **_norm(p["norm"], f"{prefix}.norm")}
+    for name, lp in p["transformer"].items():
+        lpre = f"{prefix}.transformer.layers.{int(name.split('_')[1])}"
+        sd.update(_mha(lp["self_attn"], f"{lpre}.self_attn"))
+        for part in ("linear1", "linear2"):
+            sd.update(_linear(lp[part], f"{lpre}.{part}"))
+        for part in ("norm1", "norm2"):
+            sd.update(_norm(lp[part], f"{lpre}.{part}"))
+    return sd
+
+
+def _cross_modal(p: Mapping[str, Any], prefix: str) -> dict:
+    return {**_mha(p["attn"], f"{prefix}.multihead_attn"),
+            **_linear(p["gate"], f"{prefix}.gate.0"),
+            **_norm(p["norm"], f"{prefix}.norm")}
+
+
+def _eeg_net(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str) -> dict:
+    sd = {
+        f"{prefix}.temp_conv.0.weight": _t(p["conv1_weight"]),
+        f"{prefix}.temp_conv.0.bias": _t(p["conv1_bias"]),
+        f"{prefix}.temp_conv.5.weight": _t(p["conv2_weight"]),
+        f"{prefix}.temp_conv.5.bias": _t(p["conv2_bias"]),
+        **_bn(p["bn1"], stats["bn1"], f"{prefix}.temp_conv.1"),
+        **_bn(p["bn2"], stats["bn2"], f"{prefix}.temp_conv.6"),
+        **_linear(p["freq1"], f"{prefix}.freq_branch.0"),
+        **_linear(p["freq2"], f"{prefix}.freq_branch.2"),
+        **_linear(p["fusion_dense"], f"{prefix}.fusion.0"),
+        **_norm(p["fusion_ln"], f"{prefix}.fusion.1"),
+    }
+    k = 0
+    while f"lstm{k}_w_ih_fwd" in p:
+        for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            for part, torch_part in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                                     ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+                sd[f"{prefix}.bilstm.{torch_part}_l{k}{suffix}"] = _t(
+                    p[f"lstm{k}_{part}_{direction}"])
+        k += 1
+    return sd
+
+
+def state_dict_from_jax_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``MultimodalTransformerModel`` variables -> the port's
+    ``state_dict`` (CPU fp32 tensors; ``num_batches_tracked`` 0)."""
+    p, s = variables["params"], variables["batch_stats"]
+    return {
+        **_eeg_net(p["eeg_net"], s["eeg_net"], "eeg_net"),
+        **_subnetwork(p["eye_net"], "eye_net"),
+        **_subnetwork(p["pps_net"], "pps_net"),
+        **_cross_modal(p["cross_attn_e2p"], "cross_attn_e2p"),
+        **_cross_modal(p["cross_attn_p2e"], "cross_attn_p2e"),
+        **_linear(p["attn_w1"], "attention_weights.0"),
+        **_linear(p["attn_w2"], "attention_weights.2"),
+        **_trunk(p["fusion_stack"], s["fusion_stack"], "fusion"),
+        **_head(p["arousal_head"], s["arousal_head"], "arousal_head"),
+        **_head(p["valence_head"], s["valence_head"], "valence_head"),
+        "contrastive_weight": _t(p["contrastive_weight"]),
+        "temperature": _t(p["temperature"]).reshape(()),
+    }

@@ -1,0 +1,109 @@
+"""Shared layers with the reference's torch numerics and parameter names.
+
+Counterpart of ``multimodal_sentiment_aanalysis_tpu/models/layers.py``:
+sin/cos positional encoding, ``nn.MultiheadAttention``-layout attention
+with a packed ``in_proj``, and the post-norm ReLU transformer encoder
+layer. GELU is the exact erf form everywhere. These modules run the eval
+forward; dropout is a no-op there, so none is applied.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact erf-GELU (torch ``nn.GELU`` default)."""
+    return F.gelu(x)
+
+
+def make_sincos_pe(d_model: int, max_len: int, device=None) -> torch.Tensor:
+    """Standard sin/cos positional table ``(max_len, d_model)``."""
+    position = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    div_term = torch.exp(
+        torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+        * (-math.log(10000.0) / d_model)
+    )
+    pe = torch.zeros(max_len, d_model, device=device)
+    pe[:, 0::2] = torch.sin(position * div_term)
+    pe[:, 1::2] = torch.cos(position * div_term)
+    return pe
+
+
+class PositionalEncoding(nn.Module):
+    """Additive sin/cos PE. The table is computed, not a trained weight, so
+    it stays out of the ``state_dict`` (as the import path drops it)."""
+
+    def __init__(self, d_model: int, max_len: int = 5000, device=None):
+        super().__init__()
+        self.register_buffer("pe", make_sincos_pe(d_model, max_len, device),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.pe[None, : x.shape[1]]
+
+
+class MultiheadAttention(nn.Module):
+    """``nn.MultiheadAttention`` numerics (batch_first, no attention
+    dropout) as plain tensor math: packed ``in_proj_weight`` rows
+    ``[W_q; W_k; W_v]``, scaled dot-product attention per head,
+    ``out_proj``."""
+
+    def __init__(self, embed_dim: int, num_heads: int, device=None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim, device=device))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim, device=device))
+        self.out_proj = nn.Linear(embed_dim, embed_dim, device=device)
+
+    def forward(self, query, key, value):
+        e, nh = self.embed_dim, self.num_heads
+        w_q, w_k, w_v = self.in_proj_weight.chunk(3)
+        b_q, b_k, b_v = self.in_proj_bias.chunk(3)
+        b, tq, _ = query.shape
+        tk = key.shape[1]
+        q = F.linear(query, w_q, b_q).reshape(b, tq, nh, e // nh).transpose(1, 2)
+        k = F.linear(key, w_k, b_k).reshape(b, tk, nh, e // nh).transpose(1, 2)
+        v = F.linear(value, w_v, b_v).reshape(b, tk, nh, e // nh).transpose(1, 2)
+        p = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(e // nh), dim=-1)
+        out = (p @ v).transpose(1, 2).reshape(b, tq, e)
+        return self.out_proj(out)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """``nn.TransformerEncoderLayer`` numerics: post-norm, ReLU feed-forward.
+    x -> MHA -> +x -> norm1 -> linear1 -> relu -> linear2 -> +x -> norm2."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int, device=None):
+        super().__init__()
+        self.self_attn = MultiheadAttention(d_model, nhead, device=device)
+        self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
+        self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.norm1(x + self.self_attn(x, x, x))
+        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+
+
+class TransformerEncoder(nn.Module):
+    """Stack of encoder layers (``nn.TransformerEncoder``'s ``layers.{i}``)."""
+
+    def __init__(self, num_layers: int, d_model: int, nhead: int,
+                 dim_feedforward: int, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(d_model, nhead, dim_feedforward, device=device)
+            for _ in range(num_layers)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
+        return x
