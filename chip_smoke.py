@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card, and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card,
+and check them.
 
 Run from the root of a checkout, with no arguments::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the checks below
+    python3 chip_smoke.py --profile  # also a torch.profiler window over train steps
 
 It needs a CUDA card and exits non-zero without one. In order, it
 
 1. turns TF32 off for matmuls and cuDNN convs (the plain versions are the
    fp32 reference) and builds every kernel in
-   ``multimodal_sentiment_aanalysis_tpu_torch/csrc`` with nvcc;
-2. builds the full-width flagship model (feat_dim=256) from a seeded
+   ``multimodal_sentiment_aanalysis_tpu_torch/csrc`` with nvcc, one process
+   per source, all at once;
+2. serving: builds the full-width flagship model (feat_dim=256) from a seeded
    ``torch.Generator`` with perturbed BatchNorm running stats, and a pool of
-   480 synthetic samples at MAHNOB-HCI shapes resident on the card;
-3. serves 100 requests of 64 samples from the pool through the eval model
-   forward, ``build_serving_forward`` and ``build_serving_forward(use_pallas=True)``,
-   with every launch counter reset just before; checks that each kernel of
-   the path launched as often as the path calls it, that the logits are
-   finite, that the three entry points agree within 1e-3, and that the
-   plain path on the CPU agrees on the first rows within 1e-3;
-4. holds each kernel against its plain PyTorch version at the shapes the
-   path gives it (real activations of the first request) and times both
-   with CUDA events;
+   480 synthetic samples at MAHNOB-HCI shapes resident on the card; serves
+   100 requests of 64 samples through the eval model forward,
+   ``build_serving_forward`` and ``build_serving_forward(use_pallas=True)``,
+   with every launch counter reset just before; checks the launch counts,
+   finite logits, agreement of the three entry points within 1e-3, and the
+   plain path on the CPU on the first rows within 1e-3;
+3. training: the synthetic MAHNOB-HCI set (480 trials) through
+   ``assemble_features`` and ``loso_split`` with subject 0 held out (460
+   train, 20 test) on the card; a full-width flagship from the seeded
+   generator at the reference dropout rates; ``Trainer(batch_size=64)``: two
+   ``train_epoch`` (8 steps each) and a ``test()`` after each, with every
+   launch counter reset just before; checks finite losses, that every
+   parameter tensor moved, and the launch counts; then card-vs-CPU gradient
+   parity of a ``dropout=0.0`` copy on one batch;
+4. holds every kernel against its plain PyTorch version at the shapes its
+   path gives it (real activations of the first request or train batch),
+   times both with CUDA events, and checks the stem tail's dropout (keep
+   share 1 - p within 5 sigma, every output exactly 0 or GELU(y) / (1 - p));
 5. prints the card's name and power limit, one JSON line of per-kernel
    results, and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -30,8 +41,10 @@ Any failed check raises, so the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -47,28 +60,75 @@ from multimodal_sentiment_aanalysis_tpu_torch import (
     launch_counts,
     reset_launch_counts,
 )
-from multimodal_sentiment_aanalysis_tpu_torch.data import DeviceDataset, epoch_batch_indices
-from multimodal_sentiment_aanalysis_tpu_torch.kernels import conv_stem, conv_stem_train, lstm
+from multimodal_sentiment_aanalysis_tpu_torch.data import (
+    DeviceDataset,
+    assemble_features,
+    epoch_batch_indices,
+    loso_split,
+    make_synthetic_hci_data,
+)
+from multimodal_sentiment_aanalysis_tpu_torch.kernels import (
+    contrastive,
+    conv_stem,
+    conv_stem_train,
+    lstm,
+)
+from multimodal_sentiment_aanalysis_tpu_torch.ops.losses import masked_cross_entropy
+from multimodal_sentiment_aanalysis_tpu_torch.train import Trainer
 
 SEED = 0
 POOL, REQUESTS, BATCH = 480, 100, 64
+N_SUBJECTS, EX_NUMS, TEST_SUBJECT, EPOCHS = 24, 20, 0, 2
 PATH_ATOL = 1e-3   # entry points against each other, and against the CPU plain path
+# card vs CPU gradients, per parameter tensor: |diff| <= GRAD_RTOL * (max
+# |CPU grad| + 1e-4 * the largest max |CPU grad| of any tensor) for all but
+# GRAD_OUTLIERS of its elements. GRAD_RTOL: fp32 sums in other orders
+# through 73 LSTM steps; the floor covers tensors whose true gradient is ~0
+# (a Linear bias feeding a BatchNorm, the q/k projections of length-1
+# attention). GRAD_OUTLIERS: a ReLU or max-pool input within rounding of
+# its kink routes its gradient differently on the two devices, which
+# changes a whole row of the next weight gradient (one of 768 rows of a
+# feed-forward weight is 0.13% of it)
+GRAD_RTOL = 1e-3
+GRAD_OUTLIERS = 1e-2
+DROPOUT_P = 0.4
 TIMED_CALLS = 20
 
-# kernel -> (source, TPU kernel it replaces, tolerance against its plain version)
+CSRC = "multimodal_sentiment_aanalysis_tpu_torch/csrc/"
+JAX_KERNELS = "multimodal_sentiment_aanalysis_tpu/kernels/"
+# kernel -> (source, TPU kernel it replaces, max |err| against its plain
+# version over every output). The backward kernels' reductions sum B*T rows
+# in another order: dW_cat over 4,672 rows with entries up to ~130, the
+# stem's dgamma/dbeta over 9,344 rows with entries up to ~370; the InfoNCE
+# losses are ~25-50 at temperature 0.01
 KERNELS = {
-    "bilstm_fwd": ("multimodal_sentiment_aanalysis_tpu_torch/csrc/lstm_fwd.cu",
-                   "multimodal_sentiment_aanalysis_tpu/kernels/lstm.py:527", 1e-4),
-    "stem_tail": ("multimodal_sentiment_aanalysis_tpu_torch/csrc/stem_tail.cu",
-                  "multimodal_sentiment_aanalysis_tpu/kernels/conv_stem_train.py:265", 1e-5),
-    "conv_stem": ("multimodal_sentiment_aanalysis_tpu_torch/csrc/conv_stem.cu",
-                  "multimodal_sentiment_aanalysis_tpu/kernels/conv_stem.py:64", 1e-4),
+    "bilstm_fwd": (CSRC + "lstm_fwd.cu", JAX_KERNELS + "lstm.py:527", 1e-4),
+    "bilstm_cbnd": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1026", 1e-4),
+    "bilstm_segbwd": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1227", 1e-3),
+    "stem_tail": (CSRC + "stem_tail.cu", JAX_KERNELS + "conv_stem_train.py:265", 1e-5),
+    "stem_tail_bwd": (CSRC + "stem_tail.cu", JAX_KERNELS + "conv_stem_train.py:368", 1e-3),
+    "infonce": (CSRC + "infonce.cu", JAX_KERNELS + "contrastive.py:61", 1e-4),
+    "conv_stem": (CSRC + "conv_stem.cu", JAX_KERNELS + "conv_stem.py:64", 1e-4),
 }
 
 
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
+
+
+def synced(fn):
+    """``fn()`` and its host-clock seconds, the card synchronised around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+# --------------------------------------------------------------------------
+# serving
+# --------------------------------------------------------------------------
 
 
 def make_model(device: torch.device) -> MultimodalTransformerModel:
@@ -104,33 +164,67 @@ def serve(paths: dict, pool: DeviceDataset, plan: torch.Tensor) -> tuple[dict, d
     """Every request through every path; returns logits and ms per batch."""
     outs, ms = {}, {}
     for name, fwd in paths.items():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = []
-        for idx in plan:
-            b = pool.gather(idx)
-            res.append(fwd(b["eeg"], b["eye"], b["pps"]))
-        torch.cuda.synchronize()
-        ms[name] = (time.perf_counter() - t0) * 1e3 / len(plan)
-        outs[name] = res
+        def run(fwd=fwd):
+            batches = (pool.gather(idx) for idx in plan)
+            return [fwd(b["eeg"], b["eye"], b["pps"]) for b in batches]
+        outs[name], seconds = synced(run)
+        ms[name] = seconds * 1e3 / len(plan)
     return outs, ms
 
 
-def time_ms(fn) -> float:
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(TIMED_CALLS):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / TIMED_CALLS
+def serving_phase(device: torch.device) -> tuple[MultimodalTransformerModel, dict, dict]:
+    """Returns the model, the first request and the path's launch counts."""
+    model = make_model(device)
+    pool = make_pool(device)
+    plan = request_plan(device)
+    paths = {
+        "model_forward": model,
+        "serving": build_serving_forward(model),
+        "serving_use_pallas": build_serving_forward(model, use_pallas=True),
+    }
+    first = pool.gather(plan[0])
+    with torch.no_grad():
+        for fwd in paths.values():  # warm-up: first launches, cuBLAS/cuDNN handles
+            fwd(first["eeg"], first["eye"], first["pps"])
+        torch.cuda.synchronize()
+
+        reset_launch_counts()
+        outs, ms = serve(paths, pool, plan)
+        counts = launch_counts()
+    expected = {name: 0 for name in KERNELS}
+    expected.update(bilstm_fwd=2 * REQUESTS * len(paths), stem_tail=2 * REQUESTS,
+                    conv_stem=2 * REQUESTS)
+    print(f"serving launches over {REQUESTS} requests x {len(paths)} entry points: {counts}")
+    check(counts == expected, f"serving launch counts {counts} != {expected}")
+    for name in paths:
+        print(f"serve {name}: {REQUESTS} requests x {BATCH}, {ms[name]:.4f} ms/batch "
+              f"(host clock around synchronised runs)")
+
+    worst = 0.0
+    for name, res in outs.items():
+        for a, v in res:
+            check(a.shape == (BATCH, 3) and v.shape == (BATCH, 3), f"{name}: logits shape")
+            check(bool(torch.isfinite(a).all() and torch.isfinite(v).all()),
+                  f"{name}: non-finite logits")
+        for other in outs:
+            for (a, v), (a2, v2) in zip(res, outs[other]):
+                worst = max(worst, (a - a2).abs().max().item(), (v - v2).abs().max().item())
+    print(f"entry points agree: max |diff| {worst:.3e} (limit {PATH_ATOL})")
+    check(worst <= PATH_ATOL, "entry points disagree")
+
+    cpu_model = copy.deepcopy(model).cpu()
+    rows = {k: v[:4].cpu() for k, v in first.items()}
+    with torch.no_grad():
+        ca, cv = cpu_model(rows["eeg"], rows["eye"], rows["pps"])
+    cpu_err = max(max((a[:4].cpu() - ca).abs().max().item(), (v[:4].cpu() - cv).abs().max().item())
+                  for a, v in (res[0] for res in outs.values()))
+    print(f"card vs CPU plain path on 4 rows: max |diff| {cpu_err:.3e} (limit {PATH_ATOL})")
+    check(cpu_err <= PATH_ATOL, "card disagrees with the CPU plain path")
+    return model, first, counts
 
 
-def kernel_cases(model, eeg: torch.Tensor) -> dict:
-    """(kernel call, plain call) pairs at the serving path's shapes, on the
+def serving_kernel_cases(model, eeg: torch.Tensor) -> dict:
+    """(label, kernel call, plain call) at the serving path's shapes, on the
     activations the path computes from ``eeg``. Call under ``no_grad``."""
     tc = model.eeg_net.temp_conv
     cases: dict = {name: [] for name in KERNELS}
@@ -141,7 +235,7 @@ def kernel_cases(model, eeg: torch.Tensor) -> dict:
         args = (y.transpose(1, 2).contiguous(), bn.weight, bn.bias,
                 bn.running_mean, bn.running_var)
         cases["stem_tail"].append((
-            f"pool {pool} {tuple(args[0].shape)}",
+            f"eval pool {pool} {tuple(args[0].shape)}",
             lambda a=args, p=pool: conv_stem_train.fused_stage_train(*a, 0.0, p),
             lambda a=args, p=pool: conv_stem_train.fused_stage_train_plain(*a, p)))
         h = conv_stem_train.fused_stage_train_plain(*args, pool).transpose(1, 2)
@@ -169,7 +263,252 @@ def kernel_cases(model, eeg: torch.Tensor) -> dict:
     return cases
 
 
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+
+def make_trainer(device: torch.device) -> Trainer:
+    """``cli.py single`` on the synthetic set: subject 0 held out."""
+    data = make_synthetic_hci_data(seed=SEED)
+    feats, _ = assemble_features(data, ["eeg", "eye", "pps"], norm="Z_score",
+                                 label_type="arousal")
+    full = DeviceDataset({
+        "eeg": feats["eeg"].astype(np.float32), "eye": feats["eye"].astype(np.float32),
+        "pps": feats["pps"].astype(np.float32),
+        "arousal": np.asarray(data["arousal_label"]).astype(np.int64),
+        "valence": np.asarray(data["valence_label"]).astype(np.int64),
+    }, device)
+    tr_idx, te_idx = loso_split(N_SUBJECTS, EX_NUMS, TEST_SUBJECT)
+    model = MultimodalTransformerModel(feat_dim=256, device=device,
+                                       generator=torch.Generator().manual_seed(SEED))
+    return Trainer(model, full.subset(tr_idx), full.subset(te_idx), batch_size=BATCH,
+                   seed=SEED, verbose=False)
+
+
+def training_phase(trainer: Trainer) -> dict:
+    """Two epochs and a test after each; returns the path's launch counts."""
+    n_train, n_test = len(trainer.train_data), len(trainer.test_data)
+    steps, evals = -(-n_train // BATCH), -(-n_test // BATCH)
+    print(f"training: {n_train} train / {n_test} test samples, {steps} steps of {BATCH} "
+          f"per epoch, feat_dim 256, dropout 0.4 (stem) / 0.3")
+    before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    reset_launch_counts()
+    for epoch in range(1, EPOCHS + 1):
+        tr, t_train = synced(lambda: trainer.train_epoch(epoch))
+        te, t_test = synced(trainer.test)
+        print(f"epoch {epoch}: train loss {tr[0]:.6f} ce {tr[1]:.6f} con {tr[2]:.6f} "
+              f"acc {tr[3]:.4f} | test loss {te[0]:.6f} ce {te[1]:.6f} con {te[2]:.6f} "
+              f"acc {te[3]:.4f}")
+        print(f"epoch {epoch} smoke reading (host clock around synchronised runs): "
+              f"{t_train * 1e3 / steps:.3f} ms/step, {n_train / t_train:.1f} samples/s "
+              f"train; test {t_test * 1e3:.3f} ms")
+        check(all(math.isfinite(v) for v in (*tr, *te)), f"epoch {epoch}: non-finite loss")
+    counts = launch_counts()
+    per_step = dict(bilstm_fwd=2, bilstm_cbnd=2, bilstm_segbwd=2, stem_tail=2,
+                    stem_tail_bwd=2, infonce=1)
+    per_eval = dict(bilstm_fwd=2, stem_tail=2, infonce=1)
+    expected = {name: EPOCHS * (steps * per_step.get(name, 0) + evals * per_eval.get(name, 0))
+                for name in KERNELS}
+    print(f"training launches over {EPOCHS} epochs: {counts}")
+    check(counts == expected, f"training launch counts {counts} != {expected}")
+    frozen = [n for n, p in trainer.model.named_parameters() if torch.equal(p, before[n])]
+    print(f"parameter tensors moved: {len(before) - len(frozen)} of {len(before)}")
+    check(not frozen, f"parameters that did not move: {frozen}")
+    return counts
+
+
+def step_loss(model, batch: dict, mask: torch.Tensor) -> torch.Tensor:
+    a, v, c1, c2, c3 = model(batch["eeg"], batch["eye"], batch["pps"],
+                             labels=(batch["arousal"], batch["valence"], mask))
+    return (masked_cross_entropy(torch.nan_to_num(a), batch["arousal"], mask)
+            + masked_cross_entropy(torch.nan_to_num(v), batch["valence"], mask) + c1 + c2 + c3)
+
+
+def gradient_parity(trainer: Trainer, batch: dict, mask: torch.Tensor) -> None:
+    """A dropout=0.0 copy of the trained model, one batch, train mode: the
+    loss and every parameter's gradient on the card against the CPU plain
+    path."""
+    card = MultimodalTransformerModel(feat_dim=256, dropout=0.0, device=mask.device)
+    card.load_state_dict(trainer.model.state_dict())
+    cpu = copy.deepcopy(card).cpu()
+    losses, grads = [], []
+    for model, dev in ((card, mask.device), (cpu, torch.device("cpu"))):
+        model.train()
+        loss = step_loss(model, {k: v.to(dev) for k, v in batch.items()}, mask.to(dev))
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    scale = max(g.abs().max().item() for g in grads[1].values())
+    worst, worst_name, outliers, outlier_name = 0.0, "", 0.0, ""
+    for name, g_cpu in grads[1].items():
+        err = (grads[0][name] - g_cpu).abs() / (g_cpu.abs().max().item() + 1e-4 * scale)
+        if err.max().item() > worst:
+            worst, worst_name = err.max().item(), name
+        share = (err > GRAD_RTOL).double().mean().item()
+        if share > outliers:
+            outliers, outlier_name = share, name
+    loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+    print(f"gradient parity, card vs CPU plain path, B={BATCH}, dropout 0: loss "
+          f"{losses[0]:.6f} vs {losses[1]:.6f} (rel {loss_err:.3e}); {len(grads[1])} tensors, "
+          f"worst scaled |diff| {worst:.3e} at {worst_name}; largest share of elements "
+          f"above {GRAD_RTOL}: {outliers:.3e}{' at ' + outlier_name if outlier_name else ''} "
+          f"(limit {GRAD_OUTLIERS})")
+    check(loss_err <= 1e-4 and outliers <= GRAD_OUTLIERS, "card gradients disagree with the CPU")
+
+
+def training_kernel_cases(model, batch: dict, mask: torch.Tensor, gen: torch.Generator,
+                          cases: dict) -> None:
+    """Adds (label, kernel call, plain call) at the training path's shapes,
+    on the activations of ``batch``. Call under ``no_grad``."""
+    tc = model.eeg_net.temp_conv
+    h = batch["eeg"]
+    for conv, bn, pool in ((tc[0], tc[1], 4), (tc[5], tc[6], 2)):
+        y = F.conv1d(h, conv.weight, conv.bias, padding=conv.padding).transpose(1, 2)
+        y = y.contiguous()
+        mean = y.mean((0, 1))
+        var = (y * y).mean((0, 1)) - mean * mean
+        args = (y, bn.weight, bn.bias, mean, var)
+        shape = tuple(y.shape)
+        cases["stem_tail"].append((
+            f"train pool {pool} {shape} batch stats, writes the code",
+            lambda a=args, p=pool: conv_stem_train.stem_tail_fwd(*a, 0.0, p),
+            lambda a=args, p=pool: conv_stem_train.fused_stage_train_plain(
+                *a, p, with_code=True)))
+        out, code = conv_stem_train.stem_tail_fwd(*args, DROPOUT_P, pool, generator=gen)
+        inv = torch.rsqrt(var + bn.eps)
+        bwd_args = (y, torch.randn(out.shape, device=y.device, generator=gen), code,
+                    bn.weight * inv, bn.bias - mean * bn.weight * inv, mean, inv,
+                    DROPOUT_P, pool)
+        cases["stem_tail_bwd"].append((
+            f"pool {pool} {shape} p {DROPOUT_P}, the kernel's own code",
+            lambda a=bwd_args: conv_stem_train.stem_tail_bwd(*a),
+            lambda a=bwd_args: conv_stem_train.stem_tail_bwd_plain(*a)))
+        h = conv_stem_train.fused_stage_train_plain(*args, pool).transpose(1, 2)
+    x = h.transpose(1, 2).contiguous()
+    bilstm = model.eeg_net.bilstm
+    for k in range(bilstm.num_layers):
+        fwd, bwd = bilstm.layer_params(k)
+        w = lstm.stack_params(fwd, bwd)
+        h_seq = lstm.fused_bilstm_layer_plain(x, fwd, bwd)
+        dh = torch.randn(h_seq.shape, device=x.device, generator=gen)
+        c_bnd = lstm.bilstm_cbnd_plain(x, h_seq, *w)
+        label = f"layer {k} {tuple(x.shape)} K {lstm.SEG_K}"
+        cases["bilstm_cbnd"].append((
+            label, lambda a=(x, h_seq, *w): lstm.bilstm_cbnd(*a),
+            lambda a=(x, h_seq, *w): lstm.bilstm_cbnd_plain(*a)))
+        cases["bilstm_segbwd"].append((
+            label, lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd(*a),
+            lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd_plain(*a)))
+        x = h_seq
+    model.eval()  # the encoders' embeddings, without moving the running stats
+    feats = torch.stack([model.eeg_net(batch["eeg"]), model.eye_net(batch["eye"]),
+                         model.pps_net(batch["pps"])])
+    n = F.normalize(feats, dim=2, eps=1e-12)
+    args = (n, n, batch["arousal"], mask, model.temperature)
+    cases["infonce"].append((
+        f"G 3 {tuple(n.shape[1:])}", lambda a=args: contrastive.infonce(*a),
+        lambda a=args: contrastive.infonce_plain(*a)))
+
+
+def dropout_check(model, batch: dict, gen: torch.Generator) -> None:
+    """Stem tail at p=0.4, pool=1, on the stage-1 conv output: each output
+    is exactly 0 or GELU(y) / (1 - p), the keep share 1 - p within 5 sigma."""
+    conv, bn = model.eeg_net.temp_conv[0], model.eeg_net.temp_conv[1]
+    y = F.conv1d(batch["eeg"], conv.weight, conv.bias, padding=conv.padding)
+    y = y.transpose(1, 2).contiguous()
+    mean = y.mean((0, 1))
+    var = (y * y).mean((0, 1)) - mean * mean
+    args = (y, bn.weight, bn.bias, mean, var)
+    out, _ = conv_stem_train.stem_tail_fwd(*args, DROPOUT_P, 1, generator=gen, with_code=False)
+    full, _ = conv_stem_train.stem_tail_fwd(*args, 0.0, 1, with_code=False)
+    full = full * (1.0 / (1.0 - DROPOUT_P))  # the kernel's one multiply by fp32 1/(1-p)
+    kept = out != 0
+    share, n = kept.double().mean().item(), out.numel()
+    sigma = math.sqrt(DROPOUT_P * (1 - DROPOUT_P) / n)
+    exact = bool(torch.equal(out[kept], full[kept]))
+    print(f"dropout check {tuple(y.shape)} p {DROPOUT_P} pool 1: keep share {share:.6f} "
+          f"(expected {1 - DROPOUT_P}, {abs(share - (1 - DROPOUT_P)) / sigma:.2f} sigma), "
+          f"kept outputs equal GELU(y)/(1-p): {exact}")
+    check(abs(share - (1 - DROPOUT_P)) <= 5 * sigma and exact, "stem-tail dropout check failed")
+
+
+# --------------------------------------------------------------------------
+# kernels against their plain versions
+# --------------------------------------------------------------------------
+
+
+def time_ms(fn) -> float:
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(TIMED_CALLS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / TIMED_CALLS
+
+
+def outputs(name: str, res) -> list[torch.Tensor]:
+    """A call's compared tensors. The stem forward's pooled values only: its
+    winner code can differ where two window entries tie within rounding
+    (the gradient parity above and the stem-backward case, fed the kernel's
+    code, cover it). The stem backward's dgamma/dbeta partials summed, as
+    its caller sums them (the kernel and the plain version chunk them
+    differently)."""
+    if isinstance(res, torch.Tensor):
+        return [res]
+    if name == "stem_tail":
+        return [res[0]]
+    if name == "stem_tail_bwd":
+        return [res[0], res[1].sum(0), res[2].sum(0)]
+    return list(res)
+
+
+def kernel_results(cases: dict, counts: dict) -> list[dict]:
+    results = []
+    for name, items in cases.items():
+        source, replaces, tol = KERNELS[name]
+        check(bool(items), f"{name}: no case")
+        err = ms_k = ms_p = 0.0
+        for label, kern, plain in items:
+            got, want = outputs(name, kern()), outputs(name, plain())
+            torch.cuda.synchronize()
+            check(len(got) == len(want) and all(g.shape == w.shape for g, w in zip(got, want)),
+                  f"{name} {label}: outputs differ in shape")
+            e = max((g - w).abs().max().item() for g, w in zip(got, want))
+            check(e <= tol, f"{name} {label}: max |err| {e:.3e} > {tol}")
+            tk, tp = time_ms(kern), time_ms(plain)
+            print(f"kernel {name} {label}: max |err| {e:.3e} (limit {tol}), "
+                  f"{tk:.4f} ms, plain {tp:.4f} ms")
+            err, ms_k, ms_p = max(err, e), ms_k + tk, ms_p + tp
+        results.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": counts[name],
+                        "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p})
+    return results
+
+
+def profile_training(trainer: Trainer) -> None:
+    """Device time by kernel over one train epoch (8 steps) under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        synced(lambda: trainer.train_epoch(EPOCHS + 1))
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total = sum(e.self_device_time_total for e in events)
+    print(f"profile: one train epoch, device time {total / 1e3:.3f} ms over "
+          f"{sum(e.count for e in events)} kernel launches")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
+        print(f"profile {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x {e.key[:100]}")
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also trace one train epoch with torch.profiler")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
         return 1
@@ -189,69 +528,22 @@ def main() -> int:
     print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in libs))
 
-    model = make_model(device)
-    pool = make_pool(device)
-    plan = request_plan(device)
-    paths = {
-        "model_forward": model,
-        "serving": build_serving_forward(model),
-        "serving_use_pallas": build_serving_forward(model, use_pallas=True),
-    }
-    first = pool.gather(plan[0])
-    for fwd in paths.values():  # warm-up: first launches, cuBLAS/cuDNN handles
-        fwd(first["eeg"], first["eye"], first["pps"])
-    torch.cuda.synchronize()
+    model, first, serve_counts = serving_phase(device)
+    trainer = make_trainer(device)
+    train_counts = training_phase(trainer)
+    idx, mask = trainer.train_data.epoch_plan(BATCH, np.random.default_rng(SEED + 2))
+    batch, mask = trainer.train_data.gather(idx[0]), mask[0]
+    gradient_parity(trainer, batch, mask)
+    if args.profile:
+        profile_training(trainer)
 
-    reset_launch_counts()
-    outs, ms = serve(paths, pool, plan)
-    counts = launch_counts()
-    expected = {"bilstm_fwd": 2 * REQUESTS * len(paths), "stem_tail": 2 * REQUESTS,
-                "conv_stem": 2 * REQUESTS}
-    print(f"launches over {REQUESTS} requests x {len(paths)} entry points: {counts}")
-    check(counts == expected, f"launch counts {counts} != {expected}")
-    for name in paths:
-        print(f"serve {name}: {REQUESTS} requests x {BATCH}, {ms[name]:.4f} ms/batch "
-              f"(host clock around synchronised runs)")
-
-    worst = 0.0
-    for name, res in outs.items():
-        for a, v in res:
-            check(a.shape == (BATCH, 3) and v.shape == (BATCH, 3), f"{name}: logits shape")
-            check(bool(torch.isfinite(a).all() and torch.isfinite(v).all()),
-                  f"{name}: non-finite logits")
-        for other in outs:
-            for (a, v), (a2, v2) in zip(res, outs[other]):
-                worst = max(worst, (a - a2).abs().max().item(), (v - v2).abs().max().item())
-    print(f"entry points agree: max |diff| {worst:.3e} (limit {PATH_ATOL})")
-    check(worst <= PATH_ATOL, "entry points disagree")
-
-    cpu_model = copy.deepcopy(model).cpu()
-    rows = {k: v[:4].cpu() for k, v in first.items()}
-    ca, cv = cpu_model(rows["eeg"], rows["eye"], rows["pps"])
-    cpu_err = max(max((a[:4].cpu() - ca).abs().max().item(), (v[:4].cpu() - cv).abs().max().item())
-                  for a, v in (res[0] for res in outs.values()))
-    print(f"card vs CPU plain path on 4 rows: max |diff| {cpu_err:.3e} (limit {PATH_ATOL})")
-    check(cpu_err <= PATH_ATOL, "card disagrees with the CPU plain path")
-
-    results = []
+    counts = {name: serve_counts[name] + train_counts[name] for name in KERNELS}
+    gen = torch.Generator(device=device).manual_seed(SEED)
     torch.set_grad_enabled(False)  # plain versions must not record autograd graphs
-    for name, cases in kernel_cases(model, first["eeg"]).items():
-        source, replaces, tol = KERNELS[name]
-        err = ms_k = ms_p = 0.0
-        for label, kern, plain in cases:
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            e = (got - want).abs().max().item()
-            check(got.shape == want.shape and e <= tol,
-                  f"{name} {label}: max |err| {e:.3e} > {tol}")
-            tk, tp = time_ms(kern), time_ms(plain)
-            print(f"kernel {name} {label}: max |err| {e:.3e} (limit {tol}), "
-                  f"{tk:.4f} ms, plain {tp:.4f} ms")
-            err, ms_k, ms_p = max(err, e), ms_k + tk, ms_p + tp
-        results.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[name],
-                        "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p})
-    print(json.dumps({"kernels": results}))
+    cases = serving_kernel_cases(model, first["eeg"])
+    training_kernel_cases(trainer.model, batch, mask, gen, cases)
+    dropout_check(trainer.model, batch, gen)
+    print(json.dumps({"kernels": kernel_results(cases, counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

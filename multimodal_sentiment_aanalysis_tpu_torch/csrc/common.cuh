@@ -18,6 +18,21 @@ __device__ __forceinline__ float gelu_erf(float v) {
     return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
 }
 
+// d/dv of gelu_erf: Phi(v) + v * phi(v).
+__device__ __forceinline__ float gelu_erf_grad(float v) {
+    const float phi = expf(-0.5f * v * v) * 0.39894228040143268f;  // 1/sqrt(2 pi)
+    return 0.5f * (1.0f + erff(v * 0.70710678118654752f)) + v * phi;
+}
+
+__device__ __forceinline__ float sigmoid_f(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+// Warp-wide sum; every lane gets the total.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    return v;
+}
+
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <typename Kernel>
 inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes) {

@@ -1,0 +1,364 @@
+// Bidirectional LSTM layer backward, both directions in each launch:
+//
+//   msa_bilstm_cbnd   (a) c checkpoints at segment boundaries, replaces
+//                     multimodal_sentiment_aanalysis_tpu/kernels/lstm.py::_cbnd_kernel
+//   msa_bilstm_segbwd (b) reverse sweep over K-step segments, replaces
+//                     ::_segbwd_kernel
+//
+// The forward (lstm_fwd.cu) stores only h_seq. The gates at actual time a
+// depend only on x_a and the stored h_prev (h at the previous recurrence
+// step), so c is rebuilt from them: (a) walks each direction in recurrence
+// order with c in registers and writes c only where a segment of K actual
+// time steps ends, in the JAX package's slot convention (direction 0 stores
+// c at a % K == K-1 into slot a / K, the entry of block a / K + 1; direction
+// 1 stores c at a % K == 0, the entry of block a / K - 1). (b) visits the
+// K-row blocks in reverse recurrence order; per block it recomputes the
+// gates of its rows, rebuilds c from the block's entry checkpoint, then runs
+// the rows backwards: dh carries through dgates . W_hh, dc through f. It
+// emits dx as per-direction halves (summed by the wrapper) and accumulates
+// dW_cat = [x | h_prev | 1]^T . dgates, whose rows give dW_ih, dW_hh and db.
+// K need not divide T: the last block is partial and only its real rows
+// are visited.
+//
+// What bounds it on the H100, at the flagship layer (B=64, T=73, I=256,
+// H=128, fp32): as in the forward, T=73 dependent steps per direction,
+// each a small matrix-vector product whose weights (768 KiB per direction
+// for the gates, 256 KiB for the dh carry) do not fit shared memory and
+// stream from L2. (a) costs what the forward costs. (b) adds the serial
+// dh . W_hh^T product per step, and per block the dx and dW_cat products
+// (parallel in time; 2 x 4672 x 385 x 512 FMAs for dW_cat per layer).
+//
+// Design: one block per (batch tile of kBt rows, direction), 4H threads,
+// the time loop inside the block, as in the forward. In (b) a block keeps
+// its K rows of x, h_prev, gate activations (overwritten in place by
+// dgates) and c in shared memory; thread g owns gate column g for the gate
+// recompute and for dW_cat; the dh carry splits the 4H gates into four
+// quarters over the threads and sums the quarters in a fixed order. dW_cat
+// is accumulated across the block's segments in its own slice of a
+// per-batch-tile partial buffer (read-modify-write by one block only, no
+// atomics); the wrapper sums the tiles, so the result is deterministic.
+// Parallelising the gate recompute over time (a batched GEMM ahead of the
+// serial sweeps) and spreading a direction over a cluster are later work.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBt = 8;  // batch rows per block; kBt * H == 2 * (4H threads)
+
+__global__ void bilstm_cbnd_kernel(const float* __restrict__ x,       // (B, T, I)
+                                   const float* __restrict__ h_seq,   // (B, T, 2H)
+                                   const float* __restrict__ w_ih_t,  // (2, I, 4H)
+                                   const float* __restrict__ w_hh_t,  // (2, H, 4H)
+                                   const float* __restrict__ bias,    // (2, 4H)
+                                   float* __restrict__ c_bnd,         // (2, NSEG, B, H)
+                                   int B, int T, int I, int H, int K, int nseg) {
+    extern __shared__ float smem[];
+    const int G = 4 * H;
+    float* xs = smem;          // (kBt, I): x_t of this tile
+    float* hs = xs + kBt * I;  // (kBt, H): stored h_prev
+    float* gs = hs + kBt * H;  // (kBt, G): gate pre-activations
+
+    const int d = blockIdx.y;
+    const int b0 = blockIdx.x * kBt;
+    const int g = threadIdx.x;
+    const float* wi = w_ih_t + static_cast<size_t>(d) * I * G;
+    const float* wh = w_hh_t + static_cast<size_t>(d) * H * G;
+    const float bg = bias[d * G + g];
+    float c[2] = {0.0f, 0.0f};
+
+    for (int s = 0; s < T; ++s) {
+        const int t = d == 0 ? s : T - 1 - s;
+        const int tp = d == 0 ? t - 1 : t + 1;  // actual time of h_prev
+        for (int idx = g; idx < kBt * I; idx += G) {
+            const int r = idx / I;
+            const int b = b0 + r;
+            xs[idx] = b < B ? x[(static_cast<size_t>(b) * T + t) * I + (idx - r * I)] : 0.0f;
+        }
+        for (int idx = g; idx < kBt * H; idx += G) {
+            const int r = idx / H;
+            const int b = b0 + r;
+            hs[idx] = (s > 0 && b < B)
+                          ? h_seq[(static_cast<size_t>(b) * T + tp) * 2 * H + d * H + (idx - r * H)]
+                          : 0.0f;
+        }
+        __syncthreads();
+
+        // the forward kernel's gate arithmetic, term for term, so c matches it
+        float acc[kBt];
+#pragma unroll
+        for (int r = 0; r < kBt; ++r) acc[r] = bg;
+        for (int k = 0; k < I; ++k) {
+            const float w = wi[static_cast<size_t>(k) * G + g];
+#pragma unroll
+            for (int r = 0; r < kBt; ++r) acc[r] = fmaf(xs[r * I + k], w, acc[r]);
+        }
+        for (int k = 0; k < H; ++k) {
+            const float w = wh[static_cast<size_t>(k) * G + g];
+#pragma unroll
+            for (int r = 0; r < kBt; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < kBt; ++r) gs[r * G + g] = acc[r];
+        __syncthreads();
+
+        const bool boundary = d == 0 ? t % K == K - 1 : t % K == 0;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+            const int cell = g + q * G;
+            const int r = cell / H;
+            const int j = cell - r * H;
+            const float* gr = gs + r * G;
+            const float ig = sigmoid_f(gr[j]);
+            const float fg = sigmoid_f(gr[H + j]);
+            const float gg = tanhf(gr[2 * H + j]);
+            c[q] = fg * c[q] + ig * gg;
+            const int b = b0 + r;
+            if (boundary && b < B)
+                c_bnd[((static_cast<size_t>(d) * nseg + t / K) * B + b) * H + j] = c[q];
+        }
+        __syncthreads();
+    }
+}
+
+__global__ void bilstm_segbwd_kernel(const float* __restrict__ dh_seq,  // (B, T, 2H)
+                                     const float* __restrict__ x,       // (B, T, I)
+                                     const float* __restrict__ h_seq,   // (B, T, 2H)
+                                     const float* __restrict__ c_bnd,   // (2, NSEG, B, H)
+                                     const float* __restrict__ w_ih_t,  // (2, I, 4H)
+                                     const float* __restrict__ w_hh_t,  // (2, H, 4H)
+                                     const float* __restrict__ w_ih,    // (2, 4H, I)
+                                     const float* __restrict__ w_hh,    // (2, 4H, H)
+                                     const float* __restrict__ bias,    // (2, 4H)
+                                     float* __restrict__ dx_pk,         // (2, B, T, I)
+                                     float* __restrict__ dw_part,       // (tiles, 2, R, 4H)
+                                     int B, int T, int I, int H, int K, int nseg) {
+    extern __shared__ float smem[];
+    const int G = 4 * H;
+    const int R = I + H + 1;
+    const int rowsz = kBt * H;
+    float* xs = smem;                      // (K, kBt, I)
+    float* hps = xs + K * kBt * I;         // (K, kBt, H): h_prev of each row
+    float* acts = hps + K * rowsz;         // (K, kBt, G): i, f, g, o; then dgates
+    float* cs = acts + K * kBt * G;        // (K + 1, kBt, H): entry c, then c per row
+    float* dhc = cs + (K + 1) * rowsz;     // (kBt, H): dh carried into the current row
+    float* red = dhc + rowsz;              // (4, kBt, H): dh carry partials per gate quarter
+
+    const int d = blockIdx.y;
+    const int tile = blockIdx.x;
+    const int b0 = tile * kBt;
+    const int tid = threadIdx.x;
+    const float* wi_t = w_ih_t + static_cast<size_t>(d) * I * G;
+    const float* wh_t = w_hh_t + static_cast<size_t>(d) * H * G;
+    const float* wi = w_ih + static_cast<size_t>(d) * G * I;
+    const float* wh = w_hh + static_cast<size_t>(d) * G * H;
+    const float bg = bias[d * G + tid];
+    const int gate_kind = tid / H;  // 0 i, 1 f, 2 g, 3 o
+    float* dwp = dw_part + (static_cast<size_t>(tile) * 2 + d) * R * G;
+
+    for (int idx = tid; idx < rowsz; idx += G) dhc[idx] = 0.0f;
+    float dcc[2] = {0.0f, 0.0f};  // dc carry of this thread's two cells
+
+    for (int gi = 0; gi < nseg; ++gi) {
+        const int m = d == 0 ? nseg - 1 - gi : gi;
+        const bool first_seg = gi == nseg - 1;  // where the recurrence starts
+        const int a_lo = m * K;
+        const int nr = min(K, T - a_lo);
+        // recurrence-order row r of this block -> actual time
+        auto a_of = [&](int r) { return d == 0 ? a_lo + r : a_lo + nr - 1 - r; };
+
+        __syncthreads();  // the previous block's readers are done with smem
+        for (int idx = tid; idx < nr * kBt * I; idx += G) {
+            const int r = idx / (kBt * I);
+            const int rem = idx - r * kBt * I;
+            const int row = rem / I;
+            const int b = b0 + row;
+            xs[idx] = b < B ? x[(static_cast<size_t>(b) * T + a_of(r)) * I + (rem - row * I)] : 0.0f;
+        }
+        for (int idx = tid; idx < nr * rowsz; idx += G) {
+            const int r = idx / rowsz;
+            const int rem = idx - r * rowsz;
+            const int row = rem / H;
+            const int b = b0 + row;
+            const int ap = d == 0 ? a_of(r) - 1 : a_of(r) + 1;
+            hps[idx] = (b < B && ap >= 0 && ap < T)
+                           ? h_seq[(static_cast<size_t>(b) * T + ap) * 2 * H + d * H + (rem - row * H)]
+                           : 0.0f;
+        }
+        const int slot = d == 0 ? m - 1 : m + 1;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+            const int cell = tid + q * G;
+            const int b = b0 + cell / H;
+            cs[cell] = (!first_seg && b < B)
+                           ? c_bnd[((static_cast<size_t>(d) * nseg + slot) * B + b) * H + cell % H]
+                           : 0.0f;
+        }
+        __syncthreads();
+
+        // gate activations of the block's rows; thread tid owns gate column tid
+        for (int r = 0; r < nr; ++r) {
+            float acc[kBt];
+#pragma unroll
+            for (int row = 0; row < kBt; ++row) acc[row] = bg;
+            const float* xr = xs + r * kBt * I;
+            const float* hr = hps + r * rowsz;
+            for (int k = 0; k < I; ++k) {
+                const float w = wi_t[static_cast<size_t>(k) * G + tid];
+#pragma unroll
+                for (int row = 0; row < kBt; ++row) acc[row] = fmaf(xr[row * I + k], w, acc[row]);
+            }
+            for (int k = 0; k < H; ++k) {
+                const float w = wh_t[static_cast<size_t>(k) * G + tid];
+#pragma unroll
+                for (int row = 0; row < kBt; ++row) acc[row] = fmaf(hr[row * H + k], w, acc[row]);
+            }
+#pragma unroll
+            for (int row = 0; row < kBt; ++row)
+                acts[(r * kBt + row) * G + tid] = gate_kind == 2 ? tanhf(acc[row]) : sigmoid_f(acc[row]);
+        }
+        __syncthreads();
+
+        // c rebuild in recurrence order from the entry checkpoint
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+            const int cell = tid + q * G;
+            const int row = cell / H;
+            const int j = cell - row * H;
+            float c = cs[cell];
+            for (int r = 0; r < nr; ++r) {
+                const float* ar = acts + (r * kBt + row) * G;
+                c = ar[H + j] * c + ar[j] * ar[2 * H + j];
+                cs[(r + 1) * rowsz + cell] = c;
+            }
+        }
+
+        // reverse pass over the block's rows
+        for (int r = nr - 1; r >= 0; --r) {
+            const int a = a_of(r);
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+                const int cell = tid + q * G;
+                const int row = cell / H;
+                const int j = cell - row * H;
+                const int b = b0 + row;
+                float* ar = acts + (r * kBt + row) * G;
+                const float ig = ar[j], fg = ar[H + j], gg = ar[2 * H + j], og = ar[3 * H + j];
+                const float c = cs[(r + 1) * rowsz + cell];
+                const float cp = cs[r * rowsz + cell];
+                const float dh = dhc[cell] +
+                    (b < B ? dh_seq[(static_cast<size_t>(b) * T + a) * 2 * H + d * H + j] : 0.0f);
+                const float tc = tanhf(c);
+                const float dc = dcc[q] + dh * og * (1.0f - tc * tc);
+                ar[j] = dc * gg * ig * (1.0f - ig);
+                ar[H + j] = dc * cp * fg * (1.0f - fg);
+                ar[2 * H + j] = dc * ig * (1.0f - gg * gg);
+                ar[3 * H + j] = dh * tc * og * (1.0f - og);
+                dcc[q] = dc * fg;
+            }
+            __syncthreads();
+            {  // dh carry: quarter qq of the gates, output unit k, all kBt rows
+                const int qq = tid / H;
+                const int k = tid - qq * H;
+                float acc[kBt];
+#pragma unroll
+                for (int row = 0; row < kBt; ++row) acc[row] = 0.0f;
+                for (int gl = qq * H; gl < (qq + 1) * H; ++gl) {
+                    const float w = wh[static_cast<size_t>(gl) * H + k];
+#pragma unroll
+                    for (int row = 0; row < kBt; ++row)
+                        acc[row] = fmaf(acts[(r * kBt + row) * G + gl], w, acc[row]);
+                }
+#pragma unroll
+                for (int row = 0; row < kBt; ++row) red[(qq * kBt + row) * H + k] = acc[row];
+            }
+            __syncthreads();
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+                const int cell = tid + q * G;
+                dhc[cell] = ((red[cell] + red[rowsz + cell]) + red[2 * rowsz + cell]) + red[3 * rowsz + cell];
+            }
+        }
+        __syncthreads();
+
+        // dx of the block's rows: dgates . W_ih, this direction's half
+        for (int i = tid; i < I; i += G) {
+            for (int r = 0; r < nr; ++r) {
+                float acc[kBt];
+#pragma unroll
+                for (int row = 0; row < kBt; ++row) acc[row] = 0.0f;
+                for (int gl = 0; gl < G; ++gl) {
+                    const float w = wi[static_cast<size_t>(gl) * I + i];
+#pragma unroll
+                    for (int row = 0; row < kBt; ++row)
+                        acc[row] = fmaf(acts[(r * kBt + row) * G + gl], w, acc[row]);
+                }
+                const int a = a_of(r);
+#pragma unroll
+                for (int row = 0; row < kBt; ++row) {
+                    const int b = b0 + row;
+                    if (b < B) dx_pk[((static_cast<size_t>(d) * B + b) * T + a) * I + i] = acc[row];
+                }
+            }
+        }
+
+        // dW_cat += [x | h_prev | 1]^T . dgates; thread tid owns gate column tid
+        constexpr int kF = 8;  // features per pass: one dgates load feeds kF FMAs
+        for (int f0 = 0; f0 < R; f0 += kF) {
+            float acc[kF];
+#pragma unroll
+            for (int u = 0; u < kF; ++u) acc[u] = 0.0f;
+            for (int r = 0; r < nr; ++r) {
+                for (int row = 0; row < kBt; ++row) {
+                    const float dg = acts[(r * kBt + row) * G + tid];
+                    const float* xr = xs + (r * kBt + row) * I;
+                    const float* hr = hps + (r * kBt + row) * H;
+#pragma unroll
+                    for (int u = 0; u < kF; ++u) {
+                        const int f = f0 + u;
+                        const float v = f < I ? xr[f] : (f < I + H ? hr[f - I] : 1.0f);
+                        acc[u] = fmaf(v, dg, acc[u]);
+                    }
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < kF; ++u)
+                if (f0 + u < R) dwp[static_cast<size_t>(f0 + u) * G + tid] += acc[u];
+        }
+    }
+}
+
+}  // namespace
+
+extern "C" int msa_bilstm_cbnd(const float* x, const float* h_seq, const float* w_ih_t,
+                               const float* w_hh_t, const float* bias, float* c_bnd, int B,
+                               int T, int I, int H, int K, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const size_t smem = sizeof(float) * kBt * (I + H + 4 * H);
+    err = allow_dynamic_smem(bilstm_cbnd_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const int nseg = (T + K - 1) / K;
+    const dim3 grid((B + kBt - 1) / kBt, 2);
+    bilstm_cbnd_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+        x, h_seq, w_ih_t, w_hh_t, bias, c_bnd, B, T, I, H, K, nseg);
+    return cudaGetLastError();
+}
+
+extern "C" int msa_bilstm_segbwd(const float* dh_seq, const float* x, const float* h_seq,
+                                 const float* c_bnd, const float* w_ih_t, const float* w_hh_t,
+                                 const float* w_ih, const float* w_hh, const float* bias,
+                                 float* dx_pk, float* dw_part, int B, int T, int I, int H,
+                                 int K, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const size_t smem = sizeof(float) * kBt * (K * (I + H + 4 * H) + (K + 1) * H + 5 * H);
+    err = allow_dynamic_smem(bilstm_segbwd_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const int nseg = (T + K - 1) / K;
+    const dim3 grid((B + kBt - 1) / kBt, 2);
+    bilstm_segbwd_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+        dh_seq, x, h_seq, c_bnd, w_ih_t, w_hh_t, w_ih, w_hh, bias, dx_pk, dw_part, B, T, I, H, K,
+        nseg);
+    return cudaGetLastError();
+}

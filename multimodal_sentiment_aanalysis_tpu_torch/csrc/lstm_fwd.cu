@@ -30,8 +30,6 @@ namespace {
 
 constexpr int kBt = 8;  // batch rows per block; kBt * H == 2 * (4H threads)
 
-__device__ __forceinline__ float sigmoid_f(float v) { return 1.0f / (1.0f + expf(-v)); }
-
 __global__ void bilstm_fwd_kernel(const float* __restrict__ x,       // (B, T, I)
                                   const float* __restrict__ w_ih_t,  // (2, I, 4H)
                                   const float* __restrict__ w_hh_t,  // (2, H, 4H)

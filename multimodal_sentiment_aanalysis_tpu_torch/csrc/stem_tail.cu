@@ -1,33 +1,77 @@
-// EEG stem tail, eval forward: BatchNorm with running stats, erf-GELU and
-// MaxPool in one pass over the conv output.
+// EEG stem tail: BatchNorm + erf-GELU + dropout + MaxPool over the conv
+// output, forward and backward.
 //
-// Replaces multimodal_sentiment_aanalysis_tpu/kernels/conv_stem_train.py::_fwd_kernel
-// at p=0 (the eval model forward calls it with the running stats). Dropout
-// and the winner/keep routing code exist only for the backward and are not
-// part of this kernel; the wrapper refuses p > 0.
+// Replaces multimodal_sentiment_aanalysis_tpu/kernels/conv_stem_train.py::
+// _fwd_kernel (msa_stem_tail) and ::_bwd_kernel (msa_stem_tail_bwd).
 //
-// What bounds it on the H100: bytes. Stage 1 reads (64, 585, 64) fp32
-// (9.6 MB) and writes (64, 146, 64) (2.4 MB); stage 2 reads (64, 146, 256)
-// (9.6 MB) and writes (64, 73, 256) (4.8 MB). About 15 flops per element
-// read, far below the card's ~20 flops per byte balance point.
+// Forward: one pass over conv (B, T, C). BN with the statistics it is given
+// (batch stats in train mode, running stats in eval), exact erf-GELU,
+// dropout with keep probability 1 - p drawn from Philox4x32-10 keyed by a
+// seed the wrapper draws from a torch.Generator (read from device memory,
+// so drawing it never syncs the host), and MaxPool(pool) routed to the first
+// max, as torch MaxPool1d. No mask tensor exists: the keep bit of element
+// (b, t, c) is a pure function of (seed, flat index). Besides the pooled
+// output it can write one int32 code per pooled cell, winner index +
+// pool * keep bit, which is all the backward needs.
 //
-// Design: one thread per pooled output (b, t_out, c), channels fastest, so a
-// warp reads 32 consecutive floats of each pool row and writes 32
-// consecutive outputs. The pre-pool activations never reach device memory.
+// Backward: one thread per pooled cell reads the code, re-reads the
+// winner's conv value, applies ONE gelu_grad, scales kept cells by 1/(1-p),
+// writes dy over the covered rows (B, t_out * pool, C) and accumulates
+// g * xhat and g per channel. Per-block partial sums of dgamma and dbeta
+// are reduced in a fixed order inside the block and written per row chunk;
+// the wrapper sums the chunks in a second pass (deterministic, no atomics).
+// The BN input-gradient combine stays in torch, as it stays in XLA in JAX.
+//
+// What bounds it on the H100: bytes. Stage 1 (B=64, T=585, C=64, fp32)
+// reads 9.6 MB and writes 2.4 MB + 2.4 MB of codes; stage 2 (T=146, C=256)
+// reads 9.6 MB and writes 4.8 + 4.8 MB. The backward reads the codes,
+// dpool and the winners and writes dy (9.6 / 9.5 MB). Philox adds ~40
+// integer ops per element, still under the card's op/byte balance. The TPU's
+// full-lane relayout was a Mosaic workaround and is not carried over: rows
+// stay (B, T, C) with channels fastest, so a warp reads 32 consecutive
+// floats of each row.
 
 #include <math.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-__global__ void stem_tail_kernel(const float* __restrict__ conv,  // (B, T, C)
-                                 const float* __restrict__ gamma,
-                                 const float* __restrict__ beta,
-                                 const float* __restrict__ mean,
-                                 const float* __restrict__ var, float eps,
-                                 float* __restrict__ out,  // (B, t_out, C)
-                                 int B, int T, int C, int pool, int t_out) {
+// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+// 3", SC'11): counter-based, so every element draws its bits independently.
+__device__ __forceinline__ uint32_t philox_bits(uint64_t counter, uint64_t seed) {
+    constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+    constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+    uint32_t x0 = static_cast<uint32_t>(counter), x1 = static_cast<uint32_t>(counter >> 32);
+    uint32_t x2 = 0u, x3 = 0u;
+    uint32_t k0 = static_cast<uint32_t>(seed), k1 = static_cast<uint32_t>(seed >> 32);
+#pragma unroll
+    for (int r = 0; r < 10; ++r) {
+        const uint32_t hi0 = __umulhi(kM0, x0), lo0 = kM0 * x0;
+        const uint32_t hi1 = __umulhi(kM1, x2), lo1 = kM1 * x2;
+        x0 = hi1 ^ x1 ^ k0;
+        x1 = lo1;
+        x2 = hi0 ^ x3 ^ k1;
+        x3 = lo0;
+        k0 += kW0;
+        k1 += kW1;
+    }
+    return x0;
+}
+
+__global__ void stem_tail_fwd_kernel(const float* __restrict__ conv,  // (B, T, C)
+                                     const float* __restrict__ gamma,
+                                     const float* __restrict__ beta,
+                                     const float* __restrict__ mean,
+                                     const float* __restrict__ var, float eps,
+                                     float keep_scale, uint32_t threshold,
+                                     const long long* __restrict__ seed_ptr,
+                                     float* __restrict__ out,   // (B, t_out, C)
+                                     int* __restrict__ code,    // (B, t_out, C) or null
+                                     int B, int T, int C, int pool, int t_out) {
+    const bool drop = threshold != 0u;
+    const uint64_t seed = drop ? static_cast<uint64_t>(*seed_ptr) : 0ull;
     const size_t n = static_cast<size_t>(B) * t_out * C;
     const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
     for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
@@ -38,21 +82,88 @@ __global__ void stem_tail_kernel(const float* __restrict__ conv,  // (B, T, C)
         const int b = static_cast<int>(row / t_out);
         const float inv = rsqrtf(var[c] + eps);
         const float mu = mean[c], ga = gamma[c], be = beta[c];
-        const float* src = conv + (static_cast<size_t>(b) * T + static_cast<size_t>(to) * pool) * C + c;
+        const size_t first = (static_cast<size_t>(b) * T + static_cast<size_t>(to) * pool) * C + c;
         float m = -INFINITY;
+        int win = 0, kept = 1;
         for (int j = 0; j < pool; ++j) {
-            const float a = gelu_erf((src[static_cast<size_t>(j) * C] - mu) * inv * ga + be);
-            if (j == 0 || a > m) m = a;  // first max wins, as torch MaxPool1d
+            const size_t e = first + static_cast<size_t>(j) * C;
+            float a = gelu_erf((conv[e] - mu) * inv * ga + be);
+            int keep = 1;
+            if (drop) {
+                keep = philox_bits(e, seed) >= threshold;
+                a = keep ? a * keep_scale : 0.0f;
+            }
+            if (j == 0 || a > m) {  // first max wins, as torch MaxPool1d
+                m = a;
+                win = j;
+                kept = keep;
+            }
         }
         out[i] = m;
+        if (code) code[i] = win + pool * kept;
+    }
+}
+
+constexpr int kCh = 32;       // channels per block (threadIdx.x)
+constexpr int kRowLanes = 8;  // pooled rows in flight per block (threadIdx.y)
+
+__global__ void stem_tail_bwd_kernel(const float* __restrict__ conv,   // (B, T, C)
+                                     const float* __restrict__ dpool,  // (B, t_out, C)
+                                     const int* __restrict__ code,     // (B, t_out, C)
+                                     const float* __restrict__ scale,  // gamma * inv
+                                     const float* __restrict__ shift,  // beta - mean * scale
+                                     const float* __restrict__ mean,
+                                     const float* __restrict__ inv, float keep_scale,
+                                     float* __restrict__ dy,       // (B, t_out * pool, C)
+                                     float* __restrict__ dg_part,  // (chunks, C)
+                                     float* __restrict__ db_part,  // (chunks, C)
+                                     int B, int T, int C, int pool, int t_out,
+                                     int rows_per_chunk) {
+    __shared__ float red_g[kRowLanes][kCh];
+    __shared__ float red_b[kRowLanes][kCh];
+    const int c = blockIdx.x * kCh + threadIdx.x;
+    const int rows = B * t_out;
+    const int r0 = blockIdx.y * rows_per_chunk;
+    const int r1 = min(r0 + rows_per_chunk, rows);
+    float sg = 0.0f, sb = 0.0f;
+    if (c < C) {
+        const float sc = scale[c], sh = shift[c], mu = mean[c], iv = inv[c];
+        for (int r = r0 + threadIdx.y; r < r1; r += kRowLanes) {
+            const int b = r / t_out;
+            const int to = r - b * t_out;
+            const size_t o = static_cast<size_t>(r) * C + c;
+            const int cd = code[o];
+            const int jw = cd % pool;
+            const float x = conv[(static_cast<size_t>(b) * T + static_cast<size_t>(to) * pool + jw) * C + c];
+            float g = dpool[o] * gelu_erf_grad(x * sc + sh);
+            g = cd >= pool ? g * keep_scale : 0.0f;
+            float* dst = dy + static_cast<size_t>(r) * pool * C + c;
+            for (int j = 0; j < pool; ++j) dst[static_cast<size_t>(j) * C] = j == jw ? g : 0.0f;
+            sg = fmaf(g, (x - mu) * iv, sg);
+            sb += g;
+        }
+    }
+    red_g[threadIdx.y][threadIdx.x] = sg;
+    red_b[threadIdx.y][threadIdx.x] = sb;
+    __syncthreads();
+    if (threadIdx.y == 0 && c < C) {
+        float tg = 0.0f, tb = 0.0f;
+        for (int y = 0; y < kRowLanes; ++y) {  // fixed order: deterministic
+            tg += red_g[y][threadIdx.x];
+            tb += red_b[y][threadIdx.x];
+        }
+        dg_part[static_cast<size_t>(blockIdx.y) * C + c] = tg;
+        db_part[static_cast<size_t>(blockIdx.y) * C + c] = tb;
     }
 }
 
 }  // namespace
 
 extern "C" int msa_stem_tail(const float* conv, const float* gamma, const float* beta,
-                             const float* mean, const float* var, float eps, float* out,
-                             int B, int T, int C, int pool, int device, void* stream) {
+                             const float* mean, const float* var, float eps, float keep_scale,
+                             unsigned int threshold, const long long* seed, float* out,
+                             int* code, int B, int T, int C, int pool, int device,
+                             void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const int t_out = T / pool;
@@ -60,7 +171,25 @@ extern "C" int msa_stem_tail(const float* conv, const float* gamma, const float*
     const int threads = 256;
     const size_t want = (n + threads - 1) / threads;
     const int blocks = static_cast<int>(want < 8192 ? want : 8192);
-    stem_tail_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        conv, gamma, beta, mean, var, eps, out, B, T, C, pool, t_out);
+    stem_tail_fwd_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        conv, gamma, beta, mean, var, eps, keep_scale, threshold, seed, out, code, B, T, C,
+        pool, t_out);
+    return cudaGetLastError();
+}
+
+extern "C" int msa_stem_tail_bwd(const float* conv, const float* dpool, const int* code,
+                                 const float* scale, const float* shift, const float* mean,
+                                 const float* inv, float keep_scale, float* dy, float* dg_part,
+                                 float* db_part, int B, int T, int C, int pool,
+                                 int rows_per_chunk, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const int t_out = T / pool;
+    const int chunks = (B * t_out + rows_per_chunk - 1) / rows_per_chunk;
+    const dim3 grid((C + kCh - 1) / kCh, chunks);
+    const dim3 block(kCh, kRowLanes);
+    stem_tail_bwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        conv, dpool, code, scale, shift, mean, inv, keep_scale, dy, dg_part, db_part, B, T, C,
+        pool, t_out, rows_per_chunk);
     return cudaGetLastError();
 }

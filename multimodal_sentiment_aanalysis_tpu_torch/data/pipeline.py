@@ -9,6 +9,8 @@ a validity mask for the padded rows.
 
 from __future__ import annotations
 
+from typing import Iterator
+
 import numpy as np
 import torch
 
@@ -68,3 +70,26 @@ class DeviceDataset:
         out.device = self.device
         out.arrays = self.gather(idx)
         return out
+
+    def batches(
+        self,
+        batch_size: int,
+        rng: np.random.Generator | None = None,
+        shuffle: bool = True,
+    ) -> Iterator[tuple[dict[str, torch.Tensor], torch.Tensor]]:
+        """Python-level batch iterator: ``(batch, mask)`` per plan row."""
+        indices, mask = self.epoch_plan(batch_size, rng, shuffle)
+        for b in range(indices.shape[0]):
+            yield self.gather(indices[b]), mask[b]
+
+    def epoch_plan(
+        self,
+        batch_size: int,
+        rng: np.random.Generator | None = None,
+        shuffle: bool = True,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Device-resident ``(indices, mask)`` of :func:`epoch_batch_indices`,
+        drawn from ``rng`` exactly as the JAX package draws it."""
+        indices, mask = epoch_batch_indices(self.n, batch_size, rng, shuffle)
+        return (torch.as_tensor(indices, device=self.device),
+                torch.as_tensor(mask, device=self.device))

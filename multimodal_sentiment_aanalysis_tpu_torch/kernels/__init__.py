@@ -1,23 +1,37 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
-=====================  ===============================  ==========================
-module                 kernel source                    replaces (JAX package)
-=====================  ===============================  ==========================
-``lstm``               ``csrc/lstm_fwd.cu``             ``kernels/lstm.py::_fwd_xproj_kernel``
-``conv_stem_train``    ``csrc/stem_tail.cu``            ``kernels/conv_stem_train.py::_fwd_kernel``
-``conv_stem``          ``csrc/conv_stem.cu``            ``kernels/conv_stem.py::_stage_kernel``
-=====================  ===============================  ==========================
+Each entry: launch-counter name, wrapper, kernel source, the JAX package's
+kernel it replaces.
+
+- ``bilstm_fwd``: ``lstm.fused_bilstm_layer`` (forward), ``csrc/lstm_fwd.cu``,
+  ``kernels/lstm.py::_fwd_xproj_kernel``
+- ``bilstm_cbnd``: ``lstm.bilstm_cbnd``, ``csrc/lstm_bwd.cu``,
+  ``kernels/lstm.py::_cbnd_kernel``
+- ``bilstm_segbwd``: ``lstm.bilstm_segbwd``, ``csrc/lstm_bwd.cu``,
+  ``kernels/lstm.py::_segbwd_kernel``
+- ``stem_tail``: ``conv_stem_train.stem_tail_fwd``, ``csrc/stem_tail.cu``,
+  ``kernels/conv_stem_train.py::_fwd_kernel``
+- ``stem_tail_bwd``: ``conv_stem_train.stem_tail_bwd``, ``csrc/stem_tail.cu``,
+  ``kernels/conv_stem_train.py::_bwd_kernel``
+- ``infonce``: ``contrastive.infonce``, ``csrc/infonce.cu``,
+  ``kernels/contrastive.py::_infonce_kernel``
+- ``conv_stem``: ``conv_stem.fused_conv_bn_gelu_pool``, ``csrc/conv_stem.cu``,
+  ``kernels/conv_stem.py::_stage_kernel``
 
 Each wrapper counts its launches, so a run can show which kernels its path
 went through (:func:`launch_counts`).
 """
 
-from . import conv_stem, conv_stem_train, lstm
+from . import contrastive, conv_stem, conv_stem_train, lstm
 from ._build import build_all
 
 KERNELS = {
     "bilstm_fwd": lstm.KERNEL,
+    "bilstm_cbnd": lstm.CBND_KERNEL,
+    "bilstm_segbwd": lstm.SEGBWD_KERNEL,
     "stem_tail": conv_stem_train.KERNEL,
+    "stem_tail_bwd": conv_stem_train.BWD_KERNEL,
+    "infonce": contrastive.KERNEL,
     "conv_stem": conv_stem.KERNEL,
 }
 

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -72,8 +73,11 @@ def build(name: str) -> Path:
 
 
 def build_all() -> list[Path]:
-    """Build every kernel library under ``csrc/``."""
-    return [build(src.stem) for src in sorted(CSRC.glob("*.cu"))]
+    """Build every kernel library under ``csrc/``, one nvcc per source, all
+    started together."""
+    sources = [src.stem for src in sorted(CSRC.glob("*.cu"))]
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        return list(pool.map(build, sources))
 
 
 class CudaKernel:

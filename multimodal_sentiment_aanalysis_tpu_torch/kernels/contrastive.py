@@ -1,0 +1,141 @@
+"""Supervised InfoNCE: the Hopper kernel and its plain version.
+
+Counterpart of ``multimodal_sentiment_aanalysis_tpu/kernels/contrastive.py``.
+:func:`fused_supervised_infonce_multi` is a ``torch.autograd.Function``:
+
+- forward: ``_infonce_kernel``'s computation for G problems in one launch
+  (``csrc/infonce.cu``): similarity ``n1 n2^T / temp``, positives by label
+  equality with the diagonal zeroed and both axes masked by ``valid``,
+  invalid columns at -1e30, row-max log-sum-exp, masked mean. The (B, B)
+  matrix stays on the chip. G = 3 is the three per-modality losses of a
+  train step; a single loss is G = 1 (:func:`fused_supervised_infonce`).
+- backward: the JAX package's closed form ``_core_bwd`` in torch, including
+  the r_i term through the row max, which is real for rows with no positive.
+
+L2 normalisation stays outside the kernel, so its gradient is autograd's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from ._build import CudaKernel, check_cuda_f32, ptr
+
+KERNEL = CudaKernel(
+    "infonce", "msa_infonce",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3,
+)
+
+_EPS = 1e-12
+_NEG = -1e30
+_ROWS_PER_BLOCK = 8  # kWarps in csrc/infonce.cu: each row keeps B floats in smem
+_MAX_SMEM = 227 * 1024
+MAX_BATCH = _MAX_SMEM // (4 * _ROWS_PER_BLOCK)
+
+
+def _masked_sim(n1, n2, labels, valid, temp):
+    """``(raw, shifted, e, pos)`` of every problem: the kernel's forward."""
+    b = n1.shape[1]
+    raw = n1 @ n2.transpose(1, 2)
+    pos = (labels[:, None] == labels[None, :]).to(raw.dtype)
+    pos = pos * (1.0 - torch.eye(b, dtype=raw.dtype, device=raw.device))
+    pos = pos * valid[:, None] * valid[None, :]
+    sim = torch.where(valid[None, :] > 0, raw / temp, _NEG)
+    shifted = sim - sim.amax(dim=2, keepdim=True)
+    return raw, shifted, torch.exp(shifted), pos
+
+
+def infonce_plain(n1, n2, labels, valid, temp) -> torch.Tensor:
+    """Plain PyTorch version of the forward kernel: ``(G,)`` losses from
+    normalised ``n1, n2 (G, B, D)``, ``labels (B,)``, ``valid (B,)`` and a
+    scalar ``temp``."""
+    _, _, e, pos = _masked_sim(n1, n2, labels, valid, temp)
+    p = (e * pos).sum(2)
+    a = e.sum(2)
+    loss = -torch.log((p + _EPS) / (a + _EPS))
+    return (loss * valid).sum(1) / valid.sum().clamp_min(1.0)
+
+
+def infonce(n1, n2, labels, valid, temp) -> torch.Tensor:
+    """The forward kernel on normalised features: ``(G,)`` losses. A CPU
+    tensor takes :func:`infonce_plain`; a CUDA tensor launches the kernel,
+    or raises."""
+    if n1.device.type == "cpu":
+        return infonce_plain(n1, n2, labels, valid, temp)
+    if n1.device.type != "cuda":
+        raise ValueError(f"no InfoNCE kernel for device {n1.device}")
+    device = n1.device
+    if n1.dim() != 3 or 0 in n1.shape:
+        raise ValueError(f"features must be non-empty (G, B, D), got {tuple(n1.shape)}")
+    g, b, d = n1.shape
+    if b > MAX_BATCH:
+        raise ValueError(f"batch {b} > {MAX_BATCH}: each row keeps B floats in shared memory")
+    check_cuda_f32("n1", n1, device)
+    check_cuda_f32("n2", n2, device, (g, b, d))
+    check_cuda_f32("valid", valid, device, (b,))
+    check_cuda_f32("temp", temp, device, ())
+    if labels.dtype != torch.int64 or labels.device != device or tuple(labels.shape) != (b,):
+        raise ValueError("labels must be an int64 (B,) tensor on the features' device")
+    labels = labels.contiguous()
+    row_loss = torch.empty(g, b, device=device, dtype=torch.float32)
+    loss = torch.empty(g, device=device, dtype=torch.float32)
+    KERNEL.launch(device, ptr(n1), ptr(n2), ptr(labels), ptr(valid), ptr(temp),
+                  ptr(row_loss), ptr(loss), g, b, d)
+    return loss
+
+
+class _InfoNCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, n1, n2, labels, valid, temp):
+        loss = infonce(n1, n2, labels, valid, temp)
+        ctx.save_for_backward(n1, n2, labels, valid, temp)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        """``_core_bwd`` of the JAX package, batched over the G problems."""
+        n1, n2, labels, valid, temp = ctx.saved_tensors
+        raw, shifted, e, pos = _masked_sim(n1, n2, labels, valid, temp)
+        p = (e * pos).sum(2, keepdim=True)
+        a = e.sum(2, keepdim=True)
+        w = (valid[:, None] / valid.sum().clamp_min(1.0)) * g[:, None, None]
+        grad_s = w * (e / (a + _EPS) - pos * e / (p + _EPS))
+        # through the row-max subtraction: vanishes when the row has positive
+        # mass, real for rows with none; ties split evenly like jnp.max's VJP
+        r = w * (a / (a + _EPS) - p / (p + _EPS))
+        is_max = (shifted == 0.0).to(e.dtype)
+        grad_s = grad_s - r * is_max / is_max.sum(2, keepdim=True)
+        dn1 = (grad_s @ n2) / temp
+        dn2 = (grad_s.transpose(1, 2) @ n1) / temp
+        dtemp = -(grad_s * raw).sum() / (temp * temp)
+        return dn1, dn2, None, None, dtemp.reshape(temp.shape)
+
+
+def _valid(mask: torch.Tensor | None, b: int, like: torch.Tensor) -> torch.Tensor:
+    if mask is None:
+        return torch.ones(b, dtype=like.dtype, device=like.device)
+    return mask.to(like.dtype).contiguous()
+
+
+def fused_supervised_infonce_multi(feats1: torch.Tensor, feats2: torch.Tensor,
+                                   labels: torch.Tensor, temperature: torch.Tensor | float,
+                                   mask: torch.Tensor | None = None) -> torch.Tensor:
+    """G supervised-InfoNCE losses sharing labels, mask and temperature, in
+    one launch: ``feats1, feats2 (G, B, D)`` -> ``(G,)``. Same numerics as G
+    calls of :func:`..ops.losses.supervised_infonce`. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel, or raises."""
+    temp = torch.as_tensor(temperature, dtype=feats1.dtype, device=feats1.device)
+    b = feats1.shape[1]
+    return _InfoNCE.apply(F.normalize(feats1, dim=2, eps=_EPS), F.normalize(feats2, dim=2, eps=_EPS),
+                          labels.to(torch.int64), _valid(mask, b, feats1), temp)
+
+
+def fused_supervised_infonce(feat1: torch.Tensor, feat2: torch.Tensor, labels: torch.Tensor,
+                             temperature: torch.Tensor | float,
+                             mask: torch.Tensor | None = None) -> torch.Tensor:
+    """One loss (G = 1): the JAX ``fused_supervised_infonce`` contract."""
+    return fused_supervised_infonce_multi(feat1[None], feat2[None], labels, temperature,
+                                          mask)[0]

@@ -1,7 +1,7 @@
 from .cross_modal import CrossModalTransformer
 from .eeg import BiLSTM, EEGMultiScaleNet
 from .fusion_model import MultimodalTransformerModel
-from .jax_import import state_dict_from_jax_variables
+from .jax_import import state_dict_from_jax_variables, trainer_state_from_jax
 from .layers import (
     MultiheadAttention,
     PositionalEncoding,
@@ -21,4 +21,5 @@ __all__ = [
     "TransformerEncoder",
     "TransformerEncoderLayer",
     "state_dict_from_jax_variables",
+    "trainer_state_from_jax",
 ]

@@ -1,16 +1,23 @@
 """EEG multi-scale encoder.
 
-Counterpart of ``multimodal_sentiment_aanalysis_tpu/models/eeg.py``, eval
-forward:
+Counterpart of ``multimodal_sentiment_aanalysis_tpu/models/eeg.py``:
 
-- temporal branch: Conv1d(C->64, k15, pad 7) -> BN -> GELU -> MaxPool(4)
-  -> Conv1d(64->feat_dim, k5, pad 2) -> BN -> GELU -> MaxPool(2); each
-  conv is ``F.conv1d`` and each BN+GELU+pool tail is the stem-tail kernel
-  (:func:`..kernels.conv_stem_train.fused_stage_train`, running stats, p=0)
+- temporal branch: Conv1d(C->64, k15, pad 7) -> BN -> GELU -> Dropout(0.4)
+  -> MaxPool(4) -> Conv1d(64->feat_dim, k5, pad 2) -> BN -> GELU -> Dropout
+  -> MaxPool(2); each conv is ``F.conv1d`` and each BN + GELU + dropout +
+  pool tail is the stem-tail kernel
+  (:func:`..kernels.conv_stem_train.fused_stage_train`)
 - frequency branch: channel mean -> Linear(T->128) -> GELU -> Linear(128->64)
 - 2-layer BiLSTM (hidden feat_dim/2 per direction) through
   :func:`..ops.rnn.bilstm_layer`, mean-pooled over time
 - fusion: Linear(feat_dim+64 -> feat_dim) -> LayerNorm -> GELU
+
+BatchNorm follows the JAX ``_BNVars``: in train mode the statistics are the
+batch's over (B, T), ``E[x^2] - E[x]^2``, computed without gradient and fed
+to the kernel (whose backward carries their dependence); the running stats
+take ``0.9 * running + 0.1 * batch`` with the *biased* variance, as flax
+does (torch ``BatchNorm1d`` would use the unbiased one). Eval mode uses the
+running stats and no dropout.
 
 The public input is the reference's ``(B, C, T)``; the stem runs NLC
 ``(B, T, C)`` inside, as the JAX package does. Module names follow the
@@ -26,6 +33,8 @@ import torch.nn.functional as F
 
 from ..kernels.conv_stem_train import fused_stage_train
 from ..ops.rnn import bilstm_layer
+
+BN_MOMENTUM = 0.1  # torch convention: running = (1 - m) * running + m * batch
 
 
 class BiLSTM(nn.Module):
@@ -60,6 +69,14 @@ class BiLSTM(nn.Module):
         return x
 
 
+@torch.no_grad()
+def update_running_stats(bn: nn.BatchNorm1d, mean: torch.Tensor, var: torch.Tensor) -> None:
+    """The JAX rule: running stats move toward the batch's by the momentum,
+    the variance being the biased batch variance."""
+    for running, batch in ((bn.running_mean, mean), (bn.running_var, var)):
+        running.mul_(1.0 - BN_MOMENTUM).add_(batch, alpha=BN_MOMENTUM)
+
+
 class EEGMultiScaleNet(nn.Module):
     """Input ``(B, in_channels, time_len)`` -> ``(B, feat_dim)``."""
 
@@ -84,18 +101,26 @@ class EEGMultiScaleNet(nn.Module):
             nn.LayerNorm(feat_dim, eps=1e-5, device=device), nn.GELU(),
         )
 
-    def _stage(self, h: torch.Tensor, conv: nn.Conv1d, bn: nn.BatchNorm1d,
-               pool: nn.MaxPool1d) -> torch.Tensor:
-        """NLC in, NLC out: conv, then the fused BN + GELU + pool tail."""
+    def _stage(self, h: torch.Tensor, conv: nn.Conv1d, bn: nn.BatchNorm1d, drop: nn.Dropout,
+               pool: nn.MaxPool1d, generator: torch.Generator | None) -> torch.Tensor:
+        """NLC in, NLC out: conv, then the fused BN + GELU + dropout + pool tail."""
         y = F.conv1d(h.transpose(1, 2), conv.weight, conv.bias, padding=conv.padding)
-        return fused_stage_train(y.transpose(1, 2).contiguous(), bn.weight, bn.bias,
-                                 bn.running_mean, bn.running_var, 0.0,
-                                 pool.kernel_size, bn.eps)
+        y = y.transpose(1, 2).contiguous()
+        if self.training:
+            with torch.no_grad():
+                mean = y.mean((0, 1))
+                var = (y * y).mean((0, 1)) - mean * mean
+            update_running_stats(bn, mean, var)
+            p = drop.p
+        else:
+            mean, var, p = bn.running_mean, bn.running_var, 0.0
+        return fused_stage_train(y, bn.weight, bn.bias, mean, var, p, pool.kernel_size, bn.eps,
+                                 generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         tc = self.temp_conv
-        h = self._stage(x.transpose(1, 2), tc[0], tc[1], tc[4])  # (B, T/4, 64)
-        h = self._stage(h, tc[5], tc[6], tc[9])                  # (B, T/8, feat_dim)
+        h = self._stage(x.transpose(1, 2), tc[0], tc[1], tc[3], tc[4], generator)  # (B, T/4, 64)
+        h = self._stage(h, tc[5], tc[6], tc[8], tc[9], generator)  # (B, T/8, feat_dim)
         freq = self.freq_branch(x.mean(dim=1))
         temp_feat = self.bilstm(h).mean(dim=1)
         return self.fusion(torch.cat([temp_feat, freq], dim=1))

@@ -1,4 +1,4 @@
-"""Flagship fusion model: MultimodalTransformerModel, eval forward.
+"""Flagship fusion model: MultimodalTransformerModel, train and eval forward.
 
 Counterpart of ``multimodal_sentiment_aanalysis_tpu/models/fusion_model.py``,
 with the reference's module names, so
@@ -13,11 +13,19 @@ gives this model's ``state_dict``:
 - ``arousal_head`` 128 -> 128 -> classes; ``valence_head``
   128 -> 256 -> 256 -> 128 -> 64 -> classes
 - learnable ``contrastive_weight`` and ``temperature`` (used by the
-  training losses)
+  in-model InfoNCE losses)
 
-This slice serves: the forward runs in eval mode with BN running stats and
-returns ``(arousal, valence)``. Train mode and the ``labels`` branch (three
-in-model InfoNCE losses) arrive with the training slice.
+``forward(eeg, eye, pps)`` returns ``(arousal, valence)``; with
+``labels=(arousal_labels, valence_labels[, mask])`` it also returns the
+three supervised-InfoNCE losses of the EEG, eye and PPS embeddings on the
+arousal labels, each scaled by ``contrastive_weight`` (one G=3 launch of the
+InfoNCE kernel on the card). Both work in either mode.
+
+Train mode (``model.train()``): batch-statistic BatchNorm, with the running
+stats updated by the JAX rule (momentum 0.1, biased batch variance, see
+:func:`.eeg.update_running_stats`), and dropout (EEG stem 0.4, everything
+else 0.3, or ``dropout`` at every site) drawn from the ``generator`` passed
+to :meth:`forward`.
 """
 
 from __future__ import annotations
@@ -27,9 +35,10 @@ import math
 import torch
 import torch.nn as nn
 
+from ..ops.losses import supervised_infonce_multi
 from .cross_modal import CrossModalTransformer
-from .eeg import BiLSTM, EEGMultiScaleNet
-from .layers import MultiheadAttention
+from .eeg import BiLSTM, EEGMultiScaleNet, update_running_stats
+from .layers import MultiheadAttention, dropout
 from .subnetwork import Subnetwork
 
 
@@ -43,6 +52,33 @@ def _bn_blocks(widths, in_dim: int, dropout: float, device) -> list[nn.Module]:
     return mods
 
 
+def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.BatchNorm`` over the batch axis of ``(B, F)``: batch stats
+    ``max(E[x^2] - E[x]^2, 0)`` (with gradient) in train mode, updating the
+    running stats; the running stats in eval mode."""
+    if bn.training:
+        mean = x.mean(0)
+        var = ((x * x).mean(0) - mean * mean).clamp_min(0.0)
+        update_running_stats(bn, mean.detach(), var.detach())
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    return (x - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
+
+
+def run_trunk(trunk: nn.Sequential, x: torch.Tensor,
+              generator: torch.Generator | None) -> torch.Tensor:
+    """A [Linear, BatchNorm1d, GELU, Dropout]* (+ Linear) stack with the JAX
+    BatchNorm rule and generator-drawn dropout."""
+    for m in trunk:
+        if isinstance(m, nn.BatchNorm1d):
+            x = batch_norm(m, x)
+        elif isinstance(m, nn.Dropout):
+            x = dropout(x, m.p, m.training, generator)
+        else:
+            x = m(x)
+    return x
+
+
 class MultimodalTransformerModel(nn.Module):
     def __init__(self, num_classes: int = 3, temperature: float = 0.01,
                  eeg_channels: int = 32, eeg_time: int = 585, eye_dim: int = 38,
@@ -53,8 +89,8 @@ class MultimodalTransformerModel(nn.Module):
         d = 0.3 if dropout is None else dropout
         f = feat_dim
         self.eeg_net = EEGMultiScaleNet(eeg_channels, eeg_time, f, d_eeg, device=device)
-        self.eye_net = Subnetwork(eye_dim, f, device=device)
-        self.pps_net = Subnetwork(pps_dim, f, device=device)
+        self.eye_net = Subnetwork(eye_dim, f, dropout=d, device=device)
+        self.pps_net = Subnetwork(pps_dim, f, dropout=d, device=device)
         self.cross_attn_e2p = CrossModalTransformer(f, device=device)
         self.cross_attn_p2e = CrossModalTransformer(f, device=device)
         self.attention_weights = nn.Sequential(
@@ -102,24 +138,29 @@ class MultimodalTransformerModel(nn.Module):
             elif isinstance(module, (nn.LayerNorm, nn.BatchNorm1d)):
                 module.reset_parameters()
 
-    @torch.no_grad()
     def forward(self, eeg: torch.Tensor, eye: torch.Tensor, pps: torch.Tensor,
-                labels=None) -> tuple[torch.Tensor, torch.Tensor]:
+                labels: tuple | None = None, *,
+                generator: torch.Generator | None = None) -> tuple[torch.Tensor, ...]:
         """``eeg (B, C, T)``, ``eye (B, eye_dim)``, ``pps (B, pps_dim)`` ->
-        ``(arousal, valence)`` logits, each ``(B, num_classes)``."""
-        if labels is not None or self.training:
-            raise NotImplementedError(
-                "train mode and the labels branch (in-model InfoNCE losses) "
-                "belong to the training slice (ROADMAP queue A); call .eval()"
-            )
-        eeg_feat = self.eeg_net(eeg)
-        eye_feat = self.eye_net(eye)
-        pps_feat = self.pps_net(pps)
+        ``(arousal, valence)`` logits, each ``(B, num_classes)``; with
+        ``labels`` also ``(c_eeg, c_eye, c_pps)``."""
+        eeg_feat = self.eeg_net(eeg, generator)
+        eye_feat = self.eye_net(eye, generator)
+        pps_feat = self.pps_net(pps, generator)
+        contrastive = ()
+        if labels is not None:
+            mask = labels[2] if len(labels) > 2 else None
+            if labels[0].shape[0] != eeg.shape[0]:
+                raise ValueError(f"{labels[0].shape[0]} labels for a batch of {eeg.shape[0]}")
+            feats = torch.stack([eeg_feat, eye_feat, pps_feat])
+            c = supervised_infonce_multi(feats, feats, labels[0], self.temperature, mask)
+            contrastive = tuple(self.contrastive_weight[0] * c)
         eye_enhanced = self.cross_attn_e2p(eeg_feat, eye_feat, eye_feat)
         pps_enhanced = self.cross_attn_p2e(eeg_feat, pps_feat, pps_feat)
         w = self.attention_weights(torch.cat([eeg_feat, eye_feat, pps_feat], dim=1))
-        fused = self.fusion(torch.cat(
+        fused = run_trunk(self.fusion, torch.cat(
             [eeg_feat * w[:, 0:1], eye_enhanced * w[:, 1:2], pps_enhanced * w[:, 2:3]],
             dim=1,
-        ))
-        return self.arousal_head(fused), self.valence_head(fused)
+        ), generator)
+        return (run_trunk(self.arousal_head, fused, generator),
+                run_trunk(self.valence_head, fused, generator)) + contrastive

@@ -8,7 +8,9 @@ read) and returns the reference-named ``state_dict`` that
 :class:`.fusion_model.MultimodalTransformerModel` loads with
 ``strict=True``. Flax ``(in, out)`` Dense kernels transpose back to torch
 ``(out, in)``; Conv1d, attention and LSTM weights are already in torch
-layout. Needs only numpy and torch.
+layout. :func:`trainer_state_from_jax` also carries the JAX ``Trainer``'s
+own learnable ``params["trainer"]["contrastive_weight"]``, so both trainers
+can start from one state. Needs only numpy and torch.
 """
 
 from __future__ import annotations
@@ -123,3 +125,13 @@ def state_dict_from_jax_variables(variables: Mapping[str, Any]) -> dict[str, tor
         "contrastive_weight": _t(p["contrastive_weight"]),
         "temperature": _t(p["temperature"]).reshape(()),
     }
+
+
+def trainer_state_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+                           ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """A JAX ``train.engine.Trainer``'s ``(params, batch_stats)``, whose
+    params are ``{"model": ..., "trainer": {"contrastive_weight": (1,)}}``
+    -> the model's ``state_dict`` and the trainer-level contrastive weight
+    (:attr:`..train.engine.Trainer.contrastive_weight`)."""
+    sd = state_dict_from_jax_variables({"params": params["model"], "batch_stats": batch_stats})
+    return sd, _t(params["trainer"]["contrastive_weight"])

@@ -3,8 +3,11 @@
 Counterpart of ``multimodal_sentiment_aanalysis_tpu/models/layers.py``:
 sin/cos positional encoding, ``nn.MultiheadAttention``-layout attention
 with a packed ``in_proj``, and the post-norm ReLU transformer encoder
-layer. GELU is the exact erf form everywhere. These modules run the eval
-forward; dropout is a no-op there, so none is applied.
+layer. GELU is the exact erf form everywhere.
+
+Dropout is :func:`dropout`: a keep mask drawn with ``torch.rand`` from the
+``generator`` the caller passes (the device's default generator when None),
+applied in train mode only. The modules keep no generator of their own.
 """
 
 from __future__ import annotations
@@ -19,6 +22,16 @@ import torch.nn.functional as F
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact erf-GELU (torch ``nn.GELU`` default)."""
     return F.gelu(x)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverted dropout: ``x * keep / (1 - p)`` with ``keep ~ Bernoulli(1 - p)``
+    from ``generator``; identity in eval mode or at ``p == 0``."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, device=x.device, generator=generator) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
 
 
 def make_sincos_pe(d_model: int, max_len: int, device=None) -> torch.Tensor:
@@ -77,33 +90,38 @@ class MultiheadAttention(nn.Module):
 
 class TransformerEncoderLayer(nn.Module):
     """``nn.TransformerEncoderLayer`` numerics: post-norm, ReLU feed-forward.
-    x -> MHA -> +x -> norm1 -> linear1 -> relu -> linear2 -> +x -> norm2."""
+    x -> MHA -> dropout -> +x -> norm1 -> linear1 -> relu -> dropout ->
+    linear2 -> dropout -> +x -> norm2 (the JAX layer's three sites)."""
 
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int, device=None):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 dropout: float = 0.1, device=None):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = MultiheadAttention(d_model, nhead, device=device)
         self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
         self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x, x, x))
-        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        p, train = self.dropout, self.training
+        x = self.norm1(x + dropout(self.self_attn(x, x, x), p, train, generator))
+        ff = dropout(F.relu(self.linear1(x)), p, train, generator)
+        return self.norm2(x + dropout(self.linear2(ff), p, train, generator))
 
 
 class TransformerEncoder(nn.Module):
     """Stack of encoder layers (``nn.TransformerEncoder``'s ``layers.{i}``)."""
 
     def __init__(self, num_layers: int, d_model: int, nhead: int,
-                 dim_feedforward: int, device=None):
+                 dim_feedforward: int, dropout: float = 0.1, device=None):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(d_model, nhead, dim_feedforward, device=device)
+            TransformerEncoderLayer(d_model, nhead, dim_feedforward, dropout, device=device)
             for _ in range(num_layers)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, generator)
         return x

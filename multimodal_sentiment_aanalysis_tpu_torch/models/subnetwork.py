@@ -3,7 +3,8 @@
 Counterpart of ``multimodal_sentiment_aanalysis_tpu/models/subnetwork.py``:
 linear projection to ``feat_dim``, a length-1 sequence, sin/cos PE
 (``max_len=100``), a 2-layer post-norm encoder (4 heads, feed-forward
-``3 * feat_dim``), final LayerNorm, back to ``(B, feat_dim)``.
+``3 * feat_dim``, dropout 0.3 in train mode), final LayerNorm, back to
+``(B, feat_dim)``.
 """
 
 from __future__ import annotations
@@ -16,14 +17,14 @@ from .layers import PositionalEncoding, TransformerEncoder
 
 class Subnetwork(nn.Module):
     def __init__(self, input_dim: int, feat_dim: int = 256, num_layers: int = 2,
-                 nhead: int = 4, device=None):
+                 nhead: int = 4, dropout: float = 0.3, device=None):
         super().__init__()
         self.proj = nn.Linear(input_dim, feat_dim, device=device)
         self.pos_encoder = PositionalEncoding(feat_dim, max_len=100, device=device)
         self.transformer = TransformerEncoder(num_layers, feat_dim, nhead,
-                                              3 * feat_dim, device=device)
+                                              3 * feat_dim, dropout, device=device)
         self.norm = nn.LayerNorm(feat_dim, eps=1e-5, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         h = self.pos_encoder(self.proj(x)[:, None, :])  # (B, 1, F)
-        return self.norm(self.transformer(h)[:, 0])
+        return self.norm(self.transformer(h, generator)[:, 0])

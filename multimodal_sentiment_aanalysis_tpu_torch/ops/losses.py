@@ -1,0 +1,75 @@
+"""Loss functions of the single-subject trainer.
+
+Counterpart of ``multimodal_sentiment_aanalysis_tpu/ops/losses.py``:
+
+- :func:`supervised_infonce`: the in-model supervised InfoNCE (reference
+  ``MultimodalModel.py:232-260``) with an optional validity mask. A CPU
+  tensor runs the plain body below; a CUDA tensor goes to the kernel
+  (:func:`..kernels.contrastive.fused_supervised_infonce`).
+- :func:`supervised_infonce_multi`: G losses sharing labels, mask and
+  temperature; on the card one launch for all G.
+- :func:`masked_cross_entropy`, :func:`masked_accuracy`: means over the
+  valid rows of a wrap-padded batch.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.contrastive import fused_supervised_infonce, fused_supervised_infonce_multi
+
+
+def supervised_infonce(feat1: torch.Tensor, feat2: torch.Tensor, labels: torch.Tensor,
+                       temperature: torch.Tensor | float,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """L2-normalise both feature sets, similarity over ``temperature``,
+    positives by label equality with the diagonal zeroed, row-max
+    subtraction, ``-log((pos + 1e-12) / (all + 1e-12))`` averaged (over the
+    ``mask == 1`` rows, whose columns alone enter the denominators)."""
+    if feat1.device.type == "cuda":
+        return fused_supervised_infonce(feat1, feat2, labels, temperature, mask)
+    f1 = F.normalize(feat1, dim=1, eps=1e-12)
+    f2 = F.normalize(feat2, dim=1, eps=1e-12)
+    sim = (f1 @ f2.T) / temperature
+    n = sim.shape[0]
+    pos = (labels[:, None] == labels[None, :]).to(sim.dtype)
+    pos = pos * (1.0 - torch.eye(n, dtype=sim.dtype, device=sim.device))
+    if mask is not None:
+        valid = mask.to(sim.dtype)
+        pos = pos * valid[:, None] * valid[None, :]
+        # padded columns leave the denominator: -1e30 keeps the row max
+        # finite and their exp underflows to exactly 0
+        sim = torch.where(valid[None, :] > 0, sim, -1e30)
+    sim = sim - sim.amax(dim=1, keepdim=True)
+    e = torch.exp(sim)
+    loss = -torch.log(((e * pos).sum(1) + 1e-12) / (e.sum(1) + 1e-12))
+    if mask is not None:
+        valid = mask.to(loss.dtype)
+        return (loss * valid).sum() / valid.sum().clamp_min(1.0)
+    return loss.mean()
+
+
+def supervised_infonce_multi(feats1: torch.Tensor, feats2: torch.Tensor,
+                             labels: torch.Tensor, temperature: torch.Tensor | float,
+                             mask: torch.Tensor | None = None) -> torch.Tensor:
+    """``(G,)`` losses of :func:`supervised_infonce` on ``feats1[g],
+    feats2[g]``; on a CUDA tensor all G in one kernel launch."""
+    if feats1.device.type == "cuda":
+        return fused_supervised_infonce_multi(feats1, feats2, labels, temperature, mask)
+    return torch.stack([supervised_infonce(feats1[g], feats2[g], labels, temperature, mask)
+                        for g in range(feats1.shape[0])])
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy averaged over the ``mask == 1`` rows."""
+    per = F.cross_entropy(logits, labels, reduction="none")
+    m = mask.to(per.dtype)
+    return (per * m).sum() / m.sum().clamp_min(1.0)
+
+
+def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    hit = (logits.argmax(dim=-1) == labels).to(torch.float32) * mask.to(torch.float32)
+    return hit.sum() / mask.sum().clamp_min(1.0)

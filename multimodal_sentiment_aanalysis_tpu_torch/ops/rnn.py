@@ -4,9 +4,9 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/ops/rnn.py``. Gate order
 is torch's (i, f, g, o) and the biases enter as ``b_ih + b_hh``, so the
 parameters are ``nn.LSTM``'s ``weight_ih_l{k}(_reverse)`` etc. as they are.
 :func:`lstm` and :func:`bilstm_recurrence` are plain PyTorch;
-:func:`bilstm_layer` sends a CUDA tensor to the BiLSTM kernel
-(:func:`..kernels.lstm.fused_bilstm_layer`) and a CPU tensor down the plain
-path.
+:func:`bilstm_layer` sends a CUDA tensor to the BiLSTM kernels
+(:func:`..kernels.lstm.fused_bilstm_layer`, forward and backward) and a CPU
+tensor down the plain path, whose gradient is autograd's.
 """
 
 from __future__ import annotations

@@ -168,8 +168,8 @@ def test_fold_bn_matches_jax():
 
 
 def test_wrappers_reject_other_devices_and_dropout():
-    """A tensor that is neither on the CPU nor on a card has no path; p > 0
-    is the training slice's."""
+    """A tensor that is neither on the CPU nor on a card has no path; a
+    dropout rate outside [0, 1) is refused."""
     x = torch.empty(2, 8, 4, device="meta")
     w = torch.empty(4, 4, 3, device="meta")
     with pytest.raises(ValueError):
@@ -180,17 +180,33 @@ def test_wrappers_reject_other_devices_and_dropout():
         lstm.fused_bilstm_layer(x, (torch.empty(4, 4, device="meta"),) * 4,
                                 (torch.empty(4, 4, device="meta"),) * 4)
     conv, *bn = _torch(_stem_tail_inputs(5, 2, 8, 4))
-    with pytest.raises(NotImplementedError):
-        conv_stem_train.fused_stage_train(conv, *bn, 0.4, 2)
+    for p in (1.0, -0.1):
+        with pytest.raises(ValueError):
+            conv_stem_train.fused_stage_train(conv, *bn, p, 2)
+    out = conv_stem_train.fused_stage_train(conv, *bn, 0.4, 2,
+                                            generator=torch.Generator().manual_seed(0))
+    assert out.shape == (2, 4, 4) and torch.isfinite(out).all()
 
 
 def test_cpu_tensors_launch_nothing():
+    """Forward and backward of every wrapper on CPU tensors take the plain
+    versions and count no launch."""
+    from multimodal_sentiment_aanalysis_tpu_torch.kernels import contrastive
+
     kernels.reset_launch_counts()
     x, fwd, bwd = _lstm_inputs(6, 2, 3, 8, 4)
-    lstm.fused_bilstm_layer(torch.from_numpy(x), tuple(_torch(fwd)), tuple(_torch(bwd)))
+    fwd = tuple(t.requires_grad_() for t in _torch(fwd))
+    lstm.fused_bilstm_layer(torch.from_numpy(x), fwd, tuple(_torch(bwd))).sum().backward()
     conv, *bn = _torch(_stem_tail_inputs(6, 2, 8, 4))
-    conv_stem_train.fused_stage_train(conv, *bn, 0.0, 2)
-    assert kernels.launch_counts() == {"bilstm_fwd": 0, "stem_tail": 0, "conv_stem": 0}
+    conv.requires_grad_()
+    conv_stem_train.fused_stage_train(conv, *bn, 0.4, 2).sum().backward()
+    feats = torch.randn(3, 4, 5, requires_grad=True)
+    contrastive.fused_supervised_infonce_multi(feats, feats, torch.tensor([0, 1, 0, 1]),
+                                               0.1).sum().backward()
+    assert fwd[0].grad is not None and conv.grad is not None and feats.grad is not None
+    assert kernels.launch_counts() == {
+        "bilstm_fwd": 0, "bilstm_cbnd": 0, "bilstm_segbwd": 0, "stem_tail": 0,
+        "stem_tail_bwd": 0, "infonce": 0, "conv_stem": 0}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -293,8 +309,8 @@ def test_cuda_wrappers_raise_on_bad_input(cuda):
         conv_stem_train.fused_stage_train(conv.transpose(0, 1), *bn, 0.0, 2)
     with pytest.raises(TypeError):  # not fp32
         conv_stem_train.fused_stage_train(conv.double(), *bn, 0.0, 2)
-    with pytest.raises(NotImplementedError):
-        conv_stem_train.fused_stage_train(conv, *bn, 0.4, 2)
+    with pytest.raises(ValueError):  # dropout rate outside [0, 1)
+        conv_stem_train.fused_stage_train(conv, *bn, 1.5, 2)
     x, fwd, bwd = _lstm_inputs(10, 2, 3, 8, 300)  # 4H > 1024 threads
     with pytest.raises(ValueError):
         lstm.fused_bilstm_layer(torch.from_numpy(x).to(cuda), tuple(_torch(fwd, cuda)),

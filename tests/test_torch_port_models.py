@@ -8,6 +8,8 @@ module's output on the same numpy inputs must match, rtol/atol 1e-5 (fp32
 summation order); the whole model's logits atol 1e-4.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -169,13 +171,15 @@ def test_generator_init_is_deterministic():
 
 
 def test_train_mode_and_labels_raise(tiny):
-    _, port = tiny
+    """Train mode and the labels branch run (the serving slice refused
+    both); what raises now is a labels tuple that does not fit the batch."""
+    port = copy.deepcopy(tiny[1])  # train mode moves the running stats
     eeg, eye, pps = map(torch.from_numpy, inputs(2, T_TINY))
-    with pytest.raises(NotImplementedError):
-        port(eeg, eye, pps, labels=(torch.zeros(2), torch.zeros(2)))
-    port.train()
-    try:
-        with pytest.raises(NotImplementedError):
-            port(eeg, eye, pps)
-    finally:
-        port.eval()
+    with pytest.raises(ValueError):
+        port(eeg, eye, pps, labels=(torch.zeros(3, dtype=torch.long),) * 2)
+    labels = (torch.tensor([0, 1]), torch.tensor([2, 0]))
+    for mode in (port.eval, port.train):
+        mode()
+        out = port(eeg, eye, pps, labels=labels, generator=torch.Generator().manual_seed(0))
+        assert len(out) == 5 and all(torch.isfinite(o).all() for o in out)
+        assert out[0].shape == out[1].shape == (2, 3) and out[2].shape == ()

@@ -54,7 +54,8 @@ ENTRY_POINTS = {
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
 def test_slice_matches_jax_model_apply(case, entry):
     feat_dim, port, x, (ref_a, ref_v) = case
-    a, v = ENTRY_POINTS[entry](port, feat_dim)(*map(torch.from_numpy, x))
+    with torch.no_grad():  # the model forward records gradients otherwise
+        a, v = ENTRY_POINTS[entry](port, feat_dim)(*map(torch.from_numpy, x))
     for got, ref in ((a, ref_a), (v, ref_v)):
         assert got.shape == ref.shape == (len(x[0]), 3)
         assert torch.isfinite(got).all()
@@ -84,8 +85,10 @@ def test_port_imports_no_jax():
                          timeout=120, cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
     walked = set(out.stdout.split())
-    assert {"data.pipeline", "eval.serving", "kernels._build", "kernels.lstm",
-            "models.jax_import", "ops.rnn"} <= walked
+    assert {"config", "data.features", "data.pipeline", "data.raw", "data.splits",
+            "eval.serving", "kernels._build", "kernels.contrastive", "kernels.conv_stem_train",
+            "kernels.lstm", "models.jax_import", "ops.losses", "ops.rnn", "train.engine",
+            "train.state", "utils.schedule"} <= walked
 
 
 @pytest.mark.parametrize("n,batch,shuffle", [(480, 64, True), (10, 4, False)])
