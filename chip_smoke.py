@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card,
-and check them.
+"""Drive the PyTorch port's serving, training and LOSO training paths on one
+CUDA card, and check them.
 
 Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py            # the checks below
-    python3 chip_smoke.py --profile  # also a torch.profiler window over train steps
+    python3 chip_smoke.py --profile  # also torch.profiler windows over train steps
 
 It needs a CUDA card and exits non-zero without one. In order, it
 
@@ -21,19 +21,32 @@ It needs a CUDA card and exits non-zero without one. In order, it
    with every launch counter reset just before; checks the launch counts,
    finite logits, agreement of the three entry points within 1e-3, and the
    plain path on the CPU on the first rows within 1e-3;
-3. training: the synthetic MAHNOB-HCI set (480 trials) through
-   ``assemble_features`` and ``loso_split`` with subject 0 held out (460
-   train, 20 test) on the card; a full-width flagship from the seeded
-   generator at the reference dropout rates; ``Trainer(batch_size=64)``: two
-   ``train_epoch`` (8 steps each) and a ``test()`` after each, with every
-   launch counter reset just before; checks finite losses, that every
-   parameter tensor moved, and the launch counts; then card-vs-CPU gradient
-   parity of a ``dropout=0.0`` copy on one batch;
-4. holds every kernel against its plain PyTorch version at the shapes its
-   path gives it (real activations of the first request or train batch),
-   times both with CUDA events, and checks the stem tail's dropout (keep
-   share 1 - p within 5 sigma, every output exactly 0 or GELU(y) / (1 - p));
-5. prints the card's name and power limit, one JSON line of per-kernel
+3. training: the synthetic MAHNOB-HCI set (480 trials, Z-scored) on the
+   card, ``loso_split`` with subject 0 held out (460 train, 20 test); a
+   full-width flagship from the seeded generator at the reference dropout
+   rates; ``Trainer(batch_size=64)``: two ``train_epoch`` (8 steps each) and
+   a ``test()`` after each, with every launch counter reset just before;
+   checks finite losses, that every parameter tensor moved, and the launch
+   counts; then card-vs-CPU gradient parity of a ``dropout=0.0`` copy on
+   one batch;
+4. LOSO training: ``VectorizedLOSOTrainer`` over all 24 subjects at once
+   (S=24, batch 64, full width, reference dropout, early stop on) on the
+   same set: two ``train_epoch`` and then two fused epochs
+   (``train_epochs_fused``'s device loop, with the per-subject early-stop
+   lanes) under ``torch.cuda.set_sync_debug_mode("error")``, the launch
+   counters reset before each; checks that every kernel call is one launch
+   for all 24 models (the single-model counts per step), finite per-subject
+   losses, that the fused epochs never synchronise with the host, and,
+   on a ``dropout=0.0`` copy, that subjects 0 and 17 of one vectorized step
+   equal a single-model ``Trainer`` step (loss, gradients, BatchNorm running
+   stats, updated parameters); prints ms/step and samples/s/chip;
+5. holds every kernel against its plain PyTorch version at the shapes its
+   paths give it (real activations of the first request or train batch; for
+   the S=24 cases the LOSO trainer's stacked weights and seeded
+   activations), times both with CUDA events, and checks the stem tail's
+   dropout (keep share 1 - p within 5 sigma, every output exactly 0 or
+   GELU(y) / (1 - p));
+6. prints the card's name and power limit, one JSON line of per-kernel
    results, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -74,7 +87,12 @@ from multimodal_sentiment_aanalysis_tpu_torch.kernels import (
     lstm,
 )
 from multimodal_sentiment_aanalysis_tpu_torch.ops.losses import masked_cross_entropy
-from multimodal_sentiment_aanalysis_tpu_torch.train import Trainer
+from multimodal_sentiment_aanalysis_tpu_torch.train import (
+    Trainer,
+    VectorizedLOSOTrainer,
+    clip_by_global_norm,
+    clip_rows_by_global_norm,
+)
 
 SEED = 0
 POOL, REQUESTS, BATCH = 480, 100, 64
@@ -93,6 +111,13 @@ GRAD_RTOL = 1e-3
 GRAD_OUTLIERS = 1e-2
 DROPOUT_P = 0.4
 TIMED_CALLS = 20
+LOSO_FUSED_EPOCHS = 2
+PARITY_SUBJECTS = (0, 17)  # LOSO models checked against a single-model Trainer step
+LOSO_LR = 1e-4             # the trainers' default learning rate
+# launches per train step of one model, and per held-out evaluation
+PER_STEP = dict(bilstm_fwd=2, bilstm_cbnd=2, bilstm_segbwd=2, stem_tail=2, stem_tail_bwd=2,
+                infonce=1)
+PER_EVAL = dict(bilstm_fwd=2, stem_tail=2, infonce=1)
 
 CSRC = "multimodal_sentiment_aanalysis_tpu_torch/csrc/"
 JAX_KERNELS = "multimodal_sentiment_aanalysis_tpu/kernels/"
@@ -268,17 +293,23 @@ def serving_kernel_cases(model, eeg: torch.Tensor) -> dict:
 # --------------------------------------------------------------------------
 
 
-def make_trainer(device: torch.device) -> Trainer:
-    """``cli.py single`` on the synthetic set: subject 0 held out."""
+def hci_dataset(device: torch.device) -> DeviceDataset:
+    """The synthetic MAHNOB-HCI set (24 subjects x 20 trials), Z-scored, on
+    the card."""
     data = make_synthetic_hci_data(seed=SEED)
     feats, _ = assemble_features(data, ["eeg", "eye", "pps"], norm="Z_score",
                                  label_type="arousal")
-    full = DeviceDataset({
+    return DeviceDataset({
         "eeg": feats["eeg"].astype(np.float32), "eye": feats["eye"].astype(np.float32),
         "pps": feats["pps"].astype(np.float32),
         "arousal": np.asarray(data["arousal_label"]).astype(np.int64),
         "valence": np.asarray(data["valence_label"]).astype(np.int64),
     }, device)
+
+
+def make_trainer(full: DeviceDataset) -> Trainer:
+    """``cli.py single`` on the synthetic set: subject 0 held out."""
+    device = full.device
     tr_idx, te_idx = loso_split(N_SUBJECTS, EX_NUMS, TEST_SUBJECT)
     model = MultimodalTransformerModel(feat_dim=256, device=device,
                                        generator=torch.Generator().manual_seed(SEED))
@@ -305,10 +336,7 @@ def training_phase(trainer: Trainer) -> dict:
               f"train; test {t_test * 1e3:.3f} ms")
         check(all(math.isfinite(v) for v in (*tr, *te)), f"epoch {epoch}: non-finite loss")
     counts = launch_counts()
-    per_step = dict(bilstm_fwd=2, bilstm_cbnd=2, bilstm_segbwd=2, stem_tail=2,
-                    stem_tail_bwd=2, infonce=1)
-    per_eval = dict(bilstm_fwd=2, stem_tail=2, infonce=1)
-    expected = {name: EPOCHS * (steps * per_step.get(name, 0) + evals * per_eval.get(name, 0))
+    expected = {name: EPOCHS * (steps * PER_STEP.get(name, 0) + evals * PER_EVAL.get(name, 0))
                 for name in KERNELS}
     print(f"training launches over {EPOCHS} epochs: {counts}")
     check(counts == expected, f"training launch counts {counts} != {expected}")
@@ -325,6 +353,23 @@ def step_loss(model, batch: dict, mask: torch.Tensor) -> torch.Tensor:
             + masked_cross_entropy(torch.nan_to_num(v), batch["valence"], mask) + c1 + c2 + c3)
 
 
+def grad_agreement(got: dict, want: dict) -> tuple[float, str, float, str]:
+    """``(worst scaled |diff|, its tensor, largest share of elements above
+    GRAD_RTOL, its tensor)`` of named gradients ``got`` against ``want``,
+    each tensor's error scaled as GRAD_RTOL's comment says."""
+    scale = max(g.abs().max().item() for g in want.values())
+    worst, worst_name, outliers, outlier_name = 0.0, "", 0.0, ""
+    for name, g_want in want.items():
+        err = ((got[name].cpu() - g_want.cpu()).abs()
+               / (g_want.abs().max().item() + 1e-4 * scale))
+        if err.max().item() > worst:
+            worst, worst_name = err.max().item(), name
+        share = (err > GRAD_RTOL).double().mean().item()
+        if share > outliers:
+            outliers, outlier_name = share, name
+    return worst, worst_name, outliers, outlier_name
+
+
 def gradient_parity(trainer: Trainer, batch: dict, mask: torch.Tensor) -> None:
     """A dropout=0.0 copy of the trained model, one batch, train mode: the
     loss and every parameter's gradient on the card against the CPU plain
@@ -339,15 +384,7 @@ def gradient_parity(trainer: Trainer, batch: dict, mask: torch.Tensor) -> None:
         loss.backward()
         losses.append(loss.item())
         grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
-    scale = max(g.abs().max().item() for g in grads[1].values())
-    worst, worst_name, outliers, outlier_name = 0.0, "", 0.0, ""
-    for name, g_cpu in grads[1].items():
-        err = (grads[0][name] - g_cpu).abs() / (g_cpu.abs().max().item() + 1e-4 * scale)
-        if err.max().item() > worst:
-            worst, worst_name = err.max().item(), name
-        share = (err > GRAD_RTOL).double().mean().item()
-        if share > outliers:
-            outliers, outlier_name = share, name
+    worst, worst_name, outliers, outlier_name = grad_agreement(grads[0], grads[1])
     loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
     print(f"gradient parity, card vs CPU plain path, B={BATCH}, dropout 0: loss "
           f"{losses[0]:.6f} vs {losses[1]:.6f} (rel {loss_err:.3e}); {len(grads[1])} tensors, "
@@ -405,7 +442,9 @@ def training_kernel_cases(model, batch: dict, mask: torch.Tensor, gen: torch.Gen
     feats = torch.stack([model.eeg_net(batch["eeg"]), model.eye_net(batch["eye"]),
                          model.pps_net(batch["pps"])])
     n = F.normalize(feats, dim=2, eps=1e-12)
-    args = (n, n, batch["arousal"], mask, model.temperature)
+    # the step's three problems share its labels, mask and temperature
+    args = (n, n, batch["arousal"].expand(3, -1).contiguous(), mask.expand(3, -1).contiguous(),
+            model.temperature.reshape(1).expand(3).contiguous())
     cases["infonce"].append((
         f"G 3 {tuple(n.shape[1:])}", lambda a=args: contrastive.infonce(*a),
         lambda a=args: contrastive.infonce_plain(*a)))
@@ -431,6 +470,194 @@ def dropout_check(model, batch: dict, gen: torch.Generator) -> None:
           f"(expected {1 - DROPOUT_P}, {abs(share - (1 - DROPOUT_P)) / sigma:.2f} sigma), "
           f"kept outputs equal GELU(y)/(1-p): {exact}")
     check(abs(share - (1 - DROPOUT_P)) <= 5 * sigma and exact, "stem-tail dropout check failed")
+
+
+# --------------------------------------------------------------------------
+# LOSO training: the 24 subjects' models in one vectorized step
+# --------------------------------------------------------------------------
+
+
+def make_loso_trainer(full: DeviceDataset, dropout: float | None = None) -> VectorizedLOSOTrainer:
+    """``cli.py vloso`` on the synthetic set, with early stop: one model per
+    held-out subject, all 24 trained together."""
+    model = MultimodalTransformerModel(feat_dim=256, dropout=dropout, device=full.device,
+                                       generator=torch.Generator().manual_seed(SEED))
+    return VectorizedLOSOTrainer(model, full, N_SUBJECTS, EX_NUMS, lr=LOSO_LR, batch_size=BATCH,
+                                 seed=SEED, early_stop=True)
+
+
+def loso_phase(vt: VectorizedLOSOTrainer) -> dict:
+    """Two host-plan epochs, then LOSO_FUSED_EPOCHS fused epochs with the
+    early-stop lanes under the sync check; returns the path's launch counts."""
+    s_n, n_train = vt.n_subjects, vt.train_idx.shape[1]
+    steps = -(-n_train // BATCH)
+    print(f"LOSO training: {s_n} models x {n_train} train / {vt.test_idx.shape[1]} test samples, "
+          f"{steps} steps of {s_n} x {BATCH} per epoch, feat_dim 256, dropout 0.4 (stem) / 0.3")
+    reset_launch_counts()
+    for epoch in range(1, EPOCHS + 1):
+        tm, seconds = synced(vt.train_epoch)
+        check(all(np.isfinite(v).all() for v in tm.values()), f"LOSO epoch {epoch}: non-finite")
+        print(f"LOSO epoch {epoch}: train loss mean {tm['loss'].mean():.6f} (subjects "
+              f"{tm['loss'].min():.6f} to {tm['loss'].max():.6f}), a_acc {tm['a_acc'].mean():.4f}, "
+              f"v_acc {tm['v_acc'].mean():.4f}")
+        print(f"LOSO epoch {epoch} smoke reading (host clock around synchronised runs): "
+              f"{seconds * 1e3 / steps:.3f} ms/step of {s_n} models, "
+              f"{s_n * n_train / seconds:.1f} samples/s/chip")
+    counts = launch_counts()
+    per_step = {name: n / (EPOCHS * steps) for name, n in counts.items()}
+    print(f"LOSO launches per step ({s_n} models, {EPOCHS} epochs of {steps} steps): {per_step}")
+    expected = {name: EPOCHS * steps * PER_STEP.get(name, 0) for name in KERNELS}
+    check(counts == expected, f"LOSO launch counts {counts} != {expected}: not one launch "
+                              f"per kernel call for all {s_n} models")
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")  # any host sync in the loop raises
+    try:
+        out = vt.fused_epochs_on_device(LOSO_FUSED_EPOCHS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    fused = launch_counts()
+    expected = {name: LOSO_FUSED_EPOCHS * (steps * PER_STEP.get(name, 0) + PER_EVAL.get(name, 0))
+                for name in KERNELS}
+    print(f"LOSO fused launches over {LOSO_FUSED_EPOCHS} epochs with early stop: {fused}")
+    check(fused == expected, f"LOSO fused launch counts {fused} != {expected}")
+    out = out.cpu().numpy()  # (E, S, 9): masked sums, held-out metrics, lr, stopped
+    check(bool(np.isfinite(out).all()), "LOSO fused epochs: non-finite metrics")
+    for e in range(LOSO_FUSED_EPOCHS):
+        loss = out[e, :, 0] / np.maximum(out[e, :, 3], 1.0)
+        print(f"LOSO fused epoch {EPOCHS + e + 1}: train loss mean {loss.mean():.6f}, held-out "
+              f"loss mean {out[e, :, 4].mean():.6f} a_acc {out[e, :, 5].mean():.4f}, lr lanes "
+              f"{out[e, :, 7].min():.3e} to {out[e, :, 7].max():.3e}, stopped "
+              f"{int(out[e, :, 8].sum())}/{s_n}")
+    print(f"LOSO fused epochs ran under set_sync_debug_mode('error'): no host sync in "
+          f"{LOSO_FUSED_EPOCHS} epochs; smoke reading (host clock around synchronised runs): "
+          f"{seconds * 1e3 / (LOSO_FUSED_EPOCHS * steps):.3f} ms/step with the per-epoch held-out "
+          f"evaluation, {LOSO_FUSED_EPOCHS * s_n * n_train / seconds:.1f} samples/s/chip")
+    return {name: counts[name] + fused[name] for name in KERNELS}
+
+
+def loso_step_parity(full: DeviceDataset) -> None:
+    """A dropout=0.0 LOSO trainer's first step against a single-model
+    ``Trainer`` step of subjects PARITY_SUBJECTS, from the same init on the
+    same batch: loss, every gradient (the gradient-parity metric), BatchNorm
+    running stats after the forward, and parameters after the update
+    (|diff| <= 2 lr + 1e-6: Adam's first step moves each weight by lr times
+    the sign of its gradient, which is noise where the gradient is ~0)."""
+    vt = make_loso_trainer(full, dropout=0.0)
+    plans, masks = vt._epoch_plans()
+    idx = torch.as_tensor(plans[:, 0], device=full.device)
+    mask = torch.as_tensor(masks[:, 0], device=full.device)
+    init = {s: vt.subject_variables(s) for s in PARITY_SUBJECTS}
+    cw = vt._param_dict(vt.params)["trainer.contrastive_weight"].clone()
+    batch = vt._gather(idx)
+    batch["mask"] = mask
+    vt.model.train()
+    grads, (loss, _) = vt._grad_step(vt.params, vt._stat_views, batch)
+    vt.opt.step(vt.params, clip_rows_by_global_norm(grads, vt.clip_norm), torch.isfinite(loss))
+    vt_grads = vt._param_dict(grads)
+    for s in PARITY_SUBJECTS:
+        model = MultimodalTransformerModel(feat_dim=256, dropout=0.0, device=full.device)
+        model.load_state_dict(init[s])
+        t = Trainer(model, full.subset(vt.train_idx[s]), full.subset(vt.test_idx[s]),
+                    lr=LOSO_LR, batch_size=BATCH, seed=SEED, verbose=False)
+        with torch.no_grad():
+            t.contrastive_weight.copy_(cw[s])
+        model.train()
+        one, one_mask = full.gather(idx[s]), mask[s]
+        t_loss, _ = t._loss(one, one_mask)
+        t_loss.backward()
+        want = {n: p.grad for n, p in model.named_parameters()}
+        want["trainer.contrastive_weight"] = t.contrastive_weight.grad
+        worst, worst_name, outliers, outlier_name = grad_agreement(
+            {n: vt_grads[n][s] for n in want}, want)
+        after = vt.subject_variables(s)  # the vectorized step's stats and updated weights
+        stat_err = max((after[n] - b).abs().max().item() for n, b in model.named_buffers()
+                       if "running" in n)
+        clip_by_global_norm(t.params, t.clip_norm)
+        t.optimizer.step()
+        param_err = max((after[n] - p).abs().max().item() for n, p in model.named_parameters())
+        loss_err = abs(loss[s].item() - t_loss.item()) / abs(t_loss.item())
+        print(f"LOSO step subject {s} vs single-model Trainer step, dropout 0: loss "
+              f"{loss[s].item():.6f} vs {t_loss.item():.6f} (rel {loss_err:.3e}); gradients worst "
+              f"scaled |diff| {worst:.3e} at {worst_name}, largest share above {GRAD_RTOL}: "
+              f"{outliers:.3e}{' at ' + outlier_name if outlier_name else ''} (limit "
+              f"{GRAD_OUTLIERS}); BN running stats max |diff| {stat_err:.3e} (limit 1e-4); "
+              f"updated parameters max |diff| {param_err:.3e} (limit {2 * LOSO_LR + 1e-6:.3e})")
+        check(loss_err <= 1e-4 and outliers <= GRAD_OUTLIERS and stat_err <= 1e-4
+              and param_err <= 2 * LOSO_LR + 1e-6,
+              f"LOSO subject {s} disagrees with the single-model Trainer")
+
+
+def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator) -> dict:
+    """(label, kernel call, plain call) at the LOSO step's S=24 shapes: the
+    trainer's stacked weights, seeded activations. Call under ``no_grad``."""
+    cases: dict = {name: [] for name in KERNELS if name in PER_STEP}
+    device = vt.device
+    pd = vt._param_dict(vt.params)
+    s_n = vt.n_subjects
+    randn = lambda *shape: torch.randn(shape, device=device, generator=gen)
+    tc = "eeg_net.temp_conv"
+    t_eeg = vt.data.arrays["eeg"].shape[2]
+    width = pd[f"{tc}.6.weight"].shape[1]  # feat_dim
+    for conv_shape, bn, pool in (((s_n, BATCH, t_eeg, pd[f"{tc}.1.weight"].shape[1]), f"{tc}.1", 4),
+                                 ((s_n, BATCH, t_eeg // 4, width), f"{tc}.6", 2)):
+        y = randn(*conv_shape)
+        mean = y.mean((1, 2))
+        var = (y * y).mean((1, 2)) - mean * mean
+        args = (y, pd[f"{bn}.weight"].contiguous(), pd[f"{bn}.bias"].contiguous(), mean, var)
+        cases["stem_tail"].append((
+            f"S={s_n} pool {pool} {conv_shape} batch stats, writes the code",
+            lambda a=args, p=pool: conv_stem_train.stem_tail_fwd(*a, 0.0, p),
+            lambda a=args, p=pool: conv_stem_train.fused_stage_train_plain(*a, p, with_code=True)))
+        out, code = conv_stem_train.stem_tail_fwd(*args, DROPOUT_P, pool, generator=gen)
+        inv = torch.rsqrt(var + 1e-5)
+        scale = args[1] * inv
+        bwd_args = (y, randn(*out.shape), code, scale, args[2] - mean * scale, mean, inv,
+                    DROPOUT_P, pool)
+        cases["stem_tail_bwd"].append((
+            f"S={s_n} pool {pool} {conv_shape} p {DROPOUT_P}, the kernel's own code",
+            lambda a=bwd_args: conv_stem_train.stem_tail_bwd(*a),
+            lambda a=bwd_args: conv_stem_train.stem_tail_bwd_plain(*a)))
+    x = randn(s_n, BATCH, t_eeg // 8, width)
+    for k in range(2):
+        part = lambda name, sfx: pd[f"eeg_net.bilstm.{name}_l{k}{sfx}"]
+        w = (torch.stack([part("weight_ih", ""), part("weight_ih", "_reverse")], 1),
+             torch.stack([part("weight_hh", ""), part("weight_hh", "_reverse")], 1),
+             torch.stack([part("bias_ih", "") + part("bias_hh", ""),
+                          part("bias_ih", "_reverse") + part("bias_hh", "_reverse")], 1))
+        h_seq = lstm.bilstm_fwd_plain(x, *w)
+        c_bnd = lstm.bilstm_cbnd_plain(x, h_seq, *w)
+        dh = randn(*h_seq.shape)
+        label = f"S={s_n} layer {k} {tuple(x.shape)}"
+        cases["bilstm_fwd"].append((label, lambda a=(x, *w): lstm.bilstm_fwd(*a),
+                                    lambda a=(x, *w): lstm.bilstm_fwd_plain(*a)))
+        cases["bilstm_cbnd"].append((
+            f"{label} K {lstm.SEG_K}", lambda a=(x, h_seq, *w): lstm.bilstm_cbnd(*a),
+            lambda a=(x, h_seq, *w): lstm.bilstm_cbnd_plain(*a)))
+        cases["bilstm_segbwd"].append((
+            f"{label} K {lstm.SEG_K}",
+            lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd(*a),
+            lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd_plain(*a)))
+        x = h_seq
+    # one step's 3 S problems: each model's labels; every other model on the
+    # epoch's wrap-padded last batch (12 real rows of 64)
+    p_n = 3 * s_n
+    n = F.normalize(randn(p_n, BATCH, width), dim=2, eps=1e-12)
+    rows = torch.as_tensor(vt.train_idx[:, :BATCH], device=device)
+    labels = vt.data.arrays["arousal"][rows].repeat_interleave(3, 0).contiguous()
+    tail = vt.train_idx.shape[1] % BATCH
+    valid = torch.ones(p_n, BATCH, device=device)
+    valid[3::6, tail:] = valid[4::6, tail:] = valid[5::6, tail:] = 0.0
+    temp = pd["temperature"].repeat_interleave(3).contiguous()
+    args = (n, n, labels, valid, temp)
+    cases["infonce"].append((
+        f"P={p_n} {tuple(n.shape[1:])} per-problem labels, masks, temperatures",
+        lambda a=args: contrastive.infonce(*a), lambda a=args: contrastive.infonce_plain(*a)))
+    return cases
 
 
 # --------------------------------------------------------------------------
@@ -462,31 +689,45 @@ def outputs(name: str, res) -> list[torch.Tensor]:
         return [res]
     if name == "stem_tail":
         return [res[0]]
-    if name == "stem_tail_bwd":
-        return [res[0], res[1].sum(0), res[2].sum(0)]
+    if name == "stem_tail_bwd":  # partials (chunks, C), or (S, chunks, C)
+        return [res[0], res[1].sum(-2), res[2].sum(-2)]
     return list(res)
 
 
-def kernel_results(cases: dict, counts: dict) -> list[dict]:
+def case_results(name: str, items: list) -> tuple[float, float, float]:
+    """Holds each (label, kernel call, plain call) of one kernel to its
+    tolerance; returns the largest error and the summed kernel and plain
+    times."""
+    _, _, tol = KERNELS[name]
+    err = ms_k = ms_p = 0.0
+    for label, kern, plain in items:
+        got, want = outputs(name, kern()), outputs(name, plain())
+        torch.cuda.synchronize()
+        check(len(got) == len(want) and all(g.shape == w.shape for g, w in zip(got, want)),
+              f"{name} {label}: outputs differ in shape")
+        e = max((g - w).abs().max().item() for g, w in zip(got, want))
+        check(e <= tol, f"{name} {label}: max |err| {e:.3e} > {tol}")
+        tk, tp = time_ms(kern), time_ms(plain)
+        print(f"kernel {name} {label}: max |err| {e:.3e} (limit {tol}), "
+              f"{tk:.4f} ms, plain {tp:.4f} ms")
+        err, ms_k, ms_p = max(err, e), ms_k + tk, ms_p + tp
+    return err, ms_k, ms_p
+
+
+def kernel_results(cases: dict, loso_cases: dict, counts: dict) -> list[dict]:
+    """One entry per kernel: ``ms``/``plain_ms`` summed over its one-model
+    cases, ``loso_ms``/``loso_plain_ms`` over its S=24 cases."""
     results = []
     for name, items in cases.items():
-        source, replaces, tol = KERNELS[name]
+        source, replaces, _ = KERNELS[name]
         check(bool(items), f"{name}: no case")
-        err = ms_k = ms_p = 0.0
-        for label, kern, plain in items:
-            got, want = outputs(name, kern()), outputs(name, plain())
-            torch.cuda.synchronize()
-            check(len(got) == len(want) and all(g.shape == w.shape for g, w in zip(got, want)),
-                  f"{name} {label}: outputs differ in shape")
-            e = max((g - w).abs().max().item() for g, w in zip(got, want))
-            check(e <= tol, f"{name} {label}: max |err| {e:.3e} > {tol}")
-            tk, tp = time_ms(kern), time_ms(plain)
-            print(f"kernel {name} {label}: max |err| {e:.3e} (limit {tol}), "
-                  f"{tk:.4f} ms, plain {tp:.4f} ms")
-            err, ms_k, ms_p = max(err, e), ms_k + tk, ms_p + tp
-        results.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[name],
-                        "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p})
+        err, ms_k, ms_p = case_results(name, items)
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": counts[name], "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+        if name in loso_cases:
+            err, entry["loso_ms"], entry["loso_plain_ms"] = case_results(name, loso_cases[name])
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        results.append(entry)
     return results
 
 
@@ -504,10 +745,25 @@ def profile_training(trainer: Trainer) -> None:
         print(f"profile {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x {e.key[:100]}")
 
 
+def profile_loso(vt: VectorizedLOSOTrainer) -> None:
+    """Device time by kernel over one LOSO train epoch (8 steps of 24 models)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, seconds = synced(vt.train_epoch)
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total = sum(e.self_device_time_total for e in events)
+    print(f"profile LOSO: one train epoch, {seconds * 1e3:.3f} ms on the host clock under the "
+          f"profiler, device time {total / 1e3:.3f} ms over {sum(e.count for e in events)} "
+          f"kernel launches")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:30]:
+        print(f"profile LOSO {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x {e.key[:100]}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also trace one train epoch with torch.profiler")
+                        help="also trace one train epoch of each trainer with torch.profiler")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
@@ -529,21 +785,28 @@ def main() -> int:
           + ", ".join(p.name for p in libs))
 
     model, first, serve_counts = serving_phase(device)
-    trainer = make_trainer(device)
+    full = hci_dataset(device)
+    trainer = make_trainer(full)
     train_counts = training_phase(trainer)
     idx, mask = trainer.train_data.epoch_plan(BATCH, np.random.default_rng(SEED + 2))
     batch, mask = trainer.train_data.gather(idx[0]), mask[0]
     gradient_parity(trainer, batch, mask)
+    vt = make_loso_trainer(full)
+    loso_counts = loso_phase(vt)
+    loso_step_parity(full)
     if args.profile:
         profile_training(trainer)
+        profile_loso(vt)
 
-    counts = {name: serve_counts[name] + train_counts[name] for name in KERNELS}
+    counts = {name: serve_counts[name] + train_counts[name] + loso_counts[name]
+              for name in KERNELS}
     gen = torch.Generator(device=device).manual_seed(SEED)
     torch.set_grad_enabled(False)  # plain versions must not record autograd graphs
     cases = serving_kernel_cases(model, first["eeg"])
     training_kernel_cases(trainer.model, batch, mask, gen, cases)
+    loso_cases = loso_kernel_cases(vt, gen)
     dropout_check(trainer.model, batch, gen)
-    print(json.dumps({"kernels": kernel_results(cases, counts)}))
+    print(json.dumps({"kernels": kernel_results(cases, loso_cases, counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-// Bidirectional LSTM layer backward, both directions in each launch:
+// Bidirectional LSTM layer backward, both directions and all S models in each
+// launch:
 //
 //   msa_bilstm_cbnd   (a) c checkpoints at segment boundaries, replaces
 //                     multimodal_sentiment_aanalysis_tpu/kernels/lstm.py::_cbnd_kernel
@@ -28,8 +29,9 @@
 // dh . W_hh^T product per step, and per block the dx and dW_cat products
 // (parallel in time; 2 x 4672 x 385 x 512 FMAs for dW_cat per layer).
 //
-// Design: one block per (batch tile of kBt rows, direction), 4H threads,
-// the time loop inside the block, as in the forward. In (b) a block keeps
+// Design: one block per (batch tile of kBt rows, direction, model), 4H
+// threads, the time loop inside the block, as in the forward; the model axis
+// S is the grid's z axis and each block offsets its operands by its model. In (b) a block keeps
 // its K rows of x, h_prev, gate activations (overwritten in place by
 // dgates) and c in shared memory; thread g owns gate column g for the gate
 // recompute and for dW_cat; the dh carry splits the 4H gates into four
@@ -46,15 +48,22 @@ namespace {
 
 constexpr int kBt = 8;  // batch rows per block; kBt * H == 2 * (4H threads)
 
-__global__ void bilstm_cbnd_kernel(const float* __restrict__ x,       // (B, T, I)
-                                   const float* __restrict__ h_seq,   // (B, T, 2H)
-                                   const float* __restrict__ w_ih_t,  // (2, I, 4H)
-                                   const float* __restrict__ w_hh_t,  // (2, H, 4H)
-                                   const float* __restrict__ bias,    // (2, 4H)
-                                   float* __restrict__ c_bnd,         // (2, NSEG, B, H)
+__global__ void bilstm_cbnd_kernel(const float* __restrict__ x,       // (S, B, T, I)
+                                   const float* __restrict__ h_seq,   // (S, B, T, 2H)
+                                   const float* __restrict__ w_ih_t,  // (S, 2, I, 4H)
+                                   const float* __restrict__ w_hh_t,  // (S, 2, H, 4H)
+                                   const float* __restrict__ bias,    // (S, 2, 4H)
+                                   float* __restrict__ c_bnd,         // (S, 2, NSEG, B, H)
                                    int B, int T, int I, int H, int K, int nseg) {
     extern __shared__ float smem[];
     const int G = 4 * H;
+    const size_t model = blockIdx.z;
+    x += model * B * T * I;
+    h_seq += model * B * T * 2 * H;
+    w_ih_t += model * 2 * I * G;
+    w_hh_t += model * 2 * H * G;
+    bias += model * 2 * G;
+    c_bnd += model * 2 * nseg * B * H;
     float* xs = smem;          // (kBt, I): x_t of this tile
     float* hs = xs + kBt * I;  // (kBt, H): stored h_prev
     float* gs = hs + kBt * H;  // (kBt, G): gate pre-activations
@@ -121,21 +130,33 @@ __global__ void bilstm_cbnd_kernel(const float* __restrict__ x,       // (B, T, 
     }
 }
 
-__global__ void bilstm_segbwd_kernel(const float* __restrict__ dh_seq,  // (B, T, 2H)
-                                     const float* __restrict__ x,       // (B, T, I)
-                                     const float* __restrict__ h_seq,   // (B, T, 2H)
-                                     const float* __restrict__ c_bnd,   // (2, NSEG, B, H)
-                                     const float* __restrict__ w_ih_t,  // (2, I, 4H)
-                                     const float* __restrict__ w_hh_t,  // (2, H, 4H)
-                                     const float* __restrict__ w_ih,    // (2, 4H, I)
-                                     const float* __restrict__ w_hh,    // (2, 4H, H)
-                                     const float* __restrict__ bias,    // (2, 4H)
-                                     float* __restrict__ dx_pk,         // (2, B, T, I)
-                                     float* __restrict__ dw_part,       // (tiles, 2, R, 4H)
+__global__ void bilstm_segbwd_kernel(const float* __restrict__ dh_seq,  // (S, B, T, 2H)
+                                     const float* __restrict__ x,       // (S, B, T, I)
+                                     const float* __restrict__ h_seq,   // (S, B, T, 2H)
+                                     const float* __restrict__ c_bnd,   // (S, 2, NSEG, B, H)
+                                     const float* __restrict__ w_ih_t,  // (S, 2, I, 4H)
+                                     const float* __restrict__ w_hh_t,  // (S, 2, H, 4H)
+                                     const float* __restrict__ w_ih,    // (S, 2, 4H, I)
+                                     const float* __restrict__ w_hh,    // (S, 2, 4H, H)
+                                     const float* __restrict__ bias,    // (S, 2, 4H)
+                                     float* __restrict__ dx_pk,         // (S, 2, B, T, I)
+                                     float* __restrict__ dw_part,       // (S, tiles, 2, R, 4H)
                                      int B, int T, int I, int H, int K, int nseg) {
     extern __shared__ float smem[];
     const int G = 4 * H;
     const int R = I + H + 1;
+    const size_t model = blockIdx.z;
+    dh_seq += model * B * T * 2 * H;
+    x += model * B * T * I;
+    h_seq += model * B * T * 2 * H;
+    c_bnd += model * 2 * nseg * B * H;
+    w_ih_t += model * 2 * I * G;
+    w_hh_t += model * 2 * H * G;
+    w_ih += model * 2 * G * I;
+    w_hh += model * 2 * G * H;
+    bias += model * 2 * G;
+    dx_pk += model * 2 * B * T * I;
+    dw_part += model * gridDim.x * 2 * R * G;
     const int rowsz = kBt * H;
     float* xs = smem;                      // (K, kBt, I)
     float* hps = xs + K * kBt * I;         // (K, kBt, H): h_prev of each row
@@ -331,15 +352,15 @@ __global__ void bilstm_segbwd_kernel(const float* __restrict__ dh_seq,  // (B, T
 }  // namespace
 
 extern "C" int msa_bilstm_cbnd(const float* x, const float* h_seq, const float* w_ih_t,
-                               const float* w_hh_t, const float* bias, float* c_bnd, int B,
-                               int T, int I, int H, int K, int device, void* stream) {
+                               const float* w_hh_t, const float* bias, float* c_bnd, int S,
+                               int B, int T, int I, int H, int K, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const size_t smem = sizeof(float) * kBt * (I + H + 4 * H);
     err = allow_dynamic_smem(bilstm_cbnd_kernel, smem);
     if (err != cudaSuccess) return err;
     const int nseg = (T + K - 1) / K;
-    const dim3 grid((B + kBt - 1) / kBt, 2);
+    const dim3 grid((B + kBt - 1) / kBt, 2, S);
     bilstm_cbnd_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
         x, h_seq, w_ih_t, w_hh_t, bias, c_bnd, B, T, I, H, K, nseg);
     return cudaGetLastError();
@@ -348,15 +369,15 @@ extern "C" int msa_bilstm_cbnd(const float* x, const float* h_seq, const float* 
 extern "C" int msa_bilstm_segbwd(const float* dh_seq, const float* x, const float* h_seq,
                                  const float* c_bnd, const float* w_ih_t, const float* w_hh_t,
                                  const float* w_ih, const float* w_hh, const float* bias,
-                                 float* dx_pk, float* dw_part, int B, int T, int I, int H,
-                                 int K, int device, void* stream) {
+                                 float* dx_pk, float* dw_part, int S, int B, int T, int I,
+                                 int H, int K, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const size_t smem = sizeof(float) * kBt * (K * (I + H + 4 * H) + (K + 1) * H + 5 * H);
     err = allow_dynamic_smem(bilstm_segbwd_kernel, smem);
     if (err != cudaSuccess) return err;
     const int nseg = (T + K - 1) / K;
-    const dim3 grid((B + kBt - 1) / kBt, 2);
+    const dim3 grid((B + kBt - 1) / kBt, 2, S);
     bilstm_segbwd_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
         dh_seq, x, h_seq, c_bnd, w_ih_t, w_hh_t, w_ih, w_hh, bias, dx_pk, dw_part, B, T, I, H, K,
         nseg);

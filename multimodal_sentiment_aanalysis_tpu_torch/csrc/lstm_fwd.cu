@@ -1,4 +1,5 @@
-// Bidirectional LSTM layer forward, both directions in one launch.
+// Bidirectional LSTM layer forward, both directions and all S models in one
+// launch.
 //
 // Replaces multimodal_sentiment_aanalysis_tpu/kernels/lstm.py::_fwd_xproj_kernel
 // (the v6 in-kernel-projection forward): per step the gates are
@@ -13,9 +14,11 @@
 // L2 every step: the kernel is bound by the per-SM L2 read rate and the
 // serial step chain, not by FLOPs.
 //
-// Design: one block per (batch tile of kBt rows, direction) with a loop over
-// T inside the block; that loop takes the place of the TPU grid's
-// sequential time axis. Thread g of the 4H threads owns gate column g: it
+// Design: one block per (batch tile of kBt rows, direction, model) with a
+// loop over T inside the block; that loop takes the place of the TPU grid's
+// sequential time axis. The model axis S (the LOSO trainer's 24 models under
+// torch.func.vmap) is the grid's z axis: each block offsets every operand by
+// its model, so shared memory per block does not grow with S. Thread g of the 4H threads owns gate column g: it
 // streams column g of W_ih^T and W_hh^T (coalesced across the warp) and
 // reuses each weight for the kBt batch rows held in registers, against x_t
 // and h_{t-1} broadcast from shared memory. A cell phase then applies the
@@ -30,14 +33,20 @@ namespace {
 
 constexpr int kBt = 8;  // batch rows per block; kBt * H == 2 * (4H threads)
 
-__global__ void bilstm_fwd_kernel(const float* __restrict__ x,       // (B, T, I)
-                                  const float* __restrict__ w_ih_t,  // (2, I, 4H)
-                                  const float* __restrict__ w_hh_t,  // (2, H, 4H)
-                                  const float* __restrict__ bias,    // (2, 4H)
-                                  float* __restrict__ h_seq,         // (B, T, 2H)
+__global__ void bilstm_fwd_kernel(const float* __restrict__ x,       // (S, B, T, I)
+                                  const float* __restrict__ w_ih_t,  // (S, 2, I, 4H)
+                                  const float* __restrict__ w_hh_t,  // (S, 2, H, 4H)
+                                  const float* __restrict__ bias,    // (S, 2, 4H)
+                                  float* __restrict__ h_seq,         // (S, B, T, 2H)
                                   int B, int T, int I, int H) {
     extern __shared__ float smem[];
     const int G = 4 * H;
+    const size_t model = blockIdx.z;
+    x += model * B * T * I;
+    w_ih_t += model * 2 * I * G;
+    w_hh_t += model * 2 * H * G;
+    bias += model * 2 * G;
+    h_seq += model * B * T * 2 * H;
     float* xs = smem;           // (kBt, I): x_t of this tile
     float* hs = xs + kBt * I;   // (kBt, H): h_{t-1}
     float* gs = hs + kBt * H;   // (kBt, G): gate pre-activations
@@ -101,14 +110,14 @@ __global__ void bilstm_fwd_kernel(const float* __restrict__ x,       // (B, T, I
 }  // namespace
 
 extern "C" int msa_bilstm_fwd(const float* x, const float* w_ih_t, const float* w_hh_t,
-                              const float* bias, float* h_seq, int B, int T, int I, int H,
-                              int device, void* stream) {
+                              const float* bias, float* h_seq, int S, int B, int T, int I,
+                              int H, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const size_t smem = sizeof(float) * kBt * (I + H + 4 * H);
     err = allow_dynamic_smem(bilstm_fwd_kernel, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((B + kBt - 1) / kBt, 2);
+    const dim3 grid((B + kBt - 1) / kBt, 2, S);
     bilstm_fwd_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
         x, w_ih_t, w_hh_t, bias, h_seq, B, T, I, H);
     return cudaGetLastError();

@@ -4,22 +4,28 @@
 // Replaces multimodal_sentiment_aanalysis_tpu/kernels/conv_stem_train.py::
 // _fwd_kernel (msa_stem_tail) and ::_bwd_kernel (msa_stem_tail_bwd).
 //
-// Forward: one pass over conv (B, T, C). BN with the statistics it is given
-// (batch stats in train mode, running stats in eval), exact erf-GELU,
-// dropout with keep probability 1 - p drawn from Philox4x32-10 keyed by a
-// seed the wrapper draws from a torch.Generator (read from device memory,
-// so drawing it never syncs the host), and MaxPool(pool) routed to the first
-// max, as torch MaxPool1d. No mask tensor exists: the keep bit of element
-// (b, t, c) is a pure function of (seed, flat index). Besides the pooled
-// output it can write one int32 code per pooled cell, winner index +
-// pool * keep bit, which is all the backward needs.
+// Both kernels take a leading model axis S (the LOSO trainer's models under
+// torch.func.vmap): conv (S, B, T, C) and per-model (S, C) statistics and
+// affine parameters, all S models in one launch.
+//
+// Forward: one pass over conv. BN with the statistics it is given (batch
+// stats in train mode, running stats in eval), exact erf-GELU, dropout with
+// keep probability 1 - p drawn from Philox4x32-10 keyed by one seed per
+// model that the wrapper draws from a torch.Generator (read from device
+// memory, so drawing it never syncs the host), and MaxPool(pool) routed to
+// the first max, as torch MaxPool1d. No mask tensor exists: the keep bit of
+// element (b, t, c) of model s is a pure function of (seed[s], flat index
+// within the model). Besides the pooled output it can write one int32 code
+// per pooled cell, winner index + pool * keep bit, which is all the backward
+// needs.
 //
 // Backward: one thread per pooled cell reads the code, re-reads the
 // winner's conv value, applies ONE gelu_grad, scales kept cells by 1/(1-p),
 // writes dy over the covered rows (B, t_out * pool, C) and accumulates
 // g * xhat and g per channel. Per-block partial sums of dgamma and dbeta
-// are reduced in a fixed order inside the block and written per row chunk;
-// the wrapper sums the chunks in a second pass (deterministic, no atomics).
+// are reduced in a fixed order inside the block and written per (model, row
+// chunk); the wrapper sums the chunks in a second pass (deterministic, no
+// atomics). The grid's z axis is the model.
 // The BN input-gradient combine stays in torch, as it stays in XLA in JAX.
 //
 // What bounds it on the H100: bytes. Stage 1 (B=64, T=585, C=64, fp32)
@@ -60,29 +66,32 @@ __device__ __forceinline__ uint32_t philox_bits(uint64_t counter, uint64_t seed)
     return x0;
 }
 
-__global__ void stem_tail_fwd_kernel(const float* __restrict__ conv,  // (B, T, C)
-                                     const float* __restrict__ gamma,
-                                     const float* __restrict__ beta,
-                                     const float* __restrict__ mean,
-                                     const float* __restrict__ var, float eps,
-                                     float keep_scale, uint32_t threshold,
-                                     const long long* __restrict__ seed_ptr,
-                                     float* __restrict__ out,   // (B, t_out, C)
-                                     int* __restrict__ code,    // (B, t_out, C) or null
-                                     int B, int T, int C, int pool, int t_out) {
+__global__ void stem_tail_fwd_kernel(const float* __restrict__ conv,   // (S, B, T, C)
+                                     const float* __restrict__ gamma,  // (S, C)
+                                     const float* __restrict__ beta,   // (S, C)
+                                     const float* __restrict__ mean,   // (S, C)
+                                     const float* __restrict__ var,    // (S, C)
+                                     float eps, float keep_scale, uint32_t threshold,
+                                     const long long* __restrict__ seeds,  // (S,)
+                                     float* __restrict__ out,   // (S, B, t_out, C)
+                                     int* __restrict__ code,    // (S, B, t_out, C) or null
+                                     int S, int B, int T, int C, int pool, int t_out) {
     const bool drop = threshold != 0u;
-    const uint64_t seed = drop ? static_cast<uint64_t>(*seed_ptr) : 0ull;
-    const size_t n = static_cast<size_t>(B) * t_out * C;
+    const size_t n = static_cast<size_t>(S) * B * t_out * C;
+    const size_t model_size = static_cast<size_t>(B) * T * C;
     const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
     for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
          i += stride) {
         const int c = static_cast<int>(i % C);
         const size_t row = i / C;
         const int to = static_cast<int>(row % t_out);
-        const int b = static_cast<int>(row / t_out);
-        const float inv = rsqrtf(var[c] + eps);
-        const float mu = mean[c], ga = gamma[c], be = beta[c];
-        const size_t first = (static_cast<size_t>(b) * T + static_cast<size_t>(to) * pool) * C + c;
+        const size_t sb = row / t_out;  // model * B + batch row
+        const size_t s = sb / B;
+        const size_t pc = s * C + c;
+        const float inv = rsqrtf(var[pc] + eps);
+        const float mu = mean[pc], ga = gamma[pc], be = beta[pc];
+        const uint64_t seed = drop ? static_cast<uint64_t>(seeds[s]) : 0ull;
+        const size_t first = (sb * T + static_cast<size_t>(to) * pool) * C + c;
         float m = -INFINITY;
         int win = 0, kept = 1;
         for (int j = 0; j < pool; ++j) {
@@ -90,7 +99,7 @@ __global__ void stem_tail_fwd_kernel(const float* __restrict__ conv,  // (B, T, 
             float a = gelu_erf((conv[e] - mu) * inv * ga + be);
             int keep = 1;
             if (drop) {
-                keep = philox_bits(e, seed) >= threshold;
+                keep = philox_bits(e - s * model_size, seed) >= threshold;
                 a = keep ? a * keep_scale : 0.0f;
             }
             if (j == 0 || a > m) {  // first max wins, as torch MaxPool1d
@@ -107,20 +116,32 @@ __global__ void stem_tail_fwd_kernel(const float* __restrict__ conv,  // (B, T, 
 constexpr int kCh = 32;       // channels per block (threadIdx.x)
 constexpr int kRowLanes = 8;  // pooled rows in flight per block (threadIdx.y)
 
-__global__ void stem_tail_bwd_kernel(const float* __restrict__ conv,   // (B, T, C)
-                                     const float* __restrict__ dpool,  // (B, t_out, C)
-                                     const int* __restrict__ code,     // (B, t_out, C)
-                                     const float* __restrict__ scale,  // gamma * inv
-                                     const float* __restrict__ shift,  // beta - mean * scale
-                                     const float* __restrict__ mean,
-                                     const float* __restrict__ inv, float keep_scale,
-                                     float* __restrict__ dy,       // (B, t_out * pool, C)
-                                     float* __restrict__ dg_part,  // (chunks, C)
-                                     float* __restrict__ db_part,  // (chunks, C)
+__global__ void stem_tail_bwd_kernel(const float* __restrict__ conv,   // (S, B, T, C)
+                                     const float* __restrict__ dpool,  // (S, B, t_out, C)
+                                     const int* __restrict__ code,     // (S, B, t_out, C)
+                                     const float* __restrict__ scale,  // (S, C) gamma * inv
+                                     const float* __restrict__ shift,  // (S, C) beta - mean * scale
+                                     const float* __restrict__ mean,   // (S, C)
+                                     const float* __restrict__ inv,    // (S, C)
+                                     float keep_scale,
+                                     float* __restrict__ dy,       // (S, B, t_out * pool, C)
+                                     float* __restrict__ dg_part,  // (S, chunks, C)
+                                     float* __restrict__ db_part,  // (S, chunks, C)
                                      int B, int T, int C, int pool, int t_out,
                                      int rows_per_chunk) {
     __shared__ float red_g[kRowLanes][kCh];
     __shared__ float red_b[kRowLanes][kCh];
+    const size_t model = blockIdx.z;
+    conv += model * B * T * C;
+    dpool += model * B * t_out * C;
+    code += model * B * t_out * C;
+    scale += model * C;
+    shift += model * C;
+    mean += model * C;
+    inv += model * C;
+    dy += model * B * t_out * pool * C;
+    dg_part += model * gridDim.y * C;
+    db_part += model * gridDim.y * C;
     const int c = blockIdx.x * kCh + threadIdx.x;
     const int rows = B * t_out;
     const int r0 = blockIdx.y * rows_per_chunk;
@@ -161,18 +182,18 @@ __global__ void stem_tail_bwd_kernel(const float* __restrict__ conv,   // (B, T,
 
 extern "C" int msa_stem_tail(const float* conv, const float* gamma, const float* beta,
                              const float* mean, const float* var, float eps, float keep_scale,
-                             unsigned int threshold, const long long* seed, float* out,
-                             int* code, int B, int T, int C, int pool, int device,
+                             unsigned int threshold, const long long* seeds, float* out,
+                             int* code, int S, int B, int T, int C, int pool, int device,
                              void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const int t_out = T / pool;
-    const size_t n = static_cast<size_t>(B) * t_out * C;
+    const size_t n = static_cast<size_t>(S) * B * t_out * C;
     const int threads = 256;
     const size_t want = (n + threads - 1) / threads;
     const int blocks = static_cast<int>(want < 8192 ? want : 8192);
     stem_tail_fwd_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        conv, gamma, beta, mean, var, eps, keep_scale, threshold, seed, out, code, B, T, C,
+        conv, gamma, beta, mean, var, eps, keep_scale, threshold, seeds, out, code, S, B, T, C,
         pool, t_out);
     return cudaGetLastError();
 }
@@ -180,13 +201,13 @@ extern "C" int msa_stem_tail(const float* conv, const float* gamma, const float*
 extern "C" int msa_stem_tail_bwd(const float* conv, const float* dpool, const int* code,
                                  const float* scale, const float* shift, const float* mean,
                                  const float* inv, float keep_scale, float* dy, float* dg_part,
-                                 float* db_part, int B, int T, int C, int pool,
+                                 float* db_part, int S, int B, int T, int C, int pool,
                                  int rows_per_chunk, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const int t_out = T / pool;
     const int chunks = (B * t_out + rows_per_chunk - 1) / rows_per_chunk;
-    const dim3 grid((C + kCh - 1) / kCh, chunks);
+    const dim3 grid((C + kCh - 1) / kCh, chunks, S);
     const dim3 block(kCh, kRowLanes);
     stem_tail_bwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
         conv, dpool, code, scale, shift, mean, inv, keep_scale, dy, dg_part, db_part, B, T, C,

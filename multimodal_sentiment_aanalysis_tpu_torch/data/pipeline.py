@@ -4,7 +4,9 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/data/pipeline.py``: the
 whole dataset (~36 MB at MAHNOB-HCI size) is copied to the device once, and
 a batch is an ``index_select`` gather on the device. Epochs are static
 ``(n_batches, batch_size)`` index plans whose tail batch wraps around, with
-a validity mask for the padded rows.
+a validity mask for the padded rows: drawn on the host from a numpy
+generator (:func:`epoch_batch_indices`), or on the device from a
+``torch.Generator`` (:func:`epoch_plan_on_device`, no host sync).
 """
 
 from __future__ import annotations
@@ -93,3 +95,21 @@ class DeviceDataset:
         indices, mask = epoch_batch_indices(self.n, batch_size, rng, shuffle)
         return (torch.as_tensor(indices, device=self.device),
                 torch.as_tensor(mask, device=self.device))
+
+
+def epoch_plan_on_device(generator: torch.Generator, n: int,
+                         batch_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`epoch_batch_indices`' plan drawn on the generator's device:
+    ``torch.randperm`` from ``generator``, wrap-padded to whole batches and
+    masked, with nothing read back by the host. Returns int32 ``indices``
+    and float32 ``mask``, each ``(n_batches, batch_size)``. Counterpart of
+    the JAX ``epoch_plan_on_device`` (its shuffle draws from a JAX key, so
+    the two packages' orders differ)."""
+    device = generator.device
+    order = torch.randperm(n, generator=generator, device=device)
+    n_batches = -(-n // batch_size)
+    padded = n_batches * batch_size
+    tiled = order.repeat(-(-padded // n))[:padded]
+    mask = (torch.arange(padded, device=device) < n).to(torch.float32)
+    return (tiled.reshape(n_batches, batch_size).to(torch.int32),
+            mask.reshape(n_batches, batch_size))

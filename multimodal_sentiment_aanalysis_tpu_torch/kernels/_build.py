@@ -10,6 +10,10 @@ raises: there is no fallback to the plain PyTorch versions.
 Each C entry point takes device pointers, sizes, the device index and the
 stream, launches on that stream without synchronising, and returns
 ``cudaGetLastError()``; :meth:`CudaKernel.launch` raises if that is not 0.
+
+The training kernels take a leading model axis S (grid axis z), so under
+``torch.func.vmap`` each ``autograd.Function``'s ``vmap`` rule makes one
+launch for all S models; :func:`models_first` lays out that rule's inputs.
 """
 
 from __future__ import annotations
@@ -132,3 +136,29 @@ def check_cuda_f32(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+MAX_MODELS = 65535  # the largest grid z extent, the model axis of the S-axis kernels
+
+
+def with_models(*ts: torch.Tensor) -> tuple[tuple[torch.Tensor, ...], bool]:
+    """``(tensors with a leading model axis, whether it was added)``: one
+    model's tensors (the first one 3-D) get S = 1."""
+    one = ts[0].dim() == 3
+    return (tuple(t[None] for t in ts) if one else ts), one
+
+
+def models_first(info, in_dims, *args) -> list:
+    """A ``vmap`` rule's arguments with the model axis first: each batched
+    tensor moved to dim 0, each unbatched one expanded to
+    ``info.batch_size`` models, all contiguous (one S-wide launch reads
+    them); non-tensor arguments pass as they are."""
+    out = []
+    for a, d in zip(args, in_dims):
+        if not isinstance(a, torch.Tensor):
+            out.append(a)
+        elif d is None:
+            out.append(a.expand(info.batch_size, *a.shape).contiguous())
+        else:
+            out.append(a.movedim(d, 0).contiguous())
+    return out

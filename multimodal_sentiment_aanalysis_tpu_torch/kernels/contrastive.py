@@ -3,14 +3,20 @@
 Counterpart of ``multimodal_sentiment_aanalysis_tpu/kernels/contrastive.py``.
 :func:`fused_supervised_infonce_multi` is a ``torch.autograd.Function``:
 
-- forward: ``_infonce_kernel``'s computation for G problems in one launch
+- forward: ``_infonce_kernel``'s computation for P problems in one launch
   (``csrc/infonce.cu``): similarity ``n1 n2^T / temp``, positives by label
   equality with the diagonal zeroed and both axes masked by ``valid``,
   invalid columns at -1e30, row-max log-sum-exp, masked mean. The (B, B)
-  matrix stays on the chip. G = 3 is the three per-modality losses of a
-  train step; a single loss is G = 1 (:func:`fused_supervised_infonce`).
+  matrix stays on the chip. Each problem has its own labels, validity and
+  temperature: one train step's three per-modality losses are P = 3; under
+  ``torch.func.vmap`` over S models the Function's ``vmap`` rule makes one
+  launch of P = 3 S problems (the JAX package serializes S launches per loss
+  there, a TPU-only choice). A single loss is P = 1
+  (:func:`fused_supervised_infonce`).
 - backward: the JAX package's closed form ``_core_bwd`` in torch, including
-  the r_i term through the row max, which is real for rows with no positive.
+  the r_i term through the row max, which is real for rows with no positive;
+  written for one model, so under ``vmap`` each model gets its own
+  temperature gradient.
 
 L2 normalisation stays outside the kernel, so its gradient is autograd's.
 """
@@ -22,7 +28,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ._build import CudaKernel, check_cuda_f32, ptr
+from ._build import CudaKernel, check_cuda_f32, models_first, ptr
 
 KERNEL = CudaKernel(
     "infonce", "msa_infonce",
@@ -37,49 +43,53 @@ MAX_BATCH = _MAX_SMEM // (4 * _ROWS_PER_BLOCK)
 
 
 def _masked_sim(n1, n2, labels, valid, temp):
-    """``(raw, shifted, e, pos)`` of every problem: the kernel's forward."""
-    b = n1.shape[1]
-    raw = n1 @ n2.transpose(1, 2)
-    pos = (labels[:, None] == labels[None, :]).to(raw.dtype)
+    """``(raw, shifted, e, pos)`` of every problem: the kernel's forward.
+    ``labels``/``valid`` are ``(B,)`` shared by the problems or ``(P, B)``
+    per problem; ``temp`` a scalar or ``(P,)``."""
+    b = n1.shape[-2]
+    raw = n1 @ n2.transpose(-1, -2)
+    pos = (labels[..., :, None] == labels[..., None, :]).to(raw.dtype)
     pos = pos * (1.0 - torch.eye(b, dtype=raw.dtype, device=raw.device))
-    pos = pos * valid[:, None] * valid[None, :]
-    sim = torch.where(valid[None, :] > 0, raw / temp, _NEG)
-    shifted = sim - sim.amax(dim=2, keepdim=True)
+    pos = pos * valid[..., :, None] * valid[..., None, :]
+    sim = torch.where(valid[..., None, :] > 0, raw / temp[..., None, None], _NEG)
+    shifted = sim - sim.amax(dim=-1, keepdim=True)
     return raw, shifted, torch.exp(shifted), pos
 
 
 def infonce_plain(n1, n2, labels, valid, temp) -> torch.Tensor:
-    """Plain PyTorch version of the forward kernel: ``(G,)`` losses from
-    normalised ``n1, n2 (G, B, D)``, ``labels (B,)``, ``valid (B,)`` and a
-    scalar ``temp``."""
+    """Plain PyTorch version of the forward kernel: ``(P,)`` losses from
+    normalised ``n1, n2 (P, B, D)``, ``labels`` and ``valid`` ``(P, B)``
+    (or ``(B,)`` shared) and ``temp`` ``(P,)`` (or a scalar)."""
     _, _, e, pos = _masked_sim(n1, n2, labels, valid, temp)
-    p = (e * pos).sum(2)
-    a = e.sum(2)
+    p = (e * pos).sum(-1)
+    a = e.sum(-1)
     loss = -torch.log((p + _EPS) / (a + _EPS))
-    return (loss * valid).sum(1) / valid.sum().clamp_min(1.0)
+    return (loss * valid).sum(-1) / valid.sum(-1).clamp_min(1.0)
 
 
 def infonce(n1, n2, labels, valid, temp) -> torch.Tensor:
-    """The forward kernel on normalised features: ``(G,)`` losses. A CPU
-    tensor takes :func:`infonce_plain`; a CUDA tensor launches the kernel,
-    or raises."""
+    """The forward kernel on normalised features: ``(P,)`` losses of ``n1,
+    n2 (P, B, D)`` with per-problem ``labels (P, B)`` int64, ``valid
+    (P, B)`` and ``temp (P,)``. A CPU tensor takes :func:`infonce_plain`; a
+    CUDA tensor launches the kernel, or raises."""
     if n1.device.type == "cpu":
         return infonce_plain(n1, n2, labels, valid, temp)
     if n1.device.type != "cuda":
         raise ValueError(f"no InfoNCE kernel for device {n1.device}")
     device = n1.device
     if n1.dim() != 3 or 0 in n1.shape:
-        raise ValueError(f"features must be non-empty (G, B, D), got {tuple(n1.shape)}")
+        raise ValueError(f"features must be non-empty (P, B, D), got {tuple(n1.shape)}")
     g, b, d = n1.shape
     if b > MAX_BATCH:
         raise ValueError(f"batch {b} > {MAX_BATCH}: each row keeps B floats in shared memory")
     check_cuda_f32("n1", n1, device)
     check_cuda_f32("n2", n2, device, (g, b, d))
-    check_cuda_f32("valid", valid, device, (b,))
-    check_cuda_f32("temp", temp, device, ())
-    if labels.dtype != torch.int64 or labels.device != device or tuple(labels.shape) != (b,):
-        raise ValueError("labels must be an int64 (B,) tensor on the features' device")
-    labels = labels.contiguous()
+    check_cuda_f32("valid", valid, device, (g, b))
+    check_cuda_f32("temp", temp, device, (g,))
+    if (labels.dtype != torch.int64 or labels.device != device
+            or tuple(labels.shape) != (g, b) or not labels.is_contiguous()):
+        raise ValueError("labels must be a contiguous int64 (P, B) tensor on the features' "
+                         "device")
     row_loss = torch.empty(g, b, device=device, dtype=torch.float32)
     loss = torch.empty(g, device=device, dtype=torch.float32)
     KERNEL.launch(device, ptr(n1), ptr(n2), ptr(labels), ptr(valid), ptr(temp),
@@ -87,12 +97,25 @@ def infonce(n1, n2, labels, valid, temp) -> torch.Tensor:
     return loss
 
 
+def _per_problem(n1, labels, valid, temp):
+    """One model's shared ``labels``/``valid`` ``(B,)`` and scalar ``temp``
+    repeated for each of its G problems, contiguous."""
+    g, b = n1.shape[:2]
+    return (labels.expand(g, b).contiguous(), valid.expand(g, b).contiguous(),
+            temp.reshape(1).expand(g).contiguous())
+
+
 class _InfoNCE(torch.autograd.Function):
+    """G losses of one model from ``n1, n2 (G, B, D)``, ``labels (B,)``,
+    ``valid (B,)`` and a scalar ``temp``."""
+
     @staticmethod
-    def forward(ctx, n1, n2, labels, valid, temp):
-        loss = infonce(n1, n2, labels, valid, temp)
-        ctx.save_for_backward(n1, n2, labels, valid, temp)
-        return loss
+    def forward(n1, n2, labels, valid, temp):
+        return infonce(n1.contiguous(), n2.contiguous(), *_per_problem(n1, labels, valid, temp))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):
@@ -110,8 +133,19 @@ class _InfoNCE(torch.autograd.Function):
         grad_s = grad_s - r * is_max / is_max.sum(2, keepdim=True)
         dn1 = (grad_s @ n2) / temp
         dn2 = (grad_s.transpose(1, 2) @ n1) / temp
+        # the model's one temperature: summed over its G problems
         dtemp = -(grad_s * raw).sum() / (temp * temp)
         return dn1, dn2, None, None, dtemp.reshape(temp.shape)
+
+    @staticmethod
+    def vmap(info, in_dims, n1, n2, labels, valid, temp):
+        """All S models' G problems as one launch of P = S G problems."""
+        n1, n2, labels, valid, temp = models_first(info, in_dims, n1, n2, labels, valid, temp)
+        s, g, b, d = n1.shape
+        per_model = lambda v: v[:, None].expand(s, g, *v.shape[1:]).reshape(s * g, *v.shape[1:])
+        loss = infonce(n1.reshape(s * g, b, d), n2.reshape(s * g, b, d), per_model(labels),
+                       per_model(valid), per_model(temp))
+        return loss.reshape(s, g), 0
 
 
 def _valid(mask: torch.Tensor | None, b: int, like: torch.Tensor) -> torch.Tensor:
@@ -126,7 +160,8 @@ def fused_supervised_infonce_multi(feats1: torch.Tensor, feats2: torch.Tensor,
     """G supervised-InfoNCE losses sharing labels, mask and temperature, in
     one launch: ``feats1, feats2 (G, B, D)`` -> ``(G,)``. Same numerics as G
     calls of :func:`..ops.losses.supervised_infonce`. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel, or raises."""
+    the plain version; a CUDA tensor launches the kernel, or raises; under
+    ``torch.func.vmap`` over S models it is one launch for all S G losses."""
     temp = torch.as_tensor(temperature, dtype=feats1.dtype, device=feats1.device)
     b = feats1.shape[1]
     return _InfoNCE.apply(F.normalize(feats1, dim=2, eps=_EPS), F.normalize(feats2, dim=2, eps=_EPS),

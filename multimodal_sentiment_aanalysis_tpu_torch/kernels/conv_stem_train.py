@@ -17,6 +17,13 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/kernels/conv_stem_train.py``
   input-gradient combine ``inv * gamma * (dy - dbeta/N - xhat * dgamma/N)``
   and the zero tail rows stay in torch, as ``_fst_bwd`` keeps them in XLA.
 
+Both kernels and their plain versions also take a leading model axis S:
+``conv (S, B, T, C)`` with ``(S, C)`` statistics and affine parameters, one
+Philox seed per model drawn on the device, and per-model codes and
+partials, all S models in one launch. Under ``torch.func.vmap`` (with
+``randomness="different"`` when p > 0) the Functions' ``vmap`` rules make
+that one launch.
+
 The statistics enter without gradient (the caller computes them under
 ``no_grad``): the combine already carries their dependence, as in JAX.
 
@@ -31,17 +38,17 @@ import ctypes
 
 import torch
 
-from ._build import CudaKernel, check_cuda_f32, ptr
+from ._build import MAX_MODELS, CudaKernel, check_cuda_f32, models_first, ptr, with_models
 from .conv_stem import gelu_max_pool
 
 KERNEL = CudaKernel(
     "stem_tail", "msa_stem_tail",
     [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_float, ctypes.c_uint]
-    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4,
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5,
 )
 BWD_KERNEL = CudaKernel(
     "stem_tail", "msa_stem_tail_bwd",
-    [ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5,
+    [ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6,
 )
 
 _ROWS_PER_CHUNK = 64  # pooled rows per partial dgamma/dbeta sum in the backward
@@ -56,18 +63,24 @@ def _threshold(p: float) -> int:
     return min(int(round(p * 2.0 ** 32)), 2 ** 32 - 1)
 
 
+
+def _per_channel(v: torch.Tensor) -> torch.Tensor:
+    """``(S, C)`` per-model channel values, broadcastable over ``(S, B, T, C)``."""
+    return v[:, None, None, :]
+
+
 def _check_args(conv, gamma, beta, mean, var, p: float, pool: int) -> None:
     if not 0.0 <= p < 1.0:
         raise ValueError(f"dropout rate {p} outside [0, 1)")
-    if conv.dim() != 3 or 0 in conv.shape or not 1 <= pool <= conv.shape[1]:
-        raise ValueError(f"conv must be a non-empty (B, T, C) tensor with T >= pool {pool}")
+    if conv.dim() not in (3, 4) or 0 in conv.shape or not 1 <= pool <= conv.shape[-2]:
+        raise ValueError(f"conv must be a non-empty (B, T, C) or (S, B, T, C) tensor with "
+                         f"T >= pool {pool}")
     if conv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no stem-tail kernel for device {conv.device}")
     if conv.device.type == "cuda":
-        c = conv.shape[2]
         check_cuda_f32("conv", conv, conv.device)
         for name, v in (("gamma", gamma), ("beta", beta), ("mean", mean), ("var", var)):
-            check_cuda_f32(name, v, conv.device, (c,))
+            check_cuda_f32(name, v, conv.device, conv.shape[:-3] + conv.shape[-1:])
 
 
 # --------------------------------------------------------------------------
@@ -80,26 +93,29 @@ def stem_tail_fwd(conv, gamma, beta, mean, var, p: float, pool: int, eps: float 
     """The forward kernel: ``(pooled, code)``, ``code`` None unless
     ``with_code``. A CPU tensor takes :func:`fused_stage_train_plain` with
     a keep mask drawn by ``torch.rand`` from ``generator``; a CUDA tensor
-    launches the kernel (its Philox seed drawn on the device from
-    ``generator``), or raises."""
+    launches the kernel (its Philox seeds, one per model, drawn on the
+    device from ``generator``), or raises."""
     _check_args(conv, gamma, beta, mean, var, p, pool)
     if conv.device.type == "cpu":
         keep = torch.rand(conv.shape, generator=generator) >= p if p > 0.0 else None
         res = fused_stage_train_plain(conv, gamma, beta, mean, var, pool, eps, p, keep,
                                       with_code)
         return res if with_code else (res, None)
-    b, t, c = conv.shape
+    (conv, gamma, beta, mean, var), one = with_models(conv, gamma, beta, mean, var)
+    s, b, t, c = conv.shape
     device = conv.device
-    out = torch.empty(b, t // pool, c, device=device, dtype=torch.float32)
-    code = (torch.empty(b, t // pool, c, device=device, dtype=torch.int32)
+    out = torch.empty(s, b, t // pool, c, device=device, dtype=torch.float32)
+    code = (torch.empty(s, b, t // pool, c, device=device, dtype=torch.int32)
             if with_code else None)
-    seed = None
+    seeds = None
     if p > 0.0:  # drawn on the device: no host sync
-        seed = torch.randint(0, 2 ** 62, (1,), device=device, dtype=torch.int64,
-                             generator=generator)
+        seeds = torch.randint(0, 2 ** 62, (s,), device=device, dtype=torch.int64,
+                              generator=generator)
     KERNEL.launch(device, ptr(conv), ptr(gamma), ptr(beta), ptr(mean), ptr(var), eps,
-                  _keep_scale(p), _threshold(p), ptr(seed) if seed is not None else None,
-                  ptr(out), ptr(code) if code is not None else None, b, t, c, pool)
+                  _keep_scale(p), _threshold(p), ptr(seeds) if seeds is not None else None,
+                  ptr(out), ptr(code) if code is not None else None, s, b, t, c, pool)
+    if one:
+        return out[0], code[0] if code is not None else None
     return out, code
 
 
@@ -107,47 +123,60 @@ def fused_stage_train_plain(conv, gamma, beta, mean, var, pool: int, eps: float 
                             p: float = 0.0, keep: torch.Tensor | None = None,
                             with_code: bool = False):
     """Plain PyTorch version of the forward kernel. ``keep`` is the
-    ``(B, T, C)`` keep mask (True = kept), needed when ``p > 0``. Returns
-    the pooled ``(B, T // pool, C)``, or ``(pooled, code)`` with
-    ``with_code``."""
-    y = (conv - mean) * torch.rsqrt(var + eps) * gamma + beta
-    if p == 0.0 and not with_code:
-        return gelu_max_pool(y, pool)
-    b, t, c = conv.shape
+    ``(B, T, C)`` (or ``(S, B, T, C)``) keep mask (True = kept), needed when
+    ``p > 0``. Returns the pooled ``(B, T // pool, C)``, or ``(pooled,
+    code)`` with ``with_code``."""
+    (conv, gamma, beta, mean, var), one = with_models(conv, gamma, beta, mean, var)
+    y = ((conv - _per_channel(mean)) * torch.rsqrt(_per_channel(var) + eps)
+         * _per_channel(gamma) + _per_channel(beta))
+    s, b, t, c = conv.shape
     t_out = t // pool
-    a = torch.nn.functional.gelu(y[:, : t_out * pool]).reshape(b, t_out, pool, c)
+    if p == 0.0 and not with_code:
+        out = gelu_max_pool(y.reshape(s * b, t, c), pool).reshape(s, b, t_out, c)
+        return out[0] if one else out
+    a = torch.nn.functional.gelu(y[:, :, : t_out * pool]).reshape(s, b, t_out, pool, c)
     kept = torch.ones_like(a, dtype=torch.bool)
     if p > 0.0:
         if keep is None:
             raise ValueError("p > 0 needs a keep mask")
-        kept = keep[:, : t_out * pool].reshape(b, t_out, pool, c)
+        keep = keep[None] if one else keep
+        kept = keep[:, :, : t_out * pool].reshape(s, b, t_out, pool, c)
         a = torch.where(kept, a * _keep_scale(p), 0.0)
-    out, win = a.max(dim=2)  # first max wins, as torch MaxPool1d
-    if not with_code:
-        return out
-    kw = kept.gather(2, win[:, :, None]).squeeze(2)
-    return out, (win + pool * kw).to(torch.int32)
+    out, win = a.max(dim=3)  # first max wins, as torch MaxPool1d
+    if with_code:
+        kw = kept.gather(3, win[:, :, :, None]).squeeze(3)
+        code = (win + pool * kw).to(torch.int32)
+        return (out[0], code[0]) if one else (out, code)
+    return out[0] if one else out
 
 
 class _StemTail(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, conv, gamma, beta, mean, var, p, pool, eps, generator, with_code):
-        out, code = stem_tail_fwd(conv, gamma, beta, mean, var, p, pool, eps, generator,
-                                  with_code)
-        if with_code:
-            ctx.save_for_backward(conv, gamma, beta, mean, var, code)
-            ctx.p, ctx.pool, ctx.eps = p, pool, eps
-        return out
+    """The stem tail; returns ``(pooled, code)`` when ``with_code``, else
+    ``pooled``."""
 
     @staticmethod
-    def backward(ctx, dpool):
+    def forward(conv, gamma, beta, mean, var, p, pool, eps, generator, with_code):
+        out, code = stem_tail_fwd(conv, gamma, beta, mean, var, p, pool, eps, generator,
+                                  with_code)
+        return (out, code) if with_code else out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        conv, gamma, beta, mean, var, p, pool, eps, _, with_code = inputs
+        ctx.p, ctx.pool, ctx.eps = p, pool, eps
+        if with_code:
+            ctx.mark_non_differentiable(output[1])
+            ctx.save_for_backward(conv, gamma, beta, mean, var, output[1])
+
+    @staticmethod
+    def backward(ctx, dpool, *_):
         conv, gamma, beta, mean, var, code = ctx.saved_tensors
         p, pool, eps = ctx.p, ctx.pool, ctx.eps
         inv = torch.rsqrt(var + eps)
         scale = gamma * inv
         shift = beta - mean * scale
-        dy_cov, dg_part, db_part = stem_tail_bwd(conv, dpool.contiguous(), code, scale,
-                                                 shift, mean, inv, p, pool)
+        dy_cov, dg_part, db_part = _StemTailBwd.apply(conv, dpool, code, scale, shift, mean,
+                                                      inv, p, pool)
         dgamma, dbeta = dg_part.sum(0), db_part.sum(0)
         b, t, c = conv.shape
         dy = torch.nn.functional.pad(dy_cov, (0, 0, 0, t - dy_cov.shape[1]))
@@ -155,6 +184,15 @@ class _StemTail(torch.autograd.Function):
         xhat = (conv - mean) * inv
         dconv = (inv * gamma) * (dy - dbeta / n - xhat * (dgamma / n))
         return dconv, dgamma, dbeta, None, None, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, conv, gamma, beta, mean, var, p, pool, eps, generator, with_code):
+        if p > 0.0 and info.randomness != "different":
+            raise ValueError("stem-tail dropout under vmap draws one mask per model: "
+                             "use randomness='different'")
+        args = models_first(info, in_dims[:5], conv, gamma, beta, mean, var)
+        out, code = stem_tail_fwd(*args, p, pool, eps, generator, with_code)
+        return ((out, code), (0, 0)) if with_code else (out, 0)
 
 
 def fused_stage_train(conv: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -168,12 +206,15 @@ def fused_stage_train(conv: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
 
     Dropout draws from ``generator`` (on the tensor's device; the default
     generator when None). A CPU tensor takes the plain versions; a CUDA
-    tensor launches the kernels, or raises.
+    tensor launches the kernels, or raises. The code for the backward is
+    written when a gradient can flow, under autograd or under
+    ``torch.func.grad``.
     """
     with_code = torch.is_grad_enabled() and any(
         v.requires_grad for v in (conv, gamma, beta))  # the backward's routing table
-    return _StemTail.apply(conv, gamma, beta, mean, var, float(p), pool, eps, generator,
-                           with_code)
+    res = _StemTail.apply(conv, gamma, beta, mean, var, float(p), pool, eps, generator,
+                          with_code)
+    return res[0] if with_code else res
 
 
 # --------------------------------------------------------------------------
@@ -182,46 +223,79 @@ def fused_stage_train(conv: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
 
 
 def stem_tail_bwd_plain(conv, dpool, code, scale, shift, mean, inv, p: float, pool: int):
-    """Plain PyTorch version of :func:`stem_tail_bwd` (one partial chunk)."""
-    b, t, c = conv.shape
-    t_out = dpool.shape[1]
+    """Plain PyTorch version of :func:`stem_tail_bwd` (one partial chunk
+    per model)."""
+    (conv, dpool, code, scale, shift, mean, inv), one = with_models(
+        conv, dpool, code, scale, shift, mean, inv)
+    s, b, t, c = conv.shape
+    t_out = dpool.shape[2]
     code = code.long()
     jwin = code % pool
-    x = conv[:, : t_out * pool].reshape(b, t_out, pool, c).gather(2, jwin[:, :, None]).squeeze(2)
-    y = x * scale + shift
+    x = conv[:, :, : t_out * pool].reshape(s, b, t_out, pool, c).gather(
+        3, jwin[:, :, :, None]).squeeze(3)
+    y = x * _per_channel(scale) + _per_channel(shift)
     phi = torch.exp(-0.5 * y * y) * 0.3989422804014327
     g = dpool * (0.5 * (1.0 + torch.erf(y * 0.7071067811865476)) + y * phi)
     g = torch.where(code >= pool, g * _keep_scale(p), 0.0)
-    dy = torch.zeros(b, t_out, pool, c, dtype=conv.dtype, device=conv.device)
-    dy.scatter_(2, jwin[:, :, None], g[:, :, None])
-    xhat = (x - mean) * inv
-    return (dy.reshape(b, t_out * pool, c), (g * xhat).sum((0, 1))[None],
-            g.sum((0, 1))[None])
+    dy = torch.zeros(s, b, t_out, pool, c, dtype=conv.dtype, device=conv.device)
+    dy.scatter_(3, jwin[:, :, :, None], g[:, :, :, None])
+    xhat = (x - _per_channel(mean)) * _per_channel(inv)
+    res = (dy.reshape(s, b, t_out * pool, c), (g * xhat).sum((1, 2))[:, None],
+           g.sum((1, 2))[:, None])
+    return tuple(r[0] for r in res) if one else res
 
 
 def stem_tail_bwd(conv, dpool, code, scale, shift, mean, inv, p: float, pool: int):
     """Winner-routed backward of the stem tail: ``(dy (B, t_out * pool, C),
-    dgamma partials (chunks, C), dbeta partials (chunks, C))``; the caller
-    sums the partials over their first axis. ``scale = gamma * inv`` and
-    ``shift = beta - mean * scale`` with ``inv = rsqrt(var + eps)``."""
+    dgamma partials (chunks, C), dbeta partials (chunks, C))``, each with a
+    leading S where the inputs have one; the caller sums the partials over
+    their chunk axis. ``scale = gamma * inv`` and ``shift = beta - mean *
+    scale`` with ``inv = rsqrt(var + eps)``."""
     if conv.device.type == "cpu":
         return stem_tail_bwd_plain(conv, dpool, code, scale, shift, mean, inv, p, pool)
     if conv.device.type != "cuda":
         raise ValueError(f"no stem-tail kernel for device {conv.device}")
+    (conv, dpool, code, scale, shift, mean, inv), one = with_models(
+        conv, dpool, code, scale, shift, mean, inv)
     device = conv.device
-    b, t, c = conv.shape
+    s, b, t, c = conv.shape
+    if s > MAX_MODELS:
+        raise ValueError(f"{s} models > {MAX_MODELS}: the model axis is the grid's z axis")
     t_out = t // pool
     check_cuda_f32("conv", conv, device)
-    check_cuda_f32("dpool", dpool, device, (b, t_out, c))
-    if code.dtype != torch.int32 or code.device != device or tuple(code.shape) != (b, t_out, c):
+    check_cuda_f32("dpool", dpool, device, (s, b, t_out, c))
+    if (code.dtype != torch.int32 or code.device != device
+            or tuple(code.shape) != (s, b, t_out, c) or not code.is_contiguous()):
         raise ValueError("code must be the forward's int32 (B, T // pool, C) tensor")
     for name, v in (("scale", scale), ("shift", shift), ("mean", mean), ("inv", inv)):
-        check_cuda_f32(name, v, device, (c,))
+        check_cuda_f32(name, v, device, (s, c))
     chunks = -(-(b * t_out) // _ROWS_PER_CHUNK)
-    dy = torch.empty(b, t_out * pool, c, device=device, dtype=torch.float32)
-    dg_part = torch.empty(chunks, c, device=device, dtype=torch.float32)
-    db_part = torch.empty(chunks, c, device=device, dtype=torch.float32)
+    dy = torch.empty(s, b, t_out * pool, c, device=device, dtype=torch.float32)
+    dg_part = torch.empty(s, chunks, c, device=device, dtype=torch.float32)
+    db_part = torch.empty(s, chunks, c, device=device, dtype=torch.float32)
     BWD_KERNEL.launch(device, ptr(conv), ptr(dpool), ptr(code), ptr(scale), ptr(shift),
                       ptr(mean), ptr(inv), _keep_scale(p), ptr(dy), ptr(dg_part),
-                      ptr(db_part), b, t, c, pool, _ROWS_PER_CHUNK)
-    return dy, dg_part, db_part
+                      ptr(db_part), s, b, t, c, pool, _ROWS_PER_CHUNK)
+    return (dy[0], dg_part[0], db_part[0]) if one else (dy, dg_part, db_part)
+
+
+class _StemTailBwd(torch.autograd.Function):
+    """:func:`stem_tail_bwd` as a Function, so the stem tail's backward
+    makes one S-wide launch when it runs under ``vmap``. Not
+    differentiable."""
+
+    @staticmethod
+    def forward(conv, dpool, code, scale, shift, mean, inv, p, pool):
+        return stem_tail_bwd(conv, dpool.contiguous(), code, scale, shift, mean, inv, p, pool)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the stem-tail backward kernel has no backward")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return stem_tail_bwd(*models_first(info, in_dims, *args)), (0, 0, 0)

@@ -11,6 +11,11 @@ read) and returns the reference-named ``state_dict`` that
 layout. :func:`trainer_state_from_jax` also carries the JAX ``Trainer``'s
 own learnable ``params["trainer"]["contrastive_weight"]``, so both trainers
 can start from one state. Needs only numpy and torch.
+
+Both also take the JAX ``VectorizedLOSOTrainer``'s stacked variables (the
+``vmap(init_one)`` output, every leaf with a leading model axis S) and then
+return every tensor with that leading axis, the layout of
+:class:`..train.vloso.VectorizedLOSOTrainer`'s stacked state.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ def _t(a) -> torch.Tensor:
 
 
 def _linear(p: Mapping[str, Any], prefix: str) -> dict:
-    return {f"{prefix}.weight": _t(np.asarray(p["kernel"]).T),
+    return {f"{prefix}.weight": _t(np.swapaxes(np.asarray(p["kernel"]), -1, -2)),
             f"{prefix}.bias": _t(p["bias"])}
 
 
@@ -38,7 +43,8 @@ def _bn(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str) -> dict:
     return {**_norm(p, prefix),
             f"{prefix}.running_mean": _t(stats["mean"]),
             f"{prefix}.running_var": _t(stats["var"]),
-            f"{prefix}.num_batches_tracked": torch.tensor(0)}
+            f"{prefix}.num_batches_tracked": torch.zeros(np.shape(stats["mean"])[:-1],
+                                                         dtype=torch.long)}
 
 
 def _mha(p: Mapping[str, Any], prefix: str) -> dict:
@@ -109,7 +115,8 @@ def _eeg_net(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str) -> dic
 
 def state_dict_from_jax_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """JAX ``MultimodalTransformerModel`` variables -> the port's
-    ``state_dict`` (CPU fp32 tensors; ``num_batches_tracked`` 0)."""
+    ``state_dict`` (CPU fp32 tensors; ``num_batches_tracked`` 0), stacked
+    where the variables are."""
     p, s = variables["params"], variables["batch_stats"]
     return {
         **_eeg_net(p["eeg_net"], s["eeg_net"], "eeg_net"),
@@ -123,7 +130,8 @@ def state_dict_from_jax_variables(variables: Mapping[str, Any]) -> dict[str, tor
         **_head(p["arousal_head"], s["arousal_head"], "arousal_head"),
         **_head(p["valence_head"], s["valence_head"], "valence_head"),
         "contrastive_weight": _t(p["contrastive_weight"]),
-        "temperature": _t(p["temperature"]).reshape(()),
+        # one model's is () (flax may give (1,)); stacked, (S,)
+        "temperature": _t(p["temperature"]).reshape(np.shape(p["contrastive_weight"])[:-1]),
     }
 
 
@@ -132,6 +140,8 @@ def trainer_state_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, 
     """A JAX ``train.engine.Trainer``'s ``(params, batch_stats)``, whose
     params are ``{"model": ..., "trainer": {"contrastive_weight": (1,)}}``
     -> the model's ``state_dict`` and the trainer-level contrastive weight
-    (:attr:`..train.engine.Trainer.contrastive_weight`)."""
+    (:attr:`..train.engine.Trainer.contrastive_weight`). The stacked state of
+    the JAX ``VectorizedLOSOTrainer`` gives the stacked ``state_dict`` and
+    the ``(S, 1)`` contrastive weights."""
     sd = state_dict_from_jax_variables({"params": params["model"], "batch_stats": batch_stats})
     return sd, _t(params["trainer"]["contrastive_weight"])

@@ -1,6 +1,7 @@
-"""Train-step helpers of the single-subject trainer.
+"""Train-step helpers of the single-subject and LOSO trainers.
 
-Counterpart of ``multimodal_sentiment_aanalysis_tpu/train/state.py``:
+Counterpart of ``multimodal_sentiment_aanalysis_tpu/train/state.py``. For
+the single-subject trainer:
 
 - :func:`clip_by_global_norm`: scale every gradient by
   ``min(1, max_norm / (norm + 1e-6))``, the JAX function's rule (and
@@ -16,6 +17,16 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/train/state.py``:
   before ``backward``, so a skipped batch never reaches the optimizer
   (params and optimizer state are untouched) and only the running stats,
   which the forward already moved, are put back.
+
+For the LOSO trainer, whose S models' parameters are the rows of one
+``(S, N)`` tensor (the JAX trainer's ``vmap``-stacked pytree, flattened):
+
+- :func:`clip_rows_by_global_norm`: the same clip rule per model;
+- :class:`StackedAdamW`: optax ``adamw`` arithmetic over the rows, each
+  model with its own step count and learning-rate lane, and the per-model
+  NaN skip as a select on the device (``ok = isfinite(loss) & active``
+  keeps the old row, moments and count where false), so a step never
+  reads anything back to the host.
 
 Module and update masks (the phased curriculum) wait for ROADMAP A7.
 """
@@ -59,3 +70,45 @@ class RunningStatsSnapshot:
     def restore(self) -> None:
         for buf, saved in self._pairs:
             buf.copy_(saved)
+
+
+def clip_rows_by_global_norm(grads: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """Each row of ``grads (S, N)`` (one model's flattened gradient) scaled
+    by ``min(1, max_norm / (norm + 1e-6))`` with its own global norm."""
+    norm = torch.linalg.vector_norm(grads, dim=1)
+    return grads * torch.clamp(max_norm / (norm + 1e-6), max=1.0)[:, None]
+
+
+class StackedAdamW:
+    """optax ``adamw`` (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay
+    on every parameter) over the rows of an ``(S, N)`` parameter tensor.
+
+    ``lr`` is an ``(S,)`` lane on the device, so a per-model plateau
+    schedule writes it without a host sync. :meth:`step` updates the rows
+    in place (views of them stay valid) where ``ok`` is true and leaves the
+    row, its moments and its step count as they were elsewhere.
+    """
+
+    def __init__(self, params: torch.Tensor, lr: float, weight_decay: float,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        s = params.shape[0]
+        self.lr = torch.full((s,), lr, dtype=torch.float32, device=params.device)
+        self.weight_decay, self.b1, self.b2, self.eps = weight_decay, b1, b2, eps
+        self.mu = torch.zeros_like(params)
+        self.nu = torch.zeros_like(params)
+        self.count = torch.zeros(s, dtype=torch.int32, device=params.device)
+
+    @torch.no_grad()
+    def step(self, params: torch.Tensor, grads: torch.Tensor, ok: torch.Tensor) -> None:
+        b1, b2 = self.b1, self.b2
+        count = self.count + 1
+        mu = (1.0 - b1) * grads + b1 * self.mu
+        nu = (1.0 - b2) * (grads * grads) + b2 * self.nu
+        mu_hat = mu / (1.0 - b1 ** count.to(torch.float32))[:, None]
+        nu_hat = nu / (1.0 - b2 ** count.to(torch.float32))[:, None]
+        update = mu_hat / (torch.sqrt(nu_hat) + self.eps) + self.weight_decay * params
+        keep = ok[:, None]
+        params.copy_(torch.where(keep, params + -self.lr[:, None] * update, params))
+        self.mu = torch.where(keep, mu, self.mu)
+        self.nu = torch.where(keep, nu, self.nu)
+        self.count = torch.where(ok, count, self.count)

@@ -1,0 +1,476 @@
+"""Vectorized leave-one-subject-out training: all LOSO models in one step.
+
+Counterpart of ``multimodal_sentiment_aanalysis_tpu/train/vloso.py``. The
+reference trains one model per held-out subject in a Python loop; every
+LOSO split has the same shapes, so the S models train together:
+``torch.func.vmap`` of ``grad_and_value`` of one model's loss, through
+``functional_call`` of the flagship model on stacked state, with
+``randomness="different"`` so each model draws its own dropout masks from
+the trainer's one device generator. Every hand-written kernel on the path
+(BiLSTM forward, c checkpoints and reverse sweep, stem tail forward and
+backward, InfoNCE) makes one launch for all S models through its
+Function's ``vmap`` rule.
+
+Per model the semantics are :class:`.engine.Trainer`'s objective (CE on
+both heads + the trainer-level contrastive weight times the three InfoNCE
+terms, AdamW, global-norm clip, NaN skip-batch), each model with its own
+parameters, optimizer state, BatchNorm running stats and per-subject
+shuffled plan over its own LOSO train rows, so BatchNorm batch statistics
+see only that model's rows.
+
+State layout: the S models' parameters (the model's, then the
+trainer-level contrastive weight) are the rows of one ``(S, N)`` tensor,
+and their BatchNorm running stats the rows of one ``(S, M)`` tensor; the
+model's tensors are views of a row. A step's gradient is therefore one
+``(S, N)`` tensor, and clipping, AdamW and the NaN skip are a few
+elementwise passes over it on the device (:mod:`.state`).
+
+- :meth:`train_epoch`: plans drawn on the host from ``numpy``'s generator
+  exactly as the JAX trainer draws them (:meth:`_epoch_plans`), so both
+  packages see the same batches;
+- :meth:`train_epochs_fused`: E epochs with the plans drawn on the device
+  (:func:`..data.pipeline.epoch_plan_on_device`) and, with ``early_stop``,
+  the per-subject early-stop and plateau-LR lanes
+  (:func:`..utils.schedule.vector_schedule_step`), held-out losses and
+  best-checkpoint snapshots advanced on the device: nothing is read back
+  to the host until the E epochs are done;
+- :meth:`evaluate`, :meth:`stop_report`, :meth:`subject_variables`,
+  :meth:`run` as in JAX.
+
+Not ported yet: ``mesh`` (subject sharding over devices, ROADMAP A13),
+``compute_dtype``/``moment_dtype`` other than None (bf16, ROADMAP B) and
+``save_state``/``restore_state`` (ROADMAP A8); the first two raise.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+from torch.func import functional_call, grad_and_value, vmap
+
+from ..data.pipeline import DeviceDataset, epoch_plan_on_device
+from ..data.splits import loso_split
+from ..ops.losses import masked_accuracy, masked_cross_entropy
+from ..utils.schedule import vector_schedule_init, vector_schedule_step
+from .state import StackedAdamW, clip_rows_by_global_norm
+
+TRAINER_CW = "trainer.contrastive_weight"  # the last entry of a parameter row
+_TE_KEYS = ("te_loss", "te_a_acc", "te_v_acc")
+
+
+def _objective(outs, batch: dict, mask: torch.Tensor, cw: torch.Tensor):
+    """One model's ``(loss, arousal accuracy, valence accuracy)``: CE on
+    both heads over ``nan_to_num``-ed logits plus ``cw`` times the three
+    InfoNCE terms (JAX ``_loss_fn``)."""
+    arousal, valence, c1, c2, c3 = outs
+    arousal, valence = torch.nan_to_num(arousal), torch.nan_to_num(valence)
+    ce = (masked_cross_entropy(arousal, batch["arousal"], mask)
+          + masked_cross_entropy(valence, batch["valence"], mask))
+    return (ce + cw[0] * (c1 + c2 + c3), masked_accuracy(arousal, batch["arousal"], mask),
+            masked_accuracy(valence, batch["valence"], mask))
+
+
+def _per_sample(totals: np.ndarray) -> dict[str, np.ndarray]:
+    """Masked sums ``(..., 4)`` (loss, a_acc, v_acc, rows) -> per-sample means."""
+    n = np.maximum(totals[..., 3], 1.0)
+    return {k: totals[..., j] / n for j, k in enumerate(("loss", "a_acc", "v_acc"))}
+
+
+class VectorizedLOSOTrainer:
+    """Trains one model per held-out subject, all at once, on ``data``'s
+    device."""
+
+    def __init__(
+        self,
+        model: nn.Module,
+        data: DeviceDataset,
+        n_subjects: int,
+        ex_nums: int = 20,
+        lr: float = 1e-4,
+        weight_decay: float = 0.01,
+        batch_size: int = 64,
+        clip_norm: float = 1.0,
+        seed: int = 42,
+        compute_dtype: str | None = None,
+        moment_dtype: str | None = None,
+        mesh=None,
+        early_stop: bool = False,
+        es_patience: int = 5,
+        plateau_patience: int = 3,
+        plateau_factor: float = 0.5,
+    ):
+        if compute_dtype is not None or moment_dtype is not None:
+            raise NotImplementedError("bf16 training waits for the bf16 kernels; "
+                                      "the port trains in fp32")
+        if mesh is not None:
+            raise NotImplementedError("sharding the subjects over devices is not ported yet")
+        self.device = data.device
+        if any(p.device != self.device for p in model.parameters()):
+            raise ValueError(f"the model's parameters must be on the data's device {self.device}")
+        self.model = copy.deepcopy(model)  # the template functional_call runs
+        self.data = data
+        self.n_subjects = self.n_total = n_subjects
+        self.ex_nums = ex_nums
+        self.batch_size = batch_size
+        self.clip_norm = clip_norm
+        self.host_rng = np.random.default_rng(seed)
+
+        splits = [loso_split(n_subjects, ex_nums, s) for s in range(n_subjects)]
+        self.train_idx = np.stack([tr for tr, _ in splits])  # (S, n_train)
+        self.test_idx = np.stack([te for _, te in splits])   # (S, ex_nums)
+        self._train_rows = torch.as_tensor(self.train_idx, dtype=torch.long, device=self.device)
+        self._test_rows = torch.as_tensor(self.test_idx, dtype=torch.long, device=self.device)
+
+        # one row per model: every parameter flattened, then the trainer's
+        # contrastive weight; the BN running stats likewise
+        named = list(self.model.named_parameters())
+        self._names = [n for n, _ in named] + [TRAINER_CW]
+        self._shapes = [p.shape for _, p in named] + [torch.Size([1])]
+        buffers = dict(self.model.named_buffers())
+        self._stat_names = [f"{name}.{part}" for name, m in self.model.named_modules()
+                            if isinstance(m, nn.BatchNorm1d)
+                            for part in ("running_mean", "running_var")]
+        self._stat_shapes = [buffers[n].shape for n in self._stat_names]
+
+        # stacked init: each model its own draw of the model's init rule
+        gen = torch.Generator().manual_seed(seed)
+        rows = []
+        with torch.no_grad():
+            for _ in range(n_subjects):
+                self.model.reset_parameters(gen)
+                rows.append(torch.cat([p.reshape(-1) for _, p in named]
+                                      + [torch.ones(1, device=self.device)]))
+        self.params = torch.stack(rows)  # (S, N)
+        self.stats = torch.cat([buffers[n].reshape(-1) for n in self._stat_names]
+                               ).repeat(n_subjects, 1)  # (S, M)
+        self._stat_views = self._stat_dict(self.stats)  # written in place by the forward
+
+        self.opt = StackedAdamW(self.params, lr, weight_decay)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.plan_generator = torch.Generator(device=self.device).manual_seed(seed + 2)
+        self._all_active = torch.ones(n_subjects, dtype=torch.bool, device=self.device)
+        self.early_stop = early_stop
+        self._es_cfg = dict(es_patience=es_patience, plateau_patience=plateau_patience,
+                            plateau_factor=plateau_factor)
+        if early_stop:
+            self.sched = vector_schedule_init(n_subjects, lr, self.device)
+            self._epochs_run = 0
+        self._reset_best()
+        self._grad_step = vmap(grad_and_value(self._loss_one, has_aux=True),
+                               randomness="different")
+
+    # ------------------------------------------------------------------
+    # state
+    def _param_dict(self, row: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Named views of parameter row(s) ``(..., N)``."""
+        sizes = [math.prod(s) for s in self._shapes]
+        lead = row.shape[:-1]
+        return {n: p.view((*lead, *s)) for n, p, s in zip(self._names, row.split(sizes, -1),
+                                                        self._shapes)}
+
+    def _stat_dict(self, row: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Named views of BN-stat row(s) ``(..., M)``."""
+        sizes = [math.prod(s) for s in self._stat_shapes]
+        lead = row.shape[:-1]
+        return {n: p.view((*lead, *s)) for n, p, s in zip(self._stat_names,
+                                                        row.split(sizes, -1), self._stat_shapes)}
+
+    def _reset_best(self) -> None:
+        if self.early_stop:
+            self.best_params = self.params.clone()
+            self.best_stats = self.stats.clone()
+
+    @torch.no_grad()
+    def load_stacked_state(self, state_dict: dict[str, torch.Tensor],
+                           contrastive_weight: torch.Tensor | None = None) -> None:
+        """Set every model's parameters and BN running stats from a
+        reference-named ``state_dict`` whose tensors carry a leading model
+        axis (e.g. :func:`..models.jax_import.trainer_state_from_jax` of the
+        JAX trainer's stacked init), and the ``(S, 1)`` trainer-level
+        contrastive weights when given."""
+        for name, view in self._param_dict(self.params).items():
+            if name != TRAINER_CW:
+                view.copy_(state_dict[name])
+        if contrastive_weight is not None:
+            self._param_dict(self.params)[TRAINER_CW].copy_(contrastive_weight)
+        for name, view in self._stat_views.items():
+            view.copy_(state_dict[name])
+        self._reset_best()
+
+    def subject_variables(self, sid: int) -> dict[str, torch.Tensor]:
+        """Subject ``sid``'s model as a reference-named ``state_dict`` that
+        :class:`..models.MultimodalTransformerModel` loads strictly (the JAX
+        method returns the same model's flax variables)."""
+        sd = {n: v[sid].clone() for n, v in self._param_dict(self.params).items()
+              if n != TRAINER_CW}
+        sd.update({n: v[sid].clone() for n, v in self._stat_views.items()})
+        sd.update({n: b.clone() for n, b in self.model.named_buffers()
+                   if n.endswith("num_batches_tracked")})
+        return sd
+
+    # ------------------------------------------------------------------
+    # one model's functions, vmapped over the model axis
+    def _loss_one(self, row, stats, batch):
+        params = self._param_dict(row)
+        cw = params.pop(TRAINER_CW)
+        mask = batch["mask"]
+        outs = functional_call(self.model, {**params, **stats},
+                               (batch["eeg"], batch["eye"], batch["pps"]),
+                               {"labels": (batch["arousal"], batch["valence"], mask),
+                                "generator": self.generator})
+        loss, a_acc, v_acc = _objective(outs, batch, mask, cw)
+        n = mask.sum()
+        return loss, torch.stack([loss * n, a_acc * n, v_acc * n, n])
+
+    def _te_one(self, row, stats, batch):
+        """Held-out loss and accuracies in eval mode (the LOSO test rows fit
+        one batch), the sequential trainer's test objective."""
+        params = self._param_dict(row)
+        cw = params.pop(TRAINER_CW)
+        mask = torch.ones(batch["arousal"].shape[0], device=row.device)
+        outs = functional_call(self.model, {**params, **stats},
+                               (batch["eeg"], batch["eye"], batch["pps"]),
+                               {"labels": (batch["arousal"], batch["valence"], mask)})
+        return torch.stack(_objective(outs, batch, mask, cw))
+
+    def _accuracy_one(self, row, stats, batch):
+        params = self._param_dict(row)
+        params.pop(TRAINER_CW)
+        a, v = functional_call(self.model, {**params, **stats},
+                               (batch["eeg"], batch["eye"], batch["pps"]))
+        ones = torch.ones(a.shape[0], device=row.device)
+        return torch.stack([masked_accuracy(a, batch["arousal"], ones),
+                            masked_accuracy(v, batch["valence"], ones)])
+
+    # ------------------------------------------------------------------
+    # training
+    def _gather(self, idx: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Rows ``idx (S, B)`` of every array: ``(S, B, ...)``."""
+        flat = idx.reshape(-1).long()
+        return {k: v.index_select(0, flat).view(*idx.shape, *v.shape[1:])
+                for k, v in self.data.arrays.items()}
+
+    def _train_step(self, idx: torch.Tensor, mask: torch.Tensor,
+                    active: torch.Tensor) -> torch.Tensor:
+        """One step of every model on its batch ``idx (S, B)``; returns the
+        masked metric sums ``(S, 4)``, zero for skipped models."""
+        batch = self._gather(idx)
+        batch["mask"] = mask
+        old_stats = self.stats.clone()
+        grads, (loss, sums) = self._grad_step(self.params, self._stat_views, batch)
+        ok = torch.isfinite(loss) & active
+        self.opt.step(self.params, clip_rows_by_global_norm(grads, self.clip_norm), ok)
+        self.stats.copy_(torch.where(ok[:, None], self.stats, old_stats))
+        return torch.where(ok[:, None], sums, 0.0)
+
+    def _run_epoch(self, plans: torch.Tensor, masks: torch.Tensor,
+                   active: torch.Tensor) -> torch.Tensor:
+        """Every step of one epoch's plans ``(S, nb, B)``; masked sums ``(S, 4)``."""
+        self.model.train()
+        totals = torch.zeros(self.n_total, 4, device=self.device)
+        for j in range(plans.shape[1]):
+            totals += self._train_step(plans[:, j], masks[:, j], active)
+        return totals
+
+    def _active(self) -> torch.Tensor:
+        return ~self.sched["stopped"] if self.early_stop else self._all_active
+
+    def _epoch_plans(self) -> tuple[np.ndarray, np.ndarray]:
+        """Per-subject shuffled batch plans ``(S, nb, B)`` and validity
+        masks, drawn from ``host_rng`` exactly as the JAX trainer draws
+        them: one permutation per subject, tiled to whole batches, the
+        padding masked."""
+        n_train = self.train_idx.shape[1]
+        bsz = self.batch_size
+        nb = -(-n_train // bsz)
+        padded = nb * bsz
+        reps = -(-padded // n_train)
+        plans = np.empty((self.n_total, nb, bsz), np.int32)
+        for s in range(self.n_total):
+            order = np.tile(self.host_rng.permutation(n_train), reps)[:padded]
+            plans[s] = self.train_idx[s][order].reshape(nb, bsz)
+        masks = np.broadcast_to(
+            (np.arange(padded) < n_train).astype(np.float32).reshape(nb, bsz),
+            plans.shape,
+        ).copy()
+        return plans, masks
+
+    def train_epoch(self) -> dict[str, np.ndarray]:
+        """One epoch of every model on host-drawn plans; per-subject
+        per-sample ``loss``, ``a_acc``, ``v_acc`` ``(S,)``."""
+        plans, masks = self._epoch_plans()
+        totals = self._run_epoch(torch.as_tensor(plans, device=self.device),
+                                 torch.as_tensor(masks, device=self.device), self._active())
+        return _per_sample(totals.cpu().numpy())
+
+    def _device_plans(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """One epoch's plans ``(S, nb, B)`` drawn on the device."""
+        plans, masks = [], []
+        for rows in self._train_rows:
+            idx, mask = epoch_plan_on_device(self.plan_generator, rows.shape[0],
+                                             self.batch_size)
+            plans.append(rows[idx.long()])
+            masks.append(mask)
+        return torch.stack(plans), torch.stack(masks)
+
+    # ------------------------------------------------------------------
+    # evaluation and the early-stop lanes
+    @torch.no_grad()
+    def _te_metrics(self) -> torch.Tensor:
+        """``(S, 3)`` held-out loss and accuracies, on the device."""
+        self.model.eval()
+        return vmap(self._te_one)(self.params, self._stat_views, self._gather(self._test_rows))
+
+    @torch.no_grad()
+    def evaluate(self, best: bool = False) -> dict[str, np.ndarray]:
+        """Per-subject held-out accuracies ``(S,)``; ``best=True`` evaluates
+        each subject's best-checkpoint snapshot instead of the final state."""
+        if best and not self.early_stop:
+            raise ValueError("best=True requires early_stop=True")
+        params, stats = (self.best_params, self.best_stats) if best else (self.params, self.stats)
+        self.model.eval()
+        out = vmap(self._accuracy_one)(params, self._stat_dict(stats),
+                                       self._gather(self._test_rows)).cpu().numpy()
+        return {"a_acc": out[:, 0], "v_acc": out[:, 1]}
+
+    def _es_step(self, epoch: int) -> torch.Tensor:
+        """After a training epoch: held-out losses, the schedule transition,
+        the next epoch's LR lanes and the best snapshots, all on the device.
+        Returns the ``(S, 3)`` held-out metrics."""
+        te = self._te_metrics()
+        self.sched, improved = vector_schedule_step(self.sched, te[:, 0], epoch, **self._es_cfg)
+        self.opt.lr = self.sched["lr"]
+        keep = improved[:, None]
+        self.best_params = torch.where(keep, self.params, self.best_params)
+        self.best_stats = torch.where(keep, self.stats, self.best_stats)
+        return te
+
+    def _host_es_epoch(self, epoch_num: int) -> dict[str, np.ndarray]:
+        """One early-stop epoch on host-drawn plans: train (stopped subjects
+        frozen), then the same transition :meth:`train_epochs_fused` runs."""
+        tm = self.train_epoch()
+        te = self._es_step(epoch_num).cpu().numpy()
+        self._epochs_run = epoch_num
+        return {**tm, **{k: te[:, j] for j, k in enumerate(_TE_KEYS)}}
+
+    def fused_epochs_on_device(self, n_epochs: int) -> torch.Tensor:
+        """The epochs of :meth:`train_epochs_fused` with nothing read back to
+        the host: per epoch and subject the masked sums ``(E, S, 4)``, and
+        with ``early_stop`` also the held-out metrics, ``lr`` and
+        ``stopped`` (``(E, S, 9)``), on the device."""
+        rows = []
+        for e in range(n_epochs):
+            plans, masks = self._device_plans()
+            row = [self._run_epoch(plans, masks, self._active())]
+            if self.early_stop:
+                row += [self._es_step(self._epochs_run + e + 1), self.sched["lr"][:, None],
+                        self.sched["stopped"][:, None].to(torch.float32)]
+            rows.append(torch.cat(row, 1))
+        if self.early_stop:
+            self._epochs_run += n_epochs
+        return torch.stack(rows)
+
+    def train_epochs_fused(self, n_epochs: int) -> dict[str, np.ndarray]:
+        """``n_epochs`` epochs with plans drawn on the device from
+        ``plan_generator`` (deterministic in ``seed``, independent of the
+        host stream :meth:`train_epoch` consumes) and nothing read back to
+        the host until the end; returns per-epoch per-subject metrics
+        ``(E, S)``. With ``early_stop`` the schedule lanes advance after
+        every epoch and the result gains ``te_loss``/``te_a_acc``/
+        ``te_v_acc``/``lr``/``stopped``."""
+        out = self.fused_epochs_on_device(n_epochs).cpu().numpy()
+        result = _per_sample(out[..., :4])
+        if self.early_stop:
+            result.update({k: out[..., 4 + j] for j, k in enumerate(_TE_KEYS)})
+            result["lr"] = out[..., 7]
+            result["stopped"] = out[..., 8] > 0
+        return result
+
+    def stop_report(self) -> str:
+        """Per-subject stop epochs, the vectorized analog of the reference
+        run log's 'Early stopping triggered at epoch N' lines."""
+        stop = self.sched["stop_epoch"].cpu().numpy()
+        lines = [f"  subject {s}: " + (f"early-stopped at epoch {int(e)}" if e > 0
+                                       else f"ran all {self._epochs_run} epochs")
+                 for s, e in enumerate(stop)]
+        stopped = stop[stop > 0]
+        head = (f"Early stopping: {stopped.size}/{stop.size} subjects stopped"
+                + (f" (epochs {int(stopped.min())}-{int(stopped.max())}, "
+                   f"median {float(np.median(stopped)):.1f})" if stopped.size else ""))
+        return "\n".join([head] + lines)
+
+    def run(self, epochs: int, verbose: bool = True, fused: bool = False,
+            chunk: int | None = None) -> dict:
+        """Train all LOSO models; returns mean held-out accuracies. With
+        ``early_stop``, ``epochs`` is an upper bound: training ends once
+        every subject has stopped (checked between fused chunks of
+        ``chunk`` epochs, default 8), and the result carries the stop epochs
+        and the best-checkpoint accuracies."""
+        if self.early_stop:
+            if fused:
+                chunk = min(chunk or 8, epochs)
+                done = 0
+                while done < epochs:
+                    n = min(chunk, epochs - done)
+                    tm = self.train_epochs_fused(n)
+                    for e in range(n):
+                        done += 1
+                        if verbose:
+                            print(f"Epoch {done}: mean train loss {tm['loss'][e].mean():.4f} "
+                                  f"te_loss {tm['te_loss'][e].mean():.4f} "
+                                  f"stopped {int(tm['stopped'][e].sum())}/{self.n_subjects}")
+                    if tm["stopped"][-1].all():
+                        break
+            else:
+                for epoch in range(1, epochs + 1):
+                    tm = self._host_es_epoch(epoch)
+                    stopped = self.sched["stopped"].cpu().numpy()
+                    if verbose:
+                        print(f"Epoch {epoch}: mean train loss {tm['loss'].mean():.4f} "
+                              f"te_loss {tm['te_loss'].mean():.4f} "
+                              f"stopped {int(stopped.sum())}/{self.n_subjects}")
+                    if stopped.all():
+                        break
+            if verbose:
+                print(self.stop_report())
+            ev, final = self.evaluate(best=True), self.evaluate()
+            result = {
+                "mean_arousal_acc": float(ev["a_acc"].mean()),
+                "mean_valence_acc": float(ev["v_acc"].mean()),
+                "per_subject_arousal": ev["a_acc"],
+                "per_subject_valence": ev["v_acc"],
+                "final_arousal_acc": float(final["a_acc"].mean()),
+                "final_valence_acc": float(final["v_acc"].mean()),
+                "stop_epochs": self.sched["stop_epoch"].cpu().numpy(),
+            }
+            if verbose:
+                print(f"LOSO mean (best checkpoints): arousal {result['mean_arousal_acc']:.2%} "
+                      f"valence {result['mean_valence_acc']:.2%}")
+            return result
+        if fused:
+            tm = self.train_epochs_fused(epochs)
+            if verbose:
+                for e in range(epochs):
+                    print(f"Epoch {e + 1}: mean train loss {tm['loss'][e].mean():.4f} "
+                          f"a_acc {tm['a_acc'][e].mean():.2%}")
+        else:
+            for epoch in range(1, epochs + 1):
+                tm = self.train_epoch()
+                if verbose:
+                    print(f"Epoch {epoch}: mean train loss {tm['loss'].mean():.4f} "
+                          f"a_acc {tm['a_acc'].mean():.2%}")
+        ev = self.evaluate()
+        result = {
+            "mean_arousal_acc": float(ev["a_acc"].mean()),
+            "mean_valence_acc": float(ev["v_acc"].mean()),
+            "per_subject_arousal": ev["a_acc"],
+            "per_subject_valence": ev["v_acc"],
+        }
+        if verbose:
+            print(f"LOSO mean: arousal {result['mean_arousal_acc']:.2%} "
+                  f"valence {result['mean_valence_acc']:.2%}")
+        return result

@@ -1,3 +1,8 @@
-from .schedule import EarlyStopping, ReduceLROnPlateau
+from .schedule import (
+    EarlyStopping,
+    ReduceLROnPlateau,
+    vector_schedule_init,
+    vector_schedule_step,
+)
 
-__all__ = ["EarlyStopping", "ReduceLROnPlateau"]
+__all__ = ["EarlyStopping", "ReduceLROnPlateau", "vector_schedule_init", "vector_schedule_step"]
