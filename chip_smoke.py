@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and LOSO training paths on one
-CUDA card, and check them.
+"""Drive the PyTorch port's serving, training, LOSO training, ME-MHACL and
+attention paths on one CUDA card, and check them.
 
 Run from the root of a checkout, with no arguments::
 
@@ -40,13 +40,32 @@ It needs a CUDA card and exits non-zero without one. In order, it
    on a ``dropout=0.0`` copy, that subjects 0 and 17 of one vectorized step
    equal a single-model ``Trainer`` step (loss, gradients, BatchNorm running
    stats, updated parameters); prints ms/step and samples/s/chip;
-5. holds every kernel against its plain PyTorch version at the shapes its
-   paths give it (real activations of the first request or train batch; for
-   the S=24 cases the LOSO trainer's stacked weights and seeded
-   activations), times both with CUDA events, and checks the stem tail's
-   dropout (keep share 1 - p within 5 sigma, every output exactly 0 or
-   GELU(y) / (1 - p));
-6. prints the card's name and power limit, one JSON line of per-kernel
+5. ME-MHACL (``cli.py memhacl``): ``make_synthetic_emotion_arrays(n=480)``
+   on the card, the 80/20 split, full-width encoder, projection head and
+   classifier (feat_dim 256, 8 heads) from seeded generators;
+   ``memhacl_pretrain`` for 2 epochs on all 480 rows and ``memhacl_finetune``
+   for 2 epochs, batch 32, with the launch counters reset just before;
+   checks finite losses, that every parameter tensor moved, that the
+   validation ran through the fused head (one launch per validation batch
+   and epoch, no other kernel), and the fused-head logits of a validation
+   batch against the module path on the card (1e-4) and on the CPU (1e-3);
+   prints ms/step;
+6. attention: ``MultiheadAttention(256, 8)`` self-attention at B=64,
+   T=585, forward and backward on the card with the counters reset just
+   before (one launch of each flash kernel), against the CPU plain path
+   (outputs 1e-3, gradients as in 3);
+7. holds every kernel against its plain PyTorch version at the shapes its
+   paths give it (real activations of the first request, train batch,
+   validation batch or attention input; for the S=24 cases the LOSO
+   trainer's stacked weights and seeded activations; the flash kernels also
+   at a 200-query / 100-key and a 9-row shape), times both with CUDA
+   events, times one PyTorch call of the same function where there is one
+   (``nn.LSTM`` through cuDNN, ``scaled_dot_product_attention``; timed
+   here only, the port never calls them), computes each case's bound (the
+   larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s),
+   and checks the stem tail's dropout (keep share 1 - p within 5 sigma,
+   every output exactly 0 or GELU(y) / (1 - p));
+8. prints the card's name and power limit, one JSON line of per-kernel
    results, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -78,20 +97,34 @@ from multimodal_sentiment_aanalysis_tpu_torch.data import (
     assemble_features,
     epoch_batch_indices,
     loso_split,
+    make_synthetic_emotion_arrays,
     make_synthetic_hci_data,
+    random_split_indices,
 )
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import (
+    attention,
     contrastive,
     conv_stem,
     conv_stem_train,
+    fusion_head,
     lstm,
 )
+from multimodal_sentiment_aanalysis_tpu_torch.models import (
+    MEMHACLClassifier,
+    MEMHACLEncoder,
+    MultiheadAttention,
+    ProjectionHead,
+)
+from multimodal_sentiment_aanalysis_tpu_torch.models.fusion_model import init_parameters
 from multimodal_sentiment_aanalysis_tpu_torch.ops.losses import masked_cross_entropy
 from multimodal_sentiment_aanalysis_tpu_torch.train import (
     Trainer,
     VectorizedLOSOTrainer,
     clip_by_global_norm,
     clip_rows_by_global_norm,
+    memhacl_finetune,
+    memhacl_logits,
+    memhacl_pretrain,
 )
 
 SEED = 0
@@ -118,14 +151,25 @@ LOSO_LR = 1e-4             # the trainers' default learning rate
 PER_STEP = dict(bilstm_fwd=2, bilstm_cbnd=2, bilstm_segbwd=2, stem_tail=2, stem_tail_bwd=2,
                 infonce=1)
 PER_EVAL = dict(bilstm_fwd=2, stem_tail=2, infonce=1)
+# ME-MHACL: the MAHNOB-HCI trial count of the other phases, the reference
+# batch, full width
+MEMHACL_N, MEMHACL_BATCH, MEMHACL_EPOCHS, MEMHACL_F, MEMHACL_HEADS = 480, 32, 2, 256, 8
+HEAD_ATOL = 1e-4  # fused head against the module path on the card
+# attention: the T=585 EEG window as a sequence, MHA(256, 8)
+ATTN_B, ATTN_T, ATTN_E, ATTN_HEADS = 64, 585, 256, 8
+# the bound of a case: the larger of its bytes (each input read once, each
+# output written once) over the memory rate and its operations over the
+# fp32 rate (H100 SXM data sheet)
+PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
 
 CSRC = "multimodal_sentiment_aanalysis_tpu_torch/csrc/"
 JAX_KERNELS = "multimodal_sentiment_aanalysis_tpu/kernels/"
 # kernel -> (source, TPU kernel it replaces, max |err| against its plain
 # version over every output). The backward kernels' reductions sum B*T rows
 # in another order: dW_cat over 4,672 rows with entries up to ~130, the
-# stem's dgamma/dbeta over 9,344 rows with entries up to ~370; the InfoNCE
-# losses are ~25-50 at temperature 0.01
+# stem's dgamma/dbeta over 9,344 rows with entries up to ~370, the flash
+# dQ and dK/dV over up to 585 keys or queries; the InfoNCE losses are
+# ~25-50 at temperature 0.01
 KERNELS = {
     "bilstm_fwd": (CSRC + "lstm_fwd.cu", JAX_KERNELS + "lstm.py:527", 1e-4),
     "bilstm_cbnd": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1026", 1e-4),
@@ -134,6 +178,10 @@ KERNELS = {
     "stem_tail_bwd": (CSRC + "stem_tail.cu", JAX_KERNELS + "conv_stem_train.py:368", 1e-3),
     "infonce": (CSRC + "infonce.cu", JAX_KERNELS + "contrastive.py:61", 1e-4),
     "conv_stem": (CSRC + "conv_stem.cu", JAX_KERNELS + "conv_stem.py:64", 1e-4),
+    "flash_fwd": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:67", 1e-4),
+    "flash_bwd_dq": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:159", 1e-3),
+    "flash_bwd_dkv": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:184", 1e-3),
+    "fusion_head": (CSRC + "fusion_head.cu", JAX_KERNELS + "fusion_head.py:40", HEAD_ATOL),
 }
 
 
@@ -262,7 +310,7 @@ def serving_kernel_cases(model, eeg: torch.Tensor) -> dict:
         cases["stem_tail"].append((
             f"eval pool {pool} {tuple(args[0].shape)}",
             lambda a=args, p=pool: conv_stem_train.fused_stage_train(*a, 0.0, p),
-            lambda a=args, p=pool: conv_stem_train.fused_stage_train_plain(*a, p)))
+            lambda a=args, p=pool: conv_stem_train.fused_stage_train_plain(*a, p), args))
         h = conv_stem_train.fused_stage_train_plain(*args, pool).transpose(1, 2)
     # both BiLSTM layers, on the stem's output
     x = h.transpose(1, 2).contiguous()
@@ -272,7 +320,7 @@ def serving_kernel_cases(model, eeg: torch.Tensor) -> dict:
         cases["bilstm_fwd"].append((
             f"layer {k} {tuple(x.shape)}",
             lambda x=x, f=fwd, b=bwd: lstm.fused_bilstm_layer(x, f, b),
-            lambda x=x, f=fwd, b=bwd: lstm.fused_bilstm_layer_plain(x, f, b)))
+            lambda x=x, f=fwd, b=bwd: lstm.fused_bilstm_layer_plain(x, f, b), (x, *fwd, *bwd)))
         x = lstm.fused_bilstm_layer_plain(x, fwd, bwd)
     # serving forward with use_pallas=True: the fused conv stem per stage
     h = eeg.transpose(1, 2).contiguous()
@@ -283,7 +331,7 @@ def serving_kernel_cases(model, eeg: torch.Tensor) -> dict:
         cases["conv_stem"].append((
             f"k {conv.weight.shape[2]} pool {pool} {tuple(h.shape)}",
             lambda a=args: conv_stem.fused_conv_bn_gelu_pool(*a),
-            lambda a=args: conv_stem.fused_conv_bn_gelu_pool_plain(*a)))
+            lambda a=args: conv_stem.fused_conv_bn_gelu_pool_plain(*a), args))
         h = conv_stem.fused_conv_bn_gelu_pool_plain(*args)
     return cases
 
@@ -411,7 +459,7 @@ def training_kernel_cases(model, batch: dict, mask: torch.Tensor, gen: torch.Gen
             f"train pool {pool} {shape} batch stats, writes the code",
             lambda a=args, p=pool: conv_stem_train.stem_tail_fwd(*a, 0.0, p),
             lambda a=args, p=pool: conv_stem_train.fused_stage_train_plain(
-                *a, p, with_code=True)))
+                *a, p, with_code=True), args))
         out, code = conv_stem_train.stem_tail_fwd(*args, DROPOUT_P, pool, generator=gen)
         inv = torch.rsqrt(var + bn.eps)
         bwd_args = (y, torch.randn(out.shape, device=y.device, generator=gen), code,
@@ -420,7 +468,7 @@ def training_kernel_cases(model, batch: dict, mask: torch.Tensor, gen: torch.Gen
         cases["stem_tail_bwd"].append((
             f"pool {pool} {shape} p {DROPOUT_P}, the kernel's own code",
             lambda a=bwd_args: conv_stem_train.stem_tail_bwd(*a),
-            lambda a=bwd_args: conv_stem_train.stem_tail_bwd_plain(*a)))
+            lambda a=bwd_args: conv_stem_train.stem_tail_bwd_plain(*a), bwd_args))
         h = conv_stem_train.fused_stage_train_plain(*args, pool).transpose(1, 2)
     x = h.transpose(1, 2).contiguous()
     bilstm = model.eeg_net.bilstm
@@ -433,10 +481,11 @@ def training_kernel_cases(model, batch: dict, mask: torch.Tensor, gen: torch.Gen
         label = f"layer {k} {tuple(x.shape)} K {lstm.SEG_K}"
         cases["bilstm_cbnd"].append((
             label, lambda a=(x, h_seq, *w): lstm.bilstm_cbnd(*a),
-            lambda a=(x, h_seq, *w): lstm.bilstm_cbnd_plain(*a)))
+            lambda a=(x, h_seq, *w): lstm.bilstm_cbnd_plain(*a), (x, h_seq, *w)))
         cases["bilstm_segbwd"].append((
             label, lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd(*a),
-            lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd_plain(*a)))
+            lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd_plain(*a),
+            (dh, x, h_seq, c_bnd, *w)))
         x = h_seq
     model.eval()  # the encoders' embeddings, without moving the running stats
     feats = torch.stack([model.eeg_net(batch["eeg"]), model.eye_net(batch["eye"]),
@@ -447,7 +496,7 @@ def training_kernel_cases(model, batch: dict, mask: torch.Tensor, gen: torch.Gen
             model.temperature.reshape(1).expand(3).contiguous())
     cases["infonce"].append((
         f"G 3 {tuple(n.shape[1:])}", lambda a=args: contrastive.infonce(*a),
-        lambda a=args: contrastive.infonce_plain(*a)))
+        lambda a=args: contrastive.infonce_plain(*a), args))
 
 
 def dropout_check(model, batch: dict, gen: torch.Generator) -> None:
@@ -612,7 +661,8 @@ def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator) -> dict:
         cases["stem_tail"].append((
             f"S={s_n} pool {pool} {conv_shape} batch stats, writes the code",
             lambda a=args, p=pool: conv_stem_train.stem_tail_fwd(*a, 0.0, p),
-            lambda a=args, p=pool: conv_stem_train.fused_stage_train_plain(*a, p, with_code=True)))
+            lambda a=args, p=pool: conv_stem_train.fused_stage_train_plain(*a, p, with_code=True),
+            args))
         out, code = conv_stem_train.stem_tail_fwd(*args, DROPOUT_P, pool, generator=gen)
         inv = torch.rsqrt(var + 1e-5)
         scale = args[1] * inv
@@ -621,7 +671,7 @@ def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator) -> dict:
         cases["stem_tail_bwd"].append((
             f"S={s_n} pool {pool} {conv_shape} p {DROPOUT_P}, the kernel's own code",
             lambda a=bwd_args: conv_stem_train.stem_tail_bwd(*a),
-            lambda a=bwd_args: conv_stem_train.stem_tail_bwd_plain(*a)))
+            lambda a=bwd_args: conv_stem_train.stem_tail_bwd_plain(*a), bwd_args))
     x = randn(s_n, BATCH, t_eeg // 8, width)
     for k in range(2):
         part = lambda name, sfx: pd[f"eeg_net.bilstm.{name}_l{k}{sfx}"]
@@ -634,14 +684,15 @@ def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator) -> dict:
         dh = randn(*h_seq.shape)
         label = f"S={s_n} layer {k} {tuple(x.shape)}"
         cases["bilstm_fwd"].append((label, lambda a=(x, *w): lstm.bilstm_fwd(*a),
-                                    lambda a=(x, *w): lstm.bilstm_fwd_plain(*a)))
+                                    lambda a=(x, *w): lstm.bilstm_fwd_plain(*a), (x, *w)))
         cases["bilstm_cbnd"].append((
             f"{label} K {lstm.SEG_K}", lambda a=(x, h_seq, *w): lstm.bilstm_cbnd(*a),
-            lambda a=(x, h_seq, *w): lstm.bilstm_cbnd_plain(*a)))
+            lambda a=(x, h_seq, *w): lstm.bilstm_cbnd_plain(*a), (x, h_seq, *w)))
         cases["bilstm_segbwd"].append((
             f"{label} K {lstm.SEG_K}",
             lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd(*a),
-            lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd_plain(*a)))
+            lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd_plain(*a),
+            (dh, x, h_seq, c_bnd, *w)))
         x = h_seq
     # one step's 3 S problems: each model's labels; every other model on the
     # epoch's wrap-padded last batch (12 real rows of 64)
@@ -656,12 +707,180 @@ def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator) -> dict:
     args = (n, n, labels, valid, temp)
     cases["infonce"].append((
         f"P={p_n} {tuple(n.shape[1:])} per-problem labels, masks, temperatures",
-        lambda a=args: contrastive.infonce(*a), lambda a=args: contrastive.infonce_plain(*a)))
+        lambda a=args: contrastive.infonce(*a), lambda a=args: contrastive.infonce_plain(*a),
+        args))
     return cases
 
 
 # --------------------------------------------------------------------------
-# kernels against their plain versions
+# ME-MHACL: contrastive pretrain, joint finetune, the fused head
+# --------------------------------------------------------------------------
+
+
+def _params(*modules) -> dict[str, torch.Tensor]:
+    return {f"{i}.{n}": p for i, m in enumerate(modules) for n, p in m.named_parameters()}
+
+
+def memhacl_phase(device: torch.device) -> tuple[dict, tuple, tuple]:
+    """``cli.py memhacl`` at full width: 2 pretrain and 2 finetune epochs.
+    Returns the path's launch counts, the trained ``(encoder, projector,
+    classifier)`` and the ``(full, train, validation)`` sets."""
+    arrays = make_synthetic_emotion_arrays(n=MEMHACL_N, seed=SEED)
+    full = DeviceDataset(arrays, device)
+    tr_idx, va_idx = random_split_indices(MEMHACL_N, 0.8, seed=SEED)
+    train, val = full.subset(tr_idx), full.subset(va_idx)
+    gen = lambda k: torch.Generator().manual_seed(SEED + k)
+    encoder = MEMHACLEncoder(MEMHACL_F, MEMHACL_HEADS, device=device, generator=gen(0))
+    projector = ProjectionHead(MEMHACL_F, device=device, generator=gen(1))
+    classifier = MEMHACLClassifier(MEMHACL_F, device=device, generator=gen(2))
+    pre_steps = -(-MEMHACL_N // MEMHACL_BATCH)
+    ft_steps, val_batches = -(-len(train) // MEMHACL_BATCH), -(-len(val) // MEMHACL_BATCH)
+    print(f"ME-MHACL: {MEMHACL_N} synthetic trials; pretrain on all of them ({pre_steps} steps "
+          f"of {MEMHACL_BATCH} per epoch), finetune on {len(train)} with {len(val)} validation "
+          f"({ft_steps} steps, {val_batches} validation batches per epoch); feat_dim "
+          f"{MEMHACL_F}, {MEMHACL_HEADS} heads, projector and classifier dropout 0.5")
+
+    reset_launch_counts()
+    before = {n: p.detach().clone() for n, p in _params(encoder, projector).items()}
+    (_, _, losses), t_pre = synced(lambda: memhacl_pretrain(
+        encoder, projector, full, num_epochs=MEMHACL_EPOCHS, batch_size=MEMHACL_BATCH,
+        seed=SEED, verbose=False))
+    frozen = [n for n, p in _params(encoder, projector).items() if torch.equal(p, before[n])]
+    before = {n: p.detach().clone() for n, p in _params(encoder, classifier).items()}
+    (_, _, metrics), t_ft = synced(lambda: memhacl_finetune(
+        encoder, None, classifier, train, val, num_epochs=MEMHACL_EPOCHS,
+        batch_size=MEMHACL_BATCH, seed=SEED, verbose=False))
+    counts = launch_counts()
+    frozen += [n for n, p in _params(encoder, classifier).items() if torch.equal(p, before[n])]
+    print(f"ME-MHACL pretrain losses {losses}; finetune losses {metrics['loss_history']}, "
+          f"validation a_acc {metrics['a_acc']:.4f} v_acc {metrics['v_acc']:.4f}")
+    print(f"ME-MHACL smoke reading (host clock around synchronised runs): pretrain "
+          f"{t_pre * 1e3 / (MEMHACL_EPOCHS * pre_steps):.3f} ms/step, finetune "
+          f"{t_ft * 1e3 / (MEMHACL_EPOCHS * ft_steps):.3f} ms/step with the per-epoch validation")
+    check(all(math.isfinite(v) for v in (*losses, *metrics["loss_history"])),
+          "ME-MHACL: non-finite loss")
+    print(f"ME-MHACL parameter tensors that did not move: {frozen}")
+    check(not frozen, f"ME-MHACL parameters that did not move: {frozen}")
+    expected = {name: 0 for name in KERNELS}
+    expected["fusion_head"] = val_batches * MEMHACL_EPOCHS
+    print(f"ME-MHACL launches: {counts}")
+    check(counts == expected, f"ME-MHACL launch counts {counts} != {expected}")
+
+    # one validation batch: fused head vs module path on the card and on the CPU
+    idx, _ = val.epoch_plan(MEMHACL_BATCH, shuffle=False)
+    batch = val.gather(idx[0])
+    x = (batch["eeg"], batch["eye"], batch["pps"])
+    fused = memhacl_logits(encoder, classifier, *x)  # eval mode, no grad
+    with torch.no_grad():
+        module = classifier(encoder(*x))
+    cpu = memhacl_logits(copy.deepcopy(encoder).cpu(), copy.deepcopy(classifier).cpu(),
+                         *(t.cpu() for t in x))
+    card_err = max((f - m).abs().max().item() for f, m in zip(fused, module))
+    cpu_err = max((f.cpu() - c).abs().max().item() for f, c in zip(fused, cpu))
+    print(f"ME-MHACL validation logits, fused head vs module path on the card: max |diff| "
+          f"{card_err:.3e} (limit {HEAD_ATOL}); vs the CPU module path {cpu_err:.3e} (limit "
+          f"{PATH_ATOL})")
+    check(all(f.shape == (MEMHACL_BATCH, 2) and bool(torch.isfinite(f).all()) for f in fused),
+          "ME-MHACL: fused-head logits not finite (B, 2)")
+    check(card_err <= HEAD_ATOL and cpu_err <= PATH_ATOL, "ME-MHACL: fused head disagrees")
+    return counts, (encoder, projector, classifier), (full, train, val)
+
+
+def memhacl_kernel_cases(encoder, classifier, val: DeviceDataset, cases: dict) -> None:
+    """Adds the fused head at the validation batch (B=32) and at a ragged
+    B=37, on the trained encoder's embeddings. Call under ``no_grad``."""
+    encoder.eval()
+    weights = fusion_head.head_weights(encoder.multihead_attn, classifier)
+    for rows, what in ((MEMHACL_BATCH, "validation batch"), (37, "ragged")):
+        batch = val.gather(np.arange(rows) % len(val))
+        args = (*encoder.embed(batch["eeg"], batch["eye"], batch["pps"]), *weights)
+        cases["fusion_head"].append((
+            f"B={rows} F={MEMHACL_F} {what}",
+            lambda a=args: fusion_head.fusion_head(*a, num_heads=MEMHACL_HEADS),
+            lambda a=args: fusion_head.fusion_head_plain(*a, num_heads=MEMHACL_HEADS), args))
+
+
+# --------------------------------------------------------------------------
+# attention over a long sequence: the flash kernels
+# --------------------------------------------------------------------------
+
+
+def attention_phase(device: torch.device) -> tuple[dict, MultiheadAttention, torch.Tensor]:
+    """``MultiheadAttention(256, 8)`` self-attention over the T=585 EEG
+    window, forward and backward; returns the launch counts, the module and
+    its input on the card."""
+    gen = torch.Generator().manual_seed(SEED)
+    cpu = MultiheadAttention(ATTN_E, ATTN_HEADS)
+    init_parameters(cpu, gen)
+    card = copy.deepcopy(cpu).to(device)
+    x = torch.randn(ATTN_B, ATTN_T, ATTN_E, generator=gen)
+    x_card = x.to(device)
+
+    def step(m, xi):
+        xi = xi.detach().requires_grad_()
+        y = m(xi, xi, xi)
+        (y * y).sum().backward()
+        grads = {"input": xi.grad, **{n: p.grad for n, p in m.named_parameters()}}
+        m.zero_grad()
+        return y.detach(), grads
+
+    step(card, x_card)  # warm-up: first launches, cuBLAS handles
+    reset_launch_counts()
+    (y, grads), seconds = synced(lambda: step(card, x_card))
+    counts = launch_counts()
+    print(f"attention: MultiheadAttention({ATTN_E}, {ATTN_HEADS}) self-attention, B={ATTN_B}, "
+          f"T={ATTN_T}, forward + backward {seconds * 1e3:.3f} ms (host clock around a "
+          f"synchronised run); launches {counts}")
+    expected = {name: 0 for name in KERNELS}
+    expected.update(flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1)
+    check(counts == expected, f"attention launch counts {counts} != {expected}")
+    y_cpu, g_cpu = step(cpu, x)
+    out_err = (y.cpu() - y_cpu).abs().max().item()
+    worst, worst_name, outliers, outlier_name = grad_agreement(grads, g_cpu)
+    print(f"attention card vs CPU plain path: outputs max |diff| {out_err:.3e} (limit "
+          f"{PATH_ATOL}); {len(g_cpu)} gradients, worst scaled |diff| {worst:.3e} at "
+          f"{worst_name}; largest share above {GRAD_RTOL}: {outliers:.3e}"
+          f"{' at ' + outlier_name if outlier_name else ''} (limit {GRAD_OUTLIERS})")
+    check(bool(torch.isfinite(y).all()) and out_err <= PATH_ATOL and outliers <= GRAD_OUTLIERS,
+          "attention on the card disagrees with the CPU")
+    return counts, card, x_card
+
+
+def attention_kernel_cases(mha: MultiheadAttention, x: torch.Tensor, gen: torch.Generator,
+                           cases: dict) -> None:
+    """Adds the three flash kernels at the attention phase's own q, k, v
+    (B H = 512, T = 585, Dh = 32), at 200 queries over 100 keys and at 9
+    rows, seeded. Call under ``no_grad``."""
+    dh = ATTN_E // ATTN_HEADS
+    bh = ATTN_B * ATTN_HEADS
+
+    def heads(t):
+        return t.reshape(ATTN_B, ATTN_T, ATTN_HEADS, dh).transpose(1, 2).reshape(
+            bh, ATTN_T, dh).contiguous()
+
+    w, b = mha.in_proj_weight.chunk(3), mha.in_proj_bias.chunk(3)
+    q, k, v = (heads(F.linear(x, wi, bi)) for wi, bi in zip(w, b))
+    randn = lambda *shape: torch.randn(shape, device=x.device, generator=gen)
+    shapes = [(f"MHA self-attention {tuple(q.shape)}", q / math.sqrt(dh), k, v)]
+    for tq, tk in ((200, 100), (9, 9)):
+        shapes.append((f"({bh}, {tq} q / {tk} k, {dh})", randn(bh, tq, dh) / math.sqrt(dh),
+                       randn(bh, tk, dh), randn(bh, tk, dh)))
+    for label, q, k, v in shapes:
+        o, lse = attention.flash_fwd_plain(q, k, v)
+        do = randn(*q.shape)
+        fwd_args, bwd_args = (q, k, v), (q, k, v, do, lse, (do * o).sum(-1))
+        cases["flash_fwd"].append((label, lambda a=fwd_args: attention.flash_fwd(*a),
+                                   lambda a=fwd_args: attention.flash_fwd_plain(*a), fwd_args))
+        cases["flash_bwd_dq"].append((label, lambda a=bwd_args: attention.flash_bwd_dq(*a),
+                                      lambda a=bwd_args: attention.flash_bwd_dq_plain(*a),
+                                      bwd_args))
+        cases["flash_bwd_dkv"].append((label, lambda a=bwd_args: attention.flash_bwd_dkv(*a),
+                                       lambda a=bwd_args: attention.flash_bwd_dkv_plain(*a),
+                                       bwd_args))
+
+
+# --------------------------------------------------------------------------
+# kernels against their plain versions, their bounds and the library calls
 # --------------------------------------------------------------------------
 
 
@@ -694,70 +913,180 @@ def outputs(name: str, res) -> list[torch.Tensor]:
     return list(res)
 
 
-def case_results(name: str, items: list) -> tuple[float, float, float]:
-    """Holds each (label, kernel call, plain call) of one kernel to its
-    tolerance; returns the largest error and the summed kernel and plain
-    times."""
+def tensors(args) -> list[torch.Tensor]:
+    """The tensors among ``args``, nested tuples flattened."""
+    if isinstance(args, torch.Tensor):
+        return [args]
+    out = []
+    for a in args:
+        if isinstance(a, (torch.Tensor, tuple, list)):
+            out += tensors(a)
+    return out
+
+
+def operations(name: str, args, res) -> float:
+    """Floating-point operations of one call on these inputs: a multiply-add
+    counts two, an exp, erf, max or division one; the per-element terms of
+    the gate and normalisation arithmetic are approximate."""
+    t = tensors(args)
+    if name.startswith("bilstm"):
+        x, h_seq = {"bilstm_fwd": (t[0], tensors(res)[0]), "bilstm_cbnd": (t[0], t[1]),
+                    "bilstm_segbwd": (t[1], t[2])}[name]
+        i, h = x.shape[-1], h_seq.shape[-1] // 2
+        steps = 2 * x.numel() // i  # (model,) row, time step, direction
+        # forward: gate products and the cell; backward: the gates rebuilt,
+        # dh through W_hh, dx through W_ih, dW_cat = [x | h | 1]^T dgates
+        return steps * ((24 * h * (i + h) + 20 * h) if name == "bilstm_segbwd"
+                        else (8 * h * (i + h) + 10 * h))
+    if name == "stem_tail":  # BN, erf-GELU, dropout, the pool's compare
+        return 13 * t[0].numel()
+    if name == "stem_tail_bwd":  # BN rebuilt, GELU gradient, dgamma/dbeta sums
+        return 16 * t[0].numel()
+    if name == "infonce":
+        p, b, d = t[0].shape
+        return p * b * b * (2 * d + 6)
+    if name == "conv_stem":  # same-padded conv, then BN, GELU and the pool
+        x, w = t[0], t[1]
+        bsz, steps, _ = x.shape
+        o, c, k = w.shape
+        return bsz * steps * o * (2 * c * k + 12)
+    if name.startswith("flash"):
+        q, k = t[0], t[1]
+        per = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}[name]
+        return q.shape[0] * q.shape[1] * k.shape[1] * (per * q.shape[2] + 4)
+    if name == "fusion_head":
+        bsz, f = t[0].shape
+        hidden, ncls = t[7].shape[0], t[9].shape[0]
+        # q|k|v and out projections of 3 rows, the 3x3 attention per head,
+        # the shared layer and the two heads
+        return bsz * (24 * f * f + 36 * f + 2 * f * hidden + 4 * hidden * ncls)
+    raise KeyError(name)
+
+
+def library_call(name: str, args):
+    """One PyTorch call computing the kernel's function on the same inputs
+    (``nn.LSTM`` through cuDNN; ``scaled_dot_product_attention``, whose
+    backward computes dQ, dK and dV together), or None where there is none
+    or for the S-axis cases. Timed beside the kernel only."""
+    t = tensors(args)
+    if name.startswith("bilstm"):
+        if name == "bilstm_fwd":
+            x = t[0]
+            if x.dim() != 3:
+                return None
+            w_ih, w_hh, bias = lstm.stack_params(tuple(t[1:5]), tuple(t[5:9]))
+        else:
+            x, (w_ih, w_hh, bias) = (t[0], t[2:5]) if name == "bilstm_cbnd" else (t[1], t[4:7])
+            if x.dim() != 3:
+                return None
+        net = torch.nn.LSTM(x.shape[-1], w_hh.shape[-1], batch_first=True, bidirectional=True,
+                            device=x.device)
+        with torch.no_grad():
+            for d, sfx in enumerate(("", "_reverse")):
+                getattr(net, f"weight_ih_l0{sfx}").copy_(w_ih[d])
+                getattr(net, f"weight_hh_l0{sfx}").copy_(w_hh[d])
+                getattr(net, f"bias_ih_l0{sfx}").copy_(bias[d])
+                getattr(net, f"bias_hh_l0{sfx}").zero_()
+        net.flatten_parameters()
+        if name == "bilstm_fwd":
+            return lambda: net(x)
+        dh = t[0] if name == "bilstm_segbwd" else torch.ones(
+            *x.shape[:-1], 2 * w_hh.shape[-1], device=x.device)
+
+        def fwd_bwd():
+            with torch.enable_grad():
+                out, _ = net(x.detach().requires_grad_())
+                out.backward(dh)
+
+        return fwd_bwd
+    if name == "flash_fwd":
+        q, k, v = t[:3]
+        return lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=1.0)
+    if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        q, k, v = (a.detach().clone().requires_grad_() for a in t[:3])
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(q[None], k[None], v[None], scale=1.0)
+        return lambda: torch.autograd.grad(out, (q, k, v), t[3][None], retain_graph=True)
+    return None
+
+
+def case_results(name: str, items: list) -> dict:
+    """Holds each (label, kernel call, plain call, inputs) of one kernel to
+    its tolerance and times it; returns the largest error and the kernel,
+    plain, bound and library times summed over the cases (the library time
+    None where no case has a library call)."""
     _, _, tol = KERNELS[name]
-    err = ms_k = ms_p = 0.0
-    for label, kern, plain in items:
-        got, want = outputs(name, kern()), outputs(name, plain())
+    out = dict(err=0.0, ms=0.0, plain_ms=0.0, ops_ms=0.0, bytes_ms=0.0, bound_ms=0.0,
+               library_ms=None)
+    for label, kern, plain, args in items:
+        res = kern()
+        got, want = outputs(name, res), outputs(name, plain())
         torch.cuda.synchronize()
         check(len(got) == len(want) and all(g.shape == w.shape for g, w in zip(got, want)),
               f"{name} {label}: outputs differ in shape")
         e = max((g - w).abs().max().item() for g, w in zip(got, want))
         check(e <= tol, f"{name} {label}: max |err| {e:.3e} > {tol}")
+        nbytes = sum(x.numel() * x.element_size() for x in tensors(args) + tensors(res))
+        ops_ms = operations(name, args, res) / PEAK_FP32_FLOPS * 1e3
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         tk, tp = time_ms(kern), time_ms(plain)
-        print(f"kernel {name} {label}: max |err| {e:.3e} (limit {tol}), "
-              f"{tk:.4f} ms, plain {tp:.4f} ms")
-        err, ms_k, ms_p = max(err, e), ms_k + tk, ms_p + tp
-    return err, ms_k, ms_p
+        call = library_call(name, args)
+        tl = time_ms(call) if call is not None else None
+        print(f"kernel {name} {label}: max |err| {e:.3e} (limit {tol}), {tk:.4f} ms, plain "
+              f"{tp:.4f} ms, library {'none' if tl is None else f'{tl:.4f} ms'}, bound "
+              f"{max(ops_ms, bytes_ms):.4f} ms ({nbytes / 1e6:.3f} MB, "
+              f"{operations(name, args, res) / 1e9:.4f} GFLOP)")
+        out["err"] = max(out["err"], e)
+        out["ms"] += tk
+        out["plain_ms"] += tp
+        out["ops_ms"] += ops_ms
+        out["bytes_ms"] += bytes_ms
+        out["bound_ms"] += max(ops_ms, bytes_ms)
+        if tl is not None:
+            out["library_ms"] = (out["library_ms"] or 0.0) + tl
+    out["bound_by"] = "operations" if out["ops_ms"] >= out["bytes_ms"] else "bytes"
+    return out
 
 
 def kernel_results(cases: dict, loso_cases: dict, counts: dict) -> list[dict]:
-    """One entry per kernel: ``ms``/``plain_ms`` summed over its one-model
-    cases, ``loso_ms``/``loso_plain_ms`` over its S=24 cases."""
+    """One entry per kernel: ``ms``, ``plain_ms``, ``bound_ms`` and
+    ``library_ms`` summed over its one-model cases; ``loso_ms``,
+    ``loso_plain_ms`` and ``loso_bound_ms`` over its S=24 cases."""
     results = []
     for name, items in cases.items():
         source, replaces, _ = KERNELS[name]
         check(bool(items), f"{name}: no case")
-        err, ms_k, ms_p = case_results(name, items)
+        r = case_results(name, items)
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": counts[name], "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+                 "launches": counts[name], "max_abs_err": r["err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": r["library_ms"]}
         if name in loso_cases:
-            err, entry["loso_ms"], entry["loso_plain_ms"] = case_results(name, loso_cases[name])
-            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            lr = case_results(name, loso_cases[name])
+            entry.update(loso_ms=lr["ms"], loso_plain_ms=lr["plain_ms"],
+                         loso_bound_ms=lr["bound_ms"])
+            entry["max_abs_err"] = max(entry["max_abs_err"], lr["err"])
         results.append(entry)
     return results
 
 
-def profile_training(trainer: Trainer) -> None:
-    """Device time by kernel over one train epoch (8 steps) under torch.profiler."""
+def profile_window(label: str, fn, top: int = 25, show: tuple[str, ...] = ()) -> None:
+    """Device time by kernel over ``fn()`` under torch.profiler, against the
+    host clock of the same window: the ``top`` kernels, and every kernel
+    whose name holds one of ``show``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        synced(lambda: trainer.train_epoch(EPOCHS + 1))
+        _, seconds = synced(fn)
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     total = sum(e.self_device_time_total for e in events)
-    print(f"profile: one train epoch, device time {total / 1e3:.3f} ms over "
-          f"{sum(e.count for e in events)} kernel launches")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
-        print(f"profile {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x {e.key[:100]}")
-
-
-def profile_loso(vt: VectorizedLOSOTrainer) -> None:
-    """Device time by kernel over one LOSO train epoch (8 steps of 24 models)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, seconds = synced(vt.train_epoch)
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    total = sum(e.self_device_time_total for e in events)
-    print(f"profile LOSO: one train epoch, {seconds * 1e3:.3f} ms on the host clock under the "
-          f"profiler, device time {total / 1e3:.3f} ms over {sum(e.count for e in events)} "
-          f"kernel launches")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:30]:
-        print(f"profile LOSO {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x {e.key[:100]}")
+    print(f"profile {label}: {seconds * 1e3:.3f} ms on the host clock under the profiler, "
+          f"device time {total / 1e3:.3f} ms over {sum(e.count for e in events)} kernel launches")
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):
+        if i < top or any(name in e.key for name in show):
+            print(f"profile {label} {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x "
+                  f"{e.key[:100]}")
 
 
 def main() -> int:
@@ -794,17 +1123,27 @@ def main() -> int:
     vt = make_loso_trainer(full)
     loso_counts = loso_phase(vt)
     loso_step_parity(full)
+    memhacl_counts, (encoder, projector, classifier), (emotion, train, val) = memhacl_phase(
+        device)
+    attention_counts, mha, x_attn = attention_phase(device)
     if args.profile:
-        profile_training(trainer)
-        profile_loso(vt)
+        profile_window("train epoch", lambda: trainer.train_epoch(EPOCHS + 1))
+        profile_window("LOSO train epoch", vt.train_epoch, top=30)
+        profile_window("ME-MHACL pretrain epoch", lambda: memhacl_pretrain(
+            encoder, projector, emotion, num_epochs=1, batch_size=MEMHACL_BATCH, verbose=False))
+        profile_window("ME-MHACL finetune epoch", lambda: memhacl_finetune(
+            encoder, None, classifier, train, val, num_epochs=1, batch_size=MEMHACL_BATCH,
+            verbose=False), show=("fusion_head",))
 
     counts = {name: serve_counts[name] + train_counts[name] + loso_counts[name]
-              for name in KERNELS}
+              + memhacl_counts[name] + attention_counts[name] for name in KERNELS}
     gen = torch.Generator(device=device).manual_seed(SEED)
     torch.set_grad_enabled(False)  # plain versions must not record autograd graphs
     cases = serving_kernel_cases(model, first["eeg"])
     training_kernel_cases(trainer.model, batch, mask, gen, cases)
     loso_cases = loso_kernel_cases(vt, gen)
+    memhacl_kernel_cases(encoder, classifier, val, cases)
+    attention_kernel_cases(mha, x_attn, gen, cases)
     dropout_check(trainer.model, batch, gen)
     print(json.dumps({"kernels": kernel_results(cases, loso_cases, counts)}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,13 @@ so far, for the flagship :class:`~.models.MultimodalTransformerModel`:
 - serving: the eval model forward and :func:`~.eval.build_serving_forward`;
 - training: the single-subject :class:`~.train.Trainer` (the JAX
   ``train/engine.py`` step: CE on both heads plus three supervised InfoNCE
-  losses, AdamW, global-norm clip, NaN skip) with its data copies.
+  losses, AdamW, global-norm clip, NaN skip) with its data copies, and the
+  24-subject :class:`~.train.VectorizedLOSOTrainer`.
+
+And the ME-MHACL stack (:mod:`.models.memhacl`, :mod:`.train.memhacl`):
+NT-Xent pretrain and joint finetune, its validation forward on the card
+through the fused fusion-head kernel. ``MultiheadAttention`` above length 8
+runs the flash-attention kernels.
 
 Its hand-written Hopper kernels live in ``csrc/`` and are built on first
 use (:mod:`.kernels`).

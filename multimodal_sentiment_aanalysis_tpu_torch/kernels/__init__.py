@@ -17,12 +17,20 @@ kernel it replaces.
   ``kernels/contrastive.py::_infonce_kernel``
 - ``conv_stem``: ``conv_stem.fused_conv_bn_gelu_pool``, ``csrc/conv_stem.cu``,
   ``kernels/conv_stem.py::_stage_kernel``
+- ``flash_fwd``: ``attention.flash_fwd``, ``csrc/flash_attn.cu``,
+  ``kernels/attention.py::_fwd_kernel``
+- ``flash_bwd_dq``: ``attention.flash_bwd_dq``, ``csrc/flash_attn.cu``,
+  ``kernels/attention.py::_bwd_dq_kernel``
+- ``flash_bwd_dkv``: ``attention.flash_bwd_dkv``, ``csrc/flash_attn.cu``,
+  ``kernels/attention.py::_bwd_dkv_kernel``
+- ``fusion_head``: ``fusion_head.fusion_head``, ``csrc/fusion_head.cu``,
+  ``kernels/fusion_head.py::_kernel``
 
 Each wrapper counts its launches, so a run can show which kernels its path
 went through (:func:`launch_counts`).
 """
 
-from . import contrastive, conv_stem, conv_stem_train, lstm
+from . import attention, contrastive, conv_stem, conv_stem_train, fusion_head, lstm
 from ._build import build_all
 
 KERNELS = {
@@ -33,6 +41,10 @@ KERNELS = {
     "stem_tail_bwd": conv_stem_train.BWD_KERNEL,
     "infonce": contrastive.KERNEL,
     "conv_stem": conv_stem.KERNEL,
+    "flash_fwd": attention.FWD_KERNEL,
+    "flash_bwd_dq": attention.DQ_KERNEL,
+    "flash_bwd_dkv": attention.DKV_KERNEL,
+    "fusion_head": fusion_head.KERNEL,
 }
 
 

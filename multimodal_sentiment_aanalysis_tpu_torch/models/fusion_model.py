@@ -53,22 +53,28 @@ def _bn_blocks(widths, in_dim: int, dropout: float, device) -> list[nn.Module]:
 
 
 def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
-    """flax ``nn.BatchNorm`` over the batch axis of ``(B, F)``: batch stats
-    ``max(E[x^2] - E[x]^2, 0)`` (with gradient) in train mode, updating the
-    running stats; the running stats in eval mode."""
+    """flax ``nn.BatchNorm`` over every axis of ``(B, F)`` or ``(B, C, T)``
+    but the feature axis 1: batch stats ``max(E[x^2] - E[x]^2, 0)`` (with
+    gradient) in train mode, updating the running stats; the running stats
+    in eval mode."""
+    dims = [0, *range(2, x.dim())]
     if bn.training:
-        mean = x.mean(0)
-        var = ((x * x).mean(0) - mean * mean).clamp_min(0.0)
+        mean = x.mean(dims)
+        var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
         update_running_stats(bn, mean.detach(), var.detach())
     else:
         mean, var = bn.running_mean, bn.running_var
-    return (x - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
+    per_feature = (-1,) + (1,) * (x.dim() - 2)
+    return ((x - mean.reshape(per_feature)) * torch.rsqrt(var + bn.eps).reshape(per_feature)
+            * bn.weight.reshape(per_feature) + bn.bias.reshape(per_feature))
 
 
 def run_trunk(trunk: nn.Sequential, x: torch.Tensor,
               generator: torch.Generator | None) -> torch.Tensor:
-    """A [Linear, BatchNorm1d, GELU, Dropout]* (+ Linear) stack with the JAX
-    BatchNorm rule and generator-drawn dropout."""
+    """A Sequential run module by module, with each BatchNorm1d by the JAX
+    rule (:func:`batch_norm`) and each Dropout drawn from ``generator``: the
+    [Linear, BatchNorm1d, GELU, Dropout]* (+ Linear) trunks here, and the
+    ME-MHACL conv stacks and heads."""
     for m in trunk:
         if isinstance(m, nn.BatchNorm1d):
             x = batch_norm(m, x)
@@ -77,6 +83,39 @@ def run_trunk(trunk: nn.Sequential, x: torch.Tensor,
         else:
             x = m(x)
     return x
+
+
+@torch.no_grad()
+def init_parameters(root: nn.Module, generator: torch.Generator | None = None) -> None:
+    """Draw every weight of ``root`` from ``generator`` (a CPU generator;
+    seed 0 when None), with torch's default init rules: Linear and Conv1d
+    U(+-1/sqrt(fan_in)), attention ``in_proj`` Xavier-uniform with zero
+    biases, LSTM U(+-1/sqrt(H)), norms ones and zeros. The same seed gives
+    the same weights on every device."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+
+    def uniform_(p: torch.Tensor, bound: float) -> None:
+        p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
+
+    # children before parents, so the attention branch below zeroes the
+    # bias of its out_proj Linear after the Linear branch drew it
+    for module in reversed(list(root.modules())):
+        if isinstance(module, (nn.Linear, nn.Conv1d)):
+            bound = 1.0 / math.sqrt(module.weight[0].numel())
+            uniform_(module.weight, bound)
+            uniform_(module.bias, bound)
+        elif isinstance(module, MultiheadAttention):
+            e = module.embed_dim
+            uniform_(module.in_proj_weight, math.sqrt(6.0 / (4 * e)))
+            module.in_proj_bias.zero_()
+            module.out_proj.bias.zero_()
+        elif isinstance(module, BiLSTM):
+            hidden = module.weight_hh_l0.shape[1]
+            for p in module.parameters():
+                uniform_(p, 1.0 / math.sqrt(hidden))
+        elif isinstance(module, (nn.LayerNorm, nn.BatchNorm1d)):
+            module.reset_parameters()
 
 
 class MultimodalTransformerModel(nn.Module):
@@ -106,37 +145,9 @@ class MultimodalTransformerModel(nn.Module):
         self.temperature = nn.Parameter(torch.full((), temperature, device=device))
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        """Draw every weight from ``generator`` (a CPU generator; seed 0
-        when None), with torch's default init rules: Linear and Conv1d
-        U(+-1/sqrt(fan_in)), attention ``in_proj`` Xavier-uniform with zero
-        biases, LSTM U(+-1/sqrt(H)), norms ones and zeros. The same seed
-        gives the same weights on every device."""
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-
-        def uniform_(p: torch.Tensor, bound: float) -> None:
-            p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
-
-        # children before parents, so the attention branch below zeroes
-        # the bias of its out_proj Linear after the Linear branch drew it
-        for module in reversed(list(self.modules())):
-            if isinstance(module, (nn.Linear, nn.Conv1d)):
-                bound = 1.0 / math.sqrt(module.weight[0].numel())
-                uniform_(module.weight, bound)
-                uniform_(module.bias, bound)
-            elif isinstance(module, MultiheadAttention):
-                e = module.embed_dim
-                uniform_(module.in_proj_weight, math.sqrt(6.0 / (4 * e)))
-                module.in_proj_bias.zero_()
-                module.out_proj.bias.zero_()
-            elif isinstance(module, BiLSTM):
-                hidden = module.weight_hh_l0.shape[1]
-                for p in module.parameters():
-                    uniform_(p, 1.0 / math.sqrt(hidden))
-            elif isinstance(module, (nn.LayerNorm, nn.BatchNorm1d)):
-                module.reset_parameters()
+        """:func:`init_parameters` of the whole model."""
+        init_parameters(self, generator)
 
     def forward(self, eeg: torch.Tensor, eye: torch.Tensor, pps: torch.Tensor,
                 labels: tuple | None = None, *,

@@ -12,7 +12,15 @@ layout. :func:`trainer_state_from_jax` also carries the JAX ``Trainer``'s
 own learnable ``params["trainer"]["contrastive_weight"]``, so both trainers
 can start from one state. Needs only numpy and torch.
 
-Both also take the JAX ``VectorizedLOSOTrainer``'s stacked variables (the
+The ME-MHACL importers invert ``memhacl_encoder_variables_from_torch_state_dict``
+and the SimCLR projection and classifier importers, whose layouts ME-MHACL
+shares: :func:`memhacl_encoder_state_dict_from_jax`,
+:func:`projection_head_state_dict_from_jax` and
+:func:`classifier_state_dict_from_jax` give the ``state_dict`` of
+:class:`.memhacl.MEMHACLEncoder`, :class:`.simclr.ProjectionHead` and
+:class:`.memhacl.MEMHACLClassifier`.
+
+The flagship importers also take the JAX ``VectorizedLOSOTrainer``'s stacked variables (the
 ``vmap(init_one)`` output, every leaf with a leading model axis S) and then
 return every tensor with that leading axis, the layout of
 :class:`..train.vloso.VectorizedLOSOTrainer`'s stacked state.
@@ -145,3 +153,42 @@ def trainer_state_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, 
     the ``(S, 1)`` contrastive weights."""
     sd = state_dict_from_jax_variables({"params": params["model"], "batch_stats": batch_stats})
     return sd, _t(params["trainer"]["contrastive_weight"])
+
+
+def _conv_gap_stack(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str) -> dict:
+    """``conv{j}_weight``/``conv{j}_bias``/``bn{j}`` and ``proj`` -> the
+    Sequential ``[Conv1d, BatchNorm1d, ReLU]*n, AdaptiveAvgPool1d, Flatten,
+    Linear``: conv at ``3j``, BN at ``3j + 1``, Linear at ``3n + 2``."""
+    sd: dict = {}
+    n = 0
+    while f"conv{n}_weight" in p:
+        sd[f"{prefix}.{3 * n}.weight"] = _t(p[f"conv{n}_weight"])
+        sd[f"{prefix}.{3 * n}.bias"] = _t(p[f"conv{n}_bias"])
+        sd.update(_bn(p[f"bn{n}"], stats[f"bn{n}"], f"{prefix}.{3 * n + 1}"))
+        n += 1
+    return {**sd, **_linear(p["proj"], f"{prefix}.{3 * n + 2}")}
+
+
+def memhacl_encoder_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``MEMHACLEncoder`` variables -> the port's ``state_dict``."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = {}
+    for name in ("eeg_encoder", "eye_encoder", "phy_encoder"):
+        sd.update(_conv_gap_stack(p[name], s[name], name))
+    return {**sd, **_mha(p["multihead_attn"], "multihead_attn")}
+
+
+def projection_head_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``ProjectionHead`` variables -> ``net.0/2/4/6/8``."""
+    p, s = variables["params"], variables["batch_stats"]
+    return {**_linear(p["dense_0"], "net.0"), **_bn(p["bn_0"], s["bn_0"], "net.2"),
+            **_linear(p["dense_1"], "net.4"), **_bn(p["bn_1"], s["bn_1"], "net.6"),
+            **_linear(p["out"], "net.8")}
+
+
+def classifier_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``MEMHACLClassifier`` (or SimCLR ``Classifier``) variables ->
+    ``shared.0``, ``fc_arousal``, ``fc_valence``."""
+    p = variables["params"]
+    return {**_linear(p["shared"], "shared.0"), **_linear(p["fc_arousal"], "fc_arousal"),
+            **_linear(p["fc_valence"], "fc_valence")}

@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels.attention import flash_mha
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact erf-GELU (torch ``nn.GELU`` default)."""
@@ -62,9 +64,10 @@ class PositionalEncoding(nn.Module):
 
 class MultiheadAttention(nn.Module):
     """``nn.MultiheadAttention`` numerics (batch_first, no attention
-    dropout) as plain tensor math: packed ``in_proj_weight`` rows
-    ``[W_q; W_k; W_v]``, scaled dot-product attention per head,
-    ``out_proj``."""
+    dropout): packed ``in_proj_weight`` rows ``[W_q; W_k; W_v]``, scaled
+    dot-product attention per head through
+    :func:`..kernels.attention.flash_mha` (plain tensor math when both
+    lengths are at most 8, the flash kernels above that), ``out_proj``."""
 
     def __init__(self, embed_dim: int, num_heads: int, device=None):
         super().__init__()
@@ -83,8 +86,7 @@ class MultiheadAttention(nn.Module):
         q = F.linear(query, w_q, b_q).reshape(b, tq, nh, e // nh).transpose(1, 2)
         k = F.linear(key, w_k, b_k).reshape(b, tk, nh, e // nh).transpose(1, 2)
         v = F.linear(value, w_v, b_v).reshape(b, tk, nh, e // nh).transpose(1, 2)
-        p = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(e // nh), dim=-1)
-        out = (p @ v).transpose(1, 2).reshape(b, tq, e)
+        out = flash_mha(q, k, v).transpose(1, 2).reshape(b, tq, e)
         return self.out_proj(out)
 
 

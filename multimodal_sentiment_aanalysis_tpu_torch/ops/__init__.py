@@ -1,6 +1,8 @@
 from .losses import (
+    cross_entropy,
     masked_accuracy,
     masked_cross_entropy,
+    ntxent_indexed,
     supervised_infonce,
     supervised_infonce_multi,
 )
@@ -9,9 +11,11 @@ from .rnn import bilstm_layer, bilstm_recurrence, lstm
 __all__ = [
     "bilstm_layer",
     "bilstm_recurrence",
+    "cross_entropy",
     "lstm",
     "masked_accuracy",
     "masked_cross_entropy",
+    "ntxent_indexed",
     "supervised_infonce",
     "supervised_infonce_multi",
 ]

@@ -9,7 +9,9 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/ops/losses.py``:
 - :func:`supervised_infonce_multi`: G losses sharing labels, mask and
   temperature; on the card one launch for all G.
 - :func:`masked_cross_entropy`, :func:`masked_accuracy`: means over the
-  valid rows of a wrap-padded batch.
+  valid rows of a wrap-padded batch;
+- :func:`ntxent_indexed`: ME-MHACL's index-matched NT-Xent; and
+  :func:`cross_entropy`, the batch mean.
 """
 
 from __future__ import annotations
@@ -73,3 +75,22 @@ def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
     hit = (logits.argmax(dim=-1) == labels).to(torch.float32) * mask.to(torch.float32)
     return hit.sum() / mask.sum().clamp_min(1.0)
+
+
+def ntxent_indexed(z1: torch.Tensor, z2: torch.Tensor, temperature: float = 0.5) -> torch.Tensor:
+    """SimCLR NT-Xent with index-matched positives (reference
+    ``ME-MHACL/train.py:47-66``): L2-normalise the ``2B`` stack, mask the
+    self-similarity to -9e15 before the division by ``temperature``, and
+    take the cross-entropy of each row against its pair."""
+    b = z1.shape[0]
+    z = F.normalize(torch.cat([z1, z2]), dim=1, eps=1e-12)
+    sim = z @ z.T
+    eye = torch.eye(2 * b, dtype=torch.bool, device=z.device)
+    sim = torch.where(eye, -9e15, sim) / temperature
+    targets = torch.cat([torch.arange(b, 2 * b), torch.arange(0, b)]).to(z.device)
+    return F.cross_entropy(sim, targets)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy averaged over the batch (``nn.CrossEntropyLoss``)."""
+    return F.cross_entropy(logits, labels)

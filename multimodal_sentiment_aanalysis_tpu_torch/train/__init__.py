@@ -1,4 +1,5 @@
 from .engine import Trainer
+from .memhacl import memhacl_finetune, memhacl_logits, memhacl_pretrain
 from .state import (
     StackedAdamW,
     clip_by_global_norm,
@@ -15,5 +16,8 @@ __all__ = [
     "clip_by_global_norm",
     "clip_rows_by_global_norm",
     "make_adamw",
+    "memhacl_finetune",
+    "memhacl_logits",
+    "memhacl_pretrain",
     "set_learning_rate",
 ]

@@ -191,7 +191,9 @@ def test_wrappers_reject_other_devices_and_dropout():
 def test_cpu_tensors_launch_nothing():
     """Forward and backward of every wrapper on CPU tensors take the plain
     versions and count no launch."""
-    from multimodal_sentiment_aanalysis_tpu_torch.kernels import contrastive
+    from multimodal_sentiment_aanalysis_tpu_torch.kernels import attention, contrastive, fusion_head
+    from multimodal_sentiment_aanalysis_tpu_torch.models import MEMHACLClassifier, MultiheadAttention
+    from multimodal_sentiment_aanalysis_tpu_torch.models.fusion_model import init_parameters
 
     kernels.reset_launch_counts()
     x, fwd, bwd = _lstm_inputs(6, 2, 3, 8, 4)
@@ -203,10 +205,19 @@ def test_cpu_tensors_launch_nothing():
     feats = torch.randn(3, 4, 5, requires_grad=True)
     contrastive.fused_supervised_infonce_multi(feats, feats, torch.tensor([0, 1, 0, 1]),
                                                0.1).sum().backward()
+    q = torch.randn(1, 2, 12, 8, requires_grad=True)
+    attention.flash_mha(q, q, q).sum().backward()
+    x = torch.randn(5, 16)
+    mha, clf = MultiheadAttention(16, 4), MEMHACLClassifier(16, 8)
+    init_parameters(mha)
+    with torch.no_grad():
+        fusion_head.fused_mha_fusion_head(x, x, x, mha, clf, 4)
     assert fwd[0].grad is not None and conv.grad is not None and feats.grad is not None
+    assert q.grad is not None
     assert kernels.launch_counts() == {
         "bilstm_fwd": 0, "bilstm_cbnd": 0, "bilstm_segbwd": 0, "stem_tail": 0,
-        "stem_tail_bwd": 0, "infonce": 0, "conv_stem": 0}
+        "stem_tail_bwd": 0, "infonce": 0, "conv_stem": 0, "flash_fwd": 0,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "fusion_head": 0}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -88,7 +88,9 @@ def test_port_imports_no_jax():
     assert {"config", "data.features", "data.pipeline", "data.raw", "data.splits",
             "eval.serving", "kernels._build", "kernels.contrastive", "kernels.conv_stem_train",
             "kernels.lstm", "models.jax_import", "ops.losses", "ops.rnn", "train.engine",
-            "train.state", "utils.schedule"} <= walked
+            "train.state", "utils.schedule", "data.memhacl", "data.augment",
+            "kernels.attention", "kernels.fusion_head", "models.memhacl", "models.simclr",
+            "train.memhacl"} <= walked
 
 
 @pytest.mark.parametrize("n,batch,shuffle", [(480, 64, True), (10, 4, False)])
