@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, LOSO training, ME-MHACL and
-attention paths on one CUDA card, and check them.
+attention paths, and bf16 LOSO training and bf16 serving, on one CUDA card,
+and check them.
 
 Run from the root of a checkout, with no arguments::
 
@@ -20,7 +21,12 @@ It needs a CUDA card and exits non-zero without one. In order, it
    ``build_serving_forward`` and ``build_serving_forward(use_pallas=True)``,
    with every launch counter reset just before; checks the launch counts,
    finite logits, agreement of the three entry points within 1e-3, and the
-   plain path on the CPU on the first rows within 1e-3;
+   plain path on the CPU on the first rows within 1e-3; then the same 100
+   requests through ``build_serving_forward(compute_dtype=torch.bfloat16)``
+   (two launches of the bf16 BiLSTM forward per request, no other kernel),
+   fp32 logits within rtol and atol 0.1 of fp32 serving and the same argmax
+   on at least 90% of the rows (the JAX package's own bar for bf16
+   serving);
 3. training: the synthetic MAHNOB-HCI set (480 trials, Z-scored) on the
    card, ``loso_split`` with subject 0 held out (460 train, 20 test); a
    full-width flagship from the seeded generator at the reference dropout
@@ -40,6 +46,14 @@ It needs a CUDA card and exits non-zero without one. In order, it
    on a ``dropout=0.0`` copy, that subjects 0 and 17 of one vectorized step
    equal a single-model ``Trainer`` step (loss, gradients, BatchNorm running
    stats, updated parameters); prints ms/step and samples/s/chip;
+   then the same trainer with ``compute_dtype="bfloat16",
+   moment_dtype="bfloat16"`` from the same init (the JAX ``vloso_bf16``
+   config): the same epochs and checks, with the bf16 forms of the BiLSTM
+   and stem-tail kernels in every step and the fp32 forms in the held-out
+   evaluation, as many launches per step as the fp32 trainer; fp32 master
+   parameters and BatchNorm stats, bf16 moments; the epoch-2 loss gap to
+   the fp32 trainer; and one fused bf16 epoch at B=512 (``vloso_bf16_b512``)
+   after a warm-up epoch, with its ms/step and peak device memory;
 5. ME-MHACL (``cli.py memhacl``): ``make_synthetic_emotion_arrays(n=480)``
    on the card, the 80/20 split, full-width encoder, projection head and
    classifier (feat_dim 256, 8 heads) from seeded generators;
@@ -58,15 +72,22 @@ It needs a CUDA card and exits non-zero without one. In order, it
    paths give it (real activations of the first request, train batch,
    validation batch or attention input; for the S=24 cases the LOSO
    trainer's stacked weights and seeded activations; the flash kernels also
-   at a 200-query / 100-key and a 9-row shape), times both with CUDA
-   events, times one PyTorch call of the same function where there is one
-   (``nn.LSTM`` through cuDNN, ``scaled_dot_product_attention``; timed
-   here only, the port never calls them), computes each case's bound (the
-   larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s),
-   and checks the stem tail's dropout (keep share 1 - p within 5 sigma,
-   every output exactly 0 or GELU(y) / (1 - p));
+   at a 200-query / 100-key and a 9-row shape), and each bf16 form at the
+   bf16 paths' shapes (the bf16 serving model's activations, the bf16 LOSO
+   trainer's weights cast to bf16 with seeded bf16 activations, and subject
+   0 alone), times both with CUDA events, times one PyTorch call of the
+   same function where there is one (``nn.LSTM`` in the case's dtype,
+   cuDNN's in fp32; ``scaled_dot_product_attention``; timed here only, the
+   port never calls them), computes each case's bound (the larger of its
+   bytes over 3.35 TB/s and its operations over 67 TFLOP/s, or over 989
+   TFLOP/s for a bf16 form), and checks the stem tail's dropout (keep share
+   1 - p within 5 sigma, every output exactly 0 or GELU(y) / (1 - p));
 8. prints the card's name and power limit, one JSON line of per-kernel
-   results, and as its last line ``{"ok": true, "device": {...}}``.
+   results (one entry per kernel a path launched; the InfoNCE kernel's
+   bf16 form, which no path launches because the bf16 step's InfoNCE
+   features are fp32 as in JAX, reports its case under ``bf16_*`` keys of
+   the InfoNCE entry), and as its last line ``{"ok": true, "device":
+   {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -151,6 +172,16 @@ LOSO_LR = 1e-4             # the trainers' default learning rate
 PER_STEP = dict(bilstm_fwd=2, bilstm_cbnd=2, bilstm_segbwd=2, stem_tail=2, stem_tail_bwd=2,
                 infonce=1)
 PER_EVAL = dict(bilstm_fwd=2, stem_tail=2, infonce=1)
+# a bf16 step: the bf16 forms, but the fp32 InfoNCE form (its features are
+# fp32, as in the JAX model); the held-out evaluation runs in fp32 (PER_EVAL)
+BF16 = torch.bfloat16
+PER_STEP_BF16 = {**{f"{name}_bf16": n for name, n in PER_STEP.items() if name != "infonce"},
+                 "infonce": 1}
+LOSO_B512 = 512       # the JAX bench's vloso_bf16_b512 batch
+LOSS_GAP_LIMIT = 0.1  # bf16 against fp32 epoch-2 train loss, relative, per subject
+# bf16 serving against fp32 serving: the JAX package's bar (tests/test_serving.py)
+SERVE_BF16_TOL, SERVE_BF16_ARGMAX = 0.1, 0.9
+BF16_RTOL = 2.0 ** -7  # a bf16 output of a bf16 form: one ulp of the value on top of its atol
 # ME-MHACL: the MAHNOB-HCI trial count of the other phases, the reference
 # batch, full width
 MEMHACL_N, MEMHACL_BATCH, MEMHACL_EPOCHS, MEMHACL_F, MEMHACL_HEADS = 480, 32, 2, 256, 8
@@ -159,8 +190,8 @@ HEAD_ATOL = 1e-4  # fused head against the module path on the card
 ATTN_B, ATTN_T, ATTN_E, ATTN_HEADS = 64, 585, 256, 8
 # the bound of a case: the larger of its bytes (each input read once, each
 # output written once) over the memory rate and its operations over the
-# fp32 rate (H100 SXM data sheet)
-PEAK_BYTES_PER_S, PEAK_FP32_FLOPS = 3.35e12, 67e12
+# fp32 rate, or the bf16 rate for a bf16 form (H100 SXM data sheet)
+PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, PEAK_BF16_FLOPS = 3.35e12, 67e12, 989e12
 
 CSRC = "multimodal_sentiment_aanalysis_tpu_torch/csrc/"
 JAX_KERNELS = "multimodal_sentiment_aanalysis_tpu/kernels/"
@@ -169,14 +200,20 @@ JAX_KERNELS = "multimodal_sentiment_aanalysis_tpu/kernels/"
 # in another order: dW_cat over 4,672 rows with entries up to ~130, the
 # stem's dgamma/dbeta over 9,344 rows with entries up to ~370, the flash
 # dQ and dK/dV over up to 585 keys or queries; the InfoNCE losses are
-# ~25-50 at temperature 0.01
-KERNELS = {
+# ~25-50 at temperature 0.01. A bf16 form (suffix _bf16, same source) keeps
+# its fp32 form's tolerance for its fp32 outputs (its arithmetic is fp32 on
+# bf16 operands) and adds BF16_RTOL for its bf16 outputs
+TRAINING_KERNELS = {
     "bilstm_fwd": (CSRC + "lstm_fwd.cu", JAX_KERNELS + "lstm.py:527", 1e-4),
     "bilstm_cbnd": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1026", 1e-4),
     "bilstm_segbwd": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1227", 1e-3),
     "stem_tail": (CSRC + "stem_tail.cu", JAX_KERNELS + "conv_stem_train.py:265", 1e-5),
     "stem_tail_bwd": (CSRC + "stem_tail.cu", JAX_KERNELS + "conv_stem_train.py:368", 1e-3),
     "infonce": (CSRC + "infonce.cu", JAX_KERNELS + "contrastive.py:61", 1e-4),
+}
+KERNELS = {
+    **TRAINING_KERNELS,
+    **{f"{name}_bf16": entry for name, entry in TRAINING_KERNELS.items()},
     "conv_stem": (CSRC + "conv_stem.cu", JAX_KERNELS + "conv_stem.py:64", 1e-4),
     "flash_fwd": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:67", 1e-4),
     "flash_bwd_dq": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:159", 1e-3),
@@ -245,8 +282,9 @@ def serve(paths: dict, pool: DeviceDataset, plan: torch.Tensor) -> tuple[dict, d
     return outs, ms
 
 
-def serving_phase(device: torch.device) -> tuple[MultimodalTransformerModel, dict, dict]:
-    """Returns the model, the first request and the path's launch counts."""
+def serving_phase(device: torch.device):
+    """Returns the model, the first request, the path's launch counts, and
+    the pool, the request plan and ``build_serving_forward``'s logits."""
     model = make_model(device)
     pool = make_pool(device)
     plan = request_plan(device)
@@ -293,21 +331,56 @@ def serving_phase(device: torch.device) -> tuple[MultimodalTransformerModel, dic
                   for a, v in (res[0] for res in outs.values()))
     print(f"card vs CPU plain path on 4 rows: max |diff| {cpu_err:.3e} (limit {PATH_ATOL})")
     check(cpu_err <= PATH_ATOL, "card disagrees with the CPU plain path")
-    return model, first, counts
+    return model, first, counts, (pool, plan, outs["serving"])
 
 
-def serving_kernel_cases(model, eeg: torch.Tensor) -> dict:
-    """(label, kernel call, plain call) at the serving path's shapes, on the
-    activations the path computes from ``eeg``. Call under ``no_grad``."""
+def serving_bf16_phase(model, pool: DeviceDataset, plan: torch.Tensor, fp32_logits: list) -> dict:
+    """The requests through ``build_serving_forward(compute_dtype=bf16)``:
+    launch counts, fp32 logits, agreement with fp32 serving. Returns the
+    path's launch counts."""
+    fwd = build_serving_forward(model, compute_dtype=BF16)
+    first = pool.gather(plan[0])
+    fwd(first["eeg"], first["eye"], first["pps"])  # warm-up: bf16 cuBLAS/cuDNN handles
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs, ms = serve({"serving_bf16": fwd}, pool, plan)
+    counts = launch_counts()
+    expected = {name: 0 for name in KERNELS}
+    expected["bilstm_fwd_bf16"] = 2 * REQUESTS
+    print(f"bf16 serving launches over {REQUESTS} requests: {counts}")
+    check(counts == expected, f"bf16 serving launch counts {counts} != {expected}")
+    worst, excess, agree = 0.0, 0.0, 1.0
+    for head in (0, 1):  # arousal, valence
+        lo = torch.cat([res[head] for res in outs["serving_bf16"]])
+        hi = torch.cat([res[head] for res in fp32_logits])
+        check(lo.dtype == torch.float32 and lo.shape == hi.shape
+              and bool(torch.isfinite(lo).all()), "bf16 serving: logits not finite fp32")
+        diff = (lo - hi).abs()
+        worst = max(worst, diff.max().item())
+        excess = max(excess, (diff - SERVE_BF16_TOL * (1 + hi.abs())).max().item())
+        agree = min(agree, (lo.argmax(-1) == hi.argmax(-1)).double().mean().item())
+    print(f"serve serving_bf16: {REQUESTS} requests x {BATCH}, {ms['serving_bf16']:.4f} ms/batch "
+          f"(host clock around synchronised runs); against fp32 serving: max |diff| "
+          f"{worst:.3e}, within rtol/atol {SERVE_BF16_TOL}: {excess <= 0}, argmax agreement "
+          f"{agree:.4f} (the lower head; limit {SERVE_BF16_ARGMAX})")
+    check(excess <= 0 and agree >= SERVE_BF16_ARGMAX, "bf16 serving disagrees with fp32 serving")
+    return counts
+
+
+def serving_kernel_cases(model, eeg: torch.Tensor, cases: dict) -> None:
+    """Adds (label, kernel call, plain call) at the serving path's shapes, on
+    the activations the eval model forward computes from ``eeg``; with bf16
+    ``eeg`` and a model cast to bf16, to the bf16 forms (the conv stem has
+    none). Call under ``no_grad``."""
+    sfx = "_bf16" if eeg.dtype == BF16 else ""
     tc = model.eeg_net.temp_conv
-    cases: dict = {name: [] for name in KERNELS}
     # eval model forward: conv (cuDNN), then the stem tail per stage
     h = eeg
     for conv, bn, pool in ((tc[0], tc[1], 4), (tc[5], tc[6], 2)):
         y = F.conv1d(h, conv.weight, conv.bias, padding=conv.padding)
         args = (y.transpose(1, 2).contiguous(), bn.weight, bn.bias,
                 bn.running_mean, bn.running_var)
-        cases["stem_tail"].append((
+        cases["stem_tail" + sfx].append((
             f"eval pool {pool} {tuple(args[0].shape)}",
             lambda a=args, p=pool: conv_stem_train.fused_stage_train(*a, 0.0, p),
             lambda a=args, p=pool: conv_stem_train.fused_stage_train_plain(*a, p), args))
@@ -317,11 +390,13 @@ def serving_kernel_cases(model, eeg: torch.Tensor) -> dict:
     bilstm = model.eeg_net.bilstm
     for k in range(bilstm.num_layers):
         fwd, bwd = bilstm.layer_params(k)
-        cases["bilstm_fwd"].append((
+        cases["bilstm_fwd" + sfx].append((
             f"layer {k} {tuple(x.shape)}",
             lambda x=x, f=fwd, b=bwd: lstm.fused_bilstm_layer(x, f, b),
             lambda x=x, f=fwd, b=bwd: lstm.fused_bilstm_layer_plain(x, f, b), (x, *fwd, *bwd)))
         x = lstm.fused_bilstm_layer_plain(x, fwd, bwd)
+    if sfx:
+        return
     # serving forward with use_pallas=True: the fused conv stem per stage
     h = eeg.transpose(1, 2).contiguous()
     for conv, bn, pad, pool in ((tc[0], tc[1], 7, 4), (tc[5], tc[6], 2, 2)):
@@ -333,7 +408,6 @@ def serving_kernel_cases(model, eeg: torch.Tensor) -> dict:
             lambda a=args: conv_stem.fused_conv_bn_gelu_pool(*a),
             lambda a=args: conv_stem.fused_conv_bn_gelu_pool_plain(*a), args))
         h = conv_stem.fused_conv_bn_gelu_pool_plain(*args)
-    return cases
 
 
 # --------------------------------------------------------------------------
@@ -526,37 +600,45 @@ def dropout_check(model, batch: dict, gen: torch.Generator) -> None:
 # --------------------------------------------------------------------------
 
 
-def make_loso_trainer(full: DeviceDataset, dropout: float | None = None) -> VectorizedLOSOTrainer:
+def make_loso_trainer(full: DeviceDataset, dropout: float | None = None, batch: int = BATCH,
+                      early_stop: bool = True, **dtypes) -> VectorizedLOSOTrainer:
     """``cli.py vloso`` on the synthetic set, with early stop: one model per
-    held-out subject, all 24 trained together."""
+    held-out subject, all 24 trained together. ``dtypes``: the trainer's
+    ``compute_dtype``/``moment_dtype``."""
     model = MultimodalTransformerModel(feat_dim=256, dropout=dropout, device=full.device,
                                        generator=torch.Generator().manual_seed(SEED))
-    return VectorizedLOSOTrainer(model, full, N_SUBJECTS, EX_NUMS, lr=LOSO_LR, batch_size=BATCH,
-                                 seed=SEED, early_stop=True)
+    return VectorizedLOSOTrainer(model, full, N_SUBJECTS, EX_NUMS, lr=LOSO_LR, batch_size=batch,
+                                 seed=SEED, early_stop=early_stop, **dtypes)
 
 
-def loso_phase(vt: VectorizedLOSOTrainer) -> dict:
+def loso_phase(vt: VectorizedLOSOTrainer, per_step: dict = PER_STEP, label: str = "LOSO") -> dict:
     """Two host-plan epochs, then LOSO_FUSED_EPOCHS fused epochs with the
-    early-stop lanes under the sync check; returns the path's launch counts."""
+    early-stop lanes under the sync check; ``per_step`` is one step's
+    launches of each kernel (the held-out evaluation runs PER_EVAL).
+    Returns the path's launch counts (``counts``), the host-plan epochs'
+    launches per step (``per_step``) and the last host-plan epoch's
+    per-subject train losses (``loss``)."""
     s_n, n_train = vt.n_subjects, vt.train_idx.shape[1]
     steps = -(-n_train // BATCH)
-    print(f"LOSO training: {s_n} models x {n_train} train / {vt.test_idx.shape[1]} test samples, "
-          f"{steps} steps of {s_n} x {BATCH} per epoch, feat_dim 256, dropout 0.4 (stem) / 0.3")
+    print(f"{label} training: {s_n} models x {n_train} train / {vt.test_idx.shape[1]} test "
+          f"samples, {steps} steps of {s_n} x {BATCH} per epoch, feat_dim 256, dropout 0.4 "
+          f"(stem) / 0.3, compute dtype {vt.compute_dtype or torch.float32}, moments "
+          f"{vt.opt.mu.dtype}")
     reset_launch_counts()
     for epoch in range(1, EPOCHS + 1):
         tm, seconds = synced(vt.train_epoch)
-        check(all(np.isfinite(v).all() for v in tm.values()), f"LOSO epoch {epoch}: non-finite")
-        print(f"LOSO epoch {epoch}: train loss mean {tm['loss'].mean():.6f} (subjects "
+        check(all(np.isfinite(v).all() for v in tm.values()), f"{label} epoch {epoch}: non-finite")
+        print(f"{label} epoch {epoch}: train loss mean {tm['loss'].mean():.6f} (subjects "
               f"{tm['loss'].min():.6f} to {tm['loss'].max():.6f}), a_acc {tm['a_acc'].mean():.4f}, "
               f"v_acc {tm['v_acc'].mean():.4f}")
-        print(f"LOSO epoch {epoch} smoke reading (host clock around synchronised runs): "
+        print(f"{label} epoch {epoch} smoke reading (host clock around synchronised runs): "
               f"{seconds * 1e3 / steps:.3f} ms/step of {s_n} models, "
               f"{s_n * n_train / seconds:.1f} samples/s/chip")
     counts = launch_counts()
-    per_step = {name: n / (EPOCHS * steps) for name, n in counts.items()}
-    print(f"LOSO launches per step ({s_n} models, {EPOCHS} epochs of {steps} steps): {per_step}")
-    expected = {name: EPOCHS * steps * PER_STEP.get(name, 0) for name in KERNELS}
-    check(counts == expected, f"LOSO launch counts {counts} != {expected}: not one launch "
+    measured = {name: n / (EPOCHS * steps) for name, n in counts.items() if n}
+    print(f"{label} launches per step ({s_n} models, {EPOCHS} epochs of {steps} steps): {measured}")
+    expected = {name: EPOCHS * steps * per_step.get(name, 0) for name in KERNELS}
+    check(counts == expected, f"{label} launch counts {counts} != {expected}: not one launch "
                               f"per kernel call for all {s_n} models")
 
     reset_launch_counts()
@@ -570,23 +652,91 @@ def loso_phase(vt: VectorizedLOSOTrainer) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     fused = launch_counts()
-    expected = {name: LOSO_FUSED_EPOCHS * (steps * PER_STEP.get(name, 0) + PER_EVAL.get(name, 0))
+    expected = {name: LOSO_FUSED_EPOCHS * (steps * per_step.get(name, 0) + PER_EVAL.get(name, 0))
                 for name in KERNELS}
-    print(f"LOSO fused launches over {LOSO_FUSED_EPOCHS} epochs with early stop: {fused}")
-    check(fused == expected, f"LOSO fused launch counts {fused} != {expected}")
+    print(f"{label} fused launches over {LOSO_FUSED_EPOCHS} epochs with early stop: {fused}")
+    check(fused == expected, f"{label} fused launch counts {fused} != {expected}")
     out = out.cpu().numpy()  # (E, S, 9): masked sums, held-out metrics, lr, stopped
-    check(bool(np.isfinite(out).all()), "LOSO fused epochs: non-finite metrics")
+    check(bool(np.isfinite(out).all()), f"{label} fused epochs: non-finite metrics")
     for e in range(LOSO_FUSED_EPOCHS):
         loss = out[e, :, 0] / np.maximum(out[e, :, 3], 1.0)
-        print(f"LOSO fused epoch {EPOCHS + e + 1}: train loss mean {loss.mean():.6f}, held-out "
+        print(f"{label} fused epoch {EPOCHS + e + 1}: train loss mean {loss.mean():.6f}, held-out "
               f"loss mean {out[e, :, 4].mean():.6f} a_acc {out[e, :, 5].mean():.4f}, lr lanes "
               f"{out[e, :, 7].min():.3e} to {out[e, :, 7].max():.3e}, stopped "
               f"{int(out[e, :, 8].sum())}/{s_n}")
-    print(f"LOSO fused epochs ran under set_sync_debug_mode('error'): no host sync in "
+    print(f"{label} fused epochs ran under set_sync_debug_mode('error'): no host sync in "
           f"{LOSO_FUSED_EPOCHS} epochs; smoke reading (host clock around synchronised runs): "
           f"{seconds * 1e3 / (LOSO_FUSED_EPOCHS * steps):.3f} ms/step with the per-epoch held-out "
           f"evaluation, {LOSO_FUSED_EPOCHS * s_n * n_train / seconds:.1f} samples/s/chip")
-    return {name: counts[name] + fused[name] for name in KERNELS}
+    return {"counts": {name: counts[name] + fused[name] for name in KERNELS},
+            "per_step": measured, "loss": tm["loss"]}
+
+
+def loso_bf16_phase(full: DeviceDataset, fp32: dict) -> tuple[dict, VectorizedLOSOTrainer]:
+    """The LOSO phase in bf16 from the fp32 phase's init (``fp32``: that
+    phase's result): launches per step by kernel row equal to the fp32
+    trainer's, fp32 master parameters and BatchNorm stats, bf16 moments,
+    the epoch-2 loss gap. Returns the launch counts and the trainer."""
+    vt = make_loso_trainer(full, compute_dtype="bfloat16", moment_dtype="bfloat16")
+    res = loso_phase(vt, PER_STEP_BF16, "LOSO bf16")
+    by_row = {name.removesuffix("_bf16"): n for name, n in res["per_step"].items()}
+    print(f"LOSO bf16 launches per step by kernel row equal the fp32 trainer's: "
+          f"{by_row == fp32['per_step']}")
+    check(by_row == fp32["per_step"], f"LOSO bf16 per-step launches {by_row} != fp32 "
+                                      f"{fp32['per_step']}")
+    dtypes = (vt.params.dtype, vt.stats.dtype, vt.opt.mu.dtype, vt.opt.nu.dtype)
+    print(f"LOSO bf16 state: master parameters {dtypes[0]}, BatchNorm stats {dtypes[1]}, "
+          f"moments {dtypes[2]} / {dtypes[3]}")
+    check(dtypes == (torch.float32, torch.float32, BF16, BF16), "LOSO bf16: state dtypes")
+    check(bool(torch.isfinite(vt.params).all()), "LOSO bf16: non-finite master parameters")
+    gap = np.abs(res["loss"] - fp32["loss"]) / np.abs(fp32["loss"])
+    print(f"LOSO epoch {EPOCHS} train loss, bf16 vs fp32 from the same init and plans: mean "
+          f"{res['loss'].mean():.6f} vs {fp32['loss'].mean():.6f}, relative gap per subject "
+          f"mean {gap.mean():.3e} max {gap.max():.3e} (limit {LOSS_GAP_LIMIT})")
+    check(gap.max() <= LOSS_GAP_LIMIT, "LOSO bf16 parts from the fp32 trainer")
+    return res["counts"], vt
+
+
+def loso_b512_phase(full: DeviceDataset) -> dict:
+    """``vloso_bf16_b512``: a bf16 trainer at B=512 without early stop, one
+    warm-up fused epoch, then one fused epoch under the sync check, with
+    its launch counts, ms/step and the peak device memory. Returns the
+    timed epoch's launch counts."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    vt = make_loso_trainer(full, batch=LOSO_B512, early_stop=False, compute_dtype="bfloat16",
+                           moment_dtype="bfloat16")
+    s_n, n_train = vt.n_subjects, vt.train_idx.shape[1]
+    steps = -(-n_train // LOSO_B512)
+    _, warm = synced(lambda: vt.fused_epochs_on_device(1))
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = vt.fused_epochs_on_device(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expected = {name: steps * PER_STEP_BF16.get(name, 0) for name in KERNELS}
+    print(f"LOSO bf16 B={LOSO_B512} launches over one fused epoch: {counts}")
+    check(counts == expected, f"LOSO bf16 B={LOSO_B512} launch counts {counts} != {expected}")
+    out = out.cpu().numpy()  # (1, S, 4) masked sums
+    check(bool(np.isfinite(out).all()), f"LOSO bf16 B={LOSO_B512}: non-finite metrics")
+    loss = out[0, :, 0] / np.maximum(out[0, :, 3], 1.0)
+    print(f"LOSO bf16 B={LOSO_B512}: {s_n} models x {n_train} train samples, {steps} step(s) of "
+          f"{s_n} x {LOSO_B512} per epoch, no early stop; warm-up epoch {warm:.3f} s; fused epoch "
+          f"train loss mean {loss.mean():.6f}; smoke reading (host clock around a synchronised "
+          f"run, no host sync inside): {seconds * 1e3 / steps:.3f} ms/step, "
+          f"{s_n * n_train / seconds:.1f} samples/s/chip; torch.cuda.max_memory_allocated "
+          f"{peak / 2 ** 30:.3f} GiB ({base / 2 ** 30:.3f} GiB held before the trainer was built)")
+    del vt, out
+    torch.cuda.empty_cache()
+    return counts
 
 
 def loso_step_parity(full: DeviceDataset) -> None:
@@ -641,14 +791,32 @@ def loso_step_parity(full: DeviceDataset) -> None:
               f"LOSO subject {s} disagrees with the single-model Trainer")
 
 
-def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator) -> dict:
+def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator,
+                      one_model: dict | None = None) -> dict:
     """(label, kernel call, plain call) at the LOSO step's S=24 shapes: the
-    trainer's stacked weights, seeded activations. Call under ``no_grad``."""
-    cases: dict = {name: [] for name in KERNELS if name in PER_STEP}
+    trainer's stacked weights, seeded activations. For a bf16 trainer the
+    cases go to the bf16 forms, on its weights and activations in bf16 as
+    its step casts them (the BatchNorm statistics computed in bf16, as its
+    stem computes them; the InfoNCE case too, though the step's own
+    features are fp32), and ``one_model`` gains each training kernel's case
+    at subject 0 alone: one model's share of the launch, the shape of a
+    one-model library call. Call under ``no_grad``."""
+    dtype = vt.compute_dtype or torch.float32
+    sfx = "_bf16" if dtype == BF16 else ""
+    cases: dict = {name + sfx: [] for name in TRAINING_KERNELS}
     device = vt.device
-    pd = vt._param_dict(vt.params)
+    pd = {n: p.to(dtype) if n != "temperature" else p for n, p in vt._param_dict(vt.params).items()}
     s_n = vt.n_subjects
-    randn = lambda *shape: torch.randn(shape, device=device, generator=gen)
+    randn = lambda *shape: torch.randn(shape, device=device, generator=gen).to(dtype)
+
+    def add(name, label, fn, plain, args, one=None):
+        cases[name + sfx].append((f"S={s_n} {label}", lambda: fn(*args), lambda: plain(*args),
+                                  args))
+        if one_model is not None:
+            a0 = one or tuple(a[0] if isinstance(a, torch.Tensor) else a for a in args)
+            one_model[name + sfx].append((f"subject 0 of S={s_n} {label}", lambda: fn(*a0),
+                                          lambda: plain(*a0), a0))
+
     tc = "eeg_net.temp_conv"
     t_eeg = vt.data.arrays["eeg"].shape[2]
     width = pd[f"{tc}.6.weight"].shape[1]  # feat_dim
@@ -658,20 +826,17 @@ def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator) -> dict:
         mean = y.mean((1, 2))
         var = (y * y).mean((1, 2)) - mean * mean
         args = (y, pd[f"{bn}.weight"].contiguous(), pd[f"{bn}.bias"].contiguous(), mean, var)
-        cases["stem_tail"].append((
-            f"S={s_n} pool {pool} {conv_shape} batch stats, writes the code",
-            lambda a=args, p=pool: conv_stem_train.stem_tail_fwd(*a, 0.0, p),
-            lambda a=args, p=pool: conv_stem_train.fused_stage_train_plain(*a, p, with_code=True),
-            args))
+        add("stem_tail", f"pool {pool} {conv_shape} batch stats, writes the code",
+            lambda *a, p=pool: conv_stem_train.stem_tail_fwd(*a, 0.0, p),
+            lambda *a, p=pool: conv_stem_train.fused_stage_train_plain(*a, p, with_code=True),
+            args)
         out, code = conv_stem_train.stem_tail_fwd(*args, DROPOUT_P, pool, generator=gen)
         inv = torch.rsqrt(var + 1e-5)
         scale = args[1] * inv
         bwd_args = (y, randn(*out.shape), code, scale, args[2] - mean * scale, mean, inv,
                     DROPOUT_P, pool)
-        cases["stem_tail_bwd"].append((
-            f"S={s_n} pool {pool} {conv_shape} p {DROPOUT_P}, the kernel's own code",
-            lambda a=bwd_args: conv_stem_train.stem_tail_bwd(*a),
-            lambda a=bwd_args: conv_stem_train.stem_tail_bwd_plain(*a), bwd_args))
+        add("stem_tail_bwd", f"pool {pool} {conv_shape} p {DROPOUT_P}, the kernel's own code",
+            conv_stem_train.stem_tail_bwd, conv_stem_train.stem_tail_bwd_plain, bwd_args)
     x = randn(s_n, BATCH, t_eeg // 8, width)
     for k in range(2):
         part = lambda name, sfx: pd[f"eeg_net.bilstm.{name}_l{k}{sfx}"]
@@ -682,17 +847,14 @@ def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator) -> dict:
         h_seq = lstm.bilstm_fwd_plain(x, *w)
         c_bnd = lstm.bilstm_cbnd_plain(x, h_seq, *w)
         dh = randn(*h_seq.shape)
-        label = f"S={s_n} layer {k} {tuple(x.shape)}"
-        cases["bilstm_fwd"].append((label, lambda a=(x, *w): lstm.bilstm_fwd(*a),
-                                    lambda a=(x, *w): lstm.bilstm_fwd_plain(*a), (x, *w)))
-        cases["bilstm_cbnd"].append((
-            f"{label} K {lstm.SEG_K}", lambda a=(x, h_seq, *w): lstm.bilstm_cbnd(*a),
-            lambda a=(x, h_seq, *w): lstm.bilstm_cbnd_plain(*a), (x, h_seq, *w)))
-        cases["bilstm_segbwd"].append((
-            f"{label} K {lstm.SEG_K}",
-            lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd(*a),
-            lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd_plain(*a),
-            (dh, x, h_seq, c_bnd, *w)))
+        label = f"layer {k} {tuple(x.shape)}"
+        # the forward's one-model cases are the serving path's
+        cases["bilstm_fwd" + sfx].append((f"S={s_n} {label}", lambda a=(x, *w): lstm.bilstm_fwd(*a),
+                                          lambda a=(x, *w): lstm.bilstm_fwd_plain(*a), (x, *w)))
+        add("bilstm_cbnd", f"{label} K {lstm.SEG_K}", lstm.bilstm_cbnd, lstm.bilstm_cbnd_plain,
+            (x, h_seq, *w))
+        add("bilstm_segbwd", f"{label} K {lstm.SEG_K}", lstm.bilstm_segbwd,
+            lstm.bilstm_segbwd_plain, (dh, x, h_seq, c_bnd, *w))
         x = h_seq
     # one step's 3 S problems: each model's labels; every other model on the
     # epoch's wrap-padded last batch (12 real rows of 64)
@@ -705,10 +867,8 @@ def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator) -> dict:
     valid[3::6, tail:] = valid[4::6, tail:] = valid[5::6, tail:] = 0.0
     temp = pd["temperature"].repeat_interleave(3).contiguous()
     args = (n, n, labels, valid, temp)
-    cases["infonce"].append((
-        f"P={p_n} {tuple(n.shape[1:])} per-problem labels, masks, temperatures",
-        lambda a=args: contrastive.infonce(*a), lambda a=args: contrastive.infonce_plain(*a),
-        args))
+    add("infonce", f"P={p_n} {tuple(n.shape[1:])} per-problem labels, masks, temperatures",
+        contrastive.infonce, contrastive.infonce_plain, args, one=tuple(a[:3] for a in args))
     return cases
 
 
@@ -904,6 +1064,7 @@ def outputs(name: str, res) -> list[torch.Tensor]:
     code, cover it). The stem backward's dgamma/dbeta partials summed, as
     its caller sums them (the kernel and the plain version chunk them
     differently)."""
+    name = name.removesuffix("_bf16")
     if isinstance(res, torch.Tensor):
         return [res]
     if name == "stem_tail":
@@ -927,7 +1088,9 @@ def tensors(args) -> list[torch.Tensor]:
 def operations(name: str, args, res) -> float:
     """Floating-point operations of one call on these inputs: a multiply-add
     counts two, an exp, erf, max or division one; the per-element terms of
-    the gate and normalisation arithmetic are approximate."""
+    the gate and normalisation arithmetic are approximate. A bf16 form does
+    its fp32 form's operations."""
+    name = name.removesuffix("_bf16")
     t = tensors(args)
     if name.startswith("bilstm"):
         x, h_seq = {"bilstm_fwd": (t[0], tensors(res)[0]), "bilstm_cbnd": (t[0], t[1]),
@@ -965,9 +1128,11 @@ def operations(name: str, args, res) -> float:
 
 def library_call(name: str, args):
     """One PyTorch call computing the kernel's function on the same inputs
-    (``nn.LSTM`` through cuDNN; ``scaled_dot_product_attention``, whose
-    backward computes dQ, dK and dV together), or None where there is none
-    or for the S-axis cases. Timed beside the kernel only."""
+    (``nn.LSTM`` in the inputs' dtype, cuDNN's in fp32;
+    ``scaled_dot_product_attention``, whose backward computes dQ, dK and dV
+    together), or None where there is none or for the S-axis cases. Timed
+    beside the kernel only."""
+    name = name.removesuffix("_bf16")
     t = tensors(args)
     if name.startswith("bilstm"):
         if name == "bilstm_fwd":
@@ -980,7 +1145,7 @@ def library_call(name: str, args):
             if x.dim() != 3:
                 return None
         net = torch.nn.LSTM(x.shape[-1], w_hh.shape[-1], batch_first=True, bidirectional=True,
-                            device=x.device)
+                            device=x.device, dtype=x.dtype)
         with torch.no_grad():
             for d, sfx in enumerate(("", "_reverse")):
                 getattr(net, f"weight_ih_l0{sfx}").copy_(w_ih[d])
@@ -991,7 +1156,7 @@ def library_call(name: str, args):
         if name == "bilstm_fwd":
             return lambda: net(x)
         dh = t[0] if name == "bilstm_segbwd" else torch.ones(
-            *x.shape[:-1], 2 * w_hh.shape[-1], device=x.device)
+            *x.shape[:-1], 2 * w_hh.shape[-1], device=x.device, dtype=x.dtype)
 
         def fwd_bwd():
             with torch.enable_grad():
@@ -1012,10 +1177,12 @@ def library_call(name: str, args):
 
 def case_results(name: str, items: list) -> dict:
     """Holds each (label, kernel call, plain call, inputs) of one kernel to
-    its tolerance and times it; returns the largest error and the kernel,
+    its tolerance (for a bf16 output, its tolerance plus BF16_RTOL of the
+    plain value) and times it; returns the largest error and the kernel,
     plain, bound and library times summed over the cases (the library time
     None where no case has a library call)."""
     _, _, tol = KERNELS[name]
+    peak = PEAK_BF16_FLOPS if name.endswith("_bf16") else PEAK_FP32_FLOPS
     out = dict(err=0.0, ms=0.0, plain_ms=0.0, ops_ms=0.0, bytes_ms=0.0, bound_ms=0.0,
                library_ms=None)
     for label, kern, plain, args in items:
@@ -1024,15 +1191,19 @@ def case_results(name: str, items: list) -> dict:
         torch.cuda.synchronize()
         check(len(got) == len(want) and all(g.shape == w.shape for g, w in zip(got, want)),
               f"{name} {label}: outputs differ in shape")
-        e = max((g - w).abs().max().item() for g, w in zip(got, want))
-        check(e <= tol, f"{name} {label}: max |err| {e:.3e} > {tol}")
+        diffs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
+        e = max(d.max().item() for d in diffs)
+        ok = all(bool((d <= tol + (BF16_RTOL if w.dtype == BF16 else 0.0) * w.float().abs()).all())
+                 for d, w in zip(diffs, want))
+        limit = f"{tol}{' + 1 ulp' if any(w.dtype == BF16 for w in want) else ''}"
+        check(ok, f"{name} {label}: max |err| {e:.3e} > {limit}")
         nbytes = sum(x.numel() * x.element_size() for x in tensors(args) + tensors(res))
-        ops_ms = operations(name, args, res) / PEAK_FP32_FLOPS * 1e3
+        ops_ms = operations(name, args, res) / peak * 1e3
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         tk, tp = time_ms(kern), time_ms(plain)
         call = library_call(name, args)
         tl = time_ms(call) if call is not None else None
-        print(f"kernel {name} {label}: max |err| {e:.3e} (limit {tol}), {tk:.4f} ms, plain "
+        print(f"kernel {name} {label}: max |err| {e:.3e} (limit {limit}), {tk:.4f} ms, plain "
               f"{tp:.4f} ms, library {'none' if tl is None else f'{tl:.4f} ms'}, bound "
               f"{max(ops_ms, bytes_ms):.4f} ms ({nbytes / 1e6:.3f} MB, "
               f"{operations(name, args, res) / 1e9:.4f} GFLOP)")
@@ -1049,10 +1220,13 @@ def case_results(name: str, items: list) -> dict:
 
 
 def kernel_results(cases: dict, loso_cases: dict, counts: dict) -> list[dict]:
-    """One entry per kernel: ``ms``, ``plain_ms``, ``bound_ms`` and
-    ``library_ms`` summed over its one-model cases; ``loso_ms``,
-    ``loso_plain_ms`` and ``loso_bound_ms`` over its S=24 cases."""
-    results = []
+    """One entry per kernel a path launched: ``ms``, ``plain_ms``,
+    ``bound_ms`` and ``library_ms`` summed over its one-model cases;
+    ``loso_ms``, ``loso_plain_ms`` and ``loso_bound_ms`` over its S=24
+    cases. A bf16 form that no path launched (the InfoNCE kernel's: the
+    bf16 step's InfoNCE features are fp32, as in JAX) is held and timed all
+    the same, and reported under ``bf16_*`` keys of its fp32 form's entry."""
+    results = {}
     for name, items in cases.items():
         source, replaces, _ = KERNELS[name]
         check(bool(items), f"{name}: no case")
@@ -1066,8 +1240,15 @@ def kernel_results(cases: dict, loso_cases: dict, counts: dict) -> list[dict]:
             entry.update(loso_ms=lr["ms"], loso_plain_ms=lr["plain_ms"],
                          loso_bound_ms=lr["bound_ms"])
             entry["max_abs_err"] = max(entry["max_abs_err"], lr["err"])
-        results.append(entry)
-    return results
+        results[name] = entry
+    for name in [n for n in results if n.endswith("_bf16") and not counts[n]]:
+        entry = results.pop(name)
+        results[name.removesuffix("_bf16")].update(
+            {f"bf16_{k}": v for k, v in entry.items() if k not in ("name", "route", "source",
+                                                                 "replaces")})
+    unlaunched = [name for name, entry in results.items() if not entry["launches"]]
+    check(not unlaunched, f"kernels no path launched: {unlaunched}")
+    return list(results.values())
 
 
 def profile_window(label: str, fn, top: int = 25, show: tuple[str, ...] = ()) -> None:
@@ -1113,7 +1294,8 @@ def main() -> int:
     print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in libs))
 
-    model, first, serve_counts = serving_phase(device)
+    model, first, serve_counts, (pool, plan, fp32_logits) = serving_phase(device)
+    serve_bf16_counts = serving_bf16_phase(model, pool, plan, fp32_logits)
     full = hci_dataset(device)
     trainer = make_trainer(full)
     train_counts = training_phase(trainer)
@@ -1121,30 +1303,38 @@ def main() -> int:
     batch, mask = trainer.train_data.gather(idx[0]), mask[0]
     gradient_parity(trainer, batch, mask)
     vt = make_loso_trainer(full)
-    loso_counts = loso_phase(vt)
+    loso = loso_phase(vt)
     loso_step_parity(full)
+    loso_bf16_counts, vt16 = loso_bf16_phase(full, loso)
+    b512_counts = loso_b512_phase(full)
     memhacl_counts, (encoder, projector, classifier), (emotion, train, val) = memhacl_phase(
         device)
     attention_counts, mha, x_attn = attention_phase(device)
     if args.profile:
         profile_window("train epoch", lambda: trainer.train_epoch(EPOCHS + 1))
         profile_window("LOSO train epoch", vt.train_epoch, top=30)
+        profile_window("LOSO bf16 train epoch", vt16.train_epoch, top=30)
         profile_window("ME-MHACL pretrain epoch", lambda: memhacl_pretrain(
             encoder, projector, emotion, num_epochs=1, batch_size=MEMHACL_BATCH, verbose=False))
         profile_window("ME-MHACL finetune epoch", lambda: memhacl_finetune(
             encoder, None, classifier, train, val, num_epochs=1, batch_size=MEMHACL_BATCH,
             verbose=False), show=("fusion_head",))
 
-    counts = {name: serve_counts[name] + train_counts[name] + loso_counts[name]
-              + memhacl_counts[name] + attention_counts[name] for name in KERNELS}
+    phases = (serve_counts, serve_bf16_counts, train_counts, loso["counts"], loso_bf16_counts,
+              b512_counts, memhacl_counts, attention_counts)
+    counts = {name: sum(c[name] for c in phases) for name in KERNELS}
     gen = torch.Generator(device=device).manual_seed(SEED)
     torch.set_grad_enabled(False)  # plain versions must not record autograd graphs
-    cases = serving_kernel_cases(model, first["eeg"])
+    cases = {name: [] for name in KERNELS}
+    serving_kernel_cases(model, first["eeg"], cases)
     training_kernel_cases(trainer.model, batch, mask, gen, cases)
     loso_cases = loso_kernel_cases(vt, gen)
     memhacl_kernel_cases(encoder, classifier, val, cases)
     attention_kernel_cases(mha, x_attn, gen, cases)
     dropout_check(trainer.model, batch, gen)
+    # the bf16 forms: the eval model forward cast to bf16, the bf16 LOSO step
+    serving_kernel_cases(copy.deepcopy(model).to(BF16), first["eeg"].to(BF16), cases)
+    loso_cases.update(loso_kernel_cases(vt16, gen, one_model=cases))
     print(json.dumps({"kernels": kernel_results(cases, loso_cases, counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,13 @@ Sits beside the JAX package ``multimodal_sentiment_aanalysis_tpu`` (the
 reference, which this package never imports) and mirrors its layout. Ported
 so far, for the flagship :class:`~.models.MultimodalTransformerModel`:
 
-- serving: the eval model forward and :func:`~.eval.build_serving_forward`;
+- serving: the eval model forward and :func:`~.eval.build_serving_forward`
+  (fp32, or bf16 with ``compute_dtype=torch.bfloat16``);
 - training: the single-subject :class:`~.train.Trainer` (the JAX
   ``train/engine.py`` step: CE on both heads plus three supervised InfoNCE
   losses, AdamW, global-norm clip, NaN skip) with its data copies, and the
-  24-subject :class:`~.train.VectorizedLOSOTrainer`.
+  24-subject :class:`~.train.VectorizedLOSOTrainer`, in fp32 or in bf16
+  mixed precision (fp32 master parameters, optionally bf16 AdamW moments).
 
 And the ME-MHACL stack (:mod:`.models.memhacl`, :mod:`.train.memhacl`):
 NT-Xent pretrain and joint finetune, its validation forward on the card

@@ -6,10 +6,26 @@
 // the message.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 extern "C" const char* msa_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Element loads and stores of the kernels that have a bf16 form: storage is
+// float or __nv_bfloat16, arithmetic is always float. bf16 converts only
+// through the intrinsics, rounding to nearest even on the way out.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+    return __float2bfloat16_rn(v);
 }
 
 // Exact erf-GELU (torch nn.GELU default). The TPU kernels used a polynomial

@@ -41,19 +41,36 @@
 // atomics); the wrapper sums the tiles, so the result is deterministic.
 // Parallelising the gate recompute over time (a batched GEMM ahead of the
 // serial sweeps) and spreading a direction over a cluster are later work.
+//
+// Each entry point has an fp32 and a bf16 form (suffix _bf16), one template
+// over the element type T of the activations and weights (x, h_seq, dh_seq,
+// W_ih, W_hh, bias), as the JAX kernels are Mosaic instances at either
+// dtype. The c checkpoints, the dW_cat tile partials and the dx halves stay
+// fp32 in both, and so does all arithmetic: the bf16 form only reads half
+// the bytes. The wrapper rounds dx and the weight gradients to the inputs'
+// dtype, as the JAX layer's VJP does.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBt = 8;  // batch rows per block; kBt * H == 2 * (4H threads)
+// The reverse sweep's most threads per block (4H <= 512, H <= 128), and the
+// register cap that lets a block of that many launch: 65536 / 512 = 128 a
+// thread. The fp32 form takes 128 uncapped; the bf16 form's conversions took
+// 140, which cannot launch 512 threads. The cap is __maxnreg__, not
+// __launch_bounds__(512): with the launch bound the compiler cut the fp32
+// form to 64 registers with spills, and its sweep slowed by a sixth.
+constexpr int kSegMaxThreads = 512;
+constexpr int kSegMaxRegs = 65536 / kSegMaxThreads;
 
-__global__ void bilstm_cbnd_kernel(const float* __restrict__ x,       // (S, B, T, I)
-                                   const float* __restrict__ h_seq,   // (S, B, T, 2H)
-                                   const float* __restrict__ w_ih_t,  // (S, 2, I, 4H)
-                                   const float* __restrict__ w_hh_t,  // (S, 2, H, 4H)
-                                   const float* __restrict__ bias,    // (S, 2, 4H)
-                                   float* __restrict__ c_bnd,         // (S, 2, NSEG, B, H)
+template <typename E>
+__global__ void bilstm_cbnd_kernel(const E* __restrict__ x,       // (S, B, T, I)
+                                   const E* __restrict__ h_seq,   // (S, B, T, 2H)
+                                   const E* __restrict__ w_ih_t,  // (S, 2, I, 4H)
+                                   const E* __restrict__ w_hh_t,  // (S, 2, H, 4H)
+                                   const E* __restrict__ bias,    // (S, 2, 4H)
+                                   float* __restrict__ c_bnd,     // (S, 2, NSEG, B, H)
                                    int B, int T, int I, int H, int K, int nseg) {
     extern __shared__ float smem[];
     const int G = 4 * H;
@@ -71,9 +88,9 @@ __global__ void bilstm_cbnd_kernel(const float* __restrict__ x,       // (S, B, 
     const int d = blockIdx.y;
     const int b0 = blockIdx.x * kBt;
     const int g = threadIdx.x;
-    const float* wi = w_ih_t + static_cast<size_t>(d) * I * G;
-    const float* wh = w_hh_t + static_cast<size_t>(d) * H * G;
-    const float bg = bias[d * G + g];
+    const E* wi = w_ih_t + static_cast<size_t>(d) * I * G;
+    const E* wh = w_hh_t + static_cast<size_t>(d) * H * G;
+    const float bg = to_float(bias[d * G + g]);
     float c[2] = {0.0f, 0.0f};
 
     for (int s = 0; s < T; ++s) {
@@ -82,14 +99,15 @@ __global__ void bilstm_cbnd_kernel(const float* __restrict__ x,       // (S, B, 
         for (int idx = g; idx < kBt * I; idx += G) {
             const int r = idx / I;
             const int b = b0 + r;
-            xs[idx] = b < B ? x[(static_cast<size_t>(b) * T + t) * I + (idx - r * I)] : 0.0f;
+            xs[idx] = b < B ? to_float(x[(static_cast<size_t>(b) * T + t) * I + (idx - r * I)])
+                            : 0.0f;
         }
         for (int idx = g; idx < kBt * H; idx += G) {
             const int r = idx / H;
             const int b = b0 + r;
-            hs[idx] = (s > 0 && b < B)
-                          ? h_seq[(static_cast<size_t>(b) * T + tp) * 2 * H + d * H + (idx - r * H)]
-                          : 0.0f;
+            hs[idx] = (s > 0 && b < B) ? to_float(h_seq[(static_cast<size_t>(b) * T + tp) * 2 * H +
+                                                        d * H + (idx - r * H)])
+                                       : 0.0f;
         }
         __syncthreads();
 
@@ -98,12 +116,12 @@ __global__ void bilstm_cbnd_kernel(const float* __restrict__ x,       // (S, B, 
 #pragma unroll
         for (int r = 0; r < kBt; ++r) acc[r] = bg;
         for (int k = 0; k < I; ++k) {
-            const float w = wi[static_cast<size_t>(k) * G + g];
+            const float w = to_float(wi[static_cast<size_t>(k) * G + g]);
 #pragma unroll
             for (int r = 0; r < kBt; ++r) acc[r] = fmaf(xs[r * I + k], w, acc[r]);
         }
         for (int k = 0; k < H; ++k) {
-            const float w = wh[static_cast<size_t>(k) * G + g];
+            const float w = to_float(wh[static_cast<size_t>(k) * G + g]);
 #pragma unroll
             for (int r = 0; r < kBt; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
         }
@@ -130,18 +148,20 @@ __global__ void bilstm_cbnd_kernel(const float* __restrict__ x,       // (S, B, 
     }
 }
 
-__global__ void bilstm_segbwd_kernel(const float* __restrict__ dh_seq,  // (S, B, T, 2H)
-                                     const float* __restrict__ x,       // (S, B, T, I)
-                                     const float* __restrict__ h_seq,   // (S, B, T, 2H)
-                                     const float* __restrict__ c_bnd,   // (S, 2, NSEG, B, H)
-                                     const float* __restrict__ w_ih_t,  // (S, 2, I, 4H)
-                                     const float* __restrict__ w_hh_t,  // (S, 2, H, 4H)
-                                     const float* __restrict__ w_ih,    // (S, 2, 4H, I)
-                                     const float* __restrict__ w_hh,    // (S, 2, 4H, H)
-                                     const float* __restrict__ bias,    // (S, 2, 4H)
-                                     float* __restrict__ dx_pk,         // (S, 2, B, T, I)
-                                     float* __restrict__ dw_part,       // (S, tiles, 2, R, 4H)
-                                     int B, int T, int I, int H, int K, int nseg) {
+template <typename E>
+__global__ void __maxnreg__(kSegMaxRegs)
+bilstm_segbwd_kernel(const E* __restrict__ dh_seq,     // (S, B, T, 2H)
+                     const E* __restrict__ x,          // (S, B, T, I)
+                     const E* __restrict__ h_seq,      // (S, B, T, 2H)
+                     const float* __restrict__ c_bnd,  // (S, 2, NSEG, B, H)
+                     const E* __restrict__ w_ih_t,     // (S, 2, I, 4H)
+                     const E* __restrict__ w_hh_t,     // (S, 2, H, 4H)
+                     const E* __restrict__ w_ih,       // (S, 2, 4H, I)
+                     const E* __restrict__ w_hh,       // (S, 2, 4H, H)
+                     const E* __restrict__ bias,       // (S, 2, 4H)
+                     float* __restrict__ dx_pk,        // (S, 2, B, T, I)
+                     float* __restrict__ dw_part,      // (S, tiles, 2, R, 4H)
+                     int B, int T, int I, int H, int K, int nseg) {
     extern __shared__ float smem[];
     const int G = 4 * H;
     const int R = I + H + 1;
@@ -169,11 +189,11 @@ __global__ void bilstm_segbwd_kernel(const float* __restrict__ dh_seq,  // (S, B
     const int tile = blockIdx.x;
     const int b0 = tile * kBt;
     const int tid = threadIdx.x;
-    const float* wi_t = w_ih_t + static_cast<size_t>(d) * I * G;
-    const float* wh_t = w_hh_t + static_cast<size_t>(d) * H * G;
-    const float* wi = w_ih + static_cast<size_t>(d) * G * I;
-    const float* wh = w_hh + static_cast<size_t>(d) * G * H;
-    const float bg = bias[d * G + tid];
+    const E* wi_t = w_ih_t + static_cast<size_t>(d) * I * G;
+    const E* wh_t = w_hh_t + static_cast<size_t>(d) * H * G;
+    const E* wi = w_ih + static_cast<size_t>(d) * G * I;
+    const E* wh = w_hh + static_cast<size_t>(d) * G * H;
+    const float bg = to_float(bias[d * G + tid]);
     const int gate_kind = tid / H;  // 0 i, 1 f, 2 g, 3 o
     float* dwp = dw_part + (static_cast<size_t>(tile) * 2 + d) * R * G;
 
@@ -194,7 +214,8 @@ __global__ void bilstm_segbwd_kernel(const float* __restrict__ dh_seq,  // (S, B
             const int rem = idx - r * kBt * I;
             const int row = rem / I;
             const int b = b0 + row;
-            xs[idx] = b < B ? x[(static_cast<size_t>(b) * T + a_of(r)) * I + (rem - row * I)] : 0.0f;
+            xs[idx] = b < B ? to_float(x[(static_cast<size_t>(b) * T + a_of(r)) * I + (rem - row * I)])
+                            : 0.0f;
         }
         for (int idx = tid; idx < nr * rowsz; idx += G) {
             const int r = idx / rowsz;
@@ -203,7 +224,8 @@ __global__ void bilstm_segbwd_kernel(const float* __restrict__ dh_seq,  // (S, B
             const int b = b0 + row;
             const int ap = d == 0 ? a_of(r) - 1 : a_of(r) + 1;
             hps[idx] = (b < B && ap >= 0 && ap < T)
-                           ? h_seq[(static_cast<size_t>(b) * T + ap) * 2 * H + d * H + (rem - row * H)]
+                           ? to_float(h_seq[(static_cast<size_t>(b) * T + ap) * 2 * H + d * H +
+                                            (rem - row * H)])
                            : 0.0f;
         }
         const int slot = d == 0 ? m - 1 : m + 1;
@@ -225,12 +247,12 @@ __global__ void bilstm_segbwd_kernel(const float* __restrict__ dh_seq,  // (S, B
             const float* xr = xs + r * kBt * I;
             const float* hr = hps + r * rowsz;
             for (int k = 0; k < I; ++k) {
-                const float w = wi_t[static_cast<size_t>(k) * G + tid];
+                const float w = to_float(wi_t[static_cast<size_t>(k) * G + tid]);
 #pragma unroll
                 for (int row = 0; row < kBt; ++row) acc[row] = fmaf(xr[row * I + k], w, acc[row]);
             }
             for (int k = 0; k < H; ++k) {
-                const float w = wh_t[static_cast<size_t>(k) * G + tid];
+                const float w = to_float(wh_t[static_cast<size_t>(k) * G + tid]);
 #pragma unroll
                 for (int row = 0; row < kBt; ++row) acc[row] = fmaf(hr[row * H + k], w, acc[row]);
             }
@@ -268,7 +290,8 @@ __global__ void bilstm_segbwd_kernel(const float* __restrict__ dh_seq,  // (S, B
                 const float c = cs[(r + 1) * rowsz + cell];
                 const float cp = cs[r * rowsz + cell];
                 const float dh = dhc[cell] +
-                    (b < B ? dh_seq[(static_cast<size_t>(b) * T + a) * 2 * H + d * H + j] : 0.0f);
+                    (b < B ? to_float(dh_seq[(static_cast<size_t>(b) * T + a) * 2 * H + d * H + j])
+                           : 0.0f);
                 const float tc = tanhf(c);
                 const float dc = dcc[q] + dh * og * (1.0f - tc * tc);
                 ar[j] = dc * gg * ig * (1.0f - ig);
@@ -285,7 +308,7 @@ __global__ void bilstm_segbwd_kernel(const float* __restrict__ dh_seq,  // (S, B
 #pragma unroll
                 for (int row = 0; row < kBt; ++row) acc[row] = 0.0f;
                 for (int gl = qq * H; gl < (qq + 1) * H; ++gl) {
-                    const float w = wh[static_cast<size_t>(gl) * H + k];
+                    const float w = to_float(wh[static_cast<size_t>(gl) * H + k]);
 #pragma unroll
                     for (int row = 0; row < kBt; ++row)
                         acc[row] = fmaf(acts[(r * kBt + row) * G + gl], w, acc[row]);
@@ -309,7 +332,7 @@ __global__ void bilstm_segbwd_kernel(const float* __restrict__ dh_seq,  // (S, B
 #pragma unroll
                 for (int row = 0; row < kBt; ++row) acc[row] = 0.0f;
                 for (int gl = 0; gl < G; ++gl) {
-                    const float w = wi[static_cast<size_t>(gl) * I + i];
+                    const float w = to_float(wi[static_cast<size_t>(gl) * I + i]);
 #pragma unroll
                     for (int row = 0; row < kBt; ++row)
                         acc[row] = fmaf(acts[(r * kBt + row) * G + gl], w, acc[row]);
@@ -349,21 +372,54 @@ __global__ void bilstm_segbwd_kernel(const float* __restrict__ dh_seq,  // (S, B
     }
 }
 
+template <typename E>
+int launch_cbnd(const E* x, const E* h_seq, const E* w_ih_t, const E* w_hh_t, const E* bias,
+                float* c_bnd, int S, int B, int T, int I, int H, int K, int device,
+                void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const size_t smem = sizeof(float) * kBt * (I + H + 4 * H);
+    err = allow_dynamic_smem(bilstm_cbnd_kernel<E>, smem);
+    if (err != cudaSuccess) return err;
+    const int nseg = (T + K - 1) / K;
+    const dim3 grid((B + kBt - 1) / kBt, 2, S);
+    bilstm_cbnd_kernel<E><<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+        x, h_seq, w_ih_t, w_hh_t, bias, c_bnd, B, T, I, H, K, nseg);
+    return cudaGetLastError();
+}
+
+template <typename E>
+int launch_segbwd(const E* dh_seq, const E* x, const E* h_seq, const float* c_bnd,
+                  const E* w_ih_t, const E* w_hh_t, const E* w_ih, const E* w_hh, const E* bias,
+                  float* dx_pk, float* dw_part, int S, int B, int T, int I, int H, int K,
+                  int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const size_t smem = sizeof(float) * kBt * (K * (I + H + 4 * H) + (K + 1) * H + 5 * H);
+    err = allow_dynamic_smem(bilstm_segbwd_kernel<E>, smem);
+    if (err != cudaSuccess) return err;
+    const int nseg = (T + K - 1) / K;
+    const dim3 grid((B + kBt - 1) / kBt, 2, S);
+    bilstm_segbwd_kernel<E><<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+        dh_seq, x, h_seq, c_bnd, w_ih_t, w_hh_t, w_ih, w_hh, bias, dx_pk, dw_part, B, T, I, H, K,
+        nseg);
+    return cudaGetLastError();
+}
+
 }  // namespace
+
+using bf16 = __nv_bfloat16;
 
 extern "C" int msa_bilstm_cbnd(const float* x, const float* h_seq, const float* w_ih_t,
                                const float* w_hh_t, const float* bias, float* c_bnd, int S,
                                int B, int T, int I, int H, int K, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    const size_t smem = sizeof(float) * kBt * (I + H + 4 * H);
-    err = allow_dynamic_smem(bilstm_cbnd_kernel, smem);
-    if (err != cudaSuccess) return err;
-    const int nseg = (T + K - 1) / K;
-    const dim3 grid((B + kBt - 1) / kBt, 2, S);
-    bilstm_cbnd_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-        x, h_seq, w_ih_t, w_hh_t, bias, c_bnd, B, T, I, H, K, nseg);
-    return cudaGetLastError();
+    return launch_cbnd(x, h_seq, w_ih_t, w_hh_t, bias, c_bnd, S, B, T, I, H, K, device, stream);
+}
+
+extern "C" int msa_bilstm_cbnd_bf16(const bf16* x, const bf16* h_seq, const bf16* w_ih_t,
+                                    const bf16* w_hh_t, const bf16* bias, float* c_bnd, int S,
+                                    int B, int T, int I, int H, int K, int device, void* stream) {
+    return launch_cbnd(x, h_seq, w_ih_t, w_hh_t, bias, c_bnd, S, B, T, I, H, K, device, stream);
 }
 
 extern "C" int msa_bilstm_segbwd(const float* dh_seq, const float* x, const float* h_seq,
@@ -371,15 +427,15 @@ extern "C" int msa_bilstm_segbwd(const float* dh_seq, const float* x, const floa
                                  const float* w_ih, const float* w_hh, const float* bias,
                                  float* dx_pk, float* dw_part, int S, int B, int T, int I,
                                  int H, int K, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    const size_t smem = sizeof(float) * kBt * (K * (I + H + 4 * H) + (K + 1) * H + 5 * H);
-    err = allow_dynamic_smem(bilstm_segbwd_kernel, smem);
-    if (err != cudaSuccess) return err;
-    const int nseg = (T + K - 1) / K;
-    const dim3 grid((B + kBt - 1) / kBt, 2, S);
-    bilstm_segbwd_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-        dh_seq, x, h_seq, c_bnd, w_ih_t, w_hh_t, w_ih, w_hh, bias, dx_pk, dw_part, B, T, I, H, K,
-        nseg);
-    return cudaGetLastError();
+    return launch_segbwd(dh_seq, x, h_seq, c_bnd, w_ih_t, w_hh_t, w_ih, w_hh, bias, dx_pk,
+                         dw_part, S, B, T, I, H, K, device, stream);
+}
+
+extern "C" int msa_bilstm_segbwd_bf16(const bf16* dh_seq, const bf16* x, const bf16* h_seq,
+                                      const float* c_bnd, const bf16* w_ih_t, const bf16* w_hh_t,
+                                      const bf16* w_ih, const bf16* w_hh, const bf16* bias,
+                                      float* dx_pk, float* dw_part, int S, int B, int T, int I,
+                                      int H, int K, int device, void* stream) {
+    return launch_segbwd(dh_seq, x, h_seq, c_bnd, w_ih_t, w_hh_t, w_ih, w_hh, bias, dx_pk,
+                         dw_part, S, B, T, I, H, K, device, stream);
 }

@@ -7,6 +7,13 @@
 // reverse direction walks time by index (no flipped copy), h and c stay fp32
 // on chip across the whole sweep, and only h_seq is written.
 //
+// Two forms of one template: fp32 (msa_bilstm_fwd) and bf16
+// (msa_bilstm_fwd_bf16), the JAX kernel's two Mosaic instances. The bf16
+// form reads x, the weights and the bias as bf16 and stores h_seq as bf16;
+// every product and sum, h and c, and the h_{t-1} it broadcasts in shared
+// memory stay fp32, as the JAX kernel accumulates with
+// preferred_element_type=float32 and carries h/c in fp32 scratch.
+//
 // What bounds it on the H100, at the flagship layer (B=64, T=73, I=256,
 // H=128, fp32): 3.67 GFLOP per layer, but T=73 dependent steps, and the
 // weights of one direction (W_ih 512 KiB + W_hh 256 KiB) do not fit the
@@ -33,11 +40,12 @@ namespace {
 
 constexpr int kBt = 8;  // batch rows per block; kBt * H == 2 * (4H threads)
 
-__global__ void bilstm_fwd_kernel(const float* __restrict__ x,       // (S, B, T, I)
-                                  const float* __restrict__ w_ih_t,  // (S, 2, I, 4H)
-                                  const float* __restrict__ w_hh_t,  // (S, 2, H, 4H)
-                                  const float* __restrict__ bias,    // (S, 2, 4H)
-                                  float* __restrict__ h_seq,         // (S, B, T, 2H)
+template <typename E>
+__global__ void bilstm_fwd_kernel(const E* __restrict__ x,       // (S, B, T, I)
+                                  const E* __restrict__ w_ih_t,  // (S, 2, I, 4H)
+                                  const E* __restrict__ w_hh_t,  // (S, 2, H, 4H)
+                                  const E* __restrict__ bias,    // (S, 2, 4H)
+                                  E* __restrict__ h_seq,         // (S, B, T, 2H)
                                   int B, int T, int I, int H) {
     extern __shared__ float smem[];
     const int G = 4 * H;
@@ -54,9 +62,9 @@ __global__ void bilstm_fwd_kernel(const float* __restrict__ x,       // (S, B, T
     const int d = blockIdx.y;
     const int b0 = blockIdx.x * kBt;
     const int g = threadIdx.x;
-    const float* wi = w_ih_t + static_cast<size_t>(d) * I * G;
-    const float* wh = w_hh_t + static_cast<size_t>(d) * H * G;
-    const float bg = bias[d * G + g];
+    const E* wi = w_ih_t + static_cast<size_t>(d) * I * G;
+    const E* wh = w_hh_t + static_cast<size_t>(d) * H * G;
+    const float bg = to_float(bias[d * G + g]);
 
     for (int idx = g; idx < kBt * H; idx += G) hs[idx] = 0.0f;
     float c[2] = {0.0f, 0.0f};
@@ -66,7 +74,7 @@ __global__ void bilstm_fwd_kernel(const float* __restrict__ x,       // (S, B, T
         for (int idx = g; idx < kBt * I; idx += G) {
             const int r = idx / I;
             const int b = b0 + r;
-            xs[idx] = b < B ? x[(static_cast<size_t>(b) * T + t) * I + (idx - r * I)] : 0.0f;
+            xs[idx] = b < B ? to_float(x[(static_cast<size_t>(b) * T + t) * I + (idx - r * I)]) : 0.0f;
         }
         __syncthreads();
 
@@ -74,12 +82,12 @@ __global__ void bilstm_fwd_kernel(const float* __restrict__ x,       // (S, B, T
 #pragma unroll
         for (int r = 0; r < kBt; ++r) acc[r] = bg;
         for (int k = 0; k < I; ++k) {
-            const float w = wi[static_cast<size_t>(k) * G + g];
+            const float w = to_float(wi[static_cast<size_t>(k) * G + g]);
 #pragma unroll
             for (int r = 0; r < kBt; ++r) acc[r] = fmaf(xs[r * I + k], w, acc[r]);
         }
         for (int k = 0; k < H; ++k) {
-            const float w = wh[static_cast<size_t>(k) * G + g];
+            const float w = to_float(wh[static_cast<size_t>(k) * G + g]);
 #pragma unroll
             for (int r = 0; r < kBt; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
         }
@@ -101,10 +109,24 @@ __global__ void bilstm_fwd_kernel(const float* __restrict__ x,       // (S, B, T
             const float h = og * tanhf(c[q]);
             hs[r * H + j] = h;
             const int b = b0 + r;
-            if (b < B) h_seq[(static_cast<size_t>(b) * T + t) * 2 * H + d * H + j] = h;
+            if (b < B) h_seq[(static_cast<size_t>(b) * T + t) * 2 * H + d * H + j] = from_float<E>(h);
         }
         __syncthreads();
     }
+}
+
+template <typename E>
+int launch_fwd(const E* x, const E* w_ih_t, const E* w_hh_t, const E* bias, E* h_seq, int S,
+               int B, int T, int I, int H, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const size_t smem = sizeof(float) * kBt * (I + H + 4 * H);
+    err = allow_dynamic_smem(bilstm_fwd_kernel<E>, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((B + kBt - 1) / kBt, 2, S);
+    bilstm_fwd_kernel<E><<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+        x, w_ih_t, w_hh_t, bias, h_seq, B, T, I, H);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -112,13 +134,12 @@ __global__ void bilstm_fwd_kernel(const float* __restrict__ x,       // (S, B, T
 extern "C" int msa_bilstm_fwd(const float* x, const float* w_ih_t, const float* w_hh_t,
                               const float* bias, float* h_seq, int S, int B, int T, int I,
                               int H, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    const size_t smem = sizeof(float) * kBt * (I + H + 4 * H);
-    err = allow_dynamic_smem(bilstm_fwd_kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((B + kBt - 1) / kBt, 2, S);
-    bilstm_fwd_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-        x, w_ih_t, w_hh_t, bias, h_seq, B, T, I, H);
-    return cudaGetLastError();
+    return launch_fwd(x, w_ih_t, w_hh_t, bias, h_seq, S, B, T, I, H, device, stream);
+}
+
+extern "C" int msa_bilstm_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w_ih_t,
+                                   const __nv_bfloat16* w_hh_t, const __nv_bfloat16* bias,
+                                   __nv_bfloat16* h_seq, int S, int B, int T, int I, int H,
+                                   int device, void* stream) {
+    return launch_fwd(x, w_ih_t, w_hh_t, bias, h_seq, S, B, T, I, H, device, stream);
 }

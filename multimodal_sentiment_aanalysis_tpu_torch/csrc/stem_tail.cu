@@ -28,6 +28,12 @@
 // atomics). The grid's z axis is the model.
 // The BN input-gradient combine stays in torch, as it stays in XLA in JAX.
 //
+// Each entry point has an fp32 and a bf16 form (suffix _bf16), one template
+// over the element type E of conv, the pooled output and dpool. The
+// per-channel statistics and affine parameters, dy and the partials are
+// fp32 in both, and so is the whole body, as the JAX kernels upcast their
+// blocks; the bf16 form reads and writes half the bytes of the big tensors.
+//
 // What bounds it on the H100: bytes. Stage 1 (B=64, T=585, C=64, fp32)
 // reads 9.6 MB and writes 2.4 MB + 2.4 MB of codes; stage 2 (T=146, C=256)
 // reads 9.6 MB and writes 4.8 + 4.8 MB. The backward reads the codes,
@@ -66,14 +72,15 @@ __device__ __forceinline__ uint32_t philox_bits(uint64_t counter, uint64_t seed)
     return x0;
 }
 
-__global__ void stem_tail_fwd_kernel(const float* __restrict__ conv,   // (S, B, T, C)
+template <typename E>
+__global__ void stem_tail_fwd_kernel(const E* __restrict__ conv,       // (S, B, T, C)
                                      const float* __restrict__ gamma,  // (S, C)
                                      const float* __restrict__ beta,   // (S, C)
                                      const float* __restrict__ mean,   // (S, C)
                                      const float* __restrict__ var,    // (S, C)
                                      float eps, float keep_scale, uint32_t threshold,
                                      const long long* __restrict__ seeds,  // (S,)
-                                     float* __restrict__ out,   // (S, B, t_out, C)
+                                     E* __restrict__ out,       // (S, B, t_out, C)
                                      int* __restrict__ code,    // (S, B, t_out, C) or null
                                      int S, int B, int T, int C, int pool, int t_out) {
     const bool drop = threshold != 0u;
@@ -96,7 +103,7 @@ __global__ void stem_tail_fwd_kernel(const float* __restrict__ conv,   // (S, B,
         int win = 0, kept = 1;
         for (int j = 0; j < pool; ++j) {
             const size_t e = first + static_cast<size_t>(j) * C;
-            float a = gelu_erf((conv[e] - mu) * inv * ga + be);
+            float a = gelu_erf((to_float(conv[e]) - mu) * inv * ga + be);
             int keep = 1;
             if (drop) {
                 keep = philox_bits(e - s * model_size, seed) >= threshold;
@@ -108,7 +115,7 @@ __global__ void stem_tail_fwd_kernel(const float* __restrict__ conv,   // (S, B,
                 kept = keep;
             }
         }
-        out[i] = m;
+        out[i] = from_float<E>(m);
         if (code) code[i] = win + pool * kept;
     }
 }
@@ -116,8 +123,9 @@ __global__ void stem_tail_fwd_kernel(const float* __restrict__ conv,   // (S, B,
 constexpr int kCh = 32;       // channels per block (threadIdx.x)
 constexpr int kRowLanes = 8;  // pooled rows in flight per block (threadIdx.y)
 
-__global__ void stem_tail_bwd_kernel(const float* __restrict__ conv,   // (S, B, T, C)
-                                     const float* __restrict__ dpool,  // (S, B, t_out, C)
+template <typename E>
+__global__ void stem_tail_bwd_kernel(const E* __restrict__ conv,       // (S, B, T, C)
+                                     const E* __restrict__ dpool,      // (S, B, t_out, C)
                                      const int* __restrict__ code,     // (S, B, t_out, C)
                                      const float* __restrict__ scale,  // (S, C) gamma * inv
                                      const float* __restrict__ shift,  // (S, C) beta - mean * scale
@@ -155,8 +163,9 @@ __global__ void stem_tail_bwd_kernel(const float* __restrict__ conv,   // (S, B,
             const size_t o = static_cast<size_t>(r) * C + c;
             const int cd = code[o];
             const int jw = cd % pool;
-            const float x = conv[(static_cast<size_t>(b) * T + static_cast<size_t>(to) * pool + jw) * C + c];
-            float g = dpool[o] * gelu_erf_grad(x * sc + sh);
+            const size_t xi = (static_cast<size_t>(b) * T + static_cast<size_t>(to) * pool + jw) * C + c;
+            const float x = to_float(conv[xi]);
+            float g = to_float(dpool[o]) * gelu_erf_grad(x * sc + sh);
             g = cd >= pool ? g * keep_scale : 0.0f;
             float* dst = dy + static_cast<size_t>(r) * pool * C + c;
             for (int j = 0; j < pool; ++j) dst[static_cast<size_t>(j) * C] = j == jw ? g : 0.0f;
@@ -178,13 +187,11 @@ __global__ void stem_tail_bwd_kernel(const float* __restrict__ conv,   // (S, B,
     }
 }
 
-}  // namespace
-
-extern "C" int msa_stem_tail(const float* conv, const float* gamma, const float* beta,
-                             const float* mean, const float* var, float eps, float keep_scale,
-                             unsigned int threshold, const long long* seeds, float* out,
-                             int* code, int S, int B, int T, int C, int pool, int device,
-                             void* stream) {
+template <typename E>
+int launch_fwd(const E* conv, const float* gamma, const float* beta, const float* mean,
+               const float* var, float eps, float keep_scale, unsigned int threshold,
+               const long long* seeds, E* out, int* code, int S, int B, int T, int C, int pool,
+               int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const int t_out = T / pool;
@@ -192,10 +199,49 @@ extern "C" int msa_stem_tail(const float* conv, const float* gamma, const float*
     const int threads = 256;
     const size_t want = (n + threads - 1) / threads;
     const int blocks = static_cast<int>(want < 8192 ? want : 8192);
-    stem_tail_fwd_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+    stem_tail_fwd_kernel<E><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         conv, gamma, beta, mean, var, eps, keep_scale, threshold, seeds, out, code, S, B, T, C,
         pool, t_out);
     return cudaGetLastError();
+}
+
+template <typename E>
+int launch_bwd(const E* conv, const E* dpool, const int* code, const float* scale,
+               const float* shift, const float* mean, const float* inv, float keep_scale,
+               float* dy, float* dg_part, float* db_part, int S, int B, int T, int C, int pool,
+               int rows_per_chunk, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const int t_out = T / pool;
+    const int chunks = (B * t_out + rows_per_chunk - 1) / rows_per_chunk;
+    const dim3 grid((C + kCh - 1) / kCh, chunks, S);
+    const dim3 block(kCh, kRowLanes);
+    stem_tail_bwd_kernel<E><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        conv, dpool, code, scale, shift, mean, inv, keep_scale, dy, dg_part, db_part, B, T, C,
+        pool, t_out, rows_per_chunk);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+using bf16 = __nv_bfloat16;
+
+extern "C" int msa_stem_tail(const float* conv, const float* gamma, const float* beta,
+                             const float* mean, const float* var, float eps, float keep_scale,
+                             unsigned int threshold, const long long* seeds, float* out,
+                             int* code, int S, int B, int T, int C, int pool, int device,
+                             void* stream) {
+    return launch_fwd(conv, gamma, beta, mean, var, eps, keep_scale, threshold, seeds, out, code,
+                      S, B, T, C, pool, device, stream);
+}
+
+extern "C" int msa_stem_tail_bf16(const bf16* conv, const float* gamma, const float* beta,
+                                  const float* mean, const float* var, float eps,
+                                  float keep_scale, unsigned int threshold,
+                                  const long long* seeds, bf16* out, int* code, int S, int B,
+                                  int T, int C, int pool, int device, void* stream) {
+    return launch_fwd(conv, gamma, beta, mean, var, eps, keep_scale, threshold, seeds, out, code,
+                      S, B, T, C, pool, device, stream);
 }
 
 extern "C" int msa_stem_tail_bwd(const float* conv, const float* dpool, const int* code,
@@ -203,14 +249,15 @@ extern "C" int msa_stem_tail_bwd(const float* conv, const float* dpool, const in
                                  const float* inv, float keep_scale, float* dy, float* dg_part,
                                  float* db_part, int S, int B, int T, int C, int pool,
                                  int rows_per_chunk, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    const int t_out = T / pool;
-    const int chunks = (B * t_out + rows_per_chunk - 1) / rows_per_chunk;
-    const dim3 grid((C + kCh - 1) / kCh, chunks, S);
-    const dim3 block(kCh, kRowLanes);
-    stem_tail_bwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        conv, dpool, code, scale, shift, mean, inv, keep_scale, dy, dg_part, db_part, B, T, C,
-        pool, t_out, rows_per_chunk);
-    return cudaGetLastError();
+    return launch_bwd(conv, dpool, code, scale, shift, mean, inv, keep_scale, dy, dg_part,
+                      db_part, S, B, T, C, pool, rows_per_chunk, device, stream);
+}
+
+extern "C" int msa_stem_tail_bwd_bf16(const bf16* conv, const bf16* dpool, const int* code,
+                                      const float* scale, const float* shift, const float* mean,
+                                      const float* inv, float keep_scale, float* dy,
+                                      float* dg_part, float* db_part, int S, int B, int T, int C,
+                                      int pool, int rows_per_chunk, int device, void* stream) {
+    return launch_bwd(conv, dpool, code, scale, shift, mean, inv, keep_scale, dy, dg_part,
+                      db_part, S, B, T, C, pool, rows_per_chunk, device, stream);
 }

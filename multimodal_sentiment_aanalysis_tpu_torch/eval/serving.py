@@ -19,7 +19,15 @@ functional forward:
   CUDA)
 
 ``use_pallas`` keeps the JAX package's name for the switch to the fused
-stem kernel. Only fp32 is served so far.
+stem kernel.
+
+``compute_dtype=torch.bfloat16`` serves in bf16 as the JAX forward does:
+the weights and BatchNorm statistics are cast first and folded after, in
+bf16; each call casts its inputs; the logits come back in fp32. The conv
+stem then runs ``F.conv1d`` and the BiLSTM its kernel's bf16 form. The
+fused conv-stem kernel has no bf16 form (its JAX counterpart did not
+compile for packed bf16 on Mosaic, and the JAX package serves bf16 on the
+XLA stem), so ``use_pallas=True`` with bf16 raises.
 """
 
 from __future__ import annotations
@@ -82,15 +90,20 @@ def build_serving_forward(state_or_model: nn.Module | Mapping[str, torch.Tensor]
     :class:`..models.MultimodalTransformerModel` or its ``state_dict``.
 
     The forward runs on the device the weights are on. ``use_pallas=True``
-    runs both EEG conv stages through the fused conv-stem kernel.
+    runs both EEG conv stages through the fused conv-stem kernel (fp32
+    only). ``compute_dtype`` is the dtype the forward computes in (the
+    weights' when None); the logits are fp32 when it is given.
     """
-    if compute_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            f"serving in {compute_dtype} is not ported yet (ROADMAP queue B, bf16)"
-        )
+    if use_pallas and compute_dtype not in (None, torch.float32):
+        raise ValueError(
+            f"use_pallas=True serves fp32 only, not {compute_dtype}: the fused conv-stem "
+            "kernel has no bf16 form (the JAX package serves bf16 on the XLA stem, its "
+            "Pallas stem did not compile for packed bf16)")
     sd = (state_or_model.state_dict() if isinstance(state_or_model, nn.Module)
           else dict(state_or_model))
     sd = {k: v.detach() for k, v in sd.items()}
+    if compute_dtype is not None:  # cast first, fold after: the JAX order
+        sd = {k: v.to(compute_dtype) if v.is_floating_point() else v for k, v in sd.items()}
 
     stem = []
     for conv, bn, padding, pool in (("0", "1", 7, 4), ("5", "6", 2, 2)):
@@ -107,7 +120,8 @@ def build_serving_forward(state_or_model: nn.Module | Mapping[str, torch.Tensor]
                   for part in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
             for suffix in ("", "_reverse")))
         k += 1
-    pe0 = make_sincos_pe(feat_dim, 1, device=sd["eye_net.proj.weight"].device)[0]
+    proj = sd["eye_net.proj.weight"]
+    pe0 = make_sincos_pe(feat_dim, 1, device=proj.device)[0].to(proj.dtype)
     trunks = {name: _folded_trunk(sd, name)
               for name in ("fusion", "arousal_head", "valence_head")}
     heads = {name: _linear(sd, f"{name}.{4 * len(trunks[name])}")
@@ -149,6 +163,8 @@ def build_serving_forward(state_or_model: nn.Module | Mapping[str, torch.Tensor]
 
     @torch.no_grad()
     def forward(eeg: torch.Tensor, eye: torch.Tensor, pps: torch.Tensor):
+        if compute_dtype is not None:
+            eeg, eye, pps = (t.to(compute_dtype) for t in (eeg, eye, pps))
         eeg_feat = eeg_encoder(eeg)
         eye_feat = subnetwork("eye_net", eye)
         pps_feat = subnetwork("pps_net", pps)
@@ -159,7 +175,10 @@ def build_serving_forward(state_or_model: nn.Module | Mapping[str, torch.Tensor]
         w = torch.softmax(F.linear(hidden, *_linear(sd, "attention_weights.2")), dim=1)
         fused = _run_trunk(trunks["fusion"], torch.cat(
             [eeg_feat * w[:, 0:1], eye_enh * w[:, 1:2], pps_enh * w[:, 2:3]], dim=1))
-        return tuple(F.linear(_run_trunk(trunks[name], fused), *heads[name])
-                     for name in ("arousal_head", "valence_head"))
+        logits = tuple(F.linear(_run_trunk(trunks[name], fused), *heads[name])
+                       for name in ("arousal_head", "valence_head"))
+        if compute_dtype is not None:
+            logits = tuple(t.to(torch.float32) for t in logits)
+        return logits
 
     return forward

@@ -26,13 +26,19 @@ kernel it replaces.
 - ``fusion_head``: ``fusion_head.fusion_head``, ``csrc/fusion_head.cu``,
   ``kernels/fusion_head.py::_kernel``
 
-Each wrapper counts its launches, so a run can show which kernels its path
-went through (:func:`launch_counts`).
+The first six also have a bf16 form, a second C entry point of the same
+source with the suffix ``_bf16`` and its own counter (``bilstm_fwd_bf16``,
+...), which a wrapper launches for bf16 tensors. Each wrapper counts its
+launches, so a run can show which kernels, and which forms, its path went
+through (:func:`launch_counts`).
 """
+
+import torch
 
 from . import attention, contrastive, conv_stem, conv_stem_train, fusion_head, lstm
 from ._build import build_all
 
+_BF16 = torch.bfloat16
 KERNELS = {
     "bilstm_fwd": lstm.KERNEL,
     "bilstm_cbnd": lstm.CBND_KERNEL,
@@ -40,6 +46,12 @@ KERNELS = {
     "stem_tail": conv_stem_train.KERNEL,
     "stem_tail_bwd": conv_stem_train.BWD_KERNEL,
     "infonce": contrastive.KERNEL,
+    "bilstm_fwd_bf16": lstm.KERNELS[_BF16],
+    "bilstm_cbnd_bf16": lstm.CBND_KERNELS[_BF16],
+    "bilstm_segbwd_bf16": lstm.SEGBWD_KERNELS[_BF16],
+    "stem_tail_bf16": conv_stem_train.KERNELS[_BF16],
+    "stem_tail_bwd_bf16": conv_stem_train.BWD_KERNELS[_BF16],
+    "infonce_bf16": contrastive.KERNELS[_BF16],
     "conv_stem": conv_stem.KERNEL,
     "flash_fwd": attention.FWD_KERNEL,
     "flash_bwd_dq": attention.DQ_KERNEL,

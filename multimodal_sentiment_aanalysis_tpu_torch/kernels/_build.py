@@ -84,6 +84,14 @@ def build_all() -> list[Path]:
         return list(pool.map(build, sources))
 
 
+def kernel_forms(source: str, symbol: str, argtypes: list) -> dict[torch.dtype, "CudaKernel"]:
+    """The fp32 and bf16 forms of one kernel: the C entry points ``symbol``
+    and ``symbol + "_bf16"`` of one library, each with its own launch
+    count."""
+    return {torch.float32: CudaKernel(source, symbol, argtypes),
+            torch.bfloat16: CudaKernel(source, symbol + "_bf16", argtypes)}
+
+
 class CudaKernel:
     """One C entry point of one kernel library, and its launch count.
 
@@ -120,18 +128,31 @@ class CudaKernel:
         self.launches += 1
 
 
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in at least fp32: the plain versions read a bf16 operand as its
+    kernel's bf16 form does and compute in fp32."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def check_cuda_f32(name: str, t: torch.Tensor, device: torch.device,
-                   shape: tuple[int, ...] | None = None) -> None:
-    """Raise unless ``t`` is a contiguous fp32 tensor on ``device`` (and of
-    ``shape``, where given)."""
+F32 = (torch.float32,)
+F32_BF16 = (torch.float32, torch.bfloat16)
+
+
+def check_cuda(name: str, t: torch.Tensor, device: torch.device,
+               shape: tuple[int, ...] | None = None,
+               dtypes: tuple[torch.dtype, ...] = F32) -> None:
+    """Raise unless ``t`` is a contiguous tensor of one of ``dtypes`` on
+    ``device`` (and of ``shape``, where given): a ``TypeError`` for a dtype
+    the kernel has no form for."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} is {t.dtype}; the kernels take float32 only")
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name} is {t.dtype}; this kernel takes {names}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):

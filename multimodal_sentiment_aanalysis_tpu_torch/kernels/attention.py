@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from ._build import CudaKernel, check_cuda_f32, ptr
+from ._build import CudaKernel, check_cuda, ptr
 
 FWD_KERNEL = CudaKernel(
     "flash_attn", "msa_flash_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6,
@@ -112,11 +112,11 @@ def _check(q, k, v, block_q: int, block_k: int, *rest) -> tuple[int, int, int, i
     smem = 4 * max(2 * block_k * d + block_k * block_q, 2 * block_q * d + 2 * block_q)
     if smem > _MAX_SMEM:
         raise ValueError(f"{smem} bytes of shared memory > {_MAX_SMEM}")
-    check_cuda_f32("q", q, q.device)
-    check_cuda_f32("k", k, q.device, (bh, tk, d))
-    check_cuda_f32("v", v, q.device, (bh, tk, d))
+    check_cuda("q", q, q.device)
+    check_cuda("k", k, q.device, (bh, tk, d))
+    check_cuda("v", v, q.device, (bh, tk, d))
     for name, t, shape in rest:
-        check_cuda_f32(name, t, q.device, shape)
+        check_cuda(name, t, q.device, shape)
     return bh, tq, tk, d
 
 

@@ -19,6 +19,12 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/kernels/contrastive.py``.
   temperature gradient.
 
 L2 normalisation stays outside the kernel, so its gradient is autograd's.
+
+The kernel has an fp32 and a bf16 form, chosen by the dtype of the
+features. As in the JAX kernel, the bf16 form takes bf16 ``n1``/``n2`` and
+computes the dots and the loss in fp32 (``valid`` and ``temp`` enter in
+fp32, the losses come back in fp32); the closed-form backward runs in fp32
+and returns the features' gradients in their dtype (``_core_bwd``).
 """
 
 from __future__ import annotations
@@ -28,12 +34,11 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ._build import CudaKernel, check_cuda_f32, models_first, ptr
+from ._build import F32, F32_BF16, check_cuda, kernel_forms, models_first, ptr, upcast
 
-KERNEL = CudaKernel(
-    "infonce", "msa_infonce",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3,
-)
+# fp32 and bf16 forms, by the dtype of the features
+KERNELS = kernel_forms("infonce", "msa_infonce", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3)
+KERNEL = KERNELS[torch.float32]
 
 _EPS = 1e-12
 _NEG = -1e30
@@ -59,7 +64,8 @@ def _masked_sim(n1, n2, labels, valid, temp):
 def infonce_plain(n1, n2, labels, valid, temp) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: ``(P,)`` losses from
     normalised ``n1, n2 (P, B, D)``, ``labels`` and ``valid`` ``(P, B)``
-    (or ``(B,)`` shared) and ``temp`` ``(P,)`` (or a scalar)."""
+    (or ``(B,)`` shared) and ``temp`` ``(P,)`` (or a scalar), in fp32."""
+    n1, n2, valid, temp = map(upcast, (n1, n2, valid, temp))
     _, _, e, pos = _masked_sim(n1, n2, labels, valid, temp)
     p = (e * pos).sum(-1)
     a = e.sum(-1)
@@ -68,10 +74,10 @@ def infonce_plain(n1, n2, labels, valid, temp) -> torch.Tensor:
 
 
 def infonce(n1, n2, labels, valid, temp) -> torch.Tensor:
-    """The forward kernel on normalised features: ``(P,)`` losses of ``n1,
-    n2 (P, B, D)`` with per-problem ``labels (P, B)`` int64, ``valid
-    (P, B)`` and ``temp (P,)``. A CPU tensor takes :func:`infonce_plain`; a
-    CUDA tensor launches the kernel, or raises."""
+    """The forward kernel on normalised features: ``(P,)`` fp32 losses of
+    ``n1, n2 (P, B, D)`` (fp32 or bf16) with per-problem ``labels (P, B)``
+    int64, ``valid (P, B)`` and ``temp (P,)`` fp32. A CPU tensor takes
+    :func:`infonce_plain`; a CUDA tensor launches the kernel, or raises."""
     if n1.device.type == "cpu":
         return infonce_plain(n1, n2, labels, valid, temp)
     if n1.device.type != "cuda":
@@ -82,18 +88,18 @@ def infonce(n1, n2, labels, valid, temp) -> torch.Tensor:
     g, b, d = n1.shape
     if b > MAX_BATCH:
         raise ValueError(f"batch {b} > {MAX_BATCH}: each row keeps B floats in shared memory")
-    check_cuda_f32("n1", n1, device)
-    check_cuda_f32("n2", n2, device, (g, b, d))
-    check_cuda_f32("valid", valid, device, (g, b))
-    check_cuda_f32("temp", temp, device, (g,))
+    check_cuda("n1", n1, device, dtypes=F32_BF16)
+    check_cuda("n2", n2, device, (g, b, d), (n1.dtype,))
+    check_cuda("valid", valid, device, (g, b), F32)
+    check_cuda("temp", temp, device, (g,), F32)
     if (labels.dtype != torch.int64 or labels.device != device
             or tuple(labels.shape) != (g, b) or not labels.is_contiguous()):
         raise ValueError("labels must be a contiguous int64 (P, B) tensor on the features' "
                          "device")
     row_loss = torch.empty(g, b, device=device, dtype=torch.float32)
     loss = torch.empty(g, device=device, dtype=torch.float32)
-    KERNEL.launch(device, ptr(n1), ptr(n2), ptr(labels), ptr(valid), ptr(temp),
-                  ptr(row_loss), ptr(loss), g, b, d)
+    KERNELS[n1.dtype].launch(device, ptr(n1), ptr(n2), ptr(labels), ptr(valid), ptr(temp),
+                             ptr(row_loss), ptr(loss), g, b, d)
     return loss
 
 
@@ -119,8 +125,11 @@ class _InfoNCE(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        """``_core_bwd`` of the JAX package, batched over the G problems."""
+        """``_core_bwd`` of the JAX package, batched over the G problems, in
+        fp32; the features' gradients in their dtype."""
         n1, n2, labels, valid, temp = ctx.saved_tensors
+        dtype = n1.dtype
+        n1, n2 = upcast(n1), upcast(n2)
         raw, shifted, e, pos = _masked_sim(n1, n2, labels, valid, temp)
         p = (e * pos).sum(2, keepdim=True)
         a = e.sum(2, keepdim=True)
@@ -131,8 +140,8 @@ class _InfoNCE(torch.autograd.Function):
         r = w * (a / (a + _EPS) - p / (p + _EPS))
         is_max = (shifted == 0.0).to(e.dtype)
         grad_s = grad_s - r * is_max / is_max.sum(2, keepdim=True)
-        dn1 = (grad_s @ n2) / temp
-        dn2 = (grad_s.transpose(1, 2) @ n1) / temp
+        dn1 = ((grad_s @ n2) / temp).to(dtype)
+        dn2 = ((grad_s.transpose(1, 2) @ n1) / temp).to(dtype)
         # the model's one temperature: summed over its G problems
         dtemp = -(grad_s * raw).sum() / (temp * temp)
         return dn1, dn2, None, None, dtemp.reshape(temp.shape)
@@ -148,10 +157,10 @@ class _InfoNCE(torch.autograd.Function):
         return loss.reshape(s, g), 0
 
 
-def _valid(mask: torch.Tensor | None, b: int, like: torch.Tensor) -> torch.Tensor:
+def _valid(mask: torch.Tensor | None, b: int, device: torch.device) -> torch.Tensor:
     if mask is None:
-        return torch.ones(b, dtype=like.dtype, device=like.device)
-    return mask.to(like.dtype).contiguous()
+        return torch.ones(b, device=device)
+    return mask.to(torch.float32).contiguous()
 
 
 def fused_supervised_infonce_multi(feats1: torch.Tensor, feats2: torch.Tensor,
@@ -161,11 +170,14 @@ def fused_supervised_infonce_multi(feats1: torch.Tensor, feats2: torch.Tensor,
     one launch: ``feats1, feats2 (G, B, D)`` -> ``(G,)``. Same numerics as G
     calls of :func:`..ops.losses.supervised_infonce`. A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel, or raises; under
-    ``torch.func.vmap`` over S models it is one launch for all S G losses."""
-    temp = torch.as_tensor(temperature, dtype=feats1.dtype, device=feats1.device)
+    ``torch.func.vmap`` over S models it is one launch for all S G losses.
+    The mask and the temperature enter in fp32 and the losses are fp32, in
+    either dtype of the features (JAX ``fused_supervised_infonce``)."""
+    temp = (temperature.to(torch.float32) if isinstance(temperature, torch.Tensor)
+            else torch.tensor(temperature, device=feats1.device))
     b = feats1.shape[1]
     return _InfoNCE.apply(F.normalize(feats1, dim=2, eps=_EPS), F.normalize(feats2, dim=2, eps=_EPS),
-                          labels.to(torch.int64), _valid(mask, b, feats1), temp)
+                          labels.to(torch.int64), _valid(mask, b, feats1.device), temp)
 
 
 def fused_supervised_infonce(feat1: torch.Tensor, feat2: torch.Tensor, labels: torch.Tensor,

@@ -13,7 +13,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ._build import CudaKernel, check_cuda_f32, ptr
+from ._build import CudaKernel, check_cuda, ptr
 
 KERNEL = CudaKernel(
     "conv_stem", "msa_conv_stem",
@@ -69,10 +69,10 @@ def fused_conv_bn_gelu_pool(x: torch.Tensor, weight: torch.Tensor,
     smem = 4 * (_THREAD_ROWS * (_MAX_POOL // pool) * pool + k - 1) * c
     if smem > _MAX_SMEM:
         raise ValueError(f"{smem} bytes of shared memory > {_MAX_SMEM}")
-    check_cuda_f32("x", x, device)
-    check_cuda_f32("weight", weight, device)
-    check_cuda_f32("scale", scale, device, (o,))
-    check_cuda_f32("shift", shift, device, (o,))
+    check_cuda("x", x, device)
+    check_cuda("weight", weight, device)
+    check_cuda("scale", scale, device, (o,))
+    check_cuda("shift", shift, device, (o,))
 
     w_t = weight.permute(2, 1, 0).contiguous()  # (K, C, O)
     t_out = (t + 2 * padding - k + 1) // pool

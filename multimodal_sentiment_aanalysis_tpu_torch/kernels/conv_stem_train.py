@@ -30,6 +30,15 @@ The statistics enter without gradient (the caller computes them under
 The plain versions take the keep mask as a tensor, so a test can feed the
 same random numbers to both packages; on the CPU the wrapper draws that mask
 from the generator with ``torch.rand``.
+
+Both kernels have an fp32 and a bf16 form, chosen by the dtype of ``conv``.
+As in the JAX kernels, the bf16 form reads bf16 ``conv`` (and ``dpool``)
+and runs the whole body in fp32: the per-channel statistics and affine
+parameters enter in fp32 (the wrappers upcast them), the pooled output is
+stored in ``conv``'s dtype, ``dy`` and the partials are fp32, and the
+Function returns ``dconv``, ``dgamma`` and ``dbeta`` in their primals'
+dtypes (``_fst_bwd``). The plain versions compute in fp32 and store as the
+kernels store.
 """
 
 from __future__ import annotations
@@ -38,18 +47,18 @@ import ctypes
 
 import torch
 
-from ._build import MAX_MODELS, CudaKernel, check_cuda_f32, models_first, ptr, with_models
+from ._build import (F32, F32_BF16, MAX_MODELS, check_cuda, kernel_forms, models_first, ptr,
+                     upcast, with_models)
 from .conv_stem import gelu_max_pool
 
-KERNEL = CudaKernel(
-    "stem_tail", "msa_stem_tail",
-    [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_float, ctypes.c_uint]
-    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5,
-)
-BWD_KERNEL = CudaKernel(
-    "stem_tail", "msa_stem_tail_bwd",
-    [ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6,
-)
+# fp32 and bf16 forms of each kernel, by the dtype of conv
+KERNELS = kernel_forms("stem_tail", "msa_stem_tail",
+                       [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_float, ctypes.c_uint]
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5)
+BWD_KERNELS = kernel_forms("stem_tail", "msa_stem_tail_bwd",
+                           [ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_void_p] * 3
+                           + [ctypes.c_int] * 6)
+KERNEL, BWD_KERNEL = KERNELS[torch.float32], BWD_KERNELS[torch.float32]
 
 _ROWS_PER_CHUNK = 64  # pooled rows per partial dgamma/dbeta sum in the backward
 
@@ -78,9 +87,9 @@ def _check_args(conv, gamma, beta, mean, var, p: float, pool: int) -> None:
     if conv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no stem-tail kernel for device {conv.device}")
     if conv.device.type == "cuda":
-        check_cuda_f32("conv", conv, conv.device)
+        check_cuda("conv", conv, conv.device, dtypes=F32_BF16)
         for name, v in (("gamma", gamma), ("beta", beta), ("mean", mean), ("var", var)):
-            check_cuda_f32(name, v, conv.device, conv.shape[:-3] + conv.shape[-1:])
+            check_cuda(name, v, conv.device, conv.shape[:-3] + conv.shape[-1:], F32_BF16)
 
 
 # --------------------------------------------------------------------------
@@ -94,26 +103,30 @@ def stem_tail_fwd(conv, gamma, beta, mean, var, p: float, pool: int, eps: float 
     ``with_code``. A CPU tensor takes :func:`fused_stage_train_plain` with
     a keep mask drawn by ``torch.rand`` from ``generator``; a CUDA tensor
     launches the kernel (its Philox seeds, one per model, drawn on the
-    device from ``generator``), or raises."""
+    device from ``generator``), or raises. ``pooled`` comes back in
+    ``conv``'s dtype."""
     _check_args(conv, gamma, beta, mean, var, p, pool)
     if conv.device.type == "cpu":
         keep = torch.rand(conv.shape, generator=generator) >= p if p > 0.0 else None
         res = fused_stage_train_plain(conv, gamma, beta, mean, var, pool, eps, p, keep,
                                       with_code)
         return res if with_code else (res, None)
-    (conv, gamma, beta, mean, var), one = with_models(conv, gamma, beta, mean, var)
+    # the statistics and affine parameters enter in fp32, as the JAX kernel upcasts them
+    (conv, gamma, beta, mean, var), one = with_models(
+        conv, *(upcast(v).contiguous() for v in (gamma, beta, mean, var)))
     s, b, t, c = conv.shape
     device = conv.device
-    out = torch.empty(s, b, t // pool, c, device=device, dtype=torch.float32)
+    out = torch.empty(s, b, t // pool, c, device=device, dtype=conv.dtype)
     code = (torch.empty(s, b, t // pool, c, device=device, dtype=torch.int32)
             if with_code else None)
     seeds = None
     if p > 0.0:  # drawn on the device: no host sync
         seeds = torch.randint(0, 2 ** 62, (s,), device=device, dtype=torch.int64,
                               generator=generator)
-    KERNEL.launch(device, ptr(conv), ptr(gamma), ptr(beta), ptr(mean), ptr(var), eps,
-                  _keep_scale(p), _threshold(p), ptr(seeds) if seeds is not None else None,
-                  ptr(out), ptr(code) if code is not None else None, s, b, t, c, pool)
+    KERNELS[conv.dtype].launch(
+        device, ptr(conv), ptr(gamma), ptr(beta), ptr(mean), ptr(var), eps, _keep_scale(p),
+        _threshold(p), ptr(seeds) if seeds is not None else None, ptr(out),
+        ptr(code) if code is not None else None, s, b, t, c, pool)
     if one:
         return out[0], code[0] if code is not None else None
     return out, code
@@ -124,15 +137,16 @@ def fused_stage_train_plain(conv, gamma, beta, mean, var, pool: int, eps: float 
                             with_code: bool = False):
     """Plain PyTorch version of the forward kernel. ``keep`` is the
     ``(B, T, C)`` (or ``(S, B, T, C)``) keep mask (True = kept), needed when
-    ``p > 0``. Returns the pooled ``(B, T // pool, C)``, or ``(pooled,
-    code)`` with ``with_code``."""
-    (conv, gamma, beta, mean, var), one = with_models(conv, gamma, beta, mean, var)
+    ``p > 0``. Returns the pooled ``(B, T // pool, C)`` in ``conv``'s dtype
+    (computed in fp32), or ``(pooled, code)`` with ``with_code``."""
+    dtype = conv.dtype
+    (conv, gamma, beta, mean, var), one = with_models(*map(upcast, (conv, gamma, beta, mean, var)))
     y = ((conv - _per_channel(mean)) * torch.rsqrt(_per_channel(var) + eps)
          * _per_channel(gamma) + _per_channel(beta))
     s, b, t, c = conv.shape
     t_out = t // pool
     if p == 0.0 and not with_code:
-        out = gelu_max_pool(y.reshape(s * b, t, c), pool).reshape(s, b, t_out, c)
+        out = gelu_max_pool(y.reshape(s * b, t, c), pool).reshape(s, b, t_out, c).to(dtype)
         return out[0] if one else out
     a = torch.nn.functional.gelu(y[:, :, : t_out * pool]).reshape(s, b, t_out, pool, c)
     kept = torch.ones_like(a, dtype=torch.bool)
@@ -143,6 +157,7 @@ def fused_stage_train_plain(conv, gamma, beta, mean, var, pool: int, eps: float 
         kept = keep[:, :, : t_out * pool].reshape(s, b, t_out, pool, c)
         a = torch.where(kept, a * _keep_scale(p), 0.0)
     out, win = a.max(dim=3)  # first max wins, as torch MaxPool1d
+    out = out.to(dtype)
     if with_code:
         kw = kept.gather(3, win[:, :, :, None]).squeeze(3)
         code = (win + pool * kw).to(torch.int32)
@@ -181,9 +196,10 @@ class _StemTail(torch.autograd.Function):
         b, t, c = conv.shape
         dy = torch.nn.functional.pad(dy_cov, (0, 0, 0, t - dy_cov.shape[1]))
         n = b * t
-        xhat = (conv - mean) * inv
+        xhat = (upcast(conv) - mean) * inv
         dconv = (inv * gamma) * (dy - dbeta / n - xhat * (dgamma / n))
-        return dconv, dgamma, dbeta, None, None, None, None, None, None, None
+        return (dconv.to(conv.dtype), dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
+                None, None, None, None, None, None, None)
 
     @staticmethod
     def vmap(info, in_dims, conv, gamma, beta, mean, var, p, pool, eps, generator, with_code):
@@ -224,7 +240,8 @@ def fused_stage_train(conv: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
 
 def stem_tail_bwd_plain(conv, dpool, code, scale, shift, mean, inv, p: float, pool: int):
     """Plain PyTorch version of :func:`stem_tail_bwd` (one partial chunk
-    per model)."""
+    per model), in fp32."""
+    conv, dpool, scale, shift, mean, inv = map(upcast, (conv, dpool, scale, shift, mean, inv))
     (conv, dpool, code, scale, shift, mean, inv), one = with_models(
         conv, dpool, code, scale, shift, mean, inv)
     s, b, t, c = conv.shape
@@ -248,34 +265,35 @@ def stem_tail_bwd_plain(conv, dpool, code, scale, shift, mean, inv, p: float, po
 def stem_tail_bwd(conv, dpool, code, scale, shift, mean, inv, p: float, pool: int):
     """Winner-routed backward of the stem tail: ``(dy (B, t_out * pool, C),
     dgamma partials (chunks, C), dbeta partials (chunks, C))``, each with a
-    leading S where the inputs have one; the caller sums the partials over
-    their chunk axis. ``scale = gamma * inv`` and ``shift = beta - mean *
-    scale`` with ``inv = rsqrt(var + eps)``."""
+    leading S where the inputs have one, all fp32; the caller sums the
+    partials over their chunk axis. ``scale = gamma * inv`` and ``shift =
+    beta - mean * scale`` with ``inv = rsqrt(var + eps)``; ``dpool`` has
+    ``conv``'s dtype and the per-channel values enter in fp32."""
     if conv.device.type == "cpu":
         return stem_tail_bwd_plain(conv, dpool, code, scale, shift, mean, inv, p, pool)
     if conv.device.type != "cuda":
         raise ValueError(f"no stem-tail kernel for device {conv.device}")
     (conv, dpool, code, scale, shift, mean, inv), one = with_models(
-        conv, dpool, code, scale, shift, mean, inv)
+        conv, dpool, code, *(upcast(v).contiguous() for v in (scale, shift, mean, inv)))
     device = conv.device
     s, b, t, c = conv.shape
     if s > MAX_MODELS:
         raise ValueError(f"{s} models > {MAX_MODELS}: the model axis is the grid's z axis")
     t_out = t // pool
-    check_cuda_f32("conv", conv, device)
-    check_cuda_f32("dpool", dpool, device, (s, b, t_out, c))
+    check_cuda("conv", conv, device, dtypes=F32_BF16)
+    check_cuda("dpool", dpool, device, (s, b, t_out, c), (conv.dtype,))
     if (code.dtype != torch.int32 or code.device != device
             or tuple(code.shape) != (s, b, t_out, c) or not code.is_contiguous()):
         raise ValueError("code must be the forward's int32 (B, T // pool, C) tensor")
     for name, v in (("scale", scale), ("shift", shift), ("mean", mean), ("inv", inv)):
-        check_cuda_f32(name, v, device, (s, c))
+        check_cuda(name, v, device, (s, c), F32)
     chunks = -(-(b * t_out) // _ROWS_PER_CHUNK)
     dy = torch.empty(s, b, t_out * pool, c, device=device, dtype=torch.float32)
     dg_part = torch.empty(s, chunks, c, device=device, dtype=torch.float32)
     db_part = torch.empty(s, chunks, c, device=device, dtype=torch.float32)
-    BWD_KERNEL.launch(device, ptr(conv), ptr(dpool), ptr(code), ptr(scale), ptr(shift),
-                      ptr(mean), ptr(inv), _keep_scale(p), ptr(dy), ptr(dg_part),
-                      ptr(db_part), s, b, t, c, pool, _ROWS_PER_CHUNK)
+    BWD_KERNELS[conv.dtype].launch(device, ptr(conv), ptr(dpool), ptr(code), ptr(scale),
+                                   ptr(shift), ptr(mean), ptr(inv), _keep_scale(p), ptr(dy),
+                                   ptr(dg_part), ptr(db_part), s, b, t, c, pool, _ROWS_PER_CHUNK)
     return (dy[0], dg_part[0], db_part[0]) if one else (dy, dg_part, db_part)
 
 

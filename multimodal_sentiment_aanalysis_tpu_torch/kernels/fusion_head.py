@@ -26,7 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ._build import CudaKernel, check_cuda_f32, ptr
+from ._build import CudaKernel, check_cuda, ptr
 
 KERNEL = CudaKernel(
     "fusion_head", "msa_fusion_head", [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5,
@@ -82,9 +82,9 @@ def _check(x_eeg, x_eye, x_phy, weights: Weights, num_heads: int):
     shapes = ((3 * f, f), (3 * f,), (f, f), (f,), (hidden, f), (hidden,), (ncls, hidden),
               (ncls,), (ncls, hidden), (ncls,))
     for name, t in (("x_eeg", x_eeg), ("x_eye", x_eye), ("x_phy", x_phy)):
-        check_cuda_f32(name, t, device, (b, f))
+        check_cuda(name, t, device, (b, f))
     for i, (t, shape) in enumerate(zip(weights, shapes)):
-        check_cuda_f32(f"weight {i}", t, device, shape)
+        check_cuda(f"weight {i}", t, device, shape)
     if any(t.data_ptr() % 16 for t in (x_eeg, x_eye, x_phy, *weights)):
         raise ValueError("the kernel reads 16-byte vectors: every operand must be 16-byte aligned")
     return b, f, hidden, ncls

@@ -28,6 +28,15 @@ Functions' ``vmap`` rules make that one S-wide launch; the backward runs
 under ``vmap`` too, so the two backward kernels are Functions of their own.
 A CPU tensor takes the plain versions, a CUDA tensor launches the kernel or
 raises.
+
+Every kernel has an fp32 and a bf16 form, chosen by the dtype of ``x``
+(the weights and ``h_seq``/``dh_seq`` must share it; fp16 raises
+``TypeError``). As in the JAX kernels, the bf16 form reads bf16 and does
+all arithmetic in fp32: ``h`` and ``c`` are carried in fp32, ``h_seq`` is
+stored as bf16, and the c checkpoints, the dx halves and ``dW_cat`` are
+fp32; the layer's backward rounds dx and the weight gradients to the
+inputs' dtype, as ``_xproj_bwd`` does. The plain versions compute in fp32
+and store as the kernels store.
 """
 
 from __future__ import annotations
@@ -36,22 +45,20 @@ import ctypes
 
 import torch
 
-from ._build import MAX_MODELS, CudaKernel, check_cuda_f32, models_first, ptr, with_models
+from ._build import (F32, F32_BF16, MAX_MODELS, check_cuda, kernel_forms, models_first, ptr,
+                     upcast, with_models)
 
-KERNEL = CudaKernel(
-    "lstm_fwd", "msa_bilstm_fwd",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5,
-)
-CBND_KERNEL = CudaKernel(
-    "lstm_bwd", "msa_bilstm_cbnd",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6,
-)
-SEGBWD_KERNEL = CudaKernel(
-    "lstm_bwd", "msa_bilstm_segbwd",
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6,
-)
+# fp32 and bf16 forms of each kernel, by the dtype of x
+KERNELS = kernel_forms("lstm_fwd", "msa_bilstm_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
+CBND_KERNELS = kernel_forms("lstm_bwd", "msa_bilstm_cbnd",
+                            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6)
+SEGBWD_KERNELS = kernel_forms("lstm_bwd", "msa_bilstm_segbwd",
+                              [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6)
+KERNEL, CBND_KERNEL, SEGBWD_KERNEL = (
+    k[torch.float32] for k in (KERNELS, CBND_KERNELS, SEGBWD_KERNELS))
 
 _ROWS_PER_BLOCK = 8  # kBt in csrc/lstm_fwd.cu and csrc/lstm_bwd.cu
+_SEGBWD_MAX_HIDDEN = 128  # kSegMaxThreads / 4 in csrc/lstm_bwd.cu
 _MAX_SMEM = 227 * 1024
 SEG_K = 4  # segment length of the backward; any K >= 1 works for any T
 
@@ -88,10 +95,10 @@ def _check_layer(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     h = w_hh.shape[-1]
     if not 0 < 4 * h <= 1024:
         raise ValueError(f"hidden size {h}: the kernels run 4H <= 1024 threads")
-    check_cuda_f32("x", x, device)
-    check_cuda_f32("w_ih", w_ih, device, (s, 2, 4 * h, i))
-    check_cuda_f32("w_hh", w_hh, device, (s, 2, 4 * h, h))
-    check_cuda_f32("bias", bias, device, (s, 2, 4 * h))
+    check_cuda("x", x, device, dtypes=F32_BF16)
+    check_cuda("w_ih", w_ih, device, (s, 2, 4 * h, i), (x.dtype,))
+    check_cuda("w_hh", w_hh, device, (s, 2, 4 * h, h), (x.dtype,))
+    check_cuda("bias", bias, device, (s, 2, 4 * h), (x.dtype,))
     return s, b, t, i, h
 
 
@@ -128,16 +135,18 @@ def bilstm_fwd(x, w_ih, w_hh, bias) -> torch.Tensor:
     # bound to names: a temporary freed before the launch could be reused
     # by the next allocation while the kernel still reads it
     w_ih_t, w_hh_t = _transposed(w_ih), _transposed(w_hh)
-    out = torch.empty(s, b, t, 2 * h, device=x.device, dtype=torch.float32)
-    KERNEL.launch(x.device, ptr(x), ptr(w_ih_t), ptr(w_hh_t), ptr(bias), ptr(out),
-                  s, b, t, i, h)
+    out = torch.empty(s, b, t, 2 * h, device=x.device, dtype=x.dtype)
+    KERNELS[x.dtype].launch(x.device, ptr(x), ptr(w_ih_t), ptr(w_hh_t), ptr(bias), ptr(out),
+                            s, b, t, i, h)
     return out[0] if one else out
 
 
 def bilstm_fwd_plain(x, w_ih, w_hh, bias) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: each direction's input
-    projection in one product, then the recurrence step by step."""
-    (x, w_ih, w_hh, bias), one = with_models(x, w_ih, w_hh, bias)
+    projection in one product, then the recurrence step by step, in fp32;
+    ``h_seq`` comes back in the dtype of ``x``."""
+    dtype = x.dtype
+    (x, w_ih, w_hh, bias), one = with_models(*map(upcast, (x, w_ih, w_hh, bias)))
     t = x.shape[2]
     halves = []
     for d in (0, 1):
@@ -151,7 +160,7 @@ def bilstm_fwd_plain(x, w_ih, w_hh, bias) -> torch.Tensor:
             h = torch.sigmoid(o) * torch.tanh(c)
             hs[a] = h
         halves.append(torch.stack(hs, dim=2))
-    out = torch.cat(halves, dim=-1)
+    out = torch.cat(halves, dim=-1).to(dtype)
     return out[0] if one else out
 
 
@@ -178,8 +187,8 @@ class _FusedBiLSTM(torch.autograd.Function):
         c_bnd = _Cbnd.apply(x, h_seq, w_ih, w_hh, bias, SEG_K)
         dx_pk, dw_cat = _SegBwd.apply(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias, SEG_K)
         i, h = x.shape[-1], w_hh.shape[-1]
-        return (dx_pk[0] + dx_pk[1], dw_cat[:, :i].transpose(1, 2),
-                dw_cat[:, i:i + h].transpose(1, 2), dw_cat[:, i + h])
+        return ((dx_pk[0] + dx_pk[1]).to(x.dtype), dw_cat[:, :i].transpose(1, 2).to(w_ih.dtype),
+                dw_cat[:, i:i + h].transpose(1, 2).to(w_hh.dtype), dw_cat[:, i + h].to(bias.dtype))
 
     @staticmethod
     def vmap(info, in_dims, *args):
@@ -228,8 +237,8 @@ def _is_boundary(d: int, a: int, k: int) -> bool:
 
 
 def bilstm_cbnd_plain(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
-    """Plain PyTorch version of :func:`bilstm_cbnd`."""
-    (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
+    """Plain PyTorch version of :func:`bilstm_cbnd` (fp32)."""
+    (x, h_seq, w_ih, w_hh, bias), one = with_models(*map(upcast, (x, h_seq, w_ih, w_hh, bias)))
     s, b, t, _ = x.shape
     h = w_hh.shape[-1]
     out = x.new_zeros(s, 2, _num_segments(t, k), b, h)
@@ -246,7 +255,7 @@ def bilstm_cbnd_plain(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tenso
 def bilstm_cbnd(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
     """c checkpoints ``(2, NSEG, B, H)`` (or ``(S, 2, NSEG, B, H)``),
     ``NSEG = ceil(T / k)``, rebuilt in recurrence order from ``x`` and the
-    stored ``h_seq``. Slot ``m`` of direction 0 holds c at actual time
+    stored ``h_seq``, in fp32. Slot ``m`` of direction 0 holds c at actual time
     ``m k + k - 1`` (the entry of block ``m + 1``); of direction 1, c at
     ``m k`` (the entry of block ``m - 1``). Slots no block reads are zero on
     the CPU and unspecified on the card."""
@@ -255,14 +264,14 @@ def bilstm_cbnd(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
     _check_device(x)
     (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
     s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
-    check_cuda_f32("h_seq", h_seq, x.device, (s, b, t, 2 * h))
+    check_cuda("h_seq", h_seq, x.device, (s, b, t, 2 * h), (x.dtype,))
     if k < 1:
         raise ValueError(f"segment length {k} < 1")
     _check_smem(_ROWS_PER_BLOCK * (i + 5 * h), f"input width {i}")
     w_ih_t, w_hh_t = _transposed(w_ih), _transposed(w_hh)
     out = torch.zeros(s, 2, _num_segments(t, k), b, h, device=x.device, dtype=torch.float32)
-    CBND_KERNEL.launch(x.device, ptr(x), ptr(h_seq), ptr(w_ih_t), ptr(w_hh_t), ptr(bias),
-                       ptr(out), s, b, t, i, h, k)
+    CBND_KERNELS[x.dtype].launch(x.device, ptr(x), ptr(h_seq), ptr(w_ih_t), ptr(w_hh_t),
+                                 ptr(bias), ptr(out), s, b, t, i, h, k)
     return out[0] if one else out
 
 
@@ -295,9 +304,9 @@ class _Cbnd(torch.autograd.Function):
 def bilstm_segbwd_plain(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias,
                         k: int = SEG_K) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`bilstm_segbwd`, block by block as the
-    kernel walks them."""
+    kernel walks them, in fp32."""
     (x, dh_seq, h_seq, c_bnd, w_ih, w_hh, bias), one = with_models(
-        x, dh_seq, h_seq, c_bnd, w_ih, w_hh, bias)
+        *map(upcast, (x, dh_seq, h_seq, c_bnd, w_ih, w_hh, bias)))
     s, b, t, i_dim = x.shape
     h = w_hh.shape[-1]
     nseg = _num_segments(t, k)
@@ -340,7 +349,7 @@ def bilstm_segbwd_plain(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias,
 def bilstm_segbwd(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias,
                   k: int = SEG_K) -> tuple[torch.Tensor, torch.Tensor]:
     """The reverse sweep: ``(dx_pk (2, B, T, I), dW_cat (2, I + H + 1, 4H))``
-    (each with a leading S where the inputs have one) from the output
+    in fp32 (each with a leading S where the inputs have one) from the output
     gradient ``dh_seq (B, T, 2H)`` and the checkpoints of
     :func:`bilstm_cbnd` at the same ``k``. ``dx = dx_pk[0] + dx_pk[1]``;
     rows ``:I`` of ``dW_cat[d]`` are ``dW_ih[d]^T``, rows ``I:I+H``
@@ -358,20 +367,23 @@ def bilstm_segbwd(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias,
     s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
     device = x.device
     nseg = _num_segments(t, k)
-    check_cuda_f32("dh_seq", dh_seq, device, (s, b, t, 2 * h))
-    check_cuda_f32("h_seq", h_seq, device, (s, b, t, 2 * h))
-    check_cuda_f32("c_bnd", c_bnd, device, (s, 2, nseg, b, h))
+    check_cuda("dh_seq", dh_seq, device, (s, b, t, 2 * h), (x.dtype,))
+    check_cuda("h_seq", h_seq, device, (s, b, t, 2 * h), (x.dtype,))
+    check_cuda("c_bnd", c_bnd, device, (s, 2, nseg, b, h), F32)
     if k < 1:
         raise ValueError(f"segment length {k} < 1")
+    if h > _SEGBWD_MAX_HIDDEN:
+        raise ValueError(f"hidden size {h} > {_SEGBWD_MAX_HIDDEN}: the reverse sweep runs "
+                         f"4H <= {4 * _SEGBWD_MAX_HIDDEN} threads")
     _check_smem(_ROWS_PER_BLOCK * (k * (i + 5 * h) + (k + 1) * h + 5 * h),
                 f"segment length {k}, input width {i}")
     tiles = -(-b // _ROWS_PER_BLOCK)
     w_ih_t, w_hh_t = _transposed(w_ih), _transposed(w_hh)
     dx_pk = torch.empty(s, 2, b, t, i, device=device, dtype=torch.float32)
     dw_part = torch.zeros(s, tiles, 2, i + h + 1, 4 * h, device=device, dtype=torch.float32)
-    SEGBWD_KERNEL.launch(device, ptr(dh_seq), ptr(x), ptr(h_seq), ptr(c_bnd), ptr(w_ih_t),
-                         ptr(w_hh_t), ptr(w_ih), ptr(w_hh), ptr(bias), ptr(dx_pk), ptr(dw_part),
-                         s, b, t, i, h, k)
+    SEGBWD_KERNELS[x.dtype].launch(device, ptr(dh_seq), ptr(x), ptr(h_seq), ptr(c_bnd),
+                                   ptr(w_ih_t), ptr(w_hh_t), ptr(w_ih), ptr(w_hh), ptr(bias),
+                                   ptr(dx_pk), ptr(dw_part), s, b, t, i, h, k)
     dw_cat = dw_part.sum(1)
     return (dx_pk[0], dw_cat[0]) if one else (dx_pk, dw_cat)
 

@@ -10,16 +10,16 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .layers import MultiheadAttention
+from .layers import LayerNorm, Linear, MultiheadAttention
 
 
 class CrossModalTransformer(nn.Module):
     def __init__(self, embed_dim: int = 256, num_heads: int = 4, device=None):
         super().__init__()
         self.multihead_attn = MultiheadAttention(embed_dim, num_heads, device=device)
-        self.gate = nn.Sequential(nn.Linear(2 * embed_dim, embed_dim, device=device),
+        self.gate = nn.Sequential(Linear(2 * embed_dim, embed_dim, device=device),
                                   nn.Sigmoid())
-        self.norm = nn.LayerNorm(embed_dim, eps=1e-5, device=device)
+        self.norm = LayerNorm(embed_dim, eps=1e-5, device=device)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from ..kernels.conv_stem_train import fused_stage_train
 from ..ops.rnn import bilstm_layer
+from .layers import LayerNorm, Linear
 
 BN_MOMENTUM = 0.1  # torch convention: running = (1 - m) * running + m * batch
 
@@ -92,13 +93,13 @@ class EEGMultiScaleNet(nn.Module):
             nn.MaxPool1d(2),
         )
         self.freq_branch = nn.Sequential(
-            nn.Linear(time_len, 128, device=device), nn.GELU(),
-            nn.Linear(128, 64, device=device),
+            Linear(time_len, 128, device=device), nn.GELU(),
+            Linear(128, 64, device=device),
         )
         self.bilstm = BiLSTM(feat_dim, feat_dim // 2, num_layers=2, device=device)
         self.fusion = nn.Sequential(
-            nn.Linear(feat_dim + 64, feat_dim, device=device),
-            nn.LayerNorm(feat_dim, eps=1e-5, device=device), nn.GELU(),
+            Linear(feat_dim + 64, feat_dim, device=device),
+            LayerNorm(feat_dim, eps=1e-5, device=device), nn.GELU(),
         )
 
     def _stage(self, h: torch.Tensor, conv: nn.Conv1d, bn: nn.BatchNorm1d, drop: nn.Dropout,

@@ -38,7 +38,7 @@ import torch.nn as nn
 from ..ops.losses import supervised_infonce_multi
 from .cross_modal import CrossModalTransformer
 from .eeg import BiLSTM, EEGMultiScaleNet, update_running_stats
-from .layers import MultiheadAttention, dropout
+from .layers import Linear, MultiheadAttention, dropout
 from .subnetwork import Subnetwork
 
 
@@ -46,7 +46,7 @@ def _bn_blocks(widths, in_dim: int, dropout: float, device) -> list[nn.Module]:
     """[Linear, BatchNorm1d, GELU, Dropout] per width (reference trunks)."""
     mods: list[nn.Module] = []
     for w in widths:
-        mods += [nn.Linear(in_dim, w, device=device), nn.BatchNorm1d(w, device=device),
+        mods += [Linear(in_dim, w, device=device), nn.BatchNorm1d(w, device=device),
                  nn.GELU(), nn.Dropout(dropout)]
         in_dim = w
     return mods
@@ -56,8 +56,12 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     """flax ``nn.BatchNorm`` over every axis of ``(B, F)`` or ``(B, C, T)``
     but the feature axis 1: batch stats ``max(E[x^2] - E[x]^2, 0)`` (with
     gradient) in train mode, updating the running stats; the running stats
-    in eval mode."""
+    in eval mode. As flax does, the statistics and the normalisation run in
+    at least fp32, and the result takes the promoted dtype of ``x`` and the
+    affine parameters."""
     dims = [0, *range(2, x.dim())]
+    out_dtype = torch.promote_types(torch.promote_types(x.dtype, bn.weight.dtype), bn.bias.dtype)
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     if bn.training:
         mean = x.mean(dims)
         var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
@@ -66,7 +70,7 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
         mean, var = bn.running_mean, bn.running_var
     per_feature = (-1,) + (1,) * (x.dim() - 2)
     return ((x - mean.reshape(per_feature)) * torch.rsqrt(var + bn.eps).reshape(per_feature)
-            * bn.weight.reshape(per_feature) + bn.bias.reshape(per_feature))
+            * bn.weight.reshape(per_feature) + bn.bias.reshape(per_feature)).to(out_dtype)
 
 
 def run_trunk(trunk: nn.Sequential, x: torch.Tensor,
@@ -133,14 +137,14 @@ class MultimodalTransformerModel(nn.Module):
         self.cross_attn_e2p = CrossModalTransformer(f, device=device)
         self.cross_attn_p2e = CrossModalTransformer(f, device=device)
         self.attention_weights = nn.Sequential(
-            nn.Linear(3 * f, 64, device=device), nn.GELU(),
-            nn.Linear(64, 3, device=device), nn.Softmax(dim=1),
+            Linear(3 * f, 64, device=device), nn.GELU(),
+            Linear(64, 3, device=device), nn.Softmax(dim=1),
         )
         self.fusion = nn.Sequential(*_bn_blocks((f, 128), 3 * f, d, device))
         self.arousal_head = nn.Sequential(*_bn_blocks((128,), 128, d, device),
-                                          nn.Linear(128, num_classes, device=device))
+                                          Linear(128, num_classes, device=device))
         self.valence_head = nn.Sequential(*_bn_blocks((256, 256, 128, 64), 128, d, device),
-                                          nn.Linear(64, num_classes, device=device))
+                                          Linear(64, num_classes, device=device))
         self.contrastive_weight = nn.Parameter(torch.ones(1, device=device))
         self.temperature = nn.Parameter(torch.full((), temperature, device=device))
         self.reset_parameters(generator)

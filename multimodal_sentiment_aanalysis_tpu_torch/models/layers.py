@@ -8,6 +8,13 @@ layer. GELU is the exact erf form everywhere.
 Dropout is :func:`dropout`: a keep mask drawn with ``torch.rand`` from the
 ``generator`` the caller passes (the device's default generator when None),
 applied in train mode only. The modules keep no generator of their own.
+
+:class:`Linear` and :class:`LayerNorm` follow flax's dtype rule: the input
+and the parameters are promoted to their common dtype. Where the dtypes
+agree nothing changes; where they do not, as in the bf16 trainer's forward
+(bf16 parameters, and fp32 activations after the fp32 positional encoding,
+exactly as in the JAX model), the layer computes in the wider dtype instead
+of raising.
 """
 
 from __future__ import annotations
@@ -19,6 +26,31 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.attention import flash_mha
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor | None = None) -> torch.Tensor:
+    """``F.linear`` with the input and the parameters promoted to their
+    common dtype (flax ``Dense``)."""
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    return F.linear(x.to(dt), weight.to(dt), None if bias is None else bias.to(dt))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose forward is :func:`linear`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with the input and the parameters promoted to their
+    common dtype (flax ``LayerNorm``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        return F.layer_norm(x.to(dt), self.normalized_shape, self.weight.to(dt),
+                            self.bias.to(dt), self.eps)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -67,7 +99,9 @@ class MultiheadAttention(nn.Module):
     dropout): packed ``in_proj_weight`` rows ``[W_q; W_k; W_v]``, scaled
     dot-product attention per head through
     :func:`..kernels.attention.flash_mha` (plain tensor math when both
-    lengths are at most 8, the flash kernels above that), ``out_proj``."""
+    lengths are at most 8, the flash kernels above that), ``out_proj``.
+    Query, key and value meet in their common dtype, as ``jnp.einsum``
+    promotes them."""
 
     def __init__(self, embed_dim: int, num_heads: int, device=None):
         super().__init__()
@@ -75,7 +109,7 @@ class MultiheadAttention(nn.Module):
         self.num_heads = num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim, device=device))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim, device=device))
-        self.out_proj = nn.Linear(embed_dim, embed_dim, device=device)
+        self.out_proj = Linear(embed_dim, embed_dim, device=device)
 
     def forward(self, query, key, value):
         e, nh = self.embed_dim, self.num_heads
@@ -83,9 +117,11 @@ class MultiheadAttention(nn.Module):
         b_q, b_k, b_v = self.in_proj_bias.chunk(3)
         b, tq, _ = query.shape
         tk = key.shape[1]
-        q = F.linear(query, w_q, b_q).reshape(b, tq, nh, e // nh).transpose(1, 2)
-        k = F.linear(key, w_k, b_k).reshape(b, tk, nh, e // nh).transpose(1, 2)
-        v = F.linear(value, w_v, b_v).reshape(b, tk, nh, e // nh).transpose(1, 2)
+        q, k, v = linear(query, w_q, b_q), linear(key, w_k, b_k), linear(value, w_v, b_v)
+        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+        q = q.to(dt).reshape(b, tq, nh, e // nh).transpose(1, 2)
+        k = k.to(dt).reshape(b, tk, nh, e // nh).transpose(1, 2)
+        v = v.to(dt).reshape(b, tk, nh, e // nh).transpose(1, 2)
         out = flash_mha(q, k, v).transpose(1, 2).reshape(b, tq, e)
         return self.out_proj(out)
 
@@ -100,10 +136,10 @@ class TransformerEncoderLayer(nn.Module):
         super().__init__()
         self.dropout = dropout
         self.self_attn = MultiheadAttention(d_model, nhead, device=device)
-        self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
-        self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
+        self.linear1 = Linear(d_model, dim_feedforward, device=device)
+        self.linear2 = Linear(dim_feedforward, d_model, device=device)
+        self.norm1 = LayerNorm(d_model, eps=1e-5, device=device)
+        self.norm2 = LayerNorm(d_model, eps=1e-5, device=device)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         p, train = self.dropout, self.training

@@ -26,7 +26,10 @@ For the LOSO trainer, whose S models' parameters are the rows of one
   model with its own step count and learning-rate lane, and the per-model
   NaN skip as a select on the device (``ok = isfinite(loss) & active``
   keeps the old row, moments and count where false), so a step never
-  reads anything back to the host.
+  reads anything back to the host; with ``moment_dtype=torch.bfloat16`` it
+  is the JAX ``adamw_lowp``;
+- :func:`cast_floating`: the mixed-precision cast of a parameter row or an
+  input batch (JAX ``cast_floating``).
 
 Module and update masks (the phased curriculum) wait for ROADMAP A7.
 """
@@ -72,6 +75,13 @@ class RunningStatsSnapshot:
             buf.copy_(saved)
 
 
+def cast_floating(t: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """``t`` (a parameter row, an input) in the compute ``dtype``; as it is
+    when None. The cast is differentiable, so a row's gradient reaches the
+    fp32 master row rounded to ``dtype``, as in the JAX trainer."""
+    return t if dtype is None else t.to(dtype)
+
+
 def clip_rows_by_global_norm(grads: torch.Tensor, max_norm: float) -> torch.Tensor:
     """Each row of ``grads (S, N)`` (one model's flattened gradient) scaled
     by ``min(1, max_norm / (norm + 1e-6))`` with its own global norm."""
@@ -87,28 +97,36 @@ class StackedAdamW:
     schedule writes it without a host sync. :meth:`step` updates the rows
     in place (views of them stay valid) where ``ok`` is true and leaves the
     row, its moments and its step count as they were elsewhere.
+
+    ``moment_dtype`` is the dtype the moments are carried in (the
+    parameters' when None), JAX ``scale_by_adam_lowp``: each step reads them
+    into the gradients' dtype, forms the new moments and the update there,
+    and rounds only what it carries to the next step. With the parameters'
+    dtype every step is bit-identical to the fp32 optimizer.
     """
 
     def __init__(self, params: torch.Tensor, lr: float, weight_decay: float,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 moment_dtype: torch.dtype | None = None):
         s = params.shape[0]
         self.lr = torch.full((s,), lr, dtype=torch.float32, device=params.device)
         self.weight_decay, self.b1, self.b2, self.eps = weight_decay, b1, b2, eps
-        self.mu = torch.zeros_like(params)
-        self.nu = torch.zeros_like(params)
+        self.moment_dtype = params.dtype if moment_dtype is None else moment_dtype
+        self.mu = torch.zeros_like(params, dtype=self.moment_dtype)
+        self.nu = torch.zeros_like(params, dtype=self.moment_dtype)
         self.count = torch.zeros(s, dtype=torch.int32, device=params.device)
 
     @torch.no_grad()
     def step(self, params: torch.Tensor, grads: torch.Tensor, ok: torch.Tensor) -> None:
         b1, b2 = self.b1, self.b2
         count = self.count + 1
-        mu = (1.0 - b1) * grads + b1 * self.mu
-        nu = (1.0 - b2) * (grads * grads) + b2 * self.nu
+        mu = (1.0 - b1) * grads + b1 * self.mu.to(grads.dtype)
+        nu = (1.0 - b2) * (grads * grads) + b2 * self.nu.to(grads.dtype)
         mu_hat = mu / (1.0 - b1 ** count.to(torch.float32))[:, None]
         nu_hat = nu / (1.0 - b2 ** count.to(torch.float32))[:, None]
         update = mu_hat / (torch.sqrt(nu_hat) + self.eps) + self.weight_decay * params
         keep = ok[:, None]
         params.copy_(torch.where(keep, params + -self.lr[:, None] * update, params))
-        self.mu = torch.where(keep, mu, self.mu)
-        self.nu = torch.where(keep, nu, self.nu)
+        self.mu = torch.where(keep, mu.to(self.moment_dtype), self.mu)
+        self.nu = torch.where(keep, nu.to(self.moment_dtype), self.nu)
         self.count = torch.where(ok, count, self.count)

@@ -37,9 +37,25 @@ elementwise passes over it on the device (:mod:`.state`).
 - :meth:`evaluate`, :meth:`stop_report`, :meth:`subject_variables`,
   :meth:`run` as in JAX.
 
-Not ported yet: ``mesh`` (subject sharding over devices, ROADMAP A13),
-``compute_dtype``/``moment_dtype`` other than None (bf16, ROADMAP B) and
-``save_state``/``restore_state`` (ROADMAP A8); the first two raise.
+Mixed precision, as in JAX: ``compute_dtype="bfloat16"`` keeps the fp32
+``(S, N)`` master row and casts it to bf16 for each step's loss
+(:func:`.state.cast_floating`), all but the trainer-level contrastive
+weight, which stays fp32; ``eeg``/``eye``/``pps`` are cast too. The forward then
+takes the dtypes the JAX model takes: the EEG encoder runs in bf16 through
+the bf16 forms of the stem-tail and BiLSTM kernels, while the eye/PPS
+subnetworks turn fp32 at their fp32 positional encoding, so the rest of the
+model, the InfoNCE features among them, computes in fp32 with bf16-rounded
+weights (flax's promotion, kept by :class:`..models.layers.Linear` and
+:class:`..models.layers.LayerNorm`). Logits and InfoNCE terms are taken in
+fp32 before the loss, the BatchNorm running stats stay fp32, and the
+gradient reaches the master row rounded to bf16 through the cast.
+``moment_dtype="bfloat16"`` carries the AdamW moments in bf16
+(:class:`.state.StackedAdamW`). Evaluation and the early-stop held-out loss
+run in fp32 on the master parameters, as JAX's ``_build_eval`` and
+``_one_model_te_loss`` do.
+
+Not ported yet: ``mesh`` (subject sharding over devices, ROADMAP A13), which
+raises, and ``save_state``/``restore_state`` (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -56,7 +72,7 @@ from ..data.pipeline import DeviceDataset, epoch_plan_on_device
 from ..data.splits import loso_split
 from ..ops.losses import masked_accuracy, masked_cross_entropy
 from ..utils.schedule import vector_schedule_init, vector_schedule_step
-from .state import StackedAdamW, clip_rows_by_global_norm
+from .state import StackedAdamW, cast_floating, clip_rows_by_global_norm
 
 TRAINER_CW = "trainer.contrastive_weight"  # the last entry of a parameter row
 _TE_KEYS = ("te_loss", "te_a_acc", "te_v_acc")
@@ -65,13 +81,18 @@ _TE_KEYS = ("te_loss", "te_a_acc", "te_v_acc")
 def _objective(outs, batch: dict, mask: torch.Tensor, cw: torch.Tensor):
     """One model's ``(loss, arousal accuracy, valence accuracy)``: CE on
     both heads over ``nan_to_num``-ed logits plus ``cw`` times the three
-    InfoNCE terms (JAX ``_loss_fn``)."""
-    arousal, valence, c1, c2, c3 = outs
-    arousal, valence = torch.nan_to_num(arousal), torch.nan_to_num(valence)
+    InfoNCE terms, all taken in fp32 (JAX ``_loss_fn``)."""
+    arousal, valence = (torch.nan_to_num(t).to(torch.float32) for t in outs[:2])
+    c1, c2, c3 = (t.to(torch.float32) for t in outs[2:])
     ce = (masked_cross_entropy(arousal, batch["arousal"], mask)
           + masked_cross_entropy(valence, batch["valence"], mask))
     return (ce + cw[0] * (c1 + c2 + c3), masked_accuracy(arousal, batch["arousal"], mask),
             masked_accuracy(valence, batch["valence"], mask))
+
+
+def _dtype(name: str | torch.dtype | None) -> torch.dtype | None:
+    """``"bfloat16"`` (the JAX argument's spelling) or a torch dtype."""
+    return getattr(torch, name) if isinstance(name, str) else name
 
 
 def _per_sample(totals: np.ndarray) -> dict[str, np.ndarray]:
@@ -95,17 +116,14 @@ class VectorizedLOSOTrainer:
         batch_size: int = 64,
         clip_norm: float = 1.0,
         seed: int = 42,
-        compute_dtype: str | None = None,
-        moment_dtype: str | None = None,
+        compute_dtype: str | torch.dtype | None = None,
+        moment_dtype: str | torch.dtype | None = None,
         mesh=None,
         early_stop: bool = False,
         es_patience: int = 5,
         plateau_patience: int = 3,
         plateau_factor: float = 0.5,
     ):
-        if compute_dtype is not None or moment_dtype is not None:
-            raise NotImplementedError("bf16 training waits for the bf16 kernels; "
-                                      "the port trains in fp32")
         if mesh is not None:
             raise NotImplementedError("sharding the subjects over devices is not ported yet")
         self.device = data.device
@@ -117,6 +135,7 @@ class VectorizedLOSOTrainer:
         self.ex_nums = ex_nums
         self.batch_size = batch_size
         self.clip_norm = clip_norm
+        self.compute_dtype = _dtype(compute_dtype)
         self.host_rng = np.random.default_rng(seed)
 
         splits = [loso_split(n_subjects, ex_nums, s) for s in range(n_subjects)]
@@ -149,7 +168,7 @@ class VectorizedLOSOTrainer:
                                ).repeat(n_subjects, 1)  # (S, M)
         self._stat_views = self._stat_dict(self.stats)  # written in place by the forward
 
-        self.opt = StackedAdamW(self.params, lr, weight_decay)
+        self.opt = StackedAdamW(self.params, lr, weight_decay, moment_dtype=_dtype(moment_dtype))
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.plan_generator = torch.Generator(device=self.device).manual_seed(seed + 2)
         self._all_active = torch.ones(n_subjects, dtype=torch.bool, device=self.device)
@@ -215,11 +234,15 @@ class VectorizedLOSOTrainer:
     # ------------------------------------------------------------------
     # one model's functions, vmapped over the model axis
     def _loss_one(self, row, stats, batch):
-        params = self._param_dict(row)
-        cw = params.pop(TRAINER_CW)
+        """One model's train-mode loss in the compute dtype; the
+        trainer-level contrastive weight stays fp32."""
+        cw = self._param_dict(row)[TRAINER_CW]
+        params = self._param_dict(cast_floating(row, self.compute_dtype))
+        params.pop(TRAINER_CW)
         mask = batch["mask"]
         outs = functional_call(self.model, {**params, **stats},
-                               (batch["eeg"], batch["eye"], batch["pps"]),
+                               tuple(cast_floating(batch[k], self.compute_dtype)
+                                     for k in ("eeg", "eye", "pps")),
                                {"labels": (batch["arousal"], batch["valence"], mask),
                                 "generator": self.generator})
         loss, a_acc, v_acc = _objective(outs, batch, mask, cw)

@@ -63,9 +63,12 @@ def test_slice_matches_jax_model_apply(case, entry):
 
 
 def test_serving_refuses_bf16():
+    """bf16 serving runs, but not through the fused conv-stem kernel, which
+    has no bf16 form: ``use_pallas=True`` with bf16 raises rather than
+    switch paths."""
     port = MultimodalTransformerModel(feat_dim=32, eeg_time=64).eval()
-    with pytest.raises(NotImplementedError):
-        build_serving_forward(port, 32, compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="use_pallas=True serves fp32 only"):
+        build_serving_forward(port, 32, use_pallas=True, compute_dtype=torch.bfloat16)
 
 
 def test_port_imports_no_jax():

@@ -370,7 +370,7 @@ def test_fused_early_stop_decisions_replay_on_host_classes():
 
 def test_subject_variables_and_unported_options():
     """A subject's slice loads strictly into the flagship model, whose eval
-    accuracies equal ``evaluate()``'s; bf16 and a device mesh raise."""
+    accuracies equal ``evaluate()``'s; a device mesh raises."""
     arrays = _tiny_arrays()
     pt = VectorizedLOSOTrainer(MultimodalTransformerModel(feat_dim=FEAT, eeg_time=T_EEG),
                                DeviceDataset(arrays, "cpu"), 3, 8, batch_size=8, seed=0)
@@ -385,7 +385,6 @@ def test_subject_variables_and_unported_options():
         hit = (a.argmax(1).numpy() == arrays["arousal"][rows]).mean()
         np.testing.assert_allclose(hit, acc[s], rtol=0, atol=1e-6)
     data = DeviceDataset(arrays, "cpu")
-    for kw in ({"compute_dtype": "bfloat16"}, {"moment_dtype": "bfloat16"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            VectorizedLOSOTrainer(MultimodalTransformerModel(feat_dim=FEAT, eeg_time=T_EEG),
-                                  data, 3, 8, **kw)
+    with pytest.raises(NotImplementedError):
+        VectorizedLOSOTrainer(MultimodalTransformerModel(feat_dim=FEAT, eeg_time=T_EEG),
+                              data, 3, 8, mesh=object())
