@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, LOSO training, ME-MHACL and
-attention paths, and bf16 LOSO training and bf16 serving, on one CUDA card,
-and check them.
+attention paths, bf16 LOSO training and bf16 serving, and the BiLSTM's
+other kernel schedules, on one CUDA card, and check them.
 
 Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py            # the checks below
-    python3 chip_smoke.py --profile  # also torch.profiler windows over train steps
+    python3 chip_smoke.py --profile  # also torch.profiler windows over train epochs
 
 It needs a CUDA card and exits non-zero without one. In order, it
 
@@ -26,7 +26,10 @@ It needs a CUDA card and exits non-zero without one. In order, it
    (two launches of the bf16 BiLSTM forward per request, no other kernel),
    fp32 logits within rtol and atol 0.1 of fp32 serving and the same argmax
    on at least 90% of the rows (the JAX package's own bar for bf16
-   serving);
+   serving); then the same requests through
+   ``build_serving_forward(lstm_schedule="v5")`` (two launches of the v5
+   forward per request, no other kernel), logits within 1e-4 of fp32
+   serving's;
 3. training: the synthetic MAHNOB-HCI set (480 trials, Z-scored) on the
    card, ``loso_split`` with subject 0 held out (460 train, 20 test); a
    full-width flagship from the seeded generator at the reference dropout
@@ -53,7 +56,16 @@ It needs a CUDA card and exits non-zero without one. In order, it
    evaluation, as many launches per step as the fp32 trainer; fp32 master
    parameters and BatchNorm stats, bf16 moments; the epoch-2 loss gap to
    the fp32 trainer; and one fused bf16 epoch at B=512 (``vloso_bf16_b512``)
-   after a warm-up epoch, with its ms/step and peak device memory;
+   after a warm-up epoch, with its ms/step and peak device memory; before
+   the bf16 trainer, the fp32 trainer under each BiLSTM schedule (v9, then
+   v5, v6, v8 and v9.1, ``MultimodalTransformerModel(lstm_schedule=)``)
+   from the same init: two fused epochs each under the sync check, with
+   launches per step by kernel (each of the schedule's kernels once per
+   layer for all 24 models, no other schedule's), ms/step and peak device
+   memory, and each epoch's per-subject train loss within 1e-3 relative of
+   v9's; then one LOSO step's gradients (``dropout=0.0``, one fixed batch)
+   under each schedule against v9's on the card (all 24 models) and subject
+   0's against the CPU plain path, at the gradient-parity bar;
 5. ME-MHACL (``cli.py memhacl``): ``make_synthetic_emotion_arrays(n=480)``
    on the card, the 80/20 split, full-width encoder, projection head and
    classifier (feat_dim 256, 8 heads) from seeded generators;
@@ -75,7 +87,9 @@ It needs a CUDA card and exits non-zero without one. In order, it
    at a 200-query / 100-key and a 9-row shape), and each bf16 form at the
    bf16 paths' shapes (the bf16 serving model's activations, the bf16 LOSO
    trainer's weights cast to bf16 with seeded bf16 activations, and subject
-   0 alone), times both with CUDA events, times one PyTorch call of the
+   0 alone), the six kernels of the other BiLSTM schedules at S=24 and at
+   subject 0 (the fp32 LOSO trainer's weights, seeded activations), times
+   both with CUDA events, times one PyTorch call of the
    same function where there is one (``nn.LSTM`` in the case's dtype,
    cuDNN's in fp32; ``scaled_dot_product_attention``; timed here only, the
    port never calls them), computes each case's bound (the larger of its
@@ -96,6 +110,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import math
 import subprocess
@@ -147,6 +162,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.train import (
     memhacl_logits,
     memhacl_pretrain,
 )
+from multimodal_sentiment_aanalysis_tpu_torch.train.vloso import TRAINER_CW
 
 SEED = 0
 POOL, REQUESTS, BATCH = 480, 100, 64
@@ -177,6 +193,21 @@ PER_EVAL = dict(bilstm_fwd=2, stem_tail=2, infonce=1)
 BF16 = torch.bfloat16
 PER_STEP_BF16 = {**{f"{name}_bf16": n for name, n in PER_STEP.items() if name != "infonce"},
                  "infonce": 1}
+# the BiLSTM's kernel schedules (fp32): each one's forward and backward
+# kernels, launched once per layer of a train step; the first also once per
+# layer of an evaluation
+SCHEDULE_KERNELS = {
+    "v9": ("bilstm_fwd", "bilstm_cbnd", "bilstm_segbwd"),
+    "v9.1": ("bilstm_fwd", "bilstm_cbndk", "bilstm_segbwd"),
+    "v8": ("bilstm_fwd", "bilstm_cseq", "bilstm_bwdc"),
+    "v6": ("bilstm_fwd", "bilstm_cseq", "bilstm_bwd_split"),
+    "v5": ("bilstm_fwd_xp", "bilstm_bwd_xp"),
+}
+OTHER_SCHEDULES = ("v5", "v6", "v8", "v9.1")
+# fp32 schedules against v9 from the same init and plans: the same function
+# summed in other orders; per-subject train loss of each fused epoch,
+# relative, and serving logits
+SCHEDULE_LOSS_GAP, SCHEDULE_SERVE_ATOL = 1e-3, 1e-4
 LOSO_B512 = 512       # the JAX bench's vloso_bf16_b512 batch
 LOSS_GAP_LIMIT = 0.1  # bf16 against fp32 epoch-2 train loss, relative, per subject
 # bf16 serving against fp32 serving: the JAX package's bar (tests/test_serving.py)
@@ -219,7 +250,28 @@ KERNELS = {
     "flash_bwd_dq": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:159", 1e-3),
     "flash_bwd_dkv": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:184", 1e-3),
     "fusion_head": (CSRC + "fusion_head.cu", JAX_KERNELS + "fusion_head.py:40", HEAD_ATOL),
+    # the other schedules' kernels; the v8 sweep's dW_cat sums B*T rows as
+    # bilstm_segbwd's does
+    "bilstm_fwd_xp": (CSRC + "lstm_fwd.cu", JAX_KERNELS + "lstm.py:310", 1e-4),
+    "bilstm_bwd_xp": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:401", 1e-4),
+    "bilstm_cseq": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:623", 1e-4),
+    "bilstm_bwd_split": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:691", 1e-4),
+    "bilstm_bwdc": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:819", 1e-3),
+    "bilstm_cbndk": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1115", 1e-4),
 }
+
+
+# the BiLSTM kernels whose first argument is the output gradient dh_seq
+REVERSE_SWEEPS = ("bilstm_segbwd", "bilstm_bwdc", "bilstm_bwd_split", "bilstm_bwd_xp")
+
+
+def schedule_per_step(schedule: str) -> tuple[dict, dict]:
+    """One train step's and one evaluation's launches of each kernel, for
+    one model, under a BiLSTM schedule."""
+    other = lambda per: {k: n for k, n in per.items() if not k.startswith("bilstm")}
+    fwd = SCHEDULE_KERNELS[schedule]
+    return ({**other(PER_STEP), **{name: 2 for name in fwd}},
+            {**other(PER_EVAL), fwd[0]: 2})
 
 
 def check(ok: bool, msg: str) -> None:
@@ -234,6 +286,30 @@ def synced(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def fused_epochs_checked(vt, epochs: int, expected: dict, label: str) -> tuple:
+    """``vt.fused_epochs_on_device(epochs)`` under
+    ``set_sync_debug_mode("error")`` (any host sync in the loop raises),
+    its launch counts held to ``expected`` and its metrics to finite values.
+    Returns the metrics as numpy, the host-clock seconds of the synchronised
+    run and the launch counts."""
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = vt.fused_epochs_on_device(epochs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"{label} fused launches over {epochs} epoch(s): {counts}")
+    check(counts == expected, f"{label} fused launch counts {counts} != {expected}")
+    out = out.cpu().numpy()
+    check(bool(np.isfinite(out).all()), f"{label} fused epochs: non-finite metrics")
+    return out, seconds, counts
 
 
 # --------------------------------------------------------------------------
@@ -367,6 +443,33 @@ def serving_bf16_phase(model, pool: DeviceDataset, plan: torch.Tensor, fp32_logi
     return counts
 
 
+def serving_v5_phase(model, pool: DeviceDataset, plan: torch.Tensor, fp32_logits: list) -> dict:
+    """The requests through ``build_serving_forward(lstm_schedule="v5")``:
+    two launches of the v5 forward per request and no other kernel, logits
+    within SCHEDULE_SERVE_ATOL of (v9) fp32 serving's. Returns the launch
+    counts."""
+    fwd = build_serving_forward(model, lstm_schedule="v5")
+    first = pool.gather(plan[0])
+    fwd(first["eeg"], first["eye"], first["pps"])  # warm-up: the projection's cuBLAS handle
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs, ms = serve({"serving_v5": fwd}, pool, plan)
+    counts = launch_counts()
+    expected = {name: 0 for name in KERNELS}
+    expected["bilstm_fwd_xp"] = 2 * REQUESTS
+    print(f"v5 serving launches over {REQUESTS} requests: {counts}")
+    check(counts == expected, f"v5 serving launch counts {counts} != {expected}")
+    worst = max((a - a2).abs().max().item() for res, res2 in zip(outs["serving_v5"], fp32_logits)
+                for a, a2 in zip(res, res2))
+    finite = all(bool(torch.isfinite(a).all()) and a.shape == (BATCH, 3)
+                 for res in outs["serving_v5"] for a in res)
+    print(f"serve serving_v5 (lstm_schedule='v5'): {REQUESTS} requests x {BATCH}, "
+          f"{ms['serving_v5']:.4f} ms/batch (host clock around synchronised runs); logits against "
+          f"v9 fp32 serving max |diff| {worst:.3e} (limit {SCHEDULE_SERVE_ATOL})")
+    check(finite and worst <= SCHEDULE_SERVE_ATOL, "v5 serving disagrees with v9 serving")
+    return counts
+
+
 def serving_kernel_cases(model, eeg: torch.Tensor, cases: dict) -> None:
     """Adds (label, kernel call, plain call) at the serving path's shapes, on
     the activations the eval model forward computes from ``eeg``; with bf16
@@ -468,11 +571,14 @@ def training_phase(trainer: Trainer) -> dict:
     return counts
 
 
-def step_loss(model, batch: dict, mask: torch.Tensor) -> torch.Tensor:
+def step_loss(model, batch: dict, mask: torch.Tensor, contrastive_weight=1.0) -> torch.Tensor:
+    """The trainers' loss: both heads' masked cross-entropy plus
+    ``contrastive_weight`` times the three contrastive terms."""
     a, v, c1, c2, c3 = model(batch["eeg"], batch["eye"], batch["pps"],
                              labels=(batch["arousal"], batch["valence"], mask))
     return (masked_cross_entropy(torch.nan_to_num(a), batch["arousal"], mask)
-            + masked_cross_entropy(torch.nan_to_num(v), batch["valence"], mask) + c1 + c2 + c3)
+            + masked_cross_entropy(torch.nan_to_num(v), batch["valence"], mask)
+            + contrastive_weight * (c1 + c2 + c3))
 
 
 def grad_agreement(got: dict, want: dict) -> tuple[float, str, float, str]:
@@ -601,12 +707,15 @@ def dropout_check(model, batch: dict, gen: torch.Generator) -> None:
 
 
 def make_loso_trainer(full: DeviceDataset, dropout: float | None = None, batch: int = BATCH,
-                      early_stop: bool = True, **dtypes) -> VectorizedLOSOTrainer:
+                      early_stop: bool = True, lstm_schedule: str = "v9",
+                      **dtypes) -> VectorizedLOSOTrainer:
     """``cli.py vloso`` on the synthetic set, with early stop: one model per
-    held-out subject, all 24 trained together. ``dtypes``: the trainer's
+    held-out subject, all 24 trained together, the BiLSTM under
+    ``lstm_schedule``. ``dtypes``: the trainer's
     ``compute_dtype``/``moment_dtype``."""
     model = MultimodalTransformerModel(feat_dim=256, dropout=dropout, device=full.device,
-                                       generator=torch.Generator().manual_seed(SEED))
+                                       generator=torch.Generator().manual_seed(SEED),
+                                       lstm_schedule=lstm_schedule)
     return VectorizedLOSOTrainer(model, full, N_SUBJECTS, EX_NUMS, lr=LOSO_LR, batch_size=batch,
                                  seed=SEED, early_stop=early_stop, **dtypes)
 
@@ -641,23 +750,11 @@ def loso_phase(vt: VectorizedLOSOTrainer, per_step: dict = PER_STEP, label: str 
     check(counts == expected, f"{label} launch counts {counts} != {expected}: not one launch "
                               f"per kernel call for all {s_n} models")
 
-    reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")  # any host sync in the loop raises
-    try:
-        out = vt.fused_epochs_on_device(LOSO_FUSED_EPOCHS)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    fused = launch_counts()
     expected = {name: LOSO_FUSED_EPOCHS * (steps * per_step.get(name, 0) + PER_EVAL.get(name, 0))
                 for name in KERNELS}
-    print(f"{label} fused launches over {LOSO_FUSED_EPOCHS} epochs with early stop: {fused}")
-    check(fused == expected, f"{label} fused launch counts {fused} != {expected}")
-    out = out.cpu().numpy()  # (E, S, 9): masked sums, held-out metrics, lr, stopped
-    check(bool(np.isfinite(out).all()), f"{label} fused epochs: non-finite metrics")
+    # (E, S, 9): masked sums, held-out metrics, lr, stopped
+    out, seconds, fused = fused_epochs_checked(vt, LOSO_FUSED_EPOCHS, expected,
+                                               f"{label} (early stop)")
     for e in range(LOSO_FUSED_EPOCHS):
         loss = out[e, :, 0] / np.maximum(out[e, :, 3], 1.0)
         print(f"{label} fused epoch {EPOCHS + e + 1}: train loss mean {loss.mean():.6f}, held-out "
@@ -710,23 +807,10 @@ def loso_b512_phase(full: DeviceDataset) -> dict:
     s_n, n_train = vt.n_subjects, vt.train_idx.shape[1]
     steps = -(-n_train // LOSO_B512)
     _, warm = synced(lambda: vt.fused_epochs_on_device(1))
-    reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out = vt.fused_epochs_on_device(1)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     expected = {name: steps * PER_STEP_BF16.get(name, 0) for name in KERNELS}
-    print(f"LOSO bf16 B={LOSO_B512} launches over one fused epoch: {counts}")
-    check(counts == expected, f"LOSO bf16 B={LOSO_B512} launch counts {counts} != {expected}")
-    out = out.cpu().numpy()  # (1, S, 4) masked sums
-    check(bool(np.isfinite(out).all()), f"LOSO bf16 B={LOSO_B512}: non-finite metrics")
+    # (1, S, 4) masked sums
+    out, seconds, counts = fused_epochs_checked(vt, 1, expected, f"LOSO bf16 B={LOSO_B512}")
+    peak = torch.cuda.max_memory_allocated()
     loss = out[0, :, 0] / np.maximum(out[0, :, 3], 1.0)
     print(f"LOSO bf16 B={LOSO_B512}: {s_n} models x {n_train} train samples, {steps} step(s) of "
           f"{s_n} x {LOSO_B512} per epoch, no early stop; warm-up epoch {warm:.3f} s; fused epoch "
@@ -789,6 +873,148 @@ def loso_step_parity(full: DeviceDataset) -> None:
         check(loss_err <= 1e-4 and outliers <= GRAD_OUTLIERS and stat_err <= 1e-4
               and param_err <= 2 * LOSO_LR + 1e-6,
               f"LOSO subject {s} disagrees with the single-model Trainer")
+
+
+def loso_schedules_phase(full: DeviceDataset) -> dict:
+    """Each BiLSTM schedule's LOSO trainer (fp32, S=24, B=64, early stop)
+    from the v9 phase's init: two fused epochs under the sync check, the
+    launch counts of each (the schedule's kernels once per layer and step
+    for all 24 models, no other schedule's), its ms/step and peak device
+    memory, and its per-subject train loss against v9's.
+    Returns the launch counts."""
+    total = {name: 0 for name in KERNELS}
+    losses = {}
+    for schedule in ("v9", *OTHER_SCHEDULES):
+        gc.collect()  # the last schedule's trainer (its closures hold it in cycles)
+        torch.cuda.empty_cache()
+        vt = make_loso_trainer(full, lstm_schedule=schedule)
+        s_n, n_train = vt.n_subjects, vt.train_idx.shape[1]
+        steps = -(-n_train // BATCH)
+        per_step, per_eval = schedule_per_step(schedule)
+        expected = {name: steps * per_step.get(name, 0) + per_eval.get(name, 0) for name in KERNELS}
+        losses[schedule] = []
+        for epoch in (1, 2):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out, seconds, counts = fused_epochs_checked(vt, 1, expected,
+                                                        f"LOSO {schedule} epoch {epoch}")
+            peak = torch.cuda.max_memory_allocated()
+            for name in KERNELS:
+                total[name] += counts[name]
+            out = out[0]
+            losses[schedule].append(out[:, 0] / np.maximum(out[:, 3], 1.0))
+            print(f"LOSO {schedule} fused epoch {epoch}: train loss mean "
+                  f"{losses[schedule][-1].mean():.6f}; smoke reading (host clock around a "
+                  f"synchronised run, no host sync inside): {seconds * 1e3 / steps:.3f} ms/step of "
+                  f"{s_n} x {BATCH} with the held-out evaluation, "
+                  f"{s_n * n_train / seconds:.1f} samples/s/chip; torch.cuda.max_memory_allocated "
+                  f"{peak / 2 ** 30:.3f} GiB, {(peak - base) / 2 ** 30:.3f} GiB above the "
+                  f"{base / 2 ** 30:.3f} GiB held before the epoch")
+        train_launches = {name: (n - per_eval.get(name, 0)) / steps for name, n in counts.items() if n}
+        print(f"LOSO {schedule} launches per step ({s_n} models, the evaluation's taken out): "
+              f"{train_launches}")
+        del vt, out
+    gc.collect()
+    for schedule in OTHER_SCHEDULES:
+        gap = max((np.abs(a - b) / np.abs(b)).max() for a, b in zip(losses[schedule], losses["v9"]))
+        print(f"LOSO {schedule} against v9 from the same init and plans: largest relative "
+              f"per-subject train-loss gap over 2 fused epochs {gap:.3e} (limit {SCHEDULE_LOSS_GAP})")
+        check(gap <= SCHEDULE_LOSS_GAP, f"LOSO {schedule} parts from v9")
+    torch.cuda.empty_cache()
+    return total
+
+
+def schedule_gradient_parity(full: DeviceDataset) -> None:
+    """One LOSO step's gradients of a dropout=0.0 trainer under each
+    schedule on one fixed batch: all 24 models against v9's on the card,
+    and subject 0 against the CPU plain path (``grad_agreement``, the bar
+    of the gradient-parity check above)."""
+    batch, grads = None, {}
+    for schedule in ("v9", *OTHER_SCHEDULES):
+        vt = make_loso_trainer(full, dropout=0.0, lstm_schedule=schedule)
+        if batch is None:
+            plans, masks = vt._epoch_plans()
+            idx = torch.as_tensor(plans[:, 0], device=full.device)
+            mask = torch.as_tensor(masks[:, 0], device=full.device)
+            init, cw = vt.subject_variables(0), vt._param_dict(vt.params)[TRAINER_CW][0].item()
+            batch = vt._gather(idx)
+            batch["mask"] = mask
+        vt.model.train()
+        g, (loss, _) = vt._grad_step(vt.params, vt._stat_views, batch)
+        grads[schedule] = ({n: t.detach().clone() for n, t in vt._param_dict(g).items()},
+                           loss.detach().clone())
+        del vt, g
+        gc.collect()
+    torch.cuda.empty_cache()
+    # subject 0 on the CPU plain path: the trainer's loss, ce + cw * contrastive
+    model = MultimodalTransformerModel(feat_dim=256, dropout=0.0)
+    model.load_state_dict({n: t.cpu() for n, t in init.items()})
+    model.train()
+    cw_leaf = torch.tensor(cw, requires_grad=True)
+    cpu_loss = step_loss(model, {k: v.cpu() for k, v in full.gather(idx[0]).items()},
+                         mask[0].cpu(), cw_leaf)
+    cpu_loss.backward()
+    want = {n: p.grad for n, p in model.named_parameters()}
+    want[TRAINER_CW] = cw_leaf.grad
+    for schedule in OTHER_SCHEDULES + ("v9",):
+        got, loss = grads[schedule]
+        lines = []
+        if schedule != "v9":
+            ref, ref_loss = grads["v9"]
+            worst, worst_name, outliers, outlier_name = grad_agreement(got, ref)
+            loss_err = ((loss - ref_loss).abs() / ref_loss.abs()).max().item()
+            lines.append((f"card, all {loss.numel()} models, against v9", loss_err, worst,
+                          worst_name, outliers, outlier_name))
+        worst, worst_name, outliers, outlier_name = grad_agreement(
+            {n: got[n][0] for n in want}, want)
+        loss_err = abs(loss[0].item() - cpu_loss.item()) / abs(cpu_loss.item())
+        lines.append(("subject 0 against the CPU plain path", loss_err, worst, worst_name,
+                      outliers, outlier_name))
+        for what, loss_err, worst, worst_name, outliers, outlier_name in lines:
+            print(f"LOSO step gradients under {schedule}, dropout 0, {what}: loss rel "
+                  f"{loss_err:.3e} (limit 1e-4); worst scaled |diff| {worst:.3e} at {worst_name}; "
+                  f"largest share of elements above {GRAD_RTOL}: {outliers:.3e}"
+                  f"{' at ' + outlier_name if outlier_name else ''} (limit {GRAD_OUTLIERS})")
+            check(loss_err <= 1e-4 and outliers <= GRAD_OUTLIERS,
+                  f"LOSO step gradients under {schedule} disagree ({what})")
+
+
+def schedule_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator, cases: dict,
+                          loso_cases: dict) -> None:
+    """Adds the other schedules' six kernels at the LOSO step's S=24 shapes
+    (the fp32 trainer's stacked weights, seeded activations) to
+    ``loso_cases``, and subject 0's share to ``cases``. Call under
+    ``no_grad``."""
+    device = vt.device
+    pd = vt._param_dict(vt.params)
+    s_n = vt.n_subjects
+    randn = lambda *shape: torch.randn(shape, device=device, generator=gen)
+    x = randn(s_n, BATCH, vt.data.arrays["eeg"].shape[2] // 8, pd["eeg_net.temp_conv.6.weight"].shape[1])
+    for k in range(2):
+        part = lambda name, sfx: pd[f"eeg_net.bilstm.{name}_l{k}{sfx}"]
+        w = (torch.stack([part("weight_ih", ""), part("weight_ih", "_reverse")], 1),
+             torch.stack([part("weight_hh", ""), part("weight_hh", "_reverse")], 1),
+             torch.stack([part("bias_ih", "") + part("bias_hh", ""),
+                          part("bias_ih", "_reverse") + part("bias_hh", "_reverse")], 1))
+        h_seq = lstm.bilstm_fwd_plain(x, *w)
+        c_seq = lstm.bilstm_cseq_plain(x, h_seq, *w)
+        xp = lstm._projection(x, w[0], w[2])
+        dh = randn(*h_seq.shape)
+        label = f"layer {k} {tuple(x.shape)}"
+        for name, args in (("bilstm_fwd_xp", (xp, w[1])),
+                           ("bilstm_bwd_xp", (dh, xp, h_seq, c_seq, w[1])),
+                           ("bilstm_cseq", (x, h_seq, *w)),
+                           ("bilstm_bwd_split", (dh, x, h_seq, c_seq, *w)),
+                           ("bilstm_bwdc", (dh, x, h_seq, c_seq, *w)),
+                           ("bilstm_cbndk", (x, h_seq, *w))):
+            fn, plain = getattr(lstm, name), getattr(lstm, name + "_plain")
+            a0 = tuple(a[0] for a in args)
+            loso_cases.setdefault(name, []).append((f"S={s_n} {label}", lambda a=args, f=fn: f(*a),
+                                     lambda a=args, p=plain: p(*a), args))
+            cases[name].append((f"subject 0 of S={s_n} {label}", lambda a=a0, f=fn: f(*a),
+                                lambda a=a0, p=plain: p(*a), a0))
+        x = h_seq
 
 
 def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator,
@@ -1093,14 +1319,26 @@ def operations(name: str, args, res) -> float:
     name = name.removesuffix("_bf16")
     t = tensors(args)
     if name.startswith("bilstm"):
-        x, h_seq = {"bilstm_fwd": (t[0], tensors(res)[0]), "bilstm_cbnd": (t[0], t[1]),
-                    "bilstm_segbwd": (t[1], t[2])}[name]
-        i, h = x.shape[-1], h_seq.shape[-1] // 2
-        steps = 2 * x.numel() // i  # (model,) row, time step, direction
-        # forward: gate products and the cell; backward: the gates rebuilt,
-        # dh through W_hh, dx through W_ih, dW_cat = [x | h | 1]^T dgates
-        return steps * ((24 * h * (i + h) + 20 * h) if name == "bilstm_segbwd"
-                        else (8 * h * (i + h) + 10 * h))
+        # x (or xp), the input rows; the last argument is a bias (4H) or,
+        # for the v5 kernels, W_hh (H)
+        x = t[1] if name in REVERSE_SWEEPS else t[0]
+        xp = name in ("bilstm_fwd_xp", "bilstm_bwd_xp")
+        h = t[-1].shape[-1] if xp else t[-1].shape[-1] // 4
+        i = 0 if xp else x.shape[-1]
+        steps = 2 * x.numel() // x.shape[-1]  # (model,) row, time step, direction
+        # per step: the gate products 8H(I + H) (the v5 kernels take x W_ih^T
+        # from xp: 8H H) and the cell; a reverse sweep adds the dh carry
+        # (8H H) and, with dx and dW_cat = [x | h | 1]^T dgates in the
+        # kernel, 8H I + 8H (I + H). The c rebuilds need only the i, f and g
+        # gates: 6H(I + H), and c = f c + i g
+        gates = 8 * h * (i + h)
+        if name in ("bilstm_cbnd", "bilstm_cbndk", "bilstm_cseq"):
+            return steps * (6 * h * (i + h) + 6 * h)
+        if name in ("bilstm_segbwd", "bilstm_bwdc"):
+            return steps * (3 * gates + 20 * h)
+        if name in ("bilstm_bwd_split", "bilstm_bwd_xp"):
+            return steps * (gates + 8 * h * h + 20 * h)
+        return steps * (gates + 10 * h)
     if name == "stem_tail":  # BN, erf-GELU, dropout, the pool's compare
         return 13 * t[0].numel()
     if name == "stem_tail_bwd":  # BN rebuilt, GELU gradient, dgamma/dbeta sums
@@ -1135,13 +1373,25 @@ def library_call(name: str, args):
     name = name.removesuffix("_bf16")
     t = tensors(args)
     if name.startswith("bilstm"):
+        forward_only = name in ("bilstm_fwd", "bilstm_fwd_xp")
         if name == "bilstm_fwd":
             x = t[0]
             if x.dim() != 3:
                 return None
             w_ih, w_hh, bias = lstm.stack_params(tuple(t[1:5]), tuple(t[5:9]))
+        elif name in ("bilstm_fwd_xp", "bilstm_bwd_xp"):
+            # the LSTM over xp: each direction's W_ih selects its 4H half
+            x, w_hh = (t[0], t[1]) if name == "bilstm_fwd_xp" else (t[1], t[4])
+            if x.dim() != 3:
+                return None
+            g = w_hh.shape[-2]
+            eye, zero = torch.eye(g, device=x.device), torch.zeros(g, g, device=x.device)
+            w_ih = torch.stack([torch.cat([eye, zero], 1), torch.cat([zero, eye], 1)])
+            bias = torch.zeros(2, g, device=x.device)
         else:
-            x, (w_ih, w_hh, bias) = (t[0], t[2:5]) if name == "bilstm_cbnd" else (t[1], t[4:7])
+            x, (w_ih, w_hh, bias) = ((t[0], t[2:5]) if name in ("bilstm_cbnd", "bilstm_cbndk",
+                                                                 "bilstm_cseq")
+                                     else (t[1], t[4:7]))
             if x.dim() != 3:
                 return None
         net = torch.nn.LSTM(x.shape[-1], w_hh.shape[-1], batch_first=True, bidirectional=True,
@@ -1153,9 +1403,9 @@ def library_call(name: str, args):
                 getattr(net, f"bias_ih_l0{sfx}").copy_(bias[d])
                 getattr(net, f"bias_hh_l0{sfx}").zero_()
         net.flatten_parameters()
-        if name == "bilstm_fwd":
+        if forward_only:
             return lambda: net(x)
-        dh = t[0] if name == "bilstm_segbwd" else torch.ones(
+        dh = t[0] if name in REVERSE_SWEEPS else torch.ones(
             *x.shape[:-1], 2 * w_hh.shape[-1], device=x.device, dtype=x.dtype)
 
         def fwd_bwd():
@@ -1296,6 +1546,7 @@ def main() -> int:
 
     model, first, serve_counts, (pool, plan, fp32_logits) = serving_phase(device)
     serve_bf16_counts = serving_bf16_phase(model, pool, plan, fp32_logits)
+    serve_v5_counts = serving_v5_phase(model, pool, plan, fp32_logits)
     full = hci_dataset(device)
     trainer = make_trainer(full)
     train_counts = training_phase(trainer)
@@ -1305,6 +1556,8 @@ def main() -> int:
     vt = make_loso_trainer(full)
     loso = loso_phase(vt)
     loso_step_parity(full)
+    schedule_counts = loso_schedules_phase(full)
+    schedule_gradient_parity(full)
     loso_bf16_counts, vt16 = loso_bf16_phase(full, loso)
     b512_counts = loso_b512_phase(full)
     memhacl_counts, (encoder, projector, classifier), (emotion, train, val) = memhacl_phase(
@@ -1314,14 +1567,19 @@ def main() -> int:
         profile_window("train epoch", lambda: trainer.train_epoch(EPOCHS + 1))
         profile_window("LOSO train epoch", vt.train_epoch, top=30)
         profile_window("LOSO bf16 train epoch", vt16.train_epoch, top=30)
+        for schedule in ("v5", "v6"):  # the schedules that move row 11's dx and dW_cat to GEMMs
+            vts = make_loso_trainer(full, lstm_schedule=schedule)
+            vts.train_epoch()  # warm-up: first launches, cuBLAS handles
+            profile_window(f"LOSO {schedule} train epoch", vts.train_epoch, top=30)
+            del vts
         profile_window("ME-MHACL pretrain epoch", lambda: memhacl_pretrain(
             encoder, projector, emotion, num_epochs=1, batch_size=MEMHACL_BATCH, verbose=False))
         profile_window("ME-MHACL finetune epoch", lambda: memhacl_finetune(
             encoder, None, classifier, train, val, num_epochs=1, batch_size=MEMHACL_BATCH,
             verbose=False), show=("fusion_head",))
 
-    phases = (serve_counts, serve_bf16_counts, train_counts, loso["counts"], loso_bf16_counts,
-              b512_counts, memhacl_counts, attention_counts)
+    phases = (serve_counts, serve_bf16_counts, serve_v5_counts, train_counts, loso["counts"],
+              schedule_counts, loso_bf16_counts, b512_counts, memhacl_counts, attention_counts)
     counts = {name: sum(c[name] for c in phases) for name in KERNELS}
     gen = torch.Generator(device=device).manual_seed(SEED)
     torch.set_grad_enabled(False)  # plain versions must not record autograd graphs
@@ -1329,6 +1587,7 @@ def main() -> int:
     serving_kernel_cases(model, first["eeg"], cases)
     training_kernel_cases(trainer.model, batch, mask, gen, cases)
     loso_cases = loso_kernel_cases(vt, gen)
+    schedule_kernel_cases(vt, gen, cases, loso_cases)
     memhacl_kernel_cases(encoder, classifier, val, cases)
     attention_kernel_cases(mha, x_attn, gen, cases)
     dropout_check(trainer.model, batch, gen)

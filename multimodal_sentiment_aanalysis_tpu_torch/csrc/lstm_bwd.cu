@@ -6,6 +6,22 @@
 //   msa_bilstm_segbwd (b) reverse sweep over K-step segments, replaces
 //                     ::_segbwd_kernel
 //
+// and, fp32 only, the JAX package's other backward schedules (v5, v6, v8,
+// v9.1), each an entry point of its own:
+//
+//   msa_bilstm_cseq      the full fp32 c_seq (S, 2, T, B, H): (a) at K = 1,
+//                        replaces ::_cseq_kernel (v8, v6)
+//   msa_bilstm_bwdc      (b) at K = 1, reading c_prev from that full c_seq
+//                        (v8), replaces ::_bwd_bwdc_kernel
+//   msa_bilstm_bwd_split per-step reverse sweep that emits the packed gate
+//                        gradients dxp (S, B, T, 8H) (v6), replaces
+//                        ::_bwd_xproj_kernel
+//   msa_bilstm_bwd_xp    the same sweep with the gate pre-activation read
+//                        from the v5 projection xp instead of x . W_ih^T + b
+//                        (v5), replaces ::_bwd_kernel
+//   msa_bilstm_cbndk     (a) with the gate products of KC time rows batched
+//                        per block (v9.1), replaces ::_cbndk_kernel
+//
 // The forward (lstm_fwd.cu) stores only h_seq. The gates at actual time a
 // depend only on x_a and the stored h_prev (h at the previous recurrence
 // step), so c is rebuilt from them: (a) walks each direction in recurrence
@@ -372,6 +388,280 @@ bilstm_segbwd_kernel(const E* __restrict__ dh_seq,     // (S, B, T, 2H)
     }
 }
 
+// The v5 and v6 reverse sweep (fp32): one block per (batch tile of kBt rows,
+// direction, model), 4H threads, the steps in reverse recurrence order. Per
+// step: the gates from the pre-activation (kXp: xp[b, a, d*4H + g]; else
+// x_a . W_ih^T + b, x staged in shared memory) plus h_prev . W_hh^T, thread
+// g owning gate column g; the cell's backward with c_cur and c_prev read from
+// the full c_seq (zero before the first recurrence step); dgates written to
+// dxp; the dh carry dgates . W_hh in four gate quarters summed in a fixed
+// order, as in (b). dx, dW and db are reductions of dxp outside the kernel,
+// as in the JAX package. What bounds it: T dependent steps per direction,
+// each with two small products against weights streamed from L2 (three
+// without kXp), and the dxp write of 8H fp32 per (row, step): 4x x's bytes.
+template <bool kXp>
+__global__ void __maxnreg__(kSegMaxRegs)
+bilstm_bwd_step_kernel(const float* __restrict__ dh_seq,  // (S, B, T, 2H)
+                       const float* __restrict__ xin,     // kXp: xp (S, B, T, 8H); x (S, B, T, I)
+                       const float* __restrict__ h_seq,   // (S, B, T, 2H)
+                       const float* __restrict__ c_seq,   // (S, 2, T, B, H)
+                       const float* __restrict__ w_ih_t,  // (S, 2, I, 4H), not read if kXp
+                       const float* __restrict__ w_hh_t,  // (S, 2, H, 4H)
+                       const float* __restrict__ w_hh,    // (S, 2, 4H, H)
+                       const float* __restrict__ bias,    // (S, 2, 4H), not read if kXp
+                       float* __restrict__ dxp,           // (S, B, T, 8H)
+                       int B, int T, int I, int H) {
+    extern __shared__ float smem[];
+    const int G = 4 * H;
+    const int xw = kXp ? 2 * G : I;  // row width of xin
+    const size_t model = blockIdx.z;
+    const int d = blockIdx.y;
+    const int b0 = blockIdx.x * kBt;
+    const int tid = threadIdx.x;
+    dh_seq += model * B * T * 2 * H;
+    xin += model * B * T * xw;
+    h_seq += model * B * T * 2 * H;
+    c_seq += (model * 2 + d) * T * B * H;
+    const float* wh_t = w_hh_t + (model * 2 + d) * H * G;
+    const float* wh = w_hh + (model * 2 + d) * G * H;
+    dxp += model * B * T * 2 * G;
+    const float* wi_t = nullptr;
+    float bg = 0.0f;
+    if constexpr (!kXp) {
+        wi_t = w_ih_t + (model * 2 + d) * I * G;
+        bg = bias[(model * 2 + d) * G + tid];
+    }
+    const int rowsz = kBt * H;
+    float* xs = smem;                         // (kBt, I): x_a (not kXp)
+    float* hps = xs + (kXp ? 0 : kBt * I);    // (kBt, H): h_prev
+    float* acts = hps + rowsz;                // (kBt, G): i, f, g, o; then dgates
+    float* dhc = acts + kBt * G;              // (kBt, H): dh carried into the step
+    float* red = dhc + rowsz;                 // (4, kBt, H): dh carry partials per quarter
+    const int gate_kind = tid / H;            // 0 i, 1 f, 2 g, 3 o
+
+    for (int idx = tid; idx < rowsz; idx += G) dhc[idx] = 0.0f;
+    float dcc[2] = {0.0f, 0.0f};  // dc carry of this thread's two cells
+
+    for (int tau = T - 1; tau >= 0; --tau) {  // recurrence step, last first
+        const int a = d == 0 ? tau : T - 1 - tau;  // its actual time
+        const int ap = d == 0 ? a - 1 : a + 1;     // actual time of h_prev, c_prev
+        const bool first = tau == 0;               // no previous state
+        if constexpr (!kXp) {
+            for (int idx = tid; idx < kBt * I; idx += G) {
+                const int row = idx / I;
+                const int b = b0 + row;
+                xs[idx] = b < B ? xin[(static_cast<size_t>(b) * T + a) * I + (idx - row * I)] : 0.0f;
+            }
+        }
+        for (int idx = tid; idx < rowsz; idx += G) {
+            const int row = idx / H;
+            const int b = b0 + row;
+            hps[idx] = (!first && b < B)
+                           ? h_seq[(static_cast<size_t>(b) * T + ap) * 2 * H + d * H + (idx - row * H)]
+                           : 0.0f;
+        }
+        __syncthreads();
+
+        // gate activations; thread tid owns gate column tid
+        float acc[kBt];
+        if constexpr (kXp) {
+#pragma unroll
+            for (int row = 0; row < kBt; ++row) {
+                const int b = b0 + row;
+                acc[row] = b < B ? xin[(static_cast<size_t>(b) * T + a) * xw + d * G + tid] : 0.0f;
+            }
+        } else {
+#pragma unroll
+            for (int row = 0; row < kBt; ++row) acc[row] = bg;
+            for (int k = 0; k < I; ++k) {
+                const float w = wi_t[static_cast<size_t>(k) * G + tid];
+#pragma unroll
+                for (int row = 0; row < kBt; ++row) acc[row] = fmaf(xs[row * I + k], w, acc[row]);
+            }
+        }
+        for (int k = 0; k < H; ++k) {
+            const float w = wh_t[static_cast<size_t>(k) * G + tid];
+#pragma unroll
+            for (int row = 0; row < kBt; ++row) acc[row] = fmaf(hps[row * H + k], w, acc[row]);
+        }
+#pragma unroll
+        for (int row = 0; row < kBt; ++row)
+            acts[row * G + tid] = gate_kind == 2 ? tanhf(acc[row]) : sigmoid_f(acc[row]);
+        __syncthreads();
+
+        // the cell's backward; this thread's two (row, unit) cells
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+            const int cell = tid + q * G;
+            const int row = cell / H;
+            const int j = cell - row * H;
+            const int b = b0 + row;
+            float* ar = acts + row * G;
+            const float ig = ar[j], fg = ar[H + j], gg = ar[2 * H + j], og = ar[3 * H + j];
+            const bool real = b < B;
+            const float c = real ? c_seq[(static_cast<size_t>(a) * B + b) * H + j] : 0.0f;
+            const float cp = (real && !first) ? c_seq[(static_cast<size_t>(ap) * B + b) * H + j] : 0.0f;
+            const float dh = dhc[cell] +
+                (real ? dh_seq[(static_cast<size_t>(b) * T + a) * 2 * H + d * H + j] : 0.0f);
+            const float tc = tanhf(c);
+            const float dc = dcc[q] + dh * og * (1.0f - tc * tc);
+            const float di = dc * gg * ig * (1.0f - ig);
+            const float df = dc * cp * fg * (1.0f - fg);
+            const float dg = dc * ig * (1.0f - gg * gg);
+            const float d_o = dh * tc * og * (1.0f - og);
+            ar[j] = di;
+            ar[H + j] = df;
+            ar[2 * H + j] = dg;
+            ar[3 * H + j] = d_o;
+            dcc[q] = dc * fg;
+            if (real) {
+                float* out = dxp + (static_cast<size_t>(b) * T + a) * 2 * G + d * G;
+                out[j] = di;
+                out[H + j] = df;
+                out[2 * H + j] = dg;
+                out[3 * H + j] = d_o;
+            }
+        }
+        __syncthreads();
+        {  // dh carry: quarter qq of the gates, output unit k, all kBt rows
+            const int qq = tid / H;
+            const int k = tid - qq * H;
+            float part[kBt];
+#pragma unroll
+            for (int row = 0; row < kBt; ++row) part[row] = 0.0f;
+            for (int gl = qq * H; gl < (qq + 1) * H; ++gl) {
+                const float w = wh[static_cast<size_t>(gl) * H + k];
+#pragma unroll
+                for (int row = 0; row < kBt; ++row) part[row] = fmaf(acts[row * G + gl], w, part[row]);
+            }
+#pragma unroll
+            for (int row = 0; row < kBt; ++row) red[(qq * kBt + row) * H + k] = part[row];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+            const int cell = tid + q * G;
+            dhc[cell] = ((red[cell] + red[rowsz + cell]) + red[2 * rowsz + cell]) + red[3 * rowsz + cell];
+        }
+    }
+}
+
+// (a) with its gate products batched over kCbndkRows time rows (v9.1): per
+// block of KC actual-time rows, visited in recurrence order, thread g < 3H
+// computes gate column g (i, f or g; o is not needed for c) of all KC x kBt
+// rows at once, so each weight it loads from L2 feeds KC x kBt multiply-adds
+// instead of kBt; then each thread walks its two cells' c carry through the
+// block's real rows and stores the checkpoints as (a) does. The last block is
+// partial where KC does not divide T: its rows past T are zeros in shared
+// memory and skipped by the carry. Shared memory: KC * kBt * (I + H + 3H)
+// floats, 196,608 bytes at I = 256, H = 128, KC = 8.
+constexpr int kCbndkRows = 8;  // KC, a multiple of the segment length K
+
+__global__ void __maxnreg__(kSegMaxRegs)
+bilstm_cbndk_kernel(const float* __restrict__ x,       // (S, B, T, I)
+                    const float* __restrict__ h_seq,   // (S, B, T, 2H)
+                    const float* __restrict__ w_ih_t,  // (S, 2, I, 4H)
+                    const float* __restrict__ w_hh_t,  // (S, 2, H, 4H)
+                    const float* __restrict__ bias,    // (S, 2, 4H)
+                    float* __restrict__ c_bnd,         // (S, 2, NSEG, B, H)
+                    int B, int T, int I, int H, int K, int nseg) {
+    constexpr int KC = kCbndkRows;
+    extern __shared__ float smem[];
+    const int G = 4 * H;
+    const int G3 = 3 * H;
+    const size_t model = blockIdx.z;
+    const int d = blockIdx.y;
+    const int b0 = blockIdx.x * kBt;
+    const int tid = threadIdx.x;
+    x += model * B * T * I;
+    h_seq += model * B * T * 2 * H;
+    const float* wi = w_ih_t + (model * 2 + d) * I * G;
+    const float* wh = w_hh_t + (model * 2 + d) * H * G;
+    c_bnd += (model * 2 + d) * nseg * B * H;
+    float* xs = smem;                  // (KC, kBt, I)
+    float* hs = xs + KC * kBt * I;     // (KC, kBt, H): h_prev of each row
+    float* gs = hs + KC * kBt * H;     // (KC, kBt, 3H): i, f, g activations
+    const float bg = tid < G3 ? bias[(model * 2 + d) * G + tid] : 0.0f;
+    const int nt = (T + KC - 1) / KC;
+    float c[2] = {0.0f, 0.0f};
+
+    for (int gi = 0; gi < nt; ++gi) {
+        const int m = d == 0 ? gi : nt - 1 - gi;  // block, in recurrence order
+        const int a_lo = m * KC;
+        __syncthreads();  // the previous block's readers are done with smem
+        for (int idx = tid; idx < KC * kBt * I; idx += G) {
+            const int r = idx / (kBt * I);
+            const int rem = idx - r * kBt * I;
+            const int row = rem / I;
+            const int a = a_lo + r;
+            const int b = b0 + row;
+            xs[idx] = (a < T && b < B) ? x[(static_cast<size_t>(b) * T + a) * I + (rem - row * I)]
+                                       : 0.0f;
+        }
+        for (int idx = tid; idx < KC * kBt * H; idx += G) {
+            const int r = idx / (kBt * H);
+            const int rem = idx - r * kBt * H;
+            const int row = rem / H;
+            const int a = a_lo + r;
+            const int ap = d == 0 ? a - 1 : a + 1;
+            const int b = b0 + row;
+            hs[idx] = (a < T && ap >= 0 && ap < T && b < B)
+                          ? h_seq[(static_cast<size_t>(b) * T + ap) * 2 * H + d * H + (rem - row * H)]
+                          : 0.0f;
+        }
+        __syncthreads();
+
+        if (tid < G3) {  // gate column tid of every row of the block
+            float acc[KC][kBt];
+#pragma unroll
+            for (int r = 0; r < KC; ++r)
+#pragma unroll
+                for (int row = 0; row < kBt; ++row) acc[r][row] = bg;
+            for (int k = 0; k < I; ++k) {
+                const float w = wi[static_cast<size_t>(k) * G + tid];
+#pragma unroll
+                for (int r = 0; r < KC; ++r)
+#pragma unroll
+                    for (int row = 0; row < kBt; ++row)
+                        acc[r][row] = fmaf(xs[(r * kBt + row) * I + k], w, acc[r][row]);
+            }
+            for (int k = 0; k < H; ++k) {
+                const float w = wh[static_cast<size_t>(k) * G + tid];
+#pragma unroll
+                for (int r = 0; r < KC; ++r)
+#pragma unroll
+                    for (int row = 0; row < kBt; ++row)
+                        acc[r][row] = fmaf(hs[(r * kBt + row) * H + k], w, acc[r][row]);
+            }
+#pragma unroll
+            for (int r = 0; r < KC; ++r)
+#pragma unroll
+                for (int row = 0; row < kBt; ++row)
+                    gs[(r * kBt + row) * G3 + tid] =
+                        tid >= 2 * H ? tanhf(acc[r][row]) : sigmoid_f(acc[r][row]);
+        }
+        __syncthreads();
+
+        // the c carry through the block's real rows, in recurrence order
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+            const int cell = tid + q * G;
+            const int row = cell / H;
+            const int j = cell - row * H;
+            const int b = b0 + row;
+            for (int rr = 0; rr < KC; ++rr) {
+                const int r = d == 0 ? rr : KC - 1 - rr;
+                const int a = a_lo + r;
+                if (a >= T) continue;
+                const float* gr = gs + (r * kBt + row) * G3;
+                c[q] = gr[H + j] * c[q] + gr[j] * gr[2 * H + j];
+                const bool boundary = d == 0 ? a % K == K - 1 : a % K == 0;
+                if (boundary && b < B) c_bnd[(static_cast<size_t>(a / K) * B + b) * H + j] = c[q];
+            }
+        }
+    }
+}
+
 template <typename E>
 int launch_cbnd(const E* x, const E* h_seq, const E* w_ih_t, const E* w_hh_t, const E* bias,
                 float* c_bnd, int S, int B, int T, int I, int H, int K, int device,
@@ -438,4 +728,79 @@ extern "C" int msa_bilstm_segbwd_bf16(const bf16* dh_seq, const bf16* x, const b
                                       int H, int K, int device, void* stream) {
     return launch_segbwd(dh_seq, x, h_seq, c_bnd, w_ih_t, w_hh_t, w_ih, w_hh, bias, dx_pk,
                          dw_part, S, B, T, I, H, K, device, stream);
+}
+
+// ---- the other schedules' entry points (fp32) ----
+
+// v8/v6: the full c_seq (S, 2, T, B, H): the checkpoint sweep at K = 1, whose
+// slot t is actual time t in both directions
+extern "C" int msa_bilstm_cseq(const float* x, const float* h_seq, const float* w_ih_t,
+                               const float* w_hh_t, const float* bias, float* c_seq, int S,
+                               int B, int T, int I, int H, int device, void* stream) {
+    return launch_cbnd(x, h_seq, w_ih_t, w_hh_t, bias, c_seq, S, B, T, I, H, 1, device, stream);
+}
+
+// v8: the reverse sweep at K = 1 over that full c_seq: each one-row block's
+// entry checkpoint is c_prev, and c is rebuilt from it as the forward built it
+extern "C" int msa_bilstm_bwdc(const float* dh_seq, const float* x, const float* h_seq,
+                               const float* c_seq, const float* w_ih_t, const float* w_hh_t,
+                               const float* w_ih, const float* w_hh, const float* bias,
+                               float* dx_pk, float* dw_part, int S, int B, int T, int I, int H,
+                               int device, void* stream) {
+    return launch_segbwd(dh_seq, x, h_seq, c_seq, w_ih_t, w_hh_t, w_ih, w_hh, bias, dx_pk,
+                         dw_part, S, B, T, I, H, 1, device, stream);
+}
+
+namespace {
+
+template <bool kXp>
+int launch_bwd_step(const float* dh_seq, const float* xin, const float* h_seq,
+                    const float* c_seq, const float* w_ih_t, const float* w_hh_t,
+                    const float* w_hh, const float* bias, float* dxp, int S, int B, int T, int I,
+                    int H, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const size_t smem = sizeof(float) * kBt * ((kXp ? 0 : I) + 6 * H + 4 * H);
+    err = allow_dynamic_smem(bilstm_bwd_step_kernel<kXp>, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((B + kBt - 1) / kBt, 2, S);
+    bilstm_bwd_step_kernel<kXp><<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+        dh_seq, xin, h_seq, c_seq, w_ih_t, w_hh_t, w_hh, bias, dxp, B, T, I, H);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+// v6: dxp (S, B, T, 8H) from x, h_seq and the full c_seq
+extern "C" int msa_bilstm_bwd_split(const float* dh_seq, const float* x, const float* h_seq,
+                                    const float* c_seq, const float* w_ih_t, const float* w_hh_t,
+                                    const float* w_hh, const float* bias, float* dxp, int S, int B,
+                                    int T, int I, int H, int device, void* stream) {
+    return launch_bwd_step<false>(dh_seq, x, h_seq, c_seq, w_ih_t, w_hh_t, w_hh, bias, dxp, S, B,
+                                  T, I, H, device, stream);
+}
+
+// v5: dxp (S, B, T, 8H) from xp (S, B, T, 8H), h_seq and the forward's c_seq
+extern "C" int msa_bilstm_bwd_xp(const float* dh_seq, const float* xp, const float* h_seq,
+                                 const float* c_seq, const float* w_hh_t, const float* w_hh,
+                                 float* dxp, int S, int B, int T, int H, int device,
+                                 void* stream) {
+    return launch_bwd_step<true>(dh_seq, xp, h_seq, c_seq, nullptr, w_hh_t, w_hh, nullptr, dxp, S,
+                                 B, T, 0, H, device, stream);
+}
+
+// v9.1: the checkpoints of msa_bilstm_cbnd, KC = kCbndkRows rows per block
+extern "C" int msa_bilstm_cbndk(const float* x, const float* h_seq, const float* w_ih_t,
+                                const float* w_hh_t, const float* bias, float* c_bnd, int S,
+                                int B, int T, int I, int H, int K, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const size_t smem = sizeof(float) * kCbndkRows * kBt * (I + 4 * H);
+    err = allow_dynamic_smem(bilstm_cbndk_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const int nseg = (T + K - 1) / K;
+    const dim3 grid((B + kBt - 1) / kBt, 2, S);
+    bilstm_cbndk_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+        x, h_seq, w_ih_t, w_hh_t, bias, c_bnd, B, T, I, H, K, nseg);
+    return cudaGetLastError();
 }

@@ -33,6 +33,15 @@
 // c lives in registers. A cluster that splits the gate columns over SMs and
 // exchanges h through DSMEM, or bf16 weights resident in shared memory, is
 // later work.
+//
+// msa_bilstm_fwd_xp, the same body with the input product taken out (kXp),
+// replaces ::_fwd_kernel (the v5 forward): the gate pre-activation of step t
+// is xp[b, t, d*4H + g], a projection x . W_ih^T + b made by one matmul
+// outside the kernel, packed [fwd | bwd] along the last axis with both
+// halves in actual time; and c is stored in fp32 beside h, into
+// c_seq (S, 2, T, B, H), for the v5 backward (lstm_bwd.cu). Only h . W_hh^T
+// stays in the step: a quarter of the forward's gate products at I = 2H,
+// but xp is 4x the bytes of x. fp32 only.
 
 #include "common.cuh"
 
@@ -40,51 +49,70 @@ namespace {
 
 constexpr int kBt = 8;  // batch rows per block; kBt * H == 2 * (4H threads)
 
-template <typename E>
+// kXp: x is xp (S, B, T, 8H) and I is unused (w_ih_t and bias may be null);
+// c is written to c_seq (S, 2, T, B, H). Otherwise c_seq is unused.
+template <typename E, bool kXp>
 __global__ void bilstm_fwd_kernel(const E* __restrict__ x,       // (S, B, T, I)
                                   const E* __restrict__ w_ih_t,  // (S, 2, I, 4H)
                                   const E* __restrict__ w_hh_t,  // (S, 2, H, 4H)
                                   const E* __restrict__ bias,    // (S, 2, 4H)
                                   E* __restrict__ h_seq,         // (S, B, T, 2H)
+                                  float* __restrict__ c_seq,     // (S, 2, T, B, H)
                                   int B, int T, int I, int H) {
     extern __shared__ float smem[];
     const int G = 4 * H;
+    const int xw = kXp ? 2 * G : I;  // row width of x
     const size_t model = blockIdx.z;
-    x += model * B * T * I;
-    w_ih_t += model * 2 * I * G;
+    x += model * B * T * xw;
     w_hh_t += model * 2 * H * G;
-    bias += model * 2 * G;
     h_seq += model * B * T * 2 * H;
-    float* xs = smem;           // (kBt, I): x_t of this tile
-    float* hs = xs + kBt * I;   // (kBt, H): h_{t-1}
-    float* gs = hs + kBt * H;   // (kBt, G): gate pre-activations
+    float* xs = smem;                     // (kBt, I): x_t of this tile (not kXp)
+    float* hs = xs + (kXp ? 0 : kBt * I);  // (kBt, H): h_{t-1}
+    float* gs = hs + kBt * H;             // (kBt, G): gate pre-activations
 
     const int d = blockIdx.y;
     const int b0 = blockIdx.x * kBt;
     const int g = threadIdx.x;
-    const E* wi = w_ih_t + static_cast<size_t>(d) * I * G;
     const E* wh = w_hh_t + static_cast<size_t>(d) * H * G;
-    const float bg = to_float(bias[d * G + g]);
+    const E* wi = nullptr;
+    float bg = 0.0f;
+    if constexpr (kXp) {
+        c_seq += (model * 2 + d) * T * B * H;
+    } else {
+        w_ih_t += model * 2 * I * G;
+        bias += model * 2 * G;
+        wi = w_ih_t + static_cast<size_t>(d) * I * G;
+        bg = to_float(bias[d * G + g]);
+    }
 
     for (int idx = g; idx < kBt * H; idx += G) hs[idx] = 0.0f;
+    if constexpr (kXp) __syncthreads();  // no x staging barrier ahead of the first step
     float c[2] = {0.0f, 0.0f};
 
     for (int s = 0; s < T; ++s) {
         const int t = d == 0 ? s : T - 1 - s;
-        for (int idx = g; idx < kBt * I; idx += G) {
-            const int r = idx / I;
-            const int b = b0 + r;
-            xs[idx] = b < B ? to_float(x[(static_cast<size_t>(b) * T + t) * I + (idx - r * I)]) : 0.0f;
-        }
-        __syncthreads();
-
         float acc[kBt];
+        if constexpr (kXp) {
 #pragma unroll
-        for (int r = 0; r < kBt; ++r) acc[r] = bg;
-        for (int k = 0; k < I; ++k) {
-            const float w = to_float(wi[static_cast<size_t>(k) * G + g]);
+            for (int r = 0; r < kBt; ++r) {
+                const int b = b0 + r;
+                acc[r] = b < B ? to_float(x[(static_cast<size_t>(b) * T + t) * xw + d * G + g]) : 0.0f;
+            }
+        } else {
+            for (int idx = g; idx < kBt * I; idx += G) {
+                const int r = idx / I;
+                const int b = b0 + r;
+                xs[idx] = b < B ? to_float(x[(static_cast<size_t>(b) * T + t) * I + (idx - r * I)]) : 0.0f;
+            }
+            __syncthreads();
+
 #pragma unroll
-            for (int r = 0; r < kBt; ++r) acc[r] = fmaf(xs[r * I + k], w, acc[r]);
+            for (int r = 0; r < kBt; ++r) acc[r] = bg;
+            for (int k = 0; k < I; ++k) {
+                const float w = to_float(wi[static_cast<size_t>(k) * G + g]);
+#pragma unroll
+                for (int r = 0; r < kBt; ++r) acc[r] = fmaf(xs[r * I + k], w, acc[r]);
+            }
         }
         for (int k = 0; k < H; ++k) {
             const float w = to_float(wh[static_cast<size_t>(k) * G + g]);
@@ -109,23 +137,26 @@ __global__ void bilstm_fwd_kernel(const E* __restrict__ x,       // (S, B, T, I)
             const float h = og * tanhf(c[q]);
             hs[r * H + j] = h;
             const int b = b0 + r;
-            if (b < B) h_seq[(static_cast<size_t>(b) * T + t) * 2 * H + d * H + j] = from_float<E>(h);
+            if (b < B) {
+                h_seq[(static_cast<size_t>(b) * T + t) * 2 * H + d * H + j] = from_float<E>(h);
+                if constexpr (kXp) c_seq[(static_cast<size_t>(t) * B + b) * H + j] = c[q];
+            }
         }
         __syncthreads();
     }
 }
 
-template <typename E>
-int launch_fwd(const E* x, const E* w_ih_t, const E* w_hh_t, const E* bias, E* h_seq, int S,
-               int B, int T, int I, int H, int device, void* stream) {
+template <typename E, bool kXp>
+int launch_fwd(const E* x, const E* w_ih_t, const E* w_hh_t, const E* bias, E* h_seq,
+               float* c_seq, int S, int B, int T, int I, int H, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
-    const size_t smem = sizeof(float) * kBt * (I + H + 4 * H);
-    err = allow_dynamic_smem(bilstm_fwd_kernel<E>, smem);
+    const size_t smem = sizeof(float) * kBt * ((kXp ? 0 : I) + H + 4 * H);
+    err = allow_dynamic_smem(bilstm_fwd_kernel<E, kXp>, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((B + kBt - 1) / kBt, 2, S);
-    bilstm_fwd_kernel<E><<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-        x, w_ih_t, w_hh_t, bias, h_seq, B, T, I, H);
+    bilstm_fwd_kernel<E, kXp><<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+        x, w_ih_t, w_hh_t, bias, h_seq, c_seq, B, T, I, H);
     return cudaGetLastError();
 }
 
@@ -134,12 +165,23 @@ int launch_fwd(const E* x, const E* w_ih_t, const E* w_hh_t, const E* bias, E* h
 extern "C" int msa_bilstm_fwd(const float* x, const float* w_ih_t, const float* w_hh_t,
                               const float* bias, float* h_seq, int S, int B, int T, int I,
                               int H, int device, void* stream) {
-    return launch_fwd(x, w_ih_t, w_hh_t, bias, h_seq, S, B, T, I, H, device, stream);
+    return launch_fwd<float, false>(x, w_ih_t, w_hh_t, bias, h_seq, nullptr, S, B, T, I, H,
+                                    device, stream);
 }
 
 extern "C" int msa_bilstm_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w_ih_t,
                                    const __nv_bfloat16* w_hh_t, const __nv_bfloat16* bias,
                                    __nv_bfloat16* h_seq, int S, int B, int T, int I, int H,
                                    int device, void* stream) {
-    return launch_fwd(x, w_ih_t, w_hh_t, bias, h_seq, S, B, T, I, H, device, stream);
+    return launch_fwd<__nv_bfloat16, false>(x, w_ih_t, w_hh_t, bias, h_seq, nullptr, S, B, T, I,
+                                            H, device, stream);
+}
+
+// v5 forward: xp (S, B, T, 8H) packed [fwd | bwd] in actual time, W_hh^T
+// (S, 2, H, 4H) -> h_seq (S, B, T, 2H), c_seq (S, 2, T, B, H), fp32
+extern "C" int msa_bilstm_fwd_xp(const float* xp, const float* w_hh_t, float* h_seq,
+                                 float* c_seq, int S, int B, int T, int H, int device,
+                                 void* stream) {
+    return launch_fwd<float, true>(xp, nullptr, w_hh_t, nullptr, h_seq, c_seq, S, B, T, 0, H,
+                                   device, stream);
 }

@@ -39,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.conv_stem import fold_bn, fused_conv_bn_gelu_pool, gelu_max_pool
+from ..kernels.lstm import check_schedule
 from ..models.layers import gelu, make_sincos_pe
 from ..ops.rnn import bilstm_layer
 
@@ -85,7 +86,8 @@ def _run_trunk(layers: list, x: torch.Tensor) -> torch.Tensor:
 
 def build_serving_forward(state_or_model: nn.Module | Mapping[str, torch.Tensor],
                           feat_dim: int = 256, use_pallas: bool = False,
-                          compute_dtype: torch.dtype | None = None) -> Forward:
+                          compute_dtype: torch.dtype | None = None,
+                          lstm_schedule: str = "v9") -> Forward:
     """Eval forward ``(eeg, eye, pps) -> (arousal, valence)`` from a
     :class:`..models.MultimodalTransformerModel` or its ``state_dict``.
 
@@ -93,7 +95,11 @@ def build_serving_forward(state_or_model: nn.Module | Mapping[str, torch.Tensor]
     runs both EEG conv stages through the fused conv-stem kernel (fp32
     only). ``compute_dtype`` is the dtype the forward computes in (the
     weights' when None); the logits are fp32 when it is given.
+    ``lstm_schedule`` is the BiLSTM's kernel schedule
+    (:data:`..kernels.lstm.SCHEDULES`); under ``no_grad`` only v5's forward
+    differs from the others'.
     """
+    check_schedule(lstm_schedule, compute_dtype or torch.float32)
     if use_pallas and compute_dtype not in (None, torch.float32):
         raise ValueError(
             f"use_pallas=True serves fp32 only, not {compute_dtype}: the fused conv-stem "
@@ -138,7 +144,7 @@ def build_serving_forward(state_or_model: nn.Module | Mapping[str, torch.Tensor]
         freq = F.linear(gelu(F.linear(eeg.mean(dim=1), *_linear(sd, "eeg_net.freq_branch.0"))),
                         *_linear(sd, "eeg_net.freq_branch.2"))
         for fwd, bwd in lstm_layers:
-            h = bilstm_layer(h, fwd, bwd)
+            h = bilstm_layer(h, fwd, bwd, lstm_schedule)
         fused = F.linear(torch.cat([h.mean(dim=1), freq], dim=1),
                          *_linear(sd, "eeg_net.fusion.0"))
         return gelu(_ln(sd, "eeg_net.fusion.1", fused))

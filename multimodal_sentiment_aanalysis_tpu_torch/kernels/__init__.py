@@ -25,6 +25,13 @@ kernel it replaces.
   ``kernels/attention.py::_bwd_dkv_kernel``
 - ``fusion_head``: ``fusion_head.fusion_head``, ``csrc/fusion_head.cu``,
   ``kernels/fusion_head.py::_kernel``
+- the BiLSTM's other schedules (``lstm.fused_bilstm_layer(schedule=)``),
+  fp32 only: ``bilstm_fwd_xp`` (``csrc/lstm_fwd.cu``, ``kernels/lstm.py::
+  _fwd_kernel``), ``bilstm_bwd_xp`` (``::_bwd_kernel``), ``bilstm_cseq``
+  (``::_cseq_kernel``), ``bilstm_bwd_split`` (``::_bwd_xproj_kernel``),
+  ``bilstm_bwdc`` (``::_bwd_bwdc_kernel``), ``bilstm_cbndk``
+  (``::_cbndk_kernel``); each ``lstm.<name>``, the last five in
+  ``csrc/lstm_bwd.cu``
 
 The first six also have a bf16 form, a second C entry point of the same
 source with the suffix ``_bf16`` and its own counter (``bilstm_fwd_bf16``,
@@ -57,6 +64,12 @@ KERNELS = {
     "flash_bwd_dq": attention.DQ_KERNEL,
     "flash_bwd_dkv": attention.DKV_KERNEL,
     "fusion_head": fusion_head.KERNEL,
+    "bilstm_fwd_xp": lstm.FWD_XP_KERNEL,
+    "bilstm_bwd_xp": lstm.BWD_XP_KERNEL,
+    "bilstm_cseq": lstm.CSEQ_KERNEL,
+    "bilstm_bwd_split": lstm.BWD_SPLIT_KERNEL,
+    "bilstm_bwdc": lstm.BWDC_KERNEL,
+    "bilstm_cbndk": lstm.CBNDK_KERNEL,
 }
 
 

@@ -15,6 +15,28 @@ weights in, ``(B, T, 2H)`` out in ``[fwd | bwd]`` order) and is a
   (``_segbwd_kernel``: the reverse sweep over K-step segments, emitting dx
   per direction and ``dW_cat = [x | h_prev | 1]^T dgates``).
 
+``schedule=`` picks one of the JAX package's five BiLSTM schedules, which
+it reaches through process-wide switches (``MSA_LSTM_XPROJ``,
+``MSA_LSTM_BWDC``, ``MSA_LSTM_SEGBWD``, ``MSA_LSTM_CBNDK``); all compute
+the same function:
+
+======== ============================================ =====================================================
+schedule forward                                      backward
+======== ============================================ =====================================================
+``v9``   :func:`bilstm_fwd`                           :func:`bilstm_cbnd`, :func:`bilstm_segbwd`
+``v9.1`` :func:`bilstm_fwd`                           :func:`bilstm_cbndk` (``_cbndk_kernel``), :func:`bilstm_segbwd`
+``v8``   :func:`bilstm_fwd`                           :func:`bilstm_cseq` (``_cseq_kernel``), :func:`bilstm_bwdc` (``_bwd_bwdc_kernel``)
+``v6``   :func:`bilstm_fwd`                           :func:`bilstm_cseq`, :func:`bilstm_bwd_split` (``_bwd_xproj_kernel``), then dx, dW, db from ``dxp`` by ``einsum``
+``v5``   ``xp = x W_cat^T + b_cat`` by ``matmul``,    :func:`bilstm_bwd_xp` (``_bwd_kernel``), then dW_hh from ``dxp`` by ``einsum``;
+         then :func:`bilstm_fwd_xp` (``_fwd_kernel``) autograd takes ``dxp`` through the projection
+======== ============================================ =====================================================
+
+The schedules other than v9 take fp32 only (``TypeError`` otherwise).
+The JAX package's "v7" (``MSA_LSTM_BWDC=1, MSA_LSTM_SEGBWD=0``) runs the
+v8 kernels. The full fp32 cell state of v8, v6 and v5 is ``c_seq (2, T,
+B, H)``, and their packed gate gradients ``dxp (B, T, 8H)`` are ``[fwd |
+bwd]`` in actual time, the gradient of ``xp``.
+
 The port's layouts keep the batch first: ``x (B, T, I)``, ``h_seq
 (B, T, 2H)``, checkpoints ``(2, NSEG, B, H)`` (direction, slot, batch,
 unit), dx halves ``(2, B, T, I)``, ``dW_cat (2, I + H + 1, 4H)``. Stacked
@@ -23,13 +45,13 @@ weights are ``w_ih (2, 4H, I)``, ``w_hh (2, 4H, H)`` and ``bias (2, 4H)``
 
 Every kernel and plain version also takes a leading model axis S on all of
 these (``x (S, B, T, I)``, ``w_ih (S, 2, 4H, I)``, ...): one launch covers
-all S models. Under ``torch.func.vmap`` (the LOSO trainer) the three
+all S models. Under ``torch.func.vmap`` (the LOSO trainer) the
 Functions' ``vmap`` rules make that one S-wide launch; the backward runs
-under ``vmap`` too, so the two backward kernels are Functions of their own.
+under ``vmap`` too, so each backward kernel is a Function of its own.
 A CPU tensor takes the plain versions, a CUDA tensor launches the kernel or
 raises.
 
-Every kernel has an fp32 and a bf16 form, chosen by the dtype of ``x``
+The v9 kernels have an fp32 and a bf16 form, chosen by the dtype of ``x``
 (the weights and ``h_seq``/``dh_seq`` must share it; fp16 raises
 ``TypeError``). As in the JAX kernels, the bf16 form reads bf16 and does
 all arithmetic in fp32: ``h`` and ``c`` are carried in fp32, ``h_seq`` is
@@ -45,8 +67,8 @@ import ctypes
 
 import torch
 
-from ._build import (F32, F32_BF16, MAX_MODELS, check_cuda, kernel_forms, models_first, ptr,
-                     upcast, with_models)
+from ._build import (F32, F32_BF16, MAX_MODELS, CudaKernel, check_cuda, kernel_forms,
+                     models_first, ptr, upcast, with_models)
 
 # fp32 and bf16 forms of each kernel, by the dtype of x
 KERNELS = kernel_forms("lstm_fwd", "msa_bilstm_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
@@ -56,11 +78,22 @@ SEGBWD_KERNELS = kernel_forms("lstm_bwd", "msa_bilstm_segbwd",
                               [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6)
 KERNEL, CBND_KERNEL, SEGBWD_KERNEL = (
     k[torch.float32] for k in (KERNELS, CBND_KERNELS, SEGBWD_KERNELS))
+# the other schedules' kernels, fp32 only
+_P, _I = ctypes.c_void_p, ctypes.c_int
+FWD_XP_KERNEL = CudaKernel("lstm_fwd", "msa_bilstm_fwd_xp", [_P] * 4 + [_I] * 4)
+BWD_XP_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_bwd_xp", [_P] * 7 + [_I] * 4)
+CSEQ_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_cseq", [_P] * 6 + [_I] * 5)
+BWD_SPLIT_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_bwd_split", [_P] * 9 + [_I] * 5)
+BWDC_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_bwdc", [_P] * 11 + [_I] * 5)
+CBNDK_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_cbndk", [_P] * 6 + [_I] * 6)
+
+SCHEDULES = ("v5", "v6", "v8", "v9", "v9.1")
 
 _ROWS_PER_BLOCK = 8  # kBt in csrc/lstm_fwd.cu and csrc/lstm_bwd.cu
 _SEGBWD_MAX_HIDDEN = 128  # kSegMaxThreads / 4 in csrc/lstm_bwd.cu
 _MAX_SMEM = 227 * 1024
 SEG_K = 4  # segment length of the backward; any K >= 1 works for any T
+CBNDK_ROWS = 8  # kCbndkRows in csrc/lstm_bwd.cu: time rows per block of bilstm_cbndk
 
 Params = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -141,26 +174,38 @@ def bilstm_fwd(x, w_ih, w_hh, bias) -> torch.Tensor:
     return out[0] if one else out
 
 
+def _projection(x, w_ih, bias) -> torch.Tensor:
+    """The packed input projection ``xp (S, B, T, 8H)``, ``[fwd | bwd]``,
+    both halves in actual time."""
+    return torch.cat([_mm(x, w_ih[:, d]) + bias[:, d, None, None] for d in (0, 1)], -1)
+
+
+def _recurrence_plain(xp, w_hh) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(h_seq (S, B, T, 2H), c_seq (S, 2, T, B, H))`` of the recurrence
+    over the packed projection ``xp``, step by step."""
+    s, b, t, _ = xp.shape
+    h = w_hh.shape[-1]
+    g = 4 * h
+    h_seq = xp.new_zeros(s, b, t, 2 * h)
+    c_seq = xp.new_zeros(s, 2, t, b, h)
+    for d in (0, 1):
+        hd = c = xp.new_zeros(s, b, h)
+        for a in (range(t) if d == 0 else reversed(range(t))):
+            i, f, gg, o = (xp[:, :, a, d * g:(d + 1) * g] + _mm(hd, w_hh[:, d])).chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+            hd = torch.sigmoid(o) * torch.tanh(c)
+            h_seq[:, :, a, d * h:(d + 1) * h] = hd
+            c_seq[:, d, a] = c
+    return h_seq, c_seq
+
+
 def bilstm_fwd_plain(x, w_ih, w_hh, bias) -> torch.Tensor:
-    """Plain PyTorch version of the forward kernel: each direction's input
-    projection in one product, then the recurrence step by step, in fp32;
+    """Plain PyTorch version of the forward kernel: the input projection in
+    one product per direction, then the recurrence step by step, in fp32;
     ``h_seq`` comes back in the dtype of ``x``."""
     dtype = x.dtype
     (x, w_ih, w_hh, bias), one = with_models(*map(upcast, (x, w_ih, w_hh, bias)))
-    t = x.shape[2]
-    halves = []
-    for d in (0, 1):
-        xp = _mm(x, w_ih[:, d]) + bias[:, d, None, None]  # (S, B, T, 4H)
-        h = x.new_zeros(*x.shape[:2], w_hh.shape[-1])
-        c = h
-        hs = [h] * t
-        for a in (range(t) if d == 0 else reversed(range(t))):
-            i, f, g, o = (xp[:, :, a] + _mm(h, w_hh[:, d])).chunk(4, dim=-1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
-            hs[a] = h
-        halves.append(torch.stack(hs, dim=2))
-    out = torch.cat(halves, dim=-1).to(dtype)
+    out = _recurrence_plain(_projection(x, w_ih, bias), w_hh)[0].to(dtype)
     return out[0] if one else out
 
 
@@ -169,44 +214,113 @@ def fused_bilstm_layer_plain(x: torch.Tensor, fwd: Params, bwd: Params) -> torch
     return bilstm_fwd_plain(x, *stack_params(fwd, bwd))
 
 
+def check_schedule(schedule: str, dtype: torch.dtype) -> None:
+    """Raise ``ValueError`` for a schedule not in :data:`SCHEDULES`, and
+    ``TypeError`` for a dtype other than fp32 under a schedule other than
+    v9 (their kernels have an fp32 form only)."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown BiLSTM schedule {schedule!r}; one of {SCHEDULES}")
+    if schedule != "v9" and dtype != torch.float32:
+        raise TypeError(f"BiLSTM schedule {schedule} takes float32 only, not {dtype}; "
+                        "v9 also takes bfloat16")
+
+
 class _FusedBiLSTM(torch.autograd.Function):
-    """``h_seq`` of one layer on stacked weights; its backward runs the two
-    backward kernels."""
+    """``h_seq`` of one layer on stacked weights, by :func:`bilstm_fwd`; its
+    backward runs the backward kernels of the schedule recorded at the
+    forward (v9, v9.1, v8 or v6)."""
 
     @staticmethod
-    def forward(x, w_ih, w_hh, bias):
+    def forward(x, w_ih, w_hh, bias, schedule):
         return bilstm_fwd(*(t.contiguous() for t in (x, w_ih, w_hh, bias)))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs, output)
+        ctx.save_for_backward(*inputs[:4], output)
+        ctx.schedule = inputs[4]
 
     @staticmethod
     def backward(ctx, dh_seq):
         x, w_ih, w_hh, bias, h_seq = ctx.saved_tensors
-        c_bnd = _Cbnd.apply(x, h_seq, w_ih, w_hh, bias, SEG_K)
-        dx_pk, dw_cat = _SegBwd.apply(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias, SEG_K)
+        w = (w_ih, w_hh, bias)
+        if ctx.schedule == "v6":
+            c_seq = _Cseq.apply(x, h_seq, *w)
+            dxp = _BwdSplit.apply(dh_seq, x, h_seq, c_seq, *w)
+            dg = dxp.unflatten(-1, (2, -1))  # (..., B, T, 2, 4H)
+            return (torch.einsum("...btdg,...dgi->...bti", dg, w_ih),
+                    torch.einsum("...btdg,...bti->...dgi", dg, x), _dw_hh_packed(h_seq, dxp),
+                    dg.sum((-4, -3)), None)
+        if ctx.schedule == "v8":
+            dx_pk, dw_cat = _Bwdc.apply(dh_seq, x, h_seq, _Cseq.apply(x, h_seq, *w), *w)
+        else:
+            cbnd = _CbndK if ctx.schedule == "v9.1" else _Cbnd
+            c_bnd = cbnd.apply(x, h_seq, *w, SEG_K)
+            dx_pk, dw_cat = _SegBwd.apply(dh_seq, x, h_seq, c_bnd, *w, SEG_K)
         i, h = x.shape[-1], w_hh.shape[-1]
         return ((dx_pk[0] + dx_pk[1]).to(x.dtype), dw_cat[:, :i].transpose(1, 2).to(w_ih.dtype),
-                dw_cat[:, i:i + h].transpose(1, 2).to(w_hh.dtype), dw_cat[:, i + h].to(bias.dtype))
+                dw_cat[:, i:i + h].transpose(1, 2).to(w_hh.dtype), dw_cat[:, i + h].to(bias.dtype),
+                None)
 
     @staticmethod
     def vmap(info, in_dims, *args):
-        return bilstm_fwd(*models_first(info, in_dims, *args)), 0
+        return bilstm_fwd(*models_first(info, in_dims, *args)[:4]), 0
 
 
-def fused_bilstm_layer(x: torch.Tensor, fwd: Params, bwd: Params) -> torch.Tensor:
+class _RecurrenceXp(torch.autograd.Function):
+    """The v5 recurrence: ``(h_seq, c_seq)`` from the packed projection ``xp``
+    by :func:`bilstm_fwd_xp`; its backward is :func:`bilstm_bwd_xp`'s ``dxp``
+    (the gradient of ``xp``) and dW_hh reduced from it. ``c_seq`` takes no
+    gradient."""
+
+    @staticmethod
+    def forward(xp, w_hh):
+        return bilstm_fwd_xp(xp.contiguous(), w_hh.contiguous())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, *output)
+
+    @staticmethod
+    def backward(ctx, dh_seq, _):
+        xp, w_hh, h_seq, c_seq = ctx.saved_tensors
+        dxp = _BwdXp.apply(dh_seq, xp, h_seq, c_seq, w_hh)
+        return dxp, _dw_hh_packed(h_seq, dxp)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return bilstm_fwd_xp(*models_first(info, in_dims, *args)), (0, 0)
+
+
+def _dw_hh_packed(h_seq: torch.Tensor, dxp: torch.Tensor) -> torch.Tensor:
+    """dW_hh ``(..., 2, 4H, H)`` from ``h_seq (..., B, T, 2H)`` and the packed
+    gate gradients ``dxp (..., B, T, 8H)``: the sum over (B, T) of
+    ``dgates^T h_prev`` per direction (``dw_hh_packed`` in JAX)."""
+    h = h_seq.shape[-1] // 2
+    hp = torch.stack([_h_prev(h_seq, 0, h), _h_prev(h_seq, 1, h)], -2)  # (..., B, T, 2, H)
+    return torch.einsum("...btdg,...btdk->...dgk", dxp.unflatten(-1, (2, -1)), hp)
+
+
+def fused_bilstm_layer(x: torch.Tensor, fwd: Params, bwd: Params,
+                       *, schedule: str = "v9") -> torch.Tensor:
     """One bidirectional LSTM layer, ``(B, T, I) -> (B, T, 2H)``, with its
     kernel backward.
 
     ``fwd``/``bwd`` are ``(w_ih (4H, I), w_hh (4H, H), b_ih (4H,),
-    b_hh (4H,))`` in torch layout and (i, f, g, o) gate order. A CPU tensor
-    takes the plain versions of the forward and of both backward kernels; a
-    CUDA tensor launches the kernels, or raises. Under ``torch.func.vmap``
-    over S models every kernel is one S-wide launch.
+    b_hh (4H,))`` in torch layout and (i, f, g, o) gate order. ``schedule``
+    is one of :data:`SCHEDULES` (the module docstring's table); the
+    autograd Function records it at the forward. A CPU tensor takes the
+    plain versions of the schedule's kernels; a CUDA tensor launches the
+    kernels, or raises. Under ``torch.func.vmap`` over S models every
+    kernel is one S-wide launch.
     """
     _check_device(x)
-    return _FusedBiLSTM.apply(x, *stack_params(fwd, bwd))
+    check_schedule(schedule, x.dtype)
+    w_ih, w_hh, bias = stack_params(fwd, bwd)
+    if schedule == "v5":
+        # the JAX order: one projection of both directions, (B, T, 8H)
+        xp = x @ w_ih.flatten(0, 1).T + bias.flatten()
+        return _RecurrenceXp.apply(xp, w_hh)[0]
+    return _FusedBiLSTM.apply(x, w_ih, w_hh, bias, schedule)
 
 
 # --------------------------------------------------------------------------
@@ -217,10 +331,11 @@ def fused_bilstm_layer(x: torch.Tensor, fwd: Params, bwd: Params) -> torch.Tenso
 def _h_prev(h_seq: torch.Tensor, d: int, h: int) -> torch.Tensor:
     """h at the previous recurrence step of direction ``d``, per actual
     time: shifted right (d=0) or left (d=1) along T, zero at the start.
-    ``h_seq (S, B, T, 2H)``."""
+    ``h_seq (..., T, 2H)``."""
     hd = h_seq[..., d * h:(d + 1) * h]
-    zero = torch.zeros_like(hd[:, :, :1])
-    return torch.cat([zero, hd[:, :, :-1]], 2) if d == 0 else torch.cat([hd[:, :, 1:], zero], 2)
+    zero = torch.zeros_like(hd[..., :1, :])
+    return (torch.cat([zero, hd[..., :-1, :]], -2) if d == 0
+            else torch.cat([hd[..., 1:, :], zero], -2))
 
 
 def _gates(x, hp, w_ih, w_hh, bias):
@@ -252,48 +367,67 @@ def bilstm_cbnd_plain(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tenso
     return out[0] if one else out
 
 
+def _sweep(forms: dict, x, h_seq, w_ih, w_hh, bias, nslots: int, k: int | None,
+           smem_floats) -> torch.Tensor:
+    """Launch a c sweep (:func:`bilstm_cbnd`, :func:`bilstm_cbndk`,
+    :func:`bilstm_cseq`; ``forms``: its kernel by dtype) into zeroed
+    ``(S, 2, nslots, B, H)`` fp32 slots; ``smem_floats(i, h)`` is its
+    shared memory in floats. ``k`` is passed to the kernel unless None."""
+    _check_device(x)
+    (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
+    check_cuda("x", x, x.device, dtypes=tuple(forms))
+    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
+    check_cuda("h_seq", h_seq, x.device, (s, b, t, 2 * h), (x.dtype,))
+    if k is not None and k < 1:
+        raise ValueError(f"segment length {k} < 1")
+    _check_smem(smem_floats(i, h), f"input width {i}")
+    w_ih_t, w_hh_t = _transposed(w_ih), _transposed(w_hh)
+    out = torch.zeros(s, 2, nslots, b, h, device=x.device, dtype=torch.float32)
+    forms[x.dtype].launch(x.device, ptr(x), ptr(h_seq), ptr(w_ih_t), ptr(w_hh_t), ptr(bias),
+                          ptr(out), s, b, t, i, h, *(() if k is None else (k,)))
+    return out[0] if one else out
+
+
 def bilstm_cbnd(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
     """c checkpoints ``(2, NSEG, B, H)`` (or ``(S, 2, NSEG, B, H)``),
     ``NSEG = ceil(T / k)``, rebuilt in recurrence order from ``x`` and the
     stored ``h_seq``, in fp32. Slot ``m`` of direction 0 holds c at actual time
     ``m k + k - 1`` (the entry of block ``m + 1``); of direction 1, c at
-    ``m k`` (the entry of block ``m - 1``). Slots no block reads are zero on
-    the CPU and unspecified on the card."""
+    ``m k`` (the entry of block ``m - 1``). Slots no block reads are zero."""
     if x.device.type == "cpu":
         return bilstm_cbnd_plain(x, h_seq, w_ih, w_hh, bias, k)
-    _check_device(x)
-    (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
-    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
-    check_cuda("h_seq", h_seq, x.device, (s, b, t, 2 * h), (x.dtype,))
-    if k < 1:
-        raise ValueError(f"segment length {k} < 1")
-    _check_smem(_ROWS_PER_BLOCK * (i + 5 * h), f"input width {i}")
-    w_ih_t, w_hh_t = _transposed(w_ih), _transposed(w_hh)
-    out = torch.zeros(s, 2, _num_segments(t, k), b, h, device=x.device, dtype=torch.float32)
-    CBND_KERNELS[x.dtype].launch(x.device, ptr(x), ptr(h_seq), ptr(w_ih_t), ptr(w_hh_t),
-                                 ptr(bias), ptr(out), s, b, t, i, h, k)
-    return out[0] if one else out
+    return _sweep(CBND_KERNELS, x, h_seq, w_ih, w_hh, bias, _num_segments(x.shape[-2], k), k,
+                  lambda i, h: _ROWS_PER_BLOCK * (i + 5 * h))
 
 
-class _Cbnd(torch.autograd.Function):
-    """:func:`bilstm_cbnd` as a Function, so the layer's backward makes one
-    S-wide launch when it runs under ``vmap``. Not differentiable."""
+def _kernel_function(fn, out_dims, doc: str):
+    """``fn`` (a backward kernel's wrapper) as an ``autograd.Function``
+    whose ``vmap`` rule makes one S-wide call, so the layer's backward,
+    which runs under ``vmap`` in the LOSO trainer, makes one launch for all
+    S models. Not differentiable."""
 
-    @staticmethod
-    def forward(x, h_seq, w_ih, w_hh, bias, k):
-        return bilstm_cbnd(*(t.contiguous() for t in (x, h_seq, w_ih, w_hh, bias)), k)
+    class KernelFunction(torch.autograd.Function):
+        @staticmethod
+        def forward(*args):
+            return fn(*(a.contiguous() if isinstance(a, torch.Tensor) else a for a in args))
 
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            pass
 
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("the BiLSTM backward kernels have no backward")
+        @staticmethod
+        def backward(ctx, *grads):
+            raise NotImplementedError("the BiLSTM backward kernels have no backward")
 
-    @staticmethod
-    def vmap(info, in_dims, *args):
-        return bilstm_cbnd(*models_first(info, in_dims, *args)), 0
+        @staticmethod
+        def vmap(info, in_dims, *args):
+            return fn(*models_first(info, in_dims, *args)), out_dims
+
+    KernelFunction.__doc__ = doc
+    return KernelFunction
+
+
+_Cbnd = _kernel_function(bilstm_cbnd, 0, ":func:`bilstm_cbnd` as a Function.")
 
 
 # --------------------------------------------------------------------------
@@ -361,9 +495,24 @@ def bilstm_segbwd(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias,
     version."""
     if x.device.type == "cpu":
         return bilstm_segbwd_plain(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias, k)
+    return _segbwd(SEGBWD_KERNELS, dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias, k, (k,))
+
+
+def _check_max_hidden(h: int) -> None:
+    if h > _SEGBWD_MAX_HIDDEN:
+        raise ValueError(f"hidden size {h} > {_SEGBWD_MAX_HIDDEN}: the reverse sweeps run "
+                         f"4H <= {4 * _SEGBWD_MAX_HIDDEN} threads")
+
+
+def _segbwd(forms: dict, dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias, k: int,
+            k_arg: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the K-segment reverse sweep (:func:`bilstm_segbwd`, and
+    :func:`bilstm_bwdc` at K = 1; ``forms``: its kernel by dtype, given
+    ``k_arg`` after the sizes)."""
     _check_device(x)
     (x, dh_seq, h_seq, c_bnd, w_ih, w_hh, bias), one = with_models(
         x, dh_seq, h_seq, c_bnd, w_ih, w_hh, bias)
+    check_cuda("x", x, x.device, dtypes=tuple(forms))
     s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
     device = x.device
     nseg = _num_segments(t, k)
@@ -372,38 +521,232 @@ def bilstm_segbwd(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias,
     check_cuda("c_bnd", c_bnd, device, (s, 2, nseg, b, h), F32)
     if k < 1:
         raise ValueError(f"segment length {k} < 1")
-    if h > _SEGBWD_MAX_HIDDEN:
-        raise ValueError(f"hidden size {h} > {_SEGBWD_MAX_HIDDEN}: the reverse sweep runs "
-                         f"4H <= {4 * _SEGBWD_MAX_HIDDEN} threads")
+    _check_max_hidden(h)
     _check_smem(_ROWS_PER_BLOCK * (k * (i + 5 * h) + (k + 1) * h + 5 * h),
                 f"segment length {k}, input width {i}")
     tiles = -(-b // _ROWS_PER_BLOCK)
     w_ih_t, w_hh_t = _transposed(w_ih), _transposed(w_hh)
     dx_pk = torch.empty(s, 2, b, t, i, device=device, dtype=torch.float32)
     dw_part = torch.zeros(s, tiles, 2, i + h + 1, 4 * h, device=device, dtype=torch.float32)
-    SEGBWD_KERNELS[x.dtype].launch(device, ptr(dh_seq), ptr(x), ptr(h_seq), ptr(c_bnd),
-                                   ptr(w_ih_t), ptr(w_hh_t), ptr(w_ih), ptr(w_hh), ptr(bias),
-                                   ptr(dx_pk), ptr(dw_part), s, b, t, i, h, k)
+    forms[x.dtype].launch(device, ptr(dh_seq), ptr(x), ptr(h_seq), ptr(c_bnd), ptr(w_ih_t),
+                          ptr(w_hh_t), ptr(w_ih), ptr(w_hh), ptr(bias), ptr(dx_pk),
+                          ptr(dw_part), s, b, t, i, h, *k_arg)
     dw_cat = dw_part.sum(1)
     return (dx_pk[0], dw_cat[0]) if one else (dx_pk, dw_cat)
 
 
-class _SegBwd(torch.autograd.Function):
-    """:func:`bilstm_segbwd` as a Function (see :class:`_Cbnd`)."""
+_SegBwd = _kernel_function(bilstm_segbwd, (0, 0), ":func:`bilstm_segbwd` as a Function.")
 
-    @staticmethod
-    def forward(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias, k):
-        return bilstm_segbwd(*(t.contiguous() for t in (dh_seq, x, h_seq, c_bnd, w_ih, w_hh,
-                                                         bias)), k)
 
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
+# --------------------------------------------------------------------------
+# the other schedules' kernels (fp32): v9.1 checkpoints, v8 and v6 full c,
+# v8 per-step sweep, v6 and v5 sweeps that emit dxp, the v5 forward
+# --------------------------------------------------------------------------
 
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("the BiLSTM backward kernels have no backward")
 
-    @staticmethod
-    def vmap(info, in_dims, *args):
-        return bilstm_segbwd(*models_first(info, in_dims, *args)), (0, 0)
+def bilstm_cbndk_plain(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bilstm_cbndk`, block by block as the
+    kernel walks them: each block's gates in one product, then the c carry."""
+    (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
+    s, b, t, _ = x.shape
+    h = w_hh.shape[-1]
+    out = x.new_zeros(s, 2, _num_segments(t, k), b, h)
+    for d in (0, 1):
+        hp = _h_prev(h_seq, d, h)
+        c = x.new_zeros(s, b, h)
+        blocks = range(0, t, CBNDK_ROWS)
+        for lo in (blocks if d == 0 else reversed(blocks)):
+            hi = min(lo + CBNDK_ROWS, t)
+            i, f, g, _ = _gates(x[:, :, lo:hi], hp[:, :, lo:hi], w_ih[:, d], w_hh[:, d],
+                                bias[:, d])
+            for a in (range(lo, hi) if d == 0 else reversed(range(lo, hi))):
+                c = f[:, :, a - lo] * c + i[:, :, a - lo] * g[:, :, a - lo]
+                if _is_boundary(d, a, k):
+                    out[:, d, a // k] = c
+    return out[0] if one else out
+
+
+def bilstm_cbndk(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
+    """The checkpoints of :func:`bilstm_cbnd`, same contract, with the gate
+    products of :data:`CBNDK_ROWS` time rows batched per block (the JAX
+    package's v9.1 ``_cbndk_kernel``). fp32."""
+    if x.device.type == "cpu":
+        return bilstm_cbndk_plain(x, h_seq, w_ih, w_hh, bias, k)
+    _check_max_hidden(w_hh.shape[-1])
+    return _sweep({torch.float32: CBNDK_KERNEL}, x, h_seq, w_ih, w_hh, bias,
+                  _num_segments(x.shape[-2], k), k,
+                  lambda i, h: CBNDK_ROWS * _ROWS_PER_BLOCK * (i + 4 * h))
+
+
+def bilstm_cseq_plain(x, h_seq, w_ih, w_hh, bias) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bilstm_cseq`: the checkpoints at K=1."""
+    return bilstm_cbnd_plain(x, h_seq, w_ih, w_hh, bias, 1)
+
+
+def bilstm_cseq(x, h_seq, w_ih, w_hh, bias) -> torch.Tensor:
+    """The full fp32 cell state ``c_seq (2, T, B, H)`` (or ``(S, 2, T, B,
+    H)``; slot t is actual time t in both directions), rebuilt in
+    recurrence order from ``x`` and the stored ``h_seq`` (the JAX package's
+    v8 ``_cseq_kernel``): :func:`bilstm_cbnd`'s kernel at K = 1."""
+    if x.device.type == "cpu":
+        return bilstm_cseq_plain(x, h_seq, w_ih, w_hh, bias)
+    return _sweep({torch.float32: CSEQ_KERNEL}, x, h_seq, w_ih, w_hh, bias, x.shape[-2], None,
+                  lambda i, h: _ROWS_PER_BLOCK * (i + 5 * h))
+
+
+def bilstm_bwdc_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias):
+    """Plain PyTorch version of :func:`bilstm_bwdc`: the reverse sweep at K=1."""
+    return bilstm_segbwd_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias, 1)
+
+
+def bilstm_bwdc(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> tuple[torch.Tensor, torch.Tensor]:
+    """The v8 reverse sweep (``_bwd_bwdc_kernel``): :func:`bilstm_segbwd`'s
+    contract and kernel at K = 1, reading each step's c_prev from the full
+    ``c_seq`` of :func:`bilstm_cseq`. fp32."""
+    if x.device.type == "cpu":
+        return bilstm_bwdc_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
+    return _segbwd({torch.float32: BWDC_KERNEL}, dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias, 1, ())
+
+
+def _bwd_step_plain(dh_seq, pre, h_seq, c_seq, w_hh) -> torch.Tensor:
+    """The per-step reverse sweep of :func:`bilstm_bwd_xp` and
+    :func:`bilstm_bwd_split`, model axis first: ``pre (S, B, T, 8H)`` is the
+    gate pre-activation without its ``h_prev W_hh^T`` term."""
+    s, b, t, _ = h_seq.shape
+    h = w_hh.shape[-1]
+    g = 4 * h
+    dxp = pre.new_zeros(s, b, t, 2 * g)
+    for d in (0, 1):
+        hp = _h_prev(h_seq, d, h)
+        dh_c, dc_c = pre.new_zeros(s, b, h), pre.new_zeros(s, b, h)
+        for tau in reversed(range(t)):  # recurrence step, last first
+            a = tau if d == 0 else t - 1 - tau
+            z = pre[:, :, a, d * g:(d + 1) * g] + _mm(hp[:, :, a], w_hh[:, d])
+            i, f, gg, o = z.chunk(4, dim=-1)
+            i, f, gg, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(gg), torch.sigmoid(o)
+            cp = c_seq[:, d, a - 1 if d == 0 else a + 1] if tau else torch.zeros_like(dh_c)
+            dh = dh_seq[:, :, a, d * h:(d + 1) * h] + dh_c
+            tc = torch.tanh(c_seq[:, d, a])
+            dc = dc_c + dh * o * (1 - tc * tc)
+            dgates = torch.cat([dc * gg * i * (1 - i), dc * cp * f * (1 - f),
+                                dc * i * (1 - gg * gg), dh * tc * o * (1 - o)], dim=-1)
+            dh_c = dgates @ w_hh[:, d]
+            dc_c = dc * f
+            dxp[:, :, a, d * g:(d + 1) * g] = dgates
+    return dxp
+
+
+def _check_c_seq(c_seq, s, b, t, h, device) -> None:
+    check_cuda("c_seq", c_seq, device, (s, 2, t, b, h), F32)
+
+
+def bilstm_bwd_split_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bilstm_bwd_split`."""
+    (dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias), one = with_models(
+        dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
+    out = _bwd_step_plain(dh_seq, _projection(x, w_ih, bias), h_seq, c_seq, w_hh)
+    return out[0] if one else out
+
+
+def bilstm_bwd_split(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> torch.Tensor:
+    """The v6 reverse sweep (``_bwd_xproj_kernel``): the packed gate
+    gradients ``dxp (B, T, 8H)`` (or ``(S, B, T, 8H)``) in fp32, ``[fwd |
+    bwd]`` in actual time, from ``dh_seq``, ``x``, ``h_seq`` and the full
+    ``c_seq`` of :func:`bilstm_cseq`; each step's gates recomputed from
+    ``x W_ih^T + b + h_prev W_hh^T``. dx, dW and db are reductions of
+    ``dxp`` outside the kernel. fp32."""
+    if x.device.type == "cpu":
+        return bilstm_bwd_split_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
+    _check_device(x)
+    (dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias), one = with_models(
+        dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
+    check_cuda("x", x, x.device)
+    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
+    for name, a in (("dh_seq", dh_seq), ("h_seq", h_seq)):
+        check_cuda(name, a, x.device, (s, b, t, 2 * h))
+    _check_c_seq(c_seq, s, b, t, h, x.device)
+    _check_max_hidden(h)
+    _check_smem(_ROWS_PER_BLOCK * (i + 10 * h), f"input width {i}")
+    w_ih_t, w_hh_t = _transposed(w_ih), _transposed(w_hh)
+    dxp = torch.empty(s, b, t, 8 * h, device=x.device, dtype=torch.float32)
+    BWD_SPLIT_KERNEL.launch(x.device, ptr(dh_seq), ptr(x), ptr(h_seq), ptr(c_seq), ptr(w_ih_t),
+                            ptr(w_hh_t), ptr(w_hh), ptr(bias), ptr(dxp), s, b, t, i, h)
+    return dxp[0] if one else dxp
+
+
+def _check_xp(xp: torch.Tensor, w_hh: torch.Tensor) -> tuple[int, int, int, int]:
+    """Validate the v5 kernels' ``xp (S, B, T, 8H)`` and ``w_hh (S, 2, 4H,
+    H)``; returns ``(S, B, T, H)``."""
+    if xp.dim() != 4 or 0 in xp.shape:
+        raise ValueError(f"xp must be a non-empty (B, T, 8H) or (S, B, T, 8H) tensor, "
+                         f"got {tuple(xp.shape)}")
+    s, b, t, _ = xp.shape
+    h = w_hh.shape[-1]
+    if s > MAX_MODELS:
+        raise ValueError(f"{s} models > {MAX_MODELS}: the model axis is the grid's z axis")
+    if not 0 < 4 * h <= 1024:
+        raise ValueError(f"hidden size {h}: the kernels run 4H <= 1024 threads")
+    check_cuda("xp", xp, xp.device, (s, b, t, 8 * h))
+    check_cuda("w_hh", w_hh, xp.device, (s, 2, 4 * h, h))
+    return s, b, t, h
+
+
+def bilstm_fwd_xp_plain(xp, w_hh) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`bilstm_fwd_xp`."""
+    (xp, w_hh), one = with_models(xp, w_hh)
+    h_seq, c_seq = _recurrence_plain(xp, w_hh)
+    return (h_seq[0], c_seq[0]) if one else (h_seq, c_seq)
+
+
+def bilstm_fwd_xp(xp, w_hh) -> tuple[torch.Tensor, torch.Tensor]:
+    """The v5 forward (``_fwd_kernel``): the recurrence over the packed
+    projection ``xp (B, T, 8H)`` (``[fwd | bwd]``, both halves in actual
+    time; or ``(S, B, T, 8H)``) and ``w_hh (2, 4H, H)``. Returns ``h_seq
+    (B, T, 2H)`` and the fp32 cell state ``c_seq (2, T, B, H)`` (each with
+    a leading S where ``xp`` has one). fp32."""
+    if xp.device.type == "cpu":
+        return bilstm_fwd_xp_plain(xp, w_hh)
+    _check_device(xp)
+    (xp, w_hh), one = with_models(xp, w_hh)
+    s, b, t, h = _check_xp(xp, w_hh)
+    _check_smem(_ROWS_PER_BLOCK * 5 * h, f"hidden size {h}")
+    w_hh_t = _transposed(w_hh)
+    h_seq = torch.empty(s, b, t, 2 * h, device=xp.device, dtype=torch.float32)
+    c_seq = torch.empty(s, 2, t, b, h, device=xp.device, dtype=torch.float32)
+    FWD_XP_KERNEL.launch(xp.device, ptr(xp), ptr(w_hh_t), ptr(h_seq), ptr(c_seq), s, b, t, h)
+    return (h_seq[0], c_seq[0]) if one else (h_seq, c_seq)
+
+
+def bilstm_bwd_xp_plain(dh_seq, xp, h_seq, c_seq, w_hh) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bilstm_bwd_xp`."""
+    (dh_seq, xp, h_seq, c_seq, w_hh), one = with_models(dh_seq, xp, h_seq, c_seq, w_hh)
+    out = _bwd_step_plain(dh_seq, xp, h_seq, c_seq, w_hh)
+    return out[0] if one else out
+
+
+def bilstm_bwd_xp(dh_seq, xp, h_seq, c_seq, w_hh) -> torch.Tensor:
+    """The v5 reverse sweep (``_bwd_kernel``): :func:`bilstm_bwd_split`'s
+    contract, with each step's gates recomputed from ``xp + h_prev W_hh^T``
+    and the forward's ``c_seq``. ``dxp`` is the gradient of ``xp``. fp32."""
+    if xp.device.type == "cpu":
+        return bilstm_bwd_xp_plain(dh_seq, xp, h_seq, c_seq, w_hh)
+    _check_device(xp)
+    (dh_seq, xp, h_seq, c_seq, w_hh), one = with_models(dh_seq, xp, h_seq, c_seq, w_hh)
+    s, b, t, h = _check_xp(xp, w_hh)
+    for name, a in (("dh_seq", dh_seq), ("h_seq", h_seq)):
+        check_cuda(name, a, xp.device, (s, b, t, 2 * h))
+    _check_c_seq(c_seq, s, b, t, h, xp.device)
+    _check_max_hidden(h)
+    _check_smem(_ROWS_PER_BLOCK * 10 * h, f"hidden size {h}")
+    w_hh_t = _transposed(w_hh)
+    dxp = torch.empty(s, b, t, 8 * h, device=xp.device, dtype=torch.float32)
+    BWD_XP_KERNEL.launch(xp.device, ptr(dh_seq), ptr(xp), ptr(h_seq), ptr(c_seq), ptr(w_hh_t),
+                         ptr(w_hh), ptr(dxp), s, b, t, h)
+    return dxp[0] if one else dxp
+
+
+_CbndK = _kernel_function(bilstm_cbndk, 0, ":func:`bilstm_cbndk` as a Function.")
+_Cseq = _kernel_function(bilstm_cseq, 0, ":func:`bilstm_cseq` as a Function.")
+_Bwdc = _kernel_function(bilstm_bwdc, (0, 0), ":func:`bilstm_bwdc` as a Function.")
+_BwdSplit = _kernel_function(bilstm_bwd_split, 0, ":func:`bilstm_bwd_split` as a Function.")
+_BwdXp = _kernel_function(bilstm_bwd_xp, 0, ":func:`bilstm_bwd_xp` as a Function.")

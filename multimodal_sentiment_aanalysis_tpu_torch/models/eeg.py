@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.conv_stem_train import fused_stage_train
+from ..kernels.lstm import check_schedule
 from ..ops.rnn import bilstm_layer
 from .layers import LayerNorm, Linear
 
@@ -41,11 +42,16 @@ BN_MOMENTUM = 0.1  # torch convention: running = (1 - m) * running + m * batch
 class BiLSTM(nn.Module):
     """Parameters of a bidirectional multi-layer ``nn.LSTM``, under its
     names, run through :func:`..ops.rnn.bilstm_layer` (``nn.LSTM``'s own
-    forward would be cuDNN's kernel)."""
+    forward would be cuDNN's kernel) under the kernel schedule
+    ``schedule`` (:data:`..kernels.lstm.SCHEDULES`; neither a parameter nor
+    a buffer)."""
 
-    def __init__(self, input_size: int, hidden_size: int, num_layers: int, device=None):
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int, device=None,
+                 schedule: str = "v9"):
         super().__init__()
+        check_schedule(schedule, torch.float32)
         self.num_layers = num_layers
+        self.schedule = schedule
         for k in range(num_layers):
             in_dim = input_size if k == 0 else 2 * hidden_size
             for suffix in ("", "_reverse"):
@@ -66,7 +72,7 @@ class BiLSTM(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for k in range(self.num_layers):
-            x = bilstm_layer(x, *self.layer_params(k))
+            x = bilstm_layer(x, *self.layer_params(k), self.schedule)
         return x
 
 
@@ -82,7 +88,7 @@ class EEGMultiScaleNet(nn.Module):
     """Input ``(B, in_channels, time_len)`` -> ``(B, feat_dim)``."""
 
     def __init__(self, in_channels: int = 32, time_len: int = 585, feat_dim: int = 256,
-                 dropout: float = 0.4, device=None):
+                 dropout: float = 0.4, device=None, lstm_schedule: str = "v9"):
         super().__init__()
         self.temp_conv = nn.Sequential(
             nn.Conv1d(in_channels, 64, 15, padding=7, device=device),
@@ -96,7 +102,8 @@ class EEGMultiScaleNet(nn.Module):
             Linear(time_len, 128, device=device), nn.GELU(),
             Linear(128, 64, device=device),
         )
-        self.bilstm = BiLSTM(feat_dim, feat_dim // 2, num_layers=2, device=device)
+        self.bilstm = BiLSTM(feat_dim, feat_dim // 2, num_layers=2, device=device,
+                             schedule=lstm_schedule)
         self.fusion = nn.Sequential(
             Linear(feat_dim + 64, feat_dim, device=device),
             LayerNorm(feat_dim, eps=1e-5, device=device), nn.GELU(),

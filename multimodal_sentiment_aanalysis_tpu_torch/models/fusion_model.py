@@ -26,6 +26,10 @@ stats updated by the JAX rule (momentum 0.1, biased batch variance, see
 :func:`.eeg.update_running_stats`), and dropout (EEG stem 0.4, everything
 else 0.3, or ``dropout`` at every site) drawn from the ``generator`` passed
 to :meth:`forward`.
+
+``lstm_schedule`` picks the EEG BiLSTM's kernels on the card
+(:data:`..kernels.lstm.SCHEDULES`, default ``"v9"``); it is neither a
+parameter nor a buffer, so the ``state_dict`` does not carry it.
 """
 
 from __future__ import annotations
@@ -126,12 +130,14 @@ class MultimodalTransformerModel(nn.Module):
     def __init__(self, num_classes: int = 3, temperature: float = 0.01,
                  eeg_channels: int = 32, eeg_time: int = 585, eye_dim: int = 38,
                  pps_dim: int = 230, feat_dim: int = 256, dropout: float | None = None,
-                 *, device=None, generator: torch.Generator | None = None):
+                 *, device=None, generator: torch.Generator | None = None,
+                 lstm_schedule: str = "v9"):
         super().__init__()
         d_eeg = 0.4 if dropout is None else dropout
         d = 0.3 if dropout is None else dropout
         f = feat_dim
-        self.eeg_net = EEGMultiScaleNet(eeg_channels, eeg_time, f, d_eeg, device=device)
+        self.eeg_net = EEGMultiScaleNet(eeg_channels, eeg_time, f, d_eeg, device=device,
+                                        lstm_schedule=lstm_schedule)
         self.eye_net = Subnetwork(eye_dim, f, dropout=d, device=device)
         self.pps_net = Subnetwork(pps_dim, f, dropout=d, device=device)
         self.cross_attn_e2p = CrossModalTransformer(f, device=device)

@@ -6,14 +6,16 @@ parameters are ``nn.LSTM``'s ``weight_ih_l{k}(_reverse)`` etc. as they are.
 :func:`lstm` and :func:`bilstm_recurrence` are plain PyTorch;
 :func:`bilstm_layer` sends a CUDA tensor to the BiLSTM kernels
 (:func:`..kernels.lstm.fused_bilstm_layer`, forward and backward) and a CPU
-tensor down the plain path, whose gradient is autograd's.
+tensor down the plain path, whose gradient is autograd's, whatever the
+schedule: the schedules differ only in which kernels compute the same
+function.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.lstm import Params, fused_bilstm_layer
+from ..kernels.lstm import Params, check_schedule, fused_bilstm_layer
 
 
 def _cell(gates: torch.Tensor, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -60,11 +62,13 @@ def bilstm_recurrence(xf: torch.Tensor, xb: torch.Tensor, whf: torch.Tensor,
     return torch.cat([hs[0], hs[1].flip(1)], dim=-1)
 
 
-def bilstm_layer(x: torch.Tensor, fwd: Params, bwd: Params) -> torch.Tensor:
+def bilstm_layer(x: torch.Tensor, fwd: Params, bwd: Params, schedule: str = "v9") -> torch.Tensor:
     """Bidirectional layer ``(B, T, I) -> (B, T, 2H)``; ``fwd``/``bwd`` are
-    ``(w_ih, w_hh, b_ih, b_hh)`` in torch layout."""
+    ``(w_ih, w_hh, b_ih, b_hh)`` in torch layout; ``schedule`` names the
+    kernels of a CUDA tensor (:data:`..kernels.lstm.SCHEDULES`)."""
     if x.device.type == "cuda":
-        return fused_bilstm_layer(x, fwd, bwd)
+        return fused_bilstm_layer(x, fwd, bwd, schedule=schedule)
+    check_schedule(schedule, x.dtype)  # the CPU scan serves every schedule
     wif, whf, bif, bhf = fwd
     wib, whb, bib, bhb = bwd
     xf = x @ wif.T + (bif + bhf)

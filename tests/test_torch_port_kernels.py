@@ -198,7 +198,9 @@ def test_cpu_tensors_launch_nothing():
     kernels.reset_launch_counts()
     x, fwd, bwd = _lstm_inputs(6, 2, 3, 8, 4)
     fwd = tuple(t.requires_grad_() for t in _torch(fwd))
-    lstm.fused_bilstm_layer(torch.from_numpy(x), fwd, tuple(_torch(bwd))).sum().backward()
+    for schedule in lstm.SCHEDULES:
+        lstm.fused_bilstm_layer(torch.from_numpy(x), fwd, tuple(_torch(bwd)),
+                                schedule=schedule).sum().backward()
     conv, *bn = _torch(_stem_tail_inputs(6, 2, 8, 4))
     conv.requires_grad_()
     conv_stem_train.fused_stage_train(conv, *bn, 0.4, 2).sum().backward()
@@ -219,7 +221,8 @@ def test_cpu_tensors_launch_nothing():
     assert kernels.launch_counts() == {
         **{name: 0 for name in training}, **{f"{name}_bf16": 0 for name in training},
         "conv_stem": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-        "fusion_head": 0}
+        "fusion_head": 0, "bilstm_fwd_xp": 0, "bilstm_bwd_xp": 0, "bilstm_cseq": 0,
+        "bilstm_bwd_split": 0, "bilstm_bwdc": 0, "bilstm_cbndk": 0}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
