@@ -88,13 +88,20 @@ It needs a CUDA card and exits non-zero without one. In order, it
    bf16 paths' shapes (the bf16 serving model's activations, the bf16 LOSO
    trainer's weights cast to bf16 with seeded bf16 activations, and subject
    0 alone), the six kernels of the other BiLSTM schedules at S=24 and at
-   subject 0 (the fp32 LOSO trainer's weights, seeded activations), times
+   subject 0 (the fp32 LOSO trainer's weights, seeded activations), and the
+   pieces that rows 1 and 11 launch (the tensor-core GEMM at its four
+   products: projection, gate recompute, dx, dW_cat; the recurrence; the
+   sweep) at each layer of the training step, at S=24 and, in bf16, at
+   subject 0, each timed alone, which splits the two rows' time; the GEMM
+   also against its products in fp64, per mode within 1e-5 of the largest
+   (a bar that one TF32 pass on the fp32 operands is shown to miss); times
    both with CUDA events, times one PyTorch call of the
    same function where there is one (``nn.LSTM`` in the case's dtype,
    cuDNN's in fp32; ``scaled_dot_product_attention``; timed here only, the
    port never calls them), computes each case's bound (the larger of its
-   bytes over 3.35 TB/s and its operations over 67 TFLOP/s, or over 989
-   TFLOP/s for a bf16 form), and checks the stem tail's dropout (keep share
+   bytes over 3.35 TB/s and its operations over the peak rate for their
+   type: 67 TFLOP/s fp32, 989 TFLOP/s bf16, 495 TFLOP/s per TF32 pass of
+   the GEMM), and checks the stem tail's dropout (keep share
    1 - p within 5 sigma, every output exactly 0 or GELU(y) / (1 - p));
 8. prints the card's name and power limit, one JSON line of per-kernel
    results (one entry per kernel a path launched; the InfoNCE kernel's
@@ -184,10 +191,28 @@ TIMED_CALLS = 20
 LOSO_FUSED_EPOCHS = 2
 PARITY_SUBJECTS = (0, 17)  # LOSO models checked against a single-model Trainer step
 LOSO_LR = 1e-4             # the trainers' default learning rate
+# the kernels each call of rows 1 and 11 launches (each call also counts
+# once under the row's own name): the projection GEMM and the recurrence;
+# the gate-recompute, dx and dW_cat GEMMs and the sweep
+ROW_KERNELS = {"bilstm_fwd": {"bilstm_gemm": 1, "bilstm_rec": 1},
+               "bilstm_segbwd": {"bilstm_gemm": 3, "bilstm_sweep": 1}}
+
+
+def with_row_kernels(per: dict) -> dict:
+    """``per`` (launches by kernel) with the launches of the kernels that
+    rows 1 and 11 make, in the same form (fp32 or bf16), added."""
+    out = dict(per)
+    for name, n in per.items():
+        sfx = "_bf16" if name.endswith("_bf16") else ""
+        for inner, m in ROW_KERNELS.get(name.removesuffix("_bf16"), {}).items():
+            out[inner + sfx] = out.get(inner + sfx, 0) + n * m
+    return out
+
+
 # launches per train step of one model, and per held-out evaluation
-PER_STEP = dict(bilstm_fwd=2, bilstm_cbnd=2, bilstm_segbwd=2, stem_tail=2, stem_tail_bwd=2,
-                infonce=1)
-PER_EVAL = dict(bilstm_fwd=2, stem_tail=2, infonce=1)
+PER_STEP = with_row_kernels(dict(bilstm_fwd=2, bilstm_cbnd=2, bilstm_segbwd=2, stem_tail=2,
+                                 stem_tail_bwd=2, infonce=1))
+PER_EVAL = with_row_kernels(dict(bilstm_fwd=2, stem_tail=2, infonce=1))
 # a bf16 step: the bf16 forms, but the fp32 InfoNCE form (its features are
 # fp32, as in the JAX model); the held-out evaluation runs in fp32 (PER_EVAL)
 BF16 = torch.bfloat16
@@ -212,6 +237,9 @@ LOSO_B512 = 512       # the JAX bench's vloso_bf16_b512 batch
 LOSS_GAP_LIMIT = 0.1  # bf16 against fp32 epoch-2 train loss, relative, per subject
 # bf16 serving against fp32 serving: the JAX package's bar (tests/test_serving.py)
 SERVE_BF16_TOL, SERVE_BF16_ARGMAX = 0.1, 0.9
+# the GEMM of rows 1 and 11 against its products in fp64, per mode: max
+# |err| over max |ref| (gemm_check)
+GEMM_REL = {"proj": 1e-5, "gates": 1e-5, "dx": 1e-5, "dw": 1e-5}
 BF16_RTOL = 2.0 ** -7  # a bf16 output of a bf16 form: one ulp of the value on top of its atol
 # ME-MHACL: the MAHNOB-HCI trial count of the other phases, the reference
 # batch, full width
@@ -221,8 +249,13 @@ HEAD_ATOL = 1e-4  # fused head against the module path on the card
 ATTN_B, ATTN_T, ATTN_E, ATTN_HEADS = 64, 585, 256, 8
 # the bound of a case: the larger of its bytes (each input read once, each
 # output written once) over the memory rate and its operations over the
-# fp32 rate, or the bf16 rate for a bf16 form (H100 SXM data sheet)
+# peak rate for their type (peak_rate): fp32, or bf16 for a bf16 form; the
+# BiLSTM's GEMM at the bf16 rate for its bf16 x bf16 products and at the
+# TF32 tensor-core rate, per TF32 pass, for its products with an fp32
+# operand; the recurrence and the sweep at the fp32 rate in both forms
+# (their arithmetic is fp32 on CUDA cores) (H100 SXM data sheet, dense)
 PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, PEAK_BF16_FLOPS = 3.35e12, 67e12, 989e12
+PEAK_TF32_FLOPS = 495e12
 
 CSRC = "multimodal_sentiment_aanalysis_tpu_torch/csrc/"
 JAX_KERNELS = "multimodal_sentiment_aanalysis_tpu/kernels/"
@@ -238,6 +271,11 @@ TRAINING_KERNELS = {
     "bilstm_fwd": (CSRC + "lstm_fwd.cu", JAX_KERNELS + "lstm.py:527", 1e-4),
     "bilstm_cbnd": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1026", 1e-4),
     "bilstm_segbwd": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1227", 1e-3),
+    # the pieces of rows 1 and 11: the GEMM's dW_cat sums B*T rows as
+    # bilstm_segbwd's does; the sweep's dgates carry dh through T steps
+    "bilstm_gemm": (CSRC + "lstm_gemm.cu", JAX_KERNELS + "lstm.py:527,1227", 1e-3),
+    "bilstm_rec": (CSRC + "lstm_fwd.cu", JAX_KERNELS + "lstm.py:527", 1e-4),
+    "bilstm_sweep": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1227", 1e-4),
     "stem_tail": (CSRC + "stem_tail.cu", JAX_KERNELS + "conv_stem_train.py:265", 1e-5),
     "stem_tail_bwd": (CSRC + "stem_tail.cu", JAX_KERNELS + "conv_stem_train.py:368", 1e-3),
     "infonce": (CSRC + "infonce.cu", JAX_KERNELS + "contrastive.py:61", 1e-4),
@@ -270,8 +308,8 @@ def schedule_per_step(schedule: str) -> tuple[dict, dict]:
     one model, under a BiLSTM schedule."""
     other = lambda per: {k: n for k, n in per.items() if not k.startswith("bilstm")}
     fwd = SCHEDULE_KERNELS[schedule]
-    return ({**other(PER_STEP), **{name: 2 for name in fwd}},
-            {**other(PER_EVAL), fwd[0]: 2})
+    return (with_row_kernels({**other(PER_STEP), **{name: 2 for name in fwd}}),
+            with_row_kernels({**other(PER_EVAL), fwd[0]: 2}))
 
 
 def check(ok: bool, msg: str) -> None:
@@ -379,8 +417,8 @@ def serving_phase(device: torch.device):
         outs, ms = serve(paths, pool, plan)
         counts = launch_counts()
     expected = {name: 0 for name in KERNELS}
-    expected.update(bilstm_fwd=2 * REQUESTS * len(paths), stem_tail=2 * REQUESTS,
-                    conv_stem=2 * REQUESTS)
+    expected.update(with_row_kernels(dict(bilstm_fwd=2 * REQUESTS * len(paths),
+                                          stem_tail=2 * REQUESTS, conv_stem=2 * REQUESTS)))
     print(f"serving launches over {REQUESTS} requests x {len(paths)} entry points: {counts}")
     check(counts == expected, f"serving launch counts {counts} != {expected}")
     for name in paths:
@@ -422,7 +460,7 @@ def serving_bf16_phase(model, pool: DeviceDataset, plan: torch.Tensor, fp32_logi
     outs, ms = serve({"serving_bf16": fwd}, pool, plan)
     counts = launch_counts()
     expected = {name: 0 for name in KERNELS}
-    expected["bilstm_fwd_bf16"] = 2 * REQUESTS
+    expected.update(with_row_kernels({"bilstm_fwd_bf16": 2 * REQUESTS}))
     print(f"bf16 serving launches over {REQUESTS} requests: {counts}")
     check(counts == expected, f"bf16 serving launch counts {counts} != {expected}")
     worst, excess, agree = 0.0, 0.0, 1.0
@@ -666,6 +704,8 @@ def training_kernel_cases(model, batch: dict, mask: torch.Tensor, gen: torch.Gen
             label, lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd(*a),
             lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd_plain(*a),
             (dh, x, h_seq, c_bnd, *w)))
+        for name, items in lstm_piece_cases(x, w, h_seq, dh, c_bnd, label).items():
+            cases[name] += items
         x = h_seq
     model.eval()  # the encoders' embeddings, without moving the running stats
     feats = torch.stack([model.eeg_net(batch["eeg"]), model.eye_net(batch["eye"]),
@@ -677,6 +717,42 @@ def training_kernel_cases(model, batch: dict, mask: torch.Tensor, gen: torch.Gen
     cases["infonce"].append((
         f"G 3 {tuple(n.shape[1:])}", lambda a=args: contrastive.infonce(*a),
         lambda a=args: contrastive.infonce_plain(*a), args))
+
+
+def lstm_piece_cases(x, w, h_seq, dh, c_bnd, label: str, sfx: str = "") -> dict:
+    """The pieces of rows 1 and 11 at one layer's shapes: the GEMM at its
+    four products, the recurrence and the sweep, each (label, kernel call,
+    plain call, the tensors the call reads). The sweep's kernel call
+    overwrites a copy of the activations (the copy is timed with it)."""
+    w_ih, w_hh, bias = w
+    xp = lstm.bilstm_gemm_plain("proj", x, *w)
+    act = lstm.bilstm_gemm_plain("gates", x, *w, h_seq=h_seq)
+    dg = lstm.bilstm_sweep_plain(act, dh, c_bnd, w_hh)
+    reads = {"proj": (x, w_ih, bias), "gates": (x, h_seq, w_ih, w_hh, bias), "dx": (dg, w_ih),
+             "dw": (x, h_seq, dg)}
+
+    def exact(mode: str):
+        """The mode's products in fp64, on the operands as given and on
+        their TF32 roundings (bias aside)"""
+        ref = lstm.bilstm_gemm_plain(mode, *(a.double() for a in (x, *w)), h_seq=h_seq.double(),
+                                     dg=dg.double())
+        one_pass = lstm.bilstm_gemm_plain(
+            mode, *(tf32_round(a).double() for a in (x, w_ih, w_hh)), bias.double(),
+            h_seq=tf32_round(h_seq).double(), dg=tf32_round(dg).double())
+        return ref, one_pass
+
+    return {
+        "bilstm_gemm" + sfx: [
+            (f"{mode} {label}", lambda m=mode: lstm.bilstm_gemm(m, x, *w, h_seq=h_seq, dg=dg),
+             lambda m=mode: lstm.bilstm_gemm_plain(m, x, *w, h_seq=h_seq, dg=dg),
+             (mode, *reads[mode]), lambda m=mode: exact(m)) for mode in lstm.GEMM_MODES],
+        "bilstm_rec" + sfx: [(label, lambda: lstm.bilstm_rec(xp, w_hh),
+                              lambda: lstm.bilstm_rec_plain(xp, w_hh), (xp, w_hh))],
+        "bilstm_sweep" + sfx: [(f"{label} K {lstm.SEG_K}",
+                                lambda: lstm.bilstm_sweep(act.clone(), dh, c_bnd, w_hh),
+                                lambda: lstm.bilstm_sweep_plain(act, dh, c_bnd, w_hh),
+                                (act, dh, c_bnd, w_hh))],
+    }
 
 
 def dropout_check(model, batch: dict, gen: torch.Generator) -> None:
@@ -1081,6 +1157,14 @@ def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator,
             (x, h_seq, *w))
         add("bilstm_segbwd", f"{label} K {lstm.SEG_K}", lstm.bilstm_segbwd,
             lstm.bilstm_segbwd_plain, (dh, x, h_seq, c_bnd, *w))
+        for name, items in lstm_piece_cases(x, w, h_seq, dh, c_bnd, f"S={s_n} {label}",
+                                            sfx).items():
+            cases[name] += items
+        if one_model is not None:
+            for name, items in lstm_piece_cases(
+                    x[0], tuple(t[0] for t in w), h_seq[0], dh[0], c_bnd[0],
+                    f"subject 0 of S={s_n} {label}", sfx).items():
+                one_model[name] += items
         x = h_seq
     # one step's 3 S problems: each model's labels; every other model on the
     # epoch's wrap-padded last batch (12 real rows of 64)
@@ -1316,8 +1400,36 @@ def operations(name: str, args, res) -> float:
     counts two, an exp, erf, max or division one; the per-element terms of
     the gate and normalisation arithmetic are approximate. A bf16 form does
     its fp32 form's operations."""
+    bf16 = name.endswith("_bf16")
     name = name.removesuffix("_bf16")
     t = tensors(args)
+    if name == "bilstm_gemm":
+        # 2MNK per product and pass: three TF32 passes for fp32 x fp32
+        # (fp32-accurate), two for bf16 x fp32 dgates (dx, dW_cat), one bf16
+        # pass for bf16 x bf16 (proj, gates; peak_rate takes the bf16 rate)
+        mode = args[0]
+        passes = (1 if mode in ("proj", "gates") else 2) if bf16 else 3
+        x = t[0]
+        if mode == "dx":
+            dg, w_ih = t
+            return passes * 2 * dg.numel() * w_ih.shape[-1]
+        h = t[1].shape[-1] // 2 if mode in ("gates", "dw") else t[1].shape[-2] // 4
+        g = 8 * h  # both directions' gate columns
+        if mode == "proj":
+            return passes * 2 * x.numel() * g
+        if mode == "gates":  # and the activations
+            rows = x.numel() // x.shape[-1]
+            return passes * 2 * rows * g * (x.shape[-1] + h) + 4 * rows * g
+        rows = x.numel() // x.shape[-1]
+        return passes * 2 * rows * g * (x.shape[-1] + h + 1)
+    if name == "bilstm_rec":  # per (row, step, direction): h W_hh^T and the cell
+        xp, w_hh = t
+        h = w_hh.shape[-1]
+        return 2 * xp.numel() // (8 * h) * (8 * h * h + 10 * h)
+    if name == "bilstm_sweep":  # per (row, step, direction): the dh carry, the cell, c = f c + i g
+        act, _, _, w_hh = t
+        h = w_hh.shape[-1]
+        return 2 * act.numel() // (8 * h) * (8 * h * h + 20 * h + 3 * h)
     if name.startswith("bilstm"):
         # x (or xp), the input rows; the last argument is a bias (4H) or,
         # for the v5 kernels, W_hh (H)
@@ -1372,6 +1484,8 @@ def library_call(name: str, args):
     beside the kernel only."""
     name = name.removesuffix("_bf16")
     t = tensors(args)
+    if name in ("bilstm_gemm", "bilstm_rec", "bilstm_sweep"):
+        return None  # a piece of rows 1 and 11: no one call computes it
     if name.startswith("bilstm"):
         forward_only = name in ("bilstm_fwd", "bilstm_fwd_xp")
         if name == "bilstm_fwd":
@@ -1425,6 +1539,47 @@ def library_call(name: str, args):
     return None
 
 
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to TF32 (10-bit mantissa, to nearest, ties away
+    from zero, as cvt.rna does); a bf16 tensor is exact in TF32."""
+    if t.dtype != torch.float32:
+        return t
+    return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def gemm_check(name: str, label: str, mode: str, got, want, ref, one_pass) -> None:
+    """Holds one GEMM case to its mode's bar against the fp64 products
+    ``ref``: max |kernel - ref| <= GEMM_REL[mode] x max |ref|. Where the
+    product has an fp32 operand, the bar must also be one that the same
+    products on TF32-rounded operands (``one_pass``, what one TF32 pass
+    computes at best) miss."""
+    scale = ref.abs().max().item()
+    err, err32, err_tf32 = ((v.double() - ref).abs().max().item()
+                            for v in (got, want, one_pass))
+    bar = GEMM_REL[mode] * scale
+    fp32_operand = not name.endswith("_bf16") or mode in ("dx", "dw")
+    print(f"gemm {name} {label}: against fp64, max |ref| {scale:.4g}; kernel {err:.3e} "
+          f"({err / scale:.2e} of it), fp32 plain {err32:.3e} ({err32 / scale:.2e}), one TF32 "
+          f"pass {err_tf32:.3e} ({err_tf32 / scale:.2e}); bar {GEMM_REL[mode]:.0e} of max |ref|")
+    check(err <= bar, f"{name} {label}: {err:.3e} from the fp64 products > {bar:.3e}")
+    check(not fp32_operand or err_tf32 > bar,
+          f"{name} {label}: one TF32 pass ({err_tf32:.3e}) would meet the bar {bar:.3e}")
+
+
+def peak_rate(name: str, args) -> float:
+    """The card's peak rate for the type of one case's operations: the
+    recurrence and the sweep compute in fp32 in both forms; the GEMM's
+    bf16 x bf16 products (the bf16 form's proj and gates) at the bf16 rate,
+    its products with an fp32 operand at the TF32 rate, counted per pass
+    (:func:`operations`); any other bf16 form at the bf16 rate."""
+    if name.startswith(("bilstm_rec", "bilstm_sweep")):
+        return PEAK_FP32_FLOPS
+    if name.startswith("bilstm_gemm"):
+        bf16_only = name.endswith("_bf16") and args[0] in ("proj", "gates")
+        return PEAK_BF16_FLOPS if bf16_only else PEAK_TF32_FLOPS
+    return PEAK_BF16_FLOPS if name.endswith("_bf16") else PEAK_FP32_FLOPS
+
+
 def case_results(name: str, items: list) -> dict:
     """Holds each (label, kernel call, plain call, inputs) of one kernel to
     its tolerance (for a bf16 output, its tolerance plus BF16_RTOL of the
@@ -1432,15 +1587,16 @@ def case_results(name: str, items: list) -> dict:
     plain, bound and library times summed over the cases (the library time
     None where no case has a library call)."""
     _, _, tol = KERNELS[name]
-    peak = PEAK_BF16_FLOPS if name.endswith("_bf16") else PEAK_FP32_FLOPS
     out = dict(err=0.0, ms=0.0, plain_ms=0.0, ops_ms=0.0, bytes_ms=0.0, bound_ms=0.0,
                library_ms=None)
-    for label, kern, plain, args in items:
+    for label, kern, plain, args, *exact in items:
         res = kern()
         got, want = outputs(name, res), outputs(name, plain())
         torch.cuda.synchronize()
         check(len(got) == len(want) and all(g.shape == w.shape for g, w in zip(got, want)),
               f"{name} {label}: outputs differ in shape")
+        if exact:
+            gemm_check(name, label, args[0], got[0], want[0], *exact[0]())
         diffs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
         e = max(d.max().item() for d in diffs)
         ok = all(bool((d <= tol + (BF16_RTOL if w.dtype == BF16 else 0.0) * w.float().abs()).all())
@@ -1448,7 +1604,7 @@ def case_results(name: str, items: list) -> dict:
         limit = f"{tol}{' + 1 ulp' if any(w.dtype == BF16 for w in want) else ''}"
         check(ok, f"{name} {label}: max |err| {e:.3e} > {limit}")
         nbytes = sum(x.numel() * x.element_size() for x in tensors(args) + tensors(res))
-        ops_ms = operations(name, args, res) / peak * 1e3
+        ops_ms = operations(name, args, res) / peak_rate(name, args) * 1e3
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         tk, tp = time_ms(kern), time_ms(plain)
         call = library_call(name, args)

@@ -3,16 +3,18 @@
 //
 //   msa_bilstm_cbnd   (a) c checkpoints at segment boundaries, replaces
 //                     multimodal_sentiment_aanalysis_tpu/kernels/lstm.py::_cbnd_kernel
-//   msa_bilstm_segbwd (b) reverse sweep over K-step segments, replaces
-//                     ::_segbwd_kernel
+//   msa_bilstm_sweep  (b) the serial half of the reverse sweep over K-step
+//                     segments, which with three products of lstm_gemm.cu
+//                     replaces ::_segbwd_kernel
 //
 // and, fp32 only, the JAX package's other backward schedules (v5, v6, v8,
 // v9.1), each an entry point of its own:
 //
 //   msa_bilstm_cseq      the full fp32 c_seq (S, 2, T, B, H): (a) at K = 1,
 //                        replaces ::_cseq_kernel (v8, v6)
-//   msa_bilstm_bwdc      (b) at K = 1, reading c_prev from that full c_seq
-//                        (v8), replaces ::_bwd_bwdc_kernel
+//   msa_bilstm_bwdc      the per-block reverse sweep below at K = 1, reading
+//                        c_prev from that full c_seq (v8), replaces
+//                        ::_bwd_bwdc_kernel
 //   msa_bilstm_bwd_split per-step reverse sweep that emits the packed gate
 //                        gradients dxp (S, B, T, 8H) (v6), replaces
 //                        ::_bwd_xproj_kernel
@@ -28,55 +30,73 @@
 // order with c in registers and writes c only where a segment of K actual
 // time steps ends, in the JAX package's slot convention (direction 0 stores
 // c at a % K == K-1 into slot a / K, the entry of block a / K + 1; direction
-// 1 stores c at a % K == 0, the entry of block a / K - 1). (b) visits the
-// K-row blocks in reverse recurrence order; per block it recomputes the
-// gates of its rows, rebuilds c from the block's entry checkpoint, then runs
-// the rows backwards: dh carries through dgates . W_hh, dc through f. It
+// 1 stores c at a % K == 0, the entry of block a / K - 1). K need not divide
+// T: the last segment is partial and only its real rows are visited.
+//
+// (a), row 9, and the per-block sweeps of the other schedules: one block per
+// (batch tile of kBt rows, direction, model), the model axis S the grid's z
+// axis, 4H threads, the time loop inside the block, thread g owning gate
+// column g. What bounds them on the H100: T dependent steps per direction,
+// each a small product whose weights (768 KiB per direction for the gates,
+// 256 KiB for a dh carry) do not fit shared memory and stream from L2.
+//
+// (b), row 11. What bounds it on the H100, at the flagship layer (B=64,
+// T=73, I=256, H=128, fp32): T=73 dependent steps per direction, each carrying
+// dh through a (B x 4H) . (4H x H) product; the rest of ::_segbwd_kernel's
+// work is parallel in time: the gate recompute from x and the stored h_prev
+// (8H (I + H) FLOP a row), dx = dgates . W_ih and dW_cat = [x | h_prev | 1]^T
+// . dgates (2 x 4672 x 385 x 512 FMAs per layer). The earlier design ran all
+// of it inside the serial sweep on CUDA cores, one block per 8 batch rows (16
+// blocks at S=1), re-reading 1 MiB of weights per direction from L2 per step
+// and read-modify-writing a per-tile dW_cat partial buffer (302 MB at S=24).
+//
+// Design: the wrapper (kernels/lstm.py::bilstm_segbwd) runs the time-parallel
+// work as tensor-core GEMMs of lstm_gemm.cu around this kernel: the gate
+// activations of every (b, t) first (mode kGates) into an (S, B, T, 8H) fp32
+// buffer, then this sweep, which overwrites that buffer in place with dgates,
+// then dx (kDx) and dW_cat (kDw) from dgates. The sweep runs one
+// thread-block cluster per (model, direction, batch tile) (lstm_cluster.cuh),
+// CTA k owning U = H / C units and holding their 4U rows of W_hh (128 KiB in
+// fp32 at C = 2) in shared memory for the whole sweep. Per K-segment, in
+// reverse recurrence order, and per row of it from the last: each thread
+// rebuilds c of its cells from the segment's entry checkpoint and the stored
+// activations (elementwise, rows 0..r again for row r: K(K+1)/2 steps a
+// segment where K would do, their loads L1 hits of rows the thread has just
+// read; keeping the segment's c instead takes kRt x K registers, which the
+// kRt = 8 form, already spilling at 128, does not have), runs the cell
+// backward with its dh and dc carries in registers, writes dgates over the
+// activations and into shared memory; the CTA multiplies its 4U gate columns
+// of dgates by its W_hh rows into a partial dh over all H units; the partials are
+// reduce-scattered through distributed shared memory (CTA k sums the C
+// partials of its units, rank 0 first: a fixed order); two cluster barriers
+// a step, split into arrive and wait so the cell work overlaps them.
+//
+// The per-block body below (bilstm_segbwd_kernel) is the earlier design of
+// (b), kept for msa_bilstm_bwdc (v8, row 8): per block of K rows it recomputes
+// the gates of its rows, rebuilds c from the block's entry checkpoint, then
+// runs the rows backwards: dh carries through dgates . W_hh, dc through f. It
 // emits dx as per-direction halves (summed by the wrapper) and accumulates
-// dW_cat = [x | h_prev | 1]^T . dgates, whose rows give dW_ih, dW_hh and db.
-// K need not divide T: the last block is partial and only its real rows
-// are visited.
+// dW_cat = [x | h_prev | 1]^T . dgates into a per-batch-tile partial slice
+// (read-modify-write by one block only, no atomics), summed by the wrapper.
 //
-// What bounds it on the H100, at the flagship layer (B=64, T=73, I=256,
-// H=128, fp32): as in the forward, T=73 dependent steps per direction,
-// each a small matrix-vector product whose weights (768 KiB per direction
-// for the gates, 256 KiB for the dh carry) do not fit shared memory and
-// stream from L2. (a) costs what the forward costs. (b) adds the serial
-// dh . W_hh^T product per step, and per block the dx and dW_cat products
-// (parallel in time; 2 x 4672 x 385 x 512 FMAs for dW_cat per layer).
-//
-// Design: one block per (batch tile of kBt rows, direction, model), 4H
-// threads, the time loop inside the block, as in the forward; the model axis
-// S is the grid's z axis and each block offsets its operands by its model. In (b) a block keeps
-// its K rows of x, h_prev, gate activations (overwritten in place by
-// dgates) and c in shared memory; thread g owns gate column g for the gate
-// recompute and for dW_cat; the dh carry splits the 4H gates into four
-// quarters over the threads and sums the quarters in a fixed order. dW_cat
-// is accumulated across the block's segments in its own slice of a
-// per-batch-tile partial buffer (read-modify-write by one block only, no
-// atomics); the wrapper sums the tiles, so the result is deterministic.
-// Parallelising the gate recompute over time (a batched GEMM ahead of the
-// serial sweeps) and spreading a direction over a cluster are later work.
-//
-// Each entry point has an fp32 and a bf16 form (suffix _bf16), one template
-// over the element type T of the activations and weights (x, h_seq, dh_seq,
-// W_ih, W_hh, bias), as the JAX kernels are Mosaic instances at either
-// dtype. The c checkpoints, the dW_cat tile partials and the dx halves stay
-// fp32 in both, and so does all arithmetic: the bf16 form only reads half
-// the bytes. The wrapper rounds dx and the weight gradients to the inputs'
-// dtype, as the JAX layer's VJP does.
+// msa_bilstm_cbnd and msa_bilstm_sweep have an fp32 and a bf16 form (suffix
+// _bf16), one template over the element type of the activations and weights
+// (x, h_seq, dh_seq, W_ih, W_hh, bias), as the JAX kernels are Mosaic
+// instances at either dtype. The c checkpoints, the gate activations and
+// dgates stay fp32 in both, and so does all arithmetic: the bf16 form only
+// reads half the bytes. The wrapper rounds dx and the weight gradients to the
+// inputs' dtype, as the JAX layer's VJP does.
 
-#include "common.cuh"
+#include "lstm_cluster.cuh"
 
 namespace {
 
 constexpr int kBt = 8;  // batch rows per block; kBt * H == 2 * (4H threads)
-// The reverse sweep's most threads per block (4H <= 512, H <= 128), and the
-// register cap that lets a block of that many launch: 65536 / 512 = 128 a
-// thread. The fp32 form takes 128 uncapped; the bf16 form's conversions took
-// 140, which cannot launch 512 threads. The cap is __maxnreg__, not
-// __launch_bounds__(512): with the launch bound the compiler cut the fp32
-// form to 64 registers with spills, and its sweep slowed by a sixth.
+// The per-block reverse sweeps' most threads per block (4H <= 512, H <= 128),
+// and the register cap that lets a block of that many launch: 65536 / 512 =
+// 128 a thread (a bf16 form of the K-segment body took 140). The cap is
+// __maxnreg__, not __launch_bounds__(512): with the launch bound the compiler
+// cut that body to 64 registers with spills, and its sweep slowed by a sixth.
 constexpr int kSegMaxThreads = 512;
 constexpr int kSegMaxRegs = 65536 / kSegMaxThreads;
 
@@ -662,6 +682,152 @@ bilstm_cbndk_kernel(const float* __restrict__ x,       // (S, B, T, I)
     }
 }
 
+// (b), row 11's serial half: the reverse sweep over the gate activations
+template <typename E, int kRt>
+__global__ void __launch_bounds__(kClusterMaxThreads)
+bilstm_sweep_kernel(float* __restrict__ act,          // (S, B, T, 8H): i, f, g, o in; dgates out
+                    const E* __restrict__ dh_seq,     // (S, B, T, 2H)
+                    const float* __restrict__ c_bnd,  // (S, 2, NSEG, B, H)
+                    const E* __restrict__ w_hh,       // (S, 2, 4H, H)
+                    int B, int T, int H, int K, int bt, int ntiles) {
+    const ClusterPos pos = cluster_pos(ntiles);
+    const int d = pos.d, C = pos.C;
+    const int U = H / C, U4 = 4 * U, j0 = pos.rank * U;
+    const int G = 4 * H;
+    const int nseg = (T + K - 1) / K;
+    const int groups = (bt + kRt - 1) / kRt;
+    const int rows = groups * kRt;
+    const int ds = U4 + 4;  // dgates tile row stride (float4 reads along the gates)
+    const int ps = H + 1;   // partial dh row stride
+    extern __shared__ float4 cluster_smem[];  // 16-byte aligned
+    unsigned char* smem = reinterpret_cast<unsigned char*>(cluster_smem);
+    E* ws = reinterpret_cast<E*>(smem);  // (4U, H): ws[q U + u][k] = W_hh[q H + j0 + u][k]
+    float* dgs = reinterpret_cast<float*>(smem + align16(sizeof(E) * U4 * H));  // (rows, ds)
+    float* pbuf = dgs + rows * ds;  // (rows, ps): this CTA's partial dh, all H units
+
+    const E* w = w_hh + (pos.model * 2 + d) * G * H;
+    for (int idx = threadIdx.x; idx < U4 * H; idx += blockDim.x) {
+        const int c = idx / H;
+        ws[idx] = w[static_cast<size_t>((c / U) * H + j0 + c % U) * H + idx % H];
+    }
+    for (int idx = threadIdx.x; idx < rows * ds; idx += blockDim.x) dgs[idx] = 0.0f;
+    __syncthreads();
+
+    const bool active = threadIdx.x < groups * U;
+    const int u = active ? threadIdx.x % U : 0;
+    const int rc = active ? threadIdx.x / U : 0;
+    const int j = j0 + u;
+    const int b0 = pos.tile * bt;
+    act += pos.model * B * T * 2 * G + d * G + j;
+    dh_seq += pos.model * B * T * 2 * H + d * H + j;
+    c_bnd += (pos.model * 2 + d) * nseg * B * H + j;
+    bool valid[kRt];
+#pragma unroll
+    for (int q = 0; q < kRt; ++q) {
+        const int r = rc + groups * q;
+        valid[q] = active && r < bt && b0 + r < B;
+    }
+    float dhc[kRt] = {}, dcc[kRt] = {};  // dh and dc carried into the current row
+    cluster_arrive();  // pairs with the first row's wait
+
+    for (int gi = 0; gi < nseg; ++gi) {
+        const int m = d == 0 ? nseg - 1 - gi : gi;
+        const int a_lo = m * K;
+        const int nr = min(K, T - a_lo);
+        // recurrence-order row r of this segment -> actual time
+        auto a_of = [&](int r) { return d == 0 ? a_lo + r : a_lo + nr - 1 - r; };
+        const bool first_seg = gi == nseg - 1;  // where the recurrence starts
+        const int slot = d == 0 ? m - 1 : m + 1;
+        float ce[kRt];  // c entering the segment
+#pragma unroll
+        for (int q = 0; q < kRt; ++q) {
+            const size_t b = b0 + rc + groups * q;
+            ce[q] = (valid[q] && !first_seg) ? c_bnd[(static_cast<size_t>(slot) * B + b) * H] : 0.0f;
+        }
+        for (int r = nr - 1; r >= 0; --r) {
+            const int a = a_of(r);
+            // row r's o gate and output gradient, then c of rows r - 1 and r
+            // rebuilt from the entry; each row's loads for all kRt batch rows
+            // are issued together, so a row of the rebuild waits on memory once
+            float og[kRt], dho[kRt], c[kRt], cp[kRt], ig[kRt], fg[kRt], gg[kRt];
+#pragma unroll
+            for (int q = 0; q < kRt; ++q) {
+                const size_t at = (static_cast<size_t>(b0 + rc + groups * q) * T + a);
+                og[q] = valid[q] ? act[at * 2 * G + 3 * H] : 0.0f;
+                dho[q] = valid[q] ? to_float(dh_seq[at * 2 * H]) : 0.0f;
+                c[q] = ce[q];
+            }
+            for (int rr = 0; rr <= r; ++rr) {
+                const int ar = a_of(rr);
+#pragma unroll
+                for (int q = 0; q < kRt; ++q) {
+                    const float* g = act + (static_cast<size_t>(b0 + rc + groups * q) * T + ar) * 2 * G;
+                    ig[q] = valid[q] ? g[0] : 0.0f;
+                    fg[q] = valid[q] ? g[H] : 0.0f;
+                    gg[q] = valid[q] ? g[2 * H] : 0.0f;
+                }
+#pragma unroll
+                for (int q = 0; q < kRt; ++q) {
+                    cp[q] = c[q];
+                    c[q] = fg[q] * c[q] + ig[q] * gg[q];
+                }
+            }
+#pragma unroll
+            for (int q = 0; q < kRt; ++q) {
+                if (!valid[q]) continue;
+                const float dh = dhc[q] + dho[q];
+                const float tc = tanhf(c[q]);
+                const float dc = dcc[q] + dh * og[q] * (1.0f - tc * tc);
+                const float di = dc * gg[q] * ig[q] * (1.0f - ig[q]);
+                const float df = dc * cp[q] * fg[q] * (1.0f - fg[q]);
+                const float dg = dc * ig[q] * (1.0f - gg[q] * gg[q]);
+                const float d_o = dh * tc * og[q] * (1.0f - og[q]);
+                dcc[q] = dc * fg[q];
+                float* ar = act + (static_cast<size_t>(b0 + rc + groups * q) * T + a) * 2 * G;
+                ar[0] = di;
+                ar[H] = df;
+                ar[2 * H] = dg;
+                ar[3 * H] = d_o;
+                float* dr = dgs + (rc + groups * q) * ds + u;
+                dr[0] = di;
+                dr[U] = df;
+                dr[2 * U] = dg;
+                dr[3 * U] = d_o;
+            }
+            __syncthreads();  // the dgates tile is complete
+            cluster_wait();   // every CTA has read the partials of the last row
+            // this CTA's partial dh: its 4U gate columns of dgates . W_hh, all H units
+            for (int task = threadIdx.x; task < groups * H; task += blockDim.x) {
+                const int k = task % H, rc2 = task / H;
+                float part[kRt] = {};
+                for (int gl = 0; gl < U4; gl += 4) {
+                    const float w0 = to_float(ws[gl * H + k]), w1 = to_float(ws[(gl + 1) * H + k]);
+                    const float w2 = to_float(ws[(gl + 2) * H + k]), w3 = to_float(ws[(gl + 3) * H + k]);
+#pragma unroll
+                    for (int q = 0; q < kRt; ++q) {
+                        const float4 v = *reinterpret_cast<const float4*>(dgs + (rc2 + groups * q) * ds + gl);
+                        part[q] = fmaf(v.w, w3, fmaf(v.z, w2, fmaf(v.y, w1, fmaf(v.x, w0, part[q]))));
+                    }
+                }
+#pragma unroll
+                for (int q = 0; q < kRt; ++q) pbuf[(rc2 + groups * q) * ps + k] = part[q];
+            }
+            cluster_arrive();
+            cluster_wait();  // every CTA's partials are complete
+            // reduce-scatter: dh of this CTA's units, the C partials in rank order
+#pragma unroll
+            for (int q = 0; q < kRt; ++q) dhc[q] = 0.0f;
+            for (int k = 0; k < C; ++k) {
+                const float* pk = cg::this_cluster().map_shared_rank(pbuf, k);
+#pragma unroll
+                for (int q = 0; q < kRt; ++q) dhc[q] += valid[q] ? pk[(rc + groups * q) * ps + j] : 0.0f;
+            }
+            cluster_arrive();  // done reading the partials
+        }
+    }
+    cluster_wait();  // no CTA leaves while another reads its shared memory
+}
+
 template <typename E>
 int launch_cbnd(const E* x, const E* h_seq, const E* w_ih_t, const E* w_hh_t, const E* bias,
                 float* c_bnd, int S, int B, int T, int I, int H, int K, int device,
@@ -696,6 +862,30 @@ int launch_segbwd(const E* dh_seq, const E* x, const E* h_seq, const float* c_bn
     return cudaGetLastError();
 }
 
+template <typename E>
+int launch_sweep(float* act, const E* dh_seq, const float* c_bnd, const E* w_hh, int S, int B,
+                 int T, int H, int K, int C, int bt, int rows, int smem_planned, int device,
+                 void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    if (C < 1 || H % C != 0 || bt < 1 || K < 1 || rows < 1) return cudaErrorInvalidValue;
+    const int groups = (bt + rows - 1) / rows;
+    const int U = H / C;
+    const int threads = (groups * U + 31) / 32 * 32;
+    if (threads > kClusterMaxThreads) return cudaErrorInvalidConfiguration;
+    const size_t smem = ((sizeof(E) * 4 * U * H + 15) & ~size_t{15}) +
+                        sizeof(float) * groups * rows * ((4 * U + 4) + (H + 1));
+    // the wrapper planned the cluster with its own count of these bytes
+    // (kernels/lstm.py::_cluster_smem): a plan made on another layout is refused
+    if (smem != static_cast<size_t>(smem_planned)) return cudaErrorInvalidValue;
+    const int ntiles = (B + bt - 1) / bt;
+    return by_rows(rows, [&](auto r) {
+        return launch_cluster(bilstm_sweep_kernel<E, decltype(r)::value>, C, ntiles * 2 * S,
+                              threads, smem, stream, act, dh_seq, c_bnd, w_hh, B, T, H, K, bt,
+                              ntiles);
+    });
+}
+
 }  // namespace
 
 using bf16 = __nv_bfloat16;
@@ -712,22 +902,23 @@ extern "C" int msa_bilstm_cbnd_bf16(const bf16* x, const bf16* h_seq, const bf16
     return launch_cbnd(x, h_seq, w_ih_t, w_hh_t, bias, c_bnd, S, B, T, I, H, K, device, stream);
 }
 
-extern "C" int msa_bilstm_segbwd(const float* dh_seq, const float* x, const float* h_seq,
-                                 const float* c_bnd, const float* w_ih_t, const float* w_hh_t,
-                                 const float* w_ih, const float* w_hh, const float* bias,
-                                 float* dx_pk, float* dw_part, int S, int B, int T, int I,
-                                 int H, int K, int device, void* stream) {
-    return launch_segbwd(dh_seq, x, h_seq, c_bnd, w_ih_t, w_hh_t, w_ih, w_hh, bias, dx_pk,
-                         dw_part, S, B, T, I, H, K, device, stream);
+// row 11's serial sweep: act (S, B, T, 8H) fp32 gate activations, overwritten
+// in place by dgates; dh_seq (S, B, T, 2H), c_bnd (S, 2, NSEG, B, H) fp32,
+// W_hh (S, 2, 4H, H); clusters of C CTAs over batch tiles of bt rows, `rows`
+// (2, 4 or 8) batch rows a thread, smem_planned bytes of shared memory a CTA
+extern "C" int msa_bilstm_sweep(float* act, const float* dh_seq, const float* c_bnd,
+                                const float* w_hh, int S, int B, int T, int H, int K, int C,
+                                int bt, int rows, int smem_planned, int device, void* stream) {
+    return launch_sweep(act, dh_seq, c_bnd, w_hh, S, B, T, H, K, C, bt, rows, smem_planned,
+                        device, stream);
 }
 
-extern "C" int msa_bilstm_segbwd_bf16(const bf16* dh_seq, const bf16* x, const bf16* h_seq,
-                                      const float* c_bnd, const bf16* w_ih_t, const bf16* w_hh_t,
-                                      const bf16* w_ih, const bf16* w_hh, const bf16* bias,
-                                      float* dx_pk, float* dw_part, int S, int B, int T, int I,
-                                      int H, int K, int device, void* stream) {
-    return launch_segbwd(dh_seq, x, h_seq, c_bnd, w_ih_t, w_hh_t, w_ih, w_hh, bias, dx_pk,
-                         dw_part, S, B, T, I, H, K, device, stream);
+extern "C" int msa_bilstm_sweep_bf16(float* act, const bf16* dh_seq, const float* c_bnd,
+                                     const bf16* w_hh, int S, int B, int T, int H, int K, int C,
+                                     int bt, int rows, int smem_planned, int device,
+                                     void* stream) {
+    return launch_sweep(act, dh_seq, c_bnd, w_hh, S, B, T, H, K, C, bt, rows, smem_planned,
+                        device, stream);
 }
 
 // ---- the other schedules' entry points (fp32) ----

@@ -1,121 +1,213 @@
-// Bidirectional LSTM layer forward, both directions and all S models in one
-// launch.
+// Bidirectional LSTM layer forward: the serial recurrence kernels.
 //
-// Replaces multimodal_sentiment_aanalysis_tpu/kernels/lstm.py::_fwd_xproj_kernel
-// (the v6 in-kernel-projection forward): per step the gates are
-// x_t . W_ih^T + h . W_hh^T + (b_ih + b_hh) in torch (i, f, g, o) order, the
-// reverse direction walks time by index (no flipped copy), h and c stay fp32
-// on chip across the whole sweep, and only h_seq is written.
+// msa_bilstm_rec (fp32) and msa_bilstm_rec_bf16, the recurrence half of row 1,
+// replace multimodal_sentiment_aanalysis_tpu/kernels/lstm.py::_fwd_xproj_kernel
+// together with the input projection of lstm_gemm.cu (mode kProj), which the
+// wrapper (kernels/lstm.py::bilstm_fwd) launches first: xp = x . W_ih^T + b,
+// packed (S, B, T, 8H) [fwd | bwd] in actual time, fp32. Per step this kernel
+// computes only gates = xp_t + h_{t-1} . W_hh^T in torch (i, f, g, o) order,
+// then the cell; the reverse direction walks time by index (no flipped copy);
+// h and c stay fp32 on chip across the whole sweep, and only h_seq is written
+// (in the storage type: the bf16 form reads bf16 W_hh and stores bf16 h_seq,
+// all arithmetic and the h it exchanges fp32, as the JAX kernel accumulates
+// with preferred_element_type=float32 and carries h/c in fp32 scratch).
 //
-// Two forms of one template: fp32 (msa_bilstm_fwd) and bf16
-// (msa_bilstm_fwd_bf16), the JAX kernel's two Mosaic instances. The bf16
-// form reads x, the weights and the bias as bf16 and stores h_seq as bf16;
-// every product and sum, h and c, and the h_{t-1} it broadcasts in shared
-// memory stay fp32, as the JAX kernel accumulates with
-// preferred_element_type=float32 and carries h/c in fp32 scratch.
+// What bounds it on the H100, at the flagship layer (B=64, T=73, H=128): the
+// T=73 dependent steps. Each is a (B x H) . (H x 4H) product, 2.1 MFMA a
+// direction, too small to fill the card; the earlier design (one block per 8
+// batch rows, 16 blocks at S=1) re-read W_ih (512 KiB) and W_hh (256 KiB)
+// from L2 every step, each weight feeding only 8 rows, with the input product
+// inside the serial loop.
 //
-// What bounds it on the H100, at the flagship layer (B=64, T=73, I=256,
-// H=128, fp32): 3.67 GFLOP per layer, but T=73 dependent steps, and the
-// weights of one direction (W_ih 512 KiB + W_hh 256 KiB) do not fit the
-// 227 KB of shared memory a block can hold. So each block re-reads them from
-// L2 every step: the kernel is bound by the per-SM L2 read rate and the
-// serial step chain, not by FLOPs.
+// Design: the input product is a tensor-core GEMM ahead of the loop, so the
+// loop holds only h . W_hh^T. One thread-block cluster per (model, direction,
+// batch tile of up to 64 rows) (lstm_cluster.cuh): CTA k keeps W_hh^T for its
+// U = H / C units' four gate columns (H x 4U, 128 KiB in fp32 at C = 2)
+// resident in shared memory for all T steps, computes those gates for every
+// row of the tile on CUDA cores from h_{t-1} in shared memory (float4 reads
+// along H, broadcast across the lanes of a row chunk), updates c in registers
+// and all-gathers its h slice into every CTA's next-step h buffer through
+// distributed shared memory; one cluster barrier per step, the h buffer
+// double-buffered so that no CTA overwrites what another still reads. The
+// next step's xp is loaded into registers while the current step's product
+// runs. The wrapper picks the cluster size, batch tile and rows per thread
+// from the shapes (kernels/lstm.py::cluster_plan) so that the grid fits one
+// wave of the 132 SMs with the least serial work a step: C = 8 over tiles of
+// 16 rows, 2 rows a thread, at S=1 (64 CTAs); C = 2 over all 64 rows, 8 a
+// thread, at S=24 (96 CTAs).
 //
-// Design: one block per (batch tile of kBt rows, direction, model) with a
-// loop over T inside the block; that loop takes the place of the TPU grid's
-// sequential time axis. The model axis S (the LOSO trainer's 24 models under
-// torch.func.vmap) is the grid's z axis: each block offsets every operand by
-// its model, so shared memory per block does not grow with S. Thread g of the 4H threads owns gate column g: it
-// streams column g of W_ih^T and W_hh^T (coalesced across the warp) and
-// reuses each weight for the kBt batch rows held in registers, against x_t
-// and h_{t-1} broadcast from shared memory. A cell phase then applies the
-// gate nonlinearities, with each thread owning two (row, unit) cells whose
-// c lives in registers. A cluster that splits the gate columns over SMs and
-// exchanges h through DSMEM, or bf16 weights resident in shared memory, is
-// later work.
-//
-// msa_bilstm_fwd_xp, the same body with the input product taken out (kXp),
-// replaces ::_fwd_kernel (the v5 forward): the gate pre-activation of step t
-// is xp[b, t, d*4H + g], a projection x . W_ih^T + b made by one matmul
-// outside the kernel, packed [fwd | bwd] along the last axis with both
-// halves in actual time; and c is stored in fp32 beside h, into
-// c_seq (S, 2, T, B, H), for the v5 backward (lstm_bwd.cu). Only h . W_hh^T
-// stays in the step: a quarter of the forward's gate products at I = 2H,
-// but xp is 4x the bytes of x. fp32 only.
+// msa_bilstm_fwd_xp replaces ::_fwd_kernel (the v5 forward, row 4): the gate
+// pre-activation of step t is xp[b, t, d*4H + g], a projection made by one
+// matmul outside the kernel, and c is stored in fp32 beside h, into
+// c_seq (S, 2, T, B, H), for the v5 backward (lstm_bwd.cu). One block per
+// (batch tile of kBt rows, direction, model), the model axis the grid's z,
+// 4H threads, thread g owning gate column g and streaming column g of W_hh^T
+// from L2 every step, reused for the kBt rows held in registers. fp32 only.
 
-#include "common.cuh"
+#include "lstm_cluster.cuh"
 
 namespace {
 
+// ---- row 1: the recurrence over xp on a cluster ----
+
+template <typename E, int kRt>
+__global__ void __launch_bounds__(kClusterMaxThreads)
+bilstm_rec_kernel(const float* __restrict__ xp,  // (S, B, T, 8H)
+                  const E* __restrict__ w_hh,    // (S, 2, 4H, H)
+                  E* __restrict__ h_seq,         // (S, B, T, 2H)
+                  int B, int T, int H, int bt, int ntiles) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const ClusterPos pos = cluster_pos(ntiles);
+    const int d = pos.d, C = pos.C;
+    const int U = H / C, U4 = 4 * U, j0 = pos.rank * U;
+    const int G = 4 * H;
+    const int H4 = (H + 3) & ~3;  // h rows padded to whole float4s
+    const int hs = H4 + 4;        // h buffer row stride
+    const int groups = (bt + kRt - 1) / kRt;
+    const int rows = groups * kRt;
+    extern __shared__ float4 cluster_smem[];  // 16-byte aligned
+    unsigned char* smem = reinterpret_cast<unsigned char*>(cluster_smem);
+    E* wt = reinterpret_cast<E*>(smem);  // (H4, 4U): wt[k][q U + u] = W_hh[q H + j0 + u][k]
+    float* hbuf = reinterpret_cast<float*>(smem + align16(sizeof(E) * H4 * U4));  // (2, rows, hs)
+
+    const E* w = w_hh + (pos.model * 2 + d) * G * H;
+    for (int idx = threadIdx.x; idx < H4 * U4; idx += blockDim.x) {
+        const int c = idx / H4, k = idx % H4;  // k fastest: reads along a row of W_hh
+        wt[k * U4 + c] = k < H ? w[static_cast<size_t>((c / U) * H + j0 + c % U) * H + k]
+                               : from_float<E>(0.0f);
+    }
+    for (int idx = threadIdx.x; idx < 2 * rows * hs; idx += blockDim.x) hbuf[idx] = 0.0f;
+
+    const bool active = threadIdx.x < groups * U;
+    const int u = active ? threadIdx.x % U : 0;
+    const int rc = active ? threadIdx.x / U : 0;
+    const int j = j0 + u;
+    const int b0 = pos.tile * bt;
+    xp += pos.model * B * T * 2 * G + d * G + j;
+    h_seq += pos.model * B * T * 2 * H + d * H + j;
+    bool valid[kRt];
+#pragma unroll
+    for (int q = 0; q < kRt; ++q) {
+        const int r = rc + groups * q;
+        valid[q] = active && r < bt && b0 + r < B;
+    }
+    // gate pre-activations of step s from xp (zero on rows past the batch)
+    auto load_xp = [&](int s, float (&v)[kRt][4]) {
+        const int t = d == 0 ? s : T - 1 - s;
+#pragma unroll
+        for (int q = 0; q < kRt; ++q) {
+            const size_t at = (static_cast<size_t>(b0 + rc + groups * q) * T + t) * 2 * G;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) v[q][g] = valid[q] ? xp[at + g * H] : 0.0f;
+        }
+    };
+    float c[kRt] = {}, acc[kRt][4], nxt[kRt][4];
+    load_xp(0, nxt);
+    cluster.sync();  // every CTA's buffers are ready before any remote write
+
+    for (int s = 0; s < T; ++s) {
+        const int t = d == 0 ? s : T - 1 - s;
+#pragma unroll
+        for (int q = 0; q < kRt; ++q)
+#pragma unroll
+            for (int g = 0; g < 4; ++g) acc[q][g] = nxt[q][g];
+        if (s + 1 < T) load_xp(s + 1, nxt);  // in flight during the product
+        const float* hc = hbuf + (s & 1) * rows * hs;
+        float* hn = hbuf + ((s + 1) & 1) * rows * hs;
+        if (active) {
+            for (int k = 0; k < H4; k += 4) {
+                float wv[4][4];
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                    for (int g = 0; g < 4; ++g) wv[g][kk] = to_float(wt[(k + kk) * U4 + g * U + u]);
+#pragma unroll
+                for (int q = 0; q < kRt; ++q) {
+                    const float4 hv = *reinterpret_cast<const float4*>(hc + (rc + groups * q) * hs + k);
+#pragma unroll
+                    for (int g = 0; g < 4; ++g)
+                        acc[q][g] = fmaf(hv.w, wv[g][3], fmaf(hv.z, wv[g][2],
+                                    fmaf(hv.y, wv[g][1], fmaf(hv.x, wv[g][0], acc[q][g]))));
+                }
+            }
+#pragma unroll
+            for (int q = 0; q < kRt; ++q) {
+                if (!valid[q]) continue;  // its h stays zero
+                const float ig = sigmoid_f(acc[q][0]);
+                const float fg = sigmoid_f(acc[q][1]);
+                const float gg = tanhf(acc[q][2]);
+                const float og = sigmoid_f(acc[q][3]);
+                c[q] = fg * c[q] + ig * gg;
+                const float h = og * tanhf(c[q]);
+                const int r = rc + groups * q;
+                h_seq[(static_cast<size_t>(b0 + r) * T + t) * 2 * H] = from_float<E>(h);
+                for (int k = 0; k < C; ++k) cluster.map_shared_rank(hn, k)[r * hs + j] = h;
+            }
+        }
+        cluster.sync();  // h_t is everywhere before step s + 1 reads it
+    }
+}
+
+template <typename E>
+int launch_rec(const float* xp, const E* w_hh, E* h_seq, int S, int B, int T, int H, int C,
+               int bt, int rows, int smem_planned, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    if (C < 1 || H % C != 0 || bt < 1 || rows < 1) return cudaErrorInvalidValue;
+    const int groups = (bt + rows - 1) / rows;
+    const int threads = (groups * (H / C) + 31) / 32 * 32;
+    if (threads > kClusterMaxThreads) return cudaErrorInvalidConfiguration;
+    const int H4 = (H + 3) & ~3;
+    const size_t smem = ((sizeof(E) * H4 * 4 * (H / C) + 15) & ~size_t{15}) +
+                        sizeof(float) * 2 * groups * rows * (H4 + 4);
+    // the wrapper planned the cluster with its own count of these bytes
+    // (kernels/lstm.py::_cluster_smem): a plan made on another layout is refused
+    if (smem != static_cast<size_t>(smem_planned)) return cudaErrorInvalidValue;
+    const int ntiles = (B + bt - 1) / bt;
+    return by_rows(rows, [&](auto r) {
+        return launch_cluster(bilstm_rec_kernel<E, decltype(r)::value>, C, ntiles * 2 * S, threads,
+                              smem, stream, xp, w_hh, h_seq, B, T, H, bt, ntiles);
+    });
+}
+
+// ---- row 4: the v5 forward ----
+
 constexpr int kBt = 8;  // batch rows per block; kBt * H == 2 * (4H threads)
 
-// kXp: x is xp (S, B, T, 8H) and I is unused (w_ih_t and bias may be null);
-// c is written to c_seq (S, 2, T, B, H). Otherwise c_seq is unused.
-template <typename E, bool kXp>
-__global__ void bilstm_fwd_kernel(const E* __restrict__ x,       // (S, B, T, I)
-                                  const E* __restrict__ w_ih_t,  // (S, 2, I, 4H)
-                                  const E* __restrict__ w_hh_t,  // (S, 2, H, 4H)
-                                  const E* __restrict__ bias,    // (S, 2, 4H)
-                                  E* __restrict__ h_seq,         // (S, B, T, 2H)
-                                  float* __restrict__ c_seq,     // (S, 2, T, B, H)
-                                  int B, int T, int I, int H) {
+__global__ void bilstm_fwd_xp_kernel(const float* __restrict__ xp,      // (S, B, T, 8H)
+                                     const float* __restrict__ w_hh_t,  // (S, 2, H, 4H)
+                                     float* __restrict__ h_seq,         // (S, B, T, 2H)
+                                     float* __restrict__ c_seq,         // (S, 2, T, B, H)
+                                     int B, int T, int H) {
     extern __shared__ float smem[];
     const int G = 4 * H;
-    const int xw = kXp ? 2 * G : I;  // row width of x
     const size_t model = blockIdx.z;
-    x += model * B * T * xw;
+    xp += model * B * T * 2 * G;
     w_hh_t += model * 2 * H * G;
     h_seq += model * B * T * 2 * H;
-    float* xs = smem;                     // (kBt, I): x_t of this tile (not kXp)
-    float* hs = xs + (kXp ? 0 : kBt * I);  // (kBt, H): h_{t-1}
-    float* gs = hs + kBt * H;             // (kBt, G): gate pre-activations
+    float* hs = smem;          // (kBt, H): h_{t-1}
+    float* gs = hs + kBt * H;  // (kBt, G): gate pre-activations
 
     const int d = blockIdx.y;
     const int b0 = blockIdx.x * kBt;
     const int g = threadIdx.x;
-    const E* wh = w_hh_t + static_cast<size_t>(d) * H * G;
-    const E* wi = nullptr;
-    float bg = 0.0f;
-    if constexpr (kXp) {
-        c_seq += (model * 2 + d) * T * B * H;
-    } else {
-        w_ih_t += model * 2 * I * G;
-        bias += model * 2 * G;
-        wi = w_ih_t + static_cast<size_t>(d) * I * G;
-        bg = to_float(bias[d * G + g]);
-    }
+    const float* wh = w_hh_t + static_cast<size_t>(d) * H * G;
+    c_seq += (model * 2 + d) * T * B * H;
 
     for (int idx = g; idx < kBt * H; idx += G) hs[idx] = 0.0f;
-    if constexpr (kXp) __syncthreads();  // no x staging barrier ahead of the first step
+    __syncthreads();
     float c[2] = {0.0f, 0.0f};
 
     for (int s = 0; s < T; ++s) {
         const int t = d == 0 ? s : T - 1 - s;
         float acc[kBt];
-        if constexpr (kXp) {
 #pragma unroll
-            for (int r = 0; r < kBt; ++r) {
-                const int b = b0 + r;
-                acc[r] = b < B ? to_float(x[(static_cast<size_t>(b) * T + t) * xw + d * G + g]) : 0.0f;
-            }
-        } else {
-            for (int idx = g; idx < kBt * I; idx += G) {
-                const int r = idx / I;
-                const int b = b0 + r;
-                xs[idx] = b < B ? to_float(x[(static_cast<size_t>(b) * T + t) * I + (idx - r * I)]) : 0.0f;
-            }
-            __syncthreads();
-
-#pragma unroll
-            for (int r = 0; r < kBt; ++r) acc[r] = bg;
-            for (int k = 0; k < I; ++k) {
-                const float w = to_float(wi[static_cast<size_t>(k) * G + g]);
-#pragma unroll
-                for (int r = 0; r < kBt; ++r) acc[r] = fmaf(xs[r * I + k], w, acc[r]);
-            }
+        for (int r = 0; r < kBt; ++r) {
+            const int b = b0 + r;
+            acc[r] = b < B ? xp[(static_cast<size_t>(b) * T + t) * 2 * G + d * G + g] : 0.0f;
         }
         for (int k = 0; k < H; ++k) {
-            const float w = to_float(wh[static_cast<size_t>(k) * G + g]);
+            const float w = wh[static_cast<size_t>(k) * G + g];
 #pragma unroll
             for (int r = 0; r < kBt; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
         }
@@ -138,43 +230,29 @@ __global__ void bilstm_fwd_kernel(const E* __restrict__ x,       // (S, B, T, I)
             hs[r * H + j] = h;
             const int b = b0 + r;
             if (b < B) {
-                h_seq[(static_cast<size_t>(b) * T + t) * 2 * H + d * H + j] = from_float<E>(h);
-                if constexpr (kXp) c_seq[(static_cast<size_t>(t) * B + b) * H + j] = c[q];
+                h_seq[(static_cast<size_t>(b) * T + t) * 2 * H + d * H + j] = h;
+                c_seq[(static_cast<size_t>(t) * B + b) * H + j] = c[q];
             }
         }
         __syncthreads();
     }
 }
 
-template <typename E, bool kXp>
-int launch_fwd(const E* x, const E* w_ih_t, const E* w_hh_t, const E* bias, E* h_seq,
-               float* c_seq, int S, int B, int T, int I, int H, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    const size_t smem = sizeof(float) * kBt * ((kXp ? 0 : I) + H + 4 * H);
-    err = allow_dynamic_smem(bilstm_fwd_kernel<E, kXp>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((B + kBt - 1) / kBt, 2, S);
-    bilstm_fwd_kernel<E, kXp><<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-        x, w_ih_t, w_hh_t, bias, h_seq, c_seq, B, T, I, H);
-    return cudaGetLastError();
-}
-
 }  // namespace
 
-extern "C" int msa_bilstm_fwd(const float* x, const float* w_ih_t, const float* w_hh_t,
-                              const float* bias, float* h_seq, int S, int B, int T, int I,
-                              int H, int device, void* stream) {
-    return launch_fwd<float, false>(x, w_ih_t, w_hh_t, bias, h_seq, nullptr, S, B, T, I, H,
-                                    device, stream);
+// row 1's recurrence: xp (S, B, T, 8H) fp32, W_hh (S, 2, 4H, H) -> h_seq
+// (S, B, T, 2H); clusters of C CTAs over batch tiles of bt rows, `rows`
+// (2, 4 or 8) batch rows a thread, smem_planned bytes of shared memory a CTA
+extern "C" int msa_bilstm_rec(const float* xp, const float* w_hh, float* h_seq, int S, int B,
+                              int T, int H, int C, int bt, int rows, int smem_planned, int device,
+                              void* stream) {
+    return launch_rec(xp, w_hh, h_seq, S, B, T, H, C, bt, rows, smem_planned, device, stream);
 }
 
-extern "C" int msa_bilstm_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w_ih_t,
-                                   const __nv_bfloat16* w_hh_t, const __nv_bfloat16* bias,
-                                   __nv_bfloat16* h_seq, int S, int B, int T, int I, int H,
-                                   int device, void* stream) {
-    return launch_fwd<__nv_bfloat16, false>(x, w_ih_t, w_hh_t, bias, h_seq, nullptr, S, B, T, I,
-                                            H, device, stream);
+extern "C" int msa_bilstm_rec_bf16(const float* xp, const __nv_bfloat16* w_hh,
+                                   __nv_bfloat16* h_seq, int S, int B, int T, int H, int C,
+                                   int bt, int rows, int smem_planned, int device, void* stream) {
+    return launch_rec(xp, w_hh, h_seq, S, B, T, H, C, bt, rows, smem_planned, device, stream);
 }
 
 // v5 forward: xp (S, B, T, 8H) packed [fwd | bwd] in actual time, W_hh^T
@@ -182,6 +260,13 @@ extern "C" int msa_bilstm_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* 
 extern "C" int msa_bilstm_fwd_xp(const float* xp, const float* w_hh_t, float* h_seq,
                                  float* c_seq, int S, int B, int T, int H, int device,
                                  void* stream) {
-    return launch_fwd<float, true>(xp, nullptr, w_hh_t, nullptr, h_seq, c_seq, S, B, T, 0, H,
-                                   device, stream);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const size_t smem = sizeof(float) * kBt * 5 * H;
+    err = allow_dynamic_smem(bilstm_fwd_xp_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((B + kBt - 1) / kBt, 2, S);
+    bilstm_fwd_xp_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+        xp, w_hh_t, h_seq, c_seq, B, T, H);
+    return cudaGetLastError();
 }

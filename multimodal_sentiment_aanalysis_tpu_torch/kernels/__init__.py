@@ -3,12 +3,21 @@
 Each entry: launch-counter name, wrapper, kernel source, the JAX package's
 kernel it replaces.
 
-- ``bilstm_fwd``: ``lstm.fused_bilstm_layer`` (forward), ``csrc/lstm_fwd.cu``,
-  ``kernels/lstm.py::_fwd_xproj_kernel``
+- ``bilstm_fwd``: ``lstm.bilstm_fwd`` (``lstm.fused_bilstm_layer``'s
+  forward), ``kernels/lstm.py::_fwd_xproj_kernel``: a call of the wrapper,
+  which launches ``bilstm_gemm`` then ``bilstm_rec``
 - ``bilstm_cbnd``: ``lstm.bilstm_cbnd``, ``csrc/lstm_bwd.cu``,
   ``kernels/lstm.py::_cbnd_kernel``
-- ``bilstm_segbwd``: ``lstm.bilstm_segbwd``, ``csrc/lstm_bwd.cu``,
-  ``kernels/lstm.py::_segbwd_kernel``
+- ``bilstm_segbwd``: ``lstm.bilstm_segbwd``, ``kernels/lstm.py::
+  _segbwd_kernel``: a call of the wrapper, which launches ``bilstm_gemm``
+  three times and ``bilstm_sweep`` once
+- ``bilstm_gemm``: ``lstm.bilstm_gemm``, ``csrc/lstm_gemm.cu``: the
+  tensor-core products of the two rows above (projection, gate recompute,
+  dx, dW_cat)
+- ``bilstm_rec``: ``lstm.bilstm_rec``, ``csrc/lstm_fwd.cu``: the forward's
+  recurrence on a cluster
+- ``bilstm_sweep``: ``lstm.bilstm_sweep``, ``csrc/lstm_bwd.cu``: the reverse
+  sweep's serial half on a cluster
 - ``stem_tail``: ``conv_stem_train.stem_tail_fwd``, ``csrc/stem_tail.cu``,
   ``kernels/conv_stem_train.py::_fwd_kernel``
 - ``stem_tail_bwd``: ``conv_stem_train.stem_tail_bwd``, ``csrc/stem_tail.cu``,
@@ -33,7 +42,7 @@ kernel it replaces.
   (``::_cbndk_kernel``); each ``lstm.<name>``, the last five in
   ``csrc/lstm_bwd.cu``
 
-The first six also have a bf16 form, a second C entry point of the same
+The first nine also have a bf16 form, a second C entry point of the same
 source with the suffix ``_bf16`` and its own counter (``bilstm_fwd_bf16``,
 ...), which a wrapper launches for bf16 tensors. Each wrapper counts its
 launches, so a run can show which kernels, and which forms, its path went
@@ -53,12 +62,18 @@ KERNELS = {
     "stem_tail": conv_stem_train.KERNEL,
     "stem_tail_bwd": conv_stem_train.BWD_KERNEL,
     "infonce": contrastive.KERNEL,
+    "bilstm_gemm": lstm.GEMM_KERNEL,
+    "bilstm_rec": lstm.REC_KERNEL,
+    "bilstm_sweep": lstm.SWEEP_KERNEL,
     "bilstm_fwd_bf16": lstm.KERNELS[_BF16],
     "bilstm_cbnd_bf16": lstm.CBND_KERNELS[_BF16],
     "bilstm_segbwd_bf16": lstm.SEGBWD_KERNELS[_BF16],
     "stem_tail_bf16": conv_stem_train.KERNELS[_BF16],
     "stem_tail_bwd_bf16": conv_stem_train.BWD_KERNELS[_BF16],
     "infonce_bf16": contrastive.KERNELS[_BF16],
+    "bilstm_gemm_bf16": lstm.GEMM_KERNELS[_BF16],
+    "bilstm_rec_bf16": lstm.REC_KERNELS[_BF16],
+    "bilstm_sweep_bf16": lstm.SWEEP_KERNELS[_BF16],
     "conv_stem": conv_stem.KERNEL,
     "flash_fwd": attention.FWD_KERNEL,
     "flash_bwd_dq": attention.DQ_KERNEL,

@@ -92,6 +92,20 @@ def kernel_forms(source: str, symbol: str, argtypes: list) -> dict[torch.dtype, 
             torch.bfloat16: CudaKernel(source, symbol + "_bf16", argtypes)}
 
 
+class CallCount:
+    """Calls of a wrapper that launches several kernels, each with its own
+    :class:`CudaKernel` count: ``launches`` grows by one per call whose
+    launches CUDA all accepted, and nowhere else."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+def call_counts() -> dict[torch.dtype, CallCount]:
+    """A :class:`CallCount` for the fp32 and the bf16 form of a wrapper."""
+    return {torch.float32: CallCount(), torch.bfloat16: CallCount()}
+
+
 class CudaKernel:
     """One C entry point of one kernel library, and its launch count.
 
@@ -134,8 +148,9 @@ def upcast(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """A tensor's device pointer; null for an operand the kernel does not read."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 F32 = (torch.float32,)
@@ -159,7 +174,9 @@ def check_cuda(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-MAX_MODELS = 65535  # the largest grid z extent, the model axis of the S-axis kernels
+# the largest grid z extent: the model axis of the S-axis kernels (the
+# BiLSTM's cluster kernels put the model in grid x, whose limit is far above)
+MAX_MODELS = 65535
 
 
 def with_models(*ts: torch.Tensor) -> tuple[tuple[torch.Tensor, ...], bool]:

@@ -6,14 +6,19 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/kernels/lstm.py``:
 weights in, ``(B, T, 2H)`` out in ``[fwd | bwd]`` order) and is a
 ``torch.autograd.Function``:
 
-- forward: the in-kernel-projection forward (``_fwd_xproj_kernel``),
-  ``csrc/lstm_fwd.cu`` (:func:`bilstm_fwd`); it saves ``x``, the weights
-  and ``h_seq`` only;
-- backward: the JAX package's default (v9) backward in two kernels of
-  ``csrc/lstm_bwd.cu``: :func:`bilstm_cbnd` (``_cbnd_kernel``: c checkpoints
-  at every K-th actual time step) then :func:`bilstm_segbwd`
-  (``_segbwd_kernel``: the reverse sweep over K-step segments, emitting dx
-  per direction and ``dW_cat = [x | h_prev | 1]^T dgates``).
+- forward: :func:`bilstm_fwd` (``_fwd_xproj_kernel``), the input
+  projection as a tensor-core GEMM (:func:`bilstm_gemm`, ``csrc/lstm_gemm.cu``)
+  then the recurrence over it on a thread-block cluster with ``W_hh``
+  resident in shared memory (:func:`bilstm_rec`, ``csrc/lstm_fwd.cu``); it
+  saves ``x``, the weights and ``h_seq`` only;
+- backward: the JAX package's default (v9) backward: :func:`bilstm_cbnd`
+  (``_cbnd_kernel``, ``csrc/lstm_bwd.cu``: c checkpoints at every K-th
+  actual time step) then :func:`bilstm_segbwd` (``_segbwd_kernel``: the
+  reverse sweep over K-step segments, emitting dx per direction and
+  ``dW_cat = [x | h_prev | 1]^T dgates``), which runs the gate recompute,
+  dx and dW_cat as tensor-core GEMMs and only the dh carry and the cell
+  backward in a serial sweep on a cluster (:func:`bilstm_sweep`,
+  ``csrc/lstm_bwd.cu``).
 
 ``schedule=`` picks one of the JAX package's five BiLSTM schedules, which
 it reaches through process-wide switches (``MSA_LSTM_XPROJ``,
@@ -64,22 +69,26 @@ and store as the kernels store.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from ._build import (F32, F32_BF16, MAX_MODELS, CudaKernel, check_cuda, kernel_forms,
-                     models_first, ptr, upcast, with_models)
+from ._build import (F32, F32_BF16, MAX_MODELS, CudaKernel, call_counts, check_cuda,
+                     kernel_forms, models_first, ptr, upcast, with_models)
 
-# fp32 and bf16 forms of each kernel, by the dtype of x
-KERNELS = kernel_forms("lstm_fwd", "msa_bilstm_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
-CBND_KERNELS = kernel_forms("lstm_bwd", "msa_bilstm_cbnd",
-                            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6)
-SEGBWD_KERNELS = kernel_forms("lstm_bwd", "msa_bilstm_segbwd",
-                              [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6)
-KERNEL, CBND_KERNEL, SEGBWD_KERNEL = (
-    k[torch.float32] for k in (KERNELS, CBND_KERNELS, SEGBWD_KERNELS))
-# the other schedules' kernels, fp32 only
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# fp32 and bf16 forms of each kernel, by the dtype of x. Rows 1 and 11
+# (bilstm_fwd, bilstm_segbwd) launch several kernels a call: their counts
+# are calls, and each kernel they launch counts its own launches
+KERNELS, SEGBWD_KERNELS = call_counts(), call_counts()
+CBND_KERNELS = kernel_forms("lstm_bwd", "msa_bilstm_cbnd", [_P] * 6 + [_I] * 6)
+GEMM_KERNELS = kernel_forms("lstm_gemm", "msa_bilstm_gemm", [_I] + [_P] * 8 + [_I] * 6)
+REC_KERNELS = kernel_forms("lstm_fwd", "msa_bilstm_rec", [_P] * 3 + [_I] * 8)
+SWEEP_KERNELS = kernel_forms("lstm_bwd", "msa_bilstm_sweep", [_P] * 4 + [_I] * 9)
+KERNEL, CBND_KERNEL, SEGBWD_KERNEL, GEMM_KERNEL, REC_KERNEL, SWEEP_KERNEL = (
+    k[torch.float32] for k in (KERNELS, CBND_KERNELS, SEGBWD_KERNELS, GEMM_KERNELS, REC_KERNELS,
+                               SWEEP_KERNELS))
+# the other schedules' kernels, fp32 only
 FWD_XP_KERNEL = CudaKernel("lstm_fwd", "msa_bilstm_fwd_xp", [_P] * 4 + [_I] * 4)
 BWD_XP_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_bwd_xp", [_P] * 7 + [_I] * 4)
 CSEQ_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_cseq", [_P] * 6 + [_I] * 5)
@@ -90,10 +99,21 @@ CBNDK_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_cbndk", [_P] * 6 + [_I] * 6)
 SCHEDULES = ("v5", "v6", "v8", "v9", "v9.1")
 
 _ROWS_PER_BLOCK = 8  # kBt in csrc/lstm_fwd.cu and csrc/lstm_bwd.cu
-_SEGBWD_MAX_HIDDEN = 128  # kSegMaxThreads / 4 in csrc/lstm_bwd.cu
+_SEGBWD_MAX_HIDDEN = 128  # kSegMaxThreads / 4 in csrc/lstm_bwd.cu (the per-block sweeps)
 _MAX_SMEM = 227 * 1024
 SEG_K = 4  # segment length of the backward; any K >= 1 works for any T
 CBNDK_ROWS = 8  # kCbndkRows in csrc/lstm_bwd.cu: time rows per block of bilstm_cbndk
+# the products of csrc/lstm_gemm.cu, by its mode number
+GEMM_MODES = ("proj", "gates", "dx", "dw")
+_GEMM_TILE = 64  # kBm = kBn in csrc/lstm_gemm.cu
+_GEMM_MAX_SPLITS = 8
+# the cluster kernels (csrc/lstm_cluster.cuh): cluster sizes, largest first;
+# batch tiles, largest first; their kRt batch rows per thread; kClusterMaxThreads
+CLUSTER_SIZES = (8, 4, 2, 1)
+_CLUSTER_TILES = (64, 32, 16, 8)
+_CLUSTER_ROWS = (8, 4, 2)
+_CLUSTER_MAX_THREADS = 512
+H100_SMS = 132
 
 Params = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -115,9 +135,10 @@ def _check_device(x: torch.Tensor) -> None:
 
 
 def _check_layer(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
-                 bias: torch.Tensor) -> tuple[int, int, int, int, int]:
+                 bias: torch.Tensor, threads: bool = True) -> tuple[int, int, int, int, int]:
     """Validate a layer's CUDA operands, model axis first; returns
-    ``(S, B, T, I, H)``."""
+    ``(S, B, T, I, H)``. ``threads``: the kernel runs 4H threads a block
+    (the cluster kernels' limits are :func:`cluster_plan`'s)."""
     device = x.device
     if x.dim() != 4 or 0 in x.shape:
         raise ValueError(f"x must be a non-empty (B, T, I) or (S, B, T, I) tensor, "
@@ -126,7 +147,7 @@ def _check_layer(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     if s > MAX_MODELS:
         raise ValueError(f"{s} models > {MAX_MODELS}: the model axis is the grid's z axis")
     h = w_hh.shape[-1]
-    if not 0 < 4 * h <= 1024:
+    if threads and not 0 < 4 * h <= 1024:
         raise ValueError(f"hidden size {h}: the kernels run 4H <= 1024 threads")
     check_cuda("x", x, device, dtypes=F32_BF16)
     check_cuda("w_ih", w_ih, device, (s, 2, 4 * h, i), (x.dtype,))
@@ -150,27 +171,234 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("s...k,snk->s...n", a, w)
 
 
+def _cluster_smem(kind: str, c: int, bt: int, r: int, h: int, esize: int) -> int:
+    """Bytes of shared memory of one CTA of :func:`bilstm_rec`'s (``kind``
+    "rec") or :func:`bilstm_sweep`'s ("sweep") kernel: ``W_hh``'s 4U rows of
+    the CTA's units (U = H / C) in the storage type, and fp32 buffers of bt
+    batch rows rounded up to a multiple of r. The wrappers pass it to the
+    launcher, which lays the buffers out and refuses a launch whose count
+    differs from its own."""
+    u, rows, h4 = h // c, -(-bt // r) * r, -(-h // 4) * 4
+    weights = -(-esize * 4 * u * (h4 if kind == "rec" else h) // 16) * 16
+    if kind == "rec":  # h_{t-1} and h_t, rows padded to float4s
+        return weights + 4 * 2 * rows * (h4 + 4)
+    return weights + 4 * rows * ((4 * u + 4) + (h + 1))  # the dgates tile, the partial dh
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(kind: str, s: int, b: int, h: int, dtype: torch.dtype,
+                 sms: int = H100_SMS) -> tuple[int, int, int]:
+    """``(C, bt, r)``: the cluster size, batch tile and batch rows per
+    thread of :func:`bilstm_rec` (``kind="rec"``) or :func:`bilstm_sweep`
+    (``"sweep"``) for S models, B rows and hidden size H, from the shapes
+    alone (no host sync).
+
+    One cluster of C CTAs runs per (model, direction, tile of bt rows); a
+    thread owns one of the CTA's H / C units and r of the tile's rows. A
+    plan is feasible where C divides H, the CTA's ``W_hh`` slice and buffers
+    fit the 227 KB of shared memory a block may use and it runs at most 512
+    threads. Plans whose grid fits one wave of ``sms`` SMs come first. A
+    step's serial work on an SM sub-partition is about r x 4H multiply-adds
+    for each of its warps, so among those the plan taken minimises r x
+    max(1, warps / 4) (times the waves, where none fits one), then takes the
+    largest C, then the fewest CTAs. For the flagship layer (B=64, H=128)
+    in fp32: (8, 16, 2) at S=1 (64 CTAs), (2, 64, 8) at S=24 (96 CTAs).
+    Raises ``ValueError`` where nothing fits."""
+    esize = torch.finfo(dtype).bits // 8
+    best = None
+    for c in CLUSTER_SIZES:
+        if h % c:
+            continue
+        for bt in sorted({min(b, t) for t in _CLUSTER_TILES}, reverse=True):
+            for r in _CLUSTER_ROWS:
+                warps = -(-(-(-bt // r) * (h // c)) // 32)
+                if (32 * warps > _CLUSTER_MAX_THREADS
+                        or _cluster_smem(kind, c, bt, r, h, esize) > _MAX_SMEM):
+                    continue
+                ctas = c * 2 * s * -(-b // bt)
+                key = (ctas > sms, r * max(1, warps / 4) * -(-ctas // sms), -c, ctas)
+                if best is None or key < best[0]:
+                    best = (key, (c, bt, r))
+    if best is None:
+        raise ValueError(f"hidden size {h}, {dtype}: no cluster of {CLUSTER_SIZES} CTAs holds "
+                         f"W_hh in {_MAX_SMEM} bytes of shared memory each with at most "
+                         f"{_CLUSTER_MAX_THREADS} threads")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# --------------------------------------------------------------------------
+# the tensor-core GEMM of rows 1 and 11
+# --------------------------------------------------------------------------
+
+
+def bilstm_gemm_plain(mode: str, x, w_ih, w_hh, bias, h_seq=None, dg=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bilstm_gemm`, in fp32."""
+    one = x.dim() == 3
+    x, w_ih, w_hh, bias, h_seq, dg = (None if a is None else upcast(a[None] if one else a)
+                                      for a in (x, w_ih, w_hh, bias, h_seq, dg))
+    h = w_hh.shape[-1]
+    g = 4 * h
+    if mode == "proj":
+        out = _projection(x, w_ih, bias)
+    elif mode == "gates":
+        out = torch.cat([torch.cat(_gates(x, _h_prev(h_seq, d, h), w_ih[:, d], w_hh[:, d],
+                                          bias[:, d]), -1) for d in (0, 1)], -1)
+    elif mode == "dx":
+        out = torch.stack([_mm(dg[..., d * g:(d + 1) * g], w_ih[:, d].transpose(1, 2))
+                           for d in (0, 1)], 1)
+    elif mode == "dw":
+        ones = x.new_ones(x.shape[:-1] + (1,))
+        out = torch.stack([torch.einsum("sbtr,sbtg->srg",
+                                        torch.cat([x, _h_prev(h_seq, d, h), ones], -1),
+                                        dg[..., d * g:(d + 1) * g]) for d in (0, 1)], 1)
+    else:
+        raise ValueError(f"unknown GEMM mode {mode!r}; one of {GEMM_MODES}")
+    return out[0] if one else out
+
+
+def _check_widths(i: int, h: int) -> None:
+    """The GEMM reads its operands as 4-vectors: I and H multiples of 4."""
+    if i % 4 or h % 4:
+        raise ValueError(f"input width {i}, hidden size {h}: the BiLSTM GEMM reads 4-vectors, "
+                         "so both must be multiples of 4")
+
+
+def gemm_splits(s: int, rows: int, i: int, h: int, sms: int = H100_SMS) -> int:
+    """Ranges of the B*T rows over which :func:`bilstm_gemm` ``"dw"`` splits
+    its reduction: its 2S x ceil((I+H+1) / 64) x ceil(4H / 64) output tiles
+    times the splits fill about four blocks a SM, each range at least 512
+    rows, at most 8. For the flagship layer: 4 at S=1 (112 tiles), 2 at
+    S=2, 1 from S=3 on."""
+    tiles = 2 * s * -(-(i + h + 1) // _GEMM_TILE) * -(-4 * h // _GEMM_TILE)
+    return max(1, min(_GEMM_MAX_SPLITS, 4 * sms // tiles, rows // 512))
+
+
+def _gemm(mode: str, x, w_ih, w_hh, bias, h_seq, dg, out) -> None:
+    """Launch one mode of the GEMM on validated, model-axis-first operands.
+    Its copies read 16-byte vectors (8-byte for bf16), so every operand
+    starts on a 16-byte boundary."""
+    s, b, t, i = x.shape
+    h = w_hh.shape[-1]
+    for name, a in (("x", x), ("h_seq", h_seq), ("w_ih", w_ih), ("w_hh", w_hh), ("dg", dg)):
+        if a is not None and a.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on a 16-byte boundary")
+    splits, part = 1, None
+    if mode == "dw":
+        splits = gemm_splits(s, b * t, i, h, _sm_count(x.device.index))
+        if splits > 1:
+            part = torch.empty((splits,) + tuple(out.shape), device=x.device,
+                               dtype=torch.float32)
+    GEMM_KERNELS[x.dtype].launch(x.device, GEMM_MODES.index(mode), ptr(x), ptr(h_seq), ptr(w_ih),
+                                 ptr(w_hh), ptr(bias), ptr(dg), ptr(out), ptr(part), s, b, t, i,
+                                 h, splits)
+
+
+def bilstm_gemm(mode: str, x, w_ih, w_hh, bias, h_seq=None, dg=None) -> torch.Tensor:
+    """The time-parallel products of rows 1 and 11 (``csrc/lstm_gemm.cu``),
+    each per model and direction, fp32 out (a leading S where ``x`` has
+    one), on stacked weights:
+
+    - ``"proj"``: ``xp (B, T, 8H)``, ``x W_ih^T + b`` packed ``[fwd | bwd]``;
+    - ``"gates"``: the gate activations ``(B, T, 8H)``, sigmoid (tanh for
+      g) of ``[x | h_prev] W_cat^T + b``, ``h_prev`` the stored ``h_seq``
+      shifted by direction as :func:`_h_prev` does, in the same packing;
+    - ``"dx"``: ``dx_pk (2, B, T, I)``, ``dgates_d W_ih_d`` from the packed
+      ``dg (B, T, 8H)`` fp32;
+    - ``"dw"``: ``dW_cat (2, I + H + 1, 4H)``, ``[x | h_prev | 1]^T
+      dgates_d``, reduced over the B*T rows in :func:`gemm_splits` fixed
+      ranges whose partials a second kernel sums in rank order
+      (deterministic, no atomics).
+
+    fp32 operands run as 3xTF32 on the tensor cores (fp32-accurate), bf16
+    ones as stored. A CPU tensor takes :func:`bilstm_gemm_plain`; a CUDA
+    tensor launches the kernel, or raises."""
+    if x.device.type == "cpu":
+        return bilstm_gemm_plain(mode, x, w_ih, w_hh, bias, h_seq, dg)
+    _check_device(x)
+    if mode not in GEMM_MODES:
+        raise ValueError(f"unknown GEMM mode {mode!r}; one of {GEMM_MODES}")
+    one = x.dim() == 3
+    x, w_ih, w_hh, bias, h_seq, dg = (None if a is None else a[None] if one else a
+                                      for a in (x, w_ih, w_hh, bias, h_seq, dg))
+    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias, threads=False)
+    _check_widths(i, h)
+    for name, a, need, shape, dtypes in (
+            ("h_seq", h_seq, mode in ("gates", "dw"), (s, b, t, 2 * h), (x.dtype,)),
+            ("dg", dg, mode in ("dx", "dw"), (s, b, t, 8 * h), F32)):
+        if need:
+            if a is None:
+                raise ValueError(f"GEMM mode {mode!r} needs {name}")
+            check_cuda(name, a, x.device, shape, dtypes)
+    shape = {"proj": (s, b, t, 8 * h), "gates": (s, b, t, 8 * h), "dx": (s, 2, b, t, i),
+             "dw": (s, 2, i + h + 1, 4 * h)}[mode]
+    out = torch.empty(shape, device=x.device, dtype=torch.float32)
+    _gemm(mode, x, w_ih, w_hh, bias, h_seq, dg, out)
+    return out[0] if one else out
+
+
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
 
 
 def bilstm_fwd(x, w_ih, w_hh, bias) -> torch.Tensor:
-    """The forward kernel: ``h_seq (B, T, 2H)`` (or ``(S, B, T, 2H)``) on
+    """The forward, row 1: ``h_seq (B, T, 2H)`` (or ``(S, B, T, 2H)``) on
     stacked weights. A CPU tensor takes :func:`bilstm_fwd_plain`; a CUDA
-    tensor launches the kernel, or raises."""
+    tensor launches two kernels, or raises: the input projection
+    (:func:`bilstm_gemm` ``"proj"``) into a transient fp32 ``xp (S, B, T,
+    8H)``, then the recurrence over it (:func:`bilstm_rec`). One call
+    counts one launch of ``KERNELS[dtype]``."""
     if x.device.type == "cpu":
         return bilstm_fwd_plain(x, w_ih, w_hh, bias)
     _check_device(x)
     (x, w_ih, w_hh, bias), one = with_models(x, w_ih, w_hh, bias)
-    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
-    _check_smem(_ROWS_PER_BLOCK * (i + 5 * h), f"input width {i}")
-    # bound to names: a temporary freed before the launch could be reused
-    # by the next allocation while the kernel still reads it
-    w_ih_t, w_hh_t = _transposed(w_ih), _transposed(w_hh)
-    out = torch.empty(s, b, t, 2 * h, device=x.device, dtype=x.dtype)
-    KERNELS[x.dtype].launch(x.device, ptr(x), ptr(w_ih_t), ptr(w_hh_t), ptr(bias), ptr(out),
-                            s, b, t, i, h)
+    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias, threads=False)
+    _check_widths(i, h)
+    cluster_plan("rec", s, b, h, x.dtype, _sm_count(x.device.index))  # raises before any launch
+    xp = torch.empty(s, b, t, 8 * h, device=x.device, dtype=torch.float32)
+    _gemm("proj", x, w_ih, w_hh, bias, None, None, xp)
+    out = bilstm_rec(xp, w_hh)
+    KERNELS[x.dtype].launches += 1
+    return out[0] if one else out
+
+
+def bilstm_rec_plain(xp, w_hh) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bilstm_rec`: the recurrence step by
+    step in fp32, ``h_seq`` in the dtype of ``w_hh``."""
+    (xp, w32), one = with_models(xp, upcast(w_hh))
+    out = _recurrence_plain(xp, w32)[0].to(w_hh.dtype)
+    return out[0] if one else out
+
+
+def bilstm_rec(xp, w_hh) -> torch.Tensor:
+    """Row 1's recurrence (``csrc/lstm_fwd.cu``): ``h_seq (B, T, 2H)`` (or
+    ``(S, B, T, 2H)``, in the dtype of ``w_hh``) from the packed fp32
+    projection ``xp (B, T, 8H)`` (``[fwd | bwd]`` in actual time) and
+    ``w_hh (2, 4H, H)``. One cluster of C CTAs per (model, direction, batch
+    tile), each CTA holding its units' rows of ``W_hh`` in shared memory for
+    the whole sweep and exchanging h through distributed shared memory
+    (:func:`cluster_plan`). A CPU tensor takes :func:`bilstm_rec_plain`; a
+    CUDA tensor launches the kernel, or raises."""
+    if xp.device.type == "cpu":
+        return bilstm_rec_plain(xp, w_hh)
+    _check_device(xp)
+    (xp, w_hh), one = with_models(xp, w_hh)
+    if xp.dim() != 4 or 0 in xp.shape:
+        raise ValueError(f"xp must be a non-empty (B, T, 8H) or (S, B, T, 8H) tensor, "
+                         f"got {tuple(xp.shape)}")
+    s, b, t, _ = xp.shape
+    h = w_hh.shape[-1]
+    check_cuda("xp", xp, xp.device, (s, b, t, 8 * h))
+    check_cuda("w_hh", w_hh, xp.device, (s, 2, 4 * h, h), F32_BF16)
+    plan = cluster_plan("rec", s, b, h, w_hh.dtype, _sm_count(xp.device.index))
+    out = torch.empty(s, b, t, 2 * h, device=xp.device, dtype=w_hh.dtype)
+    REC_KERNELS[w_hh.dtype].launch(xp.device, ptr(xp), ptr(w_hh), ptr(out), s, b, t, h, *plan,
+                                   _cluster_smem("rec", *plan, h, w_hh.element_size()))
     return out[0] if one else out
 
 
@@ -489,50 +717,116 @@ def bilstm_segbwd(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias,
     rows ``:I`` of ``dW_cat[d]`` are ``dW_ih[d]^T``, rows ``I:I+H``
     ``dW_hh[d]^T`` and row ``I+H`` is ``db[d]``.
 
-    The kernel accumulates dW_cat per (model, batch tile of 8 rows), each in
-    its own slice, no atomics; the tiles are summed here, so the result is
-    deterministic but sums B*T terms in another order than the plain
-    version."""
+    A CUDA tensor launches four kernels, or raises: the gate activations of
+    every (b, t) (:func:`bilstm_gemm` ``"gates"``) into an fp32 ``(S, B, T,
+    8H)`` buffer, the serial sweep (:func:`bilstm_sweep`), which overwrites
+    that buffer in place with dgates, then dx and dW_cat (``"dx"``,
+    ``"dw"``). dW_cat is reduced over the B*T rows in fixed ranges summed
+    in a fixed order (:func:`gemm_splits`): deterministic, no atomics, but
+    summed in another order than the plain version. One call counts one
+    launch of ``SEGBWD_KERNELS[dtype]``."""
     if x.device.type == "cpu":
         return bilstm_segbwd_plain(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias, k)
-    return _segbwd(SEGBWD_KERNELS, dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias, k, (k,))
+    _check_device(x)
+    (x, dh_seq, h_seq, c_bnd, w_ih, w_hh, bias), one = with_models(
+        x, dh_seq, h_seq, c_bnd, w_ih, w_hh, bias)
+    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias, threads=False)
+    _check_widths(i, h)
+    _check_sweep(dh_seq, c_bnd, k, s, b, t, h, x.dtype, x.device)
+    check_cuda("h_seq", h_seq, x.device, (s, b, t, 2 * h), (x.dtype,))
+    cluster_plan("sweep", s, b, h, x.dtype, _sm_count(x.device.index))  # raises before any launch
+    act = torch.empty(s, b, t, 8 * h, device=x.device, dtype=torch.float32)
+    _gemm("gates", x, w_ih, w_hh, bias, h_seq, None, act)
+    bilstm_sweep(act, dh_seq, c_bnd, w_hh, k)  # act now holds dgates
+    dx_pk = torch.empty(s, 2, b, t, i, device=x.device, dtype=torch.float32)
+    _gemm("dx", x, w_ih, w_hh, bias, h_seq, act, dx_pk)
+    dw_cat = torch.empty(s, 2, i + h + 1, 4 * h, device=x.device, dtype=torch.float32)
+    _gemm("dw", x, w_ih, w_hh, bias, h_seq, act, dw_cat)
+    SEGBWD_KERNELS[x.dtype].launches += 1
+    return (dx_pk[0], dw_cat[0]) if one else (dx_pk, dw_cat)
+
+
+def _check_sweep(dh_seq, c_bnd, k, s, b, t, h, dtype, device) -> None:
+    if k < 1:
+        raise ValueError(f"segment length {k} < 1")
+    check_cuda("dh_seq", dh_seq, device, (s, b, t, 2 * h), (dtype,))
+    check_cuda("c_bnd", c_bnd, device, (s, 2, _num_segments(t, k), b, h), F32)
+
+
+def bilstm_sweep_plain(act, dh_seq, c_bnd, w_hh, k: int = SEG_K) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bilstm_sweep`, in fp32; returns
+    dgates and leaves ``act`` as it was."""
+    (act, dh_seq, c_bnd, w_hh), one = with_models(*map(upcast, (act, dh_seq, c_bnd, w_hh)))
+    s, b, t, _ = act.shape
+    h = w_hh.shape[-1]
+    g = 4 * h
+    nseg = _num_segments(t, k)
+    dg = act.new_zeros(s, b, t, 2 * g)
+    for d in (0, 1):
+        dh_c, dc_c = act.new_zeros(s, b, h), act.new_zeros(s, b, h)
+        for gi in range(nseg):
+            m = nseg - 1 - gi if d == 0 else gi
+            rows = list(range(m * k, min(m * k + k, t)))  # recurrence order
+            if d == 1:
+                rows.reverse()
+            c = (act.new_zeros(s, b, h) if gi == nseg - 1
+                 else c_bnd[:, d, m - 1 if d == 0 else m + 1])
+            cs = [c]
+            for a in rows:
+                ig, fg, gg, _ = act[:, :, a, d * g:(d + 1) * g].chunk(4, dim=-1)
+                c = fg * c + ig * gg
+                cs.append(c)
+            for r in reversed(range(len(rows))):
+                a = rows[r]
+                ig, fg, gg, og = act[:, :, a, d * g:(d + 1) * g].chunk(4, dim=-1)
+                dh = dh_seq[:, :, a, d * h:(d + 1) * h] + dh_c
+                tc = torch.tanh(cs[r + 1])
+                dc = dc_c + dh * og * (1 - tc * tc)
+                dgates = torch.cat([dc * gg * ig * (1 - ig), dc * cs[r] * fg * (1 - fg),
+                                    dc * ig * (1 - gg * gg), dh * tc * og * (1 - og)], dim=-1)
+                dh_c = dgates @ w_hh[:, d]
+                dc_c = dc * fg
+                dg[:, :, a, d * g:(d + 1) * g] = dgates
+    return dg[0] if one else dg
+
+
+def bilstm_sweep(act, dh_seq, c_bnd, w_hh, k: int = SEG_K) -> torch.Tensor:
+    """Row 11's serial sweep (``csrc/lstm_bwd.cu``): the packed gate
+    gradients dgates ``(B, T, 8H)`` (or ``(S, B, T, 8H)``) fp32, ``[fwd |
+    bwd]`` in actual time, from the gate activations ``act`` of
+    :func:`bilstm_gemm` ``"gates"`` (same shape, fp32), the output gradient
+    ``dh_seq``, the checkpoints ``c_bnd`` of :func:`bilstm_cbnd` at the same
+    ``k`` and ``w_hh``. Per K-segment in reverse recurrence order it rebuilds
+    c from the checkpoint and the activations, runs the cell backward and
+    carries dh through ``dgates W_hh``, on a cluster with ``W_hh`` resident
+    in shared memory (:func:`cluster_plan`).
+
+    On a CUDA tensor the kernel overwrites ``act`` in place with dgates and
+    returns it. A CPU tensor takes :func:`bilstm_sweep_plain`, which leaves
+    ``act`` as it was."""
+    if act.device.type == "cpu":
+        return bilstm_sweep_plain(act, dh_seq, c_bnd, w_hh, k)
+    _check_device(act)
+    (act, dh_seq, c_bnd, w_hh), one = with_models(act, dh_seq, c_bnd, w_hh)
+    if act.dim() != 4 or 0 in act.shape:
+        raise ValueError(f"act must be a non-empty (B, T, 8H) or (S, B, T, 8H) tensor, "
+                         f"got {tuple(act.shape)}")
+    s, b, t, _ = act.shape
+    h = w_hh.shape[-1]
+    check_cuda("act", act, act.device, (s, b, t, 8 * h))
+    check_cuda("w_hh", w_hh, act.device, (s, 2, 4 * h, h), F32_BF16)
+    _check_sweep(dh_seq, c_bnd, k, s, b, t, h, w_hh.dtype, act.device)
+    plan = cluster_plan("sweep", s, b, h, w_hh.dtype, _sm_count(act.device.index))
+    SWEEP_KERNELS[w_hh.dtype].launch(act.device, ptr(act), ptr(dh_seq), ptr(c_bnd), ptr(w_hh), s,
+                                     b, t, h, k, *plan,
+                                     _cluster_smem("sweep", *plan, h, w_hh.element_size()))
+    return act[0] if one else act
 
 
 def _check_max_hidden(h: int) -> None:
     if h > _SEGBWD_MAX_HIDDEN:
         raise ValueError(f"hidden size {h} > {_SEGBWD_MAX_HIDDEN}: the reverse sweeps run "
                          f"4H <= {4 * _SEGBWD_MAX_HIDDEN} threads")
-
-
-def _segbwd(forms: dict, dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias, k: int,
-            k_arg: tuple) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the K-segment reverse sweep (:func:`bilstm_segbwd`, and
-    :func:`bilstm_bwdc` at K = 1; ``forms``: its kernel by dtype, given
-    ``k_arg`` after the sizes)."""
-    _check_device(x)
-    (x, dh_seq, h_seq, c_bnd, w_ih, w_hh, bias), one = with_models(
-        x, dh_seq, h_seq, c_bnd, w_ih, w_hh, bias)
-    check_cuda("x", x, x.device, dtypes=tuple(forms))
-    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
-    device = x.device
-    nseg = _num_segments(t, k)
-    check_cuda("dh_seq", dh_seq, device, (s, b, t, 2 * h), (x.dtype,))
-    check_cuda("h_seq", h_seq, device, (s, b, t, 2 * h), (x.dtype,))
-    check_cuda("c_bnd", c_bnd, device, (s, 2, nseg, b, h), F32)
-    if k < 1:
-        raise ValueError(f"segment length {k} < 1")
-    _check_max_hidden(h)
-    _check_smem(_ROWS_PER_BLOCK * (k * (i + 5 * h) + (k + 1) * h + 5 * h),
-                f"segment length {k}, input width {i}")
-    tiles = -(-b // _ROWS_PER_BLOCK)
-    w_ih_t, w_hh_t = _transposed(w_ih), _transposed(w_hh)
-    dx_pk = torch.empty(s, 2, b, t, i, device=device, dtype=torch.float32)
-    dw_part = torch.zeros(s, tiles, 2, i + h + 1, 4 * h, device=device, dtype=torch.float32)
-    forms[x.dtype].launch(device, ptr(dh_seq), ptr(x), ptr(h_seq), ptr(c_bnd), ptr(w_ih_t),
-                          ptr(w_hh_t), ptr(w_ih), ptr(w_hh), ptr(bias), ptr(dx_pk),
-                          ptr(dw_part), s, b, t, i, h, *k_arg)
-    dw_cat = dw_part.sum(1)
-    return (dx_pk[0], dw_cat[0]) if one else (dx_pk, dw_cat)
 
 
 _SegBwd = _kernel_function(bilstm_segbwd, (0, 0), ":func:`bilstm_segbwd` as a Function.")
@@ -601,11 +895,31 @@ def bilstm_bwdc_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias):
 
 def bilstm_bwdc(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> tuple[torch.Tensor, torch.Tensor]:
     """The v8 reverse sweep (``_bwd_bwdc_kernel``): :func:`bilstm_segbwd`'s
-    contract and kernel at K = 1, reading each step's c_prev from the full
-    ``c_seq`` of :func:`bilstm_cseq`. fp32."""
+    contract, run by the per-block K-segment sweep of ``csrc/lstm_bwd.cu``
+    (row 11's design before its redesign) at K = 1, reading each step's
+    c_prev from the full ``c_seq`` of :func:`bilstm_cseq`. fp32."""
     if x.device.type == "cpu":
         return bilstm_bwdc_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
-    return _segbwd({torch.float32: BWDC_KERNEL}, dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias, 1, ())
+    _check_device(x)
+    (x, dh_seq, h_seq, c_seq, w_ih, w_hh, bias), one = with_models(
+        x, dh_seq, h_seq, c_seq, w_ih, w_hh, bias)
+    check_cuda("x", x, x.device)
+    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
+    for name, a in (("dh_seq", dh_seq), ("h_seq", h_seq)):
+        check_cuda(name, a, x.device, (s, b, t, 2 * h))
+    _check_c_seq(c_seq, s, b, t, h, x.device)
+    _check_max_hidden(h)
+    _check_smem(_ROWS_PER_BLOCK * (i + 12 * h), f"input width {i}")  # the K-segment body at K=1
+    w_ih_t, w_hh_t = _transposed(w_ih), _transposed(w_hh)
+    dx_pk = torch.empty(s, 2, b, t, i, device=x.device, dtype=torch.float32)
+    # one dW_cat partial per batch tile of _ROWS_PER_BLOCK rows, summed here
+    dw_part = torch.zeros(s, -(-b // _ROWS_PER_BLOCK), 2, i + h + 1, 4 * h, device=x.device,
+                          dtype=torch.float32)
+    BWDC_KERNEL.launch(x.device, ptr(dh_seq), ptr(x), ptr(h_seq), ptr(c_seq), ptr(w_ih_t),
+                       ptr(w_hh_t), ptr(w_ih), ptr(w_hh), ptr(bias), ptr(dx_pk), ptr(dw_part), s,
+                       b, t, i, h)
+    dw_cat = dw_part.sum(1)
+    return (dx_pk[0], dw_cat[0]) if one else (dx_pk, dw_cat)
 
 
 def _bwd_step_plain(dh_seq, pre, h_seq, c_seq, w_hh) -> torch.Tensor:

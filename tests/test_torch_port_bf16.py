@@ -29,8 +29,11 @@ CPU, its Pallas kernels in interpret mode). Tolerances, with their reasons
   summed in other orders; Adam carries those differences on. Accuracies
   within one row (a logit within rounding of a tie can flip);
 - bf16 ``build_serving_forward`` against JAX bf16 serving: rtol and atol
-  0.1 and argmax agreement of at least 90%, JAX's own bar for its bf16
-  serving against fp32 (``tests/test_serving.py``).
+  2e-2 and argmax agreement of at least 90%. The two packages' bf16
+  serving differ by 1.7e-3 to 5.0e-3 in max |logit| (3.0e-3 on this
+  test's inputs, logits up to 0.15): bf16 rounds at other places in each.
+  The bar sits ~7x above that; JAX's own bar for its bf16 serving against
+  fp32 (``tests/test_serving.py``) is 0.1.
 
 The ``gpu``-marked tests hold each bf16 kernel form against its plain
 version on the card, run a small bf16 LOSO trainer and bf16 serving there
@@ -406,7 +409,7 @@ def test_bf16_serving_matches_jax_bf16_serving():
     got = build_serving_forward(port, feat_dim, compute_dtype=BF16)(*map(torch.from_numpy, x))
     for g, r in zip(got, ref):
         assert g.dtype == torch.float32 and g.shape == (b, 3)
-        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0.1, atol=0.1)
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-2, atol=2e-2)
         assert (g.numpy().argmax(-1) == np.asarray(r).argmax(-1)).mean() >= 0.9
 
 
@@ -596,8 +599,10 @@ def test_bf16_loso_trainer_and_serving_on_card(cuda):
     reset_launch_counts()
     got, want = card.train_epoch(), cpu.train_epoch()
     steps = 2  # 16 train rows per subject, batch 8
+    # rows 1 and 11 launch their GEMM, recurrence and sweep kernels inside
     per_step = dict(bilstm_fwd_bf16=2, bilstm_cbnd_bf16=2, bilstm_segbwd_bf16=2, stem_tail_bf16=2,
-                    stem_tail_bwd_bf16=2, infonce=1)
+                    stem_tail_bwd_bf16=2, infonce=1, bilstm_gemm_bf16=8, bilstm_rec_bf16=2,
+                    bilstm_sweep_bf16=2)
     assert launch_counts() == {k: steps * per_step.get(k, 0) for k in launch_counts()}
     assert np.isfinite(got["loss"]).all()
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=5e-2)

@@ -216,8 +216,8 @@ def test_cpu_tensors_launch_nothing():
         fusion_head.fused_mha_fusion_head(x, x, x, mha, clf, 4)
     assert fwd[0].grad is not None and conv.grad is not None and feats.grad is not None
     assert q.grad is not None
-    training = ("bilstm_fwd", "bilstm_cbnd", "bilstm_segbwd", "stem_tail", "stem_tail_bwd",
-                "infonce")
+    training = ("bilstm_fwd", "bilstm_cbnd", "bilstm_segbwd", "bilstm_gemm", "bilstm_rec",
+                "bilstm_sweep", "stem_tail", "stem_tail_bwd", "infonce")
     assert kernels.launch_counts() == {
         **{name: 0 for name in training}, **{f"{name}_bf16": 0 for name in training},
         "conv_stem": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
