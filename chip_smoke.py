@@ -89,16 +89,16 @@ It needs a CUDA card and exits non-zero without one. In order, it
    trainer's weights cast to bf16 with seeded bf16 activations, and subject
    0 alone), the six kernels of the other BiLSTM schedules at S=24 and at
    subject 0 (the fp32 LOSO trainer's weights, seeded activations), and the
-   pieces that rows 1 and 11 launch (the tensor-core GEMM at its four
-   products: projection, gate recompute, dx, dW_cat; the recurrence; the
-   sweep) at each layer of the training step, at S=24 and, in bf16, at
-   subject 0, each timed alone, which splits the two rows' time; the GEMM
-   also against its products in fp64, per mode within 1e-5 of the largest
-   (a bar that one TF32 pass on the fp32 operands is shown to miss); times
-   both with CUDA events, times one PyTorch call of the
-   same function where there is one (``nn.LSTM`` in the case's dtype,
-   cuDNN's in fp32; ``scaled_dot_product_attention``; timed here only, the
-   port never calls them), computes each case's bound (the larger of its
+   pieces that rows 1, 9 and 11 launch (the tensor-core GEMM at its four
+   products: projection, gate recompute, dx, dW_cat; the recurrence; the c
+   scan, fp32 only, its one form; the sweep) at each layer of the training
+   step, at S=24 and, in bf16, at subject 0, each timed alone, which splits
+   the three rows' time; the GEMM also against its products in fp64, per
+   mode within 1e-5 of the largest (a bar that one TF32 pass on the fp32
+   operands is shown to miss); times both with CUDA events, times one
+   PyTorch call of the same function where there is one (``nn.LSTM`` in
+   the case's dtype, cuDNN's in fp32; ``scaled_dot_product_attention``;
+   timed here only, the port never calls them), computes each case's bound (the larger of its
    bytes over 3.35 TB/s and its operations over the peak rate for their
    type: 67 TFLOP/s fp32, 989 TFLOP/s bf16, 495 TFLOP/s per TF32 pass of
    the GEMM), and checks the stem tail's dropout (keep share
@@ -191,21 +191,29 @@ TIMED_CALLS = 20
 LOSO_FUSED_EPOCHS = 2
 PARITY_SUBJECTS = (0, 17)  # LOSO models checked against a single-model Trainer step
 LOSO_LR = 1e-4             # the trainers' default learning rate
-# the kernels each call of rows 1 and 11 launches (each call also counts
-# once under the row's own name): the projection GEMM and the recurrence;
-# the gate-recompute, dx and dW_cat GEMMs and the sweep
+# the kernels each call of rows 1, 9 and 11 launches on a train step's
+# path (each call also counts once under the row's own name): the
+# projection GEMM and the recurrence; the c scan; the gate-recompute, dx and
+# dW_cat GEMMs and the sweep. Row 9 runs there only inside the v9 layer
+# backward, which computes the gate activations once for rows 9 and 11 (the
+# GEMM counted under row 11); a call of row 9 alone launches that GEMM too
 ROW_KERNELS = {"bilstm_fwd": {"bilstm_gemm": 1, "bilstm_rec": 1},
+               "bilstm_cbnd": {"bilstm_cscan": 1},
                "bilstm_segbwd": {"bilstm_gemm": 3, "bilstm_sweep": 1}}
+# kernels with one form, which a bf16 path launches too: the c scan reads
+# the fp32 gate activations in both
+ONE_FORM = ("bilstm_cscan",)
 
 
 def with_row_kernels(per: dict) -> dict:
     """``per`` (launches by kernel) with the launches of the kernels that
-    rows 1 and 11 make, in the same form (fp32 or bf16), added."""
+    rows 1, 9 and 11 make, in the same form (fp32 or bf16), added."""
     out = dict(per)
     for name, n in per.items():
         sfx = "_bf16" if name.endswith("_bf16") else ""
         for inner, m in ROW_KERNELS.get(name.removesuffix("_bf16"), {}).items():
-            out[inner + sfx] = out.get(inner + sfx, 0) + n * m
+            inner += "" if inner in ONE_FORM else sfx
+            out[inner] = out.get(inner, 0) + n * m
     return out
 
 
@@ -214,10 +222,11 @@ PER_STEP = with_row_kernels(dict(bilstm_fwd=2, bilstm_cbnd=2, bilstm_segbwd=2, s
                                  stem_tail_bwd=2, infonce=1))
 PER_EVAL = with_row_kernels(dict(bilstm_fwd=2, stem_tail=2, infonce=1))
 # a bf16 step: the bf16 forms, but the fp32 InfoNCE form (its features are
-# fp32, as in the JAX model); the held-out evaluation runs in fp32 (PER_EVAL)
+# fp32, as in the JAX model) and the one-form kernels; the held-out
+# evaluation runs in fp32 (PER_EVAL)
 BF16 = torch.bfloat16
-PER_STEP_BF16 = {**{f"{name}_bf16": n for name, n in PER_STEP.items() if name != "infonce"},
-                 "infonce": 1}
+PER_STEP_BF16 = {(name if name in ("infonce", *ONE_FORM) else f"{name}_bf16"): n
+                 for name, n in PER_STEP.items()}
 # the BiLSTM's kernel schedules (fp32): each one's forward and backward
 # kernels, launched once per layer of a train step; the first also once per
 # layer of an evaluation
@@ -288,6 +297,8 @@ KERNELS = {
     "flash_bwd_dq": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:159", 1e-3),
     "flash_bwd_dkv": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:184", 1e-3),
     "fusion_head": (CSRC + "fusion_head.cu", JAX_KERNELS + "fusion_head.py:40", HEAD_ATOL),
+    # row 9's c scan, one form: the plain version's rounding, step by step
+    "bilstm_cscan": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1026", 1e-6),
     # the other schedules' kernels; the v8 sweep's dW_cat sums B*T rows as
     # bilstm_segbwd's does
     "bilstm_fwd_xp": (CSRC + "lstm_fwd.cu", JAX_KERNELS + "lstm.py:310", 1e-4),
@@ -696,7 +707,8 @@ def training_kernel_cases(model, batch: dict, mask: torch.Tensor, gen: torch.Gen
         h_seq = lstm.fused_bilstm_layer_plain(x, fwd, bwd)
         dh = torch.randn(h_seq.shape, device=x.device, generator=gen)
         c_bnd = lstm.bilstm_cbnd_plain(x, h_seq, *w)
-        label = f"layer {k} {tuple(x.shape)} K {lstm.SEG_K}"
+        layer_label = f"layer {k} {tuple(x.shape)}"
+        label = f"{layer_label} K {lstm.SEG_K}"
         cases["bilstm_cbnd"].append((
             label, lambda a=(x, h_seq, *w): lstm.bilstm_cbnd(*a),
             lambda a=(x, h_seq, *w): lstm.bilstm_cbnd_plain(*a), (x, h_seq, *w)))
@@ -704,7 +716,7 @@ def training_kernel_cases(model, batch: dict, mask: torch.Tensor, gen: torch.Gen
             label, lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd(*a),
             lambda a=(dh, x, h_seq, c_bnd, *w): lstm.bilstm_segbwd_plain(*a),
             (dh, x, h_seq, c_bnd, *w)))
-        for name, items in lstm_piece_cases(x, w, h_seq, dh, c_bnd, label).items():
+        for name, items in lstm_piece_cases(x, w, h_seq, dh, c_bnd, layer_label).items():
             cases[name] += items
         x = h_seq
     model.eval()  # the encoders' embeddings, without moving the running stats
@@ -720,10 +732,11 @@ def training_kernel_cases(model, batch: dict, mask: torch.Tensor, gen: torch.Gen
 
 
 def lstm_piece_cases(x, w, h_seq, dh, c_bnd, label: str, sfx: str = "") -> dict:
-    """The pieces of rows 1 and 11 at one layer's shapes: the GEMM at its
-    four products, the recurrence and the sweep, each (label, kernel call,
-    plain call, the tensors the call reads). The sweep's kernel call
-    overwrites a copy of the activations (the copy is timed with it)."""
+    """The pieces of rows 1, 9 and 11 at one layer's shapes: the GEMM at its
+    four products, the recurrence, the c scan (fp32 cases only: it has one
+    form) and the sweep, each (label, kernel call, plain call, the tensors
+    the call reads). The sweep's kernel call overwrites a copy of the
+    activations (the copy is timed with it)."""
     w_ih, w_hh, bias = w
     xp = lstm.bilstm_gemm_plain("proj", x, *w)
     act = lstm.bilstm_gemm_plain("gates", x, *w, h_seq=h_seq)
@@ -741,7 +754,7 @@ def lstm_piece_cases(x, w, h_seq, dh, c_bnd, label: str, sfx: str = "") -> dict:
             h_seq=tf32_round(h_seq).double(), dg=tf32_round(dg).double())
         return ref, one_pass
 
-    return {
+    pieces = {
         "bilstm_gemm" + sfx: [
             (f"{mode} {label}", lambda m=mode: lstm.bilstm_gemm(m, x, *w, h_seq=h_seq, dg=dg),
              lambda m=mode: lstm.bilstm_gemm_plain(m, x, *w, h_seq=h_seq, dg=dg),
@@ -753,6 +766,10 @@ def lstm_piece_cases(x, w, h_seq, dh, c_bnd, label: str, sfx: str = "") -> dict:
                                 lambda: lstm.bilstm_sweep_plain(act, dh, c_bnd, w_hh),
                                 (act, dh, c_bnd, w_hh))],
     }
+    if not sfx:
+        pieces["bilstm_cscan"] = [(f"{label} K {lstm.SEG_K}", lambda: lstm.bilstm_cscan(act),
+                                   lambda: lstm.bilstm_cscan_plain(act), (act,))]
+    return pieces
 
 
 def dropout_check(model, batch: dict, gen: torch.Generator) -> None:
@@ -1159,7 +1176,7 @@ def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator,
             lstm.bilstm_segbwd_plain, (dh, x, h_seq, c_bnd, *w))
         for name, items in lstm_piece_cases(x, w, h_seq, dh, c_bnd, f"S={s_n} {label}",
                                             sfx).items():
-            cases[name] += items
+            cases.setdefault(name, []).extend(items)
         if one_model is not None:
             for name, items in lstm_piece_cases(
                     x[0], tuple(t[0] for t in w), h_seq[0], dh[0], c_bnd[0],
@@ -1426,6 +1443,8 @@ def operations(name: str, args, res) -> float:
         xp, w_hh = t
         h = w_hh.shape[-1]
         return 2 * xp.numel() // (8 * h) * (8 * h * h + 10 * h)
+    if name == "bilstm_cscan":  # per (row, step, direction, unit): c = f c + i g
+        return 3 * t[0].numel() // 4
     if name == "bilstm_sweep":  # per (row, step, direction): the dh carry, the cell, c = f c + i g
         act, _, _, w_hh = t
         h = w_hh.shape[-1]
@@ -1484,8 +1503,8 @@ def library_call(name: str, args):
     beside the kernel only."""
     name = name.removesuffix("_bf16")
     t = tensors(args)
-    if name in ("bilstm_gemm", "bilstm_rec", "bilstm_sweep"):
-        return None  # a piece of rows 1 and 11: no one call computes it
+    if name in ("bilstm_gemm", "bilstm_rec", "bilstm_sweep", "bilstm_cscan"):
+        return None  # a piece of rows 1, 9 and 11: no one call computes it
     if name.startswith("bilstm"):
         forward_only = name in ("bilstm_fwd", "bilstm_fwd_xp")
         if name == "bilstm_fwd":
@@ -1566,13 +1585,24 @@ def gemm_check(name: str, label: str, mode: str, got, want, ref, one_pass) -> No
           f"{name} {label}: one TF32 pass ({err_tf32:.3e}) would meet the bar {bar:.3e}")
 
 
+def moved_bytes(name: str, args, res) -> int:
+    """Bytes one call must move: each input read once, each output written
+    once. The c scan's function reads only the i, f and g columns of its
+    activations (6H of each row's 8H)."""
+    ins = tensors(args)
+    nbytes = sum(x.numel() * x.element_size() for x in ins + tensors(res))
+    if name == "bilstm_cscan":
+        nbytes -= ins[0].numel() * ins[0].element_size() // 4
+    return nbytes
+
+
 def peak_rate(name: str, args) -> float:
     """The card's peak rate for the type of one case's operations: the
     recurrence and the sweep compute in fp32 in both forms; the GEMM's
     bf16 x bf16 products (the bf16 form's proj and gates) at the bf16 rate,
     its products with an fp32 operand at the TF32 rate, counted per pass
     (:func:`operations`); any other bf16 form at the bf16 rate."""
-    if name.startswith(("bilstm_rec", "bilstm_sweep")):
+    if name.startswith(("bilstm_rec", "bilstm_sweep", "bilstm_cscan")):
         return PEAK_FP32_FLOPS
     if name.startswith("bilstm_gemm"):
         bf16_only = name.endswith("_bf16") and args[0] in ("proj", "gates")
@@ -1603,7 +1633,7 @@ def case_results(name: str, items: list) -> dict:
                  for d, w in zip(diffs, want))
         limit = f"{tol}{' + 1 ulp' if any(w.dtype == BF16 for w in want) else ''}"
         check(ok, f"{name} {label}: max |err| {e:.3e} > {limit}")
-        nbytes = sum(x.numel() * x.element_size() for x in tensors(args) + tensors(res))
+        nbytes = moved_bytes(name, args, res)
         ops_ms = operations(name, args, res) / peak_rate(name, args) * 1e3
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         tk, tp = time_ms(kern), time_ms(plain)
@@ -1720,9 +1750,9 @@ def main() -> int:
         device)
     attention_counts, mha, x_attn = attention_phase(device)
     if args.profile:
-        profile_window("train epoch", lambda: trainer.train_epoch(EPOCHS + 1))
-        profile_window("LOSO train epoch", vt.train_epoch, top=30)
-        profile_window("LOSO bf16 train epoch", vt16.train_epoch, top=30)
+        profile_window("train epoch", lambda: trainer.train_epoch(EPOCHS + 1), show=("cscan",))
+        profile_window("LOSO train epoch", vt.train_epoch, top=30, show=("cscan",))
+        profile_window("LOSO bf16 train epoch", vt16.train_epoch, top=30, show=("cscan",))
         for schedule in ("v5", "v6"):  # the schedules that move row 11's dx and dW_cat to GEMMs
             vts = make_loso_trainer(full, lstm_schedule=schedule)
             vts.train_epoch()  # warm-up: first launches, cuBLAS handles

@@ -1,7 +1,9 @@
 // Bidirectional LSTM layer backward, both directions and all S models in each
 // launch:
 //
-//   msa_bilstm_cbnd   (a) c checkpoints at segment boundaries, replaces
+//   msa_bilstm_cscan  (a) the c checkpoints at segment boundaries, from the
+//                     gate activations of lstm_gemm.cu (mode kGates); with
+//                     that product it replaces
 //                     multimodal_sentiment_aanalysis_tpu/kernels/lstm.py::_cbnd_kernel
 //   msa_bilstm_sweep  (b) the serial half of the reverse sweep over K-step
 //                     segments, which with three products of lstm_gemm.cu
@@ -10,8 +12,10 @@
 // and, fp32 only, the JAX package's other backward schedules (v5, v6, v8,
 // v9.1), each an entry point of its own:
 //
-//   msa_bilstm_cseq      the full fp32 c_seq (S, 2, T, B, H): (a) at K = 1,
-//                        replaces ::_cseq_kernel (v8, v6)
+//   msa_bilstm_cseq      the full fp32 c_seq (S, 2, T, B, H), rebuilt from x
+//                        and the stored h_seq with each step's gates a
+//                        product inside the walk, replaces ::_cseq_kernel
+//                        (v8, v6)
 //   msa_bilstm_bwdc      the per-block reverse sweep below at K = 1, reading
 //                        c_prev from that full c_seq (v8), replaces
 //                        ::_bwd_bwdc_kernel
@@ -21,24 +25,47 @@
 //   msa_bilstm_bwd_xp    the same sweep with the gate pre-activation read
 //                        from the v5 projection xp instead of x . W_ih^T + b
 //                        (v5), replaces ::_bwd_kernel
-//   msa_bilstm_cbndk     (a) with the gate products of KC time rows batched
-//                        per block (v9.1), replaces ::_cbndk_kernel
+//   msa_bilstm_cbndk     the checkpoints of (a) from x and h_seq, with the
+//                        gate products of KC time rows batched per block
+//                        (v9.1), replaces ::_cbndk_kernel
 //
 // The forward (lstm_fwd.cu) stores only h_seq. The gates at actual time a
 // depend only on x_a and the stored h_prev (h at the previous recurrence
-// step), so c is rebuilt from them: (a) walks each direction in recurrence
-// order with c in registers and writes c only where a segment of K actual
-// time steps ends, in the JAX package's slot convention (direction 0 stores
-// c at a % K == K-1 into slot a / K, the entry of block a / K + 1; direction
-// 1 stores c at a % K == 0, the entry of block a / K - 1). K need not divide
-// T: the last segment is partial and only its real rows are visited.
+// step), so they are parallel in time, and only c = f c + i g is a
+// recurrence, elementwise. The checkpoint kernels walk each direction in
+// recurrence order with c in registers and write c only where a segment of K
+// actual time steps ends, in the JAX package's slot convention (direction 0
+// stores c at a % K == K-1 into slot a / K, the entry of block a / K + 1;
+// direction 1 stores c at a % K == 0, the entry of block a / K - 1). K need
+// not divide T: the last segment is partial and only its real rows are
+// visited.
 //
-// (a), row 9, and the per-block sweeps of the other schedules: one block per
-// (batch tile of kBt rows, direction, model), the model axis S the grid's z
-// axis, 4H threads, the time loop inside the block, thread g owning gate
-// column g. What bounds them on the H100: T dependent steps per direction,
-// each a small product whose weights (768 KiB per direction for the gates,
-// 256 KiB for a dh carry) do not fit shared memory and stream from L2.
+// (a), row 9. The JAX kernel computes each step's gates on the matrix unit
+// inside its serial grid over T. On the H100 that product, run inside the
+// serial walk, is small per step and streams 768 KiB of W_ih and W_hh a
+// direction from L2 at every step on CUDA cores; and (b) needs the same
+// activations. Design: the wrapper (kernels/lstm.py::bilstm_cbnd) computes
+// the activations of every (b, t) first, as one tensor-core GEMM, and the v9
+// layer backward (kernels/lstm.py::bilstm_v9_bwd) computes them once for both
+// (a) and (b). This kernel is then only the c recurrence: one thread per
+// (model, direction, batch row, unit), threads along H, so each step's loads
+// of i, f and g are coalesced rows; the loads do not depend on c, so the next
+// kScanAhead steps' loads are issued before the current steps' c chain runs
+// (two register buffers). What bounds it: the bytes (6H of act's 8H columns
+// read, c_bnd written) at many models; at one model of the flagship layer
+// (B=64, H=128: 16,384 threads), the T dependent steps' latency. Each step
+// rounds f c and i g, then their sum, as the plain version does (no fused
+// multiply-add), so c equals kernels/lstm.py::bilstm_cscan_plain's bit for
+// bit. The walk with each step's gates a CUDA-core product inside it now
+// serves row 6 only (msa_bilstm_cseq, every step a slot, fp32).
+//
+// The per-block walks (msa_bilstm_cseq, msa_bilstm_cbndk and the per-block
+// sweeps below): one block per (batch tile of kBt rows, direction, model), the
+// model axis S the grid's z axis, 4H threads, the time loop inside the block,
+// thread g owning gate column g. What bounds them on the H100: T dependent
+// steps per direction, each a small product whose weights (768 KiB per
+// direction for the gates, 256 KiB for a dh carry) do not fit shared memory
+// and stream from L2.
 //
 // (b), row 11. What bounds it on the H100, at the flagship layer (B=64,
 // T=73, I=256, H=128, fp32): T=73 dependent steps per direction, each carrying
@@ -79,13 +106,13 @@
 // dW_cat = [x | h_prev | 1]^T . dgates into a per-batch-tile partial slice
 // (read-modify-write by one block only, no atomics), summed by the wrapper.
 //
-// msa_bilstm_cbnd and msa_bilstm_sweep have an fp32 and a bf16 form (suffix
-// _bf16), one template over the element type of the activations and weights
-// (x, h_seq, dh_seq, W_ih, W_hh, bias), as the JAX kernels are Mosaic
+// msa_bilstm_sweep has an fp32 and a bf16 form (suffix _bf16), one template
+// over the element type of dh_seq and W_hh, as the JAX kernels are Mosaic
 // instances at either dtype. The c checkpoints, the gate activations and
 // dgates stay fp32 in both, and so does all arithmetic: the bf16 form only
-// reads half the bytes. The wrapper rounds dx and the weight gradients to the
-// inputs' dtype, as the JAX layer's VJP does.
+// reads half the bytes. msa_bilstm_cscan has one form: its input, the gate
+// activations, is fp32 in both. The wrapper rounds dx and the weight
+// gradients to the inputs' dtype, as the JAX layer's VJP does.
 
 #include "lstm_cluster.cuh"
 
@@ -100,14 +127,74 @@ constexpr int kBt = 8;  // batch rows per block; kBt * H == 2 * (4H threads)
 constexpr int kSegMaxThreads = 512;
 constexpr int kSegMaxRegs = 65536 / kSegMaxThreads;
 
-template <typename E>
-__global__ void bilstm_cbnd_kernel(const E* __restrict__ x,       // (S, B, T, I)
-                                   const E* __restrict__ h_seq,   // (S, B, T, 2H)
-                                   const E* __restrict__ w_ih_t,  // (S, 2, I, 4H)
-                                   const E* __restrict__ w_hh_t,  // (S, 2, H, 4H)
-                                   const E* __restrict__ bias,    // (S, 2, 4H)
-                                   float* __restrict__ c_bnd,     // (S, 2, NSEG, B, H)
-                                   int B, int T, int I, int H, int K, int nseg) {
+// (a), row 9's c recurrence over the gate activations
+constexpr int kScanThreads = 128;
+constexpr int kScanAhead = 8;  // steps whose loads are issued ahead of the c chain
+
+__global__ void __launch_bounds__(kScanThreads)
+bilstm_cscan_kernel(const float* __restrict__ act,  // (S, B, T, 8H): i, f, g, o per direction
+                    float* __restrict__ c_bnd,      // (S, 2, NSEG, B, H)
+                    int S, int B, int T, int H, int K, int nseg) {
+    const size_t cell = static_cast<size_t>(blockIdx.x) * kScanThreads + threadIdx.x;
+    const size_t units = static_cast<size_t>(B) * H;  // c_bnd's stride along the slots
+    if (cell >= static_cast<size_t>(S) * 2 * units) return;
+    const int j = static_cast<int>(cell % H);
+    const size_t b = cell / H % B;
+    const int d = static_cast<int>(cell / units % 2);
+    const size_t model = cell / (2 * units);
+    const size_t row = 8 * static_cast<size_t>(H);  // act's stride along T
+    const float* a = act + (model * B + b) * T * row + d * 4 * H + j;
+    float* out = c_bnd + (model * 2 + d) * nseg * units + b * H + j;
+    // step s of the recurrence is at actual time s (d = 0) or T - 1 - s (d = 1)
+    auto load = [&](float (&i)[kScanAhead], float (&f)[kScanAhead], float (&g)[kScanAhead],
+                    int s0) {
+#pragma unroll
+        for (int u = 0; u < kScanAhead; ++u) {
+            const int s = s0 + u;
+            if (s < T) {
+                const float* p = a + static_cast<size_t>(d == 0 ? s : T - 1 - s) * row;
+                i[u] = __ldg(p);
+                f[u] = __ldg(p + H);
+                g[u] = __ldg(p + 2 * H);
+            }
+        }
+    };
+    float ni[kScanAhead] = {}, nf[kScanAhead] = {}, ng[kScanAhead] = {};  // in flight
+    load(ni, nf, ng, 0);
+    float c = 0.0f;
+    for (int s0 = 0; s0 < T; s0 += kScanAhead) {
+        float ci[kScanAhead], cf[kScanAhead], cg[kScanAhead];
+#pragma unroll
+        for (int u = 0; u < kScanAhead; ++u) {
+            ci[u] = ni[u];
+            cf[u] = nf[u];
+            cg[u] = ng[u];
+        }
+        load(ni, nf, ng, s0 + kScanAhead);
+#pragma unroll
+        for (int u = 0; u < kScanAhead; ++u) {
+            const int s = s0 + u;
+            if (s < T) {
+                c = __fadd_rn(__fmul_rn(cf[u], c), __fmul_rn(ci[u], cg[u]));
+                const int t = d == 0 ? s : T - 1 - s;
+                if (d == 0 ? t % K == K - 1 : t % K == 0) out[(t / K) * units] = c;
+            }
+        }
+    }
+    // the partial last segment of direction 0 ends at no boundary: its slot,
+    // which no block reads, is written zero, so every slot is written
+    if (d == 0 && T % K != 0) out[(nseg - 1) * units] = 0.0f;
+}
+
+// row 6's c_seq walk: per step the gates of the block's kBt rows as a
+// CUDA-core product over x_t and the stored h_prev, then c of its cells
+__global__ void bilstm_cseq_kernel(const float* __restrict__ x,       // (S, B, T, I)
+                                   const float* __restrict__ h_seq,   // (S, B, T, 2H)
+                                   const float* __restrict__ w_ih_t,  // (S, 2, I, 4H)
+                                   const float* __restrict__ w_hh_t,  // (S, 2, H, 4H)
+                                   const float* __restrict__ bias,    // (S, 2, 4H)
+                                   float* __restrict__ c_seq,         // (S, 2, T, B, H)
+                                   int B, int T, int I, int H) {
     extern __shared__ float smem[];
     const int G = 4 * H;
     const size_t model = blockIdx.z;
@@ -116,7 +203,7 @@ __global__ void bilstm_cbnd_kernel(const E* __restrict__ x,       // (S, B, T, I
     w_ih_t += model * 2 * I * G;
     w_hh_t += model * 2 * H * G;
     bias += model * 2 * G;
-    c_bnd += model * 2 * nseg * B * H;
+    c_seq += model * 2 * T * B * H;
     float* xs = smem;          // (kBt, I): x_t of this tile
     float* hs = xs + kBt * I;  // (kBt, H): stored h_prev
     float* gs = hs + kBt * H;  // (kBt, G): gate pre-activations
@@ -124,9 +211,9 @@ __global__ void bilstm_cbnd_kernel(const E* __restrict__ x,       // (S, B, T, I
     const int d = blockIdx.y;
     const int b0 = blockIdx.x * kBt;
     const int g = threadIdx.x;
-    const E* wi = w_ih_t + static_cast<size_t>(d) * I * G;
-    const E* wh = w_hh_t + static_cast<size_t>(d) * H * G;
-    const float bg = to_float(bias[d * G + g]);
+    const float* wi = w_ih_t + static_cast<size_t>(d) * I * G;
+    const float* wh = w_hh_t + static_cast<size_t>(d) * H * G;
+    const float bg = bias[d * G + g];
     float c[2] = {0.0f, 0.0f};
 
     for (int s = 0; s < T; ++s) {
@@ -135,29 +222,27 @@ __global__ void bilstm_cbnd_kernel(const E* __restrict__ x,       // (S, B, T, I
         for (int idx = g; idx < kBt * I; idx += G) {
             const int r = idx / I;
             const int b = b0 + r;
-            xs[idx] = b < B ? to_float(x[(static_cast<size_t>(b) * T + t) * I + (idx - r * I)])
-                            : 0.0f;
+            xs[idx] = b < B ? x[(static_cast<size_t>(b) * T + t) * I + (idx - r * I)] : 0.0f;
         }
         for (int idx = g; idx < kBt * H; idx += G) {
             const int r = idx / H;
             const int b = b0 + r;
-            hs[idx] = (s > 0 && b < B) ? to_float(h_seq[(static_cast<size_t>(b) * T + tp) * 2 * H +
-                                                        d * H + (idx - r * H)])
-                                       : 0.0f;
+            hs[idx] = (s > 0 && b < B)
+                          ? h_seq[(static_cast<size_t>(b) * T + tp) * 2 * H + d * H + (idx - r * H)]
+                          : 0.0f;
         }
         __syncthreads();
 
-        // the forward kernel's gate arithmetic, term for term, so c matches it
         float acc[kBt];
 #pragma unroll
         for (int r = 0; r < kBt; ++r) acc[r] = bg;
         for (int k = 0; k < I; ++k) {
-            const float w = to_float(wi[static_cast<size_t>(k) * G + g]);
+            const float w = wi[static_cast<size_t>(k) * G + g];
 #pragma unroll
             for (int r = 0; r < kBt; ++r) acc[r] = fmaf(xs[r * I + k], w, acc[r]);
         }
         for (int k = 0; k < H; ++k) {
-            const float w = to_float(wh[static_cast<size_t>(k) * G + g]);
+            const float w = wh[static_cast<size_t>(k) * G + g];
 #pragma unroll
             for (int r = 0; r < kBt; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
         }
@@ -165,7 +250,6 @@ __global__ void bilstm_cbnd_kernel(const E* __restrict__ x,       // (S, B, T, I
         for (int r = 0; r < kBt; ++r) gs[r * G + g] = acc[r];
         __syncthreads();
 
-        const bool boundary = d == 0 ? t % K == K - 1 : t % K == 0;
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
             const int cell = g + q * G;
@@ -177,8 +261,7 @@ __global__ void bilstm_cbnd_kernel(const E* __restrict__ x,       // (S, B, T, I
             const float gg = tanhf(gr[2 * H + j]);
             c[q] = fg * c[q] + ig * gg;
             const int b = b0 + r;
-            if (boundary && b < B)
-                c_bnd[((static_cast<size_t>(d) * nseg + t / K) * B + b) * H + j] = c[q];
+            if (b < B) c_seq[((static_cast<size_t>(d) * T + t) * B + b) * H + j] = c[q];
         }
         __syncthreads();
     }
@@ -566,15 +649,16 @@ bilstm_bwd_step_kernel(const float* __restrict__ dh_seq,  // (S, B, T, 2H)
     }
 }
 
-// (a) with its gate products batched over kCbndkRows time rows (v9.1): per
-// block of KC actual-time rows, visited in recurrence order, thread g < 3H
-// computes gate column g (i, f or g; o is not needed for c) of all KC x kBt
-// rows at once, so each weight it loads from L2 feeds KC x kBt multiply-adds
-// instead of kBt; then each thread walks its two cells' c carry through the
-// block's real rows and stores the checkpoints as (a) does. The last block is
-// partial where KC does not divide T: its rows past T are zeros in shared
-// memory and skipped by the carry. Shared memory: KC * kBt * (I + H + 3H)
-// floats, 196,608 bytes at I = 256, H = 128, KC = 8.
+// The checkpoints of (a) from x and h_seq, with their gate products batched
+// over kCbndkRows time rows (v9.1): per block of KC actual-time rows, visited
+// in recurrence order, thread g < 3H computes gate column g (i, f or g; o is
+// not needed for c) of all KC x kBt rows at once, so each weight it loads from
+// L2 feeds KC x kBt multiply-adds instead of kBt; then each thread walks its
+// two cells' c carry through the block's real rows and stores the checkpoints
+// in (a)'s slots. The last block is partial where KC does not divide T: its
+// rows past T are zeros in shared memory and skipped by the carry. Shared
+// memory: KC * kBt * (I + H + 3H) floats, 196,608 bytes at I = 256, H = 128,
+// KC = 8.
 constexpr int kCbndkRows = 8;  // KC, a multiple of the segment length K
 
 __global__ void __maxnreg__(kSegMaxRegs)
@@ -829,22 +913,6 @@ bilstm_sweep_kernel(float* __restrict__ act,          // (S, B, T, 8H): i, f, g,
 }
 
 template <typename E>
-int launch_cbnd(const E* x, const E* h_seq, const E* w_ih_t, const E* w_hh_t, const E* bias,
-                float* c_bnd, int S, int B, int T, int I, int H, int K, int device,
-                void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    const size_t smem = sizeof(float) * kBt * (I + H + 4 * H);
-    err = allow_dynamic_smem(bilstm_cbnd_kernel<E>, smem);
-    if (err != cudaSuccess) return err;
-    const int nseg = (T + K - 1) / K;
-    const dim3 grid((B + kBt - 1) / kBt, 2, S);
-    bilstm_cbnd_kernel<E><<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-        x, h_seq, w_ih_t, w_hh_t, bias, c_bnd, B, T, I, H, K, nseg);
-    return cudaGetLastError();
-}
-
-template <typename E>
 int launch_segbwd(const E* dh_seq, const E* x, const E* h_seq, const float* c_bnd,
                   const E* w_ih_t, const E* w_hh_t, const E* w_ih, const E* w_hh, const E* bias,
                   float* dx_pk, float* dw_part, int S, int B, int T, int I, int H, int K,
@@ -890,16 +958,20 @@ int launch_sweep(float* act, const E* dh_seq, const float* c_bnd, const E* w_hh,
 
 using bf16 = __nv_bfloat16;
 
-extern "C" int msa_bilstm_cbnd(const float* x, const float* h_seq, const float* w_ih_t,
-                               const float* w_hh_t, const float* bias, float* c_bnd, int S,
-                               int B, int T, int I, int H, int K, int device, void* stream) {
-    return launch_cbnd(x, h_seq, w_ih_t, w_hh_t, bias, c_bnd, S, B, T, I, H, K, device, stream);
-}
-
-extern "C" int msa_bilstm_cbnd_bf16(const bf16* x, const bf16* h_seq, const bf16* w_ih_t,
-                                    const bf16* w_hh_t, const bf16* bias, float* c_bnd, int S,
-                                    int B, int T, int I, int H, int K, int device, void* stream) {
-    return launch_cbnd(x, h_seq, w_ih_t, w_hh_t, bias, c_bnd, S, B, T, I, H, K, device, stream);
+// row 9's c scan: act (S, B, T, 8H) fp32 gate activations (i, f, g, o of
+// each direction, lstm_gemm.cu's kGates output), c_bnd (S, 2, NSEG, B, H)
+// fp32, every slot written
+extern "C" int msa_bilstm_cscan(const float* act, float* c_bnd, int S, int B, int T, int H, int K,
+                                int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    if (S < 1 || B < 1 || T < 1 || H < 1 || K < 1) return cudaErrorInvalidValue;
+    const size_t blocks = (static_cast<size_t>(S) * 2 * B * H + kScanThreads - 1) / kScanThreads;
+    if (blocks > 0x7fffffffu) return cudaErrorInvalidConfiguration;
+    bilstm_cscan_kernel<<<static_cast<unsigned>(blocks), kScanThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(act, c_bnd, S, B, T, H, K,
+                                                               (T + K - 1) / K);
+    return cudaGetLastError();
 }
 
 // row 11's serial sweep: act (S, B, T, 8H) fp32 gate activations, overwritten
@@ -923,12 +995,20 @@ extern "C" int msa_bilstm_sweep_bf16(float* act, const bf16* dh_seq, const float
 
 // ---- the other schedules' entry points (fp32) ----
 
-// v8/v6: the full c_seq (S, 2, T, B, H): the checkpoint sweep at K = 1, whose
-// slot t is actual time t in both directions
+// v8/v6: the full c_seq (S, 2, T, B, H), slot t at actual time t in both
+// directions
 extern "C" int msa_bilstm_cseq(const float* x, const float* h_seq, const float* w_ih_t,
                                const float* w_hh_t, const float* bias, float* c_seq, int S,
                                int B, int T, int I, int H, int device, void* stream) {
-    return launch_cbnd(x, h_seq, w_ih_t, w_hh_t, bias, c_seq, S, B, T, I, H, 1, device, stream);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const size_t smem = sizeof(float) * kBt * (I + H + 4 * H);
+    err = allow_dynamic_smem(bilstm_cseq_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((B + kBt - 1) / kBt, 2, S);
+    bilstm_cseq_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+        x, h_seq, w_ih_t, w_hh_t, bias, c_seq, B, T, I, H);
+    return cudaGetLastError();
 }
 
 // v8: the reverse sweep at K = 1 over that full c_seq: each one-row block's
@@ -980,7 +1060,8 @@ extern "C" int msa_bilstm_bwd_xp(const float* dh_seq, const float* xp, const flo
                                  B, T, 0, H, device, stream);
 }
 
-// v9.1: the checkpoints of msa_bilstm_cbnd, KC = kCbndkRows rows per block
+// v9.1: the checkpoints of msa_bilstm_cscan from x and h_seq, KC = kCbndkRows
+// rows per block
 extern "C" int msa_bilstm_cbndk(const float* x, const float* h_seq, const float* w_ih_t,
                                 const float* w_hh_t, const float* bias, float* c_bnd, int S,
                                 int B, int T, int I, int H, int K, int device, void* stream) {

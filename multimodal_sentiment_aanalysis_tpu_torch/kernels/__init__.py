@@ -6,8 +6,9 @@ kernel it replaces.
 - ``bilstm_fwd``: ``lstm.bilstm_fwd`` (``lstm.fused_bilstm_layer``'s
   forward), ``kernels/lstm.py::_fwd_xproj_kernel``: a call of the wrapper,
   which launches ``bilstm_gemm`` then ``bilstm_rec``
-- ``bilstm_cbnd``: ``lstm.bilstm_cbnd``, ``csrc/lstm_bwd.cu``,
-  ``kernels/lstm.py::_cbnd_kernel``
+- ``bilstm_cbnd``: ``lstm.bilstm_cbnd``, ``kernels/lstm.py::_cbnd_kernel``: a
+  call of the wrapper, which launches ``bilstm_gemm`` (the gate
+  activations) then ``bilstm_cscan``
 - ``bilstm_segbwd``: ``lstm.bilstm_segbwd``, ``kernels/lstm.py::
   _segbwd_kernel``: a call of the wrapper, which launches ``bilstm_gemm``
   three times and ``bilstm_sweep`` once
@@ -18,6 +19,12 @@ kernel it replaces.
   recurrence on a cluster
 - ``bilstm_sweep``: ``lstm.bilstm_sweep``, ``csrc/lstm_bwd.cu``: the reverse
   sweep's serial half on a cluster
+- ``bilstm_cscan``: ``lstm.bilstm_cscan``, ``csrc/lstm_bwd.cu``: row 9's c
+  scan over the gate activations, one form (its input is fp32 in both)
+
+The v9 layer backward (``lstm.bilstm_v9_bwd``) counts one call of
+``bilstm_cbnd`` and one of ``bilstm_segbwd`` and launches the gate GEMM once
+for both: three ``bilstm_gemm``, one ``bilstm_cscan``, one ``bilstm_sweep``.
 - ``stem_tail``: ``conv_stem_train.stem_tail_fwd``, ``csrc/stem_tail.cu``,
   ``kernels/conv_stem_train.py::_fwd_kernel``
 - ``stem_tail_bwd``: ``conv_stem_train.stem_tail_bwd``, ``csrc/stem_tail.cu``,
@@ -42,9 +49,10 @@ kernel it replaces.
   (``::_cbndk_kernel``); each ``lstm.<name>``, the last five in
   ``csrc/lstm_bwd.cu``
 
-The first nine also have a bf16 form, a second C entry point of the same
-source with the suffix ``_bf16`` and its own counter (``bilstm_fwd_bf16``,
-...), which a wrapper launches for bf16 tensors. Each wrapper counts its
+The first ten but ``bilstm_cscan`` also have a bf16 form with its own
+counter (``bilstm_fwd_bf16``, ...): a second C entry point of the same
+source with the suffix ``_bf16``, which a wrapper launches for bf16 tensors
+(for the three rows' calls, a second call count). Each wrapper counts its
 launches, so a run can show which kernels, and which forms, its path went
 through (:func:`launch_counts`).
 """
@@ -65,6 +73,7 @@ KERNELS = {
     "bilstm_gemm": lstm.GEMM_KERNEL,
     "bilstm_rec": lstm.REC_KERNEL,
     "bilstm_sweep": lstm.SWEEP_KERNEL,
+    "bilstm_cscan": lstm.CSCAN_KERNEL,
     "bilstm_fwd_bf16": lstm.KERNELS[_BF16],
     "bilstm_cbnd_bf16": lstm.CBND_KERNELS[_BF16],
     "bilstm_segbwd_bf16": lstm.SEGBWD_KERNELS[_BF16],

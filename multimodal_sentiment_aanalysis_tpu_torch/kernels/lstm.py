@@ -11,14 +11,15 @@ weights in, ``(B, T, 2H)`` out in ``[fwd | bwd]`` order) and is a
   then the recurrence over it on a thread-block cluster with ``W_hh``
   resident in shared memory (:func:`bilstm_rec`, ``csrc/lstm_fwd.cu``); it
   saves ``x``, the weights and ``h_seq`` only;
-- backward: the JAX package's default (v9) backward: :func:`bilstm_cbnd`
-  (``_cbnd_kernel``, ``csrc/lstm_bwd.cu``: c checkpoints at every K-th
-  actual time step) then :func:`bilstm_segbwd` (``_segbwd_kernel``: the
-  reverse sweep over K-step segments, emitting dx per direction and
-  ``dW_cat = [x | h_prev | 1]^T dgates``), which runs the gate recompute,
-  dx and dW_cat as tensor-core GEMMs and only the dh carry and the cell
-  backward in a serial sweep on a cluster (:func:`bilstm_sweep`,
-  ``csrc/lstm_bwd.cu``).
+- backward: the JAX package's default (v9) backward, :func:`bilstm_v9_bwd`:
+  the c checkpoints of :func:`bilstm_cbnd` (``_cbnd_kernel``: c at every
+  K-th actual time step) then the reverse sweep of :func:`bilstm_segbwd`
+  (``_segbwd_kernel``: K-step segments, emitting dx per direction and
+  ``dW_cat = [x | h_prev | 1]^T dgates``). The gate activations, which both
+  need, come from one tensor-core GEMM; c is then an elementwise scan over
+  them (:func:`bilstm_cscan`, ``csrc/lstm_bwd.cu``), dx and dW_cat are GEMMs
+  too, and only the dh carry and the cell backward run in a serial sweep on
+  a cluster (:func:`bilstm_sweep`, ``csrc/lstm_bwd.cu``).
 
 ``schedule=`` picks one of the JAX package's five BiLSTM schedules, which
 it reaches through process-wide switches (``MSA_LSTM_XPROJ``,
@@ -28,7 +29,7 @@ the same function:
 ======== ============================================ =====================================================
 schedule forward                                      backward
 ======== ============================================ =====================================================
-``v9``   :func:`bilstm_fwd`                           :func:`bilstm_cbnd`, :func:`bilstm_segbwd`
+``v9``   :func:`bilstm_fwd`                           :func:`bilstm_v9_bwd` (rows 9 and 11 on one gate GEMM)
 ``v9.1`` :func:`bilstm_fwd`                           :func:`bilstm_cbndk` (``_cbndk_kernel``), :func:`bilstm_segbwd`
 ``v8``   :func:`bilstm_fwd`                           :func:`bilstm_cseq` (``_cseq_kernel``), :func:`bilstm_bwdc` (``_bwd_bwdc_kernel``)
 ``v6``   :func:`bilstm_fwd`                           :func:`bilstm_cseq`, :func:`bilstm_bwd_split` (``_bwd_xproj_kernel``), then dx, dW, db from ``dxp`` by ``einsum``
@@ -77,14 +78,15 @@ from ._build import (F32, F32_BF16, MAX_MODELS, CudaKernel, call_counts, check_c
                      kernel_forms, models_first, ptr, upcast, with_models)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# fp32 and bf16 forms of each kernel, by the dtype of x. Rows 1 and 11
-# (bilstm_fwd, bilstm_segbwd) launch several kernels a call: their counts
-# are calls, and each kernel they launch counts its own launches
-KERNELS, SEGBWD_KERNELS = call_counts(), call_counts()
-CBND_KERNELS = kernel_forms("lstm_bwd", "msa_bilstm_cbnd", [_P] * 6 + [_I] * 6)
+# fp32 and bf16 forms of each kernel, by the dtype of x. Rows 1, 9 and 11
+# (bilstm_fwd, bilstm_cbnd, bilstm_segbwd) launch several kernels a call:
+# their counts are calls, and each kernel they launch counts its own launches
+KERNELS, CBND_KERNELS, SEGBWD_KERNELS = call_counts(), call_counts(), call_counts()
 GEMM_KERNELS = kernel_forms("lstm_gemm", "msa_bilstm_gemm", [_I] + [_P] * 8 + [_I] * 6)
 REC_KERNELS = kernel_forms("lstm_fwd", "msa_bilstm_rec", [_P] * 3 + [_I] * 8)
 SWEEP_KERNELS = kernel_forms("lstm_bwd", "msa_bilstm_sweep", [_P] * 4 + [_I] * 9)
+# row 9's c scan, one form: its input is the fp32 gate activations in both
+CSCAN_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_cscan", [_P] * 2 + [_I] * 5)
 KERNEL, CBND_KERNEL, SEGBWD_KERNEL, GEMM_KERNEL, REC_KERNEL, SWEEP_KERNEL = (
     k[torch.float32] for k in (KERNELS, CBND_KERNELS, SEGBWD_KERNELS, GEMM_KERNELS, REC_KERNELS,
                                SWEEP_KERNELS))
@@ -480,10 +482,11 @@ class _FusedBiLSTM(torch.autograd.Function):
                     dg.sum((-4, -3)), None)
         if ctx.schedule == "v8":
             dx_pk, dw_cat = _Bwdc.apply(dh_seq, x, h_seq, _Cseq.apply(x, h_seq, *w), *w)
-        else:
-            cbnd = _CbndK if ctx.schedule == "v9.1" else _Cbnd
-            c_bnd = cbnd.apply(x, h_seq, *w, SEG_K)
+        elif ctx.schedule == "v9.1":
+            c_bnd = _CbndK.apply(x, h_seq, *w, SEG_K)
             dx_pk, dw_cat = _SegBwd.apply(dh_seq, x, h_seq, c_bnd, *w, SEG_K)
+        else:
+            dx_pk, dw_cat = _V9Bwd.apply(dh_seq, x, h_seq, *w, SEG_K)
         i, h = x.shape[-1], w_hh.shape[-1]
         return ((dx_pk[0] + dx_pk[1]).to(x.dtype), dw_cat[:, :i].transpose(1, 2).to(w_ih.dtype),
                 dw_cat[:, i:i + h].transpose(1, 2).to(w_hh.dtype), dw_cat[:, i + h].to(bias.dtype),
@@ -579,15 +582,16 @@ def _is_boundary(d: int, a: int, k: int) -> bool:
     return a % k == k - 1 if d == 0 else a % k == 0
 
 
-def bilstm_cbnd_plain(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
-    """Plain PyTorch version of :func:`bilstm_cbnd` (fp32)."""
-    (x, h_seq, w_ih, w_hh, bias), one = with_models(*map(upcast, (x, h_seq, w_ih, w_hh, bias)))
-    s, b, t, _ = x.shape
-    h = w_hh.shape[-1]
-    out = x.new_zeros(s, 2, _num_segments(t, k), b, h)
+def bilstm_cscan_plain(act, k: int = SEG_K) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bilstm_cscan`: ``c = f c + i g`` step
+    by step in recurrence order, fp32."""
+    (act,), one = with_models(act)
+    s, b, t, width = act.shape
+    h = width // 8
+    out = act.new_zeros(s, 2, _num_segments(t, k), b, h)
     for d in (0, 1):
-        i, f, g, _ = _gates(x, _h_prev(h_seq, d, h), w_ih[:, d], w_hh[:, d], bias[:, d])
-        c = x.new_zeros(s, b, h)
+        i, f, g, _ = act[..., 4 * d * h:4 * (d + 1) * h].chunk(4, dim=-1)
+        c = act.new_zeros(s, b, h)
         for a in (range(t) if d == 0 else reversed(range(t))):
             c = f[:, :, a] * c + i[:, :, a] * g[:, :, a]
             if _is_boundary(d, a, k):
@@ -595,15 +599,61 @@ def bilstm_cbnd_plain(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tenso
     return out[0] if one else out
 
 
-def _sweep(forms: dict, x, h_seq, w_ih, w_hh, bias, nslots: int, k: int | None,
+def _check_act(act: torch.Tensor, k: int) -> tuple[int, int, int, int]:
+    """Validate model-axis-first gate activations ``act (S, B, T, 8H)``
+    fp32 and the segment length; returns ``(S, B, T, H)``."""
+    if act.dtype != torch.float32:
+        raise TypeError(f"act is {act.dtype}; the c scan takes float32 gate activations")
+    if act.dim() != 4 or 0 in act.shape or act.shape[-1] % 8:
+        raise ValueError(f"act must be a non-empty (B, T, 8H) or (S, B, T, 8H) tensor, "
+                         f"got {tuple(act.shape)}")
+    if k < 1:
+        raise ValueError(f"segment length {k} < 1")
+    s, b, t, width = act.shape
+    return s, b, t, width // 8
+
+
+def bilstm_cscan(act, k: int = SEG_K) -> torch.Tensor:
+    """Row 9's c scan (``csrc/lstm_bwd.cu``): the checkpoints of
+    :func:`bilstm_cbnd`, ``(2, NSEG, B, H)`` (or ``(S, 2, NSEG, B, H)``)
+    fp32 in its slots, from the gate activations ``act (B, T, 8H)`` (or
+    ``(S, B, T, 8H)``) fp32 of :func:`bilstm_gemm` ``"gates"``, ``[fwd |
+    bwd]`` in (i, f, g, o) order. One thread per (model, direction, batch
+    row, unit) walks T in recurrence order with c in a register; every slot
+    is written, the ones no block reads with zero.
+
+    ``TypeError`` for an ``act`` other than fp32, ``ValueError`` for another
+    shape or ``k < 1``, on either device. A CPU tensor takes
+    :func:`bilstm_cscan_plain`; a CUDA tensor launches the kernel, or
+    raises."""
+    (act,), one = with_models(act)
+    s, b, t, h = _check_act(act, k)
+    if act.device.type == "cpu":
+        out = bilstm_cscan_plain(act, k)
+    else:
+        _check_device(act)
+        check_cuda("act", act, act.device, (s, b, t, 8 * h))
+        out = torch.empty(s, 2, _num_segments(t, k), b, h, device=act.device,
+                          dtype=torch.float32)
+        CSCAN_KERNEL.launch(act.device, ptr(act), ptr(out), s, b, t, h, k)
+    return out[0] if one else out
+
+
+def bilstm_cbnd_plain(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bilstm_cbnd` (fp32): the gate
+    activations, then the c scan."""
+    return bilstm_cscan_plain(bilstm_gemm_plain("gates", x, w_ih, w_hh, bias, h_seq=h_seq), k)
+
+
+def _sweep(kernel: CudaKernel, x, h_seq, w_ih, w_hh, bias, nslots: int, k: int | None,
            smem_floats) -> torch.Tensor:
-    """Launch a c sweep (:func:`bilstm_cbnd`, :func:`bilstm_cbndk`,
-    :func:`bilstm_cseq`; ``forms``: its kernel by dtype) into zeroed
-    ``(S, 2, nslots, B, H)`` fp32 slots; ``smem_floats(i, h)`` is its
-    shared memory in floats. ``k`` is passed to the kernel unless None."""
+    """Launch a per-block c walk of fp32 operands (:func:`bilstm_cbndk`,
+    :func:`bilstm_cseq`) into zeroed ``(S, 2, nslots, B, H)`` fp32 slots;
+    ``smem_floats(i, h)`` is its shared memory in floats. ``k`` is passed
+    to the kernel unless None."""
     _check_device(x)
     (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
-    check_cuda("x", x, x.device, dtypes=tuple(forms))
+    check_cuda("x", x, x.device)
     s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
     check_cuda("h_seq", h_seq, x.device, (s, b, t, 2 * h), (x.dtype,))
     if k is not None and k < 1:
@@ -611,9 +661,27 @@ def _sweep(forms: dict, x, h_seq, w_ih, w_hh, bias, nslots: int, k: int | None,
     _check_smem(smem_floats(i, h), f"input width {i}")
     w_ih_t, w_hh_t = _transposed(w_ih), _transposed(w_hh)
     out = torch.zeros(s, 2, nslots, b, h, device=x.device, dtype=torch.float32)
-    forms[x.dtype].launch(x.device, ptr(x), ptr(h_seq), ptr(w_ih_t), ptr(w_hh_t), ptr(bias),
-                          ptr(out), s, b, t, i, h, *(() if k is None else (k,)))
+    kernel.launch(x.device, ptr(x), ptr(h_seq), ptr(w_ih_t), ptr(w_hh_t), ptr(bias), ptr(out),
+                  s, b, t, i, h, *(() if k is None else (k,)))
     return out[0] if one else out
+
+
+def _check_gemm_layer(x, h_seq, w_ih, w_hh, bias) -> tuple[int, int, int, int, int]:
+    """Validate a layer's model-axis-first CUDA operands for the gates GEMM;
+    returns ``(S, B, T, I, H)``."""
+    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias, threads=False)
+    _check_widths(i, h)
+    check_cuda("h_seq", h_seq, x.device, (s, b, t, 2 * h), (x.dtype,))
+    return s, b, t, i, h
+
+
+def _gate_activations(x, h_seq, w_ih, w_hh, bias) -> torch.Tensor:
+    """The gate activations ``(S, B, T, 8H)`` fp32 of validated operands, by
+    the gates GEMM."""
+    s, b, t, _ = x.shape
+    act = torch.empty(s, b, t, 8 * w_hh.shape[-1], device=x.device, dtype=torch.float32)
+    _gemm("gates", x, w_ih, w_hh, bias, h_seq, None, act)
+    return act
 
 
 def bilstm_cbnd(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
@@ -621,11 +689,23 @@ def bilstm_cbnd(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
     ``NSEG = ceil(T / k)``, rebuilt in recurrence order from ``x`` and the
     stored ``h_seq``, in fp32. Slot ``m`` of direction 0 holds c at actual time
     ``m k + k - 1`` (the entry of block ``m + 1``); of direction 1, c at
-    ``m k`` (the entry of block ``m - 1``). Slots no block reads are zero."""
+    ``m k`` (the entry of block ``m - 1``). Slots no block reads are zero.
+
+    A CPU tensor takes :func:`bilstm_cbnd_plain`; a CUDA tensor launches two
+    kernels, or raises: the gate activations of every (b, t)
+    (:func:`bilstm_gemm` ``"gates"``, bf16 x bf16 for bf16 operands) into a
+    transient fp32 ``(S, B, T, 8H)`` buffer, then :func:`bilstm_cscan`. One
+    call counts one launch of ``CBND_KERNELS[dtype]``."""
     if x.device.type == "cpu":
         return bilstm_cbnd_plain(x, h_seq, w_ih, w_hh, bias, k)
-    return _sweep(CBND_KERNELS, x, h_seq, w_ih, w_hh, bias, _num_segments(x.shape[-2], k), k,
-                  lambda i, h: _ROWS_PER_BLOCK * (i + 5 * h))
+    _check_device(x)
+    (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
+    _check_gemm_layer(x, h_seq, w_ih, w_hh, bias)
+    if k < 1:
+        raise ValueError(f"segment length {k} < 1")
+    out = bilstm_cscan(_gate_activations(x, h_seq, w_ih, w_hh, bias), k)
+    CBND_KERNELS[x.dtype].launches += 1
+    return out[0] if one else out
 
 
 def _kernel_function(fn, out_dims, doc: str):
@@ -653,9 +733,6 @@ def _kernel_function(fn, out_dims, doc: str):
 
     KernelFunction.__doc__ = doc
     return KernelFunction
-
-
-_Cbnd = _kernel_function(bilstm_cbnd, 0, ":func:`bilstm_cbnd` as a Function.")
 
 
 # --------------------------------------------------------------------------
@@ -730,26 +807,66 @@ def bilstm_segbwd(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias,
     _check_device(x)
     (x, dh_seq, h_seq, c_bnd, w_ih, w_hh, bias), one = with_models(
         x, dh_seq, h_seq, c_bnd, w_ih, w_hh, bias)
-    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias, threads=False)
-    _check_widths(i, h)
-    _check_sweep(dh_seq, c_bnd, k, s, b, t, h, x.dtype, x.device)
-    check_cuda("h_seq", h_seq, x.device, (s, b, t, 2 * h), (x.dtype,))
+    s, b, t, _, h = _check_gemm_layer(x, h_seq, w_ih, w_hh, bias)
+    _check_sweep(dh_seq, k, s, b, t, h, x.dtype, x.device)
+    _check_c_bnd(c_bnd, k, s, b, t, h, x.device)
     cluster_plan("sweep", s, b, h, x.dtype, _sm_count(x.device.index))  # raises before any launch
-    act = torch.empty(s, b, t, 8 * h, device=x.device, dtype=torch.float32)
-    _gemm("gates", x, w_ih, w_hh, bias, h_seq, None, act)
+    out = _dgates_products(_gate_activations(x, h_seq, w_ih, w_hh, bias), dh_seq, c_bnd, x, h_seq,
+                           w_ih, w_hh, bias, k)
+    SEGBWD_KERNELS[x.dtype].launches += 1
+    return (out[0][0], out[1][0]) if one else out
+
+
+def _dgates_products(act, dh_seq, c_bnd, x, h_seq, w_ih, w_hh, bias, k):
+    """The sweep over the gate activations ``act``, which it overwrites with
+    dgates, then dx and dW_cat from them by the GEMM, on validated
+    model-axis-first operands: ``(dx_pk, dW_cat)``."""
+    s, b, t, i = x.shape
+    h = w_hh.shape[-1]
     bilstm_sweep(act, dh_seq, c_bnd, w_hh, k)  # act now holds dgates
     dx_pk = torch.empty(s, 2, b, t, i, device=x.device, dtype=torch.float32)
     _gemm("dx", x, w_ih, w_hh, bias, h_seq, act, dx_pk)
     dw_cat = torch.empty(s, 2, i + h + 1, 4 * h, device=x.device, dtype=torch.float32)
     _gemm("dw", x, w_ih, w_hh, bias, h_seq, act, dw_cat)
+    return dx_pk, dw_cat
+
+
+def bilstm_v9_bwd(dh_seq, x, h_seq, w_ih, w_hh, bias,
+                  k: int = SEG_K) -> tuple[torch.Tensor, torch.Tensor]:
+    """The v9 layer backward, rows 9 and 11 together: what
+    ``bilstm_segbwd(dh_seq, x, h_seq, bilstm_cbnd(x, h_seq, w_ih, w_hh, bias,
+    k), w_ih, w_hh, bias, k)`` returns.
+
+    A CPU tensor takes :func:`bilstm_cbnd_plain` then
+    :func:`bilstm_segbwd_plain`. A CUDA tensor launches five kernels, or
+    raises: the gate activations, computed once for both rows
+    (:func:`bilstm_gemm` ``"gates"``), the c scan over them
+    (:func:`bilstm_cscan`), the sweep, which overwrites them with dgates
+    (:func:`bilstm_sweep`), then dx and dW_cat (``"dx"``, ``"dw"``). One call
+    counts one launch of ``CBND_KERNELS[dtype]`` and one of
+    ``SEGBWD_KERNELS[dtype]``."""
+    if x.device.type == "cpu":
+        c_bnd = bilstm_cbnd_plain(x, h_seq, w_ih, w_hh, bias, k)
+        return bilstm_segbwd_plain(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias, k)
+    _check_device(x)
+    (x, dh_seq, h_seq, w_ih, w_hh, bias), one = with_models(x, dh_seq, h_seq, w_ih, w_hh, bias)
+    s, b, t, _, h = _check_gemm_layer(x, h_seq, w_ih, w_hh, bias)
+    _check_sweep(dh_seq, k, s, b, t, h, x.dtype, x.device)
+    cluster_plan("sweep", s, b, h, x.dtype, _sm_count(x.device.index))  # raises before any launch
+    act = _gate_activations(x, h_seq, w_ih, w_hh, bias)
+    out = _dgates_products(act, dh_seq, bilstm_cscan(act, k), x, h_seq, w_ih, w_hh, bias, k)
+    CBND_KERNELS[x.dtype].launches += 1
     SEGBWD_KERNELS[x.dtype].launches += 1
-    return (dx_pk[0], dw_cat[0]) if one else (dx_pk, dw_cat)
+    return (out[0][0], out[1][0]) if one else out
 
 
-def _check_sweep(dh_seq, c_bnd, k, s, b, t, h, dtype, device) -> None:
+def _check_sweep(dh_seq, k, s, b, t, h, dtype, device) -> None:
     if k < 1:
         raise ValueError(f"segment length {k} < 1")
     check_cuda("dh_seq", dh_seq, device, (s, b, t, 2 * h), (dtype,))
+
+
+def _check_c_bnd(c_bnd, k, s, b, t, h, device) -> None:
     check_cuda("c_bnd", c_bnd, device, (s, 2, _num_segments(t, k), b, h), F32)
 
 
@@ -815,7 +932,8 @@ def bilstm_sweep(act, dh_seq, c_bnd, w_hh, k: int = SEG_K) -> torch.Tensor:
     h = w_hh.shape[-1]
     check_cuda("act", act, act.device, (s, b, t, 8 * h))
     check_cuda("w_hh", w_hh, act.device, (s, 2, 4 * h, h), F32_BF16)
-    _check_sweep(dh_seq, c_bnd, k, s, b, t, h, w_hh.dtype, act.device)
+    _check_sweep(dh_seq, k, s, b, t, h, w_hh.dtype, act.device)
+    _check_c_bnd(c_bnd, k, s, b, t, h, act.device)
     plan = cluster_plan("sweep", s, b, h, w_hh.dtype, _sm_count(act.device.index))
     SWEEP_KERNELS[w_hh.dtype].launch(act.device, ptr(act), ptr(dh_seq), ptr(c_bnd), ptr(w_hh), s,
                                      b, t, h, k, *plan,
@@ -830,6 +948,7 @@ def _check_max_hidden(h: int) -> None:
 
 
 _SegBwd = _kernel_function(bilstm_segbwd, (0, 0), ":func:`bilstm_segbwd` as a Function.")
+_V9Bwd = _kernel_function(bilstm_v9_bwd, (0, 0), ":func:`bilstm_v9_bwd` as a Function.")
 
 
 # --------------------------------------------------------------------------
@@ -867,7 +986,7 @@ def bilstm_cbndk(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
     if x.device.type == "cpu":
         return bilstm_cbndk_plain(x, h_seq, w_ih, w_hh, bias, k)
     _check_max_hidden(w_hh.shape[-1])
-    return _sweep({torch.float32: CBNDK_KERNEL}, x, h_seq, w_ih, w_hh, bias,
+    return _sweep(CBNDK_KERNEL, x, h_seq, w_ih, w_hh, bias,
                   _num_segments(x.shape[-2], k), k,
                   lambda i, h: CBNDK_ROWS * _ROWS_PER_BLOCK * (i + 4 * h))
 
@@ -881,10 +1000,11 @@ def bilstm_cseq(x, h_seq, w_ih, w_hh, bias) -> torch.Tensor:
     """The full fp32 cell state ``c_seq (2, T, B, H)`` (or ``(S, 2, T, B,
     H)``; slot t is actual time t in both directions), rebuilt in
     recurrence order from ``x`` and the stored ``h_seq`` (the JAX package's
-    v8 ``_cseq_kernel``): :func:`bilstm_cbnd`'s kernel at K = 1."""
+    v8 ``_cseq_kernel``): :func:`bilstm_cbnd` at K = 1, with each step's
+    gates a CUDA-core product inside the walk. fp32."""
     if x.device.type == "cpu":
         return bilstm_cseq_plain(x, h_seq, w_ih, w_hh, bias)
-    return _sweep({torch.float32: CSEQ_KERNEL}, x, h_seq, w_ih, w_hh, bias, x.shape[-2], None,
+    return _sweep(CSEQ_KERNEL, x, h_seq, w_ih, w_hh, bias, x.shape[-2], None,
                   lambda i, h: _ROWS_PER_BLOCK * (i + 5 * h))
 
 

@@ -599,10 +599,12 @@ def test_bf16_loso_trainer_and_serving_on_card(cuda):
     reset_launch_counts()
     got, want = card.train_epoch(), cpu.train_epoch()
     steps = 2  # 16 train rows per subject, batch 8
-    # rows 1 and 11 launch their GEMM, recurrence and sweep kernels inside
+    # rows 1, 9 and 11 launch their GEMM, recurrence, scan and sweep kernels
+    # inside; the v9 layer backward computes the gates once for rows 9 and 11;
+    # the scan has one form (its input is fp32)
     per_step = dict(bilstm_fwd_bf16=2, bilstm_cbnd_bf16=2, bilstm_segbwd_bf16=2, stem_tail_bf16=2,
                     stem_tail_bwd_bf16=2, infonce=1, bilstm_gemm_bf16=8, bilstm_rec_bf16=2,
-                    bilstm_sweep_bf16=2)
+                    bilstm_sweep_bf16=2, bilstm_cscan=2)
     assert launch_counts() == {k: steps * per_step.get(k, 0) for k in launch_counts()}
     assert np.isfinite(got["loss"]).all()
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=5e-2)

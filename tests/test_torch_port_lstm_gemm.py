@@ -343,17 +343,19 @@ def test_gemm_raises_on_widths_that_are_not_4_vectors(cuda):
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_rows_launch_their_pieces(cuda, shape, dtype):
     """One call of row 1 is one projection and one recurrence; one call of
-    row 11 three GEMMs and one sweep; each row counts its calls."""
+    row 9 one GEMM and one scan; one call of row 11 three GEMMs and one
+    sweep; each row counts its calls."""
     dt = DTYPES[dtype]
     x, w, dh = _card_case(cuda, shape, dtype, 13)
     counts = lambda: (lstm.KERNELS[dt].launches, lstm.SEGBWD_KERNELS[dt].launches,
                       lstm.GEMM_KERNELS[dt].launches, lstm.REC_KERNELS[dt].launches,
-                      lstm.SWEEP_KERNELS[dt].launches)
+                      lstm.SWEEP_KERNELS[dt].launches, lstm.CBND_KERNELS[dt].launches,
+                      lstm.CSCAN_KERNEL.launches)
     before = counts()
     h_seq = lstm.bilstm_fwd(x, *w)
     c_bnd = lstm.bilstm_cbnd(x, h_seq, *w)
     dx_pk, dw_cat = lstm.bilstm_segbwd(dh, x, h_seq, c_bnd, *w)
-    assert counts() == tuple(n + e for n, e in zip(before, (1, 1, 4, 1, 1)))
+    assert counts() == tuple(n + e for n, e in zip(before, (1, 1, 5, 1, 1, 1, 1)))
     dx_ref, dw_ref = lstm.bilstm_segbwd_plain(dh, x, h_seq, c_bnd, *w)
     torch.cuda.synchronize()
     torch.testing.assert_close(h_seq.float(), lstm.bilstm_fwd_plain(x, *w).float(),

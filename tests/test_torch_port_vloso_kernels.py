@@ -512,9 +512,10 @@ def test_loso_trainer_on_card_one_launch_per_call_without_host_sync(cuda):
     reset_launch_counts()
     got, want = card.train_epoch(), cpu.train_epoch()
     steps = 2  # 16 train rows per subject, batch 8
-    # rows 1 and 11 launch their GEMM, recurrence and sweep kernels inside
+    # rows 1, 9 and 11 launch their GEMM, recurrence, scan and sweep kernels
+    # inside; the v9 layer backward computes the gates once for rows 9 and 11
     per_step = dict(bilstm_fwd=2, bilstm_cbnd=2, bilstm_segbwd=2, stem_tail=2, stem_tail_bwd=2,
-                    infonce=1, bilstm_gemm=8, bilstm_rec=2, bilstm_sweep=2)
+                    infonce=1, bilstm_gemm=8, bilstm_rec=2, bilstm_sweep=2, bilstm_cscan=2)
     assert launch_counts() == {k: steps * per_step.get(k, 0) for k in launch_counts()}
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
     torch.cuda.synchronize()
