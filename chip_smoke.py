@@ -88,12 +88,14 @@ It needs a CUDA card and exits non-zero without one. In order, it
    bf16 paths' shapes (the bf16 serving model's activations, the bf16 LOSO
    trainer's weights cast to bf16 with seeded bf16 activations, and subject
    0 alone), the six kernels of the other BiLSTM schedules at S=24 and at
-   subject 0 (the fp32 LOSO trainer's weights, seeded activations), and the
-   pieces that rows 1, 9 and 11 launch (the tensor-core GEMM at its four
+   subject 0 (the fp32 LOSO trainer's weights, seeded activations; rows 8
+   and 7 are the GEMM and the sweep at K=1 over the full c), and the
+   pieces that rows 1, 9, 11, 8 and 7 launch (the tensor-core GEMM at its four
    products: projection, gate recompute, dx, dW_cat; the recurrence; the c
-   scan, fp32 only, its one form; the sweep) at each layer of the training
+   scan, fp32 only, its one form; the sweep, at K=4 and, in fp32, at K=1
+   over the full c) at each layer of the training
    step, at S=24 and, in bf16, at subject 0, each timed alone, which splits
-   the three rows' time; the GEMM also against its products in fp64, per
+   the rows' time; the GEMM also against its products in fp64, per
    mode within 1e-5 of the largest (a bar that one TF32 pass on the fp32
    operands is shown to miss); times both with CUDA events, times one
    PyTorch call of the same function where there is one (``nn.LSTM`` in
@@ -191,15 +193,19 @@ TIMED_CALLS = 20
 LOSO_FUSED_EPOCHS = 2
 PARITY_SUBJECTS = (0, 17)  # LOSO models checked against a single-model Trainer step
 LOSO_LR = 1e-4             # the trainers' default learning rate
-# the kernels each call of rows 1, 9 and 11 launches on a train step's
-# path (each call also counts once under the row's own name): the
+# the kernels each call of rows 1, 9, 11, 8 and 7 launches on a train
+# step's path (each call also counts once under the row's own name): the
 # projection GEMM and the recurrence; the c scan; the gate-recompute, dx and
-# dW_cat GEMMs and the sweep. Row 9 runs there only inside the v9 layer
-# backward, which computes the gate activations once for rows 9 and 11 (the
-# GEMM counted under row 11); a call of row 9 alone launches that GEMM too
+# dW_cat GEMMs and the sweep (row 11, and row 8 at K=1 over the full c); the
+# gate-recompute GEMM and the sweep at K=1 (row 7). Row 9 runs there only
+# inside the v9 layer backward, which computes the gate activations once for
+# rows 9 and 11 (the GEMM counted under row 11); a call of row 9 alone
+# launches that GEMM too
 ROW_KERNELS = {"bilstm_fwd": {"bilstm_gemm": 1, "bilstm_rec": 1},
                "bilstm_cbnd": {"bilstm_cscan": 1},
-               "bilstm_segbwd": {"bilstm_gemm": 3, "bilstm_sweep": 1}}
+               "bilstm_segbwd": {"bilstm_gemm": 3, "bilstm_sweep": 1},
+               "bilstm_bwdc": {"bilstm_gemm": 3, "bilstm_sweep": 1},
+               "bilstm_bwd_split": {"bilstm_gemm": 1, "bilstm_sweep": 1}}
 # kernels with one form, which a bf16 path launches too: the c scan reads
 # the fp32 gate activations in both
 ONE_FORM = ("bilstm_cscan",)
@@ -284,7 +290,7 @@ TRAINING_KERNELS = {
     # bilstm_segbwd's does; the sweep's dgates carry dh through T steps
     "bilstm_gemm": (CSRC + "lstm_gemm.cu", JAX_KERNELS + "lstm.py:527,1227", 1e-3),
     "bilstm_rec": (CSRC + "lstm_fwd.cu", JAX_KERNELS + "lstm.py:527", 1e-4),
-    "bilstm_sweep": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1227", 1e-4),
+    "bilstm_sweep": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1227,819,691", 1e-4),
     "stem_tail": (CSRC + "stem_tail.cu", JAX_KERNELS + "conv_stem_train.py:265", 1e-5),
     "stem_tail_bwd": (CSRC + "stem_tail.cu", JAX_KERNELS + "conv_stem_train.py:368", 1e-3),
     "infonce": (CSRC + "infonce.cu", JAX_KERNELS + "contrastive.py:61", 1e-4),
@@ -300,7 +306,9 @@ KERNELS = {
     # row 9's c scan, one form: the plain version's rounding, step by step
     "bilstm_cscan": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1026", 1e-6),
     # the other schedules' kernels; the v8 sweep's dW_cat sums B*T rows as
-    # bilstm_segbwd's does
+    # bilstm_segbwd's does (rows 8 and 7 are row 11's pieces at K=1 over
+    # the full c: the sweep rebuilds c from c_seq and the GEMM's 3xTF32
+    # activations, row 6's c from its own CUDA-core product)
     "bilstm_fwd_xp": (CSRC + "lstm_fwd.cu", JAX_KERNELS + "lstm.py:310", 1e-4),
     "bilstm_bwd_xp": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:401", 1e-4),
     "bilstm_cseq": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:623", 1e-4),
@@ -1077,7 +1085,9 @@ def schedule_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator, cases
                           loso_cases: dict) -> None:
     """Adds the other schedules' six kernels at the LOSO step's S=24 shapes
     (the fp32 trainer's stacked weights, seeded activations) to
-    ``loso_cases``, and subject 0's share to ``cases``. Call under
+    ``loso_cases``, and subject 0's share to ``cases``; and the sweep at
+    K=1 over the full c, the piece rows 8 and 7 launch (its kernel call
+    overwrites a copy of the activations, timed with it). Call under
     ``no_grad``."""
     device = vt.device
     pd = vt._param_dict(vt.params)
@@ -1107,6 +1117,14 @@ def schedule_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator, cases
                                      lambda a=args, p=plain: p(*a), args))
             cases[name].append((f"subject 0 of S={s_n} {label}", lambda a=a0, f=fn: f(*a),
                                 lambda a=a0, p=plain: p(*a), a0))
+        act = lstm.bilstm_gemm_plain("gates", x, *w, h_seq=h_seq)
+        args = (act, dh, c_seq, w[1])
+        for what, a, into in ((f"S={s_n}", args, loso_cases),
+                              (f"subject 0 of S={s_n}", tuple(t[0] for t in args), cases)):
+            into["bilstm_sweep"].append((
+                f"{what} {label} K 1 (rows 8 and 7)",
+                lambda a=a: lstm.bilstm_sweep(a[0].clone(), *a[1:], 1),
+                lambda a=a: lstm.bilstm_sweep_plain(*a, 1), a))
         x = h_seq
 
 
@@ -1753,7 +1771,7 @@ def main() -> int:
         profile_window("train epoch", lambda: trainer.train_epoch(EPOCHS + 1), show=("cscan",))
         profile_window("LOSO train epoch", vt.train_epoch, top=30, show=("cscan",))
         profile_window("LOSO bf16 train epoch", vt16.train_epoch, top=30, show=("cscan",))
-        for schedule in ("v5", "v6"):  # the schedules that move row 11's dx and dW_cat to GEMMs
+        for schedule in ("v5", "v6", "v8"):  # the other schedules with dx and dW_cat in GEMMs
             vts = make_loso_trainer(full, lstm_schedule=schedule)
             vts.train_epoch()  # warm-up: first launches, cuBLAS handles
             profile_window(f"LOSO {schedule} train epoch", vts.train_epoch, top=30)

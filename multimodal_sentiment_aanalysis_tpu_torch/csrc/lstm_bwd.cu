@@ -10,20 +10,23 @@
 //                     replaces ::_segbwd_kernel
 //
 // and, fp32 only, the JAX package's other backward schedules (v5, v6, v8,
-// v9.1), each an entry point of its own:
+// v9.1):
 //
 //   msa_bilstm_cseq      the full fp32 c_seq (S, 2, T, B, H), rebuilt from x
 //                        and the stored h_seq with each step's gates a
 //                        product inside the walk, replaces ::_cseq_kernel
 //                        (v8, v6)
-//   msa_bilstm_bwdc      the per-block reverse sweep below at K = 1, reading
-//                        c_prev from that full c_seq (v8), replaces
-//                        ::_bwd_bwdc_kernel
-//   msa_bilstm_bwd_split per-step reverse sweep that emits the packed gate
-//                        gradients dxp (S, B, T, 8H) (v6), replaces
-//                        ::_bwd_xproj_kernel
-//   msa_bilstm_bwd_xp    the same sweep with the gate pre-activation read
-//                        from the v5 projection xp instead of x . W_ih^T + b
+//   msa_bilstm_sweep     at K = 1 over that full c_seq: c_seq is (a)'s
+//                        checkpoints at K = 1 (slot t is c at actual time t
+//                        in both directions). With the gates GEMM before it
+//                        and the dx and dW_cat GEMMs after it
+//                        (kernels/lstm.py::bilstm_bwdc) it replaces
+//                        ::_bwd_bwdc_kernel (v8); with the gates GEMM alone,
+//                        its dgates the packed gate gradients dxp
+//                        (kernels/lstm.py::bilstm_bwd_split), it replaces
+//                        ::_bwd_xproj_kernel (v6)
+//   msa_bilstm_bwd_xp    per-step reverse sweep that emits dxp with the gate
+//                        pre-activation read from the v5 projection xp
 //                        (v5), replaces ::_bwd_kernel
 //   msa_bilstm_cbndk     the checkpoints of (a) from x and h_seq, with the
 //                        gate products of KC time rows batched per block
@@ -59,13 +62,13 @@
 // bit. The walk with each step's gates a CUDA-core product inside it now
 // serves row 6 only (msa_bilstm_cseq, every step a slot, fp32).
 //
-// The per-block walks (msa_bilstm_cseq, msa_bilstm_cbndk and the per-block
-// sweeps below): one block per (batch tile of kBt rows, direction, model), the
-// model axis S the grid's z axis, 4H threads, the time loop inside the block,
-// thread g owning gate column g. What bounds them on the H100: T dependent
-// steps per direction, each a small product whose weights (768 KiB per
-// direction for the gates, 256 KiB for a dh carry) do not fit shared memory
-// and stream from L2.
+// The per-block walks (msa_bilstm_cseq, msa_bilstm_cbndk, msa_bilstm_bwd_xp):
+// one block per (batch tile of kBt rows, direction, model), the model axis S
+// the grid's z axis, 4H threads, the time loop inside the block, thread g
+// owning gate column g. What bounds them on the H100: T dependent steps per
+// direction, each a small product whose weights (768 KiB per direction for
+// the gates, 256 KiB for a dh carry) do not fit shared memory and stream from
+// L2.
 //
 // (b), row 11. What bounds it on the H100, at the flagship layer (B=64,
 // T=73, I=256, H=128, fp32): T=73 dependent steps per direction, each carrying
@@ -90,7 +93,8 @@
 // activations (elementwise, rows 0..r again for row r: K(K+1)/2 steps a
 // segment where K would do, their loads L1 hits of rows the thread has just
 // read; keeping the segment's c instead takes kRt x K registers, which the
-// kRt = 8 form, already spilling at 128, does not have), runs the cell
+// kRt = 8 form, already spilling at 128, does not have; at K = 1, over the
+// full c_seq of v8 and v6, one step a segment), runs the cell
 // backward with its dh and dc carries in registers, writes dgates over the
 // activations and into shared memory; the CTA multiplies its 4U gate columns
 // of dgates by its W_hh rows into a partial dh over all H units; the partials are
@@ -98,13 +102,10 @@
 // partials of its units, rank 0 first: a fixed order); two cluster barriers
 // a step, split into arrive and wait so the cell work overlaps them.
 //
-// The per-block body below (bilstm_segbwd_kernel) is the earlier design of
-// (b), kept for msa_bilstm_bwdc (v8, row 8): per block of K rows it recomputes
-// the gates of its rows, rebuilds c from the block's entry checkpoint, then
-// runs the rows backwards: dh carries through dgates . W_hh, dc through f. It
-// emits dx as per-direction halves (summed by the wrapper) and accumulates
-// dW_cat = [x | h_prev | 1]^T . dgates into a per-batch-tile partial slice
-// (read-modify-write by one block only, no atomics), summed by the wrapper.
+// Rows 8 and 7 (v8's ::_bwd_bwdc_kernel, v6's ::_bwd_xproj_kernel) have the
+// same serial step and the same time-parallel work, so they are this design
+// at K = 1: the wrappers (kernels/lstm.py::bilstm_bwdc, ::bilstm_bwd_split)
+// pass row 6's full c_seq as the checkpoints.
 //
 // msa_bilstm_sweep has an fp32 and a bf16 form (suffix _bf16), one template
 // over the element type of dh_seq and W_hh, as the JAX kernels are Mosaic
@@ -119,11 +120,11 @@
 namespace {
 
 constexpr int kBt = 8;  // batch rows per block; kBt * H == 2 * (4H threads)
-// The per-block reverse sweeps' most threads per block (4H <= 512, H <= 128),
-// and the register cap that lets a block of that many launch: 65536 / 512 =
-// 128 a thread (a bf16 form of the K-segment body took 140). The cap is
-// __maxnreg__, not __launch_bounds__(512): with the launch bound the compiler
-// cut that body to 64 registers with spills, and its sweep slowed by a sixth.
+// The per-block walks' most threads per block (4H <= 512, H <= 128), and the
+// register cap that lets a block of that many launch: 65536 / 512 = 128 a
+// thread. The cap is __maxnreg__, not __launch_bounds__(512): with the launch
+// bound the compiler cut the earlier K-segment sweep to 64 registers with
+// spills, and that sweep slowed by a sixth.
 constexpr int kSegMaxThreads = 512;
 constexpr int kSegMaxRegs = 65536 / kSegMaxThreads;
 
@@ -267,276 +268,40 @@ __global__ void bilstm_cseq_kernel(const float* __restrict__ x,       // (S, B, 
     }
 }
 
-template <typename E>
-__global__ void __maxnreg__(kSegMaxRegs)
-bilstm_segbwd_kernel(const E* __restrict__ dh_seq,     // (S, B, T, 2H)
-                     const E* __restrict__ x,          // (S, B, T, I)
-                     const E* __restrict__ h_seq,      // (S, B, T, 2H)
-                     const float* __restrict__ c_bnd,  // (S, 2, NSEG, B, H)
-                     const E* __restrict__ w_ih_t,     // (S, 2, I, 4H)
-                     const E* __restrict__ w_hh_t,     // (S, 2, H, 4H)
-                     const E* __restrict__ w_ih,       // (S, 2, 4H, I)
-                     const E* __restrict__ w_hh,       // (S, 2, 4H, H)
-                     const E* __restrict__ bias,       // (S, 2, 4H)
-                     float* __restrict__ dx_pk,        // (S, 2, B, T, I)
-                     float* __restrict__ dw_part,      // (S, tiles, 2, R, 4H)
-                     int B, int T, int I, int H, int K, int nseg) {
-    extern __shared__ float smem[];
-    const int G = 4 * H;
-    const int R = I + H + 1;
-    const size_t model = blockIdx.z;
-    dh_seq += model * B * T * 2 * H;
-    x += model * B * T * I;
-    h_seq += model * B * T * 2 * H;
-    c_bnd += model * 2 * nseg * B * H;
-    w_ih_t += model * 2 * I * G;
-    w_hh_t += model * 2 * H * G;
-    w_ih += model * 2 * G * I;
-    w_hh += model * 2 * G * H;
-    bias += model * 2 * G;
-    dx_pk += model * 2 * B * T * I;
-    dw_part += model * gridDim.x * 2 * R * G;
-    const int rowsz = kBt * H;
-    float* xs = smem;                      // (K, kBt, I)
-    float* hps = xs + K * kBt * I;         // (K, kBt, H): h_prev of each row
-    float* acts = hps + K * rowsz;         // (K, kBt, G): i, f, g, o; then dgates
-    float* cs = acts + K * kBt * G;        // (K + 1, kBt, H): entry c, then c per row
-    float* dhc = cs + (K + 1) * rowsz;     // (kBt, H): dh carried into the current row
-    float* red = dhc + rowsz;              // (4, kBt, H): dh carry partials per gate quarter
-
-    const int d = blockIdx.y;
-    const int tile = blockIdx.x;
-    const int b0 = tile * kBt;
-    const int tid = threadIdx.x;
-    const E* wi_t = w_ih_t + static_cast<size_t>(d) * I * G;
-    const E* wh_t = w_hh_t + static_cast<size_t>(d) * H * G;
-    const E* wi = w_ih + static_cast<size_t>(d) * G * I;
-    const E* wh = w_hh + static_cast<size_t>(d) * G * H;
-    const float bg = to_float(bias[d * G + tid]);
-    const int gate_kind = tid / H;  // 0 i, 1 f, 2 g, 3 o
-    float* dwp = dw_part + (static_cast<size_t>(tile) * 2 + d) * R * G;
-
-    for (int idx = tid; idx < rowsz; idx += G) dhc[idx] = 0.0f;
-    float dcc[2] = {0.0f, 0.0f};  // dc carry of this thread's two cells
-
-    for (int gi = 0; gi < nseg; ++gi) {
-        const int m = d == 0 ? nseg - 1 - gi : gi;
-        const bool first_seg = gi == nseg - 1;  // where the recurrence starts
-        const int a_lo = m * K;
-        const int nr = min(K, T - a_lo);
-        // recurrence-order row r of this block -> actual time
-        auto a_of = [&](int r) { return d == 0 ? a_lo + r : a_lo + nr - 1 - r; };
-
-        __syncthreads();  // the previous block's readers are done with smem
-        for (int idx = tid; idx < nr * kBt * I; idx += G) {
-            const int r = idx / (kBt * I);
-            const int rem = idx - r * kBt * I;
-            const int row = rem / I;
-            const int b = b0 + row;
-            xs[idx] = b < B ? to_float(x[(static_cast<size_t>(b) * T + a_of(r)) * I + (rem - row * I)])
-                            : 0.0f;
-        }
-        for (int idx = tid; idx < nr * rowsz; idx += G) {
-            const int r = idx / rowsz;
-            const int rem = idx - r * rowsz;
-            const int row = rem / H;
-            const int b = b0 + row;
-            const int ap = d == 0 ? a_of(r) - 1 : a_of(r) + 1;
-            hps[idx] = (b < B && ap >= 0 && ap < T)
-                           ? to_float(h_seq[(static_cast<size_t>(b) * T + ap) * 2 * H + d * H +
-                                            (rem - row * H)])
-                           : 0.0f;
-        }
-        const int slot = d == 0 ? m - 1 : m + 1;
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-            const int cell = tid + q * G;
-            const int b = b0 + cell / H;
-            cs[cell] = (!first_seg && b < B)
-                           ? c_bnd[((static_cast<size_t>(d) * nseg + slot) * B + b) * H + cell % H]
-                           : 0.0f;
-        }
-        __syncthreads();
-
-        // gate activations of the block's rows; thread tid owns gate column tid
-        for (int r = 0; r < nr; ++r) {
-            float acc[kBt];
-#pragma unroll
-            for (int row = 0; row < kBt; ++row) acc[row] = bg;
-            const float* xr = xs + r * kBt * I;
-            const float* hr = hps + r * rowsz;
-            for (int k = 0; k < I; ++k) {
-                const float w = to_float(wi_t[static_cast<size_t>(k) * G + tid]);
-#pragma unroll
-                for (int row = 0; row < kBt; ++row) acc[row] = fmaf(xr[row * I + k], w, acc[row]);
-            }
-            for (int k = 0; k < H; ++k) {
-                const float w = to_float(wh_t[static_cast<size_t>(k) * G + tid]);
-#pragma unroll
-                for (int row = 0; row < kBt; ++row) acc[row] = fmaf(hr[row * H + k], w, acc[row]);
-            }
-#pragma unroll
-            for (int row = 0; row < kBt; ++row)
-                acts[(r * kBt + row) * G + tid] = gate_kind == 2 ? tanhf(acc[row]) : sigmoid_f(acc[row]);
-        }
-        __syncthreads();
-
-        // c rebuild in recurrence order from the entry checkpoint
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-            const int cell = tid + q * G;
-            const int row = cell / H;
-            const int j = cell - row * H;
-            float c = cs[cell];
-            for (int r = 0; r < nr; ++r) {
-                const float* ar = acts + (r * kBt + row) * G;
-                c = ar[H + j] * c + ar[j] * ar[2 * H + j];
-                cs[(r + 1) * rowsz + cell] = c;
-            }
-        }
-
-        // reverse pass over the block's rows
-        for (int r = nr - 1; r >= 0; --r) {
-            const int a = a_of(r);
-#pragma unroll
-            for (int q = 0; q < 2; ++q) {
-                const int cell = tid + q * G;
-                const int row = cell / H;
-                const int j = cell - row * H;
-                const int b = b0 + row;
-                float* ar = acts + (r * kBt + row) * G;
-                const float ig = ar[j], fg = ar[H + j], gg = ar[2 * H + j], og = ar[3 * H + j];
-                const float c = cs[(r + 1) * rowsz + cell];
-                const float cp = cs[r * rowsz + cell];
-                const float dh = dhc[cell] +
-                    (b < B ? to_float(dh_seq[(static_cast<size_t>(b) * T + a) * 2 * H + d * H + j])
-                           : 0.0f);
-                const float tc = tanhf(c);
-                const float dc = dcc[q] + dh * og * (1.0f - tc * tc);
-                ar[j] = dc * gg * ig * (1.0f - ig);
-                ar[H + j] = dc * cp * fg * (1.0f - fg);
-                ar[2 * H + j] = dc * ig * (1.0f - gg * gg);
-                ar[3 * H + j] = dh * tc * og * (1.0f - og);
-                dcc[q] = dc * fg;
-            }
-            __syncthreads();
-            {  // dh carry: quarter qq of the gates, output unit k, all kBt rows
-                const int qq = tid / H;
-                const int k = tid - qq * H;
-                float acc[kBt];
-#pragma unroll
-                for (int row = 0; row < kBt; ++row) acc[row] = 0.0f;
-                for (int gl = qq * H; gl < (qq + 1) * H; ++gl) {
-                    const float w = to_float(wh[static_cast<size_t>(gl) * H + k]);
-#pragma unroll
-                    for (int row = 0; row < kBt; ++row)
-                        acc[row] = fmaf(acts[(r * kBt + row) * G + gl], w, acc[row]);
-                }
-#pragma unroll
-                for (int row = 0; row < kBt; ++row) red[(qq * kBt + row) * H + k] = acc[row];
-            }
-            __syncthreads();
-#pragma unroll
-            for (int q = 0; q < 2; ++q) {
-                const int cell = tid + q * G;
-                dhc[cell] = ((red[cell] + red[rowsz + cell]) + red[2 * rowsz + cell]) + red[3 * rowsz + cell];
-            }
-        }
-        __syncthreads();
-
-        // dx of the block's rows: dgates . W_ih, this direction's half
-        for (int i = tid; i < I; i += G) {
-            for (int r = 0; r < nr; ++r) {
-                float acc[kBt];
-#pragma unroll
-                for (int row = 0; row < kBt; ++row) acc[row] = 0.0f;
-                for (int gl = 0; gl < G; ++gl) {
-                    const float w = to_float(wi[static_cast<size_t>(gl) * I + i]);
-#pragma unroll
-                    for (int row = 0; row < kBt; ++row)
-                        acc[row] = fmaf(acts[(r * kBt + row) * G + gl], w, acc[row]);
-                }
-                const int a = a_of(r);
-#pragma unroll
-                for (int row = 0; row < kBt; ++row) {
-                    const int b = b0 + row;
-                    if (b < B) dx_pk[((static_cast<size_t>(d) * B + b) * T + a) * I + i] = acc[row];
-                }
-            }
-        }
-
-        // dW_cat += [x | h_prev | 1]^T . dgates; thread tid owns gate column tid
-        constexpr int kF = 8;  // features per pass: one dgates load feeds kF FMAs
-        for (int f0 = 0; f0 < R; f0 += kF) {
-            float acc[kF];
-#pragma unroll
-            for (int u = 0; u < kF; ++u) acc[u] = 0.0f;
-            for (int r = 0; r < nr; ++r) {
-                for (int row = 0; row < kBt; ++row) {
-                    const float dg = acts[(r * kBt + row) * G + tid];
-                    const float* xr = xs + (r * kBt + row) * I;
-                    const float* hr = hps + (r * kBt + row) * H;
-#pragma unroll
-                    for (int u = 0; u < kF; ++u) {
-                        const int f = f0 + u;
-                        const float v = f < I ? xr[f] : (f < I + H ? hr[f - I] : 1.0f);
-                        acc[u] = fmaf(v, dg, acc[u]);
-                    }
-                }
-            }
-#pragma unroll
-            for (int u = 0; u < kF; ++u)
-                if (f0 + u < R) dwp[static_cast<size_t>(f0 + u) * G + tid] += acc[u];
-        }
-    }
-}
-
-// The v5 and v6 reverse sweep (fp32): one block per (batch tile of kBt rows,
+// The v5 reverse sweep (fp32): one block per (batch tile of kBt rows,
 // direction, model), 4H threads, the steps in reverse recurrence order. Per
-// step: the gates from the pre-activation (kXp: xp[b, a, d*4H + g]; else
-// x_a . W_ih^T + b, x staged in shared memory) plus h_prev . W_hh^T, thread
-// g owning gate column g; the cell's backward with c_cur and c_prev read from
-// the full c_seq (zero before the first recurrence step); dgates written to
-// dxp; the dh carry dgates . W_hh in four gate quarters summed in a fixed
-// order, as in (b). dx, dW and db are reductions of dxp outside the kernel,
+// step: the gates from the pre-activation xp[b, a, d*4H + g] plus h_prev .
+// W_hh^T, thread g owning gate column g; the cell's backward with c_cur and
+// c_prev read from the full c_seq (zero before the first recurrence step);
+// dgates written to dxp; the dh carry dgates . W_hh in four gate quarters
+// summed in a fixed order. dW_hh is a reduction of dxp outside the kernel,
 // as in the JAX package. What bounds it: T dependent steps per direction,
-// each with two small products against weights streamed from L2 (three
-// without kXp), and the dxp write of 8H fp32 per (row, step): 4x x's bytes.
-template <bool kXp>
+// each with two small products against weights streamed from L2, and the dxp
+// write of 8H fp32 per (row, step).
 __global__ void __maxnreg__(kSegMaxRegs)
 bilstm_bwd_step_kernel(const float* __restrict__ dh_seq,  // (S, B, T, 2H)
-                       const float* __restrict__ xin,     // kXp: xp (S, B, T, 8H); x (S, B, T, I)
+                       const float* __restrict__ xp,      // (S, B, T, 8H)
                        const float* __restrict__ h_seq,   // (S, B, T, 2H)
                        const float* __restrict__ c_seq,   // (S, 2, T, B, H)
-                       const float* __restrict__ w_ih_t,  // (S, 2, I, 4H), not read if kXp
                        const float* __restrict__ w_hh_t,  // (S, 2, H, 4H)
                        const float* __restrict__ w_hh,    // (S, 2, 4H, H)
-                       const float* __restrict__ bias,    // (S, 2, 4H), not read if kXp
                        float* __restrict__ dxp,           // (S, B, T, 8H)
-                       int B, int T, int I, int H) {
+                       int B, int T, int H) {
     extern __shared__ float smem[];
     const int G = 4 * H;
-    const int xw = kXp ? 2 * G : I;  // row width of xin
     const size_t model = blockIdx.z;
     const int d = blockIdx.y;
     const int b0 = blockIdx.x * kBt;
     const int tid = threadIdx.x;
     dh_seq += model * B * T * 2 * H;
-    xin += model * B * T * xw;
+    xp += model * B * T * 2 * G;
     h_seq += model * B * T * 2 * H;
     c_seq += (model * 2 + d) * T * B * H;
     const float* wh_t = w_hh_t + (model * 2 + d) * H * G;
     const float* wh = w_hh + (model * 2 + d) * G * H;
     dxp += model * B * T * 2 * G;
-    const float* wi_t = nullptr;
-    float bg = 0.0f;
-    if constexpr (!kXp) {
-        wi_t = w_ih_t + (model * 2 + d) * I * G;
-        bg = bias[(model * 2 + d) * G + tid];
-    }
     const int rowsz = kBt * H;
-    float* xs = smem;                         // (kBt, I): x_a (not kXp)
-    float* hps = xs + (kXp ? 0 : kBt * I);    // (kBt, H): h_prev
+    float* hps = smem;                        // (kBt, H): h_prev
     float* acts = hps + rowsz;                // (kBt, G): i, f, g, o; then dgates
     float* dhc = acts + kBt * G;              // (kBt, H): dh carried into the step
     float* red = dhc + rowsz;                 // (4, kBt, H): dh carry partials per quarter
@@ -549,13 +314,6 @@ bilstm_bwd_step_kernel(const float* __restrict__ dh_seq,  // (S, B, T, 2H)
         const int a = d == 0 ? tau : T - 1 - tau;  // its actual time
         const int ap = d == 0 ? a - 1 : a + 1;     // actual time of h_prev, c_prev
         const bool first = tau == 0;               // no previous state
-        if constexpr (!kXp) {
-            for (int idx = tid; idx < kBt * I; idx += G) {
-                const int row = idx / I;
-                const int b = b0 + row;
-                xs[idx] = b < B ? xin[(static_cast<size_t>(b) * T + a) * I + (idx - row * I)] : 0.0f;
-            }
-        }
         for (int idx = tid; idx < rowsz; idx += G) {
             const int row = idx / H;
             const int b = b0 + row;
@@ -567,20 +325,10 @@ bilstm_bwd_step_kernel(const float* __restrict__ dh_seq,  // (S, B, T, 2H)
 
         // gate activations; thread tid owns gate column tid
         float acc[kBt];
-        if constexpr (kXp) {
 #pragma unroll
-            for (int row = 0; row < kBt; ++row) {
-                const int b = b0 + row;
-                acc[row] = b < B ? xin[(static_cast<size_t>(b) * T + a) * xw + d * G + tid] : 0.0f;
-            }
-        } else {
-#pragma unroll
-            for (int row = 0; row < kBt; ++row) acc[row] = bg;
-            for (int k = 0; k < I; ++k) {
-                const float w = wi_t[static_cast<size_t>(k) * G + tid];
-#pragma unroll
-                for (int row = 0; row < kBt; ++row) acc[row] = fmaf(xs[row * I + k], w, acc[row]);
-            }
+        for (int row = 0; row < kBt; ++row) {
+            const int b = b0 + row;
+            acc[row] = b < B ? xp[(static_cast<size_t>(b) * T + a) * 2 * G + d * G + tid] : 0.0f;
         }
         for (int k = 0; k < H; ++k) {
             const float w = wh_t[static_cast<size_t>(k) * G + tid];
@@ -913,24 +661,6 @@ bilstm_sweep_kernel(float* __restrict__ act,          // (S, B, T, 8H): i, f, g,
 }
 
 template <typename E>
-int launch_segbwd(const E* dh_seq, const E* x, const E* h_seq, const float* c_bnd,
-                  const E* w_ih_t, const E* w_hh_t, const E* w_ih, const E* w_hh, const E* bias,
-                  float* dx_pk, float* dw_part, int S, int B, int T, int I, int H, int K,
-                  int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    const size_t smem = sizeof(float) * kBt * (K * (I + H + 4 * H) + (K + 1) * H + 5 * H);
-    err = allow_dynamic_smem(bilstm_segbwd_kernel<E>, smem);
-    if (err != cudaSuccess) return err;
-    const int nseg = (T + K - 1) / K;
-    const dim3 grid((B + kBt - 1) / kBt, 2, S);
-    bilstm_segbwd_kernel<E><<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-        dh_seq, x, h_seq, c_bnd, w_ih_t, w_hh_t, w_ih, w_hh, bias, dx_pk, dw_part, B, T, I, H, K,
-        nseg);
-    return cudaGetLastError();
-}
-
-template <typename E>
 int launch_sweep(float* act, const E* dh_seq, const float* c_bnd, const E* w_hh, int S, int B,
                  int T, int H, int K, int C, int bt, int rows, int smem_planned, int device,
                  void* stream) {
@@ -1011,53 +741,20 @@ extern "C" int msa_bilstm_cseq(const float* x, const float* h_seq, const float* 
     return cudaGetLastError();
 }
 
-// v8: the reverse sweep at K = 1 over that full c_seq: each one-row block's
-// entry checkpoint is c_prev, and c is rebuilt from it as the forward built it
-extern "C" int msa_bilstm_bwdc(const float* dh_seq, const float* x, const float* h_seq,
-                               const float* c_seq, const float* w_ih_t, const float* w_hh_t,
-                               const float* w_ih, const float* w_hh, const float* bias,
-                               float* dx_pk, float* dw_part, int S, int B, int T, int I, int H,
-                               int device, void* stream) {
-    return launch_segbwd(dh_seq, x, h_seq, c_seq, w_ih_t, w_hh_t, w_ih, w_hh, bias, dx_pk,
-                         dw_part, S, B, T, I, H, 1, device, stream);
-}
-
-namespace {
-
-template <bool kXp>
-int launch_bwd_step(const float* dh_seq, const float* xin, const float* h_seq,
-                    const float* c_seq, const float* w_ih_t, const float* w_hh_t,
-                    const float* w_hh, const float* bias, float* dxp, int S, int B, int T, int I,
-                    int H, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    const size_t smem = sizeof(float) * kBt * ((kXp ? 0 : I) + 6 * H + 4 * H);
-    err = allow_dynamic_smem(bilstm_bwd_step_kernel<kXp>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((B + kBt - 1) / kBt, 2, S);
-    bilstm_bwd_step_kernel<kXp><<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-        dh_seq, xin, h_seq, c_seq, w_ih_t, w_hh_t, w_hh, bias, dxp, B, T, I, H);
-    return cudaGetLastError();
-}
-
-}  // namespace
-
-// v6: dxp (S, B, T, 8H) from x, h_seq and the full c_seq
-extern "C" int msa_bilstm_bwd_split(const float* dh_seq, const float* x, const float* h_seq,
-                                    const float* c_seq, const float* w_ih_t, const float* w_hh_t,
-                                    const float* w_hh, const float* bias, float* dxp, int S, int B,
-                                    int T, int I, int H, int device, void* stream) {
-    return launch_bwd_step<false>(dh_seq, x, h_seq, c_seq, w_ih_t, w_hh_t, w_hh, bias, dxp, S, B,
-                                  T, I, H, device, stream);
-}
-
 // v5: dxp (S, B, T, 8H) from xp (S, B, T, 8H), h_seq and the forward's c_seq
 extern "C" int msa_bilstm_bwd_xp(const float* dh_seq, const float* xp, const float* h_seq,
                                  const float* c_seq, const float* w_hh_t, const float* w_hh,
                                  float* dxp, int S, int B, int T, int H, int device,
                                  void* stream) {
-    return launch_bwd_step<true>(dh_seq, xp, h_seq, c_seq, nullptr, w_hh_t, w_hh, nullptr, dxp, S,
-                                 B, T, 0, H, device, stream);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const size_t smem = sizeof(float) * kBt * 10 * H;  // hps, acts, dhc, red
+    err = allow_dynamic_smem(bilstm_bwd_step_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((B + kBt - 1) / kBt, 2, S);
+    bilstm_bwd_step_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+        dh_seq, xp, h_seq, c_seq, w_hh_t, w_hh, dxp, B, T, H);
+    return cudaGetLastError();
 }
 
 // v9.1: the checkpoints of msa_bilstm_cscan from x and h_seq, KC = kCbndkRows

@@ -44,10 +44,14 @@ for both: three ``bilstm_gemm``, one ``bilstm_cscan``, one ``bilstm_sweep``.
 - the BiLSTM's other schedules (``lstm.fused_bilstm_layer(schedule=)``),
   fp32 only: ``bilstm_fwd_xp`` (``csrc/lstm_fwd.cu``, ``kernels/lstm.py::
   _fwd_kernel``), ``bilstm_bwd_xp`` (``::_bwd_kernel``), ``bilstm_cseq``
-  (``::_cseq_kernel``), ``bilstm_bwd_split`` (``::_bwd_xproj_kernel``),
-  ``bilstm_bwdc`` (``::_bwd_bwdc_kernel``), ``bilstm_cbndk``
-  (``::_cbndk_kernel``); each ``lstm.<name>``, the last five in
-  ``csrc/lstm_bwd.cu``
+  (``::_cseq_kernel``), ``bilstm_cbndk`` (``::_cbndk_kernel``); each
+  ``lstm.<name>``, the last three in ``csrc/lstm_bwd.cu``; and two calls
+  of row 11's pieces at K = 1 over the full c of ``bilstm_cseq``:
+  ``bilstm_bwdc`` (``::_bwd_bwdc_kernel``, v8), a call of the wrapper,
+  which launches ``bilstm_gemm`` three times and ``bilstm_sweep`` once,
+  and ``bilstm_bwd_split`` (``::_bwd_xproj_kernel``, v6), a call of the
+  wrapper, which launches ``bilstm_gemm`` (the gate activations) and
+  ``bilstm_sweep`` once each
 
 The first ten but ``bilstm_cscan`` also have a bf16 form with its own
 counter (``bilstm_fwd_bf16``, ...): a second C entry point of the same

@@ -31,8 +31,10 @@ schedule forward                                      backward
 ======== ============================================ =====================================================
 ``v9``   :func:`bilstm_fwd`                           :func:`bilstm_v9_bwd` (rows 9 and 11 on one gate GEMM)
 ``v9.1`` :func:`bilstm_fwd`                           :func:`bilstm_cbndk` (``_cbndk_kernel``), :func:`bilstm_segbwd`
-``v8``   :func:`bilstm_fwd`                           :func:`bilstm_cseq` (``_cseq_kernel``), :func:`bilstm_bwdc` (``_bwd_bwdc_kernel``)
-``v6``   :func:`bilstm_fwd`                           :func:`bilstm_cseq`, :func:`bilstm_bwd_split` (``_bwd_xproj_kernel``), then dx, dW, db from ``dxp`` by ``einsum``
+``v8``   :func:`bilstm_fwd`                           :func:`bilstm_cseq` (``_cseq_kernel``), :func:`bilstm_bwdc` (``_bwd_bwdc_kernel``:
+                                                      gates GEMM, sweep at K=1, dx and dW_cat GEMMs)
+``v6``   :func:`bilstm_fwd`                           :func:`bilstm_cseq`, :func:`bilstm_bwd_split` (``_bwd_xproj_kernel``: gates
+                                                      GEMM, sweep at K=1), then dx, dW, db from ``dxp`` by ``einsum``
 ``v5``   ``xp = x W_cat^T + b_cat`` by ``matmul``,    :func:`bilstm_bwd_xp` (``_bwd_kernel``), then dW_hh from ``dxp`` by ``einsum``;
          then :func:`bilstm_fwd_xp` (``_fwd_kernel``) autograd takes ``dxp`` through the projection
 ======== ============================================ =====================================================
@@ -41,7 +43,11 @@ The schedules other than v9 take fp32 only (``TypeError`` otherwise).
 The JAX package's "v7" (``MSA_LSTM_BWDC=1, MSA_LSTM_SEGBWD=0``) runs the
 v8 kernels. The full fp32 cell state of v8, v6 and v5 is ``c_seq (2, T,
 B, H)``, and their packed gate gradients ``dxp (B, T, 8H)`` are ``[fwd |
-bwd]`` in actual time, the gradient of ``xp``.
+bwd]`` in actual time, the gradient of ``xp``. ``c_seq`` is the
+checkpoints of :func:`bilstm_cbnd` at K = 1 (slot t holds c at actual time
+t in both directions), so v8's and v6's reverse sweeps (rows 8 and 7) are
+row 11's pieces at K = 1: the gates GEMM, then :func:`bilstm_sweep` over
+``c_seq``, and for row 8 the dx and dW_cat GEMMs.
 
 The port's layouts keep the batch first: ``x (B, T, I)``, ``h_seq
 (B, T, 2H)``, checkpoints ``(2, NSEG, B, H)`` (direction, slot, batch,
@@ -74,13 +80,14 @@ import functools
 
 import torch
 
-from ._build import (F32, F32_BF16, MAX_MODELS, CudaKernel, call_counts, check_cuda,
+from ._build import (F32, F32_BF16, MAX_MODELS, CallCount, CudaKernel, call_counts, check_cuda,
                      kernel_forms, models_first, ptr, upcast, with_models)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # fp32 and bf16 forms of each kernel, by the dtype of x. Rows 1, 9 and 11
-# (bilstm_fwd, bilstm_cbnd, bilstm_segbwd) launch several kernels a call:
-# their counts are calls, and each kernel they launch counts its own launches
+# (bilstm_fwd, bilstm_cbnd, bilstm_segbwd), and rows 7 and 8 below, launch
+# several kernels a call: their counts are calls, and each kernel they launch
+# counts its own launches
 KERNELS, CBND_KERNELS, SEGBWD_KERNELS = call_counts(), call_counts(), call_counts()
 GEMM_KERNELS = kernel_forms("lstm_gemm", "msa_bilstm_gemm", [_I] + [_P] * 8 + [_I] * 6)
 REC_KERNELS = kernel_forms("lstm_fwd", "msa_bilstm_rec", [_P] * 3 + [_I] * 8)
@@ -94,14 +101,13 @@ KERNEL, CBND_KERNEL, SEGBWD_KERNEL, GEMM_KERNEL, REC_KERNEL, SWEEP_KERNEL = (
 FWD_XP_KERNEL = CudaKernel("lstm_fwd", "msa_bilstm_fwd_xp", [_P] * 4 + [_I] * 4)
 BWD_XP_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_bwd_xp", [_P] * 7 + [_I] * 4)
 CSEQ_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_cseq", [_P] * 6 + [_I] * 5)
-BWD_SPLIT_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_bwd_split", [_P] * 9 + [_I] * 5)
-BWDC_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_bwdc", [_P] * 11 + [_I] * 5)
+BWD_SPLIT_KERNEL, BWDC_KERNEL = CallCount(), CallCount()  # rows 7 and 8: the GEMM and the sweep
 CBNDK_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_cbndk", [_P] * 6 + [_I] * 6)
 
 SCHEDULES = ("v5", "v6", "v8", "v9", "v9.1")
 
 _ROWS_PER_BLOCK = 8  # kBt in csrc/lstm_fwd.cu and csrc/lstm_bwd.cu
-_SEGBWD_MAX_HIDDEN = 128  # kSegMaxThreads / 4 in csrc/lstm_bwd.cu (the per-block sweeps)
+_SEGBWD_MAX_HIDDEN = 128  # kSegMaxThreads / 4 in csrc/lstm_bwd.cu (the per-block walks)
 _MAX_SMEM = 227 * 1024
 SEG_K = 4  # segment length of the backward; any K >= 1 works for any T
 CBNDK_ROWS = 8  # kCbndkRows in csrc/lstm_bwd.cu: time rows per block of bilstm_cbndk
@@ -953,7 +959,8 @@ _V9Bwd = _kernel_function(bilstm_v9_bwd, (0, 0), ":func:`bilstm_v9_bwd` as a Fun
 
 # --------------------------------------------------------------------------
 # the other schedules' kernels (fp32): v9.1 checkpoints, v8 and v6 full c,
-# v8 per-step sweep, v6 and v5 sweeps that emit dxp, the v5 forward
+# the v8 and v6 reverse sweeps (row 11's pieces at K = 1), the v5 sweep that
+# emits dxp, the v5 forward
 # --------------------------------------------------------------------------
 
 
@@ -1014,38 +1021,45 @@ def bilstm_bwdc_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias):
 
 
 def bilstm_bwdc(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> tuple[torch.Tensor, torch.Tensor]:
-    """The v8 reverse sweep (``_bwd_bwdc_kernel``): :func:`bilstm_segbwd`'s
-    contract, run by the per-block K-segment sweep of ``csrc/lstm_bwd.cu``
-    (row 11's design before its redesign) at K = 1, reading each step's
-    c_prev from the full ``c_seq`` of :func:`bilstm_cseq`. fp32."""
+    """The v8 reverse sweep, row 8 (``_bwd_bwdc_kernel``): :func:`bilstm_segbwd`'s
+    contract at K = 1, its checkpoints the full ``c_seq (2, T, B, H)`` of
+    :func:`bilstm_cseq` (slot t is c at actual time t in both directions,
+    the slots of :func:`bilstm_cbnd` at K = 1). fp32.
+
+    A CPU tensor takes :func:`bilstm_bwdc_plain`. A CUDA tensor launches
+    four kernels, or raises before the first: the gate activations
+    (:func:`bilstm_gemm` ``"gates"``) into an fp32 ``(S, B, T, 8H)`` buffer,
+    :func:`bilstm_sweep` at K = 1 over ``c_seq``, which overwrites them with
+    dgates, then dx and dW_cat (``"dx"``, ``"dw"``; dW_cat summed over fixed
+    row ranges, :func:`gemm_splits`). One call counts one launch of
+    ``BWDC_KERNEL``."""
     if x.device.type == "cpu":
         return bilstm_bwdc_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
     _check_device(x)
     (x, dh_seq, h_seq, c_seq, w_ih, w_hh, bias), one = with_models(
         x, dh_seq, h_seq, c_seq, w_ih, w_hh, bias)
-    check_cuda("x", x, x.device)
-    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
-    for name, a in (("dh_seq", dh_seq), ("h_seq", h_seq)):
-        check_cuda(name, a, x.device, (s, b, t, 2 * h))
+    _check_full_c(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
+    out = _dgates_products(_gate_activations(x, h_seq, w_ih, w_hh, bias), dh_seq, c_seq, x, h_seq,
+                           w_ih, w_hh, bias, 1)
+    BWDC_KERNEL.launches += 1
+    return (out[0][0], out[1][0]) if one else out
+
+
+def _check_full_c(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> None:
+    """Validate rows 7 and 8's model-axis-first CUDA operands before any
+    launch: the gates GEMM's, fp32 only, ``dh_seq``, the full ``c_seq``
+    and a cluster plan of the sweep."""
+    s, b, t, _, h = _check_gemm_layer(x, h_seq, w_ih, w_hh, bias)
+    check_cuda("x", x, x.device)  # the schedules other than v9 take fp32 only
+    _check_sweep(dh_seq, 1, s, b, t, h, x.dtype, x.device)
     _check_c_seq(c_seq, s, b, t, h, x.device)
-    _check_max_hidden(h)
-    _check_smem(_ROWS_PER_BLOCK * (i + 12 * h), f"input width {i}")  # the K-segment body at K=1
-    w_ih_t, w_hh_t = _transposed(w_ih), _transposed(w_hh)
-    dx_pk = torch.empty(s, 2, b, t, i, device=x.device, dtype=torch.float32)
-    # one dW_cat partial per batch tile of _ROWS_PER_BLOCK rows, summed here
-    dw_part = torch.zeros(s, -(-b // _ROWS_PER_BLOCK), 2, i + h + 1, 4 * h, device=x.device,
-                          dtype=torch.float32)
-    BWDC_KERNEL.launch(x.device, ptr(dh_seq), ptr(x), ptr(h_seq), ptr(c_seq), ptr(w_ih_t),
-                       ptr(w_hh_t), ptr(w_ih), ptr(w_hh), ptr(bias), ptr(dx_pk), ptr(dw_part), s,
-                       b, t, i, h)
-    dw_cat = dw_part.sum(1)
-    return (dx_pk[0], dw_cat[0]) if one else (dx_pk, dw_cat)
+    cluster_plan("sweep", s, b, h, x.dtype, _sm_count(x.device.index))
 
 
 def _bwd_step_plain(dh_seq, pre, h_seq, c_seq, w_hh) -> torch.Tensor:
-    """The per-step reverse sweep of :func:`bilstm_bwd_xp` and
-    :func:`bilstm_bwd_split`, model axis first: ``pre (S, B, T, 8H)`` is the
-    gate pre-activation without its ``h_prev W_hh^T`` term."""
+    """The per-step reverse sweep of :func:`bilstm_bwd_xp_plain` and
+    :func:`bilstm_bwd_split_plain`, model axis first: ``pre (S, B, T, 8H)``
+    is the gate pre-activation without its ``h_prev W_hh^T`` term."""
     s, b, t, _ = h_seq.shape
     h = w_hh.shape[-1]
     g = 4 * h
@@ -1083,28 +1097,26 @@ def bilstm_bwd_split_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> torch.T
 
 
 def bilstm_bwd_split(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> torch.Tensor:
-    """The v6 reverse sweep (``_bwd_xproj_kernel``): the packed gate
+    """The v6 reverse sweep, row 7 (``_bwd_xproj_kernel``): the packed gate
     gradients ``dxp (B, T, 8H)`` (or ``(S, B, T, 8H)``) in fp32, ``[fwd |
     bwd]`` in actual time, from ``dh_seq``, ``x``, ``h_seq`` and the full
-    ``c_seq`` of :func:`bilstm_cseq`; each step's gates recomputed from
-    ``x W_ih^T + b + h_prev W_hh^T``. dx, dW and db are reductions of
-    ``dxp`` outside the kernel. fp32."""
+    ``c_seq`` of :func:`bilstm_cseq`. dx, dW and db are reductions of
+    ``dxp`` outside the kernels. fp32.
+
+    A CPU tensor takes :func:`bilstm_bwd_split_plain`. A CUDA tensor
+    launches two kernels, or raises before the first: the gate activations
+    (:func:`bilstm_gemm` ``"gates"``) into an fp32 ``(S, B, T, 8H)`` buffer,
+    then :func:`bilstm_sweep` at K = 1 over ``c_seq``, which overwrites them
+    with dgates: that buffer is ``dxp``. One call counts one launch of
+    ``BWD_SPLIT_KERNEL``."""
     if x.device.type == "cpu":
         return bilstm_bwd_split_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
     _check_device(x)
     (dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias), one = with_models(
         dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
-    check_cuda("x", x, x.device)
-    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
-    for name, a in (("dh_seq", dh_seq), ("h_seq", h_seq)):
-        check_cuda(name, a, x.device, (s, b, t, 2 * h))
-    _check_c_seq(c_seq, s, b, t, h, x.device)
-    _check_max_hidden(h)
-    _check_smem(_ROWS_PER_BLOCK * (i + 10 * h), f"input width {i}")
-    w_ih_t, w_hh_t = _transposed(w_ih), _transposed(w_hh)
-    dxp = torch.empty(s, b, t, 8 * h, device=x.device, dtype=torch.float32)
-    BWD_SPLIT_KERNEL.launch(x.device, ptr(dh_seq), ptr(x), ptr(h_seq), ptr(c_seq), ptr(w_ih_t),
-                            ptr(w_hh_t), ptr(w_hh), ptr(bias), ptr(dxp), s, b, t, i, h)
+    _check_full_c(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
+    dxp = bilstm_sweep(_gate_activations(x, h_seq, w_ih, w_hh, bias), dh_seq, c_seq, w_hh, 1)
+    BWD_SPLIT_KERNEL.launches += 1
     return dxp[0] if one else dxp
 
 
@@ -1161,7 +1173,8 @@ def bilstm_bwd_xp_plain(dh_seq, xp, h_seq, c_seq, w_hh) -> torch.Tensor:
 def bilstm_bwd_xp(dh_seq, xp, h_seq, c_seq, w_hh) -> torch.Tensor:
     """The v5 reverse sweep (``_bwd_kernel``): :func:`bilstm_bwd_split`'s
     contract, with each step's gates recomputed from ``xp + h_prev W_hh^T``
-    and the forward's ``c_seq``. ``dxp`` is the gradient of ``xp``. fp32."""
+    and the forward's ``c_seq`` inside a per-block walk on CUDA cores
+    (``csrc/lstm_bwd.cu``). ``dxp`` is the gradient of ``xp``. fp32."""
     if xp.device.type == "cpu":
         return bilstm_bwd_xp_plain(dh_seq, xp, h_seq, c_seq, w_hh)
     _check_device(xp)
