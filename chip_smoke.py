@@ -13,7 +13,8 @@ It needs a CUDA card and exits non-zero without one. In order, it
 1. turns TF32 off for matmuls and cuDNN convs (the plain versions are the
    fp32 reference) and builds every kernel in
    ``multimodal_sentiment_aanalysis_tpu_torch/csrc`` with nvcc, one process
-   per source, all at once;
+   per source, all at once, and beside them prints ptxas's registers and
+   spills of each instantiation of the flash forward (``nvcc -Xptxas -v``);
 2. serving: builds the full-width flagship model (feat_dim=256) from a seeded
    ``torch.Generator`` with perturbed BatchNorm running stats, and a pool of
    480 synthetic samples at MAHNOB-HCI shapes resident on the card; serves
@@ -97,13 +98,16 @@ It needs a CUDA card and exits non-zero without one. In order, it
    step, at S=24 and, in bf16, at subject 0, each timed alone, which splits
    the rows' time; the GEMM also against its products in fp64, per
    mode within 1e-5 of the largest (a bar that one TF32 pass on the fp32
-   operands is shown to miss); times both with CUDA events, times one
+   operands is shown to miss); the flash forward's O and LSE against fp64,
+   each within 1e-5 of its largest entry (a bar one TF32 pass misses,
+   ``tests/test_torch_port_flash_fwd_tc.py``); times both with CUDA events, times one
    PyTorch call of the same function where there is one (``nn.LSTM`` in
    the case's dtype, cuDNN's in fp32; ``scaled_dot_product_attention``;
    timed here only, the port never calls them), computes each case's bound (the larger of its
    bytes over 3.35 TB/s and its operations over the peak rate for their
    type: 67 TFLOP/s fp32, 989 TFLOP/s bf16, 495 TFLOP/s per TF32 pass of
-   the GEMM), and checks the stem tail's dropout (keep share
+   the GEMM and of the flash kernels' products, three passes each, plus
+   their softmax at the fp32 rate), and checks the stem tail's dropout (keep share
    1 - p within 5 sigma, every output exactly 0 or GELU(y) / (1 - p));
 8. prints the card's name and power limit, one JSON line of per-kernel
    results (one entry per kernel a path launched; the InfoNCE kernel's
@@ -122,9 +126,11 @@ import copy
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -153,6 +159,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.kernels import (
     conv_stem_train,
     fusion_head,
     lstm,
+    ptxas_report,
 )
 from multimodal_sentiment_aanalysis_tpu_torch.models import (
     MEMHACLClassifier,
@@ -255,6 +262,10 @@ SERVE_BF16_TOL, SERVE_BF16_ARGMAX = 0.1, 0.9
 # the GEMM of rows 1 and 11 against its products in fp64, per mode: max
 # |err| over max |ref| (gemm_check)
 GEMM_REL = {"proj": 1e-5, "gates": 1e-5, "dx": 1e-5, "dw": 1e-5}
+# the flash forward (3xTF32 on the tensor cores) against fp64: max |err| of
+# O and of LSE over max |ref| (flash_check); one TF32 pass misses it at the
+# attention phase's shape and at 200 / 100 (tests/test_torch_port_flash_fwd_tc.py)
+FLASH_FP64_REL = 1e-5
 BF16_RTOL = 2.0 ** -7  # a bf16 output of a bf16 form: one ulp of the value on top of its atol
 # ME-MHACL: the MAHNOB-HCI trial count of the other phases, the reference
 # batch, full width
@@ -268,7 +279,9 @@ ATTN_B, ATTN_T, ATTN_E, ATTN_HEADS = 64, 585, 256, 8
 # BiLSTM's GEMM at the bf16 rate for its bf16 x bf16 products and at the
 # TF32 tensor-core rate, per TF32 pass, for its products with an fp32
 # operand; the recurrence and the sweep at the fp32 rate in both forms
-# (their arithmetic is fp32 on CUDA cores) (H100 SXM data sheet, dense)
+# (their arithmetic is fp32 on CUDA cores); the flash kernels' products as
+# three TF32 passes at the TF32 rate, which the forward runs, plus their
+# softmax at the fp32 rate (flash_ops_ms) (H100 SXM data sheet, dense)
 PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, PEAK_BF16_FLOPS = 3.35e12, 67e12, 989e12
 PEAK_TF32_FLOPS = 495e12
 
@@ -1355,7 +1368,8 @@ def attention_kernel_cases(mha: MultiheadAttention, x: torch.Tensor, gen: torch.
                            cases: dict) -> None:
     """Adds the three flash kernels at the attention phase's own q, k, v
     (B H = 512, T = 585, Dh = 32), at 200 queries over 100 keys and at 9
-    rows, seeded. Call under ``no_grad``."""
+    rows, seeded; the forward's cases also with their fp64 outputs
+    (flash_check). Call under ``no_grad``."""
     dh = ATTN_E // ATTN_HEADS
     bh = ATTN_B * ATTN_HEADS
 
@@ -1375,7 +1389,9 @@ def attention_kernel_cases(mha: MultiheadAttention, x: torch.Tensor, gen: torch.
         do = randn(*q.shape)
         fwd_args, bwd_args = (q, k, v), (q, k, v, do, lse, (do * o).sum(-1))
         cases["flash_fwd"].append((label, lambda a=fwd_args: attention.flash_fwd(*a),
-                                   lambda a=fwd_args: attention.flash_fwd_plain(*a), fwd_args))
+                                   lambda a=fwd_args: attention.flash_fwd_plain(*a), fwd_args,
+                                   lambda a=fwd_args: attention.flash_fwd_plain(
+                                       *(t.double() for t in a))))
         cases["flash_bwd_dq"].append((label, lambda a=bwd_args: attention.flash_bwd_dq(*a),
                                       lambda a=bwd_args: attention.flash_bwd_dq_plain(*a),
                                       bwd_args))
@@ -1603,6 +1619,49 @@ def gemm_check(name: str, label: str, mode: str, got, want, ref, one_pass) -> No
           f"{name} {label}: one TF32 pass ({err_tf32:.3e}) would meet the bar {bar:.3e}")
 
 
+def flash_check(label: str, got, ref) -> None:
+    """Holds one flash forward case's O and LSE to FLASH_FP64_REL of their
+    largest fp64 entry."""
+    for what, g, r in zip(("O", "LSE"), got, ref):
+        scale = r.abs().max().item()
+        err = (g.double() - r).abs().max().item()
+        print(f"flash_fwd {label}: {what} against fp64, max |ref| {scale:.4g}; kernel "
+              f"{err:.3e} ({err / scale:.2e} of it); bar {FLASH_FP64_REL:.0e} of max |ref|")
+        check(err <= FLASH_FP64_REL * scale,
+              f"flash_fwd {label}: {what} {err:.3e} from fp64 > {FLASH_FP64_REL * scale:.3e}")
+
+
+def flash_ops_ms(name: str, args) -> float:
+    """The least time for a flash case's operations: its products (two in
+    the forward, three for dQ, four for dK/dV) as three TF32 passes on the
+    tensor cores, fp32-accurate as the forward runs them, and the softmax's
+    elementwise work (4 operations a score) on the fp32 CUDA cores."""
+    q, k = tensors(args)[:2]
+    scores = q.shape[0] * q.shape[1] * k.shape[1]
+    per = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}[name]
+    return (3 * per * scores * q.shape[2] / PEAK_TF32_FLOPS + 4 * scores / PEAK_FP32_FLOPS) * 1e3
+
+
+def flash_registers(report: str) -> list[str]:
+    """One line per instantiation of the flash forward (head dim D, key
+    tile kBk) from ptxas's report: its registers and spills."""
+    lines, kernel = [], None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for \S*flash_fwd_kernelILi(\d+)ELi(\d+)E", line)
+        if m:
+            kernel = f"flash_fwd_kernel<D={m.group(1)}, kBk={m.group(2)}>"
+            spills = "no spill line"
+        elif "Function properties for" in line:
+            kernel = None
+        elif kernel and "spill" in line:
+            spills = line.strip()
+        elif kernel and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            lines.append(f"{kernel}: {regs} registers; {spills}")
+            kernel = None
+    return lines
+
+
 def moved_bytes(name: str, args, res) -> int:
     """Bytes one call must move: each input read once, each output written
     once. The c scan's function reads only the i, f and g columns of its
@@ -1643,7 +1702,9 @@ def case_results(name: str, items: list) -> dict:
         torch.cuda.synchronize()
         check(len(got) == len(want) and all(g.shape == w.shape for g, w in zip(got, want)),
               f"{name} {label}: outputs differ in shape")
-        if exact:
+        if exact and name == "flash_fwd":
+            flash_check(label, got, exact[0]())
+        elif exact:
             gemm_check(name, label, args[0], got[0], want[0], *exact[0]())
         diffs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
         e = max(d.max().item() for d in diffs)
@@ -1652,7 +1713,8 @@ def case_results(name: str, items: list) -> dict:
         limit = f"{tol}{' + 1 ulp' if any(w.dtype == BF16 for w in want) else ''}"
         check(ok, f"{name} {label}: max |err| {e:.3e} > {limit}")
         nbytes = moved_bytes(name, args, res)
-        ops_ms = operations(name, args, res) / peak_rate(name, args) * 1e3
+        ops_ms = (flash_ops_ms(name, args) if name.startswith("flash")
+                  else operations(name, args, res) / peak_rate(name, args) * 1e3)
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         tk, tp = time_ms(kern), time_ms(plain)
         call = library_call(name, args)
@@ -1744,9 +1806,19 @@ def main() -> int:
     print(smi)
 
     t0 = time.perf_counter()
-    libs = build_all()
+    with ThreadPoolExecutor(max_workers=1) as pool:  # beside the builds, one nvcc more
+        report = pool.submit(ptxas_report, "flash_attn")
+        libs = build_all()
+        registers = flash_registers(report.result())
     print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in libs))
+    # every head dim at every key tile, but D = 128 at 128 keys (its two
+    # stages do not fit a block's shared memory, so it is not built)
+    forms = len(attention.HEAD_DIMS) * len(attention.FWD_KEY_TILES) - 1
+    check(len(registers) == forms, f"ptxas reported {len(registers)} of {forms} flash forward "
+                                   "kernels")
+    for line in registers:
+        print(f"ptxas {line}")
 
     model, first, serve_counts, (pool, plan, fp32_logits) = serving_phase(device)
     serve_bf16_counts = serving_bf16_phase(model, pool, plan, fp32_logits)

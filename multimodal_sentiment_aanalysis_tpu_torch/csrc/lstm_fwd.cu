@@ -36,13 +36,12 @@
 // 16 rows, 2 rows a thread, at S=1 (64 CTAs); C = 2 over all 64 rows, 8 a
 // thread, at S=24 (96 CTAs).
 //
-// msa_bilstm_fwd_xp replaces ::_fwd_kernel (the v5 forward, row 4): the gate
-// pre-activation of step t is xp[b, t, d*4H + g], a projection made by one
-// matmul outside the kernel, and c is stored in fp32 beside h, into
-// c_seq (S, 2, T, B, H), for the v5 backward (lstm_bwd.cu). One block per
-// (batch tile of kBt rows, direction, model), the model axis the grid's z,
-// 4H threads, thread g owning gate column g and streaming column g of W_hh^T
-// from L2 every step, reused for the kBt rows held in registers. fp32 only.
+// msa_bilstm_rec_cseq, row 4, replaces ::_fwd_kernel (the v5 forward): the
+// same recurrence over the same packed xp (which the v5 schedule makes by
+// one matmul outside the kernel), with each thread also storing the fp32 c
+// of its rows and unit at every step from registers into c_seq (S, 2, T, B,
+// H), which the v5 backward (lstm_bwd.cu) reads. It needs no more shared
+// memory than row 1; the plan is row 1's fp32 plan. fp32 only.
 
 #include "lstm_cluster.cuh"
 
@@ -50,11 +49,14 @@ namespace {
 
 // ---- row 1: the recurrence over xp on a cluster ----
 
-template <typename E, int kRt>
+// kStoreC: row 4's form, which also stores c into c_seq (unread otherwise);
+// a template flag, so that row 1's forms compile as they did without it
+template <typename E, int kRt, bool kStoreC>
 __global__ void __launch_bounds__(kClusterMaxThreads)
 bilstm_rec_kernel(const float* __restrict__ xp,  // (S, B, T, 8H)
                   const E* __restrict__ w_hh,    // (S, 2, 4H, H)
                   E* __restrict__ h_seq,         // (S, B, T, 2H)
+                  float* __restrict__ c_seq,     // (S, 2, T, B, H)
                   int B, int T, int H, int bt, int ntiles) {
     cg::cluster_group cluster = cg::this_cluster();
     const ClusterPos pos = cluster_pos(ntiles);
@@ -85,6 +87,7 @@ bilstm_rec_kernel(const float* __restrict__ xp,  // (S, B, T, 8H)
     const int b0 = pos.tile * bt;
     xp += pos.model * B * T * 2 * G + d * G + j;
     h_seq += pos.model * B * T * 2 * H + d * H + j;
+    if constexpr (kStoreC) c_seq += (pos.model * 2 + d) * T * B * H + j;
     bool valid[kRt];
 #pragma unroll
     for (int q = 0; q < kRt; ++q) {
@@ -141,6 +144,7 @@ bilstm_rec_kernel(const float* __restrict__ xp,  // (S, B, T, 8H)
                 const float h = og * tanhf(c[q]);
                 const int r = rc + groups * q;
                 h_seq[(static_cast<size_t>(b0 + r) * T + t) * 2 * H] = from_float<E>(h);
+                if constexpr (kStoreC) c_seq[(static_cast<size_t>(t) * B + b0 + r) * H] = c[q];
                 for (int k = 0; k < C; ++k) cluster.map_shared_rank(hn, k)[r * hs + j] = h;
             }
         }
@@ -148,9 +152,9 @@ bilstm_rec_kernel(const float* __restrict__ xp,  // (S, B, T, 8H)
     }
 }
 
-template <typename E>
-int launch_rec(const float* xp, const E* w_hh, E* h_seq, int S, int B, int T, int H, int C,
-               int bt, int rows, int smem_planned, int device, void* stream) {
+template <typename E, bool kStoreC>
+int launch_rec(const float* xp, const E* w_hh, E* h_seq, float* c_seq, int S, int B, int T,
+               int H, int C, int bt, int rows, int smem_planned, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     if (C < 1 || H % C != 0 || bt < 1 || rows < 1) return cudaErrorInvalidValue;
@@ -165,77 +169,9 @@ int launch_rec(const float* xp, const E* w_hh, E* h_seq, int S, int B, int T, in
     if (smem != static_cast<size_t>(smem_planned)) return cudaErrorInvalidValue;
     const int ntiles = (B + bt - 1) / bt;
     return by_rows(rows, [&](auto r) {
-        return launch_cluster(bilstm_rec_kernel<E, decltype(r)::value>, C, ntiles * 2 * S, threads,
-                              smem, stream, xp, w_hh, h_seq, B, T, H, bt, ntiles);
+        return launch_cluster(bilstm_rec_kernel<E, decltype(r)::value, kStoreC>, C, ntiles * 2 * S,
+                              threads, smem, stream, xp, w_hh, h_seq, c_seq, B, T, H, bt, ntiles);
     });
-}
-
-// ---- row 4: the v5 forward ----
-
-constexpr int kBt = 8;  // batch rows per block; kBt * H == 2 * (4H threads)
-
-__global__ void bilstm_fwd_xp_kernel(const float* __restrict__ xp,      // (S, B, T, 8H)
-                                     const float* __restrict__ w_hh_t,  // (S, 2, H, 4H)
-                                     float* __restrict__ h_seq,         // (S, B, T, 2H)
-                                     float* __restrict__ c_seq,         // (S, 2, T, B, H)
-                                     int B, int T, int H) {
-    extern __shared__ float smem[];
-    const int G = 4 * H;
-    const size_t model = blockIdx.z;
-    xp += model * B * T * 2 * G;
-    w_hh_t += model * 2 * H * G;
-    h_seq += model * B * T * 2 * H;
-    float* hs = smem;          // (kBt, H): h_{t-1}
-    float* gs = hs + kBt * H;  // (kBt, G): gate pre-activations
-
-    const int d = blockIdx.y;
-    const int b0 = blockIdx.x * kBt;
-    const int g = threadIdx.x;
-    const float* wh = w_hh_t + static_cast<size_t>(d) * H * G;
-    c_seq += (model * 2 + d) * T * B * H;
-
-    for (int idx = g; idx < kBt * H; idx += G) hs[idx] = 0.0f;
-    __syncthreads();
-    float c[2] = {0.0f, 0.0f};
-
-    for (int s = 0; s < T; ++s) {
-        const int t = d == 0 ? s : T - 1 - s;
-        float acc[kBt];
-#pragma unroll
-        for (int r = 0; r < kBt; ++r) {
-            const int b = b0 + r;
-            acc[r] = b < B ? xp[(static_cast<size_t>(b) * T + t) * 2 * G + d * G + g] : 0.0f;
-        }
-        for (int k = 0; k < H; ++k) {
-            const float w = wh[static_cast<size_t>(k) * G + g];
-#pragma unroll
-            for (int r = 0; r < kBt; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
-        }
-#pragma unroll
-        for (int r = 0; r < kBt; ++r) gs[r * G + g] = acc[r];
-        __syncthreads();
-
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-            const int cell = g + q * G;
-            const int r = cell / H;
-            const int j = cell - r * H;
-            const float* gr = gs + r * G;
-            const float ig = sigmoid_f(gr[j]);
-            const float fg = sigmoid_f(gr[H + j]);
-            const float gg = tanhf(gr[2 * H + j]);
-            const float og = sigmoid_f(gr[3 * H + j]);
-            c[q] = fg * c[q] + ig * gg;
-            const float h = og * tanhf(c[q]);
-            hs[r * H + j] = h;
-            const int b = b0 + r;
-            if (b < B) {
-                h_seq[(static_cast<size_t>(b) * T + t) * 2 * H + d * H + j] = h;
-                c_seq[(static_cast<size_t>(t) * B + b) * H + j] = c[q];
-            }
-        }
-        __syncthreads();
-    }
 }
 
 }  // namespace
@@ -246,27 +182,23 @@ __global__ void bilstm_fwd_xp_kernel(const float* __restrict__ xp,      // (S, B
 extern "C" int msa_bilstm_rec(const float* xp, const float* w_hh, float* h_seq, int S, int B,
                               int T, int H, int C, int bt, int rows, int smem_planned, int device,
                               void* stream) {
-    return launch_rec(xp, w_hh, h_seq, S, B, T, H, C, bt, rows, smem_planned, device, stream);
+    return launch_rec<float, false>(xp, w_hh, h_seq, nullptr, S, B, T, H, C, bt, rows,
+                                    smem_planned, device, stream);
 }
 
 extern "C" int msa_bilstm_rec_bf16(const float* xp, const __nv_bfloat16* w_hh,
                                    __nv_bfloat16* h_seq, int S, int B, int T, int H, int C,
                                    int bt, int rows, int smem_planned, int device, void* stream) {
-    return launch_rec(xp, w_hh, h_seq, S, B, T, H, C, bt, rows, smem_planned, device, stream);
+    return launch_rec<__nv_bfloat16, false>(xp, w_hh, h_seq, nullptr, S, B, T, H, C, bt, rows,
+                                            smem_planned, device, stream);
 }
 
-// v5 forward: xp (S, B, T, 8H) packed [fwd | bwd] in actual time, W_hh^T
-// (S, 2, H, 4H) -> h_seq (S, B, T, 2H), c_seq (S, 2, T, B, H), fp32
-extern "C" int msa_bilstm_fwd_xp(const float* xp, const float* w_hh_t, float* h_seq,
-                                 float* c_seq, int S, int B, int T, int H, int device,
-                                 void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    const size_t smem = sizeof(float) * kBt * 5 * H;
-    err = allow_dynamic_smem(bilstm_fwd_xp_kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((B + kBt - 1) / kBt, 2, S);
-    bilstm_fwd_xp_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-        xp, w_hh_t, h_seq, c_seq, B, T, H);
-    return cudaGetLastError();
+// row 4, the v5 forward: row 1's recurrence, fp32, also storing c_seq
+// (S, 2, T, B, H) in fp32
+extern "C" int msa_bilstm_rec_cseq(const float* xp, const float* w_hh, float* h_seq,
+                                   float* c_seq, int S, int B, int T, int H, int C, int bt,
+                                   int rows, int smem_planned, int device, void* stream) {
+    return launch_rec<float, true>(xp, w_hh, h_seq, c_seq, S, B, T, H, C, bt, rows, smem_planned,
+                                   device, stream);
 }
+

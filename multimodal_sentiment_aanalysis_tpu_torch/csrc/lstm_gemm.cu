@@ -48,6 +48,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -65,49 +66,6 @@ constexpr int kTile = kBm * kLdRowK > kBk * kLdKRow ? kBm * kLdRowK : kBk * kLdK
 // the 1 of the bias column, as a 4-vector of either storage type
 __device__ __align__(16) const uint32_t kOneF32[4] = {0x3F800000u, 0u, 0u, 0u};
 __device__ __align__(16) const uint16_t kOneBf16[4] = {0x3F80u, 0u, 0u, 0u};
-
-__device__ __forceinline__ uint32_t tf32(float v) {
-    uint32_t r;
-    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-    return r;
-}
-
-// v = hi + lo with both parts TF32; lo is zero where v is exact in TF32
-template <bool kExact>
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-    hi = tf32(v);
-    lo = kExact ? 0u : tf32(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-        "{%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copies four elements of T (src_bytes of them from global memory, the rest
-// zero) into shared memory, asynchronously
-template <typename T>
-__device__ __forceinline__ void cp_async4(T* dst, const T* src, bool valid) {
-    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    const int n = valid ? 4 * sizeof(T) : 0;
-    if constexpr (sizeof(T) == 4)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
-                     : "memory");
-    else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(n)
-                     : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 template <typename E>
 __device__ __forceinline__ const E* one_vector();

@@ -43,8 +43,10 @@ for both: three ``bilstm_gemm``, one ``bilstm_cscan``, one ``bilstm_sweep``.
   ``kernels/fusion_head.py::_kernel``
 - the BiLSTM's other schedules (``lstm.fused_bilstm_layer(schedule=)``),
   fp32 only: ``bilstm_fwd_xp`` (``csrc/lstm_fwd.cu``, ``kernels/lstm.py::
-  _fwd_kernel``), ``bilstm_bwd_xp`` (``::_bwd_kernel``), ``bilstm_cseq``
-  (``::_cseq_kernel``), ``bilstm_cbndk`` (``::_cbndk_kernel``); each
+  _fwd_kernel``; ``bilstm_rec``'s cluster recurrence in its form that also
+  stores c, an entry point with its own count), ``bilstm_bwd_xp``
+  (``::_bwd_kernel``), ``bilstm_cseq`` (``::_cseq_kernel``),
+  ``bilstm_cbndk`` (``::_cbndk_kernel``); each
   ``lstm.<name>``, the last three in ``csrc/lstm_bwd.cu``; and two calls
   of row 11's pieces at K = 1 over the full c of ``bilstm_cseq``:
   ``bilstm_bwdc`` (``::_bwd_bwdc_kernel``, v8), a call of the wrapper,
@@ -64,7 +66,7 @@ through (:func:`launch_counts`).
 import torch
 
 from . import attention, contrastive, conv_stem, conv_stem_train, fusion_head, lstm
-from ._build import build_all
+from ._build import build_all, ptxas_report
 
 _BF16 = torch.bfloat16
 KERNELS = {
@@ -111,4 +113,4 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["KERNELS", "build_all", "launch_counts", "reset_launch_counts"]
+__all__ = ["KERNELS", "build_all", "launch_counts", "ptxas_report", "reset_launch_counts"]

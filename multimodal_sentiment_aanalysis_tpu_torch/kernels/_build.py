@@ -76,6 +76,23 @@ def build(name: str) -> Path:
     return lib
 
 
+def ptxas_report(name: str) -> str:
+    """ptxas's report (``nvcc -Xptxas -v``) on ``csrc/<name>.cu`` built with
+    the libraries' flags into a throwaway cubin: each kernel's registers,
+    spills and shared memory. Raises where nvcc fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cubin = BUILD_DIR / f"{name}.{os.getpid()}.cubin"
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    cmd = [_nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-I", str(CSRC), "-o", str(cubin),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cubin.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed on {name}.cu (exit {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build_all() -> list[Path]:
     """Build every kernel library under ``csrc/``, one nvcc per source, all
     started together."""

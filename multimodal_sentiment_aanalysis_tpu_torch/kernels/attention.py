@@ -11,19 +11,23 @@ built head dim), scales ``q`` and runs a ``torch.autograd.Function`` over
 three kernels of ``csrc/flash_attn.cu``:
 
 - forward :func:`flash_fwd` (``_fwd_kernel``): online softmax over key
-  tiles, saving the per-row log-sum-exp;
+  tiles on the tensor cores (3xTF32 ``mma.sync``, fp32-accurate), saving
+  the per-row log-sum-exp;
 - backward :func:`flash_bwd_dq` (``_bwd_dq_kernel``, by query tile) and
   :func:`flash_bwd_dkv` (``_bwd_dkv_kernel``, by key tile), both
-  recomputing ``P = exp(S - LSE)``; ``delta = rowsum(dO * O)`` is taken
-  here, as the JAX ``_flash_bwd`` takes it.
+  recomputing ``P = exp(S - LSE)`` on the CUDA cores; ``delta = rowsum(dO
+  * O)`` is taken here, as the JAX ``_flash_bwd`` takes it.
 
-``block_q`` and ``block_k`` are the kernels' tiles: query rows (threads) of
-a forward and dQ block and staged key rows, and key rows (threads) of a
-dK/dV block and staged query rows. The JAX defaults (512/1024) were TPU v5e
-tunings; the port's are 64/64. Each wrapper takes the plain version for a
-CPU tensor and launches the kernel, or raises, for a CUDA tensor. No path
-needs a ``vmap`` rule (every vmapped attention is at length 1), so the
-Function raises under ``torch.func.vmap``.
+``block_q`` and ``block_k`` are the kernels' tiles, one pair for the three
+(the Function passes the same to each), multiples of 32: the forward's
+query rows a CTA (at most 128, one warp per 16) and keys a tile (32, 64 or
+128); the dQ kernel's query rows (threads) a block and staged key rows; the
+dK/dV kernel's key rows (threads) a block and staged query rows. The JAX
+defaults (512/1024) were TPU v5e tunings; the port's are 64/64. Each
+wrapper takes the plain version for a CPU tensor and launches the kernel,
+or raises, for a CUDA tensor. No path needs a ``vmap`` rule (every vmapped
+attention is at length 1), so the Function raises under
+``torch.func.vmap``.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from torch.autograd.function import once_differentiable
 from ._build import CudaKernel, check_cuda, ptr
 
 FWD_KERNEL = CudaKernel(
-    "flash_attn", "msa_flash_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6,
+    "flash_attn", "msa_flash_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7,
 )
 DQ_KERNEL = CudaKernel(
     "flash_attn", "msa_flash_bwd_dq", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6,
@@ -52,6 +56,8 @@ BLOCK_K = 64
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the kernels' instantiations
 _MAX_THREADS = 256
 _MAX_SMEM = 227 * 1024
+FWD_KEY_TILES = (32, 64, 128)  # the forward's key tiles (kBk)
+_FWD_MAX_ROWS = 128  # kFwdMaxThreads / 2 in csrc/flash_attn.cu
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -94,8 +100,21 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta) -> tuple[torch.Tensor, torch.Te
 # --------------------------------------------------------------------------
 
 
-def _check(q, k, v, block_q: int, block_k: int, *rest) -> tuple[int, int, int, int]:
-    """Validate CUDA operands; returns ``(BH, Tq, Tk, D)``."""
+def fwd_smem(d: int, block_q: int, block_k: int) -> int:
+    """Bytes of shared memory of one forward CTA (``FwdTile::smem`` in
+    ``csrc/flash_attn.cu``): a ring of 3 stages of K and V tiles (``block_k``
+    rows of D + 4 floats each), 2 where 3 would pass 120 KiB, and at D = 128
+    the Q tile. The wrapper passes it to the launcher, which refuses a launch
+    whose count differs from its own."""
+    stage = 2 * block_k * (d + 4)
+    stages = 3 if 3 * 4 * stage <= 120 * 1024 else 2
+    return 4 * (stages * stage + (block_q * (d + 4) if d > 64 else 0))
+
+
+def _check(q, k, v, block_q: int, block_k: int, *rest,
+           fwd: bool = False) -> tuple[int, int, int, int]:
+    """Validate CUDA operands of the forward (``fwd``) or a backward kernel;
+    returns ``(BH, Tq, Tk, D)``."""
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     if q.dim() != 3 or 0 in q.shape:
@@ -107,9 +126,14 @@ def _check(q, k, v, block_q: int, block_k: int, *rest) -> tuple[int, int, int, i
     for name, blk in (("block_q", block_q), ("block_k", block_k)):
         if blk % 32 or not 0 < blk <= _MAX_THREADS:
             raise ValueError(f"{name} {blk}: a multiple of 32 up to {_MAX_THREADS} (threads)")
+    if fwd and block_q > _FWD_MAX_ROWS:
+        raise ValueError(f"block_q {block_q}: the forward takes at most {_FWD_MAX_ROWS} rows")
+    if fwd and block_k not in FWD_KEY_TILES:
+        raise ValueError(f"block_k {block_k}: the forward's key tiles are {FWD_KEY_TILES}")
     if bh > 2**31 - 1 or max(-(-tq // block_q), -(-tk // block_k)) > 65535:
         raise ValueError("too many tiles for the grid")
-    smem = 4 * max(2 * block_k * d + block_k * block_q, 2 * block_q * d + 2 * block_q)
+    smem = (fwd_smem(d, block_q, block_k) if fwd else
+            4 * max(2 * block_k * d, 2 * block_q * d + 2 * block_q))
     if smem > _MAX_SMEM:
         raise ValueError(f"{smem} bytes of shared memory > {_MAX_SMEM}")
     check_cuda("q", q, q.device)
@@ -123,15 +147,20 @@ def _check(q, k, v, block_q: int, block_k: int, *rest) -> tuple[int, int, int, i
 def flash_fwd(q, k, v, block_q: int = BLOCK_Q,
               block_k: int = BLOCK_K) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel: ``(O, LSE)`` of pre-scaled ``q (BH, Tq, D)``,
-    ``k, v (BH, Tk, D)``. A CPU tensor takes :func:`flash_fwd_plain`; a
-    CUDA tensor launches the kernel, or raises."""
+    ``k, v (BH, Tk, D)``, its products on the tensor cores in three TF32
+    passes each (as accurate as fp32). A CPU tensor takes
+    :func:`flash_fwd_plain`; a CUDA tensor launches the kernel, or
+    raises."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v)
-    bh, tq, tk, d = _check(q, k, v, block_q, block_k)
+    bh, tq, tk, d = _check(q, k, v, block_q, block_k, fwd=True)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:  # the tiles are copied as 16-byte vectors
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     o = torch.empty(bh, tq, d, device=q.device, dtype=torch.float32)
     lse = torch.empty(bh, tq, device=q.device, dtype=torch.float32)
     FWD_KERNEL.launch(q.device, ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse),
-                      bh, tq, tk, d, block_q, block_k)
+                      bh, tq, tk, d, block_q, block_k, fwd_smem(d, block_q, block_k))
     return o, lse
 
 

@@ -98,7 +98,8 @@ KERNEL, CBND_KERNEL, SEGBWD_KERNEL, GEMM_KERNEL, REC_KERNEL, SWEEP_KERNEL = (
     k[torch.float32] for k in (KERNELS, CBND_KERNELS, SEGBWD_KERNELS, GEMM_KERNELS, REC_KERNELS,
                                SWEEP_KERNELS))
 # the other schedules' kernels, fp32 only
-FWD_XP_KERNEL = CudaKernel("lstm_fwd", "msa_bilstm_fwd_xp", [_P] * 4 + [_I] * 4)
+# row 4 (v5 forward): row 1's recurrence kernel with its c store, an entry point of its own
+FWD_XP_KERNEL = CudaKernel("lstm_fwd", "msa_bilstm_rec_cseq", [_P] * 4 + [_I] * 8)
 BWD_XP_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_bwd_xp", [_P] * 7 + [_I] * 4)
 CSEQ_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_cseq", [_P] * 6 + [_I] * 5)
 BWD_SPLIT_KERNEL, BWDC_KERNEL = CallCount(), CallCount()  # rows 7 and 8: the GEMM and the sweep
@@ -106,7 +107,7 @@ CBNDK_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_cbndk", [_P] * 6 + [_I] * 6)
 
 SCHEDULES = ("v5", "v6", "v8", "v9", "v9.1")
 
-_ROWS_PER_BLOCK = 8  # kBt in csrc/lstm_fwd.cu and csrc/lstm_bwd.cu
+_ROWS_PER_BLOCK = 8  # kBt in csrc/lstm_bwd.cu
 _SEGBWD_MAX_HIDDEN = 128  # kSegMaxThreads / 4 in csrc/lstm_bwd.cu (the per-block walks)
 _MAX_SMEM = 227 * 1024
 SEG_K = 4  # segment length of the backward; any K >= 1 works for any T
@@ -403,11 +404,22 @@ def bilstm_rec(xp, w_hh) -> torch.Tensor:
     h = w_hh.shape[-1]
     check_cuda("xp", xp, xp.device, (s, b, t, 8 * h))
     check_cuda("w_hh", w_hh, xp.device, (s, 2, 4 * h, h), F32_BF16)
-    plan = cluster_plan("rec", s, b, h, w_hh.dtype, _sm_count(xp.device.index))
     out = torch.empty(s, b, t, 2 * h, device=xp.device, dtype=w_hh.dtype)
-    REC_KERNELS[w_hh.dtype].launch(xp.device, ptr(xp), ptr(w_hh), ptr(out), s, b, t, h, *plan,
-                                   _cluster_smem("rec", *plan, h, w_hh.element_size()))
+    _launch_rec(REC_KERNELS[w_hh.dtype], xp, w_hh, out)
     return out[0] if one else out
+
+
+def _launch_rec(kernel: CudaKernel, xp, w_hh, h_seq, c_seq=None) -> None:
+    """One launch of the cluster recurrence over checked ``xp (S, B, T, 8H)``
+    and ``w_hh (S, 2, 4H, H)`` into ``h_seq`` (and ``c_seq (S, 2, T, B, H)``,
+    row 4's form), on the plan :func:`cluster_plan` makes for the shapes
+    and the dtype of ``w_hh``, which raises where none fits."""
+    s, b, t, _ = xp.shape
+    h = w_hh.shape[-1]
+    plan = cluster_plan("rec", s, b, h, w_hh.dtype, _sm_count(xp.device.index))
+    args = (ptr(xp), ptr(w_hh), ptr(h_seq)) + ((ptr(c_seq),) if c_seq is not None else ())
+    kernel.launch(xp.device, *args, s, b, t, h, *plan,
+                  _cluster_smem("rec", *plan, h, w_hh.element_size()))
 
 
 def _projection(x, w_ih, bias) -> torch.Tensor:
@@ -960,7 +972,7 @@ _V9Bwd = _kernel_function(bilstm_v9_bwd, (0, 0), ":func:`bilstm_v9_bwd` as a Fun
 # --------------------------------------------------------------------------
 # the other schedules' kernels (fp32): v9.1 checkpoints, v8 and v6 full c,
 # the v8 and v6 reverse sweeps (row 11's pieces at K = 1), the v5 sweep that
-# emits dxp, the v5 forward
+# emits dxp, the v5 forward (row 1's recurrence storing c)
 # --------------------------------------------------------------------------
 
 
@@ -1120,9 +1132,11 @@ def bilstm_bwd_split(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> torch.Tensor:
     return dxp[0] if one else dxp
 
 
-def _check_xp(xp: torch.Tensor, w_hh: torch.Tensor) -> tuple[int, int, int, int]:
+def _check_xp(xp: torch.Tensor, w_hh: torch.Tensor,
+              threads: bool = True) -> tuple[int, int, int, int]:
     """Validate the v5 kernels' ``xp (S, B, T, 8H)`` and ``w_hh (S, 2, 4H,
-    H)``; returns ``(S, B, T, H)``."""
+    H)``; returns ``(S, B, T, H)``. ``threads``: the kernel runs 4H threads
+    a block (row 5; row 4's limits are :func:`cluster_plan`'s)."""
     if xp.dim() != 4 or 0 in xp.shape:
         raise ValueError(f"xp must be a non-empty (B, T, 8H) or (S, B, T, 8H) tensor, "
                          f"got {tuple(xp.shape)}")
@@ -1130,7 +1144,7 @@ def _check_xp(xp: torch.Tensor, w_hh: torch.Tensor) -> tuple[int, int, int, int]
     h = w_hh.shape[-1]
     if s > MAX_MODELS:
         raise ValueError(f"{s} models > {MAX_MODELS}: the model axis is the grid's z axis")
-    if not 0 < 4 * h <= 1024:
+    if threads and not 0 < 4 * h <= 1024:
         raise ValueError(f"hidden size {h}: the kernels run 4H <= 1024 threads")
     check_cuda("xp", xp, xp.device, (s, b, t, 8 * h))
     check_cuda("w_hh", w_hh, xp.device, (s, 2, 4 * h, h))
@@ -1145,21 +1159,24 @@ def bilstm_fwd_xp_plain(xp, w_hh) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def bilstm_fwd_xp(xp, w_hh) -> tuple[torch.Tensor, torch.Tensor]:
-    """The v5 forward (``_fwd_kernel``): the recurrence over the packed
-    projection ``xp (B, T, 8H)`` (``[fwd | bwd]``, both halves in actual
-    time; or ``(S, B, T, 8H)``) and ``w_hh (2, 4H, H)``. Returns ``h_seq
-    (B, T, 2H)`` and the fp32 cell state ``c_seq (2, T, B, H)`` (each with
-    a leading S where ``xp`` has one). fp32."""
+    """The v5 forward, row 4 (``_fwd_kernel``): the recurrence over the
+    packed projection ``xp (B, T, 8H)`` (``[fwd | bwd]``, both halves in
+    actual time; or ``(S, B, T, 8H)``) and ``w_hh (2, 4H, H)``. Returns
+    ``h_seq (B, T, 2H)`` and the fp32 cell state ``c_seq (2, T, B, H)``
+    (each with a leading S where ``xp`` has one). fp32.
+
+    A CPU tensor takes :func:`bilstm_fwd_xp_plain`. A CUDA tensor launches
+    row 1's cluster recurrence (:func:`bilstm_rec`) on row 1's fp32 plan,
+    in its form that also stores c at every step, or raises: where no
+    cluster plan fits the hidden size."""
     if xp.device.type == "cpu":
         return bilstm_fwd_xp_plain(xp, w_hh)
     _check_device(xp)
     (xp, w_hh), one = with_models(xp, w_hh)
-    s, b, t, h = _check_xp(xp, w_hh)
-    _check_smem(_ROWS_PER_BLOCK * 5 * h, f"hidden size {h}")
-    w_hh_t = _transposed(w_hh)
+    s, b, t, h = _check_xp(xp, w_hh, threads=False)
     h_seq = torch.empty(s, b, t, 2 * h, device=xp.device, dtype=torch.float32)
     c_seq = torch.empty(s, 2, t, b, h, device=xp.device, dtype=torch.float32)
-    FWD_XP_KERNEL.launch(xp.device, ptr(xp), ptr(w_hh_t), ptr(h_seq), ptr(c_seq), s, b, t, h)
+    _launch_rec(FWD_XP_KERNEL, xp, w_hh, h_seq, c_seq)
     return (h_seq[0], c_seq[0]) if one else (h_seq, c_seq)
 
 

@@ -13,8 +13,10 @@ against JAX at Dh 48 and 100), runs bf16 in fp32, and refuses a
 second-order gradient.
 
 The ``gpu``-marked tests hold each CUDA kernel against its plain version
-on the card at ragged shapes (forward 1e-4, backward 1e-3) and skip without
-a card: ``python -m pytest --noconftest -m gpu tests/test_torch_port_attention.py``.
+on the card at ragged shapes (forward 1e-4, backward 1e-3), the forward
+also against fp64 (1e-5 of the largest entry: a bar one TF32 pass misses,
+``tests/test_torch_port_flash_fwd_tc.py``), and skip without a card:
+``python -m pytest --noconftest -m gpu tests/test_torch_port_attention.py``.
 """
 
 import math
@@ -239,7 +241,9 @@ def cuda():
 
 
 # (BH, tq, tk, D, block_q, block_k): partial tiles in both lengths, every
-# head dim the kernels are built for, tq != tk both ways, other tiles
+# head dim the kernels are built for, tq != tk both ways, other tiles; and
+# ragged lengths (1, 63, 65) in every pair, the head dims in turn, so each
+# head dim meets one row or key alone and a tile one short or one over
 CARD_SHAPES = {
     "t9": (16, 9, 9, 32, 64, 64),
     "cross": (8, 200, 100, 32, 64, 64),
@@ -247,7 +251,10 @@ CARD_SHAPES = {
     "d64": (3, 33, 65, 64, 64, 32),
     "d8": (5, 17, 5, 8, 128, 64),
     "d128": (4, 70, 45, 128, 64, 64),
+    **{f"ragged_{tq}_{tk}": (3, tq, tk, attention.HEAD_DIMS[(a + b) % 5], 64, 64)
+       for a, tq in enumerate((1, 63, 65)) for b, tk in enumerate((1, 63, 65))},
 }
+FP64_REL = 1e-5  # the forward against fp64, relative to max |ref| (chip_smoke.py)
 
 
 def _card_inputs(cuda, bh, tq, tk, d, seed=7):
@@ -274,9 +281,12 @@ def test_flash_kernels_match_plain(cuda, shape):
     o_ref, lse_ref = attention.flash_fwd_plain(q, k, v)
     dq_ref = attention.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta)
     dk_ref, dv_ref = attention.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta)
+    o64, lse64 = attention.flash_fwd_plain(q.double(), k.double(), v.double())
     torch.cuda.synchronize()
     torch.testing.assert_close(o, o_ref, rtol=0, atol=1e-4)
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    for got, ref in ((o, o64), (lse, lse64)):  # 3xTF32: as accurate as fp32
+        assert (got.double() - ref).abs().max() <= FP64_REL * ref.abs().max()
     for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
 

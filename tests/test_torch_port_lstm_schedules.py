@@ -212,6 +212,67 @@ def test_schedule_kernel_plain_matches_jax(jax_case, case):
     check(jl, jax_case[t]["jax"], jax_case[t]["port"])
 
 
+@pytest.mark.parametrize("case", ["one model", "vmap"])
+def test_fwd_xp_plain_c_matches_jax_fwd_call(case):
+    """Row 4's ``c_seq (S, 2, T, B, H)``, which the v5 forward stores from
+    the cluster recurrence's registers: ``_recurrence_plain``'s c (the
+    kernel's plain version) against JAX ``_fwd_call``'s packed ``c_seq`` at
+    the v5 shapes, for one model without the model axis and for S models
+    under ``jax.vmap`` (each a call of one model)."""
+    import jax
+    import jax.numpy as jnp
+
+    from multimodal_sentiment_aanalysis_tpu.kernels import lstm as jl
+
+    x, fwd, bwd, _ = _models(60)
+    w_ih, w_hh, bias = _stacked(fwd, bwd)
+    xp = lstm._projection(torch.from_numpy(x), w_ih, bias)  # (S, B, T, 8H)
+    xp_j = jnp.asarray(np.swapaxes(xp.numpy(), 1, 2))      # (S, T, B, 8H)
+    whh_j = jnp.asarray(np.swapaxes(w_hh.numpy(), -1, -2))  # (S, 2, H, 4H)
+    if case == "one model":
+        h_ref, c_ref = jl._fwd_call(xp_j[:1], whh_j[:1], True)
+        h_seq, c = (a[None] for a in lstm.bilstm_fwd_xp_plain(xp[0], w_hh[0]))
+    else:
+        h_ref, c_ref = (a[:, 0] for a in jax.vmap(
+            lambda a, w: jl._fwd_call(a[None], w[None], True))(xp_j, whh_j))
+        h_seq, c = lstm.bilstm_fwd_xp_plain(xp, w_hh)
+    s = 1 if case == "one model" else S
+    assert c.shape == (s, 2, T, B, H) and c.dtype == torch.float32
+    _close(c, _split_dirs(c_ref, H), 1e-5)
+    _close(h_seq, _swap(h_ref), 1e-5)
+    _close(c, lstm._recurrence_plain(xp[:s], w_hh[:s])[1], 0)
+
+
+class _Recorder:
+    """Stands in for a kernel: records the arguments of its launch."""
+
+    def __init__(self):
+        self.args = None
+
+    def launch(self, device, *args):
+        self.args = args
+
+
+@pytest.mark.parametrize("s, want", [(1, (8, 16, 2)), (24, (2, 64, 8))])
+def test_fwd_xp_takes_row_1_plan(monkeypatch, s, want):
+    """Row 4 launches the cluster recurrence (``lstm._launch_rec``) on row
+    1's fp32 plan at the flagship layer (B=64, H=128): 64 CTAs at S=1, 96
+    at S=24, with the plan's own shared-memory count; the c store needs no
+    more shared memory than row 1 takes."""
+    monkeypatch.setattr(lstm, "_sm_count", lambda index: lstm.H100_SMS)
+    b, t, h = 64, 73, 128
+    xp = torch.empty(1).expand(s, b, t, 8 * h)  # shapes only: nothing is launched
+    w_hh = torch.empty(1).expand(s, 2, 4 * h, h)
+    h_seq, c_seq = torch.empty(1).expand(s, b, t, 2 * h), torch.empty(1).expand(s, 2, t, b, h)
+    rows, cseq = _Recorder(), _Recorder()
+    lstm._launch_rec(rows, xp, w_hh, h_seq)
+    lstm._launch_rec(cseq, xp, w_hh, h_seq, c_seq)
+    assert lstm.cluster_plan("rec", s, b, h, torch.float32) == want
+    assert rows.args[3:] == (s, b, t, h, *want, lstm._cluster_smem("rec", *want, h, 4))
+    assert cseq.args[4:] == rows.args[3:]
+    assert cseq.args[3].value == c_seq.data_ptr()
+
+
 # --------------------------------------------------------------------------
 # CPU: the layer under each schedule against the JAX layer
 # --------------------------------------------------------------------------
@@ -429,6 +490,36 @@ def test_schedule_kernel_matches_plain(cuda, shape, name):
             torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * r.abs().max().item())
         else:
             torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+
+
+# (S, B, T, H) of row 4 alone: a batch tile of 37 rows and small hidden
+# sizes (the cluster plan takes C = 4 at H = 12, 8 at H = 40); S 0: one
+# model without the model axis
+FWD_XP_SHAPES = {"h12": (2, 37, 11, 12), "h40": (3, 37, 9, 40), "one_model": (0, 37, 73, 40)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(FWD_XP_SHAPES))
+def test_fwd_xp_kernel_matches_plain(cuda, shape):
+    """Row 4 is one launch of the cluster recurrence's c-storing form (and
+    none of row 1's form): ``h_seq`` and ``c_seq`` within 1e-4 of the plain
+    version on the same card tensors."""
+    s, b, t, h = FWD_XP_SHAPES[shape]
+    rng = np.random.default_rng(52)
+    lead = (s,) if s else ()
+    xp = torch.from_numpy(rng.normal(size=(*lead, b, t, 8 * h)).astype(np.float32)).to(cuda)
+    w_hh = torch.from_numpy((0.3 * rng.normal(size=(*lead, 2, 4 * h, h))).astype(np.float32))
+    w_hh = w_hh.to(cuda)
+    before = lstm.FWD_XP_KERNEL.launches, lstm.REC_KERNEL.launches
+    with torch.no_grad():
+        got = lstm.bilstm_fwd_xp(xp, w_hh)
+        assert (lstm.FWD_XP_KERNEL.launches, lstm.REC_KERNEL.launches) == (before[0] + 1,
+                                                                           before[1])
+        want = lstm.bilstm_fwd_xp_plain(xp, w_hh)
+    torch.cuda.synchronize()
+    assert got[1].shape == (*lead, 2, t, b, h)
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
 
 
 @pytest.mark.gpu
