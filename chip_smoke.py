@@ -14,7 +14,8 @@ It needs a CUDA card and exits non-zero without one. In order, it
    fp32 reference) and builds every kernel in
    ``multimodal_sentiment_aanalysis_tpu_torch/csrc`` with nvcc, one process
    per source, all at once, and beside them prints ptxas's registers and
-   spills of each instantiation of the flash forward (``nvcc -Xptxas -v``);
+   spills of each instantiation of the three flash kernels (``nvcc -Xptxas
+   -v``), failing if a backward form at D <= 64 spills;
 2. serving: builds the full-width flagship model (feat_dim=256) from a seeded
    ``torch.Generator`` with perturbed BatchNorm running stats, and a pool of
    480 synthetic samples at MAHNOB-HCI shapes resident on the card; serves
@@ -99,16 +100,20 @@ It needs a CUDA card and exits non-zero without one. In order, it
    the rows' time; the GEMM also against its products in fp64, per
    mode within 1e-5 of the largest (a bar that one TF32 pass on the fp32
    operands is shown to miss); the flash forward's O and LSE against fp64,
-   each within 1e-5 of its largest entry (a bar one TF32 pass misses,
-   ``tests/test_torch_port_flash_fwd_tc.py``); times both with CUDA events, times one
+   each within 1e-5 of its largest entry, and dQ, dK and dV within 1e-5 of
+   their scale (``attention.flash_bwd_magnitudes``; bars one TF32 pass
+   misses, ``tests/test_torch_port_flash_fwd_tc.py``,
+   ``tests/test_torch_port_flash_bwd_tc.py``); times both with CUDA events, times one
    PyTorch call of the same function where there is one (``nn.LSTM`` in
    the case's dtype, cuDNN's in fp32; ``scaled_dot_product_attention``;
    timed here only, the port never calls them), computes each case's bound (the larger of its
    bytes over 3.35 TB/s and its operations over the peak rate for their
    type: 67 TFLOP/s fp32, 989 TFLOP/s bf16, 495 TFLOP/s per TF32 pass of
    the GEMM and of the flash kernels' products, three passes each, plus
-   their softmax at the fp32 rate), and checks the stem tail's dropout (keep share
-   1 - p within 5 sigma, every output exactly 0 or GELU(y) / (1 - p));
+   their softmax at the fp32 rate), prints each attention case's backward
+   pair (dQ + dK/dV) against SDPA's backward, and checks the stem tail's
+   dropout (keep share 1 - p within 5 sigma, every output exactly 0 or
+   GELU(y) / (1 - p));
 8. prints the card's name and power limit, one JSON line of per-kernel
    results (one entry per kernel a path launched; the InfoNCE kernel's
    bf16 form, which no path launches because the bf16 step's InfoNCE
@@ -262,9 +267,14 @@ SERVE_BF16_TOL, SERVE_BF16_ARGMAX = 0.1, 0.9
 # the GEMM of rows 1 and 11 against its products in fp64, per mode: max
 # |err| over max |ref| (gemm_check)
 GEMM_REL = {"proj": 1e-5, "gates": 1e-5, "dx": 1e-5, "dw": 1e-5}
-# the flash forward (3xTF32 on the tensor cores) against fp64: max |err| of
-# O and of LSE over max |ref| (flash_check); one TF32 pass misses it at the
-# attention phase's shape and at 200 / 100 (tests/test_torch_port_flash_fwd_tc.py)
+# the flash kernels (3xTF32 on the tensor cores) against fp64 (flash_check):
+# max |err| of the forward's O and LSE over their max |ref|, and of the
+# backward's dQ, dK and dV over their scale, the largest entry of each one's
+# sum of absolute terms (attention.flash_bwd_magnitudes: 2.2-5.1x the
+# largest entry at these shapes, and finite where dQ and dK cancel to 0 at
+# Tk = 1); one TF32 pass misses it at the attention phase's shape and at
+# 200 / 100, the fp32 plain version meets it
+# (tests/test_torch_port_flash_fwd_tc.py, tests/test_torch_port_flash_bwd_tc.py)
 FLASH_FP64_REL = 1e-5
 BF16_RTOL = 2.0 ** -7  # a bf16 output of a bf16 form: one ulp of the value on top of its atol
 # ME-MHACL: the MAHNOB-HCI trial count of the other phases, the reference
@@ -280,8 +290,8 @@ ATTN_B, ATTN_T, ATTN_E, ATTN_HEADS = 64, 585, 256, 8
 # TF32 tensor-core rate, per TF32 pass, for its products with an fp32
 # operand; the recurrence and the sweep at the fp32 rate in both forms
 # (their arithmetic is fp32 on CUDA cores); the flash kernels' products as
-# three TF32 passes at the TF32 rate, which the forward runs, plus their
-# softmax at the fp32 rate (flash_ops_ms) (H100 SXM data sheet, dense)
+# three TF32 passes at the TF32 rate, which the three kernels run, plus
+# their softmax at the fp32 rate (flash_ops_ms) (H100 SXM data sheet, dense)
 PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, PEAK_BF16_FLOPS = 3.35e12, 67e12, 989e12
 PEAK_TF32_FLOPS = 495e12
 
@@ -1368,8 +1378,8 @@ def attention_kernel_cases(mha: MultiheadAttention, x: torch.Tensor, gen: torch.
                            cases: dict) -> None:
     """Adds the three flash kernels at the attention phase's own q, k, v
     (B H = 512, T = 585, Dh = 32), at 200 queries over 100 keys and at 9
-    rows, seeded; the forward's cases also with their fp64 outputs
-    (flash_check). Call under ``no_grad``."""
+    rows, seeded; each case also with its fp64 outputs (flash_check), the
+    backward's with their scales. Call under ``no_grad``."""
     dh = ATTN_E // ATTN_HEADS
     bh = ATTN_B * ATTN_HEADS
 
@@ -1390,14 +1400,24 @@ def attention_kernel_cases(mha: MultiheadAttention, x: torch.Tensor, gen: torch.
         fwd_args, bwd_args = (q, k, v), (q, k, v, do, lse, (do * o).sum(-1))
         cases["flash_fwd"].append((label, lambda a=fwd_args: attention.flash_fwd(*a),
                                    lambda a=fwd_args: attention.flash_fwd_plain(*a), fwd_args,
-                                   lambda a=fwd_args: attention.flash_fwd_plain(
-                                       *(t.double() for t in a))))
+                                   lambda a=fwd_args: (attention.flash_fwd_plain(
+                                       *(t.double() for t in a)),)))
         cases["flash_bwd_dq"].append((label, lambda a=bwd_args: attention.flash_bwd_dq(*a),
                                       lambda a=bwd_args: attention.flash_bwd_dq_plain(*a),
-                                      bwd_args))
+                                      bwd_args, lambda a=bwd_args: flash_bwd_fp64("dq", a)))
         cases["flash_bwd_dkv"].append((label, lambda a=bwd_args: attention.flash_bwd_dkv(*a),
                                        lambda a=bwd_args: attention.flash_bwd_dkv_plain(*a),
-                                       bwd_args))
+                                       bwd_args, lambda a=bwd_args: flash_bwd_fp64("dkv", a)))
+
+
+def flash_bwd_fp64(kernel: str, args) -> tuple:
+    """The fp64 plain outputs of a backward case (``kernel`` "dq" or "dkv")
+    on the same inputs, and their scales (attention.flash_bwd_magnitudes)."""
+    a = [t.double() for t in args]
+    scales = attention.flash_bwd_magnitudes(*a)
+    if kernel == "dq":
+        return (attention.flash_bwd_dq_plain(*a),), scales[:1]
+    return attention.flash_bwd_dkv_plain(*a), scales[1:]
 
 
 # --------------------------------------------------------------------------
@@ -1619,22 +1639,29 @@ def gemm_check(name: str, label: str, mode: str, got, want, ref, one_pass) -> No
           f"{name} {label}: one TF32 pass ({err_tf32:.3e}) would meet the bar {bar:.3e}")
 
 
-def flash_check(label: str, got, ref) -> None:
-    """Holds one flash forward case's O and LSE to FLASH_FP64_REL of their
-    largest fp64 entry."""
-    for what, g, r in zip(("O", "LSE"), got, ref):
-        scale = r.abs().max().item()
+FLASH_OUTPUTS = {"flash_fwd": ("O", "LSE"), "flash_bwd_dq": ("dQ",),
+                 "flash_bwd_dkv": ("dK", "dV")}
+
+
+def flash_check(name: str, label: str, got, ref, scales=None) -> None:
+    """Holds one flash case's outputs to FLASH_FP64_REL of their fp64
+    scale: the forward's O and LSE of their largest entry, the backward's of
+    ``scales`` (attention.flash_bwd_magnitudes)."""
+    for i, (what, g, r) in enumerate(zip(FLASH_OUTPUTS[name], got, ref)):
+        largest = r.abs().max().item()
+        scale = largest if scales is None else scales[i].item()
         err = (g.double() - r).abs().max().item()
-        print(f"flash_fwd {label}: {what} against fp64, max |ref| {scale:.4g}; kernel "
-              f"{err:.3e} ({err / scale:.2e} of it); bar {FLASH_FP64_REL:.0e} of max |ref|")
+        print(f"{name} {label}: {what} against fp64, max |ref| {largest:.4g}, scale "
+              f"{scale:.4g}; kernel {err:.3e} ({err / scale:.2e} of the scale, "
+              f"{err / largest:.2e} of max |ref|); bar {FLASH_FP64_REL:.0e} of the scale")
         check(err <= FLASH_FP64_REL * scale,
-              f"flash_fwd {label}: {what} {err:.3e} from fp64 > {FLASH_FP64_REL * scale:.3e}")
+              f"{name} {label}: {what} {err:.3e} from fp64 > {FLASH_FP64_REL * scale:.3e}")
 
 
 def flash_ops_ms(name: str, args) -> float:
     """The least time for a flash case's operations: its products (two in
     the forward, three for dQ, four for dK/dV) as three TF32 passes on the
-    tensor cores, fp32-accurate as the forward runs them, and the softmax's
+    tensor cores, fp32-accurate as the kernels run them, and the softmax's
     elementwise work (4 operations a score) on the fp32 CUDA cores."""
     q, k = tensors(args)[:2]
     scores = q.shape[0] * q.shape[1] * k.shape[1]
@@ -1643,13 +1670,14 @@ def flash_ops_ms(name: str, args) -> float:
 
 
 def flash_registers(report: str) -> list[str]:
-    """One line per instantiation of the flash forward (head dim D, key
-    tile kBk) from ptxas's report: its registers and spills."""
+    """One line per instantiation of the flash kernels (head dim D, streamed
+    tile) from ptxas's report: its registers and spills."""
     lines, kernel = [], None
     for line in report.splitlines():
-        m = re.search(r"Function properties for \S*flash_fwd_kernelILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"Function properties for \S*(flash_\w+_kernel)ILi(\d+)ELi(\d+)E", line)
         if m:
-            kernel = f"flash_fwd_kernel<D={m.group(1)}, kBk={m.group(2)}>"
+            tile = "kBk" if m.group(1) != "flash_bwd_dkv_kernel" else "kBq"
+            kernel = f"{m.group(1)}<D={m.group(2)}, {tile}={m.group(3)}>"
             spills = "no spill line"
         elif "Function properties for" in line:
             kernel = None
@@ -1695,15 +1723,15 @@ def case_results(name: str, items: list) -> dict:
     None where no case has a library call)."""
     _, _, tol = KERNELS[name]
     out = dict(err=0.0, ms=0.0, plain_ms=0.0, ops_ms=0.0, bytes_ms=0.0, bound_ms=0.0,
-               library_ms=None)
+               library_ms=None, case_ms={})
     for label, kern, plain, args, *exact in items:
         res = kern()
         got, want = outputs(name, res), outputs(name, plain())
         torch.cuda.synchronize()
         check(len(got) == len(want) and all(g.shape == w.shape for g, w in zip(got, want)),
               f"{name} {label}: outputs differ in shape")
-        if exact and name == "flash_fwd":
-            flash_check(label, got, exact[0]())
+        if exact and name.startswith("flash"):
+            flash_check(name, label, got, *exact[0]())
         elif exact:
             gemm_check(name, label, args[0], got[0], want[0], *exact[0]())
         diffs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
@@ -1724,6 +1752,7 @@ def case_results(name: str, items: list) -> dict:
               f"{max(ops_ms, bytes_ms):.4f} ms ({nbytes / 1e6:.3f} MB, "
               f"{operations(name, args, res) / 1e9:.4f} GFLOP)")
         out["err"] = max(out["err"], e)
+        out["case_ms"][label] = (tk, tl)
         out["ms"] += tk
         out["plain_ms"] += tp
         out["ops_ms"] += ops_ms
@@ -1742,11 +1771,12 @@ def kernel_results(cases: dict, loso_cases: dict, counts: dict) -> list[dict]:
     cases. A bf16 form that no path launched (the InfoNCE kernel's: the
     bf16 step's InfoNCE features are fp32, as in JAX) is held and timed all
     the same, and reported under ``bf16_*`` keys of its fp32 form's entry."""
-    results = {}
+    results, case_ms = {}, {}
     for name, items in cases.items():
         source, replaces, _ = KERNELS[name]
         check(bool(items), f"{name}: no case")
         r = case_results(name, items)
+        case_ms[name] = r["case_ms"]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": counts[name], "max_abs_err": r["err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1762,6 +1792,13 @@ def kernel_results(cases: dict, loso_cases: dict, counts: dict) -> list[dict]:
         results[name.removesuffix("_bf16")].update(
             {f"bf16_{k}": v for k, v in entry.items() if k not in ("name", "route", "source",
                                                                  "replaces")})
+    # the backward pair against SDPA's backward, which computes dQ, dK and dV
+    # in one call (timed beside each case of the two)
+    for label, (dq_ms, sdpa_dq) in case_ms["flash_bwd_dq"].items():
+        dkv_ms, sdpa_dkv = case_ms["flash_bwd_dkv"][label]
+        print(f"flash backward {label}: dQ {dq_ms:.4f} + dK/dV {dkv_ms:.4f} = "
+              f"{dq_ms + dkv_ms:.4f} ms; SDPA's backward {sdpa_dq:.4f} / {sdpa_dkv:.4f} ms "
+              f"(timed beside dQ / dK/dV); pair over SDPA {(dq_ms + dkv_ms) / sdpa_dq:.3f}")
     unlaunched = [name for name, entry in results.items() if not entry["launches"]]
     check(not unlaunched, f"kernels no path launched: {unlaunched}")
     return list(results.values())
@@ -1812,13 +1849,19 @@ def main() -> int:
         registers = flash_registers(report.result())
     print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in libs))
-    # every head dim at every key tile, but D = 128 at 128 keys (its two
-    # stages do not fit a block's shared memory, so it is not built)
-    forms = len(attention.HEAD_DIMS) * len(attention.FWD_KEY_TILES) - 1
-    check(len(registers) == forms, f"ptxas reported {len(registers)} of {forms} flash forward "
-                                   "kernels")
+    # each kernel at every head dim and tile, but the forward at D = 128 and
+    # 128 keys (its two stages do not fit a block's shared memory, so it is
+    # not built) and the backward at D = 128 but at 32 rows (its ring holds
+    # 32-row stages whatever the tile)
+    tiles, dims = len(attention.TILES), len(attention.HEAD_DIMS)
+    forms = dims * tiles - 1 + 2 * ((dims - 1) * tiles + 1)
+    check(len(registers) == forms, f"ptxas reported {len(registers)} of {forms} flash kernels")
     for line in registers:
         print(f"ptxas {line}")
+    # the backward forms up to D = 64 keep their working set in registers
+    spilling = [line for line in registers if "bwd" in line and "D=128" not in line
+                and not line.endswith(", 0 bytes spill stores, 0 bytes spill loads")]
+    check(not spilling, f"backward flash forms at D <= 64 spill: {spilling}")
 
     model, first, serve_counts, (pool, plan, fp32_logits) = serving_phase(device)
     serve_bf16_counts = serving_bf16_phase(model, pool, plan, fp32_logits)

@@ -11,18 +11,20 @@
 // delta = rowsum(dO * O) is computed by the wrapper, as _flash_bwd does.
 //
 // The TPU kernels pad T to whole blocks and mask key columns >= tk with -1e30
-// (and padded query rows in dK/dV with a where); here the forward zero-fills
-// the key and value rows past tk in its tiles and masks their scores to
-// -inf, the backward loops stop at the last real row, and no query row past
-// tq is stored: the same masking without the padded copies.
+// (and padded query rows in dK/dV with a where); here the streamed tiles
+// zero-fill their rows past the end, the forward and dQ mask those keys'
+// scores to -inf, dK/dV sets the P of queries past tq to 0, and no row past
+// the end is stored: the same masking without the padded copies.
 //
-// What bounds it on the H100: the products. At the ME-MHACL-shaped
+// What bounds them on the H100: the products. At the ME-MHACL-shaped
 // self-attention (BH = 512, T = 585, D = 32) the forward's two products are
-// 4 BH T^2 D = 22.4 GFLOP, against 153 MB of Q, K, V and O (0.046 ms at 3.35
-// TB/s). They must stay fp32-accurate (the JAX kernel runs them at HIGHEST
-// precision), so on the tensor cores they take three TF32 passes each
-// (tf32_mma.cuh): 67.3 GFLOP at 495 TFLOP/s, 0.136 ms, plus ~4 fp32
-// operations a score for the softmax, 0.010 ms at 67 TFLOP/s.
+// 4 BH T^2 D = 22.4 GFLOP, dQ's three (S, dP, dS K) 33.6 and dK/dV's four
+// (S, dP, P^T dO, dS^T Q) 44.9, against 153-230 MB of operands (0.05-0.07
+// ms at 3.35 TB/s). They must stay fp32-accurate (the JAX kernels run them
+// at HIGHEST precision), so on the tensor cores they take three TF32 passes
+// each (tf32_mma.cuh): 67.3, 100.9 and 134.6 GFLOP at 495 TFLOP/s, 0.136,
+// 0.204 and 0.272 ms, plus ~4 fp32 operations a score for the softmax,
+// 0.010 ms at 67 TFLOP/s.
 //
 // Forward design (flash_fwd_kernel): one CTA per (bh, block_q query rows),
 // one warp per 16 of them (the m16 of mma.sync.m16n8k8). Each warp splits
@@ -55,14 +57,35 @@
 // later work: a TF32 wgmma needs both operands K-major in shared memory, so
 // V would have to be staged transposed and split.
 //
-// The backward kernels run on the CUDA cores: one thread owns one query row
-// (dQ) or one key row (dK/dV) with its D values and its accumulators in
-// registers, and the other operand's tile is staged in shared memory, where
-// every lane of a warp reads the same entry (a broadcast). No atomics: dQ is
-// owned by its query tile and dK/dV by its key tile, so the results are
-// deterministic. D = 128 (2-4 x 128 accumulators a thread) spills registers
-// to local memory: it is there for MultiheadAttention's wider heads, not for
-// speed.
+// Backward design, in the forward's mould. Each kernel owns a tile of rows
+// (dQ: block_q queries; dK/dV: block_k keys), one warp per 16 of them, and
+// streams the other side through the same kind of cp.async ring (dQ: K and
+// V tiles of block_k keys; dK/dV: Q and dO tiles of block_q queries with
+// their LSE and delta). The CTA's own two operands are A fragments, split
+// once into TF32 words and kept in registers (dQ: Q and dO up to D = 64;
+// dK/dV: K and V up to D = 32), or above that kept in shared memory and
+// split as they are read: dK/dV holds two accumulator sets and their fresh
+// fragments, which leave no room for K and V at D = 64. Each streamed tile
+// is taken in sub-tiles of kSub = 32 rows. Per sub-tile a warp computes
+// - dQ: S = Q K^T and dP = dO V^T (three passes each), P = exp2f(S log2 e -
+//   LSE log2 e) with its rows' LSE and delta in registers, dS = P (dP -
+//   delta) in the accumulator fragments, then dS K with dS fed from the
+//   accumulator in the forward's key pairing and K's rows read in that order;
+// - dK/dV: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T with the LSE and delta
+//   of each accumulator column's query (queries 2t and 2t + 1 of an 8-query
+//   step, one 8-byte shared load each), P^T = 0 for queries past tq (their
+//   zero-filled rows would give exp(0)), then P^T dO and dS^T Q with the
+//   query pairing.
+// The output products of a sub-tile are summed on the tensor cores into
+// fresh fragments and added to the fp32 accumulators, so the tensor cores
+// sum 32 rows, not all of T. Both kernels are deterministic: dQ is owned by
+// its query tile and dK/dV by its key tile, with no atomics (a fused
+// backward with atomic dQ would take 5 products in place of 7, but its
+// gradients would change from run to run). D = 128 is there for
+// MultiheadAttention's wider heads, not for speed: its ring holds two 32-row
+// stages whatever the tile, so that 128 own rows of two operands fit beside
+// it, and dK/dV's four accumulator sets (dK, dV and their fresh fragments)
+// pass the register file, so that form spills.
 
 #include <math.h>
 
@@ -272,124 +295,381 @@ flash_fwd_kernel(const float* __restrict__ q,  // (BH, tq, D), pre-scaled
     }
 }
 
-template <int D>
-__global__ void flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                    const float* __restrict__ v, const float* __restrict__ dout,
-                                    const float* __restrict__ lse,    // (BH, tq)
-                                    const float* __restrict__ delta,  // (BH, tq)
-                                    float* __restrict__ dq, int tq, int tk, int bk) {
-    extern __shared__ float smem[];
-    const int bq = blockDim.x;
-    float* ks = smem;         // (bk, D)
-    float* vs = ks + bk * D;  // (bk, D)
-    const int bh = blockIdx.x;
-    const int r = threadIdx.x;
-    const int i = blockIdx.y * bq + r;
-    const bool real = i < tq;
-    const size_t row = static_cast<size_t>(bh) * tq + (real ? i : 0);
-    const float* kb = k + static_cast<size_t>(bh) * tk * D;
-    const float* vb = v + static_cast<size_t>(bh) * tk * D;
+// ---- backward: tensor cores ----
 
-    float qr[D], dor[D], acc[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-        qr[d] = real ? q[row * D + d] : 0.0f;
-        dor[d] = real ? dout[row * D + d] : 0.0f;
-        acc[d] = 0.0f;
+constexpr int kBwdMaxThreads = 256;  // block_q (dQ) or block_k (dK/dV) <= 128 rows, 16 a warp
+constexpr int kSub = 32;             // streamed rows whose products share fresh fragments
+// The backward kernels are bound with at least one block an SM, which
+// leaves ptxas all 255 registers (it held dQ at D = 32 to 128 and spilled
+// without it). Up to D = 32 a tile's sub-tiles are unrolled, so one's loads
+// overlap another's products; wider heads keep one sub-tile's registers
+// live at a time, which is what keeps D = 64 from spilling
+
+// A backward CTA's shared memory: a ring of kStages stages of the streamed
+// tiles, kBt rows of D + 4 floats each (dQ: K and V; dK/dV: Q and dO, then
+// the tile's LSE and delta), and, where they wait in shared memory, the
+// CTA's own two operands (dQ: Q and dO; dK/dV: K and V). At D = 128 the
+// launchers take kBt = 32 and two stages whatever the tile, so that 128 own
+// rows of two operands (135 KB) and the ring fit the 227 KB a block may use
+template <int D, int kBt, bool kDkv>
+struct BwdTile {
+    static constexpr int kLd = D + 4;
+    static constexpr int kStage = 2 * kBt * kLd + (kDkv ? 2 * kBt : 0);
+    static constexpr int kStages = D <= 64 && 3 * 4 * kStage <= 120 * 1024 ? 3 : 2;
+    // the own operands' A fragments: registers up to D = 64 (dQ) or D = 32
+    // (dK/dV, whose two accumulator sets and fresh fragments take the room)
+    static constexpr bool kOwnShared = D > (kDkv ? 32 : 64);
+    // bytes of shared memory a CTA of `rows` own rows takes
+    static constexpr size_t smem(int rows) {
+        return sizeof(float) * (static_cast<size_t>(kStages) * kStage +
+                                (kOwnShared ? 2 * static_cast<size_t>(rows) * kLd : 0));
     }
-    const float li = real ? lse[row] : 0.0f;
-    const float di = real ? delta[row] : 0.0f;
-    for (int j0 = 0; j0 < tk; j0 += bk) {
-        const int n = min(bk, tk - j0);
-        __syncthreads();
-        for (int e = r; e < n * D; e += bq) {
-            ks[e] = kb[static_cast<size_t>(j0) * D + e];
-            vs[e] = vb[static_cast<size_t>(j0) * D + e];
-        }
-        __syncthreads();
-        for (int j = 0; j < n; ++j) {
-            float s = 0.0f, dp = 0.0f;
+};
+
+// A fragments of one of a CTA's own operands (Q or dO; K or V) for this
+// warp's 16 rows at every 8-deep step of D, split into TF32 words: once, into
+// registers, or (kShared) as they are read from the CTA's tile in shared
+// memory (visible after the first barrier of the loop)
+template <int D, bool kShared>
+struct OwnFrags {
+    static constexpr int kLd = D + 4, kDSteps = D / 8;
+    uint32_t hi[kShared ? 1 : kDSteps][4], lo[kShared ? 1 : kDSteps][4];
+    const float* row;  // this thread's row r0 at column t, in shared memory
+
+    // src: the operand's rows of this head, n of them; the CTA owns rows
+    // row0 on (`rows` of them, this thread r0 and r0 + 8), rows past n are 0
+    __device__ __forceinline__ void load(const float* src, int n, int row0, int rows, int r0,
+                                         int t, float* tile) {
+        auto at = [&](int r, int c) {
+            return row0 + r < n ? src[static_cast<size_t>(row0 + r) * D + c] : 0.0f;
+        };
+        if constexpr (kShared) {
+            for (int e = threadIdx.x; e < rows * D; e += blockDim.x)
+                tile[(e / D) * kLd + e % D] = at(e / D, e % D);
+            row = tile + r0 * kLd + t;
+        } else {
 #pragma unroll
-            for (int d = 0; d < D; ++d) {
-                s = fmaf(qr[d], ks[j * D + d], s);
-                dp = fmaf(dor[d], vs[j * D + d], dp);
+            for (int kd = 0; kd < kDSteps; ++kd) {
+                const int c = kd * 8 + t;
+                split_tf32_trunc(at(r0, c), hi[kd][0], lo[kd][0]);
+                split_tf32_trunc(at(r0 + 8, c), hi[kd][1], lo[kd][1]);
+                split_tf32_trunc(at(r0, c + 4), hi[kd][2], lo[kd][2]);
+                split_tf32_trunc(at(r0 + 8, c + 4), hi[kd][3], lo[kd][3]);
             }
-            const float ds = expf(s - li) * (dp - di);
-#pragma unroll
-            for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, ks[j * D + d], acc[d]);
         }
     }
-    if (real) {
+    __device__ __forceinline__ void frag(int kd, uint32_t (&ahi)[4], uint32_t (&alo)[4]) const {
+        if constexpr (kShared) {
+            const float* p = row + kd * 8;
+            split_tf32_trunc(p[0], ahi[0], alo[0]);
+            split_tf32_trunc(p[8 * kLd], ahi[1], alo[1]);
+            split_tf32_trunc(p[4], ahi[2], alo[2]);
+            split_tf32_trunc(p[8 * kLd + 4], ahi[3], alo[3]);
+        } else {
 #pragma unroll
-        for (int d = 0; d < D; ++d) dq[row * D + d] = acc[d];
+            for (int e = 0; e < 4; ++e) {
+                ahi[e] = hi[kd][e];
+                alo[e] = lo[kd][e];
+            }
+        }
+    }
+};
+
+// c += a b in three TF32 passes (the small terms first); b's two values (k =
+// t and k = t + 4 of column g) at p[0] and p[off] in shared memory, split as
+// they are read
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4], const float* p, int off) {
+    uint32_t bhi0, blo0, bhi1, blo1;
+    split_tf32_trunc(p[0], bhi0, blo0);
+    split_tf32_trunc(p[off], bhi1, blo1);
+    mma_tf32(c, alo, bhi0, bhi1);
+    mma_tf32(c, ahi, blo0, blo1);
+    mma_tf32(c, ahi, bhi0, bhi1);
+}
+
+// An accumulator fragment (columns 2t and 2t + 1 of rows g and g + 8) as the
+// A operand of the next product, split: A column t takes column 2t and
+// column t + 4 column 2t + 1, so B's rows are read in that order
+__device__ __forceinline__ void acc_as_a(const float (&c)[4], uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+    split_tf32_trunc(c[0], hi[0], lo[0]);
+    split_tf32_trunc(c[2], hi[1], lo[1]);
+    split_tf32_trunc(c[1], hi[2], lo[2]);
+    split_tf32_trunc(c[3], hi[3], lo[3]);
+}
+
+// acc += part, in fp32
+template <int kDSteps>
+__device__ __forceinline__ void add_parts(float (&acc)[kDSteps][4],
+                                          const float (&part)[kDSteps][4]) {
+#pragma unroll
+    for (int nd = 0; nd < kDSteps; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] += part[nd][e];
+}
+// this thread's two rows of acc to rows row0 + r0 and row0 + r0 + 8 of out
+// (those below n)
+template <int kDSteps>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[kDSteps][4], int n,
+                                           int row0, int r0, int t) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int i = row0 + r0 + 8 * h;
+        if (i >= n) continue;
+        float* oi = out + static_cast<size_t>(i) * (kDSteps * 8) + 2 * t;
+#pragma unroll
+        for (int nd = 0; nd < kDSteps; ++nd)
+            *reinterpret_cast<float2*>(oi + nd * 8) =
+                make_float2(acc[nd][2 * h], acc[nd][2 * h + 1]);
     }
 }
 
-template <int D>
-__global__ void flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                     const float* __restrict__ v,
-                                     const float* __restrict__ dout,
-                                     const float* __restrict__ lse,
-                                     const float* __restrict__ delta,
-                                     float* __restrict__ dk, float* __restrict__ dv, int tq,
-                                     int tk, int bq) {
-    extern __shared__ float smem[];
-    const int bk = blockDim.x;
-    float* qs = smem;            // (bq, D)
-    float* dos = qs + bq * D;    // (bq, D)
-    float* ls = dos + bq * D;    // (bq,)
-    float* dls = ls + bq;        // (bq,)
+template <int D, int kBk>
+__global__ void __launch_bounds__(kBwdMaxThreads, 1)
+flash_bwd_dq_kernel(const float* __restrict__ q,      // (BH, tq, D), pre-scaled
+                    const float* __restrict__ k,      // (BH, tk, D)
+                    const float* __restrict__ v,      // (BH, tk, D)
+                    const float* __restrict__ dout,   // (BH, tq, D)
+                    const float* __restrict__ lse,    // (BH, tq)
+                    const float* __restrict__ delta,  // (BH, tq)
+                    float* __restrict__ dq,           // (BH, tq, D)
+                    int tq, int tk) {
+    using Tile = BwdTile<D, kBk, false>;
+    constexpr int kLd = Tile::kLd, kStages = Tile::kStages;
+    constexpr int kDSteps = D / 8, kVecs = D / 4, kSteps = kSub / 8;
+    extern __shared__ float4 bwd_smem[];  // 16-byte aligned
+    float* ring = reinterpret_cast<float*>(bwd_smem);  // kStages x (K, V) tiles (kBk, kLd)
+    float* own = ring + kStages * Tile::kStage;        // Q, dO tiles (rows, kLd), kOwnShared only
+    const int rows = blockDim.x / 2;                   // 16 a warp of 32 threads
     const int bh = blockIdx.x;
-    const int r = threadIdx.x;
-    const int j = blockIdx.y * bk + r;
-    const bool real = j < tk;
-    const size_t row = static_cast<size_t>(bh) * tk + (real ? j : 0);
-    const float* qb = q + static_cast<size_t>(bh) * tq * D;
-    const float* dob = dout + static_cast<size_t>(bh) * tq * D;
+    const int q0 = blockIdx.y * rows;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = (threadIdx.x / 32) * 16 + g;  // this thread's tile rows: r0, r0 + 8
+    const size_t head = static_cast<size_t>(bh) * tq;  // this head's first query row
+    const float* kb = k + static_cast<size_t>(bh) * tk * D;
+    const float* vb = v + static_cast<size_t>(bh) * tk * D;
 
-    float kr[D], vr[D], dka[D], dva[D];
+    OwnFrags<D, Tile::kOwnShared> qf, dof;
+    qf.load(q + head * D, tq, q0, rows, r0, t, own);
+    dof.load(dout + head * D, tq, q0, rows, r0, t, own + rows * kLd);
+    float ml[2], dl[2];  // LSE log2 e and delta of rows r0, r0 + 8
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-        kr[d] = real ? k[row * D + d] : 0.0f;
-        vr[d] = real ? v[row * D + d] : 0.0f;
-        dka[d] = 0.0f;
-        dva[d] = 0.0f;
+    for (int h = 0; h < 2; ++h) {
+        const int i = q0 + r0 + 8 * h;
+        ml[h] = i < tq ? lse[head + i] * kLog2e : 0.0f;
+        dl[h] = i < tq ? delta[head + i] : 0.0f;
     }
-    for (int i0 = 0; i0 < tq; i0 += bq) {
-        const int n = min(bq, tq - i0);  // query rows >= tq never enter
-        __syncthreads();
-        for (int e = r; e < n * D; e += bk) {
-            qs[e] = qb[static_cast<size_t>(i0) * D + e];
-            dos[e] = dob[static_cast<size_t>(i0) * D + e];
+    // the copies of key tile kt into a stage: K rows, then V rows
+    auto load_tile = [&](int kt, float* stage) {
+        const int j0 = kt * kBk;
+        for (int e = threadIdx.x; e < kBk * kVecs; e += blockDim.x) {
+            const int r = e / kVecs, c = (e % kVecs) * 4;
+            const bool real = j0 + r < tk;
+            const size_t at = static_cast<size_t>(real ? j0 + r : 0) * D + c;
+            cp_async4(stage + r * kLd + c, kb + at, real);
+            cp_async4(stage + (kBk + r) * kLd + c, vb + at, real);
         }
-        for (int e = r; e < n; e += bk) {
-            ls[e] = lse[static_cast<size_t>(bh) * tq + i0 + e];
-            dls[e] = delta[static_cast<size_t>(bh) * tq + i0 + e];
-        }
-        __syncthreads();
-        for (int i = 0; i < n; ++i) {
-            float s = 0.0f, dp = 0.0f;
+    };
+
+    float acc[kDSteps][4] = {};  // dQ of rows r0, r0 + 8, as C fragments
+    const int nk = (tk + kBk - 1) / kBk;
 #pragma unroll
-            for (int d = 0; d < D; ++d) {
-                s = fmaf(qs[i * D + d], kr[d], s);
-                dp = fmaf(dos[i * D + d], vr[d], dp);
+    for (int st = 0; st < kStages - 1; ++st) {
+        if (st < nk) load_tile(st, ring + st * Tile::kStage);
+        cp_async_commit();  // an empty group past the end keeps the count
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+        cp_async_wait<kStages - 2>();  // key tile kt has landed (this thread's copies)
+        __syncthreads();               // (everyone's), and tile kt - 1 is consumed
+        const int next = kt + kStages - 1;
+        if (next < nk) load_tile(next, ring + (next % kStages) * Tile::kStage);
+        cp_async_commit();
+        const float* ks = ring + (kt % kStages) * Tile::kStage;
+        const float* vs = ks + kBk * kLd;
+#pragma unroll(D <= 32 ? kBk / kSub : 1)
+        for (int sc = 0; sc < kBk / kSub; ++sc) {
+            const int j0 = kt * kBk + sc * kSub;  // the sub-tile's first key
+            if (j0 >= tk) break;                  // the rest of the tile is padding
+            const float* kc = ks + sc * kSub * kLd;
+            const float* vc = vs + sc * kSub * kLd;
+
+            // S = Q K^T and dP = dO V^T: key step j holds keys j0 + 8j + 2t,
+            // + 1 in [j][0..1] (row r0) and [j][2..3] (row r0 + 8)
+            float s[kSteps][4] = {}, dp[kSteps][4] = {};
+#pragma unroll
+            for (int kd = 0; kd < kDSteps; ++kd) {
+                uint32_t qhi[4], qlo[4], dhi[4], dlo[4];
+                qf.frag(kd, qhi, qlo);
+                dof.frag(kd, dhi, dlo);
+#pragma unroll
+                for (int j = 0; j < kSteps; ++j) {
+                    const int at = (j * 8 + g) * kLd + kd * 8 + t;
+                    mma3(s[j], qhi, qlo, kc + at, 4);
+                    mma3(dp[j], dhi, dlo, vc + at, 4);
+                }
             }
-            const float p = expf(s - ls[i]);
-            const float ds = p * (dp - dls[i]);
+            if (j0 + kSub > tk) {
 #pragma unroll
-            for (int d = 0; d < D; ++d) {
-                dva[d] = fmaf(p, dos[i * D + d], dva[d]);
-                dka[d] = fmaf(ds, qs[i * D + d], dka[d]);
+                for (int j = 0; j < kSteps; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        if (j0 + j * 8 + 2 * t + (e & 1) >= tk) s[j][e] = -INFINITY;
             }
-        }
-    }
-    if (real) {
+            // dS = P (dP - delta), P = exp(S - LSE) = 2^(S log2 e - LSE log2 e)
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-            dk[row * D + d] = dka[d];
-            dv[row * D + d] = dva[d];
+            for (int j = 0; j < kSteps; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    s[j][e] = exp2f(fmaf(s[j][e], kLog2e, -ml[e >> 1])) * (dp[j][e] - dl[e >> 1]);
+
+            // dQ += dS K: A column t <- key 8j + 2t, column t + 4 <- key 8j + 2t + 1
+            float part[kDSteps][4] = {};
+#pragma unroll
+            for (int j = 0; j < kSteps; ++j) {
+                uint32_t ahi[4], alo[4];
+                acc_as_a(s[j], ahi, alo);
+                const float* kr = kc + (j * 8 + 2 * t) * kLd + g;  // B rows k = t, t + 4
+#pragma unroll
+                for (int nd = 0; nd < kDSteps; ++nd) mma3(part[nd], ahi, alo, kr + nd * 8, kLd);
+            }
+            add_parts(acc, part);
         }
     }
+    cp_async_wait<0>();  // no copy outlives the block
+    store_rows(dq + head * D, acc, tq, q0, r0, t);
+}
+
+template <int D, int kBq>
+__global__ void __launch_bounds__(kBwdMaxThreads, 1)
+flash_bwd_dkv_kernel(const float* __restrict__ q,      // (BH, tq, D), pre-scaled
+                     const float* __restrict__ k,      // (BH, tk, D)
+                     const float* __restrict__ v,      // (BH, tk, D)
+                     const float* __restrict__ dout,   // (BH, tq, D)
+                     const float* __restrict__ lse,    // (BH, tq)
+                     const float* __restrict__ delta,  // (BH, tq)
+                     float* __restrict__ dk,           // (BH, tk, D)
+                     float* __restrict__ dv,           // (BH, tk, D)
+                     int tq, int tk) {
+    using Tile = BwdTile<D, kBq, true>;
+    constexpr int kLd = Tile::kLd, kStages = Tile::kStages;
+    constexpr int kDSteps = D / 8, kVecs = D / 4, kSteps = kSub / 8;
+    extern __shared__ float4 bwd_smem[];  // 16-byte aligned
+    // kStages x (Q, dO tiles (kBq, kLd), LSE, delta (kBq))
+    float* ring = reinterpret_cast<float*>(bwd_smem);
+    float* own = ring + kStages * Tile::kStage;  // K, V tiles (rows, kLd), kOwnShared only
+    const int rows = blockDim.x / 2;             // 16 a warp of 32 threads
+    const int bh = blockIdx.x;
+    const int k0 = blockIdx.y * rows;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = (threadIdx.x / 32) * 16 + g;  // this thread's tile rows: r0, r0 + 8
+    const size_t head = static_cast<size_t>(bh) * tq;    // this head's first query row
+    const size_t khead = static_cast<size_t>(bh) * tk;   // and key row
+    const float* qb = q + head * D;
+    const float* dob = dout + head * D;
+
+    OwnFrags<D, Tile::kOwnShared> kf, vf;
+    kf.load(k + khead * D, tk, k0, rows, r0, t, own);
+    vf.load(v + khead * D, tk, k0, rows, r0, t, own + rows * kLd);
+    // the copies of query tile it into a stage: Q rows, dO rows, LSE, delta
+    auto load_tile = [&](int it, float* stage) {
+        const int i0 = it * kBq;
+        for (int e = threadIdx.x; e < kBq * kVecs; e += blockDim.x) {
+            const int r = e / kVecs, c = (e % kVecs) * 4;
+            const bool real = i0 + r < tq;
+            const size_t at = static_cast<size_t>(real ? i0 + r : 0) * D + c;
+            cp_async4(stage + r * kLd + c, qb + at, real);
+            cp_async4(stage + (kBq + r) * kLd + c, dob + at, real);
+        }
+        float* ls = stage + 2 * kBq * kLd;
+        for (int e = threadIdx.x; e < kBq; e += blockDim.x) {
+            const bool real = i0 + e < tq;
+            const size_t at = head + (real ? i0 + e : 0);
+            cp_async1(ls + e, lse + at, real);
+            cp_async1(ls + kBq + e, delta + at, real);
+        }
+    };
+
+    float dka[kDSteps][4] = {}, dva[kDSteps][4] = {};  // dK, dV of rows r0, r0 + 8
+    const int nq = (tq + kBq - 1) / kBq;
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) {
+        if (st < nq) load_tile(st, ring + st * Tile::kStage);
+        cp_async_commit();  // an empty group past the end keeps the count
+    }
+    for (int it = 0; it < nq; ++it) {
+        cp_async_wait<kStages - 2>();  // query tile it has landed (this thread's copies)
+        __syncthreads();               // (everyone's), and tile it - 1 is consumed
+        const int next = it + kStages - 1;
+        if (next < nq) load_tile(next, ring + (next % kStages) * Tile::kStage);
+        cp_async_commit();
+        const float* qs = ring + (it % kStages) * Tile::kStage;
+        const float* dos = qs + kBq * kLd;
+        const float* ls = qs + 2 * kBq * kLd;
+#pragma unroll(D <= 32 ? kBq / kSub : 1)
+        for (int sc = 0; sc < kBq / kSub; ++sc) {
+            const int i0 = it * kBq + sc * kSub;  // the sub-tile's first query
+            if (i0 >= tq) break;                  // the rest of the tile is padding
+            const float* qc = qs + sc * kSub * kLd;
+            const float* dc = dos + sc * kSub * kLd;
+            const float* lc = ls + sc * kSub;
+
+            // S^T = K Q^T and dP^T = V dO^T: query step j holds queries i0 +
+            // 8j + 2t, + 1 in [j][0..1] (key r0) and [j][2..3] (key r0 + 8)
+            float s[kSteps][4] = {}, dp[kSteps][4] = {};
+#pragma unroll
+            for (int kd = 0; kd < kDSteps; ++kd) {
+                uint32_t khi[4], klo[4], vhi[4], vlo[4];
+                kf.frag(kd, khi, klo);
+                vf.frag(kd, vhi, vlo);
+#pragma unroll
+                for (int j = 0; j < kSteps; ++j) {
+                    const int at = (j * 8 + g) * kLd + kd * 8 + t;
+                    mma3(s[j], khi, klo, qc + at, 4);
+                    mma3(dp[j], vhi, vlo, dc + at, 4);
+                }
+            }
+            // P^T = exp(S^T - LSE) with each column's query's LSE, exactly 0
+            // for queries past tq; dS^T = P^T (dP^T - delta)
+            const bool edge = i0 + kSub > tq;
+#pragma unroll
+            for (int j = 0; j < kSteps; ++j) {
+                const float2 l2 = *reinterpret_cast<const float2*>(lc + j * 8 + 2 * t);
+                const float2 d2 = *reinterpret_cast<const float2*>(lc + kBq + j * 8 + 2 * t);
+                const float ml[2] = {l2.x * kLog2e, l2.y * kLog2e}, dl[2] = {d2.x, d2.y};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float p = exp2f(fmaf(s[j][e], kLog2e, -ml[e & 1]));
+                    if (edge && i0 + j * 8 + 2 * t + (e & 1) >= tq) p = 0.0f;
+                    s[j][e] = p;
+                    dp[j][e] = p * (dp[j][e] - dl[e & 1]);
+                }
+            }
+
+            // dV += P^T dO and dK += dS^T Q: A column t <- query 8j + 2t,
+            // column t + 4 <- query 8j + 2t + 1
+            float pv[kDSteps][4] = {}, pk[kDSteps][4] = {};
+#pragma unroll
+            for (int j = 0; j < kSteps; ++j) {
+                uint32_t phi[4], plo[4], shi[4], slo[4];
+                acc_as_a(s[j], phi, plo);
+                acc_as_a(dp[j], shi, slo);
+                const int at = (j * 8 + 2 * t) * kLd + g;  // B rows k = t, t + 4
+#pragma unroll
+                for (int nd = 0; nd < kDSteps; ++nd) {
+                    mma3(pv[nd], phi, plo, dc + at + nd * 8, kLd);
+                    mma3(pk[nd], shi, slo, qc + at + nd * 8, kLd);
+                }
+            }
+            add_parts(dva, pv);
+            add_parts(dka, pk);
+        }
+    }
+    cp_async_wait<0>();  // no copy outlives the block
+    store_rows(dk + khead * D, dka, tk, k0, r0, t);
+    store_rows(dv + khead * D, dva, tk, k0, r0, t);
 }
 
 template <int D, int kBk>
@@ -426,38 +706,85 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* o,
     }
 }
 
+// the backward launchers: `rows` own rows a CTA (a multiple of 16 up to 128,
+// one warp per 16), a streamed tile of kBt rows, and the wrapper's count of
+// the shared memory (kernels/attention.py::dq_smem, dkv_smem), which must
+// equal the launcher's own
+template <int D, int kBt, bool kDkv>
+cudaError_t bwd_plan(int rows, int smem_planned, size_t& smem) {
+    smem = BwdTile<D, kBt, kDkv>::smem(rows);
+    if (rows % 16 || rows < 16 || 2 * rows > kBwdMaxThreads ||
+        smem != static_cast<size_t>(smem_planned) || smem > 227 * 1024)
+        return cudaErrorInvalidValue;
+    return cudaSuccess;
+}
+
+template <int D, int kBk>
+cudaError_t launch_dq_tile(const float* q, const float* k, const float* v, const float* dout,
+                           const float* lse, const float* delta, float* dq, int bh, int tq,
+                           int tk, int bq, int smem_planned, cudaStream_t s) {
+    size_t smem;
+    cudaError_t err = bwd_plan<D, kBk, false>(bq, smem_planned, smem);
+    if (err == cudaSuccess) err = allow_dynamic_smem(flash_bwd_dq_kernel<D, kBk>, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(bh, (tq + bq - 1) / bq);
+    flash_bwd_dq_kernel<D, kBk><<<grid, 2 * bq, smem, s>>>(q, k, v, dout, lse, delta, dq, tq, tk);
+    return cudaGetLastError();
+}
+
+template <int D, int kBq>
+cudaError_t launch_dkv_tile(const float* q, const float* k, const float* v, const float* dout,
+                            const float* lse, const float* delta, float* dk, float* dv, int bh,
+                            int tq, int tk, int bk, int smem_planned, cudaStream_t s) {
+    size_t smem;
+    cudaError_t err = bwd_plan<D, kBq, true>(bk, smem_planned, smem);
+    if (err == cudaSuccess) err = allow_dynamic_smem(flash_bwd_dkv_kernel<D, kBq>, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(bh, (tk + bk - 1) / bk);
+    flash_bwd_dkv_kernel<D, kBq><<<grid, 2 * bk, smem, s>>>(q, k, v, dout, lse, delta, dk, dv,
+                                                             tq, tk);
+    return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* dout,
                       const float* lse, const float* delta, float* dq, int bh, int tq, int tk,
-                      int bq, int bk, cudaStream_t s) {
-    const size_t smem = sizeof(float) * 2 * bk * D;
-    cudaError_t err = allow_dynamic_smem(flash_bwd_dq_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(bh, (tq + bq - 1) / bq);
-    flash_bwd_dq_kernel<D><<<grid, bq, smem, s>>>(q, k, v, dout, lse, delta, dq, tq, tk, bk);
-    return cudaGetLastError();
+                      int bq, int bk, int sp, cudaStream_t s) {
+    if (bk != 32 && bk != 64 && bk != 128) return cudaErrorInvalidValue;
+    if constexpr (D > 64) {  // BwdTile: 32-row stages at D = 128, whatever the tile
+        return launch_dq_tile<D, 32>(q, k, v, dout, lse, delta, dq, bh, tq, tk, bq, sp, s);
+    } else {
+        switch (bk) {
+            case 32: return launch_dq_tile<D, 32>(q, k, v, dout, lse, delta, dq, bh, tq, tk, bq, sp, s);
+            case 64: return launch_dq_tile<D, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, bq, sp, s);
+            default: return launch_dq_tile<D, 128>(q, k, v, dout, lse, delta, dq, bh, tq, tk, bq, sp, s);
+        }
+    }
 }
 
 template <int D>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v, const float* dout,
                        const float* lse, const float* delta, float* dk, float* dv, int bh,
-                       int tq, int tk, int bq, int bk, cudaStream_t s) {
-    const size_t smem = sizeof(float) * (2 * bq * D + 2 * bq);
-    cudaError_t err = allow_dynamic_smem(flash_bwd_dkv_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(bh, (tk + bk - 1) / bk);
-    flash_bwd_dkv_kernel<D><<<grid, bk, smem, s>>>(q, k, v, dout, lse, delta, dk, dv, tq, tk,
-                                                   bq);
-    return cudaGetLastError();
+                       int tq, int tk, int bq, int bk, int sp, cudaStream_t s) {
+    if (bq != 32 && bq != 64 && bq != 128) return cudaErrorInvalidValue;
+    if constexpr (D > 64) {  // BwdTile: 32-row stages at D = 128, whatever the tile
+        return launch_dkv_tile<D, 32>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, bk, sp, s);
+    } else {
+        switch (bq) {
+            case 32: return launch_dkv_tile<D, 32>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, bk, sp, s);
+            case 64: return launch_dkv_tile<D, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, bk, sp, s);
+            default: return launch_dkv_tile<D, 128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, bk, sp, s);
+        }
+    }
 }
 
 }  // namespace
 
-// D must be 8, 16, 32, 64 or 128 (the wrapper checks). The forward takes
-// block_q query rows a CTA (a multiple of 16 up to 128: one warp per 16) and
-// block_k keys a tile (32, 64 or 128), and smem_planned, the wrapper's count
-// of its shared memory; the backward kernels take block_q and block_k as
-// thread counts (multiples of 32) or tile rows, as each uses them.
+// D must be 8, 16, 32, 64 or 128 (the wrapper checks). Each kernel takes a
+// tile of own rows a CTA (a multiple of 16 up to 128: one warp per 16) and a
+// streamed tile (32, 64 or 128 rows): the forward and dQ block_q query rows
+// and block_k keys a tile, dK/dV block_k key rows and block_q queries a
+// tile; and smem_planned, the wrapper's count of its shared memory.
 extern "C" int msa_flash_fwd(const float* q, const float* k, const float* v, float* o,
                              float* lse, int BH, int tq, int tk, int D, int block_q,
                              int block_k, int smem_planned, int device, void* stream) {
@@ -478,16 +805,17 @@ extern "C" int msa_flash_fwd(const float* q, const float* k, const float* v, flo
 extern "C" int msa_flash_bwd_dq(const float* q, const float* k, const float* v,
                                 const float* dout, const float* lse, const float* delta,
                                 float* dq, int BH, int tq, int tk, int D, int block_q,
-                                int block_k, int device, void* stream) {
+                                int block_k, int smem_planned, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int bq = block_q, bk = block_k, sp = smem_planned;
     switch (D) {
-        case 8: return launch_dq<8>(q, k, v, dout, lse, delta, dq, BH, tq, tk, block_q, block_k, s);
-        case 16: return launch_dq<16>(q, k, v, dout, lse, delta, dq, BH, tq, tk, block_q, block_k, s);
-        case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, BH, tq, tk, block_q, block_k, s);
-        case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, BH, tq, tk, block_q, block_k, s);
-        case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dq, BH, tq, tk, block_q, block_k, s);
+        case 8: return launch_dq<8>(q, k, v, dout, lse, delta, dq, BH, tq, tk, bq, bk, sp, s);
+        case 16: return launch_dq<16>(q, k, v, dout, lse, delta, dq, BH, tq, tk, bq, bk, sp, s);
+        case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, BH, tq, tk, bq, bk, sp, s);
+        case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, BH, tq, tk, bq, bk, sp, s);
+        case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dq, BH, tq, tk, bq, bk, sp, s);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -495,16 +823,18 @@ extern "C" int msa_flash_bwd_dq(const float* q, const float* k, const float* v,
 extern "C" int msa_flash_bwd_dkv(const float* q, const float* k, const float* v,
                                  const float* dout, const float* lse, const float* delta,
                                  float* dk, float* dv, int BH, int tq, int tk, int D,
-                                 int block_q, int block_k, int device, void* stream) {
+                                 int block_q, int block_k, int smem_planned, int device,
+                                 void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int bq = block_q, bk = block_k, sp = smem_planned;
     switch (D) {
-        case 8: return launch_dkv<8>(q, k, v, dout, lse, delta, dk, dv, BH, tq, tk, block_q, block_k, s);
-        case 16: return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, BH, tq, tk, block_q, block_k, s);
-        case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, BH, tq, tk, block_q, block_k, s);
-        case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, BH, tq, tk, block_q, block_k, s);
-        case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, BH, tq, tk, block_q, block_k, s);
+        case 8: return launch_dkv<8>(q, k, v, dout, lse, delta, dk, dv, BH, tq, tk, bq, bk, sp, s);
+        case 16: return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, BH, tq, tk, bq, bk, sp, s);
+        case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, BH, tq, tk, bq, bk, sp, s);
+        case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, BH, tq, tk, bq, bk, sp, s);
+        case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, BH, tq, tk, bq, bk, sp, s);
         default: return cudaErrorInvalidValue;
     }
 }

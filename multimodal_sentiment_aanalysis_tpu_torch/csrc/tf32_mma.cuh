@@ -60,6 +60,13 @@ __device__ __forceinline__ void cp_async4(T* dst, const T* src, bool valid) {
         asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(n)
                      : "memory");
 }
+// Copies one float (or a zero, where !valid) into shared memory, asynchronously
+__device__ __forceinline__ void cp_async1(float* dst, const float* src, bool valid) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 4 : 0)
+                 : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

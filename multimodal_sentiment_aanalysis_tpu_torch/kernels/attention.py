@@ -8,26 +8,40 @@ attention site of the flagship model, and ME-MHACL's modality axis of 3) it
 returns :func:`mha_reference`, plain tensor math, unless ``force=True``.
 Above that it flattens to ``(B H, T, Dh)`` (``Dh`` zero-padded to the next
 built head dim), scales ``q`` and runs a ``torch.autograd.Function`` over
-three kernels of ``csrc/flash_attn.cu``:
+three kernels of ``csrc/flash_attn.cu``, all with their products on the
+tensor cores in three TF32 passes (3xTF32 ``mma.sync``, fp32-accurate):
 
 - forward :func:`flash_fwd` (``_fwd_kernel``): online softmax over key
-  tiles on the tensor cores (3xTF32 ``mma.sync``, fp32-accurate), saving
-  the per-row log-sum-exp;
+  tiles, saving the per-row log-sum-exp;
 - backward :func:`flash_bwd_dq` (``_bwd_dq_kernel``, by query tile) and
   :func:`flash_bwd_dkv` (``_bwd_dkv_kernel``, by key tile), both
-  recomputing ``P = exp(S - LSE)`` on the CUDA cores; ``delta = rowsum(dO
-  * O)`` is taken here, as the JAX ``_flash_bwd`` takes it.
+  recomputing ``P = exp(S - LSE)``; ``delta = rowsum(dO * O)`` is taken
+  here, as the JAX ``_flash_bwd`` takes it. Two kernels, no atomics: each
+  output is owned by one CTA, so the gradients are deterministic.
+
+What bounds the three on the H100 is their products (2, 3 and 4 of them):
+at the attention phase's (512, 585, 32) the bytes take 0.05-0.07 ms and
+the three TF32 passes 0.14-0.27 ms. The design keeps the operands a CTA
+owns as split TF32 fragments in registers (shared memory at the wider
+heads), streams the other side through a ``cp.async`` ring, feeds each
+product's accumulator fragment straight into the next ``mma.sync`` and
+sums only 32 rows (dQ, dK/dV) or one tile (forward) on the tensor cores
+before adding in fp32; ``csrc/flash_attn.cu``'s head note has the detail.
 
 ``block_q`` and ``block_k`` are the kernels' tiles, one pair for the three
-(the Function passes the same to each), multiples of 32: the forward's
-query rows a CTA (at most 128, one warp per 16) and keys a tile (32, 64 or
-128); the dQ kernel's query rows (threads) a block and staged key rows; the
-dK/dV kernel's key rows (threads) a block and staged query rows. The JAX
-defaults (512/1024) were TPU v5e tunings; the port's are 64/64. Each
-wrapper takes the plain version for a CPU tensor and launches the kernel,
-or raises, for a CUDA tensor. No path needs a ``vmap`` rule (every vmapped
-attention is at length 1), so the Function raises under
-``torch.func.vmap``.
+(the Function passes the same to each), multiples of 32 up to 128. A
+kernel owns a tile of rows a CTA (one warp per 16) and streams a tile of
+the other side (32, 64 or 128 rows, :data:`TILES`): the forward and dQ own
+``block_q`` query rows and stream ``block_k`` keys, dK/dV owns ``block_k``
+key rows and streams ``block_q`` queries. Each kernel's shared memory is
+counted here (:func:`fwd_smem`, :func:`dq_smem`, :func:`dkv_smem`) and
+passed to its launcher, which refuses a count other than its own; a pair
+that does not fit (the forward's 128-key tile at D = 128) raises
+``ValueError`` before any launch. The JAX defaults (512/1024) were TPU v5e tunings; the port's
+are 64/64. Each wrapper takes the plain version for a CPU tensor and
+launches the kernel, or raises, for a CUDA tensor. No path needs a
+``vmap`` rule (every vmapped attention is at length 1), so the Function
+raises under ``torch.func.vmap``.
 """
 
 from __future__ import annotations
@@ -45,19 +59,18 @@ FWD_KERNEL = CudaKernel(
     "flash_attn", "msa_flash_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7,
 )
 DQ_KERNEL = CudaKernel(
-    "flash_attn", "msa_flash_bwd_dq", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6,
+    "flash_attn", "msa_flash_bwd_dq", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7,
 )
 DKV_KERNEL = CudaKernel(
-    "flash_attn", "msa_flash_bwd_dkv", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6,
+    "flash_attn", "msa_flash_bwd_dkv", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7,
 )
 
 BLOCK_Q = 64
 BLOCK_K = 64
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the kernels' instantiations
-_MAX_THREADS = 256
+MAX_ROWS = 128        # own rows a CTA: kFwdMaxThreads / 2, kBwdMaxThreads / 2
+TILES = (32, 64, 128)  # streamed rows a tile (kBk, kBt)
 _MAX_SMEM = 227 * 1024
-FWD_KEY_TILES = (32, 64, 128)  # the forward's key tiles (kBk)
-_FWD_MAX_ROWS = 128  # kFwdMaxThreads / 2 in csrc/flash_attn.cu
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -95,104 +108,160 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta) -> tuple[torch.Tensor, torch.Te
     return ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ do
 
 
+def flash_bwd_magnitudes(q, k, v, do, lse, delta) -> tuple[torch.Tensor, ...]:
+    """The largest entries of dQ's, dK's and dV's sums of absolute terms,
+    ``(P (|dP| + |delta|)) |K|``, ``(P (|dP| + |delta|))ᵀ |Q|`` and ``Pᵀ
+    |dO|``: the scale the rounding error of each output grows with. Unlike
+    the outputs' own largest entries they stay finite where dS cancels (at
+    Tk = 1 dS is 0, and so are dQ and dK). The kernels' fp64 checks hold
+    their errors to a share of these."""
+    p = torch.exp(q @ k.transpose(-1, -2) - lse[..., None])
+    m = p * ((do @ v.transpose(-1, -2)).abs() + delta.abs()[..., None])
+    return ((m @ k.abs()).max(), (m.transpose(-1, -2) @ q.abs()).max(),
+            (p.transpose(-1, -2) @ do.abs()).max())
+
+
 # --------------------------------------------------------------------------
 # kernels
 # --------------------------------------------------------------------------
 
 
+def _stages(stage: int) -> int:
+    """A ring's depth: 3 stages of ``stage`` floats, 2 where 3 would pass
+    120 KiB (``kStages`` in ``csrc/flash_attn.cu``)."""
+    return 3 if 3 * 4 * stage <= 120 * 1024 else 2
+
+
 def fwd_smem(d: int, block_q: int, block_k: int) -> int:
     """Bytes of shared memory of one forward CTA (``FwdTile::smem`` in
-    ``csrc/flash_attn.cu``): a ring of 3 stages of K and V tiles (``block_k``
-    rows of D + 4 floats each), 2 where 3 would pass 120 KiB, and at D = 128
-    the Q tile. The wrapper passes it to the launcher, which refuses a launch
-    whose count differs from its own."""
+    ``csrc/flash_attn.cu``): the ring of K and V tiles (``block_k`` rows of
+    D + 4 floats each) and, at D = 128, the Q tile."""
     stage = 2 * block_k * (d + 4)
-    stages = 3 if 3 * 4 * stage <= 120 * 1024 else 2
-    return 4 * (stages * stage + (block_q * (d + 4) if d > 64 else 0))
+    return 4 * (_stages(stage) * stage + (block_q * (d + 4) if d > 64 else 0))
 
 
-def _check(q, k, v, block_q: int, block_k: int, *rest,
-           fwd: bool = False) -> tuple[int, int, int, int]:
-    """Validate CUDA operands of the forward (``fwd``) or a backward kernel;
-    returns ``(BH, Tq, Tk, D)``."""
+def _bwd_smem(d: int, rows: int, tile: int, dkv: bool) -> int:
+    """``BwdTile::smem``: the ring of streamed tiles (``tile`` rows of D + 4
+    floats of two operands, and for dK/dV the tile's LSE and delta) and,
+    where they wait in shared memory, the CTA's own two operands (dQ's Q and
+    dO above D = 64, dK/dV's K and V above D = 32). At D = 128 the ring
+    holds two stages of 32 rows whatever the tile, so that 128 own rows fit
+    beside it."""
+    if d > 64:
+        tile = 32
+    stage = 2 * tile * (d + 4) + (2 * tile if dkv else 0)
+    own_shared = d > (32 if dkv else 64)
+    stages = 2 if d > 64 else _stages(stage)
+    return 4 * (stages * stage + (2 * rows * (d + 4) if own_shared else 0))
+
+
+def dq_smem(d: int, block_q: int, block_k: int) -> int:
+    """Bytes of shared memory of one dQ CTA: ``block_q`` own query rows,
+    key tiles of ``block_k``."""
+    return _bwd_smem(d, block_q, block_k, dkv=False)
+
+
+def dkv_smem(d: int, block_q: int, block_k: int) -> int:
+    """Bytes of shared memory of one dK/dV CTA: ``block_k`` own key rows,
+    query tiles of ``block_q``."""
+    return _bwd_smem(d, block_k, block_q, dkv=True)
+
+
+_SMEM = {"fwd": fwd_smem, "dq": dq_smem, "dkv": dkv_smem}
+
+
+def plan_smem(kernel: str, d: int, block_q: int, block_k: int) -> int:
+    """The shared memory of one CTA of ``kernel`` (``"fwd"``, ``"dq"`` or
+    ``"dkv"``) at head dim ``d`` and these tiles, which its launcher checks
+    byte for byte. Raises ``ValueError`` for a head dim or tile the kernels
+    are not built for, or a plan over the 227 KB a block may use."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernels are built for {HEAD_DIMS}")
+    for name, blk in (("block_q", block_q), ("block_k", block_k)):
+        if blk % 32 or not 0 < blk <= MAX_ROWS:
+            raise ValueError(f"{name} {blk}: a multiple of 32 up to {MAX_ROWS}")
+    name, tile = ("block_q", block_q) if kernel == "dkv" else ("block_k", block_k)
+    if tile not in TILES:
+        raise ValueError(f"{name} {tile}: the {kernel} kernel streams tiles of {TILES} rows")
+    smem = _SMEM[kernel](d, block_q, block_k)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{kernel} at D = {d}, block_q {block_q}, block_k {block_k}: {smem} "
+                         f"bytes of shared memory > {_MAX_SMEM}")
+    return smem
+
+
+def _check(kernel: str, q, k, v, block_q: int, block_k: int,
+           *rest) -> tuple[int, int, int, int, int]:
+    """Validate the CUDA operands of ``kernel`` (:func:`plan_smem`'s names);
+    returns ``(BH, Tq, Tk, D, shared memory bytes)``."""
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     if q.dim() != 3 or 0 in q.shape:
         raise ValueError(f"q must be a non-empty (BH, T, D) tensor, got {tuple(q.shape)}")
     bh, tq, d = q.shape
     tk = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the kernels are built for {HEAD_DIMS}")
-    for name, blk in (("block_q", block_q), ("block_k", block_k)):
-        if blk % 32 or not 0 < blk <= _MAX_THREADS:
-            raise ValueError(f"{name} {blk}: a multiple of 32 up to {_MAX_THREADS} (threads)")
-    if fwd and block_q > _FWD_MAX_ROWS:
-        raise ValueError(f"block_q {block_q}: the forward takes at most {_FWD_MAX_ROWS} rows")
-    if fwd and block_k not in FWD_KEY_TILES:
-        raise ValueError(f"block_k {block_k}: the forward's key tiles are {FWD_KEY_TILES}")
+    smem = plan_smem(kernel, d, block_q, block_k)
     if bh > 2**31 - 1 or max(-(-tq // block_q), -(-tk // block_k)) > 65535:
         raise ValueError("too many tiles for the grid")
-    smem = (fwd_smem(d, block_q, block_k) if fwd else
-            4 * max(2 * block_k * d, 2 * block_q * d + 2 * block_q))
-    if smem > _MAX_SMEM:
-        raise ValueError(f"{smem} bytes of shared memory > {_MAX_SMEM}")
     check_cuda("q", q, q.device)
     check_cuda("k", k, q.device, (bh, tk, d))
     check_cuda("v", v, q.device, (bh, tk, d))
     for name, t, shape in rest:
         check_cuda(name, t, q.device, shape)
-    return bh, tq, tk, d
+    rows = [("q", q), ("k", k), ("v", v)] + [(n, t) for n, t, _ in rest if t.dim() == 3]
+    for name, t in rows:  # their tiles are copied as 16-byte vectors
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    return bh, tq, tk, d, smem
 
 
 def flash_fwd(q, k, v, block_q: int = BLOCK_Q,
               block_k: int = BLOCK_K) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel: ``(O, LSE)`` of pre-scaled ``q (BH, Tq, D)``,
-    ``k, v (BH, Tk, D)``, its products on the tensor cores in three TF32
-    passes each (as accurate as fp32). A CPU tensor takes
-    :func:`flash_fwd_plain`; a CUDA tensor launches the kernel, or
-    raises."""
+    ``k, v (BH, Tk, D)``. A CPU tensor takes :func:`flash_fwd_plain`; a CUDA
+    tensor launches the kernel, or raises."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v)
-    bh, tq, tk, d = _check(q, k, v, block_q, block_k, fwd=True)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:  # the tiles are copied as 16-byte vectors
-            raise ValueError(f"{name} must start on a 16-byte boundary")
+    bh, tq, tk, d, smem = _check("fwd", q, k, v, block_q, block_k)
     o = torch.empty(bh, tq, d, device=q.device, dtype=torch.float32)
     lse = torch.empty(bh, tq, device=q.device, dtype=torch.float32)
     FWD_KERNEL.launch(q.device, ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse),
-                      bh, tq, tk, d, block_q, block_k, fwd_smem(d, block_q, block_k))
+                      bh, tq, tk, d, block_q, block_k, smem)
     return o, lse
+
+
+def _bwd_operands(q, do, lse, delta) -> tuple:
+    rows = (q.shape[0], q.shape[1])
+    return ("do", do, q.shape), ("lse", lse, rows), ("delta", delta, rows)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, block_q: int = BLOCK_Q,
                  block_k: int = BLOCK_K) -> torch.Tensor:
-    """The dQ kernel (one block per query tile). A CPU tensor takes
-    :func:`flash_bwd_dq_plain`; a CUDA tensor launches the kernel, or
+    """The dQ kernel (one CTA per ``block_q`` query rows). A CPU tensor
+    takes :func:`flash_bwd_dq_plain`; a CUDA tensor launches the kernel, or
     raises."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta)
-    bh, tq, tk, d = _check(q, k, v, block_q, block_k, ("do", do, q.shape),
-                           ("lse", lse, (q.shape[0], q.shape[1])),
-                           ("delta", delta, (q.shape[0], q.shape[1])))
+    bh, tq, tk, d, smem = _check("dq", q, k, v, block_q, block_k,
+                                 *_bwd_operands(q, do, lse, delta))
     dq = torch.empty_like(q)
     DQ_KERNEL.launch(q.device, ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq),
-                     bh, tq, tk, d, block_q, block_k)
+                     bh, tq, tk, d, block_q, block_k, smem)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, block_q: int = BLOCK_Q,
                   block_k: int = BLOCK_K) -> tuple[torch.Tensor, torch.Tensor]:
-    """The dK/dV kernel (one block per key tile). A CPU tensor takes
-    :func:`flash_bwd_dkv_plain`; a CUDA tensor launches the kernel, or
+    """The dK/dV kernel (one CTA per ``block_k`` key rows). A CPU tensor
+    takes :func:`flash_bwd_dkv_plain`; a CUDA tensor launches the kernel, or
     raises."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta)
-    bh, tq, tk, d = _check(q, k, v, block_q, block_k, ("do", do, q.shape),
-                           ("lse", lse, (q.shape[0], q.shape[1])),
-                           ("delta", delta, (q.shape[0], q.shape[1])))
+    bh, tq, tk, d, smem = _check("dkv", q, k, v, block_q, block_k,
+                                 *_bwd_operands(q, do, lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     DKV_KERNEL.launch(q.device, ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
-                      ptr(dk), ptr(dv), bh, tq, tk, d, block_q, block_k)
+                      ptr(dk), ptr(dv), bh, tq, tk, d, block_q, block_k, smem)
     return dk, dv
 
 

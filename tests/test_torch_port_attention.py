@@ -13,9 +13,12 @@ against JAX at Dh 48 and 100), runs bf16 in fp32, and refuses a
 second-order gradient.
 
 The ``gpu``-marked tests hold each CUDA kernel against its plain version
-on the card at ragged shapes (forward 1e-4, backward 1e-3), the forward
-also against fp64 (1e-5 of the largest entry: a bar one TF32 pass misses,
-``tests/test_torch_port_flash_fwd_tc.py``), and skip without a card:
+on the card at ragged shapes (forward 1e-4, backward 1e-3), and against
+fp64: the forward's O and LSE within 1e-5 of their largest entry, dQ, dK
+and dV within 1e-5 of their scale (the largest sum of absolute terms) at
+ragged lengths, every head dim and tile pair: bars one TF32 pass misses
+(``tests/test_torch_port_flash_fwd_tc.py``, ``..._flash_bwd_tc.py``). They
+skip without a card:
 ``python -m pytest --noconftest -m gpu tests/test_torch_port_attention.py``.
 """
 
@@ -254,7 +257,10 @@ CARD_SHAPES = {
     **{f"ragged_{tq}_{tk}": (3, tq, tk, attention.HEAD_DIMS[(a + b) % 5], 64, 64)
        for a, tq in enumerate((1, 63, 65)) for b, tk in enumerate((1, 63, 65))},
 }
-FP64_REL = 1e-5  # the forward against fp64, relative to max |ref| (chip_smoke.py)
+# the kernels against fp64 (chip_smoke.py's FLASH_FP64_REL): the forward's O
+# and LSE within this share of their largest entry, dQ, dK and dV of their
+# scale (attention.flash_bwd_magnitudes)
+FP64_REL = 1e-5
 
 
 def _card_inputs(cuda, bh, tq, tk, d, seed=7):
@@ -289,6 +295,28 @@ def test_flash_kernels_match_plain(cuda, shape):
         assert (got.double() - ref).abs().max() <= FP64_REL * ref.abs().max()
     for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", attention.HEAD_DIMS)
+@pytest.mark.parametrize("bq,bk", [(bq, bk) for bq in attention.TILES for bk in attention.TILES])
+def test_flash_bwd_kernels_match_fp64(cuda, d, bq, bk):
+    """dQ, dK and dV at ragged lengths (1, 63, 65 queries and keys: a row or
+    key alone, a tile one short or one over) against the fp64 plain
+    versions on the same inputs, within FP64_REL of each output's scale
+    (``attention.flash_bwd_magnitudes``; at Tk = 1 dQ and dK cancel to 0),
+    at every head dim and tile pair the backward wrappers take."""
+    for tq in (1, 63, 65):
+        for tk in (1, 63, 65):
+            q, k, v, do = _card_inputs(cuda, 3, tq, tk, d, seed=tq * 100 + tk)
+            o, lse = attention.flash_fwd_plain(q, k, v)
+            args = (q, k, v, do, lse, (do * o).sum(-1))
+            got = [attention.flash_bwd_dq(*args, bq, bk), *attention.flash_bwd_dkv(*args, bq, bk)]
+            args64 = [a.double() for a in args]
+            want = [attention.flash_bwd_dq_plain(*args64), *attention.flash_bwd_dkv_plain(*args64)]
+            for g, w, scale in zip(got, want, attention.flash_bwd_magnitudes(*args64)):
+                err = (g.double() - w).abs().max()
+                assert err <= FP64_REL * scale, (tq, tk, (err / scale).item())
 
 
 @pytest.mark.gpu
