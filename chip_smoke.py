@@ -90,12 +90,14 @@ It needs a CUDA card and exits non-zero without one. In order, it
    bf16 paths' shapes (the bf16 serving model's activations, the bf16 LOSO
    trainer's weights cast to bf16 with seeded bf16 activations, and subject
    0 alone), the six kernels of the other BiLSTM schedules at S=24 and at
-   subject 0 (the fp32 LOSO trainer's weights, seeded activations; rows 8
-   and 7 are the GEMM and the sweep at K=1 over the full c), and the
-   pieces that rows 1, 9, 11, 8 and 7 launch (the tensor-core GEMM at its four
-   products: projection, gate recompute, dx, dW_cat; the recurrence; the c
-   scan, fp32 only, its one form; the sweep, at K=4 and, in fp32, at K=1
-   over the full c) at each layer of the training
+   subject 0 (the fp32 LOSO trainer's weights, seeded activations; rows 8,
+   7 and 5 are the GEMM and the sweep at K=1 over the full c, row 6 the
+   GEMM and the c scan at K=1), and the pieces that rows 1, 9, 11, 6, 8, 7
+   and 5 launch (the tensor-core GEMM at its five products: projection,
+   gate recompute, dx, dW_cat, gate recompute from xp; the recurrence; the
+   c scan, fp32 only, its one form, at K=4 and at K=1, row 6's share of the
+   v8 and v6 backward; the sweep, at K=4 and, in fp32, at K=1 over the
+   full c) at each layer of the training
    step, at S=24 and, in bf16, at subject 0, each timed alone, which splits
    the rows' time; the GEMM also against its products in fp64, per
    mode within 1e-5 of the largest (a bar that one TF32 pass on the fp32
@@ -205,19 +207,22 @@ TIMED_CALLS = 20
 LOSO_FUSED_EPOCHS = 2
 PARITY_SUBJECTS = (0, 17)  # LOSO models checked against a single-model Trainer step
 LOSO_LR = 1e-4             # the trainers' default learning rate
-# the kernels each call of rows 1, 9, 11, 8 and 7 launches on a train
+# the kernels each call of rows 1, 9, 11, 6, 8, 7 and 5 launches on a train
 # step's path (each call also counts once under the row's own name): the
-# projection GEMM and the recurrence; the c scan; the gate-recompute, dx and
-# dW_cat GEMMs and the sweep (row 11, and row 8 at K=1 over the full c); the
-# gate-recompute GEMM and the sweep at K=1 (row 7). Row 9 runs there only
-# inside the v9 layer backward, which computes the gate activations once for
-# rows 9 and 11 (the GEMM counted under row 11); a call of row 9 alone
-# launches that GEMM too
+# projection GEMM and the recurrence; the c scan (row 9, and row 6 at K=1);
+# the gate-recompute, dx and dW_cat GEMMs and the sweep (row 11, and row 8 at
+# K=1 over the full c); the gate-recompute GEMM and the sweep at K=1 (row 7);
+# the gates-from-xp GEMM and the sweep at K=1 (row 5). Rows 9 and 6 run there
+# only inside the v9, v8 and v6 layer backwards, which compute the gate
+# activations once for the scan and the sweep (the GEMM counted under row 11,
+# 8 or 7); a call of row 9 or row 6 alone launches that GEMM too
 ROW_KERNELS = {"bilstm_fwd": {"bilstm_gemm": 1, "bilstm_rec": 1},
                "bilstm_cbnd": {"bilstm_cscan": 1},
                "bilstm_segbwd": {"bilstm_gemm": 3, "bilstm_sweep": 1},
+               "bilstm_cseq": {"bilstm_cscan": 1},
                "bilstm_bwdc": {"bilstm_gemm": 3, "bilstm_sweep": 1},
-               "bilstm_bwd_split": {"bilstm_gemm": 1, "bilstm_sweep": 1}}
+               "bilstm_bwd_split": {"bilstm_gemm": 1, "bilstm_sweep": 1},
+               "bilstm_bwd_xp": {"bilstm_gemm": 1, "bilstm_sweep": 1}}
 # kernels with one form, which a bf16 path launches too: the c scan reads
 # the fp32 gate activations in both
 ONE_FORM = ("bilstm_cscan",)
@@ -225,7 +230,7 @@ ONE_FORM = ("bilstm_cscan",)
 
 def with_row_kernels(per: dict) -> dict:
     """``per`` (launches by kernel) with the launches of the kernels that
-    rows 1, 9 and 11 make, in the same form (fp32 or bf16), added."""
+    the rows of ROW_KERNELS make, in the same form (fp32 or bf16), added."""
     out = dict(per)
     for name, n in per.items():
         sfx = "_bf16" if name.endswith("_bf16") else ""
@@ -266,7 +271,7 @@ LOSS_GAP_LIMIT = 0.1  # bf16 against fp32 epoch-2 train loss, relative, per subj
 SERVE_BF16_TOL, SERVE_BF16_ARGMAX = 0.1, 0.9
 # the GEMM of rows 1 and 11 against its products in fp64, per mode: max
 # |err| over max |ref| (gemm_check)
-GEMM_REL = {"proj": 1e-5, "gates": 1e-5, "dx": 1e-5, "dw": 1e-5}
+GEMM_REL = {"proj": 1e-5, "gates": 1e-5, "dx": 1e-5, "dw": 1e-5, "gates_xp": 1e-5}
 # the flash kernels (3xTF32 on the tensor cores) against fp64 (flash_check):
 # max |err| of the forward's O and LSE over their max |ref|, and of the
 # backward's dQ, dK and dV over their scale, the largest entry of each one's
@@ -311,9 +316,9 @@ TRAINING_KERNELS = {
     "bilstm_segbwd": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1227", 1e-3),
     # the pieces of rows 1 and 11: the GEMM's dW_cat sums B*T rows as
     # bilstm_segbwd's does; the sweep's dgates carry dh through T steps
-    "bilstm_gemm": (CSRC + "lstm_gemm.cu", JAX_KERNELS + "lstm.py:527,1227", 1e-3),
+    "bilstm_gemm": (CSRC + "lstm_gemm.cu", JAX_KERNELS + "lstm.py:527,1227,401", 1e-3),
     "bilstm_rec": (CSRC + "lstm_fwd.cu", JAX_KERNELS + "lstm.py:527", 1e-4),
-    "bilstm_sweep": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1227,819,691", 1e-4),
+    "bilstm_sweep": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1227,819,691,401", 1e-4),
     "stem_tail": (CSRC + "stem_tail.cu", JAX_KERNELS + "conv_stem_train.py:265", 1e-5),
     "stem_tail_bwd": (CSRC + "stem_tail.cu", JAX_KERNELS + "conv_stem_train.py:368", 1e-3),
     "infonce": (CSRC + "infonce.cu", JAX_KERNELS + "contrastive.py:61", 1e-4),
@@ -326,12 +331,14 @@ KERNELS = {
     "flash_bwd_dq": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:159", 1e-3),
     "flash_bwd_dkv": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:184", 1e-3),
     "fusion_head": (CSRC + "fusion_head.cu", JAX_KERNELS + "fusion_head.py:40", HEAD_ATOL),
-    # row 9's c scan, one form: the plain version's rounding, step by step
-    "bilstm_cscan": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1026", 1e-6),
+    # row 9's c scan (row 6's at K=1), one form: the plain version's
+    # rounding, step by step
+    "bilstm_cscan": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1026,623", 1e-6),
     # the other schedules' kernels; the v8 sweep's dW_cat sums B*T rows as
-    # bilstm_segbwd's does (rows 8 and 7 are row 11's pieces at K=1 over
+    # bilstm_segbwd's does (rows 8, 7 and 5 are row 11's pieces at K=1 over
     # the full c: the sweep rebuilds c from c_seq and the GEMM's 3xTF32
-    # activations, row 6's c from its own CUDA-core product)
+    # activations, from x or, row 5, from xp; row 6's c is the c scan at K=1
+    # over the same GEMM's 3xTF32 activations)
     "bilstm_fwd_xp": (CSRC + "lstm_fwd.cu", JAX_KERNELS + "lstm.py:310", 1e-4),
     "bilstm_bwd_xp": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:401", 1e-4),
     "bilstm_cseq": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:623", 1e-4),
@@ -764,7 +771,8 @@ def training_kernel_cases(model, batch: dict, mask: torch.Tensor, gen: torch.Gen
 
 def lstm_piece_cases(x, w, h_seq, dh, c_bnd, label: str, sfx: str = "") -> dict:
     """The pieces of rows 1, 9 and 11 at one layer's shapes: the GEMM at its
-    four products, the recurrence, the c scan (fp32 cases only: it has one
+    five products (the fifth, row 5's gates from xp, over this layer's
+    projection), the recurrence, the c scan (fp32 cases only: it has one
     form) and the sweep, each (label, kernel call, plain call, the tensors
     the call reads). The sweep's kernel call overwrites a copy of the
     activations (the copy is timed with it)."""
@@ -773,22 +781,24 @@ def lstm_piece_cases(x, w, h_seq, dh, c_bnd, label: str, sfx: str = "") -> dict:
     act = lstm.bilstm_gemm_plain("gates", x, *w, h_seq=h_seq)
     dg = lstm.bilstm_sweep_plain(act, dh, c_bnd, w_hh)
     reads = {"proj": (x, w_ih, bias), "gates": (x, h_seq, w_ih, w_hh, bias), "dx": (dg, w_ih),
-             "dw": (x, h_seq, dg)}
+             "dw": (x, h_seq, dg), "gates_xp": (xp, h_seq, w_hh)}
 
     def exact(mode: str):
         """The mode's products in fp64, on the operands as given and on
-        their TF32 roundings (bias aside)"""
+        their TF32 roundings (bias and xp aside: both are added, not
+        multiplied)"""
         ref = lstm.bilstm_gemm_plain(mode, *(a.double() for a in (x, *w)), h_seq=h_seq.double(),
-                                     dg=dg.double())
+                                     dg=dg.double(), xp=xp.double())
         one_pass = lstm.bilstm_gemm_plain(
             mode, *(tf32_round(a).double() for a in (x, w_ih, w_hh)), bias.double(),
-            h_seq=tf32_round(h_seq).double(), dg=tf32_round(dg).double())
+            h_seq=tf32_round(h_seq).double(), dg=tf32_round(dg).double(), xp=xp.double())
         return ref, one_pass
 
     pieces = {
         "bilstm_gemm" + sfx: [
-            (f"{mode} {label}", lambda m=mode: lstm.bilstm_gemm(m, x, *w, h_seq=h_seq, dg=dg),
-             lambda m=mode: lstm.bilstm_gemm_plain(m, x, *w, h_seq=h_seq, dg=dg),
+            (f"{mode} {label}",
+             lambda m=mode: lstm.bilstm_gemm(m, x, *w, h_seq=h_seq, dg=dg, xp=xp),
+             lambda m=mode: lstm.bilstm_gemm_plain(m, x, *w, h_seq=h_seq, dg=dg, xp=xp),
              (mode, *reads[mode]), lambda m=mode: exact(m)) for mode in lstm.GEMM_MODES],
         "bilstm_rec" + sfx: [(label, lambda: lstm.bilstm_rec(xp, w_hh),
                               lambda: lstm.bilstm_rec_plain(xp, w_hh), (xp, w_hh))],
@@ -1108,10 +1118,11 @@ def schedule_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator, cases
                           loso_cases: dict) -> None:
     """Adds the other schedules' six kernels at the LOSO step's S=24 shapes
     (the fp32 trainer's stacked weights, seeded activations) to
-    ``loso_cases``, and subject 0's share to ``cases``; and the sweep at
-    K=1 over the full c, the piece rows 8 and 7 launch (its kernel call
-    overwrites a copy of the activations, timed with it). Call under
-    ``no_grad``."""
+    ``loso_cases``, and subject 0's share to ``cases``; and the pieces of
+    the v8 and v6 layer backwards after their one gate GEMM: the c scan at
+    K=1 (row 6 there) and the sweep at K=1 over the full c, the piece rows
+    8, 7 and 5 launch (its kernel call overwrites a copy of the
+    activations, timed with it). Call under ``no_grad``."""
     device = vt.device
     pd = vt._param_dict(vt.params)
     s_n = vt.n_subjects
@@ -1144,8 +1155,12 @@ def schedule_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator, cases
         args = (act, dh, c_seq, w[1])
         for what, a, into in ((f"S={s_n}", args, loso_cases),
                               (f"subject 0 of S={s_n}", tuple(t[0] for t in args), cases)):
+            into["bilstm_cscan"].append((
+                f"{what} {label} K 1 (row 6 in the v8 and v6 backward)",
+                lambda a=a: lstm.bilstm_cscan(a[0], 1),
+                lambda a=a: lstm.bilstm_cscan_plain(a[0], 1), a[:1]))
             into["bilstm_sweep"].append((
-                f"{what} {label} K 1 (rows 8 and 7)",
+                f"{what} {label} K 1 (rows 8, 7 and 5)",
                 lambda a=a: lstm.bilstm_sweep(a[0].clone(), *a[1:], 1),
                 lambda a=a: lstm.bilstm_sweep_plain(*a, 1), a))
         x = h_seq
@@ -1479,8 +1494,12 @@ def operations(name: str, args, res) -> float:
         # (fp32-accurate), two for bf16 x fp32 dgates (dx, dW_cat), one bf16
         # pass for bf16 x bf16 (proj, gates; peak_rate takes the bf16 rate)
         mode = args[0]
-        passes = (1 if mode in ("proj", "gates") else 2) if bf16 else 3
+        passes = (1 if mode in ("proj", "gates", "gates_xp") else 2) if bf16 else 3
         x = t[0]
+        if mode == "gates_xp":  # h_prev W_hh^T, then xp added and the activations
+            xp, _, w_hh = t
+            rows, g = xp.numel() // xp.shape[-1], xp.shape[-1]
+            return passes * 2 * rows * g * w_hh.shape[-1] + 5 * rows * g
         if mode == "dx":
             dg, w_ih = t
             return passes * 2 * dg.numel() * w_ih.shape[-1]
@@ -1704,13 +1723,13 @@ def moved_bytes(name: str, args, res) -> int:
 def peak_rate(name: str, args) -> float:
     """The card's peak rate for the type of one case's operations: the
     recurrence and the sweep compute in fp32 in both forms; the GEMM's
-    bf16 x bf16 products (the bf16 form's proj and gates) at the bf16 rate,
-    its products with an fp32 operand at the TF32 rate, counted per pass
+    bf16 x bf16 products (the bf16 form's proj, gates and gates_xp) at the
+    bf16 rate, its products with an fp32 operand at the TF32 rate, counted per pass
     (:func:`operations`); any other bf16 form at the bf16 rate."""
     if name.startswith(("bilstm_rec", "bilstm_sweep", "bilstm_cscan")):
         return PEAK_FP32_FLOPS
     if name.startswith("bilstm_gemm"):
-        bf16_only = name.endswith("_bf16") and args[0] in ("proj", "gates")
+        bf16_only = name.endswith("_bf16") and args[0] in ("proj", "gates", "gates_xp")
         return PEAK_BF16_FLOPS if bf16_only else PEAK_TF32_FLOPS
     return PEAK_BF16_FLOPS if name.endswith("_bf16") else PEAK_FP32_FLOPS
 

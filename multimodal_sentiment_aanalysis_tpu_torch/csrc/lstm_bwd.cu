@@ -10,27 +10,28 @@
 //                     replaces ::_segbwd_kernel
 //
 // and, fp32 only, the JAX package's other backward schedules (v5, v6, v8,
-// v9.1):
+// v9.1), each built from these two kernels and lstm_gemm.cu but the last:
 //
-//   msa_bilstm_cseq      the full fp32 c_seq (S, 2, T, B, H), rebuilt from x
-//                        and the stored h_seq with each step's gates a
-//                        product inside the walk, replaces ::_cseq_kernel
-//                        (v8, v6)
-//   msa_bilstm_sweep     at K = 1 over that full c_seq: c_seq is (a)'s
-//                        checkpoints at K = 1 (slot t is c at actual time t
-//                        in both directions). With the gates GEMM before it
-//                        and the dx and dW_cat GEMMs after it
-//                        (kernels/lstm.py::bilstm_bwdc) it replaces
-//                        ::_bwd_bwdc_kernel (v8); with the gates GEMM alone,
-//                        its dgates the packed gate gradients dxp
-//                        (kernels/lstm.py::bilstm_bwd_split), it replaces
-//                        ::_bwd_xproj_kernel (v6)
-//   msa_bilstm_bwd_xp    per-step reverse sweep that emits dxp with the gate
-//                        pre-activation read from the v5 projection xp
-//                        (v5), replaces ::_bwd_kernel
-//   msa_bilstm_cbndk     the checkpoints of (a) from x and h_seq, with the
-//                        gate products of KC time rows batched per block
-//                        (v9.1), replaces ::_cbndk_kernel
+//   msa_bilstm_cscan  at K = 1: the full fp32 c_seq (S, 2, T, B, H), (a)'s
+//                     checkpoints at K = 1 (slot t is c at actual time t in
+//                     both directions). With the kGates product before it
+//                     (kernels/lstm.py::bilstm_cseq) it replaces
+//                     ::_cseq_kernel (v8, v6); the v8 and v6 layer backwards
+//                     (kernels/lstm.py::bilstm_v8_bwd, ::bilstm_v6_bwd)
+//                     compute the activations once for it and (b)
+//   msa_bilstm_sweep  at K = 1 over that full c_seq. With the gates GEMM
+//                     before it and the dx and dW_cat GEMMs after it
+//                     (kernels/lstm.py::bilstm_bwdc) it replaces
+//                     ::_bwd_bwdc_kernel (v8); with the gates GEMM alone, its
+//                     dgates the packed gate gradients dxp
+//                     (kernels/lstm.py::bilstm_bwd_split), ::_bwd_xproj_kernel
+//                     (v6); over the v5 forward's c_seq, with the kGatesXp
+//                     product before it (act(xp + h_prev . W_hh^T), the gates
+//                     from the v5 projection xp), its dgates dxp
+//                     (kernels/lstm.py::bilstm_bwd_xp), ::_bwd_kernel (v5)
+//   msa_bilstm_cbndk  the checkpoints of (a) from x and h_seq, with the
+//                     gate products of KC time rows batched per block
+//                     (v9.1), replaces ::_cbndk_kernel
 //
 // The forward (lstm_fwd.cu) stores only h_seq. The gates at actual time a
 // depend only on x_a and the stored h_prev (h at the previous recurrence
@@ -59,16 +60,18 @@
 // (B=64, H=128: 16,384 threads), the T dependent steps' latency. Each step
 // rounds f c and i g, then their sum, as the plain version does (no fused
 // multiply-add), so c equals kernels/lstm.py::bilstm_cscan_plain's bit for
-// bit. The walk with each step's gates a CUDA-core product inside it now
-// serves row 6 only (msa_bilstm_cseq, every step a slot, fp32).
+// bit. At K = 1 (row 6) every step writes a slot: c_seq is 4x row 9's
+// stores at K = 4.
 //
-// The per-block walks (msa_bilstm_cseq, msa_bilstm_cbndk, msa_bilstm_bwd_xp):
-// one block per (batch tile of kBt rows, direction, model), the model axis S
-// the grid's z axis, 4H threads, the time loop inside the block, thread g
-// owning gate column g. What bounds them on the H100: T dependent steps per
-// direction, each a small product whose weights (768 KiB per direction for
-// the gates, 256 KiB for a dh carry) do not fit shared memory and stream from
-// L2.
+// The per-block walk left (msa_bilstm_cbndk): one block per (batch tile of
+// kBt rows, direction, model), the model axis S the grid's z axis, 4H
+// threads, the time loop inside the block, thread g owning gate column g.
+// What bounds it on the H100: T / KC dependent blocks of steps per direction,
+// each a small product whose weights (768 KiB per direction for the gates) do
+// not fit shared memory and stream from L2. Rows 6 and 5 ran the same walk
+// (row 5 with a second product a step for the dh carry) until they were
+// rebuilt from the pieces above: the gates of every (b, t) on the tensor
+// cores first, then only the serial recurrence.
 //
 // (b), row 11. What bounds it on the H100, at the flagship layer (B=64,
 // T=73, I=256, H=128, fp32): T=73 dependent steps per direction, each carrying
@@ -94,7 +97,7 @@
 // segment where K would do, their loads L1 hits of rows the thread has just
 // read; keeping the segment's c instead takes kRt x K registers, which the
 // kRt = 8 form, already spilling at 128, does not have; at K = 1, over the
-// full c_seq of v8 and v6, one step a segment), runs the cell
+// full c_seq of v8, v6 and v5, one step a segment), runs the cell
 // backward with its dh and dc carries in registers, writes dgates over the
 // activations and into shared memory; the CTA multiplies its 4U gate columns
 // of dgates by its W_hh rows into a partial dh over all H units; the partials are
@@ -102,10 +105,12 @@
 // partials of its units, rank 0 first: a fixed order); two cluster barriers
 // a step, split into arrive and wait so the cell work overlaps them.
 //
-// Rows 8 and 7 (v8's ::_bwd_bwdc_kernel, v6's ::_bwd_xproj_kernel) have the
-// same serial step and the same time-parallel work, so they are this design
-// at K = 1: the wrappers (kernels/lstm.py::bilstm_bwdc, ::bilstm_bwd_split)
-// pass row 6's full c_seq as the checkpoints.
+// Rows 8, 7 and 5 (v8's ::_bwd_bwdc_kernel, v6's ::_bwd_xproj_kernel, v5's
+// ::_bwd_kernel) have the same serial step and the same time-parallel work,
+// so they are this design at K = 1: the wrappers (kernels/lstm.py::
+// bilstm_bwdc, ::bilstm_bwd_split, ::bilstm_bwd_xp) pass a full c_seq (row
+// 6's, or the v5 forward's) as the checkpoints; row 5's gates come from xp
+// (lstm_gemm.cu kGatesXp) instead of x.
 //
 // msa_bilstm_sweep has an fp32 and a bf16 form (suffix _bf16), one template
 // over the element type of dh_seq and W_hh, as the JAX kernels are Mosaic
@@ -120,7 +125,7 @@
 namespace {
 
 constexpr int kBt = 8;  // batch rows per block; kBt * H == 2 * (4H threads)
-// The per-block walks' most threads per block (4H <= 512, H <= 128), and the
+// The per-block walk's most threads per block (4H <= 512, H <= 128), and the
 // register cap that lets a block of that many launch: 65536 / 512 = 128 a
 // thread. The cap is __maxnreg__, not __launch_bounds__(512): with the launch
 // bound the compiler cut the earlier K-segment sweep to 64 registers with
@@ -185,216 +190,6 @@ bilstm_cscan_kernel(const float* __restrict__ act,  // (S, B, T, 8H): i, f, g, o
     // the partial last segment of direction 0 ends at no boundary: its slot,
     // which no block reads, is written zero, so every slot is written
     if (d == 0 && T % K != 0) out[(nseg - 1) * units] = 0.0f;
-}
-
-// row 6's c_seq walk: per step the gates of the block's kBt rows as a
-// CUDA-core product over x_t and the stored h_prev, then c of its cells
-__global__ void bilstm_cseq_kernel(const float* __restrict__ x,       // (S, B, T, I)
-                                   const float* __restrict__ h_seq,   // (S, B, T, 2H)
-                                   const float* __restrict__ w_ih_t,  // (S, 2, I, 4H)
-                                   const float* __restrict__ w_hh_t,  // (S, 2, H, 4H)
-                                   const float* __restrict__ bias,    // (S, 2, 4H)
-                                   float* __restrict__ c_seq,         // (S, 2, T, B, H)
-                                   int B, int T, int I, int H) {
-    extern __shared__ float smem[];
-    const int G = 4 * H;
-    const size_t model = blockIdx.z;
-    x += model * B * T * I;
-    h_seq += model * B * T * 2 * H;
-    w_ih_t += model * 2 * I * G;
-    w_hh_t += model * 2 * H * G;
-    bias += model * 2 * G;
-    c_seq += model * 2 * T * B * H;
-    float* xs = smem;          // (kBt, I): x_t of this tile
-    float* hs = xs + kBt * I;  // (kBt, H): stored h_prev
-    float* gs = hs + kBt * H;  // (kBt, G): gate pre-activations
-
-    const int d = blockIdx.y;
-    const int b0 = blockIdx.x * kBt;
-    const int g = threadIdx.x;
-    const float* wi = w_ih_t + static_cast<size_t>(d) * I * G;
-    const float* wh = w_hh_t + static_cast<size_t>(d) * H * G;
-    const float bg = bias[d * G + g];
-    float c[2] = {0.0f, 0.0f};
-
-    for (int s = 0; s < T; ++s) {
-        const int t = d == 0 ? s : T - 1 - s;
-        const int tp = d == 0 ? t - 1 : t + 1;  // actual time of h_prev
-        for (int idx = g; idx < kBt * I; idx += G) {
-            const int r = idx / I;
-            const int b = b0 + r;
-            xs[idx] = b < B ? x[(static_cast<size_t>(b) * T + t) * I + (idx - r * I)] : 0.0f;
-        }
-        for (int idx = g; idx < kBt * H; idx += G) {
-            const int r = idx / H;
-            const int b = b0 + r;
-            hs[idx] = (s > 0 && b < B)
-                          ? h_seq[(static_cast<size_t>(b) * T + tp) * 2 * H + d * H + (idx - r * H)]
-                          : 0.0f;
-        }
-        __syncthreads();
-
-        float acc[kBt];
-#pragma unroll
-        for (int r = 0; r < kBt; ++r) acc[r] = bg;
-        for (int k = 0; k < I; ++k) {
-            const float w = wi[static_cast<size_t>(k) * G + g];
-#pragma unroll
-            for (int r = 0; r < kBt; ++r) acc[r] = fmaf(xs[r * I + k], w, acc[r]);
-        }
-        for (int k = 0; k < H; ++k) {
-            const float w = wh[static_cast<size_t>(k) * G + g];
-#pragma unroll
-            for (int r = 0; r < kBt; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
-        }
-#pragma unroll
-        for (int r = 0; r < kBt; ++r) gs[r * G + g] = acc[r];
-        __syncthreads();
-
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-            const int cell = g + q * G;
-            const int r = cell / H;
-            const int j = cell - r * H;
-            const float* gr = gs + r * G;
-            const float ig = sigmoid_f(gr[j]);
-            const float fg = sigmoid_f(gr[H + j]);
-            const float gg = tanhf(gr[2 * H + j]);
-            c[q] = fg * c[q] + ig * gg;
-            const int b = b0 + r;
-            if (b < B) c_seq[((static_cast<size_t>(d) * T + t) * B + b) * H + j] = c[q];
-        }
-        __syncthreads();
-    }
-}
-
-// The v5 reverse sweep (fp32): one block per (batch tile of kBt rows,
-// direction, model), 4H threads, the steps in reverse recurrence order. Per
-// step: the gates from the pre-activation xp[b, a, d*4H + g] plus h_prev .
-// W_hh^T, thread g owning gate column g; the cell's backward with c_cur and
-// c_prev read from the full c_seq (zero before the first recurrence step);
-// dgates written to dxp; the dh carry dgates . W_hh in four gate quarters
-// summed in a fixed order. dW_hh is a reduction of dxp outside the kernel,
-// as in the JAX package. What bounds it: T dependent steps per direction,
-// each with two small products against weights streamed from L2, and the dxp
-// write of 8H fp32 per (row, step).
-__global__ void __maxnreg__(kSegMaxRegs)
-bilstm_bwd_step_kernel(const float* __restrict__ dh_seq,  // (S, B, T, 2H)
-                       const float* __restrict__ xp,      // (S, B, T, 8H)
-                       const float* __restrict__ h_seq,   // (S, B, T, 2H)
-                       const float* __restrict__ c_seq,   // (S, 2, T, B, H)
-                       const float* __restrict__ w_hh_t,  // (S, 2, H, 4H)
-                       const float* __restrict__ w_hh,    // (S, 2, 4H, H)
-                       float* __restrict__ dxp,           // (S, B, T, 8H)
-                       int B, int T, int H) {
-    extern __shared__ float smem[];
-    const int G = 4 * H;
-    const size_t model = blockIdx.z;
-    const int d = blockIdx.y;
-    const int b0 = blockIdx.x * kBt;
-    const int tid = threadIdx.x;
-    dh_seq += model * B * T * 2 * H;
-    xp += model * B * T * 2 * G;
-    h_seq += model * B * T * 2 * H;
-    c_seq += (model * 2 + d) * T * B * H;
-    const float* wh_t = w_hh_t + (model * 2 + d) * H * G;
-    const float* wh = w_hh + (model * 2 + d) * G * H;
-    dxp += model * B * T * 2 * G;
-    const int rowsz = kBt * H;
-    float* hps = smem;                        // (kBt, H): h_prev
-    float* acts = hps + rowsz;                // (kBt, G): i, f, g, o; then dgates
-    float* dhc = acts + kBt * G;              // (kBt, H): dh carried into the step
-    float* red = dhc + rowsz;                 // (4, kBt, H): dh carry partials per quarter
-    const int gate_kind = tid / H;            // 0 i, 1 f, 2 g, 3 o
-
-    for (int idx = tid; idx < rowsz; idx += G) dhc[idx] = 0.0f;
-    float dcc[2] = {0.0f, 0.0f};  // dc carry of this thread's two cells
-
-    for (int tau = T - 1; tau >= 0; --tau) {  // recurrence step, last first
-        const int a = d == 0 ? tau : T - 1 - tau;  // its actual time
-        const int ap = d == 0 ? a - 1 : a + 1;     // actual time of h_prev, c_prev
-        const bool first = tau == 0;               // no previous state
-        for (int idx = tid; idx < rowsz; idx += G) {
-            const int row = idx / H;
-            const int b = b0 + row;
-            hps[idx] = (!first && b < B)
-                           ? h_seq[(static_cast<size_t>(b) * T + ap) * 2 * H + d * H + (idx - row * H)]
-                           : 0.0f;
-        }
-        __syncthreads();
-
-        // gate activations; thread tid owns gate column tid
-        float acc[kBt];
-#pragma unroll
-        for (int row = 0; row < kBt; ++row) {
-            const int b = b0 + row;
-            acc[row] = b < B ? xp[(static_cast<size_t>(b) * T + a) * 2 * G + d * G + tid] : 0.0f;
-        }
-        for (int k = 0; k < H; ++k) {
-            const float w = wh_t[static_cast<size_t>(k) * G + tid];
-#pragma unroll
-            for (int row = 0; row < kBt; ++row) acc[row] = fmaf(hps[row * H + k], w, acc[row]);
-        }
-#pragma unroll
-        for (int row = 0; row < kBt; ++row)
-            acts[row * G + tid] = gate_kind == 2 ? tanhf(acc[row]) : sigmoid_f(acc[row]);
-        __syncthreads();
-
-        // the cell's backward; this thread's two (row, unit) cells
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-            const int cell = tid + q * G;
-            const int row = cell / H;
-            const int j = cell - row * H;
-            const int b = b0 + row;
-            float* ar = acts + row * G;
-            const float ig = ar[j], fg = ar[H + j], gg = ar[2 * H + j], og = ar[3 * H + j];
-            const bool real = b < B;
-            const float c = real ? c_seq[(static_cast<size_t>(a) * B + b) * H + j] : 0.0f;
-            const float cp = (real && !first) ? c_seq[(static_cast<size_t>(ap) * B + b) * H + j] : 0.0f;
-            const float dh = dhc[cell] +
-                (real ? dh_seq[(static_cast<size_t>(b) * T + a) * 2 * H + d * H + j] : 0.0f);
-            const float tc = tanhf(c);
-            const float dc = dcc[q] + dh * og * (1.0f - tc * tc);
-            const float di = dc * gg * ig * (1.0f - ig);
-            const float df = dc * cp * fg * (1.0f - fg);
-            const float dg = dc * ig * (1.0f - gg * gg);
-            const float d_o = dh * tc * og * (1.0f - og);
-            ar[j] = di;
-            ar[H + j] = df;
-            ar[2 * H + j] = dg;
-            ar[3 * H + j] = d_o;
-            dcc[q] = dc * fg;
-            if (real) {
-                float* out = dxp + (static_cast<size_t>(b) * T + a) * 2 * G + d * G;
-                out[j] = di;
-                out[H + j] = df;
-                out[2 * H + j] = dg;
-                out[3 * H + j] = d_o;
-            }
-        }
-        __syncthreads();
-        {  // dh carry: quarter qq of the gates, output unit k, all kBt rows
-            const int qq = tid / H;
-            const int k = tid - qq * H;
-            float part[kBt];
-#pragma unroll
-            for (int row = 0; row < kBt; ++row) part[row] = 0.0f;
-            for (int gl = qq * H; gl < (qq + 1) * H; ++gl) {
-                const float w = wh[static_cast<size_t>(gl) * H + k];
-#pragma unroll
-                for (int row = 0; row < kBt; ++row) part[row] = fmaf(acts[row * G + gl], w, part[row]);
-            }
-#pragma unroll
-            for (int row = 0; row < kBt; ++row) red[(qq * kBt + row) * H + k] = part[row];
-        }
-        __syncthreads();
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-            const int cell = tid + q * G;
-            dhc[cell] = ((red[cell] + red[rowsz + cell]) + red[2 * rowsz + cell]) + red[3 * rowsz + cell];
-        }
-    }
 }
 
 // The checkpoints of (a) from x and h_seq, with their gate products batched
@@ -723,39 +518,7 @@ extern "C" int msa_bilstm_sweep_bf16(float* act, const bf16* dh_seq, const float
                         device, stream);
 }
 
-// ---- the other schedules' entry points (fp32) ----
-
-// v8/v6: the full c_seq (S, 2, T, B, H), slot t at actual time t in both
-// directions
-extern "C" int msa_bilstm_cseq(const float* x, const float* h_seq, const float* w_ih_t,
-                               const float* w_hh_t, const float* bias, float* c_seq, int S,
-                               int B, int T, int I, int H, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    const size_t smem = sizeof(float) * kBt * (I + H + 4 * H);
-    err = allow_dynamic_smem(bilstm_cseq_kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((B + kBt - 1) / kBt, 2, S);
-    bilstm_cseq_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-        x, h_seq, w_ih_t, w_hh_t, bias, c_seq, B, T, I, H);
-    return cudaGetLastError();
-}
-
-// v5: dxp (S, B, T, 8H) from xp (S, B, T, 8H), h_seq and the forward's c_seq
-extern "C" int msa_bilstm_bwd_xp(const float* dh_seq, const float* xp, const float* h_seq,
-                                 const float* c_seq, const float* w_hh_t, const float* w_hh,
-                                 float* dxp, int S, int B, int T, int H, int device,
-                                 void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    const size_t smem = sizeof(float) * kBt * 10 * H;  // hps, acts, dhc, red
-    err = allow_dynamic_smem(bilstm_bwd_step_kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((B + kBt - 1) / kBt, 2, S);
-    bilstm_bwd_step_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-        dh_seq, xp, h_seq, c_seq, w_hh_t, w_hh, dxp, B, T, H);
-    return cudaGetLastError();
-}
+// ---- the v9.1 entry point (fp32) ----
 
 // v9.1: the checkpoints of msa_bilstm_cscan from x and h_seq, KC = kCbndkRows
 // rows per block

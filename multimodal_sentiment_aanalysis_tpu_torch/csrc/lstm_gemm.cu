@@ -1,21 +1,29 @@
-// The time-parallel products of the BiLSTM layer's forward and reverse sweep,
+// The time-parallel products of the BiLSTM layer's forward and reverse sweeps,
 // on the tensor cores: one tiled GEMM kernel, batched over the model axis S and
-// the two directions, in four modes.
+// the two directions, in five modes.
 //
 // Replaces the products that multimodal_sentiment_aanalysis_tpu/kernels/lstm.py
 // computes inside its serial bodies, where they do not depend on the
 // recurrence:
 //
-//   kProj  ::_fwd_xproj_kernel's input product, xp = x . W_ih^T + b, written
-//          packed (S, B, T, 8H) [fwd | bwd] in actual time;
-//   kGates ::_segbwd_kernel's gate recompute: act([x | h_prev] . W_cat^T + b)
-//          for every (b, t), h_prev the stored h_seq shifted by direction
-//          (zero at each direction's first step), written in the same packed
-//          layout as the gate activations (i, f, g, o);
-//   kDx    its dx halves, dgates_d . W_ih_d, into dx_pk (S, 2, B, T, I);
-//   kDw    its dW_cat_d = [x | h_prev | 1]^T . dgates_d, into (S, 2, I+H+1, 4H):
-//          a reduction over the B*T rows, in fixed ranges summed in a fixed
-//          order, so the result is deterministic without atomics.
+//   kProj    ::_fwd_xproj_kernel's input product, xp = x . W_ih^T + b, written
+//            packed (S, B, T, 8H) [fwd | bwd] in actual time;
+//   kGates   ::_segbwd_kernel's gate recompute: act([x | h_prev] . W_cat^T + b)
+//            for every (b, t), h_prev the stored h_seq shifted by direction
+//            (zero at each direction's first step), written in the same packed
+//            layout as the gate activations (i, f, g, o); ::_cseq_kernel,
+//            ::_bwd_xproj_kernel and ::_bwd_bwdc_kernel recompute the same;
+//   kDx      its dx halves, dgates_d . W_ih_d, into dx_pk (S, 2, B, T, I);
+//   kDw      its dW_cat_d = [x | h_prev | 1]^T . dgates_d, into (S, 2, I+H+1, 4H):
+//            a reduction over the B*T rows, in fixed ranges summed in a fixed
+//            order, so the result is deterministic without atomics;
+//   kGatesXp ::_bwd_kernel's (v5) gate recompute: act(xp_d + h_prev . W_hh_d^T)
+//            from the packed projection xp (S, B, T, 8H) the v5 forward read,
+//            written as kGates writes. It is kGates with I = 0: K = H, the A
+//            operand h_prev alone and the B operand the W_hh rows, and the
+//            epilogue adds xp[m, d 4H + n] where kGates adds bias[n] (xp
+//            stays out of the product: as an identity operand it would make
+//            K = 9H).
 //
 // What bounds it on the H100: at the flagship layer (B=64, T=73, I=256, H=128)
 // each mode is 2.4-3.7 GFLOP per direction pair and model, so the tensor-core
@@ -52,7 +60,12 @@
 
 namespace {
 
-enum Mode { kProj = 0, kGates = 1, kDx = 2, kDw = 3 };
+enum Mode { kProj = 0, kGates = 1, kDx = 2, kDw = 3, kGatesXp = 4 };
+// which operands a mode reads along k: x and W_ih; h_prev and W_hh
+template <int kMode>
+constexpr bool kReadsX = kMode == kProj || kMode == kGates;
+template <int kMode>
+constexpr bool kReadsH = kMode == kGates || kMode == kGatesXp;
 
 constexpr int kBm = 64, kBn = 64, kBk = 16;
 constexpr int kThreads = 128;        // 4 warps, 2 x 2 of 32 x 32
@@ -85,7 +98,7 @@ struct Operands {
     const E* w_ih;    // (S, 2, 4H, I)
     const E* w_hh;    // (S, 2, 4H, H)
     const E* bias;    // (S, 2, 4H)
-    const float* dg;  // (S, B, T, 8H) packed dgates
+    const float* dg;  // (S, B, T, 8H) packed fp32: dgates (kDx, kDw), xp (kGatesXp)
     float* out;
     float* part;      // kDw at splits > 1: (splits, S, 2, I+H+1, 4H) partials
     int B, T, I, H;
@@ -103,8 +116,8 @@ __device__ __forceinline__ const E* h_prev_row(const Operands<E>& p, int d, int 
 }
 
 // Per mode: A (M x K) and B (K x N) in shared memory, their storage types and
-// layouts. kProj and kGates read x (or [x | h_prev]) and W_ih (or [W_ih |
-// W_hh]) along k: both row-k. kDx reads dgates along k (row-k) and W_ih along
+// layouts. kProj, kGates and kGatesXp read x, [x | h_prev] or h_prev and
+// W_ih, [W_ih | W_hh] or W_hh along k: both row-k. kDx reads dgates along k (row-k) and W_ih along
 // its I columns (k-row). kDw's A is [x | h_prev | 1] transposed: its m is the
 // feature, contiguous, and its k the B*T rows (k-row), and B is dgates (k-row)
 template <int kMode, typename E>
@@ -132,9 +145,9 @@ struct Stage {
     using TA = typename Traits<kMode, E>::TA;
     using TB = typename Traits<kMode, E>::TB;
     const TA* a_row[2] = {};  // x or dgates row (kProj, kGates, kDx); null past M
-    const E* a_h[2] = {};     // h_prev row, null at the first step (kGates)
+    const E* a_h[2] = {};     // h_prev row, null at the first step (kGates, kGatesXp)
     const E* b_i[2] = {};     // W_ih row (kProj, kGates); null past N
-    const E* b_h[2] = {};     // W_hh row (kGates)
+    const E* b_h[2] = {};     // W_hh row (kGates, kGatesXp)
     int kv = 0, kk = 0, cv = 0;
 
     __device__ __forceinline__ void init(const Operands<E>& p, int d, int m0, int n0) {
@@ -145,15 +158,13 @@ struct Stage {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
             const int m = m0 + tid / 4 + 32 * e, n = n0 + tid / 4 + 32 * e;
-            if constexpr (kMode == kProj || kMode == kGates) {
-                if (m < p.M) {
-                    a_row[e] = p.x + static_cast<size_t>(m) * p.I;
-                    if constexpr (kMode == kGates) a_h[e] = h_prev_row(p, d, m);
-                }
-                if (n < p.N) {
-                    b_i[e] = p.w_ih + static_cast<size_t>(n) * p.I;
-                    if constexpr (kMode == kGates) b_h[e] = p.w_hh + static_cast<size_t>(n) * p.H;
-                }
+            if (m < p.M) {
+                if constexpr (kReadsX<kMode>) a_row[e] = p.x + static_cast<size_t>(m) * p.I;
+                if constexpr (kReadsH<kMode>) a_h[e] = h_prev_row(p, d, m);
+            }
+            if (n < p.N) {
+                if constexpr (kReadsX<kMode>) b_i[e] = p.w_ih + static_cast<size_t>(n) * p.I;
+                if constexpr (kReadsH<kMode>) b_h[e] = p.w_hh + static_cast<size_t>(n) * p.H;
             }
             if constexpr (kMode == kDx)
                 if (m < p.M) a_row[e] = p.dg + static_cast<size_t>(m) * 8 * p.H + d * 4 * p.H;
@@ -169,17 +180,19 @@ struct Stage {
         for (int e = 0; e < 2; ++e) {
             const int r = tid / 4 + 32 * e;  // row of a row-k tile
             const int kr = kk + 8 * e;       // k of a k-row tile
-            if constexpr (kMode == kProj || kMode == kGates) {
+            if constexpr (kReadsX<kMode> || kReadsH<kMode>) {
+                // k runs over [x | h_prev] (I = 0 in kGatesXp); a zero-filled
+                // copy still names a real address: x, or h_seq where x is null
                 const int k = k0 + kv;
-                const E* a = p.x;
-                const E* b = p.w_ih;
+                const E* a = kReadsX<kMode> ? p.x : p.h_seq;
+                const E* b = kReadsX<kMode> ? p.w_ih : p.w_hh;
                 bool av = false, bv = false;
                 if (k < p.I) {
                     av = a_row[e] != nullptr;
                     bv = b_i[e] != nullptr;
                     if (av) a = a_row[e] + k;
                     if (bv) b = b_i[e] + k;
-                } else if (kMode == kGates && k < p.K) {
+                } else if (kReadsH<kMode> && k < p.K) {
                     av = a_h[e] != nullptr;
                     bv = b_h[e] != nullptr;
                     if (av) a = a_h[e] + (k - p.I);
@@ -328,9 +341,11 @@ __global__ void __launch_bounds__(kThreads) bilstm_gemm_kernel(Operands<E> p, in
                 const int n = n0 + wn + j * 8 + 2 * tig + (e & 1);
                 if (m >= p.M || n >= p.N) continue;
                 float v = acc[i][j][e];
-                if constexpr (kMode == kProj || kMode == kGates) {
-                    v += to_float(p.bias[n]);
-                    if constexpr (kMode == kGates) v = n / p.H == 2 ? tanhf(v) : sigmoid_f(v);
+                if constexpr (kMode == kProj || kReadsH<kMode>) {
+                    // p.dg is this model's xp in kGatesXp
+                    v += kMode == kGatesXp ? p.dg[static_cast<size_t>(m) * 2 * G + d * G + n]
+                                           : to_float(p.bias[n]);
+                    if constexpr (kReadsH<kMode>) v = n / p.H == 2 ? tanhf(v) : sigmoid_f(v);
                     dst[(model * rows + m) * 2 * G + d * G + n] = v;
                 } else {  // (S, 2, M, N)
                     dst[((model * 2 + d) * p.M + m) * p.N + n] = v;
@@ -361,6 +376,7 @@ int launch(Operands<E> p, int S, int splits, int device, void* stream) {
     const int G = 4 * p.H;
     if constexpr (kMode == kProj) { p.M = rows; p.N = G; p.K = p.I; }
     if constexpr (kMode == kGates) { p.M = rows; p.N = G; p.K = p.I + p.H; }
+    if constexpr (kMode == kGatesXp) { p.I = 0; p.M = rows; p.N = G; p.K = p.H; }
     if constexpr (kMode == kDx) { p.M = rows; p.N = p.I; p.K = G; }
     if constexpr (kMode == kDw) { p.M = p.I + p.H + 1; p.N = G; p.K = rows; }
     if (splits < 1 || (splits > 1 && (kMode != kDw || p.part == nullptr)))
@@ -388,6 +404,7 @@ int dispatch(int mode, const E* x, const E* h_seq, const E* w_ih, const E* w_hh,
         case kGates: return launch<kGates>(p, S, splits, device, stream);
         case kDx: return launch<kDx>(p, S, splits, device, stream);
         case kDw: return launch<kDw>(p, S, splits, device, stream);
+        case kGatesXp: return launch<kGatesXp>(p, S, splits, device, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -397,7 +414,9 @@ int dispatch(int mode, const E* x, const E* h_seq, const E* w_ih, const E* w_hh,
 // mode: 0 xp (S, B, T, 8H); 1 gate activations (S, B, T, 8H); 2 dx_pk
 // (S, 2, B, T, I); 3 dW_cat (S, 2, I+H+1, 4H), its B*T rows in `splits`
 // ranges whose partials go to `part` (splits, S, 2, I+H+1, 4H) when splits
-// > 1. Operands a mode does not read may be null.
+// > 1; 4 the v5 gate activations (S, B, T, 8H) from h_seq, W_hh and the fp32
+// xp (S, B, T, 8H), passed as dg (I is not read). Operands a mode does not
+// read may be null.
 extern "C" int msa_bilstm_gemm(int mode, const float* x, const float* h_seq, const float* w_ih,
                                const float* w_hh, const float* bias, const float* dg, float* out,
                                float* part, int S, int B, int T, int I, int H, int splits,

@@ -14,7 +14,7 @@ kernel it replaces.
   three times and ``bilstm_sweep`` once
 - ``bilstm_gemm``: ``lstm.bilstm_gemm``, ``csrc/lstm_gemm.cu``: the
   tensor-core products of the two rows above (projection, gate recompute,
-  dx, dW_cat)
+  dx, dW_cat) and the v5 gate recompute from ``xp`` (``"gates_xp"``)
 - ``bilstm_rec``: ``lstm.bilstm_rec``, ``csrc/lstm_fwd.cu``: the forward's
   recurrence on a cluster
 - ``bilstm_sweep``: ``lstm.bilstm_sweep``, ``csrc/lstm_bwd.cu``: the reverse
@@ -44,16 +44,22 @@ for both: three ``bilstm_gemm``, one ``bilstm_cscan``, one ``bilstm_sweep``.
 - the BiLSTM's other schedules (``lstm.fused_bilstm_layer(schedule=)``),
   fp32 only: ``bilstm_fwd_xp`` (``csrc/lstm_fwd.cu``, ``kernels/lstm.py::
   _fwd_kernel``; ``bilstm_rec``'s cluster recurrence in its form that also
-  stores c, an entry point with its own count), ``bilstm_bwd_xp``
-  (``::_bwd_kernel``), ``bilstm_cseq`` (``::_cseq_kernel``),
-  ``bilstm_cbndk`` (``::_cbndk_kernel``); each
-  ``lstm.<name>``, the last three in ``csrc/lstm_bwd.cu``; and two calls
-  of row 11's pieces at K = 1 over the full c of ``bilstm_cseq``:
-  ``bilstm_bwdc`` (``::_bwd_bwdc_kernel``, v8), a call of the wrapper,
-  which launches ``bilstm_gemm`` three times and ``bilstm_sweep`` once,
-  and ``bilstm_bwd_split`` (``::_bwd_xproj_kernel``, v6), a call of the
-  wrapper, which launches ``bilstm_gemm`` (the gate activations) and
-  ``bilstm_sweep`` once each
+  stores c, an entry point with its own count) and ``bilstm_cbndk``
+  (``csrc/lstm_bwd.cu``, ``::_cbndk_kernel``); and four calls of the v9
+  rows' pieces at K = 1, each a call of the wrapper: ``bilstm_cseq``
+  (``::_cseq_kernel``, v8 and v6), which launches ``bilstm_gemm`` (the gate
+  activations) then ``bilstm_cscan``; ``bilstm_bwdc`` (``::_bwd_bwdc_kernel``,
+  v8), which launches ``bilstm_gemm`` three times and ``bilstm_sweep`` once
+  over the full c of ``bilstm_cseq``; ``bilstm_bwd_split``
+  (``::_bwd_xproj_kernel``, v6), ``bilstm_gemm`` (the gate activations) and
+  ``bilstm_sweep`` once each; ``bilstm_bwd_xp`` (``::_bwd_kernel``, v5),
+  ``bilstm_gemm`` (``"gates_xp"``) and ``bilstm_sweep`` once each, over
+  the v5 forward's c
+
+The v8 and v6 layer backwards (``lstm.bilstm_v8_bwd``, ``lstm.bilstm_v6_bwd``)
+count one call of ``bilstm_cseq`` and one of ``bilstm_bwdc`` or
+``bilstm_bwd_split`` and launch the gate GEMM once for both: v8 three
+``bilstm_gemm``, one ``bilstm_cscan``, one ``bilstm_sweep``; v6 one of each.
 
 The first ten but ``bilstm_cscan`` also have a bf16 form with its own
 counter (``bilstm_fwd_bf16``, ...): a second C entry point of the same

@@ -26,18 +26,23 @@ it reaches through process-wide switches (``MSA_LSTM_XPROJ``,
 ``MSA_LSTM_BWDC``, ``MSA_LSTM_SEGBWD``, ``MSA_LSTM_CBNDK``); all compute
 the same function:
 
-======== ============================================ =====================================================
+======== ============================================ ======================================================
 schedule forward                                      backward
-======== ============================================ =====================================================
+======== ============================================ ======================================================
 ``v9``   :func:`bilstm_fwd`                           :func:`bilstm_v9_bwd` (rows 9 and 11 on one gate GEMM)
 ``v9.1`` :func:`bilstm_fwd`                           :func:`bilstm_cbndk` (``_cbndk_kernel``), :func:`bilstm_segbwd`
-``v8``   :func:`bilstm_fwd`                           :func:`bilstm_cseq` (``_cseq_kernel``), :func:`bilstm_bwdc` (``_bwd_bwdc_kernel``:
-                                                      gates GEMM, sweep at K=1, dx and dW_cat GEMMs)
-``v6``   :func:`bilstm_fwd`                           :func:`bilstm_cseq`, :func:`bilstm_bwd_split` (``_bwd_xproj_kernel``: gates
-                                                      GEMM, sweep at K=1), then dx, dW, db from ``dxp`` by ``einsum``
-``v5``   ``xp = x W_cat^T + b_cat`` by ``matmul``,    :func:`bilstm_bwd_xp` (``_bwd_kernel``), then dW_hh from ``dxp`` by ``einsum``;
-         then :func:`bilstm_fwd_xp` (``_fwd_kernel``) autograd takes ``dxp`` through the projection
-======== ============================================ =====================================================
+``v8``   :func:`bilstm_fwd`                           :func:`bilstm_v8_bwd`: rows 6 and 8 (``_cseq_kernel``,
+                                                      ``_bwd_bwdc_kernel``) on one gate GEMM: the c scan
+                                                      and the sweep at K=1, the dx and dW_cat GEMMs
+``v6``   :func:`bilstm_fwd`                           :func:`bilstm_v6_bwd`: rows 6 and 7 (``_cseq_kernel``,
+                                                      ``_bwd_xproj_kernel``) on one gate GEMM: the c scan
+                                                      and the sweep at K=1; then dx, dW, db from ``dxp``
+                                                      by ``einsum``
+``v5``   ``xp = x W_cat^T + b_cat`` by ``matmul``,    :func:`bilstm_bwd_xp` (``_bwd_kernel``: the gates GEMM
+         then :func:`bilstm_fwd_xp` (``_fwd_kernel``) over ``xp``, the sweep at K=1), then dW_hh from
+                                                      ``dxp`` by ``einsum``; autograd takes ``dxp`` through
+                                                      the projection
+======== ============================================ ======================================================
 
 The schedules other than v9 take fp32 only (``TypeError`` otherwise).
 The JAX package's "v7" (``MSA_LSTM_BWDC=1, MSA_LSTM_SEGBWD=0``) runs the
@@ -45,9 +50,14 @@ v8 kernels. The full fp32 cell state of v8, v6 and v5 is ``c_seq (2, T,
 B, H)``, and their packed gate gradients ``dxp (B, T, 8H)`` are ``[fwd |
 bwd]`` in actual time, the gradient of ``xp``. ``c_seq`` is the
 checkpoints of :func:`bilstm_cbnd` at K = 1 (slot t holds c at actual time
-t in both directions), so v8's and v6's reverse sweeps (rows 8 and 7) are
-row 11's pieces at K = 1: the gates GEMM, then :func:`bilstm_sweep` over
-``c_seq``, and for row 8 the dx and dW_cat GEMMs.
+t in both directions), so the kernels of those schedules are the v9
+kernels' pieces at K = 1: row 6 is the gates GEMM then :func:`bilstm_cscan`
+at K = 1; the reverse sweeps of v8 and v6 (rows 8 and 7) are the gates
+GEMM, then :func:`bilstm_sweep` over ``c_seq``, and for row 8 the dx and
+dW_cat GEMMs; v5's (row 5) is the GEMM's ``"gates_xp"`` product, the gates
+from the projection ``xp``, then that sweep over the forward's ``c_seq``.
+The v8 and v6 layer backwards compute the gate activations once for the
+scan and the sweep, as v9's does for rows 9 and 11.
 
 The port's layouts keep the batch first: ``x (B, T, I)``, ``h_seq
 (B, T, 2H)``, checkpoints ``(2, NSEG, B, H)`` (direction, slot, batch,
@@ -100,20 +110,19 @@ KERNEL, CBND_KERNEL, SEGBWD_KERNEL, GEMM_KERNEL, REC_KERNEL, SWEEP_KERNEL = (
 # the other schedules' kernels, fp32 only
 # row 4 (v5 forward): row 1's recurrence kernel with its c store, an entry point of its own
 FWD_XP_KERNEL = CudaKernel("lstm_fwd", "msa_bilstm_rec_cseq", [_P] * 4 + [_I] * 8)
-BWD_XP_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_bwd_xp", [_P] * 7 + [_I] * 4)
-CSEQ_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_cseq", [_P] * 6 + [_I] * 5)
-BWD_SPLIT_KERNEL, BWDC_KERNEL = CallCount(), CallCount()  # rows 7 and 8: the GEMM and the sweep
+# rows 5, 6, 7 and 8: calls of wrappers over the GEMM and the sweep or the c scan
+BWD_XP_KERNEL, CSEQ_KERNEL, BWD_SPLIT_KERNEL, BWDC_KERNEL = (CallCount() for _ in range(4))
 CBNDK_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_cbndk", [_P] * 6 + [_I] * 6)
 
 SCHEDULES = ("v5", "v6", "v8", "v9", "v9.1")
 
 _ROWS_PER_BLOCK = 8  # kBt in csrc/lstm_bwd.cu
-_SEGBWD_MAX_HIDDEN = 128  # kSegMaxThreads / 4 in csrc/lstm_bwd.cu (the per-block walks)
+_CBNDK_MAX_HIDDEN = 128  # kSegMaxThreads / 4 in csrc/lstm_bwd.cu (row 10's per-block walk)
 _MAX_SMEM = 227 * 1024
 SEG_K = 4  # segment length of the backward; any K >= 1 works for any T
 CBNDK_ROWS = 8  # kCbndkRows in csrc/lstm_bwd.cu: time rows per block of bilstm_cbndk
 # the products of csrc/lstm_gemm.cu, by its mode number
-GEMM_MODES = ("proj", "gates", "dx", "dw")
+GEMM_MODES = ("proj", "gates", "dx", "dw", "gates_xp")
 _GEMM_TILE = 64  # kBm = kBn in csrc/lstm_gemm.cu
 _GEMM_MAX_SPLITS = 8
 # the cluster kernels (csrc/lstm_cluster.cuh): cluster sizes, largest first;
@@ -144,10 +153,10 @@ def _check_device(x: torch.Tensor) -> None:
 
 
 def _check_layer(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
-                 bias: torch.Tensor, threads: bool = True) -> tuple[int, int, int, int, int]:
+                 bias: torch.Tensor) -> tuple[int, int, int, int, int]:
     """Validate a layer's CUDA operands, model axis first; returns
-    ``(S, B, T, I, H)``. ``threads``: the kernel runs 4H threads a block
-    (the cluster kernels' limits are :func:`cluster_plan`'s)."""
+    ``(S, B, T, I, H)``. The hidden size's limits are each kernel's own
+    (:func:`cluster_plan`'s for the cluster kernels)."""
     device = x.device
     if x.dim() != 4 or 0 in x.shape:
         raise ValueError(f"x must be a non-empty (B, T, I) or (S, B, T, I) tensor, "
@@ -156,22 +165,11 @@ def _check_layer(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     if s > MAX_MODELS:
         raise ValueError(f"{s} models > {MAX_MODELS}: the model axis is the grid's z axis")
     h = w_hh.shape[-1]
-    if threads and not 0 < 4 * h <= 1024:
-        raise ValueError(f"hidden size {h}: the kernels run 4H <= 1024 threads")
     check_cuda("x", x, device, dtypes=F32_BF16)
     check_cuda("w_ih", w_ih, device, (s, 2, 4 * h, i), (x.dtype,))
     check_cuda("w_hh", w_hh, device, (s, 2, 4 * h, h), (x.dtype,))
     check_cuda("bias", bias, device, (s, 2, 4 * h), (x.dtype,))
     return s, b, t, i, h
-
-
-def _check_smem(floats: int, what: str) -> None:
-    if 4 * floats > _MAX_SMEM:
-        raise ValueError(f"{what}: {4 * floats} bytes of shared memory > {_MAX_SMEM}")
-
-
-def _transposed(w: torch.Tensor) -> torch.Tensor:
-    return w.transpose(-1, -2).contiguous()
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -245,14 +243,19 @@ def _sm_count(index: int) -> int:
 # --------------------------------------------------------------------------
 
 
-def bilstm_gemm_plain(mode: str, x, w_ih, w_hh, bias, h_seq=None, dg=None) -> torch.Tensor:
+def bilstm_gemm_plain(mode: str, x, w_ih, w_hh, bias, h_seq=None, dg=None,
+                      xp=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`bilstm_gemm`, in fp32."""
-    one = x.dim() == 3
-    x, w_ih, w_hh, bias, h_seq, dg = (None if a is None else upcast(a[None] if one else a)
-                                      for a in (x, w_ih, w_hh, bias, h_seq, dg))
+    one = (xp if mode == "gates_xp" else x).dim() == 3
+    x, w_ih, w_hh, bias, h_seq, dg, xp = (None if a is None else upcast(a[None] if one else a)
+                                          for a in (x, w_ih, w_hh, bias, h_seq, dg, xp))
     h = w_hh.shape[-1]
     g = 4 * h
-    if mode == "proj":
+    if mode == "gates_xp":
+        out = torch.cat([torch.cat(_activations(xp[..., d * g:(d + 1) * g]
+                                                + _mm(_h_prev(h_seq, d, h), w_hh[:, d])), -1)
+                         for d in (0, 1)], -1)
+    elif mode == "proj":
         out = _projection(x, w_ih, bias)
     elif mode == "gates":
         out = torch.cat([torch.cat(_gates(x, _h_prev(h_seq, d, h), w_ih[:, d], w_hh[:, d],
@@ -289,9 +292,11 @@ def gemm_splits(s: int, rows: int, i: int, h: int, sms: int = H100_SMS) -> int:
 
 def _gemm(mode: str, x, w_ih, w_hh, bias, h_seq, dg, out) -> None:
     """Launch one mode of the GEMM on validated, model-axis-first operands.
-    Its copies read 16-byte vectors (8-byte for bf16), so every operand
-    starts on a 16-byte boundary."""
-    s, b, t, i = x.shape
+    ``dg`` is the packed fp32 operand: dgates (``"dx"``, ``"dw"``) or ``xp``
+    (``"gates_xp"``, which reads no ``x``, ``w_ih`` or ``bias``: None). Its
+    copies read 16-byte vectors (8-byte for bf16), so every operand starts
+    on a 16-byte boundary."""
+    s, b, t, i = x.shape if x is not None else (*h_seq.shape[:3], 0)
     h = w_hh.shape[-1]
     for name, a in (("x", x), ("h_seq", h_seq), ("w_ih", w_ih), ("w_hh", w_hh), ("dg", dg)):
         if a is not None and a.data_ptr() % 16:
@@ -302,15 +307,15 @@ def _gemm(mode: str, x, w_ih, w_hh, bias, h_seq, dg, out) -> None:
         if splits > 1:
             part = torch.empty((splits,) + tuple(out.shape), device=x.device,
                                dtype=torch.float32)
-    GEMM_KERNELS[x.dtype].launch(x.device, GEMM_MODES.index(mode), ptr(x), ptr(h_seq), ptr(w_ih),
-                                 ptr(w_hh), ptr(bias), ptr(dg), ptr(out), ptr(part), s, b, t, i,
-                                 h, splits)
+    GEMM_KERNELS[w_hh.dtype].launch(w_hh.device, GEMM_MODES.index(mode), ptr(x), ptr(h_seq),
+                                    ptr(w_ih), ptr(w_hh), ptr(bias), ptr(dg), ptr(out), ptr(part),
+                                    s, b, t, i, h, splits)
 
 
-def bilstm_gemm(mode: str, x, w_ih, w_hh, bias, h_seq=None, dg=None) -> torch.Tensor:
+def bilstm_gemm(mode: str, x, w_ih, w_hh, bias, h_seq=None, dg=None, xp=None) -> torch.Tensor:
     """The time-parallel products of rows 1 and 11 (``csrc/lstm_gemm.cu``),
-    each per model and direction, fp32 out (a leading S where ``x`` has
-    one), on stacked weights:
+    and of rows 5 to 8 built from them, each per model and direction, fp32
+    out (a leading S where ``x``, or ``xp``, has one), on stacked weights:
 
     - ``"proj"``: ``xp (B, T, 8H)``, ``x W_ih^T + b`` packed ``[fwd | bwd]``;
     - ``"gates"``: the gate activations ``(B, T, 8H)``, sigmoid (tanh for
@@ -321,20 +326,33 @@ def bilstm_gemm(mode: str, x, w_ih, w_hh, bias, h_seq=None, dg=None) -> torch.Te
     - ``"dw"``: ``dW_cat (2, I + H + 1, 4H)``, ``[x | h_prev | 1]^T
       dgates_d``, reduced over the B*T rows in :func:`gemm_splits` fixed
       ranges whose partials a second kernel sums in rank order
-      (deterministic, no atomics).
+      (deterministic, no atomics);
+    - ``"gates_xp"``: the v5 gate activations ``(B, T, 8H)``, sigmoid (tanh
+      for g) of ``xp + h_prev W_hh^T`` from the packed fp32 projection ``xp
+      (B, T, 8H)``, in the packing of ``"gates"``; it reads no ``x``,
+      ``w_ih`` or ``bias`` (they may be None), and ``xp`` is added after the
+      product, not multiplied (K = H).
 
     fp32 operands run as 3xTF32 on the tensor cores (fp32-accurate), bf16
     ones as stored. A CPU tensor takes :func:`bilstm_gemm_plain`; a CUDA
     tensor launches the kernel, or raises."""
-    if x.device.type == "cpu":
-        return bilstm_gemm_plain(mode, x, w_ih, w_hh, bias, h_seq, dg)
-    _check_device(x)
+    lead = xp if mode == "gates_xp" else x
+    if lead.device.type == "cpu":
+        return bilstm_gemm_plain(mode, x, w_ih, w_hh, bias, h_seq, dg, xp)
+    _check_device(lead)
     if mode not in GEMM_MODES:
         raise ValueError(f"unknown GEMM mode {mode!r}; one of {GEMM_MODES}")
+    if mode == "gates_xp":
+        (xp, h_seq, w_hh), one = with_models(xp, h_seq, w_hh)
+        s, b, t, h = _check_xp(xp, w_hh, F32_BF16)
+        _check_widths(0, h)
+        check_cuda("h_seq", h_seq, xp.device, (s, b, t, 2 * h), (w_hh.dtype,))
+        out = _gate_activations_xp(xp, h_seq, w_hh)
+        return out[0] if one else out
     one = x.dim() == 3
     x, w_ih, w_hh, bias, h_seq, dg = (None if a is None else a[None] if one else a
                                       for a in (x, w_ih, w_hh, bias, h_seq, dg))
-    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias, threads=False)
+    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
     _check_widths(i, h)
     for name, a, need, shape, dtypes in (
             ("h_seq", h_seq, mode in ("gates", "dw"), (s, b, t, 2 * h), (x.dtype,)),
@@ -366,7 +384,7 @@ def bilstm_fwd(x, w_ih, w_hh, bias) -> torch.Tensor:
         return bilstm_fwd_plain(x, w_ih, w_hh, bias)
     _check_device(x)
     (x, w_ih, w_hh, bias), one = with_models(x, w_ih, w_hh, bias)
-    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias, threads=False)
+    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
     _check_widths(i, h)
     cluster_plan("rec", s, b, h, x.dtype, _sm_count(x.device.index))  # raises before any launch
     xp = torch.empty(s, b, t, 8 * h, device=x.device, dtype=torch.float32)
@@ -492,14 +510,13 @@ class _FusedBiLSTM(torch.autograd.Function):
         x, w_ih, w_hh, bias, h_seq = ctx.saved_tensors
         w = (w_ih, w_hh, bias)
         if ctx.schedule == "v6":
-            c_seq = _Cseq.apply(x, h_seq, *w)
-            dxp = _BwdSplit.apply(dh_seq, x, h_seq, c_seq, *w)
+            dxp = _V6Bwd.apply(dh_seq, x, h_seq, *w)
             dg = dxp.unflatten(-1, (2, -1))  # (..., B, T, 2, 4H)
             return (torch.einsum("...btdg,...dgi->...bti", dg, w_ih),
                     torch.einsum("...btdg,...bti->...dgi", dg, x), _dw_hh_packed(h_seq, dxp),
                     dg.sum((-4, -3)), None)
         if ctx.schedule == "v8":
-            dx_pk, dw_cat = _Bwdc.apply(dh_seq, x, h_seq, _Cseq.apply(x, h_seq, *w), *w)
+            dx_pk, dw_cat = _V8Bwd.apply(dh_seq, x, h_seq, *w)
         elif ctx.schedule == "v9.1":
             c_bnd = _CbndK.apply(x, h_seq, *w, SEG_K)
             dx_pk, dw_cat = _SegBwd.apply(dh_seq, x, h_seq, c_bnd, *w, SEG_K)
@@ -590,8 +607,13 @@ def _h_prev(h_seq: torch.Tensor, d: int, h: int) -> torch.Tensor:
 def _gates(x, hp, w_ih, w_hh, bias):
     """Gate activations ``(i, f, g, o)`` from the input and the stored
     h_prev, per model: ``x (S, ..., I)``, ``w_ih (S, 4H, I)``."""
-    z = _mm(x, w_ih) + _mm(hp, w_hh) + bias.reshape(bias.shape[:1] + (1,) * (x.dim() - 2)
-                                                     + bias.shape[1:])
+    return _activations(_mm(x, w_ih) + _mm(hp, w_hh)
+                        + bias.reshape(bias.shape[:1] + (1,) * (x.dim() - 2) + bias.shape[1:]))
+
+
+def _activations(z):
+    """``(i, f, g, o)``: sigmoid of the pre-activation ``z (..., 4H)``'s i, f
+    and o quarters, tanh of its g quarter."""
     i, f, g, o = z.chunk(4, dim=-1)
     return torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
 
@@ -663,31 +685,10 @@ def bilstm_cbnd_plain(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tenso
     return bilstm_cscan_plain(bilstm_gemm_plain("gates", x, w_ih, w_hh, bias, h_seq=h_seq), k)
 
 
-def _sweep(kernel: CudaKernel, x, h_seq, w_ih, w_hh, bias, nslots: int, k: int | None,
-           smem_floats) -> torch.Tensor:
-    """Launch a per-block c walk of fp32 operands (:func:`bilstm_cbndk`,
-    :func:`bilstm_cseq`) into zeroed ``(S, 2, nslots, B, H)`` fp32 slots;
-    ``smem_floats(i, h)`` is its shared memory in floats. ``k`` is passed
-    to the kernel unless None."""
-    _check_device(x)
-    (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
-    check_cuda("x", x, x.device)
-    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
-    check_cuda("h_seq", h_seq, x.device, (s, b, t, 2 * h), (x.dtype,))
-    if k is not None and k < 1:
-        raise ValueError(f"segment length {k} < 1")
-    _check_smem(smem_floats(i, h), f"input width {i}")
-    w_ih_t, w_hh_t = _transposed(w_ih), _transposed(w_hh)
-    out = torch.zeros(s, 2, nslots, b, h, device=x.device, dtype=torch.float32)
-    kernel.launch(x.device, ptr(x), ptr(h_seq), ptr(w_ih_t), ptr(w_hh_t), ptr(bias), ptr(out),
-                  s, b, t, i, h, *(() if k is None else (k,)))
-    return out[0] if one else out
-
-
 def _check_gemm_layer(x, h_seq, w_ih, w_hh, bias) -> tuple[int, int, int, int, int]:
     """Validate a layer's model-axis-first CUDA operands for the gates GEMM;
     returns ``(S, B, T, I, H)``."""
-    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias, threads=False)
+    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
     _check_widths(i, h)
     check_cuda("h_seq", h_seq, x.device, (s, b, t, 2 * h), (x.dtype,))
     return s, b, t, i, h
@@ -696,9 +697,16 @@ def _check_gemm_layer(x, h_seq, w_ih, w_hh, bias) -> tuple[int, int, int, int, i
 def _gate_activations(x, h_seq, w_ih, w_hh, bias) -> torch.Tensor:
     """The gate activations ``(S, B, T, 8H)`` fp32 of validated operands, by
     the gates GEMM."""
-    s, b, t, _ = x.shape
-    act = torch.empty(s, b, t, 8 * w_hh.shape[-1], device=x.device, dtype=torch.float32)
+    act = torch.empty(*x.shape[:3], 8 * w_hh.shape[-1], device=x.device, dtype=torch.float32)
     _gemm("gates", x, w_ih, w_hh, bias, h_seq, None, act)
+    return act
+
+
+def _gate_activations_xp(xp, h_seq, w_hh) -> torch.Tensor:
+    """The v5 gate activations ``(S, B, T, 8H)`` fp32 of validated operands,
+    by the GEMM's ``"gates_xp"`` product over the projection ``xp``."""
+    act = torch.empty_like(xp)
+    _gemm("gates_xp", None, None, w_hh, None, h_seq, xp, act)
     return act
 
 
@@ -959,20 +967,15 @@ def bilstm_sweep(act, dh_seq, c_bnd, w_hh, k: int = SEG_K) -> torch.Tensor:
     return act[0] if one else act
 
 
-def _check_max_hidden(h: int) -> None:
-    if h > _SEGBWD_MAX_HIDDEN:
-        raise ValueError(f"hidden size {h} > {_SEGBWD_MAX_HIDDEN}: the reverse sweeps run "
-                         f"4H <= {4 * _SEGBWD_MAX_HIDDEN} threads")
-
-
 _SegBwd = _kernel_function(bilstm_segbwd, (0, 0), ":func:`bilstm_segbwd` as a Function.")
 _V9Bwd = _kernel_function(bilstm_v9_bwd, (0, 0), ":func:`bilstm_v9_bwd` as a Function.")
 
 
 # --------------------------------------------------------------------------
-# the other schedules' kernels (fp32): v9.1 checkpoints, v8 and v6 full c,
-# the v8 and v6 reverse sweeps (row 11's pieces at K = 1), the v5 sweep that
-# emits dxp, the v5 forward (row 1's recurrence storing c)
+# the other schedules' kernels (fp32): v9.1 checkpoints; v8 and v6 full c
+# (row 9's pieces at K = 1), the v8 and v6 reverse sweeps (row 11's pieces at
+# K = 1) and their layer backwards; the v5 sweep that emits dxp (the same
+# sweep over the gates from xp), the v5 forward (row 1's recurrence storing c)
 # --------------------------------------------------------------------------
 
 
@@ -1004,10 +1007,24 @@ def bilstm_cbndk(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
     package's v9.1 ``_cbndk_kernel``). fp32."""
     if x.device.type == "cpu":
         return bilstm_cbndk_plain(x, h_seq, w_ih, w_hh, bias, k)
-    _check_max_hidden(w_hh.shape[-1])
-    return _sweep(CBNDK_KERNEL, x, h_seq, w_ih, w_hh, bias,
-                  _num_segments(x.shape[-2], k), k,
-                  lambda i, h: CBNDK_ROWS * _ROWS_PER_BLOCK * (i + 4 * h))
+    _check_device(x)
+    (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
+    check_cuda("x", x, x.device)
+    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
+    if not 0 < h <= _CBNDK_MAX_HIDDEN:
+        raise ValueError(f"hidden size {h}: the v9.1 checkpoint walk runs 4H <= "
+                         f"{4 * _CBNDK_MAX_HIDDEN} threads")
+    check_cuda("h_seq", h_seq, x.device, (s, b, t, 2 * h), (x.dtype,))
+    if k < 1:
+        raise ValueError(f"segment length {k} < 1")
+    smem = 4 * CBNDK_ROWS * _ROWS_PER_BLOCK * (i + 4 * h)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"input width {i}: {smem} bytes of shared memory > {_MAX_SMEM}")
+    w_ih_t, w_hh_t = (w.transpose(-1, -2).contiguous() for w in (w_ih, w_hh))
+    out = torch.zeros(s, 2, _num_segments(t, k), b, h, device=x.device, dtype=torch.float32)
+    CBNDK_KERNEL.launch(x.device, ptr(x), ptr(h_seq), ptr(w_ih_t), ptr(w_hh_t), ptr(bias),
+                        ptr(out), s, b, t, i, h, k)
+    return out[0] if one else out
 
 
 def bilstm_cseq_plain(x, h_seq, w_ih, w_hh, bias) -> torch.Tensor:
@@ -1019,12 +1036,22 @@ def bilstm_cseq(x, h_seq, w_ih, w_hh, bias) -> torch.Tensor:
     """The full fp32 cell state ``c_seq (2, T, B, H)`` (or ``(S, 2, T, B,
     H)``; slot t is actual time t in both directions), rebuilt in
     recurrence order from ``x`` and the stored ``h_seq`` (the JAX package's
-    v8 ``_cseq_kernel``): :func:`bilstm_cbnd` at K = 1, with each step's
-    gates a CUDA-core product inside the walk. fp32."""
+    v8 ``_cseq_kernel``, row 6): :func:`bilstm_cbnd` at K = 1. fp32.
+
+    A CPU tensor takes :func:`bilstm_cseq_plain`. A CUDA tensor launches two
+    kernels, or raises before the first: the gate activations
+    (:func:`bilstm_gemm` ``"gates"``) into a transient fp32 ``(S, B, T,
+    8H)`` buffer, then :func:`bilstm_cscan` at K = 1. One call counts one
+    launch of ``CSEQ_KERNEL``."""
     if x.device.type == "cpu":
         return bilstm_cseq_plain(x, h_seq, w_ih, w_hh, bias)
-    return _sweep(CSEQ_KERNEL, x, h_seq, w_ih, w_hh, bias, x.shape[-2], None,
-                  lambda i, h: _ROWS_PER_BLOCK * (i + 5 * h))
+    _check_device(x)
+    (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
+    _check_gemm_layer(x, h_seq, w_ih, w_hh, bias)
+    check_cuda("x", x, x.device)  # the schedules other than v9 take fp32 only
+    out = bilstm_cscan(_gate_activations(x, h_seq, w_ih, w_hh, bias), 1)
+    CSEQ_KERNEL.launches += 1
+    return out[0] if one else out
 
 
 def bilstm_bwdc_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias):
@@ -1060,12 +1087,72 @@ def bilstm_bwdc(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> tuple[torch.Tensor
 def _check_full_c(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> None:
     """Validate rows 7 and 8's model-axis-first CUDA operands before any
     launch: the gates GEMM's, fp32 only, ``dh_seq``, the full ``c_seq``
-    and a cluster plan of the sweep."""
+    (None where the layer backward makes it) and a cluster plan of the
+    sweep."""
     s, b, t, _, h = _check_gemm_layer(x, h_seq, w_ih, w_hh, bias)
     check_cuda("x", x, x.device)  # the schedules other than v9 take fp32 only
     _check_sweep(dh_seq, 1, s, b, t, h, x.dtype, x.device)
-    _check_c_seq(c_seq, s, b, t, h, x.device)
+    if c_seq is not None:
+        _check_c_seq(c_seq, s, b, t, h, x.device)
     cluster_plan("sweep", s, b, h, x.dtype, _sm_count(x.device.index))
+
+
+def bilstm_v8_bwd(dh_seq, x, h_seq, w_ih, w_hh, bias) -> tuple[torch.Tensor, torch.Tensor]:
+    """The v8 layer backward, rows 6 and 8 together: what
+    ``bilstm_bwdc(dh_seq, x, h_seq, bilstm_cseq(x, h_seq, w_ih, w_hh, bias),
+    w_ih, w_hh, bias)`` returns, ``(dx_pk, dW_cat)``. fp32.
+
+    A CPU tensor takes :func:`bilstm_cseq_plain` then
+    :func:`bilstm_bwdc_plain`. A CUDA tensor launches five kernels, or
+    raises before the first: the gate activations, computed once for both
+    rows (:func:`bilstm_gemm` ``"gates"``), the c scan over them at K = 1
+    (:func:`bilstm_cscan`), the sweep at K = 1 over that ``c_seq``, which
+    overwrites them with dgates (:func:`bilstm_sweep`), then dx and dW_cat
+    (``"dx"``, ``"dw"``). One call counts one launch of ``CSEQ_KERNEL`` and
+    one of ``BWDC_KERNEL``."""
+    if x.device.type == "cpu":
+        c_seq = bilstm_cseq_plain(x, h_seq, w_ih, w_hh, bias)
+        return bilstm_bwdc_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
+    (x, dh_seq, h_seq, w_ih, w_hh, bias), one, act = _shared_gates(x, dh_seq, h_seq, w_ih, w_hh,
+                                                                   bias)
+    out = _dgates_products(act, dh_seq, bilstm_cscan(act, 1), x, h_seq, w_ih, w_hh, bias, 1)
+    CSEQ_KERNEL.launches += 1
+    BWDC_KERNEL.launches += 1
+    return (out[0][0], out[1][0]) if one else out
+
+
+def bilstm_v6_bwd(dh_seq, x, h_seq, w_ih, w_hh, bias) -> torch.Tensor:
+    """The v6 layer backward's kernels, rows 6 and 7 together: what
+    ``bilstm_bwd_split(dh_seq, x, h_seq, bilstm_cseq(x, h_seq, w_ih, w_hh,
+    bias), w_ih, w_hh, bias)`` returns, ``dxp``. fp32.
+
+    A CPU tensor takes :func:`bilstm_cseq_plain` then
+    :func:`bilstm_bwd_split_plain`. A CUDA tensor launches three kernels, or
+    raises before the first: the gate activations, computed once for both
+    rows, the c scan over them at K = 1, then the sweep at K = 1 over that
+    ``c_seq``, which overwrites them with dgates: that buffer is ``dxp``.
+    One call counts one launch of ``CSEQ_KERNEL`` and one of
+    ``BWD_SPLIT_KERNEL``."""
+    if x.device.type == "cpu":
+        c_seq = bilstm_cseq_plain(x, h_seq, w_ih, w_hh, bias)
+        return bilstm_bwd_split_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
+    (x, dh_seq, h_seq, w_ih, w_hh, bias), one, act = _shared_gates(x, dh_seq, h_seq, w_ih, w_hh,
+                                                                   bias)
+    dxp = bilstm_sweep(act, dh_seq, bilstm_cscan(act, 1), w_hh, 1)
+    CSEQ_KERNEL.launches += 1
+    BWD_SPLIT_KERNEL.launches += 1
+    return dxp[0] if one else dxp
+
+
+def _shared_gates(x, dh_seq, h_seq, w_ih, w_hh, bias):
+    """The v8 and v6 layer backwards' CUDA operands, model axis first and
+    validated before any launch, whether the axis was added, and the gate
+    activations they share."""
+    _check_device(x)
+    ops, one = with_models(x, dh_seq, h_seq, w_ih, w_hh, bias)
+    x, dh_seq, h_seq, w_ih, w_hh, bias = ops
+    _check_full_c(dh_seq, x, h_seq, None, w_ih, w_hh, bias)
+    return ops, one, _gate_activations(x, h_seq, w_ih, w_hh, bias)
 
 
 def _bwd_step_plain(dh_seq, pre, h_seq, c_seq, w_hh) -> torch.Tensor:
@@ -1133,10 +1220,10 @@ def bilstm_bwd_split(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> torch.Tensor:
 
 
 def _check_xp(xp: torch.Tensor, w_hh: torch.Tensor,
-              threads: bool = True) -> tuple[int, int, int, int]:
-    """Validate the v5 kernels' ``xp (S, B, T, 8H)`` and ``w_hh (S, 2, 4H,
-    H)``; returns ``(S, B, T, H)``. ``threads``: the kernel runs 4H threads
-    a block (row 5; row 4's limits are :func:`cluster_plan`'s)."""
+              dtypes: tuple[torch.dtype, ...] = F32) -> tuple[int, int, int, int]:
+    """Validate the v5 kernels' ``xp (S, B, T, 8H)`` fp32 and ``w_hh (S, 2,
+    4H, H)`` of one of ``dtypes``; returns ``(S, B, T, H)``. The hidden
+    size's limits are :func:`cluster_plan`'s."""
     if xp.dim() != 4 or 0 in xp.shape:
         raise ValueError(f"xp must be a non-empty (B, T, 8H) or (S, B, T, 8H) tensor, "
                          f"got {tuple(xp.shape)}")
@@ -1144,10 +1231,8 @@ def _check_xp(xp: torch.Tensor, w_hh: torch.Tensor,
     h = w_hh.shape[-1]
     if s > MAX_MODELS:
         raise ValueError(f"{s} models > {MAX_MODELS}: the model axis is the grid's z axis")
-    if threads and not 0 < 4 * h <= 1024:
-        raise ValueError(f"hidden size {h}: the kernels run 4H <= 1024 threads")
     check_cuda("xp", xp, xp.device, (s, b, t, 8 * h))
-    check_cuda("w_hh", w_hh, xp.device, (s, 2, 4 * h, h))
+    check_cuda("w_hh", w_hh, xp.device, (s, 2, 4 * h, h), dtypes)
     return s, b, t, h
 
 
@@ -1173,7 +1258,7 @@ def bilstm_fwd_xp(xp, w_hh) -> tuple[torch.Tensor, torch.Tensor]:
         return bilstm_fwd_xp_plain(xp, w_hh)
     _check_device(xp)
     (xp, w_hh), one = with_models(xp, w_hh)
-    s, b, t, h = _check_xp(xp, w_hh, threads=False)
+    s, b, t, h = _check_xp(xp, w_hh)
     h_seq = torch.empty(s, b, t, 2 * h, device=xp.device, dtype=torch.float32)
     c_seq = torch.empty(s, 2, t, b, h, device=xp.device, dtype=torch.float32)
     _launch_rec(FWD_XP_KERNEL, xp, w_hh, h_seq, c_seq)
@@ -1188,29 +1273,41 @@ def bilstm_bwd_xp_plain(dh_seq, xp, h_seq, c_seq, w_hh) -> torch.Tensor:
 
 
 def bilstm_bwd_xp(dh_seq, xp, h_seq, c_seq, w_hh) -> torch.Tensor:
-    """The v5 reverse sweep (``_bwd_kernel``): :func:`bilstm_bwd_split`'s
-    contract, with each step's gates recomputed from ``xp + h_prev W_hh^T``
-    and the forward's ``c_seq`` inside a per-block walk on CUDA cores
-    (``csrc/lstm_bwd.cu``). ``dxp`` is the gradient of ``xp``. fp32."""
+    """The v5 reverse sweep, row 5 (``_bwd_kernel``): :func:`bilstm_bwd_split`'s
+    contract, with each step's gates from ``xp + h_prev W_hh^T`` and the
+    forward's full ``c_seq`` (:func:`bilstm_fwd_xp`). ``dxp`` is the
+    gradient of ``xp``. fp32.
+
+    A CPU tensor takes :func:`bilstm_bwd_xp_plain`. A CUDA tensor launches
+    two kernels, or raises before the first: the gate activations
+    (:func:`bilstm_gemm` ``"gates_xp"``) into an fp32 ``(S, B, T, 8H)``
+    buffer, then :func:`bilstm_sweep` at K = 1 over ``c_seq``, which
+    overwrites them with dgates: that buffer is ``dxp``. The hidden size's
+    limits are the sweep's :func:`cluster_plan`. One call counts one launch
+    of ``BWD_XP_KERNEL``."""
     if xp.device.type == "cpu":
         return bilstm_bwd_xp_plain(dh_seq, xp, h_seq, c_seq, w_hh)
     _check_device(xp)
     (dh_seq, xp, h_seq, c_seq, w_hh), one = with_models(dh_seq, xp, h_seq, c_seq, w_hh)
-    s, b, t, h = _check_xp(xp, w_hh)
-    for name, a in (("dh_seq", dh_seq), ("h_seq", h_seq)):
-        check_cuda(name, a, xp.device, (s, b, t, 2 * h))
-    _check_c_seq(c_seq, s, b, t, h, xp.device)
-    _check_max_hidden(h)
-    _check_smem(_ROWS_PER_BLOCK * 10 * h, f"hidden size {h}")
-    w_hh_t = _transposed(w_hh)
-    dxp = torch.empty(s, b, t, 8 * h, device=xp.device, dtype=torch.float32)
-    BWD_XP_KERNEL.launch(xp.device, ptr(dh_seq), ptr(xp), ptr(h_seq), ptr(c_seq), ptr(w_hh_t),
-                         ptr(w_hh), ptr(dxp), s, b, t, h)
+    _check_bwd_xp(dh_seq, xp, h_seq, c_seq, w_hh)
+    dxp = bilstm_sweep(_gate_activations_xp(xp, h_seq, w_hh), dh_seq, c_seq, w_hh, 1)
+    BWD_XP_KERNEL.launches += 1
     return dxp[0] if one else dxp
 
 
+def _check_bwd_xp(dh_seq, xp, h_seq, c_seq, w_hh) -> None:
+    """Validate row 5's model-axis-first CUDA operands before any launch:
+    fp32 only, the GEMM's 4-vector hidden size, ``h_seq``, ``dh_seq``, the
+    full ``c_seq`` and a cluster plan of the sweep."""
+    s, b, t, h = _check_xp(xp, w_hh)
+    _check_widths(0, h)
+    check_cuda("h_seq", h_seq, xp.device, (s, b, t, 2 * h))
+    _check_sweep(dh_seq, 1, s, b, t, h, xp.dtype, xp.device)
+    _check_c_seq(c_seq, s, b, t, h, xp.device)
+    cluster_plan("sweep", s, b, h, xp.dtype, _sm_count(xp.device.index))
+
+
 _CbndK = _kernel_function(bilstm_cbndk, 0, ":func:`bilstm_cbndk` as a Function.")
-_Cseq = _kernel_function(bilstm_cseq, 0, ":func:`bilstm_cseq` as a Function.")
-_Bwdc = _kernel_function(bilstm_bwdc, (0, 0), ":func:`bilstm_bwdc` as a Function.")
-_BwdSplit = _kernel_function(bilstm_bwd_split, 0, ":func:`bilstm_bwd_split` as a Function.")
+_V8Bwd = _kernel_function(bilstm_v8_bwd, (0, 0), ":func:`bilstm_v8_bwd` as a Function.")
+_V6Bwd = _kernel_function(bilstm_v6_bwd, 0, ":func:`bilstm_v6_bwd` as a Function.")
 _BwdXp = _kernel_function(bilstm_bwd_xp, 0, ":func:`bilstm_bwd_xp` as a Function.")

@@ -1,7 +1,7 @@
 """Time and accuracy of the BiLSTM's tensor-core GEMM (csrc/lstm_gemm.cu),
 mode by mode, on one CUDA card.
 
-For each mode (proj, gates, dx, dw), storage dtype (fp32, bf16), model count
+For each mode (proj, gates, dx, dw, gates_xp), storage dtype (fp32, bf16), model count
 S (1, 24) and input set, at the flagship layer (B=64, T=73, I=256, H=128):
 the kernel's median time over --reps calls (CUDA events), and the largest
 error, against an fp64 evaluation of the same products, of
@@ -90,18 +90,24 @@ def main() -> int:
                 if data == "layer":
                     dg = dg * 0.01
                 ops = (x, w_ih, w_hh, bias)
+                xp = lstm.bilstm_gemm_plain("proj", *ops)
                 for mode in lstm.GEMM_MODES:
-                    def kern(m=mode):
-                        return lstm.bilstm_gemm(m, *ops, h_seq=h_seq, dg=dg)
+                    # "gates_xp" (a tree that has it) adds the fp32 xp after
+                    # its product: xp is not rounded to TF32 in t32
+                    kw = {"xp": xp} if mode == "gates_xp" else {}
+                    kw64 = {"xp": xp.double()} if mode == "gates_xp" else {}
+
+                    def kern(m=mode, kw=kw):
+                        return lstm.bilstm_gemm(m, *ops, h_seq=h_seq, dg=dg, **kw)
 
                     got = kern()
-                    want = lstm.bilstm_gemm_plain(mode, *ops, h_seq=h_seq, dg=dg)
+                    want = lstm.bilstm_gemm_plain(mode, *ops, h_seq=h_seq, dg=dg, **kw)
                     ref = lstm.bilstm_gemm_plain(mode, *(a.double() for a in ops),
-                                                 h_seq=h_seq.double(), dg=dg.double())
+                                                 h_seq=h_seq.double(), dg=dg.double(), **kw64)
                     t32 = lstm.bilstm_gemm_plain(
                         mode, *(tf32_round(a).double() for a in (x, w_ih, w_hh)),
                         bias.double(), h_seq=tf32_round(h_seq).double(),
-                        dg=tf32_round(dg).double())
+                        dg=tf32_round(dg).double(), **kw64)
                     scale = ref.abs().max().item()
                     err = {name: (v.double() - ref).abs().max().item()
                            for name, v in (("kernel", got), ("fp32", want), ("tf32", t32))}
@@ -116,7 +122,7 @@ def main() -> int:
                           f"({err['kernel'] / scale:.2e} rel), fp32 {err['fp32']:.3e} "
                           f"({err['fp32'] / scale:.2e}), tf32 {err['tf32']:.3e} "
                           f"({err['tf32'] / scale:.2e})", flush=True)
-                del x, w_ih, w_hh, bias, h_seq, dg
+                del x, w_ih, w_hh, bias, h_seq, dg, xp
                 torch.cuda.empty_cache()
     out = ROOT / "chiprun_out" / f"gemm_{args.label}.json"
     out.parent.mkdir(exist_ok=True)

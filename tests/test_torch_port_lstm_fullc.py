@@ -20,12 +20,16 @@ B=5, T=11, I=12, H=64; ``small``: S=2, B=8, T=9, I=16, H=8):
   ``_cseq_call`` slot for slot (1e-5), and the sweep over either c equal
   (direction 1 enters segment m from slot m + 1, c at actual time m + 1);
 - the v8 and v6 layer under ``torch.func.vmap(grad_and_value)`` against
-  per-model autograd of the v9 layer (1e-5), and each row's ``vmap`` rule;
+  per-model autograd of the v9 layer (1e-5), and the ``vmap`` rule of each
+  one's layer backward (``bilstm_v8_bwd``, ``bilstm_v6_bwd``: rows 6 and 8,
+  or 6 and 7, on one gate GEMM);
 - the refusals that come before any launch.
 
 The ``gpu``-marked tests count each row's launches (row 8: 3 GEMMs and 1
-sweep; row 7: 1 GEMM and 1 sweep; nothing else) and hold each row against
-its plain version at ``CARD_SHAPES``. They skip without a card and import no
+sweep; row 7: 1 GEMM and 1 sweep; row 6: 1 GEMM and 1 c scan; row 5: 1
+GEMM and 1 sweep; nothing else) and each layer backward's (the gate GEMM
+once), and hold rows 8 and 7 against their plain versions at
+``CARD_SHAPES``. They skip without a card and import no
 JAX: ``python -m pytest --noconftest -m gpu tests/test_torch_port_lstm_fullc.py``.
 """
 
@@ -172,9 +176,9 @@ def test_cseq_is_the_k1_checkpoints(shape):
 def test_full_c_layer_under_vmap_grad(schedule):
     """x and every weight's gradient of S models through one
     ``vmap(grad_and_value)`` of the layer under ``schedule`` equal per-model
-    autograd of the v9 layer (the same function); the row's ``vmap`` rule,
-    called directly with an unbatched bias, gives what the wrapper gives on
-    the stacked tensors."""
+    autograd of the v9 layer (the same function); the ``vmap`` rule of the
+    layer backward's Function, called directly with an unbatched bias,
+    gives what its wrapper gives on the stacked tensors."""
     s = SHAPES["small"][0]
     dh, x, h_seq, c_seq, w_ih, w_hh, bias = _operands(3, "small")
     fwd = (w_ih[:, 0], w_hh[:, 0], bias[:, 0], torch.zeros_like(bias[:, 0]))
@@ -192,11 +196,11 @@ def test_full_c_layer_under_vmap_grad(schedule):
         for g, leaf in zip(got, leaves):
             torch.testing.assert_close(g, leaf.grad, rtol=0, atol=1e-5)
 
-    fn, wrapper = ((lstm._Bwdc, lstm.bilstm_bwdc) if schedule == "v8"
-                   else (lstm._BwdSplit, lstm.bilstm_bwd_split))
-    rule = vmap(fn.apply, in_dims=(0,) * 6 + (None,))
-    got = rule(dh, x, h_seq, c_seq, w_ih, w_hh, bias[0])
-    want = wrapper(dh, x, h_seq, c_seq, w_ih, w_hh, bias[:1].expand(s, -1, -1))
+    fn, wrapper = ((lstm._V8Bwd, lstm.bilstm_v8_bwd) if schedule == "v8"
+                   else (lstm._V6Bwd, lstm.bilstm_v6_bwd))
+    rule = vmap(fn.apply, in_dims=(0,) * 5 + (None,))
+    got = rule(dh, x, h_seq, w_ih, w_hh, bias[0])
+    want = wrapper(dh, x, h_seq, w_ih, w_hh, bias[:1].expand(s, -1, -1))
     for g, r in zip(*(((a,) if isinstance(a, torch.Tensor) else a) for a in (got, want))):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
 
@@ -252,7 +256,20 @@ def test_full_c_hidden_limit_is_the_sweep_plan(monkeypatch, h, refused):
 
 # (S, B, T, I, H): ragged, and the LOSO layer at full width over two models
 CARD_SHAPES = {"ragged": (3, 5, 11, 12, 64), "layer": (2, 64, 73, 256, 128)}
-ROWS = {"bilstm_bwdc": (lstm.BWDC_KERNEL, 3), "bilstm_bwd_split": (lstm.BWD_SPLIT_KERNEL, 1)}
+ROWS = ("bilstm_bwdc", "bilstm_bwd_split")
+# each row's call counter, its operands from _card_operands' and the pieces
+# one call launches
+ROW_LAUNCHES = {
+    "bilstm_bwdc": (lstm.BWDC_KERNEL, lambda dh, x, h, c, *w: (dh, x, h, c, *w),
+                    {"bilstm_gemm": 3, "bilstm_sweep": 1}),
+    "bilstm_bwd_split": (lstm.BWD_SPLIT_KERNEL, lambda dh, x, h, c, *w: (dh, x, h, c, *w),
+                         {"bilstm_gemm": 1, "bilstm_sweep": 1}),
+    "bilstm_cseq": (lstm.CSEQ_KERNEL, lambda dh, x, h, c, *w: (x, h, *w),
+                    {"bilstm_gemm": 1, "bilstm_cscan": 1}),
+    "bilstm_bwd_xp": (lstm.BWD_XP_KERNEL,
+                      lambda dh, x, h, c, *w: (dh, lstm._projection(x, w[0], w[2]), h, c, w[1]),
+                      {"bilstm_gemm": 1, "bilstm_sweep": 1}),
+}
 
 
 @pytest.fixture
@@ -294,27 +311,28 @@ def test_full_c_row_matches_plain(cuda, shape, name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", sorted(ROWS))
+@pytest.mark.parametrize("name", sorted(ROW_LAUNCHES))
 def test_full_c_row_launches(cuda, name):
-    """One call of row 8 launches 3 GEMMs and 1 sweep, one of row 7 1 GEMM
-    and 1 sweep, and counts one call of the row; nothing else launches."""
-    ops = _card_operands(cuda, "ragged", 61)
-    counter, gemms = ROWS[name]
+    """One call of row 8 launches 3 GEMMs and 1 sweep, one of row 7 or row 5
+    1 GEMM and 1 sweep, one of row 6 1 GEMM and 1 c scan, and counts one
+    call of the row; nothing else launches."""
+    counter, args, pieces = ROW_LAUNCHES[name]
+    ops = args(*_card_operands(cuda, "ragged", 61))
     kernels.reset_launch_counts()
     with torch.no_grad():
         getattr(lstm, name)(*ops)
     torch.cuda.synchronize()
     assert counter.launches == 1
-    assert {n: c for n, c in kernels.launch_counts().items() if c} == {
-        name: 1, "bilstm_gemm": gemms, "bilstm_sweep": 1}
+    assert {n: c for n, c in kernels.launch_counts().items() if c} == {name: 1, **pieces}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("schedule", ["v8", "v6"])
 def test_full_c_layer_backward_launches(cuda, schedule):
-    """One layer backward of S models under ``vmap(grad)``: row 6 once, then
-    row 8 (v8) or row 7 (v6) once, with their GEMMs and one sweep; no v9,
-    v9.1 or v5 kernel."""
+    """One layer backward of S models under ``vmap(grad)``: one call of row 6
+    and one of row 8 (v8) or row 7 (v6) on one gate GEMM: v8 the gates, the
+    c scan, the sweep, dx and dW_cat; v6 the gates, the c scan and the
+    sweep; no v9, v9.1 or v5 kernel."""
     dh, x, _, _, w_ih, w_hh, bias = _card_operands(cuda, "ragged", 62)
     fwd = (w_ih[:, 0], w_hh[:, 0], bias[:, 0], torch.zeros_like(bias[:, 0]))
     bwd = (w_ih[:, 1], w_hh[:, 1], bias[:, 1], torch.zeros_like(bias[:, 1]))
@@ -328,4 +346,5 @@ def test_full_c_layer_backward_launches(cuda, schedule):
     torch.cuda.synchronize()
     got = {n: c - forward[n] for n, c in kernels.launch_counts().items() if c - forward[n]}
     row, gemms = ("bilstm_bwdc", 3) if schedule == "v8" else ("bilstm_bwd_split", 1)
-    assert got == {"bilstm_cseq": 1, row: 1, "bilstm_gemm": gemms, "bilstm_sweep": 1}
+    assert got == {"bilstm_cseq": 1, row: 1, "bilstm_gemm": gemms, "bilstm_cscan": 1,
+                   "bilstm_sweep": 1}

@@ -182,8 +182,9 @@ def test_cpu_pieces_launch_nothing():
     h_seq = lstm.bilstm_fwd(x, w_ih, w_hh, bias)
     c_bnd = lstm.bilstm_cbnd(x, h_seq, w_ih, w_hh, bias)
     lstm.bilstm_segbwd(dh, x, h_seq, c_bnd, w_ih, w_hh, bias)
+    packed = torch.zeros(S, B, T, 8 * H)
     for mode in lstm.GEMM_MODES:
-        lstm.bilstm_gemm(mode, x, w_ih, w_hh, bias, h_seq=h_seq, dg=torch.zeros(S, B, T, 8 * H))
+        lstm.bilstm_gemm(mode, x, w_ih, w_hh, bias, h_seq=h_seq, dg=packed, xp=packed)
     lstm.bilstm_rec(torch.zeros(S, B, T, 8 * H), w_hh)
     assert [k.launches for k in kernels] == before
     with pytest.raises(ValueError):
@@ -275,15 +276,17 @@ def _card_case(cuda, shape, dtype, seed, scale=0.1):
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_gemm_kernel_matches_plain(cuda, shape, dtype, mode):
     """fp32 operands as 3xTF32, bf16 ones as stored: fp32-accurate, within
-    1e-5 of each output's largest entry."""
+    1e-5 of each output's largest entry. ``"gates_xp"`` reads the fp32
+    projection ``xp`` of the same layer."""
     x, w, _ = _card_case(cuda, shape, dtype, 10)
     h_seq = lstm.bilstm_fwd_plain(x, *w)
     dg = torch.randn(*h_seq.shape[:-1], 8 * w[1].shape[-1], device=cuda)
+    xp = lstm.bilstm_gemm_plain("proj", x, *w)
     kernel = lstm.GEMM_KERNELS[DTYPES[dtype]]
     before = kernel.launches
-    got = lstm.bilstm_gemm(mode, x, *w, h_seq=h_seq, dg=dg)
+    got = lstm.bilstm_gemm(mode, x, *w, h_seq=h_seq, dg=dg, xp=xp)
     assert kernel.launches == before + 1
-    want = lstm.bilstm_gemm_plain(mode, x, *w, h_seq=h_seq, dg=dg)
+    want = lstm.bilstm_gemm_plain(mode, x, *w, h_seq=h_seq, dg=dg, xp=xp)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == want.shape
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * max(want.abs().max().item(), 1.0))
