@@ -15,7 +15,8 @@ It needs a CUDA card and exits non-zero without one. In order, it
    ``multimodal_sentiment_aanalysis_tpu_torch/csrc`` with nvcc, one process
    per source, all at once, and beside them prints ptxas's registers and
    spills of each instantiation of the three flash kernels (``nvcc -Xptxas
-   -v``), failing if a backward form at D <= 64 spills;
+   -v``), failing if a backward form at D <= 64 spills, and of the stem
+   tail's forward (its four forms) and the serving conv stem;
 2. serving: builds the full-width flagship model (feat_dim=256) from a seeded
    ``torch.Generator`` with perturbed BatchNorm running stats, and a pool of
    480 synthetic samples at MAHNOB-HCI shapes resident on the card; serves
@@ -112,10 +113,19 @@ It needs a CUDA card and exits non-zero without one. In order, it
    bytes over 3.35 TB/s and its operations over the peak rate for their
    type: 67 TFLOP/s fp32, 989 TFLOP/s bf16, 495 TFLOP/s per TF32 pass of
    the GEMM and of the flash kernels' products, three passes each, plus
-   their softmax at the fp32 rate), prints each attention case's backward
-   pair (dQ + dK/dV) against SDPA's backward, and checks the stem tail's
-   dropout (keep share 1 - p within 5 sigma, every output exactly 0 or
-   GELU(y) / (1 - p));
+   their softmax at the fp32 rate; the conv stem's products as three TF32
+   passes plus its epilogue at the fp32 rate), prints each attention
+   case's backward pair (dQ + dK/dV) against SDPA's backward, and checks
+   the stem tail's dropout (keep share 1 - p within 5 sigma, every output
+   exactly 0 or GELU(y) / (1 - p)); the stem tail also at p = 0.4 with
+   its seeds given (S=1 and S=24, fp32 and bf16) against the plain version
+   fed the CPU Philox model's mask (``conv_stem_train.keep_mask_plain``),
+   its keep bits at pool 1 against that model bit for bit at each LOSO
+   stage's shape (S=24 and subject 0 alone, fp32 and bf16), and its
+   one-model cases split into the wrapper's host time and the device time
+   under torch.profiler; the conv stem also against fp64 (1e-5 of the
+   largest entry, a bar one TF32 pass misses,
+   ``tests/test_torch_port_stem_rows23.py``);
 8. prints the card's name and power limit, one JSON line of per-kernel
    results (one entry per kernel a path launched; the InfoNCE kernel's
    bf16 form, which no path launches because the bf16 step's InfoNCE
@@ -281,6 +291,14 @@ GEMM_REL = {"proj": 1e-5, "gates": 1e-5, "dx": 1e-5, "dw": 1e-5, "gates_xp": 1e-
 # 200 / 100, the fp32 plain version meets it
 # (tests/test_torch_port_flash_fwd_tc.py, tests/test_torch_port_flash_bwd_tc.py)
 FLASH_FP64_REL = 1e-5
+# the serving conv stem (3xTF32 on the tensor cores) against fp64
+# (conv_check): max |err| over the largest fp64 entry, a bar one TF32 pass
+# misses (tests/test_torch_port_stem_rows23.py)
+CONV_FP64_REL = 1e-5
+# the stem tail's dropout seeds, one per model, given explicitly so that its
+# keep mask can be held bit for bit against the CPU Philox model
+# (conv_stem_train.keep_mask_plain) whatever a generator's state
+STEM_SEED_BASE = 2 ** 40 + 12345
 BF16_RTOL = 2.0 ** -7  # a bf16 output of a bf16 form: one ulp of the value on top of its atol
 # ME-MHACL: the MAHNOB-HCI trial count of the other phases, the reference
 # batch, full width
@@ -596,7 +614,9 @@ def serving_kernel_cases(model, eeg: torch.Tensor, cases: dict) -> None:
         cases["conv_stem"].append((
             f"k {conv.weight.shape[2]} pool {pool} {tuple(h.shape)}",
             lambda a=args: conv_stem.fused_conv_bn_gelu_pool(*a),
-            lambda a=args: conv_stem.fused_conv_bn_gelu_pool_plain(*a), args))
+            lambda a=args: conv_stem.fused_conv_bn_gelu_pool_plain(*a), args,
+            lambda a=args: conv_stem.fused_conv_bn_gelu_pool_plain(
+                *(v.double() for v in a[:4]), *a[4:])))
         h = conv_stem.fused_conv_bn_gelu_pool_plain(*args)
 
 
@@ -727,6 +747,14 @@ def training_kernel_cases(model, batch: dict, mask: torch.Tensor, gen: torch.Gen
             lambda a=args, p=pool: conv_stem_train.stem_tail_fwd(*a, 0.0, p),
             lambda a=args, p=pool: conv_stem_train.fused_stage_train_plain(
                 *a, p, with_code=True), args))
+        seeds = stem_seeds(1, y.device)
+        cases["stem_tail"].append((
+            f"train pool {pool} {shape} batch stats, p {DROPOUT_P}, writes the code",
+            lambda a=args, sd=seeds, p=pool: conv_stem_train.stem_tail_fwd_seeded(
+                *a, DROPOUT_P, p, sd),
+            lambda a=args, k=keep_mask(seeds, shape), p=pool: conv_stem_train.fused_stage_train_plain(
+                *a, p, 1e-5, DROPOUT_P, k, with_code=True),
+            (*args, seeds, keep_mask(seeds, shape))))
         out, code = conv_stem_train.stem_tail_fwd(*args, DROPOUT_P, pool, generator=gen)
         inv = torch.rsqrt(var + bn.eps)
         bwd_args = (y, torch.randn(out.shape, device=y.device, generator=gen), code,
@@ -1166,6 +1194,58 @@ def schedule_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator, cases
         x = h_seq
 
 
+def loso_stem_stages(vt: VectorizedLOSOTrainer) -> list[tuple]:
+    """The LOSO step's two stem stages: (conv shape (S, B, T, C), BatchNorm
+    prefix, pool)."""
+    tc = "eeg_net.temp_conv"
+    pd = vt._param_dict(vt.params)
+    t_eeg = vt.data.arrays["eeg"].shape[2]
+    return [((vt.n_subjects, BATCH, t_eeg, pd[f"{tc}.1.weight"].shape[1]), f"{tc}.1", 4),
+            ((vt.n_subjects, BATCH, t_eeg // 4, pd[f"{tc}.6.weight"].shape[1]), f"{tc}.6", 2)]
+
+
+def stem_seeds(s_n: int, device: torch.device) -> torch.Tensor:
+    """One int64 dropout seed per model, given to the stem tail."""
+    return STEM_SEED_BASE + 7919 * torch.arange(s_n, device=device, dtype=torch.int64)
+
+
+_KEEP_MASKS: dict = {}
+
+
+def keep_mask(seeds: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``conv_stem_train.keep_mask_plain`` at DROPOUT_P (the CPU Philox
+    model), on the seeds' device; computed once per seeds and shape."""
+    key = (tuple(seeds.tolist()), tuple(shape))
+    if key not in _KEEP_MASKS:
+        _KEEP_MASKS[key] = conv_stem_train.keep_mask_plain(seeds.cpu(), shape, DROPOUT_P).to(
+            seeds.device)
+    return _KEEP_MASKS[key]
+
+
+def mask_check(vt: VectorizedLOSOTrainer, gen: torch.Generator) -> None:
+    """Row 2's keep bits against the CPU Philox model, bit for bit: at pool
+    1 the code of every element is its keep bit. Each LOSO stage's conv
+    shape at S=24 and its subject 0 alone (S=1), fp32 and bf16, p =
+    DROPOUT_P, the seeds given."""
+    for shape, _, _ in loso_stem_stages(vt):
+        seeds = stem_seeds(shape[0], vt.device)
+        keep = keep_mask(seeds, shape)
+        conv = torch.randn(shape, device=vt.device, generator=gen)
+        ones = torch.ones(shape[0], shape[-1], device=vt.device)
+        zeros = torch.zeros_like(ones)
+        for dtype in (torch.float32, BF16):
+            x = conv.to(dtype)
+            _, code = conv_stem_train.stem_tail_fwd_seeded(x, ones, zeros, zeros, ones,
+                                                           DROPOUT_P, 1, seeds)
+            _, one = conv_stem_train.stem_tail_fwd_seeded(x[0], ones[0], zeros[0], zeros[0],
+                                                          ones[0], DROPOUT_P, 1, seeds[:1])
+            same = torch.equal(code, keep.int()) and torch.equal(one, keep[0].int())
+            print(f"stem-tail keep mask {tuple(shape)} {dtype} p {DROPOUT_P}: the kernel's keep "
+                  f"bits at S={shape[0]} and at subject 0 alone equal the CPU Philox model's "
+                  f"bit for bit: {same} (keep share {keep.double().mean().item():.6f})")
+            check(same, "stem-tail keep mask differs from the CPU Philox model")
+
+
 def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator,
                       one_model: dict | None = None) -> dict:
     """(label, kernel call, plain call) at the LOSO step's S=24 shapes: the
@@ -1192,11 +1272,9 @@ def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator,
             one_model[name + sfx].append((f"subject 0 of S={s_n} {label}", lambda: fn(*a0),
                                           lambda: plain(*a0), a0))
 
-    tc = "eeg_net.temp_conv"
+    width = pd["eeg_net.temp_conv.6.weight"].shape[1]  # feat_dim
     t_eeg = vt.data.arrays["eeg"].shape[2]
-    width = pd[f"{tc}.6.weight"].shape[1]  # feat_dim
-    for conv_shape, bn, pool in (((s_n, BATCH, t_eeg, pd[f"{tc}.1.weight"].shape[1]), f"{tc}.1", 4),
-                                 ((s_n, BATCH, t_eeg // 4, width), f"{tc}.6", 2)):
+    for conv_shape, bn, pool in loso_stem_stages(vt):
         y = randn(*conv_shape)
         mean = y.mean((1, 2))
         var = (y * y).mean((1, 2)) - mean * mean
@@ -1205,6 +1283,14 @@ def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator,
             lambda *a, p=pool: conv_stem_train.stem_tail_fwd(*a, 0.0, p),
             lambda *a, p=pool: conv_stem_train.fused_stage_train_plain(*a, p, with_code=True),
             args)
+        # p > 0 with the seeds given: the plain version fed the CPU Philox
+        # model's mask (a bool tensor: no byte the kernel moves)
+        seeds = stem_seeds(s_n, device)
+        add("stem_tail", f"pool {pool} {conv_shape} batch stats, p {DROPOUT_P}, writes the code",
+            lambda *a, p=pool: conv_stem_train.stem_tail_fwd_seeded(*a[:5], DROPOUT_P, p, a[5]),
+            lambda *a, p=pool: conv_stem_train.fused_stage_train_plain(
+                *a[:5], p, 1e-5, DROPOUT_P, a[6], with_code=True),
+            (*args, seeds, keep_mask(seeds, conv_shape)))
         out, code = conv_stem_train.stem_tail_fwd(*args, DROPOUT_P, pool, generator=gen)
         inv = torch.rsqrt(var + 1e-5)
         scale = args[1] * inv
@@ -1677,6 +1763,28 @@ def flash_check(name: str, label: str, got, ref, scales=None) -> None:
               f"{name} {label}: {what} {err:.3e} from fp64 > {FLASH_FP64_REL * scale:.3e}")
 
 
+def conv_check(label: str, got, ref) -> None:
+    """Holds one conv-stem case to CONV_FP64_REL of its largest fp64
+    entry (the plain version in fp64, cuDNN's conv with TF32 off)."""
+    largest = ref.abs().max().item()
+    err = (got.double() - ref).abs().max().item()
+    print(f"conv_stem {label}: against fp64, max |ref| {largest:.4g}; kernel {err:.3e} "
+          f"({err / largest:.2e} of it); bar {CONV_FP64_REL:.0e} of max |ref|")
+    check(err <= CONV_FP64_REL * largest,
+          f"conv_stem {label}: {err:.3e} from fp64 > {CONV_FP64_REL * largest:.3e}")
+
+
+def conv_ops_ms(args) -> float:
+    """The least time for a conv-stem case's operations: its products as
+    three TF32 passes on the tensor cores, fp32-accurate as the kernel runs
+    them, and the epilogue's 12 operations an output position and channel
+    (folded BN, GELU, the pool's compare) at the fp32 rate."""
+    x, w = tensors(args)[:2]
+    out = x.shape[0] * x.shape[1] * w.shape[0]
+    return (3 * 2 * out * w.shape[1] * w.shape[2] / PEAK_TF32_FLOPS
+            + 12 * out / PEAK_FP32_FLOPS) * 1e3
+
+
 def flash_ops_ms(name: str, args) -> float:
     """The least time for a flash case's operations: its products (two in
     the forward, three for dQ, four for dK/dV) as three TF32 passes on the
@@ -1688,15 +1796,30 @@ def flash_ops_ms(name: str, args) -> float:
     return (3 * per * scores * q.shape[2] / PEAK_TF32_FLOPS + 4 * scores / PEAK_FP32_FLOPS) * 1e3
 
 
-def flash_registers(report: str) -> list[str]:
-    """One line per instantiation of the flash kernels (head dim D, streamed
-    tile) from ptxas's report: its registers and spills."""
+def flash_form(m) -> str:
+    """A flash kernel's instantiation (head dim D, streamed tile)."""
+    tile = "kBk" if m.group(1) != "flash_bwd_dkv_kernel" else "kBq"
+    return f"{m.group(1)}<D={m.group(2)}, {tile}={m.group(3)}>"
+
+
+FLASH_FORMS = (r"(flash_\w+_kernel)ILi(\d+)ELi(\d+)E", flash_form)
+# rows 2 and 3: the stem tail's forward per element type and access
+# (16-byte vectors or scalars), and the conv stem's one kernel
+STEM_FORMS = (r"(stem_tail_fwd_kernel)I(f|13__nv_bfloat16)Lb([01])E|(conv_stem_kernel)",
+              lambda m: m.group(4) or (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}"
+                                       f", {'vector' if m.group(3) == '1' else 'scalar'}>"))
+
+
+def ptxas_registers(report: str, forms: tuple) -> list[str]:
+    """One line per kernel instantiation that ``forms`` (a regex on the
+    mangled name, and the instantiation's name from its match) picks from
+    ptxas's report: its registers and spills."""
+    pattern, form = forms
     lines, kernel = [], None
     for line in report.splitlines():
-        m = re.search(r"Function properties for \S*(flash_\w+_kernel)ILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"Function properties for \S*?(?:" + pattern + ")", line)
         if m:
-            tile = "kBk" if m.group(1) != "flash_bwd_dkv_kernel" else "kBq"
-            kernel = f"{m.group(1)}<D={m.group(2)}, {tile}={m.group(3)}>"
+            kernel = form(m)
             spills = "no spill line"
         elif "Function properties for" in line:
             kernel = None
@@ -1712,8 +1835,9 @@ def flash_registers(report: str) -> list[str]:
 def moved_bytes(name: str, args, res) -> int:
     """Bytes one call must move: each input read once, each output written
     once. The c scan's function reads only the i, f and g columns of its
-    activations (6H of each row's 8H)."""
-    ins = tensors(args)
+    activations (6H of each row's 8H); the stem tail's keep mask (a bool
+    tensor) is the plain version's input only: the kernel draws it."""
+    ins = [t for t in tensors(args) if t.dtype != torch.bool]
     nbytes = sum(x.numel() * x.element_size() for x in ins + tensors(res))
     if name == "bilstm_cscan":
         nbytes -= ins[0].numel() * ins[0].element_size() // 4
@@ -1751,6 +1875,8 @@ def case_results(name: str, items: list) -> dict:
               f"{name} {label}: outputs differ in shape")
         if exact and name.startswith("flash"):
             flash_check(name, label, got, *exact[0]())
+        elif exact and name == "conv_stem":
+            conv_check(label, got[0], exact[0]())
         elif exact:
             gemm_check(name, label, args[0], got[0], want[0], *exact[0]())
         diffs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
@@ -1761,6 +1887,7 @@ def case_results(name: str, items: list) -> dict:
         check(ok, f"{name} {label}: max |err| {e:.3e} > {limit}")
         nbytes = moved_bytes(name, args, res)
         ops_ms = (flash_ops_ms(name, args) if name.startswith("flash")
+                  else conv_ops_ms(args) if name == "conv_stem"
                   else operations(name, args, res) / peak_rate(name, args) * 1e3)
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         tk, tp = time_ms(kern), time_ms(plain)
@@ -1823,10 +1950,12 @@ def kernel_results(cases: dict, loso_cases: dict, counts: dict) -> list[dict]:
     return list(results.values())
 
 
-def profile_window(label: str, fn, top: int = 25, show: tuple[str, ...] = ()) -> None:
+def profile_window(label: str, fn, top: int = 25, show: tuple[str, ...] = (),
+                   share: str | None = None) -> None:
     """Device time by kernel over ``fn()`` under torch.profiler, against the
-    host clock of the same window: the ``top`` kernels, and every kernel
-    whose name holds one of ``show``."""
+    host clock of the same window: the ``top`` kernels, every kernel whose
+    name holds one of ``show``, and the share of the device time of the
+    kernels whose name holds ``share``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1840,6 +1969,39 @@ def profile_window(label: str, fn, top: int = 25, show: tuple[str, ...] = ()) ->
         if i < top or any(name in e.key for name in show):
             print(f"profile {label} {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x "
                   f"{e.key[:100]}")
+    if share:
+        part = [e for e in events if share in e.key]
+        ms = sum(e.self_device_time_total for e in part) / 1e3
+        print(f"profile {label}: {share} {ms:.3f} ms of the device time over "
+              f"{sum(e.count for e in part)} launches, {100 * ms / (total / 1e3):.2f}%")
+
+
+def stem_tail_split(name: str, items: list, calls: int = 100) -> None:
+    """Row 2's one-model cases split into host and device time: per call,
+    the CUDA-event time (as the kernel lines time it), the wrapper's host
+    time (``perf_counter`` over ``calls`` calls with no sync inside), and
+    under torch.profiler the device time of the stem kernel and of every
+    other launch the call makes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, kern, *_ in items:
+        events_ms = time_ms(kern)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(calls):
+            kern()
+        host_us = (time.perf_counter() - start) * 1e6 / calls
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                kern()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        kernel_us = sum(e.self_device_time_total for e in device if "stem_tail_fwd" in e.key)
+        other_us = sum(e.self_device_time_total for e in device) - kernel_us
+        print(f"stem_tail split {name} {label}: {events_ms:.4f} ms by CUDA events; host "
+              f"{host_us:.1f} us/call; device {kernel_us / calls:.2f} us/call in the kernel, "
+              f"{other_us / calls:.2f} us/call in other launches")
 
 
 def main() -> int:
@@ -1862,10 +2024,13 @@ def main() -> int:
     print(smi)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as pool:  # beside the builds, one nvcc more
-        report = pool.submit(ptxas_report, "flash_attn")
+    with ThreadPoolExecutor(max_workers=3) as pool:  # beside the builds, three nvcc more
+        reports = {name: pool.submit(ptxas_report, name)
+                   for name in ("flash_attn", "stem_tail", "conv_stem")}
         libs = build_all()
-        registers = flash_registers(report.result())
+        registers = ptxas_registers(reports["flash_attn"].result(), FLASH_FORMS)
+        stem_registers = ptxas_registers(reports["stem_tail"].result()
+                                         + reports["conv_stem"].result(), STEM_FORMS)
     print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in libs))
     # each kernel at every head dim and tile, but the forward at D = 128 and
@@ -1881,6 +2046,10 @@ def main() -> int:
     spilling = [line for line in registers if "bwd" in line and "D=128" not in line
                 and not line.endswith(", 0 bytes spill stores, 0 bytes spill loads")]
     check(not spilling, f"backward flash forms at D <= 64 spill: {spilling}")
+    # rows 2 and 3: four forms of the stem tail's forward, one conv stem
+    check(len(stem_registers) == 5, f"ptxas reported {len(stem_registers)} of 5 stem forms")
+    for line in stem_registers:
+        print(f"ptxas {line}")
 
     model, first, serve_counts, (pool, plan, fp32_logits) = serving_phase(device)
     serve_bf16_counts = serving_bf16_phase(model, pool, plan, fp32_logits)
@@ -1903,7 +2072,8 @@ def main() -> int:
     attention_counts, mha, x_attn = attention_phase(device)
     if args.profile:
         profile_window("train epoch", lambda: trainer.train_epoch(EPOCHS + 1), show=("cscan",))
-        profile_window("LOSO train epoch", vt.train_epoch, top=30, show=("cscan",))
+        profile_window("LOSO train epoch", vt.train_epoch, top=30, show=("cscan",),
+                       share="stem_tail_fwd")
         profile_window("LOSO bf16 train epoch", vt16.train_epoch, top=30, show=("cscan",))
         for schedule in ("v5", "v6", "v8"):  # the other schedules with dx and dW_cat in GEMMs
             vts = make_loso_trainer(full, lstm_schedule=schedule)
@@ -1929,9 +2099,12 @@ def main() -> int:
     memhacl_kernel_cases(encoder, classifier, val, cases)
     attention_kernel_cases(mha, x_attn, gen, cases)
     dropout_check(trainer.model, batch, gen)
+    mask_check(vt, gen)
     # the bf16 forms: the eval model forward cast to bf16, the bf16 LOSO step
     serving_kernel_cases(copy.deepcopy(model).to(BF16), first["eeg"].to(BF16), cases)
     loso_cases.update(loso_kernel_cases(vt16, gen, one_model=cases))
+    for name in ("stem_tail", "stem_tail_bf16"):
+        stem_tail_split(name, cases[name])
     print(json.dumps({"kernels": kernel_results(cases, loso_cases, counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,24 @@ __device__ __forceinline__ float gelu_erf_grad(float v) {
     return 0.5f * (1.0f + erff(v * 0.70710678118654752f)) + v * phi;
 }
 
+// One row of the EEG stem's epilogue, shared by the stem tail (stem_tail.cu)
+// and the serving conv stem (conv_stem.cu): the folded BatchNorm x scale +
+// shift, erf-GELU, dropout (a dropped row is 0, a kept one scaled by
+// keep_scale; keep and keep_scale 1 without dropout), then MaxPool's
+// first-max rule over the pool's rows: row j of the window replaces the
+// running max m, and the code (winner + pool * keep bit), as its first row
+// or where it is larger (torch MaxPool1d routes to the first max).
+__device__ __forceinline__ void stem_pool_row(float x, float scale, float shift, bool keep,
+                                              float keep_scale, int j, int pool, float& m,
+                                              int& code) {
+    float a = gelu_erf(fmaf(x, scale, shift));
+    a = keep ? a * keep_scale : 0.0f;
+    if (j == 0 || a > m) {
+        m = a;
+        code = j + pool * keep;
+    }
+}
+
 __device__ __forceinline__ float sigmoid_f(float v) { return 1.0f / (1.0f + expf(-v)); }
 
 // Warp-wide sum; every lane gets the total.

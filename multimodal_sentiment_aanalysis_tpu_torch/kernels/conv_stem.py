@@ -4,6 +4,19 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/kernels/conv_stem.py``:
 :func:`fused_conv_bn_gelu_pool` runs ``_stage_kernel``'s computation as the
 CUDA kernel in ``csrc/conv_stem.cu``, so the conv output never reaches
 device memory. ``eval/serving.py`` reaches it with ``use_pallas=True``.
+
+The kernel is an implicit GEMM a batch row on the tensor cores: M = the
+conv positions, N = the output channels, K = C x taps (tap-major). A block
+stages its input window (its ``TILE_M`` positions plus the ``K - 1`` halo,
+zero-filled at the sequence's ends) once in shared memory and splits it into
+TF32 high and low words; the transposed ``(K, C, O)`` weight streams through
+a cp.async ring in k-tiles of ``TILE_K`` input channels of one tap; each
+product is three TF32 ``mma.sync`` passes (3xTF32, fp32-accurate), each
+16-deep k-tile summed on the tensor cores and the k-tiles in fp32. The
+epilogue applies the folded BatchNorm and GELU and takes the pool's max
+across the accumulator rows (warp shuffles where the pool divides 8, shared
+memory otherwise), writing only the pooled rows. A position tile holds
+``TILE_M // pool`` whole pool windows.
 """
 
 from __future__ import annotations
@@ -20,9 +33,18 @@ KERNEL = CudaKernel(
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7,
 )
 
-_MAX_POOL = 8    # kMaxR in csrc/conv_stem.cu
-_THREAD_ROWS = 8  # kTY in csrc/conv_stem.cu
+# csrc/conv_stem.cu's tiling: conv positions, output channels and input
+# channels of one tap a tile, and the weight ring's depth
+TILE_M, TILE_N, TILE_K, STAGES = 64, 64, 16, 4
 _MAX_SMEM = 227 * 1024
+
+
+def smem_bytes(c: int, k: int) -> int:
+    """The kernel's shared memory at C input channels and K taps: the weight
+    ring, and the window's high and low TF32 words (``TILE_M + K - 1`` rows
+    of C rounded up to ``TILE_K``, plus 4)."""
+    cp = -(-c // TILE_K) * TILE_K
+    return 4 * (STAGES * TILE_K * (TILE_N + 8) + 2 * (TILE_M + k - 1) * (cp + 4))
 
 
 def fold_bn(gamma, beta, mean, var, conv_bias, eps: float = 1e-5):
@@ -62,19 +84,21 @@ def fused_conv_bn_gelu_pool(x: torch.Tensor, weight: torch.Tensor,
     o, c_w, k = weight.shape
     if c_w != c:
         raise ValueError(f"weight takes {c_w} input channels, x has {c}")
-    if not 1 <= pool <= _MAX_POOL:
-        raise ValueError(f"pool {pool}: the kernel takes 1 <= pool <= {_MAX_POOL}")
+    if not 1 <= pool <= TILE_M:
+        raise ValueError(f"pool {pool}: the kernel takes 1 <= pool <= {TILE_M}")
     if padding < 0 or (t + 2 * padding - k + 1) // pool < 1:
         raise ValueError(f"padding {padding} and pool {pool} leave no output for T={t}, K={k}")
-    smem = 4 * (_THREAD_ROWS * (_MAX_POOL // pool) * pool + k - 1) * c
-    if smem > _MAX_SMEM:
-        raise ValueError(f"{smem} bytes of shared memory > {_MAX_SMEM}")
+    if smem_bytes(c, k) > _MAX_SMEM:
+        raise ValueError(f"{smem_bytes(c, k)} bytes of shared memory > {_MAX_SMEM}")
+    if b > 65535:
+        raise ValueError(f"batch {b} > 65535: the batch row is the grid's z axis")
     check_cuda("x", x, device)
     check_cuda("weight", weight, device)
     check_cuda("scale", scale, device, (o,))
     check_cuda("shift", shift, device, (o,))
 
-    w_t = weight.permute(2, 1, 0).contiguous()  # (K, C, O)
+    w_t = weight.permute(2, 1, 0)  # (K, C, O), each row padded to a multiple of 4
+    w_t = F.pad(w_t, (0, -o % 4)) if o % 4 else w_t.contiguous()
     t_out = (t + 2 * padding - k + 1) // pool
     out = torch.empty(b, t_out, o, device=device, dtype=torch.float32)
     KERNEL.launch(device, ptr(x), ptr(w_t), ptr(scale), ptr(shift), ptr(out),

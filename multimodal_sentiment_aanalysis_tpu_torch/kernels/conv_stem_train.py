@@ -7,29 +7,41 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/kernels/conv_stem_train.py``
 ``csrc/stem_tail.cu``:
 
 - forward: one pass over ``conv (B, T, C)`` with the statistics it is
-  given, exact erf-GELU, dropout with p > 0 from an in-kernel Philox
-  generator seeded from a ``torch.Generator`` (no mask tensor exists), and
-  ``MaxPool1d(pool)`` routed to the first max. In train mode it also writes
-  one int32 code per pooled cell: winner index + ``pool`` * keep bit.
+  given (folded per block into ``scale = gamma rsqrt(var + eps)`` and
+  ``shift = beta - mean scale``), exact erf-GELU, dropout with p > 0 from
+  an in-kernel Philox generator (no mask tensor exists), and
+  ``MaxPool1d(pool)`` routed to the first max. A thread owns 4 consecutive
+  channels of its pooled cells (several where the pool is shorter than 8)
+  and keeps 8 of their window rows in flight as 16-byte vectors (8-byte in
+  bf16). In train mode it also writes one int32 code per pooled cell:
+  winner index + ``pool`` * keep bit.
 - backward: the code routes ``dpool`` to the winner, one ``gelu_grad``,
   kept cells scaled by ``1 / (1 - p)``; the kernel writes ``dy`` over the
   covered rows plus per-chunk partial dgamma/dbeta, summed here. The BN
   input-gradient combine ``inv * gamma * (dy - dbeta/N - xhat * dgamma/N)``
   and the zero tail rows stay in torch, as ``_fst_bwd`` keeps them in XLA.
 
+The dropout mask on the card: element ``e`` of model ``s`` (its flat index
+``(b T + t) C + c`` within the model) is kept iff word ``e mod 4`` of
+Philox4x32-10 at counter ``e div 4`` under the key ``seed[s]`` is at least
+``round(p 2^32)`` (:func:`keep_mask_plain`, the same stream in numpy). One
+Philox call serves four elements. The seeds, one int64 per model, are drawn
+on the device from a ``torch.Generator`` (:func:`stem_tail_fwd`) or given
+(:func:`stem_tail_fwd_seeded`). The JAX package's TPU bits differ by
+construction.
+
 Both kernels and their plain versions also take a leading model axis S:
 ``conv (S, B, T, C)`` with ``(S, C)`` statistics and affine parameters, one
-Philox seed per model drawn on the device, and per-model codes and
-partials, all S models in one launch. Under ``torch.func.vmap`` (with
-``randomness="different"`` when p > 0) the Functions' ``vmap`` rules make
-that one launch.
+Philox seed per model, and per-model codes and partials, all S models in
+one launch. Under ``torch.func.vmap`` (with ``randomness="different"`` when
+p > 0) the Functions' ``vmap`` rules make that one launch.
 
 The statistics enter without gradient (the caller computes them under
 ``no_grad``): the combine already carries their dependence, as in JAX.
 
 The plain versions take the keep mask as a tensor, so a test can feed the
-same random numbers to both packages; on the CPU the wrapper draws that mask
-from the generator with ``torch.rand``.
+same random numbers to both packages; on the CPU :func:`stem_tail_fwd`
+draws that mask from the generator with ``torch.rand``.
 
 Both kernels have an fp32 and a bf16 form, chosen by the dtype of ``conv``.
 As in the JAX kernels, the bf16 form reads bf16 ``conv`` (and ``dpool``)
@@ -45,6 +57,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ._build import (F32, F32_BF16, MAX_MODELS, check_cuda, kernel_forms, models_first, ptr,
@@ -71,6 +84,45 @@ def _threshold(p: float) -> int:
     """Keep an element iff its 32 random bits are >= this (P = 1 - p)."""
     return min(int(round(p * 2.0 ** 32)), 2 ** 32 - 1)
 
+
+# Philox4x32-10's multipliers and key increments (Salmon et al., SC'11)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = np.uint64(0xFFFFFFFF)
+
+
+def philox4x32_plain(counter: np.ndarray, key: tuple[int, int]) -> np.ndarray:
+    """Philox4x32-10 in numpy, as ``csrc/stem_tail.cu`` computes it: the
+    four 32-bit words at each ``(N, 4)`` uint32 counter under the key
+    ``(k0, k1)``, as ``(N, 4)`` uint32."""
+    x = [np.asarray(counter, np.uint32)[:, i].astype(np.uint64) for i in range(4)]
+    k0, k1 = (np.uint64(int(k) & 0xFFFFFFFF) for k in key)
+    m0, m1 = map(np.uint64, _PHILOX_M)
+    for _ in range(10):
+        p0, p1 = x[0] * m0, x[2] * m1  # exact: both factors < 2^32
+        x = [(p1 >> np.uint64(32)) ^ x[1] ^ k0, p1 & _U32,
+             (p0 >> np.uint64(32)) ^ x[3] ^ k1, p0 & _U32]
+        k0, k1 = (k0 + np.uint64(_PHILOX_W[0])) & _U32, (k1 + np.uint64(_PHILOX_W[1])) & _U32
+    return np.stack(x, 1).astype(np.uint32)
+
+
+def keep_mask_plain(seeds: torch.Tensor, shape, p: float) -> torch.Tensor:
+    """The stem-tail kernel's keep mask for a conv of ``shape`` ``(B, T, C)``
+    or ``(S, B, T, C)`` under the per-model int64 ``seeds`` (one element for
+    a 3-D shape), on the CPU: element ``e`` of model ``s`` (its flat index
+    within the model) is kept iff word ``e mod 4`` of Philox4x32-10 at
+    counter ``e div 4`` under the key ``seeds[s]`` (low word, high word) is
+    ``>= round(p 2^32)``."""
+    n = int(np.prod(shape[-3:]))
+    counter = np.zeros((-(-n // 4), 4), np.uint32)
+    idx = np.arange(counter.shape[0], dtype=np.uint64)
+    counter[:, 0], counter[:, 1] = idx & _U32, idx >> np.uint64(32)
+    masks = []
+    for seed in torch.as_tensor(seeds).reshape(-1).tolist():
+        words = philox4x32_plain(counter, (seed, seed >> 32)).reshape(-1)[:n]
+        masks.append(words >= _threshold(p))
+    keep = torch.from_numpy(np.stack(masks)).reshape(len(masks), *shape[-3:])
+    return keep[0] if len(shape) == 3 else keep
 
 
 def _per_channel(v: torch.Tensor) -> torch.Tensor:
@@ -111,24 +163,50 @@ def stem_tail_fwd(conv, gamma, beta, mean, var, p: float, pool: int, eps: float 
         res = fused_stage_train_plain(conv, gamma, beta, mean, var, pool, eps, p, keep,
                                       with_code)
         return res if with_code else (res, None)
-    # the statistics and affine parameters enter in fp32, as the JAX kernel upcasts them
-    (conv, gamma, beta, mean, var), one = with_models(
-        conv, *(upcast(v).contiguous() for v in (gamma, beta, mean, var)))
-    s, b, t, c = conv.shape
-    device = conv.device
-    out = torch.empty(s, b, t // pool, c, device=device, dtype=conv.dtype)
-    code = (torch.empty(s, b, t // pool, c, device=device, dtype=torch.int32)
-            if with_code else None)
     seeds = None
     if p > 0.0:  # drawn on the device: no host sync
-        seeds = torch.randint(0, 2 ** 62, (s,), device=device, dtype=torch.int64,
-                              generator=generator)
+        seeds = torch.randint(0, 2 ** 62, conv.shape[:-3] or (1,), device=conv.device,
+                              dtype=torch.int64, generator=generator)
+    return _launch_fwd(conv, gamma, beta, mean, var, p, pool, eps, seeds, with_code)
+
+
+def stem_tail_fwd_seeded(conv, gamma, beta, mean, var, p: float, pool: int,
+                         seeds: torch.Tensor, eps: float = 1e-5, with_code: bool = True):
+    """:func:`stem_tail_fwd` with its dropout seeds given: ``seeds`` int64,
+    one per model (``(S,)``, or one element for a ``(B, T, C)`` conv), on
+    ``conv``'s device. The keep mask is ``keep_mask_plain(seeds, conv.shape,
+    p)`` on either device: a CPU tensor takes the plain version fed that
+    mask, a CUDA tensor the kernel, which draws the same bits."""
+    _check_args(conv, gamma, beta, mean, var, p, pool)
+    if p > 0.0 and (seeds.dtype != torch.int64 or seeds.device != conv.device
+                    or seeds.numel() != (conv.shape[0] if conv.dim() == 4 else 1)
+                    or not seeds.is_contiguous()):
+        raise ValueError("seeds must be one contiguous int64 per model, on conv's device")
+    if conv.device.type == "cpu":
+        keep = keep_mask_plain(seeds, conv.shape, p) if p > 0.0 else None
+        res = fused_stage_train_plain(conv, gamma, beta, mean, var, pool, eps, p, keep,
+                                      with_code)
+        return res if with_code else (res, None)
+    return _launch_fwd(conv, gamma, beta, mean, var, p, pool, eps, seeds, with_code)
+
+
+def _launch_fwd(conv, gamma, beta, mean, var, p, pool, eps, seeds, with_code):
+    """The forward kernel's launch on checked CUDA tensors: the outputs take
+    ``conv``'s leading shape, so no model axis is added or taken away."""
+    s = conv.shape[0] if conv.dim() == 4 else 1
+    b, t, c = conv.shape[-3:]
+    if b * t * c >= 2 ** 31 or b > 65535 or s > MAX_MODELS:
+        raise ValueError(f"conv {tuple(conv.shape)}: the kernel takes B T C < 2^31 "
+                         f"elements a model, B <= 65535 and S <= {MAX_MODELS}")
+    # the statistics and affine parameters enter in fp32, as the JAX kernel upcasts them
+    gamma, beta, mean, var = (v if v.dtype == torch.float32 else v.float()
+                              for v in (gamma, beta, mean, var))
+    shape = (*conv.shape[:-2], t // pool, c)
+    out = torch.empty(shape, device=conv.device, dtype=conv.dtype)
+    code = torch.empty(shape, device=conv.device, dtype=torch.int32) if with_code else None
     KERNELS[conv.dtype].launch(
-        device, ptr(conv), ptr(gamma), ptr(beta), ptr(mean), ptr(var), eps, _keep_scale(p),
-        _threshold(p), ptr(seeds) if seeds is not None else None, ptr(out),
-        ptr(code) if code is not None else None, s, b, t, c, pool)
-    if one:
-        return out[0], code[0] if code is not None else None
+        conv.device, ptr(conv), ptr(gamma), ptr(beta), ptr(mean), ptr(var), eps,
+        _keep_scale(p), _threshold(p), ptr(seeds), ptr(out), ptr(code), s, b, t, c, pool)
     return out, code
 
 
@@ -224,10 +302,15 @@ def fused_stage_train(conv: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
     generator when None). A CPU tensor takes the plain versions; a CUDA
     tensor launches the kernels, or raises. The code for the backward is
     written when a gradient can flow, under autograd or under
-    ``torch.func.grad``.
+    ``torch.func.grad``. Where none can and no ``torch.func`` transform is
+    active (the eval forward), the forward runs without the Function,
+    whose call costs the host more than the kernel takes at one model.
     """
     with_code = torch.is_grad_enabled() and any(
         v.requires_grad for v in (conv, gamma, beta))  # the backward's routing table
+    if not with_code and not torch._C._are_functorch_transforms_active():
+        return stem_tail_fwd(conv, gamma, beta, mean, var, float(p), pool, eps, generator,
+                             with_code=False)[0]
     res = _StemTail.apply(conv, gamma, beta, mean, var, float(p), pool, eps, generator,
                           with_code)
     return res[0] if with_code else res

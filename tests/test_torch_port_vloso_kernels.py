@@ -305,7 +305,9 @@ def test_bilstm_function_under_vmap_grad(monkeypatch):
 def test_stem_tail_function_under_vmap_grad(monkeypatch):
     """Under ``torch.func.grad_and_value`` the stem tail writes its code
     (``with_code`` is true, as under autograd), and the S models' gradients
-    from one ``vmap`` equal per-model autograd."""
+    from one ``vmap`` equal per-model autograd. Where no gradient can flow
+    and no transform is active, the forward runs without the Function and
+    writes no code."""
     conv, gamma, beta = map(torch.from_numpy, _stem_models(8, S, 4, 40, 8))
     w = torch.from_numpy(np.random.default_rng(9).normal(size=(S, 4, 10, 8)).astype(np.float32))
     with_code = []
@@ -317,6 +319,14 @@ def test_stem_tail_function_under_vmap_grad(monkeypatch):
 
     monkeypatch.setattr(conv_stem_train._StemTail, "apply", spy)
     calls = _spy(monkeypatch, conv_stem_train, "stem_tail_bwd_plain")
+    fwd = conv_stem_train.stem_tail_fwd
+    fwd_code = []
+
+    def spy_fwd(*args, **kwargs):
+        fwd_code.append(kwargs["with_code"] if "with_code" in kwargs else args[9])
+        return fwd(*args, **kwargs)
+
+    monkeypatch.setattr(conv_stem_train, "stem_tail_fwd", spy_fwd)
 
     def loss(conv, gamma, beta, w):
         with torch.no_grad():
@@ -329,7 +339,7 @@ def test_stem_tail_function_under_vmap_grad(monkeypatch):
     assert calls == [((S, 4, 40, 8), (S, 4, 10, 8), (S, 4, 10, 8)) + ((S, 8),) * 4]
     with torch.no_grad():
         conv_stem_train.fused_stage_train(conv, gamma, beta, *_stats(conv), 0.0, 4)
-    assert with_code == [True, False]  # no gradient can flow: no code
+    assert with_code == [True] and fwd_code == [True, False]  # no gradient can flow: no code
     for s in range(S):
         leaves = [t[s].clone().requires_grad_() for t in (conv, gamma, beta)]
         loss(*leaves, w[s]).backward()
