@@ -114,7 +114,9 @@ It needs a CUDA card and exits non-zero without one. In order, it
    type: 67 TFLOP/s fp32, 989 TFLOP/s bf16, 495 TFLOP/s per TF32 pass of
    the GEMM and of the flash kernels' products, three passes each, plus
    their softmax at the fp32 rate; the conv stem's products as three TF32
-   passes plus its epilogue at the fp32 rate), prints each attention
+   passes plus its epilogue at the fp32 rate; the InfoNCE similarities as
+   three TF32 passes, one bf16 pass in its bf16 form, plus ~6 fp32
+   operations a score), prints each attention
    case's backward pair (dQ + dK/dV) against SDPA's backward, and checks
    the stem tail's dropout (keep share 1 - p within 5 sigma, every output
    exactly 0 or GELU(y) / (1 - p)); the stem tail also at p = 0.4 with
@@ -125,7 +127,14 @@ It needs a CUDA card and exits non-zero without one. In order, it
    one-model cases split into the wrapper's host time and the device time
    under torch.profiler; the conv stem also against fp64 (1e-5 of the
    largest entry, a bar one TF32 pass misses,
-   ``tests/test_torch_port_stem_rows23.py``);
+   ``tests/test_torch_port_stem_rows23.py``); the InfoNCE kernel (row 13)
+   at the step's shapes (one model's 3 problems on one shared row, the
+   LOSO step's P=72 with per-problem rows and mixed validity) and on two
+   independent sets of features at P=72 with each model's row shared by
+   its 3 problems, at B=64 and B=512, also against fp64 (1e-5 of each
+   loss, a bar one TF32 pass misses in fp32,
+   ``tests/test_torch_port_infonce_tc.py``), and each of its cases split
+   into host and device time, the tile kernel apart from the mean kernel;
 8. prints the card's name and power limit, one JSON line of per-kernel
    results (one entry per kernel a path launched; the InfoNCE kernel's
    bf16 form, which no path launches because the bf16 step's InfoNCE
@@ -222,12 +231,13 @@ LOSO_LR = 1e-4             # the trainers' default learning rate
 # projection GEMM and the recurrence; the c scan (row 9, and row 6 at K=1);
 # the gate-recompute, dx and dW_cat GEMMs and the sweep (row 11, and row 8 at
 # K=1 over the full c); the gate-recompute GEMM and the sweep at K=1 (row 7);
-# the gates-from-xp GEMM and the sweep at K=1 (row 5). Rows 9 and 6 run there
-# only inside the v9, v8 and v6 layer backwards, which compute the gate
-# activations once for the scan and the sweep (the GEMM counted under row 11,
-# 8 or 7); a call of row 9 or row 6 alone launches that GEMM too
+# the gates-from-xp GEMM and the sweep at K=1 (row 5). Rows 9, 10 and 6 run
+# there only inside the v9, v9.1, v8 and v6 layer backwards, which compute the
+# gate activations once for the scan and the sweep (the GEMM counted under row
+# 11, 8 or 7); a call of row 9, 10 or 6 alone launches that GEMM too
 ROW_KERNELS = {"bilstm_fwd": {"bilstm_gemm": 1, "bilstm_rec": 1},
                "bilstm_cbnd": {"bilstm_cscan": 1},
+               "bilstm_cbndk": {"bilstm_cscan": 1},
                "bilstm_segbwd": {"bilstm_gemm": 3, "bilstm_sweep": 1},
                "bilstm_cseq": {"bilstm_cscan": 1},
                "bilstm_bwdc": {"bilstm_gemm": 3, "bilstm_sweep": 1},
@@ -291,6 +301,12 @@ GEMM_REL = {"proj": 1e-5, "gates": 1e-5, "dx": 1e-5, "dw": 1e-5, "gates_xp": 1e-
 # 200 / 100, the fp32 plain version meets it
 # (tests/test_torch_port_flash_fwd_tc.py, tests/test_torch_port_flash_bwd_tc.py)
 FLASH_FP64_REL = 1e-5
+# row 13 (3xTF32 on the tensor cores in fp32) against fp64 (infonce_check):
+# |err| of each loss over that loss, on two independent sets of features (with
+# n1 as n2, the model's own call, a row's diagonal outweighs the rest at
+# temperature 0.01 and every loss sits at -log(1e-12) whatever the products);
+# one TF32 pass misses it in fp32 (tests/test_torch_port_infonce_tc.py)
+INFONCE_FP64_REL = 1e-5
 # the serving conv stem (3xTF32 on the tensor cores) against fp64
 # (conv_check): max |err| over the largest fp64 entry, a bar one TF32 pass
 # misses (tests/test_torch_port_stem_rows23.py)
@@ -789,12 +805,11 @@ def training_kernel_cases(model, batch: dict, mask: torch.Tensor, gen: torch.Gen
     feats = torch.stack([model.eeg_net(batch["eeg"]), model.eye_net(batch["eye"]),
                          model.pps_net(batch["pps"])])
     n = F.normalize(feats, dim=2, eps=1e-12)
-    # the step's three problems share its labels, mask and temperature
-    args = (n, n, batch["arousal"].expand(3, -1).contiguous(), mask.expand(3, -1).contiguous(),
-            model.temperature.reshape(1).expand(3).contiguous())
+    # the step's three problems share its labels, mask and temperature: one row
+    args = (n, n, batch["arousal"][None], mask[None], model.temperature.reshape(1))
     cases["infonce"].append((
-        f"G 3 {tuple(n.shape[1:])}", lambda a=args: contrastive.infonce(*a),
-        lambda a=args: contrastive.infonce_plain(*a), args))
+        f"G 3 {tuple(n.shape[1:])} one shared row", lambda a=args: contrastive.infonce(*a),
+        lambda a=args: infonce_rows_plain(*a), args))
 
 
 def lstm_piece_cases(x, w, h_seq, dh, c_bnd, label: str, sfx: str = "") -> dict:
@@ -1264,13 +1279,15 @@ def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator,
     s_n = vt.n_subjects
     randn = lambda *shape: torch.randn(shape, device=device, generator=gen).to(dtype)
 
-    def add(name, label, fn, plain, args, one=None):
+    def add(name, label, fn, plain, args, one=None, exact=None):
+        more = (lambda: exact(args),) if exact else ()
         cases[name + sfx].append((f"S={s_n} {label}", lambda: fn(*args), lambda: plain(*args),
-                                  args))
+                                  args, *more))
         if one_model is not None:
             a0 = one or tuple(a[0] if isinstance(a, torch.Tensor) else a for a in args)
+            more = (lambda: exact(a0),) if exact else ()
             one_model[name + sfx].append((f"subject 0 of S={s_n} {label}", lambda: fn(*a0),
-                                          lambda: plain(*a0), a0))
+                                          lambda: plain(*a0), a0, *more))
 
     width = pd["eeg_net.temp_conv.6.weight"].shape[1]  # feat_dim
     t_eeg = vt.data.arrays["eeg"].shape[2]
@@ -1338,6 +1355,23 @@ def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator,
     args = (n, n, labels, valid, temp)
     add("infonce", f"P={p_n} {tuple(n.shape[1:])} per-problem labels, masks, temperatures",
         contrastive.infonce, contrastive.infonce_plain, args, one=tuple(a[:3] for a in args))
+    # the step's form, each model's row shared by its 3 problems, on two
+    # independent sets of features (held to fp64 too: infonce_check), at B=64
+    # and at the B=512 of vloso_bf16_b512 (460 real rows wrap-padded to 512)
+    n_train = vt.train_idx.shape[1]
+    for b in (BATCH, LOSO_B512):
+        n1, n2 = F.normalize(randn(2, p_n, b, width), dim=3, eps=1e-12)
+        cols = np.arange(b) % n_train
+        labels = vt.data.arrays["arousal"][torch.as_tensor(vt.train_idx[:, cols], device=device)]
+        valid = torch.ones(s_n, b, device=device)
+        if b == BATCH:
+            valid[1::2, tail:] = 0.0  # every other model on the epoch's last batch
+        else:
+            valid[:, n_train:] = 0.0  # the one step's wrap-padded rows
+        args = (n1, n2, labels.contiguous(), valid, pd["temperature"].contiguous())
+        add("infonce", f"P={p_n} {(b, width)} two views, each model's row shared by its 3",
+            contrastive.infonce, infonce_rows_plain, args, one=(n1[:3], n2[:3], *(
+                a[:1] for a in args[2:])), exact=infonce_fp64)
     return cases
 
 
@@ -1744,6 +1778,49 @@ def gemm_check(name: str, label: str, mode: str, got, want, ref, one_pass) -> No
           f"{name} {label}: one TF32 pass ({err_tf32:.3e}) would meet the bar {bar:.3e}")
 
 
+def infonce_rows_plain(n1, n2, labels, valid, temp) -> torch.Tensor:
+    """``contrastive.infonce_plain`` on rows shared by groups of problems
+    (``labels (Q, B)``, Q dividing P, as ``contrastive.infonce`` takes them),
+    repeated per problem."""
+    per = lambda t: t.repeat_interleave(n1.shape[0] // temp.shape[0], 0)
+    return contrastive.infonce_plain(n1, n2, per(labels), per(valid), per(temp))
+
+
+def infonce_fp64(args) -> tuple[torch.Tensor, torch.Tensor]:
+    """A row-13 case's losses in fp64 on the same inputs, and in fp64 on its
+    features rounded to TF32 (what one TF32 pass computes at best; a bf16
+    feature is exact in TF32)."""
+    n1, n2, labels, valid, temp = args
+    rest = (labels, valid.double(), temp.double())
+    return (infonce_rows_plain(n1.double(), n2.double(), *rest),
+            infonce_rows_plain(tf32_round(n1).double(), tf32_round(n2).double(), *rest))
+
+
+def infonce_check(name: str, label: str, got, ref, one_pass) -> None:
+    """Holds one row-13 case to INFONCE_FP64_REL of each fp64 loss; in fp32
+    the bar must also be one that one TF32 pass misses."""
+    err, err_tf32 = (((v.double() - ref).abs() / ref.abs()).max().item() for v in (got, one_pass))
+    print(f"{name} {label}: against fp64, losses {ref.min().item():.4g}..{ref.max().item():.4g}; "
+          f"kernel {err:.3e} of the loss, one TF32 pass {err_tf32:.3e}; bar "
+          f"{INFONCE_FP64_REL:.0e} of each loss")
+    check(err <= INFONCE_FP64_REL, f"{name} {label}: {err:.3e} of a loss from fp64")
+    check(name.endswith("_bf16") or err_tf32 > INFONCE_FP64_REL,
+          f"{name} {label}: one TF32 pass ({err_tf32:.3e}) would meet the bar")
+
+
+def infonce_ops_ms(name: str, args) -> float:
+    """The least time for a row-13 case's operations: its similarity products
+    as three TF32 passes at the TF32 rate (one bf16 pass at the bf16 rate in
+    the bf16 form), and ~6 fp32 operations a score (the division, mask, max,
+    exp and the two sums) at the fp32 rate."""
+    n1 = tensors(args)[0]
+    p, b, d = n1.shape
+    scores = p * b * b
+    dots = (2 * scores * d / PEAK_BF16_FLOPS if name.endswith("_bf16")
+            else 3 * 2 * scores * d / PEAK_TF32_FLOPS)
+    return (dots + 6 * scores / PEAK_FP32_FLOPS) * 1e3
+
+
 FLASH_OUTPUTS = {"flash_fwd": ("O", "LSE"), "flash_bwd_dq": ("dQ",),
                  "flash_bwd_dkv": ("dK", "dV")}
 
@@ -1877,6 +1954,8 @@ def case_results(name: str, items: list) -> dict:
             flash_check(name, label, got, *exact[0]())
         elif exact and name == "conv_stem":
             conv_check(label, got[0], exact[0]())
+        elif exact and name.startswith("infonce"):
+            infonce_check(name, label, got[0], *exact[0]())
         elif exact:
             gemm_check(name, label, args[0], got[0], want[0], *exact[0]())
         diffs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
@@ -1888,6 +1967,7 @@ def case_results(name: str, items: list) -> dict:
         nbytes = moved_bytes(name, args, res)
         ops_ms = (flash_ops_ms(name, args) if name.startswith("flash")
                   else conv_ops_ms(args) if name == "conv_stem"
+                  else infonce_ops_ms(name, args) if name.startswith("infonce")
                   else operations(name, args, res) / peak_rate(name, args) * 1e3)
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         tk, tp = time_ms(kern), time_ms(plain)
@@ -1976,12 +2056,12 @@ def profile_window(label: str, fn, top: int = 25, show: tuple[str, ...] = (),
               f"{sum(e.count for e in part)} launches, {100 * ms / (total / 1e3):.2f}%")
 
 
-def stem_tail_split(name: str, items: list, calls: int = 100) -> None:
-    """Row 2's one-model cases split into host and device time: per call,
-    the CUDA-event time (as the kernel lines time it), the wrapper's host
-    time (``perf_counter`` over ``calls`` calls with no sync inside), and
-    under torch.profiler the device time of the stem kernel and of every
-    other launch the call makes."""
+def host_device_split(name: str, items: list, kernel: str, calls: int = 100) -> None:
+    """Cases of row 2 or 13 split into host and device time: per call, the
+    CUDA-event time (as the kernel lines time it), the wrapper's host time
+    (``perf_counter`` over ``calls`` calls with no sync inside), and under
+    torch.profiler the device time of the kernel (device kernels whose name
+    holds ``kernel``) and of every other launch the call makes."""
     from torch.profiler import ProfilerActivity, profile
 
     for label, kern, *_ in items:
@@ -1997,9 +2077,9 @@ def stem_tail_split(name: str, items: list, calls: int = 100) -> None:
                 kern()
             torch.cuda.synchronize()
         device = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        kernel_us = sum(e.self_device_time_total for e in device if "stem_tail_fwd" in e.key)
+        kernel_us = sum(e.self_device_time_total for e in device if kernel in e.key)
         other_us = sum(e.self_device_time_total for e in device) - kernel_us
-        print(f"stem_tail split {name} {label}: {events_ms:.4f} ms by CUDA events; host "
+        print(f"{name} split {label}: {events_ms:.4f} ms by CUDA events; host "
               f"{host_us:.1f} us/call; device {kernel_us / calls:.2f} us/call in the kernel, "
               f"{other_us / calls:.2f} us/call in other launches")
 
@@ -2075,7 +2155,7 @@ def main() -> int:
         profile_window("LOSO train epoch", vt.train_epoch, top=30, show=("cscan",),
                        share="stem_tail_fwd")
         profile_window("LOSO bf16 train epoch", vt16.train_epoch, top=30, show=("cscan",))
-        for schedule in ("v5", "v6", "v8"):  # the other schedules with dx and dW_cat in GEMMs
+        for schedule in ("v5", "v6", "v8", "v9.1"):  # the other schedules
             vts = make_loso_trainer(full, lstm_schedule=schedule)
             vts.train_epoch()  # warm-up: first launches, cuBLAS handles
             profile_window(f"LOSO {schedule} train epoch", vts.train_epoch, top=30)
@@ -2104,7 +2184,10 @@ def main() -> int:
     serving_kernel_cases(copy.deepcopy(model).to(BF16), first["eeg"].to(BF16), cases)
     loso_cases.update(loso_kernel_cases(vt16, gen, one_model=cases))
     for name in ("stem_tail", "stem_tail_bf16"):
-        stem_tail_split(name, cases[name])
+        host_device_split(name, cases[name], "stem_tail_fwd")
+    # row 13: the tile kernel against the rest of a call (the mean kernel)
+    for name in ("infonce", "infonce_bf16"):
+        host_device_split(name, cases[name] + loso_cases.get(name, []), "infonce_tile")
     print(json.dumps({"kernels": kernel_results(cases, loso_cases, counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

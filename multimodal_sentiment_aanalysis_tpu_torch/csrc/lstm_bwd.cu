@@ -10,7 +10,7 @@
 //                     replaces ::_segbwd_kernel
 //
 // and, fp32 only, the JAX package's other backward schedules (v5, v6, v8,
-// v9.1), each built from these two kernels and lstm_gemm.cu but the last:
+// v9.1), each built from these two kernels and lstm_gemm.cu:
 //
 //   msa_bilstm_cscan  at K = 1: the full fp32 c_seq (S, 2, T, B, H), (a)'s
 //                     checkpoints at K = 1 (slot t is c at actual time t in
@@ -29,9 +29,12 @@
 //                     product before it (act(xp + h_prev . W_hh^T), the gates
 //                     from the v5 projection xp), its dgates dxp
 //                     (kernels/lstm.py::bilstm_bwd_xp), ::_bwd_kernel (v5)
-//   msa_bilstm_cbndk  the checkpoints of (a) from x and h_seq, with the
-//                     gate products of KC time rows batched per block
-//                     (v9.1), replaces ::_cbndk_kernel
+//   msa_bilstm_cscan  with the kGates product before it
+//                     (kernels/lstm.py::bilstm_cbndk) replaces ::_cbndk_kernel
+//                     (v9.1), the checkpoints of (a) with the gate products
+//                     of KC time rows batched a block: the GEMM batches them
+//                     over all T rows; the v9.1 layer backward runs v9's
+//                     (kernels/lstm.py::bilstm_v9_bwd)
 //
 // The forward (lstm_fwd.cu) stores only h_seq. The gates at actual time a
 // depend only on x_a and the stored h_prev (h at the previous recurrence
@@ -63,15 +66,12 @@
 // bit. At K = 1 (row 6) every step writes a slot: c_seq is 4x row 9's
 // stores at K = 4.
 //
-// The per-block walk left (msa_bilstm_cbndk): one block per (batch tile of
-// kBt rows, direction, model), the model axis S the grid's z axis, 4H
-// threads, the time loop inside the block, thread g owning gate column g.
-// What bounds it on the H100: T / KC dependent blocks of steps per direction,
-// each a small product whose weights (768 KiB per direction for the gates) do
-// not fit shared memory and stream from L2. Rows 6 and 5 ran the same walk
-// (row 5 with a second product a step for the dh carry) until they were
-// rebuilt from the pieces above: the gates of every (b, t) on the tensor
-// cores first, then only the serial recurrence.
+// Rows 10, 6 and 5 ran per-block walks on CUDA cores (one block per batch
+// tile, the time loop inside it, a thread per gate column, the weights
+// streaming from L2 at every step or block of steps; row 5 with a second
+// product a step for the dh carry) until they were rebuilt from the pieces
+// above: the gates of every (b, t) on the tensor cores first, then only the
+// serial recurrence. No such walk is left.
 //
 // (b), row 11. What bounds it on the H100, at the flagship layer (B=64,
 // T=73, I=256, H=128, fp32): T=73 dependent steps per direction, each carrying
@@ -123,15 +123,6 @@
 #include "lstm_cluster.cuh"
 
 namespace {
-
-constexpr int kBt = 8;  // batch rows per block; kBt * H == 2 * (4H threads)
-// The per-block walk's most threads per block (4H <= 512, H <= 128), and the
-// register cap that lets a block of that many launch: 65536 / 512 = 128 a
-// thread. The cap is __maxnreg__, not __launch_bounds__(512): with the launch
-// bound the compiler cut the earlier K-segment sweep to 64 registers with
-// spills, and that sweep slowed by a sixth.
-constexpr int kSegMaxThreads = 512;
-constexpr int kSegMaxRegs = 65536 / kSegMaxThreads;
 
 // (a), row 9's c recurrence over the gate activations
 constexpr int kScanThreads = 128;
@@ -190,123 +181,6 @@ bilstm_cscan_kernel(const float* __restrict__ act,  // (S, B, T, 8H): i, f, g, o
     // the partial last segment of direction 0 ends at no boundary: its slot,
     // which no block reads, is written zero, so every slot is written
     if (d == 0 && T % K != 0) out[(nseg - 1) * units] = 0.0f;
-}
-
-// The checkpoints of (a) from x and h_seq, with their gate products batched
-// over kCbndkRows time rows (v9.1): per block of KC actual-time rows, visited
-// in recurrence order, thread g < 3H computes gate column g (i, f or g; o is
-// not needed for c) of all KC x kBt rows at once, so each weight it loads from
-// L2 feeds KC x kBt multiply-adds instead of kBt; then each thread walks its
-// two cells' c carry through the block's real rows and stores the checkpoints
-// in (a)'s slots. The last block is partial where KC does not divide T: its
-// rows past T are zeros in shared memory and skipped by the carry. Shared
-// memory: KC * kBt * (I + H + 3H) floats, 196,608 bytes at I = 256, H = 128,
-// KC = 8.
-constexpr int kCbndkRows = 8;  // KC, a multiple of the segment length K
-
-__global__ void __maxnreg__(kSegMaxRegs)
-bilstm_cbndk_kernel(const float* __restrict__ x,       // (S, B, T, I)
-                    const float* __restrict__ h_seq,   // (S, B, T, 2H)
-                    const float* __restrict__ w_ih_t,  // (S, 2, I, 4H)
-                    const float* __restrict__ w_hh_t,  // (S, 2, H, 4H)
-                    const float* __restrict__ bias,    // (S, 2, 4H)
-                    float* __restrict__ c_bnd,         // (S, 2, NSEG, B, H)
-                    int B, int T, int I, int H, int K, int nseg) {
-    constexpr int KC = kCbndkRows;
-    extern __shared__ float smem[];
-    const int G = 4 * H;
-    const int G3 = 3 * H;
-    const size_t model = blockIdx.z;
-    const int d = blockIdx.y;
-    const int b0 = blockIdx.x * kBt;
-    const int tid = threadIdx.x;
-    x += model * B * T * I;
-    h_seq += model * B * T * 2 * H;
-    const float* wi = w_ih_t + (model * 2 + d) * I * G;
-    const float* wh = w_hh_t + (model * 2 + d) * H * G;
-    c_bnd += (model * 2 + d) * nseg * B * H;
-    float* xs = smem;                  // (KC, kBt, I)
-    float* hs = xs + KC * kBt * I;     // (KC, kBt, H): h_prev of each row
-    float* gs = hs + KC * kBt * H;     // (KC, kBt, 3H): i, f, g activations
-    const float bg = tid < G3 ? bias[(model * 2 + d) * G + tid] : 0.0f;
-    const int nt = (T + KC - 1) / KC;
-    float c[2] = {0.0f, 0.0f};
-
-    for (int gi = 0; gi < nt; ++gi) {
-        const int m = d == 0 ? gi : nt - 1 - gi;  // block, in recurrence order
-        const int a_lo = m * KC;
-        __syncthreads();  // the previous block's readers are done with smem
-        for (int idx = tid; idx < KC * kBt * I; idx += G) {
-            const int r = idx / (kBt * I);
-            const int rem = idx - r * kBt * I;
-            const int row = rem / I;
-            const int a = a_lo + r;
-            const int b = b0 + row;
-            xs[idx] = (a < T && b < B) ? x[(static_cast<size_t>(b) * T + a) * I + (rem - row * I)]
-                                       : 0.0f;
-        }
-        for (int idx = tid; idx < KC * kBt * H; idx += G) {
-            const int r = idx / (kBt * H);
-            const int rem = idx - r * kBt * H;
-            const int row = rem / H;
-            const int a = a_lo + r;
-            const int ap = d == 0 ? a - 1 : a + 1;
-            const int b = b0 + row;
-            hs[idx] = (a < T && ap >= 0 && ap < T && b < B)
-                          ? h_seq[(static_cast<size_t>(b) * T + ap) * 2 * H + d * H + (rem - row * H)]
-                          : 0.0f;
-        }
-        __syncthreads();
-
-        if (tid < G3) {  // gate column tid of every row of the block
-            float acc[KC][kBt];
-#pragma unroll
-            for (int r = 0; r < KC; ++r)
-#pragma unroll
-                for (int row = 0; row < kBt; ++row) acc[r][row] = bg;
-            for (int k = 0; k < I; ++k) {
-                const float w = wi[static_cast<size_t>(k) * G + tid];
-#pragma unroll
-                for (int r = 0; r < KC; ++r)
-#pragma unroll
-                    for (int row = 0; row < kBt; ++row)
-                        acc[r][row] = fmaf(xs[(r * kBt + row) * I + k], w, acc[r][row]);
-            }
-            for (int k = 0; k < H; ++k) {
-                const float w = wh[static_cast<size_t>(k) * G + tid];
-#pragma unroll
-                for (int r = 0; r < KC; ++r)
-#pragma unroll
-                    for (int row = 0; row < kBt; ++row)
-                        acc[r][row] = fmaf(hs[(r * kBt + row) * H + k], w, acc[r][row]);
-            }
-#pragma unroll
-            for (int r = 0; r < KC; ++r)
-#pragma unroll
-                for (int row = 0; row < kBt; ++row)
-                    gs[(r * kBt + row) * G3 + tid] =
-                        tid >= 2 * H ? tanhf(acc[r][row]) : sigmoid_f(acc[r][row]);
-        }
-        __syncthreads();
-
-        // the c carry through the block's real rows, in recurrence order
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-            const int cell = tid + q * G;
-            const int row = cell / H;
-            const int j = cell - row * H;
-            const int b = b0 + row;
-            for (int rr = 0; rr < KC; ++rr) {
-                const int r = d == 0 ? rr : KC - 1 - rr;
-                const int a = a_lo + r;
-                if (a >= T) continue;
-                const float* gr = gs + (r * kBt + row) * G3;
-                c[q] = gr[H + j] * c[q] + gr[j] * gr[2 * H + j];
-                const bool boundary = d == 0 ? a % K == K - 1 : a % K == 0;
-                if (boundary && b < B) c_bnd[(static_cast<size_t>(a / K) * B + b) * H + j] = c[q];
-            }
-        }
-    }
 }
 
 // (b), row 11's serial half: the reverse sweep over the gate activations
@@ -516,23 +390,4 @@ extern "C" int msa_bilstm_sweep_bf16(float* act, const bf16* dh_seq, const float
                                      void* stream) {
     return launch_sweep(act, dh_seq, c_bnd, w_hh, S, B, T, H, K, C, bt, rows, smem_planned,
                         device, stream);
-}
-
-// ---- the v9.1 entry point (fp32) ----
-
-// v9.1: the checkpoints of msa_bilstm_cscan from x and h_seq, KC = kCbndkRows
-// rows per block
-extern "C" int msa_bilstm_cbndk(const float* x, const float* h_seq, const float* w_ih_t,
-                                const float* w_hh_t, const float* bias, float* c_bnd, int S,
-                                int B, int T, int I, int H, int K, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    const size_t smem = sizeof(float) * kCbndkRows * kBt * (I + 4 * H);
-    err = allow_dynamic_smem(bilstm_cbndk_kernel, smem);
-    if (err != cudaSuccess) return err;
-    const int nseg = (T + K - 1) / K;
-    const dim3 grid((B + kBt - 1) / kBt, 2, S);
-    bilstm_cbndk_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-        x, h_seq, w_ih_t, w_hh_t, bias, c_bnd, B, T, I, H, K, nseg);
-    return cudaGetLastError();
 }

@@ -44,8 +44,10 @@ for both: three ``bilstm_gemm``, one ``bilstm_cscan``, one ``bilstm_sweep``.
 - the BiLSTM's other schedules (``lstm.fused_bilstm_layer(schedule=)``),
   fp32 only: ``bilstm_fwd_xp`` (``csrc/lstm_fwd.cu``, ``kernels/lstm.py::
   _fwd_kernel``; ``bilstm_rec``'s cluster recurrence in its form that also
-  stores c, an entry point with its own count) and ``bilstm_cbndk``
-  (``csrc/lstm_bwd.cu``, ``::_cbndk_kernel``); and four calls of the v9
+  stores c, an entry point with its own count); ``bilstm_cbndk``
+  (``lstm.bilstm_cbndk``, ``::_cbndk_kernel``, v9.1), a call of the wrapper,
+  which launches row 9's pieces, ``bilstm_gemm`` (the gate activations) then
+  ``bilstm_cscan``; and four calls of the v9
   rows' pieces at K = 1, each a call of the wrapper: ``bilstm_cseq``
   (``::_cseq_kernel``, v8 and v6), which launches ``bilstm_gemm`` (the gate
   activations) then ``bilstm_cscan``; ``bilstm_bwdc`` (``::_bwd_bwdc_kernel``,
@@ -56,6 +58,9 @@ for both: three ``bilstm_gemm``, one ``bilstm_cscan``, one ``bilstm_sweep``.
   ``bilstm_gemm`` (``"gates_xp"``) and ``bilstm_sweep`` once each, over
   the v5 forward's c
 
+The v9.1 layer backward is the v9 one (``lstm.bilstm_v9_bwd(...,
+schedule="v9.1")``): it counts one call of ``bilstm_cbndk`` where v9 counts
+``bilstm_cbnd``, and launches what v9 launches.
 The v8 and v6 layer backwards (``lstm.bilstm_v8_bwd``, ``lstm.bilstm_v6_bwd``)
 count one call of ``bilstm_cseq`` and one of ``bilstm_bwdc`` or
 ``bilstm_bwd_split`` and launch the gate GEMM once for both: v8 three

@@ -6,13 +6,14 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/kernels/contrastive.py``.
 - forward: ``_infonce_kernel``'s computation for P problems in one launch
   (``csrc/infonce.cu``): similarity ``n1 n2^T / temp``, positives by label
   equality with the diagonal zeroed and both axes masked by ``valid``,
-  invalid columns at -1e30, row-max log-sum-exp, masked mean. The (B, B)
-  matrix stays on the chip. Each problem has its own labels, validity and
-  temperature: one train step's three per-modality losses are P = 3; under
-  ``torch.func.vmap`` over S models the Function's ``vmap`` rule makes one
-  launch of P = 3 S problems (the JAX package serializes S launches per loss
-  there, a TPU-only choice). A single loss is P = 1
-  (:func:`fused_supervised_infonce`).
+  invalid columns at -1e30, row-max log-sum-exp, masked mean. One train
+  step's three per-modality losses are P = 3; under ``torch.func.vmap`` over
+  S models the Function's ``vmap`` rule makes one launch of P = 3 S problems
+  (the JAX package serializes S launches per loss there, a TPU-only choice).
+  A single loss is P = 1 (:func:`fused_supervised_infonce`). Problems come in
+  groups that share one row of labels and validity and one temperature
+  (:func:`infonce`): a model's three losses read its ``(B,)`` rows, passed as
+  views, with no per-problem copies.
 - backward: the JAX package's closed form ``_core_bwd`` in torch, including
   the r_i term through the row max, which is real for rows with no positive;
   written for one model, so under ``vmap`` each model gets its own
@@ -20,11 +21,20 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/kernels/contrastive.py``.
 
 L2 normalisation stays outside the kernel, so its gradient is autograd's.
 
+The kernel computes the similarities on the tensor cores, a tile of 64
+query rows against 64-key tiles, and folds each key tile into running row
+statistics (the max, sum e, sum e * pos), so no (B, B) matrix and no row of
+B values stays on the chip: any B the grid takes runs. The feature width is
+bounded by the CTA's shared memory, which holds the query tile whole
+(:func:`plan_smem`).
+
 The kernel has an fp32 and a bf16 form, chosen by the dtype of the
-features. As in the JAX kernel, the bf16 form takes bf16 ``n1``/``n2`` and
-computes the dots and the loss in fp32 (``valid`` and ``temp`` enter in
-fp32, the losses come back in fp32); the closed-form backward runs in fp32
-and returns the features' gradients in their dtype (``_core_bwd``).
+features. The fp32 form takes its products as three TF32 passes (fp32
+accuracy); as in the JAX kernel, the bf16 form takes bf16 ``n1``/``n2`` and
+computes the dots (exact bf16 products, fp32 sums) and the loss in fp32
+(``valid`` and ``temp`` enter in fp32, the losses come back in fp32); the
+closed-form backward runs in fp32 and returns the features' gradients in
+their dtype (``_core_bwd``).
 """
 
 from __future__ import annotations
@@ -37,14 +47,16 @@ import torch.nn.functional as F
 from ._build import F32, F32_BF16, check_cuda, kernel_forms, models_first, ptr, upcast
 
 # fp32 and bf16 forms, by the dtype of the features
-KERNELS = kernel_forms("infonce", "msa_infonce", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3)
+KERNELS = kernel_forms("infonce", "msa_infonce", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5)
 KERNEL = KERNELS[torch.float32]
 
 _EPS = 1e-12
 _NEG = -1e30
-_ROWS_PER_BLOCK = 8  # kWarps in csrc/infonce.cu: each row keeps B floats in smem
+# csrc/infonce.cu: kKeys-row stages of kChunkBytes of each row, padded to
+# kLd 32-bit words; kStages of them in the ring beside the query tile
+_TILE_ROWS, _CHUNK_BYTES, _ROW_BYTES, _STAGES = 64, 128, 144, 4
 _MAX_SMEM = 227 * 1024
-MAX_BATCH = _MAX_SMEM // (4 * _ROWS_PER_BLOCK)
+_MAX_PROBLEMS = 65535  # grid y
 
 
 def _masked_sim(n1, n2, labels, valid, temp):
@@ -73,42 +85,65 @@ def infonce_plain(n1, n2, labels, valid, temp) -> torch.Tensor:
     return (loss * valid).sum(-1) / valid.sum(-1).clamp_min(1.0)
 
 
+def plan_smem(d: int, dtype: torch.dtype) -> int:
+    """The shared memory of one CTA of the kernel at feature width ``d`` in
+    ``dtype``, which its launcher checks byte for byte: the query tile whole
+    and the ring, in chunks of 128 bytes of each row, and the labels (int64)
+    and validity of four key tiles. Raises ``ValueError`` past the 227 KB a
+    block may use (above D = 640 in fp32, 1280 in bf16)."""
+    chunks = -(-d * torch.finfo(dtype).bits // 8 // _CHUNK_BYTES)
+    smem = (chunks + _STAGES) * _TILE_ROWS * _ROW_BYTES + _STAGES * _TILE_ROWS * (8 + 4)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"feature width {d}: the query tile takes {smem} bytes of shared "
+                         f"memory > {_MAX_SMEM}")
+    return smem
+
+
+def _group(p: int, labels, valid, temp) -> int:
+    """Problems per row of ``labels (Q, B)``, ``valid (Q, B)`` and ``temp
+    (Q,)`` for P problems: P / Q, where Q divides P."""
+    q = temp.shape[0] if temp.dim() == 1 else 0
+    if q < 1 or p % q or labels.dim() != 2 or labels.shape[0] != q or valid.shape[:1] != (q,):
+        raise ValueError(f"labels {tuple(labels.shape)}, valid {tuple(valid.shape)} and temp "
+                         f"{tuple(temp.shape)} must be (Q, B), (Q, B) and (Q,) with Q dividing "
+                         f"the {p} problems")
+    return p // q
+
+
 def infonce(n1, n2, labels, valid, temp) -> torch.Tensor:
     """The forward kernel on normalised features: ``(P,)`` fp32 losses of
-    ``n1, n2 (P, B, D)`` (fp32 or bf16) with per-problem ``labels (P, B)``
-    int64, ``valid (P, B)`` and ``temp (P,)`` fp32. A CPU tensor takes
-    :func:`infonce_plain`; a CUDA tensor launches the kernel, or raises."""
+    ``n1, n2 (P, B, D)`` (fp32 or bf16) with ``labels (Q, B)`` int64,
+    ``valid (Q, B)`` and ``temp (Q,)`` fp32, Q dividing P: problem ``p``
+    takes row ``p // (P / Q)``, so each row serves ``P / Q`` consecutive
+    problems (one model's three losses share one; Q = P gives each problem
+    its own). A CPU tensor takes :func:`infonce_plain` on the rows repeated
+    per problem; a CUDA tensor launches the kernel, or raises."""
+    if n1.dim() != 3 or 0 in n1.shape:
+        raise ValueError(f"features must be non-empty (P, B, D), got {tuple(n1.shape)}")
+    p, b, d = n1.shape
+    group = _group(p, labels, valid, temp)
     if n1.device.type == "cpu":
-        return infonce_plain(n1, n2, labels, valid, temp)
+        per = lambda t: t.repeat_interleave(group, 0) if group > 1 else t
+        return infonce_plain(n1, n2, per(labels), per(valid), per(temp))
     if n1.device.type != "cuda":
         raise ValueError(f"no InfoNCE kernel for device {n1.device}")
     device = n1.device
-    if n1.dim() != 3 or 0 in n1.shape:
-        raise ValueError(f"features must be non-empty (P, B, D), got {tuple(n1.shape)}")
-    g, b, d = n1.shape
-    if b > MAX_BATCH:
-        raise ValueError(f"batch {b} > {MAX_BATCH}: each row keeps B floats in shared memory")
+    if p > _MAX_PROBLEMS:
+        raise ValueError(f"{p} problems > {_MAX_PROBLEMS}, the grid's limit")
     check_cuda("n1", n1, device, dtypes=F32_BF16)
-    check_cuda("n2", n2, device, (g, b, d), (n1.dtype,))
-    check_cuda("valid", valid, device, (g, b), F32)
-    check_cuda("temp", temp, device, (g,), F32)
+    smem = plan_smem(d, n1.dtype)
+    check_cuda("n2", n2, device, (p, b, d), (n1.dtype,))
+    check_cuda("valid", valid, device, (p // group, b), F32)
+    check_cuda("temp", temp, device, dtypes=F32)
     if (labels.dtype != torch.int64 or labels.device != device
-            or tuple(labels.shape) != (g, b) or not labels.is_contiguous()):
-        raise ValueError("labels must be a contiguous int64 (P, B) tensor on the features' "
+            or tuple(labels.shape) != (p // group, b) or not labels.is_contiguous()):
+        raise ValueError("labels must be a contiguous int64 (Q, B) tensor on the features' "
                          "device")
-    row_loss = torch.empty(g, b, device=device, dtype=torch.float32)
-    loss = torch.empty(g, device=device, dtype=torch.float32)
+    row_loss = torch.empty(p, b, device=device, dtype=torch.float32)
+    loss = torch.empty(p, device=device, dtype=torch.float32)
     KERNELS[n1.dtype].launch(device, ptr(n1), ptr(n2), ptr(labels), ptr(valid), ptr(temp),
-                             ptr(row_loss), ptr(loss), g, b, d)
+                             ptr(row_loss), ptr(loss), p, b, d, group, smem)
     return loss
-
-
-def _per_problem(n1, labels, valid, temp):
-    """One model's shared ``labels``/``valid`` ``(B,)`` and scalar ``temp``
-    repeated for each of its G problems, contiguous."""
-    g, b = n1.shape[:2]
-    return (labels.expand(g, b).contiguous(), valid.expand(g, b).contiguous(),
-            temp.reshape(1).expand(g).contiguous())
 
 
 class _InfoNCE(torch.autograd.Function):
@@ -117,7 +152,9 @@ class _InfoNCE(torch.autograd.Function):
 
     @staticmethod
     def forward(n1, n2, labels, valid, temp):
-        return infonce(n1.contiguous(), n2.contiguous(), *_per_problem(n1, labels, valid, temp))
+        # the G problems share the model's rows: (1, B) views and a (1,) temperature
+        return infonce(n1.contiguous(), n2.contiguous(), labels[None], valid[None],
+                       temp.reshape(1))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -151,9 +188,8 @@ class _InfoNCE(torch.autograd.Function):
         """All S models' G problems as one launch of P = S G problems."""
         n1, n2, labels, valid, temp = models_first(info, in_dims, n1, n2, labels, valid, temp)
         s, g, b, d = n1.shape
-        per_model = lambda v: v[:, None].expand(s, g, *v.shape[1:]).reshape(s * g, *v.shape[1:])
-        loss = infonce(n1.reshape(s * g, b, d), n2.reshape(s * g, b, d), per_model(labels),
-                       per_model(valid), per_model(temp))
+        # each model's G problems share its rows: (S, B) labels and validity, (S,) temperatures
+        loss = infonce(n1.reshape(s * g, b, d), n2.reshape(s * g, b, d), labels, valid, temp)
         return loss.reshape(s, g), 0
 
 

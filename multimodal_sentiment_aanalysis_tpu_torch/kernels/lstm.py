@@ -30,7 +30,8 @@ the same function:
 schedule forward                                      backward
 ======== ============================================ ======================================================
 ``v9``   :func:`bilstm_fwd`                           :func:`bilstm_v9_bwd` (rows 9 and 11 on one gate GEMM)
-``v9.1`` :func:`bilstm_fwd`                           :func:`bilstm_cbndk` (``_cbndk_kernel``), :func:`bilstm_segbwd`
+``v9.1`` :func:`bilstm_fwd`                           :func:`bilstm_v9_bwd` with row 10 (``_cbndk_kernel``)
+                                                      in row 9's place: the same kernels on the card
 ``v8``   :func:`bilstm_fwd`                           :func:`bilstm_v8_bwd`: rows 6 and 8 (``_cseq_kernel``,
                                                       ``_bwd_bwdc_kernel``) on one gate GEMM: the c scan
                                                       and the sweep at K=1, the dx and dW_cat GEMMs
@@ -46,9 +47,14 @@ schedule forward                                      backward
 
 The schedules other than v9 take fp32 only (``TypeError`` otherwise).
 The JAX package's "v7" (``MSA_LSTM_BWDC=1, MSA_LSTM_SEGBWD=0``) runs the
-v8 kernels. The full fp32 cell state of v8, v6 and v5 is ``c_seq (2, T,
-B, H)``, and their packed gate gradients ``dxp (B, T, 8H)`` are ``[fwd |
-bwd]`` in actual time, the gradient of ``xp``. ``c_seq`` is the
+v8 kernels. v9.1's time-blocked checkpoints (row 10) are the v9
+checkpoints computed in blocks of :data:`CBNDK_ROWS` time rows; the
+blocking is the TPU's (the gate products of a block batched in VMEM), and
+on the card row 10 is row 9's pieces, the gates GEMM and the c scan, so
+v9.1's layer backward launches v9's kernels. The full fp32 cell state of
+v8, v6 and v5 is ``c_seq (2, T, B, H)``, and their packed gate gradients
+``dxp (B, T, 8H)`` are ``[fwd | bwd]`` in actual time, the gradient of
+``xp``. ``c_seq`` is the
 checkpoints of :func:`bilstm_cbnd` at K = 1 (slot t holds c at actual time
 t in both directions), so the kernels of those schedules are the v9
 kernels' pieces at K = 1: row 6 is the gates GEMM then :func:`bilstm_cscan`
@@ -111,16 +117,15 @@ KERNEL, CBND_KERNEL, SEGBWD_KERNEL, GEMM_KERNEL, REC_KERNEL, SWEEP_KERNEL = (
 # row 4 (v5 forward): row 1's recurrence kernel with its c store, an entry point of its own
 FWD_XP_KERNEL = CudaKernel("lstm_fwd", "msa_bilstm_rec_cseq", [_P] * 4 + [_I] * 8)
 # rows 5, 6, 7 and 8: calls of wrappers over the GEMM and the sweep or the c scan
-BWD_XP_KERNEL, CSEQ_KERNEL, BWD_SPLIT_KERNEL, BWDC_KERNEL = (CallCount() for _ in range(4))
-CBNDK_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_cbndk", [_P] * 6 + [_I] * 6)
+# and row 10 (v9.1): a call of row 9's pieces
+BWD_XP_KERNEL, CSEQ_KERNEL, BWD_SPLIT_KERNEL, BWDC_KERNEL, CBNDK_KERNEL = (
+    CallCount() for _ in range(5))
 
 SCHEDULES = ("v5", "v6", "v8", "v9", "v9.1")
 
-_ROWS_PER_BLOCK = 8  # kBt in csrc/lstm_bwd.cu
-_CBNDK_MAX_HIDDEN = 128  # kSegMaxThreads / 4 in csrc/lstm_bwd.cu (row 10's per-block walk)
 _MAX_SMEM = 227 * 1024
 SEG_K = 4  # segment length of the backward; any K >= 1 works for any T
-CBNDK_ROWS = 8  # kCbndkRows in csrc/lstm_bwd.cu: time rows per block of bilstm_cbndk
+CBNDK_ROWS = 8  # time rows a block of v9.1's plain checkpoint walk (the JAX _CBND_K)
 # the products of csrc/lstm_gemm.cu, by its mode number
 GEMM_MODES = ("proj", "gates", "dx", "dw", "gates_xp")
 _GEMM_TILE = 64  # kBm = kBn in csrc/lstm_gemm.cu
@@ -494,7 +499,8 @@ def check_schedule(schedule: str, dtype: torch.dtype) -> None:
 class _FusedBiLSTM(torch.autograd.Function):
     """``h_seq`` of one layer on stacked weights, by :func:`bilstm_fwd`; its
     backward runs the backward kernels of the schedule recorded at the
-    forward (v9, v9.1, v8 or v6)."""
+    forward (v9, v9.1, v8 or v6): v9 and v9.1 through :func:`bilstm_v9_bwd`,
+    which counts the schedule's checkpoint row."""
 
     @staticmethod
     def forward(x, w_ih, w_hh, bias, schedule):
@@ -517,11 +523,8 @@ class _FusedBiLSTM(torch.autograd.Function):
                     dg.sum((-4, -3)), None)
         if ctx.schedule == "v8":
             dx_pk, dw_cat = _V8Bwd.apply(dh_seq, x, h_seq, *w)
-        elif ctx.schedule == "v9.1":
-            c_bnd = _CbndK.apply(x, h_seq, *w, SEG_K)
-            dx_pk, dw_cat = _SegBwd.apply(dh_seq, x, h_seq, c_bnd, *w, SEG_K)
         else:
-            dx_pk, dw_cat = _V9Bwd.apply(dh_seq, x, h_seq, *w, SEG_K)
+            dx_pk, dw_cat = _V9Bwd.apply(dh_seq, x, h_seq, *w, SEG_K, ctx.schedule)
         i, h = x.shape[-1], w_hh.shape[-1]
         return ((dx_pk[0] + dx_pk[1]).to(x.dtype), dw_cat[:, :i].transpose(1, 2).to(w_ih.dtype),
                 dw_cat[:, i:i + h].transpose(1, 2).to(w_hh.dtype), dw_cat[:, i + h].to(bias.dtype),
@@ -724,13 +727,23 @@ def bilstm_cbnd(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
     call counts one launch of ``CBND_KERNELS[dtype]``."""
     if x.device.type == "cpu":
         return bilstm_cbnd_plain(x, h_seq, w_ih, w_hh, bias, k)
+    out = _gates_then_scan(x, h_seq, w_ih, w_hh, bias, k)
+    CBND_KERNELS[x.dtype].launches += 1
+    return out
+
+
+def _gates_then_scan(x, h_seq, w_ih, w_hh, bias, k: int, fp32_only: bool = False) -> torch.Tensor:
+    """Rows 9, 10 and 6 on CUDA operands: the gate activations by the GEMM,
+    then :func:`bilstm_cscan` at ``k``; every check before the first launch
+    (``fp32_only``: the schedules other than v9 take fp32 only)."""
     _check_device(x)
     (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
     _check_gemm_layer(x, h_seq, w_ih, w_hh, bias)
+    if fp32_only:
+        check_cuda("x", x, x.device)
     if k < 1:
         raise ValueError(f"segment length {k} < 1")
     out = bilstm_cscan(_gate_activations(x, h_seq, w_ih, w_hh, bias), k)
-    CBND_KERNELS[x.dtype].launches += 1
     return out[0] if one else out
 
 
@@ -857,31 +870,38 @@ def _dgates_products(act, dh_seq, c_bnd, x, h_seq, w_ih, w_hh, bias, k):
     return dx_pk, dw_cat
 
 
-def bilstm_v9_bwd(dh_seq, x, h_seq, w_ih, w_hh, bias,
-                  k: int = SEG_K) -> tuple[torch.Tensor, torch.Tensor]:
+def bilstm_v9_bwd(dh_seq, x, h_seq, w_ih, w_hh, bias, k: int = SEG_K,
+                  schedule: str = "v9") -> tuple[torch.Tensor, torch.Tensor]:
     """The v9 layer backward, rows 9 and 11 together: what
     ``bilstm_segbwd(dh_seq, x, h_seq, bilstm_cbnd(x, h_seq, w_ih, w_hh, bias,
-    k), w_ih, w_hh, bias, k)`` returns.
+    k), w_ih, w_hh, bias, k)`` returns; under ``schedule="v9.1"`` (fp32
+    only) the v9.1 layer backward, rows 10 and 11: the checkpoints of
+    :func:`bilstm_cbndk` in row 9's place, the same values.
 
-    A CPU tensor takes :func:`bilstm_cbnd_plain` then
-    :func:`bilstm_segbwd_plain`. A CUDA tensor launches five kernels, or
-    raises: the gate activations, computed once for both rows
-    (:func:`bilstm_gemm` ``"gates"``), the c scan over them
-    (:func:`bilstm_cscan`), the sweep, which overwrites them with dgates
-    (:func:`bilstm_sweep`), then dx and dW_cat (``"dx"``, ``"dw"``). One call
-    counts one launch of ``CBND_KERNELS[dtype]`` and one of
-    ``SEGBWD_KERNELS[dtype]``."""
+    A CPU tensor takes :func:`bilstm_cbnd_plain` (v9.1:
+    :func:`bilstm_cbndk_plain`) then :func:`bilstm_segbwd_plain`. A CUDA
+    tensor launches five kernels, or raises: the gate activations, computed
+    once for both rows (:func:`bilstm_gemm` ``"gates"``), the c scan over
+    them (:func:`bilstm_cscan`), the sweep, which overwrites them with
+    dgates (:func:`bilstm_sweep`), then dx and dW_cat (``"dx"``, ``"dw"``).
+    One call counts one launch of ``CBND_KERNELS[dtype]`` (v9.1:
+    ``CBNDK_KERNEL``) and one of ``SEGBWD_KERNELS[dtype]``."""
+    if schedule not in ("v9", "v9.1"):
+        raise ValueError(f"schedule {schedule!r}: v9 or v9.1")
     if x.device.type == "cpu":
-        c_bnd = bilstm_cbnd_plain(x, h_seq, w_ih, w_hh, bias, k)
+        cbnd = bilstm_cbndk_plain if schedule == "v9.1" else bilstm_cbnd_plain
+        c_bnd = cbnd(x, h_seq, w_ih, w_hh, bias, k)
         return bilstm_segbwd_plain(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias, k)
     _check_device(x)
     (x, dh_seq, h_seq, w_ih, w_hh, bias), one = with_models(x, dh_seq, h_seq, w_ih, w_hh, bias)
     s, b, t, _, h = _check_gemm_layer(x, h_seq, w_ih, w_hh, bias)
+    if schedule == "v9.1":
+        check_cuda("x", x, x.device)  # the schedules other than v9 take fp32 only
     _check_sweep(dh_seq, k, s, b, t, h, x.dtype, x.device)
     cluster_plan("sweep", s, b, h, x.dtype, _sm_count(x.device.index))  # raises before any launch
     act = _gate_activations(x, h_seq, w_ih, w_hh, bias)
     out = _dgates_products(act, dh_seq, bilstm_cscan(act, k), x, h_seq, w_ih, w_hh, bias, k)
-    CBND_KERNELS[x.dtype].launches += 1
+    (CBNDK_KERNEL if schedule == "v9.1" else CBND_KERNELS[x.dtype]).launches += 1
     SEGBWD_KERNELS[x.dtype].launches += 1
     return (out[0][0], out[1][0]) if one else out
 
@@ -967,12 +987,11 @@ def bilstm_sweep(act, dh_seq, c_bnd, w_hh, k: int = SEG_K) -> torch.Tensor:
     return act[0] if one else act
 
 
-_SegBwd = _kernel_function(bilstm_segbwd, (0, 0), ":func:`bilstm_segbwd` as a Function.")
 _V9Bwd = _kernel_function(bilstm_v9_bwd, (0, 0), ":func:`bilstm_v9_bwd` as a Function.")
 
 
 # --------------------------------------------------------------------------
-# the other schedules' kernels (fp32): v9.1 checkpoints; v8 and v6 full c
+# the other schedules' kernels (fp32): v9.1 checkpoints (row 9's pieces); v8 and v6 full c
 # (row 9's pieces at K = 1), the v8 and v6 reverse sweeps (row 11's pieces at
 # K = 1) and their layer backwards; the v5 sweep that emits dxp (the same
 # sweep over the gates from xp), the v5 forward (row 1's recurrence storing c)
@@ -981,7 +1000,8 @@ _V9Bwd = _kernel_function(bilstm_v9_bwd, (0, 0), ":func:`bilstm_v9_bwd` as a Fun
 
 def bilstm_cbndk_plain(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
     """Plain PyTorch version of :func:`bilstm_cbndk`, block by block as the
-    kernel walks them: each block's gates in one product, then the c carry."""
+    JAX ``_cbndk_kernel`` walks them (:data:`CBNDK_ROWS` time rows): each
+    block's gates in one product, then the c carry."""
     (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
     s, b, t, _ = x.shape
     h = w_hh.shape[-1]
@@ -1002,29 +1022,21 @@ def bilstm_cbndk_plain(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tens
 
 
 def bilstm_cbndk(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
-    """The checkpoints of :func:`bilstm_cbnd`, same contract, with the gate
-    products of :data:`CBNDK_ROWS` time rows batched per block (the JAX
-    package's v9.1 ``_cbndk_kernel``). fp32."""
+    """The checkpoints of :func:`bilstm_cbnd`, same contract, in v9.1's
+    schedule (the JAX package's ``_cbndk_kernel``: the gate products of
+    :data:`CBNDK_ROWS` time rows batched a block, then the c carry). fp32.
+
+    A CPU tensor takes :func:`bilstm_cbndk_plain`. A CUDA tensor launches
+    row 9's two kernels, or raises before the first: the gate activations of
+    every (b, t) (:func:`bilstm_gemm` ``"gates"``, which batches the
+    products over all T rows, the whole of what the blocks batch) into a
+    transient fp32 ``(S, B, T, 8H)`` buffer, then :func:`bilstm_cscan`. One
+    call counts one launch of ``CBNDK_KERNEL``."""
     if x.device.type == "cpu":
         return bilstm_cbndk_plain(x, h_seq, w_ih, w_hh, bias, k)
-    _check_device(x)
-    (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
-    check_cuda("x", x, x.device)
-    s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
-    if not 0 < h <= _CBNDK_MAX_HIDDEN:
-        raise ValueError(f"hidden size {h}: the v9.1 checkpoint walk runs 4H <= "
-                         f"{4 * _CBNDK_MAX_HIDDEN} threads")
-    check_cuda("h_seq", h_seq, x.device, (s, b, t, 2 * h), (x.dtype,))
-    if k < 1:
-        raise ValueError(f"segment length {k} < 1")
-    smem = 4 * CBNDK_ROWS * _ROWS_PER_BLOCK * (i + 4 * h)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"input width {i}: {smem} bytes of shared memory > {_MAX_SMEM}")
-    w_ih_t, w_hh_t = (w.transpose(-1, -2).contiguous() for w in (w_ih, w_hh))
-    out = torch.zeros(s, 2, _num_segments(t, k), b, h, device=x.device, dtype=torch.float32)
-    CBNDK_KERNEL.launch(x.device, ptr(x), ptr(h_seq), ptr(w_ih_t), ptr(w_hh_t), ptr(bias),
-                        ptr(out), s, b, t, i, h, k)
-    return out[0] if one else out
+    out = _gates_then_scan(x, h_seq, w_ih, w_hh, bias, k, fp32_only=True)
+    CBNDK_KERNEL.launches += 1
+    return out
 
 
 def bilstm_cseq_plain(x, h_seq, w_ih, w_hh, bias) -> torch.Tensor:
@@ -1045,13 +1057,9 @@ def bilstm_cseq(x, h_seq, w_ih, w_hh, bias) -> torch.Tensor:
     launch of ``CSEQ_KERNEL``."""
     if x.device.type == "cpu":
         return bilstm_cseq_plain(x, h_seq, w_ih, w_hh, bias)
-    _check_device(x)
-    (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
-    _check_gemm_layer(x, h_seq, w_ih, w_hh, bias)
-    check_cuda("x", x, x.device)  # the schedules other than v9 take fp32 only
-    out = bilstm_cscan(_gate_activations(x, h_seq, w_ih, w_hh, bias), 1)
+    out = _gates_then_scan(x, h_seq, w_ih, w_hh, bias, 1, fp32_only=True)
     CSEQ_KERNEL.launches += 1
-    return out[0] if one else out
+    return out
 
 
 def bilstm_bwdc_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias):
@@ -1307,7 +1315,6 @@ def _check_bwd_xp(dh_seq, xp, h_seq, c_seq, w_hh) -> None:
     cluster_plan("sweep", s, b, h, xp.dtype, _sm_count(xp.device.index))
 
 
-_CbndK = _kernel_function(bilstm_cbndk, 0, ":func:`bilstm_cbndk` as a Function.")
 _V8Bwd = _kernel_function(bilstm_v8_bwd, (0, 0), ":func:`bilstm_v8_bwd` as a Function.")
 _V6Bwd = _kernel_function(bilstm_v6_bwd, 0, ":func:`bilstm_v6_bwd` as a Function.")
 _BwdXp = _kernel_function(bilstm_bwd_xp, 0, ":func:`bilstm_bwd_xp` as a Function.")

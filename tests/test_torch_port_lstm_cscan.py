@@ -293,7 +293,8 @@ def test_cscan_kernel_matches_plain(cuda, shape, k):
 @pytest.mark.parametrize("shape", ["layer", "loso_layer"])
 def test_cbnd_matches_plain(cuda, shape, dtype):
     """Row 9 on the card is the gates GEMM and the scan, within 1e-4 of
-    its plain version; no CUDA-core walk runs."""
+    its plain version; the call counts as row 9 alone (rows 6 and 10,
+    which launch the same two pieces, count nothing)."""
     dt = DTYPES[dtype]
     x, w, _ = _card_case(cuda, shape, dtype, 41)
     h_seq = lstm.bilstm_fwd_plain(x, *w)
@@ -332,7 +333,8 @@ def test_v9_layer_gradients_on_card(cuda, shape):
 def test_v9_layer_backward_launches(cuda, dtype):
     """One v9 layer backward of S models under ``vmap(grad)``: three GEMM
     launches, one scan, one sweep, one call of rows 9 and 11 each, and no
-    launch of a CUDA-core c walk (rows 6 and 10)."""
+    call of rows 6 and 10 (the same pieces under the v8, v6 and v9.1
+    schedules)."""
     dt = DTYPES[dtype]
     x, w, dh = _card_case(cuda, "small", dtype, 43)
     fwd = (w[0][:, 0], w[1][:, 0], w[2][:, 0], torch.zeros_like(w[2][:, 0]))

@@ -38,6 +38,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.ops import rnn
 
 S, B, T, I, H = 3, 5, 7, 12, 16  # ragged B and T, as in the S-axis tests
 T_KC = 11  # a T that CBNDK_ROWS does not divide into whole blocks, over two blocks
+H_WIDE = 192  # a hidden size row 10's old per-block walk refused (4H > 512 threads)
 
 
 def _models(seed, s=S, b=B, t=T, i=I, h=H):
@@ -85,15 +86,16 @@ def _close(got, ref, atol):
 def jax_case():
     """The JAX kernels' operands of S models (``(S, T, B, ·)`` layouts),
     their ``h_seq`` and full ``c_seq`` from the JAX kernels, at T and at
-    T_KC, with the port's operands of the same models."""
+    T_KC, and at T_KC with H_WIDE (key ``"h192"``), with the port's operands
+    of the same models."""
     import jax
     import jax.numpy as jnp
 
     from multimodal_sentiment_aanalysis_tpu.kernels import lstm as jl
 
     out = {}
-    for t in (T, T_KC):
-        x, fwd, bwd, dh = _models(10 + t, t=t)
+    for key, t, hid in ((T, T, H), (T_KC, T_KC, H), ("h192", T_KC, H_WIDE)):
+        x, fwd, bwd, dh = _models(10 + t, t=t, h=hid)
         h = jax.vmap(lambda x, f, b: jl.fused_bilstm_layer(x, f, b, interpret=True,
                                                            use_xproj=True))(
             jnp.asarray(x), tuple(map(jnp.asarray, fwd)), tuple(map(jnp.asarray, bwd)))
@@ -105,9 +107,10 @@ def jax_case():
         # the packed v5 projection, both halves in actual time
         xp = jnp.concatenate([xt @ w_ih[:, d][:, None] + b[:, d][:, None] for d in (0, 1)], -1)
         c_seq = jl._cseq_call(xt, hs, w_ih, w_hh, b, True)
-        out[t] = dict(jax=(xt, hs, w_ih, w_hh, b, xp, c_seq, jnp.swapaxes(jnp.asarray(dh), 1, 2)),
-                      port=(torch.from_numpy(x), torch.from_numpy(np.array(h)), _stacked(fwd, bwd),
-                            _swap(xp), _split_dirs(c_seq, H), torch.from_numpy(dh)))
+        out[key] = dict(
+            jax=(xt, hs, w_ih, w_hh, b, xp, c_seq, jnp.swapaxes(jnp.asarray(dh), 1, 2)),
+            port=(torch.from_numpy(x), torch.from_numpy(np.array(h)), _stacked(fwd, bwd),
+                  _swap(xp), _split_dirs(c_seq, hid), torch.from_numpy(dh)))
     return out
 
 
@@ -175,14 +178,15 @@ def _check_bwdc(jl, j, p):
 
 def _check_cbndk(jl, j, p, k):
     xt, hs, w_ih, w_hh, b, xp, c_seq, dh = j
+    h = p[2][1].shape[-1]
     old, jl._CBND_K = jl._CBND_K, lstm.CBNDK_ROWS
     try:
-        ref = _split_dirs(jl._cbndk_call(xt, hs, w_ih, w_hh, b, k, True), H)
+        ref = _split_dirs(jl._cbndk_call(xt, hs, w_ih, w_hh, b, k, True), h)
     finally:
         jl._CBND_K = old
     got = lstm.bilstm_cbndk_plain(p[0], p[1], *p[2], k)
     nseg = -(-p[0].shape[2] // k)
-    assert got.shape == (S, 2, nseg, B, H)
+    assert got.shape == (S, 2, nseg, B, h)
     # the slots a block reads: entries of blocks 1.. (d=0) and ..NSEG-2 (d=1)
     _close(got[:, 0, :nseg - 1], ref[:, 0, :nseg - 1], 1e-5)
     _close(got[:, 1, 1:], ref[:, 1, 1:], 1e-5)
@@ -198,6 +202,9 @@ KERNEL_CASES = {
     "bilstm_bwdc": (T, _check_bwdc),
     "bilstm_cbndk K 2": (T_KC, lambda jl, j, p: _check_cbndk(jl, j, p, 2)),
     f"bilstm_cbndk K {lstm.SEG_K}": (T_KC, lambda jl, j, p: _check_cbndk(jl, j, p, lstm.SEG_K)),
+    f"bilstm_cbndk K 2 H {H_WIDE}": ("h192", lambda jl, j, p: _check_cbndk(jl, j, p, 2)),
+    f"bilstm_cbndk K {lstm.SEG_K} H {H_WIDE}": (
+        "h192", lambda jl, j, p: _check_cbndk(jl, j, p, lstm.SEG_K)),
 }
 
 
@@ -542,3 +549,76 @@ def test_schedule_gradients_on_card(cuda, shape, schedule):
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4 * r.abs().max().item())
+
+
+# (S, B, T, I, H) of row 10 alone: the flagship layer at one model (S 0: no
+# model axis) and at the LOSO step's 24 models, and H = 192, which the old
+# per-block walk refused
+CBNDK_SHAPES = {"layer": (0, 64, 73, 256, 128), "loso": (24, 64, 73, 256, 128),
+                "h192": (2, 37, 11, 64, H_WIDE)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(CBNDK_SHAPES))
+def test_cbndk_is_row_9_pieces(cuda, shape):
+    """Row 10 on the card is one gates GEMM and one c scan, counting one
+    call of row 10 and none of row 9, within 1e-4 of its plain version (the
+    JAX block walk)."""
+    s, b, t, i, h = CBNDK_SHAPES[shape]
+    x, fwd, bwd, _ = _models(53, max(s, 1), b, t, i, h)
+    x = torch.from_numpy(x).to(cuda)
+    w = tuple(a.to(cuda) for a in _stacked(fwd, bwd))
+    if not s:
+        x, w = x[0], tuple(a[0] for a in w)
+    counts = lambda: (lstm.CBNDK_KERNEL.launches, lstm.GEMM_KERNEL.launches,
+                      lstm.CSCAN_KERNEL.launches, lstm.CBND_KERNEL.launches,
+                      lstm.SWEEP_KERNEL.launches)
+    with torch.no_grad():
+        h_seq = lstm.bilstm_fwd_plain(x, *w)
+        before = counts()
+        got = lstm.bilstm_cbndk(x, h_seq, *w)
+        assert counts() == tuple(n + e for n, e in zip(before, (1, 1, 1, 0, 0)))
+        want = lstm.bilstm_cbndk_plain(x, h_seq, *w)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_v91_layer_backward_launches_v9s_kernels(cuda):
+    """One v9.1 layer backward of S models under ``vmap(grad)``: v9's five
+    launches (three GEMMs, one scan, one sweep), one call of rows 10 and 11
+    each, and nothing of row 9."""
+    from multimodal_sentiment_aanalysis_tpu_torch import kernels
+
+    x, fwd, bwd, dh = (torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray)
+                       else tuple(torch.from_numpy(t).to(cuda) for t in a)
+                       for a in _models(54, 3, 5, 11, 12, 64))
+    loss = lambda x, f, b, g: (lstm.fused_bilstm_layer(x, f, b, schedule="v9.1") * g).sum()
+    kernels.reset_launch_counts()
+    vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(x, fwd, bwd, dh)
+    torch.cuda.synchronize()
+    got = {n: c for n, c in kernels.launch_counts().items() if c}
+    # the forward: one call of row 1, its projection GEMM and recurrence
+    assert got == {"bilstm_fwd": 1, "bilstm_rec": 1, "bilstm_gemm": 1 + 3, "bilstm_cbndk": 1,
+                   "bilstm_segbwd": 1, "bilstm_cscan": 1, "bilstm_sweep": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["layer", "h192"])
+def test_v91_gradients_equal_v9s_on_card(cuda, shape):
+    """v9.1's layer gradients on the card are v9's, bit for bit: the same
+    kernels in the same order (every reduction in a fixed order)."""
+    _, b, t, i, h = CBNDK_SHAPES[shape]
+    x, fwd, bwd, dh = _one_model(55, b=b, t=t, i=i, h=h)
+    x, dh = (torch.from_numpy(a).to(cuda) for a in (x, dh))
+    fwd, bwd = (tuple(torch.from_numpy(a).to(cuda) for a in p) for p in (fwd, bwd))
+    grads = {}
+    for schedule in ("v9", "v9.1"):
+        leaves = [a.clone().requires_grad_() for a in (x, *fwd, *bwd)]
+        out = lstm.fused_bilstm_layer(leaves[0], tuple(leaves[1:5]), tuple(leaves[5:]),
+                                      schedule=schedule)
+        grads[schedule] = torch.autograd.grad((out * dh).sum(), leaves)
+    torch.cuda.synchronize()
+    for g9, g91 in zip(grads["v9"], grads["v9.1"]):
+        assert torch.equal(g9, g91)
