@@ -78,7 +78,11 @@ It needs a CUDA card and exits non-zero without one. In order, it
    validation ran through the fused head (one launch per validation batch
    and epoch, no other kernel), and the fused-head logits of a validation
    batch against the module path on the card (1e-4) and on the CPU (1e-3);
-   prints ms/step;
+   prints ms/step; then the validation forward again with the trained
+   encoder and classifier cast to bf16, the counters reset just before
+   (one launch of the fused head's bf16 form per validation batch, no
+   other kernel), its bf16 logits against the fp32 ones at the JAX
+   package's bf16 bar (rtol/atol 0.1);
 6. attention: ``MultiheadAttention(256, 8)`` self-attention at B=64,
    T=585, forward and backward on the card with the counters reset just
    before (one launch of each flash kernel), against the CPU plain path
@@ -135,6 +139,12 @@ It needs a CUDA card and exits non-zero without one. In order, it
    loss, a bar one TF32 pass misses in fp32,
    ``tests/test_torch_port_infonce_tc.py``), and each of its cases split
    into host and device time, the tile kernel apart from the mean kernel;
+   the stem tail's backward (row 12: ``dy`` at the conv's full length, its
+   partials summed) and the fused head (row 17, fp32 and bf16, B=32 and 37;
+   fp32 also against fp64, 1e-5 of the largest |logit|, a bar one TF32 pass
+   misses, ``tests/test_torch_port_rows12_17.py``), each case split into
+   host and device time, with ptxas's registers and spills of each form of
+   the two kernels;
 8. prints the card's name and power limit, one JSON line of per-kernel
    results (one entry per kernel a path launched; the InfoNCE kernel's
    bf16 form, which no path launches because the bf16 step's InfoNCE
@@ -320,6 +330,10 @@ BF16_RTOL = 2.0 ** -7  # a bf16 output of a bf16 form: one ulp of the value on t
 # batch, full width
 MEMHACL_N, MEMHACL_BATCH, MEMHACL_EPOCHS, MEMHACL_F, MEMHACL_HEADS = 480, 32, 2, 256, 8
 HEAD_ATOL = 1e-4  # fused head against the module path on the card
+# the fused head (3xTF32 on the tensor cores in fp32) against fp64
+# (head_check): max |err| of the logits over the largest fp64 |logit|, a bar
+# one TF32 pass misses (tests/test_torch_port_rows12_17.py)
+HEAD_FP64_REL = 1e-5
 # attention: the T=585 EEG window as a sequence, MHA(256, 8)
 ATTN_B, ATTN_T, ATTN_E, ATTN_HEADS = 64, 585, 256, 8
 # the bound of a case: the larger of its bytes (each input read once, each
@@ -365,6 +379,8 @@ KERNELS = {
     "flash_bwd_dq": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:159", 1e-3),
     "flash_bwd_dkv": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:184", 1e-3),
     "fusion_head": (CSRC + "fusion_head.cu", JAX_KERNELS + "fusion_head.py:40", HEAD_ATOL),
+    # its bf16 form: fp32 arithmetic on bf16 operands, bf16 logits
+    "fusion_head_bf16": (CSRC + "fusion_head.cu", JAX_KERNELS + "fusion_head.py:40", HEAD_ATOL),
     # row 9's c scan (row 6's at K=1), one form: the plain version's
     # rounding, step by step
     "bilstm_cscan": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1026,623", 1e-6),
@@ -1449,9 +1465,47 @@ def memhacl_phase(device: torch.device) -> tuple[dict, tuple, tuple]:
     return counts, (encoder, projector, classifier), (full, train, val)
 
 
+def memhacl_bf16_phase(encoder, classifier, val: DeviceDataset) -> dict:
+    """The ME-MHACL validation forward in bf16: the trained encoder and
+    classifier cast to bf16, each validation batch through
+    ``memhacl_logits`` (bf16 embeddings into the fused head's bf16 form),
+    against the fp32 validation logits at the JAX package's bf16 bar.
+    Returns the path's launch counts."""
+    enc16, clf16 = copy.deepcopy(encoder).to(BF16), copy.deepcopy(classifier).to(BF16)
+    idx, _ = val.epoch_plan(MEMHACL_BATCH, shuffle=False)
+    batches = [val.gather(i) for i in idx]
+    fp32 = [memhacl_logits(encoder, classifier, b["eeg"], b["eye"], b["pps"]) for b in batches]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    lows = [memhacl_logits(enc16, clf16, b["eeg"].to(BF16), b["eye"].to(BF16), b["pps"].to(BF16))
+            for b in batches]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expected = {name: 0 for name in KERNELS}
+    expected["fusion_head_bf16"] = len(batches)
+    print(f"ME-MHACL bf16 validation launches over {len(batches)} batches: {counts}")
+    check(counts == expected, f"ME-MHACL bf16 launch counts {counts} != {expected}")
+    excess, worst, agree = 0.0, 0.0, 1.0
+    for head in (0, 1):
+        lo = torch.cat([res[head] for res in lows])
+        hi = torch.cat([res[head] for res in fp32])
+        check(lo.dtype == BF16 and lo.shape == hi.shape and bool(torch.isfinite(lo).all()),
+              "ME-MHACL bf16: logits not finite bf16")
+        diff = (lo.float() - hi).abs()
+        worst = max(worst, diff.max().item())
+        excess = max(excess, (diff - SERVE_BF16_TOL * (1 + hi.abs())).max().item())
+        agree = min(agree, (lo.argmax(-1) == hi.argmax(-1)).double().mean().item())
+    print(f"ME-MHACL bf16 validation logits against fp32: max |diff| {worst:.3e}, within "
+          f"rtol/atol {SERVE_BF16_TOL}: {excess <= 0}; argmax agreement {agree:.4f}")
+    check(excess <= 0, "ME-MHACL bf16 validation disagrees with fp32")
+    return counts
+
+
 def memhacl_kernel_cases(encoder, classifier, val: DeviceDataset, cases: dict) -> None:
     """Adds the fused head at the validation batch (B=32) and at a ragged
-    B=37, on the trained encoder's embeddings. Call under ``no_grad``."""
+    B=37, on the trained encoder's embeddings, in fp32 (also held to fp64:
+    head_check) and in bf16 (embeddings and weights cast, against the plain
+    version on the same bf16 values). Call under ``no_grad``."""
     encoder.eval()
     weights = fusion_head.head_weights(encoder.multihead_attn, classifier)
     for rows, what in ((MEMHACL_BATCH, "validation batch"), (37, "ragged")):
@@ -1460,7 +1514,51 @@ def memhacl_kernel_cases(encoder, classifier, val: DeviceDataset, cases: dict) -
         cases["fusion_head"].append((
             f"B={rows} F={MEMHACL_F} {what}",
             lambda a=args: fusion_head.fusion_head(*a, num_heads=MEMHACL_HEADS),
-            lambda a=args: fusion_head.fusion_head_plain(*a, num_heads=MEMHACL_HEADS), args))
+            lambda a=args: fusion_head.fusion_head_plain(*a, num_heads=MEMHACL_HEADS), args,
+            lambda a=args: head_fp64(a)))
+        low = tuple(t.to(BF16) for t in args)
+        cases["fusion_head_bf16"].append((
+            f"B={rows} F={MEMHACL_F} {what}",
+            lambda a=low: fusion_head.fusion_head(*a, num_heads=MEMHACL_HEADS),
+            lambda a=low: fusion_head.fusion_head_plain(*a, num_heads=MEMHACL_HEADS), low))
+
+
+def head_fp64(args) -> tuple[tuple, tuple]:
+    """A fused-head case's logits in fp64 on the same inputs, and in fp64 on
+    its inputs rounded to TF32 (what one TF32 pass computes at best)."""
+    return (fusion_head.fusion_head_plain(*(t.double() for t in args), num_heads=MEMHACL_HEADS),
+            fusion_head.fusion_head_plain(*(tf32_round(t).double() for t in args),
+                                          num_heads=MEMHACL_HEADS))
+
+
+def head_check(name: str, label: str, got, ref, one_pass) -> None:
+    """Holds one fused-head case to HEAD_FP64_REL of its largest fp64
+    |logit|, a bar the TF32-rounded inputs must miss."""
+    scale = max(r.abs().max().item() for r in ref)
+    err, err_tf32 = (max((g.double() - r).abs().max().item() for g, r in zip(v, ref))
+                     for v in (got, one_pass))
+    print(f"{name} {label}: against fp64, max |logit| {scale:.4g}; kernel {err:.3e} "
+          f"({err / scale:.2e} of it), one TF32 pass {err_tf32:.3e} ({err_tf32 / scale:.2e}); "
+          f"bar {HEAD_FP64_REL:.0e} of max |logit|")
+    check(err <= HEAD_FP64_REL * scale, f"{name} {label}: {err:.3e} from fp64")
+    check(err_tf32 > HEAD_FP64_REL * scale,
+          f"{name} {label}: one TF32 pass ({err_tf32:.3e}) would meet the bar")
+
+
+def head_ops_ms(name: str, args) -> float:
+    """The least time for a fused-head case's operations: the in, out and
+    shared projections on the tensor cores as the kernel takes them (fp32:
+    three TF32 passes each; bf16: the in projection one bf16 pass, the
+    others two TF32 passes on the fp32 intermediates), the attention and
+    the two heads at the fp32 rate."""
+    x, hidden, ncls = args[0], args[7].shape[0], args[9].shape[0]
+    bsz, f = x.shape
+    macs_in, macs_rest = bsz * 9 * f * f, bsz * (3 * f * f + f * hidden)
+    if name.endswith("_bf16"):
+        dots = 2 * macs_in / PEAK_BF16_FLOPS + 2 * 2 * macs_rest / PEAK_TF32_FLOPS
+    else:
+        dots = 3 * 2 * (macs_in + macs_rest) / PEAK_TF32_FLOPS
+    return (dots + bsz * (36 * f + 4 * hidden * ncls) / PEAK_FP32_FLOPS) * 1e3
 
 
 # --------------------------------------------------------------------------
@@ -1885,6 +1983,16 @@ FLASH_FORMS = (r"(flash_\w+_kernel)ILi(\d+)ELi(\d+)E", flash_form)
 STEM_FORMS = (r"(stem_tail_fwd_kernel)I(f|13__nv_bfloat16)Lb([01])E|(conv_stem_kernel)",
               lambda m: m.group(4) or (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}"
                                        f", {'vector' if m.group(3) == '1' else 'scalar'}>"))
+# row 12: the stem tail's backward per element type, access and pool (2, 4,
+# or 0: any other, one cell at a time)
+STEM_BWD_FORMS = (r"(stem_tail_bwd_kernel)I(f|13__nv_bfloat16)Lb([01])ELi(\d)E",
+                  lambda m: (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, "
+                             f"{'vector' if m.group(3) == '1' else 'scalar'}, pool "
+                             f"{m.group(4) if m.group(4) != '0' else 'any'}>"))
+# row 17: the fused head per element type and n8 tiles a warp
+HEAD_FORMS = (r"(fusion_head_kernel)I(f|13__nv_bfloat16)Li(\d)E",
+              lambda m: f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, "
+                        f"kNt={m.group(3)}>")
 
 
 def ptxas_registers(report: str, forms: tuple) -> list[str]:
@@ -1956,6 +2064,8 @@ def case_results(name: str, items: list) -> dict:
             conv_check(label, got[0], exact[0]())
         elif exact and name.startswith("infonce"):
             infonce_check(name, label, got[0], *exact[0]())
+        elif exact and name.startswith("fusion_head"):
+            head_check(name, label, got, *exact[0]())
         elif exact:
             gemm_check(name, label, args[0], got[0], want[0], *exact[0]())
         diffs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
@@ -1968,6 +2078,7 @@ def case_results(name: str, items: list) -> dict:
         ops_ms = (flash_ops_ms(name, args) if name.startswith("flash")
                   else conv_ops_ms(args) if name == "conv_stem"
                   else infonce_ops_ms(name, args) if name.startswith("infonce")
+                  else head_ops_ms(name, args) if name.startswith("fusion_head")
                   else operations(name, args, res) / peak_rate(name, args) * 1e3)
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         tk, tp = time_ms(kern), time_ms(plain)
@@ -2057,7 +2168,7 @@ def profile_window(label: str, fn, top: int = 25, show: tuple[str, ...] = (),
 
 
 def host_device_split(name: str, items: list, kernel: str, calls: int = 100) -> None:
-    """Cases of row 2 or 13 split into host and device time: per call, the
+    """Cases of row 2, 12, 13 or 17 split into host and device time: per call, the
     CUDA-event time (as the kernel lines time it), the wrapper's host time
     (``perf_counter`` over ``calls`` calls with no sync inside), and under
     torch.profiler the device time of the kernel (device kernels whose name
@@ -2104,13 +2215,15 @@ def main() -> int:
     print(smi)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:  # beside the builds, three nvcc more
+    with ThreadPoolExecutor(max_workers=4) as pool:  # beside the builds, four nvcc more
         reports = {name: pool.submit(ptxas_report, name)
-                   for name in ("flash_attn", "stem_tail", "conv_stem")}
+                   for name in ("flash_attn", "stem_tail", "conv_stem", "fusion_head")}
         libs = build_all()
         registers = ptxas_registers(reports["flash_attn"].result(), FLASH_FORMS)
         stem_registers = ptxas_registers(reports["stem_tail"].result()
                                          + reports["conv_stem"].result(), STEM_FORMS)
+        bwd_registers = ptxas_registers(reports["stem_tail"].result(), STEM_BWD_FORMS)
+        head_registers = ptxas_registers(reports["fusion_head"].result(), HEAD_FORMS)
     print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in libs))
     # each kernel at every head dim and tile, but the forward at D = 128 and
@@ -2128,7 +2241,12 @@ def main() -> int:
     check(not spilling, f"backward flash forms at D <= 64 spill: {spilling}")
     # rows 2 and 3: four forms of the stem tail's forward, one conv stem
     check(len(stem_registers) == 5, f"ptxas reported {len(stem_registers)} of 5 stem forms")
-    for line in stem_registers:
+    # rows 12 and 17: twelve forms of the stem tail's backward, eight of the
+    # head (fp32 and bf16, 1, 2, 4 or 8 n8 tiles a warp)
+    check(len(bwd_registers) == 12 and len(head_registers) == 8,
+          f"ptxas reported {len(bwd_registers)} of 12 stem backward forms and "
+          f"{len(head_registers)} of 8 head forms")
+    for line in stem_registers + bwd_registers + head_registers:
         print(f"ptxas {line}")
 
     model, first, serve_counts, (pool, plan, fp32_logits) = serving_phase(device)
@@ -2149,11 +2267,12 @@ def main() -> int:
     b512_counts = loso_b512_phase(full)
     memhacl_counts, (encoder, projector, classifier), (emotion, train, val) = memhacl_phase(
         device)
+    memhacl_bf16_counts = memhacl_bf16_phase(encoder, classifier, val)
     attention_counts, mha, x_attn = attention_phase(device)
     if args.profile:
         profile_window("train epoch", lambda: trainer.train_epoch(EPOCHS + 1), show=("cscan",))
-        profile_window("LOSO train epoch", vt.train_epoch, top=30, show=("cscan",),
-                       share="stem_tail_fwd")
+        profile_window("LOSO train epoch", vt.train_epoch, top=30, show=("cscan", "stem_tail"),
+                       share="stem_tail")
         profile_window("LOSO bf16 train epoch", vt16.train_epoch, top=30, show=("cscan",))
         for schedule in ("v5", "v6", "v8", "v9.1"):  # the other schedules
             vts = make_loso_trainer(full, lstm_schedule=schedule)
@@ -2167,7 +2286,8 @@ def main() -> int:
             verbose=False), show=("fusion_head",))
 
     phases = (serve_counts, serve_bf16_counts, serve_v5_counts, train_counts, loso["counts"],
-              schedule_counts, loso_bf16_counts, b512_counts, memhacl_counts, attention_counts)
+              schedule_counts, loso_bf16_counts, b512_counts, memhacl_counts,
+              memhacl_bf16_counts, attention_counts)
     counts = {name: sum(c[name] for c in phases) for name in KERNELS}
     gen = torch.Generator(device=device).manual_seed(SEED)
     torch.set_grad_enabled(False)  # plain versions must not record autograd graphs
@@ -2188,6 +2308,12 @@ def main() -> int:
     # row 13: the tile kernel against the rest of a call (the mean kernel)
     for name in ("infonce", "infonce_bf16"):
         host_device_split(name, cases[name] + loso_cases.get(name, []), "infonce_tile")
+    # rows 12 and 17: the kernel against the rest of a call (the stem's
+    # partial sums, none in the head)
+    for name in ("stem_tail_bwd", "stem_tail_bwd_bf16"):
+        host_device_split(name, cases[name] + loso_cases.get(name, []), "stem_tail_bwd")
+    for name in ("fusion_head", "fusion_head_bf16"):
+        host_device_split(name, cases[name], "fusion_head_kernel")
     print(json.dumps({"kernels": kernel_results(cases, loso_cases, counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,16 +45,36 @@
 //   elements (kernels/conv_stem_train.py::keep_mask_plain is the same
 //   stream in numpy).
 //
-// Backward: one thread per pooled cell reads the code, re-reads the
-// winner's conv value, applies ONE gelu_grad, scales kept cells by 1/(1-p),
-// writes dy over the covered rows (B, t_out * pool, C) and accumulates
-// g * xhat and g per channel. Per-block partial sums of dgamma and dbeta
-// are reduced in a fixed order inside the block and written per (model, row
-// chunk); the wrapper sums the chunks in a second pass (deterministic, no
-// atomics). The grid's z axis is the model. It reads the BN values as
-// scale and shift from the wrapper. The BN input-gradient combine stays in
-// torch, as it stays in XLA in JAX. What bounds it: bytes (it reads the
-// codes, dpool and the winners and writes dy).
+// Backward: the code routes dpool to the window's winner, ONE gelu_grad,
+// kept cells scaled by 1/(1-p); it writes dy at the conv's full length (S,
+// B, T, C), 0 away from the winners and in the tail rows T - t_out pool
+// that no window covers, so the caller pads nothing, and per-channel
+// partial sums of g * xhat and g (dgamma, dbeta). The BN input-gradient
+// combine stays in torch, as it stays in XLA in JAX. It reads the BN values
+// as scale and shift from the wrapper.
+//
+// What bounds the backward: bytes. At the LOSO step's stage 2 (S=24, B=64,
+// T=146, C=256, pool 2, fp32) it reads 230 MB of conv and 115 MB each of
+// dpool and code and writes 230 MB of dy: 0.21 ms at 3.35 TB/s. Every
+// window row is read (the winners of 4 channels cover nearly every 32-byte
+// sector of a row, so reading only them saves nothing). Its design, the
+// forward's:
+// - vector access: a thread owns 4 consecutive channels of its pooled
+//   cells: one 16-byte load of their dpool (8 in bf16), one int4 of their
+//   codes, the window's rows as 16-byte (8-byte) loads with the winner
+//   selected per channel, and dy as one 16-byte store a window row. 8
+//   window rows in flight a thread (kSlots: 2 cells at pool 4, 4 at pool
+//   2; the pool is a template parameter there, any other pool runs one cell
+//   at a time), all of a pass's loads issued before any is used;
+// - the grid (row tile x channel-group tile, batch row, model): 32-bit
+//   offsets within the model, no per-element division;
+// - deterministic partials, one per (model, batch row x row tile, channel):
+//   a thread's rows summed in order, the block's thread rows folded by xor
+//   shuffles and then across its warps through shared memory in a fixed
+//   order; the wrapper sums the chunks (no atomics). The wrapper picks the
+//   row tile so that a launch has a few waves of blocks.
+// A C that is not a multiple of 4 (or a pointer not aligned for the
+// vector) runs the same loop with scalar accesses.
 //
 // Each entry point has an fp32 and a bf16 form (suffix _bf16), one template
 // over the element type E of conv, the pooled output and dpool. The
@@ -304,70 +324,193 @@ stem_tail_fwd_kernel(const E* __restrict__ conv,       // (S, B, T, C)
     }
 }
 
-constexpr int kCh = 32;       // channels per block (threadIdx.x)
-constexpr int kRowLanes = 8;  // pooled rows in flight per block (threadIdx.y)
+// The backward. A thread owns 4 consecutive channels of its pooled cells,
+// as the forward does; kPool is the pool (2 or 4, the LOSO step's stages)
+// or 0 for any other pool, read at run time, one cell at a time.
+constexpr int kBwdThreads = 128;
+constexpr int kBwdWarps = kBwdThreads / 32;
 
-template <typename E>
-__global__ void stem_tail_bwd_kernel(const E* __restrict__ conv,       // (S, B, T, C)
-                                     const E* __restrict__ dpool,      // (S, B, t_out, C)
-                                     const int* __restrict__ code,     // (S, B, t_out, C)
-                                     const float* __restrict__ scale,  // (S, C) gamma * inv
-                                     const float* __restrict__ shift,  // (S, C) beta - mean * scale
-                                     const float* __restrict__ mean,   // (S, C)
-                                     const float* __restrict__ inv,    // (S, C)
-                                     float keep_scale,
-                                     float* __restrict__ dy,       // (S, B, t_out * pool, C)
-                                     float* __restrict__ dg_part,  // (S, chunks, C)
-                                     float* __restrict__ db_part,  // (S, chunks, C)
-                                     int B, int T, int C, int pool, int t_out,
-                                     int rows_per_chunk) {
-    __shared__ float red_g[kRowLanes][kCh];
-    __shared__ float red_b[kRowLanes][kCh];
-    const size_t model = blockIdx.z;
-    conv += model * B * T * C;
-    dpool += model * B * t_out * C;
-    code += model * B * t_out * C;
-    scale += model * C;
-    shift += model * C;
-    mean += model * C;
-    inv += model * C;
-    dy += model * B * t_out * pool * C;
-    dg_part += model * gridDim.y * C;
-    db_part += model * gridDim.y * C;
-    const int c = blockIdx.x * kCh + threadIdx.x;
-    const int rows = B * t_out;
-    const int r0 = blockIdx.y * rows_per_chunk;
-    const int r1 = min(r0 + rows_per_chunk, rows);
-    float sg = 0.0f, sb = 0.0f;
-    if (c < C) {
-        const float sc = scale[c], sh = shift[c], mu = mean[c], iv = inv[c];
-        for (int r = r0 + threadIdx.y; r < r1; r += kRowLanes) {
-            const int b = r / t_out;
-            const int to = r - b * t_out;
-            const size_t o = static_cast<size_t>(r) * C + c;
-            const int cd = code[o];
-            const int jw = cd % pool;
-            const size_t xi = (static_cast<size_t>(b) * T + static_cast<size_t>(to) * pool + jw) * C + c;
-            const float x = to_float(conv[xi]);
-            float g = to_float(dpool[o]) * gelu_erf_grad(x * sc + sh);
-            g = cd >= pool ? g * keep_scale : 0.0f;
-            float* dst = dy + static_cast<size_t>(r) * pool * C + c;
-            for (int j = 0; j < pool; ++j) dst[static_cast<size_t>(j) * C] = j == jw ? g : 0.0f;
-            sg = fmaf(g, (x - mu) * iv, sg);
-            sb += g;
+template <bool kVec>
+__device__ __forceinline__ void load_codes(const int* p, int n, int (&cd)[4]) {
+    if constexpr (kVec) {
+        const int4 q = *reinterpret_cast<const int4*>(p);
+        cd[0] = q.x, cd[1] = q.y, cd[2] = q.z, cd[3] = q.w;
+    } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) cd[u] = u < n ? p[u] : 0;
+    }
+}
+
+// Grid: x = row tile * group_tiles + channel-group tile, y = batch row,
+// z = model. Block: gx channel groups (a power of two) by kBwdThreads / gx
+// = ry thread rows; the block owns pooled rows [rt tile_rows, (rt + 1)
+// tile_rows) of its batch row, thread (tx, ty) the rows ty + ry k of them,
+// kCells at a time: their codes, dpool and all kCells * pool window rows
+// loaded before any is used. The last row tile also writes the zero tail
+// rows T - t_out pool of dy. Partials: one per (model, chunk = b row_tiles +
+// rt, channel), the thread rows folded by xor shuffles within a warp and
+// across the block's warps through shared memory, in a fixed order.
+template <typename E, bool kVec, int kPool>
+__global__ void __launch_bounds__(kBwdThreads)
+stem_tail_bwd_kernel(const E* __restrict__ conv,       // (S, B, T, C)
+                     const E* __restrict__ dpool,      // (S, B, t_out, C)
+                     const int* __restrict__ code,     // (S, B, t_out, C)
+                     const float* __restrict__ scale,  // (S, C) gamma * inv
+                     const float* __restrict__ shift,  // (S, C) beta - mean * scale
+                     const float* __restrict__ mean,   // (S, C)
+                     const float* __restrict__ inv,    // (S, C)
+                     float keep_scale,
+                     float* __restrict__ dy,       // (S, B, T, C)
+                     float* __restrict__ dg_part,  // (S, B * row_tiles, C)
+                     float* __restrict__ db_part,  // (S, B * row_tiles, C)
+                     int B, int T, int C, int pool, int t_out, int gx, int group_tiles,
+                     int tile_rows) {
+    // pooled cells a thread has in flight: 8 window rows for pools 2 and 4
+    constexpr int kCells = kPool ? kSlots / kPool : 1;
+    constexpr int kWin = kPool ? kPool : kSlots;  // window rows loaded a cell and pass
+    __shared__ float s_vals[4][4 * kMaxGroups];   // scale, shift, mean, inv
+    __shared__ float s_red[2][kBwdWarps][4 * kMaxGroups];
+    if constexpr (kPool) pool = kPool;
+    const int s = blockIdx.z, b = blockIdx.y;
+    const int ry = kBwdThreads / gx;
+    const int rt = blockIdx.x / group_tiles;
+    const int row_tiles = (t_out + tile_rows - 1) / tile_rows;
+    const int c_block = (blockIdx.x % group_tiles) * gx * 4;
+    const int tx = threadIdx.x % gx, ty = threadIdx.x / gx;
+    const int cl = 4 * tx;  // the thread's first channel within the block's
+    const int c0 = c_block + cl;
+    const bool live = c0 < C;
+    const int n = kVec ? 4 : max(0, min(4, C - c0));  // channels of this group
+    const size_t model = static_cast<size_t>(s) * B;
+    const E* x_src = conv + model * T * C;
+    const E* dp_src = dpool + model * t_out * C;
+    const int* cd_src = code + model * t_out * C;
+    float* dst = dy + model * T * C;
+    const int t_begin = rt * tile_rows, t_end = min(t_out, t_begin + tile_rows);
+
+    if (threadIdx.x < 4 * gx && c_block + static_cast<int>(threadIdx.x) < C) {
+        const int pc = s * C + c_block + threadIdx.x;
+        s_vals[0][threadIdx.x] = scale[pc];
+        s_vals[1][threadIdx.x] = shift[pc];
+        s_vals[2][threadIdx.x] = mean[pc];
+        s_vals[3][threadIdx.x] = inv[pc];
+    }
+    __syncthreads();
+    float sc[4], sh[4], mu[4], iv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+        const bool in = live && u < n;
+        sc[u] = in ? s_vals[0][cl + u] : 0.0f;
+        sh[u] = in ? s_vals[1][cl + u] : 0.0f;
+        mu[u] = in ? s_vals[2][cl + u] : 0.0f;
+        iv[u] = in ? s_vals[3][cl + u] : 0.0f;
+    }
+
+    float sg[4] = {0.0f, 0.0f, 0.0f, 0.0f}, sb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int to0 = t_begin + ty; live && to0 < t_end; to0 += ry * kCells) {
+        Slot<E, kVec> dps[kCells], xs[kCells][kWin];
+        int cds[kCells][4];
+#pragma unroll
+        for (int i = 0; i < kCells; ++i) {
+            const int to = to0 + i * ry;
+            if (to < t_end) {
+                const int o = (b * t_out + to) * C + c0;
+                dps[i] = load_slot<E, kVec>(dp_src + o, n);
+                load_codes<kVec>(cd_src + o, n, cds[i]);
+                const int x0 = (b * T + to * pool) * C + c0;
+#pragma unroll
+                for (int j = 0; j < kWin; ++j)
+                    if (kPool || j < pool) xs[i][j] = load_slot<E, kVec>(x_src + x0 + j * C, n);
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < kCells; ++i) {
+            const int to = to0 + i * ry;
+            if (to >= t_end) break;
+            int jw[4];
+            float xw[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4], g[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) jw[u] = cds[i][u] >= pool ? cds[i][u] - pool : cds[i][u];
+            auto select = [&](const Slot<E, kVec>(&rows)[kWin], int j0) {
+#pragma unroll
+                for (int j = 0; j < kWin; ++j) {
+                    if (!kPool && j0 + j >= pool) break;
+                    float v[4];
+                    unpack(rows[j], v);
+#pragma unroll
+                    for (int u = 0; u < 4; ++u) xw[u] = j0 + j == jw[u] ? v[u] : xw[u];
+                }
+            };
+            select(xs[i], 0);
+            const int x0 = (b * T + to * pool) * C + c0;
+            // a window longer than kSlots rows (kPool 0): the rest, kSlots at a time
+            for (int j0 = kWin; !kPool && j0 < pool; j0 += kWin) {
+#pragma unroll
+                for (int j = 0; j < kWin; ++j)
+                    if (j0 + j < pool) xs[i][j] = load_slot<E, kVec>(x_src + x0 + (j0 + j) * C, n);
+                select(xs[i], j0);
+            }
+            unpack(dps[i], dp);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const float y = fmaf(xw[u], sc[u], sh[u]);
+                g[u] = cds[i][u] >= pool ? dp[u] * gelu_erf_grad(y) * keep_scale : 0.0f;
+                sg[u] = fmaf(g[u], (xw[u] - mu[u]) * iv[u], sg[u]);
+                sb[u] += g[u];
+            }
+            // dy over the window: g at the winner's row, 0 elsewhere
+#pragma unroll
+            for (int j = 0; j < kWin; ++j) {
+                if (!kPool && j >= pool) break;
+                float v[4];
+#pragma unroll
+                for (int u = 0; u < 4; ++u) v[u] = j == jw[u] ? g[u] : 0.0f;
+                store4<kVec>(dst + x0 + j * C, n, v);
+            }
+            for (int j = kWin; !kPool && j < pool; ++j) {
+                float v[4];
+#pragma unroll
+                for (int u = 0; u < 4; ++u) v[u] = j == jw[u] ? g[u] : 0.0f;
+                store4<kVec>(dst + x0 + j * C, n, v);
+            }
         }
     }
-    red_g[threadIdx.y][threadIdx.x] = sg;
-    red_b[threadIdx.y][threadIdx.x] = sb;
-    __syncthreads();
-    if (threadIdx.y == 0 && c < C) {
-        float tg = 0.0f, tb = 0.0f;
-        for (int y = 0; y < kRowLanes; ++y) {  // fixed order: deterministic
-            tg += red_g[y][threadIdx.x];
-            tb += red_b[y][threadIdx.x];
+    // the rows past the last window (T not a multiple of pool) get no gradient
+    if (live && rt == row_tiles - 1) {
+        const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int r = t_out * pool + ty; r < T; r += ry) store4<kVec>(dst + (b * T + r) * C + c0, n, zero);
+    }
+
+    // the partials: thread rows of a warp by xor shuffles (lanes tx + gx k
+    // hold one channel group), then the warps through shared memory, in order
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+        for (int off = 16; off >= gx; off >>= 1) {
+            sg[u] += __shfl_xor_sync(0xffffffffu, sg[u], off);
+            sb[u] += __shfl_xor_sync(0xffffffffu, sb[u], off);
         }
-        dg_part[static_cast<size_t>(blockIdx.y) * C + c] = tg;
-        db_part[static_cast<size_t>(blockIdx.y) * C + c] = tb;
+    }
+    if (lane < gx) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            s_red[0][warp][cl + u] = sg[u];
+            s_red[1][warp][cl + u] = sb[u];
+        }
+    }
+    __syncthreads();
+    const int c = c_block + threadIdx.x;
+    if (threadIdx.x < 4 * gx && c < C) {
+        // warps that hold no thread row of this group hold zeros
+        const int warps = min(kBwdWarps, (ry * gx + 31) / 32);
+        float tg = 0.0f, tb = 0.0f;
+        for (int w = 0; w < warps; ++w) {
+            tg += s_red[0][w][threadIdx.x];
+            tb += s_red[1][w][threadIdx.x];
+        }
+        const size_t at = (model + b) * row_tiles + rt;  // (s, b, rt) chunk
+        dg_part[at * C + c] = tg;
+        db_part[at * C + c] = tb;
     }
 }
 
@@ -403,21 +546,54 @@ int launch_fwd(const E* conv, const float* gamma, const float* beta, const float
     return cudaGetLastError();
 }
 
+template <typename E, bool kVec>
+cudaError_t launch_bwd_form(dim3 grid, cudaStream_t st, const E* conv, const E* dpool,
+                            const int* code, const float* scale, const float* shift,
+                            const float* mean, const float* inv, float keep_scale, float* dy,
+                            float* dg_part, float* db_part, int B, int T, int C, int pool,
+                            int t_out, int gx, int group_tiles, int tile_rows) {
+    auto run = [&](auto kernel) {
+        kernel<<<grid, kBwdThreads, 0, st>>>(conv, dpool, code, scale, shift, mean, inv,
+                                             keep_scale, dy, dg_part, db_part, B, T, C, pool,
+                                             t_out, gx, group_tiles, tile_rows);
+        return cudaGetLastError();
+    };
+    if (pool == 2) return run(stem_tail_bwd_kernel<E, kVec, 2>);
+    if (pool == 4) return run(stem_tail_bwd_kernel<E, kVec, 4>);
+    return run(stem_tail_bwd_kernel<E, kVec, 0>);
+}
+
+// tile_rows: pooled rows a block, chosen by the wrapper
+// (kernels/conv_stem_train.py::bwd_tile_rows); the partials have B
+// ceil(t_out / tile_rows) chunks a model
 template <typename E>
 int launch_bwd(const E* conv, const E* dpool, const int* code, const float* scale,
                const float* shift, const float* mean, const float* inv, float keep_scale,
                float* dy, float* dg_part, float* db_part, int S, int B, int T, int C, int pool,
-               int rows_per_chunk, int device, void* stream) {
+               int tile_rows, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const int t_out = T / pool;
-    const int chunks = (B * t_out + rows_per_chunk - 1) / rows_per_chunk;
-    const dim3 grid((C + kCh - 1) / kCh, chunks, S);
-    const dim3 block(kCh, kRowLanes);
-    stem_tail_bwd_kernel<E><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        conv, dpool, code, scale, shift, mean, inv, keep_scale, dy, dg_part, db_part, B, T, C,
-        pool, t_out, rows_per_chunk);
-    return cudaGetLastError();
+    const int groups = (C + 3) / 4;
+    int gx = 1;
+    while (gx < groups && gx < kMaxGroups) gx *= 2;
+    const int group_tiles = (groups + gx - 1) / gx;
+    const int row_tiles = (t_out + tile_rows - 1) / tile_rows;
+    const dim3 grid(group_tiles * row_tiles, B, S);
+    // 16-byte (bf16: 8-byte) accesses need C % 4 == 0 and aligned tensors
+    const uintptr_t align = 4 * sizeof(E) - 1;
+    const bool vec = C % 4 == 0 && !(reinterpret_cast<uintptr_t>(conv) & align) &&
+                     !(reinterpret_cast<uintptr_t>(dpool) & align) &&
+                     !(reinterpret_cast<uintptr_t>(code) & 15) &&
+                     !(reinterpret_cast<uintptr_t>(dy) & 15);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (vec)
+        return launch_bwd_form<E, true>(grid, st, conv, dpool, code, scale, shift, mean, inv,
+                                        keep_scale, dy, dg_part, db_part, B, T, C, pool, t_out,
+                                        gx, group_tiles, tile_rows);
+    return launch_bwd_form<E, false>(grid, st, conv, dpool, code, scale, shift, mean, inv,
+                                     keep_scale, dy, dg_part, db_part, B, T, C, pool, t_out, gx,
+                                     group_tiles, tile_rows);
 }
 
 }  // namespace
@@ -446,16 +622,16 @@ extern "C" int msa_stem_tail_bwd(const float* conv, const float* dpool, const in
                                  const float* scale, const float* shift, const float* mean,
                                  const float* inv, float keep_scale, float* dy, float* dg_part,
                                  float* db_part, int S, int B, int T, int C, int pool,
-                                 int rows_per_chunk, int device, void* stream) {
+                                 int tile_rows, int device, void* stream) {
     return launch_bwd(conv, dpool, code, scale, shift, mean, inv, keep_scale, dy, dg_part,
-                      db_part, S, B, T, C, pool, rows_per_chunk, device, stream);
+                      db_part, S, B, T, C, pool, tile_rows, device, stream);
 }
 
 extern "C" int msa_stem_tail_bwd_bf16(const bf16* conv, const bf16* dpool, const int* code,
                                       const float* scale, const float* shift, const float* mean,
                                       const float* inv, float keep_scale, float* dy,
                                       float* dg_part, float* db_part, int S, int B, int T, int C,
-                                      int pool, int rows_per_chunk, int device, void* stream) {
+                                      int pool, int tile_rows, int device, void* stream) {
     return launch_bwd(conv, dpool, code, scale, shift, mean, inv, keep_scale, dy, dg_part,
-                      db_part, S, B, T, C, pool, rows_per_chunk, device, stream);
+                      db_part, S, B, T, C, pool, tile_rows, device, stream);
 }

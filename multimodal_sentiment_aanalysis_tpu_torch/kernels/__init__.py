@@ -40,7 +40,7 @@ for both: three ``bilstm_gemm``, one ``bilstm_cscan``, one ``bilstm_sweep``.
 - ``flash_bwd_dkv``: ``attention.flash_bwd_dkv``, ``csrc/flash_attn.cu``,
   ``kernels/attention.py::_bwd_dkv_kernel``
 - ``fusion_head``: ``fusion_head.fusion_head``, ``csrc/fusion_head.cu``,
-  ``kernels/fusion_head.py::_kernel``
+  ``kernels/fusion_head.py::_kernel``; its bf16 form ``fusion_head_bf16``
 - the BiLSTM's other schedules (``lstm.fused_bilstm_layer(schedule=)``),
   fp32 only: ``bilstm_fwd_xp`` (``csrc/lstm_fwd.cu``, ``kernels/lstm.py::
   _fwd_kernel``; ``bilstm_rec``'s cluster recurrence in its form that also
@@ -105,6 +105,7 @@ KERNELS = {
     "flash_bwd_dq": attention.DQ_KERNEL,
     "flash_bwd_dkv": attention.DKV_KERNEL,
     "fusion_head": fusion_head.KERNEL,
+    "fusion_head_bf16": fusion_head.KERNELS[_BF16],
     "bilstm_fwd_xp": lstm.FWD_XP_KERNEL,
     "bilstm_bwd_xp": lstm.BWD_XP_KERNEL,
     "bilstm_cseq": lstm.CSEQ_KERNEL,

@@ -16,10 +16,12 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/kernels/conv_stem_train.py``
   bf16). In train mode it also writes one int32 code per pooled cell:
   winner index + ``pool`` * keep bit.
 - backward: the code routes ``dpool`` to the winner, one ``gelu_grad``,
-  kept cells scaled by ``1 / (1 - p)``; the kernel writes ``dy`` over the
-  covered rows plus per-chunk partial dgamma/dbeta, summed here. The BN
-  input-gradient combine ``inv * gamma * (dy - dbeta/N - xhat * dgamma/N)``
-  and the zero tail rows stay in torch, as ``_fst_bwd`` keeps them in XLA.
+  kept cells scaled by ``1 / (1 - p)``. A thread owns 4 channels of its
+  pooled cells, as in the forward, with 8 window rows in flight; the kernel
+  writes ``dy`` at the conv's full length (zeros in the tail rows no window
+  covers) and per-chunk partial dgamma/dbeta, summed here in a fixed order.
+  The BN input-gradient combine ``inv * gamma * (dy - dbeta/N - xhat *
+  dgamma/N)`` stays in torch, as ``_fst_bwd`` keeps it in XLA.
 
 The dropout mask on the card: element ``e`` of model ``s`` (its flat index
 ``(b T + t) C + c`` within the model) is kept iff word ``e mod 4`` of
@@ -60,7 +62,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ._build import (F32, F32_BF16, MAX_MODELS, check_cuda, kernel_forms, models_first, ptr,
+from ._build import (F32_BF16, MAX_MODELS, check_cuda, kernel_forms, models_first, ptr,
                      upcast, with_models)
 from .conv_stem import gelu_max_pool
 
@@ -73,7 +75,12 @@ BWD_KERNELS = kernel_forms("stem_tail", "msa_stem_tail_bwd",
                            + [ctypes.c_int] * 6)
 KERNEL, BWD_KERNEL = KERNELS[torch.float32], BWD_KERNELS[torch.float32]
 
-_ROWS_PER_CHUNK = 64  # pooled rows per partial dgamma/dbeta sum in the backward
+# the backward's blocks (csrc/stem_tail.cu): 128 threads, 4 channels a
+# thread, up to 32 channel groups a block, 8 window rows in flight a thread
+_BWD_THREADS, _MAX_GROUPS, _SLOTS = 128, 32, 8
+# blocks a backward launch aims for: a few waves of the H100's 132 SMs at 8
+# resident blocks each, so that the last wave's tail is short
+_BWD_BLOCKS = 4 * 132 * 8
 
 
 def _keep_scale(p: float) -> float:
@@ -268,12 +275,10 @@ class _StemTail(torch.autograd.Function):
         inv = torch.rsqrt(var + eps)
         scale = gamma * inv
         shift = beta - mean * scale
-        dy_cov, dg_part, db_part = _StemTailBwd.apply(conv, dpool, code, scale, shift, mean,
-                                                      inv, p, pool)
+        dy, dg_part, db_part = _StemTailBwd.apply(conv, dpool, code, scale, shift, mean, inv,
+                                                  p, pool)
         dgamma, dbeta = dg_part.sum(0), db_part.sum(0)
-        b, t, c = conv.shape
-        dy = torch.nn.functional.pad(dy_cov, (0, 0, 0, t - dy_cov.shape[1]))
-        n = b * t
+        n = conv.shape[0] * conv.shape[1]
         xhat = (upcast(conv) - mean) * inv
         dconv = (inv * gamma) * (dy - dbeta / n - xhat * (dgamma / n))
         return (dconv.to(conv.dtype), dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
@@ -337,21 +342,65 @@ def stem_tail_bwd_plain(conv, dpool, code, scale, shift, mean, inv, p: float, po
     phi = torch.exp(-0.5 * y * y) * 0.3989422804014327
     g = dpool * (0.5 * (1.0 + torch.erf(y * 0.7071067811865476)) + y * phi)
     g = torch.where(code >= pool, g * _keep_scale(p), 0.0)
-    dy = torch.zeros(s, b, t_out, pool, c, dtype=conv.dtype, device=conv.device)
-    dy.scatter_(3, jwin[:, :, :, None], g[:, :, :, None])
+    dy = torch.zeros(s, b, t, c, dtype=conv.dtype, device=conv.device)
+    dy[:, :, : t_out * pool].view(s, b, t_out, pool, c).scatter_(3, jwin[:, :, :, None],
+                                                                 g[:, :, :, None])
     xhat = (x - _per_channel(mean)) * _per_channel(inv)
-    res = (dy.reshape(s, b, t_out * pool, c), (g * xhat).sum((1, 2))[:, None],
-           g.sum((1, 2))[:, None])
+    res = (dy, (g * xhat).sum((1, 2))[:, None], g.sum((1, 2))[:, None])
     return tuple(r[0] for r in res) if one else res
 
 
+def bwd_plan(shape, pool: int) -> tuple[int, int]:
+    """The backward kernel's row tiles for a conv of ``shape`` ``(S, B, T,
+    C)``: ``(tile_rows, row_tiles)``, pooled rows a block and blocks a batch
+    row (a channel-group tile). The partials have ``B * row_tiles`` chunks
+    a model, chunk ``b * row_tiles + r`` summing pooled rows ``[r tile_rows,
+    (r + 1) tile_rows)`` of batch row ``b``. A tile is a whole number of a
+    block's passes (its thread rows times the cells each has in flight),
+    and there are as few tiles as give the launch ``_BWD_BLOCKS`` blocks.
+    Raises where the grid cannot hold the shape."""
+    s, b, t, c = shape
+    if b * t * c >= 2 ** 31 or b > 65535 or s > MAX_MODELS:
+        raise ValueError(f"conv {tuple(shape)}: the backward kernel takes B T C < 2^31 "
+                         f"elements a model, B <= 65535 and S <= {MAX_MODELS}")
+    t_out = t // pool
+    groups = -(-c // 4)
+    gx = min(1 << (groups - 1).bit_length(), _MAX_GROUPS)
+    cells = _SLOTS // pool if pool in (2, 4) else 1
+    per_pass = _BWD_THREADS // gx * cells
+    passes = -(-t_out // per_pass)
+    want = -(-_BWD_BLOCKS // (s * b * -(-groups // gx)))
+    per_tile = -(-passes // min(max(want, 1), passes))
+    tile_rows = per_tile * per_pass
+    return tile_rows, -(-t_out // tile_rows)
+
+
+def _check_bwd_args(conv, dpool, code, scale, shift, mean, inv, pool: int) -> None:
+    """Shapes and types of the backward's operands, on either device."""
+    if conv.dim() not in (3, 4) or 0 in conv.shape or not 1 <= pool <= conv.shape[-2]:
+        raise ValueError(f"conv must be a non-empty (B, T, C) or (S, B, T, C) tensor with "
+                         f"T >= pool {pool}")
+    pooled = (*conv.shape[:-2], conv.shape[-2] // pool, conv.shape[-1])
+    if tuple(dpool.shape) != pooled or dpool.dtype != conv.dtype:
+        raise ValueError(f"dpool must be {pooled} in conv's dtype {conv.dtype}")
+    if code.dtype != torch.int32 or tuple(code.shape) != pooled:
+        raise ValueError("code must be the forward's int32 (B, T // pool, C) tensor")
+    per_model = (*conv.shape[:-3], conv.shape[-1])
+    for name, v in (("scale", scale), ("shift", shift), ("mean", mean), ("inv", inv)):
+        if tuple(v.shape) != per_model:
+            raise ValueError(f"{name} must have shape {per_model}")
+
+
 def stem_tail_bwd(conv, dpool, code, scale, shift, mean, inv, p: float, pool: int):
-    """Winner-routed backward of the stem tail: ``(dy (B, t_out * pool, C),
-    dgamma partials (chunks, C), dbeta partials (chunks, C))``, each with a
-    leading S where the inputs have one, all fp32; the caller sums the
-    partials over their chunk axis. ``scale = gamma * inv`` and ``shift =
-    beta - mean * scale`` with ``inv = rsqrt(var + eps)``; ``dpool`` has
-    ``conv``'s dtype and the per-channel values enter in fp32."""
+    """Winner-routed backward of the stem tail: ``(dy (B, T, C), dgamma
+    partials (chunks, C), dbeta partials (chunks, C))``, each with a
+    leading S where the inputs have one, all fp32; ``dy`` is 0 away from
+    the winners and in the ``T - (T // pool) pool`` tail rows; the caller
+    sums the partials over their chunk axis (:func:`bwd_plan` gives their
+    layout). ``scale = gamma * inv`` and ``shift = beta - mean * scale``
+    with ``inv = rsqrt(var + eps)``; ``dpool`` has ``conv``'s dtype and the
+    per-channel values enter in fp32."""
+    _check_bwd_args(conv, dpool, code, scale, shift, mean, inv, pool)
     if conv.device.type == "cpu":
         return stem_tail_bwd_plain(conv, dpool, code, scale, shift, mean, inv, p, pool)
     if conv.device.type != "cuda":
@@ -360,23 +409,19 @@ def stem_tail_bwd(conv, dpool, code, scale, shift, mean, inv, p: float, pool: in
         conv, dpool, code, *(upcast(v).contiguous() for v in (scale, shift, mean, inv)))
     device = conv.device
     s, b, t, c = conv.shape
-    if s > MAX_MODELS:
-        raise ValueError(f"{s} models > {MAX_MODELS}: the model axis is the grid's z axis")
-    t_out = t // pool
+    tile_rows, row_tiles = bwd_plan(conv.shape, pool)
     check_cuda("conv", conv, device, dtypes=F32_BF16)
-    check_cuda("dpool", dpool, device, (s, b, t_out, c), (conv.dtype,))
-    if (code.dtype != torch.int32 or code.device != device
-            or tuple(code.shape) != (s, b, t_out, c) or not code.is_contiguous()):
-        raise ValueError("code must be the forward's int32 (B, T // pool, C) tensor")
+    check_cuda("dpool", dpool, device, dtypes=(conv.dtype,))
+    if code.device != device or not code.is_contiguous():
+        raise ValueError("code must be contiguous, on conv's device")
     for name, v in (("scale", scale), ("shift", shift), ("mean", mean), ("inv", inv)):
-        check_cuda(name, v, device, (s, c), F32)
-    chunks = -(-(b * t_out) // _ROWS_PER_CHUNK)
-    dy = torch.empty(s, b, t_out * pool, c, device=device, dtype=torch.float32)
-    dg_part = torch.empty(s, chunks, c, device=device, dtype=torch.float32)
-    db_part = torch.empty(s, chunks, c, device=device, dtype=torch.float32)
+        check_cuda(name, v, device)
+    dy = torch.empty(s, b, t, c, device=device, dtype=torch.float32)
+    dg_part = torch.empty(s, b * row_tiles, c, device=device, dtype=torch.float32)
+    db_part = torch.empty(s, b * row_tiles, c, device=device, dtype=torch.float32)
     BWD_KERNELS[conv.dtype].launch(device, ptr(conv), ptr(dpool), ptr(code), ptr(scale),
                                    ptr(shift), ptr(mean), ptr(inv), _keep_scale(p), ptr(dy),
-                                   ptr(dg_part), ptr(db_part), s, b, t, c, pool, _ROWS_PER_CHUNK)
+                                   ptr(dg_part), ptr(db_part), s, b, t, c, pool, tile_rows)
     return (dy[0], dg_part[0], db_part[0]) if one else (dy, dg_part, db_part)
 
 

@@ -1,6 +1,8 @@
 """Time rows 2 and 3 of the port's kernel table (the EEG stem tail's
 forward, ``csrc/stem_tail.cu``, and the serving conv stem,
-``csrc/conv_stem.cu``) on one CUDA card, splitting host from device time.
+``csrc/conv_stem.cu``) on one CUDA card, splitting host from device time;
+with ``--bwd``, row 12 (the stem tail's backward) and row 17 (the ME-MHACL
+fused head, ``csrc/fusion_head.cu``) instead.
 
 Row 2 at its paths' shapes, stage 1 (T=585, C=64, pool 4) and stage 2
 (T=146, C=256, pool 2), B=64, fp32 and bf16: the eval form
@@ -24,6 +26,15 @@ the batch statistics, ``fused_stage_train`` at p 0.4), for each stage, and
 prints the device time by kernel: the stem tail's two kernels beside the
 transposes, statistic passes and the backward's BN combine around them.
 
+With ``--bwd`` it times row 12 through ``conv_stem_train.stem_tail_bwd``
+at both stages, S=1 and S=24, fp32 and bf16, on the code of a p 0.4
+forward, and row 17 through ``fusion_head.fusion_head`` at the ME-MHACL
+validation batch (B=32) and a ragged B=37 (F=256, 8 heads, hidden 128),
+fp32 and bf16 (a tree whose head has no bf16 form prints the refusal). Each
+case's device time is the profiler's for the case's kernel, beside the
+bytes bound of row 12 (each input read once, each output written once, at
+3.35 TB/s).
+
 With ``--serve`` it times only the serving entry points that reach the
 stem instead: the flagship's eval forward (row 2 twice a request) and
 ``build_serving_forward(use_pallas=True)`` (row 3 twice), at B=64 on
@@ -32,6 +43,7 @@ the host clock around synchronised runs, as ``chip_smoke.py`` serves.
 
     python3 scripts/bench_stem.py [--root DIR] [--label NAME] [--reps N] [--stage-profile]
     python3 scripts/bench_stem.py --serve [--root DIR] [--label NAME] [--windows N]
+    python3 scripts/bench_stem.py --bwd [--root DIR] [--label NAME] [--reps N]
 
 ``--root`` is the checkout whose port is imported (default: this one), so
 that two trees can be compared in one session (a ``git archive`` of the
@@ -151,6 +163,47 @@ def serve(label: str, dev, windows: int, batch: int = 64, requests: int = 100) -
     return 0
 
 
+def backward_cases(record, randn, gen) -> None:
+    """Row 12 at the LOSO stages (S=1 and 24, fp32 and bf16) on a p 0.4
+    forward's code, and row 17 at B=32 and 37 (fp32 and bf16)."""
+    import torch
+
+    from multimodal_sentiment_aanalysis_tpu_torch.kernels import conv_stem_train, fusion_head
+
+    for t, c, pool in ((585, 64, 4), (146, 256, 2)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for s in (1, 24):
+                conv = randn(s, 64, t, c).to(dtype)
+                gamma, beta = 1 + 0.3 * randn(s, c), 0.1 * randn(s, c)
+                mean = conv.float().mean((1, 2))
+                var = (conv.float() ** 2).mean((1, 2)) - mean * mean
+                out, code = conv_stem_train.stem_tail_fwd(conv, gamma, beta, mean, var, 0.4, pool,
+                                                          generator=gen)
+                inv = torch.rsqrt(var + 1e-5)
+                args = (conv, randn(*out.shape).to(dtype), code, gamma * inv,
+                        beta - mean * gamma * inv, mean, inv, 0.4, pool)
+                # the operands and the full-length fp32 dy (the partials aside)
+                nbytes = sum(a.numel() * a.element_size() for a in args[:7]) + conv.numel() * 4
+                bound_us = nbytes / 3.35e12 * 1e6
+                record(f"row12 S={s} {str(dtype)[6:]} pool {pool} {tuple(conv.shape)} "
+                       f"(bytes bound {bound_us:.2f} us)",
+                       lambda a=args: conv_stem_train.stem_tail_bwd(*a), "stem_tail_bwd")
+    for b in (32, 37):
+        xs = [randn(b, 256) for _ in range(3)]
+        weights = [randn(768, 256) / 16, 0.1 * randn(768), randn(256, 256) / 16, 0.1 * randn(256),
+                   randn(128, 256) / 16, 0.1 * randn(128), randn(2, 128) / 11.3, 0.1 * randn(2),
+                   randn(2, 128) / 11.3, 0.1 * randn(2)]
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [t.to(dtype) for t in xs + weights]
+            label = f"row17 B={b} F=256 8 heads hidden 128 {str(dtype)[6:]}"
+            try:
+                fusion_head.fusion_head(*args, num_heads=8)
+            except TypeError as err:  # a tree whose head takes fp32 only
+                print(f"stem {label}: refused ({err})", flush=True)
+                continue
+            record(label, lambda a=args: fusion_head.fusion_head(*a, num_heads=8), "fusion_head")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", default=str(ROOT))
@@ -158,6 +211,7 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--stage-profile", action="store_true")
     parser.add_argument("--serve", action="store_true")
+    parser.add_argument("--bwd", action="store_true")
     parser.add_argument("--windows", type=int, default=5)
     args = parser.parse_args()
     sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
@@ -185,7 +239,9 @@ def main() -> int:
               f"{r['host_us']:.1f} us/call; device {r['kernel_us']:.2f} us/call in {kernel}, "
               f"{r['other_us']:.2f} us/call in other launches", flush=True)
 
-    for t, c, pool in ((585, 64, 4), (146, 256, 2)):
+    if args.bwd:
+        backward_cases(record, randn, gen)
+    for t, c, pool in ((585, 64, 4), (146, 256, 2)) if not args.bwd else ():
         for dtype in (torch.float32, torch.bfloat16):
             name = "fp32" if dtype == torch.float32 else "bf16"
             for s in (1, 24):
@@ -204,7 +260,8 @@ def main() -> int:
                     record(f"train S={s} {name} pool {pool} {tuple(conv.shape)} p {p}",
                            lambda a=(conv, *stats), p=p, pool=pool: conv_stem_train.stem_tail_fwd(
                                *a, p, pool, generator=gen), "stem_tail_fwd")
-    for b, t, c, o, k, pad, pool in ((64, 585, 32, 64, 15, 7, 4), (64, 146, 64, 256, 5, 2, 2)):
+    for b, t, c, o, k, pad, pool in (((64, 585, 32, 64, 15, 7, 4), (64, 146, 64, 256, 5, 2, 2))
+                                     if not args.bwd else ()):
         x = randn(b, t, c)
         w = randn(o, c, k) / (c * k) ** 0.5
         scale, shift = 1 + 0.3 * randn(o), 0.1 * randn(o)

@@ -221,7 +221,7 @@ def test_cpu_tensors_launch_nothing():
     assert kernels.launch_counts() == {
         **{name: 0 for name in training}, **{f"{name}_bf16": 0 for name in training},
         "conv_stem": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-        "fusion_head": 0, "bilstm_fwd_xp": 0, "bilstm_bwd_xp": 0, "bilstm_cseq": 0,
+        "fusion_head": 0, "fusion_head_bf16": 0, "bilstm_fwd_xp": 0, "bilstm_bwd_xp": 0, "bilstm_cseq": 0,
         "bilstm_bwd_split": 0, "bilstm_bwdc": 0, "bilstm_cbndk": 0, "bilstm_cscan": 0}
 
 
