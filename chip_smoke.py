@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, LOSO training, ME-MHACL and
-attention paths, bf16 LOSO training and bf16 serving, and the BiLSTM's
-other kernel schedules, on one CUDA card, and check them.
+"""Drive the PyTorch port's serving, training, LOSO training, phased
+curriculum, ME-MHACL and attention paths, bf16 LOSO and phased training and
+bf16 serving, and the BiLSTM's other kernel schedules, on one CUDA card, and
+check them.
 
 Run from the root of a checkout, with no arguments::
 
@@ -69,6 +70,26 @@ It needs a CUDA card and exits non-zero without one. In order, it
    v9's; then one LOSO step's gradients (``dropout=0.0``, one fixed batch)
    under each schedule against v9's on the card (all 24 models) and subject
    0's against the CPU plain path, at the gradient-parity bar;
+   then the phased curriculum (``cli.py phased``): ``VectorizedPhasedTrainer``
+   over the 24 subjects (S=24, B=64, full width, reference dropout) through
+   ``run(1, 1, 1, 1, 1)`` phase by phase, each phase's
+   ``run_phase_on_device`` under ``set_sync_debug_mode("error")`` with the
+   counters reset just before: every phase's launches (the whole step's
+   kernels in ``eeg`` and ``fusion_arousal``, the forward's in ``eye``,
+   ``pps`` and ``valence``: the parameters outside a phase's grad set enter
+   its loss detached), finite per-subject losses, every parameter column
+   outside the phase's update set bit-unchanged and every update-set
+   tensor moved (in ``valence`` the valence head alone); then 2 timed
+   ``fusion_arousal`` epochs (ms/step and samples/s/chip, counted as the JAX
+   ``bench.py`` counts them, on the host clock and by CUDA events over the
+   same window; ``--profile`` adds a profiled epoch); the same curriculum
+   in bf16 (its forms' launches, each phase's per-subject loss within
+   LOSS_GAP_LIMIT of fp32's); on a ``dropout=0.0`` copy, subjects 0 and 17
+   of one ``valence`` and one ``eeg`` step against a single-subject
+   ``MultiTaskTrainer`` step (loss, clipped gradients, BatchNorm stats,
+   updated parameters); and ``MultiTaskTrainer`` for subject 0 through
+   ``run(1, 1, 1, 1, 1)``'s host loop and fused phases, its launches
+   checked; the phase's wall seconds;
 5. ME-MHACL (``cli.py memhacl``): ``make_synthetic_emotion_arrays(n=480)``
    on the card, the 80/20 split, full-width encoder, projection head and
    classifier (feat_dim 256, 8 heads) from seeded generators;
@@ -170,6 +191,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 from multimodal_sentiment_aanalysis_tpu_torch import (
@@ -206,8 +228,13 @@ from multimodal_sentiment_aanalysis_tpu_torch.models import (
 from multimodal_sentiment_aanalysis_tpu_torch.models.fusion_model import init_parameters
 from multimodal_sentiment_aanalysis_tpu_torch.ops.losses import masked_cross_entropy
 from multimodal_sentiment_aanalysis_tpu_torch.train import (
+    PHASE_ORDER,
+    PHASES,
+    MultiTaskTrainer,
     Trainer,
     VectorizedLOSOTrainer,
+    VectorizedPhasedTrainer,
+    apply_grad_mask,
     clip_by_global_norm,
     clip_rows_by_global_norm,
     memhacl_finetune,
@@ -231,6 +258,9 @@ PATH_ATOL = 1e-3   # entry points against each other, and against the CPU plain 
 # feed-forward weight is 0.13% of it)
 GRAD_RTOL = 1e-3
 GRAD_OUTLIERS = 1e-2
+# a gradient whose exact value is 0 (a bias before a BatchNorm): each path's
+# at most this share of the largest gradient (float noise is ~1e-6 of it)
+NOISE_REL = 1e-4
 DROPOUT_P = 0.4
 TIMED_CALLS = 20
 LOSO_FUSED_EPOCHS = 2
@@ -278,8 +308,16 @@ PER_EVAL = with_row_kernels(dict(bilstm_fwd=2, stem_tail=2, infonce=1))
 # fp32, as in the JAX model) and the one-form kernels; the held-out
 # evaluation runs in fp32 (PER_EVAL)
 BF16 = torch.bfloat16
-PER_STEP_BF16 = {(name if name in ("infonce", *ONE_FORM) else f"{name}_bf16"): n
-                 for name, n in PER_STEP.items()}
+
+
+def bf16_forms(per: dict) -> dict:
+    """``per`` (launches by kernel) in the bf16 forms, but the InfoNCE
+    kernel and the one-form kernels."""
+    return {(name if name in ("infonce", *ONE_FORM) else f"{name}_bf16"): n
+            for name, n in per.items()}
+
+
+PER_STEP_BF16 = bf16_forms(PER_STEP)
 # the BiLSTM's kernel schedules (fp32): each one's forward and backward
 # kernels, launched once per layer of a train step; the first also once per
 # layer of an evaluation
@@ -296,6 +334,13 @@ OTHER_SCHEDULES = ("v5", "v6", "v8", "v9.1")
 # relative, and serving logits
 SCHEDULE_LOSS_GAP, SCHEDULE_SERVE_ATOL = 1e-3, 1e-4
 LOSO_B512 = 512       # the JAX bench's vloso_bf16_b512 batch
+# the phased curriculum: run(1, 1, 1, 1, 1), then 2 timed fusion_arousal
+# epochs. A step launches the whole step's kernels where the phase's loss
+# reaches the EEG encoder, its forward's kernels elsewhere (the encoder
+# enters those phases' loss detached, so no backward runs there)
+PHASED_EPOCHS, PHASED_TIMED_EPOCHS = (1, 1, 1, 1, 1), 2
+PHASE_STEP = {phase: PER_STEP if phase in ("eeg", "fusion_arousal") else PER_EVAL
+              for phase in PHASE_ORDER}
 LOSS_GAP_LIMIT = 0.1  # bf16 against fp32 epoch-2 train loss, relative, per subject
 # bf16 serving against fp32 serving: the JAX package's bar (tests/test_serving.py)
 SERVE_BF16_TOL, SERVE_BF16_ARGMAX = 0.1, 0.9
@@ -1392,6 +1437,291 @@ def loso_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator,
 
 
 # --------------------------------------------------------------------------
+# the phased curriculum: the 24 subjects' 5-phase curricula at once, and one
+# subject's
+# --------------------------------------------------------------------------
+
+
+def make_phased_trainer(full: DeviceDataset, dropout: float | None = None,
+                        **kw) -> VectorizedPhasedTrainer:
+    """``cli.py phased`` on the synthetic set: one model per held-out
+    subject, all 24 trained through the curriculum together (subject s from
+    seed SEED + s)."""
+    model = MultimodalTransformerModel(feat_dim=256, dropout=dropout, device=full.device)
+    return VectorizedPhasedTrainer(model, full, N_SUBJECTS, EX_NUMS, batch_size=BATCH, seed=SEED,
+                                   verbose=False, **kw)
+
+
+def phased_expected(phase: str, epochs: int, steps: int, evals: int,
+                    step: dict | None = None) -> dict:
+    """The launches of ``epochs`` epochs of ``phase``: ``steps`` train steps
+    of ``step`` (PHASE_STEP's) and ``evals`` evaluation batches an epoch."""
+    step = PHASE_STEP[phase] if step is None else step
+    return {name: epochs * (steps * step.get(name, 0) + evals * PER_EVAL.get(name, 0))
+            for name in KERNELS}
+
+
+def phased_on_device(vt: VectorizedPhasedTrainer, phase: str, epochs: int,
+                     expected: dict, label: str) -> tuple[dict, float, float, dict]:
+    """``vt.run_phase_on_device(phase, epochs)`` under
+    ``set_sync_debug_mode("error")``, the counters reset just before, its
+    launches held to ``expected``; then the read-back (``record_phase``).
+    Returns the per-subject metrics of the last epoch, the host-clock and
+    the CUDA-event seconds of the synchronised run, and the launch counts."""
+    reset_launch_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = vt.run_phase_on_device(phase, epochs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    end.record()
+    torch.cuda.synchronize()
+    seconds, device_s = time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+    counts = launch_counts()
+    check(counts == expected, f"{label} {phase} launch counts {counts} != {expected}")
+    vt.record_phase(phase, out)
+    train = {k: v[-1] for k, v in vt.metrics["train"].items()}
+    check(all(np.isfinite(v).all() for v in train.values())
+          and all(np.isfinite(v[-1]).all() for v in vt.metrics["test"].values()),
+          f"{label} {phase}: non-finite per-subject metrics")
+    return train, seconds, device_s, counts
+
+
+def phased_curriculum(vt: VectorizedPhasedTrainer, label: str, per_step: dict,
+                      update_check: bool) -> tuple[dict, dict]:
+    """``vt.run(1, 1, 1, 1, 1)`` phase by phase (``run_phase`` is
+    ``run_phase_on_device`` and ``record_phase``), each phase under the sync
+    check with its launches held to ``per_step`` (phase -> one step's) and
+    the evaluation's; with ``update_check`` every column outside the phase's
+    update set must stay bit for bit as it was and every update-set tensor
+    move. Returns the launch counts and each phase's per-subject train loss."""
+    n_train = vt.train_idx.shape[1]
+    steps, evals = -(-n_train // BATCH), -(-vt.ex_nums // BATCH)
+    total, losses = {name: 0 for name in KERNELS}, {}
+    for phase, epochs in zip(PHASE_ORDER, PHASED_EPOCHS):
+        cols = vt.layout.columns(PHASES[phase].update_modules)
+        before = vt.params.clone() if update_check else None
+        train, seconds, _, counts = phased_on_device(
+            vt, phase, epochs, phased_expected(phase, epochs, steps, evals, per_step[phase]),
+            label)
+        for name in KERNELS:
+            total[name] += counts[name]
+        losses[phase] = train["loss"]
+        moved = ""
+        if update_check:
+            inside = torch.zeros(vt.params.shape[1], dtype=torch.bool, device=vt.device)
+            for a, b in cols:
+                inside[a:b] = True
+            changed = vt.params != before
+            frozen_ok = not bool(changed[:, ~inside].any())
+            bounds = np.cumsum([0, *vt.layout.sizes]).tolist()
+            still = [n for n, a, b in zip(vt.layout.names, bounds[:-1], bounds[1:])
+                     if any(lo <= a < hi for lo, hi in cols) and not bool(changed[:, a:b].any())]
+            every_subject = bool(changed[:, inside].any(1).all())
+            moved = (f"; columns outside the update set bit-unchanged: {frozen_ok}; update-set "
+                     f"tensors that did not move: {still or 'none'}; every subject's update "
+                     f"set moved: {every_subject}")
+            check(frozen_ok and not still and every_subject,
+                  f"{label} {phase}: update mask broken{moved}")
+            del before, changed
+        print(f"{label} {phase} ({epochs} epoch of {steps} steps of {vt.n_subjects} x {BATCH}, "
+              f"{evals} evaluation batch): train loss mean {train['loss'].mean():.6f} (subjects "
+              f"{train['loss'].min():.6f} to {train['loss'].max():.6f}); launches {counts}; "
+              f"{seconds:.3f} s wall (host clock around the synchronised run, no host sync "
+              f"inside){moved}")
+    if update_check:
+        print(f"{label} valence phase moved the valence head alone "
+              f"(update columns {vt.layout.columns(PHASES['valence'].update_modules)})")
+    return total, losses
+
+
+def bn_fed_biases(model: nn.Module) -> set[str]:
+    """The biases of the Linear and Conv1d layers that feed a BatchNorm in a
+    Sequential: in train mode the BatchNorm takes out their batch mean, so
+    their exact gradient is 0 and what either path computes is float noise."""
+    out = set()
+    for prefix, seq in model.named_modules():
+        if isinstance(seq, nn.Sequential):
+            for i, (a, b) in enumerate(zip(seq, list(seq)[1:])):
+                if isinstance(a, (nn.Linear, nn.Conv1d)) and isinstance(b, nn.BatchNorm1d):
+                    out.add(f"{prefix}.{i}.bias")
+    return out
+
+
+def phased_step_parity(full: DeviceDataset) -> None:
+    """A dropout=0.0 phased trainer's first step of ``valence`` and of
+    ``eeg`` against a single-subject ``MultiTaskTrainer`` step of subjects
+    PARITY_SUBJECTS from the same state on the same batch: loss, the
+    clipped gradient on the phase's grad set, BatchNorm running stats and
+    the updated parameters, at ``loso_step_parity``'s bars. The biases whose
+    exact gradient is 0 (``bn_fed_biases``) are held apart: in a phase whose
+    grad set lacks the large contrastive gradients, GRAD_RTOL's floor is
+    too low to cover their noise (``fusion.0.bias`` in ``valence``), so
+    there each path's gradient must be noise, within NOISE_REL of the grad
+    set's largest entry."""
+    for phase in ("valence", "eeg"):
+        vt = make_phased_trainer(full, dropout=0.0)
+        plans, masks = vt._phase_plans(1)
+        idx = torch.as_tensor(plans[:, 0, 0], device=full.device)
+        mask = torch.as_tensor(masks[:, 0, 0], device=full.device)
+        init = {s: vt.subject_variables(s) for s in PARITY_SUBJECTS}
+        vt.opt = vt._phase_optimizer(phase)
+        batch = vt._gather(idx)
+        batch["mask"] = mask
+        vt.model.train()
+        grads, sums = vt._clipped_grads(phase, batch)
+        vt.opt.step(vt.params, grads)
+        vt_grads = vt.layout.params(grads)
+        for s in PARITY_SUBJECTS:
+            model = MultimodalTransformerModel(feat_dim=256, dropout=0.0, device=full.device)
+            mt = MultiTaskTrainer(model, full.subset(vt.train_idx[s]),
+                                  full.subset(vt.test_idx[s]), batch_size=BATCH,
+                                  seed=vt.subject_seeds[s], verbose=False)
+            model.load_state_dict(init[s])
+            opt = mt._optimizer(phase, mt.lr)
+            model.train()
+            one = full.gather(idx[s])
+            one["mask"] = mask[s]
+            apply_grad_mask(model, mt._masks(phase)[0])
+            one_sums = mt._train_step(phase, one, opt)
+            want = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+            noise = bn_fed_biases(model) & set(want)
+            scale = max(g.abs().max().item() for g in want.values())
+            noise_rel = max(max(want[n].abs().max().item(), vt_grads[n][s].abs().max().item())
+                            for n in noise) / scale
+            worst, worst_name, outliers, outlier_name = grad_agreement(
+                {n: vt_grads[n][s] for n in want if n not in noise},
+                {n: g for n, g in want.items() if n not in noise})
+            after = vt.subject_variables(s)
+            stat_err = max((after[n] - b).abs().max().item() for n, b in model.named_buffers()
+                           if "running" in n)
+            param_err = max((after[n] - p).abs().max().item()
+                            for n, p in model.named_parameters())
+            loss, t_loss = sums[s, 0].item(), one_sums[0].item()
+            loss_err = abs(loss - t_loss) / abs(t_loss)
+            print(f"phased {phase} step subject {s} vs single-subject MultiTaskTrainer step, "
+                  f"dropout 0: loss {loss:.6f} vs {t_loss:.6f} (rel {loss_err:.3e}); clipped "
+                  f"gradients on the grad set ({len(want)} tensors) worst scaled |diff| "
+                  f"{worst:.3e} at {worst_name}, largest share above {GRAD_RTOL}: {outliers:.3e}"
+                  f"{' at ' + outlier_name if outlier_name else ''} (limit {GRAD_OUTLIERS}); the "
+                  f"{len(noise)} biases before a BatchNorm at most {noise_rel:.3e} of the largest "
+                  f"gradient (limit {NOISE_REL}); BN "
+                  f"running stats max |diff| {stat_err:.3e} (limit 1e-4); updated parameters max "
+                  f"|diff| {param_err:.3e} (limit {2 * LOSO_LR + 1e-6:.3e})")
+            check(loss_err <= 1e-4 and outliers <= GRAD_OUTLIERS and noise_rel <= NOISE_REL
+                  and stat_err <= 1e-4 and param_err <= 2 * LOSO_LR + 1e-6,
+                  f"phased {phase} subject {s} disagrees with the single-subject trainer")
+            for p in model.parameters():
+                p.requires_grad_(True)
+        del vt, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def multitask_phase(full: DeviceDataset) -> dict:
+    """``MultiTaskTrainer`` for subject 0 on the card:
+    ``run(1, 1, 1, 1, 1, save=False, plot=False)`` through the host loop,
+    then through ``fused_phases=True``, each run's launches held to the
+    curriculum's. Returns the launch counts."""
+    tr_idx, te_idx = loso_split(N_SUBJECTS, EX_NUMS, TEST_SUBJECT)
+    steps, evals = -(-len(tr_idx) // BATCH), -(-len(te_idx) // BATCH)
+    expected = {name: 0 for name in KERNELS}
+    for phase, epochs in zip(PHASE_ORDER, PHASED_EPOCHS):
+        for name, n in phased_expected(phase, epochs, steps, evals).items():
+            expected[name] += n
+    total, results = {name: 0 for name in KERNELS}, {}
+    for fused in (False, True):
+        model = MultimodalTransformerModel(feat_dim=256, device=full.device)
+        mt = MultiTaskTrainer(model, full.subset(tr_idx), full.subset(te_idx), batch_size=BATCH,
+                              seed=SEED, fused_phases=fused, verbose=False)
+        reset_launch_counts()
+        test_m, seconds = synced(lambda: mt.run(*PHASED_EPOCHS, save=False, plot=False))
+        counts = launch_counts()
+        label = "fused phases" if fused else "host loop"
+        check(counts == expected, f"MultiTaskTrainer {label} launch counts {counts} != "
+                                  f"{expected}")
+        check(all(math.isfinite(v) for split in ("train", "test")
+                  for values in mt.metrics[split].values() for v in values),
+              f"MultiTaskTrainer {label}: non-finite metrics")
+        print(f"MultiTaskTrainer subject {TEST_SUBJECT}, {label}: run{PHASED_EPOCHS} "
+              f"({steps} steps of {BATCH} an epoch, {evals} evaluation batch) in {seconds:.3f} s "
+              f"wall; final test loss {test_m['loss']:.6f} a_acc {test_m['a_acc']:.4f} v_acc "
+              f"{test_m['v_acc']:.4f}; launches equal the curriculum's: {counts == expected}")
+        results[label] = test_m
+        for name in KERNELS:
+            total[name] += counts[name]
+        del mt, model
+    gap = abs(results["fused phases"]["loss"] - results["host loop"]["loss"])
+    print(f"MultiTaskTrainer fused against host loop, same seed: final test loss |diff| "
+          f"{gap:.3e}")
+    return total
+
+
+def phased_phase(full: DeviceDataset, profile: bool) -> dict:
+    """The phased curriculum on the card: the 24-subject trainer through
+    run(1, 1, 1, 1, 1) with its update masks checked, 2 timed
+    ``fusion_arousal`` epochs, the bf16 curriculum against the fp32 one,
+    subjects 0 and 17 against a single-subject step, and
+    ``MultiTaskTrainer`` for one subject. Returns the launch counts."""
+    t_phase = time.perf_counter()
+    vt = make_phased_trainer(full)
+    s_n, n_train = vt.n_subjects, vt.train_idx.shape[1]
+    steps, evals = -(-n_train // BATCH), -(-vt.ex_nums // BATCH)
+    print(f"phased training: {s_n} subjects x {n_train} train / {vt.ex_nums} test samples, "
+          f"{steps} steps of {s_n} x {BATCH} an epoch, feat_dim 256, dropout 0.4 (stem) / 0.3, "
+          f"curriculum run{PHASED_EPOCHS}")
+    total, fp32_losses = phased_curriculum(vt, "phased", PHASE_STEP, update_check=True)
+
+    e = PHASED_TIMED_EPOCHS
+    train, seconds, device_s, counts = phased_on_device(
+        vt, "fusion_arousal", e, phased_expected("fusion_arousal", e, steps, evals),
+        "phased timed")
+    for name in KERNELS:
+        total[name] += counts[name]
+    print(f"phased fusion_arousal, {e} epochs timed: train loss mean {train['loss'].mean():.6f}; "
+          f"smoke reading (host clock around a synchronised run, no host sync inside): "
+          f"{seconds * 1e3 / (e * steps):.3f} ms/step of {s_n} x {BATCH} with the per-epoch "
+          f"evaluation, {e * s_n * n_train / seconds:.1f} samples/s/chip; CUDA events over the "
+          f"same window {device_s * 1e3 / (e * steps):.3f} ms/step, "
+          f"{e * s_n * n_train / device_s:.1f} samples/s/chip")
+    if profile:
+        profile_window("phased fusion_arousal epoch",
+                       lambda: vt.run_phase_on_device("fusion_arousal", 1), top=30)
+    del vt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    vt16 = make_phased_trainer(full, compute_dtype="bfloat16")
+    counts16, bf16_losses = phased_curriculum(
+        vt16, "phased bf16", {p: bf16_forms(step) for p, step in PHASE_STEP.items()},
+        update_check=False)
+    for name in KERNELS:
+        total[name] += counts16[name]
+    dtypes = (vt16.params.dtype, vt16.stats.dtype)
+    check(dtypes == (torch.float32, torch.float32), f"phased bf16: state dtypes {dtypes}")
+    for phase in PHASE_ORDER:
+        gap = np.abs(bf16_losses[phase] - fp32_losses[phase]) / np.abs(fp32_losses[phase])
+        print(f"phased {phase} epoch train loss, bf16 vs fp32 from the same init and plans: "
+              f"relative gap per subject mean {gap.mean():.3e} max {gap.max():.3e} (limit "
+              f"{LOSS_GAP_LIMIT})")
+        check(gap.max() <= LOSS_GAP_LIMIT, f"phased bf16 {phase} parts from fp32")
+    del vt16
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phased_step_parity(full)
+    mt_counts = multitask_phase(full)
+    for name in KERNELS:
+        total[name] += mt_counts[name]
+    print(f"phased phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return total
+
+
+# --------------------------------------------------------------------------
 # ME-MHACL: contrastive pretrain, joint finetune, the fused head
 # --------------------------------------------------------------------------
 
@@ -2265,6 +2595,7 @@ def main() -> int:
     schedule_gradient_parity(full)
     loso_bf16_counts, vt16 = loso_bf16_phase(full, loso)
     b512_counts = loso_b512_phase(full)
+    phased_counts = phased_phase(full, args.profile)
     memhacl_counts, (encoder, projector, classifier), (emotion, train, val) = memhacl_phase(
         device)
     memhacl_bf16_counts = memhacl_bf16_phase(encoder, classifier, val)
@@ -2286,7 +2617,7 @@ def main() -> int:
             verbose=False), show=("fusion_head",))
 
     phases = (serve_counts, serve_bf16_counts, serve_v5_counts, train_counts, loso["counts"],
-              schedule_counts, loso_bf16_counts, b512_counts, memhacl_counts,
+              schedule_counts, loso_bf16_counts, b512_counts, phased_counts, memhacl_counts,
               memhacl_bf16_counts, attention_counts)
     counts = {name: sum(c[name] for c in phases) for name in KERNELS}
     gen = torch.Generator(device=device).manual_seed(SEED)

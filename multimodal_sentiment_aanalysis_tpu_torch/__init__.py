@@ -10,7 +10,11 @@ so far, for the flagship :class:`~.models.MultimodalTransformerModel`:
   ``train/engine.py`` step: CE on both heads plus three supervised InfoNCE
   losses, AdamW, global-norm clip, NaN skip) with its data copies, and the
   24-subject :class:`~.train.VectorizedLOSOTrainer`, in fp32 or in bf16
-  mixed precision (fp32 master parameters, optionally bf16 AdamW moments).
+  mixed precision (fp32 master parameters, optionally bf16 AdamW moments);
+- the reference's main stack, the 5-phase curriculum: the one-subject
+  :class:`~.train.MultiTaskTrainer` and the 24-subject
+  :class:`~.train.VectorizedPhasedTrainer` (per-phase grad and update
+  masks, per-epoch optimizer reset), in fp32 or bf16.
 
 And the ME-MHACL stack (:mod:`.models.memhacl`, :mod:`.train.memhacl`):
 NT-Xent pretrain and joint finetune, its validation forward on the card

@@ -4,6 +4,7 @@ from .fusion_model import MultimodalTransformerModel
 from .jax_import import (
     classifier_state_dict_from_jax,
     memhacl_encoder_state_dict_from_jax,
+    phased_state_from_jax,
     projection_head_state_dict_from_jax,
     state_dict_from_jax_variables,
     trainer_state_from_jax,
@@ -33,6 +34,7 @@ __all__ = [
     "TransformerEncoderLayer",
     "classifier_state_dict_from_jax",
     "memhacl_encoder_state_dict_from_jax",
+    "phased_state_from_jax",
     "projection_head_state_dict_from_jax",
     "state_dict_from_jax_variables",
     "trainer_state_from_jax",

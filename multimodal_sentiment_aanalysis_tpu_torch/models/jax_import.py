@@ -20,10 +20,14 @@ shares: :func:`memhacl_encoder_state_dict_from_jax`,
 :class:`.memhacl.MEMHACLEncoder`, :class:`.simclr.ProjectionHead` and
 :class:`.memhacl.MEMHACLClassifier`.
 
-The flagship importers also take the JAX ``VectorizedLOSOTrainer``'s stacked variables (the
-``vmap(init_one)`` output, every leaf with a leading model axis S) and then
-return every tensor with that leading axis, the layout of
-:class:`..train.vloso.VectorizedLOSOTrainer`'s stacked state.
+The flagship importers also take the JAX ``VectorizedLOSOTrainer``'s and
+``VectorizedPhasedTrainer``'s stacked variables (the ``vmap(init_one)``
+output, every leaf with a leading model axis S) and then return every
+tensor with that leading axis, the layout of
+:class:`..train.vloso.VectorizedLOSOTrainer`'s stacked state
+(:func:`trainer_state_from_jax`) and of
+:class:`..train.vphased.VectorizedPhasedTrainer`'s
+(:func:`phased_state_from_jax`).
 """
 
 from __future__ import annotations
@@ -153,6 +157,18 @@ def trainer_state_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, 
     the ``(S, 1)`` contrastive weights."""
     sd = state_dict_from_jax_variables({"params": params["model"], "batch_stats": batch_stats})
     return sd, _t(params["trainer"]["contrastive_weight"])
+
+
+def phased_state_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+                          ) -> dict[str, torch.Tensor]:
+    """The JAX ``VectorizedPhasedTrainer``'s stacked ``(params,
+    batch_stats)`` (its ``vmap(init_one)`` init, or its state after any
+    phase) -> the stacked ``state_dict`` of
+    :class:`..train.vphased.VectorizedPhasedTrainer`. Its params are the
+    model's alone: the phased row has no trainer-level contrastive weight.
+    One subject's ``(params, batch_stats)`` (``MultiTaskTrainer``'s) give the
+    model's ``state_dict``."""
+    return state_dict_from_jax_variables({"params": params, "batch_stats": batch_stats})
 
 
 def _conv_gap_stack(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str) -> dict:

@@ -61,7 +61,6 @@ raises, and ``save_state``/``restore_state`` (ROADMAP A8).
 from __future__ import annotations
 
 import copy
-import math
 
 import numpy as np
 import torch
@@ -72,7 +71,13 @@ from ..data.pipeline import DeviceDataset, epoch_plan_on_device
 from ..data.splits import loso_split
 from ..ops.losses import masked_accuracy, masked_cross_entropy
 from ..utils.schedule import vector_schedule_init, vector_schedule_step
-from .state import StackedAdamW, cast_floating, clip_rows_by_global_norm
+from .state import (
+    RowLayout,
+    StackedAdamW,
+    as_dtype,
+    cast_floating,
+    clip_rows_by_global_norm,
+)
 
 TRAINER_CW = "trainer.contrastive_weight"  # the last entry of a parameter row
 _TE_KEYS = ("te_loss", "te_a_acc", "te_v_acc")
@@ -88,11 +93,6 @@ def _objective(outs, batch: dict, mask: torch.Tensor, cw: torch.Tensor):
           + masked_cross_entropy(valence, batch["valence"], mask))
     return (ce + cw[0] * (c1 + c2 + c3), masked_accuracy(arousal, batch["arousal"], mask),
             masked_accuracy(valence, batch["valence"], mask))
-
-
-def _dtype(name: str | torch.dtype | None) -> torch.dtype | None:
-    """``"bfloat16"`` (the JAX argument's spelling) or a torch dtype."""
-    return getattr(torch, name) if isinstance(name, str) else name
 
 
 def _per_sample(totals: np.ndarray) -> dict[str, np.ndarray]:
@@ -135,7 +135,7 @@ class VectorizedLOSOTrainer:
         self.ex_nums = ex_nums
         self.batch_size = batch_size
         self.clip_norm = clip_norm
-        self.compute_dtype = _dtype(compute_dtype)
+        self.compute_dtype = as_dtype(compute_dtype)
         self.host_rng = np.random.default_rng(seed)
 
         splits = [loso_split(n_subjects, ex_nums, s) for s in range(n_subjects)]
@@ -146,14 +146,9 @@ class VectorizedLOSOTrainer:
 
         # one row per model: every parameter flattened, then the trainer's
         # contrastive weight; the BN running stats likewise
+        self.layout = RowLayout(self.model, extra=[(TRAINER_CW, (1,))])
         named = list(self.model.named_parameters())
-        self._names = [n for n, _ in named] + [TRAINER_CW]
-        self._shapes = [p.shape for _, p in named] + [torch.Size([1])]
         buffers = dict(self.model.named_buffers())
-        self._stat_names = [f"{name}.{part}" for name, m in self.model.named_modules()
-                            if isinstance(m, nn.BatchNorm1d)
-                            for part in ("running_mean", "running_var")]
-        self._stat_shapes = [buffers[n].shape for n in self._stat_names]
 
         # stacked init: each model its own draw of the model's init rule
         gen = torch.Generator().manual_seed(seed)
@@ -164,11 +159,11 @@ class VectorizedLOSOTrainer:
                 rows.append(torch.cat([p.reshape(-1) for _, p in named]
                                       + [torch.ones(1, device=self.device)]))
         self.params = torch.stack(rows)  # (S, N)
-        self.stats = torch.cat([buffers[n].reshape(-1) for n in self._stat_names]
+        self.stats = torch.cat([buffers[n].reshape(-1) for n in self.layout.stat_names]
                                ).repeat(n_subjects, 1)  # (S, M)
         self._stat_views = self._stat_dict(self.stats)  # written in place by the forward
 
-        self.opt = StackedAdamW(self.params, lr, weight_decay, moment_dtype=_dtype(moment_dtype))
+        self.opt = StackedAdamW(self.params, lr, weight_decay, moment_dtype=as_dtype(moment_dtype))
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.plan_generator = torch.Generator(device=self.device).manual_seed(seed + 2)
         self._all_active = torch.ones(n_subjects, dtype=torch.bool, device=self.device)
@@ -186,17 +181,11 @@ class VectorizedLOSOTrainer:
     # state
     def _param_dict(self, row: torch.Tensor) -> dict[str, torch.Tensor]:
         """Named views of parameter row(s) ``(..., N)``."""
-        sizes = [math.prod(s) for s in self._shapes]
-        lead = row.shape[:-1]
-        return {n: p.view((*lead, *s)) for n, p, s in zip(self._names, row.split(sizes, -1),
-                                                        self._shapes)}
+        return self.layout.params(row)
 
     def _stat_dict(self, row: torch.Tensor) -> dict[str, torch.Tensor]:
         """Named views of BN-stat row(s) ``(..., M)``."""
-        sizes = [math.prod(s) for s in self._stat_shapes]
-        lead = row.shape[:-1]
-        return {n: p.view((*lead, *s)) for n, p, s in zip(self._stat_names,
-                                                        row.split(sizes, -1), self._stat_shapes)}
+        return self.layout.stats(row)
 
     def _reset_best(self) -> None:
         if self.early_stop:
