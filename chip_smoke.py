@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, LOSO training, phased
-curriculum, ME-MHACL and attention paths, bf16 LOSO and phased training and
+curriculum, SimCLR, ME-MHACL and attention paths, bf16 LOSO and phased training and
 bf16 serving, and the BiLSTM's other kernel schedules, on one CUDA card, and
 check them.
 
@@ -90,6 +90,26 @@ It needs a CUDA card and exits non-zero without one. In order, it
    updated parameters); and ``MultiTaskTrainer`` for subject 0 through
    ``run(1, 1, 1, 1, 1)``'s host loop and fused phases, its launches
    checked; the phase's wall seconds;
+   then the SimCLR stack (``cli.py simclr --vectorized``):
+   ``VectorizedSimCLRTrainer`` over the 24 subjects (S=24, B=64, feat_dim
+   256, 8 heads, EEG (32, 585), dropout 0.4 in the stem and 0.5 in the
+   projector and classifier, each subject's balanced pairs of the synthetic
+   set) through 2 pretrain and then 2 finetune epochs, each epoch under
+   ``set_sync_debug_mode("error")`` with the counters reset just before:
+   a pretrain step's launches (two train-mode views and the backward through
+   both: 4 of each BiLSTM and stem-tail kernel, forward and backward, no
+   InfoNCE), a finetune step's and the evaluation's (the frozen encoder's
+   forward: 2 of each forward kernel), one launch for all 24 models; finite
+   per-subject losses; the encoder and projector row and its BatchNorm stats
+   bit-unchanged by the finetune; the second epoch of each timed (ms/step,
+   pairs/s/chip for the pretrain, on the host clock and by CUDA events over
+   the same window; ``--profile`` adds a profiled pretrain epoch); on a
+   ``dropout=0.0`` copy, subjects 0 and 17 of one pretrain and one finetune
+   step against the sequential engines' one-model steps (loss, gradients,
+   BatchNorm stats, updated parameters); and ``contrastive_pretrain`` and
+   ``finetune`` for subject 0, one epoch each, their launches checked; the
+   phase's wall seconds. Its kernels run at the LOSO step's shapes, so the
+   LOSO kernel cases of 7 cover them;
 5. ME-MHACL (``cli.py memhacl``): ``make_synthetic_emotion_arrays(n=480)``
    on the card, the 80/20 split, full-width encoder, projection head and
    classifier (feat_dim 256, 8 heads) from seeded generators;
@@ -204,11 +224,13 @@ from multimodal_sentiment_aanalysis_tpu_torch import (
 from multimodal_sentiment_aanalysis_tpu_torch.data import (
     DeviceDataset,
     assemble_features,
+    build_contrastive_pairs,
     epoch_batch_indices,
     loso_split,
     make_synthetic_emotion_arrays,
     make_synthetic_hci_data,
     random_split_indices,
+    subject_ids_array,
 )
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import (
     attention,
@@ -220,9 +242,11 @@ from multimodal_sentiment_aanalysis_tpu_torch.kernels import (
     ptxas_report,
 )
 from multimodal_sentiment_aanalysis_tpu_torch.models import (
+    Classifier,
     MEMHACLClassifier,
     MEMHACLEncoder,
     MultiheadAttention,
+    MultiModalEncoder,
     ProjectionHead,
 )
 from multimodal_sentiment_aanalysis_tpu_torch.models.fusion_model import init_parameters
@@ -234,13 +258,17 @@ from multimodal_sentiment_aanalysis_tpu_torch.train import (
     Trainer,
     VectorizedLOSOTrainer,
     VectorizedPhasedTrainer,
+    VectorizedSimCLRTrainer,
     apply_grad_mask,
     clip_by_global_norm,
     clip_rows_by_global_norm,
+    contrastive_pretrain,
+    finetune,
     memhacl_finetune,
     memhacl_logits,
     memhacl_pretrain,
 )
+from multimodal_sentiment_aanalysis_tpu_torch.train.simclr import finetune_step, pretrain_step
 from multimodal_sentiment_aanalysis_tpu_torch.train.vloso import TRAINER_CW
 
 SEED = 0
@@ -342,6 +370,17 @@ PHASED_EPOCHS, PHASED_TIMED_EPOCHS = (1, 1, 1, 1, 1), 2
 PHASE_STEP = {phase: PER_STEP if phase in ("eeg", "fusion_arousal") else PER_EVAL
               for phase in PHASE_ORDER}
 LOSS_GAP_LIMIT = 0.1  # bf16 against fp32 epoch-2 train loss, relative, per subject
+# the SimCLR stack (cli.py simclr --vectorized): 2 pretrain and 2 finetune
+# epochs of the 24-subject trainer at its default learning rates. A pretrain
+# step encodes two views in train mode and runs the backward through both; a
+# finetune step and the evaluation after each finetune epoch run the frozen
+# encoder's forward alone (eval mode, no graph); no InfoNCE kernel (the
+# two-view NT-Xent is plain tensor math, as in JAX) and no flash kernel (the
+# fusion attention has length 3)
+SIMCLR_EPOCHS, SIMCLR_PRETRAIN_LR, SIMCLR_FINETUNE_LR = 2, 1e-3, 1e-4
+SIMCLR_PRE_STEP = with_row_kernels(dict(bilstm_fwd=4, bilstm_cbnd=4, bilstm_segbwd=4,
+                                        stem_tail=4, stem_tail_bwd=4))
+SIMCLR_FT_STEP = with_row_kernels(dict(bilstm_fwd=2, stem_tail=2))
 # bf16 serving against fp32 serving: the JAX package's bar (tests/test_serving.py)
 SERVE_BF16_TOL, SERVE_BF16_ARGMAX = 0.1, 0.9
 # the GEMM of rows 1 and 11 against its products in fp64, per mode: max
@@ -1461,13 +1500,11 @@ def phased_expected(phase: str, epochs: int, steps: int, evals: int,
             for name in KERNELS}
 
 
-def phased_on_device(vt: VectorizedPhasedTrainer, phase: str, epochs: int,
-                     expected: dict, label: str) -> tuple[dict, float, float, dict]:
-    """``vt.run_phase_on_device(phase, epochs)`` under
-    ``set_sync_debug_mode("error")``, the counters reset just before, its
-    launches held to ``expected``; then the read-back (``record_phase``).
-    Returns the per-subject metrics of the last epoch, the host-clock and
-    the CUDA-event seconds of the synchronised run, and the launch counts."""
+def on_device_checked(fn, expected: dict, label: str) -> tuple:
+    """``fn()`` under ``set_sync_debug_mode("error")`` (any host sync raises),
+    the launch counters reset just before and held to ``expected`` after.
+    Returns its result, the host-clock and the CUDA-event seconds of the
+    synchronised run, and the launch counts."""
     reset_launch_counts()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -1475,14 +1512,26 @@ def phased_on_device(vt: VectorizedPhasedTrainer, phase: str, epochs: int,
     start.record()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = vt.run_phase_on_device(phase, epochs)
+        out = fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     end.record()
     torch.cuda.synchronize()
     seconds, device_s = time.perf_counter() - t0, start.elapsed_time(end) / 1e3
     counts = launch_counts()
-    check(counts == expected, f"{label} {phase} launch counts {counts} != {expected}")
+    check(counts == expected, f"{label} launch counts {counts} != {expected}")
+    return out, seconds, device_s, counts
+
+
+def phased_on_device(vt: VectorizedPhasedTrainer, phase: str, epochs: int,
+                     expected: dict, label: str) -> tuple[dict, float, float, dict]:
+    """``vt.run_phase_on_device(phase, epochs)`` under
+    ``set_sync_debug_mode("error")``, the counters reset just before, its
+    launches held to ``expected``; then the read-back (``record_phase``).
+    Returns the per-subject metrics of the last epoch, the host-clock and
+    the CUDA-event seconds of the synchronised run, and the launch counts."""
+    out, seconds, device_s, counts = on_device_checked(
+        lambda: vt.run_phase_on_device(phase, epochs), expected, f"{label} {phase}")
     vt.record_phase(phase, out)
     train = {k: v[-1] for k, v in vt.metrics["train"].items()}
     check(all(np.isfinite(v).all() for v in train.values())
@@ -1718,6 +1767,232 @@ def phased_phase(full: DeviceDataset, profile: bool) -> dict:
     for name in KERNELS:
         total[name] += mt_counts[name]
     print(f"phased phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return total
+
+
+# --------------------------------------------------------------------------
+# the SimCLR stack: the 24 subjects' pretrain and frozen finetune at once,
+# and one subject's
+# --------------------------------------------------------------------------
+
+
+def simclr_modules(device: torch.device, dropout: float | None = None) -> tuple:
+    """Full-width encoder, projection head and classifier (feat_dim 256, 8
+    heads) from seeded generators, at the reference dropouts (stem 0.4,
+    projector and classifier 0.5) or ``dropout`` at every site."""
+    d_enc = 0.4 if dropout is None else dropout
+    d = 0.5 if dropout is None else dropout
+    return (MultiModalEncoder(256, dropout=d_enc, device=device,
+                              generator=torch.Generator().manual_seed(SEED)),
+            ProjectionHead(256, dropout=d, device=device,
+                           generator=torch.Generator().manual_seed(SEED + 1)),
+            Classifier(256, dropout=d, device=device,
+                       generator=torch.Generator().manual_seed(SEED + 2)))
+
+
+def make_simclr_trainer(full: DeviceDataset, dropout: float | None = None
+                        ) -> VectorizedSimCLRTrainer:
+    """``cli.py simclr --vectorized`` on the synthetic set: one encoder,
+    projector and classifier per held-out subject, all 24 trained together."""
+    return VectorizedSimCLRTrainer(*simclr_modules(full.device, dropout), full, N_SUBJECTS,
+                                   EX_NUMS, pretrain_lr=SIMCLR_PRETRAIN_LR,
+                                   finetune_lr=SIMCLR_FINETUNE_LR, batch_size=BATCH, seed=SEED,
+                                   verbose=False)
+
+
+def simclr_step_parity(full: DeviceDataset) -> None:
+    """A dropout=0.0 SimCLR trainer's first pretrain step, then its first
+    finetune step, against the sequential engines' one-model steps
+    (``train.simclr.pretrain_step`` and ``finetune_step``) of subjects
+    PARITY_SUBJECTS from the same state on the same rows: loss, gradients,
+    BatchNorm running stats and updated parameters at
+    ``loso_step_parity``'s bars (|diff| <= 2 lr + 1e-6 after Adam's first
+    step), the biases before a BatchNorm held to be noise (NOISE_REL)."""
+    vt = make_simclr_trainer(full, dropout=0.0)
+    rows, labels = (torch.as_tensor(a[:, 0], device=full.device) for a in vt._pretrain_plans())
+    init = {s: vt.subject_variables(s) for s in PARITY_SUBJECTS}
+    vt.model.train()
+    grads, loss = vt._pretrain_grad(vt.params, vt._stat_views, full.gather(rows[..., 0]),
+                                    full.gather(rows[..., 1]), labels)
+    vt.pre_opt.step(vt.params, grads)
+    pre_grads = vt.layout.params(grads)
+
+    idx, mask = (torch.as_tensor(a[:, 0], device=full.device) for a in vt._finetune_plans())
+    batch = full.gather(idx)
+    feat = vt._features(batch)
+    vt.classifier.train()
+    ft_grads, ft_loss = vt._finetune_grad(vt.clf_params, feat, batch, mask)
+    vt.ft_opt.step(vt.clf_params, ft_grads)
+    ft_grads = vt.clf_layout.params(ft_grads)
+    for s in PARITY_SUBJECTS:
+        enc, proj, clf = simclr_modules(full.device, dropout=0.0)
+        enc.load_state_dict(init[s][0])
+        proj.load_state_dict(init[s][1])
+        clf.load_state_dict(init[s][2])
+        enc.train()
+        proj.train()
+        opt = torch.optim.Adam([*enc.parameters(), *proj.parameters()], lr=SIMCLR_PRETRAIN_LR,
+                               betas=(0.9, 0.999), eps=1e-8)
+        one = pretrain_step(enc, proj, opt, full.gather(rows[s, :, 0]), full.gather(rows[s, :, 1]),
+                            labels[s], vt.temperature, None)
+        after = vt.subject_variables(s)  # both vectorized steps taken
+        stages = [("pretrain", {"encoder": enc, "projector": proj}, pre_grads, loss[s].item(),
+                   one.item(), SIMCLR_PRETRAIN_LR, after[:2])]
+        # the finetune step from the vectorized pretrain step's encoder, so
+        # that each step is held alone
+        enc = copy.deepcopy(enc)
+        enc.load_state_dict(after[0])
+        opt = torch.optim.Adam(clf.parameters(), lr=SIMCLR_FINETUNE_LR, betas=(0.9, 0.999),
+                               eps=1e-8)
+        one = finetune_step(enc, clf, opt, full.gather(idx[s]), mask[s], None)
+        stages.append(("finetune", {"": clf}, ft_grads, ft_loss[s].item(), one.item(),
+                       SIMCLR_FINETUNE_LR, after[2:]))
+        for stage, modules, vt_grads, got_loss, want_loss, lr, vt_after in stages:
+            want, got, noise = {}, {}, set()
+            for prefix, m in modules.items():
+                pre = f"{prefix}." if prefix else ""
+                for n, p in m.named_parameters():
+                    want[pre + n], got[pre + n] = p.grad, vt_grads[pre + n][s]
+                noise |= {pre + n for n in bn_fed_biases(m)}
+            scale = max(g.abs().max().item() for g in want.values())
+            noise_rel = max([max(want[n].abs().max().item(), got[n].abs().max().item())
+                             for n in noise], default=0.0) / scale
+            worst, worst_name, outliers, outlier_name = grad_agreement(
+                {n: g for n, g in got.items() if n not in noise},
+                {n: g for n, g in want.items() if n not in noise})
+            stat_err = param_err = 0.0
+            for m, sd in zip(modules.values(), vt_after):
+                for n, t in m.state_dict().items():
+                    err = (sd[n] - t).abs().max().item()
+                    if "running" in n:
+                        stat_err = max(stat_err, err)
+                    elif "num_batches" not in n:
+                        param_err = max(param_err, err)
+            loss_err = abs(got_loss - want_loss) / abs(want_loss)
+            print(f"SimCLR {stage} step subject {s} vs the sequential engine's step, dropout 0: "
+                  f"loss {got_loss:.6f} vs {want_loss:.6f} (rel {loss_err:.3e}); gradients "
+                  f"({len(want)} tensors) worst scaled |diff| {worst:.3e} at {worst_name}, largest "
+                  f"share above {GRAD_RTOL}: {outliers:.3e}"
+                  f"{' at ' + outlier_name if outlier_name else ''} (limit {GRAD_OUTLIERS}); the "
+                  f"{len(noise)} biases before a BatchNorm at most {noise_rel:.3e} of the largest "
+                  f"gradient (limit {NOISE_REL}); BN running stats max |diff| {stat_err:.3e} "
+                  f"(limit 1e-4); updated parameters max |diff| {param_err:.3e} (limit "
+                  f"{2 * lr + 1e-6:.3e})")
+            check(loss_err <= 1e-4 and outliers <= GRAD_OUTLIERS and noise_rel <= NOISE_REL
+                  and stat_err <= 1e-4 and param_err <= 2 * lr + 1e-6,
+                  f"SimCLR {stage} subject {s} disagrees with the sequential engine")
+    del vt, grads, ft_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def simclr_sequential_phase(full: DeviceDataset) -> dict:
+    """``cli.py simclr`` for subject 0 on the card: ``contrastive_pretrain``
+    for 1 epoch on its balanced pairs and ``finetune`` for 1 epoch, each
+    one's launches held to its steps'. Returns the launch counts."""
+    tr_idx, te_idx = loso_split(N_SUBJECTS, EX_NUMS, TEST_SUBJECT)
+    labels = {k: full.arrays[k].cpu().numpy()[tr_idx] for k in ("arousal", "valence")}
+    pidx, plab = build_contrastive_pairs(labels["arousal"], labels["valence"],
+                                         subject_ids_array(N_SUBJECTS, EX_NUMS)[tr_idx], seed=SEED)
+    enc, proj, clf = simclr_modules(full.device)
+    train, test = full.subset(tr_idx), full.subset(te_idx)
+    pre_steps, ft_steps = -(-len(plab) // BATCH), -(-len(tr_idx) // BATCH)
+    evals = -(-len(te_idx) // BATCH)
+    total = {name: 0 for name in KERNELS}
+    reset_launch_counts()
+    (_, _, losses), pre_s = synced(lambda: contrastive_pretrain(
+        enc, proj, train, pidx, plab, num_epochs=1, lr=SIMCLR_PRETRAIN_LR, batch_size=BATCH,
+        seed=SEED, verbose=False))
+    counts = launch_counts()
+    expected = {name: pre_steps * SIMCLR_PRE_STEP.get(name, 0) for name in KERNELS}
+    check(counts == expected, f"contrastive_pretrain launch counts {counts} != {expected}")
+    for name in KERNELS:
+        total[name] += counts[name]
+    reset_launch_counts()
+    (_, metrics), ft_s = synced(lambda: finetune(
+        enc, None, clf, train, test, num_epochs=1, lr=SIMCLR_FINETUNE_LR, batch_size=BATCH,
+        seed=SEED, verbose=False))
+    counts = launch_counts()
+    expected = {name: (ft_steps + evals) * SIMCLR_FT_STEP.get(name, 0) for name in KERNELS}
+    check(counts == expected, f"finetune launch counts {counts} != {expected}")
+    for name in KERNELS:
+        total[name] += counts[name]
+    check(all(math.isfinite(v) for v in (*losses, *metrics["loss_history"], metrics["a_acc"],
+                                         metrics["v_acc"])), "SimCLR sequential: non-finite")
+    print(f"SimCLR sequential engines, subject {TEST_SUBJECT}: contrastive_pretrain 1 epoch of "
+          f"{pre_steps} steps over {len(plab)} pairs, loss {losses[0]:.6f}, {pre_s:.3f} s wall; "
+          f"finetune 1 epoch of {ft_steps} steps and {evals} evaluation batch, loss "
+          f"{metrics['loss_history'][0]:.6f} a_acc {metrics['a_acc']:.4f} v_acc "
+          f"{metrics['v_acc']:.4f}, {ft_s:.3f} s wall; launches equal the steps': True")
+    return total
+
+
+def simclr_phase(full: DeviceDataset, profile: bool) -> dict:
+    """The SimCLR stack on the card: the 24-subject trainer through
+    SIMCLR_EPOCHS pretrain then finetune epochs, each under the sync check
+    with its launches held to its steps' (one launch for all 24 models), the
+    pair row and its BatchNorm stats bit-unchanged by the finetune, the
+    second epoch of each timed; subjects 0 and 17 against the sequential
+    steps; the sequential engines for one subject. Returns the launch
+    counts."""
+    t_phase = time.perf_counter()
+    vt = make_simclr_trainer(full)
+    s_n, n_train = vt.n_subjects, vt.train_idx.shape[1]
+    nb, nb_ft = -(-int(vt.n_pairs.max()) // BATCH), -(-n_train // BATCH)
+    print(f"SimCLR training: {s_n} subjects, {int(vt.n_pairs.min())}-{int(vt.n_pairs.max())} "
+          f"balanced pairs each, pretrain {nb} steps of {s_n} x {BATCH} pairs an epoch (two "
+          f"views), finetune {nb_ft} steps of {s_n} x {BATCH} of {n_train} train rows and one "
+          f"evaluation of {vt.test_idx.shape[1]} held-out rows an epoch; feat_dim 256, 8 heads, "
+          f"dropout 0.4 (stem) / 0.5 (projector, classifier); lr {SIMCLR_PRETRAIN_LR} / "
+          f"{SIMCLR_FINETUNE_LR}")
+    total = {name: 0 for name in KERNELS}
+    stages = (("pretrain", vt.pretrain_epoch_on_device, nb, SIMCLR_PRE_STEP, 0),
+              ("finetune", vt.finetune_epoch_on_device, nb_ft, SIMCLR_FT_STEP, 1))
+    for stage, run_epoch, steps, per_step, evals in stages:
+        expected = {name: (steps + evals) * per_step.get(name, 0) for name in KERNELS}
+        if stage == "finetune":
+            row = (vt.params.clone(), vt.stats.clone())
+        for e in range(1, SIMCLR_EPOCHS + 1):
+            out, seconds, device_s, counts = on_device_checked(
+                run_epoch, expected, f"SimCLR {stage} epoch {e}")
+            for name in KERNELS:
+                total[name] += counts[name]
+            loss = (out[0] if stage == "finetune" else out).cpu().numpy()
+            check(bool(np.isfinite(loss).all()), f"SimCLR {stage} epoch {e}: non-finite losses")
+            line = (f"SimCLR {stage} epoch {e}: loss mean {loss.mean():.6f} (subjects "
+                    f"{loss.min():.6f} to {loss.max():.6f})")
+            if stage == "finetune":
+                acc = out[1].cpu().numpy()
+                check(bool(((acc >= 0) & (acc <= 1)).all()), "SimCLR finetune: accuracies")
+                line += f", held-out a_acc {acc[:, 0].mean():.4f} v_acc {acc[:, 1].mean():.4f}"
+            print(f"{line}; launches {({k: n for k, n in counts.items() if n})}; {seconds:.3f} s "
+                  f"wall (host clock around the "
+                  f"synchronised run, no host sync inside)")
+            if e == SIMCLR_EPOCHS:
+                rate = (f", {s_n * steps * BATCH / seconds:.1f} pairs/s/chip by the host clock, "
+                        f"{s_n * steps * BATCH / device_s:.1f} by CUDA events"
+                        if stage == "pretrain" else
+                        f" with the evaluation, {s_n * n_train / seconds:.1f} samples/s/chip")
+                print(f"SimCLR {stage} epoch {e} timed: smoke reading {seconds * 1e3 / steps:.3f} "
+                      f"ms/step of {s_n} x {BATCH} (host clock), CUDA events over the same "
+                      f"window {device_s * 1e3 / steps:.3f} ms/step{rate}")
+        if stage == "finetune":
+            frozen = torch.equal(vt.params, row[0]) and torch.equal(vt.stats, row[1])
+            print(f"SimCLR finetune left the encoder and projector row and its BatchNorm stats "
+                  f"bit-unchanged: {frozen}")
+            check(frozen, "SimCLR finetune moved the frozen row")
+            del row
+    if profile:
+        profile_window("SimCLR pretrain epoch", vt.pretrain_epoch_on_device, top=30,
+                       show=("stem_tail",), share="stem_tail")
+    del vt
+    gc.collect()
+    torch.cuda.empty_cache()
+    simclr_step_parity(full)
+    seq = simclr_sequential_phase(full)
+    for name in KERNELS:
+        total[name] += seq[name]
+    print(f"SimCLR phase: {time.perf_counter() - t_phase:.1f} s wall")
     return total
 
 
@@ -2596,6 +2871,7 @@ def main() -> int:
     loso_bf16_counts, vt16 = loso_bf16_phase(full, loso)
     b512_counts = loso_b512_phase(full)
     phased_counts = phased_phase(full, args.profile)
+    simclr_counts = simclr_phase(full, args.profile)
     memhacl_counts, (encoder, projector, classifier), (emotion, train, val) = memhacl_phase(
         device)
     memhacl_bf16_counts = memhacl_bf16_phase(encoder, classifier, val)
@@ -2617,8 +2893,8 @@ def main() -> int:
             verbose=False), show=("fusion_head",))
 
     phases = (serve_counts, serve_bf16_counts, serve_v5_counts, train_counts, loso["counts"],
-              schedule_counts, loso_bf16_counts, b512_counts, phased_counts, memhacl_counts,
-              memhacl_bf16_counts, attention_counts)
+              schedule_counts, loso_bf16_counts, b512_counts, phased_counts, simclr_counts,
+              memhacl_counts, memhacl_bf16_counts, attention_counts)
     counts = {name: sum(c[name] for c in phases) for name in KERNELS}
     gen = torch.Generator(device=device).manual_seed(SEED)
     torch.set_grad_enabled(False)  # plain versions must not record autograd graphs

@@ -61,9 +61,13 @@ class DeviceDataset:
         return self.n
 
     def gather(self, idx: torch.Tensor | np.ndarray) -> dict[str, torch.Tensor]:
-        """One batch: rows ``idx`` of every array, gathered on the device."""
+        """Rows ``idx`` of every array, gathered on the device: one batch for
+        ``idx (B,)``, and ``(S, B, ...)`` for the stacked trainers' ``idx (S,
+        B)``."""
         idx = torch.as_tensor(idx, dtype=torch.long, device=self.device)
-        return {k: v.index_select(0, idx) for k, v in self.arrays.items()}
+        flat = idx.reshape(-1)
+        return {k: v.index_select(0, flat).view(*idx.shape, *v.shape[1:])
+                for k, v in self.arrays.items()}
 
     def subset(self, idx: np.ndarray) -> "DeviceDataset":
         """A new dataset of rows ``idx`` (made once per experiment)."""
@@ -95,6 +99,15 @@ class DeviceDataset:
         indices, mask = epoch_batch_indices(self.n, batch_size, rng, shuffle)
         return (torch.as_tensor(indices, device=self.device),
                 torch.as_tensor(mask, device=self.device))
+
+
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without a host sync: a pinned,
+    non-blocking copy on a card."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def epoch_plan_on_device(generator: torch.Generator, n: int,

@@ -6,6 +6,8 @@ from .jax_import import (
     memhacl_encoder_state_dict_from_jax,
     phased_state_from_jax,
     projection_head_state_dict_from_jax,
+    simclr_encoder_state_dict_from_jax,
+    simclr_state_from_jax,
     state_dict_from_jax_variables,
     trainer_state_from_jax,
 )
@@ -16,17 +18,21 @@ from .layers import (
     TransformerEncoderLayer,
 )
 from .memhacl import MEMHACLClassifier, MEMHACLEncoder
-from .simclr import ProjectionHead
+from .simclr import Classifier, EyeMLPNet, MultiModalEncoder, PPSMLPNet, ProjectionHead
 from .subnetwork import Subnetwork
 
 __all__ = [
     "BiLSTM",
+    "Classifier",
     "CrossModalTransformer",
     "EEGMultiScaleNet",
+    "EyeMLPNet",
     "MEMHACLClassifier",
     "MEMHACLEncoder",
+    "MultiModalEncoder",
     "MultiheadAttention",
     "MultimodalTransformerModel",
+    "PPSMLPNet",
     "PositionalEncoding",
     "ProjectionHead",
     "Subnetwork",
@@ -36,6 +42,8 @@ __all__ = [
     "memhacl_encoder_state_dict_from_jax",
     "phased_state_from_jax",
     "projection_head_state_dict_from_jax",
+    "simclr_encoder_state_dict_from_jax",
+    "simclr_state_from_jax",
     "state_dict_from_jax_variables",
     "trainer_state_from_jax",
 ]

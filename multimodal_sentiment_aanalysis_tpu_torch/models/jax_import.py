@@ -20,6 +20,13 @@ shares: :func:`memhacl_encoder_state_dict_from_jax`,
 :class:`.memhacl.MEMHACLEncoder`, :class:`.simclr.ProjectionHead` and
 :class:`.memhacl.MEMHACLClassifier`.
 
+The SimCLR encoder importer, :func:`simclr_encoder_state_dict_from_jax`,
+inverts ``simclr_encoder_variables_from_torch_state_dict`` and gives the
+``state_dict`` of :class:`.simclr.MultiModalEncoder`;
+:func:`simclr_state_from_jax` carries the JAX ``VectorizedSimCLRTrainer``'s
+stacked ``(params, batch_stats, clf_params)`` to the three modules' stacked
+``state_dict`` s.
+
 The flagship importers also take the JAX ``VectorizedLOSOTrainer``'s and
 ``VectorizedPhasedTrainer``'s stacked variables (the ``vmap(init_one)``
 output, every leaf with a leading model axis S) and then return every
@@ -208,3 +215,48 @@ def classifier_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, to
     p = variables["params"]
     return {**_linear(p["shared"], "shared.0"), **_linear(p["fc_arousal"], "fc_arousal"),
             **_linear(p["fc_valence"], "fc_valence")}
+
+
+def _relu_bn_mlp(p: Mapping[str, Any], stats: Mapping[str, Any], prefix: str) -> dict:
+    """``net.dense_j``/``net.bn_j`` -> the Sequential ``[Linear, ReLU,
+    BatchNorm1d]*``: Linear at ``3j``, BN at ``3j + 2``."""
+    p, stats = p["net"], stats["net"]
+    sd: dict = {}
+    j = 0
+    while f"dense_{j}" in p:
+        sd.update(_linear(p[f"dense_{j}"], f"{prefix}.net.{3 * j}"))
+        sd.update(_bn(p[f"bn_{j}"], stats[f"bn_{j}"], f"{prefix}.net.{3 * j + 2}"))
+        j += 1
+    return sd
+
+
+def simclr_encoder_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX SimCLR ``MultiModalEncoder`` variables -> the port's
+    ``state_dict`` (``eeg_net``, ``eye_net.net``, ``pps_net.net``,
+    ``multihead_attn``, ``fusion_mlp.0/2``), stacked where the variables
+    are."""
+    p, s = variables["params"], variables["batch_stats"]
+    return {
+        **_eeg_net(p["eeg_net"], s["eeg_net"], "eeg_net"),
+        **_relu_bn_mlp(p["eye_net"], s["eye_net"], "eye_net"),
+        **_relu_bn_mlp(p["pps_net"], s["pps_net"], "pps_net"),
+        **_mha(p["multihead_attn"], "multihead_attn"),
+        **_linear(p["fusion_dense"], "fusion_mlp.0"),
+        **_bn(p["fusion_bn"], s["fusion_bn"], "fusion_mlp.2"),
+    }
+
+
+def simclr_state_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                          clf_params: Mapping[str, Any]) -> tuple[dict, dict, dict]:
+    """The JAX ``VectorizedSimCLRTrainer``'s ``(params, batch_stats,
+    clf_params)`` (its ``vmap(init_one)`` init, or its state after a stage;
+    ``params`` and ``batch_stats`` are ``{"enc": ..., "proj": ...}``) -> the
+    stacked ``state_dict`` s of the encoder, the projection head and the
+    classifier, every tensor with the leading model axis, which
+    :meth:`..train.vsimclr.VectorizedSimCLRTrainer.load_stacked_state`
+    takes. One subject's state gives the three modules' ``state_dict`` s."""
+    return (simclr_encoder_state_dict_from_jax({"params": params["enc"],
+                                                "batch_stats": batch_stats["enc"]}),
+            projection_head_state_dict_from_jax({"params": params["proj"],
+                                                 "batch_stats": batch_stats["proj"]}),
+            classifier_state_dict_from_jax({"params": clf_params}))

@@ -12,7 +12,8 @@ names:
   sequence: 16 -> 32, 16 -> 32 -> 64), ``multihead_attn`` (8 heads) over the
   three embeddings as a length-3 sequence, and the **mean** over them;
 - :class:`MEMHACLClassifier`: ``shared`` Linear + ReLU + Dropout, binary
-  ``fc_arousal`` and ``fc_valence``;
+  ``fc_arousal`` and ``fc_valence`` (the SimCLR ``Classifier`` with two
+  classes);
 - ``ProjectionHead``: the SimCLR one (:mod:`.simclr`).
 
 Every BatchNorm uses the JAX running-stat rule (momentum 0.1, biased batch
@@ -30,7 +31,7 @@ import torch.nn as nn
 
 from .fusion_model import init_parameters, run_trunk
 from .layers import MultiheadAttention
-from .simclr import ProjectionHead
+from .simclr import Classifier, ProjectionHead
 
 __all__ = ["MEMHACLClassifier", "MEMHACLEncoder", "ProjectionHead"]
 
@@ -84,20 +85,12 @@ class MEMHACLEncoder(nn.Module):
         return self.fuse(*self.embed(eeg, eye, phy))
 
 
-class MEMHACLClassifier(nn.Module):
-    """Binary arousal and valence heads on a shared Linear + ReLU + Dropout."""
+class MEMHACLClassifier(Classifier):
+    """Binary arousal and valence heads on a shared Linear + ReLU + Dropout:
+    the SimCLR :class:`.simclr.Classifier` with two classes."""
 
     def __init__(self, in_dim: int = 256, hidden_dim: int = 128, num_classes: int = 2,
                  dropout: float = 0.5, *, device=None,
                  generator: torch.Generator | None = None):
-        super().__init__()
-        self.shared = nn.Sequential(nn.Linear(in_dim, hidden_dim, device=device), nn.ReLU(),
-                                    nn.Dropout(dropout))
-        self.fc_arousal = nn.Linear(hidden_dim, num_classes, device=device)
-        self.fc_valence = nn.Linear(hidden_dim, num_classes, device=device)
-        init_parameters(self, generator)
-
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-        h = run_trunk(self.shared, x, generator)
-        return self.fc_arousal(h), self.fc_valence(h)
+        super().__init__(in_dim, hidden_dim, num_classes, dropout, device=device,
+                         generator=generator)

@@ -3,6 +3,7 @@ from .losses import (
     masked_accuracy,
     masked_cross_entropy,
     ntxent_indexed,
+    ntxent_supervised_two_view,
     supervised_infonce,
     supervised_infonce_multi,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "masked_accuracy",
     "masked_cross_entropy",
     "ntxent_indexed",
+    "ntxent_supervised_two_view",
     "supervised_infonce",
     "supervised_infonce_multi",
 ]

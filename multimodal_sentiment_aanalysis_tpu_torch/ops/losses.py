@@ -10,8 +10,11 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/ops/losses.py``:
   temperature; on the card one launch for all G.
 - :func:`masked_cross_entropy`, :func:`masked_accuracy`: means over the
   valid rows of a wrap-padded batch;
-- :func:`ntxent_indexed`: ME-MHACL's index-matched NT-Xent; and
-  :func:`cross_entropy`, the batch mean.
+- :func:`ntxent_indexed`: ME-MHACL's index-matched NT-Xent;
+- :func:`ntxent_supervised_two_view`: the SimCLR stack's two-view
+  supervised NT-Xent, plain tensor math on either device (the JAX package
+  computes it outside any Pallas kernel); and :func:`cross_entropy`, the
+  batch mean.
 """
 
 from __future__ import annotations
@@ -89,6 +92,26 @@ def ntxent_indexed(z1: torch.Tensor, z2: torch.Tensor, temperature: float = 0.5)
     sim = torch.where(eye, -9e15, sim) / temperature
     targets = torch.cat([torch.arange(b, 2 * b), torch.arange(0, b)]).to(z.device)
     return F.cross_entropy(sim, targets)
+
+
+def ntxent_supervised_two_view(z1: torch.Tensor, z2: torch.Tensor, labels: torch.Tensor,
+                               temperature: float = 0.1) -> torch.Tensor:
+    """Two-view supervised NT-Xent (reference ``train.py:16-40``): the two
+    L2-normalised views stacked as ``2B`` rows, their ``2B x 2B`` similarity
+    over ``temperature``, positives by label equality less the diagonal, a
+    denominator of each row's exp-sum without its diagonal, and each row's
+    summed log-probability over its positives divided by their count. The
+    SimCLR engines pass the *pair* labels (1.0 positive, 0.0 negative) as
+    ``labels``, as the JAX engines do."""
+    z = torch.cat([F.normalize(z1, dim=1, eps=1e-12), F.normalize(z2, dim=1, eps=1e-12)])
+    sim = (z @ z.T) / temperature
+    lab = torch.cat([labels.reshape(-1), labels.reshape(-1)])
+    self_mask = torch.eye(sim.shape[0], dtype=torch.bool, device=sim.device)
+    mask = torch.where(self_mask, 0.0, (lab[:, None] == lab[None, :]).to(sim.dtype))
+    sim_sum = torch.where(self_mask, 0.0, torch.exp(sim)).sum(1, keepdim=True)
+    log_prob = sim - torch.log(sim_sum + 1e-8)
+    loss = -(mask * log_prob).sum(1) / (mask.sum(1) + 1e-8)
+    return loss.mean()
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,7 @@ from .multitask import (
     PhaseSpec,
     make_phase_loss,
 )
+from .simclr import contrastive_pretrain, finetune
 from .state import (
     RowLayout,
     StackedAdamW,
@@ -23,6 +24,7 @@ from .state import (
 )
 from .vloso import VectorizedLOSOTrainer
 from .vphased import VectorizedPhasedTrainer
+from .vsimclr import VectorizedSimCLRTrainer
 
 __all__ = [
     "ENCODER_MODULES",
@@ -37,9 +39,12 @@ __all__ = [
     "Trainer",
     "VectorizedLOSOTrainer",
     "VectorizedPhasedTrainer",
+    "VectorizedSimCLRTrainer",
     "apply_grad_mask",
     "clip_by_global_norm",
     "clip_rows_by_global_norm",
+    "contrastive_pretrain",
+    "finetune",
     "make_adamw",
     "make_masked_adamw",
     "make_phase_loss",

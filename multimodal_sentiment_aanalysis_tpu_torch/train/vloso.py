@@ -262,9 +262,7 @@ class VectorizedLOSOTrainer:
     # training
     def _gather(self, idx: torch.Tensor) -> dict[str, torch.Tensor]:
         """Rows ``idx (S, B)`` of every array: ``(S, B, ...)``."""
-        flat = idx.reshape(-1).long()
-        return {k: v.index_select(0, flat).view(*idx.shape, *v.shape[1:])
-                for k, v in self.data.arrays.items()}
+        return self.data.gather(idx)
 
     def _train_step(self, idx: torch.Tensor, mask: torch.Tensor,
                     active: torch.Tensor) -> torch.Tensor:

@@ -59,7 +59,7 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call, grad_and_value, vmap
 
-from ..data.pipeline import DeviceDataset, epoch_batch_indices
+from ..data.pipeline import DeviceDataset, epoch_batch_indices, host_to_device
 from ..data.splits import loso_split
 from ..utils.schedule import vector_schedule_init, vector_schedule_step
 from .multitask import METRIC_KEYS, PHASE_ORDER, PHASES, eval_sums, make_phase_loss
@@ -212,9 +212,7 @@ class VectorizedPhasedTrainer:
     # training
     def _gather(self, idx: torch.Tensor) -> dict[str, torch.Tensor]:
         """Rows ``idx (S, B)`` of every array: ``(S, B, ...)``."""
-        flat = idx.reshape(-1).long()
-        return {k: v.index_select(0, flat).view(*idx.shape, *v.shape[1:])
-                for k, v in self.data.arrays.items()}
+        return self.data.gather(idx)
 
     def _clipped_grads(self, phase: str, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """Every model's gradient of ``phase`` on ``batch`` (with its
@@ -264,21 +262,13 @@ class VectorizedPhasedTrainer:
                 msk[s, e] = m
         return idx, msk
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the device without a host sync (a pinned,
-        non-blocking copy on a card)."""
-        t = torch.from_numpy(a)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def run_phase_on_device(self, phase: str, epochs: int) -> dict[str, torch.Tensor]:
         """``epochs`` epochs of ``phase`` for every subject with nothing read
         back to the host (the plans are drawn on the host first). Returns, on
         the device, the train and test metric sums ``(S, E, 7)`` and the
         ``lr`` and ``stopped`` lanes after each epoch ``(S, E)``."""
         spec = PHASES[phase]
-        plans, masks = (self._to_device(a) for a in self._phase_plans(epochs))
+        plans, masks = (host_to_device(a, self.device) for a in self._phase_plans(epochs))
         if phase not in self._phase_sched:
             self._phase_sched[phase] = vector_schedule_init(self.n_total, self.lr, self.device)
             self._phase_epochs[phase] = 0
