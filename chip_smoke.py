@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, LOSO training, phased
 curriculum, SimCLR, ME-MHACL and attention paths, bf16 LOSO and phased training and
-bf16 serving, and the BiLSTM's other kernel schedules, on one CUDA card, and
+bf16 serving, the BiLSTM's other kernel schedules, and the trainers'
+checkpoints and the evaluation of a saved model, on one CUDA card, and
 check them.
 
 Run from the root of a checkout, with no arguments::
@@ -109,7 +110,7 @@ It needs a CUDA card and exits non-zero without one. In order, it
    BatchNorm stats, updated parameters); and ``contrastive_pretrain`` and
    ``finetune`` for subject 0, one epoch each, their launches checked; the
    phase's wall seconds. Its kernels run at the LOSO step's shapes, so the
-   LOSO kernel cases of 7 cover them;
+   LOSO kernel cases of 8 cover them;
 5. ME-MHACL (``cli.py memhacl``): ``make_synthetic_emotion_arrays(n=480)``
    on the card, the 80/20 split, full-width encoder, projection head and
    classifier (feat_dim 256, 8 heads) from seeded generators;
@@ -128,7 +129,27 @@ It needs a CUDA card and exits non-zero without one. In order, it
    T=585, forward and backward on the card with the counters reset just
    before (one launch of each flash kernel), against the CPU plain path
    (outputs 1e-3, gradients as in 3);
-7. holds every kernel against its plain PyTorch version at the shapes its
+7. checkpoints, on the trainers the earlier phases built: the LOSO
+   trainer's ``save_state`` (early stop on, S=24, B=64), restored into a
+   fresh ``make_loso_trainer`` (every tensor of the state and the
+   generators bit-equal), then one host-plan epoch of both (launches per
+   step PER_STEP's, per-subject losses within 1e-3 relative, the
+   generators equal again), the file's MB and the seconds to save and to
+   restore; subjects 0 and 17 from ``subject_variables`` to ``.pt`` files,
+   evaluated by ``Tester.run`` on their held-out rows (one launch of each
+   eval-forward kernel a batch, no InfoNCE: the forward takes no labels),
+   their accuracies against ``vt.evaluate()`` at S=24 (a row may differ
+   only where its top-two logit margin is under 1e-4, printed), the
+   Tester's ms per batch, ``predict_single`` at B=1 on three rows against
+   ``evaluate``'s probabilities (1e-5); the single-subject ``Trainer``'s
+   state bit-equal after a restore, and ``test_with_loaded_model`` of its
+   ``best_model.pt`` against ``trainer.test()`` (1e-5); the phased
+   trainers' (24-subject and one-subject) state bit-equal after a restore
+   and one ``fusion_arousal`` epoch of each pair (losses within 1e-3
+   relative), and ``save_checkpoints``' 24 files, each loaded strictly into
+   the flagship; whether sklearn, matplotlib and pandas are importable (the
+   phase uses none of them);
+8. holds every kernel against its plain PyTorch version at the shapes its
    paths give it (real activations of the first request, train batch,
    validation batch or attention input; for the S=24 cases the LOSO
    trainer's stacked weights and seeded activations; the flash kernels also
@@ -186,7 +207,7 @@ It needs a CUDA card and exits non-zero without one. In order, it
    misses, ``tests/test_torch_port_rows12_17.py``), each case split into
    host and device time, with ptxas's registers and spills of each form of
    the two kernels;
-8. prints the card's name and power limit, one JSON line of per-kernel
+9. prints the card's name and power limit, one JSON line of per-kernel
    results (one entry per kernel a path launched; the InfoNCE kernel's
    bf16 form, which no path launches because the bf16 step's InfoNCE
    features are fp32 as in JAX, reports its case under ``bf16_*`` keys of
@@ -201,11 +222,15 @@ from __future__ import annotations
 import argparse
 import copy
 import gc
+import importlib.util
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -232,6 +257,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.data import (
     random_split_indices,
     subject_ids_array,
 )
+from multimodal_sentiment_aanalysis_tpu_torch.eval import Tester
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import (
     attention,
     contrastive,
@@ -381,6 +407,15 @@ SIMCLR_EPOCHS, SIMCLR_PRETRAIN_LR, SIMCLR_FINETUNE_LR = 2, 1e-3, 1e-4
 SIMCLR_PRE_STEP = with_row_kernels(dict(bilstm_fwd=4, bilstm_cbnd=4, bilstm_segbwd=4,
                                         stem_tail=4, stem_tail_bwd=4))
 SIMCLR_FT_STEP = with_row_kernels(dict(bilstm_fwd=2, stem_tail=2))
+# the checkpoints phase: the Tester's eval forward takes no labels, so no
+# InfoNCE: rows 1 and 2 twice a batch, one launch for the batch
+TESTER_EVAL = with_row_kernels(dict(bilstm_fwd=2, stem_tail=2))
+TIE_MARGIN = 1e-4    # top-two logit margin under which S=1 and S=24 may disagree on a row
+PREDICT_ATOL = 1e-5  # predict_single at B=1 against evaluate's rows
+CKPT_ATOL = 1e-5     # test_with_loaded_model against trainer.test() on the same weights
+# a resumed epoch against the saved trainer's, per subject, relative: card
+# training is not bit-reproducible (gradient parity is bounded at 1e-3)
+RESUME_RTOL = 1e-3
 # bf16 serving against fp32 serving: the JAX package's bar (tests/test_serving.py)
 SERVE_BF16_TOL, SERVE_BF16_ARGMAX = 0.1, 0.9
 # the GEMM of rows 1 and 11 against its products in fp64, per mode: max
@@ -1671,11 +1706,20 @@ def phased_step_parity(full: DeviceDataset) -> None:
         torch.cuda.empty_cache()
 
 
-def multitask_phase(full: DeviceDataset) -> dict:
+def make_multitask_trainer(full: DeviceDataset, fused: bool, seed: int = SEED
+                           ) -> MultiTaskTrainer:
+    """``MultiTaskTrainer`` for subject TEST_SUBJECT, full width."""
+    tr_idx, te_idx = loso_split(N_SUBJECTS, EX_NUMS, TEST_SUBJECT)
+    model = MultimodalTransformerModel(feat_dim=256, device=full.device)
+    return MultiTaskTrainer(model, full.subset(tr_idx), full.subset(te_idx), batch_size=BATCH,
+                            seed=seed, fused_phases=fused, verbose=False)
+
+
+def multitask_phase(full: DeviceDataset) -> tuple[dict, MultiTaskTrainer]:
     """``MultiTaskTrainer`` for subject 0 on the card:
     ``run(1, 1, 1, 1, 1, save=False, plot=False)`` through the host loop,
     then through ``fused_phases=True``, each run's launches held to the
-    curriculum's. Returns the launch counts."""
+    curriculum's. Returns the launch counts and the fused run's trainer."""
     tr_idx, te_idx = loso_split(N_SUBJECTS, EX_NUMS, TEST_SUBJECT)
     steps, evals = -(-len(tr_idx) // BATCH), -(-len(te_idx) // BATCH)
     expected = {name: 0 for name in KERNELS}
@@ -1684,9 +1728,7 @@ def multitask_phase(full: DeviceDataset) -> dict:
             expected[name] += n
     total, results = {name: 0 for name in KERNELS}, {}
     for fused in (False, True):
-        model = MultimodalTransformerModel(feat_dim=256, device=full.device)
-        mt = MultiTaskTrainer(model, full.subset(tr_idx), full.subset(te_idx), batch_size=BATCH,
-                              seed=SEED, fused_phases=fused, verbose=False)
+        mt = make_multitask_trainer(full, fused)
         reset_launch_counts()
         test_m, seconds = synced(lambda: mt.run(*PHASED_EPOCHS, save=False, plot=False))
         counts = launch_counts()
@@ -1703,19 +1745,20 @@ def multitask_phase(full: DeviceDataset) -> dict:
         results[label] = test_m
         for name in KERNELS:
             total[name] += counts[name]
-        del mt, model
     gap = abs(results["fused phases"]["loss"] - results["host loop"]["loss"])
     print(f"MultiTaskTrainer fused against host loop, same seed: final test loss |diff| "
           f"{gap:.3e}")
-    return total
+    return total, mt
 
 
-def phased_phase(full: DeviceDataset, profile: bool) -> dict:
+def phased_phase(full: DeviceDataset, profile: bool
+                 ) -> tuple[dict, VectorizedPhasedTrainer, MultiTaskTrainer]:
     """The phased curriculum on the card: the 24-subject trainer through
     run(1, 1, 1, 1, 1) with its update masks checked, 2 timed
     ``fusion_arousal`` epochs, the bf16 curriculum against the fp32 one,
     subjects 0 and 17 against a single-subject step, and
-    ``MultiTaskTrainer`` for one subject. Returns the launch counts."""
+    ``MultiTaskTrainer`` for one subject. Returns the launch counts and the
+    fp32 24-subject and the one-subject trainers."""
     t_phase = time.perf_counter()
     vt = make_phased_trainer(full)
     s_n, n_train = vt.n_subjects, vt.train_idx.shape[1]
@@ -1740,9 +1783,6 @@ def phased_phase(full: DeviceDataset, profile: bool) -> dict:
     if profile:
         profile_window("phased fusion_arousal epoch",
                        lambda: vt.run_phase_on_device("fusion_arousal", 1), top=30)
-    del vt
-    gc.collect()
-    torch.cuda.empty_cache()
 
     vt16 = make_phased_trainer(full, compute_dtype="bfloat16")
     counts16, bf16_losses = phased_curriculum(
@@ -1763,11 +1803,11 @@ def phased_phase(full: DeviceDataset, profile: bool) -> dict:
     torch.cuda.empty_cache()
 
     phased_step_parity(full)
-    mt_counts = multitask_phase(full)
+    mt_counts, mt = multitask_phase(full)
     for name in KERNELS:
         total[name] += mt_counts[name]
     print(f"phased phase: {time.perf_counter() - t_phase:.1f} s wall")
-    return total
+    return total, vt, mt
 
 
 # --------------------------------------------------------------------------
@@ -1993,6 +2033,308 @@ def simclr_phase(full: DeviceDataset, profile: bool) -> dict:
     for name in KERNELS:
         total[name] += seq[name]
     print(f"SimCLR phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return total
+
+
+# --------------------------------------------------------------------------
+# checkpoints: full-state save and restore, evaluation of a saved model
+# --------------------------------------------------------------------------
+
+
+def counted(fn, expected: dict, label: str) -> tuple:
+    """``fn()`` synchronised, the launch counters reset just before and held
+    to ``expected`` after. Returns its result, the host-clock seconds and
+    the launch counts."""
+    reset_launch_counts()
+    out, seconds = synced(fn)
+    counts = launch_counts()
+    check(counts == expected, f"{label} launch counts {counts} != {expected}")
+    return out, seconds, counts
+
+
+def launches(per: dict, n: int) -> dict:
+    """``n`` times ``per`` (one call's launches by kernel), every kernel."""
+    return {name: n * per.get(name, 0) for name in KERNELS}
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name in KERNELS:
+        total[name] += counts[name]
+
+
+def differing(a: dict, b: dict) -> list[str]:
+    """The names whose tensors differ in dtype or in any bit."""
+    return [n for n in a if not (a[n].dtype == b[n].dtype and torch.equal(a[n], b[n]))]
+
+
+def saved_and_restored(obj, path: str, make_fresh) -> tuple:
+    """``obj.save_state(path)`` and a fresh trainer's ``restore_state``:
+    returns the fresh trainer, the file's MB and the seconds to save and to
+    restore (host clock, the card synchronised); removes the file."""
+    _, save_s = synced(lambda: obj.save_state(path))
+    mb = os.path.getsize(path) / 1e6
+    fresh = make_fresh()
+    _, restore_s = synced(lambda: fresh.restore_state(path))
+    os.remove(path)
+    return fresh, mb, save_s, restore_s
+
+
+def resumed_gap(label: str, losses: list, smi: str) -> None:
+    """Per-subject losses of the saved and the restored trainer's next
+    epoch, relative: card training is not bit-reproducible, so RESUME_RTOL."""
+    gap = np.abs(np.asarray(losses[1]) - np.asarray(losses[0])) / np.abs(np.asarray(losses[0]))
+    print(f"{label}: the next epoch's train loss, restored against saved trainer: relative gap "
+          f"max {gap.max():.3e} (limit {RESUME_RTOL}) ({smi})")
+    check(gap.max() <= RESUME_RTOL, f"{label}: the restored trainer parts from the saved one")
+
+
+def loso_checkpoint(vt: VectorizedLOSOTrainer, full: DeviceDataset, tmp: str, smi: str) -> dict:
+    """The LOSO trainer's full state to a file and into a fresh trainer:
+    every tensor and the generators bit-equal, then one host-plan epoch of
+    both (launches per step PER_STEP's, losses within RESUME_RTOL, the
+    generators equal again). Returns the launch counts."""
+    total = {name: 0 for name in KERNELS}
+    steps = -(-vt.train_idx.shape[1] // BATCH)
+    fresh, mb, save_s, restore_s = saved_and_restored(
+        vt, os.path.join(tmp, "loso_state.pt"), lambda: make_loso_trainer(full))
+
+    def generators_equal() -> bool:
+        return (torch.equal(vt.generator.get_state(), fresh.generator.get_state())
+                and torch.equal(vt.plan_generator.get_state(), fresh.plan_generator.get_state())
+                and vt.host_rng.bit_generator.state == fresh.host_rng.bit_generator.state)
+
+    state = vt._state_tensors()
+    differ, gens = differing(state, fresh._state_tensors()), generators_equal()
+    print(f"LOSO save_state: {len(state)} tensors ({', '.join(state)}), {mb:.1f} MB, saved in "
+          f"{save_s:.3f} s, restored into a fresh trainer in {restore_s:.3f} s (host clock) "
+          f"({smi}); tensors that differ: {differ or 'none'}; generators and host generator "
+          f"equal: {gens}")
+    check(not differ and gens, "LOSO restore is not bit-equal")
+    losses = []
+    for label, t in (("saved", vt), ("restored", fresh)):
+        tm, seconds, counts = counted(t.train_epoch, launches(PER_STEP, steps),
+                                      f"LOSO {label} trainer's epoch")
+        add_counts(total, counts)
+        losses.append(tm["loss"])
+        print(f"LOSO {label} trainer, one host-plan epoch: {seconds * 1e3 / steps:.3f} ms/step "
+              f"(host clock), launches per step PER_STEP's ({smi})")
+    resumed_gap("LOSO resume", losses, smi)
+    check(generators_equal(), "LOSO generators part after the resumed epoch")
+    print("LOSO generators and host generator equal after the epoch: True")
+    del fresh
+    return total
+
+
+def tester_checkpoint(vt: VectorizedLOSOTrainer, full: DeviceDataset, tmp: str,
+                      smi: str) -> dict:
+    """Subjects PARITY_SUBJECTS' models from ``vt.subject_variables`` to
+    ``.pt`` files, evaluated by ``Tester.run`` on their held-out rows at
+    S=1 against ``vt.evaluate()`` at S=24 (per-head accuracy; a row may
+    differ only where its top-two logit margin is under TIE_MARGIN), the
+    Tester's launches, its ms per batch, and ``predict_single`` at B=1 on
+    three rows against ``evaluate``'s. Returns the launch counts."""
+    total = {name: 0 for name in KERNELS}
+    ev, _, counts = counted(vt.evaluate, launches(TESTER_EVAL, 1), "LOSO evaluate")
+    add_counts(total, counts)
+    for sid in PARITY_SUBJECTS:
+        path = os.path.join(tmp, f"subject{sid}.pt")
+        torch.save(vt.subject_variables(sid), path)
+        test = full.subset(vt.test_idx[sid])
+        n, batches = len(test), -(-len(test) // BATCH)
+        tester = Tester(make_model(full.device), test)
+        res, seconds, counts = counted(lambda: tester.run(path, verbose=True, plot_dir=None),
+                                       launches(TESTER_EVAL, batches), f"Tester subject {sid}")
+        add_counts(total, counts)
+        os.remove(path)
+        for head, key in (("arousal", "a_acc"), ("valence", "v_acc")):
+            r = res[head]
+            got, want = round(r["accuracy"] * n), round(float(ev[key][sid]) * n)
+            top2 = np.sort(np.log(r["probabilities"]), 1)[:, -2:]
+            margin = top2[:, 1] - top2[:, 0]
+            close = np.flatnonzero(margin < TIE_MARGIN)
+            print(f"Tester subject {sid} {head} (S=1): accuracy {got}/{n}; vt.evaluate() "
+                  f"(S=24) {want}/{n}; rows with a top-two logit margin under {TIE_MARGIN}: "
+                  f"{[(int(i), float(margin[i])) for i in close] or 'none'}")
+            check(abs(got - want) <= len(close), f"Tester subject {sid} {head}: accuracy "
+                                                  f"{got}/{n} against vt.evaluate() {want}/{n}")
+        timed = TIMED_CALLS * batches
+        reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(TIMED_CALLS):
+            tester.evaluate(verbose=False)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms, device_ms = (time.perf_counter() - t0) * 1e3 / timed, start.elapsed_time(end) / timed
+        counts = launch_counts()
+        check(counts == launches(TESTER_EVAL, timed), f"Tester timed launch counts {counts}")
+        add_counts(total, counts)
+        print(f"Tester subject {sid}: {n} held-out rows in {batches} batch; launches "
+              f"{TESTER_EVAL} a batch; evaluate {host_ms:.3f} ms per batch (host clock, "
+              f"{TIMED_CALLS} calls, each with its read-back), {device_ms:.3f} by CUDA events "
+              f"({smi})")
+        rows = (0, n // 2, n - 1)
+        singles, _, counts = counted(
+            lambda: [tester.predict_single({k: test.arrays[k][i].cpu().numpy()
+                                            for k in ("eeg", "eye", "pps")}) for i in rows],
+            launches(TESTER_EVAL, len(rows)), f"predict_single subject {sid}")
+        add_counts(total, counts)
+        err = max(float(np.abs(one[head]["probabilities"] - res[head]["probabilities"][i]).max())
+                  for i, one in zip(rows, singles) for head in ("arousal", "valence"))
+        print(f"predict_single subject {sid}, rows {rows} at B=1: probabilities against "
+              f"evaluate's max |diff| {err:.3e} (limit {PREDICT_ATOL}); launches {TESTER_EVAL} "
+              f"a row")
+        check(err <= PREDICT_ATOL, f"predict_single subject {sid} parts from evaluate")
+    return total
+
+
+def trainer_checkpoint(trainer: Trainer, full: DeviceDataset, tmp: str, smi: str) -> dict:
+    """``Trainer``'s full state into a fresh trainer, bit-equal, and
+    ``test_with_loaded_model`` of its ``best_model.pt`` against
+    ``trainer.test()``. Returns the launch counts."""
+    total = {name: 0 for name in KERNELS}
+    evals = -(-len(trainer.test_data) // BATCH)
+    fresh, mb, save_s, restore_s = saved_and_restored(
+        trainer, os.path.join(tmp, "trainer_state.pt"), lambda: make_trainer(full))
+    a, b = trainer.optimizer.state_dict(), fresh.optimizer.state_dict()
+    same = {
+        "model": not differing(trainer.model.state_dict(), fresh.model.state_dict()),
+        "contrastive weight": torch.equal(trainer.contrastive_weight, fresh.contrastive_weight),
+        "AdamW": a["param_groups"] == b["param_groups"] and all(
+            torch.equal(v, b["state"][k][name]) for k, st in a["state"].items()
+            for name, v in st.items()),
+        "generators": (torch.equal(trainer.generator.get_state(), fresh.generator.get_state())
+                       and trainer.host_rng.bit_generator.state
+                       == fresh.host_rng.bit_generator.state),
+        "schedules and histories": (trainer.scheduler, trainer.early, trainer.train_loss,
+                                    trainer.test_loss) == (fresh.scheduler, fresh.early,
+                                                           fresh.train_loss, fresh.test_loss),
+    }
+    print(f"Trainer save_state: {mb:.1f} MB, saved in {save_s:.3f} s, restored in "
+          f"{restore_s:.3f} s (host clock) ({smi}); bit-equal: {same}")
+    check(all(same.values()), f"Trainer restore is not bit-equal: {same}")
+    del fresh
+    trainer.checkpoint_dir = tmp
+    trainer._save("best_model.pt")
+    want, _, counts = counted(trainer.test, launches(PER_EVAL, evals), "Trainer test")
+    add_counts(total, counts)
+    other = make_trainer(full)  # its own init; the trainer-level weight is no part of the file
+    with torch.no_grad():
+        other.contrastive_weight.copy_(trainer.contrastive_weight)
+    got, seconds, counts = counted(
+        lambda: other.test_with_loaded_model(os.path.join(tmp, "best_model.pt")),
+        launches(PER_EVAL, evals), "test_with_loaded_model")
+    add_counts(total, counts)
+    err = max(abs(g - w) for g, w in zip(got, want))
+    print(f"test_with_loaded_model(best_model.pt) on a fresh trainer: {got} against "
+          f"trainer.test() {want}, max |diff| {err:.3e} (limit {CKPT_ATOL}); {seconds:.3f} s "
+          f"with the load ({smi})")
+    check(err <= CKPT_ATOL, "test_with_loaded_model parts from trainer.test()")
+    del other
+    return total
+
+
+def phased_checkpoint(vp: VectorizedPhasedTrainer, mt: MultiTaskTrainer, full: DeviceDataset,
+                      tmp: str, smi: str) -> dict:
+    """The phased trainers' full state into fresh trainers (another seed for
+    the one-subject trainer), bit-equal, then one ``fusion_arousal`` epoch
+    of each pair (launches the curriculum's, losses within RESUME_RTOL);
+    ``save_checkpoints``' 24 files, each loaded strictly. Returns the launch
+    counts."""
+    total = {name: 0 for name in KERNELS}
+    steps, evals = -(-vp.train_idx.shape[1] // BATCH), -(-vp.ex_nums // BATCH)
+    fresh, mb, save_s, restore_s = saved_and_restored(
+        vp, os.path.join(tmp, "phased_state.pt"), lambda: make_phased_trainer(full))
+    lanes = lambda t: {f"{ph}.{k}": v for ph, d in t._phase_sched.items() for k, v in d.items()}
+    arrays = lambda t: [a for d in t.metrics.values() for v in d.values() for a in v] + [
+        t._last_test[k] for k in sorted(t._last_test)]
+    same = {
+        "rows": not differing({"params": vp.params, "stats": vp.stats},
+                              {"params": fresh.params, "stats": fresh.stats}),
+        "generators": (torch.equal(vp.generator.get_state(), fresh.generator.get_state())
+                       and [r.bit_generator.state for r in vp.host_rngs]
+                       == [r.bit_generator.state for r in fresh.host_rngs]),
+        "lanes": vp._phase_epochs == fresh._phase_epochs and lanes(vp).keys() == lanes(
+            fresh).keys() and not differing(lanes(vp), lanes(fresh)),
+        "metrics": len(arrays(vp)) == len(arrays(fresh)) and all(
+            x.dtype == y.dtype and np.array_equal(x, y)
+            for x, y in zip(arrays(vp), arrays(fresh))),
+    }
+    print(f"phased save_state: {mb:.1f} MB, saved in {save_s:.3f} s, restored in "
+          f"{restore_s:.3f} s (host clock) ({smi}); bit-equal: {same}")
+    check(all(same.values()), f"phased restore is not bit-equal: {same}")
+    losses = []
+    for label, t in (("saved", vp), ("restored", fresh)):
+        _, seconds, counts = counted(lambda: t.run_phase("fusion_arousal", 1),
+                                     phased_expected("fusion_arousal", 1, steps, evals),
+                                     f"phased {label} trainer's epoch")
+        add_counts(total, counts)
+        losses.append(t.metrics["train"]["loss"][-1])
+        print(f"phased {label} trainer, one fusion_arousal epoch: {seconds:.3f} s with the "
+              f"evaluation ({smi})")
+    resumed_gap("phased resume", losses, smi)
+    del fresh
+    paths, seconds = synced(lambda: vp.save_checkpoints(os.path.join(tmp, "subjects")))
+    model = MultimodalTransformerModel(feat_dim=256, device=full.device)
+    for sid, path in enumerate(paths):
+        model.load_state_dict(torch.load(path, map_location=full.device, weights_only=True),
+                              strict=True)
+        check(not differing(model.state_dict(), vp.subject_variables(sid)),
+              f"subject {sid}'s checkpoint does not hold its model")
+    shutil.rmtree(os.path.join(tmp, "subjects"))
+    print(f"phased save_checkpoints: {len(paths)} files in {seconds:.3f} s ({smi}), e.g. "
+          f"{os.path.basename(paths[0])}; each loads strictly into MultimodalTransformerModel "
+          f"and holds its subject's model")
+    check(len(paths) == N_SUBJECTS, f"save_checkpoints wrote {len(paths)} files")
+
+    m_steps = -(-len(mt.train_data) // BATCH)
+    m_evals = -(-len(mt.test_data) // BATCH)
+    fresh, mb, save_s, restore_s = saved_and_restored(
+        mt, os.path.join(tmp, "multitask_state.pt"),
+        lambda: make_multitask_trainer(full, fused=True, seed=SEED + 1))
+    same = {
+        "model": not differing(mt.model.state_dict(), fresh.model.state_dict()),
+        "generators": (torch.equal(mt.generator.get_state(), fresh.generator.get_state())
+                       and mt.host_rng.bit_generator.state == fresh.host_rng.bit_generator.state),
+        "schedulers, metrics, test_person": (mt.schedulers, mt.metrics, mt.test_person)
+                                           == (fresh.schedulers, fresh.metrics, fresh.test_person),
+    }
+    print(f"MultiTaskTrainer save_state: {mb:.1f} MB, saved in {save_s:.3f} s, restored into a "
+          f"trainer of another seed in {restore_s:.3f} s (host clock) ({smi}); bit-equal: {same}")
+    check(all(same.values()), f"MultiTaskTrainer restore is not bit-equal: {same}")
+    losses = []
+    for label, t in (("saved", mt), ("restored", fresh)):
+        _, seconds, counts = counted(lambda: t.run(0, 0, 0, 1, 0, save=False, plot=False),
+                                     phased_expected("fusion_arousal", 1, m_steps, m_evals),
+                                     f"MultiTaskTrainer {label} epoch")
+        add_counts(total, counts)
+        losses.append([t.metrics["train"]["loss"][-1]])
+    resumed_gap("MultiTaskTrainer resume", losses, smi)
+    del fresh
+    return total
+
+
+def checkpoints_phase(trainer: Trainer, vt: VectorizedLOSOTrainer, vp: VectorizedPhasedTrainer,
+                      mt: MultiTaskTrainer, full: DeviceDataset, smi: str) -> dict:
+    """Full-state save and restore of the four trainers the earlier phases
+    built, the Tester on two LOSO subjects' saved models, and
+    ``test_with_loaded_model``. Returns the launch counts."""
+    t0 = time.perf_counter()
+    total = {name: 0 for name in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for part in (lambda: loso_checkpoint(vt, full, tmp, smi),
+                     lambda: tester_checkpoint(vt, full, tmp, smi),
+                     lambda: trainer_checkpoint(trainer, full, tmp, smi),
+                     lambda: phased_checkpoint(vp, mt, full, tmp, smi)):
+            add_counts(total, part())
+            gc.collect()
+            torch.cuda.empty_cache()
+    found = {m: importlib.util.find_spec(m) is not None for m in ("sklearn", "matplotlib",
+                                                                   "pandas")}
+    print(f"importable on this machine (the phase uses none of them): {found}")
+    print(f"checkpoints phase: {time.perf_counter() - t0:.1f} s wall ({smi})")
     return total
 
 
@@ -2870,12 +3212,14 @@ def main() -> int:
     schedule_gradient_parity(full)
     loso_bf16_counts, vt16 = loso_bf16_phase(full, loso)
     b512_counts = loso_b512_phase(full)
-    phased_counts = phased_phase(full, args.profile)
+    phased_counts, vp, mt = phased_phase(full, args.profile)
     simclr_counts = simclr_phase(full, args.profile)
     memhacl_counts, (encoder, projector, classifier), (emotion, train, val) = memhacl_phase(
         device)
     memhacl_bf16_counts = memhacl_bf16_phase(encoder, classifier, val)
     attention_counts, mha, x_attn = attention_phase(device)
+    checkpoint_counts = checkpoints_phase(trainer, vt, vp, mt, full, smi)
+    del vp, mt
     if args.profile:
         profile_window("train epoch", lambda: trainer.train_epoch(EPOCHS + 1), show=("cscan",))
         profile_window("LOSO train epoch", vt.train_epoch, top=30, show=("cscan", "stem_tail"),
@@ -2894,7 +3238,7 @@ def main() -> int:
 
     phases = (serve_counts, serve_bf16_counts, serve_v5_counts, train_counts, loso["counts"],
               schedule_counts, loso_bf16_counts, b512_counts, phased_counts, simclr_counts,
-              memhacl_counts, memhacl_bf16_counts, attention_counts)
+              memhacl_counts, memhacl_bf16_counts, attention_counts, checkpoint_counts)
     counts = {name: sum(c[name] for c in phases) for name in KERNELS}
     gen = torch.Generator(device=device).manual_seed(SEED)
     torch.set_grad_enabled(False)  # plain versions must not record autograd graphs

@@ -15,15 +15,19 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/train/engine.py::Trainer``
   JAX trainer draws them, so both packages see the same batches;
 - :meth:`run`: ReduceLROnPlateau (patience 3, x0.5) on the test loss and
   early stopping (patience 5), saving the best model as a torch
-  ``state_dict`` with the reference names.
+  ``state_dict`` with the reference names;
+- :meth:`save_state` / :meth:`restore_state`: the full state (JAX
+  ``engine.py:198-256``), from which training resumes as if it had not
+  stopped; :meth:`test_with_loaded_model` re-evaluates a saved model.
 
 Dropout draws from a ``torch.Generator`` on the data's device seeded with
-``seed``. Full-state checkpoints (``save_state``, ``restore_state``) and
-``test_with_loaded_model`` wait for ROADMAP A8.
+``seed``; the stem tail's dropout seeds come from it too, so its state
+covers the kernel's masks.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -32,15 +36,20 @@ import torch.nn as nn
 
 from ..data.pipeline import DeviceDataset
 from ..ops.losses import masked_accuracy, masked_cross_entropy
+from ..utils.checkpoint import (
+    copy_state_,
+    generator_state,
+    load_checkpoint,
+    load_state_dict,
+    metrics_checkpoint_name,
+    save_checkpoint,
+    set_generator_state,
+)
 from ..utils.schedule import EarlyStopping, ReduceLROnPlateau
 from .state import RunningStatsSnapshot, clip_by_global_norm, make_adamw, set_learning_rate
 
 Metrics = tuple[float, float, float, float]  # loss, CE, contrastive, arousal accuracy
-
-
-def metrics_checkpoint_name(prefix: str, metrics: dict[str, float], suffix: str = ".pt") -> str:
-    """Metrics-encoded checkpoint file name (reference ``Trainer.py:261``)."""
-    return "_".join([prefix] + [f"{k}{v:.4f}" for k, v in metrics.items()]) + suffix
+HISTORIES = ("train_loss", "test_loss", "train_acc", "test_acc")
 
 
 class Trainer:
@@ -155,6 +164,56 @@ class Trainer:
         self.test_loss.append(out[0])
         self.test_acc.append(out[3])
         return out
+
+    # ------------------------------------------------------------------
+    # full-state checkpoint and resume
+    def save_state(self, path: str) -> str:
+        """Write the model's ``state_dict`` and the trainer-level
+        contrastive weight, the AdamW state, the dropout generator's and the
+        host generator's states, the plateau and early-stop fields and the
+        four histories."""
+        return save_checkpoint(path, {
+            "model": self.model.state_dict(),
+            "contrastive_weight": self.contrastive_weight.detach(),
+            "optimizer": self.optimizer.state_dict(),
+            "generator": generator_state(self.generator),
+            "host_rng": self.host_rng.bit_generator.state,
+            "scheduler": dataclasses.asdict(self.scheduler),
+            "early": dataclasses.asdict(self.early),
+            **{k: list(getattr(self, k)) for k in HISTORIES},
+        })
+
+    def restore_state(self, path: str) -> None:
+        """Restore :meth:`save_state`'s file, written on either device type,
+        into this trainer's tensors in place."""
+        state = load_checkpoint(path, "cpu")
+        set_generator_state(self.generator, state["generator"], "generator")
+        self.model.load_state_dict(state["model"], strict=True)
+        copy_state_(self.contrastive_weight, state["contrastive_weight"], "contrastive_weight")
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.host_rng.bit_generator.state = state["host_rng"]
+        self.scheduler = ReduceLROnPlateau(**state["scheduler"])
+        self.early = EarlyStopping(**state["early"])
+        for k in HISTORIES:
+            setattr(self, k, list(state[k]))
+
+    def test_with_loaded_model(self, model_path: str, report: bool = False) -> Metrics:
+        """Load a model checkpoint (what :meth:`run` saves: the model's
+        ``state_dict``, without the trainer-level contrastive weight) and
+        re-evaluate the test set (reference ``Trainer.py:192-243``): returns
+        ``(loss, ce, contrastive, arousal accuracy)`` and prints the same
+        summary line. ``report=True`` also prints the :class:`..eval.Tester`
+        report and writes its confusion matrices to ``checkpoint_dir``."""
+        self.model.load_state_dict(load_state_dict(model_path, self.device), strict=True)
+        loss, ce, con, acc = self._eval_metrics()
+        print(f"Test Loss: {loss:.4f}, CE Loss: {ce:.4f}, "
+              f"Contrastive Loss: {con:.4f}, Acc: {acc:.4f}")
+        if report:
+            from ..eval.tester import Tester
+
+            Tester(self.model, self.test_data).evaluate(verbose=True,
+                                                        plot_dir=self.checkpoint_dir)
+        return loss, ce, con, acc
 
     def _save(self, name: str) -> None:
         os.makedirs(self.checkpoint_dir, exist_ok=True)

@@ -29,14 +29,15 @@ re-initialised from ``torch.Generator().manual_seed(seed)`` (JAX inits its
 own parameters from ``seed``), so a subject's init is
 :class:`.vphased.VectorizedPhasedTrainer`'s for the same seed.
 
-:func:`make_phase_loss` is the one model's loss both trainers use. Not
-ported yet: ``mesh`` (batch data parallelism, ROADMAP A13) raises,
-``plot=True`` raises (``plot_progress``, ROADMAP A8), and
-``save_state``/``restore_state`` wait for ROADMAP A8.
+:func:`make_phase_loss` is the one model's loss both trainers use.
+:meth:`MultiTaskTrainer.save_state` / :meth:`~MultiTaskTrainer.restore_state`
+checkpoint the curriculum between epochs (JAX ``multitask.py:585-625``).
+Not ported yet: ``mesh`` (batch data parallelism, ROADMAP A13) raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 from typing import Callable
@@ -48,8 +49,14 @@ from torch.func import functional_call
 
 from ..data.pipeline import DeviceDataset, epoch_batch_indices
 from ..ops.losses import masked_accuracy, masked_cross_entropy
+from ..utils.checkpoint import (
+    generator_state,
+    load_checkpoint,
+    metrics_checkpoint_name,
+    save_checkpoint,
+    set_generator_state,
+)
 from ..utils.schedule import ReduceLROnPlateau
-from .engine import metrics_checkpoint_name
 from .state import (
     apply_grad_mask,
     as_dtype,
@@ -375,10 +382,8 @@ class MultiTaskTrainer:
             plot: bool = True) -> dict[str, float]:
         """Full curriculum (reference ``MultiTaskTrainer.run``, ``:556-673``);
         ``save`` writes the model's ``state_dict`` under the metrics-encoded
-        name in ``checkpoint_dir``."""
-        if plot:
-            raise NotImplementedError("plot=True needs plot_progress, not ported yet "
-                                      "(ROADMAP A8); pass plot=False")
+        name in ``checkpoint_dir``, ``plot`` the loss and accuracy curves
+        (``TestPerson{test_person}_progress.png``, needs matplotlib)."""
         test_m: dict[str, float] = {}
         for phase, epochs, title in (
             ("eeg", epochs_phase_eeg, "Phase EEGnet: contrastive training of the EEG encoder"),
@@ -396,10 +401,39 @@ class MultiTaskTrainer:
                 {"ArousalAcc": test_m.get("a_acc", 0.0), "ValenceAcc": test_m.get("v_acc", 0.0)})
             os.makedirs(self.checkpoint_dir, exist_ok=True)
             torch.save(self.model.state_dict(), os.path.join(self.checkpoint_dir, name))
+        if plot:
+            from ..eval.reporting import plot_progress
+
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
+            plot_progress(self.metrics, os.path.join(
+                self.checkpoint_dir, f"TestPerson{self.test_person}_progress.png"))
         return test_m
 
+    # ------------------------------------------------------------------
+    # checkpoint and resume between epochs: the optimizer is rebuilt every
+    # epoch in parity mode (the reference's per-epoch reset), so the model,
+    # the generators, the per-phase schedulers and the metrics are the state
     def save_state(self, path: str) -> str:
-        raise NotImplementedError("full-state checkpoints are not ported yet (ROADMAP A8)")
+        """Write the model's ``state_dict``, the dropout and host generators'
+        states, the per-phase schedulers, the metrics and ``test_person``."""
+        return save_checkpoint(path, {
+            "model": self.model.state_dict(),
+            "generator": generator_state(self.generator),
+            "host_rng": self.host_rng.bit_generator.state,
+            "schedulers": {k: dataclasses.asdict(v) for k, v in self.schedulers.items()},
+            "metrics": self.metrics,
+            "test_person": self.test_person,
+        })
 
     def restore_state(self, path: str) -> None:
-        raise NotImplementedError("full-state checkpoints are not ported yet (ROADMAP A8)")
+        """Restore :meth:`save_state`'s file in place; the next phase's
+        optimizer starts fresh (JAX: ``_opt_state = {}``)."""
+        state = load_checkpoint(path, "cpu")
+        set_generator_state(self.generator, state["generator"], "generator")
+        self.model.load_state_dict(state["model"], strict=True)
+        self.host_rng.bit_generator.state = state["host_rng"]
+        self.schedulers = {k: ReduceLROnPlateau(**v) for k, v in state["schedulers"].items()}
+        self.metrics = {split: {k: list(v) for k, v in d.items()}
+                        for split, d in state["metrics"].items()}
+        self.test_person = state["test_person"]
+        self._opt = {}

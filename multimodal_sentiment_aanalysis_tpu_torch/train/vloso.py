@@ -35,7 +35,10 @@ elementwise passes over it on the device (:mod:`.state`).
   best-checkpoint snapshots advanced on the device: nothing is read back
   to the host until the E epochs are done;
 - :meth:`evaluate`, :meth:`stop_report`, :meth:`subject_variables`,
-  :meth:`run` as in JAX.
+  :meth:`run` as in JAX;
+- :meth:`save_state` / :meth:`restore_state`: the whole vectorized state
+  (JAX ``vloso.py:630-690``), restored in place, from which training
+  resumes as if it had not stopped.
 
 Mixed precision, as in JAX: ``compute_dtype="bfloat16"`` keeps the fp32
 ``(S, N)`` master row and casts it to bf16 for each step's loss
@@ -55,7 +58,7 @@ run in fp32 on the master parameters, as JAX's ``_build_eval`` and
 ``_one_model_te_loss`` do.
 
 Not ported yet: ``mesh`` (subject sharding over devices, ROADMAP A13), which
-raises, and ``save_state``/``restore_state`` (ROADMAP A8).
+raises.
 """
 
 from __future__ import annotations
@@ -70,6 +73,13 @@ from torch.func import functional_call, grad_and_value, vmap
 from ..data.pipeline import DeviceDataset, epoch_plan_on_device
 from ..data.splits import loso_split
 from ..ops.losses import masked_accuracy, masked_cross_entropy
+from ..utils.checkpoint import (
+    copy_state_,
+    generator_state,
+    load_checkpoint,
+    save_checkpoint,
+    set_generator_state,
+)
 from ..utils.schedule import vector_schedule_init, vector_schedule_step
 from .state import (
     RowLayout,
@@ -219,6 +229,48 @@ class VectorizedLOSOTrainer:
         sd.update({n: b.clone() for n, b in self.model.named_buffers()
                    if n.endswith("num_batches_tracked")})
         return sd
+
+    def _state_tensors(self) -> dict[str, torch.Tensor]:
+        """Every tensor of the state, by name: the rows, the optimizer's
+        moments, step counts and lr lane, and with ``early_stop`` the
+        schedule lanes and the best snapshots."""
+        out = {"params": self.params, "stats": self.stats, "opt.mu": self.opt.mu,
+               "opt.nu": self.opt.nu, "opt.count": self.opt.count, "opt.lr": self.opt.lr}
+        if self.early_stop:
+            out.update({f"sched.{k}": v for k, v in self.sched.items()})
+            out.update(best_params=self.best_params, best_stats=self.best_stats)
+        return out
+
+    def save_state(self, path: str) -> str:
+        """Write all S models' parameters and BN stats, the optimizer state,
+        the dropout and plan generators, the host generator, and with
+        ``early_stop`` the schedule lanes, best snapshots and epoch count."""
+        return save_checkpoint(path, {
+            "tensors": self._state_tensors(),
+            "generator": generator_state(self.generator),
+            "plan_generator": generator_state(self.plan_generator),
+            "host_rng": self.host_rng.bit_generator.state,
+            "early_stop": self.early_stop,
+            "epochs_run": getattr(self, "_epochs_run", 0),
+        })
+
+    def restore_state(self, path: str) -> None:
+        """Restore :meth:`save_state`'s file into this trainer's tensors in
+        place (the forward's BN-stat views and the optimizer's column views
+        stay bound to them). The file must come from a trainer of the same
+        shapes, dtypes and ``early_stop``, on the same device type."""
+        state = load_checkpoint(path, "cpu")
+        if state["early_stop"] != self.early_stop:
+            raise ValueError(f"the file was saved with early_stop={state['early_stop']}, the "
+                             f"trainer has early_stop={self.early_stop}")
+        set_generator_state(self.generator, state["generator"], "generator")
+        set_generator_state(self.plan_generator, state["plan_generator"], "plan_generator")
+        saved = state["tensors"]
+        for name, t in self._state_tensors().items():
+            copy_state_(t, saved[name], name)
+        self.host_rng.bit_generator.state = state["host_rng"]
+        if self.early_stop:
+            self._epochs_run = state["epochs_run"]
 
     # ------------------------------------------------------------------
     # one model's functions, vmapped over the model axis

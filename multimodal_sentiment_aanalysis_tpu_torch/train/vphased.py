@@ -44,9 +44,12 @@ LR per subject at the phase's patience and factor) and ``early_stop`` with
 for each step's loss, inputs too; losses, metrics and BatchNorm stats stay
 fp32, and the evaluation runs in fp32 on the master row, as in JAX.
 ``rng_impl`` is accepted and recorded only: the dropout stream is the device
-generator whatever it says. Not ported yet: ``mesh`` (ROADMAP A13) raises;
-``save_state``, ``restore_state`` and ``save_checkpoints`` (ROADMAP A8)
-raise.
+generator whatever it says. :meth:`save_state` / :meth:`restore_state`
+checkpoint the curriculum at any phase boundary or between a phase's calls
+(JAX ``vphased.py:466-540``): the optimizer is built anew at each
+:meth:`run_phase_on_device`, so it is no part of the state.
+:meth:`save_checkpoints` writes each subject's model under the name the
+sequential CLI run gives it. Not ported yet: ``mesh`` (ROADMAP A13) raises.
 """
 
 from __future__ import annotations
@@ -61,6 +64,14 @@ from torch.func import functional_call, grad_and_value, vmap
 
 from ..data.pipeline import DeviceDataset, epoch_batch_indices, host_to_device
 from ..data.splits import loso_split
+from ..utils.checkpoint import (
+    copy_state_,
+    generator_state,
+    load_checkpoint,
+    metrics_checkpoint_name,
+    save_checkpoint,
+    set_generator_state,
+)
 from ..utils.schedule import vector_schedule_init, vector_schedule_step
 from .multitask import METRIC_KEYS, PHASE_ORDER, PHASES, eval_sums, make_phase_loss
 from .state import (
@@ -71,8 +82,6 @@ from .state import (
     clip_rows_by_global_norm,
     module_mask,
 )
-
-_NOT_PORTED = "full-state and per-subject checkpoints are not ported yet (ROADMAP A8)"
 
 
 class VectorizedPhasedTrainer:
@@ -368,11 +377,56 @@ class VectorizedPhasedTrainer:
         return "\n".join([f"[{phase}] early stopping: {stopped.size}/{stop.size} "
                           f"subjects stopped"] + lines)
 
+    # ------------------------------------------------------------------
+    # checkpoints
     def save_state(self, path: str) -> str:
-        raise NotImplementedError(_NOT_PORTED)
+        """Write every subject's parameters and BN stats, the dropout
+        generator, the per-subject host generators, each phase's epoch count
+        and schedule lanes, the metrics and the last phase's results."""
+        tensors = lambda d: {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()}
+        return save_checkpoint(path, {
+            "params": self.params,
+            "stats": self.stats,
+            "generator": generator_state(self.generator),
+            "host_rngs": [r.bit_generator.state for r in self.host_rngs],
+            "phase_epochs": dict(self._phase_epochs),
+            "phase_sched": self._phase_sched,
+            "metrics": {split: {k: [torch.from_numpy(np.asarray(a)) for a in v]
+                                for k, v in d.items()} for split, d in self.metrics.items()},
+            "last_test": tensors(self._last_test),
+            "last_hist": tensors(self._last_hist),
+        })
 
     def restore_state(self, path: str) -> None:
-        raise NotImplementedError(_NOT_PORTED)
+        """Restore :meth:`save_state`'s file: the rows in place (the
+        forward's BN-stat views stay bound to them), the rest as saved, the
+        lanes on this trainer's device."""
+        state = load_checkpoint(path, "cpu")
+        set_generator_state(self.generator, state["generator"], "generator")
+        copy_state_(self.params, state["params"], "params")
+        copy_state_(self.stats, state["stats"], "stats")  # also holds S to the file's
+        for rng, st in zip(self.host_rngs, state["host_rngs"]):
+            rng.bit_generator.state = st
+        self._phase_epochs = dict(state["phase_epochs"])
+        self._phase_sched = {ph: {k: v.to(self.device) for k, v in sd.items()}
+                             for ph, sd in state["phase_sched"].items()}
+        self.metrics = {split: {k: [t.numpy() for t in v] for k, v in d.items()}
+                        for split, d in state["metrics"].items()}
+        self._last_test = {k: v.numpy() for k, v in state["last_test"].items()}
+        self._last_hist = {k: v.numpy() for k, v in state["last_hist"].items()}
 
     def save_checkpoints(self, checkpoint_dir: str) -> list[str]:
-        raise NotImplementedError(_NOT_PORTED)
+        """One ``state_dict`` file per subject (:meth:`subject_variables`),
+        named as the sequential CLI run names it: ``TestPerson{sid}`` and the
+        last phase's test accuracies (the JAX names, ``.pt`` for
+        ``.msgpack``)."""
+        if not self._last_test:
+            raise ValueError("no phase has run: there are no test accuracies to name the "
+                             "checkpoints by")
+        paths = []
+        for sid in range(self.n_subjects):
+            name = metrics_checkpoint_name(
+                f"TestPerson{sid}", {"ArousalAcc": float(self._last_test["a_acc"][sid]),
+                                     "ValenceAcc": float(self._last_test["v_acc"][sid])})
+            paths.append(save_checkpoint(f"{checkpoint_dir}/{name}", self.subject_variables(sid)))
+        return paths

@@ -29,7 +29,8 @@ carried in through ``jax_import``:
   accuracies equal), the final parameters within 5 x lr and BatchNorm stats
   within 2e-4 (``STATS_ATOL``: measured 8.6e-5);
 - no EEG-encoder backward in the phases whose loss does not reach it, the
-  refusals and the checkpoint ``run(save=True)`` writes.
+  refusals, a full-state checkpoint round trip, and the checkpoint and
+  figure ``run(save=True, plot=True)`` writes.
 """
 
 import numpy as np
@@ -380,9 +381,10 @@ def test_phases_outside_the_eeg_loss_run_no_eeg_backward(monkeypatch, arrays):
 
 
 def test_refusals_and_checkpoint(arrays, tmp_path):
-    """``mesh``, ``plot=True``, fused phases without the optimizer reset
-    and full-state checkpoints raise; ``run(save=True)`` writes the model's
-    ``state_dict`` under the metrics-encoded name."""
+    """``mesh`` and fused phases without the optimizer reset raise; a
+    full-state checkpoint round trip leaves the trainer as it was;
+    ``run(save=True, plot=True)`` writes the model's ``state_dict`` under
+    the metrics-encoded name and the progress figure."""
     tr, te = loso_split(N_SUBJECTS, EX_NUMS, 0)
     full = DeviceDataset(arrays, "cpu")
     train, test = full.subset(tr), full.subset(te)
@@ -390,11 +392,10 @@ def test_refusals_and_checkpoint(arrays, tmp_path):
         MultiTaskTrainer(_model(), train, test, mesh=object())
     mt = MultiTaskTrainer(_model(), train, test, test_person=0, batch_size=BATCH, seed=0,
                           checkpoint_dir=str(tmp_path), verbose=False)
-    with pytest.raises(NotImplementedError, match="A8"):
-        mt.run(0, 0, 0, 0, 1)
-    for call in (lambda: mt.save_state("x"), lambda: mt.restore_state("x")):
-        with pytest.raises(NotImplementedError, match="A8"):
-            call()
+    before = {n: t.clone() for n, t in mt.model.state_dict().items()}
+    mt.restore_state(mt.save_state(str(tmp_path / "states" / "mt.pt")))
+    for name, t in mt.model.state_dict().items():
+        assert torch.equal(before[name], t), name
     no_reset = MultiTaskTrainer(_model(), train, test, batch_size=BATCH,
                                 reset_optimizer_each_epoch=False, fused_phases=True,
                                 verbose=False)
@@ -402,10 +403,12 @@ def test_refusals_and_checkpoint(arrays, tmp_path):
     with pytest.raises(ValueError, match="reset_optimizer_each_epoch"):
         no_reset.run_phase_fused("eeg", 1)
     assert mt.run_phase_fused("eeg", 0) == {}
-    test_m = mt.run(0, 0, 0, 0, 1, save=True, plot=False)
-    (path,) = tmp_path.iterdir()
-    assert path.name == (f"TestPerson0_ArousalAcc{test_m['a_acc']:.4f}_"
-                         f"ValenceAcc{test_m['v_acc']:.4f}.pt")
+    test_m = mt.run(0, 0, 0, 0, 1, save=True, plot=True)
+    name = f"TestPerson0_ArousalAcc{test_m['a_acc']:.4f}_ValenceAcc{test_m['v_acc']:.4f}.pt"
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        [name, "TestPerson0_progress.png", "states"])
+    assert (tmp_path / "TestPerson0_progress.png").stat().st_size > 0
+    path = tmp_path / name
     model = _model()
     model.load_state_dict(torch.load(path), strict=True)
     for name, t in mt.model.state_dict().items():

@@ -14,6 +14,9 @@
   (Adam's first steps move each weight by about lr * sign(g), so a
   gradient that is ~0 on one side can flip that sign; 5 x lr bounds a few
   such flips per weight over the 4 steps);
+- ``Trainer.test_with_loaded_model`` against the JAX ``Trainer``'s on the
+  same saved weights: the four numbers within 1e-4 relative and the same
+  summary line;
 - the NaN skip in both packages, one AdamW step against optax, the data
   copies, and the dropout sites.
 """
@@ -267,6 +270,36 @@ def test_trainer_parameters_after_training_match_jax(trainers):
     np.testing.assert_allclose(pt.contrastive_weight.detach().numpy(),
                                np.asarray(jt.params["trainer"]["contrastive_weight"]),
                                rtol=0, atol=5 * lr)
+
+
+def test_test_with_loaded_model_matches_jax(trainers, tmp_path, capsys):
+    """Both trainers re-evaluate the same saved weights (the JAX trainer's
+    own, as msgpack and as a reference-named ``.pt``): the four numbers
+    within 1e-4 relative and the same summary line. The port trainer's
+    full state is saved before and restored after, so the test leaves it as
+    it found it; ``report=True`` adds the Tester's report and figures."""
+    from multimodal_sentiment_aanalysis_tpu.utils.checkpoint import save_checkpoint
+
+    jt, pt, _ = trainers
+    variables = {"params": jt.params["model"], "batch_stats": jt.batch_stats}
+    save_checkpoint(str(tmp_path / "best_model.msgpack"), variables)
+    torch.save(state_dict_from_jax_variables(jax.tree.map(np.asarray, variables)),
+               tmp_path / "best_model.pt")
+    line = "Test Loss: {:.4f}, CE Loss: {:.4f}, Contrastive Loss: {:.4f}, Acc: {:.4f}\n"
+    pt.save_state(str(tmp_path / "state.pt"))
+    checkpoint_dir, pt.checkpoint_dir = pt.checkpoint_dir, str(tmp_path)
+    try:
+        want = jt.test_with_loaded_model(str(tmp_path / "best_model.msgpack"))
+        assert capsys.readouterr().out == line.format(*want)
+        got = pt.test_with_loaded_model(str(tmp_path / "best_model.pt"))
+        assert capsys.readouterr().out == line.format(*got)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+        assert pt.test_with_loaded_model(str(tmp_path / "best_model.pt"), report=True) == got
+        assert "precision    recall  f1-score   support" in capsys.readouterr().out
+        assert (tmp_path / "confusion_arousal.png").stat().st_size > 0
+    finally:
+        pt.checkpoint_dir = checkpoint_dir
+        pt.restore_state(str(tmp_path / "state.pt"))
 
 
 def test_nan_loss_skips_the_batch_in_both_packages(trainers):

@@ -16,7 +16,8 @@ trainers from the JAX ``VectorizedPhasedTrainer``'s stacked init
   same init, seeds and plans: metrics within 1e-4 relative, parameters
   within 5 x lr, BatchNorm stats within ``STATS_ATOL``;
 - the row form's steps run no EEG-encoder backward in the phases whose loss
-  does not reach it; the refusals; a subject's slice loads strictly;
+  does not reach it; the refusals; a subject's slice loads strictly; a
+  full-state round trip and the per-subject checkpoint files;
 - on a card (``gpu``, skipped here): each phase's launches for all models
   at once, frozen columns bit-unchanged, no host sync. The module imports
   no JAX at load, so that the card's test runs without it:
@@ -26,6 +27,7 @@ The schedule lanes and bf16 run against JAX in
 ``tests/test_torch_port_vphased_lanes.py``.
 """
 
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -195,9 +197,10 @@ def test_row_form_runs_no_eeg_backward_outside_its_phases(monkeypatch, arrays):
 
 
 def test_subject_variables_and_refusals(arrays, tmp_path):
-    """A subject's slice loads strictly into the flagship model; a mesh,
-    full-state and per-subject checkpoints raise; ``rng_impl`` is recorded;
-    a 0-epoch phase is a no-op."""
+    """A subject's slice loads strictly into the flagship model; a mesh
+    raises; a full-state checkpoint round trip leaves the state as it was
+    and ``save_checkpoints`` writes each subject's slice; ``rng_impl`` is
+    recorded; a 0-epoch phase is a no-op."""
     data = DeviceDataset(arrays, "cpu")
     pt = VectorizedPhasedTrainer(_model(), data, N_SUBJECTS, EX_NUMS, batch_size=BATCH,
                                  seed=3, rng_impl="rbg", verbose=False)
@@ -211,12 +214,16 @@ def test_subject_variables_and_refusals(arrays, tmp_path):
         VectorizedPhasedTrainer(_model(), data, N_SUBJECTS, EX_NUMS, mesh=object())
     with pytest.raises(ValueError):
         VectorizedPhasedTrainer(_model(), data, N_SUBJECTS, EX_NUMS, subject_seeds=[1, 2])
-    for call in (lambda: pt.save_state(str(tmp_path / "s")),
-                 lambda: pt.restore_state(str(tmp_path / "s")),
-                 lambda: pt.save_checkpoints(str(tmp_path))):
-        with pytest.raises(NotImplementedError, match="A8"):
-            call()
-    assert not list(tmp_path.iterdir())
+    params, stats = pt.params.clone(), pt.stats.clone()
+    pt.restore_state(pt.save_state(str(tmp_path / "s")))
+    assert torch.equal(pt.params, params) and torch.equal(pt.stats, stats)
+    paths = pt.save_checkpoints(str(tmp_path / "subjects"))
+    assert len(paths) == N_SUBJECTS and sorted(p.name for p in tmp_path.iterdir()) == [
+        "s", "subjects"]
+    for s, path in enumerate(paths):
+        assert os.path.basename(path).startswith(f"TestPerson{s}_ArousalAcc")
+        sd = torch.load(path, weights_only=True)
+        assert all(torch.equal(t, pt.subject_variables(s)[n]) for n, t in sd.items())
 
 
 # --------------------------------------------------------------------------
