@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, LOSO training, phased
 curriculum, SimCLR, ME-MHACL and attention paths, bf16 LOSO and phased training and
-bf16 serving, the BiLSTM's other kernel schedules, and the trainers'
-checkpoints and the evaluation of a saved model, on one CUDA card, and
-check them.
+bf16 serving, the BiLSTM's other kernel schedules, the trainers'
+checkpoints and the evaluation of a saved model, and the command-line
+drivers, on one CUDA card, and check them.
 
 Run from the root of a checkout, with no arguments::
 
@@ -148,7 +148,27 @@ It needs a CUDA card and exits non-zero without one. In order, it
    and one ``fusion_arousal`` epoch of each pair (losses within 1e-3
    relative), and ``save_checkpoints``' 24 files, each loaded strictly into
    the flagship; whether sklearn, matplotlib and pandas are importable (the
-   phase uses none of them);
+   phase uses none of them); then the command-line drivers (the ``cli``
+   phase): ``cli.main`` in this process at reference widths on the synthetic
+   set (24 subjects, feat_dim 256, B=64) with ``--no-plots --quiet``, the
+   counters reset just before each subcommand and read just after:
+   ``inspect``; ``vloso --fused --early-stop --epochs 2 --save-state`` and
+   ``--resume`` of that file for 1 epoch (launches exactly PER_STEP a step,
+   PER_EVAL an epoch's held-out evaluation, TESTER_EVAL for each of the two
+   final accuracies); ``single --subjects 0 --epochs 1``; ``phased
+   --vectorized --epochs 1 1 1 1 1`` and ``eval`` of the subject-0 file its
+   ``save_checkpoints`` wrote (accuracies equal to the ``Tester``'s on that
+   trainer's ``subject_variables(0)``); ``phased --subjects 0 --epochs 1 0 0 1
+   0 --history-dir``, with ``--synthetic`` and with ``--data`` of a
+   ``save_pickle`` of the same dict (accuracies equal, metrics within 1e-3
+   relative); ``simclr --vectorized`` and ``memhacl``, one pretrain and one
+   finetune epoch each; every other subcommand's launches nonzero on its
+   path's kernels (rows 1, 2, 9, 11, 12, 13 and their pieces; no InfoNCE in
+   ``simclr``; rows 1 and 2 in ``eval``; row 17 in ``memhacl``) and 0
+   elsewhere, each results JSON with the JAX payload's keys and accuracies in
+   [0, 1]; then ``python -m multimodal_sentiment_aanalysis_tpu_torch.cli
+   inspect --synthetic`` in its own process; prints each subcommand's
+   seconds and the phase's;
 8. holds every kernel against its plain PyTorch version at the shapes its
    paths give it (real activations of the first request, train batch,
    validation batch or attention input; for the S=24 cases the LOSO
@@ -233,6 +253,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -241,6 +262,7 @@ import torch.nn.functional as F
 
 from multimodal_sentiment_aanalysis_tpu_torch import (
     MultimodalTransformerModel,
+    cli,
     build_all,
     build_serving_forward,
     launch_counts,
@@ -255,6 +277,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.data import (
     make_synthetic_emotion_arrays,
     make_synthetic_hci_data,
     random_split_indices,
+    save_pickle,
     subject_ids_array,
 )
 from multimodal_sentiment_aanalysis_tpu_torch.eval import Tester
@@ -2339,6 +2362,186 @@ def checkpoints_phase(trainer: Trainer, vt: VectorizedLOSOTrainer, vp: Vectorize
 
 
 # --------------------------------------------------------------------------
+# the command-line drivers
+# --------------------------------------------------------------------------
+
+# the kernels each subcommand's path launches (rows 1, 2, 9, 11, 12 and 13 with
+# the pieces rows 1, 9 and 11 launch; row 17 in ME-MHACL's validation); all
+# others stay at 0, but the flash kernels in ME-MHACL, which launch only
+# where its attention runs above length 8 (read from the counts)
+CLI_TRAIN = ("bilstm_fwd", "stem_tail", "bilstm_cbnd", "bilstm_segbwd", "stem_tail_bwd")
+CLI_PATHS = {"inspect": (), "vloso": (*CLI_TRAIN, "infonce"), "single": (*CLI_TRAIN, "infonce"),
+             "phased": (*CLI_TRAIN, "infonce"), "simclr": CLI_TRAIN,
+             "memhacl": ("fusion_head",), "eval": ("bilstm_fwd", "stem_tail")}
+CLI_FREE = {"memhacl": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+# the JAX cli.py payloads' keys (vloso :422-431 with --early-stop, single
+# :387-388, phased :181-182 and :269-279, simclr :318-326, memhacl :476, eval
+# :493-496) and the accuracies among them
+CLI_KEYS = {"vloso": {"mean_arousal_acc", "mean_valence_acc", "per_subject_arousal",
+                      "per_subject_valence", "stop_epochs", "final_arousal_acc",
+                      "final_valence_acc"},
+            "single": {"per_subject", "mean_arousal_acc"},
+            "phased": {"per_subject", "mean_arousal_acc", "mean_valence_acc"},
+            "simclr": {"per_subject", "mean_arousal_acc", "mean_valence_acc"},
+            "memhacl": {"a_acc", "v_acc", "loss_history"},
+            "eval": {"arousal_accuracy", "valence_accuracy"}}
+CLI_ACC_KEYS = ("mean_arousal_acc", "mean_valence_acc", "per_subject_arousal",
+                "per_subject_valence", "final_arousal_acc", "final_valence_acc", "a_acc", "v_acc",
+                "test_acc", "arousal_accuracy", "valence_accuracy")
+
+
+def cli_accuracies(payload) -> list[float]:
+    """Every accuracy in a results payload, however nested."""
+    found = []
+    for key, value in payload.items():
+        if isinstance(value, dict):
+            found += cli_accuracies(value)
+        elif key in CLI_ACC_KEYS:
+            found += value if isinstance(value, list) else [value]
+    return found
+
+
+def cli_run(name: str, argv: list[str], tmp: str, expected: dict | None = None):
+    """``cli.main(argv)`` in this process with the counters reset just
+    before and read just after; checks its results JSON (the JAX keys, plain
+    numbers, accuracies finite and in [0, 1]) and its launches: ``expected``
+    exactly, else nonzero on the subcommand's path and 0 elsewhere. Returns
+    the payload (None for ``inspect``), the counts and the seconds."""
+    command = argv[0]
+    out = os.path.join(tmp, f"{name}.json")
+    argv = [*argv, "--no-plots", "--quiet", "--checkpoint-dir", os.path.join(tmp, f"ckpt_{name}")]
+    if command != "inspect":
+        argv += ["--results-json", out]
+    reset_launch_counts()
+    _, seconds = synced(lambda: cli.main(argv))
+    counts = launch_counts()
+    print(f"cli {name}: {seconds:.3f} s; launches {({k: n for k, n in counts.items() if n})}")
+    if expected is not None:
+        check(counts == expected, f"cli {name} launch counts {counts} != {expected}")
+    else:
+        path = set(with_row_kernels({k: 1 for k in CLI_PATHS[command]}))
+        missing = [k for k in path if not counts[k]]
+        stray = [k for k in KERNELS if counts[k] and k not in path
+                 and k not in CLI_FREE.get(command, ())]
+        check(not missing and not stray,
+              f"cli {name}: kernels of its path not launched {missing}, others launched {stray}")
+    if command == "inspect":
+        return None, counts, seconds
+    with open(out) as f:
+        text = f.read()
+    payload = json.loads(text)
+    check(set(payload) == CLI_KEYS[command],
+          f"cli {name}: results keys {sorted(payload)} != the JAX payload's")
+    accs = cli_accuracies(payload)
+    check(bool(accs) and all(isinstance(a, (int, float)) and 0.0 <= a <= 1.0 for a in accs),
+          f"cli {name}: accuracies not finite in [0, 1]: {accs}")
+    print(f"cli {name} results: {text[:300].replace(chr(10), ' ')}")
+    return payload, counts, seconds
+
+
+def cli_phase(device: torch.device, smi: str) -> dict:
+    """The port's CLI (``multimodal_sentiment_aanalysis_tpu_torch.cli.main``)
+    in this process at reference widths on the synthetic set (24 subjects,
+    feat_dim 256, B=64), the depth cut: each subcommand's launches by kernel,
+    its results JSON, and the entry point started as a user starts it.
+    Returns the launch counts."""
+    t0 = time.perf_counter()
+    total = {name: 0 for name in KERNELS}
+    steps = -(-(N_SUBJECTS - 1) * EX_NUMS // BATCH)  # 460 training rows a model
+    seconds = {}
+
+    def vloso_expected(epochs: int) -> dict:
+        # fused epochs with the early-stop lanes: steps and one held-out
+        # evaluation an epoch, then the best and the final accuracies
+        return {k: epochs * (steps * PER_STEP.get(k, 0) + PER_EVAL.get(k, 0))
+                + 2 * TESTER_EVAL.get(k, 0) for k in KERNELS}
+
+    vphased = []  # the vectorized phased trainer, kept where it writes its checkpoints
+    keep_save = VectorizedPhasedTrainer.save_checkpoints
+
+    def save_checkpoints(self, checkpoint_dir):
+        vphased.append(self)
+        return keep_save(self, checkpoint_dir)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        state = os.path.join(tmp, "vloso_state.pt")
+        pickle_path = os.path.join(tmp, "hci_data.pkl")
+        save_pickle(make_synthetic_hci_data(seed=42), pickle_path)  # the CLI's default seed
+        runs = [("inspect", ["inspect", "--synthetic"], None),
+                ("vloso", ["vloso", "--synthetic", "--fused", "--early-stop", "--epochs", "2",
+                           "--save-state", state], vloso_expected(2)),
+                ("vloso_resume", ["vloso", "--synthetic", "--fused", "--early-stop", "--epochs",
+                                  "1", "--resume", state], vloso_expected(1)),
+                ("single", ["single", "--synthetic", "--subjects", "0", "--epochs", "1"], None),
+                ("phased_vectorized", ["phased", "--synthetic", "--vectorized", "--epochs",
+                                       "1", "1", "1", "1", "1"], None),
+                ("phased", ["phased", "--synthetic", "--subjects", "0", "--epochs", "1", "0",
+                            "0", "1", "0", "--history-dir", os.path.join(tmp, "history")],
+                 None),
+                ("phased_data", ["phased", "--data", pickle_path, "--subjects", "0", "--epochs",
+                                 "1", "0", "0", "1", "0", "--history-dir",
+                                 os.path.join(tmp, "history")], None),
+                ("simclr_vectorized", ["simclr", "--synthetic", "--vectorized",
+                                       "--pretrain-epochs", "1", "--finetune-epochs", "1"], None),
+                ("memhacl", ["memhacl", "--synthetic", "--pretrain-epochs", "1",
+                             "--finetune-epochs", "1"], None)]
+        payloads = {}
+        with mock.patch.object(VectorizedPhasedTrainer, "save_checkpoints", save_checkpoints):
+            for name, argv, expected in runs:
+                payloads[name], counts, seconds[name] = cli_run(name, argv, tmp, expected)
+                add_counts(total, counts)
+                if name == "phased_vectorized":
+                    # eval of subject 0's file that save_checkpoints wrote
+                    ckpt = os.path.join(tmp, f"ckpt_{name}")
+                    (model_path,) = [p for p in os.listdir(ckpt) if p.startswith("TestPerson0_")]
+                    payloads["eval"], counts, seconds["eval"] = cli_run(
+                        "eval", ["eval", "--synthetic", "--subjects", "0", "--model-path",
+                                 os.path.join(ckpt, model_path)], tmp)
+                    add_counts(total, counts)
+                gc.collect()
+                torch.cuda.empty_cache()
+        print(f"cli: the vloso state file {os.path.getsize(state) / 1e6:.1f} MB; the history CSV "
+              f"{os.listdir(os.path.join(tmp, 'history'))}")
+
+    # --data of the pickle against --synthetic: the same arrays; the card's
+    # training is not bit-reproducible, so the losses within RESUME_RTOL
+    a, b = payloads["phased"], payloads["phased_data"]
+    gap = max(abs(a["per_subject"]["0"][k] - b["per_subject"]["0"][k])
+              / max(abs(a["per_subject"]["0"][k]), 1e-12) for k in a["per_subject"]["0"])
+    check(cli_accuracies(a) == cli_accuracies(b) and gap <= RESUME_RTOL,
+          f"cli phased: --data and --synthetic payloads differ: {a} / {b}")
+    print(f"cli phased: --data and --synthetic payloads equal (accuracies equal, metrics "
+          f"within {gap:.3e} relative)")
+    # eval against the Tester on the trainer's subject 0, the same weights
+    (vp,) = vphased
+    test = vp.data.subset(vp.test_idx[0])
+    model = MultimodalTransformerModel(feat_dim=256, device=device)
+    r = Tester(model, test, state_dict=vp.subject_variables(0)).evaluate(verbose=False)
+    want = {"arousal_accuracy": r["arousal"]["accuracy"],
+            "valence_accuracy": r["valence"]["accuracy"]}
+    check(payloads["eval"] == want, f"cli eval {payloads['eval']} != the Tester's {want}")
+    print(f"cli eval: accuracies equal the Tester's on subject_variables(0): {want}")
+    del vp, vphased, test, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the entry point as a user starts it, in its own process
+    cmd = [sys.executable, "-m", "multimodal_sentiment_aanalysis_tpu_torch.cli", "inspect",
+           "--synthetic"]
+    t1 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds["python -m cli inspect"] = time.perf_counter() - t1
+    check(proc.returncode == 0 and "finite-check: OK" in proc.stdout and "on cuda" in proc.stdout,
+          f"python -m ...cli inspect failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    print(f"cli python -m ... inspect --synthetic: exit 0, "
+          f"{proc.stdout.strip().splitlines()[-2]}")
+    print("cli seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+    print(f"cli phase: {time.perf_counter() - t0:.1f} s wall ({smi})")
+    return total
+
+
+# --------------------------------------------------------------------------
 # ME-MHACL: contrastive pretrain, joint finetune, the fused head
 # --------------------------------------------------------------------------
 
@@ -3220,6 +3423,7 @@ def main() -> int:
     attention_counts, mha, x_attn = attention_phase(device)
     checkpoint_counts = checkpoints_phase(trainer, vt, vp, mt, full, smi)
     del vp, mt
+    cli_counts = cli_phase(device, smi)
     if args.profile:
         profile_window("train epoch", lambda: trainer.train_epoch(EPOCHS + 1), show=("cscan",))
         profile_window("LOSO train epoch", vt.train_epoch, top=30, show=("cscan", "stem_tail"),
@@ -3238,7 +3442,8 @@ def main() -> int:
 
     phases = (serve_counts, serve_bf16_counts, serve_v5_counts, train_counts, loso["counts"],
               schedule_counts, loso_bf16_counts, b512_counts, phased_counts, simclr_counts,
-              memhacl_counts, memhacl_bf16_counts, attention_counts, checkpoint_counts)
+              memhacl_counts, memhacl_bf16_counts, attention_counts, checkpoint_counts,
+              cli_counts)
     counts = {name: sum(c[name] for c in phases) for name in KERNELS}
     gen = torch.Generator(device=device).manual_seed(SEED)
     torch.set_grad_enabled(False)  # plain versions must not record autograd graphs

@@ -23,6 +23,13 @@ runs the flash-attention kernels.
 
 Its hand-written Hopper kernels live in ``csrc/`` and are built on first
 use (:mod:`.kernels`).
+
+Users start it from the command line, ``python -m
+multimodal_sentiment_aanalysis_tpu_torch.cli`` (:mod:`.cli`: ``inspect``,
+``vloso``, ``single``, ``phased``, ``simclr``, ``memhacl``, ``eval``), on the
+card unless given ``--device cpu``; the host data layer it reads through
+(:class:`~.data.RawData`, the splits, :func:`~.data.load_data`) and
+:class:`~.config.Config` are numpy and PyTorch only.
 """
 
 from .eval import build_serving_forward

@@ -10,11 +10,19 @@ A numpy copy of ``assemble_features`` in
 3. optionally a dataset-level per-feature Z-score (``std == 0 -> 1``) or a
    min-max over the last axis;
 4. labels from ``{label_type}_label``.
+
+Beside it: :class:`DataFeatures`, the class facade over a pickle on disk;
+:func:`per_subject_zscore`; and the facial action-unit loader
+:class:`AuFeatures` with its per-group normalisation.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from .raw import RawData
 
 
 def _global_norm(features: np.ndarray) -> np.ndarray:
@@ -36,6 +44,16 @@ def minmax_normalize_lastaxis(data: np.ndarray) -> np.ndarray:
     lo = np.min(data, axis=-1, keepdims=True)
     hi = np.max(data, axis=-1, keepdims=True)
     return (data - lo) / ((hi - lo) + 1e-9)
+
+
+def per_subject_zscore(data: np.ndarray, sub_nums: int, ex_nums: int) -> np.ndarray:
+    """Per-subject Z-score over the trial axis with nan-aware statistics
+    (reference ``common/utils.py:76-95``), to remove inter-subject offsets."""
+    eps = 1e-8
+    r = data.reshape(sub_nums, ex_nums, -1)
+    means = np.nanmean(r, axis=1, keepdims=True)
+    stds = np.nanstd(r, axis=1, keepdims=True) + eps
+    return ((r - means) / stds).reshape(data.shape)
 
 
 def assemble_features(
@@ -71,3 +89,70 @@ def assemble_features(
     if not isinstance(label, np.ndarray):
         label = np.concatenate(label)
     return features, label
+
+
+def au_group_normalize(features: np.ndarray, n_au_points: int = 17,
+                       features_per_au: int = 7) -> np.ndarray:
+    """Each facial action unit's 7-feature block z-scored then min-maxed on
+    its own, in float64 (reference ``data/LoadFeatures.py:160-185``)."""
+    features = np.array(features, copy=True, dtype=np.float64)
+    for au in range(n_au_points):
+        lo, hi = au * features_per_au, (au + 1) * features_per_au
+        blk = features[:, lo:hi]
+        blk = (blk - blk.mean()) / blk.std()
+        features[:, lo:hi] = (blk - blk.min()) / (blk.max() - blk.min())
+    return features
+
+
+class AuFeatures:
+    """Facial action-unit features (reference ``data/LoadFeatures.py:145-235``):
+    per-subject ``{subject}.npy`` files under ``<data dir>/au_feature/``,
+    concatenated and NaN-scrubbed. The HCI set ships no AU files; kept for
+    the AU branch of the API."""
+
+    def __init__(self, au_data, subject_lists, data_path: str):
+        self.au_data = au_data
+        self.subject_lists = subject_lists
+        self.data_path = data_path
+        self.au_features: np.ndarray | None = None
+
+    _normalize = staticmethod(au_group_normalize)
+
+    def compute_au_features(self, feature_dir_name: str = "au_feature") -> np.ndarray:
+        au_dir = os.path.join(os.path.dirname(self.data_path), feature_dir_name)
+        if not os.path.exists(au_dir):
+            raise FileNotFoundError(f"feature directory missing: {au_dir}")
+        parts = []
+        for subject in self.subject_lists:
+            path = os.path.join(au_dir, f"{subject}.npy")
+            if not os.path.exists(path):
+                raise FileNotFoundError(f"missing file: {path}")
+            parts.append(np.load(path))
+        self.au_features = np.nan_to_num(np.concatenate(parts, axis=0))
+        return self.au_features
+
+    def get_features(self) -> np.ndarray:
+        if self.au_features is None:
+            self.au_features = self.compute_au_features()
+        return self.au_features
+
+
+class DataFeatures:
+    """:func:`assemble_features` of the pickle at ``data_path``, as
+    ``.features[modality]`` and ``.label`` (reference
+    ``data/LoadFeatures.py:24-128``)."""
+
+    def __init__(
+        self,
+        data_path: str,
+        modalities: list[str] = ("eeg", "eye", "pps"),
+        subject_lists: list[int] | None = None,
+        Norm: str | None = None,
+        label_type: str = "",
+    ):
+        self.data_path = data_path
+        self.subject_lists = subject_lists
+        self.ex_nums = 20
+        self.features, self.label = assemble_features(
+            RawData(data_path).data, modalities=list(modalities),
+            subject_lists=subject_lists, norm=Norm, label_type=label_type)

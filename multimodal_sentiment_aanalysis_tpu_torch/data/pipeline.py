@@ -46,14 +46,19 @@ def epoch_batch_indices(
 
 
 class DeviceDataset:
-    """A dict of equal-length arrays resident on ``device``."""
+    """A dict of equal-length arrays resident on ``device`` (``"cuda"``
+    means the current card, ``cuda:<index>``, where a model's parameters
+    land)."""
 
     def __init__(self, arrays: dict[str, np.ndarray], device: torch.device | str):
         lengths = {k: len(v) for k, v in arrays.items()}
         if len(set(lengths.values())) != 1:
             raise ValueError(f"arrays differ in length: {lengths}")
         self.n = next(iter(lengths.values()))
-        self.device = torch.device(device)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
         self.arrays = {k: torch.as_tensor(np.asarray(v), device=self.device)
                        for k, v in arrays.items()}
 

@@ -1,15 +1,20 @@
-"""Synthetic MAHNOB-HCI-schema dataset.
+"""Raw dataset ingest and the synthetic MAHNOB-HCI-schema dataset.
 
-A numpy copy of ``make_synthetic_hci_data`` in
-``multimodal_sentiment_aanalysis_tpu/data/raw.py``: the same seed gives the
-same arrays, bit for bit, without importing the JAX package. The real
-``hci_data.pkl`` is not distributed; its schema is ``raw_data``,
-``features`` (eeg ``(480, 32, 585)``, eye ``(24, 20, 38)``, pps
-``(24, 20, 230)``), ``arousal_label``, ``valence_label``, ``subject_list``,
-``ch_info`` and ``info``.
+Numpy copies of ``multimodal_sentiment_aanalysis_tpu/data/raw.py``
+(reference ``data/RawData.py:15-38``): the dataset ships as one pickle with
+keys ``raw_data``, ``features`` (eeg ``(480, 32, 585)``, eye ``(24, 20,
+38)``, pps ``(24, 20, 230)``), ``arousal_label``, ``valence_label``,
+``subject_list``, ``ch_info`` and ``info``; :class:`RawData` loads it on the
+host and :func:`save_pickle` writes one. The real ``hci_data.pkl`` is not
+distributed, so :func:`make_synthetic_hci_data` makes a dataset of that
+schema: the same seed gives the JAX package's arrays, bit for bit.
 """
 
 from __future__ import annotations
+
+import os
+import pickle
+from typing import Any
 
 import numpy as np
 
@@ -20,6 +25,41 @@ EEG_TIME = 585
 EYE_DIM = 38
 PPS_DIM = 230
 N_TRIALS_PER_SUBJECT = 20
+
+
+def _load_any_pickle(path: str) -> Any:
+    """Load a plain pickle, or a joblib dump (its uncompressed format is a
+    plain pickle; a compressed one needs joblib, imported only then)."""
+    try:
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    except pickle.UnpicklingError as pickle_error:
+        try:
+            import joblib
+        except ImportError as e:
+            raise RuntimeError(f"{path} is not a plain pickle, and joblib, which reads "
+                               f"compressed dumps, is not installed") from pickle_error
+        return joblib.load(path)
+
+
+class RawData:
+    """The dataset pickle as a dict, ``RawData(path).data`` (reference
+    ``data/RawData.py:15-38``)."""
+
+    def __init__(self, data_path: str):
+        self.data_path = data_path
+        self.data = self.load_data()
+
+    def load_data(self) -> dict:
+        if not os.path.exists(self.data_path):
+            raise FileNotFoundError(f"data path does not exist: {self.data_path}")
+        return _load_any_pickle(self.data_path)
+
+
+def save_pickle(data: dict, path: str) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
 
 
 def make_synthetic_hci_data(

@@ -32,6 +32,7 @@ from multimodal_sentiment_aanalysis_tpu_torch import kernels
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import attention
 from multimodal_sentiment_aanalysis_tpu_torch.models.fusion_model import init_parameters
 from multimodal_sentiment_aanalysis_tpu_torch.models.layers import MultiheadAttention
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 FLASH_SHAPES = [(128, 128), (73, 73), (64, 256), (200, 100)]
 

@@ -47,6 +47,7 @@ import torch
 
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import _build, contrastive, conv_stem_train, lstm
 from multimodal_sentiment_aanalysis_tpu_torch.train import StackedAdamW
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BF16 = torch.bfloat16
 ULP = 2.0 ** -7  # one bf16 ulp, relative to the value

@@ -49,6 +49,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.utils import (
 from multimodal_sentiment_aanalysis_tpu_torch.utils.checks import NonFiniteError
 from multimodal_sentiment_aanalysis_tpu_torch.utils.timing import timed_fresh, timed_out
 from test_torch_port_vloso import _tiny_arrays
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N_SUBJECTS, EX_NUMS, BATCH, FEAT, T_EEG = 4, 8, 8, 16, 16
 
@@ -57,17 +58,6 @@ def _model(seed: int) -> MultimodalTransformerModel:
     """The flagship at its reference dropout, initialised from ``seed``."""
     return MultimodalTransformerModel(feat_dim=FEAT, eeg_time=T_EEG,
                                       generator=torch.Generator().manual_seed(seed))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this module's tiny models: under the test
-    runner's parallel workers, every process spinning up all the cores'
-    threads for ops of a few hundred elements costs far more than it gives."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -54,6 +54,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.train import Trainer
 from multimodal_sentiment_aanalysis_tpu_torch.utils import save_checkpoint
 
 from test_torch_port_models import inputs
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 FEAT, T_EEG, N_ROWS, EVAL_BATCH = 16, 16, 37, 16
 SEEDS = (0, 1, 2)
@@ -84,17 +85,6 @@ def _variables(seed: int) -> dict:
                 m.running_mean.copy_(torch.randn(m.num_features, generator=gen) * 0.2)
                 m.running_var.copy_(torch.rand(m.num_features, generator=gen) + 0.5)
     return jax.tree.map(np.asarray, variables_from_torch_state_dict(model.state_dict()))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this module's tiny models: under the test
-    runner's parallel workers, every process spinning up all the cores'
-    threads for ops of a few hundred elements costs far more than it gives."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -53,6 +53,7 @@ from torch_flash_emulation import (
     random_qkv,
     rel,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SUB = 32  # kSub: streamed rows a sub-tile
 

@@ -49,6 +49,7 @@ from torch_flash_emulation import (
     random_qkv,
     rel,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 KEY_TILE = 64    # the default block_k: keys a tile
 

@@ -44,6 +44,7 @@ import torch
 
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import contrastive
 from torch_flash_emulation import product, tf32
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BF16 = torch.bfloat16
 FP64_REL = 1e-5  # chip_smoke.py's INFONCE_FP64_REL: of each loss

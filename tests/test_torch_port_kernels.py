@@ -23,6 +23,7 @@ import torch
 from multimodal_sentiment_aanalysis_tpu_torch import kernels
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import _build, conv_stem, conv_stem_train, lstm
 from multimodal_sentiment_aanalysis_tpu_torch.ops import rnn
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # --------------------------------------------------------------------------
 # inputs (numpy, from a seed) shared by the CPU and card tests

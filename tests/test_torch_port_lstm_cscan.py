@@ -35,6 +35,7 @@ from torch.func import grad_and_value, vmap
 
 from multimodal_sentiment_aanalysis_tpu_torch import kernels
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import lstm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BF16 = torch.bfloat16
 S, B, T, I, H = 2, 5, 7, 12, 8

@@ -40,6 +40,7 @@ from torch.func import grad_and_value, vmap
 
 from multimodal_sentiment_aanalysis_tpu_torch import kernels
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import lstm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SHAPES = {"ragged": (3, 5, 11, 12, 64), "small": (2, 8, 9, 16, 8)}
 

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import lstm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BF16 = torch.bfloat16
 ULP = 2.0 ** -7  # one bf16 ulp, relative to the value

@@ -35,6 +35,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.eval.serving import build_serving_
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import lstm
 from multimodal_sentiment_aanalysis_tpu_torch.models import MultimodalTransformerModel
 from multimodal_sentiment_aanalysis_tpu_torch.ops import rnn
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 S, B, T, I, H = 3, 5, 7, 12, 16  # ragged B and T, as in the S-axis tests
 T_KC = 11  # a T that CBNDK_ROWS does not divide into whole blocks, over two blocks

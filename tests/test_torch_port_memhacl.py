@@ -63,6 +63,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.train import (
     memhacl_pretrain,
 )
 from multimodal_sentiment_aanalysis_tpu_torch.train.memhacl import pretrain_views
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 F_TINY, HEADS, HIDDEN, T_TINY, B = 32, 4, 16, 64, 8
 N_ENGINE, B_ENGINE, PRETRAIN_LR = 32, 16, 1e-4

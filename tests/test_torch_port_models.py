@@ -26,6 +26,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.models import (
     state_dict_from_jax_variables,
 )
 from multimodal_sentiment_aanalysis_tpu_torch.models.layers import make_sincos_pe
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 F_TINY, T_TINY, B = 32, 64, 5
 

@@ -57,6 +57,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.train import (
     module_mask,
 )
 from test_torch_port_vloso import _tiny_arrays
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N_SUBJECTS, EX_NUMS, BATCH, FEAT, T_EEG, LR = 4, 8, 8, 16, 16, 1e-4
 CURRICULUM = (1, 1, 1, 2, 2)

@@ -46,6 +46,7 @@ import torch
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import conv_stem_train, fusion_head
 from multimodal_sentiment_aanalysis_tpu_torch.kernels._build import MAX_MODELS
 from torch_flash_emulation import split, tf32
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BF16 = torch.bfloat16
 BF16_RTOL = 2.0 ** -7  # chip_smoke.py's BF16_RTOL: one ulp of a bf16 value

@@ -26,6 +26,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.models import (
 )
 
 from test_torch_port_models import inputs, jax_variables
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 DIMS = {"tiny": (32, 64, 5), "full": (256, 585, 4)}  # feat_dim, eeg_time, batch
 

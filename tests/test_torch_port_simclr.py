@@ -50,6 +50,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.models import (
 from multimodal_sentiment_aanalysis_tpu_torch.ops import ntxent_supervised_two_view
 from multimodal_sentiment_aanalysis_tpu_torch.train import contrastive_pretrain, finetune
 from multimodal_sentiment_aanalysis_tpu_torch.train.simclr import encode_pair_view
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 F, T_EEG, B, N_SUBJECTS, EX_NUMS = 32, 64, 8, 4, 8
 PRETRAIN_LR, FINETUNE_LR, EPOCHS = 1e-4, 1e-4, 2

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import conv_stem, conv_stem_train
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 FP64_REL = 1e-5  # row 3 against fp64: chip_smoke.py's CONV_FP64_REL
 BF16_ULP = 2.0 ** -7

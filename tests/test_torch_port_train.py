@@ -49,6 +49,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.models.layers import TransformerEn
 from multimodal_sentiment_aanalysis_tpu_torch.train import Trainer
 
 from test_torch_port_models import inputs, jax_variables
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 F_TINY, T_TINY, B = 32, 64, 16
 

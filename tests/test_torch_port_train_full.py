@@ -3,6 +3,7 @@ eeg_time=585, B=8) on the CPU, port against JAX: every parameter gradient
 (rtol 1e-3, atol 1e-4) and the BatchNorm running stats after the step
 (1e-5), with the tolerances and reasons of ``test_torch_port_train.py``."""
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 from test_torch_port_train import check_gradients, check_running_stats, one_train_step
 
 

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import contrastive, conv_stem_train, lstm
 from multimodal_sentiment_aanalysis_tpu_torch.ops import rnn
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # --------------------------------------------------------------------------
 # inputs (numpy, from a seed)

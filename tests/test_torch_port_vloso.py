@@ -49,6 +49,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.utils import (
     vector_schedule_init,
     vector_schedule_step,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N_SUBJECTS, EX_NUMS, BATCH, FEAT, T_EEG, EPOCHS, LR = 4, 8, 8, 16, 16, 2, 1e-4
 # early-stop run: one learning-rate lane per model. The 1e-9 model's weights

@@ -29,6 +29,7 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import contrastive, conv_stem_train, lstm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 S, B, T, I, H = 3, 5, 7, 12, 16  # ragged B and T, as in the one-model tests
 

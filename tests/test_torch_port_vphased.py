@@ -47,6 +47,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.train import (
     MultiTaskTrainer,
     VectorizedPhasedTrainer,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N_SUBJECTS, EX_NUMS, BATCH, FEAT, T_EEG, LR = 4, 8, 8, 16, 16, 1e-4
 CURRICULUM = (1, 1, 1, 2, 2)

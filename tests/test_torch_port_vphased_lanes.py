@@ -26,6 +26,7 @@ import jax.numpy as jnp
 
 from multimodal_sentiment_aanalysis_tpu_torch.utils import vector_schedule_init
 from test_torch_port_vphased import N_SUBJECTS, _tiny_arrays, jax_pair
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ES_PHASE, ES_EPOCHS, ES_LANES = "valence", 6, np.array([1e-9, 1e-5, 1e-4, 1e-3], np.float32)
 ES_RTOL = 2e-4

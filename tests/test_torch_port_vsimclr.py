@@ -44,6 +44,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.models import (
 )
 from multimodal_sentiment_aanalysis_tpu_torch.train import VectorizedSimCLRTrainer
 from multimodal_sentiment_aanalysis_tpu_torch.train.simclr import pretrain_step
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 F, T_EEG, B, N_SUBJECTS, EX_NUMS = 32, 64, 8, 4, 8
 PRETRAIN_LR, FINETUNE_LR, EPOCHS = 1e-4, 1e-4, 2
