@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, LOSO training, phased
 curriculum, SimCLR, ME-MHACL and attention paths, bf16 LOSO and phased training and
-bf16 serving, the BiLSTM's other kernel schedules, the trainers'
+bf16 serving, the serving artifacts of ``torch.export`` and the int8
+serving forward, the BiLSTM's other kernel schedules, the trainers'
 checkpoints and the evaluation of a saved model, and the command-line
 drivers, on one CUDA card, and check them.
 
@@ -34,7 +35,27 @@ It needs a CUDA card and exits non-zero without one. In order, it
    serving); then the same requests through
    ``build_serving_forward(lstm_schedule="v5")`` (two launches of the v5
    forward per request, no other kernel), logits within 1e-4 of fp32
-   serving's;
+   serving's; then ``export_serving`` of the same model into four artifacts
+   (batch 64 with ``use_pallas=True``, batch-polymorphic fp32 and bf16,
+   batch 64 under v5), each saved to a file, loaded with ``load_serving``
+   (no launch while tracing) and run over the same 100 requests with the
+   counters reset just before: launches per request exactly the path's
+   (``bilstm_fwd`` 2, plus ``conv_stem`` 2 with ``use_pallas``;
+   ``bilstm_fwd_bf16`` 2; ``bilstm_fwd_xp`` 2), logits within 1e-5 of the
+   largest |logit| of the closure's on the same requests (bit-equality
+   printed), the polymorphic fp32 one also at batches 1, 3 and 512 and in a
+   fresh ``python3 -c`` process that imports torch and the op library
+   alone (never the port's ``models``, ``train`` or ``eval.serving``);
+   export seconds, artifact MB, the loaded ms/batch beside the closure's,
+   and the ops' dispatch cost (host us per call through each op against its
+   CUDA implementation called directly);
+   then ``build_quantized_serving_forward`` with fp32 and with bf16 glue
+   over the same requests and a request each of 16 and 17 rows: two
+   launches of row 1's recurrence (``bilstm_rec``, ``bilstm_rec_bf16``) a
+   request and no other kernel, logits against fp32 serving at the JAX
+   package's bar (max gap 0.1 of the largest |logit|, argmax agreement
+   0.9), the 16-row request against the CPU plain int8 path at the CPU
+   tests' bar, ms/batch;
 3. training: the synthetic MAHNOB-HCI set (480 trials, Z-scored) on the
    card, ``loso_split`` with subject 0 held out (460 train, 20 test); a
    full-width flagship from the seeded generator at the reference dropout
@@ -162,7 +183,10 @@ It needs a CUDA card and exits non-zero without one. In order, it
    0 --history-dir``, with ``--synthetic`` and with ``--data`` of a
    ``save_pickle`` of the same dict (accuracies equal, metrics within 1e-3
    relative); ``simclr --vectorized`` and ``memhacl``, one pretrain and one
-   finetune epoch each; every other subcommand's launches nonzero on its
+   finetune epoch each; ``export --synthetic`` (no launch while tracing,
+   the payload's byte count the file's size, the artifact at B=64 against
+   ``build_serving_forward`` of the seeded flagship within 1e-5 of the
+   largest |logit|, row 1 twice); every other subcommand's launches nonzero on its
    path's kernels (rows 1, 2, 9, 11, 12, 13 and their pieces; no InfoNCE in
    ``simclr``; rows 1 and 2 in ``eval``; row 17 in ``memhacl``) and 0
    elsewhere, each results JSON with the JAX payload's keys and accuracies in
@@ -280,7 +304,12 @@ from multimodal_sentiment_aanalysis_tpu_torch.data import (
     save_pickle,
     subject_ids_array,
 )
-from multimodal_sentiment_aanalysis_tpu_torch.eval import Tester
+from multimodal_sentiment_aanalysis_tpu_torch.eval import (
+    Tester,
+    build_quantized_serving_forward,
+    export_serving,
+    load_serving,
+)
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import (
     attention,
     contrastive,
@@ -441,6 +470,18 @@ CKPT_ATOL = 1e-5     # test_with_loaded_model against trainer.test() on the same
 RESUME_RTOL = 1e-3
 # bf16 serving against fp32 serving: the JAX package's bar (tests/test_serving.py)
 SERVE_BF16_TOL, SERVE_BF16_ARGMAX = 0.1, 0.9
+# a loaded artifact against its closure on the same requests, over the
+# largest |logit|: the same ops in the same order
+EXPORT_REL = 1e-5
+# the polymorphic artifact's other batches (the pool rows drawn with replacement)
+EXPORT_BATCHES = (1, 3, 512)
+# the int8 forward against the CPU plain int8 path on the same rows, at the
+# CPU tests' bar (tests/test_torch_port_quantization.py): with fp32 glue
+# each row within QUANT_ROW_ATOL but at most QUANT_FLIPPED_ROWS of the rows,
+# which hold an activation code rounded the other way at a .5 and may differ
+# by QUANT_FLIPPED_REL of the largest |logit|; with bf16 glue QUANT_BF16_ATOL
+QUANT_ROW_ATOL, QUANT_FLIPPED_ROWS, QUANT_FLIPPED_REL, QUANT_BF16_ATOL = 1e-5, 0.25, 0.05, 2e-2
+QUANT_ROWS = (16, 17)  # requests of 16 rows or fewer pad torch._int_mm's rows to 17
 # the GEMM of rows 1 and 11 against its products in fp64, per mode: max
 # |err| over max |ref| (gemm_check)
 GEMM_REL = {"proj": 1e-5, "gates": 1e-5, "dx": 1e-5, "dw": 1e-5, "gates_xp": 1e-5}
@@ -686,13 +727,14 @@ def serving_phase(device: torch.device):
                   for a, v in (res[0] for res in outs.values()))
     print(f"card vs CPU plain path on 4 rows: max |diff| {cpu_err:.3e} (limit {PATH_ATOL})")
     check(cpu_err <= PATH_ATOL, "card disagrees with the CPU plain path")
-    return model, first, counts, (pool, plan, outs["serving"])
+    return model, first, counts, (pool, plan, outs)
 
 
-def serving_bf16_phase(model, pool: DeviceDataset, plan: torch.Tensor, fp32_logits: list) -> dict:
+def serving_bf16_phase(model, pool: DeviceDataset, plan: torch.Tensor,
+                       fp32_logits: list) -> tuple[dict, list]:
     """The requests through ``build_serving_forward(compute_dtype=bf16)``:
     launch counts, fp32 logits, agreement with fp32 serving. Returns the
-    path's launch counts."""
+    path's launch counts and logits."""
     fwd = build_serving_forward(model, compute_dtype=BF16)
     first = pool.gather(plan[0])
     fwd(first["eeg"], first["eye"], first["pps"])  # warm-up: bf16 cuBLAS/cuDNN handles
@@ -719,14 +761,15 @@ def serving_bf16_phase(model, pool: DeviceDataset, plan: torch.Tensor, fp32_logi
           f"{worst:.3e}, within rtol/atol {SERVE_BF16_TOL}: {excess <= 0}, argmax agreement "
           f"{agree:.4f} (the lower head; limit {SERVE_BF16_ARGMAX})")
     check(excess <= 0 and agree >= SERVE_BF16_ARGMAX, "bf16 serving disagrees with fp32 serving")
-    return counts
+    return counts, outs["serving_bf16"]
 
 
-def serving_v5_phase(model, pool: DeviceDataset, plan: torch.Tensor, fp32_logits: list) -> dict:
+def serving_v5_phase(model, pool: DeviceDataset, plan: torch.Tensor,
+                     fp32_logits: list) -> tuple[dict, list]:
     """The requests through ``build_serving_forward(lstm_schedule="v5")``:
     two launches of the v5 forward per request and no other kernel, logits
     within SCHEDULE_SERVE_ATOL of (v9) fp32 serving's. Returns the launch
-    counts."""
+    counts and the logits."""
     fwd = build_serving_forward(model, lstm_schedule="v5")
     first = pool.gather(plan[0])
     fwd(first["eeg"], first["eye"], first["pps"])  # warm-up: the projection's cuBLAS handle
@@ -746,7 +789,263 @@ def serving_v5_phase(model, pool: DeviceDataset, plan: torch.Tensor, fp32_logits
           f"{ms['serving_v5']:.4f} ms/batch (host clock around synchronised runs); logits against "
           f"v9 fp32 serving max |diff| {worst:.3e} (limit {SCHEDULE_SERVE_ATOL})")
     check(finite and worst <= SCHEDULE_SERVE_ATOL, "v5 serving disagrees with v9 serving")
-    return counts
+    return counts, outs["serving_v5"]
+
+
+def logit_gap(got: list, want: list) -> tuple[float, float, bool]:
+    """Max |diff| of two runs' logits over every request and head, the
+    largest |logit| of ``want``, and whether they are bit-equal."""
+    pairs = [(a, b) for res, ref in zip(got, want) for a, b in zip(res, ref)]
+    gap = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    scale = max(b.float().abs().max().item() for _, b in pairs)
+    return gap, scale, all(torch.equal(a, b) for a, b in pairs)
+
+
+EXPORTS = {  # artifact -> export_serving keywords, launches per request
+    "fixed64_use_pallas": (dict(batch_size=BATCH, use_pallas=True),
+                           dict(bilstm_fwd=2, conv_stem=2)),
+    "poly_fp32": (dict(), dict(bilstm_fwd=2)),
+    "poly_bf16": (dict(compute_dtype=BF16), dict(bilstm_fwd_bf16=2)),
+    "fixed64_v5": (dict(batch_size=BATCH, lstm_schedule="v5"), dict(bilstm_fwd_xp=2)),
+}
+# the fresh process: torch and the op library only, the artifact run on the
+# saved request, its gap to the closure, the modules it never imported
+FRESH_LOAD = """
+import json, sys
+import torch
+import multimodal_sentiment_aanalysis_tpu_torch.kernels.library
+from multimodal_sentiment_aanalysis_tpu_torch.kernels import launch_counts
+art, req = sys.argv[1:3]
+r = torch.load(req)
+t0 = __import__("time").perf_counter()
+module = torch.export.load(art).module()
+with torch.no_grad():
+    a, v = module(r["eeg"], r["eye"], r["pps"])
+torch.cuda.synchronize()
+p = "multimodal_sentiment_aanalysis_tpu_torch."
+print(json.dumps({
+    "seconds": __import__("time").perf_counter() - t0,
+    "gap": max((a - r["a"]).abs().max().item(), (v - r["v"]).abs().max().item()),
+    "launches": {k: n for k, n in launch_counts().items() if n},
+    "imported": sorted(n for n in sys.modules if n.startswith(
+        (p + "models", p + "train", p + "eval.serving", "jax",
+         "multimodal_sentiment_aanalysis_tpu.")))}))
+"""
+
+
+def export_phase(model, pool: DeviceDataset, plan: torch.Tensor, closures: dict,
+                 smi: str) -> dict:
+    """``torch.export`` artifacts of the serving model (``eval/export.py``):
+    each of EXPORTS exported, saved to a file and loaded back, then the
+    requests served through it with the counters reset just before
+    (launches per request exactly its path's, logits within EXPORT_REL of
+    the closure's on the same requests); the polymorphic fp32 artifact also
+    at EXPORT_BATCHES; one artifact loaded and run in a fresh process that
+    imports torch and the op library alone. Prints export seconds, artifact
+    MB and the loaded ms/batch beside the closure's. Returns the launch
+    counts of the loaded artifacts' runs."""
+    t0 = time.perf_counter()
+    total = {name: 0 for name in KERNELS}
+    first = pool.gather(plan[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (kw, per_request) in EXPORTS.items():
+            path = os.path.join(tmp, f"{name}.pt2")
+            reset_launch_counts()
+            blob, export_s = synced(lambda kw=kw, path=path: export_serving(model, path, **kw))
+            traced = {k: n for k, n in launch_counts().items() if n}
+            check(not traced, f"export {name}: tracing launched kernels {traced}")
+            fwd, load_s = synced(lambda path=path: load_serving(path))
+            fwd(first["eeg"], first["eye"], first["pps"])  # warm-up: first launches, handles
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            outs, ms = serve({name: fwd}, pool, plan)
+            counts = launch_counts()
+            expected = {k: 0 for k in KERNELS}
+            expected.update(with_row_kernels({k: n * REQUESTS for k, n in per_request.items()}))
+            check(counts == expected, f"export {name}: launch counts {counts} != {expected}")
+            add_counts(total, counts)
+            closure = build_serving_forward(model, **{k: v for k, v in kw.items()
+                                                      if k != "batch_size"})
+            _, closure_ms = serve({"closure": closure}, pool, plan)
+            gap, scale, equal = logit_gap(outs[name], closures[name])
+            check(all(a.dtype == torch.float32 and a.shape == (BATCH, 3)
+                      and bool(torch.isfinite(a).all()) for res in outs[name] for a in res),
+                  f"export {name}: logits not finite fp32 (B, 3)")
+            print(f"export {name}: {export_s:.3f} s to export, {load_s:.3f} s to load, "
+                  f"{len(blob) / 1e6:.3f} MB; {REQUESTS} requests x {BATCH}: loaded "
+                  f"{ms[name]:.4f} ms/batch, closure {closure_ms['closure']:.4f} ms/batch (host "
+                  f"clock around synchronised runs, {smi}); logits against the closure's: max "
+                  f"|diff| {gap:.3e} of scale {scale:.3e}, bit-equal {equal}; launches per "
+                  f"request {per_request}")
+            check(gap <= EXPORT_REL * scale, f"export {name}: logits disagree with the closure")
+            if name != "poly_fp32":
+                continue
+            gen = torch.Generator(device=pool.device).manual_seed(SEED + 7)
+            for b in EXPORT_BATCHES:
+                rows = pool.gather(torch.randint(0, POOL, (b,), generator=gen,
+                                                 device=pool.device))
+                args = (rows["eeg"], rows["eye"], rows["pps"])
+                reset_launch_counts()
+                got = fwd(*args)
+                counts = launch_counts()
+                check(counts == {k: 0 for k in KERNELS} | with_row_kernels({"bilstm_fwd": 2}),
+                      f"export {name} at batch {b}: launch counts {counts}")
+                add_counts(total, counts)
+                gap, scale, _ = logit_gap([got], [closure(*args)])
+                print(f"export {name} at batch {b}: max |diff| to the closure {gap:.3e} "
+                      f"of scale {scale:.3e}")
+                check(got[0].shape == (b, 3) and gap <= EXPORT_REL * scale,
+                      f"export {name} at batch {b}: logits disagree with the closure")
+            req = os.path.join(tmp, "request.pt")
+            a, v = closure(first["eeg"], first["eye"], first["pps"])
+            torch.save({**first, "a": a, "v": v}, req)
+            proc = subprocess.run([sys.executable, "-c", FRESH_LOAD, path, req],
+                                  capture_output=True, text=True, timeout=600,
+                                  cwd=os.path.dirname(os.path.abspath(__file__)))
+            check(proc.returncode == 0, f"export {name}: the fresh process failed "
+                  f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+            want = with_row_kernels({"bilstm_fwd": 2})
+            print(f"export {name} in a fresh process (torch and the op library alone): "
+                  f"{fresh}")
+            check(not fresh["imported"] and fresh["launches"] == want
+                  and fresh["gap"] <= EXPORT_REL * scale,
+                  f"export {name}: the fresh process imported {fresh['imported']}, launched "
+                  f"{fresh['launches']} (want {want}), gap {fresh['gap']}")
+    dispatch_cost(model, smi)
+    print(f"export phase: {time.perf_counter() - t0:.1f} s wall ({smi})")
+    return total
+
+
+DISPATCH_CALLS, DISPATCH_WINDOWS = 50, 3
+
+
+def dispatch_cost(model, smi: str) -> None:
+    """The custom ops' dispatch cost: host microseconds per call of each
+    serving op through its wrapper (``torch.ops.msa_torch.*``) against its
+    CUDA implementation called directly, on the same operands, at the
+    serving shape (layer 0 of the BiLSTM at B=64, S=1, and the LOSO step's
+    S=24; the first conv stage), in alternating windows of DISPATCH_CALLS
+    calls with no sync inside (the host's issue rate); the median of
+    DISPATCH_WINDOWS windows each. The launches these calls make are
+    outside every checked count."""
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    w = [t.detach() for t in lstm.stack_params(*model.eeg_net.bilstm.layer_params(0))]
+    x = torch.randn(BATCH, 146, w[0].shape[-1], device=dev, generator=gen)
+    w24 = [t.expand(24, *t.shape).contiguous() for t in w]
+    tc = model.eeg_net.temp_conv
+    scale, shift = conv_stem.fold_bn(tc[1].weight, tc[1].bias, tc[1].running_mean,
+                                     tc[1].running_var, tc[0].bias)
+    eeg = torch.randn(BATCH, 585, 32, device=dev, generator=gen)
+    cases = {
+        "bilstm_fwd S=1": (lstm.bilstm_fwd, lstm.bilstm_fwd_cuda, (x, *w)),
+        "bilstm_fwd S=24": (lstm.bilstm_fwd, lstm.bilstm_fwd_cuda,
+                            (x.expand(24, *x.shape).contiguous(), *w24)),
+        "conv_stem": (conv_stem.fused_conv_bn_gelu_pool, conv_stem.conv_stem_cuda,
+                      (eeg, tc[0].weight.detach(), scale.detach(), shift.detach(), 7, 4)),
+    }
+    with torch.no_grad():
+        for name, (op, direct, args) in cases.items():
+            times = {"op": [], "direct": []}
+            for _ in range(DISPATCH_WINDOWS):
+                for label, fn in (("op", op), ("direct", direct)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(DISPATCH_CALLS):
+                        fn(*args)
+                    times[label].append((time.perf_counter() - t0) * 1e6 / DISPATCH_CALLS)
+                    torch.cuda.synchronize()
+            med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+            print(f"dispatch {name}: host us/call through the op {med['op']:.1f}, the CUDA "
+                  f"implementation directly {med['direct']:.1f}: the op's cost "
+                  f"{med['op'] - med['direct']:.1f} us/call (median of {DISPATCH_WINDOWS} "
+                  f"windows of {DISPATCH_CALLS} calls, {smi})")
+
+
+def quantized_agreement(got: list, fp32: list) -> tuple[float, float]:
+    """The int8 logits against fp32 serving's at the JAX package's bar: the
+    largest gap over the largest |fp32 logit| and the lowest argmax
+    agreement, over both heads."""
+    rel, agree = 0.0, 1.0
+    for head in (0, 1):
+        lo = torch.cat([res[head] for res in got])
+        hi = torch.cat([res[head] for res in fp32])
+        rel = max(rel, (lo - hi).abs().max().item() / hi.abs().max().item())
+        agree = min(agree, (lo.argmax(-1) == hi.argmax(-1)).double().mean().item())
+    return rel, agree
+
+
+def quantized_phase(model, pool: DeviceDataset, plan: torch.Tensor, fp32_logits: list,
+                    smi: str) -> dict:
+    """``build_quantized_serving_forward`` (``eval/quantization.py``) with
+    fp32 and with bf16 glue over the serving requests and one request each
+    of QUANT_ROWS rows, the counters reset just before each: two launches
+    of row 1's recurrence (``bilstm_rec``, ``bilstm_rec_bf16`` for bf16
+    glue) a request and no other kernel; logits against fp32 serving at the
+    JAX package's bar (max gap at most 0.1 of the largest |logit|, argmax
+    agreement at least 0.9); the 16-row request against the CPU plain int8
+    path at the CPU tests' bar. Prints ms/batch. Returns the launch
+    counts."""
+    t0 = time.perf_counter()
+    total = {name: 0 for name in KERNELS}
+    first = pool.gather(plan[0])
+    cpu_model = copy.deepcopy(model).cpu()
+    closure = build_serving_forward(model)
+    for glue in (torch.float32, BF16):
+        label = f"int8 {str(glue).removeprefix('torch.')} glue"
+        rec = "bilstm_rec" if glue == torch.float32 else "bilstm_rec_bf16"
+        fwd = build_quantized_serving_forward(model, 256, glue)
+        fwd(first["eeg"], first["eye"], first["pps"])  # warm-up: first launches, handles
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        outs, ms = serve({label: fwd}, pool, plan)
+        counts = launch_counts()
+        expected = {k: 2 * REQUESTS if k == rec else 0 for k in KERNELS}
+        check(counts == expected, f"{label}: launch counts {counts} != {expected}")
+        add_counts(total, counts)
+        rel, agree = quantized_agreement(outs[label], fp32_logits)
+        print(f"serve {label}: {REQUESTS} requests x {BATCH}, {ms[label]:.4f} ms/batch (host "
+              f"clock around synchronised runs, {smi}); against fp32 serving: max gap "
+              f"{rel:.4f} of the largest |logit| (limit {SERVE_BF16_TOL}), argmax agreement "
+              f"{agree:.4f} (limit {SERVE_BF16_ARGMAX})")
+        check(rel <= SERVE_BF16_TOL and agree >= SERVE_BF16_ARGMAX,
+              f"{label}: disagrees with fp32 serving")
+        for b in QUANT_ROWS:
+            rows = {k: v[:b] for k, v in first.items()}
+            args = (rows["eeg"], rows["eye"], rows["pps"])
+            reset_launch_counts()
+            got = fwd(*args)
+            counts = launch_counts()
+            check(counts == {k: 2 if k == rec else 0 for k in KERNELS},
+                  f"{label} at {b} rows: launch counts {counts}")
+            add_counts(total, counts)
+            check(all(a.shape == (b, 3) and a.dtype == torch.float32
+                      and bool(torch.isfinite(a).all()) for a in got),
+                  f"{label} at {b} rows: logits not finite fp32 ({b}, 3)")
+            rel, agree = quantized_agreement([got], [closure(*args)])
+            check(rel <= SERVE_BF16_TOL and agree >= SERVE_BF16_ARGMAX,
+                  f"{label} at {b} rows: disagrees with fp32 serving ({rel}, {agree})")
+            if b != QUANT_ROWS[0]:
+                continue
+            with torch.no_grad():
+                cpu = build_quantized_serving_forward(cpu_model, 256, glue)(
+                    *(a.cpu() for a in args))
+            gaps = torch.stack([(g.cpu() - c).abs().amax(-1) for g, c in zip(got, cpu)]).amax(0)
+            scale = max(c.abs().max().item() for c in cpu)
+            flipped = (gaps > QUANT_ROW_ATOL).double().mean().item()
+            print(f"{label} at {b} rows against the CPU plain int8 path: max |diff| "
+                  f"{gaps.max().item():.3e} (scale {scale:.3e}), rows beyond "
+                  f"{QUANT_ROW_ATOL}: {flipped:.4f}")
+            if glue == torch.float32:
+                check(flipped <= QUANT_FLIPPED_ROWS
+                      and gaps.max().item() <= QUANT_FLIPPED_REL * scale,
+                      f"{label}: disagrees with the CPU plain int8 path")
+            else:
+                check(gaps.max().item() <= QUANT_BF16_ATOL,
+                      f"{label}: disagrees with the CPU plain int8 path")
+    print(f"quantized phase: {time.perf_counter() - t0:.1f} s wall ({smi})")
+    return total
 
 
 def serving_kernel_cases(model, eeg: torch.Tensor, cases: dict) -> None:
@@ -2439,6 +2738,42 @@ def cli_run(name: str, argv: list[str], tmp: str, expected: dict | None = None):
     return payload, counts, seconds
 
 
+def cli_export(device: torch.device, tmp: str, total: dict) -> float:
+    """``cli export --synthetic`` (JAX ``cli.py:499-555``): a polymorphic
+    artifact of the seeded flagship, no launch while it traces, the JAX
+    payload (its byte count the file's size); the artifact loaded and run on
+    64 rows (row 1 twice, nothing else), its logits within EXPORT_REL of
+    ``build_serving_forward`` of the same flagship. Returns its seconds."""
+    art, out = os.path.join(tmp, "serving.pt2"), os.path.join(tmp, "export.json")
+    reset_launch_counts()
+    _, seconds = synced(lambda: cli.main(["export", "--synthetic", "--output", art,
+                                          "--results-json", out, "--quiet"]))
+    traced = {k: n for k, n in launch_counts().items() if n}
+    with open(out) as f:
+        payload = json.load(f)
+    print(f"cli export: {seconds:.3f} s; results {payload}")
+    check(not traced, f"cli export: tracing launched kernels {traced}")
+    check(payload == {"artifact_bytes": os.path.getsize(art), "output": art},
+          f"cli export: results {payload} do not name the {os.path.getsize(art)}-byte file")
+    rng = np.random.default_rng(SEED + 9)
+    args = tuple(torch.as_tensor(rng.normal(size=(BATCH, *shape)).astype(np.float32),
+                                 device=device) for shape in ((32, 585), (38,), (230,)))
+    fwd = load_serving(art)
+    reset_launch_counts()
+    got = fwd(*args)
+    counts = launch_counts()
+    check(counts == {k: 0 for k in KERNELS} | with_row_kernels({"bilstm_fwd": 2}),
+          f"cli export: the artifact's launch counts {counts}")
+    add_counts(total, counts)
+    flagship = MultimodalTransformerModel(feat_dim=256, device=device,
+                                          generator=torch.Generator().manual_seed(42))
+    gap, scale, _ = logit_gap([got], [build_serving_forward(flagship)(*args)])
+    print(f"cli export: the artifact at B={BATCH} against build_serving_forward of the seeded "
+          f"flagship: max |diff| {gap:.3e} of scale {scale:.3e}")
+    check(gap <= EXPORT_REL * scale, "cli export: the artifact disagrees with the closure")
+    return seconds
+
+
 def cli_phase(device: torch.device, smi: str) -> dict:
     """The port's CLI (``multimodal_sentiment_aanalysis_tpu_torch.cli.main``)
     in this process at reference widths on the synthetic set (24 subjects,
@@ -2502,6 +2837,7 @@ def cli_phase(device: torch.device, smi: str) -> dict:
                 torch.cuda.empty_cache()
         print(f"cli: the vloso state file {os.path.getsize(state) / 1e6:.1f} MB; the history CSV "
               f"{os.listdir(os.path.join(tmp, 'history'))}")
+        seconds["export"] = cli_export(device, tmp, total)
 
     # --data of the pickle against --synthetic: the same arrays; the card's
     # training is not bit-reproducible, so the losses within RESUME_RTOL
@@ -3399,9 +3735,14 @@ def main() -> int:
     for line in stem_registers + bwd_registers + head_registers:
         print(f"ptxas {line}")
 
-    model, first, serve_counts, (pool, plan, fp32_logits) = serving_phase(device)
-    serve_bf16_counts = serving_bf16_phase(model, pool, plan, fp32_logits)
-    serve_v5_counts = serving_v5_phase(model, pool, plan, fp32_logits)
+    model, first, serve_counts, (pool, plan, serve_outs) = serving_phase(device)
+    fp32_logits = serve_outs["serving"]
+    serve_bf16_counts, bf16_logits = serving_bf16_phase(model, pool, plan, fp32_logits)
+    serve_v5_counts, v5_logits = serving_v5_phase(model, pool, plan, fp32_logits)
+    export_counts = export_phase(model, pool, plan, {
+        "fixed64_use_pallas": serve_outs["serving_use_pallas"], "poly_fp32": fp32_logits,
+        "poly_bf16": bf16_logits, "fixed64_v5": v5_logits}, smi)
+    quantized_counts = quantized_phase(model, pool, plan, fp32_logits, smi)
     full = hci_dataset(device)
     trainer = make_trainer(full)
     train_counts = training_phase(trainer)
@@ -3440,7 +3781,8 @@ def main() -> int:
             encoder, None, classifier, train, val, num_epochs=1, batch_size=MEMHACL_BATCH,
             verbose=False), show=("fusion_head",))
 
-    phases = (serve_counts, serve_bf16_counts, serve_v5_counts, train_counts, loso["counts"],
+    phases = (serve_counts, serve_bf16_counts, serve_v5_counts, export_counts, quantized_counts,
+              train_counts, loso["counts"],
               schedule_counts, loso_bf16_counts, b512_counts, phased_counts, simclr_counts,
               memhacl_counts, memhacl_bf16_counts, attention_counts, checkpoint_counts,
               cli_counts)

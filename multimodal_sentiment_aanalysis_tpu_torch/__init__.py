@@ -30,19 +30,33 @@ multimodal_sentiment_aanalysis_tpu_torch.cli`` (:mod:`.cli`: ``inspect``,
 card unless given ``--device cpu``; the host data layer it reads through
 (:class:`~.data.RawData`, the splits, :func:`~.data.load_data`) and
 :class:`~.config.Config` are numpy and PyTorch only.
+
+A trained model leaves the process as a ``state_dict`` or as a
+``torch.export`` serving artifact (:mod:`.eval.export`, ``cli export``),
+which runs with torch and the op library (:mod:`.kernels.library`) alone;
+:mod:`.eval.quantization` builds the int8 serving forward. The names below
+import their submodule on first use.
 """
 
-from .eval import build_serving_forward
-from .kernels import build_all, launch_counts, reset_launch_counts
-from .models import MultimodalTransformerModel, state_dict_from_jax_variables
-from .train import Trainer
+import importlib
 
-__all__ = [
-    "MultimodalTransformerModel",
-    "Trainer",
-    "build_all",
-    "build_serving_forward",
-    "launch_counts",
-    "reset_launch_counts",
-    "state_dict_from_jax_variables",
-]
+# name -> submodule: imported on first use (PEP 562), so that a process that
+# loads an exported artifact (``kernels.library``) imports no model code
+_LAZY = {
+    "MultimodalTransformerModel": "models",
+    "Trainer": "train",
+    "build_all": "kernels",
+    "build_serving_forward": "eval",
+    "launch_counts": "kernels",
+    "reset_launch_counts": "kernels",
+    "state_dict_from_jax_variables": "models",
+}
+
+
+def __getattr__(name: str):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
+
+
+__all__ = sorted(_LAZY)

@@ -16,7 +16,12 @@ library as the JAX one drives the JAX library:
   ``--vectorized`` (:class:`~.train.VectorizedSimCLRTrainer`);
 - ``memhacl``: the ME-MHACL pretrain and joint finetune;
 - ``eval``: a saved ``.pt``/``.pth`` model on one held-out subject
-  (:class:`~.eval.Tester`).
+  (:class:`~.eval.Tester`);
+- ``export``: a saved model (or freshly initialised weights) to a
+  ``torch.export`` serving artifact (:func:`~.eval.export.export_serving`),
+  which :func:`~.eval.export.load_serving` runs with torch and the op
+  library alone. The JAX ``--platforms`` is not taken: an artifact runs on
+  the device it was exported on (``--device``).
 
 Every subcommand takes ``--synthetic`` (the seeded dataset with the
 reference pickle's schema) or ``--data /path/to/hci_data.pkl``, and runs on
@@ -432,6 +437,38 @@ def cmd_eval(args) -> None:
                           "valence_accuracy": results["valence"]["accuracy"]})
 
 
+def cmd_export(args) -> None:
+    """Export a model to a ``torch.export`` serving artifact: the weights
+    baked into the traced program, loadable without this package's model
+    code (:func:`~.eval.export.load_serving`). ``--model-path`` is a
+    ``.pt``/``.pth`` state_dict, read as ``eval`` reads it; without it the
+    seeded fresh weights are exported (smoke mode, as in JAX). The input
+    schema is the data's shapes (``--tiny``: EEG cut to 64 steps)."""
+    from .eval.export import export_serving
+    from .utils.checkpoint import load_state_dict
+
+    device = _device(args)
+    arrays, _ = _load_arrays(args)
+    model = _flagship(args, device, args.seed)
+    if args.model_path:
+        if str(args.model_path).endswith(".msgpack"):
+            raise ValueError(f"{args.model_path} is in the JAX package's msgpack format; the "
+                             f"port loads torch .pt/.pth state_dicts")
+        model.load_state_dict(load_state_dict(args.model_path, device), strict=True)
+        print(f"loaded checkpoint {args.model_path}")
+    else:
+        print("no --model-path: exporting freshly initialized weights (smoke mode)")
+    schema = tuple((tuple(arrays[k].shape[1:]), torch.float32) for k in ("eeg", "eye", "pps"))
+    blob = export_serving(model, args.output, batch_size=args.batch_size,
+                          feat_dim=_model_kwargs(args).get("feat_dim", 256),
+                          compute_dtype=torch.bfloat16 if args.bf16 else None,
+                          input_schema=schema)
+    batch = "polymorphic" if args.batch_size is None else str(args.batch_size)
+    print(f"wrote {len(blob)} bytes to {args.output} "
+          f"(batch={batch}{', bf16' if args.bf16 else ''}, {device})")
+    _write_results(args, {"artifact_bytes": len(blob), "output": args.output})
+
+
 def cmd_inspect(args) -> None:
     """First-batch shape sanity check (reference printData.py:21-31)."""
     from .data import DeviceDataset
@@ -567,6 +604,19 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(p)
     p.add_argument("--model-path", required=True)
     p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("export", help="export a model to a torch.export serving artifact")
+    _add_common(p)
+    p.add_argument("--model-path", default=None,
+                   help="a .pt/.pth state_dict to export; freshly initialized weights if "
+                        "omitted (smoke mode)")
+    p.add_argument("--output", required=True, help="artifact file to write (e.g. serving.pt2)")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="fix the batch dim (default: batch-polymorphic, one artifact serves "
+                        "any batch size)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bake bf16-cast weights into the artifact; logits return fp32")
+    p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser("inspect", help="first-batch shape sanity check")
     _add_common(p)

@@ -15,8 +15,14 @@ functional forward:
   ``MHA(q, k, v) == out_proj(v_proj(v))``
 - the positional encoding of a length-1 sequence is its row 0
 - BatchNorm in the fusion trunk and heads folds into the preceding Linear
-- the BiLSTM runs through :func:`..ops.rnn.bilstm_layer` (the kernel on
-  CUDA)
+- the BiLSTM runs through :func:`..kernels.lstm.fused_bilstm_layer`, on
+  every device: the ops ``msa_torch::bilstm_fwd`` (``bilstm_fwd_xp`` under
+  v5), which launch the kernel on CUDA and run its plain version on the CPU,
+  so that an export holds the same graph node on both
+
+The math sits in :class:`ServingModule`, which ``torch.export`` traces
+(:mod:`.export`); :func:`build_serving_forward` calls it under
+``no_grad``.
 
 ``use_pallas`` keeps the JAX package's name for the switch to the fused
 stem kernel.
@@ -39,9 +45,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.conv_stem import fold_bn, fused_conv_bn_gelu_pool, gelu_max_pool
-from ..kernels.lstm import check_schedule
+from ..kernels.lstm import check_schedule, fused_bilstm_layer
 from ..models.layers import gelu, make_sincos_pe
-from ..ops.rnn import bilstm_layer
 
 Forward = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
                    tuple[torch.Tensor, torch.Tensor]]
@@ -84,73 +89,83 @@ def _run_trunk(layers: list, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def build_serving_forward(state_or_model: nn.Module | Mapping[str, torch.Tensor],
-                          feat_dim: int = 256, use_pallas: bool = False,
-                          compute_dtype: torch.dtype | None = None,
-                          lstm_schedule: str = "v9") -> Forward:
-    """Eval forward ``(eeg, eye, pps) -> (arousal, valence)`` from a
-    :class:`..models.MultimodalTransformerModel` or its ``state_dict``.
+class ServingModule(nn.Module):
+    """The eval forward ``(eeg, eye, pps) -> (arousal, valence)`` as a
+    module, for :func:`build_serving_forward` and for ``torch.export``
+    (:func:`.export.export_serving`).
 
-    The forward runs on the device the weights are on. ``use_pallas=True``
-    runs both EEG conv stages through the fused conv-stem kernel (fp32
-    only). ``compute_dtype`` is the dtype the forward computes in (the
-    weights' when None); the logits are fp32 when it is given.
-    ``lstm_schedule`` is the BiLSTM's kernel schedule
-    (:data:`..kernels.lstm.SCHEDULES`); under ``no_grad`` only v5's forward
-    differs from the others'.
+    The weights are read from a :class:`..models.MultimodalTransformerModel`
+    or its ``state_dict`` once, here: detached, cast to ``compute_dtype``
+    where given, BatchNorm folded. They are held as plain tensor attributes,
+    not parameters or buffers, so an export bakes them into the program as
+    constants, as the JAX export bakes its weights in. The module runs on
+    the device the weights are on (``device``); its arguments are
+    :func:`build_serving_forward`'s.
     """
-    check_schedule(lstm_schedule, compute_dtype or torch.float32)
-    if use_pallas and compute_dtype not in (None, torch.float32):
-        raise ValueError(
-            f"use_pallas=True serves fp32 only, not {compute_dtype}: the fused conv-stem "
-            "kernel has no bf16 form (the JAX package serves bf16 on the XLA stem, its "
-            "Pallas stem did not compile for packed bf16)")
-    sd = (state_or_model.state_dict() if isinstance(state_or_model, nn.Module)
-          else dict(state_or_model))
-    sd = {k: v.detach() for k, v in sd.items()}
-    if compute_dtype is not None:  # cast first, fold after: the JAX order
-        sd = {k: v.to(compute_dtype) if v.is_floating_point() else v for k, v in sd.items()}
 
-    stem = []
-    for conv, bn, padding, pool in (("0", "1", 7, 4), ("5", "6", 2, 2)):
-        w, b = _linear(sd, f"eeg_net.temp_conv.{conv}")
-        bn = f"eeg_net.temp_conv.{bn}"
-        scale, shift = fold_bn(sd[f"{bn}.weight"], sd[f"{bn}.bias"],
-                               sd[f"{bn}.running_mean"], sd[f"{bn}.running_var"], b)
-        stem.append((w, scale, shift, padding, pool))
-    lstm_layers = []
-    k = 0
-    while f"eeg_net.bilstm.weight_ih_l{k}" in sd:
-        lstm_layers.append(tuple(
-            tuple(sd[f"eeg_net.bilstm.{part}_l{k}{suffix}"]
-                  for part in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
-            for suffix in ("", "_reverse")))
-        k += 1
-    proj = sd["eye_net.proj.weight"]
-    pe0 = make_sincos_pe(feat_dim, 1, device=proj.device)[0].to(proj.dtype)
-    trunks = {name: _folded_trunk(sd, name)
-              for name in ("fusion", "arousal_head", "valence_head")}
-    heads = {name: _linear(sd, f"{name}.{4 * len(trunks[name])}")
-             for name in ("arousal_head", "valence_head")}
+    def __init__(self, state_or_model: nn.Module | Mapping[str, torch.Tensor],
+                 feat_dim: int = 256, use_pallas: bool = False,
+                 compute_dtype: torch.dtype | None = None, lstm_schedule: str = "v9"):
+        super().__init__()
+        check_schedule(lstm_schedule, compute_dtype or torch.float32)
+        if use_pallas and compute_dtype not in (None, torch.float32):
+            raise ValueError(
+                f"use_pallas=True serves fp32 only, not {compute_dtype}: the fused conv-stem "
+                "kernel has no bf16 form (the JAX package serves bf16 on the XLA stem, its "
+                "Pallas stem did not compile for packed bf16)")
+        sd = (state_or_model.state_dict() if isinstance(state_or_model, nn.Module)
+              else dict(state_or_model))
+        sd = {k: v.detach() for k, v in sd.items()}
+        if compute_dtype is not None:  # cast first, fold after: the JAX order
+            sd = {k: v.to(compute_dtype) if v.is_floating_point() else v for k, v in sd.items()}
+        self.sd = sd
+        self.use_pallas = use_pallas
+        self.compute_dtype = compute_dtype
+        self.lstm_schedule = lstm_schedule
 
-    def eeg_encoder(eeg: torch.Tensor) -> torch.Tensor:
+        self.stem = []
+        for conv, bn, padding, pool in (("0", "1", 7, 4), ("5", "6", 2, 2)):
+            w, b = _linear(sd, f"eeg_net.temp_conv.{conv}")
+            bn = f"eeg_net.temp_conv.{bn}"
+            scale, shift = fold_bn(sd[f"{bn}.weight"], sd[f"{bn}.bias"],
+                                   sd[f"{bn}.running_mean"], sd[f"{bn}.running_var"], b)
+            self.stem.append((w, scale, shift, padding, pool))
+        self.lstm_layers = []
+        k = 0
+        while f"eeg_net.bilstm.weight_ih_l{k}" in sd:
+            self.lstm_layers.append(tuple(
+                tuple(sd[f"eeg_net.bilstm.{part}_l{k}{suffix}"]
+                      for part in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+                for suffix in ("", "_reverse")))
+            k += 1
+        proj = sd["eye_net.proj.weight"]
+        self.device = proj.device
+        self.pe0 = make_sincos_pe(feat_dim, 1, device=proj.device)[0].to(proj.dtype)
+        self.trunks = {name: _folded_trunk(sd, name)
+                       for name in ("fusion", "arousal_head", "valence_head")}
+        self.heads = {name: _linear(sd, f"{name}.{4 * len(self.trunks[name])}")
+                      for name in ("arousal_head", "valence_head")}
+
+    def eeg_encoder(self, eeg: torch.Tensor) -> torch.Tensor:
+        sd = self.sd
         h = eeg.transpose(1, 2).contiguous()  # (B, T, C)
-        for w, scale, shift, padding, pool in stem:
-            if use_pallas:
+        for w, scale, shift, padding, pool in self.stem:
+            if self.use_pallas:
                 h = fused_conv_bn_gelu_pool(h, w, scale, shift, padding, pool)
             else:
                 y = F.conv1d(h.transpose(1, 2), w, padding=padding).transpose(1, 2)
                 h = gelu_max_pool(y * scale + shift, pool)
         freq = F.linear(gelu(F.linear(eeg.mean(dim=1), *_linear(sd, "eeg_net.freq_branch.0"))),
                         *_linear(sd, "eeg_net.freq_branch.2"))
-        for fwd, bwd in lstm_layers:
-            h = bilstm_layer(h, fwd, bwd, lstm_schedule)
+        for fwd, bwd in self.lstm_layers:
+            h = fused_bilstm_layer(h, fwd, bwd, schedule=self.lstm_schedule)
         fused = F.linear(torch.cat([h.mean(dim=1), freq], dim=1),
                          *_linear(sd, "eeg_net.fusion.0"))
         return gelu(_ln(sd, "eeg_net.fusion.1", fused))
 
-    def subnetwork(prefix: str, x: torch.Tensor) -> torch.Tensor:
-        h = F.linear(x, *_linear(sd, f"{prefix}.proj")) + pe0
+    def subnetwork(self, prefix: str, x: torch.Tensor) -> torch.Tensor:
+        sd = self.sd
+        h = F.linear(x, *_linear(sd, f"{prefix}.proj")) + self.pe0
         li = 0
         while f"{prefix}.transformer.layers.{li}.linear1.weight" in sd:
             lp = f"{prefix}.transformer.layers.{li}"
@@ -161,30 +176,53 @@ def build_serving_forward(state_or_model: nn.Module | Mapping[str, torch.Tensor]
             li += 1
         return _ln(sd, f"{prefix}.norm", h)
 
-    def cross_modal(prefix: str, query: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    def cross_modal(self, prefix: str, query: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+        sd = self.sd
         attn = _mha_seq1(sd, f"{prefix}.multihead_attn", value)
         gate = torch.sigmoid(F.linear(torch.cat([query, attn], dim=1),
                                       *_linear(sd, f"{prefix}.gate.0")))
         return _ln(sd, f"{prefix}.norm", gate * query + (1.0 - gate) * attn)
 
-    @torch.no_grad()
-    def forward(eeg: torch.Tensor, eye: torch.Tensor, pps: torch.Tensor):
-        if compute_dtype is not None:
-            eeg, eye, pps = (t.to(compute_dtype) for t in (eeg, eye, pps))
-        eeg_feat = eeg_encoder(eeg)
-        eye_feat = subnetwork("eye_net", eye)
-        pps_feat = subnetwork("pps_net", pps)
-        eye_enh = cross_modal("cross_attn_e2p", eeg_feat, eye_feat)
-        pps_enh = cross_modal("cross_attn_p2e", eeg_feat, pps_feat)
+    def forward(self, eeg: torch.Tensor, eye: torch.Tensor, pps: torch.Tensor):
+        if self.compute_dtype is not None:
+            eeg, eye, pps = (t.to(self.compute_dtype) for t in (eeg, eye, pps))
+        eeg_feat = self.eeg_encoder(eeg)
+        eye_feat = self.subnetwork("eye_net", eye)
+        pps_feat = self.subnetwork("pps_net", pps)
+        eye_enh = self.cross_modal("cross_attn_e2p", eeg_feat, eye_feat)
+        pps_enh = self.cross_modal("cross_attn_p2e", eeg_feat, pps_feat)
         concat = torch.cat([eeg_feat, eye_feat, pps_feat], dim=1)
-        hidden = gelu(F.linear(concat, *_linear(sd, "attention_weights.0")))
-        w = torch.softmax(F.linear(hidden, *_linear(sd, "attention_weights.2")), dim=1)
-        fused = _run_trunk(trunks["fusion"], torch.cat(
+        hidden = gelu(F.linear(concat, *_linear(self.sd, "attention_weights.0")))
+        w = torch.softmax(F.linear(hidden, *_linear(self.sd, "attention_weights.2")), dim=1)
+        fused = _run_trunk(self.trunks["fusion"], torch.cat(
             [eeg_feat * w[:, 0:1], eye_enh * w[:, 1:2], pps_enh * w[:, 2:3]], dim=1))
-        logits = tuple(F.linear(_run_trunk(trunks[name], fused), *heads[name])
+        logits = tuple(F.linear(_run_trunk(self.trunks[name], fused), *self.heads[name])
                        for name in ("arousal_head", "valence_head"))
-        if compute_dtype is not None:
+        if self.compute_dtype is not None:
             logits = tuple(t.to(torch.float32) for t in logits)
         return logits
+
+
+def build_serving_forward(state_or_model: nn.Module | Mapping[str, torch.Tensor],
+                          feat_dim: int = 256, use_pallas: bool = False,
+                          compute_dtype: torch.dtype | None = None,
+                          lstm_schedule: str = "v9") -> Forward:
+    """Eval forward ``(eeg, eye, pps) -> (arousal, valence)`` from a
+    :class:`..models.MultimodalTransformerModel` or its ``state_dict``: a
+    :class:`ServingModule` called under ``no_grad``.
+
+    The forward runs on the device the weights are on. ``use_pallas=True``
+    runs both EEG conv stages through the fused conv-stem kernel (fp32
+    only). ``compute_dtype`` is the dtype the forward computes in (the
+    weights' when None); the logits are fp32 when it is given.
+    ``lstm_schedule`` is the BiLSTM's kernel schedule
+    (:data:`..kernels.lstm.SCHEDULES`); under ``no_grad`` only v5's forward
+    differs from the others'.
+    """
+    module = ServingModule(state_or_model, feat_dim, use_pallas, compute_dtype, lstm_schedule)
+
+    @torch.no_grad()
+    def forward(eeg: torch.Tensor, eye: torch.Tensor, pps: torch.Tensor):
+        return module(eeg, eye, pps)
 
     return forward

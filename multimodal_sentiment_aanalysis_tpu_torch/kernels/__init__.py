@@ -72,11 +72,17 @@ source with the suffix ``_bf16``, which a wrapper launches for bf16 tensors
 (for the three rows' calls, a second call count). Each wrapper counts its
 launches, so a run can show which kernels, and which forms, its path went
 through (:func:`launch_counts`).
+
+Rows 1 and 4, row 1's recurrence and the conv stem are also
+``torch.library`` custom ops (:mod:`.library`: ``msa_torch::bilstm_fwd``,
+``bilstm_rec``, ``bilstm_fwd_xp``, ``conv_stem``), so that ``torch.export``
+traces the serving forward through them; their counters move in the ops'
+CUDA implementations only.
 """
 
 import torch
 
-from . import attention, contrastive, conv_stem, conv_stem_train, fusion_head, lstm
+from . import attention, contrastive, conv_stem, conv_stem_train, fusion_head, library, lstm
 from ._build import build_all, ptxas_report
 
 _BF16 = torch.bfloat16

@@ -68,26 +68,39 @@ def fused_conv_bn_gelu_pool(x: torch.Tensor, weight: torch.Tensor,
                             padding: int, pool: int) -> torch.Tensor:
     """``x (B, T, C)`` NLC, ``weight (O, C, K)`` torch layout, folded
     ``scale``/``shift (O,)`` -> ``(B, L // pool, O)`` with the conv length
-    ``L = T + 2 * padding - K + 1``.
+    ``L = T + 2 * padding - K + 1``, through the op ``msa_torch::conv_stem``
+    (:mod:`.library`).
 
     A CPU tensor takes :func:`fused_conv_bn_gelu_pool_plain`; a CUDA tensor
-    launches the kernel, or raises.
+    :func:`conv_stem_cuda`, which launches the kernel or raises. The checks
+    here read only the static dimensions (C, K, T, the pool), so a traced
+    call keeps its batch symbolic.
     """
-    if x.device.type == "cpu":
-        return fused_conv_bn_gelu_pool_plain(x, weight, scale, shift, padding, pool)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no conv-stem kernel for device {x.device}")
-    device = x.device
-    if x.dim() != 3 or weight.dim() != 3 or 0 in x.shape:
-        raise ValueError("x must be a non-empty (B, T, C) tensor and weight (O, C, K)")
-    b, t, c = x.shape
-    o, c_w, k = weight.shape
+    if x.dim() != 3 or weight.dim() != 3:
+        raise ValueError("x must be a (B, T, C) tensor and weight (O, C, K)")
+    _, t, c = x.shape
+    _, c_w, k = weight.shape
     if c_w != c:
         raise ValueError(f"weight takes {c_w} input channels, x has {c}")
     if not 1 <= pool <= TILE_M:
         raise ValueError(f"pool {pool}: the kernel takes 1 <= pool <= {TILE_M}")
     if padding < 0 or (t + 2 * padding - k + 1) // pool < 1:
         raise ValueError(f"padding {padding} and pool {pool} leave no output for T={t}, K={k}")
+    return torch.ops.msa_torch.conv_stem(x, weight, scale, shift, padding, pool)
+
+
+def conv_stem_cuda(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+                   shift: torch.Tensor, padding: int, pool: int) -> torch.Tensor:
+    """``msa_torch::conv_stem`` on the card: one launch of the kernel, or
+    raises before it on what the kernel does not take (an empty batch, more
+    than 65535 rows, more shared memory than a block has)."""
+    device = x.device
+    if 0 in x.shape:
+        raise ValueError("x must be a non-empty (B, T, C) tensor")
+    b, t, c = x.shape
+    o, _, k = weight.shape
     if smem_bytes(c, k) > _MAX_SMEM:
         raise ValueError(f"{smem_bytes(c, k)} bytes of shared memory > {_MAX_SMEM}")
     if b > 65535:

@@ -380,21 +380,26 @@ def bilstm_gemm(mode: str, x, w_ih, w_hh, bias, h_seq=None, dg=None, xp=None) ->
 
 def bilstm_fwd(x, w_ih, w_hh, bias) -> torch.Tensor:
     """The forward, row 1: ``h_seq (B, T, 2H)`` (or ``(S, B, T, 2H)``) on
-    stacked weights. A CPU tensor takes :func:`bilstm_fwd_plain`; a CUDA
-    tensor launches two kernels, or raises: the input projection
-    (:func:`bilstm_gemm` ``"proj"``) into a transient fp32 ``xp (S, B, T,
-    8H)``, then the recurrence over it (:func:`bilstm_rec`). One call
-    counts one launch of ``KERNELS[dtype]``."""
-    if x.device.type == "cpu":
-        return bilstm_fwd_plain(x, w_ih, w_hh, bias)
+    stacked weights, through the op ``msa_torch::bilstm_fwd``
+    (:mod:`.library`). A CPU tensor takes :func:`bilstm_fwd_plain`; a CUDA
+    tensor :func:`bilstm_fwd_cuda`, which launches two kernels or raises."""
     _check_device(x)
+    return torch.ops.msa_torch.bilstm_fwd(x, w_ih, w_hh, bias)
+
+
+def bilstm_fwd_cuda(x, w_ih, w_hh, bias) -> torch.Tensor:
+    """``msa_torch::bilstm_fwd`` on the card: the input projection
+    (:func:`bilstm_gemm` ``"proj"``) into a transient fp32 ``xp (S, B, T,
+    8H)``, then the recurrence over it (:func:`bilstm_rec_cuda`), or raises
+    before the first launch. One call counts one launch of
+    ``KERNELS[dtype]``."""
     (x, w_ih, w_hh, bias), one = with_models(x, w_ih, w_hh, bias)
     s, b, t, i, h = _check_layer(x, w_ih, w_hh, bias)
     _check_widths(i, h)
     cluster_plan("rec", s, b, h, x.dtype, _sm_count(x.device.index))  # raises before any launch
     xp = torch.empty(s, b, t, 8 * h, device=x.device, dtype=torch.float32)
     _gemm("proj", x, w_ih, w_hh, bias, None, None, xp)
-    out = bilstm_rec(xp, w_hh)
+    out = bilstm_rec_cuda(xp, w_hh)
     KERNELS[x.dtype].launches += 1
     return out[0] if one else out
 
@@ -411,14 +416,20 @@ def bilstm_rec(xp, w_hh) -> torch.Tensor:
     """Row 1's recurrence (``csrc/lstm_fwd.cu``): ``h_seq (B, T, 2H)`` (or
     ``(S, B, T, 2H)``, in the dtype of ``w_hh``) from the packed fp32
     projection ``xp (B, T, 8H)`` (``[fwd | bwd]`` in actual time) and
-    ``w_hh (2, 4H, H)``. One cluster of C CTAs per (model, direction, batch
+    ``w_hh (2, 4H, H)``, through the op ``msa_torch::bilstm_rec``
+    (:mod:`.library`). One cluster of C CTAs per (model, direction, batch
     tile), each CTA holding its units' rows of ``W_hh`` in shared memory for
     the whole sweep and exchanging h through distributed shared memory
     (:func:`cluster_plan`). A CPU tensor takes :func:`bilstm_rec_plain`; a
-    CUDA tensor launches the kernel, or raises."""
-    if xp.device.type == "cpu":
-        return bilstm_rec_plain(xp, w_hh)
+    CUDA tensor :func:`bilstm_rec_cuda`, which launches the kernel or
+    raises."""
     _check_device(xp)
+    return torch.ops.msa_torch.bilstm_rec(xp, w_hh)
+
+
+def bilstm_rec_cuda(xp, w_hh) -> torch.Tensor:
+    """``msa_torch::bilstm_rec`` on the card: one launch of the cluster
+    recurrence, or raises."""
     (xp, w_hh), one = with_models(xp, w_hh)
     if xp.dim() != 4 or 0 in xp.shape:
         raise ValueError(f"xp must be a non-empty (B, T, 8H) or (S, B, T, 8H) tensor, "
@@ -1256,15 +1267,19 @@ def bilstm_fwd_xp(xp, w_hh) -> tuple[torch.Tensor, torch.Tensor]:
     packed projection ``xp (B, T, 8H)`` (``[fwd | bwd]``, both halves in
     actual time; or ``(S, B, T, 8H)``) and ``w_hh (2, 4H, H)``. Returns
     ``h_seq (B, T, 2H)`` and the fp32 cell state ``c_seq (2, T, B, H)``
-    (each with a leading S where ``xp`` has one). fp32.
+    (each with a leading S where ``xp`` has one). fp32. Through the op
+    ``msa_torch::bilstm_fwd_xp`` (:mod:`.library`).
 
-    A CPU tensor takes :func:`bilstm_fwd_xp_plain`. A CUDA tensor launches
-    row 1's cluster recurrence (:func:`bilstm_rec`) on row 1's fp32 plan,
-    in its form that also stores c at every step, or raises: where no
-    cluster plan fits the hidden size."""
-    if xp.device.type == "cpu":
-        return bilstm_fwd_xp_plain(xp, w_hh)
+    A CPU tensor takes :func:`bilstm_fwd_xp_plain`, a CUDA tensor
+    :func:`bilstm_fwd_xp_cuda`."""
     _check_device(xp)
+    return torch.ops.msa_torch.bilstm_fwd_xp(xp, w_hh)
+
+
+def bilstm_fwd_xp_cuda(xp, w_hh) -> tuple[torch.Tensor, torch.Tensor]:
+    """``msa_torch::bilstm_fwd_xp`` on the card: row 1's cluster recurrence
+    on row 1's fp32 plan, in its form that also stores c at every step, or
+    raises: where no cluster plan fits the hidden size."""
     (xp, w_hh), one = with_models(xp, w_hh)
     s, b, t, h = _check_xp(xp, w_hh)
     h_seq = torch.empty(s, b, t, 2 * h, device=xp.device, dtype=torch.float32)

@@ -3,8 +3,9 @@
 Counterpart of ``multimodal_sentiment_aanalysis_tpu/ops/rnn.py``. Gate order
 is torch's (i, f, g, o) and the biases enter as ``b_ih + b_hh``, so the
 parameters are ``nn.LSTM``'s ``weight_ih_l{k}(_reverse)`` etc. as they are.
-:func:`lstm` and :func:`bilstm_recurrence` are plain PyTorch;
-:func:`bilstm_layer` sends a CUDA tensor to the BiLSTM kernels
+:func:`lstm` is plain PyTorch; :func:`bilstm_recurrence` is too on the CPU
+and row 1's recurrence kernel on a card; :func:`bilstm_layer` sends a CUDA
+tensor to the BiLSTM kernels
 (:func:`..kernels.lstm.fused_bilstm_layer`, forward and backward) and a CPU
 tensor down the plain path, whose gradient is autograd's, whatever the
 schedule: the schedules differ only in which kernels compute the same
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.lstm import Params, check_schedule, fused_bilstm_layer
+from ..kernels.lstm import Params, bilstm_rec, check_schedule, fused_bilstm_layer
 
 
 def _cell(gates: torch.Tensor, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -49,7 +50,17 @@ def bilstm_recurrence(xf: torch.Tensor, xb: torch.Tensor, whf: torch.Tensor,
     time-flipped reverse direction, each ``(B, T, 4H)``. Both directions
     step together with a ``(2, B, H)`` state. Returns ``(B, T, 2H)`` in
     torch's ``[forward, backward]`` order.
+
+    A CUDA tensor runs row 1's recurrence kernel
+    (:func:`..kernels.lstm.bilstm_rec`, the op ``msa_torch::bilstm_rec``)
+    over the packed fp32 projection ``[xf | xb]`` with ``xb`` flipped back
+    to actual time, ``w_hh`` in its own dtype (the kernel's bf16 form for
+    bf16 weights: fp32 arithmetic, ``h`` stored in bf16); the result is in
+    the weights' dtype. A CPU tensor steps the plain scan below.
     """
+    if xf.device.type == "cuda":
+        xp = torch.cat([xf, xb.flip(1)], dim=-1).float()
+        return bilstm_rec(xp, torch.stack([whf, whb]))
     xp = torch.stack([xf, xb])                     # (2, B, T, 4H)
     w_hh_t = torch.stack([whf, whb]).transpose(1, 2)  # (2, H, 4H)
     h = xf.new_zeros(2, xf.shape[0], whf.shape[1])

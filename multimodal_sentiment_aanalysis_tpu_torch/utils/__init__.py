@@ -1,6 +1,6 @@
 from .checkpoint import load_checkpoint, save_checkpoint, strip_module_prefix
 from .checks import checkified
-from .profiling import StepTimer, enable_nan_debugging, timed, trace
+from .profiling import StepTimer, dump_graph, enable_nan_debugging, timed, trace
 from .schedule import (
     EarlyStopping,
     ReduceLROnPlateau,
@@ -14,6 +14,7 @@ __all__ = [
     "ReduceLROnPlateau",
     "StepTimer",
     "checkified",
+    "dump_graph",
     "enable_nan_debugging",
     "load_checkpoint",
     "save_checkpoint",

@@ -8,8 +8,10 @@
   global analog of the reference's per-batch NaN guards: a backward that
   produces NaN raises, naming the forward op.
 
-The JAX module's ``dump_jaxpr`` / ``dump_hlo`` print JAX's own IR; their
-counterpart is the ``torch.export`` graph (ROADMAP A11).
+- :func:`dump_graph`: the ``torch.export`` program of a function or module
+  at example arguments, the counterpart of the JAX module's ``dump_jaxpr``
+  / ``dump_hlo``. ``dump_hlo(optimized=True)`` has none: no compiler stands
+  between the traced program and the kernels that run it.
 """
 
 from __future__ import annotations
@@ -76,6 +78,42 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class _Call(torch.nn.Module):
+    """A function as a module, for ``torch.export``."""
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def dump_graph(fn_or_module: Callable, *example_args, path: str | None = None,
+               dynamic_batch: bool = False) -> str:
+    """The text of the ``torch.export`` program of ``fn_or_module`` at the
+    example arguments: every aten op and custom op (``msa_torch::*``, the
+    kernels) with its shapes. ``dynamic_batch`` makes the leading dimension
+    of every tensor argument one symbolic batch. Written to ``path`` where
+    given."""
+    module = fn_or_module if isinstance(fn_or_module, torch.nn.Module) else _Call(fn_or_module)
+    dynamic = None
+    if dynamic_batch:
+        batch = torch.export.Dim("b")
+        dynamic = tuple({0: batch} if isinstance(a, torch.Tensor) else None
+                        for a in example_args)
+        if isinstance(module, _Call):  # its forward takes *args: one spec for the tuple
+            dynamic = (dynamic,)
+    with torch.no_grad():
+        program = torch.export.export(module, tuple(example_args), dynamic_shapes=dynamic,
+                                      strict=False)
+    text = str(program)
+    if path:
+        with open(path, "w") as f:
+            f.write(text)
+    return text
 
 
 def enable_nan_debugging(enable: bool = True) -> None:

@@ -2,8 +2,8 @@
 
 - the seven subparsers take the JAX ``cli.py``'s options (dest, flags,
   default, nargs, type, choices, action), less the TPU-only ``--platform``,
-  ``--no-compile-cache`` and ``--preflight``, plus ``--device``; ``export``
-  is not registered;
+  ``--no-compile-cache`` and ``--preflight`` (and ``export``'s
+  ``--platforms``), plus ``--device``;
 - ``_load_arrays`` bit-equal to JAX's for ``--synthetic``, ``--tiny`` and
   ``--tiny --data``;
 - each training subcommand's ``--results-json`` holds the JAX payload's keys
@@ -17,6 +17,10 @@
   one JAX CLI run here);
 - ``--dp`` and ``--device cuda`` without a card raise before any work, and
   plots without matplotlib raise before any work;
+- ``export`` (polymorphic, ``--batch-size 4``, ``--bf16``): the payload's
+  byte count is the file's size, and the artifact serves batch 5 (4 for the
+  fixed one) with the logits of ``build_serving_forward`` on the seeded
+  flagship; with ``--model-path`` a saved state_dict's logits;
 - in a subprocess with ``jax``, the JAX package, ``yaml``, ``sklearn`` and
   ``matplotlib`` made unimportable, ``main(["inspect", "--tiny", "--device",
   "cpu"])`` runs.
@@ -71,7 +75,7 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch th
 
 SEED, N_SUBJECTS, EX_NUMS, FEAT, T_EEG = 42, 3, 8, 32, 64  # --tiny
 CPU = torch.device("cpu")
-TPU_ONLY = {"platform", "no_compile_cache", "preflight"}
+TPU_ONLY = {"platform", "no_compile_cache", "preflight", "platforms"}
 # the keys of each JAX payload (JAX cli.py lines); per-subject dicts keyed
 # by the subject's index as a string
 METRICS = {"loss", "a_loss", "v_loss", "c_loss", "a_acc", "v_acc"}  # MultiTaskTrainer.evaluate
@@ -154,11 +158,12 @@ def plain(value):
 # ---------------------------------------------------------------------------
 
 def test_subcommands_are_jax_s_but_export(jax_parser):
-    assert set(subparsers(cli.build_parser())) == set(subparsers(jax_parser)) - {"export"}
+    """Every JAX subcommand, ``export`` too since it was ported."""
+    assert set(subparsers(cli.build_parser())) == set(subparsers(jax_parser))
 
 
 @pytest.mark.parametrize("command", ["inspect", "vloso", "single", "phased", "simclr",
-                                     "memhacl", "eval"])
+                                     "memhacl", "eval", "export"])
 def test_options_match_jax(jax_parser, command):
     got = options(subparsers(cli.build_parser())[command])
     want = {k: v for k, v in options(subparsers(jax_parser)[command]).items()
@@ -415,3 +420,45 @@ def test_cli_runs_without_jax_yaml_sklearn_matplotlib():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert "finite-check: OK" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# export
+# ---------------------------------------------------------------------------
+
+def _requests(b: int, seed: int) -> tuple:
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(b, 32, T_EEG, generator=g), torch.randn(b, 38, generator=g),
+            torch.randn(b, 230, generator=g))
+
+
+@pytest.mark.parametrize("flags", [(), ("--batch-size", "4"), ("--bf16",)])
+def test_export(tmp_path, flags):
+    from multimodal_sentiment_aanalysis_tpu_torch.eval import build_serving_forward, load_serving
+
+    out = tmp_path / "serving.pt2"
+    payload = run(tmp_path, "export", "export", "--output", str(out), *flags)
+    assert payload == {"artifact_bytes": out.stat().st_size, "output": str(out)}
+    x = _requests(4 if "--batch-size" in flags else 5, seed=1)
+    got = load_serving(out)(*x)
+    dtype = torch.bfloat16 if "--bf16" in flags else None
+    want = build_serving_forward(flagship(SEED).eval(), FEAT, compute_dtype=dtype)(*x)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (len(x[0]), 3)
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5)
+
+
+def test_export_of_a_saved_model(tmp_path):
+    from multimodal_sentiment_aanalysis_tpu_torch.eval import build_serving_forward, load_serving
+
+    model = flagship(7).eval()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                m.running_mean.normal_(0, 0.2, generator=torch.Generator().manual_seed(8))
+    path, out = tmp_path / "model.pt", tmp_path / "serving.pt2"
+    torch.save(model.state_dict(), path)
+    run(tmp_path, "export", "export", "--model-path", str(path), "--output", str(out))
+    x = _requests(5, seed=2)
+    for g, w in zip(load_serving(out)(*x), build_serving_forward(model, FEAT)(*x)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5)
