@@ -3,8 +3,9 @@
 curriculum, SimCLR, ME-MHACL and attention paths, bf16 LOSO and phased training and
 bf16 serving, the serving artifacts of ``torch.export`` and the int8
 serving forward, the BiLSTM's other kernel schedules, the trainers'
-checkpoints and the evaluation of a saved model, and the command-line
-drivers, on one CUDA card, and check them.
+checkpoints and the evaluation of a saved model, the command-line
+drivers, and the DSP, EEG features and electrode graph, on one CUDA card,
+and check them.
 
 Run from the root of a checkout, with no arguments::
 
@@ -19,7 +20,23 @@ It needs a CUDA card and exits non-zero without one. In order, it
    per source, all at once, and beside them prints ptxas's registers and
    spills of each instantiation of the three flash kernels (``nvcc -Xptxas
    -v``), failing if a backward form at D <= 64 spills, and of the stem
-   tail's forward (its four forms) and the serving conv stem;
+   tail's forward (its four forms) and the serving conv stem; then the
+   ``dsp`` phase (``ops.dsp``, ``ops.features``, ``ops.graph``): prints
+   scipy's version; on the synthetic MAHNOB-HCI raw EEG stack (480 x 32 x
+   585, ``make_synthetic_hci_data()["raw_data"]["eeg"]``) with the counters
+   reset just before, ``butterworth_filter(x, 256, 1, 70)``, the 60 Hz
+   notch of each (585, 32) trial along axis 0 through
+   ``batched(filter_data_notch, 60, 5, fs=256)``, ``batched`` time-domain
+   (480, 128) and frequency-domain (480, 5, 96) features, trial 0's
+   ``re_data_slide(..., 128, 0.5, is_filter=True, norm_method="z_score")``,
+   ``initialize_graph(64, 32)`` and the fp64 band-pass of the stack as
+   float64; checks one launch of the filter kernel per filter call over the
+   whole stack (``sos_filtfilt`` 9, ``sos_filtfilt_f64`` 1), each result
+   against the same call on CPU copies through the plain versions (filters
+   1e-4 of the max |y| in fp32, 1e-10 in fp64; PSD 1e-4, DE 2e-3, bin power
+   and time-domain features 1e-4 relative; the graph 1e-6) and 8 series of
+   the fp64 band-pass against ``scipy.signal.filtfilt`` (1e-5); prints the
+   phase's seconds;
 2. serving: builds the full-width flagship model (feat_dim=256) from a seeded
    ``torch.Generator`` with perturbed BatchNorm running stats, and a pool of
    480 synthetic samples at MAHNOB-HCI shapes resident on the card; serves
@@ -250,7 +267,10 @@ It needs a CUDA card and exits non-zero without one. In order, it
    fp32 also against fp64, 1e-5 of the largest |logit|, a bar one TF32 pass
    misses, ``tests/test_torch_port_rows12_17.py``), each case split into
    host and device time, with ptxas's registers and spills of each form of
-   the two kernels;
+   the two kernels; the IIR filter kernel's two forms (fp32 and fp64) at
+   the ``dsp`` phase's band-pass of the 480 x 32 series (their plain
+   version, ~46,000 launches a call, timed over 3 calls; no library call
+   computes ``filtfilt``);
 9. prints the card's name and power limit, one JSON line of per-kernel
    results (one entry per kernel a path launched; the InfoNCE kernel's
    bf16 form, which no path launches because the bf16 step's InfoNCE
@@ -277,6 +297,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from unittest import mock
 
 import numpy as np
@@ -316,6 +337,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.kernels import (
     conv_stem,
     conv_stem_train,
     fusion_head,
+    iir,
     lstm,
     ptxas_report,
 )
@@ -328,6 +350,15 @@ from multimodal_sentiment_aanalysis_tpu_torch.models import (
     ProjectionHead,
 )
 from multimodal_sentiment_aanalysis_tpu_torch.models.fusion_model import init_parameters
+from multimodal_sentiment_aanalysis_tpu_torch.ops import (
+    all_frequency_features,
+    all_timedomain_features,
+    batched,
+    butterworth_filter,
+    filter_data_notch,
+    initialize_graph,
+    re_data_slide,
+)
 from multimodal_sentiment_aanalysis_tpu_torch.ops.losses import masked_cross_entropy
 from multimodal_sentiment_aanalysis_tpu_torch.train import (
     PHASE_ORDER,
@@ -517,6 +548,24 @@ HEAD_ATOL = 1e-4  # fused head against the module path on the card
 # (head_check): max |err| of the logits over the largest fp64 |logit|, a bar
 # one TF32 pass misses (tests/test_torch_port_rows12_17.py)
 HEAD_FP64_REL = 1e-5
+# DSP (ops.dsp, ops.features, ops.graph) on the synthetic MAHNOB-HCI raw EEG
+# stack (480 trials x 32 channels x 585 samples): the 1-70 Hz order-4
+# band-pass at fs 256 (4 sections, padlen 27), the 60 Hz notch (Q 5)
+DSP_FS, DSP_BAND, DSP_NOTCH = 256, (1, 70), (60, 5)
+# one launch per filter call over the whole stack: the fp32 band-pass, the
+# notch, the five sub-bands of the differential entropy, the windowed
+# trial's band-pass and notch; the fp64 band-pass
+DSP_LAUNCHES = {"sos_filtfilt": 9, "sos_filtfilt_f64": 1}
+# against the same calls on CPU copies (the plain versions): the filters at
+# 1e-4 (fp32) and 1e-10 (fp64) of the output's max |y|; the features at
+# tests/test_ops_dsp.py's bars (PSD 1e-4 and DE 2e-3 absolute, bin power
+# 1e-4 relative) and the time-domain ones at 1e-4 relative; the graph at
+# 1e-6; 8 series of the fp64 band-pass against scipy.signal.filtfilt (the
+# (b, a) form) at 1e-5
+DSP_REL, DSP_F64_REL, DSP_GRAPH_ATOL, DSP_SCIPY_ATOL = 1e-4, 1e-10, 1e-6, 1e-5
+DSP_PSD_ATOL, DSP_DE_ATOL, DSP_FEATURE_RTOL = 1e-4, 2e-3, 1e-4
+# the filter's plain version is ~46,000 launches a call: timed over 3
+PLAIN_CALLS = {"sos_filtfilt": 3, "sos_filtfilt_f64": 3}
 # attention: the T=585 EEG window as a sequence, MHA(256, 8)
 ATTN_B, ATTN_T, ATTN_E, ATTN_HEADS = 64, 585, 256, 8
 # the bound of a case: the larger of its bytes (each input read once, each
@@ -530,6 +579,7 @@ ATTN_B, ATTN_T, ATTN_E, ATTN_HEADS = 64, 585, 256, 8
 # their softmax at the fp32 rate (flash_ops_ms) (H100 SXM data sheet, dense)
 PEAK_BYTES_PER_S, PEAK_FP32_FLOPS, PEAK_BF16_FLOPS = 3.35e12, 67e12, 989e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_FP64_FLOPS = 34e12  # CUDA-core fp64, the filter's fp64 form (H100 SXM data sheet)
 
 CSRC = "multimodal_sentiment_aanalysis_tpu_torch/csrc/"
 JAX_KERNELS = "multimodal_sentiment_aanalysis_tpu/kernels/"
@@ -578,7 +628,14 @@ KERNELS = {
     "bilstm_bwd_split": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:691", 1e-4),
     "bilstm_bwdc": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:819", 1e-3),
     "bilstm_cbndk": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1115", 1e-4),
+    # port-only: the JAX package's lax.scan filter (no Pallas kernel); the
+    # tolerance is relative to the output's max |y| (RELATIVE_TOL)
+    "sos_filtfilt": (CSRC + "iir.cu", "multimodal_sentiment_aanalysis_tpu/ops/dsp.py:85",
+                     DSP_REL),
+    "sos_filtfilt_f64": (CSRC + "iir.cu", "multimodal_sentiment_aanalysis_tpu/ops/dsp.py:85",
+                         DSP_F64_REL),
 }
+RELATIVE_TOL = ("sos_filtfilt", "sos_filtfilt_f64")
 
 
 # the BiLSTM kernels whose first argument is the output gradient dh_seq
@@ -630,6 +687,109 @@ def fused_epochs_checked(vt, epochs: int, expected: dict, label: str) -> tuple:
     out = out.cpu().numpy()
     check(bool(np.isfinite(out).all()), f"{label} fused epochs: non-finite metrics")
     return out, seconds, counts
+
+
+# --------------------------------------------------------------------------
+# DSP, EEG features and the electrode graph
+# --------------------------------------------------------------------------
+
+
+def dsp_calls(x: torch.Tensor, x64: torch.Tensor) -> dict:
+    """The ``dsp`` phase's calls on the raw EEG stack ``x (480, 32, 585)``
+    and its float64 copy, on their device: the channel-major band-pass of
+    the stack, the sample-major notch of each ``(585, 32)`` trial through
+    ``batched`` (axis 0), both feature vectors of every trial, trial 0's
+    filtered z-scored windows, the 64-graph batch, the fp64 band-pass."""
+    trials = x.transpose(1, 2)  # (480, 585, 32)
+    adj, indicator = initialize_graph(64, 32, device=x.device)
+    return {"band-pass": butterworth_filter(x, DSP_FS, *DSP_BAND),
+            "notch": batched(filter_data_notch, *DSP_NOTCH, fs=DSP_FS)(trials),
+            "time features": batched(all_timedomain_features)(trials),
+            "frequency features": batched(all_frequency_features)(trials),
+            "windows": re_data_slide(trials[0], 1, 128, 0.5, is_filter=True,
+                                     norm_method="z_score")[0],
+            "adjacency": adj, "indicator": indicator,
+            "band-pass fp64": butterworth_filter(x64, DSP_FS, *DSP_BAND)}
+
+
+def dsp_check(label: str, got: torch.Tensor, want: torch.Tensor, atol: float,
+              rtol: float = 0.0) -> float:
+    """``got`` (the card's) against ``want`` (the CPU plain path's),
+    elementwise within ``atol + rtol |want|``; returns the max |err|."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"dsp {label}: {tuple(got.shape)} {got.dtype} against {tuple(want.shape)} {want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"dsp {label}: non-finite values")
+    diff = (got.cpu().double() - want.double()).abs()
+    err = diff.max().item()
+    check(bool((diff <= atol + rtol * want.double().abs()).all()),
+          f"dsp {label}: max |err| {err:.3e} over atol {atol:.3e} + rtol {rtol}")
+    print(f"dsp {label}: {tuple(got.shape)}, max |err| {err:.3e} against the CPU plain path "
+          f"(atol {atol:.3e}, rtol {rtol})")
+    return err
+
+
+def dsp_phase(device: torch.device, smi: str) -> tuple[dict, torch.Tensor]:
+    """The port's DSP, features and graph on the full synthetic raw EEG stack
+    (ROADMAP A12): the calls of :func:`dsp_calls` with the counters reset
+    just before and held to one launch per filter call after, each result
+    against the same call on CPU copies (the plain versions), and 8 series
+    of the fp64 band-pass against scipy. Returns the launch counts and the
+    stack on the card."""
+    import scipy
+    from scipy import signal
+
+    t0 = time.perf_counter()
+    print(f"dsp: scipy {scipy.__version__}")
+    raw = make_synthetic_hci_data(seed=SEED)["raw_data"]["eeg"]  # (480, 32, 585) fp32
+    x = torch.from_numpy(raw).to(device)
+    x64 = x.double()
+    out, seconds, counts = counted(lambda: dsp_calls(x, x64), launches(DSP_LAUNCHES, 1), "dsp")
+    print(f"dsp launches: { {k: n for k, n in counts.items() if n} }; the calls took "
+          f"{seconds:.3f} s ({smi})")
+    ref = dsp_calls(x.cpu(), x64.cpu())
+    shapes = {"band-pass": (480, 32, 585), "notch": (480, 585, 32), "time features": (480, 128),
+              "frequency features": (480, 5, 96), "adjacency": (64, 32, 32),
+              "indicator": (64 * 32,), "band-pass fp64": (480, 32, 585)}
+    for label, shape in shapes.items():
+        check(tuple(out[label].shape) == shape, f"dsp {label}: shape {tuple(out[label].shape)}")
+    for label in ("band-pass", "notch", "windows"):
+        dsp_check(label, out[label], ref[label], DSP_REL * ref[label].abs().max().item())
+    ref64 = ref["band-pass fp64"]
+    dsp_check("band-pass fp64", out["band-pass fp64"], ref64,
+              DSP_F64_REL * ref64.abs().max().item())
+    dsp_check("time features", out["time features"], ref["time features"], 0.0,
+              DSP_FEATURE_RTOL)
+    got, want = out["frequency features"], ref["frequency features"]
+    dsp_check("PSD", got[..., :32], want[..., :32], DSP_PSD_ATOL)
+    dsp_check("DE", got[..., 32:64], want[..., 32:64], DSP_DE_ATOL)
+    dsp_check("bin power", got[..., 64:], want[..., 64:], 0.0, DSP_FEATURE_RTOL)
+    dsp_check("adjacency", out["adjacency"], ref["adjacency"], DSP_GRAPH_ATOL)
+    check(out["adjacency"].stride(0) == 0, "dsp adjacency: the batch is a copy, not a broadcast")
+    check(torch.equal(out["indicator"].cpu(), ref["indicator"]), "dsp indicator differs")
+    b, a = signal.butter(4, [2 * DSP_BAND[0] / DSP_FS, 2 * DSP_BAND[1] / DSP_FS], "bandpass")
+    want = signal.filtfilt(b, a, raw[0, :8].astype(np.float64))
+    err = np.abs(out["band-pass fp64"][0, :8].cpu().numpy() - want).max()
+    check(err <= DSP_SCIPY_ATOL, f"dsp fp64 band-pass against scipy: {err:.3e}")
+    print(f"dsp fp64 band-pass, 8 series against scipy.signal.filtfilt: max |err| {err:.3e} "
+          f"(atol {DSP_SCIPY_ATOL})")
+    print(f"dsp phase: {time.perf_counter() - t0:.1f} s")
+    return counts, x
+
+
+def dsp_kernel_cases(x: torch.Tensor, cases: dict) -> None:
+    """The filter kernel's two forms at the ``dsp`` phase's band-pass: the
+    480 x 32 series of the raw EEG stack, fp32 and float64."""
+    from scipy import signal
+
+    b, a = signal.butter(4, [2 * DSP_BAND[0] / DSP_FS, 2 * DSP_BAND[1] / DSP_FS], "bandpass")
+    sos, padlen = signal.tf2sos(b, a), 3 * max(len(a), len(b))  # as ops.dsp.filtfilt designs it
+    for name, dtype in (("sos_filtfilt", torch.float32), ("sos_filtfilt_f64", torch.float64)):
+        flat = x.reshape(-1, x.shape[-1]).to(dtype)
+        s_t = torch.as_tensor(sos, dtype=dtype, device=x.device)
+        z_t = torch.as_tensor(signal.sosfilt_zi(sos), dtype=dtype, device=x.device)
+        args = (flat, s_t, z_t, padlen)
+        cases[name].append(("raw EEG 480x32x585, 1-70 Hz", partial(iir.sos_filtfilt, *args),
+                            partial(iir.sos_filtfilt_plain, *args), args))
 
 
 # --------------------------------------------------------------------------
@@ -3144,17 +3304,17 @@ def flash_bwd_fp64(kernel: str, args) -> tuple:
 # --------------------------------------------------------------------------
 
 
-def time_ms(fn) -> float:
-    for _ in range(3):
+def time_ms(fn, calls: int = TIMED_CALLS) -> float:
+    for _ in range(min(3, calls)):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(TIMED_CALLS):
+    for _ in range(calls):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / TIMED_CALLS
+    return start.elapsed_time(end) / calls
 
 
 def outputs(name: str, res) -> list[torch.Tensor]:
@@ -3191,7 +3351,7 @@ def operations(name: str, args, res) -> float:
     the gate and normalisation arithmetic are approximate. A bf16 form does
     its fp32 form's operations."""
     bf16 = name.endswith("_bf16")
-    name = name.removesuffix("_bf16")
+    name = name.removesuffix("_bf16").removesuffix("_f64")
     t = tensors(args)
     if name == "bilstm_gemm":
         # 2MNK per product and pass: three TF32 passes for fp32 x fp32
@@ -3263,6 +3423,15 @@ def operations(name: str, args, res) -> float:
         q, k = t[0], t[1]
         per = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}[name]
         return q.shape[0] * q.shape[1] * k.shape[1] * (per * q.shape[2] + 4)
+    if name == "sos_filtfilt":
+        # per section and sample, y = b0 x + z0 (2), z0 = b1 x - a1 y + z1
+        # (4), z1 = b2 x - a2 y (3); the forward pass over the L = T + 2
+        # padlen samples of the odd extension, the reverse pass over the
+        # L - padlen samples that reach an output
+        x, sos = t[0], t[1]
+        n, steps = x.shape
+        padlen = args[3]
+        return 9 * sos.shape[0] * n * (2 * (steps + 2 * padlen) - padlen)
     if name == "fusion_head":
         bsz, f = t[0].shape
         hidden, ncls = t[7].shape[0], t[9].shape[0]
@@ -3523,6 +3692,8 @@ def peak_rate(name: str, args) -> float:
     (:func:`operations`); any other bf16 form at the bf16 rate."""
     if name.startswith(("bilstm_rec", "bilstm_sweep", "bilstm_cscan")):
         return PEAK_FP32_FLOPS
+    if name.endswith("_f64"):
+        return PEAK_FP64_FLOPS
     if name.startswith("bilstm_gemm"):
         bf16_only = name.endswith("_bf16") and args[0] in ("proj", "gates", "gates_xp")
         return PEAK_BF16_FLOPS if bf16_only else PEAK_TF32_FLOPS
@@ -3554,11 +3725,13 @@ def case_results(name: str, items: list) -> dict:
             head_check(name, label, got, *exact[0]())
         elif exact:
             gemm_check(name, label, args[0], got[0], want[0], *exact[0]())
-        diffs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
+        diffs = [(g.double() - w.double()).abs() for g, w in zip(got, want)]
         e = max(d.max().item() for d in diffs)
-        ok = all(bool((d <= tol + (BF16_RTOL if w.dtype == BF16 else 0.0) * w.float().abs()).all())
+        atol = tol * max(w.abs().max().item() for w in want) if name in RELATIVE_TOL else tol
+        ok = all(bool((d <= atol + (BF16_RTOL if w.dtype == BF16 else 0.0) * w.float().abs()).all())
                  for d, w in zip(diffs, want))
-        limit = f"{tol}{' + 1 ulp' if any(w.dtype == BF16 for w in want) else ''}"
+        limit = (f"{atol:.3e} ({tol} of the max |y|)" if name in RELATIVE_TOL else
+                 f"{tol}{' + 1 ulp' if any(w.dtype == BF16 for w in want) else ''}")
         check(ok, f"{name} {label}: max |err| {e:.3e} > {limit}")
         nbytes = moved_bytes(name, args, res)
         ops_ms = (flash_ops_ms(name, args) if name.startswith("flash")
@@ -3567,7 +3740,7 @@ def case_results(name: str, items: list) -> dict:
                   else head_ops_ms(name, args) if name.startswith("fusion_head")
                   else operations(name, args, res) / peak_rate(name, args) * 1e3)
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        tk, tp = time_ms(kern), time_ms(plain)
+        tk, tp = time_ms(kern), time_ms(plain, PLAIN_CALLS.get(name, TIMED_CALLS))
         call = library_call(name, args)
         tl = time_ms(call) if call is not None else None
         print(f"kernel {name} {label}: max |err| {e:.3e} (limit {limit}), {tk:.4f} ms, plain "
@@ -3735,6 +3908,7 @@ def main() -> int:
     for line in stem_registers + bwd_registers + head_registers:
         print(f"ptxas {line}")
 
+    dsp_counts, raw_eeg = dsp_phase(device, smi)
     model, first, serve_counts, (pool, plan, serve_outs) = serving_phase(device)
     fp32_logits = serve_outs["serving"]
     serve_bf16_counts, bf16_logits = serving_bf16_phase(model, pool, plan, fp32_logits)
@@ -3785,7 +3959,7 @@ def main() -> int:
               train_counts, loso["counts"],
               schedule_counts, loso_bf16_counts, b512_counts, phased_counts, simclr_counts,
               memhacl_counts, memhacl_bf16_counts, attention_counts, checkpoint_counts,
-              cli_counts)
+              cli_counts, dsp_counts)
     counts = {name: sum(c[name] for c in phases) for name in KERNELS}
     gen = torch.Generator(device=device).manual_seed(SEED)
     torch.set_grad_enabled(False)  # plain versions must not record autograd graphs
@@ -3796,6 +3970,7 @@ def main() -> int:
     schedule_kernel_cases(vt, gen, cases, loso_cases)
     memhacl_kernel_cases(encoder, classifier, val, cases)
     attention_kernel_cases(mha, x_attn, gen, cases)
+    dsp_kernel_cases(raw_eeg, cases)
     dropout_check(trainer.model, batch, gen)
     mask_check(vt, gen)
     # the bf16 forms: the eval model forward cast to bf16, the bf16 LOSO step

@@ -67,7 +67,12 @@ def assemble_features(
     modality and the ``{label_type}_label`` array. ``subject_lists`` is
     accepted and unused, as in the JAX package and the reference."""
     if "features" not in data:
-        raise NotImplementedError("needs a dataset dict with precomputed 'features'")
+        raise NotImplementedError(
+            "raw-signal feature extraction is not wired in the reference either (its "
+            "load_<modality>_features dispatch targets undefined methods, reference "
+            "LoadFeatures.py:69-71); supply a dict with a 'features' key, or extract features "
+            "from data['raw_data'] with multimodal_sentiment_aanalysis_tpu_torch.ops.dsp "
+            "(filtering, windows) and .ops.features (e.g. batched(all_frequency_features))")
     features: dict[str, np.ndarray] = {}
     for modality in modalities:
         if modality not in data["features"]:

@@ -76,6 +76,9 @@ def export_serving(state_or_model: nn.Module | Mapping[str, torch.Tensor],
         dynamic = tuple({0: batch} for _ in args)
     with torch.no_grad():
         program = torch.export.export(module, args, dynamic_shapes=dynamic, strict=False)
+    # the traced zeros would be stored beside the weights (4.9 MB at batch
+    # 64); nothing that loads an artifact reads them
+    program.example_inputs = None
     buffer = io.BytesIO()
     torch.export.save(program, buffer)
     blob = buffer.getvalue()

@@ -58,6 +58,11 @@ for both: three ``bilstm_gemm``, one ``bilstm_cscan``, one ``bilstm_sweep``.
   ``bilstm_gemm`` (``"gates_xp"``) and ``bilstm_sweep`` once each, over
   the v5 forward's c
 
+- ``sos_filtfilt``: ``iir.sos_filtfilt`` (``ops.dsp.filtfilt``'s filter),
+  ``csrc/iir.cu``, a port-only kernel: the JAX package filters with a
+  ``lax.scan`` (``ops/dsp.py::_filtfilt_1d``), no Pallas kernel; its fp64
+  form ``sos_filtfilt_f64`` (the suffix ``_f64``, for float64 tensors)
+
 The v9.1 layer backward is the v9 one (``lstm.bilstm_v9_bwd(...,
 schedule="v9.1")``): it counts one call of ``bilstm_cbndk`` where v9 counts
 ``bilstm_cbnd``, and launches what v9 launches.
@@ -82,7 +87,8 @@ CUDA implementations only.
 
 import torch
 
-from . import attention, contrastive, conv_stem, conv_stem_train, fusion_head, library, lstm
+from . import (attention, contrastive, conv_stem, conv_stem_train, fusion_head, iir, library,
+               lstm)
 from ._build import build_all, ptxas_report
 
 _BF16 = torch.bfloat16
@@ -118,6 +124,8 @@ KERNELS = {
     "bilstm_bwd_split": lstm.BWD_SPLIT_KERNEL,
     "bilstm_bwdc": lstm.BWDC_KERNEL,
     "bilstm_cbndk": lstm.CBNDK_KERNEL,
+    "sos_filtfilt": iir.KERNEL,
+    "sos_filtfilt_f64": iir.F64_KERNEL,
 }
 
 

@@ -85,3 +85,21 @@ def bilstm_layer(x: torch.Tensor, fwd: Params, bwd: Params, schedule: str = "v9"
     xf = x @ wif.T + (bif + bhf)
     xb = x.flip(1) @ wib.T + (bib + bhb)
     return bilstm_recurrence(xf, xb, whf, whb)
+
+
+def bilstm_stack(x: torch.Tensor, layers: list[dict[str, torch.Tensor]]) -> torch.Tensor:
+    """Multi-layer BiLSTM (torch ``nn.LSTM(num_layers=n, bidirectional=True)``).
+
+    ``layers[k]`` holds the JAX package's keys ``w_ih_fwd, w_hh_fwd,
+    b_ih_fwd, b_hh_fwd`` and the ``_bwd`` counterparts, in torch shapes.
+    Layer k>0 consumes the (B, T, 2H) concat of layer k-1 (torch semantics,
+    dropout=0 default); each layer is :func:`bilstm_layer`.
+    """
+    out = x
+    for p in layers:
+        out = bilstm_layer(
+            out,
+            (p["w_ih_fwd"], p["w_hh_fwd"], p["b_ih_fwd"], p["b_hh_fwd"]),
+            (p["w_ih_bwd"], p["w_hh_bwd"], p["b_ih_bwd"], p["b_hh_bwd"]),
+        )
+    return out

@@ -13,6 +13,8 @@
   use_pallas=False))`` (the serving slice's bar, ``test_torch_port_serving.py``),
   at the CLI's ``--tiny`` dims and at full width, weights crossing through
   ``state_dict_from_jax_variables``;
+- a fixed batch-64 artifact no more than 1 MB larger than the polymorphic
+  one (no example inputs stored), and loaded and run;
 - one batch-polymorphic artifact at batches 1, 3 and 8; the bf16 artifact's
   fp32 logits against the bf16 closure (1e-5) and against fp32 serving at
   the JAX package's bar for bf16 serving (0.1, ``tests/test_serving.py``);
@@ -189,6 +191,19 @@ def test_polymorphic_artifact_serves_any_batch(case):
         got = fwd(*x)
         assert all(g.shape == (b, 3) for g in got)
         _close(got, closure(*x), CLOSURE_ATOL)
+
+
+def test_artifact_stores_no_example_inputs(case):
+    """A fixed batch-64 artifact is no larger than the polymorphic one but
+    for its graph: the traced example inputs (4.9 MB of zeros at batch 64,
+    full width) are not stored, and loading needs none."""
+    feat_dim, eeg_time, _, port, _ = case
+    fixed = export_serving(port, batch_size=64, feat_dim=feat_dim, input_schema=_schema(eeg_time))
+    poly = export_serving(port, feat_dim=feat_dim, input_schema=_schema(eeg_time))
+    assert len(fixed) <= len(poly) + 1_000_000, (len(fixed), len(poly))
+    assert torch.export.load(io.BytesIO(fixed)).example_inputs is None
+    x = tuple(torch.zeros(64, *shape) for shape, _ in _schema(eeg_time))
+    _close(load_serving(fixed)(*x), build_serving_forward(port, feat_dim)(*x), CLOSURE_ATOL)
 
 
 def test_bf16_artifact(case):

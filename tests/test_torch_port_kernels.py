@@ -192,7 +192,7 @@ def test_wrappers_reject_other_devices_and_dropout():
 def test_cpu_tensors_launch_nothing():
     """Forward and backward of every wrapper on CPU tensors take the plain
     versions and count no launch."""
-    from multimodal_sentiment_aanalysis_tpu_torch.kernels import attention, contrastive, fusion_head
+    from multimodal_sentiment_aanalysis_tpu_torch.kernels import attention, contrastive, fusion_head, iir
     from multimodal_sentiment_aanalysis_tpu_torch.models import MEMHACLClassifier, MultiheadAttention
     from multimodal_sentiment_aanalysis_tpu_torch.models.fusion_model import init_parameters
 
@@ -215,15 +215,21 @@ def test_cpu_tensors_launch_nothing():
     init_parameters(mha)
     with torch.no_grad():
         fusion_head.fused_mha_fusion_head(x, x, x, mha, clf, 4)
+    series = []
+    for dtype in (torch.float32, torch.float64):
+        sos = torch.tensor([[0.2, 0.4, 0.2, 1.0, -0.3, 0.1]], dtype=dtype)
+        series.append(torch.randn(3, 12, dtype=dtype, requires_grad=True))
+        iir.sos_filtfilt(series[-1], sos, torch.ones(1, 2, dtype=dtype), 3).sum().backward()
     assert fwd[0].grad is not None and conv.grad is not None and feats.grad is not None
-    assert q.grad is not None
+    assert q.grad is not None and all(x.grad is not None for x in series)
     training = ("bilstm_fwd", "bilstm_cbnd", "bilstm_segbwd", "bilstm_gemm", "bilstm_rec",
                 "bilstm_sweep", "stem_tail", "stem_tail_bwd", "infonce")
     assert kernels.launch_counts() == {
         **{name: 0 for name in training}, **{f"{name}_bf16": 0 for name in training},
         "conv_stem": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
         "fusion_head": 0, "fusion_head_bf16": 0, "bilstm_fwd_xp": 0, "bilstm_bwd_xp": 0, "bilstm_cseq": 0,
-        "bilstm_bwd_split": 0, "bilstm_bwdc": 0, "bilstm_cbndk": 0, "bilstm_cscan": 0}
+        "bilstm_bwd_split": 0, "bilstm_bwdc": 0, "bilstm_cbndk": 0, "bilstm_cscan": 0,
+        "sos_filtfilt": 0, "sos_filtfilt_f64": 0}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
