@@ -52,7 +52,9 @@ It needs a CUDA card and exits non-zero without one. In order, it
    serving); then the same requests through
    ``build_serving_forward(lstm_schedule="v5")`` (two launches of the v5
    forward per request, no other kernel), logits within 1e-4 of fp32
-   serving's; then ``export_serving`` of the same model into four artifacts
+   serving's; then in bf16 under v5 (two launches of the v5 forward's bf16
+   form, ``bilstm_fwd_xp_bf16``, per request, no other kernel; against
+   fp32 serving at the bf16 bar above); then ``export_serving`` of the same model into four artifacts
    (batch 64 with ``use_pallas=True``, batch-polymorphic fp32 and bf16,
    batch 64 under v5), each saved to a file, loaded with ``load_serving``
    (no launch while tracing) and run over the same 100 requests with the
@@ -106,7 +108,13 @@ It needs a CUDA card and exits non-zero without one. In order, it
    launches per step by kernel (each of the schedule's kernels once per
    layer for all 24 models, no other schedule's), ms/step and peak device
    memory, and each epoch's per-subject train loss within 1e-3 relative of
-   v9's; then one LOSO step's gradients (``dropout=0.0``, one fixed batch)
+   v9's; then the same in bf16 (``compute_dtype``/``moment_dtype=
+   "bfloat16"``, v9 then v5, v6, v8 and v9.1 from the same init): the
+   schedule's bf16 forms once per layer and step for all 24 models (the
+   held-out evaluation in the fp32 forms), no other schedule's, ms/step
+   and peak memory, and each schedule's epoch-2 per-subject train loss
+   within 1e-2 relative of bf16 v9's and within 0.1 of the same schedule's
+   fp32 trainer's; then one LOSO step's gradients (``dropout=0.0``, one fixed batch)
    under each schedule against v9's on the card (all 24 models) and subject
    0's against the CPU plain path, at the gradient-parity bar;
    then the phased curriculum (``cli.py phased``): ``VectorizedPhasedTrainer``
@@ -217,8 +225,9 @@ It needs a CUDA card and exits non-zero without one. In order, it
    at a 200-query / 100-key and a 9-row shape), and each bf16 form at the
    bf16 paths' shapes (the bf16 serving model's activations, the bf16 LOSO
    trainer's weights cast to bf16 with seeded bf16 activations, and subject
-   0 alone), the six kernels of the other BiLSTM schedules at S=24 and at
-   subject 0 (the fp32 LOSO trainer's weights, seeded activations; rows 8,
+   0 alone), the six kernels of the other BiLSTM schedules and their bf16
+   forms at S=24 and at subject 0 (the fp32 LOSO trainer's weights, seeded
+   activations; the bf16 trainer's weights in bf16, bf16 activations; rows 8,
    7 and 5 are the GEMM and the sweep at K=1 over the full c, row 6 the
    GEMM and the c scan at K=1), and the pieces that rows 1, 9, 11, 6, 8, 7
    and 5 launch (the tensor-core GEMM at its five products: projection,
@@ -401,6 +410,7 @@ NOISE_REL = 1e-4
 DROPOUT_P = 0.4
 TIMED_CALLS = 20
 LOSO_FUSED_EPOCHS = 2
+LOSO_SCHEDULE_EPOCHS = 2  # fused epochs of each schedule's trainer, fp32 and bf16
 PARITY_SUBJECTS = (0, 17)  # LOSO models checked against a single-model Trainer step
 LOSO_LR = 1e-4             # the trainers' default learning rate
 # the kernels each call of rows 1, 9, 11, 6, 8, 7 and 5 launches on a train
@@ -470,6 +480,10 @@ OTHER_SCHEDULES = ("v5", "v6", "v8", "v9.1")
 # summed in other orders; per-subject train loss of each fused epoch,
 # relative, and serving logits
 SCHEDULE_LOSS_GAP, SCHEDULE_SERVE_ATOL = 1e-3, 1e-4
+# bf16 schedules against bf16 v9 from the same init and plans: the same
+# function, rounded to bf16 at other places (v5 rounds its projection);
+# per-subject epoch-2 train loss, relative
+BF16_SCHEDULE_LOSS_GAP = 1e-2
 LOSO_B512 = 512       # the JAX bench's vloso_bf16_b512 batch
 # the phased curriculum: run(1, 1, 1, 1, 1), then 2 timed fusion_arousal
 # epochs. A step launches the whole step's kernels where the phase's loss
@@ -604,6 +618,20 @@ TRAINING_KERNELS = {
     "stem_tail_bwd": (CSRC + "stem_tail.cu", JAX_KERNELS + "conv_stem_train.py:368", 1e-3),
     "infonce": (CSRC + "infonce.cu", JAX_KERNELS + "contrastive.py:61", 1e-4),
 }
+# the other schedules' kernels, rows 4-8 and 10, and their bf16 forms (fp32
+# arithmetic on bf16 operands, as the fp32 forms'); the v8 sweep's dW_cat
+# sums B*T rows as bilstm_segbwd's does (rows 8, 7 and 5 are row 11's pieces
+# at K=1 over the full c: the sweep reads c from c_seq and the GEMM's
+# activations, from x or, row 5, from xp; row 6's c is the c scan at K=1 over
+# the same GEMM's activations)
+SCHEDULE_ROWS = {
+    "bilstm_fwd_xp": (CSRC + "lstm_fwd.cu", JAX_KERNELS + "lstm.py:310", 1e-4),
+    "bilstm_bwd_xp": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:401", 1e-4),
+    "bilstm_cseq": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:623", 1e-4),
+    "bilstm_bwd_split": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:691", 1e-4),
+    "bilstm_bwdc": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:819", 1e-3),
+    "bilstm_cbndk": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1115", 1e-4),
+}
 KERNELS = {
     **TRAINING_KERNELS,
     **{f"{name}_bf16": entry for name, entry in TRAINING_KERNELS.items()},
@@ -617,17 +645,8 @@ KERNELS = {
     # row 9's c scan (row 6's at K=1), one form: the plain version's
     # rounding, step by step
     "bilstm_cscan": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1026,623", 1e-6),
-    # the other schedules' kernels; the v8 sweep's dW_cat sums B*T rows as
-    # bilstm_segbwd's does (rows 8, 7 and 5 are row 11's pieces at K=1 over
-    # the full c: the sweep rebuilds c from c_seq and the GEMM's 3xTF32
-    # activations, from x or, row 5, from xp; row 6's c is the c scan at K=1
-    # over the same GEMM's 3xTF32 activations)
-    "bilstm_fwd_xp": (CSRC + "lstm_fwd.cu", JAX_KERNELS + "lstm.py:310", 1e-4),
-    "bilstm_bwd_xp": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:401", 1e-4),
-    "bilstm_cseq": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:623", 1e-4),
-    "bilstm_bwd_split": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:691", 1e-4),
-    "bilstm_bwdc": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:819", 1e-3),
-    "bilstm_cbndk": (CSRC + "lstm_bwd.cu", JAX_KERNELS + "lstm.py:1115", 1e-4),
+    **SCHEDULE_ROWS,
+    **{f"{name}_bf16": entry for name, entry in SCHEDULE_ROWS.items()},
     # port-only: the JAX package's lax.scan filter (no Pallas kernel); the
     # tolerance is relative to the output's max |y| (RELATIVE_TOL)
     "sos_filtfilt": (CSRC + "iir.cu", "multimodal_sentiment_aanalysis_tpu/ops/dsp.py:85",
@@ -890,25 +909,28 @@ def serving_phase(device: torch.device):
     return model, first, counts, (pool, plan, outs)
 
 
-def serving_bf16_phase(model, pool: DeviceDataset, plan: torch.Tensor,
-                       fp32_logits: list) -> tuple[dict, list]:
-    """The requests through ``build_serving_forward(compute_dtype=bf16)``:
-    launch counts, fp32 logits, agreement with fp32 serving. Returns the
-    path's launch counts and logits."""
-    fwd = build_serving_forward(model, compute_dtype=BF16)
+def serving_bf16_phase(model, pool: DeviceDataset, plan: torch.Tensor, fp32_logits: list,
+                       schedule: str = "v9") -> tuple[dict, list]:
+    """The requests through ``build_serving_forward(compute_dtype=bf16,
+    lstm_schedule=schedule)``: two launches a request of the schedule's
+    forward in its bf16 form (v9: row 1, v5: row 4) and no other kernel,
+    fp32 logits, agreement with (v9) fp32 serving. Returns the path's launch
+    counts and logits."""
+    path = "serving_bf16" + ("" if schedule == "v9" else f"_{schedule}")
+    fwd = build_serving_forward(model, compute_dtype=BF16, lstm_schedule=schedule)
     first = pool.gather(plan[0])
     fwd(first["eeg"], first["eye"], first["pps"])  # warm-up: bf16 cuBLAS/cuDNN handles
     torch.cuda.synchronize()
     reset_launch_counts()
-    outs, ms = serve({"serving_bf16": fwd}, pool, plan)
+    outs, ms = serve({path: fwd}, pool, plan)
     counts = launch_counts()
     expected = {name: 0 for name in KERNELS}
-    expected.update(with_row_kernels({"bilstm_fwd_bf16": 2 * REQUESTS}))
-    print(f"bf16 serving launches over {REQUESTS} requests: {counts}")
-    check(counts == expected, f"bf16 serving launch counts {counts} != {expected}")
+    expected.update(with_row_kernels({f"{SCHEDULE_KERNELS[schedule][0]}_bf16": 2 * REQUESTS}))
+    print(f"bf16 serving ({schedule}) launches over {REQUESTS} requests: {counts}")
+    check(counts == expected, f"bf16 serving ({schedule}) launch counts {counts} != {expected}")
     worst, excess, agree = 0.0, 0.0, 1.0
     for head in (0, 1):  # arousal, valence
-        lo = torch.cat([res[head] for res in outs["serving_bf16"]])
+        lo = torch.cat([res[head] for res in outs[path]])
         hi = torch.cat([res[head] for res in fp32_logits])
         check(lo.dtype == torch.float32 and lo.shape == hi.shape
               and bool(torch.isfinite(lo).all()), "bf16 serving: logits not finite fp32")
@@ -916,12 +938,13 @@ def serving_bf16_phase(model, pool: DeviceDataset, plan: torch.Tensor,
         worst = max(worst, diff.max().item())
         excess = max(excess, (diff - SERVE_BF16_TOL * (1 + hi.abs())).max().item())
         agree = min(agree, (lo.argmax(-1) == hi.argmax(-1)).double().mean().item())
-    print(f"serve serving_bf16: {REQUESTS} requests x {BATCH}, {ms['serving_bf16']:.4f} ms/batch "
+    print(f"serve {path}: {REQUESTS} requests x {BATCH}, {ms[path]:.4f} ms/batch "
           f"(host clock around synchronised runs); against fp32 serving: max |diff| "
           f"{worst:.3e}, within rtol/atol {SERVE_BF16_TOL}: {excess <= 0}, argmax agreement "
           f"{agree:.4f} (the lower head; limit {SERVE_BF16_ARGMAX})")
-    check(excess <= 0 and agree >= SERVE_BF16_ARGMAX, "bf16 serving disagrees with fp32 serving")
-    return counts, outs["serving_bf16"]
+    check(excess <= 0 and agree >= SERVE_BF16_ARGMAX,
+          f"bf16 serving ({schedule}) disagrees with fp32 serving")
+    return counts, outs[path]
 
 
 def serving_v5_phase(model, pool: DeviceDataset, plan: torch.Tensor,
@@ -1437,28 +1460,29 @@ def lstm_piece_cases(x, w, h_seq, dh, c_bnd, label: str, sfx: str = "") -> dict:
     the call reads). The sweep's kernel call overwrites a copy of the
     activations (the copy is timed with it)."""
     w_ih, w_hh, bias = w
-    xp = lstm.bilstm_gemm_plain("proj", x, *w)
+    xp = lstm.bilstm_gemm_plain("proj", x, *w)  # fp32, row 1's recurrence reads it
+    xp_v5 = xp.to(w_hh.dtype)  # the gates_xp product reads the v5 projection, bf16 in bf16
     act = lstm.bilstm_gemm_plain("gates", x, *w, h_seq=h_seq)
     dg = lstm.bilstm_sweep_plain(act, dh, c_bnd, w_hh)
     reads = {"proj": (x, w_ih, bias), "gates": (x, h_seq, w_ih, w_hh, bias), "dx": (dg, w_ih),
-             "dw": (x, h_seq, dg), "gates_xp": (xp, h_seq, w_hh)}
+             "dw": (x, h_seq, dg), "gates_xp": (xp_v5, h_seq, w_hh)}
 
     def exact(mode: str):
         """The mode's products in fp64, on the operands as given and on
         their TF32 roundings (bias and xp aside: both are added, not
         multiplied)"""
         ref = lstm.bilstm_gemm_plain(mode, *(a.double() for a in (x, *w)), h_seq=h_seq.double(),
-                                     dg=dg.double(), xp=xp.double())
+                                     dg=dg.double(), xp=xp_v5.double())
         one_pass = lstm.bilstm_gemm_plain(
             mode, *(tf32_round(a).double() for a in (x, w_ih, w_hh)), bias.double(),
-            h_seq=tf32_round(h_seq).double(), dg=tf32_round(dg).double(), xp=xp.double())
+            h_seq=tf32_round(h_seq).double(), dg=tf32_round(dg).double(), xp=xp_v5.double())
         return ref, one_pass
 
     pieces = {
         "bilstm_gemm" + sfx: [
             (f"{mode} {label}",
-             lambda m=mode: lstm.bilstm_gemm(m, x, *w, h_seq=h_seq, dg=dg, xp=xp),
-             lambda m=mode: lstm.bilstm_gemm_plain(m, x, *w, h_seq=h_seq, dg=dg, xp=xp),
+             lambda m=mode: lstm.bilstm_gemm(m, x, *w, h_seq=h_seq, dg=dg, xp=xp_v5),
+             lambda m=mode: lstm.bilstm_gemm_plain(m, x, *w, h_seq=h_seq, dg=dg, xp=xp_v5),
              (mode, *reads[mode]), lambda m=mode: exact(m)) for mode in lstm.GEMM_MODES],
         "bilstm_rec" + sfx: [(label, lambda: lstm.bilstm_rec(xp, w_hh),
                               lambda: lstm.bilstm_rec_plain(xp, w_hh), (xp, w_hh))],
@@ -1669,36 +1693,41 @@ def loso_step_parity(full: DeviceDataset) -> None:
               f"LOSO subject {s} disagrees with the single-model Trainer")
 
 
-def loso_schedules_phase(full: DeviceDataset) -> dict:
-    """Each BiLSTM schedule's LOSO trainer (fp32, S=24, B=64, early stop)
-    from the v9 phase's init: two fused epochs under the sync check, the
-    launch counts of each (the schedule's kernels once per layer and step
-    for all 24 models, no other schedule's), its ms/step and peak device
-    memory, and its per-subject train loss against v9's.
-    Returns the launch counts."""
+def schedule_epochs(full: DeviceDataset, label: str, **dtypes) -> tuple[dict, dict]:
+    """The LOSO trainer (S=24, B=64, early stop) under each BiLSTM schedule
+    (v9 first) from the v9 phase's init, ``dtypes`` its
+    ``compute_dtype``/``moment_dtype``: LOSO_SCHEDULE_EPOCHS fused epochs
+    of one epoch a call under the sync check, each held to the schedule's
+    launches (its kernels once per layer and step for all 24 models, in the
+    bf16 forms for a bf16 trainer, whose held-out evaluation runs the fp32
+    forms; no other schedule's), with its ms/step and peak device memory.
+    Returns the launch counts and each schedule's per-subject train loss
+    of each epoch."""
     total = {name: 0 for name in KERNELS}
     losses = {}
     for schedule in ("v9", *OTHER_SCHEDULES):
         gc.collect()  # the last schedule's trainer (its closures hold it in cycles)
         torch.cuda.empty_cache()
-        vt = make_loso_trainer(full, lstm_schedule=schedule)
+        vt = make_loso_trainer(full, lstm_schedule=schedule, **dtypes)
         s_n, n_train = vt.n_subjects, vt.train_idx.shape[1]
         steps = -(-n_train // BATCH)
         per_step, per_eval = schedule_per_step(schedule)
+        if vt.compute_dtype == BF16:
+            per_step = bf16_forms(per_step)
         expected = {name: steps * per_step.get(name, 0) + per_eval.get(name, 0) for name in KERNELS}
         losses[schedule] = []
-        for epoch in (1, 2):
+        for epoch in range(1, LOSO_SCHEDULE_EPOCHS + 1):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             out, seconds, counts = fused_epochs_checked(vt, 1, expected,
-                                                        f"LOSO {schedule} epoch {epoch}")
+                                                        f"{label} {schedule} epoch {epoch}")
             peak = torch.cuda.max_memory_allocated()
             for name in KERNELS:
                 total[name] += counts[name]
             out = out[0]
             losses[schedule].append(out[:, 0] / np.maximum(out[:, 3], 1.0))
-            print(f"LOSO {schedule} fused epoch {epoch}: train loss mean "
+            print(f"{label} {schedule} fused epoch {epoch}: train loss mean "
                   f"{losses[schedule][-1].mean():.6f}; smoke reading (host clock around a "
                   f"synchronised run, no host sync inside): {seconds * 1e3 / steps:.3f} ms/step of "
                   f"{s_n} x {BATCH} with the held-out evaluation, "
@@ -1706,16 +1735,52 @@ def loso_schedules_phase(full: DeviceDataset) -> dict:
                   f"{peak / 2 ** 30:.3f} GiB, {(peak - base) / 2 ** 30:.3f} GiB above the "
                   f"{base / 2 ** 30:.3f} GiB held before the epoch")
         train_launches = {name: (n - per_eval.get(name, 0)) / steps for name, n in counts.items() if n}
-        print(f"LOSO {schedule} launches per step ({s_n} models, the evaluation's taken out): "
+        print(f"{label} {schedule} launches per step ({s_n} models, the evaluation's taken out): "
               f"{train_launches}")
         del vt, out
     gc.collect()
-    for schedule in OTHER_SCHEDULES:
-        gap = max((np.abs(a - b) / np.abs(b)).max() for a, b in zip(losses[schedule], losses["v9"]))
-        print(f"LOSO {schedule} against v9 from the same init and plans: largest relative "
-              f"per-subject train-loss gap over 2 fused epochs {gap:.3e} (limit {SCHEDULE_LOSS_GAP})")
-        check(gap <= SCHEDULE_LOSS_GAP, f"LOSO {schedule} parts from v9")
     torch.cuda.empty_cache()
+    return total, losses
+
+
+def loss_gap(got: list, want: list) -> float:
+    """The largest relative per-subject gap of two runs' train losses."""
+    return max((np.abs(a - b) / np.abs(b)).max() for a, b in zip(got, want))
+
+
+def loso_schedules_phase(full: DeviceDataset) -> tuple[dict, dict]:
+    """Each BiLSTM schedule's fp32 LOSO trainer (:func:`schedule_epochs`),
+    each epoch's per-subject train loss against v9's. Returns the launch
+    counts and the losses."""
+    total, losses = schedule_epochs(full, "LOSO")
+    for schedule in OTHER_SCHEDULES:
+        gap = loss_gap(losses[schedule], losses["v9"])
+        print(f"LOSO {schedule} against v9 from the same init and plans: largest relative "
+              f"per-subject train-loss gap over {LOSO_SCHEDULE_EPOCHS} fused epochs {gap:.3e} "
+              f"(limit {SCHEDULE_LOSS_GAP})")
+        check(gap <= SCHEDULE_LOSS_GAP, f"LOSO {schedule} parts from v9")
+    return total, losses
+
+
+def loso_bf16_schedules_phase(full: DeviceDataset, fp32: dict) -> dict:
+    """Each BiLSTM schedule's bf16 LOSO trainer (``compute_dtype`` and
+    ``moment_dtype="bfloat16"``, :func:`schedule_epochs`): the last
+    epoch's per-subject train loss against the bf16 v9 trainer's from the
+    same init and plans (BF16_SCHEDULE_LOSS_GAP) and against the same
+    schedule's fp32 trainer's (``fp32``: its losses; LOSS_GAP_LIMIT).
+    Returns the launch counts."""
+    total, losses = schedule_epochs(full, "LOSO bf16", compute_dtype="bfloat16",
+                                    moment_dtype="bfloat16")
+    for schedule in ("v9", *OTHER_SCHEDULES):
+        last = [losses[schedule][-1]]
+        fp32_gap = loss_gap(last, [fp32[schedule][-1]])
+        v9_gap = loss_gap(last, [losses["v9"][-1]])
+        print(f"LOSO bf16 {schedule} epoch {LOSO_SCHEDULE_EPOCHS} train loss from the same init "
+              f"and plans: largest relative per-subject gap to bf16 v9 {v9_gap:.3e} (limit "
+              f"{BF16_SCHEDULE_LOSS_GAP}), to fp32 {schedule} {fp32_gap:.3e} (limit "
+              f"{LOSS_GAP_LIMIT})")
+        check(v9_gap <= BF16_SCHEDULE_LOSS_GAP and fp32_gap <= LOSS_GAP_LIMIT,
+              f"LOSO bf16 {schedule} parts from bf16 v9 or from fp32 {schedule}")
     return total
 
 
@@ -1777,16 +1842,21 @@ def schedule_gradient_parity(full: DeviceDataset) -> None:
 def schedule_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator, cases: dict,
                           loso_cases: dict) -> None:
     """Adds the other schedules' six kernels at the LOSO step's S=24 shapes
-    (the fp32 trainer's stacked weights, seeded activations) to
-    ``loso_cases``, and subject 0's share to ``cases``; and the pieces of
-    the v8 and v6 layer backwards after their one gate GEMM: the c scan at
-    K=1 (row 6 there) and the sweep at K=1 over the full c, the piece rows
-    8, 7 and 5 launch (its kernel call overwrites a copy of the
-    activations, timed with it). Call under ``no_grad``."""
+    (the trainer's stacked weights, seeded activations) to ``loso_cases``,
+    and subject 0's share to ``cases``: for a bf16 trainer their bf16
+    forms, on its weights cast to bf16 and bf16 activations (``xp`` the
+    projection rounded to bf16, as the v5 schedule's bf16 matmul writes it;
+    ``c_seq`` fp32). For an fp32 trainer also the pieces of the v8 and v6
+    layer backwards after their one gate GEMM: the c scan at K=1 (row 6
+    there) and the sweep at K=1 over the full c, the piece rows 8, 7 and 5
+    launch (its kernel call overwrites a copy of the activations, timed with
+    it). Call under ``no_grad``."""
     device = vt.device
-    pd = vt._param_dict(vt.params)
+    dtype = vt.compute_dtype or torch.float32
+    sfx = "_bf16" if dtype == BF16 else ""
+    pd = {n: p.to(dtype) for n, p in vt._param_dict(vt.params).items()}
     s_n = vt.n_subjects
-    randn = lambda *shape: torch.randn(shape, device=device, generator=gen)
+    randn = lambda *shape: torch.randn(shape, device=device, generator=gen).to(dtype)
     x = randn(s_n, BATCH, vt.data.arrays["eeg"].shape[2] // 8, pd["eeg_net.temp_conv.6.weight"].shape[1])
     for k in range(2):
         part = lambda name, sfx: pd[f"eeg_net.bilstm.{name}_l{k}{sfx}"]
@@ -1796,33 +1866,37 @@ def schedule_kernel_cases(vt: VectorizedLOSOTrainer, gen: torch.Generator, cases
                           part("bias_ih", "_reverse") + part("bias_hh", "_reverse")], 1))
         h_seq = lstm.bilstm_fwd_plain(x, *w)
         c_seq = lstm.bilstm_cseq_plain(x, h_seq, *w)
-        xp = lstm._projection(x, w[0], w[2])
+        xp = lstm._projection(x.float(), w[0].float(), w[2].float()).to(dtype)
+        # row 5 reads the v5 forward's h and c over that xp, as on the v5 path
+        hc_xp = lstm.bilstm_fwd_xp_plain(xp, w[1])
         dh = randn(*h_seq.shape)
         label = f"layer {k} {tuple(x.shape)}"
         for name, args in (("bilstm_fwd_xp", (xp, w[1])),
-                           ("bilstm_bwd_xp", (dh, xp, h_seq, c_seq, w[1])),
+                           ("bilstm_bwd_xp", (dh, xp, *hc_xp, w[1])),
                            ("bilstm_cseq", (x, h_seq, *w)),
                            ("bilstm_bwd_split", (dh, x, h_seq, c_seq, *w)),
                            ("bilstm_bwdc", (dh, x, h_seq, c_seq, *w)),
                            ("bilstm_cbndk", (x, h_seq, *w))):
             fn, plain = getattr(lstm, name), getattr(lstm, name + "_plain")
             a0 = tuple(a[0] for a in args)
-            loso_cases.setdefault(name, []).append((f"S={s_n} {label}", lambda a=args, f=fn: f(*a),
-                                     lambda a=args, p=plain: p(*a), args))
-            cases[name].append((f"subject 0 of S={s_n} {label}", lambda a=a0, f=fn: f(*a),
-                                lambda a=a0, p=plain: p(*a), a0))
-        act = lstm.bilstm_gemm_plain("gates", x, *w, h_seq=h_seq)
-        args = (act, dh, c_seq, w[1])
-        for what, a, into in ((f"S={s_n}", args, loso_cases),
-                              (f"subject 0 of S={s_n}", tuple(t[0] for t in args), cases)):
-            into["bilstm_cscan"].append((
-                f"{what} {label} K 1 (row 6 in the v8 and v6 backward)",
-                lambda a=a: lstm.bilstm_cscan(a[0], 1),
-                lambda a=a: lstm.bilstm_cscan_plain(a[0], 1), a[:1]))
-            into["bilstm_sweep"].append((
-                f"{what} {label} K 1 (rows 8, 7 and 5)",
-                lambda a=a: lstm.bilstm_sweep(a[0].clone(), *a[1:], 1),
-                lambda a=a: lstm.bilstm_sweep_plain(*a, 1), a))
+            loso_cases.setdefault(name + sfx, []).append((
+                f"S={s_n} {label}", lambda a=args, f=fn: f(*a), lambda a=args, p=plain: p(*a),
+                args))
+            cases[name + sfx].append((f"subject 0 of S={s_n} {label}", lambda a=a0, f=fn: f(*a),
+                                      lambda a=a0, p=plain: p(*a), a0))
+        if not sfx:
+            act = lstm.bilstm_gemm_plain("gates", x, *w, h_seq=h_seq)
+            args = (act, dh, c_seq, w[1])
+            for what, a, into in ((f"S={s_n}", args, loso_cases),
+                                  (f"subject 0 of S={s_n}", tuple(t[0] for t in args), cases)):
+                into["bilstm_cscan"].append((
+                    f"{what} {label} K 1 (row 6 in the v8 and v6 backward)",
+                    lambda a=a: lstm.bilstm_cscan(a[0], 1),
+                    lambda a=a: lstm.bilstm_cscan_plain(a[0], 1), a[:1]))
+                into["bilstm_sweep"].append((
+                    f"{what} {label} K 1 (rows 8, 7 and 5)",
+                    lambda a=a: lstm.bilstm_sweep(a[0].clone(), *a[1:], 1),
+                    lambda a=a: lstm.bilstm_sweep_plain(*a, 1), a))
         x = h_seq
 
 
@@ -3686,11 +3760,12 @@ def moved_bytes(name: str, args, res) -> int:
 
 def peak_rate(name: str, args) -> float:
     """The card's peak rate for the type of one case's operations: the
-    recurrence and the sweep compute in fp32 in both forms; the GEMM's
+    recurrence (row 1's piece, and row 4, which is that piece storing c), the
+    sweep and the c scan compute in fp32 in both forms; the GEMM's
     bf16 x bf16 products (the bf16 form's proj, gates and gates_xp) at the
     bf16 rate, its products with an fp32 operand at the TF32 rate, counted per pass
     (:func:`operations`); any other bf16 form at the bf16 rate."""
-    if name.startswith(("bilstm_rec", "bilstm_sweep", "bilstm_cscan")):
+    if name.startswith(("bilstm_rec", "bilstm_sweep", "bilstm_cscan", "bilstm_fwd_xp")):
         return PEAK_FP32_FLOPS
     if name.endswith("_f64"):
         return PEAK_FP64_FLOPS
@@ -3913,6 +3988,7 @@ def main() -> int:
     fp32_logits = serve_outs["serving"]
     serve_bf16_counts, bf16_logits = serving_bf16_phase(model, pool, plan, fp32_logits)
     serve_v5_counts, v5_logits = serving_v5_phase(model, pool, plan, fp32_logits)
+    serve_bf16_v5_counts, _ = serving_bf16_phase(model, pool, plan, fp32_logits, "v5")
     export_counts = export_phase(model, pool, plan, {
         "fixed64_use_pallas": serve_outs["serving_use_pallas"], "poly_fp32": fp32_logits,
         "poly_bf16": bf16_logits, "fixed64_v5": v5_logits}, smi)
@@ -3926,7 +4002,8 @@ def main() -> int:
     vt = make_loso_trainer(full)
     loso = loso_phase(vt)
     loso_step_parity(full)
-    schedule_counts = loso_schedules_phase(full)
+    schedule_counts, schedule_losses = loso_schedules_phase(full)
+    bf16_schedule_counts = loso_bf16_schedules_phase(full, schedule_losses)
     schedule_gradient_parity(full)
     loso_bf16_counts, vt16 = loso_bf16_phase(full, loso)
     b512_counts = loso_b512_phase(full)
@@ -3955,9 +4032,9 @@ def main() -> int:
             encoder, None, classifier, train, val, num_epochs=1, batch_size=MEMHACL_BATCH,
             verbose=False), show=("fusion_head",))
 
-    phases = (serve_counts, serve_bf16_counts, serve_v5_counts, export_counts, quantized_counts,
-              train_counts, loso["counts"],
-              schedule_counts, loso_bf16_counts, b512_counts, phased_counts, simclr_counts,
+    phases = (serve_counts, serve_bf16_counts, serve_v5_counts, serve_bf16_v5_counts,
+              export_counts, quantized_counts, train_counts, loso["counts"],
+              schedule_counts, bf16_schedule_counts, loso_bf16_counts, b512_counts, phased_counts, simclr_counts,
               memhacl_counts, memhacl_bf16_counts, attention_counts, checkpoint_counts,
               cli_counts, dsp_counts)
     counts = {name: sum(c[name] for c in phases) for name in KERNELS}
@@ -3976,6 +4053,7 @@ def main() -> int:
     # the bf16 forms: the eval model forward cast to bf16, the bf16 LOSO step
     serving_kernel_cases(copy.deepcopy(model).to(BF16), first["eeg"].to(BF16), cases)
     loso_cases.update(loso_kernel_cases(vt16, gen, one_model=cases))
+    schedule_kernel_cases(vt16, gen, cases, loso_cases)
     for name in ("stem_tail", "stem_tail_bf16"):
         host_device_split(name, cases[name], "stem_tail_fwd")
     # row 13: the tile kernel against the rest of a call (the mean kernel)

@@ -9,8 +9,9 @@
 //                     segments, which with three products of lstm_gemm.cu
 //                     replaces ::_segbwd_kernel
 //
-// and, fp32 only, the JAX package's other backward schedules (v5, v6, v8,
-// v9.1), each built from these two kernels and lstm_gemm.cu:
+// and the JAX package's other backward schedules (v5, v6, v8, v9.1), each
+// built from these two kernels and lstm_gemm.cu, in the same two forms (the
+// sweep's bf16 form, the scan's one form over fp32 activations):
 //
 //   msa_bilstm_cscan  at K = 1: the full fp32 c_seq (S, 2, T, B, H), (a)'s
 //                     checkpoints at K = 1 (slot t is c at actual time t in
@@ -110,7 +111,12 @@
 // so they are this design at K = 1: the wrappers (kernels/lstm.py::
 // bilstm_bwdc, ::bilstm_bwd_split, ::bilstm_bwd_xp) pass a full c_seq (row
 // 6's, or the v5 forward's) as the checkpoints; row 5's gates come from xp
-// (lstm_gemm.cu kGatesXp) instead of x.
+// (lstm_gemm.cu kGatesXp) instead of x. At K = 1 every slot holds its
+// step's c, so each step reads c from its own slot instead of rebuilding it
+// from the previous one, as ::_bwd_kernel, ::_bwd_xproj_kernel and
+// ::_bwd_bwdc_kernel read c_cur. For row 5 the two differ in bf16: the v5
+// forward carried h in fp32 and its c_seq is that recurrence's, while the
+// backward's gates come from the stored h_seq, rounded to bf16.
 //
 // msa_bilstm_sweep has an fp32 and a bf16 form (suffix _bf16), one template
 // over the element type of dh_seq and W_hh, as the JAX kernels are Mosaic
@@ -271,6 +277,13 @@ bilstm_sweep_kernel(float* __restrict__ act,          // (S, B, T, 8H): i, f, g,
                 for (int q = 0; q < kRt; ++q) {
                     cp[q] = c[q];
                     c[q] = fg[q] * c[q] + ig[q] * gg[q];
+                }
+            }
+            if (K == 1) {  // the full c: the row's own slot holds its c
+#pragma unroll
+                for (int q = 0; q < kRt; ++q) {
+                    const size_t b = b0 + rc + groups * q;
+                    c[q] = valid[q] ? c_bnd[(static_cast<size_t>(m) * B + b) * H] : 0.0f;
                 }
             }
 #pragma unroll

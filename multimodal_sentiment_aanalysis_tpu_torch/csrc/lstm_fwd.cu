@@ -36,12 +36,17 @@
 // 16 rows, 2 rows a thread, at S=1 (64 CTAs); C = 2 over all 64 rows, 8 a
 // thread, at S=24 (96 CTAs).
 //
-// msa_bilstm_rec_cseq, row 4, replaces ::_fwd_kernel (the v5 forward): the
-// same recurrence over the same packed xp (which the v5 schedule makes by
-// one matmul outside the kernel), with each thread also storing the fp32 c
-// of its rows and unit at every step from registers into c_seq (S, 2, T, B,
-// H), which the v5 backward (lstm_bwd.cu) reads. It needs no more shared
-// memory than row 1; the plan is row 1's fp32 plan. fp32 only.
+// msa_bilstm_rec_cseq (fp32) and msa_bilstm_rec_cseq_bf16, row 4, replace
+// ::_fwd_kernel (the v5 forward): the same recurrence over the same packed
+// xp (which the v5 schedule makes by one matmul outside the kernel), with
+// each thread also storing the fp32 c of its rows and unit at every step
+// from registers into c_seq (S, 2, T, B, H), which the v5 backward
+// (lstm_bwd.cu) reads. It needs no more shared memory than row 1; the plan
+// is row 1's plan for the storage type. In the bf16 form xp is bf16 too, as
+// the v5 schedule's bf16 matmul writes it and JAX's _fwd_kernel reads it
+// (upcast in registers as it is loaded: no fp32 copy of xp is made, which
+// at S=24 would add ~230 MB of writes and ~460 MB of reads to a kernel that
+// moves ~400 MB); h_seq is stored bf16, c_seq fp32.
 
 #include "lstm_cluster.cuh"
 
@@ -49,11 +54,13 @@ namespace {
 
 // ---- row 1: the recurrence over xp on a cluster ----
 
-// kStoreC: row 4's form, which also stores c into c_seq (unread otherwise);
-// a template flag, so that row 1's forms compile as they did without it
-template <typename E, int kRt, bool kStoreC>
+// X: xp's storage type (float for row 1, whose GEMM writes fp32 xp; E for
+// row 4). kStoreC: row 4's form, which also stores c into c_seq (unread
+// otherwise); a template flag, so that row 1's forms compile as they did
+// without it
+template <typename E, typename X, int kRt, bool kStoreC>
 __global__ void __launch_bounds__(kClusterMaxThreads)
-bilstm_rec_kernel(const float* __restrict__ xp,  // (S, B, T, 8H)
+bilstm_rec_kernel(const X* __restrict__ xp,      // (S, B, T, 8H)
                   const E* __restrict__ w_hh,    // (S, 2, 4H, H)
                   E* __restrict__ h_seq,         // (S, B, T, 2H)
                   float* __restrict__ c_seq,     // (S, 2, T, B, H)
@@ -101,7 +108,7 @@ bilstm_rec_kernel(const float* __restrict__ xp,  // (S, B, T, 8H)
         for (int q = 0; q < kRt; ++q) {
             const size_t at = (static_cast<size_t>(b0 + rc + groups * q) * T + t) * 2 * G;
 #pragma unroll
-            for (int g = 0; g < 4; ++g) v[q][g] = valid[q] ? xp[at + g * H] : 0.0f;
+            for (int g = 0; g < 4; ++g) v[q][g] = valid[q] ? to_float(xp[at + g * H]) : 0.0f;
         }
     };
     float c[kRt] = {}, acc[kRt][4], nxt[kRt][4];
@@ -152,8 +159,8 @@ bilstm_rec_kernel(const float* __restrict__ xp,  // (S, B, T, 8H)
     }
 }
 
-template <typename E, bool kStoreC>
-int launch_rec(const float* xp, const E* w_hh, E* h_seq, float* c_seq, int S, int B, int T,
+template <typename E, typename X, bool kStoreC>
+int launch_rec(const X* xp, const E* w_hh, E* h_seq, float* c_seq, int S, int B, int T,
                int H, int C, int bt, int rows, int smem_planned, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
@@ -169,7 +176,7 @@ int launch_rec(const float* xp, const E* w_hh, E* h_seq, float* c_seq, int S, in
     if (smem != static_cast<size_t>(smem_planned)) return cudaErrorInvalidValue;
     const int ntiles = (B + bt - 1) / bt;
     return by_rows(rows, [&](auto r) {
-        return launch_cluster(bilstm_rec_kernel<E, decltype(r)::value, kStoreC>, C, ntiles * 2 * S,
+        return launch_cluster(bilstm_rec_kernel<E, X, decltype(r)::value, kStoreC>, C, ntiles * 2 * S,
                               threads, smem, stream, xp, w_hh, h_seq, c_seq, B, T, H, bt, ntiles);
     });
 }
@@ -182,23 +189,31 @@ int launch_rec(const float* xp, const E* w_hh, E* h_seq, float* c_seq, int S, in
 extern "C" int msa_bilstm_rec(const float* xp, const float* w_hh, float* h_seq, int S, int B,
                               int T, int H, int C, int bt, int rows, int smem_planned, int device,
                               void* stream) {
-    return launch_rec<float, false>(xp, w_hh, h_seq, nullptr, S, B, T, H, C, bt, rows,
-                                    smem_planned, device, stream);
+    return launch_rec<float, float, false>(xp, w_hh, h_seq, nullptr, S, B, T, H, C, bt, rows,
+                                           smem_planned, device, stream);
 }
 
 extern "C" int msa_bilstm_rec_bf16(const float* xp, const __nv_bfloat16* w_hh,
                                    __nv_bfloat16* h_seq, int S, int B, int T, int H, int C,
                                    int bt, int rows, int smem_planned, int device, void* stream) {
-    return launch_rec<__nv_bfloat16, false>(xp, w_hh, h_seq, nullptr, S, B, T, H, C, bt, rows,
-                                            smem_planned, device, stream);
+    return launch_rec<__nv_bfloat16, float, false>(xp, w_hh, h_seq, nullptr, S, B, T, H, C, bt,
+                                                   rows, smem_planned, device, stream);
 }
 
-// row 4, the v5 forward: row 1's recurrence, fp32, also storing c_seq
-// (S, 2, T, B, H) in fp32
+// row 4, the v5 forward: row 1's recurrence, also storing c_seq
+// (S, 2, T, B, H) in fp32; xp, W_hh and h_seq in the storage type
 extern "C" int msa_bilstm_rec_cseq(const float* xp, const float* w_hh, float* h_seq,
                                    float* c_seq, int S, int B, int T, int H, int C, int bt,
                                    int rows, int smem_planned, int device, void* stream) {
-    return launch_rec<float, true>(xp, w_hh, h_seq, c_seq, S, B, T, H, C, bt, rows, smem_planned,
-                                   device, stream);
+    return launch_rec<float, float, true>(xp, w_hh, h_seq, c_seq, S, B, T, H, C, bt, rows,
+                                          smem_planned, device, stream);
+}
+
+extern "C" int msa_bilstm_rec_cseq_bf16(const __nv_bfloat16* xp, const __nv_bfloat16* w_hh,
+                                        __nv_bfloat16* h_seq, float* c_seq, int S, int B, int T,
+                                        int H, int C, int bt, int rows, int smem_planned,
+                                        int device, void* stream) {
+    return launch_rec<__nv_bfloat16, __nv_bfloat16, true>(xp, w_hh, h_seq, c_seq, S, B, T, H, C,
+                                                          bt, rows, smem_planned, device, stream);
 }
 

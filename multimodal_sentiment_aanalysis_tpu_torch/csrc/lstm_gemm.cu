@@ -19,11 +19,12 @@
 //            order, so the result is deterministic without atomics;
 //   kGatesXp ::_bwd_kernel's (v5) gate recompute: act(xp_d + h_prev . W_hh_d^T)
 //            from the packed projection xp (S, B, T, 8H) the v5 forward read,
-//            written as kGates writes. It is kGates with I = 0: K = H, the A
-//            operand h_prev alone and the B operand the W_hh rows, and the
-//            epilogue adds xp[m, d 4H + n] where kGates adds bias[n] (xp
-//            stays out of the product: as an identity operand it would make
-//            K = 9H).
+//            in the storage type (bf16 in the bf16 form, as JAX's _bwd_kernel
+//            reads the v5 schedule's bf16 xp), written as kGates writes. It
+//            is kGates with I = 0: K = H, the A operand h_prev alone and the
+//            B operand the W_hh rows, and the epilogue adds xp[m, d 4H + n]
+//            where kGates adds bias[n] (xp stays out of the product: as an
+//            identity operand it would make K = 9H).
 //
 // What bounds it on the H100: at the flagship layer (B=64, T=73, I=256, H=128)
 // each mode is 2.4-3.7 GFLOP per direction pair and model, so the tensor-core
@@ -98,7 +99,8 @@ struct Operands {
     const E* w_ih;    // (S, 2, 4H, I)
     const E* w_hh;    // (S, 2, 4H, H)
     const E* bias;    // (S, 2, 4H)
-    const float* dg;  // (S, B, T, 8H) packed fp32: dgates (kDx, kDw), xp (kGatesXp)
+    const float* dg;  // (S, B, T, 8H) packed fp32 dgates (kDx, kDw)
+    const E* xp;      // (S, B, T, 8H) packed projection (kGatesXp)
     float* out;
     float* part;      // kDw at splits > 1: (splits, S, 2, I+H+1, 4H) partials
     int B, T, I, H;
@@ -258,6 +260,7 @@ __global__ void __launch_bounds__(kThreads) bilstm_gemm_kernel(Operands<E> p, in
     if (p.w_hh) p.w_hh += (model * 2 + d) * G * p.H;
     if (p.bias) p.bias += (model * 2 + d) * G;
     if (p.dg) p.dg += model * rows * 2 * G;
+    if (p.xp) p.xp += model * rows * 2 * G;
 
     // this block's k-tiles: all of them, or its split's fixed range (kDw)
     const int nk_all = (p.K + kBk - 1) / kBk;
@@ -342,9 +345,9 @@ __global__ void __launch_bounds__(kThreads) bilstm_gemm_kernel(Operands<E> p, in
                 if (m >= p.M || n >= p.N) continue;
                 float v = acc[i][j][e];
                 if constexpr (kMode == kProj || kReadsH<kMode>) {
-                    // p.dg is this model's xp in kGatesXp
-                    v += kMode == kGatesXp ? p.dg[static_cast<size_t>(m) * 2 * G + d * G + n]
-                                           : to_float(p.bias[n]);
+                    v += kMode == kGatesXp
+                             ? to_float(p.xp[static_cast<size_t>(m) * 2 * G + d * G + n])
+                             : to_float(p.bias[n]);
                     if constexpr (kReadsH<kMode>) v = n / p.H == 2 ? tanhf(v) : sigmoid_f(v);
                     dst[(model * rows + m) * 2 * G + d * G + n] = v;
                 } else {  // (S, 2, M, N)
@@ -394,11 +397,16 @@ int launch(Operands<E> p, int S, int splits, int device, void* stream) {
     return cudaGetLastError();
 }
 
+// dg: the fp32 dgates, or xp in the storage type E (kGatesXp)
 template <typename E>
 int dispatch(int mode, const E* x, const E* h_seq, const E* w_ih, const E* w_hh, const E* bias,
-             const float* dg, float* out, float* part, int S, int B, int T, int I, int H,
+             const void* dg, float* out, float* part, int S, int B, int T, int I, int H,
              int splits, int device, void* stream) {
-    const Operands<E> p{x, h_seq, w_ih, w_hh, bias, dg, out, part, B, T, I, H, 0, 0, 0};
+    const bool is_xp = mode == kGatesXp;
+    const Operands<E> p{x, h_seq, w_ih, w_hh, bias,
+                        is_xp ? nullptr : static_cast<const float*>(dg),
+                        is_xp ? static_cast<const E*>(dg) : nullptr,
+                        out, part, B, T, I, H, 0, 0, 0};
     switch (mode) {
         case kProj: return launch<kProj>(p, S, splits, device, stream);
         case kGates: return launch<kGates>(p, S, splits, device, stream);
@@ -414,11 +422,12 @@ int dispatch(int mode, const E* x, const E* h_seq, const E* w_ih, const E* w_hh,
 // mode: 0 xp (S, B, T, 8H); 1 gate activations (S, B, T, 8H); 2 dx_pk
 // (S, 2, B, T, I); 3 dW_cat (S, 2, I+H+1, 4H), its B*T rows in `splits`
 // ranges whose partials go to `part` (splits, S, 2, I+H+1, 4H) when splits
-// > 1; 4 the v5 gate activations (S, B, T, 8H) from h_seq, W_hh and the fp32
-// xp (S, B, T, 8H), passed as dg (I is not read). Operands a mode does not
-// read may be null.
+// > 1; 4 the v5 gate activations (S, B, T, 8H) from h_seq, W_hh and xp
+// (S, B, T, 8H) in the storage type of the form, passed as dg (I is not
+// read); dg is the fp32 dgates otherwise. Operands a mode does not read may
+// be null.
 extern "C" int msa_bilstm_gemm(int mode, const float* x, const float* h_seq, const float* w_ih,
-                               const float* w_hh, const float* bias, const float* dg, float* out,
+                               const float* w_hh, const float* bias, const void* dg, float* out,
                                float* part, int S, int B, int T, int I, int H, int splits,
                                int device, void* stream) {
     return dispatch(mode, x, h_seq, w_ih, w_hh, bias, dg, out, part, S, B, T, I, H, splits,
@@ -427,7 +436,7 @@ extern "C" int msa_bilstm_gemm(int mode, const float* x, const float* h_seq, con
 
 extern "C" int msa_bilstm_gemm_bf16(int mode, const __nv_bfloat16* x, const __nv_bfloat16* h_seq,
                                     const __nv_bfloat16* w_ih, const __nv_bfloat16* w_hh,
-                                    const __nv_bfloat16* bias, const float* dg, float* out,
+                                    const __nv_bfloat16* bias, const void* dg, float* out,
                                     float* part, int S, int B, int T, int I, int H, int splits,
                                     int device, void* stream) {
     return dispatch(mode, x, h_seq, w_ih, w_hh, bias, dg, out, part, S, B, T, I, H, splits,

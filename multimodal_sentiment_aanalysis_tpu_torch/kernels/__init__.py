@@ -41,8 +41,8 @@ for both: three ``bilstm_gemm``, one ``bilstm_cscan``, one ``bilstm_sweep``.
   ``kernels/attention.py::_bwd_dkv_kernel``
 - ``fusion_head``: ``fusion_head.fusion_head``, ``csrc/fusion_head.cu``,
   ``kernels/fusion_head.py::_kernel``; its bf16 form ``fusion_head_bf16``
-- the BiLSTM's other schedules (``lstm.fused_bilstm_layer(schedule=)``),
-  fp32 only: ``bilstm_fwd_xp`` (``csrc/lstm_fwd.cu``, ``kernels/lstm.py::
+- the BiLSTM's other schedules (``lstm.fused_bilstm_layer(schedule=)``):
+  ``bilstm_fwd_xp`` (``csrc/lstm_fwd.cu``, ``kernels/lstm.py::
   _fwd_kernel``; ``bilstm_rec``'s cluster recurrence in its form that also
   stores c, an entry point with its own count); ``bilstm_cbndk``
   (``lstm.bilstm_cbndk``, ``::_cbndk_kernel``, v9.1), a call of the wrapper,
@@ -71,10 +71,11 @@ count one call of ``bilstm_cseq`` and one of ``bilstm_bwdc`` or
 ``bilstm_bwd_split`` and launch the gate GEMM once for both: v8 three
 ``bilstm_gemm``, one ``bilstm_cscan``, one ``bilstm_sweep``; v6 one of each.
 
-The first ten but ``bilstm_cscan`` also have a bf16 form with its own
-counter (``bilstm_fwd_bf16``, ...): a second C entry point of the same
-source with the suffix ``_bf16``, which a wrapper launches for bf16 tensors
-(for the three rows' calls, a second call count). Each wrapper counts its
+The first ten but ``bilstm_cscan``, and the other schedules' six, also
+have a bf16 form with its own counter (``bilstm_fwd_bf16``, ...,
+``bilstm_fwd_xp_bf16``, ...): a second C entry point of the same source
+with the suffix ``_bf16``, which a wrapper launches for bf16 tensors (for
+the rows' calls, a second call count). Each wrapper counts its
 launches, so a run can show which kernels, and which forms, its path went
 through (:func:`launch_counts`).
 
@@ -124,6 +125,12 @@ KERNELS = {
     "bilstm_bwd_split": lstm.BWD_SPLIT_KERNEL,
     "bilstm_bwdc": lstm.BWDC_KERNEL,
     "bilstm_cbndk": lstm.CBNDK_KERNEL,
+    "bilstm_fwd_xp_bf16": lstm.FWD_XP_KERNELS[_BF16],
+    "bilstm_bwd_xp_bf16": lstm.BWD_XP_KERNELS[_BF16],
+    "bilstm_cseq_bf16": lstm.CSEQ_KERNELS[_BF16],
+    "bilstm_bwd_split_bf16": lstm.BWD_SPLIT_KERNELS[_BF16],
+    "bilstm_bwdc_bf16": lstm.BWDC_KERNELS[_BF16],
+    "bilstm_cbndk_bf16": lstm.CBNDK_KERNELS[_BF16],
     "sos_filtfilt": iir.KERNEL,
     "sos_filtfilt_f64": iir.F64_KERNEL,
 }

@@ -24,7 +24,8 @@ The ops:
   :func:`.lstm.bilstm_fwd`, JAX ``kernels/lstm.py::_fwd_xproj_kernel``;
 - ``bilstm_rec(xp, w_hh) -> h_seq``: row 1's recurrence,
   :func:`.lstm.bilstm_rec`;
-- ``bilstm_fwd_xp(xp, w_hh) -> (h_seq, c_seq)``: row 4,
+- ``bilstm_fwd_xp(xp, w_hh) -> (h_seq, c_seq)``: row 4 (``h_seq`` in the
+  dtype of ``w_hh``, ``c_seq`` fp32),
   :func:`.lstm.bilstm_fwd_xp`, JAX ``kernels/lstm.py::_fwd_kernel``;
 - ``conv_stem(x, weight, scale, shift, padding, pool) -> y``: row 3,
   :func:`.conv_stem.fused_conv_bn_gelu_pool`, JAX
@@ -97,7 +98,7 @@ def _(xp, w_hh):
 def _(xp, w_hh):
     *s, b, t, _ = xp.shape
     h = w_hh.shape[-1]
-    return (xp.new_empty(*s, b, t, 2 * h, dtype=torch.float32),
+    return (xp.new_empty(*s, b, t, 2 * h, dtype=w_hh.dtype),
             xp.new_empty(*s, 2, t, b, h, dtype=torch.float32))
 
 

@@ -45,7 +45,7 @@ schedule forward                                      backward
                                                       the projection
 ======== ============================================ ======================================================
 
-The schedules other than v9 take fp32 only (``TypeError`` otherwise).
+Every schedule takes fp32 and bf16 (``TypeError`` for another dtype).
 The JAX package's "v7" (``MSA_LSTM_BWDC=1, MSA_LSTM_SEGBWD=0``) runs the
 v8 kernels. v9.1's time-blocked checkpoints (row 10) are the v9
 checkpoints computed in blocks of :data:`CBNDK_ROWS` time rows; the
@@ -79,14 +79,16 @@ under ``vmap`` too, so each backward kernel is a Function of its own.
 A CPU tensor takes the plain versions, a CUDA tensor launches the kernel or
 raises.
 
-The v9 kernels have an fp32 and a bf16 form, chosen by the dtype of ``x``
-(the weights and ``h_seq``/``dh_seq`` must share it; fp16 raises
-``TypeError``). As in the JAX kernels, the bf16 form reads bf16 and does
-all arithmetic in fp32: ``h`` and ``c`` are carried in fp32, ``h_seq`` is
-stored as bf16, and the c checkpoints, the dx halves and ``dW_cat`` are
-fp32; the layer's backward rounds dx and the weight gradients to the
-inputs' dtype, as ``_xproj_bwd`` does. The plain versions compute in fp32
-and store as the kernels store.
+Every kernel has an fp32 and a bf16 form, chosen by the dtype of ``x``
+(or of ``xp`` under v5; the weights and ``h_seq``/``dh_seq`` must share
+it; fp16 raises ``TypeError``). As in the JAX kernels, the bf16 form reads
+bf16 and does all arithmetic in fp32: ``h`` and ``c`` are carried in fp32,
+``h_seq`` is stored as bf16, and ``c_seq``, the c checkpoints, ``dxp``, the
+dx halves and ``dW_cat`` are fp32; the layer's backward rounds dx and the
+weight gradients to the inputs' dtype, as ``_xproj_bwd`` and
+``_recurrence_bwd`` do. v5's projection ``xp`` is a bf16 matmul outside
+the kernels, as in JAX, and rows 4 and 5 read it as bf16. The plain
+versions compute in fp32 and store as the kernels store.
 """
 
 from __future__ import annotations
@@ -96,8 +98,8 @@ import functools
 
 import torch
 
-from ._build import (F32, F32_BF16, MAX_MODELS, CallCount, CudaKernel, call_counts, check_cuda,
-                     kernel_forms, models_first, ptr, upcast, with_models)
+from ._build import (F32, F32_BF16, MAX_MODELS, CudaKernel, call_counts, check_cuda, kernel_forms,
+                     models_first, ptr, upcast, with_models)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # fp32 and bf16 forms of each kernel, by the dtype of x. Rows 1, 9 and 11
@@ -113,13 +115,16 @@ CSCAN_KERNEL = CudaKernel("lstm_bwd", "msa_bilstm_cscan", [_P] * 2 + [_I] * 5)
 KERNEL, CBND_KERNEL, SEGBWD_KERNEL, GEMM_KERNEL, REC_KERNEL, SWEEP_KERNEL = (
     k[torch.float32] for k in (KERNELS, CBND_KERNELS, SEGBWD_KERNELS, GEMM_KERNELS, REC_KERNELS,
                                SWEEP_KERNELS))
-# the other schedules' kernels, fp32 only
-# row 4 (v5 forward): row 1's recurrence kernel with its c store, an entry point of its own
-FWD_XP_KERNEL = CudaKernel("lstm_fwd", "msa_bilstm_rec_cseq", [_P] * 4 + [_I] * 8)
+# the other schedules' kernels, fp32 and bf16, by the dtype of x (v5: of xp)
+# row 4 (v5 forward): row 1's recurrence kernel with its c store, entry points of its own
+FWD_XP_KERNELS = kernel_forms("lstm_fwd", "msa_bilstm_rec_cseq", [_P] * 4 + [_I] * 8)
 # rows 5, 6, 7 and 8: calls of wrappers over the GEMM and the sweep or the c scan
 # and row 10 (v9.1): a call of row 9's pieces
-BWD_XP_KERNEL, CSEQ_KERNEL, BWD_SPLIT_KERNEL, BWDC_KERNEL, CBNDK_KERNEL = (
-    CallCount() for _ in range(5))
+BWD_XP_KERNELS, CSEQ_KERNELS, BWD_SPLIT_KERNELS, BWDC_KERNELS, CBNDK_KERNELS = (
+    call_counts() for _ in range(5))
+FWD_XP_KERNEL, BWD_XP_KERNEL, CSEQ_KERNEL, BWD_SPLIT_KERNEL, BWDC_KERNEL, CBNDK_KERNEL = (
+    k[torch.float32] for k in (FWD_XP_KERNELS, BWD_XP_KERNELS, CSEQ_KERNELS, BWD_SPLIT_KERNELS,
+                               BWDC_KERNELS, CBNDK_KERNELS))
 
 SCHEDULES = ("v5", "v6", "v8", "v9", "v9.1")
 
@@ -297,10 +302,10 @@ def gemm_splits(s: int, rows: int, i: int, h: int, sms: int = H100_SMS) -> int:
 
 def _gemm(mode: str, x, w_ih, w_hh, bias, h_seq, dg, out) -> None:
     """Launch one mode of the GEMM on validated, model-axis-first operands.
-    ``dg`` is the packed fp32 operand: dgates (``"dx"``, ``"dw"``) or ``xp``
-    (``"gates_xp"``, which reads no ``x``, ``w_ih`` or ``bias``: None). Its
-    copies read 16-byte vectors (8-byte for bf16), so every operand starts
-    on a 16-byte boundary."""
+    ``dg`` is the packed operand: the fp32 dgates (``"dx"``, ``"dw"``) or
+    ``xp`` in the dtype of ``w_hh`` (``"gates_xp"``, which reads no ``x``,
+    ``w_ih`` or ``bias``: None). Its copies read 16-byte vectors (8-byte for
+    bf16), so every operand starts on a 16-byte boundary."""
     s, b, t, i = x.shape if x is not None else (*h_seq.shape[:3], 0)
     h = w_hh.shape[-1]
     for name, a in (("x", x), ("h_seq", h_seq), ("w_ih", w_ih), ("w_hh", w_hh), ("dg", dg)):
@@ -333,10 +338,11 @@ def bilstm_gemm(mode: str, x, w_ih, w_hh, bias, h_seq=None, dg=None, xp=None) ->
       ranges whose partials a second kernel sums in rank order
       (deterministic, no atomics);
     - ``"gates_xp"``: the v5 gate activations ``(B, T, 8H)``, sigmoid (tanh
-      for g) of ``xp + h_prev W_hh^T`` from the packed fp32 projection ``xp
-      (B, T, 8H)``, in the packing of ``"gates"``; it reads no ``x``,
-      ``w_ih`` or ``bias`` (they may be None), and ``xp`` is added after the
-      product, not multiplied (K = H).
+      for g) of ``xp + h_prev W_hh^T`` from the packed projection ``xp (B,
+      T, 8H)`` in the dtype of ``w_hh`` (bf16 in the bf16 form, as the v5
+      schedule's bf16 matmul writes it), in the packing of ``"gates"``; it
+      reads no ``x``, ``w_ih`` or ``bias`` (they may be None), and ``xp`` is
+      added after the product, not multiplied (K = H).
 
     fp32 operands run as 3xTF32 on the tensor cores (fp32-accurate), bf16
     ones as stored. A CPU tensor takes :func:`bilstm_gemm_plain`; a CUDA
@@ -349,7 +355,7 @@ def bilstm_gemm(mode: str, x, w_ih, w_hh, bias, h_seq=None, dg=None, xp=None) ->
         raise ValueError(f"unknown GEMM mode {mode!r}; one of {GEMM_MODES}")
     if mode == "gates_xp":
         (xp, h_seq, w_hh), one = with_models(xp, h_seq, w_hh)
-        s, b, t, h = _check_xp(xp, w_hh, F32_BF16)
+        s, b, t, h = _check_xp(xp, w_hh)
         _check_widths(0, h)
         check_cuda("h_seq", h_seq, xp.device, (s, b, t, 2 * h), (w_hh.dtype,))
         out = _gate_activations_xp(xp, h_seq, w_hh)
@@ -407,7 +413,7 @@ def bilstm_fwd_cuda(x, w_ih, w_hh, bias) -> torch.Tensor:
 def bilstm_rec_plain(xp, w_hh) -> torch.Tensor:
     """Plain PyTorch version of :func:`bilstm_rec`: the recurrence step by
     step in fp32, ``h_seq`` in the dtype of ``w_hh``."""
-    (xp, w32), one = with_models(xp, upcast(w_hh))
+    (xp, w32), one = with_models(xp, w_hh)
     out = _recurrence_plain(xp, w32)[0].to(w_hh.dtype)
     return out[0] if one else out
 
@@ -464,7 +470,9 @@ def _projection(x, w_ih, bias) -> torch.Tensor:
 
 def _recurrence_plain(xp, w_hh) -> tuple[torch.Tensor, torch.Tensor]:
     """``(h_seq (S, B, T, 2H), c_seq (S, 2, T, B, H))`` of the recurrence
-    over the packed projection ``xp``, step by step."""
+    over the packed projection ``xp``, step by step, h and c carried in
+    fp32 whatever the operands' dtype."""
+    xp, w_hh = upcast(xp), upcast(w_hh)
     s, b, t, _ = xp.shape
     h = w_hh.shape[-1]
     g = 4 * h
@@ -498,13 +506,12 @@ def fused_bilstm_layer_plain(x: torch.Tensor, fwd: Params, bwd: Params) -> torch
 
 def check_schedule(schedule: str, dtype: torch.dtype) -> None:
     """Raise ``ValueError`` for a schedule not in :data:`SCHEDULES`, and
-    ``TypeError`` for a dtype other than fp32 under a schedule other than
-    v9 (their kernels have an fp32 form only)."""
+    ``TypeError`` for a dtype other than fp32 or bf16 (every schedule's
+    kernels have those two forms)."""
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown BiLSTM schedule {schedule!r}; one of {SCHEDULES}")
-    if schedule != "v9" and dtype != torch.float32:
-        raise TypeError(f"BiLSTM schedule {schedule} takes float32 only, not {dtype}; "
-                        "v9 also takes bfloat16")
+    if dtype not in F32_BF16:
+        raise TypeError(f"BiLSTM schedule {schedule} takes float32 or bfloat16, not {dtype}")
 
 
 class _FusedBiLSTM(torch.autograd.Function):
@@ -527,11 +534,14 @@ class _FusedBiLSTM(torch.autograd.Function):
         x, w_ih, w_hh, bias, h_seq = ctx.saved_tensors
         w = (w_ih, w_hh, bias)
         if ctx.schedule == "v6":
+            # dxp is fp32; the reductions read the bf16 operands upcast, as
+            # JAX's do (xf = x.astype(f32)), and round at the end
             dxp = _V6Bwd.apply(dh_seq, x, h_seq, *w)
             dg = dxp.unflatten(-1, (2, -1))  # (..., B, T, 2, 4H)
-            return (torch.einsum("...btdg,...dgi->...bti", dg, w_ih),
-                    torch.einsum("...btdg,...bti->...dgi", dg, x), _dw_hh_packed(h_seq, dxp),
-                    dg.sum((-4, -3)), None)
+            return (torch.einsum("...btdg,...dgi->...bti", dg, upcast(w_ih)).to(x.dtype),
+                    torch.einsum("...btdg,...bti->...dgi", dg, upcast(x)).to(w_ih.dtype),
+                    _dw_hh_packed(h_seq, dxp).to(w_hh.dtype), dg.sum((-4, -3)).to(bias.dtype),
+                    None)
         if ctx.schedule == "v8":
             dx_pk, dw_cat = _V8Bwd.apply(dh_seq, x, h_seq, *w)
         else:
@@ -548,9 +558,10 @@ class _FusedBiLSTM(torch.autograd.Function):
 
 class _RecurrenceXp(torch.autograd.Function):
     """The v5 recurrence: ``(h_seq, c_seq)`` from the packed projection ``xp``
-    by :func:`bilstm_fwd_xp`; its backward is :func:`bilstm_bwd_xp`'s ``dxp``
-    (the gradient of ``xp``) and dW_hh reduced from it. ``c_seq`` takes no
-    gradient."""
+    by :func:`bilstm_fwd_xp`; its backward is :func:`bilstm_bwd_xp`'s fp32
+    ``dxp`` (the gradient of ``xp``) and dW_hh reduced from it, each
+    rounded to its input's dtype at the end (JAX's ``_recurrence_bwd``).
+    ``c_seq`` takes no gradient."""
 
     @staticmethod
     def forward(xp, w_hh):
@@ -564,7 +575,7 @@ class _RecurrenceXp(torch.autograd.Function):
     def backward(ctx, dh_seq, _):
         xp, w_hh, h_seq, c_seq = ctx.saved_tensors
         dxp = _BwdXp.apply(dh_seq, xp, h_seq, c_seq, w_hh)
-        return dxp, _dw_hh_packed(h_seq, dxp)
+        return dxp.to(xp.dtype), _dw_hh_packed(h_seq, dxp).to(w_hh.dtype)
 
     @staticmethod
     def vmap(info, in_dims, *args):
@@ -572,9 +583,10 @@ class _RecurrenceXp(torch.autograd.Function):
 
 
 def _dw_hh_packed(h_seq: torch.Tensor, dxp: torch.Tensor) -> torch.Tensor:
-    """dW_hh ``(..., 2, 4H, H)`` from ``h_seq (..., B, T, 2H)`` and the packed
-    gate gradients ``dxp (..., B, T, 8H)``: the sum over (B, T) of
-    ``dgates^T h_prev`` per direction (``dw_hh_packed`` in JAX)."""
+    """dW_hh ``(..., 2, 4H, H)`` fp32 from ``h_seq (..., B, T, 2H)``, upcast,
+    and the fp32 packed gate gradients ``dxp (..., B, T, 8H)``: the sum over
+    (B, T) of ``dgates^T h_prev`` per direction (``dw_hh_packed`` in JAX)."""
+    h_seq = upcast(h_seq)
     h = h_seq.shape[-1] // 2
     hp = torch.stack([_h_prev(h_seq, 0, h), _h_prev(h_seq, 1, h)], -2)  # (..., B, T, 2, H)
     return torch.einsum("...btdg,...btdk->...dgk", dxp.unflatten(-1, (2, -1)), hp)
@@ -597,7 +609,8 @@ def fused_bilstm_layer(x: torch.Tensor, fwd: Params, bwd: Params,
     check_schedule(schedule, x.dtype)
     w_ih, w_hh, bias = stack_params(fwd, bwd)
     if schedule == "v5":
-        # the JAX order: one projection of both directions, (B, T, 8H)
+        # the JAX order: one projection of both directions, (B, T, 8H), a
+        # matmul in the operands' dtype (bf16 xp in bf16, as in JAX)
         xp = x @ w_ih.flatten(0, 1).T + bias.flatten()
         return _RecurrenceXp.apply(xp, w_hh)[0]
     return _FusedBiLSTM.apply(x, w_ih, w_hh, bias, schedule)
@@ -718,8 +731,9 @@ def _gate_activations(x, h_seq, w_ih, w_hh, bias) -> torch.Tensor:
 
 def _gate_activations_xp(xp, h_seq, w_hh) -> torch.Tensor:
     """The v5 gate activations ``(S, B, T, 8H)`` fp32 of validated operands,
-    by the GEMM's ``"gates_xp"`` product over the projection ``xp``."""
-    act = torch.empty_like(xp)
+    by the GEMM's ``"gates_xp"`` product over the projection ``xp`` (read in
+    its own dtype, fp32 or bf16)."""
+    act = torch.empty(xp.shape, device=xp.device, dtype=torch.float32)
     _gemm("gates_xp", None, None, w_hh, None, h_seq, xp, act)
     return act
 
@@ -743,15 +757,13 @@ def bilstm_cbnd(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
     return out
 
 
-def _gates_then_scan(x, h_seq, w_ih, w_hh, bias, k: int, fp32_only: bool = False) -> torch.Tensor:
-    """Rows 9, 10 and 6 on CUDA operands: the gate activations by the GEMM,
-    then :func:`bilstm_cscan` at ``k``; every check before the first launch
-    (``fp32_only``: the schedules other than v9 take fp32 only)."""
+def _gates_then_scan(x, h_seq, w_ih, w_hh, bias, k: int) -> torch.Tensor:
+    """Rows 9, 10 and 6 on CUDA operands: the gate activations by the GEMM
+    (its form by the dtype of ``x``), then :func:`bilstm_cscan` at ``k``;
+    every check before the first launch."""
     _check_device(x)
     (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
     _check_gemm_layer(x, h_seq, w_ih, w_hh, bias)
-    if fp32_only:
-        check_cuda("x", x, x.device)
     if k < 1:
         raise ValueError(f"segment length {k} < 1")
     out = bilstm_cscan(_gate_activations(x, h_seq, w_ih, w_hh, bias), k)
@@ -816,7 +828,7 @@ def bilstm_segbwd_plain(dh_seq, x, h_seq, c_bnd, w_ih, w_hh, bias,
             acts, cs = [], [c]
             for a in rows:
                 ig, fg, gg, og = _gates(x[:, :, a], hp[:, :, a], wi, wh, bd)
-                c = fg * c + ig * gg
+                c = c_bnd[:, d, a] if k == 1 else fg * c + ig * gg  # K = 1: the full c
                 acts.append((ig, fg, gg, og))
                 cs.append(c)
             for r in reversed(range(len(rows))):
@@ -885,9 +897,9 @@ def bilstm_v9_bwd(dh_seq, x, h_seq, w_ih, w_hh, bias, k: int = SEG_K,
                   schedule: str = "v9") -> tuple[torch.Tensor, torch.Tensor]:
     """The v9 layer backward, rows 9 and 11 together: what
     ``bilstm_segbwd(dh_seq, x, h_seq, bilstm_cbnd(x, h_seq, w_ih, w_hh, bias,
-    k), w_ih, w_hh, bias, k)`` returns; under ``schedule="v9.1"`` (fp32
-    only) the v9.1 layer backward, rows 10 and 11: the checkpoints of
-    :func:`bilstm_cbndk` in row 9's place, the same values.
+    k), w_ih, w_hh, bias, k)`` returns; under ``schedule="v9.1"`` the v9.1
+    layer backward, rows 10 and 11: the checkpoints of :func:`bilstm_cbndk`
+    in row 9's place, the same values.
 
     A CPU tensor takes :func:`bilstm_cbnd_plain` (v9.1:
     :func:`bilstm_cbndk_plain`) then :func:`bilstm_segbwd_plain`. A CUDA
@@ -896,7 +908,7 @@ def bilstm_v9_bwd(dh_seq, x, h_seq, w_ih, w_hh, bias, k: int = SEG_K,
     them (:func:`bilstm_cscan`), the sweep, which overwrites them with
     dgates (:func:`bilstm_sweep`), then dx and dW_cat (``"dx"``, ``"dw"``).
     One call counts one launch of ``CBND_KERNELS[dtype]`` (v9.1:
-    ``CBNDK_KERNEL``) and one of ``SEGBWD_KERNELS[dtype]``."""
+    ``CBNDK_KERNELS[dtype]``) and one of ``SEGBWD_KERNELS[dtype]``."""
     if schedule not in ("v9", "v9.1"):
         raise ValueError(f"schedule {schedule!r}: v9 or v9.1")
     if x.device.type == "cpu":
@@ -906,13 +918,11 @@ def bilstm_v9_bwd(dh_seq, x, h_seq, w_ih, w_hh, bias, k: int = SEG_K,
     _check_device(x)
     (x, dh_seq, h_seq, w_ih, w_hh, bias), one = with_models(x, dh_seq, h_seq, w_ih, w_hh, bias)
     s, b, t, _, h = _check_gemm_layer(x, h_seq, w_ih, w_hh, bias)
-    if schedule == "v9.1":
-        check_cuda("x", x, x.device)  # the schedules other than v9 take fp32 only
     _check_sweep(dh_seq, k, s, b, t, h, x.dtype, x.device)
     cluster_plan("sweep", s, b, h, x.dtype, _sm_count(x.device.index))  # raises before any launch
     act = _gate_activations(x, h_seq, w_ih, w_hh, bias)
     out = _dgates_products(act, dh_seq, bilstm_cscan(act, k), x, h_seq, w_ih, w_hh, bias, k)
-    (CBNDK_KERNEL if schedule == "v9.1" else CBND_KERNELS[x.dtype]).launches += 1
+    (CBNDK_KERNELS if schedule == "v9.1" else CBND_KERNELS)[x.dtype].launches += 1
     SEGBWD_KERNELS[x.dtype].launches += 1
     return (out[0][0], out[1][0]) if one else out
 
@@ -948,7 +958,7 @@ def bilstm_sweep_plain(act, dh_seq, c_bnd, w_hh, k: int = SEG_K) -> torch.Tensor
             cs = [c]
             for a in rows:
                 ig, fg, gg, _ = act[:, :, a, d * g:(d + 1) * g].chunk(4, dim=-1)
-                c = fg * c + ig * gg
+                c = c_bnd[:, d, a] if k == 1 else fg * c + ig * gg  # K = 1: the full c
                 cs.append(c)
             for r in reversed(range(len(rows))):
                 a = rows[r]
@@ -973,7 +983,10 @@ def bilstm_sweep(act, dh_seq, c_bnd, w_hh, k: int = SEG_K) -> torch.Tensor:
     ``k`` and ``w_hh``. Per K-segment in reverse recurrence order it rebuilds
     c from the checkpoint and the activations, runs the cell backward and
     carries dh through ``dgates W_hh``, on a cluster with ``W_hh`` resident
-    in shared memory (:func:`cluster_plan`).
+    in shared memory (:func:`cluster_plan`). At K = 1 the checkpoints are
+    the full ``c_seq`` and each step reads its c from its own slot instead
+    of rebuilding it, as the JAX K = 1 sweeps (``_bwd_kernel``,
+    ``_bwd_xproj_kernel``, ``_bwd_bwdc_kernel``) read ``c_cur``.
 
     On a CUDA tensor the kernel overwrites ``act`` in place with dgates and
     returns it. A CPU tensor takes :func:`bilstm_sweep_plain`, which leaves
@@ -1002,7 +1015,7 @@ _V9Bwd = _kernel_function(bilstm_v9_bwd, (0, 0), ":func:`bilstm_v9_bwd` as a Fun
 
 
 # --------------------------------------------------------------------------
-# the other schedules' kernels (fp32): v9.1 checkpoints (row 9's pieces); v8 and v6 full c
+# the other schedules' kernels (fp32 and bf16): v9.1 checkpoints (row 9's pieces); v8 and v6 full c
 # (row 9's pieces at K = 1), the v8 and v6 reverse sweeps (row 11's pieces at
 # K = 1) and their layer backwards; the v5 sweep that emits dxp (the same
 # sweep over the gates from xp), the v5 forward (row 1's recurrence storing c)
@@ -1012,8 +1025,8 @@ _V9Bwd = _kernel_function(bilstm_v9_bwd, (0, 0), ":func:`bilstm_v9_bwd` as a Fun
 def bilstm_cbndk_plain(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
     """Plain PyTorch version of :func:`bilstm_cbndk`, block by block as the
     JAX ``_cbndk_kernel`` walks them (:data:`CBNDK_ROWS` time rows): each
-    block's gates in one product, then the c carry."""
-    (x, h_seq, w_ih, w_hh, bias), one = with_models(x, h_seq, w_ih, w_hh, bias)
+    block's gates in one product, then the c carry, in fp32."""
+    (x, h_seq, w_ih, w_hh, bias), one = with_models(*map(upcast, (x, h_seq, w_ih, w_hh, bias)))
     s, b, t, _ = x.shape
     h = w_hh.shape[-1]
     out = x.new_zeros(s, 2, _num_segments(t, k), b, h)
@@ -1035,18 +1048,18 @@ def bilstm_cbndk_plain(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tens
 def bilstm_cbndk(x, h_seq, w_ih, w_hh, bias, k: int = SEG_K) -> torch.Tensor:
     """The checkpoints of :func:`bilstm_cbnd`, same contract, in v9.1's
     schedule (the JAX package's ``_cbndk_kernel``: the gate products of
-    :data:`CBNDK_ROWS` time rows batched a block, then the c carry). fp32.
+    :data:`CBNDK_ROWS` time rows batched a block, then the c carry).
 
     A CPU tensor takes :func:`bilstm_cbndk_plain`. A CUDA tensor launches
     row 9's two kernels, or raises before the first: the gate activations of
     every (b, t) (:func:`bilstm_gemm` ``"gates"``, which batches the
     products over all T rows, the whole of what the blocks batch) into a
     transient fp32 ``(S, B, T, 8H)`` buffer, then :func:`bilstm_cscan`. One
-    call counts one launch of ``CBNDK_KERNEL``."""
+    call counts one launch of ``CBNDK_KERNELS[dtype]``."""
     if x.device.type == "cpu":
         return bilstm_cbndk_plain(x, h_seq, w_ih, w_hh, bias, k)
-    out = _gates_then_scan(x, h_seq, w_ih, w_hh, bias, k, fp32_only=True)
-    CBNDK_KERNEL.launches += 1
+    out = _gates_then_scan(x, h_seq, w_ih, w_hh, bias, k)
+    CBNDK_KERNELS[x.dtype].launches += 1
     return out
 
 
@@ -1059,17 +1072,17 @@ def bilstm_cseq(x, h_seq, w_ih, w_hh, bias) -> torch.Tensor:
     """The full fp32 cell state ``c_seq (2, T, B, H)`` (or ``(S, 2, T, B,
     H)``; slot t is actual time t in both directions), rebuilt in
     recurrence order from ``x`` and the stored ``h_seq`` (the JAX package's
-    v8 ``_cseq_kernel``, row 6): :func:`bilstm_cbnd` at K = 1. fp32.
+    v8 ``_cseq_kernel``, row 6): :func:`bilstm_cbnd` at K = 1.
 
     A CPU tensor takes :func:`bilstm_cseq_plain`. A CUDA tensor launches two
     kernels, or raises before the first: the gate activations
     (:func:`bilstm_gemm` ``"gates"``) into a transient fp32 ``(S, B, T,
     8H)`` buffer, then :func:`bilstm_cscan` at K = 1. One call counts one
-    launch of ``CSEQ_KERNEL``."""
+    launch of ``CSEQ_KERNELS[dtype]``."""
     if x.device.type == "cpu":
         return bilstm_cseq_plain(x, h_seq, w_ih, w_hh, bias)
-    out = _gates_then_scan(x, h_seq, w_ih, w_hh, bias, 1, fp32_only=True)
-    CSEQ_KERNEL.launches += 1
+    out = _gates_then_scan(x, h_seq, w_ih, w_hh, bias, 1)
+    CSEQ_KERNELS[x.dtype].launches += 1
     return out
 
 
@@ -1082,7 +1095,7 @@ def bilstm_bwdc(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> tuple[torch.Tensor
     """The v8 reverse sweep, row 8 (``_bwd_bwdc_kernel``): :func:`bilstm_segbwd`'s
     contract at K = 1, its checkpoints the full ``c_seq (2, T, B, H)`` of
     :func:`bilstm_cseq` (slot t is c at actual time t in both directions,
-    the slots of :func:`bilstm_cbnd` at K = 1). fp32.
+    the slots of :func:`bilstm_cbnd` at K = 1).
 
     A CPU tensor takes :func:`bilstm_bwdc_plain`. A CUDA tensor launches
     four kernels, or raises before the first: the gate activations
@@ -1090,7 +1103,7 @@ def bilstm_bwdc(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> tuple[torch.Tensor
     :func:`bilstm_sweep` at K = 1 over ``c_seq``, which overwrites them with
     dgates, then dx and dW_cat (``"dx"``, ``"dw"``; dW_cat summed over fixed
     row ranges, :func:`gemm_splits`). One call counts one launch of
-    ``BWDC_KERNEL``."""
+    ``BWDC_KERNELS[dtype]``."""
     if x.device.type == "cpu":
         return bilstm_bwdc_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
     _check_device(x)
@@ -1099,17 +1112,16 @@ def bilstm_bwdc(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> tuple[torch.Tensor
     _check_full_c(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
     out = _dgates_products(_gate_activations(x, h_seq, w_ih, w_hh, bias), dh_seq, c_seq, x, h_seq,
                            w_ih, w_hh, bias, 1)
-    BWDC_KERNEL.launches += 1
+    BWDC_KERNELS[x.dtype].launches += 1
     return (out[0][0], out[1][0]) if one else out
 
 
 def _check_full_c(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> None:
     """Validate rows 7 and 8's model-axis-first CUDA operands before any
-    launch: the gates GEMM's, fp32 only, ``dh_seq``, the full ``c_seq``
-    (None where the layer backward makes it) and a cluster plan of the
-    sweep."""
+    launch: the gates GEMM's (fp32 or bf16, one dtype), ``dh_seq`` in that
+    dtype, the full fp32 ``c_seq`` (None where the layer backward makes it)
+    and a cluster plan of the sweep."""
     s, b, t, _, h = _check_gemm_layer(x, h_seq, w_ih, w_hh, bias)
-    check_cuda("x", x, x.device)  # the schedules other than v9 take fp32 only
     _check_sweep(dh_seq, 1, s, b, t, h, x.dtype, x.device)
     if c_seq is not None:
         _check_c_seq(c_seq, s, b, t, h, x.device)
@@ -1119,7 +1131,7 @@ def _check_full_c(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> None:
 def bilstm_v8_bwd(dh_seq, x, h_seq, w_ih, w_hh, bias) -> tuple[torch.Tensor, torch.Tensor]:
     """The v8 layer backward, rows 6 and 8 together: what
     ``bilstm_bwdc(dh_seq, x, h_seq, bilstm_cseq(x, h_seq, w_ih, w_hh, bias),
-    w_ih, w_hh, bias)`` returns, ``(dx_pk, dW_cat)``. fp32.
+    w_ih, w_hh, bias)`` returns, ``(dx_pk, dW_cat)``, fp32.
 
     A CPU tensor takes :func:`bilstm_cseq_plain` then
     :func:`bilstm_bwdc_plain`. A CUDA tensor launches five kernels, or
@@ -1127,39 +1139,39 @@ def bilstm_v8_bwd(dh_seq, x, h_seq, w_ih, w_hh, bias) -> tuple[torch.Tensor, tor
     rows (:func:`bilstm_gemm` ``"gates"``), the c scan over them at K = 1
     (:func:`bilstm_cscan`), the sweep at K = 1 over that ``c_seq``, which
     overwrites them with dgates (:func:`bilstm_sweep`), then dx and dW_cat
-    (``"dx"``, ``"dw"``). One call counts one launch of ``CSEQ_KERNEL`` and
-    one of ``BWDC_KERNEL``."""
+    (``"dx"``, ``"dw"``). One call counts one launch of
+    ``CSEQ_KERNELS[dtype]`` and one of ``BWDC_KERNELS[dtype]``."""
     if x.device.type == "cpu":
         c_seq = bilstm_cseq_plain(x, h_seq, w_ih, w_hh, bias)
         return bilstm_bwdc_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
     (x, dh_seq, h_seq, w_ih, w_hh, bias), one, act = _shared_gates(x, dh_seq, h_seq, w_ih, w_hh,
                                                                    bias)
     out = _dgates_products(act, dh_seq, bilstm_cscan(act, 1), x, h_seq, w_ih, w_hh, bias, 1)
-    CSEQ_KERNEL.launches += 1
-    BWDC_KERNEL.launches += 1
+    CSEQ_KERNELS[x.dtype].launches += 1
+    BWDC_KERNELS[x.dtype].launches += 1
     return (out[0][0], out[1][0]) if one else out
 
 
 def bilstm_v6_bwd(dh_seq, x, h_seq, w_ih, w_hh, bias) -> torch.Tensor:
     """The v6 layer backward's kernels, rows 6 and 7 together: what
     ``bilstm_bwd_split(dh_seq, x, h_seq, bilstm_cseq(x, h_seq, w_ih, w_hh,
-    bias), w_ih, w_hh, bias)`` returns, ``dxp``. fp32.
+    bias), w_ih, w_hh, bias)`` returns, ``dxp``, fp32.
 
     A CPU tensor takes :func:`bilstm_cseq_plain` then
     :func:`bilstm_bwd_split_plain`. A CUDA tensor launches three kernels, or
     raises before the first: the gate activations, computed once for both
     rows, the c scan over them at K = 1, then the sweep at K = 1 over that
     ``c_seq``, which overwrites them with dgates: that buffer is ``dxp``.
-    One call counts one launch of ``CSEQ_KERNEL`` and one of
-    ``BWD_SPLIT_KERNEL``."""
+    One call counts one launch of ``CSEQ_KERNELS[dtype]`` and one of
+    ``BWD_SPLIT_KERNELS[dtype]``."""
     if x.device.type == "cpu":
         c_seq = bilstm_cseq_plain(x, h_seq, w_ih, w_hh, bias)
         return bilstm_bwd_split_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
     (x, dh_seq, h_seq, w_ih, w_hh, bias), one, act = _shared_gates(x, dh_seq, h_seq, w_ih, w_hh,
                                                                    bias)
     dxp = bilstm_sweep(act, dh_seq, bilstm_cscan(act, 1), w_hh, 1)
-    CSEQ_KERNEL.launches += 1
-    BWD_SPLIT_KERNEL.launches += 1
+    CSEQ_KERNELS[x.dtype].launches += 1
+    BWD_SPLIT_KERNELS[x.dtype].launches += 1
     return dxp[0] if one else dxp
 
 
@@ -1176,8 +1188,10 @@ def _shared_gates(x, dh_seq, h_seq, w_ih, w_hh, bias):
 
 def _bwd_step_plain(dh_seq, pre, h_seq, c_seq, w_hh) -> torch.Tensor:
     """The per-step reverse sweep of :func:`bilstm_bwd_xp_plain` and
-    :func:`bilstm_bwd_split_plain`, model axis first: ``pre (S, B, T, 8H)``
-    is the gate pre-activation without its ``h_prev W_hh^T`` term."""
+    :func:`bilstm_bwd_split_plain`, model axis first, in fp32: ``pre (S, B,
+    T, 8H)`` is the gate pre-activation without its ``h_prev W_hh^T``
+    term."""
+    dh_seq, pre, h_seq, c_seq, w_hh = map(upcast, (dh_seq, pre, h_seq, c_seq, w_hh))
     s, b, t, _ = h_seq.shape
     h = w_hh.shape[-1]
     g = 4 * h
@@ -1210,7 +1224,7 @@ def bilstm_bwd_split_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> torch.T
     """Plain PyTorch version of :func:`bilstm_bwd_split`."""
     (dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias), one = with_models(
         dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
-    out = _bwd_step_plain(dh_seq, _projection(x, w_ih, bias), h_seq, c_seq, w_hh)
+    out = _bwd_step_plain(dh_seq, _projection(*map(upcast, (x, w_ih, bias))), h_seq, c_seq, w_hh)
     return out[0] if one else out
 
 
@@ -1219,14 +1233,14 @@ def bilstm_bwd_split(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> torch.Tensor:
     gradients ``dxp (B, T, 8H)`` (or ``(S, B, T, 8H)``) in fp32, ``[fwd |
     bwd]`` in actual time, from ``dh_seq``, ``x``, ``h_seq`` and the full
     ``c_seq`` of :func:`bilstm_cseq`. dx, dW and db are reductions of
-    ``dxp`` outside the kernels. fp32.
+    ``dxp`` outside the kernels.
 
     A CPU tensor takes :func:`bilstm_bwd_split_plain`. A CUDA tensor
     launches two kernels, or raises before the first: the gate activations
     (:func:`bilstm_gemm` ``"gates"``) into an fp32 ``(S, B, T, 8H)`` buffer,
     then :func:`bilstm_sweep` at K = 1 over ``c_seq``, which overwrites them
     with dgates: that buffer is ``dxp``. One call counts one launch of
-    ``BWD_SPLIT_KERNEL``."""
+    ``BWD_SPLIT_KERNELS[dtype]``."""
     if x.device.type == "cpu":
         return bilstm_bwd_split_plain(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
     _check_device(x)
@@ -1234,14 +1248,13 @@ def bilstm_bwd_split(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias) -> torch.Tensor:
         dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
     _check_full_c(dh_seq, x, h_seq, c_seq, w_ih, w_hh, bias)
     dxp = bilstm_sweep(_gate_activations(x, h_seq, w_ih, w_hh, bias), dh_seq, c_seq, w_hh, 1)
-    BWD_SPLIT_KERNEL.launches += 1
+    BWD_SPLIT_KERNELS[x.dtype].launches += 1
     return dxp[0] if one else dxp
 
 
-def _check_xp(xp: torch.Tensor, w_hh: torch.Tensor,
-              dtypes: tuple[torch.dtype, ...] = F32) -> tuple[int, int, int, int]:
-    """Validate the v5 kernels' ``xp (S, B, T, 8H)`` fp32 and ``w_hh (S, 2,
-    4H, H)`` of one of ``dtypes``; returns ``(S, B, T, H)``. The hidden
+def _check_xp(xp: torch.Tensor, w_hh: torch.Tensor) -> tuple[int, int, int, int]:
+    """Validate the v5 kernels' ``xp (S, B, T, 8H)`` fp32 or bf16 and ``w_hh
+    (S, 2, 4H, H)`` of the same dtype; returns ``(S, B, T, H)``. The hidden
     size's limits are :func:`cluster_plan`'s."""
     if xp.dim() != 4 or 0 in xp.shape:
         raise ValueError(f"xp must be a non-empty (B, T, 8H) or (S, B, T, 8H) tensor, "
@@ -1250,15 +1263,17 @@ def _check_xp(xp: torch.Tensor, w_hh: torch.Tensor,
     h = w_hh.shape[-1]
     if s > MAX_MODELS:
         raise ValueError(f"{s} models > {MAX_MODELS}: the model axis is the grid's z axis")
-    check_cuda("xp", xp, xp.device, (s, b, t, 8 * h))
-    check_cuda("w_hh", w_hh, xp.device, (s, 2, 4 * h, h), dtypes)
+    check_cuda("xp", xp, xp.device, (s, b, t, 8 * h), F32_BF16)
+    check_cuda("w_hh", w_hh, xp.device, (s, 2, 4 * h, h), (xp.dtype,))
     return s, b, t, h
 
 
 def bilstm_fwd_xp_plain(xp, w_hh) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`bilstm_fwd_xp`."""
-    (xp, w_hh), one = with_models(xp, w_hh)
-    h_seq, c_seq = _recurrence_plain(xp, w_hh)
+    """Plain PyTorch version of :func:`bilstm_fwd_xp`: in fp32, ``h_seq``
+    in the dtype of ``w_hh``, ``c_seq`` fp32."""
+    (xp, w32), one = with_models(xp, w_hh)
+    h_seq, c_seq = _recurrence_plain(xp, w32)
+    h_seq = h_seq.to(w_hh.dtype)
     return (h_seq[0], c_seq[0]) if one else (h_seq, c_seq)
 
 
@@ -1266,9 +1281,11 @@ def bilstm_fwd_xp(xp, w_hh) -> tuple[torch.Tensor, torch.Tensor]:
     """The v5 forward, row 4 (``_fwd_kernel``): the recurrence over the
     packed projection ``xp (B, T, 8H)`` (``[fwd | bwd]``, both halves in
     actual time; or ``(S, B, T, 8H)``) and ``w_hh (2, 4H, H)``. Returns
-    ``h_seq (B, T, 2H)`` and the fp32 cell state ``c_seq (2, T, B, H)``
-    (each with a leading S where ``xp`` has one). fp32. Through the op
-    ``msa_torch::bilstm_fwd_xp`` (:mod:`.library`).
+    ``h_seq (B, T, 2H)`` in the dtype of ``w_hh`` and the fp32 cell state
+    ``c_seq (2, T, B, H)`` (each with a leading S where ``xp`` has one).
+    ``xp`` is fp32 or bf16 and ``w_hh`` of the same dtype: the bf16 form
+    reads bf16 ``xp`` as stored, as JAX's ``_fwd_kernel`` does. Through the
+    op ``msa_torch::bilstm_fwd_xp`` (:mod:`.library`).
 
     A CPU tensor takes :func:`bilstm_fwd_xp_plain`, a CUDA tensor
     :func:`bilstm_fwd_xp_cuda`."""
@@ -1278,18 +1295,19 @@ def bilstm_fwd_xp(xp, w_hh) -> tuple[torch.Tensor, torch.Tensor]:
 
 def bilstm_fwd_xp_cuda(xp, w_hh) -> tuple[torch.Tensor, torch.Tensor]:
     """``msa_torch::bilstm_fwd_xp`` on the card: row 1's cluster recurrence
-    on row 1's fp32 plan, in its form that also stores c at every step, or
-    raises: where no cluster plan fits the hidden size."""
+    on row 1's plan for the dtype, in its form that also stores c at every
+    step (its bf16 form also reads bf16 ``xp``), or raises: where no cluster
+    plan fits the hidden size."""
     (xp, w_hh), one = with_models(xp, w_hh)
     s, b, t, h = _check_xp(xp, w_hh)
-    h_seq = torch.empty(s, b, t, 2 * h, device=xp.device, dtype=torch.float32)
+    h_seq = torch.empty(s, b, t, 2 * h, device=xp.device, dtype=w_hh.dtype)
     c_seq = torch.empty(s, 2, t, b, h, device=xp.device, dtype=torch.float32)
-    _launch_rec(FWD_XP_KERNEL, xp, w_hh, h_seq, c_seq)
+    _launch_rec(FWD_XP_KERNELS[w_hh.dtype], xp, w_hh, h_seq, c_seq)
     return (h_seq[0], c_seq[0]) if one else (h_seq, c_seq)
 
 
 def bilstm_bwd_xp_plain(dh_seq, xp, h_seq, c_seq, w_hh) -> torch.Tensor:
-    """Plain PyTorch version of :func:`bilstm_bwd_xp`."""
+    """Plain PyTorch version of :func:`bilstm_bwd_xp`, in fp32."""
     (dh_seq, xp, h_seq, c_seq, w_hh), one = with_models(dh_seq, xp, h_seq, c_seq, w_hh)
     out = _bwd_step_plain(dh_seq, xp, h_seq, c_seq, w_hh)
     return out[0] if one else out
@@ -1299,32 +1317,36 @@ def bilstm_bwd_xp(dh_seq, xp, h_seq, c_seq, w_hh) -> torch.Tensor:
     """The v5 reverse sweep, row 5 (``_bwd_kernel``): :func:`bilstm_bwd_split`'s
     contract, with each step's gates from ``xp + h_prev W_hh^T`` and the
     forward's full ``c_seq`` (:func:`bilstm_fwd_xp`). ``dxp`` is the
-    gradient of ``xp``. fp32.
+    gradient of ``xp``, fp32; ``xp``, ``h_seq``, ``dh_seq`` and ``w_hh`` share
+    one dtype, fp32 or bf16.
 
     A CPU tensor takes :func:`bilstm_bwd_xp_plain`. A CUDA tensor launches
     two kernels, or raises before the first: the gate activations
     (:func:`bilstm_gemm` ``"gates_xp"``) into an fp32 ``(S, B, T, 8H)``
-    buffer, then :func:`bilstm_sweep` at K = 1 over ``c_seq``, which
+    buffer, then :func:`bilstm_sweep` at K = 1 over ``c_seq``, reading each
+    step's c from it (the forward carried h in fp32: in bf16 the gates from
+    the stored ``h_seq`` would not rebuild the forward's c), which
     overwrites them with dgates: that buffer is ``dxp``. The hidden size's
     limits are the sweep's :func:`cluster_plan`. One call counts one launch
-    of ``BWD_XP_KERNEL``."""
+    of ``BWD_XP_KERNELS[dtype]``."""
     if xp.device.type == "cpu":
         return bilstm_bwd_xp_plain(dh_seq, xp, h_seq, c_seq, w_hh)
     _check_device(xp)
     (dh_seq, xp, h_seq, c_seq, w_hh), one = with_models(dh_seq, xp, h_seq, c_seq, w_hh)
     _check_bwd_xp(dh_seq, xp, h_seq, c_seq, w_hh)
     dxp = bilstm_sweep(_gate_activations_xp(xp, h_seq, w_hh), dh_seq, c_seq, w_hh, 1)
-    BWD_XP_KERNEL.launches += 1
+    BWD_XP_KERNELS[xp.dtype].launches += 1
     return dxp[0] if one else dxp
 
 
 def _check_bwd_xp(dh_seq, xp, h_seq, c_seq, w_hh) -> None:
     """Validate row 5's model-axis-first CUDA operands before any launch:
-    fp32 only, the GEMM's 4-vector hidden size, ``h_seq``, ``dh_seq``, the
-    full ``c_seq`` and a cluster plan of the sweep."""
+    ``xp``, ``w_hh``, ``h_seq`` and ``dh_seq`` of one dtype, fp32 or bf16,
+    the GEMM's 4-vector hidden size, the full fp32 ``c_seq`` and a cluster
+    plan of the sweep."""
     s, b, t, h = _check_xp(xp, w_hh)
     _check_widths(0, h)
-    check_cuda("h_seq", h_seq, xp.device, (s, b, t, 2 * h))
+    check_cuda("h_seq", h_seq, xp.device, (s, b, t, 2 * h), (xp.dtype,))
     _check_sweep(dh_seq, 1, s, b, t, h, xp.dtype, xp.device)
     _check_c_seq(c_seq, s, b, t, h, xp.device)
     cluster_plan("sweep", s, b, h, xp.dtype, _sm_count(xp.device.index))

@@ -558,6 +558,8 @@ def test_fp16_and_kernels_without_bf16_forms_raise(cuda):
          torch.zeros(1, 2, 64, device=cuda, dtype=torch.float16))
     with pytest.raises(TypeError):
         lstm.bilstm_fwd(x, *w)
+    with pytest.raises(TypeError):  # row 4: fp32 and bf16 forms only
+        lstm.bilstm_fwd_xp(torch.zeros(1, 8, 3, 128, device=cuda, dtype=torch.float16), w[1])
     from multimodal_sentiment_aanalysis_tpu_torch.kernels import conv_stem
 
     xs = torch.zeros(2, 16, 4, device=cuda, dtype=BF16)

@@ -202,6 +202,11 @@ def test_cpu_tensors_launch_nothing():
     for schedule in lstm.SCHEDULES:
         lstm.fused_bilstm_layer(torch.from_numpy(x), fwd, tuple(_torch(bwd)),
                                 schedule=schedule).sum().backward()
+        bf = torch.bfloat16  # and each schedule's bf16 forms
+        lstm.fused_bilstm_layer(torch.from_numpy(x).to(bf).requires_grad_(),
+                                tuple(t.detach().to(bf) for t in fwd),
+                                tuple(t.to(bf) for t in _torch(bwd)),
+                                schedule=schedule).float().sum().backward()
     conv, *bn = _torch(_stem_tail_inputs(6, 2, 8, 4))
     conv.requires_grad_()
     conv_stem_train.fused_stage_train(conv, *bn, 0.4, 2).sum().backward()
@@ -227,8 +232,10 @@ def test_cpu_tensors_launch_nothing():
     assert kernels.launch_counts() == {
         **{name: 0 for name in training}, **{f"{name}_bf16": 0 for name in training},
         "conv_stem": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-        "fusion_head": 0, "fusion_head_bf16": 0, "bilstm_fwd_xp": 0, "bilstm_bwd_xp": 0, "bilstm_cseq": 0,
-        "bilstm_bwd_split": 0, "bilstm_bwdc": 0, "bilstm_cbndk": 0, "bilstm_cscan": 0,
+        "fusion_head": 0, "fusion_head_bf16": 0, "bilstm_cscan": 0,
+        **{f"{name}{sfx}": 0 for name in ("bilstm_fwd_xp", "bilstm_bwd_xp", "bilstm_cseq",
+                                           "bilstm_bwd_split", "bilstm_bwdc", "bilstm_cbndk")
+           for sfx in ("", "_bf16")},
         "sos_filtfilt": 0, "sos_filtfilt_f64": 0}
 
 

@@ -211,7 +211,8 @@ def _refusal_cases():
     dh, x, h_seq, c_seq, w_ih, w_hh, bias = _operands(4, "small")
     bf = lambda *ts: [t.to(torch.bfloat16) for t in ts]
     return {
-        "bf16 layer": ((*bf(dh, x, h_seq), c_seq, *bf(w_ih, w_hh, bias)), TypeError),
+        "fp16 layer": ((*(t.half() for t in (dh, x, h_seq)), c_seq,
+                        *(t.half() for t in (w_ih, w_hh, bias))), TypeError),
         "bf16 dh_seq": ((*bf(dh), x, h_seq, c_seq, w_ih, w_hh, bias), TypeError),
         "bf16 c_seq": ((dh, x, h_seq, *bf(c_seq), w_ih, w_hh, bias), TypeError),
         "c_seq slots": ((dh, x, h_seq, c_seq[:, :, :-1].contiguous(), w_ih, w_hh, bias),
@@ -225,9 +226,9 @@ def _refusal_cases():
 
 @pytest.mark.parametrize("case", sorted(_refusal_cases()))
 def test_full_c_refusals(case):
-    """Rows 7 and 8 validate their operands before the first launch: fp32
-    only (the schedules other than v9 have no bf16 form), ``c_seq`` of
-    ``(S, 2, T, B, H)``, the GEMM's 4-vector widths."""
+    """Rows 7 and 8 validate their operands before the first launch: one
+    dtype, fp32 or bf16, for the layer's operands and ``dh_seq``, an fp32
+    ``c_seq`` of ``(S, 2, T, B, H)``, the GEMM's 4-vector widths."""
     args, error = _refusal_cases()[case]
     with pytest.raises(error):
         lstm._check_full_c(*args)

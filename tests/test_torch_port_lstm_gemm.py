@@ -277,12 +277,13 @@ def _card_case(cuda, shape, dtype, seed, scale=0.1):
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_gemm_kernel_matches_plain(cuda, shape, dtype, mode):
     """fp32 operands as 3xTF32, bf16 ones as stored: fp32-accurate, within
-    1e-5 of each output's largest entry. ``"gates_xp"`` reads the fp32
-    projection ``xp`` of the same layer."""
+    1e-5 of each output's largest entry. ``"gates_xp"`` reads the
+    projection ``xp`` of the same layer in the operands' dtype (bf16 in the
+    bf16 form, as the v5 schedule's bf16 matmul writes it)."""
     x, w, _ = _card_case(cuda, shape, dtype, 10)
     h_seq = lstm.bilstm_fwd_plain(x, *w)
     dg = torch.randn(*h_seq.shape[:-1], 8 * w[1].shape[-1], device=cuda)
-    xp = lstm.bilstm_gemm_plain("proj", x, *w)
+    xp = lstm.bilstm_gemm_plain("proj", x, *w).to(x.dtype)
     kernel = lstm.GEMM_KERNELS[DTYPES[dtype]]
     before = kernel.launches
     got = lstm.bilstm_gemm(mode, x, *w, h_seq=h_seq, dg=dg, xp=xp)

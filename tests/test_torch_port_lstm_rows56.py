@@ -350,9 +350,10 @@ def _bwd_xp_refusals():
 
 @pytest.mark.parametrize("case", sorted(_bwd_xp_refusals()))
 def test_bwd_xp_refusals(case):
-    """Row 5 validates its operands before the first launch: fp32 only, the
-    full ``c_seq (S, 2, T, B, H)``, ``xp`` of 8H columns, a hidden size the
-    GEMM reads as 4-vectors."""
+    """Row 5 validates its operands before the first launch: ``xp``,
+    ``w_hh`` and ``dh_seq`` of one dtype (a bf16 ``w_hh`` or ``dh_seq`` beside
+    fp32 ``xp`` is refused), the full fp32 ``c_seq (S, 2, T, B, H)``, ``xp``
+    of 8H columns, a hidden size the GEMM reads as 4-vectors."""
     args, error = _bwd_xp_refusals()[case]
     with pytest.raises(error):
         lstm._check_bwd_xp(*args)

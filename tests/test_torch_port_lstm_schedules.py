@@ -398,9 +398,9 @@ def test_model_and_serving_take_the_schedule(schedule):
                 torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
 
 
-def _bf16_layer(schedule):
+def _bf16_layer(schedule, dtype=torch.bfloat16):
     x, fwd, bwd, _ = _one_model(40)
-    to = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    to = lambda a: torch.from_numpy(a).to(dtype)
     return lambda f: f(to(x), tuple(map(to, fwd)), tuple(map(to, bwd)), schedule)
 
 
@@ -414,25 +414,26 @@ REFUSALS = {
     "model unknown": (ValueError, lambda: _small_model("V9")),
     "serving unknown": (ValueError, lambda: build_serving_forward(
         _small_model(), feat_dim=16, lstm_schedule="v9.2")),
-    **{f"layer bf16 {s}": (TypeError, lambda s=s: _bf16_layer(s)(
+    **{f"layer fp16 {s}": (TypeError, lambda s=s: _bf16_layer(s, torch.float16)(
         lambda x, f, b, s: lstm.fused_bilstm_layer(x, f, b, schedule=s)))
-       for s in lstm.SCHEDULES if s != "v9"},
-    "ops bf16 v6": (TypeError, lambda: _bf16_layer("v6")(rnn.bilstm_layer)),
+       for s in lstm.SCHEDULES},
+    "ops fp16 v6": (TypeError, lambda: _bf16_layer("v6", torch.float16)(rnn.bilstm_layer)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_schedule_refusals(case):
-    """An unknown schedule raises ``ValueError`` wherever it is given; a
-    bf16 tensor under a schedule other than v9 raises ``TypeError`` (their
-    kernels have no bf16 form), on the CPU as on the card."""
+    """An unknown schedule raises ``ValueError`` wherever it is given; an
+    fp16 tensor raises ``TypeError`` under every schedule (their kernels
+    have fp32 and bf16 forms only), on the CPU as on the card."""
     error, call = REFUSALS[case]
     with pytest.raises(error):
         call()
 
 
 def test_bf16_layer_runs_under_v9():
-    """The refusal above is the schedule's: the same bf16 layer runs under v9."""
+    """The refusal above is the dtype's: the same layer runs in bf16 under
+    v9 (and under every other schedule, ``test_torch_port_lstm_bf16_schedules.py``)."""
     out = _bf16_layer("v9")(lambda x, f, b, s: lstm.fused_bilstm_layer(x, f, b, schedule=s))
     assert out.dtype == torch.bfloat16 and out.shape == (B, T, 2 * H)
 
