@@ -216,8 +216,33 @@ It needs a CUDA card and exits non-zero without one. In order, it
    ``simclr``; rows 1 and 2 in ``eval``; row 17 in ``memhacl``) and 0
    elsewhere, each results JSON with the JAX payload's keys and accuracies in
    [0, 1]; then ``python -m multimodal_sentiment_aanalysis_tpu_torch.cli
-   inspect --synthetic`` in its own process; prints each subcommand's
-   seconds and the phase's;
+   inspect --synthetic`` in its own process, and ``torchrun --standalone
+   --nproc-per-node 1 -m ...cli vloso --dp --epochs 1`` against the same
+   command without ``--dp`` (``python -m``), each in its own process, the
+   results JSON's accuracies equal; prints each subcommand's seconds and
+   the phase's; then the ``parallel`` phase (``parallel/``, ROADMAP A13) at
+   full width (feat_dim 256, EEG (32, 585), 24 subjects, B=64, dropout 0,
+   TF32 off): one host-plan epoch of ``VectorizedLOSOTrainer(mesh=
+   make_mesh())`` on a one-rank NCCL group in this process beside the
+   unsharded trainer from the same seed (cuDNN's deterministic algorithms
+   for both), per-subject losses, accuracies, parameters and BatchNorm
+   stats bit-equal; then two ``gloo`` ranks on card 0 (``spawn_ranks``: a
+   ``FileStore`` in a temporary directory, CUDA tensors; NCCL refuses two
+   ranks on one device), each running the subject-sharded LOSO epoch (12
+   models a rank; per-subject losses within 1e-5 relative of the
+   unsharded run's, accuracies equal), ``MultiTaskTrainer(mesh=)``'s
+   ``fusion_arousal`` epoch of subject 0 (loss within 1e-5 relative of the
+   one-process trainer's, the largest parameter difference printed, the
+   ranks' parameters bit-equal, the bytes each step all-reduces) and
+   ``dryrun_multichip``'s flavours (its lines printed), and before the
+   epoch one ``eeg`` and one ``fusion_arousal`` step's gradients at lr 0
+   on a 64-row batch whose last 5 rows are padding, summed over the ranks,
+   against the one-process step's (1e-5 of each tensor's largest entry plus
+   1e-6 of the step's largest); each rank's
+   launches of rows 1, 2, 9, 11, 12 and 13 printed and held above 0, and
+   each run's ms/step beside the card's name and power limit (two ranks
+   share one card: not a scale-out figure); with two cards, the LOSO epoch
+   again over NCCL on two cards, else a line that says it was skipped;
 8. holds every kernel against its plain PyTorch version at the shapes its
    paths give it (real activations of the first request, train batch,
    validation batch or attention input; for the S=24 cases the LOSO
@@ -2262,13 +2287,14 @@ def phased_step_parity(full: DeviceDataset) -> None:
         torch.cuda.empty_cache()
 
 
-def make_multitask_trainer(full: DeviceDataset, fused: bool, seed: int = SEED
-                           ) -> MultiTaskTrainer:
-    """``MultiTaskTrainer`` for subject TEST_SUBJECT, full width."""
+def make_multitask_trainer(full: DeviceDataset, fused: bool, seed: int = SEED,
+                           dropout: float | None = None, mesh=None) -> MultiTaskTrainer:
+    """``MultiTaskTrainer`` for subject TEST_SUBJECT, full width (batch data
+    parallelism over ``mesh``'s ranks when given)."""
     tr_idx, te_idx = loso_split(N_SUBJECTS, EX_NUMS, TEST_SUBJECT)
-    model = MultimodalTransformerModel(feat_dim=256, device=full.device)
+    model = MultimodalTransformerModel(feat_dim=256, dropout=dropout, device=full.device)
     return MultiTaskTrainer(model, full.subset(tr_idx), full.subset(te_idx), batch_size=BATCH,
-                            seed=seed, fused_phases=fused, verbose=False)
+                            seed=seed, fused_phases=fused, verbose=False, mesh=mesh)
 
 
 def multitask_phase(full: DeviceDataset) -> tuple[dict, MultiTaskTrainer]:
@@ -3106,8 +3132,303 @@ def cli_phase(device: torch.device, smi: str) -> dict:
           f"python -m ...cli inspect failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
     print(f"cli python -m ... inspect --synthetic: exit 0, "
           f"{proc.stdout.strip().splitlines()[-2]}")
+    seconds["torchrun vloso --dp"] = cli_dp_check()
     print("cli seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
     print(f"cli phase: {time.perf_counter() - t0:.1f} s wall ({smi})")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# parallel (ROADMAP A13): subject sharding and batch data parallelism
+# ---------------------------------------------------------------------------
+
+
+def cli_dp_check() -> float:
+    """``torchrun --nproc-per-node 1 -m ...cli vloso --dp --epochs 1`` and
+    the same command without ``--dp`` (``python -m``), each in its own
+    process: their results JSON's accuracies equal. Returns the seconds."""
+    t0 = time.perf_counter()
+    payloads = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for label, launcher, extra in (  # both at once, sharing the card
+                ("torchrun --dp", [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                   "--nproc-per-node", "1"], ["--dp"]),
+                ("python -m", [sys.executable], [])):
+            out = os.path.join(tmp, f"{len(extra)}.json")
+            cmd = [*launcher, "-m", "multimodal_sentiment_aanalysis_tpu_torch.cli", "vloso",
+                   "--synthetic", "--epochs", "1", "--quiet", "--checkpoint-dir", tmp,
+                   "--results-json", out, *extra]
+            procs[label] = (out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+        try:
+            for label, (out, proc) in procs.items():
+                stdout, stderr = proc.communicate(timeout=600)
+                check(proc.returncode == 0,
+                      f"cli {label} vloso failed (exit {proc.returncode}):\n{stdout}{stderr}")
+                with open(out) as f:
+                    payloads[label] = json.load(f)
+        finally:  # no process outlives the check
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    a, b = (cli_accuracies(payloads[k]) for k in ("torchrun --dp", "python -m"))
+    print(f"cli torchrun --nproc-per-node 1 ... vloso --dp --epochs 1: accuracies "
+          f"{'equal to' if a == b else 'DIFFER from'} the run without --dp "
+          f"(mean arousal {payloads['torchrun --dp']['mean_arousal_acc']:.4f})")
+    check(a == b, f"cli vloso --dp under torchrun: {a} != {b}")
+    return time.perf_counter() - t0
+
+# rows 1, 2, 9, 11, 12 and 13: every rank of a sharded or DP run launches them
+PARALLEL_ROWS = ("bilstm_fwd", "stem_tail", "bilstm_cbnd", "bilstm_segbwd", "stem_tail_bwd",
+                 "infonce")
+PARALLEL_LOSS_RTOL = 1e-5  # two ranks' LOSO losses against one process's
+PARALLEL_DP_RTOL = 1e-5    # two ranks' MultiTaskTrainer epoch loss against one process's
+# the summed DP gradients against one process's: 1e-5 of each tensor's
+# largest entry plus 1e-6 of the step's largest (a bias before a BatchNorm
+# has an exact gradient of 0, so float noise), the CPU test's bar
+PARALLEL_GRAD_REL, PARALLEL_GRAD_TOP = 1e-5, 1e-6
+DP_GRAD_PAD = 5  # padding rows at the end of the gradient check's batch
+PARALLEL_LIMIT = 600.0     # seconds for a whole two-rank launch
+
+
+def loso_rank_epoch(mesh, arrays: dict) -> dict:
+    """One rank of a subject-sharded LOSO run: one host-plan epoch of the
+    24 models (dropout 0, early stop off), its launches and accuracies,
+    then a second epoch's ms/step (the first pays the process's first
+    launches)."""
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel.mesh import mesh_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    full = DeviceDataset(arrays, mesh_device(mesh))
+    vt = make_loso_trainer(full, dropout=0.0, early_stop=False, mesh=mesh)
+    steps = -(-vt.train_idx.shape[1] // BATCH)
+    reset_launch_counts()
+    tm = vt.train_epoch()
+    out = {"epoch": tm, "eval": vt.evaluate(), "counts": launch_counts(), "models": vt.n_local}
+    _, seconds = synced(vt.train_epoch)
+    return {**out, "ms_step": seconds * 1e3 / steps}
+
+
+def multitask_grads(mt: MultiTaskTrainer) -> dict:
+    """One ``eeg`` and one ``fusion_arousal`` step's gradients on the first
+    ``BATCH`` training rows, the last ``DP_GRAD_PAD`` masked out, at lr 0
+    and without the clip, so the parameters stay as they are (the forwards
+    move the BatchNorm running stats, as they do in the run held against
+    it). Under a mesh each rank runs its block and the gradients come out
+    summed over the ranks. Both phases run the stem tail's backward, where a
+    ``dgamma`` summed over the ranks twice would come out W-fold."""
+    from multimodal_sentiment_aanalysis_tpu_torch.train import apply_grad_mask
+
+    idx = torch.arange(BATCH, device=mt.device)
+    mask = (idx < BATCH - DP_GRAD_PAD).to(torch.float32)
+    clip, mt.clip_norm = mt.clip_norm, math.inf
+    out = {}
+    try:
+        for phase in ("eeg", "fusion_arousal"):
+            mt.model.train()
+            apply_grad_mask(mt.model, mt._masks(phase)[0])
+            batch = mt.train_data.gather(mt._block(idx))
+            batch["mask"] = mt._block(mask)
+            mt._train_step(phase, batch, mt._optimizer(phase, 0.0), mask.sum())
+            out[phase] = {n: p.grad.cpu() for n, p in mt.model.named_parameters()
+                          if p.grad is not None}
+            for p in mt.model.parameters():
+                p.requires_grad_(True)
+    finally:
+        mt.clip_norm = clip
+    return out
+
+
+def grad_gap(got: dict, want: dict) -> tuple[float, str]:
+    """The largest ratio of a gradient's difference to its bar, and where."""
+    worst = (0.0, "")
+    for phase, ref in want.items():
+        check(got[phase].keys() == ref.keys(), f"DP gradients of {phase}: other parameters")
+        top = max(float(r.abs().max()) for r in ref.values())
+        for k, r in ref.items():
+            bar = PARALLEL_GRAD_REL * float(r.abs().max()) + PARALLEL_GRAD_TOP * top
+            ratio = float((got[phase][k] - r).abs().max()) / bar
+            worst = max(worst, (ratio, f"{phase} {k}"))
+    return worst
+
+
+def multitask_rank_epoch(mesh, arrays: dict) -> dict:
+    """One rank of ``MultiTaskTrainer(mesh=)``: the gradient check's steps
+    (rank 0 returns the summed gradients), then one ``fusion_arousal`` epoch
+    of subject 0 (dropout 0), its launches, ms/step and the bytes each step
+    all-reduces."""
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel import collectives
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel.mesh import mesh_device
+
+    full = DeviceDataset(arrays, mesh_device(mesh))
+    mt = make_multitask_trainer(full, fused=False, dropout=0.0, mesh=mesh)
+    steps = -(-len(mt.train_data) // BATCH)
+    grads = multitask_grads(mt)
+    reset_launch_counts()
+    out = {"metrics": mt.train_epoch_phase("fusion_arousal"), "counts": launch_counts(),
+           "state": {k: v.cpu() for k, v in mt.model.state_dict().items()},
+           "grads": grads if mesh.get_local_rank() == 0 else None}
+    collectives.reset_traffic()  # a second epoch, timed
+    _, seconds = synced(lambda: mt.train_epoch_phase("fusion_arousal"))
+    return {**out, "ms_step": seconds * 1e3 / steps,
+            "bytes_step": collectives.TRAFFIC["all_reduce_bytes"] / steps,
+            "calls_step": collectives.TRAFFIC["all_reduce_calls"] / steps}
+
+
+def parallel_rank(mesh, arrays: dict) -> dict:
+    """Everything one rank of the two-rank ``gloo`` run does."""
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel.dryrun import dryrun_rank
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"loso": loso_rank_epoch(mesh, arrays), "dp": multitask_rank_epoch(mesh, arrays),
+            "dryrun": dryrun_rank(mesh, print_lines=False)}
+
+
+def rank_rows(label: str, counts: dict) -> dict:
+    rows = {k: counts[k] for k in PARALLEL_ROWS}
+    check(all(rows.values()), f"{label}: rows not launched on this rank: {rows}")
+    return rows
+
+
+def loso_gap(label: str, got: dict, want: dict, smi: str) -> None:
+    """A sharded LOSO epoch's per-subject results against one process's."""
+    gap = np.abs(got["epoch"]["loss"] - want["epoch"]["loss"]) / np.abs(want["epoch"]["loss"])
+    same = all(np.array_equal(got[part][k], want[part][k])
+               for part, keys in (("epoch", ("a_acc", "v_acc")), ("eval", ("a_acc", "v_acc")))
+               for k in keys)
+    print(f"{label}: per-subject losses within {gap.max():.3e} relative of one process's "
+          f"(limit {PARALLEL_LOSS_RTOL}), accuracies {'equal' if same else 'DIFFER'} ({smi})")
+    check(gap.max() <= PARALLEL_LOSS_RTOL and same, f"{label} parts from the one-process run")
+
+
+def parallel_phase(full: DeviceDataset, smi: str) -> dict:
+    """Subject sharding and batch data parallelism (``parallel/``) at full
+    width: one NCCL rank in this process bit-equal to the unsharded trainer;
+    two ``gloo`` ranks sharing card 0 (NCCL refuses two ranks on one device)
+    for the subject-sharded LOSO epoch, ``MultiTaskTrainer(mesh=)`` and
+    ``dryrun_multichip(2)``'s flavours; with two cards, the LOSO epoch over
+    NCCL. Returns this process's launch counts plus the ranks'."""
+    import torch.distributed as dist
+
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel import make_mesh
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel.dryrun import spawn_ranks
+
+    t0 = time.perf_counter()
+    total = {name: 0 for name in KERNELS}
+    steps = -(-(N_SUBJECTS - 1) * EX_NUMS // BATCH)
+    # 1. one NCCL rank in this process: the same program as the unsharded
+    # trainer, so bit-equal (cuDNN's deterministic algorithms, as both run)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = make_mesh(device_type="cuda")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"one-rank mesh: {dist.get_backend()} x {dist.get_world_size()}")
+        runs = {}
+        for label, kw in (("unsharded", {}), ("one NCCL rank", {"mesh": mesh})):
+            vt = make_loso_trainer(full, dropout=0.0, early_stop=False, **kw)
+            reset_launch_counts()
+            tm = vt.train_epoch()
+            counts = launch_counts()
+            check(counts == launches(PER_STEP, steps), f"parallel {label}: launch counts {counts}")
+            add_counts(total, counts)
+            runs[label] = {"epoch": tm, "eval": vt.evaluate(), "params": vt.params.clone(),
+                           "stats": vt.stats.clone()}
+            reset_launch_counts()
+            _, seconds = synced(vt.train_epoch)  # a second epoch, timed
+            add_counts(total, launch_counts())
+            print(f"parallel LOSO {label}: 24 models, host-plan epochs, the second "
+                  f"{seconds * 1e3 / steps:.3f} ms/step ({smi})")
+        dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    one, ref = runs["one NCCL rank"], runs["unsharded"]
+    bit_equal = (all(np.array_equal(one[p][k], ref[p][k]) for p in ("epoch", "eval")
+                     for k in ref[p])
+                 and torch.equal(one["params"], ref["params"])
+                 and torch.equal(one["stats"], ref["stats"]))
+    print(f"parallel LOSO one NCCL rank against unsharded: losses, accuracies, parameters and "
+          f"BatchNorm stats {'bit-equal' if bit_equal else 'DIFFER'}")
+    check(bit_equal, "the one-rank NCCL mesh parts from the unsharded trainer")
+    del runs, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the one-process MultiTaskTrainer epoch the two ranks are held to
+    mt = make_multitask_trainer(full, fused=False, dropout=0.0)
+    ref_grads = multitask_grads(mt)
+    reset_launch_counts()
+    mt_ref = mt.train_epoch_phase("fusion_arousal")
+    mt_ref_state = {k: v.cpu() for k, v in mt.model.state_dict().items()}
+    grad_bytes = sum(p.numel() * p.element_size() for p in mt.model.parameters())
+    _, seconds = synced(lambda: mt.train_epoch_phase("fusion_arousal"))  # timed
+    add_counts(total, launch_counts())
+    print(f"parallel MultiTaskTrainer one process: fusion_arousal loss {mt_ref['loss']:.6f}; "
+          f"a second epoch {seconds * 1e3 / steps:.3f} ms/step ({smi})")
+    del mt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. two gloo ranks on card 0
+    arrays = {k: v.cpu().numpy() for k, v in full.arrays.items()}  # for the ranks to load
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(parallel_rank, 2, (arrays,), backend="gloo", device_type="cuda",
+                        timeout=PARALLEL_LIMIT, collective_timeout=120.0)
+    print(f"parallel: two gloo ranks on card 0 started, ran and joined in "
+          f"{time.perf_counter() - t1:.1f} s")
+    for r, res in enumerate(ranks):
+        for part in ("loso", "dp"):
+            add_counts(total, res[part]["counts"])
+            print(f"parallel rank {r} {part}: rows 1, 2, 9, 11, 12, 13 launched "
+                  f"{rank_rows(f'rank {r} {part}', res[part]['counts'])}")
+        print(f"parallel rank {r}: second epochs: LOSO {res['loso']['models']} models "
+              f"{res['loso']['ms_step']:.3f} ms/step, MultiTaskTrainer "
+              f"{res['dp']['ms_step']:.3f} ms/step ({smi}; two ranks share one card: not a "
+              f"scale-out figure)")
+    loso_gap("parallel LOSO two gloo ranks", ranks[0]["loso"], ref, smi)
+    dp = ranks[0]["dp"]
+    loss_gap = abs(dp["metrics"]["loss"] - mt_ref["loss"]) / abs(mt_ref["loss"])
+    delta = max(float((dp["state"][k].float() - v.float()).abs().max())
+                for k, v in mt_ref_state.items())
+    same = all(torch.equal(ranks[1]["dp"]["state"][k], v) for k, v in dp["state"].items())
+    print(f"parallel MultiTaskTrainer two gloo ranks: fusion_arousal loss "
+          f"{dp['metrics']['loss']:.6f}, {loss_gap:.3e} relative of one process's (limit {PARALLEL_DP_RTOL}); largest "
+          f"parameter difference {delta:.3e}; ranks' parameters "
+          f"{'bit-equal' if same else 'DIFFER'}")
+    check(loss_gap <= PARALLEL_DP_RTOL and same, "MultiTaskTrainer(mesh=) parts from one process")
+    ratio, where = grad_gap(dp["grads"], ref_grads)
+    print(f"parallel MultiTaskTrainer two gloo ranks: one eeg and one fusion_arousal step's "
+          f"gradients ({BATCH} rows, {DP_GRAD_PAD} padding) summed over the ranks against one "
+          f"process's: the largest difference {ratio:.3e} of its bar ({PARALLEL_GRAD_REL} of "
+          f"the tensor's largest entry + {PARALLEL_GRAD_TOP} of the step's), at {where}")
+    check(ratio <= 1.0, f"MultiTaskTrainer(mesh=) gradients part from one process's at {where}")
+    print(f"parallel MultiTaskTrainer: {dp['bytes_step']:.0f} bytes all-reduced a step in "
+          f"{dp['calls_step']:.1f} calls (the gradient row, at most {grad_bytes} bytes; the "
+          f"BatchNorm sums and row counts; the gathered InfoNCE features, labels and mask)")
+    for line in ranks[0]["dryrun"]:
+        print(line)
+
+    # 3. two cards over NCCL
+    if torch.cuda.device_count() >= 2:
+        nccl = spawn_ranks(loso_rank_epoch, 2, (arrays,), backend="nccl", device_type="cuda",
+                           timeout=PARALLEL_LIMIT, collective_timeout=120.0)
+        for r, res in enumerate(nccl):
+            add_counts(total, res["counts"])
+            rank_rows(f"NCCL rank {r}", res["counts"])
+            print(f"parallel LOSO NCCL rank {r} of 2 cards: a second epoch "
+                  f"{res['ms_step']:.3f} ms/step ({smi})")
+        loso_gap("parallel LOSO two NCCL ranks on two cards", nccl[0], ref, smi)
+    else:
+        print(f"parallel: the two-card NCCL run skipped: the machine has "
+              f"{torch.cuda.device_count()} card")
+    print(f"parallel phase launches (this process and the ranks): "
+          f"{({k: n for k, n in total.items() if n})}")
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s ({smi})")
     return total
 
 
@@ -4016,6 +4337,7 @@ def main() -> int:
     checkpoint_counts = checkpoints_phase(trainer, vt, vp, mt, full, smi)
     del vp, mt
     cli_counts = cli_phase(device, smi)
+    parallel_counts = parallel_phase(full, smi)
     if args.profile:
         profile_window("train epoch", lambda: trainer.train_epoch(EPOCHS + 1), show=("cscan",))
         profile_window("LOSO train epoch", vt.train_epoch, top=30, show=("cscan", "stem_tail"),
@@ -4036,7 +4358,7 @@ def main() -> int:
               export_counts, quantized_counts, train_counts, loso["counts"],
               schedule_counts, bf16_schedule_counts, loso_bf16_counts, b512_counts, phased_counts, simclr_counts,
               memhacl_counts, memhacl_bf16_counts, attention_counts, checkpoint_counts,
-              cli_counts, dsp_counts)
+              cli_counts, dsp_counts, parallel_counts)
     counts = {name: sum(c[name] for c in phases) for name in KERNELS}
     gen = torch.Generator(device=device).manual_seed(SEED)
     torch.set_grad_enabled(False)  # plain versions must not record autograd graphs

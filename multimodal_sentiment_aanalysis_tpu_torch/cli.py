@@ -28,11 +28,21 @@ reference pickle's schema) or ``--data /path/to/hci_data.pkl``, and runs on
 the CUDA card unless given ``--device cpu``; with ``--device cuda`` and no
 card it raises before any work. ``--results-json`` writes the JAX
 package's payload, in plain Python numbers.
+
+``--dp`` (``vloso``, ``phased``, ``phased --vectorized``) runs over a
+:func:`~.parallel.make_mesh` mesh of every rank: launched as ``torchrun
+--nproc-per-node N -m multimodal_sentiment_aanalysis_tpu_torch.cli ...``,
+one rank per card; without ``torchrun``, a one-rank mesh. ``vloso`` and
+``phased --vectorized`` shard the subjects over the ranks, ``phased`` (one
+subject at a time) splits every batch over them with global-batch
+semantics. Only rank 0 prints and writes files (``--results-json``,
+checkpoints, ``--save-state``, figures, the history CSV).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 
@@ -104,10 +114,10 @@ def _subject_range(args, n_subjects: int) -> list[int]:
     return list(range(n_subjects))
 
 
-def _no_dp(args) -> None:
-    if getattr(args, "dp", False):
-        raise NotImplementedError("--dp (data parallelism over several cards) is not ported "
-                                  "yet (ROADMAP A13)")
+def _is_main(args) -> bool:
+    """Whether this process writes files: rank 0 of a ``--dp`` run, or the
+    one process."""
+    return args.mesh is None or args.mesh.get_local_rank() == 0
 
 
 def _plain(value):
@@ -127,7 +137,7 @@ def _plain(value):
 
 
 def _write_results(args, payload: dict) -> None:
-    if args.results_json:
+    if args.results_json and _is_main(args):
         with open(args.results_json, "w") as f:
             json.dump(_plain(payload), f, indent=2)
         print(f"results written to {args.results_json}")
@@ -163,7 +173,6 @@ def cmd_phased(args) -> None:
     from .eval.reporting import plot_subject_accuracies
     from .train import MultiTaskTrainer
 
-    _no_dp(args)
     device = _device(args)
     arrays, ex_nums = _load_arrays(args)
     n_subjects = arrays["arousal"].shape[0] // ex_nums
@@ -186,7 +195,7 @@ def cmd_phased(args) -> None:
                 _flagship(args, device, args.seed + sid), train_ds, test_ds, test_person=sid,
                 checkpoint_dir=args.checkpoint_dir, seed=args.seed + sid,
                 verbose=not args.quiet, reset_optimizer_each_epoch=not args.no_reset_optimizer,
-                fused_phases=args.fused_phases)
+                fused_phases=args.fused_phases, mesh=args.mesh)
         else:
             trainer.reset(train_ds, test_ds, test_person=sid, seed=args.seed + sid)
         print(f"===== LOSO test subject {sid} =====")
@@ -200,9 +209,9 @@ def cmd_phased(args) -> None:
     a = float(np.mean([r.get("a_acc", float("nan")) for r in results.values()]))
     v = float(np.mean([r.get("v_acc", float("nan")) for r in results.values()]))
     print(f"LOSO mean: arousal {a:.2%} valence {v:.2%}")
-    if args.history_dir and history:
+    if args.history_dir and history and _is_main(args):
         _save_history(args, history)
-    if not args.no_plots:
+    if not args.no_plots and _is_main(args):
         plot_subject_accuracies([results[k]["a_acc"] for k in sorted(results)],
                                 f"{args.checkpoint_dir}/subject_accuracies.png")
     _write_results(args, {"per_subject": {str(k): v for k, v in results.items()},
@@ -222,7 +231,8 @@ def _phased_vectorized(args, full, n_subjects: int, ex_nums: int) -> None:
     trainer = VectorizedPhasedTrainer(
         model, full, n_subjects, ex_nums, seed=args.seed,
         compute_dtype="bfloat16" if args.bf16 else None, verbose=not args.quiet,
-        reset_optimizer_each_epoch=not args.no_reset_optimizer, early_stop=args.early_stop)
+        reset_optimizer_each_epoch=not args.no_reset_optimizer, early_stop=args.early_stop,
+        mesh=args.mesh)
     if args.resume:
         trainer.restore_state(args.resume)
         print(f"resumed from {args.resume}")
@@ -243,8 +253,9 @@ def _phased_vectorized(args, full, n_subjects: int, ex_nums: int) -> None:
                                             state_dict=trainer.subject_variables(sid)),
                                      args.epochs, args.checkpoint_dir)
                    for sid in range(n_subjects)}
-        _save_history(args, history)
-    if not args.no_plots:
+        if _is_main(args):
+            _save_history(args, history)
+    if not args.no_plots and _is_main(args):
         plot_subject_accuracies([float(x) for x in res["per_subject_arousal"]],
                                 f"{args.checkpoint_dir}/subject_accuracies.png")
     _write_results(args, {
@@ -355,7 +366,6 @@ def cmd_vloso(args) -> None:
     from .data import DeviceDataset
     from .train import VectorizedLOSOTrainer
 
-    _no_dp(args)
     device = _device(args)
     arrays, ex_nums = _load_arrays(args)
     n_subjects = arrays["arousal"].shape[0] // ex_nums
@@ -363,7 +373,7 @@ def cmd_vloso(args) -> None:
         _flagship(args, device, args.seed), DeviceDataset(arrays, device), n_subjects, ex_nums,
         seed=args.seed, batch_size=args.batch_size,
         compute_dtype="bfloat16" if args.bf16 else None, early_stop=args.early_stop,
-        es_patience=args.es_patience)
+        es_patience=args.es_patience, mesh=args.mesh)
     if args.resume:
         trainer.restore_state(args.resume)
         print(f"resumed from {args.resume}")
@@ -542,7 +552,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (float32 master params); --vectorized only")
     p.add_argument("--dp", action="store_true",
-                   help="data parallelism over several cards: not ported yet, raises")
+                   help="over every rank of a torchrun launch (one a card; one rank without "
+                        "torchrun): --vectorized shards the subjects, the sequential loop splits "
+                        "every batch (global-batch semantics)")
     p.add_argument("--save-state", default=None, dest="save_state",
                    help="with --vectorized: write a full-state resume checkpoint after the run")
     p.add_argument("--resume", default=None,
@@ -571,7 +583,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (float32 master params)")
     p.add_argument("--dp", action="store_true",
-                   help="shard the subjects over several cards: not ported yet, raises")
+                   help="shard the subjects over every rank of a torchrun launch (one a card; "
+                        "one rank without torchrun)")
     p.add_argument("--fused", action="store_true",
                    help="all epochs on the device with on-device batch plans (no host sync "
                         "in the loop)")
@@ -642,7 +655,17 @@ def main(argv: list[str] | None = None) -> None:
         from .utils import enable_nan_debugging
 
         enable_nan_debugging(True)
-    args.fn(args)
+    args.mesh = None
+    if getattr(args, "dp", False):
+        from .parallel import make_mesh
+
+        _device(args)
+        args.mesh = make_mesh(device_type=args.device)
+    with contextlib.ExitStack() as stack:
+        if not _is_main(args):  # rank 0 alone prints
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        args.fn(args)
 
 
 if __name__ == "__main__":

@@ -58,6 +58,7 @@ kernels store.
 from __future__ import annotations
 
 import ctypes
+from typing import Callable
 
 import numpy as np
 import torch
@@ -255,15 +256,18 @@ class _StemTail(torch.autograd.Function):
     ``pooled``."""
 
     @staticmethod
-    def forward(conv, gamma, beta, mean, var, p, pool, eps, generator, with_code):
+    def forward(conv, gamma, beta, mean, var, p, pool, eps, generator, batch_stats, n_rows,
+                sum_ranks, with_code):
         out, code = stem_tail_fwd(conv, gamma, beta, mean, var, p, pool, eps, generator,
                                   with_code)
         return (out, code) if with_code else out
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        conv, gamma, beta, mean, var, p, pool, eps, _, with_code = inputs
-        ctx.p, ctx.pool, ctx.eps = p, pool, eps
+        conv, gamma, beta, mean, var, p, pool, eps, _, batch_stats, n_rows, sum_ranks, \
+            with_code = inputs
+        ctx.p, ctx.pool, ctx.eps, ctx.batch_stats = p, pool, eps, batch_stats
+        ctx.n_rows, ctx.sum_ranks = n_rows, sum_ranks
         if with_code:
             ctx.mark_non_differentiable(output[1])
             ctx.save_for_backward(conv, gamma, beta, mean, var, output[1])
@@ -278,14 +282,24 @@ class _StemTail(torch.autograd.Function):
         dy, dg_part, db_part = _StemTailBwd.apply(conv, dpool, code, scale, shift, mean, inv,
                                                   p, pool)
         dgamma, dbeta = dg_part.sum(0), db_part.sum(0)
-        n = conv.shape[0] * conv.shape[1]
-        xhat = (upcast(conv) - mean) * inv
-        dconv = (inv * gamma) * (dy - dbeta / n - xhat * (dgamma / n))
+        n = conv.shape[0] * conv.shape[1] if ctx.n_rows is None else ctx.n_rows
+        g_dgamma, g_dbeta = dgamma, dbeta
+        if ctx.sum_ranks is not None:
+            # global statistics: the batch-statistic terms of dconv sum over
+            # every rank's rows; the dgamma and dbeta returned stay this
+            # rank's, since the trainer sums every gradient over the ranks
+            g_dgamma, g_dbeta = ctx.sum_ranks(torch.cat([dgamma, dbeta])).chunk(2, -1)
+        if ctx.batch_stats:
+            xhat = (upcast(conv) - mean) * inv
+            dconv = (inv * gamma) * (dy - g_dbeta / n - xhat * (g_dgamma / n))
+        else:  # constant statistics (the running stats of eval mode)
+            dconv = (inv * gamma) * dy
         return (dconv.to(conv.dtype), dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None, None)
 
     @staticmethod
-    def vmap(info, in_dims, conv, gamma, beta, mean, var, p, pool, eps, generator, with_code):
+    def vmap(info, in_dims, conv, gamma, beta, mean, var, p, pool, eps, generator, batch_stats,
+             n_rows, sum_ranks, with_code):
         if p > 0.0 and info.randomness != "different":
             raise ValueError("stem-tail dropout under vmap draws one mask per model: "
                              "use randomness='different'")
@@ -297,7 +311,10 @@ class _StemTail(torch.autograd.Function):
 def fused_stage_train(conv: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                       mean: torch.Tensor, var: torch.Tensor, p: float, pool: int,
                       eps: float = 1e-5,
-                      generator: torch.Generator | None = None) -> torch.Tensor:
+                      generator: torch.Generator | None = None, batch_stats: bool = True,
+                      n_rows: torch.Tensor | None = None,
+                      sum_ranks: Callable[[torch.Tensor], torch.Tensor] | None = None
+                      ) -> torch.Tensor:
     """``(conv - mean) * rsqrt(var + eps) * gamma + beta`` -> erf-GELU ->
     dropout(p) -> ``MaxPool1d(pool)``; ``conv (B, T, C)`` NLC, the rest
     ``(C,)``. Returns ``(B, T // pool, C)``, differentiable in ``conv``,
@@ -310,6 +327,16 @@ def fused_stage_train(conv: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
     ``torch.func.grad``. Where none can and no ``torch.func`` transform is
     active (the eval forward), the forward runs without the Function,
     whose call costs the host more than the kernel takes at one model.
+
+    ``batch_stats``: ``mean``/``var`` are the batch's own statistics (train
+    mode), whose dependence on ``conv`` the backward carries; False for
+    constant statistics (eval mode's running stats), whose backward is
+    ``gamma rsqrt(var + eps)`` times the routed gradient alone. For the
+    statistics of a batch spread over several ranks (batch data
+    parallelism), ``n_rows`` is the (B, T) row count they were taken over
+    and ``sum_ranks`` sums a tensor over those ranks (an all-reduce), so the
+    backward's batch-statistic terms cover every rank's rows (one call of
+    ``sum_ranks`` around the kernel); both None for a batch held whole.
     """
     with_code = torch.is_grad_enabled() and any(
         v.requires_grad for v in (conv, gamma, beta))  # the backward's routing table
@@ -317,7 +344,7 @@ def fused_stage_train(conv: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
         return stem_tail_fwd(conv, gamma, beta, mean, var, float(p), pool, eps, generator,
                              with_code=False)[0]
     res = _StemTail.apply(conv, gamma, beta, mean, var, float(p), pool, eps, generator,
-                          with_code)
+                          batch_stats, n_rows, sum_ranks, with_code)
     return res[0] if with_code else res
 
 

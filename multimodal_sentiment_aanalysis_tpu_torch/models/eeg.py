@@ -17,7 +17,10 @@ batch's over (B, T), ``E[x^2] - E[x]^2``, computed without gradient and fed
 to the kernel (whose backward carries their dependence); the running stats
 take ``0.9 * running + 0.1 * batch`` with the *biased* variance, as flax
 does (torch ``BatchNorm1d`` would use the unbiased one). Eval mode uses the
-running stats and no dropout.
+running stats and no dropout. Inside
+:func:`..parallel.collectives.global_batch` the statistics are the global
+batch's (all-reduced sums over the global row count), and the stem tail's
+backward forms its batch-statistic terms over the global batch too.
 
 The public input is the reference's ``(B, C, T)``; the stem runs NLC
 ``(B, T, C)`` inside, as the JAX package does. Module names follow the
@@ -27,6 +30,8 @@ reference ``state_dict`` (``temp_conv.0``, ``freq_branch.2``,
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -34,6 +39,7 @@ import torch.nn.functional as F
 from ..kernels.conv_stem_train import fused_stage_train
 from ..kernels.lstm import check_schedule
 from ..ops.rnn import bilstm_layer
+from ..parallel.collectives import batch_group, reduce_sum_
 from .layers import LayerNorm, Linear
 
 BN_MOMENTUM = 0.1  # torch convention: running = (1 - m) * running + m * batch
@@ -114,7 +120,19 @@ class EEGMultiScaleNet(nn.Module):
         """NLC in, NLC out: conv, then the fused BN + GELU + dropout + pool tail."""
         y = F.conv1d(h.transpose(1, 2), conv.weight, conv.bias, padding=conv.padding)
         y = y.transpose(1, 2).contiguous()
-        if self.training:
+        group = batch_group() if self.training else None
+        n_rows = sum_ranks = None
+        if group is not None:
+            with torch.no_grad():  # the global batch's [sum, sum of squares, row count]
+                c = y.shape[-1]
+                tot = reduce_sum_(torch.cat([y.sum((0, 1)), (y * y).sum((0, 1)),
+                                             y.new_full((1,), y.shape[0] * y.shape[1])]), group)
+                mean = tot[:c] / tot[2 * c]
+                var = tot[c:2 * c] / tot[2 * c] - mean * mean
+            update_running_stats(bn, mean, var)
+            p, n_rows = drop.p, tot[2 * c]
+            sum_ranks = functools.partial(reduce_sum_, group=group)
+        elif self.training:
             with torch.no_grad():
                 mean = y.mean((0, 1))
                 var = (y * y).mean((0, 1)) - mean * mean
@@ -123,7 +141,8 @@ class EEGMultiScaleNet(nn.Module):
         else:
             mean, var, p = bn.running_mean, bn.running_var, 0.0
         return fused_stage_train(y, bn.weight, bn.bias, mean, var, p, pool.kernel_size, bn.eps,
-                                 generator)
+                                 generator, batch_stats=self.training, n_rows=n_rows,
+                                 sum_ranks=sum_ranks)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         tc = self.temp_conv

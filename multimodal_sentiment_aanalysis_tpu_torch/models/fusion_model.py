@@ -19,7 +19,11 @@ gives this model's ``state_dict``:
 ``labels=(arousal_labels, valence_labels[, mask])`` it also returns the
 three supervised-InfoNCE losses of the EEG, eye and PPS embeddings on the
 arousal labels, each scaled by ``contrastive_weight`` (one G=3 launch of the
-InfoNCE kernel on the card). Both work in either mode.
+InfoNCE kernel on the card). Both work in either mode. Inside
+:func:`..parallel.collectives.global_batch` (batch data parallelism) the
+three InfoNCE problems run over the gathered global batch on every rank,
+each rank's term weighted by 1/W, and the BatchNorm statistics are the
+global batch's.
 
 Train mode (``model.train()``): batch-statistic BatchNorm, with the running
 stats updated by the JAX rule (momentum 0.1, biased batch variance, see
@@ -37,9 +41,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from ..ops.losses import supervised_infonce_multi
+from ..parallel.collectives import all_reduce_sum, batch_group, gather_blocks
 from .cross_modal import CrossModalTransformer
 from .eeg import BiLSTM, EEGMultiScaleNet, update_running_stats
 from .layers import Linear, MultiheadAttention, dropout
@@ -60,13 +66,24 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
     """flax ``nn.BatchNorm`` over every axis of ``(B, F)`` or ``(B, C, T)``
     but the feature axis 1: batch stats ``max(E[x^2] - E[x]^2, 0)`` (with
     gradient) in train mode, updating the running stats; the running stats
-    in eval mode. As flax does, the statistics and the normalisation run in
+    in eval mode. Inside :func:`..parallel.collectives.global_batch` the
+    train-mode statistics are the global batch's, from all-reduced sums that
+    carry the gradient. As flax does, the statistics and the normalisation run in
     at least fp32, and the result takes the promoted dtype of ``x`` and the
     affine parameters."""
     dims = [0, *range(2, x.dim())]
     out_dtype = torch.promote_types(torch.promote_types(x.dtype, bn.weight.dtype), bn.bias.dtype)
     x = x.to(torch.promote_types(x.dtype, torch.float32))
-    if bn.training:
+    group = batch_group()
+    if bn.training and group is not None:
+        # one differentiable all-reduce of [sum, sum of squares, row count]
+        f = x.shape[1]
+        tot = all_reduce_sum(torch.cat([x.sum(dims), (x * x).sum(dims),
+                                        x.new_full((1,), x.numel() / f)]), group)
+        mean = tot[:f] / tot[2 * f]
+        var = (tot[f:2 * f] / tot[2 * f] - mean * mean).clamp_min(0.0)
+        update_running_stats(bn, mean.detach(), var.detach())
+    elif bn.training:
         mean = x.mean(dims)
         var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
         update_running_stats(bn, mean.detach(), var.detach())
@@ -174,7 +191,17 @@ class MultimodalTransformerModel(nn.Module):
             if labels[0].shape[0] != eeg.shape[0]:
                 raise ValueError(f"{labels[0].shape[0]} labels for a batch of {eeg.shape[0]}")
             feats = torch.stack([eeg_feat, eye_feat, pps_feat])
-            c = supervised_infonce_multi(feats, feats, labels[0], self.temperature, mask)
+            lab, group = labels[0], batch_group()
+            if group is not None:
+                # the InfoNCE problems over the global batch, on every rank;
+                # each rank's share is 1/W of it, so the ranks' gradients
+                # summed count it once
+                feats = gather_blocks(feats, group, dim=1)
+                lab = gather_blocks(lab, group)
+                mask = None if mask is None else gather_blocks(mask, group)
+            c = supervised_infonce_multi(feats, feats, lab, self.temperature, mask)
+            if group is not None:
+                c = c / dist.get_world_size(group)
             contrastive = tuple(self.contrastive_weight[0] * c)
         eye_enhanced = self.cross_attn_e2p(eeg_feat, eye_feat, eye_feat)
         pps_enhanced = self.cross_attn_p2e(eeg_feat, pps_feat, pps_feat)

@@ -9,7 +9,8 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/ops/losses.py``:
 - :func:`supervised_infonce_multi`: G losses sharing labels, mask and
   temperature; on the card one launch for all G.
 - :func:`masked_cross_entropy`, :func:`masked_accuracy`: means over the
-  valid rows of a wrap-padded batch;
+  valid rows of a wrap-padded batch (of the global batch, under batch
+  data parallelism);
 - :func:`ntxent_indexed`: ME-MHACL's index-matched NT-Xent;
 - :func:`ntxent_supervised_two_view`: the SimCLR stack's two-view
   supervised NT-Xent, plain tensor math on either device (the JAX package
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.contrastive import fused_supervised_infonce, fused_supervised_infonce_multi
+from ..parallel.collectives import global_count
 
 
 def supervised_infonce(feat1: torch.Tensor, feat2: torch.Tensor, labels: torch.Tensor,
@@ -68,16 +70,20 @@ def supervised_infonce_multi(feats1: torch.Tensor, feats2: torch.Tensor,
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          mask: torch.Tensor) -> torch.Tensor:
-    """Cross-entropy averaged over the ``mask == 1`` rows."""
+    """Cross-entropy averaged over the ``mask == 1`` rows; inside
+    :func:`..parallel.collectives.global_batch` this rank's rows summed over
+    the global batch's count, so the ranks' terms add up to the mean."""
     per = F.cross_entropy(logits, labels, reduction="none")
     m = mask.to(per.dtype)
-    return (per * m).sum() / m.sum().clamp_min(1.0)
+    return (per * m).sum() / global_count(m).clamp_min(1.0)
 
 
 def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
+    """The hit rate over the ``mask == 1`` rows (over the global batch's
+    count inside :func:`..parallel.collectives.global_batch`)."""
     hit = (logits.argmax(dim=-1) == labels).to(torch.float32) * mask.to(torch.float32)
-    return hit.sum() / mask.sum().clamp_min(1.0)
+    return hit.sum() / global_count(mask).clamp_min(1.0)
 
 
 def ntxent_indexed(z1: torch.Tensor, z2: torch.Tensor, temperature: float = 0.5) -> torch.Tensor:

@@ -1,0 +1,74 @@
+"""Multi-card parallelism on ``torch.distributed``, one process per card.
+
+Counterpart of ``multimodal_sentiment_aanalysis_tpu/parallel/``, which
+drives every device from one process; the port runs the ranks the way
+``torchrun`` launches them (:func:`.mesh.make_mesh`). Two of JAX's three
+flavours:
+
+- **Subject sharding** (``mesh=`` of :class:`..train.VectorizedLOSOTrainer`,
+  :class:`..train.VectorizedPhasedTrainer`,
+  :class:`..train.VectorizedSimCLRTrainer`): the padded LOSO subject axis
+  split into one block of models per rank (:class:`.mesh.SubjectBlocks`);
+  a step has no collective, results and state are gathered at their
+  boundaries. The production scale-out path (``cli vloso --dp``).
+- **Batch data parallelism** (:mod:`.dp`): the ``shard_map`` form with
+  local semantics (:func:`make_dp_train_step`, :func:`make_dp_eval_step`)
+  and the GSPMD form with global semantics (:func:`.dp.global_batch_step`,
+  :class:`..train.MultiTaskTrainer` with ``mesh=``, ``cli phased --dp``).
+
+Tensor parallelism (JAX ``parallel/tp.py``: ``make_mesh_2d``,
+``param_partition_specs``, ``shard_by_specs``, ``batch_sharding``) is not
+ported yet (ROADMAP A13b): under JAX's GSPMD its Pallas kernels step aside
+for the jnp paths, and the port's kernels have no sharded form; its names
+raise :class:`NotImplementedError`.
+
+:func:`.dryrun.dryrun_multichip` checks both ported flavours at flagship
+width over ``n`` ranks. The names of :mod:`.dp` and :mod:`.dryrun` load on
+first use (PEP 562): the model and loss modules import
+:mod:`.collectives`, and :mod:`.dp` imports the trainers.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from .mesh import make_mesh, replicate, shard_batch
+
+_LAZY = {
+    "make_dp_train_step": "dp",
+    "make_dp_eval_step": "dp",
+    "pad_batch_to_devices": "dp",
+    "global_batch_step": "dp",
+    "dryrun_multichip": "dryrun",
+}
+_TP = ("make_mesh_2d", "param_partition_specs", "shard_by_specs", "batch_sharding")
+
+
+def _tp_not_ported(name: str):
+    def refuse(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name}: tensor parallelism is not ported yet (ROADMAP A13b): the port's "
+            "kernels have no sharded form, and a CUDA tensor never takes a plain version")
+
+    refuse.__name__ = name
+    return refuse
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
+    if name in _TP:
+        return _tp_not_ported(name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = [
+    "make_mesh",
+    "shard_batch",
+    "replicate",
+    "make_dp_train_step",
+    "make_dp_eval_step",
+    "pad_batch_to_devices",
+    "dryrun_multichip",
+    *_TP,
+]

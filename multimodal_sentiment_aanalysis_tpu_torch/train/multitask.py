@@ -32,7 +32,24 @@ own parameters from ``seed``), so a subject's init is
 :func:`make_phase_loss` is the one model's loss both trainers use.
 :meth:`MultiTaskTrainer.save_state` / :meth:`~MultiTaskTrainer.restore_state`
 checkpoint the curriculum between epochs (JAX ``multitask.py:585-625``).
-Not ported yet: ``mesh`` (batch data parallelism, ROADMAP A13) raises.
+
+Batch data parallelism, ``mesh=`` (a :func:`..parallel.make_mesh` mesh of
+W ranks, one process each; JAX's GSPMD form, ``multitask.py:199-214``):
+every rank draws the same plans and runs the forward on its contiguous
+block of each planned batch (``batch_size`` must divide by W) inside
+:func:`..parallel.collectives.global_batch`, so the BatchNorm statistics,
+the stem tail's backward, the InfoNCE terms and the CE means and
+accuracies cover the global batch, the wrap-padded tail rows in the
+statistics and out of the losses as in one process. After the backward
+each rank sums the gradients over the ranks (one all-reduce); the clip and
+the AdamW step then run identically on every rank, so the parameters stay
+replicated. The evaluation shards the test rows likewise and sums the
+metric sums. Each rank draws its dropout masks from its own generator,
+seeded from ``(seed, rank)`` (rank 0's is the one-process stream), so W > 1
+ranks equal the one-process run at dropout 0 (to float noise: the sums
+run in another order); one rank equals it exactly. Only rank 0 writes
+files (:meth:`run`'s checkpoint and figure, :meth:`save_state`, which
+stores every rank's dropout generator).
 """
 
 from __future__ import annotations
@@ -49,12 +66,12 @@ from torch.func import functional_call
 
 from ..data.pipeline import DeviceDataset, epoch_batch_indices
 from ..ops.losses import masked_accuracy, masked_cross_entropy
+from ..parallel.collectives import global_batch, global_count, reduce_sum_, sum_grads_
+from ..parallel.mesh import rank_seed, restore_rank_generator, save_on_rank0
 from ..utils.checkpoint import (
     generator_state,
     load_checkpoint,
     metrics_checkpoint_name,
-    save_checkpoint,
-    set_generator_state,
 )
 from ..utils.schedule import ReduceLROnPlateau
 from .state import (
@@ -126,6 +143,12 @@ def make_phase_loss(model: nn.Module, phase_loss: str,
     place, frozen or not, as JAX's mutable ``batch_stats`` do. With
     ``compute_dtype`` the parameters and inputs are cast for the forward and
     backward, and the losses, metrics and running stats stay fp32.
+
+    Inside :func:`..parallel.collectives.global_batch` the batch is one
+    rank's block of a global batch: ``loss`` is this rank's share of the
+    global loss (the ranks' shares add up to it), the sums are scaled by
+    the global row count so that their sum over ranks is the global batch's,
+    and ``n`` stays this rank's count.
     """
     dt = as_dtype(compute_dtype)
 
@@ -143,7 +166,6 @@ def make_phase_loss(model: nn.Module, phase_loss: str,
                   "ce_valence": v_loss}
         loss = losses[phase_loss]
         zero = torch.zeros_like(loss)
-        n = mask.sum()
         sums = torch.stack([
             loss,
             a_loss if phase_loss == "ce_arousal" else zero,
@@ -151,8 +173,8 @@ def make_phase_loss(model: nn.Module, phase_loss: str,
             loss if phase_loss.startswith("c_") else zero,
             masked_accuracy(arousal, a, mask),
             masked_accuracy(valence, v, mask),
-        ]) * n
-        return loss, torch.cat([sums, n[None]])
+        ]) * global_count(mask)
+        return loss, torch.cat([sums, mask.sum()[None]])
 
     return loss_fn
 
@@ -165,11 +187,10 @@ def eval_sums(outs: tuple, batch: dict, mask: torch.Tensor) -> torch.Tensor:
     a, v = batch["arousal"], batch["valence"]
     a_loss = masked_cross_entropy(arousal, a, mask)
     v_loss = masked_cross_entropy(valence, v, mask)
-    n = mask.sum()
     sums = torch.stack([a_loss + v_loss, a_loss, v_loss, c1 + c2 + c3,
                         masked_accuracy(arousal, a, mask),
-                        masked_accuracy(valence, v, mask)]) * n
-    return torch.cat([sums, n[None]])
+                        masked_accuracy(valence, v, mask)]) * global_count(mask)
+    return torch.cat([sums, mask.sum()[None]])
 
 
 def _means(sums: np.ndarray) -> dict[str, float]:
@@ -197,10 +218,13 @@ class MultiTaskTrainer:
         verbose: bool = True,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("batch data parallelism over a device mesh is not "
-                                      "ported yet (ROADMAP A13)")
         self.device = train_data.device
+        self.mesh = mesh
+        self._group = None if mesh is None else mesh.get_group()
+        self._world = 1 if mesh is None else mesh.size()
+        self._rank = 0 if mesh is None else mesh.get_local_rank()
+        if batch_size % self._world:
+            raise ValueError(f"batch_size {batch_size} does not split over {self._world} ranks")
         if any(p.device != self.device for p in model.parameters()):
             raise ValueError(f"the model's parameters must be on the data's device {self.device}")
         self.model = model
@@ -224,7 +248,8 @@ class MultiTaskTrainer:
         self.test_data = test_data
         self.test_person = test_person
         self.host_rng = np.random.default_rng(seed)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed, self._rank))
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self._opt: dict[str, torch.optim.AdamW] = {}
         self.schedulers: dict[str, ReduceLROnPlateau] = {}
@@ -239,15 +264,31 @@ class MultiTaskTrainer:
     def _optimizer(self, phase: str, lr: float) -> torch.optim.AdamW:
         return make_masked_adamw(self.model, self._masks(phase)[1], lr, self.weight_decay)
 
-    def _train_step(self, phase: str, batch: dict, optimizer: torch.optim.AdamW) -> torch.Tensor:
-        """One step of ``phase`` on ``batch`` (with its ``mask``); returns
-        the ``(7,)`` metric sums. The clipped gradients stay in ``.grad``."""
+    def _block(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous block of a planned batch's rows."""
+        if self._group is None:
+            return t
+        b = t.shape[-1] // self._world
+        return t[..., self._rank * b:(self._rank + 1) * b]
+
+    def _sum_over_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self._group is None else reduce_sum_(t, self._group)
+
+    def _train_step(self, phase: str, batch: dict, optimizer: torch.optim.AdamW,
+                    n_valid: torch.Tensor | None = None) -> torch.Tensor:
+        """One step of ``phase`` on ``batch`` (with its ``mask``; under a
+        mesh this rank's block of a planned batch of ``n_valid`` valid rows);
+        returns the ``(7,)`` metric sums (this rank's share). The clipped
+        gradients stay in ``.grad``."""
         if phase not in self._loss_fns:
             self._loss_fns[phase] = make_phase_loss(self.model, PHASES[phase].loss)
         self.model.zero_grad(set_to_none=True)
         grad_params = [p for p in self.model.parameters() if p.requires_grad]
-        loss, sums = self._loss_fns[phase]({}, {}, batch, self.generator)
-        loss.backward()
+        with global_batch(self._group, n_valid):
+            loss, sums = self._loss_fns[phase]({}, {}, batch, self.generator)
+            loss.backward()
+        if self._group is not None:  # the global loss's gradient: the ranks' shares summed
+            sum_grads_(grad_params, self._group)
         # clip over the requires-grad set (torch clip_grad_norm_ parity)
         clip_by_global_norm(grad_params, self.clip_norm)
         optimizer.step()
@@ -262,25 +303,27 @@ class MultiTaskTrainer:
         try:
             sums = torch.zeros(7, device=self.device)
             for idx, mask in zip(plan_idx, plan_mask):
-                batch = self.train_data.gather(idx)
-                batch["mask"] = mask
-                sums += self._train_step(phase, batch, optimizer)
+                batch = self.train_data.gather(self._block(idx))
+                batch["mask"] = self._block(mask)
+                sums += self._train_step(phase, batch, optimizer, mask.sum())
         finally:
             for p in self.model.parameters():
                 p.requires_grad_(True)
-        return sums
+        return self._sum_over_ranks(sums)
 
     @torch.no_grad()
     def _eval_sums(self, plan_idx: torch.Tensor, plan_mask: torch.Tensor) -> torch.Tensor:
-        """The test set's ``(7,)`` metric sums in eval mode, on the device."""
+        """The test set's ``(7,)`` metric sums in eval mode, on the device
+        (each rank its block of every batch, summed over the ranks)."""
         self.model.eval()
         sums = torch.zeros(7, device=self.device)
         for idx, mask in zip(plan_idx, plan_mask):
-            batch = self.test_data.gather(idx)
-            outs = self.model(batch["eeg"], batch["eye"], batch["pps"],
-                              labels=(batch["arousal"], batch["valence"], mask))
-            sums += eval_sums(outs, batch, mask)
-        return sums
+            with global_batch(self._group, mask.sum()):
+                batch, mask = self.test_data.gather(self._block(idx)), self._block(mask)
+                outs = self.model(batch["eeg"], batch["eye"], batch["pps"],
+                                  labels=(batch["arousal"], batch["valence"], mask))
+                sums += eval_sums(outs, batch, mask)
+        return self._sum_over_ranks(sums)
 
     def _phase_lr(self, phase: str) -> float:
         return self.schedulers[phase].lr if phase in self.schedulers else self.lr
@@ -395,13 +438,13 @@ class MultiTaskTrainer:
         ):
             # a 0-epoch phase is a no-op; keep the last phase that ran
             test_m = self._run_phase(phase, epochs, title) or test_m
-        if save:
+        if save and self._rank == 0:
             name = metrics_checkpoint_name(
                 f"TestPerson{self.test_person}",
                 {"ArousalAcc": test_m.get("a_acc", 0.0), "ValenceAcc": test_m.get("v_acc", 0.0)})
             os.makedirs(self.checkpoint_dir, exist_ok=True)
             torch.save(self.model.state_dict(), os.path.join(self.checkpoint_dir, name))
-        if plot:
+        if plot and self._rank == 0:
             from ..eval.reporting import plot_progress
 
             os.makedirs(self.checkpoint_dir, exist_ok=True)
@@ -415,21 +458,25 @@ class MultiTaskTrainer:
     # the generators, the per-phase schedulers and the metrics are the state
     def save_state(self, path: str) -> str:
         """Write the model's ``state_dict``, the dropout and host generators'
-        states, the per-phase schedulers, the metrics and ``test_person``."""
-        return save_checkpoint(path, {
+        states, the per-phase schedulers, the metrics and ``test_person``.
+        Under a mesh rank 0 writes, with every rank's dropout generator
+        (every rank must call it; the file exists on return)."""
+        state = {
             "model": self.model.state_dict(),
             "generator": generator_state(self.generator),
             "host_rng": self.host_rng.bit_generator.state,
             "schedulers": {k: dataclasses.asdict(v) for k, v in self.schedulers.items()},
             "metrics": self.metrics,
             "test_person": self.test_person,
-        })
+        }
+        return save_on_rank0(path, state, self.generator, self._group)
 
     def restore_state(self, path: str) -> None:
         """Restore :meth:`save_state`'s file in place; the next phase's
-        optimizer starts fresh (JAX: ``_opt_state = {}``)."""
+        optimizer starts fresh (JAX: ``_opt_state = {}``). Rank r's dropout
+        generator takes rank r's state where the file has one."""
         state = load_checkpoint(path, "cpu")
-        set_generator_state(self.generator, state["generator"], "generator")
+        restore_rank_generator(self.generator, state, self._rank)
         self.model.load_state_dict(state["model"], strict=True)
         self.host_rng.bit_generator.state = state["host_rng"]
         self.schedulers = {k: ReduceLROnPlateau(**v) for k, v in state["schedulers"].items()}

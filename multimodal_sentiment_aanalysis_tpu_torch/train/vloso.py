@@ -57,8 +57,27 @@ gradient reaches the master row rounded to bf16 through the cast.
 run in fp32 on the master parameters, as JAX's ``_build_eval`` and
 ``_one_model_te_loss`` do.
 
-Not ported yet: ``mesh`` (subject sharding over devices, ROADMAP A13), which
-raises.
+Subject sharding, ``mesh=`` (a :func:`..parallel.make_mesh` mesh of W
+ranks, one process each; JAX ``vloso.py:122-145``): the subject axis is
+padded to ``n_total``, a multiple of W (padding model ``s`` trains on
+subject ``s % n_subjects``), and each rank holds a contiguous block of
+``n_total / W`` models (:class:`..parallel.mesh.SubjectBlocks`). Every rank
+draws all ``n_total`` initialisations, host plans and device plans from
+the same generators and keeps its block, so a sharded run trains on the
+unsharded run's batches (with padding the host and device streams draw
+``n_total`` plans an epoch, so they follow a padded unsharded run's). A
+step has no collective: every kernel launches once a step for the rank's
+models. The results are global: :meth:`train_epoch`,
+:meth:`train_epochs_fused`, :meth:`evaluate`, :meth:`stop_report` and
+:meth:`run` gather every rank's block (the real ``n_subjects`` subjects);
+:meth:`subject_variables` is broadcast from the rank that holds the
+subject; :meth:`load_stacked_state` takes the global stack. Each rank
+draws its dropout masks from its own generator (rank 0's is the unsharded
+one), so a run on W > 1 ranks equals the unsharded run at dropout 0: the
+losses to float noise (the models of a launch differ in number), exactly
+on one rank. :meth:`save_state` writes one file from rank 0 in the
+unsharded format and :meth:`restore_state` keeps the rank's block, so a
+file restores into a trainer of any mesh with the same ``n_total``.
 """
 
 from __future__ import annotations
@@ -73,11 +92,11 @@ from torch.func import functional_call, grad_and_value, vmap
 from ..data.pipeline import DeviceDataset, epoch_plan_on_device
 from ..data.splits import loso_split
 from ..ops.losses import masked_accuracy, masked_cross_entropy
+from ..parallel.mesh import SubjectBlocks, rank_seed, restore_rank_generator, save_on_rank0
 from ..utils.checkpoint import (
     copy_state_,
     generator_state,
     load_checkpoint,
-    save_checkpoint,
     set_generator_state,
 )
 from ..utils.schedule import vector_schedule_init, vector_schedule_step
@@ -134,25 +153,29 @@ class VectorizedLOSOTrainer:
         plateau_patience: int = 3,
         plateau_factor: float = 0.5,
     ):
-        if mesh is not None:
-            raise NotImplementedError("sharding the subjects over devices is not ported yet")
         self.device = data.device
         if any(p.device != self.device for p in model.parameters()):
             raise ValueError(f"the model's parameters must be on the data's device {self.device}")
         self.model = copy.deepcopy(model)  # the template functional_call runs
         self.data = data
-        self.n_subjects = self.n_total = n_subjects
+        self.mesh = mesh
+        self.blocks = blocks = SubjectBlocks(n_subjects, mesh)
+        self.n_subjects, self.n_total, self.n_local = n_subjects, blocks.n_total, blocks.n_local
         self.ex_nums = ex_nums
         self.batch_size = batch_size
         self.clip_norm = clip_norm
         self.compute_dtype = as_dtype(compute_dtype)
         self.host_rng = np.random.default_rng(seed)
 
-        splits = [loso_split(n_subjects, ex_nums, s) for s in range(n_subjects)]
-        self.train_idx = np.stack([tr for tr, _ in splits])  # (S, n_train)
-        self.test_idx = np.stack([te for _, te in splits])   # (S, ex_nums)
+        # padding models (s >= n_subjects) reuse subject s % n_subjects
+        splits = [loso_split(n_subjects, ex_nums, blocks.subject(s)) for s in range(self.n_total)]
+        self.train_idx = np.stack([tr for tr, _ in splits])  # (n_total, n_train)
+        self.test_idx = np.stack([te for _, te in splits])   # (n_total, ex_nums)
+        # every model's train rows (the device plans are drawn in full); this
+        # rank's test rows
         self._train_rows = torch.as_tensor(self.train_idx, dtype=torch.long, device=self.device)
-        self._test_rows = torch.as_tensor(self.test_idx, dtype=torch.long, device=self.device)
+        self._test_rows = torch.as_tensor(blocks.local(self.test_idx), dtype=torch.long,
+                                          device=self.device)
 
         # one row per model: every parameter flattened, then the trainer's
         # contrastive weight; the BN running stats likewise
@@ -160,28 +183,31 @@ class VectorizedLOSOTrainer:
         named = list(self.model.named_parameters())
         buffers = dict(self.model.named_buffers())
 
-        # stacked init: each model its own draw of the model's init rule
+        # stacked init: each model its own draw of the model's init rule, all
+        # n_total drawn in turn on every rank, this rank's block kept
         gen = torch.Generator().manual_seed(seed)
         rows = []
         with torch.no_grad():
-            for _ in range(n_subjects):
+            for s in range(self.n_total):
                 self.model.reset_parameters(gen)
-                rows.append(torch.cat([p.reshape(-1) for _, p in named]
-                                      + [torch.ones(1, device=self.device)]))
-        self.params = torch.stack(rows)  # (S, N)
+                if blocks.lo <= s < blocks.hi:
+                    rows.append(torch.cat([p.reshape(-1) for _, p in named]
+                                          + [torch.ones(1, device=self.device)]))
+        self.params = torch.stack(rows)  # (S, N), S = n_local
         self.stats = torch.cat([buffers[n].reshape(-1) for n in self.layout.stat_names]
-                               ).repeat(n_subjects, 1)  # (S, M)
+                               ).repeat(self.n_local, 1)  # (S, M)
         self._stat_views = self._stat_dict(self.stats)  # written in place by the forward
 
         self.opt = StackedAdamW(self.params, lr, weight_decay, moment_dtype=as_dtype(moment_dtype))
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed + 1, blocks.rank))
         self.plan_generator = torch.Generator(device=self.device).manual_seed(seed + 2)
-        self._all_active = torch.ones(n_subjects, dtype=torch.bool, device=self.device)
+        self._all_active = torch.ones(self.n_local, dtype=torch.bool, device=self.device)
         self.early_stop = early_stop
         self._es_cfg = dict(es_patience=es_patience, plateau_patience=plateau_patience,
                             plateau_factor=plateau_factor)
         if early_stop:
-            self.sched = vector_schedule_init(n_subjects, lr, self.device)
+            self.sched = vector_schedule_init(self.n_local, lr, self.device)
             self._epochs_run = 0
         self._reset_best()
         self._grad_step = vmap(grad_and_value(self._loss_one, has_aux=True),
@@ -207,25 +233,32 @@ class VectorizedLOSOTrainer:
                            contrastive_weight: torch.Tensor | None = None) -> None:
         """Set every model's parameters and BN running stats from a
         reference-named ``state_dict`` whose tensors carry a leading model
-        axis (e.g. :func:`..models.jax_import.trainer_state_from_jax` of the
-        JAX trainer's stacked init), and the ``(S, 1)`` trainer-level
-        contrastive weights when given."""
+        axis of all ``n_total`` models (e.g.
+        :func:`..models.jax_import.trainer_state_from_jax` of the JAX
+        trainer's stacked init), and the ``(n_total, 1)`` trainer-level
+        contrastive weights when given; a sharded trainer keeps its block."""
+        local = self.blocks.local
         for name, view in self._param_dict(self.params).items():
             if name != TRAINER_CW:
-                view.copy_(state_dict[name])
+                view.copy_(local(state_dict[name]))
         if contrastive_weight is not None:
-            self._param_dict(self.params)[TRAINER_CW].copy_(contrastive_weight)
+            self._param_dict(self.params)[TRAINER_CW].copy_(local(contrastive_weight))
         for name, view in self._stat_views.items():
-            view.copy_(state_dict[name])
+            view.copy_(local(state_dict[name]))
         self._reset_best()
 
     def subject_variables(self, sid: int) -> dict[str, torch.Tensor]:
         """Subject ``sid``'s model as a reference-named ``state_dict`` that
         :class:`..models.MultimodalTransformerModel` loads strictly (the JAX
-        method returns the same model's flax variables)."""
-        sd = {n: v[sid].clone() for n, v in self._param_dict(self.params).items()
-              if n != TRAINER_CW}
-        sd.update({n: v[sid].clone() for n, v in self._stat_views.items()})
+        method returns the same model's flax variables); sharded, broadcast
+        from the rank that holds it (every rank must call it)."""
+        def one(i: int) -> dict[str, torch.Tensor]:
+            sd = {n: v[i].clone() for n, v in self._param_dict(self.params).items()
+                  if n != TRAINER_CW}
+            sd.update({n: v[i].clone() for n, v in self._stat_views.items()})
+            return sd
+
+        sd = self.blocks.from_owner(sid, one)
         sd.update({n: b.clone() for n, b in self.model.named_buffers()
                    if n.endswith("num_batches_tracked")})
         return sd
@@ -242,32 +275,43 @@ class VectorizedLOSOTrainer:
         return out
 
     def save_state(self, path: str) -> str:
-        """Write all S models' parameters and BN stats, the optimizer state,
-        the dropout and plan generators, the host generator, and with
-        ``early_stop`` the schedule lanes, best snapshots and epoch count."""
-        return save_checkpoint(path, {
-            "tensors": self._state_tensors(),
+        """Write all ``n_total`` models' parameters and BN stats, the
+        optimizer state, the dropout and plan generators, the host
+        generator, and with ``early_stop`` the schedule lanes, best
+        snapshots and epoch count. Sharded, every rank's block is gathered
+        and rank 0 writes the one file, in the unsharded format (every rank
+        must call it; the file exists on return)."""
+        gather = self.blocks.gather
+        state = {
+            "tensors": {k: gather(t) for k, t in self._state_tensors().items()},
             "generator": generator_state(self.generator),
             "plan_generator": generator_state(self.plan_generator),
             "host_rng": self.host_rng.bit_generator.state,
             "early_stop": self.early_stop,
             "epochs_run": getattr(self, "_epochs_run", 0),
-        })
+        }
+        return save_on_rank0(path, state, self.generator, self.blocks.group)
 
     def restore_state(self, path: str) -> None:
         """Restore :meth:`save_state`'s file into this trainer's tensors in
         place (the forward's BN-stat views and the optimizer's column views
-        stay bound to them). The file must come from a trainer of the same
-        shapes, dtypes and ``early_stop``, on the same device type."""
+        stay bound to them); a sharded trainer keeps its block. The file
+        must come from a trainer of the same ``n_total``, shapes, dtypes and
+        ``early_stop``, on the same device type. Rank r's dropout generator
+        takes rank r's state where the file has one (a file of fewer ranks
+        leaves the others' streams as they are)."""
         state = load_checkpoint(path, "cpu")
         if state["early_stop"] != self.early_stop:
             raise ValueError(f"the file was saved with early_stop={state['early_stop']}, the "
                              f"trainer has early_stop={self.early_stop}")
-        set_generator_state(self.generator, state["generator"], "generator")
-        set_generator_state(self.plan_generator, state["plan_generator"], "plan_generator")
         saved = state["tensors"]
+        if saved["params"].shape[0] != self.n_total:
+            raise ValueError(f"the file holds {saved['params'].shape[0]} models, the trainer "
+                             f"{self.n_total}")
+        restore_rank_generator(self.generator, state, self.blocks.rank)
+        set_generator_state(self.plan_generator, state["plan_generator"], "plan_generator")
         for name, t in self._state_tensors().items():
-            copy_state_(t, saved[name], name)
+            copy_state_(t, self.blocks.local(saved[name]), name)
         self.host_rng.bit_generator.state = state["host_rng"]
         if self.early_stop:
             self._epochs_run = state["epochs_run"]
@@ -331,9 +375,10 @@ class VectorizedLOSOTrainer:
 
     def _run_epoch(self, plans: torch.Tensor, masks: torch.Tensor,
                    active: torch.Tensor) -> torch.Tensor:
-        """Every step of one epoch's plans ``(S, nb, B)``; masked sums ``(S, 4)``."""
+        """Every step of one epoch's plans ``(S, nb, B)`` of this rank's
+        models; masked sums ``(S, 4)``."""
         self.model.train()
-        totals = torch.zeros(self.n_total, 4, device=self.device)
+        totals = torch.zeros(self.n_local, 4, device=self.device)
         for j in range(plans.shape[1]):
             totals += self._train_step(plans[:, j], masks[:, j], active)
         return totals
@@ -342,9 +387,9 @@ class VectorizedLOSOTrainer:
         return ~self.sched["stopped"] if self.early_stop else self._all_active
 
     def _epoch_plans(self) -> tuple[np.ndarray, np.ndarray]:
-        """Per-subject shuffled batch plans ``(S, nb, B)`` and validity
-        masks, drawn from ``host_rng`` exactly as the JAX trainer draws
-        them: one permutation per subject, tiled to whole batches, the
+        """Every model's shuffled batch plans ``(n_total, nb, B)`` and
+        validity masks, drawn from ``host_rng`` exactly as the JAX trainer
+        draws them: one permutation per model, tiled to whole batches, the
         padding masked."""
         n_train = self.train_idx.shape[1]
         bsz = self.batch_size
@@ -361,23 +406,30 @@ class VectorizedLOSOTrainer:
         ).copy()
         return plans, masks
 
+    def _global(self, local: torch.Tensor, dim: int = 0) -> np.ndarray:
+        """Every rank's block of ``local`` along ``dim``, the real subjects'
+        rows, on the host."""
+        out = self.blocks.gather(local, dim).cpu().numpy()
+        return out[(slice(None),) * dim + (slice(0, self.n_subjects),)]
+
     def train_epoch(self) -> dict[str, np.ndarray]:
         """One epoch of every model on host-drawn plans; per-subject
-        per-sample ``loss``, ``a_acc``, ``v_acc`` ``(S,)``."""
-        plans, masks = self._epoch_plans()
+        per-sample ``loss``, ``a_acc``, ``v_acc`` ``(n_subjects,)``."""
+        plans, masks = (self.blocks.local(a) for a in self._epoch_plans())
         totals = self._run_epoch(torch.as_tensor(plans, device=self.device),
                                  torch.as_tensor(masks, device=self.device), self._active())
-        return _per_sample(totals.cpu().numpy())
+        return _per_sample(self._global(totals))
 
     def _device_plans(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """One epoch's plans ``(S, nb, B)`` drawn on the device."""
+        """One epoch's plans drawn on the device for all ``n_total`` models,
+        this rank's block ``(S, nb, B)`` kept."""
         plans, masks = [], []
         for rows in self._train_rows:
             idx, mask = epoch_plan_on_device(self.plan_generator, rows.shape[0],
                                              self.batch_size)
             plans.append(rows[idx.long()])
             masks.append(mask)
-        return torch.stack(plans), torch.stack(masks)
+        return self.blocks.local(torch.stack(plans)), self.blocks.local(torch.stack(masks))
 
     # ------------------------------------------------------------------
     # evaluation and the early-stop lanes
@@ -389,14 +441,15 @@ class VectorizedLOSOTrainer:
 
     @torch.no_grad()
     def evaluate(self, best: bool = False) -> dict[str, np.ndarray]:
-        """Per-subject held-out accuracies ``(S,)``; ``best=True`` evaluates
-        each subject's best-checkpoint snapshot instead of the final state."""
+        """Per-subject held-out accuracies ``(n_subjects,)``; ``best=True``
+        evaluates each subject's best-checkpoint snapshot instead of the
+        final state."""
         if best and not self.early_stop:
             raise ValueError("best=True requires early_stop=True")
         params, stats = (self.best_params, self.best_stats) if best else (self.params, self.stats)
         self.model.eval()
-        out = vmap(self._accuracy_one)(params, self._stat_dict(stats),
-                                       self._gather(self._test_rows)).cpu().numpy()
+        out = self._global(vmap(self._accuracy_one)(params, self._stat_dict(stats),
+                                                    self._gather(self._test_rows)))
         return {"a_acc": out[:, 0], "v_acc": out[:, 1]}
 
     def _es_step(self, epoch: int) -> torch.Tensor:
@@ -415,14 +468,14 @@ class VectorizedLOSOTrainer:
         """One early-stop epoch on host-drawn plans: train (stopped subjects
         frozen), then the same transition :meth:`train_epochs_fused` runs."""
         tm = self.train_epoch()
-        te = self._es_step(epoch_num).cpu().numpy()
+        te = self._global(self._es_step(epoch_num))
         self._epochs_run = epoch_num
         return {**tm, **{k: te[:, j] for j, k in enumerate(_TE_KEYS)}}
 
     def fused_epochs_on_device(self, n_epochs: int) -> torch.Tensor:
         """The epochs of :meth:`train_epochs_fused` with nothing read back to
-        the host: per epoch and subject the masked sums ``(E, S, 4)``, and
-        with ``early_stop`` also the held-out metrics, ``lr`` and
+        the host: per epoch and model of this rank the masked sums ``(E, S,
+        4)``, and with ``early_stop`` also the held-out metrics, ``lr`` and
         ``stopped`` (``(E, S, 9)``), on the device."""
         rows = []
         for e in range(n_epochs):
@@ -444,7 +497,7 @@ class VectorizedLOSOTrainer:
         ``(E, S)``. With ``early_stop`` the schedule lanes advance after
         every epoch and the result gains ``te_loss``/``te_a_acc``/
         ``te_v_acc``/``lr``/``stopped``."""
-        out = self.fused_epochs_on_device(n_epochs).cpu().numpy()
+        out = self._global(self.fused_epochs_on_device(n_epochs), dim=1)
         result = _per_sample(out[..., :4])
         if self.early_stop:
             result.update({k: out[..., 4 + j] for j, k in enumerate(_TE_KEYS)})
@@ -455,7 +508,7 @@ class VectorizedLOSOTrainer:
     def stop_report(self) -> str:
         """Per-subject stop epochs, the vectorized analog of the reference
         run log's 'Early stopping triggered at epoch N' lines."""
-        stop = self.sched["stop_epoch"].cpu().numpy()
+        stop = self._global(self.sched["stop_epoch"])
         lines = [f"  subject {s}: " + (f"early-stopped at epoch {int(e)}" if e > 0
                                        else f"ran all {self._epochs_run} epochs")
                  for s, e in enumerate(stop)]
@@ -490,7 +543,7 @@ class VectorizedLOSOTrainer:
             else:
                 for epoch in range(1, epochs + 1):
                     tm = self._host_es_epoch(epoch)
-                    stopped = self.sched["stopped"].cpu().numpy()
+                    stopped = self._global(self.sched["stopped"])
                     if verbose:
                         print(f"Epoch {epoch}: mean train loss {tm['loss'].mean():.4f} "
                               f"te_loss {tm['te_loss'].mean():.4f} "
@@ -507,7 +560,7 @@ class VectorizedLOSOTrainer:
                 "per_subject_valence": ev["v_acc"],
                 "final_arousal_acc": float(final["a_acc"].mean()),
                 "final_valence_acc": float(final["v_acc"].mean()),
-                "stop_epochs": self.sched["stop_epoch"].cpu().numpy(),
+                "stop_epochs": self._global(self.sched["stop_epoch"]),
             }
             if verbose:
                 print(f"LOSO mean (best checkpoints): arousal {result['mean_arousal_acc']:.2%} "

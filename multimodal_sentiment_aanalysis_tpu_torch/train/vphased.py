@@ -49,7 +49,21 @@ checkpoint the curriculum at any phase boundary or between a phase's calls
 (JAX ``vphased.py:466-540``): the optimizer is built anew at each
 :meth:`run_phase_on_device`, so it is no part of the state.
 :meth:`save_checkpoints` writes each subject's model under the name the
-sequential CLI run gives it. Not ported yet: ``mesh`` (ROADMAP A13) raises.
+sequential CLI run gives it.
+
+Subject sharding, ``mesh=`` (JAX ``vphased.py:126-216``), as
+:class:`.vloso.VectorizedLOSOTrainer`'s: the subject axis padded to
+``n_total``, a multiple of the mesh's W ranks (padding model ``s`` is
+subject ``s % n_subjects``: its seed, split and host generator), one
+contiguous block of models per rank, every rank drawing all ``n_total``
+initialisations and plans and keeping its block. Each subject shuffles
+with its own generator, so the real subjects' plans are the unsharded
+run's whatever the padding. A step has no collective; the metrics,
+:meth:`run`'s results, :meth:`stop_report`, :meth:`subject_variables`,
+:meth:`save_state` (one file, rank 0 writes) and :meth:`save_checkpoints`
+(rank 0 writes) are global, and every rank must call them. Each rank's
+dropout generator is its own (rank 0's is the unsharded one): W > 1 ranks
+equal the unsharded run at dropout 0.
 """
 
 from __future__ import annotations
@@ -64,13 +78,13 @@ from torch.func import functional_call, grad_and_value, vmap
 
 from ..data.pipeline import DeviceDataset, epoch_batch_indices, host_to_device
 from ..data.splits import loso_split
+from ..parallel.mesh import SubjectBlocks, rank_seed, restore_rank_generator, save_on_rank0
 from ..utils.checkpoint import (
     copy_state_,
     generator_state,
     load_checkpoint,
     metrics_checkpoint_name,
     save_checkpoint,
-    set_generator_state,
 )
 from ..utils.schedule import vector_schedule_init, vector_schedule_step
 from .multitask import METRIC_KEYS, PHASE_ORDER, PHASES, eval_sums, make_phase_loss
@@ -108,15 +122,14 @@ class VectorizedPhasedTrainer:
         early_stop: bool = False,
         es_patience: int = 5,
     ):
-        if mesh is not None:
-            raise NotImplementedError("sharding the subjects over devices is not ported yet "
-                                      "(ROADMAP A13)")
         self.device = data.device
         if any(p.device != self.device for p in model.parameters()):
             raise ValueError(f"the model's parameters must be on the data's device {self.device}")
         self.model = copy.deepcopy(model)  # the template functional_call runs
         self.data = data
-        self.n_subjects = self.n_total = n_subjects
+        self.mesh = mesh
+        self.blocks = blocks = SubjectBlocks(n_subjects, mesh)
+        self.n_subjects, self.n_total, self.n_local = n_subjects, blocks.n_total, blocks.n_local
         self.ex_nums = ex_nums
         self.lr = lr
         self.weight_decay = weight_decay
@@ -133,32 +146,35 @@ class VectorizedPhasedTrainer:
             subject_seeds = [seed + s for s in range(n_subjects)]
         if len(subject_seeds) != n_subjects:
             raise ValueError(f"{len(subject_seeds)} subject seeds for {n_subjects} subjects")
-        self.subject_seeds = list(subject_seeds)
+        # padding models (mesh rounding) duplicate subject s % n_subjects
+        self.subject_seeds = [subject_seeds[blocks.subject(s)] for s in range(self.n_total)]
 
-        splits = [loso_split(n_subjects, ex_nums, s) for s in range(n_subjects)]
-        self.train_idx = np.stack([tr for tr, _ in splits])  # (S, n_train)
-        self.test_idx = np.stack([te for _, te in splits])   # (S, ex_nums)
+        splits = [loso_split(n_subjects, ex_nums, blocks.subject(s)) for s in range(self.n_total)]
+        self.train_idx = np.stack([tr for tr, _ in splits])  # (n_total, n_train)
+        self.test_idx = np.stack([te for _, te in splits])   # (n_total, ex_nums)
         # the stream MultiTaskTrainer(seed=subject_seeds[s]) shuffles with
         self.host_rngs = [np.random.default_rng(s) for s in self.subject_seeds]
 
         self.layout = RowLayout(self.model)
         rows = []
         with torch.no_grad():
-            for s in self.subject_seeds:
+            for s in blocks.local(self.subject_seeds):
                 self.model.reset_parameters(torch.Generator().manual_seed(s))
                 rows.append(torch.cat([p.reshape(-1) for p in self.model.parameters()]))
-        self.params = torch.stack(rows)  # (S, N)
+        self.params = torch.stack(rows)  # (S, N), S = n_local
         buffers = dict(self.model.named_buffers())
         self.stats = torch.cat([buffers[n].reshape(-1) for n in self.layout.stat_names]
-                               ).repeat(n_subjects, 1)  # (S, M)
+                               ).repeat(self.n_local, 1)  # (S, M)
         self._stat_views = self.layout.stats(self.stats)  # written in place by the forward
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed, blocks.rank))
 
         # static per-subject test plan (shuffle=False), global rows
         t_local, t_mask = epoch_batch_indices(ex_nums, batch_size, shuffle=False)
-        self._test_rows = torch.as_tensor(self.test_idx[:, t_local], device=self.device)
+        self._test_rows = torch.as_tensor(blocks.local(self.test_idx)[:, t_local],
+                                          device=self.device)
         self._test_mask = torch.as_tensor(
-            np.broadcast_to(t_mask, (n_subjects, *t_mask.shape)).copy(), device=self.device)
+            np.broadcast_to(t_mask, (self.n_local, *t_mask.shape)).copy(), device=self.device)
 
         self.opt: StackedAdamW | None = None
         self._grad_fns: dict[str, Any] = {}
@@ -174,20 +190,26 @@ class VectorizedPhasedTrainer:
     @torch.no_grad()
     def load_stacked_state(self, state_dict: dict[str, torch.Tensor]) -> None:
         """Every model's parameters and BatchNorm running stats from a
-        reference-named ``state_dict`` whose tensors carry a leading model
-        axis (e.g. :func:`..models.jax_import.phased_state_from_jax` of the
-        JAX trainer's stacked init)."""
+        reference-named ``state_dict`` whose tensors carry a leading axis of
+        all ``n_total`` models (e.g.
+        :func:`..models.jax_import.phased_state_from_jax` of the JAX
+        trainer's stacked init); a sharded trainer keeps its block."""
         for name, view in self.layout.params(self.params).items():
-            view.copy_(state_dict[name])
+            view.copy_(self.blocks.local(state_dict[name]))
         for name, view in self._stat_views.items():
-            view.copy_(state_dict[name])
+            view.copy_(self.blocks.local(state_dict[name]))
 
     def subject_variables(self, sid: int) -> dict[str, torch.Tensor]:
         """Subject ``sid``'s model as a reference-named ``state_dict`` that
         :class:`..models.MultimodalTransformerModel` loads strictly (the JAX
-        method returns the same model's flax variables)."""
-        sd = {n: v[sid].clone() for n, v in self.layout.params(self.params).items()}
-        sd.update({n: v[sid].clone() for n, v in self._stat_views.items()})
+        method returns the same model's flax variables); sharded, broadcast
+        from the rank that holds it (every rank must call it)."""
+        def one(i: int) -> dict[str, torch.Tensor]:
+            sd = {n: v[i].clone() for n, v in self.layout.params(self.params).items()}
+            sd.update({n: v[i].clone() for n, v in self._stat_views.items()})
+            return sd
+
+        sd = self.blocks.from_owner(sid, one)
         sd.update({n: b.clone() for n, b in self.model.named_buffers()
                    if n.endswith("num_batches_tracked")})
         return sd
@@ -246,9 +268,10 @@ class VectorizedPhasedTrainer:
 
     @torch.no_grad()
     def _eval_sums(self) -> torch.Tensor:
-        """``(S, 7)`` test metric sums in eval mode on the fp32 master row."""
+        """``(S, 7)`` test metric sums of this rank's models in eval mode on
+        the fp32 master row."""
         self.model.eval()
-        sums = torch.zeros(self.n_total, 7, device=self.device)
+        sums = torch.zeros(self.n_local, 7, device=self.device)
         for j in range(self._test_rows.shape[1]):
             sums += vmap(self._eval_one)(self.params, self._stat_views,
                                          self._gather(self._test_rows[:, j]),
@@ -256,8 +279,8 @@ class VectorizedPhasedTrainer:
         return sums
 
     def _phase_plans(self, epochs: int) -> tuple[np.ndarray, np.ndarray]:
-        """Per-subject, per-epoch shuffled batch plans in global row ids,
-        ``(S, E, nb, B)``, and their masks, drawn from each subject's own
+        """Per-model, per-epoch shuffled batch plans in global row ids,
+        ``(n_total, E, nb, B)``, and their masks, drawn from each model's own
         host generator in the order the sequential trainer draws them."""
         n_train = self.train_idx.shape[1]
         nb = -(-n_train // self.batch_size)
@@ -275,11 +298,13 @@ class VectorizedPhasedTrainer:
         """``epochs`` epochs of ``phase`` for every subject with nothing read
         back to the host (the plans are drawn on the host first). Returns, on
         the device, the train and test metric sums ``(S, E, 7)`` and the
-        ``lr`` and ``stopped`` lanes after each epoch ``(S, E)``."""
+        ``lr`` and ``stopped`` lanes after each epoch ``(S, E)`` of this
+        rank's models."""
         spec = PHASES[phase]
-        plans, masks = (host_to_device(a, self.device) for a in self._phase_plans(epochs))
+        plans, masks = (host_to_device(np.ascontiguousarray(self.blocks.local(a)), self.device)
+                        for a in self._phase_plans(epochs))
         if phase not in self._phase_sched:
-            self._phase_sched[phase] = vector_schedule_init(self.n_total, self.lr, self.device)
+            self._phase_sched[phase] = vector_schedule_init(self.n_local, self.lr, self.device)
             self._phase_epochs[phase] = 0
         sched, epoch0 = self._phase_sched[phase], self._phase_epochs[phase]
         # the schedule lanes: parity mode (the defaults) keeps both patiences
@@ -299,7 +324,7 @@ class VectorizedPhasedTrainer:
                 before = [t.clone() for t in (self.params, self.stats, self.opt.mu, self.opt.nu,
                                               self.opt.count)]
             self.model.train()
-            sums = torch.zeros(self.n_total, 7, device=self.device)
+            sums = torch.zeros(self.n_local, 7, device=self.device)
             for j in range(plans.shape[2]):
                 sums += self._train_step(phase, plans[:, e, j], masks[:, e, j])
             if self.early_stop:
@@ -320,11 +345,12 @@ class VectorizedPhasedTrainer:
         return {k: torch.stack(v, 1) for k, v in out.items()}
 
     def record_phase(self, phase: str, out: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
-        """Reads :meth:`run_phase_on_device`'s result back: appends the
-        per-epoch, per-subject metrics to :attr:`metrics` and returns the last
-        epoch's per-subject test metrics."""
-        tr, te = out["train"].cpu().numpy(), out["test"].cpu().numpy()
-        self._last_hist = {k: out[k].cpu().numpy() for k in ("lr", "stopped")}  # (S, E)
+        """Reads :meth:`run_phase_on_device`'s result back (every rank's
+        block): appends the per-epoch, per-subject metrics to :attr:`metrics`
+        and returns the last epoch's per-subject test metrics."""
+        real = lambda t: self.blocks.gather(t).cpu().numpy()[: self.n_subjects]
+        tr, te = real(out["train"]), real(out["test"])
+        self._last_hist = {k: real(out[k]) for k in ("lr", "stopped")}  # (n_subjects, E)
         tn, en = np.maximum(tr[..., 6], 1.0), np.maximum(te[..., 6], 1.0)
         for e in range(tr.shape[1]):
             for j, k in enumerate(METRIC_KEYS):
@@ -368,7 +394,8 @@ class VectorizedPhasedTrainer:
     def stop_report(self, phase: str) -> str:
         """Per-subject stop-epoch lines for one phase (the vectorized analog
         of the reference's 'Early stopping triggered!' prints)."""
-        stop = self._phase_sched[phase]["stop_epoch"].cpu().numpy()[: self.n_subjects]
+        stop = self.blocks.gather(self._phase_sched[phase]["stop_epoch"]).cpu().numpy()
+        stop = stop[: self.n_subjects]
         ran = self._phase_epochs.get(phase, 0)
         lines = [f"  subject {s}: " + (f"early-stopped at phase epoch {int(e)}" if e > 0
                                        else f"ran all {ran} phase epochs")
@@ -380,35 +407,46 @@ class VectorizedPhasedTrainer:
     # ------------------------------------------------------------------
     # checkpoints
     def save_state(self, path: str) -> str:
-        """Write every subject's parameters and BN stats, the dropout
-        generator, the per-subject host generators, each phase's epoch count
-        and schedule lanes, the metrics and the last phase's results."""
+        """Write every model's parameters and BN stats, the dropout
+        generator, the per-model host generators, each phase's epoch count
+        and schedule lanes, the metrics and the last phase's results.
+        Sharded, rank 0 writes the one file, in the unsharded format, with
+        every rank's block and dropout generator (every rank must call it;
+        the file exists on return)."""
         tensors = lambda d: {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()}
-        return save_checkpoint(path, {
-            "params": self.params,
-            "stats": self.stats,
+        gather = self.blocks.gather
+        state = {
+            "params": gather(self.params),
+            "stats": gather(self.stats),
             "generator": generator_state(self.generator),
             "host_rngs": [r.bit_generator.state for r in self.host_rngs],
             "phase_epochs": dict(self._phase_epochs),
-            "phase_sched": self._phase_sched,
+            "phase_sched": {ph: {k: gather(v) for k, v in sd.items()}
+                            for ph, sd in self._phase_sched.items()},
             "metrics": {split: {k: [torch.from_numpy(np.asarray(a)) for a in v]
                                 for k, v in d.items()} for split, d in self.metrics.items()},
             "last_test": tensors(self._last_test),
             "last_hist": tensors(self._last_hist),
-        })
+        }
+        return save_on_rank0(path, state, self.generator, self.blocks.group)
 
     def restore_state(self, path: str) -> None:
         """Restore :meth:`save_state`'s file: the rows in place (the
-        forward's BN-stat views stay bound to them), the rest as saved, the
-        lanes on this trainer's device."""
+        forward's BN-stat views stay bound to them; a sharded trainer keeps
+        its block of a file with its ``n_total`` models), the rest as saved,
+        the lanes on this trainer's device. Rank r's dropout generator takes
+        rank r's state where the file has one."""
         state = load_checkpoint(path, "cpu")
-        set_generator_state(self.generator, state["generator"], "generator")
-        copy_state_(self.params, state["params"], "params")
-        copy_state_(self.stats, state["stats"], "stats")  # also holds S to the file's
+        if state["params"].shape[0] != self.n_total:
+            raise ValueError(f"the file holds {state['params'].shape[0]} models, the trainer "
+                             f"{self.n_total}")
+        restore_rank_generator(self.generator, state, self.blocks.rank)
+        copy_state_(self.params, self.blocks.local(state["params"]), "params")
+        copy_state_(self.stats, self.blocks.local(state["stats"]), "stats")
         for rng, st in zip(self.host_rngs, state["host_rngs"]):
             rng.bit_generator.state = st
         self._phase_epochs = dict(state["phase_epochs"])
-        self._phase_sched = {ph: {k: v.to(self.device) for k, v in sd.items()}
+        self._phase_sched = {ph: {k: self.blocks.local(v).to(self.device) for k, v in sd.items()}
                              for ph, sd in state["phase_sched"].items()}
         self.metrics = {split: {k: [t.numpy() for t in v] for k, v in d.items()}
                         for split, d in state["metrics"].items()}
@@ -419,7 +457,8 @@ class VectorizedPhasedTrainer:
         """One ``state_dict`` file per subject (:meth:`subject_variables`),
         named as the sequential CLI run names it: ``TestPerson{sid}`` and the
         last phase's test accuracies (the JAX names, ``.pt`` for
-        ``.msgpack``)."""
+        ``.msgpack``). Sharded, rank 0 writes them (every rank must call
+        it)."""
         if not self._last_test:
             raise ValueError("no phase has run: there are no test accuracies to name the "
                              "checkpoints by")
@@ -428,5 +467,8 @@ class VectorizedPhasedTrainer:
             name = metrics_checkpoint_name(
                 f"TestPerson{sid}", {"ArousalAcc": float(self._last_test["a_acc"][sid]),
                                      "ValenceAcc": float(self._last_test["v_acc"][sid])})
-            paths.append(save_checkpoint(f"{checkpoint_dir}/{name}", self.subject_variables(sid)))
+            sd = self.subject_variables(sid)
+            paths.append(f"{checkpoint_dir}/{name}")
+            if self.blocks.rank == 0:
+                save_checkpoint(paths[-1], sd)
         return paths

@@ -44,7 +44,20 @@ and :meth:`finetune_epoch_on_device` run an epoch with nothing read back to the
 host. Subject ``s``'s weights are drawn from ``torch.Generator().manual_seed(
 seed + s)`` (encoder and projector, then classifier). ``rng_impl`` is
 accepted and recorded only: the dropout stream is the device generator
-whatever it says. Not ported yet: ``mesh`` (ROADMAP A13) raises.
+whatever it says.
+
+Subject sharding, ``mesh=`` (JAX ``vsimclr.py:91-190``), as
+:class:`.vloso.VectorizedLOSOTrainer`'s: the subject axis padded to
+``n_total``, a multiple of the mesh's W ranks (padding model ``s`` is
+subject ``s % n_subjects``: its split, pair table and init seed), one
+contiguous block of models per rank. Every rank builds all ``n_total``
+pair tables and draws every model's plans from the shared host generator,
+keeping its block, so a sharded run trains on the unsharded run's batches
+(with padding the generator draws ``n_total`` plans an epoch). A step has
+no collective; :meth:`pretrain`, :meth:`finetune`, :meth:`run` and
+:meth:`subject_variables` are global (every rank must call them). Each
+rank's dropout generator is its own (rank 0's is the unsharded one), so W
+> 1 ranks equal the unsharded run at dropout 0.
 """
 
 from __future__ import annotations
@@ -63,6 +76,7 @@ from ..data.pipeline import DeviceDataset, host_to_device
 from ..data.splits import loso_split, subject_ids_array
 from ..models.fusion_model import init_parameters
 from ..ops.losses import masked_accuracy, masked_cross_entropy, ntxent_supervised_two_view
+from ..parallel.mesh import SubjectBlocks, rank_seed
 from .memhacl import _check_device
 from .state import RowLayout, StackedAdamW
 
@@ -103,26 +117,27 @@ class VectorizedSimCLRTrainer:
         rng_impl: str | None = None,
         verbose: bool = True,
     ):
-        if mesh is not None:
-            raise NotImplementedError("sharding the subjects over devices is not ported yet "
-                                      "(ROADMAP A13)")
         self.device = data.device
         _check_device(self.device, encoder, projector, classifier)
         # the templates functional_call runs
         self.model = _EncoderProjector(copy.deepcopy(encoder), copy.deepcopy(projector))
         self.classifier = copy.deepcopy(classifier)
         self.data = data
-        self.n_subjects = self.n_total = n_subjects
+        self.mesh = mesh
+        self.blocks = blocks = SubjectBlocks(n_subjects, mesh)
+        self.n_subjects, self.n_total, self.n_local = n_subjects, blocks.n_total, blocks.n_local
         self.batch_size = batch_size
         self.temperature = temperature
         self.verbose = verbose
         self.rng_impl = rng_impl  # recorded only: dropout draws from self.generator
         self.host_rng = np.random.default_rng(seed)
 
-        splits = [loso_split(n_subjects, ex_nums, s) for s in range(n_subjects)]
-        self.train_idx = np.stack([tr for tr, _ in splits])  # (S, n_train)
-        self.test_idx = np.stack([te for _, te in splits])   # (S, ex_nums)
-        self._test_rows = torch.as_tensor(self.test_idx, dtype=torch.long, device=self.device)
+        # padding models (s >= n_subjects) reuse subject s % n_subjects
+        splits = [loso_split(n_subjects, ex_nums, blocks.subject(s)) for s in range(self.n_total)]
+        self.train_idx = np.stack([tr for tr, _ in splits])  # (n_total, n_train)
+        self.test_idx = np.stack([te for _, te in splits])   # (n_total, ex_nums)
+        self._test_rows = torch.as_tensor(blocks.local(self.test_idx), dtype=torch.long,
+                                          device=self.device)
 
         # per-subject balanced pair sets in global rows, wrapped to the
         # largest pair count (every row is a real pair)
@@ -131,10 +146,11 @@ class VectorizedSimCLRTrainer:
         sids = subject_ids_array(n_subjects, ex_nums)
         pair_rows, pair_labs = [], []
         for s, tr in enumerate(self.train_idx):
-            pidx, plab = build_contrastive_pairs(arousal[tr], valence[tr], sids[tr], seed=seed + s)
+            pidx, plab = build_contrastive_pairs(arousal[tr], valence[tr], sids[tr],
+                                                 seed=seed + blocks.subject(s))
             pair_rows.append(tr[pidx])
             pair_labs.append(plab)
-        self.n_pairs = np.asarray([len(lab) for lab in pair_labs])  # (S,)
+        self.n_pairs = np.asarray([len(lab) for lab in pair_labs])  # (n_total,)
         wrap = np.arange(int(self.n_pairs.max()))
         self.pair_idx = np.stack([r[wrap % len(r)] for r in pair_rows]).astype(np.int32)
         self.pair_lab = np.stack([lab[wrap % len(lab)] for lab in pair_labs]).astype(np.float32)
@@ -146,17 +162,17 @@ class VectorizedSimCLRTrainer:
         n_encoder_stats = sum(math.prod(shape) for shape in self.enc_layout.stat_shapes)
         rows, clf_rows = [], []
         with torch.no_grad():
-            for s in range(n_subjects):
-                gen = torch.Generator().manual_seed(seed + s)
+            for s in range(blocks.lo, blocks.hi):
+                gen = torch.Generator().manual_seed(seed + blocks.subject(s))
                 init_parameters(self.model, gen)
                 init_parameters(self.classifier, gen)
                 rows.append(torch.cat([p.reshape(-1) for p in self.model.parameters()]))
                 clf_rows.append(torch.cat([p.reshape(-1) for p in self.classifier.parameters()]))
-        self.params = torch.stack(rows)          # (S, N)
+        self.params = torch.stack(rows)          # (S, N), S = n_local
         self.clf_params = torch.stack(clf_rows)  # (S, Nc)
         buffers = dict(self.model.named_buffers())
         self.stats = torch.cat([buffers[n].reshape(-1) for n in self.layout.stat_names]
-                               ).repeat(n_subjects, 1)  # (S, M)
+                               ).repeat(self.n_local, 1)  # (S, M)
         self._stat_views = self.layout.stats(self.stats)  # written in place by the forward
         # the frozen encoder's views: prefixes of the pair's rows
         self._enc_params = self.enc_layout.params(self.params[:, :self.n_encoder])
@@ -164,7 +180,8 @@ class VectorizedSimCLRTrainer:
 
         self.pre_opt = StackedAdamW(self.params, pretrain_lr, 0.0)
         self.ft_opt = StackedAdamW(self.clf_params, finetune_lr, 0.0)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed + 1, blocks.rank))
         self._pretrain_grad = vmap(grad_and_value(self._pretrain_loss_one),
                                    randomness="different")
         self._finetune_grad = vmap(grad_and_value(self._finetune_loss_one),
@@ -177,29 +194,37 @@ class VectorizedSimCLRTrainer:
                            classifier: dict[str, torch.Tensor]) -> None:
         """Every subject's parameters and BatchNorm running stats from the
         three modules' reference-named ``state_dict`` s whose tensors carry a
-        leading model axis (e.g. :func:`..models.jax_import.simclr_state_from_jax`
-        of the JAX trainer's stacked init)."""
+        leading axis of all ``n_total`` models (e.g.
+        :func:`..models.jax_import.simclr_state_from_jax` of the JAX
+        trainer's stacked init); a sharded trainer keeps its block."""
+        local = self.blocks.local
         state = {**{f"encoder.{k}": v for k, v in encoder.items()},
                  **{f"projector.{k}": v for k, v in projector.items()}}
         for name, view in self.layout.params(self.params).items():
-            view.copy_(state[name])
+            view.copy_(local(state[name]))
         for name, view in self._stat_views.items():
-            view.copy_(state[name])
+            view.copy_(local(state[name]))
         for name, view in self.clf_layout.params(self.clf_params).items():
-            view.copy_(classifier[name])
+            view.copy_(local(classifier[name]))
 
     def subject_variables(self, sid: int) -> tuple[dict, dict, dict]:
         """Subject ``sid``'s encoder, projection head and classifier as
         reference-named ``state_dict`` s that the three modules load
-        strictly."""
-        state = {n: v[sid].clone() for n, v in self.layout.params(self.params).items()}
-        state.update({n: v[sid].clone() for n, v in self._stat_views.items()})
+        strictly; sharded, broadcast from the rank that holds it (every rank
+        must call it)."""
+        def one(i: int) -> dict[str, torch.Tensor]:
+            state = {n: v[i].clone() for n, v in self.layout.params(self.params).items()}
+            state.update({n: v[i].clone() for n, v in self._stat_views.items()})
+            state.update({f"classifier.{n}": v[i].clone()
+                          for n, v in self.clf_layout.params(self.clf_params).items()})
+            return state
+
+        state = self.blocks.from_owner(sid, one)
         state.update({n: b.clone() for n, b in self.model.named_buffers()
                       if n.endswith("num_batches_tracked")})
-        parts = tuple({n.removeprefix(f"{part}."): v for n, v in state.items()
-                       if n.startswith(f"{part}.")} for part in ("encoder", "projector"))
-        clf = {n: v[sid].clone() for n, v in self.clf_layout.params(self.clf_params).items()}
-        return (*parts, clf)
+        return tuple({n.removeprefix(f"{part}."): v for n, v in state.items()
+                      if n.startswith(f"{part}.")}
+                     for part in ("encoder", "projector", "classifier"))
 
     # ------------------------------------------------------------------
     # one model's functions, vmapped over the model axis
@@ -243,9 +268,9 @@ class VectorizedSimCLRTrainer:
     # ------------------------------------------------------------------
     # pretrain
     def _pretrain_plans(self) -> tuple[np.ndarray, np.ndarray]:
-        """One epoch's per-subject pair plans, drawn from ``host_rng`` in
-        JAX's order: global rows ``(S, nb, B, 2)`` int32 and pair labels
-        ``(S, nb, B)`` float32."""
+        """One epoch's pair plans of all ``n_total`` models, drawn from
+        ``host_rng`` in JAX's order: global rows ``(n_total, nb, B, 2)``
+        int32 and pair labels ``(n_total, nb, B)`` float32."""
         b = self.batch_size
         nb = -(-self.pair_idx.shape[1] // b)
         rows_all = np.empty((self.n_total, nb * b, 2), np.int32)
@@ -268,21 +293,23 @@ class VectorizedSimCLRTrainer:
         return loss
 
     def pretrain_epoch_on_device(self) -> torch.Tensor:
-        """One pretrain epoch of every subject with nothing read back to the
-        host (the plans are drawn on the host first); returns the ``(S,)``
-        mean losses, on the device."""
-        rows, labels = (host_to_device(a, self.device) for a in self._pretrain_plans())
-        total = torch.zeros(self.n_total, device=self.device)
+        """One pretrain epoch of this rank's models with nothing read back to
+        the host (the plans are drawn on the host first); returns the
+        ``(S,)`` mean losses, on the device."""
+        rows, labels = (host_to_device(np.ascontiguousarray(self.blocks.local(a)), self.device)
+                        for a in self._pretrain_plans())
+        total = torch.zeros(self.n_local, device=self.device)
         for j in range(rows.shape[1]):
             total += self.pretrain_step(rows[:, j], labels[:, j])
         return total / rows.shape[1]
 
     def pretrain(self, num_epochs: int) -> list[np.ndarray]:
-        """All subjects' contrastive pretraining; returns per-epoch ``(S,)``
-        mean losses."""
+        """All subjects' contrastive pretraining; returns per-epoch
+        ``(n_subjects,)`` mean losses."""
         history = []
         for epoch in range(num_epochs):
-            history.append(self.pretrain_epoch_on_device().cpu().numpy())
+            loss = self.blocks.gather(self.pretrain_epoch_on_device())
+            history.append(loss.cpu().numpy()[: self.n_subjects])
             if self.verbose:
                 print(f"[vSimCLR pretrain {epoch + 1}/{num_epochs}] "
                       f"mean loss {history[-1].mean():.4f}")
@@ -291,9 +318,9 @@ class VectorizedSimCLRTrainer:
     # ------------------------------------------------------------------
     # finetune
     def _finetune_plans(self) -> tuple[np.ndarray, np.ndarray]:
-        """One epoch's per-subject batch plans over the train rows, drawn
-        from ``host_rng`` in JAX's order: global rows ``(S, nb, B)`` int32
-        and the validity masks ``(S, nb, B)`` float32."""
+        """One epoch's batch plans of all ``n_total`` models over their train
+        rows, drawn from ``host_rng`` in JAX's order: global rows
+        ``(n_total, nb, B)`` int32 and the validity masks float32."""
         b = self.batch_size
         n_train = self.train_idx.shape[1]
         nb = -(-n_train // b)
@@ -318,19 +345,20 @@ class VectorizedSimCLRTrainer:
 
     @torch.no_grad()
     def evaluate(self) -> torch.Tensor:
-        """Every subject's held-out arousal and valence accuracy ``(S, 2)``,
-        on the device (the held-out rows are one batch)."""
+        """The held-out arousal and valence accuracy ``(S, 2)`` of this
+        rank's models, on the device (the held-out rows are one batch)."""
         batch = self.data.gather(self._test_rows)
         feat = self._features(batch)
         self.classifier.eval()
         return vmap(self._accuracy_one)(self.clf_params, feat, batch)
 
     def finetune_epoch_on_device(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """One finetune epoch of every subject and the evaluation after it,
-        with nothing read back to the host; returns the ``(S,)`` mean train
-        losses and the ``(S, 2)`` held-out accuracies, on the device."""
-        idx, mask = (host_to_device(a, self.device) for a in self._finetune_plans())
-        total = torch.zeros(self.n_total, device=self.device)
+        """One finetune epoch of this rank's models and the evaluation after
+        it, with nothing read back to the host; returns the ``(S,)`` mean
+        train losses and the ``(S, 2)`` held-out accuracies, on the device."""
+        idx, mask = (host_to_device(np.ascontiguousarray(self.blocks.local(a)), self.device)
+                     for a in self._finetune_plans())
+        total = torch.zeros(self.n_local, device=self.device)
         for j in range(idx.shape[1]):
             total += self.finetune_step(idx[:, j], mask[:, j])
         return total / idx.shape[1], self.evaluate()
@@ -341,7 +369,7 @@ class VectorizedSimCLRTrainer:
         (empty after 0 epochs)."""
         acc = None
         for epoch in range(num_epochs):
-            loss, acc = self.finetune_epoch_on_device()
+            loss, acc = map(self.blocks.gather, self.finetune_epoch_on_device())
             if self.verbose:
                 a, v = acc.mean(0).tolist()
                 print(f"[vSimCLR finetune {epoch + 1}/{num_epochs}] "

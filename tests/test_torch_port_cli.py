@@ -15,8 +15,9 @@
 - a ``phased`` checkpoint through ``eval`` gives the same accuracies in the
   port's CLI, the port's ``Tester`` and the JAX CLI's ``eval --tiny`` (the
   one JAX CLI run here);
-- ``--dp`` and ``--device cuda`` without a card raise before any work, and
-  plots without matplotlib raise before any work;
+- ``--dp`` without ``torchrun`` (a one-rank mesh) gives the run's results
+  without it; ``--device cuda`` without a card and plots without
+  matplotlib raise before any work;
 - ``export`` (polymorphic, ``--batch-size 4``, ``--bf16``): the payload's
   byte count is the file's size, and the artifact serves batch 5 (4 for the
   fixed one) with the logits of ``build_serving_forward`` on the seeded
@@ -385,9 +386,23 @@ def test_memhacl_matches_library(tmp_path):
 
 @pytest.mark.parametrize("argv", [["vloso", "--dp"], ["phased", "--dp", "--no-plots"],
                                   ["phased", "--vectorized", "--dp", "--no-plots"]])
-def test_dp_raises(argv):
-    with pytest.raises(NotImplementedError, match="A13"):
-        cli.main([*argv, "--tiny", "--device", "cpu"])
+def test_dp_raises(argv, tmp_path):
+    """``--dp`` outside ``torchrun`` runs over a one-rank mesh: its results
+    JSON equals the run's without ``--dp``."""
+    runs = {}
+    for dp in (True, False):
+        out = tmp_path / f"dp{dp}.json"
+        args = [a for a in argv if dp or a != "--dp"]
+        epochs = ["1"] * (5 if argv[0] == "phased" else 1)
+        try:
+            cli.main([*args, "--tiny", "--device", "cpu", "--quiet", "--epochs", *epochs,
+                      "--checkpoint-dir", str(tmp_path / f"ck{dp}"), "--results-json",
+                      str(out)])
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+        runs[dp] = json.loads(out.read_text())
+    assert runs[True] == runs[False]
 
 
 def test_cuda_without_a_card_raises():

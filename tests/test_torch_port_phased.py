@@ -57,6 +57,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.train import (
     module_mask,
 )
 from test_torch_port_vloso import _tiny_arrays
+from torch_parallel_ranks import one_rank_mesh  # noqa: F401  (a fixture)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N_SUBJECTS, EX_NUMS, BATCH, FEAT, T_EEG, LR = 4, 8, 8, 16, 16, 1e-4
@@ -381,16 +382,23 @@ def test_phases_outside_the_eeg_loss_run_no_eeg_backward(monkeypatch, arrays):
         assert len(calls) == (2 if phase in ("eeg", "fusion_arousal") else 0), phase
 
 
-def test_refusals_and_checkpoint(arrays, tmp_path):
-    """``mesh`` and fused phases without the optimizer reset raise; a
-    full-state checkpoint round trip leaves the trainer as it was;
+def test_refusals_and_checkpoint(arrays, tmp_path, one_rank_mesh):
+    """Under a one-rank mesh an epoch and an evaluation are the one-process
+    trainer's, bit for bit; fused phases without the optimizer reset raise;
+    a full-state checkpoint round trip leaves the trainer as it was;
     ``run(save=True, plot=True)`` writes the model's ``state_dict`` under
     the metrics-encoded name and the progress figure."""
     tr, te = loso_split(N_SUBJECTS, EX_NUMS, 0)
     full = DeviceDataset(arrays, "cpu")
     train, test = full.subset(tr), full.subset(te)
-    with pytest.raises(NotImplementedError, match="A13"):
-        MultiTaskTrainer(_model(), train, test, mesh=object())
+    runs = []
+    for mesh in (one_rank_mesh, None):
+        t = MultiTaskTrainer(_model(), train, test, batch_size=BATCH, seed=0, verbose=False,
+                             mesh=mesh)
+        runs.append((t.train_epoch_phase("fusion_arousal"), t.evaluate(), t.model.state_dict()))
+    assert runs[0][:2] == runs[1][:2]
+    for k, v in runs[1][2].items():
+        assert torch.equal(runs[0][2][k], v), k
     mt = MultiTaskTrainer(_model(), train, test, test_person=0, batch_size=BATCH, seed=0,
                           checkpoint_dir=str(tmp_path), verbose=False)
     before = {n: t.clone() for n, t in mt.model.state_dict().items()}

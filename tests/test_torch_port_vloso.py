@@ -49,6 +49,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.utils import (
     vector_schedule_init,
     vector_schedule_step,
 )
+from torch_parallel_ranks import one_rank_mesh  # noqa: F401  (a fixture)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N_SUBJECTS, EX_NUMS, BATCH, FEAT, T_EEG, EPOCHS, LR = 4, 8, 8, 16, 16, 2, 1e-4
@@ -369,9 +370,11 @@ def test_fused_early_stop_decisions_replay_on_host_classes():
     np.testing.assert_array_equal(again["loss"], out["loss"])
 
 
-def test_subject_variables_and_unported_options():
+def test_subject_variables_and_unported_options(one_rank_mesh):
     """A subject's slice loads strictly into the flagship model, whose eval
-    accuracies equal ``evaluate()``'s; a device mesh raises."""
+    accuracies equal ``evaluate()``'s; under a one-rank mesh the trainer is
+    the unsharded one, bit for bit (an epoch's metrics, the rows, the
+    evaluation and a subject's slice)."""
     arrays = _tiny_arrays()
     pt = VectorizedLOSOTrainer(MultimodalTransformerModel(feat_dim=FEAT, eeg_time=T_EEG),
                                DeviceDataset(arrays, "cpu"), 3, 8, batch_size=8, seed=0)
@@ -385,7 +388,16 @@ def test_subject_variables_and_unported_options():
             a, _ = model(*(torch.from_numpy(arrays[k][rows]) for k in ("eeg", "eye", "pps")))
         hit = (a.argmax(1).numpy() == arrays["arousal"][rows]).mean()
         np.testing.assert_allclose(hit, acc[s], rtol=0, atol=1e-6)
-    data = DeviceDataset(arrays, "cpu")
-    with pytest.raises(NotImplementedError):
-        VectorizedLOSOTrainer(MultimodalTransformerModel(feat_dim=FEAT, eeg_time=T_EEG),
-                              data, 3, 8, mesh=object())
+    mt = VectorizedLOSOTrainer(MultimodalTransformerModel(feat_dim=FEAT, eeg_time=T_EEG),
+                               DeviceDataset(arrays, "cpu"), 3, 8, batch_size=8, seed=0,
+                               mesh=one_rank_mesh)
+    ref = VectorizedLOSOTrainer(MultimodalTransformerModel(feat_dim=FEAT, eeg_time=T_EEG),
+                                DeviceDataset(arrays, "cpu"), 3, 8, batch_size=8, seed=0)
+    got, want = mt.train_epoch(), ref.train_epoch()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    assert mt.n_total == 3 and torch.equal(mt.params, ref.params)
+    assert torch.equal(mt.stats, ref.stats)
+    np.testing.assert_array_equal(mt.evaluate()["a_acc"], ref.evaluate()["a_acc"])
+    for k, v in ref.subject_variables(2).items():
+        assert torch.equal(mt.subject_variables(2)[k], v), k

@@ -47,6 +47,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.train import (
     MultiTaskTrainer,
     VectorizedPhasedTrainer,
 )
+from torch_parallel_ranks import one_rank_mesh  # noqa: F401  (a fixture)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 N_SUBJECTS, EX_NUMS, BATCH, FEAT, T_EEG, LR = 4, 8, 8, 16, 16, 1e-4
@@ -197,11 +198,12 @@ def test_row_form_runs_no_eeg_backward_outside_its_phases(monkeypatch, arrays):
         assert not bool(grads[:, ~inside].any()) and bool(grads[:, inside].any(1).all())
 
 
-def test_subject_variables_and_refusals(arrays, tmp_path):
-    """A subject's slice loads strictly into the flagship model; a mesh
-    raises; a full-state checkpoint round trip leaves the state as it was
-    and ``save_checkpoints`` writes each subject's slice; ``rng_impl`` is
-    recorded; a 0-epoch phase is a no-op."""
+def test_subject_variables_and_refusals(arrays, tmp_path, one_rank_mesh):
+    """A subject's slice loads strictly into the flagship model; under a
+    one-rank mesh the trainer is the unsharded one, bit for bit (a phase's
+    metrics, the rows); a full-state checkpoint round trip leaves the state
+    as it was and ``save_checkpoints`` writes each subject's slice;
+    ``rng_impl`` is recorded; a 0-epoch phase is a no-op."""
     data = DeviceDataset(arrays, "cpu")
     pt = VectorizedPhasedTrainer(_model(), data, N_SUBJECTS, EX_NUMS, batch_size=BATCH,
                                  seed=3, rng_impl="rbg", verbose=False)
@@ -211,8 +213,13 @@ def test_subject_variables_and_refusals(arrays, tmp_path):
     for s in range(N_SUBJECTS):
         model = _model()
         model.load_state_dict(pt.subject_variables(s), strict=True)
-    with pytest.raises(NotImplementedError, match="A13"):
-        VectorizedPhasedTrainer(_model(), data, N_SUBJECTS, EX_NUMS, mesh=object())
+    meshed = VectorizedPhasedTrainer(_model(), data, N_SUBJECTS, EX_NUMS, batch_size=BATCH,
+                                     seed=3, verbose=False, mesh=one_rank_mesh)
+    meshed.run_phase("valence", 1)
+    for split in ("train", "test"):
+        for k, v in pt.metrics[split].items():
+            np.testing.assert_array_equal(meshed.metrics[split][k], v, err_msg=k)
+    assert torch.equal(meshed.params, pt.params) and torch.equal(meshed.stats, pt.stats)
     with pytest.raises(ValueError):
         VectorizedPhasedTrainer(_model(), data, N_SUBJECTS, EX_NUMS, subject_seeds=[1, 2])
     params, stats = pt.params.clone(), pt.stats.clone()

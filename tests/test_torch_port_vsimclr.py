@@ -44,6 +44,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.models import (
 )
 from multimodal_sentiment_aanalysis_tpu_torch.train import VectorizedSimCLRTrainer
 from multimodal_sentiment_aanalysis_tpu_torch.train.simclr import pretrain_step
+from torch_parallel_ranks import one_rank_mesh  # noqa: F401  (a fixture)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 F, T_EEG, B, N_SUBJECTS, EX_NUMS = 32, 64, 8, 4, 8
@@ -260,11 +261,12 @@ def test_step_matches_sequential_engine(arrays):
                                            msg=f"{s} {name}")
 
 
-def test_dropout_views_frozen_row_and_refusals(arrays):
+def test_dropout_views_frozen_row_and_refusals(arrays, one_rank_mesh):
     """With the reference dropouts: the two views of the same rows draw
     different masks, and the finetune leaves the pair row and its BatchNorm
-    stats bit-unchanged; subject slices load strictly; ``mesh=`` raises;
-    ``rng_impl`` is recorded."""
+    stats bit-unchanged; subject slices load strictly; under a one-rank mesh
+    the trainer is the unsharded one, bit for bit (dropout and all: rank
+    0's stream is the unsharded one); ``rng_impl`` is recorded."""
     pt = _port(arrays, dropout=0.5, seed=3, rng_impl="rbg")
     assert pt.rng_impl == "rbg"
     rows = torch.from_numpy(pt._pretrain_plans()[0][:, 0, :, 0])
@@ -281,8 +283,13 @@ def test_dropout_views_frozen_row_and_refusals(arrays):
     for s in range(N_SUBJECTS):
         for module, sd in zip(_trio(0.5), pt.subject_variables(s)):
             module.load_state_dict(sd, strict=True)
-    with pytest.raises(NotImplementedError, match="A13"):
-        _port(arrays, mesh=object())
+    meshed = _port(arrays, dropout=0.5, seed=3, mesh=one_rank_mesh)
+    ref = _port(arrays, dropout=0.5, seed=3)
+    np.testing.assert_array_equal(meshed.pretrain(1)[0], ref.pretrain(1)[0])
+    np.testing.assert_array_equal(meshed.finetune(1)["a_acc"], ref.finetune(1)["a_acc"])
+    for a, b in ((meshed.params, ref.params), (meshed.stats, ref.stats),
+                 (meshed.clf_params, ref.clf_params)):
+        assert torch.equal(a, b)
 
 
 def test_fresh_init_per_subject(arrays):
