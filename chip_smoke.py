@@ -241,8 +241,29 @@ It needs a CUDA card and exits non-zero without one. In order, it
    1e-6 of the step's largest); each rank's
    launches of rows 1, 2, 9, 11, 12 and 13 printed and held above 0, and
    each run's ms/step beside the card's name and power limit (two ranks
-   share one card: not a scale-out figure); with two cards, the LOSO epoch
-   again over NCCL on two cards, else a line that says it was skipped;
+   share one card: not a scale-out figure); and on the same two ranks
+   tensor parallelism (``parallel/tp.py``, ROADMAP A13b) on a ``(data=1,
+   model=2)`` mesh: the flagship sharded by JAX's specs, its eval forward
+   within 1e-5 of the largest |logit| of the one-process model's, one SGD
+   step (lr 1e-2) of the full objective at dropout 0 and one at the model's
+   own dropout (0.4 / 0.3; both model ranks draw one process's stream), the
+   gathered parameters held to the one-process step from the same seed
+   (the loss within 1e-5 relative, each update within 1e-5 of the tensor's
+   largest update plus 1e-6 of the step's largest, each BatchNorm running
+   stat within 1e-5 of its largest entry), each rank's launches of rows 1,
+   2, 9, 11, 12 and 13 in each TP step held above 0, the replicated
+   parameters bit-equal on the two ranks, ten more TP steps' ms/step
+   and the bytes and calls each all-reduces, and three more under
+   torch.profiler (host ms, device ms, host ms in the all-reduces); with
+   two cards, the LOSO epoch and the TP checks again over NCCL on two
+   cards, else a line that says they were skipped; then rows 2 and 12 on
+   a TP rank's channel shard: each of the two stem stages at B=64 split in
+   two, each shard's keep bits bit for bit against the unsharded layer's
+   columns and the CPU Philox model, at the stage's pool its output and
+   codes bit for bit against the unsharded kernel's columns and within
+   row 2's tolerance of the plain version, row 12 on its code within row
+   12's tolerance of the plain version, and row 2's time on the shard
+   beside the full width's, each with its bytes bound;
 8. holds every kernel against its plain PyTorch version at the shapes its
    paths give it (real activations of the first request, train batch,
    validation batch or attention input; for the S=24 cases the LOSO
@@ -3279,6 +3300,133 @@ def multitask_rank_epoch(mesh, arrays: dict) -> dict:
             "calls_step": collectives.TRAFFIC["all_reduce_calls"] / steps}
 
 
+TP_MESH = (1, 2)       # (data, model): the two ranks of the phase
+TP_TIMED_STEPS = 10    # TP train steps timed after the checked ones
+TP_PROFILED_STEPS = 3  # TP train steps traced after the timed ones
+TP_FWD_REL = 1e-5      # the TP eval forward against one process, of the largest |logit|
+TP_LR = 1e-2           # SGD: a step's update is the gradient times the rate
+
+
+def tp_step(model, batch: dict, optimizer, generator) -> torch.Tensor:
+    """One SGD step of the full objective (CE on both heads plus the three
+    InfoNCE terms); returns the loss."""
+    optimizer.zero_grad()
+    a, v, c1, c2, c3 = model(batch["eeg"], batch["eye"], batch["pps"],
+                             labels=(batch["arousal"], batch["valence"], batch["mask"]),
+                             generator=generator)
+    loss = (masked_cross_entropy(a, batch["arousal"], batch["mask"])
+            + masked_cross_entropy(v, batch["valence"], batch["mask"]) + c1 + c2 + c3)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def step_gap(got: dict, want: dict, init: dict) -> tuple[float, str, float, str]:
+    """A stepped state against one process's: the largest ratio of a
+    parameter's difference to the DP gradient check's bar on the updates
+    (1e-5 of the tensor's largest update plus 1e-6 of the step's largest),
+    and of a BatchNorm running stat's to 1e-5 of its largest entry; and
+    where."""
+    updates = {k: w - init[k] for k, w in want.items()
+               if w.is_floating_point() and "running" not in k}
+    top = max(float(u.abs().max()) for u in updates.values())
+    worst, stats = (0.0, ""), (0.0, "")
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        diff = float((got[k].float() - w.float()).abs().max())
+        if k in updates:
+            bar = PARALLEL_GRAD_REL * float(updates[k].abs().max()) + PARALLEL_GRAD_TOP * top
+            worst = max(worst, (diff / bar, k))
+        else:
+            stats = max(stats, (diff / (PARALLEL_GRAD_REL * float(w.abs().max())), k))
+    return (*worst, *stats)
+
+
+def tp_rank(mesh) -> dict:
+    """One rank of tensor parallelism on a ``(data=1, model=2)`` mesh at
+    full width (B=64, TF32 off), each check against the one-process model
+    from the same seed, run beside it on this rank: the eval forward; one
+    SGD step of the full objective at dropout 0 and one at the model's own
+    dropout (0.4 / 0.3; the same dropout stream), with the TP step's
+    launches; this rank's replicated parameters after them; then
+    ``TP_TIMED_STEPS`` more TP steps, their ms/step and the bytes and calls
+    each all-reduces; then :func:`tp_step_split`."""
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel import (collectives, gather_state_dict,
+                                                                   make_mesh_2d,
+                                                                   param_partition_specs,
+                                                                   shard_by_specs)
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel.dryrun import _example_batch
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel.mesh import mesh_device, rank_seed
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel.tp import DATA, MODEL
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = mesh_device(mesh)
+    mesh2d = make_mesh_2d(*TP_MESH, device_type="cuda")
+    batch = _example_batch(np.random.default_rng(SEED + 24), BATCH, device)
+    seed = rank_seed(SEED + 5, mesh2d.get_local_rank(DATA))
+    out = {"steps": {}, "index": mesh2d.get_local_rank(MODEL)}
+    for label, dropout in (("dropout 0", 0.0), ("the model's dropout", None)):
+        ref = MultimodalTransformerModel(device=device, dropout=dropout,
+                                         generator=torch.Generator().manual_seed(SEED))
+        sharded = shard_by_specs(mesh2d, ref, param_partition_specs(ref, TP_MESH[1]))
+        init = {k: v.clone() for k, v in ref.state_dict().items()}
+        if dropout == 0.0:
+            ref.eval()
+            sharded.eval()
+            with torch.no_grad():
+                want = ref(batch["eeg"], batch["eye"], batch["pps"])
+                got = sharded(batch["eeg"], batch["eye"], batch["pps"])
+            out["eval"] = max(float((g - w).abs().max()) / float(w.abs().max())
+                              for g, w in zip(got, want))
+        ref.train()
+        sharded.train()
+        ref_loss = tp_step(ref, batch, torch.optim.SGD(ref.parameters(), lr=TP_LR),
+                           torch.Generator(device=device).manual_seed(seed))
+        optimizer = torch.optim.SGD(sharded.parameters(), lr=TP_LR)
+        generator = torch.Generator(device=device).manual_seed(seed)
+        reset_launch_counts()
+        loss = tp_step(sharded, batch, optimizer, generator)
+        counts = launch_counts()
+        gap = step_gap(gather_state_dict(sharded), ref.state_dict(), init)
+        out["steps"][label] = {"loss": float(loss), "ref_loss": float(ref_loss), "gap": gap,
+                               "counts": counts}
+        out.setdefault("replicated", {}).update(
+            {f"{label}: {k}": p.detach().cpu() for k, p in sharded.named_parameters()
+             if not hasattr(p, "tp_axis")})
+    collectives.reset_traffic()
+    _, seconds = synced(lambda: [tp_step(sharded, batch, optimizer, generator)
+                                 for _ in range(TP_TIMED_STEPS)])
+    out["ms_step"] = seconds * 1e3 / TP_TIMED_STEPS
+    out["bytes_step"] = collectives.TRAFFIC["all_reduce_bytes"] / TP_TIMED_STEPS
+    out["calls_step"] = collectives.TRAFFIC["all_reduce_calls"] / TP_TIMED_STEPS
+    out["split"] = tp_step_split(lambda: tp_step(sharded, batch, optimizer, generator))
+    return out
+
+
+def tp_step_split(step) -> dict:
+    """``TP_PROFILED_STEPS`` TP steps under torch.profiler: their ms a step
+    on the host clock, the device time of this process's launches, and the
+    host time inside the all-reduces (the outermost profiler event whose
+    name holds "allreduce": it includes the wait for the device work before
+    each one, since gloo copies a CUDA tensor to the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, seconds = synced(lambda: [step() for _ in range(TP_PROFILED_STEPS)])
+    events = prof.key_averages()
+    device = sum(e.self_device_time_total for e in events if e.device_type.name == "CUDA")
+    reduce = [e for e in events if e.device_type.name == "CPU"
+              and "allreduce" in e.key.lower().replace("_", "")]
+    outer = max(reduce, key=lambda e: e.cpu_time_total, default=None)
+    return {"ms": seconds * 1e3 / TP_PROFILED_STEPS,
+            "device_ms": device / 1e3 / TP_PROFILED_STEPS,
+            "all_reduce_ms": 0.0 if outer is None else outer.cpu_time_total / 1e3
+            / TP_PROFILED_STEPS,
+            "all_reduce_event": None if outer is None else (outer.key, outer.count)}
+
+
 def parallel_rank(mesh, arrays: dict) -> dict:
     """Everything one rank of the two-rank ``gloo`` run does."""
     from multimodal_sentiment_aanalysis_tpu_torch.parallel.dryrun import dryrun_rank
@@ -3286,7 +3434,135 @@ def parallel_rank(mesh, arrays: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return {"loso": loso_rank_epoch(mesh, arrays), "dp": multitask_rank_epoch(mesh, arrays),
-            "dryrun": dryrun_rank(mesh, print_lines=False)}
+            "tp": tp_rank(mesh), "dryrun": dryrun_rank(mesh, print_lines=False)}
+
+
+def tp_report(label: str, ranks: list, smi: str, total: dict) -> None:
+    """The TP ranks' checks: forward and step gaps, launches, replicated
+    parameters bit-equal across the model axis, ms/step and traffic."""
+    for r, res in enumerate(ranks):
+        check(res["eval"] <= TP_FWD_REL, f"{label} rank {r}: TP eval forward {res['eval']:.3e} "
+              "of the largest |logit| from one process's")
+        print(f"{label} rank {r} (model index {res['index']}): eval forward within "
+              f"{res['eval']:.3e} of the largest |logit| of one process's (limit {TP_FWD_REL})")
+        for step, got in res["steps"].items():
+            add_counts(total, got["counts"])
+            rows = rank_rows(f"{label} rank {r} {step}", got["counts"])
+            loss_gap = abs(got["loss"] - got["ref_loss"]) / abs(got["ref_loss"])
+            ratio, where, stats, stat_where = got["gap"]
+            print(f"{label} rank {r} SGD step at {step}: loss {got['loss']:.6f}, "
+                  f"{loss_gap:.3e} relative of one process's (limit {PARALLEL_DP_RTOL}); "
+                  f"parameters: the largest difference {ratio:.3e} of its bar "
+                  f"({PARALLEL_GRAD_REL} of the tensor's largest update + {PARALLEL_GRAD_TOP} of "
+                  f"the step's), at {where}; BatchNorm running stats {stats:.3e} of "
+                  f"{PARALLEL_GRAD_REL} of their largest entry, at {stat_where}; rows 1, 2, 9, "
+                  f"11, 12, 13 launched {rows}")
+            check(loss_gap <= PARALLEL_DP_RTOL and ratio <= 1.0 and stats <= 1.0,
+                  f"{label} rank {r}: the TP step at {step} parts from one process's")
+        print(f"{label} rank {r}: {TP_TIMED_STEPS} more TP steps at the model's dropout, "
+              f"{res['ms_step']:.3f} ms/step; {res['bytes_step']:.0f} bytes all-reduced a step "
+              f"in {res['calls_step']:.1f} calls ({smi}; "
+              + ("two ranks share one card: not a scale-out figure)" if "gloo" in label
+                 else "one card a rank)"))
+        sp = res["split"]
+        print(f"{label} rank {r}: {TP_PROFILED_STEPS} TP steps under torch.profiler, "
+              f"{sp['ms']:.3f} ms/step on the host clock; this rank's device time "
+              f"{sp['device_ms']:.3f} ms/step; host time in the all-reduces "
+              f"{sp['all_reduce_ms']:.3f} ms/step (event {sp['all_reduce_event']}, the wait "
+              f"for the device work before each included)")
+    a, b = (res["replicated"] for res in ranks)
+    same = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    print(f"{label}: the {len(a) // 2} replicated parameters of each model after its step "
+          f"{'bit-equal' if same else 'DIFFER'} on the two model ranks")
+    check(same, f"{label}: replicated parameters differ across the model axis")
+
+
+TP_STEM_STAGES = ((585, 64, 4), (146, 256, 2))  # (T, C, pool) of the stem's two stages
+
+
+def stem_shard_check(device: torch.device, smi: str) -> None:
+    """Rows 2 and 12 on a tensor-parallel rank's channel shard (the stem's
+    two stages at B=64 split in two), each shard at p = DROPOUT_P: its keep
+    bits (pool 1, its codes) against the unsharded layer's columns and the
+    CPU Philox model's, bit for bit; at the stage's own pool, its pooled
+    output and codes against the unsharded kernel's columns (bit for bit)
+    and against the plain version fed the shard's CPU Philox mask (the
+    output within row 2's tolerance, the codes equal but where two window
+    entries tie within rounding, at most 1e-3 of them), and row 12 on the
+    shard's own code against its plain version (dy and the summed partials
+    within row 12's tolerance); then row 2's time at the shard width beside
+    the full width's, each with its bytes bound (read conv and the four
+    per-channel vectors once, write the pooled output and its codes once,
+    at 3.35 TB/s)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    seeds = stem_seeds(1, device)
+    fwd_tol, bwd_tol = TRAINING_KERNELS["stem_tail"][2], TRAINING_KERNELS["stem_tail_bwd"][2]
+    for t, c, pool in TP_STEM_STAGES:
+        shape, h = (BATCH, t, c), c // TP_MESH[1]
+        conv = torch.randn(shape, device=device, generator=gen)
+        gamma = 1.0 + 0.3 * torch.randn(c, device=device, generator=gen)
+        beta = 0.1 * torch.randn(c, device=device, generator=gen)
+        mean = conv.mean((0, 1))
+        var = (conv * conv).mean((0, 1)) - mean * mean
+        ones, zeros = torch.ones(c, device=device), torch.zeros(c, device=device)
+        _, whole = conv_stem_train.stem_tail_fwd_seeded(conv, ones, zeros, zeros, ones,
+                                                        DROPOUT_P, 1, seeds)
+        whole_out, whole_code = conv_stem_train.stem_tail_fwd_seeded(
+            conv, gamma, beta, mean, var, DROPOUT_P, pool, seeds)
+        keep = keep_mask(seeds, shape).int()
+        same = torch.equal(whole, keep)
+        fwd_err = bwd_err = tied = 0.0
+        for i in range(TP_MESH[1]):
+            cols = slice(i * h, (i + 1) * h)
+            x = conv[..., cols].contiguous()
+            _, code = conv_stem_train.stem_tail_fwd_seeded(
+                x, ones[:h], zeros[:h], zeros[:h], ones[:h], DROPOUT_P, 1, seeds,
+                channels=(i * h, c))
+            shard_keep = conv_stem_train.keep_mask_plain(seeds.cpu(), (BATCH, t, h), DROPOUT_P,
+                                                         channels=(i * h, c)).to(device)
+            same = (same and torch.equal(code, whole[..., cols])
+                    and torch.equal(code, shard_keep.int()))
+            bn = (gamma[cols].contiguous(), beta[cols].contiguous(), mean[cols].contiguous(),
+                  var[cols].contiguous())
+            out, code = conv_stem_train.stem_tail_fwd_seeded(x, *bn, DROPOUT_P, pool, seeds,
+                                                             channels=(i * h, c))
+            same = (same and torch.equal(out, whole_out[..., cols])
+                    and torch.equal(code, whole_code[..., cols]))
+            ref, ref_code = conv_stem_train.fused_stage_train_plain(
+                x, *bn, pool, 1e-5, DROPOUT_P, shard_keep, with_code=True)
+            fwd_err = max(fwd_err, float((out - ref).abs().max()))
+            tied = max(tied, float((code != ref_code).double().mean()))
+            inv = torch.rsqrt(bn[3] + 1e-5)
+            scale = bn[0] * inv
+            bwd_args = (x, torch.randn(out.shape, device=device, generator=gen), code, scale,
+                        bn[1] - bn[2] * scale, bn[2], inv, DROPOUT_P, pool)
+            dy, dg, db = conv_stem_train.stem_tail_bwd(*bwd_args)
+            want = conv_stem_train.stem_tail_bwd_plain(*bwd_args)
+            bwd_err = max(bwd_err, *(float((g - w).abs().max()) for g, w in
+                                     zip((dy, dg.sum(0), db.sum(0)),
+                                         (want[0], want[1].sum(0), want[2].sum(0)))))
+        print(f"stem-tail keep mask {shape} split in {TP_MESH[1]} channel shards of {h}: each "
+              f"shard's keep bits equal the unsharded layer's columns and the CPU Philox "
+              f"model's, and at pool {pool} its output and codes the unsharded kernel's "
+              f"columns, bit for bit: {same}")
+        check(same, "stem-tail keep bits or outputs on a channel shard differ from the layer's")
+        print(f"stem tail on the channel shards at pool {pool}: output max |err| {fwd_err:.3e} "
+              f"of the plain version fed the shard's mask (limit {fwd_tol}), codes differing "
+              f"{tied:.3e} (ties; limit 1e-3); row 12 on the shard's code: max |err| "
+              f"{bwd_err:.3e} of its plain version (limit {bwd_tol})")
+        check(fwd_err <= fwd_tol and tied <= 1e-3 and bwd_err <= bwd_tol,
+              "rows 2 and 12 on a channel shard part from their plain versions")
+        times = []
+        for n, channels in ((c, None), (h, (h, c))):
+            x = conv[..., :n].contiguous()
+            ms = time_ms(lambda: conv_stem_train.stem_tail_fwd_seeded(
+                x, gamma[:n], beta[:n], mean[:n], var[:n], DROPOUT_P, pool, seeds,
+                channels=channels))
+            moved = 4 * (BATCH * t * n + 4 * n + 2 * BATCH * (t // pool) * n)
+            times.append(f"C={n}{' shard' if channels else ''} {ms:.4f} ms (bound "
+                         f"{moved / 3.35e9:.4f} ms, {moved / 1e6:.2f} MB)")
+        print(f"stem tail at B={BATCH} T={t} pool {pool} p {DROPOUT_P}, with codes: "
+              + ", ".join(times) + f" ({smi})")
 
 
 def rank_rows(label: str, counts: dict) -> dict:
@@ -3307,12 +3583,15 @@ def loso_gap(label: str, got: dict, want: dict, smi: str) -> None:
 
 
 def parallel_phase(full: DeviceDataset, smi: str) -> dict:
-    """Subject sharding and batch data parallelism (``parallel/``) at full
-    width: one NCCL rank in this process bit-equal to the unsharded trainer;
-    two ``gloo`` ranks sharing card 0 (NCCL refuses two ranks on one device)
-    for the subject-sharded LOSO epoch, ``MultiTaskTrainer(mesh=)`` and
-    ``dryrun_multichip(2)``'s flavours; with two cards, the LOSO epoch over
-    NCCL. Returns this process's launch counts plus the ranks'."""
+    """Subject sharding, batch data parallelism and tensor parallelism
+    (``parallel/``) at full width: one NCCL rank in this process bit-equal
+    to the unsharded trainer; two ``gloo`` ranks sharing card 0 (NCCL
+    refuses two ranks on one device) for the subject-sharded LOSO epoch,
+    ``MultiTaskTrainer(mesh=)``, the ``(data=1, model=2)`` TP checks
+    (:func:`tp_rank`) and ``dryrun_multichip(2)``'s flavours; with two
+    cards, the LOSO epoch and the TP checks over NCCL; row 2 on a channel
+    shard (:func:`stem_shard_check`). Returns this process's launch counts
+    plus the ranks'."""
     import torch.distributed as dist
 
     from multimodal_sentiment_aanalysis_tpu_torch.parallel import make_mesh
@@ -3410,6 +3689,8 @@ def parallel_phase(full: DeviceDataset, smi: str) -> dict:
     print(f"parallel MultiTaskTrainer: {dp['bytes_step']:.0f} bytes all-reduced a step in "
           f"{dp['calls_step']:.1f} calls (the gradient row, at most {grad_bytes} bytes; the "
           f"BatchNorm sums and row counts; the gathered InfoNCE features, labels and mask)")
+    tp_report("parallel TP (data=1, model=2) two gloo ranks", [res["tp"] for res in ranks], smi,
+              total)
     for line in ranks[0]["dryrun"]:
         print(line)
 
@@ -3423,9 +3704,14 @@ def parallel_phase(full: DeviceDataset, smi: str) -> dict:
             print(f"parallel LOSO NCCL rank {r} of 2 cards: a second epoch "
                   f"{res['ms_step']:.3f} ms/step ({smi})")
         loso_gap("parallel LOSO two NCCL ranks on two cards", nccl[0], ref, smi)
+        nccl_tp = spawn_ranks(tp_rank, 2, backend="nccl", device_type="cuda",
+                              timeout=PARALLEL_LIMIT, collective_timeout=120.0)
+        tp_report("parallel TP (data=1, model=2) two NCCL ranks on two cards", nccl_tp, smi,
+                  total)
     else:
-        print(f"parallel: the two-card NCCL run skipped: the machine has "
+        print(f"parallel: the two-card NCCL runs (LOSO and TP) skipped: the machine has "
               f"{torch.cuda.device_count()} card")
+    stem_shard_check(torch.device("cuda", 0), smi)
     print(f"parallel phase launches (this process and the ranks): "
           f"{({k: n for k, n in total.items() if n})}")
     print(f"parallel phase: {time.perf_counter() - t0:.1f} s ({smi})")

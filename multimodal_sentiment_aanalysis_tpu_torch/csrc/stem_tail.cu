@@ -43,7 +43,13 @@
 //   torch.Generator (no host sync). A thread's 4 channels of one row are
 //   one counter where C is a multiple of 4, so a 10-round Philox serves 4
 //   elements (kernels/conv_stem_train.py::keep_mask_plain is the same
-//   stream in numpy).
+//   stream in numpy). A tensor-parallel rank holds a channel shard: C of
+//   the layer's c_full channels, from channel c_off on. Its element index
+//   is the whole layer's, (b T + t) c_full + c_off + c, so a shard's keep
+//   bits are exactly the unsharded tensor's columns (c_full = C and
+//   c_off = 0 for a tensor held whole). The wrapper refuses a shard whose
+//   C is not a multiple of 4, so that a thread's 4 channels stay one
+//   counter.
 //
 // Backward: the code routes dpool to the window's winner, ONE gelu_grad,
 // kept cells scaled by 1/(1-p); it writes dy at the conv's full length (S,
@@ -239,7 +245,7 @@ stem_tail_fwd_kernel(const E* __restrict__ conv,       // (S, B, T, C)
                      E* __restrict__ out,                  // (S, B, t_out, C)
                      int* __restrict__ code,               // (S, B, t_out, C) or null
                      int B, int T, int C, int pool, int t_out, int gx, int group_tiles,
-                     int cells) {
+                     int cells, int c_full, int c_off) {
     __shared__ float s_scale[4 * kMaxGroups], s_shift[4 * kMaxGroups];
     const int s = blockIdx.z, b = blockIdx.y;
     const int ry = kFwdThreads / gx;
@@ -302,7 +308,7 @@ stem_tail_fwd_kernel(const E* __restrict__ conv,       // (S, B, T, C)
         for (int i = 0; i < kSlots; ++i) {
             const int to = to0 + c * ry;
             if (i < first && to < t_out) {
-                const int e = (b * T + to * pool + j) * C + c0;
+                const int e = (b * T + to * pool + j) * c_full + c_off + c0;
                 cell.row(slot[i], e, j);
                 if (j == pool - 1) finish(to);
             }
@@ -311,14 +317,15 @@ stem_tail_fwd_kernel(const E* __restrict__ conv,       // (S, B, T, C)
     }
     // a window longer than kSlots rows (cells == 1): the rest, kSlots at a time
     for (int j0 = kSlots; j0 < pool && to0 < t_out; j0 += kSlots) {
-        const int e0 = (b * T + to0 * pool + j0) * C + c0;
+        const int a0 = (b * T + to0 * pool + j0) * C + c0;
+        const int e0 = (b * T + to0 * pool + j0) * c_full + c_off + c0;
 #pragma unroll
         for (int i = 0; i < kSlots; ++i)
-            if (j0 + i < pool) slot[i] = load_slot<E, kVec>(src + e0 + i * C, n);
+            if (j0 + i < pool) slot[i] = load_slot<E, kVec>(src + a0 + i * C, n);
 #pragma unroll
         for (int i = 0; i < kSlots; ++i) {
             if (j0 + i >= pool) break;
-            cell.row(slot[i], e0 + i * C, j0 + i);
+            cell.row(slot[i], e0 + i * c_full, j0 + i);
         }
         if (pool - j0 <= kSlots) finish(to0);
     }
@@ -518,7 +525,7 @@ template <typename E>
 int launch_fwd(const E* conv, const float* gamma, const float* beta, const float* mean,
                const float* var, float eps, float keep_scale, unsigned int threshold,
                const long long* seeds, E* out, int* code, int S, int B, int T, int C, int pool,
-               int device, void* stream) {
+               int c_full, int c_off, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const int t_out = T / pool;
@@ -538,11 +545,11 @@ int launch_fwd(const E* conv, const float* gamma, const float* beta, const float
     if (vec)
         stem_tail_fwd_kernel<E, true><<<grid, kFwdThreads, 0, st>>>(
             conv, gamma, beta, mean, var, eps, keep_scale, threshold, seeds, out, code, B, T, C,
-            pool, t_out, gx, group_tiles, cells);
+            pool, t_out, gx, group_tiles, cells, c_full, c_off);
     else
         stem_tail_fwd_kernel<E, false><<<grid, kFwdThreads, 0, st>>>(
             conv, gamma, beta, mean, var, eps, keep_scale, threshold, seeds, out, code, B, T, C,
-            pool, t_out, gx, group_tiles, cells);
+            pool, t_out, gx, group_tiles, cells, c_full, c_off);
     return cudaGetLastError();
 }
 
@@ -603,19 +610,20 @@ using bf16 = __nv_bfloat16;
 extern "C" int msa_stem_tail(const float* conv, const float* gamma, const float* beta,
                              const float* mean, const float* var, float eps, float keep_scale,
                              unsigned int threshold, const long long* seeds, float* out,
-                             int* code, int S, int B, int T, int C, int pool, int device,
-                             void* stream) {
+                             int* code, int S, int B, int T, int C, int pool, int c_full,
+                             int c_off, int device, void* stream) {
     return launch_fwd(conv, gamma, beta, mean, var, eps, keep_scale, threshold, seeds, out, code,
-                      S, B, T, C, pool, device, stream);
+                      S, B, T, C, pool, c_full, c_off, device, stream);
 }
 
 extern "C" int msa_stem_tail_bf16(const bf16* conv, const float* gamma, const float* beta,
                                   const float* mean, const float* var, float eps,
                                   float keep_scale, unsigned int threshold,
                                   const long long* seeds, bf16* out, int* code, int S, int B,
-                                  int T, int C, int pool, int device, void* stream) {
+                                  int T, int C, int pool, int c_full, int c_off, int device,
+                                  void* stream) {
     return launch_fwd(conv, gamma, beta, mean, var, eps, keep_scale, threshold, seeds, out, code,
-                      S, B, T, C, pool, device, stream);
+                      S, B, T, C, pool, c_full, c_off, device, stream);
 }
 
 extern "C" int msa_stem_tail_bwd(const float* conv, const float* dpool, const int* code,

@@ -32,6 +32,17 @@ on the device from a ``torch.Generator`` (:func:`stem_tail_fwd`) or given
 (:func:`stem_tail_fwd_seeded`). The JAX package's TPU bits differ by
 construction.
 
+A tensor-parallel rank holds a channel shard of the conv output
+(``channels=(c_off, c_full)``: its ``C`` channels are the layer's
+``c_off .. c_off + C - 1`` of ``c_full``). Its element index is the whole
+layer's, ``(b T + t) c_full + c_off + c``, so a shard's keep bits are the
+unsharded tensor's columns, and one process's mask is drawn whichever way
+the channels are split; on the CPU the mask drawn is the layer's whole
+``torch.rand`` block, of which the shard keeps its columns. BatchNorm is
+per channel, so the rest of the tail is exact on a shard. The kernel takes a
+shard whose ``C``, ``c_off`` and ``c_full`` are multiples of 4 (a thread's
+4 channels stay one Philox counter) and refuses any other.
+
 Both kernels and their plain versions also take a leading model axis S:
 ``conv (S, B, T, C)`` with ``(S, C)`` statistics and affine parameters, one
 Philox seed per model, and per-model codes and partials, all S models in
@@ -70,7 +81,7 @@ from .conv_stem import gelu_max_pool
 # fp32 and bf16 forms of each kernel, by the dtype of conv
 KERNELS = kernel_forms("stem_tail", "msa_stem_tail",
                        [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_float, ctypes.c_uint]
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5)
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7)
 BWD_KERNELS = kernel_forms("stem_tail", "msa_stem_tail_bwd",
                            [ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_void_p] * 3
                            + [ctypes.c_int] * 6)
@@ -114,13 +125,20 @@ def philox4x32_plain(counter: np.ndarray, key: tuple[int, int]) -> np.ndarray:
     return np.stack(x, 1).astype(np.uint32)
 
 
-def keep_mask_plain(seeds: torch.Tensor, shape, p: float) -> torch.Tensor:
+def keep_mask_plain(seeds: torch.Tensor, shape, p: float,
+                    channels: tuple[int, int] | None = None) -> torch.Tensor:
     """The stem-tail kernel's keep mask for a conv of ``shape`` ``(B, T, C)``
     or ``(S, B, T, C)`` under the per-model int64 ``seeds`` (one element for
     a 3-D shape), on the CPU: element ``e`` of model ``s`` (its flat index
     within the model) is kept iff word ``e mod 4`` of Philox4x32-10 at
     counter ``e div 4`` under the key ``seeds[s]`` (low word, high word) is
-    ``>= round(p 2^32)``."""
+    ``>= round(p 2^32)``. ``channels=(c_off, c_full)``: the conv is the
+    channel shard ``c_off .. c_off + C - 1`` of a layer of ``c_full``, whose
+    mask is the layer's columns."""
+    c_off, c_full = _channels(shape[-1], channels)
+    if (c_off, c_full) != (0, shape[-1]):
+        whole = keep_mask_plain(seeds, (*shape[:-1], c_full), p)
+        return whole[..., c_off:c_off + shape[-1]].contiguous()
     n = int(np.prod(shape[-3:]))
     counter = np.zeros((-(-n // 4), 4), np.uint32)
     idx = np.arange(counter.shape[0], dtype=np.uint64)
@@ -131,6 +149,17 @@ def keep_mask_plain(seeds: torch.Tensor, shape, p: float) -> torch.Tensor:
         masks.append(words >= _threshold(p))
     keep = torch.from_numpy(np.stack(masks)).reshape(len(masks), *shape[-3:])
     return keep[0] if len(shape) == 3 else keep
+
+
+def _channels(c: int, channels: tuple[int, int] | None) -> tuple[int, int]:
+    """``(c_off, c_full)`` of a conv of ``c`` channels: ``(0, c)`` for one
+    held whole."""
+    if channels is None:
+        return 0, c
+    c_off, c_full = channels
+    if not 0 <= c_off <= c_full - c:
+        raise ValueError(f"a shard of {c} channels from {c_off} does not fit in {c_full}")
+    return c_off, c_full
 
 
 def _per_channel(v: torch.Tensor) -> torch.Tensor:
@@ -158,16 +187,22 @@ def _check_args(conv, gamma, beta, mean, var, p: float, pool: int) -> None:
 
 
 def stem_tail_fwd(conv, gamma, beta, mean, var, p: float, pool: int, eps: float = 1e-5,
-                  generator: torch.Generator | None = None, with_code: bool = True):
+                  generator: torch.Generator | None = None, with_code: bool = True,
+                  channels: tuple[int, int] | None = None):
     """The forward kernel: ``(pooled, code)``, ``code`` None unless
     ``with_code``. A CPU tensor takes :func:`fused_stage_train_plain` with
     a keep mask drawn by ``torch.rand`` from ``generator``; a CUDA tensor
     launches the kernel (its Philox seeds, one per model, drawn on the
     device from ``generator``), or raises. ``pooled`` comes back in
-    ``conv``'s dtype."""
+    ``conv``'s dtype. ``channels=(c_off, c_full)`` for a channel shard
+    (module docstring)."""
     _check_args(conv, gamma, beta, mean, var, p, pool)
+    c_off, c_full = _channels(conv.shape[-1], channels)
     if conv.device.type == "cpu":
-        keep = torch.rand(conv.shape, generator=generator) >= p if p > 0.0 else None
+        keep = None
+        if p > 0.0:  # the layer's whole block of the stream, this shard's columns
+            u = torch.rand((*conv.shape[:-1], c_full), generator=generator)
+            keep = u[..., c_off:c_off + conv.shape[-1]] >= p
         res = fused_stage_train_plain(conv, gamma, beta, mean, var, pool, eps, p, keep,
                                       with_code)
         return res if with_code else (res, None)
@@ -175,37 +210,44 @@ def stem_tail_fwd(conv, gamma, beta, mean, var, p: float, pool: int, eps: float 
     if p > 0.0:  # drawn on the device: no host sync
         seeds = torch.randint(0, 2 ** 62, conv.shape[:-3] or (1,), device=conv.device,
                               dtype=torch.int64, generator=generator)
-    return _launch_fwd(conv, gamma, beta, mean, var, p, pool, eps, seeds, with_code)
+    return _launch_fwd(conv, gamma, beta, mean, var, p, pool, eps, seeds, with_code,
+                       (c_off, c_full))
 
 
 def stem_tail_fwd_seeded(conv, gamma, beta, mean, var, p: float, pool: int,
-                         seeds: torch.Tensor, eps: float = 1e-5, with_code: bool = True):
+                         seeds: torch.Tensor, eps: float = 1e-5, with_code: bool = True,
+                         channels: tuple[int, int] | None = None):
     """:func:`stem_tail_fwd` with its dropout seeds given: ``seeds`` int64,
     one per model (``(S,)``, or one element for a ``(B, T, C)`` conv), on
     ``conv``'s device. The keep mask is ``keep_mask_plain(seeds, conv.shape,
-    p)`` on either device: a CPU tensor takes the plain version fed that
-    mask, a CUDA tensor the kernel, which draws the same bits."""
+    p, channels)`` on either device: a CPU tensor takes the plain version fed
+    that mask, a CUDA tensor the kernel, which draws the same bits."""
     _check_args(conv, gamma, beta, mean, var, p, pool)
     if p > 0.0 and (seeds.dtype != torch.int64 or seeds.device != conv.device
                     or seeds.numel() != (conv.shape[0] if conv.dim() == 4 else 1)
                     or not seeds.is_contiguous()):
         raise ValueError("seeds must be one contiguous int64 per model, on conv's device")
     if conv.device.type == "cpu":
-        keep = keep_mask_plain(seeds, conv.shape, p) if p > 0.0 else None
+        keep = keep_mask_plain(seeds, conv.shape, p, channels) if p > 0.0 else None
         res = fused_stage_train_plain(conv, gamma, beta, mean, var, pool, eps, p, keep,
                                       with_code)
         return res if with_code else (res, None)
-    return _launch_fwd(conv, gamma, beta, mean, var, p, pool, eps, seeds, with_code)
+    return _launch_fwd(conv, gamma, beta, mean, var, p, pool, eps, seeds, with_code,
+                       _channels(conv.shape[-1], channels))
 
 
-def _launch_fwd(conv, gamma, beta, mean, var, p, pool, eps, seeds, with_code):
+def _launch_fwd(conv, gamma, beta, mean, var, p, pool, eps, seeds, with_code, channels):
     """The forward kernel's launch on checked CUDA tensors: the outputs take
     ``conv``'s leading shape, so no model axis is added or taken away."""
     s = conv.shape[0] if conv.dim() == 4 else 1
     b, t, c = conv.shape[-3:]
-    if b * t * c >= 2 ** 31 or b > 65535 or s > MAX_MODELS:
+    c_off, c_full = channels
+    if b * t * c_full >= 2 ** 31 or b > 65535 or s > MAX_MODELS:
         raise ValueError(f"conv {tuple(conv.shape)}: the kernel takes B T C < 2^31 "
                          f"elements a model, B <= 65535 and S <= {MAX_MODELS}")
+    if (c_off, c_full) != (0, c) and (c % 4 or c_off % 4 or c_full % 4):
+        raise ValueError(f"a shard of {c} channels from {c_off} of {c_full}: the kernel takes "
+                         "shards whose width, offset and layer width are multiples of 4")
     # the statistics and affine parameters enter in fp32, as the JAX kernel upcasts them
     gamma, beta, mean, var = (v if v.dtype == torch.float32 else v.float()
                               for v in (gamma, beta, mean, var))
@@ -214,7 +256,8 @@ def _launch_fwd(conv, gamma, beta, mean, var, p, pool, eps, seeds, with_code):
     code = torch.empty(shape, device=conv.device, dtype=torch.int32) if with_code else None
     KERNELS[conv.dtype].launch(
         conv.device, ptr(conv), ptr(gamma), ptr(beta), ptr(mean), ptr(var), eps,
-        _keep_scale(p), _threshold(p), ptr(seeds), ptr(out), ptr(code), s, b, t, c, pool)
+        _keep_scale(p), _threshold(p), ptr(seeds), ptr(out), ptr(code), s, b, t, c, pool,
+        c_full, c_off)
     return out, code
 
 
@@ -257,14 +300,14 @@ class _StemTail(torch.autograd.Function):
 
     @staticmethod
     def forward(conv, gamma, beta, mean, var, p, pool, eps, generator, batch_stats, n_rows,
-                sum_ranks, with_code):
+                sum_ranks, channels, with_code):
         out, code = stem_tail_fwd(conv, gamma, beta, mean, var, p, pool, eps, generator,
-                                  with_code)
+                                  with_code, channels)
         return (out, code) if with_code else out
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        conv, gamma, beta, mean, var, p, pool, eps, _, batch_stats, n_rows, sum_ranks, \
+        conv, gamma, beta, mean, var, p, pool, eps, _, batch_stats, n_rows, sum_ranks, _, \
             with_code = inputs
         ctx.p, ctx.pool, ctx.eps, ctx.batch_stats = p, pool, eps, batch_stats
         ctx.n_rows, ctx.sum_ranks = n_rows, sum_ranks
@@ -295,16 +338,16 @@ class _StemTail(torch.autograd.Function):
         else:  # constant statistics (the running stats of eval mode)
             dconv = (inv * gamma) * dy
         return (dconv.to(conv.dtype), dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
-                None, None, None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None, None, None)
 
     @staticmethod
     def vmap(info, in_dims, conv, gamma, beta, mean, var, p, pool, eps, generator, batch_stats,
-             n_rows, sum_ranks, with_code):
+             n_rows, sum_ranks, channels, with_code):
         if p > 0.0 and info.randomness != "different":
             raise ValueError("stem-tail dropout under vmap draws one mask per model: "
                              "use randomness='different'")
         args = models_first(info, in_dims[:5], conv, gamma, beta, mean, var)
-        out, code = stem_tail_fwd(*args, p, pool, eps, generator, with_code)
+        out, code = stem_tail_fwd(*args, p, pool, eps, generator, with_code, channels)
         return ((out, code), (0, 0)) if with_code else (out, 0)
 
 
@@ -313,8 +356,8 @@ def fused_stage_train(conv: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
                       eps: float = 1e-5,
                       generator: torch.Generator | None = None, batch_stats: bool = True,
                       n_rows: torch.Tensor | None = None,
-                      sum_ranks: Callable[[torch.Tensor], torch.Tensor] | None = None
-                      ) -> torch.Tensor:
+                      sum_ranks: Callable[[torch.Tensor], torch.Tensor] | None = None,
+                      channels: tuple[int, int] | None = None) -> torch.Tensor:
     """``(conv - mean) * rsqrt(var + eps) * gamma + beta`` -> erf-GELU ->
     dropout(p) -> ``MaxPool1d(pool)``; ``conv (B, T, C)`` NLC, the rest
     ``(C,)``. Returns ``(B, T // pool, C)``, differentiable in ``conv``,
@@ -337,14 +380,17 @@ def fused_stage_train(conv: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
     and ``sum_ranks`` sums a tensor over those ranks (an all-reduce), so the
     backward's batch-statistic terms cover every rank's rows (one call of
     ``sum_ranks`` around the kernel); both None for a batch held whole.
+
+    ``channels=(c_off, c_full)``: ``conv`` is a tensor-parallel rank's
+    channel shard (module docstring); None for a layer held whole.
     """
     with_code = torch.is_grad_enabled() and any(
         v.requires_grad for v in (conv, gamma, beta))  # the backward's routing table
     if not with_code and not torch._C._are_functorch_transforms_active():
         return stem_tail_fwd(conv, gamma, beta, mean, var, float(p), pool, eps, generator,
-                             with_code=False)[0]
+                             with_code=False, channels=channels)[0]
     res = _StemTail.apply(conv, gamma, beta, mean, var, float(p), pool, eps, generator,
-                          batch_stats, n_rows, sum_ranks, with_code)
+                          batch_stats, n_rows, sum_ranks, channels, with_code)
     return res[0] if with_code else res
 
 

@@ -22,6 +22,15 @@ running stats and no dropout. Inside
 batch's (all-reduced sums over the global row count), and the stem tail's
 backward forms its batch-statistic terms over the global batch too.
 
+Tensor parallelism (:mod:`..parallel.tp`) swaps in
+:class:`ShardedEEGMultiScaleNet`, whose stem runs each conv on this rank's
+output channels and the stem tail on that channel shard (BatchNorm is per
+channel, and the shard's dropout bits are the unsharded layer's columns),
+then gathers the channels, and :class:`ShardedBiLSTM`, which gathers each
+layer's gate rows and runs the whole layer's kernels on every model rank
+(the recurrence needs the whole ``h`` every step); the backward of that
+gather keeps this rank's rows of each weight gradient.
+
 The public input is the reference's ``(B, C, T)``; the stem runs NLC
 ``(B, T, C)`` inside, as the JAX package does. Module names follow the
 reference ``state_dict`` (``temp_conv.0``, ``freq_branch.2``,
@@ -82,6 +91,17 @@ class BiLSTM(nn.Module):
         return x
 
 
+class ShardedBiLSTM(BiLSTM):
+    """:class:`BiLSTM` whose gate rows may be split over the model axis:
+    each layer's parameters are gathered whole before the layer runs."""
+
+    def layer_params(self, k: int):
+        return tuple(
+            tuple(self.tp.whole(self, f"{part}_l{k}{suffix}")
+                  for part in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+            for suffix in ("", "_reverse"))
+
+
 @torch.no_grad()
 def update_running_stats(bn: nn.BatchNorm1d, mean: torch.Tensor, var: torch.Tensor) -> None:
     """The JAX rule: running stats move toward the batch's by the momentum,
@@ -116,8 +136,10 @@ class EEGMultiScaleNet(nn.Module):
         )
 
     def _stage(self, h: torch.Tensor, conv: nn.Conv1d, bn: nn.BatchNorm1d, drop: nn.Dropout,
-               pool: nn.MaxPool1d, generator: torch.Generator | None) -> torch.Tensor:
-        """NLC in, NLC out: conv, then the fused BN + GELU + dropout + pool tail."""
+               pool: nn.MaxPool1d, generator: torch.Generator | None,
+               channels: tuple[int, int] | None = None) -> torch.Tensor:
+        """NLC in, NLC out: conv, then the fused BN + GELU + dropout + pool
+        tail (on the channel shard ``channels``, where given)."""
         y = F.conv1d(h.transpose(1, 2), conv.weight, conv.bias, padding=conv.padding)
         y = y.transpose(1, 2).contiguous()
         group = batch_group() if self.training else None
@@ -142,7 +164,7 @@ class EEGMultiScaleNet(nn.Module):
             mean, var, p = bn.running_mean, bn.running_var, 0.0
         return fused_stage_train(y, bn.weight, bn.bias, mean, var, p, pool.kernel_size, bn.eps,
                                  generator, batch_stats=self.training, n_rows=n_rows,
-                                 sum_ranks=sum_ranks)
+                                 sum_ranks=sum_ranks, channels=channels)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         tc = self.temp_conv
@@ -151,3 +173,18 @@ class EEGMultiScaleNet(nn.Module):
         freq = self.freq_branch(x.mean(dim=1))
         temp_feat = self.bilstm(h).mean(dim=1)
         return self.fusion(torch.cat([temp_feat, freq], dim=1))
+
+
+class ShardedEEGMultiScaleNet(EEGMultiScaleNet):
+    """:class:`EEGMultiScaleNet` whose conv stem may be split on its output
+    channels: each stage whose conv is split runs on this rank's channels
+    and returns the whole channels, gathered. Its Linear, LayerNorm and
+    BiLSTM children are sharded forms of their own."""
+
+    def _stage(self, h, conv, bn, drop, pool, generator, channels=None):
+        if conv.tp_split.get("weight") is None:
+            return super()._stage(h, conv, bn, drop, pool, generator)
+        tp, c = self.tp, conv.weight.shape[0]
+        out = super()._stage(tp.copy(h), conv, bn, drop, pool, generator,
+                             channels=(tp.index * c, tp.size * c))
+        return tp.gather(out, -1)

@@ -31,6 +31,14 @@ stats updated by the JAX rule (momentum 0.1, biased batch variance, see
 else 0.3, or ``dropout`` at every site) drawn from the ``generator`` passed
 to :meth:`forward`.
 
+Tensor parallelism (:mod:`..parallel.tp`) swaps in
+:class:`ShardedMultimodalTransformerModel`, whose trunk and heads run each
+column-parallel Linear's BatchNorm, GELU and dropout on this rank's
+features (:func:`run_sharded_trunk`) and gather them before the next
+Linear; its encoders, cross-modal blocks and modality weighting compute
+through their children's sharded forms, the InfoNCE on the whole
+features.
+
 ``lstm_schedule`` picks the EEG BiLSTM's kernels on the card
 (:data:`..kernels.lstm.SCHEDULES`, default ``"v9"``); it is neither a
 parameter nor a buffer, so the ``state_dict`` does not carry it.
@@ -48,7 +56,7 @@ from ..ops.losses import supervised_infonce_multi
 from ..parallel.collectives import all_reduce_sum, batch_group, gather_blocks
 from .cross_modal import CrossModalTransformer
 from .eeg import BiLSTM, EEGMultiScaleNet, update_running_stats
-from .layers import Linear, MultiheadAttention, dropout
+from .layers import Linear, MultiheadAttention, ShardedLinear, dropout
 from .subnetwork import Subnetwork
 
 
@@ -108,6 +116,30 @@ def run_trunk(trunk: nn.Sequential, x: torch.Tensor,
         else:
             x = m(x)
     return x
+
+
+def run_sharded_trunk(trunk: nn.Sequential, x: torch.Tensor,
+                      generator: torch.Generator | None) -> torch.Tensor:
+    """:func:`run_trunk` of a tensor-parallel trunk: a column-parallel
+    Linear (:class:`.layers.ShardedLinear`) leaves its output as this rank's
+    block of features, which its BatchNorm (split with it), GELU and
+    dropout (the whole mask's columns) take as they are; the block is
+    gathered before the next Linear and at the end."""
+    local = False
+    for m in trunk:
+        if isinstance(m, ShardedLinear):
+            if local:
+                x = m.tp.gather(x, -1)
+            x = m(x, local_out=True)
+            local, tp = m.column, m.tp
+        elif isinstance(m, nn.BatchNorm1d):
+            x = batch_norm(m, x)
+        elif isinstance(m, nn.Dropout):
+            x = dropout(x, m.p, m.training, generator,
+                        shard=(tp.index, tp.size) if local else None)
+        else:
+            x = m(x)
+    return tp.gather(x, -1) if local else x
 
 
 @torch.no_grad()
@@ -206,9 +238,18 @@ class MultimodalTransformerModel(nn.Module):
         eye_enhanced = self.cross_attn_e2p(eeg_feat, eye_feat, eye_feat)
         pps_enhanced = self.cross_attn_p2e(eeg_feat, pps_feat, pps_feat)
         w = self.attention_weights(torch.cat([eeg_feat, eye_feat, pps_feat], dim=1))
-        fused = run_trunk(self.fusion, torch.cat(
+        fused = self._trunk(self.fusion, torch.cat(
             [eeg_feat * w[:, 0:1], eye_enhanced * w[:, 1:2], pps_enhanced * w[:, 2:3]],
             dim=1,
         ), generator)
-        return (run_trunk(self.arousal_head, fused, generator),
-                run_trunk(self.valence_head, fused, generator)) + contrastive
+        return (self._trunk(self.arousal_head, fused, generator),
+                self._trunk(self.valence_head, fused, generator)) + contrastive
+
+    _trunk = staticmethod(run_trunk)
+
+
+class ShardedMultimodalTransformerModel(MultimodalTransformerModel):
+    """The flagship's tensor-parallel form (:mod:`..parallel.tp`): its
+    trunk and heads run through :func:`run_sharded_trunk`."""
+
+    _trunk = staticmethod(run_sharded_trunk)

@@ -2,7 +2,7 @@
 
 Counterpart of ``multimodal_sentiment_aanalysis_tpu/parallel/``, which
 drives every device from one process; the port runs the ranks the way
-``torchrun`` launches them (:func:`.mesh.make_mesh`). Two of JAX's three
+``torchrun`` launches them (:func:`.mesh.make_mesh`). JAX's three
 flavours:
 
 - **Subject sharding** (``mesh=`` of :class:`..train.VectorizedLOSOTrainer`,
@@ -15,17 +15,18 @@ flavours:
   local semantics (:func:`make_dp_train_step`, :func:`make_dp_eval_step`)
   and the GSPMD form with global semantics (:func:`.dp.global_batch_step`,
   :class:`..train.MultiTaskTrainer` with ``mesh=``, ``cli phased --dp``).
+- **Tensor parallelism** (:mod:`.tp`: :func:`make_mesh_2d`,
+  :func:`param_partition_specs`, :func:`shard_by_specs`,
+  :func:`batch_sharding`, :func:`gather_state_dict`): JAX's Megatron-style
+  layout of the flagship on a ``(data, model)`` mesh, each rank holding its
+  JAX shard and computing through sharded forms of the layers that still
+  launch the kernels, with explicit collectives over the model axis.
 
-Tensor parallelism (JAX ``parallel/tp.py``: ``make_mesh_2d``,
-``param_partition_specs``, ``shard_by_specs``, ``batch_sharding``) is not
-ported yet (ROADMAP A13b): under JAX's GSPMD its Pallas kernels step aside
-for the jnp paths, and the port's kernels have no sharded form; its names
-raise :class:`NotImplementedError`.
-
-:func:`.dryrun.dryrun_multichip` checks both ported flavours at flagship
-width over ``n`` ranks. The names of :mod:`.dp` and :mod:`.dryrun` load on
-first use (PEP 562): the model and loss modules import
-:mod:`.collectives`, and :mod:`.dp` imports the trainers.
+:func:`.dryrun.dryrun_multichip` checks the three flavours at flagship
+width over ``n`` ranks. The names of :mod:`.dp`, :mod:`.tp` and
+:mod:`.dryrun` load on first use (PEP 562): the model and loss modules
+import :mod:`.collectives`, :mod:`.dp` imports the trainers and :mod:`.tp`
+the models.
 """
 
 from __future__ import annotations
@@ -40,25 +41,14 @@ _LAZY = {
     "pad_batch_to_devices": "dp",
     "global_batch_step": "dp",
     "dryrun_multichip": "dryrun",
+    **{name: "tp" for name in ("make_mesh_2d", "param_partition_specs", "shard_by_specs",
+                               "batch_sharding", "gather_state_dict")},
 }
-_TP = ("make_mesh_2d", "param_partition_specs", "shard_by_specs", "batch_sharding")
-
-
-def _tp_not_ported(name: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: tensor parallelism is not ported yet (ROADMAP A13b): the port's "
-            "kernels have no sharded form, and a CUDA tensor never takes a plain version")
-
-    refuse.__name__ = name
-    return refuse
 
 
 def __getattr__(name: str):
     if name in _LAZY:
         return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
-    if name in _TP:
-        return _tp_not_ported(name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -69,6 +59,11 @@ __all__ = [
     "make_dp_train_step",
     "make_dp_eval_step",
     "pad_batch_to_devices",
+    "global_batch_step",
     "dryrun_multichip",
-    *_TP,
+    "make_mesh_2d",
+    "param_partition_specs",
+    "shard_by_specs",
+    "batch_sharding",
+    "gather_state_dict",
 ]

@@ -20,6 +20,27 @@ backward needs ``reduce_scatter``, which ``gloo`` lacks on CUDA.
 - :func:`sum_grads_`: the ``.grad`` of a set of parameters summed over the
   ranks in one all-reduce, optionally weighted.
 
+The model axis of tensor parallelism (:mod:`.tp`), Megatron's three
+autograd pairs over its process group, each a method of :class:`ModelAxis`:
+
+- :meth:`ModelAxis.copy`: identity forward, sum all-reduce backward (a
+  replicated activation entering a sharded region: each rank's input
+  gradient is a partial sum);
+- :meth:`ModelAxis.reduce`: sum all-reduce forward, identity backward (the
+  partial products of a row-parallel layer leaving it);
+- :meth:`ModelAxis.gather`: every rank's block concatenated along ``dim``
+  forward; the backward takes this rank's slice of the gradient with **no
+  sum**, since the work downstream of a gather is replicated, so every
+  model rank already holds the whole gradient. (:func:`gather_blocks` sums
+  in its backward, which is right on the data axis, where each rank's term
+  is its own, and would multiply every sharded gradient by the axis size
+  here.)
+
+:func:`global_grad_norm` is the norm of a whole parameter vector some of
+whose tensors are model-axis shards (tagged ``tp_axis`` by
+:func:`.tp.shard_by_specs`): their squares summed over the model axis,
+every replicated tensor counted once.
+
 :data:`TRAFFIC` counts the bytes and calls of every all-reduce made here
 in this process (:func:`reset_traffic` zeroes it), as the kernels' launch
 counters count launches.
@@ -155,3 +176,92 @@ def sum_grads_(params: list[torch.Tensor], group, weight: torch.Tensor | float =
     flat = reduce_sum_(torch.cat([p.grad.reshape(-1) for p in got]) * weight, group)
     for p, g in zip(got, flat.split([p.numel() for p in got])):
         p.grad.copy_(g.view_as(p))
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_sum_(grad.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return reduce_sum_(x.detach().contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.rank, ctx.dim, ctx.n = dist.get_rank(group), dim, x.shape[dim]
+        return torch.cat(_gather(x.contiguous(), group).unbind(0), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # a copy: two gathered tensors may get views of one gradient (a sum's
+        # two inputs), which would leave two parameters' .grad sharing memory
+        return grad.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).clone(), None, None
+
+
+class ModelAxis:
+    """The model axis of a ``(data, model)`` mesh as one rank sees it: its
+    process group, its ``size`` and this rank's ``index`` along it. A
+    sharded tensor holds block ``index`` of ``size`` equal blocks along its
+    split dim. Copying a sharded module keeps the axis (a process group is
+    not copied)."""
+
+    def __init__(self, group):
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.index = dist.get_rank(group)
+
+    def __deepcopy__(self, memo) -> "ModelAxis":
+        return self
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (replicated) entering a sharded region: the sum of the
+        ranks' input gradients flows back."""
+        return _CopyToModel.apply(x, self.group)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the ranks' partial ``x``; the gradient flows back
+        unchanged."""
+        return _ReduceFromModel.apply(x, self.group)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's block ``x`` concatenated along ``dim`` in rank order;
+        the backward keeps this rank's slice of the (replicated) gradient."""
+        return _GatherFromModel.apply(x, self.group, dim)
+
+    def block(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of the replicated ``x`` along ``dim``."""
+        n = x.shape[dim] // self.size
+        return self.copy(x).narrow(dim, self.index * n, n)
+
+    def whole(self, module, name: str) -> torch.Tensor:
+        """``module``'s tensor ``name`` whole: gathered along its split dim
+        (``module.tp_split``), as it is where it is replicated."""
+        t, dim = getattr(module, name), module.tp_split.get(name)
+        return t if dim is None else self.gather(t, dim)
+
+
+def global_grad_norm(params: list[torch.Tensor]) -> torch.Tensor:
+    """The 2-norm of the ``.grad`` s of ``params`` as one vector: the
+    squares of the model-axis shards (tensors tagged ``tp_axis``) summed
+    over that axis, each replicated tensor counted once."""
+    got = [p for p in params if p.grad is not None]
+    sq = [p.grad.detach().float().pow(2).sum() for p in got]
+    zero = got[0].grad.new_zeros((), dtype=torch.float32)
+    shard = sum((s for p, s in zip(got, sq) if getattr(p, "tp_axis", None) is not None), zero)
+    whole = sum((s for p, s in zip(got, sq) if getattr(p, "tp_axis", None) is None), zero)
+    axis = next(p.tp_axis for p in got if getattr(p, "tp_axis", None) is not None)
+    return (reduce_sum_(shard.reshape(1), axis.group)[0] + whole).sqrt()

@@ -21,6 +21,13 @@ process per rank. Two forms, as in JAX:
 The dropout masks of a rank come from its own generator (the caller's; the
 trainers seed it from ``(seed, rank)``, :func:`.mesh.rank_seed`), so a
 multi-rank run equals the one-process run only at dropout 0.
+
+On a tensor-parallel ``(data, model)`` mesh (:mod:`.tp`) both forms work on
+the data axis: each rank takes its data row's block of the batch, the
+gradients and the BatchNorm running stats are summed over the data axis
+alone (a replicated parameter's gradient is already the same on every model
+rank, a shard's is its own block), and the global-norm clip forms the whole
+parameter vector's norm (:func:`..train.state.clip_by_global_norm`).
 """
 
 from __future__ import annotations
@@ -65,7 +72,7 @@ def make_dp_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer, mesh
     through :func:`pad_batch_to_devices`), each rank takes its block; the
     returned sums are the global batch's.
     """
-    group, world = mesh.get_group(), mesh.size()
+    group, world = mesh.get_group(0), mesh.size(0)
 
     def step(params: dict[str, torch.Tensor], stats: dict[str, torch.Tensor], batch: dict,
              generator: torch.Generator | None = None) -> torch.Tensor:
@@ -104,7 +111,7 @@ def make_dp_eval_step(metrics_fn: Callable, mesh) -> Callable:
     them); the ranks' sums are summed, so the caller divides by the global
     count once. Returns ``eval_step(params, stats, batch)`` over the global
     ``batch``."""
-    group = mesh.get_group()
+    group = mesh.get_group(0)
 
     @torch.no_grad()
     def eval_step(params: dict, stats: dict, batch: dict):
@@ -137,7 +144,7 @@ def global_batch_step(step_fn: Callable, mesh) -> Callable:
     accumulated (before ``step_fn`` reads it), and each tensor of ``metrics`` (this rank's share
     of a loss, or of a sum) is summed over the ranks, so the step is the
     one-process step on the global batch."""
-    group = mesh.get_group()
+    group = mesh.get_group(0)
 
     def sum_grad(t: torch.Tensor) -> None:
         reduce_sum_(t.grad, group)

@@ -11,8 +11,12 @@ driving ``n`` devices): :func:`dryrun_multichip` starts ``n`` ranks
    count is the global batch;
 2. subject sharding: one :class:`..train.VectorizedLOSOTrainer` step with
    one flagship model a rank, every per-model loss finite;
-3. tensor parallelism is not ported yet (ROADMAP A13b), and the run says
-   so.
+3. tensor parallelism: the flagship sharded by JAX's specs on a ``(n /
+   tp, tp)`` mesh (``tp = 2`` where ``n`` is even, else 1), one
+   :func:`.dp.global_batch_step` step of the full objective in train mode
+   under ``AdamW(1e-4, weight_decay=1e-4)`` on the global batch of
+   flavour 1, as ``__graft_entry__.dryrun_multichip``'s flavour 3: the loss
+   is finite and the parameters move.
 
 :func:`spawn_ranks` starts ``n`` processes (``spawn``), joins them through
 a ``FileStore`` in a fresh temporary directory, gives every process group
@@ -36,7 +40,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from .mesh import make_mesh, mesh_device
+from .mesh import make_mesh, mesh_device, rank_seed
 
 
 def _rank_entry(fn: Callable, rank: int, world: int, backend: str, device_type: str,
@@ -190,10 +194,53 @@ def dryrun_rank(mesh, print_lines: bool = True) -> list[str]:
         raise RuntimeError(f"non-finite subject-sharded losses {losses}")
     lines.append(f"dryrun_multichip({n}): subject-sharded OK — {vt.n_total} flagship models, "
                  "per-model losses finite")
-    lines.append(f"dryrun_multichip({n}): tensor-parallel not ported yet (ROADMAP A13b)")
+    lines.append(_tensor_parallel(mesh, batch, device))
     if print_lines and mesh.get_local_rank() == 0:
         print("\n".join(lines), flush=True)
     return lines
+
+
+def _tensor_parallel(mesh, batch: dict, device: torch.device) -> str:
+    """Flavour 3 on ``mesh``'s ranks; returns its line."""
+    from ..models import MultimodalTransformerModel
+    from ..ops.losses import masked_cross_entropy
+    from ..train import make_adamw
+    from .dp import global_batch_step
+    from .tp import DATA, make_mesh_2d, param_partition_specs, shard_by_specs
+
+    n = mesh.size()
+    tp = 2 if n % 2 == 0 else 1
+    mesh2d = make_mesh_2d(n // tp, tp, device_type=mesh.device_type)
+    model = MultimodalTransformerModel(device=device, generator=torch.Generator().manual_seed(0))
+    sharded = shard_by_specs(mesh2d, model, param_partition_specs(model, tp))
+    sharded.train()
+    optimizer = make_adamw([{"params": list(sharded.parameters())}], 1e-4, 1e-4)
+    generator = torch.Generator(device=device).manual_seed(
+        rank_seed(4, mesh2d.get_local_rank(DATA)))
+
+    def step_fn(state, b):
+        m, opt = state
+        opt.zero_grad()
+        a, v, c1, c2, c3 = m(b["eeg"], b["eye"], b["pps"],
+                             labels=(b["arousal"], b["valence"], b["mask"]),
+                             generator=generator)
+        loss = (masked_cross_entropy(a, b["arousal"], b["mask"])
+                + masked_cross_entropy(v, b["valence"], b["mask"]) + c1 + c2 + c3)
+        loss.backward()
+        opt.step()
+        return state, {"loss": loss.detach()}
+
+    before = {k: p.detach().clone() for k, p in sharded.named_parameters()}
+    _, metrics = global_batch_step(step_fn, mesh2d)((sharded, optimizer), batch)
+    loss = float(metrics["loss"])
+    if not np.isfinite(loss):
+        raise RuntimeError("non-finite TP loss")
+    moved = max(float((p.detach() - before[k]).abs().max())
+                for k, p in sharded.named_parameters())
+    if not moved > 0:
+        raise RuntimeError("the TP step did not update the parameters")
+    return (f"dryrun_multichip({n}): tensor-parallel OK — (data={n // tp}, model={tp}) mesh, "
+            f"loss {loss:.4f}")
 
 
 def dryrun_multichip(n_devices: int, device_type: str = "cuda",

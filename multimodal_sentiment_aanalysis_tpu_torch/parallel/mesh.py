@@ -4,9 +4,10 @@ Counterpart of ``multimodal_sentiment_aanalysis_tpu/parallel/mesh.py``. The
 JAX package drives every device from one process; the port runs one process
 per card, the way ``torchrun`` launches ranks, and a mesh is a
 one-dimensional :class:`torch.distributed.device_mesh.DeviceMesh` over the
-ranks of the default process group, its axis named like JAX's (``"data"``).
+ranks of the default process group, its axis named like JAX's (``"data"``);
+tensor parallelism's 2-D ``(data, model)`` mesh is :func:`.tp.make_mesh_2d`.
 
-:func:`make_mesh` starts the default group when none exists: from the
+:func:`make_mesh` (through :func:`start_group`) starts the default group when none exists: from the
 ``torchrun`` environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT``) when it is set, otherwise a one-process
 group, the counterpart of JAX's one-device mesh, which runs the one-device
@@ -42,13 +43,10 @@ def _local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", 0))
 
 
-def make_mesh(n_devices: int | None = None, axis_name: str = "data",
-              device_type: str | None = None) -> DeviceMesh:
-    """A 1-D mesh named ``axis_name`` over the ranks of the default process
-    group (started here when there is none; see the module docstring).
-    ``device_type`` is ``"cuda"`` (the default) or ``"cpu"``. ``n_devices``
-    other than the world size raises: a rank outside the mesh would have
-    nothing to run."""
+def start_group(device_type: str | None = None) -> str:
+    """The default process group, started when there is none (module
+    docstring), and this rank's card set; returns the device type
+    (``"cuda"`` when None)."""
     device_type = device_type or "cuda"
     if device_type == "cuda":
         if not torch.cuda.is_available():
@@ -62,6 +60,17 @@ def make_mesh(n_devices: int | None = None, axis_name: str = "data",
         else:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1,
                                     timeout=TIMEOUT)
+    return device_type
+
+
+def make_mesh(n_devices: int | None = None, axis_name: str = "data",
+              device_type: str | None = None) -> DeviceMesh:
+    """A 1-D mesh named ``axis_name`` over the ranks of the default process
+    group (started here when there is none; see the module docstring).
+    ``device_type`` is ``"cuda"`` (the default) or ``"cpu"``. ``n_devices``
+    other than the world size raises: a rank outside the mesh would have
+    nothing to run."""
+    device_type = start_group(device_type)
     world = dist.get_world_size()
     if n_devices is not None and n_devices != world:
         raise ValueError(f"need {n_devices} devices, the process group has {world} ranks "
@@ -88,8 +97,10 @@ def _map(fn, tree: Any) -> Any:
 
 def shard_batch(mesh: DeviceMesh, tree: Any) -> Any:
     """This rank's contiguous block of every tensor's leading axis (JAX's
-    ``P('data')`` layout); the axis must divide by the mesh size."""
-    w, r = mesh.size(), mesh.get_local_rank()
+    ``P('data')`` layout) over the mesh's first axis, the data axis (the
+    whole mesh of a 1-D one), replicated over a 2-D mesh's model axis; the
+    leading axis must divide by the data axis's size."""
+    w, r = mesh.size(0), mesh.get_local_rank(0)
 
     def block(x: torch.Tensor) -> torch.Tensor:
         if x.shape[0] % w:
@@ -162,7 +173,10 @@ def rank_seed(seed: int, rank: int) -> int:
     """The seed of rank ``rank``'s dropout generator: ``seed`` itself on
     rank 0 (so a one-rank mesh draws the one-process stream), a stream of
     its own, drawn from ``(seed, rank)``, on every other rank (JAX:
-    ``fold_in(key, axis_index)``)."""
+    ``fold_in(key, axis_index)``). On a ``(data, model)`` mesh ``rank`` is
+    the data index (``mesh.get_local_rank("data")``): every model rank of a
+    data row draws one stream, so dropout on a replicated activation draws
+    one mask on all of them."""
     if rank == 0:
         return seed
     return int(np.random.SeedSequence((seed, rank)).generate_state(1, np.uint64)[0] >> 1)

@@ -5,7 +5,9 @@ the single-subject trainer:
 
 - :func:`clip_by_global_norm`: scale every gradient by
   ``min(1, max_norm / (norm + 1e-6))``, the JAX function's rule (and
-  torch ``clip_grad_norm_``'s);
+  torch ``clip_grad_norm_``'s); where some parameters are shards of a
+  tensor-parallel model, ``norm`` is the whole parameter vector's
+  (:func:`..parallel.collectives.global_grad_norm`), as GSPMD forms it;
 - :func:`make_adamw`: ``torch.optim.AdamW`` over the given param groups; the
   JAX package runs optax ``adamw`` (no kernel), and one step of both agrees
   to float noise (``tests/test_torch_port_train.py``) with torch's default
@@ -63,11 +65,23 @@ from typing import Iterable
 import torch
 import torch.nn as nn
 
+from ..parallel.collectives import global_grad_norm
+
 
 def clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
     """Scale the ``.grad`` of ``params`` in place by ``min(1, max_norm /
-    (norm + 1e-6))``; returns the global norm before clipping."""
-    return torch.nn.utils.clip_grad_norm_(list(params), max_norm)
+    (norm + 1e-6))``; returns the global norm before clipping. Shards of a
+    tensor-parallel model (tagged ``tp_axis``) count with every model
+    rank's block: a collective over the model axis, so every rank calls it."""
+    params = list(params)
+    if not any(getattr(p, "tp_axis", None) is not None for p in params):
+        return torch.nn.utils.clip_grad_norm_(params, max_norm)
+    norm = global_grad_norm(params)
+    coef = (max_norm / (norm + 1e-6)).clamp(max=1.0)
+    for p in params:
+        if p.grad is not None:
+            p.grad.mul_(coef.to(p.grad.dtype))
+    return norm
 
 
 def make_adamw(param_groups: list[dict], lr: float, weight_decay: float) -> torch.optim.AdamW:

@@ -202,7 +202,9 @@ def test_sharded_state_resumes_unsharded(runs):
 def test_dryrun_multichip_on_the_cpu(runs):
     assert [line.split(" — ")[0] for line in runs["dryrun"]] == [
         "dryrun_multichip(2): batch-DP OK", "dryrun_multichip(2): subject-sharded OK",
-        "dryrun_multichip(2): tensor-parallel not ported yet (ROADMAP A13b)"]
+        "dryrun_multichip(2): tensor-parallel OK"]
+    assert runs["dryrun"][2].startswith(
+        "dryrun_multichip(2): tensor-parallel OK — (data=1, model=2) mesh, loss ")
 
 
 @pytest.mark.parametrize("launch", ["spawn_ranks", "dryrun_multichip"])

@@ -30,6 +30,8 @@ On the CPU:
 The ``gpu``-marked tests hold each kernel against its plain version on the
 card: row 2 in fp32 and bf16, p 0 and 0.4, S 1 and 3, with a ragged B and T
 and C % 4 != 0, its keep mask bit for bit against :func:`keep_mask_plain`;
+rows 2 and 12 on each channel shard of the two stem stages split 2 and 4
+ways, against the unsharded kernel's columns and the plain versions;
 row 3 at both serving stages and ragged shapes, against the plain version
 (1e-4) and fp64 (1e-5 of the largest entry). They skip without a card and
 import no JAX:
@@ -391,6 +393,54 @@ def test_stem_tail_kernel_mask_is_the_cpu_model_at_stage_shapes(cuda):
                                                            seeds)
         keep = conv_stem_train.keep_mask_plain(seeds.cpu(), shape, 0.4)
         assert torch.equal(code.cpu(), keep.int())
+
+
+# (B, T, C, pool) of the stem's two stages, split over a tensor-parallel model axis
+SHARD_CARD = {"stage1": (64, 585, 64, 4), "stage2": (64, 146, 256, 2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("stage", sorted(SHARD_CARD))
+def test_stem_tail_kernels_on_a_channel_shard(cuda, stage, tp):
+    """Rows 2 and 12 on each channel shard of a stem layer split ``tp``
+    ways (``channels=(c_off, C)``), p 0.4 at the stage's pool: the shard's
+    pooled output and codes equal the unsharded kernel's columns bit for
+    bit, and the plain version's fed ``keep_mask_plain(channels=)`` (1e-5,
+    the codes but where two window entries tie); row 12 on the shard's code
+    against its plain version (``dy`` 1e-5, the summed partials 1e-4
+    relative + 1e-3)."""
+    b, t, c, pool = SHARD_CARD[stage]
+    h = c // tp
+    conv, gamma, beta, mean, var = (a.to(cuda) for a in _stem_case(22, 0, b, t, c))
+    seeds = torch.tensor([2 ** 40 + 5], device=cuda)
+    dpool = torch.from_numpy(np.random.default_rng(23).normal(size=(b, t // pool, c))
+                             .astype(np.float32)).to(cuda)
+    with torch.no_grad():
+        whole, whole_code = conv_stem_train.stem_tail_fwd_seeded(conv, gamma, beta, mean, var,
+                                                                 0.4, pool, seeds)
+        for i in range(tp):
+            cols = slice(i * h, (i + 1) * h)
+            args = [a[..., cols].contiguous() for a in (conv, gamma, beta, mean, var)]
+            out, code = conv_stem_train.stem_tail_fwd_seeded(*args, 0.4, pool, seeds,
+                                                             channels=(i * h, c))
+            assert torch.equal(out, whole[..., cols]) and torch.equal(code, whole_code[..., cols])
+            keep = conv_stem_train.keep_mask_plain(seeds.cpu(), (b, t, h), 0.4,
+                                                   channels=(i * h, c)).to(cuda)
+            ref, ref_code = conv_stem_train.fused_stage_train_plain(*args, pool, 1e-5, 0.4, keep,
+                                                                    with_code=True)
+            torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+            assert (code != ref_code).double().mean().item() <= 1e-3
+            inv = torch.rsqrt(args[4] + 1e-5)
+            scale = args[1] * inv
+            bwd = (args[0], dpool[..., cols].contiguous(), code, scale,
+                   args[2] - args[3] * scale, args[3], inv, 0.4, pool)
+            dy, dg, db = conv_stem_train.stem_tail_bwd(*bwd)
+            want = conv_stem_train.stem_tail_bwd_plain(*bwd)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(dy, want[0], rtol=0, atol=1e-5)
+            for g, w in zip((dg, db), want[1:]):
+                torch.testing.assert_close(g.sum(0), w.sum(0), rtol=1e-4, atol=1e-3)
 
 
 # (B, T, C, O, K, pad, pool): the serving stages, and ragged shapes: C % 4

@@ -1,5 +1,6 @@
-"""Rank functions of ``test_torch_port_parallel.py`` and
-``test_torch_port_parallel_dp.py``: torch and the port only.
+"""Rank functions of ``test_torch_port_parallel.py``,
+``test_torch_port_parallel_dp.py`` and ``test_torch_port_tp.py``: torch and
+the port only.
 
 The test modules import JAX; the ranks they spawn import this module, which
 imports neither JAX nor any test module that does. :func:`w2_cases` runs a
@@ -30,6 +31,7 @@ from multimodal_sentiment_aanalysis_tpu_torch.parallel.dp import (
     make_dp_eval_step,
     make_dp_train_step,
 )
+from multimodal_sentiment_aanalysis_tpu_torch.parallel.tp import DATA, MODEL
 from multimodal_sentiment_aanalysis_tpu_torch.train import (
     MultiTaskTrainer,
     VectorizedLOSOTrainer,
@@ -267,3 +269,195 @@ def w2_cases(mesh, inputs: dict) -> dict:
     torch.manual_seed(0)
     np.random.seed(0)
     return {name: CASES[name](mesh, c) for name, c in inputs.items()}
+
+
+# ----------------------------------------------------------------------
+# tensor parallelism (test_torch_port_tp.py): each case takes a (data,
+# model) mesh, or None for the one-process run it is held to
+def tp_model(mesh2d, c, **kw):
+    """The tiny flagship from ``c["state"]``, sharded by JAX's specs on
+    ``mesh2d`` (whole where it is None)."""
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel import (param_partition_specs,
+                                                                   shard_by_specs)
+
+    model = MultimodalTransformerModel(feat_dim=c["feat"], eeg_time=c["t_eeg"], **kw)
+    model.load_state_dict(c["state"])
+    if mesh2d is None:
+        return model
+    return shard_by_specs(mesh2d, model, param_partition_specs(model, mesh2d.size(1)))
+
+
+def whole_state(model) -> dict:
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel import gather_state_dict
+
+    sd = gather_state_dict(model) if hasattr(model, "tp") else model.state_dict()
+    return {k: v.detach().clone() for k, v in sd.items()}
+
+
+def whole_grads(model) -> dict:
+    """Every parameter's ``.grad``, split ones gathered whole."""
+    out = {}
+    for mname, m in model.named_modules():
+        for name, p in m.named_parameters(recurse=False):
+            g, dim = p.grad, getattr(m, "tp_split", {}).get(name)
+            out[f"{mname}.{name}" if mname else name] = (g if dim is None
+                                                         else m.tp.gather(g, dim)).clone()
+    return out
+
+
+def full_objective(model, b, generator):
+    """CE on both heads plus the three InfoNCE terms (JAX's TP step)."""
+    from multimodal_sentiment_aanalysis_tpu_torch.ops.losses import masked_cross_entropy
+
+    a, v, c1, c2, c3 = model(b["eeg"], b["eye"], b["pps"],
+                             labels=(b["arousal"], b["valence"], b["mask"]),
+                             generator=generator)
+    return (masked_cross_entropy(a, b["arousal"], b["mask"])
+            + masked_cross_entropy(v, b["valence"], b["mask"]) + c1 + c2 + c3)
+
+
+def _tensors(batch: dict) -> dict:
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def tp_roundtrip(mesh2d, c):
+    """Shard, then gather: the whole ``state_dict`` back, and each rank's
+    tensors the blocks its specs name."""
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel import param_partition_specs
+
+    model = tp_model(None, c)
+    sharded = tp_model(mesh2d, c)
+    specs = param_partition_specs(model, mesh2d.size(1))
+    whole, local = model.state_dict(), sharded.state_dict()
+    index, size = mesh2d.get_local_rank(MODEL), mesh2d.size(1)
+    blocks = {}
+    for k, v in whole.items():
+        bn_stat = k.endswith(("running_mean", "running_var"))  # placed as their BN's scale
+        spec = specs[k.rsplit(".", 1)[0] + ".weight"] if bn_stat else specs.get(k, ())
+        if MODEL in spec:
+            d = spec.index(MODEL)
+            n = v.shape[d] // size
+            v = v.narrow(d, index * n, n)
+        blocks[k] = torch.equal(local[k], v)
+    gathered = whole_state(sharded)
+    return {"blocks": blocks,
+            "gathered": gathered.keys() == whole.keys()
+            and all(torch.equal(gathered[k], v) for k, v in whole.items())}
+
+
+def tp_eval(mesh2d, c):
+    """The eval forward's logits of this rank's data block."""
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel import batch_sharding
+
+    model = tp_model(mesh2d, c)
+    model.eval()
+    b = _tensors(c["batch"])
+    if mesh2d is not None:
+        b = batch_sharding(mesh2d, b)
+    with torch.no_grad():
+        return {"logits": model(b["eeg"], b["eye"], b["pps"])}
+
+
+def tp_step(mesh2d, c):
+    """``c["steps"]`` steps on the global batch: JAX's SGD-on-CE step in
+    eval mode (``objective="ce"``), or the full objective in train mode,
+    under SGD 1e-2 or AdamW 1e-4; the losses, the whole state after, and
+    (sharded) this rank's replicated parameters."""
+    from multimodal_sentiment_aanalysis_tpu_torch.ops.losses import masked_cross_entropy
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel.mesh import rank_seed
+    from multimodal_sentiment_aanalysis_tpu_torch.train import make_adamw
+
+    model = tp_model(mesh2d, c, dropout=c["dropout"], lstm_schedule=c.get("schedule", "v9"))
+    model.train(c["objective"] == "full")
+    params = list(model.parameters())
+    opt = (make_adamw([{"params": params}], 1e-4, 1e-4) if c.get("adamw")
+           else torch.optim.SGD(params, lr=1e-2))
+    data_index = 0 if mesh2d is None else mesh2d.get_local_rank(DATA)
+    gen = torch.Generator().manual_seed(rank_seed(c["seed"], data_index))
+
+    def step_fn(state, b):
+        m, o = state
+        o.zero_grad()
+        if c["objective"] == "full":
+            loss = full_objective(m, b, gen)
+        else:
+            loss = masked_cross_entropy(m(b["eeg"], b["eye"], b["pps"])[0], b["arousal"],
+                                        b["mask"])
+        loss.backward()
+        o.step()
+        return state, {"loss": loss.detach()}
+
+    step = step_fn if mesh2d is None else global_batch_step(step_fn, mesh2d)
+    losses = [step((model, opt), _tensors(c["batch"]))[1]["loss"] for _ in range(c["steps"])]
+    out = {"loss": torch.stack(losses), "state": whole_state(model)}
+    if mesh2d is not None:
+        out["replicated"] = {k: p.detach().clone() for k, p in model.named_parameters()
+                             if not hasattr(p, "tp_axis")}
+    return out
+
+
+def tp_clip(mesh2d, c):
+    """One ``make_dp_train_step`` step (local semantics, a binding
+    ``clip_norm=1.0``, SGD 1e-2) of the full objective at dropout 0, and
+    the clipped gradients it stepped with; the one-process run sums the
+    data blocks' gradients weighted by their rows and clips them."""
+    from torch.func import functional_call
+
+    from multimodal_sentiment_aanalysis_tpu_torch.train.state import clip_by_global_norm
+
+    model = tp_model(mesh2d, c, dropout=0.0)
+    model.train()
+    params = dict(model.named_parameters())
+    stats = {k: v for k, v in model.named_buffers() if "running" in k}
+
+    def loss_fn(p, s, b, generator):
+        return full_objective(lambda *a, **kw: functional_call(model, {**p, **s}, a, kw), b,
+                              generator), b["mask"].sum()[None]
+
+    opt = torch.optim.SGD(list(params.values()), lr=1e-2)
+    batch = _tensors(c["batch"])
+    if mesh2d is not None:
+        make_dp_train_step(loss_fn, opt, mesh2d, clip_norm=1.0)(params, stats, batch)
+        return {"grads": whole_grads(model)}
+    n, blocks = batch["mask"].sum(), c["dp"]
+    rows = batch["mask"].shape[0] // blocks
+    for i in range(blocks):
+        b = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+        loss, _ = loss_fn(params, {k: v.clone() for k, v in stats.items()}, b, None)
+        (loss * b["mask"].sum() / n).backward()
+    norm = clip_by_global_norm(params.values(), 1.0)
+    return {"grads": whole_grads(model), "norm": norm}
+
+
+def tp_gather_backward(mesh2d, c):
+    """The model-axis gather's backward on its own: ``sum(gather(x) * w)``
+    with ``w`` replicated gives each rank ``w``'s block, not a sum of the
+    ranks' (which would be ``size`` times it)."""
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel.collectives import ModelAxis
+
+    axis = ModelAxis(mesh2d.get_group(MODEL))
+    x = (torch.arange(3.0) + 10.0 * axis.index).requires_grad_()
+    w = torch.arange(3.0 * axis.size) + 1.0
+    (axis.gather(x, 0) * w).sum().backward()
+    return {"grad": x.grad, "block": w[3 * axis.index:3 * (axis.index + 1)]}
+
+
+TP_CASES = {"roundtrip": tp_roundtrip, "eval": tp_eval, "step": tp_step, "clip": tp_clip,
+            "gather_backward": tp_gather_backward}
+
+
+def tp_cases(mesh, inputs: dict) -> dict:
+    """Every ``(dp, tp)`` mesh of ``inputs`` whose ranks make up this
+    launch's world, and each of its cases, in one launch: ``{(dp, tp, label):
+    result}``."""
+    from multimodal_sentiment_aanalysis_tpu_torch.parallel import make_mesh_2d
+
+    torch.manual_seed(0)
+    out = {}
+    for (dp, tp), cases in inputs.items():
+        if dp * tp != mesh.size():
+            continue
+        mesh2d = make_mesh_2d(dp, tp, device_type="cpu")
+        for label, c in cases.items():
+            out[(dp, tp, label)] = TP_CASES[c["case"]](mesh2d, c)
+    return out
