@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, LOSO training, phased
-curriculum, SimCLR, ME-MHACL and attention paths, bf16 LOSO and phased training and
-bf16 serving, the serving artifacts of ``torch.export`` and the int8
+curriculum, SimCLR, ME-MHACL and attention paths, bf16 LOSO and phased training,
+bf16 serving and bf16 attention, the serving artifacts of ``torch.export`` and the int8
 serving forward, the BiLSTM's other kernel schedules, the trainers'
 checkpoints and the evaluation of a saved model, the command-line
 drivers, and the DSP, EEG features and electrode graph, on one CUDA card,
@@ -19,7 +19,9 @@ It needs a CUDA card and exits non-zero without one. In order, it
    ``multimodal_sentiment_aanalysis_tpu_torch/csrc`` with nvcc, one process
    per source, all at once, and beside them prints ptxas's registers and
    spills of each instantiation of the three flash kernels (``nvcc -Xptxas
-   -v``), failing if a backward form at D <= 64 spills, and of the stem
+   -v``), failing if a backward form at D <= 64 spills, and of their bf16
+   forms (``csrc/flash_attn_bf16.cu``, every head dim 16-128 and tile),
+   failing if any spills, and of the stem
    tail's forward (its four forms) and the serving conv stem; then the
    ``dsp`` phase (``ops.dsp``, ``ops.features``, ``ops.graph``): prints
    scipy's version; on the synthetic MAHNOB-HCI raw EEG stack (480 x 32 x
@@ -174,7 +176,13 @@ It needs a CUDA card and exits non-zero without one. In order, it
 6. attention: ``MultiheadAttention(256, 8)`` self-attention at B=64,
    T=585, forward and backward on the card with the counters reset just
    before (one launch of each flash kernel), against the CPU plain path
-   (outputs 1e-3, gradients as in 3);
+   (outputs 1e-3, gradients as in 3); then ``attention_bf16``: the same
+   module and input cast to bf16, forward and backward with the counters
+   reset just before (one launch of each flash kernel's bf16 form, no fp32
+   flash kernel and no other kernel), bf16 outputs and gradients, all
+   finite, each within 2e-2 of its largest entry of the same bf16 module on
+   the CPU (the bf16 plain path) and within 0.1 of the fp32 module's on the
+   card (the JAX package's bf16 bar), the phase's seconds;
 7. checkpoints, on the trainers the earlier phases built: the LOSO
    trainer's ``save_state`` (early stop on, S=24, B=64), restored into a
    fresh ``make_loso_trainer`` (every tensor of the state and the
@@ -268,7 +276,11 @@ It needs a CUDA card and exits non-zero without one. In order, it
    paths give it (real activations of the first request, train batch,
    validation batch or attention input; for the S=24 cases the LOSO
    trainer's stacked weights and seeded activations; the flash kernels also
-   at a 200-query / 100-key and a 9-row shape), and each bf16 form at the
+   at a 200-query / 100-key and a 9-row shape, their bf16 forms at the
+   ``attention_bf16`` phase's bf16 q, k, v and the same two shapes in bf16,
+   also against fp64 at bf16 bars: O within 1e-2 of its largest entry,
+   LSE 1e-5, dQ, dK and dV 1e-2 of their scale,
+   ``tests/test_torch_port_flash_bf16.py``), and each bf16 form at the
    bf16 paths' shapes (the bf16 serving model's activations, the bf16 LOSO
    trainer's weights cast to bf16 with seeded bf16 activations, and subject
    0 alone), the six kernels of the other BiLSTM schedules and their bf16
@@ -295,11 +307,13 @@ It needs a CUDA card and exits non-zero without one. In order, it
    bytes over 3.35 TB/s and its operations over the peak rate for their
    type: 67 TFLOP/s fp32, 989 TFLOP/s bf16, 495 TFLOP/s per TF32 pass of
    the GEMM and of the flash kernels' products, three passes each, plus
-   their softmax at the fp32 rate; the conv stem's products as three TF32
+   their softmax at the fp32 rate, the flash kernels' bf16 forms' products
+   as one bf16 pass at the bf16 rate; the conv stem's products as three TF32
    passes plus its epilogue at the fp32 rate; the InfoNCE similarities as
    three TF32 passes, one bf16 pass in its bf16 form, plus ~6 fp32
    operations a score), prints each attention
-   case's backward pair (dQ + dK/dV) against SDPA's backward, and checks
+   case's backward pair (dQ + dK/dV), fp32 and bf16, against SDPA's
+   backward in the same dtype, and checks
    the stem tail's dropout (keep share 1 - p within 5 sigma, every output
    exactly 0 or GELU(y) / (1 - p)); the stem tail also at p = 0.4 with
    its seeds given (S=1 and S=24, fp32 and bf16) against the plain version
@@ -585,6 +599,21 @@ GEMM_REL = {"proj": 1e-5, "gates": 1e-5, "dx": 1e-5, "dw": 1e-5, "gates_xp": 1e-
 # 200 / 100, the fp32 plain version meets it
 # (tests/test_torch_port_flash_fwd_tc.py, tests/test_torch_port_flash_bwd_tc.py)
 FLASH_FP64_REL = 1e-5
+# the flash kernels' bf16 forms (one bf16 pass a product, P and dS rounded
+# to bf16, bf16 O, dQ, dK and dV) against fp64 on the same bf16 inputs
+# (flash_check), per output: O within 1e-2 of its largest entry (bf16 rounds
+# O to 2^-9 of itself and P to 2^-9 of each term), LSE within 1e-5 (fp32
+# from exact products), dQ, dK and dV within 1e-2 of their scale
+# (tests/test_torch_port_flash_bf16.py; 3.3e-3 and 3.8e-3 the largest
+# measured on the H100)
+FLASH_BF16_FP64_REL = {"O": 1e-2, "LSE": 1e-5, "dQ": 1e-2, "dK": 1e-2, "dV": 1e-2}
+# the attention_bf16 phase: the bf16 module on the card against the same
+# module on the CPU (the bf16 plain path), and against the fp32 module on
+# the card, each output and gradient within this share of its largest
+# fp32 / CPU entry: bf16 rounds the same values at the same points on the
+# two devices, summed in other orders; against fp32, the JAX package's
+# bf16 bar (SERVE_BF16_TOL)
+ATTN_BF16_CPU_REL, ATTN_BF16_FP32_REL = 2e-2, 0.1
 # row 13 (3xTF32 on the tensor cores in fp32) against fp64 (infonce_check):
 # |err| of each loss over that loss, on two independent sets of features (with
 # n1 as n2, the model's own call, a row's diagonal outweighs the rest at
@@ -685,6 +714,13 @@ KERNELS = {
     "flash_fwd": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:67", 1e-4),
     "flash_bwd_dq": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:159", 1e-3),
     "flash_bwd_dkv": (CSRC + "flash_attn.cu", JAX_KERNELS + "attention.py:184", 1e-3),
+    # their bf16 forms against their bf16 plain versions: a bf16 output within
+    # 1e-2 plus BF16_RTOL of itself (the kernel's P rounds at its key tile's
+    # running max, the plain version's at the row's max; bf16 outputs sum
+    # 585 rounded terms), LSE within 1e-2
+    "flash_fwd_bf16": (CSRC + "flash_attn_bf16.cu", JAX_KERNELS + "attention.py:67", 1e-2),
+    "flash_bwd_dq_bf16": (CSRC + "flash_attn_bf16.cu", JAX_KERNELS + "attention.py:159", 1e-2),
+    "flash_bwd_dkv_bf16": (CSRC + "flash_attn_bf16.cu", JAX_KERNELS + "attention.py:184", 1e-2),
     "fusion_head": (CSRC + "fusion_head.cu", JAX_KERNELS + "fusion_head.py:40", HEAD_ATOL),
     # its bf16 form: fp32 arithmetic on bf16 operands, bf16 logits
     "fusion_head_bf16": (CSRC + "fusion_head.cu", JAX_KERNELS + "fusion_head.py:40", HEAD_ATOL),
@@ -3893,6 +3929,17 @@ def head_ops_ms(name: str, args) -> float:
 # --------------------------------------------------------------------------
 
 
+def attention_step(m: MultiheadAttention, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """One self-attention forward of ``m`` over ``x`` and the backward of
+    the sum of its squares (in fp32): the output and the named gradients."""
+    x = x.detach().requires_grad_()
+    y = m(x, x, x)
+    (y.float() * y.float()).sum().backward()
+    grads = {"input": x.grad, **{n: p.grad for n, p in m.named_parameters()}}
+    m.zero_grad()
+    return y.detach(), grads
+
+
 def attention_phase(device: torch.device) -> tuple[dict, MultiheadAttention, torch.Tensor]:
     """``MultiheadAttention(256, 8)`` self-attention over the T=585 EEG
     window, forward and backward; returns the launch counts, the module and
@@ -3904,17 +3951,9 @@ def attention_phase(device: torch.device) -> tuple[dict, MultiheadAttention, tor
     x = torch.randn(ATTN_B, ATTN_T, ATTN_E, generator=gen)
     x_card = x.to(device)
 
-    def step(m, xi):
-        xi = xi.detach().requires_grad_()
-        y = m(xi, xi, xi)
-        (y * y).sum().backward()
-        grads = {"input": xi.grad, **{n: p.grad for n, p in m.named_parameters()}}
-        m.zero_grad()
-        return y.detach(), grads
-
-    step(card, x_card)  # warm-up: first launches, cuBLAS handles
+    attention_step(card, x_card)  # warm-up: first launches, cuBLAS handles
     reset_launch_counts()
-    (y, grads), seconds = synced(lambda: step(card, x_card))
+    (y, grads), seconds = synced(lambda: attention_step(card, x_card))
     counts = launch_counts()
     print(f"attention: MultiheadAttention({ATTN_E}, {ATTN_HEADS}) self-attention, B={ATTN_B}, "
           f"T={ATTN_T}, forward + backward {seconds * 1e3:.3f} ms (host clock around a "
@@ -3922,7 +3961,7 @@ def attention_phase(device: torch.device) -> tuple[dict, MultiheadAttention, tor
     expected = {name: 0 for name in KERNELS}
     expected.update(flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1)
     check(counts == expected, f"attention launch counts {counts} != {expected}")
-    y_cpu, g_cpu = step(cpu, x)
+    y_cpu, g_cpu = attention_step(cpu, x)
     out_err = (y.cpu() - y_cpu).abs().max().item()
     worst, worst_name, outliers, outlier_name = grad_agreement(grads, g_cpu)
     print(f"attention card vs CPU plain path: outputs max |diff| {out_err:.3e} (limit "
@@ -3934,14 +3973,65 @@ def attention_phase(device: torch.device) -> tuple[dict, MultiheadAttention, tor
     return counts, card, x_card
 
 
+def largest_gap(got: dict, want: dict) -> tuple[float, str]:
+    """The largest ``max |got - want|`` over ``max |want|`` of named
+    tensors, and its name."""
+    gaps = {n: ((got[n].double().cpu() - w.double().cpu()).abs().max()
+                / w.double().abs().max()).item() for n, w in want.items()}
+    name = max(gaps, key=gaps.get)
+    return gaps[name], name
+
+
+def attention_bf16_phase(mha: MultiheadAttention,
+                         x: torch.Tensor) -> tuple[dict, MultiheadAttention, torch.Tensor]:
+    """The attention phase's module and input cast to bf16, forward and
+    backward through the flash kernels' bf16 forms: one launch of each and
+    no other kernel; the output and every gradient against the same bf16
+    module on the CPU (the bf16 plain path) and against the fp32 module on
+    the card. Returns the launch counts, the bf16 module and its input."""
+    t0 = time.perf_counter()
+    y32, g32 = attention_step(mha, x)  # the fp32 run, outside the counted window
+    card = copy.deepcopy(mha).to(BF16)
+    x16 = x.to(BF16)
+    attention_step(card, x16)  # warm-up: first launches
+    reset_launch_counts()
+    (y, grads), seconds = synced(lambda: attention_step(card, x16))
+    counts = launch_counts()
+    print(f"attention_bf16: MultiheadAttention({ATTN_E}, {ATTN_HEADS}) in bf16, B={ATTN_B}, "
+          f"T={ATTN_T}, forward + backward {seconds * 1e3:.3f} ms (host clock around a "
+          f"synchronised run); launches {counts}")
+    expected = {name: 0 for name in KERNELS}
+    expected.update(flash_fwd_bf16=1, flash_bwd_dq_bf16=1, flash_bwd_dkv_bf16=1)
+    check(counts == expected, f"attention_bf16 launch counts {counts} != {expected}")
+    check(y.dtype == BF16 and all(g.dtype == BF16 for g in grads.values()),
+          "attention_bf16: an output or gradient is not bf16")
+    check(bool(torch.isfinite(y).all()) and all(bool(torch.isfinite(g).all())
+                                                for g in grads.values()),
+          "attention_bf16: a non-finite output or gradient")
+    y_cpu, g_cpu = attention_step(copy.deepcopy(card).cpu(), x16.cpu())
+    cpu_gap = largest_gap({"output": y, **grads}, {"output": y_cpu, **g_cpu})
+    fp32_gap = largest_gap({"output": y, **grads}, {"output": y32, **g32})
+    print(f"attention_bf16 card vs CPU bf16 plain path: largest max |diff| over max |CPU| "
+          f"{cpu_gap[0]:.3e} at {cpu_gap[1]} (limit {ATTN_BF16_CPU_REL}); against the fp32 "
+          f"module on the card {fp32_gap[0]:.3e} at {fp32_gap[1]} (limit {ATTN_BF16_FP32_REL}); "
+          f"phase {time.perf_counter() - t0:.1f} s")
+    check(cpu_gap[0] <= ATTN_BF16_CPU_REL, "attention_bf16 on the card disagrees with the CPU")
+    check(fp32_gap[0] <= ATTN_BF16_FP32_REL, "attention_bf16 disagrees with fp32")
+    return counts, card, x16
+
+
 def attention_kernel_cases(mha: MultiheadAttention, x: torch.Tensor, gen: torch.Generator,
                            cases: dict) -> None:
     """Adds the three flash kernels at the attention phase's own q, k, v
     (B H = 512, T = 585, Dh = 32), at 200 queries over 100 keys and at 9
     rows, seeded; each case also with its fp64 outputs (flash_check), the
-    backward's with their scales. Call under ``no_grad``."""
+    backward's with their scales. A bf16 module and input give the bf16
+    forms' cases (``q`` scaled in bf16, as ``flash_mha`` scales it). Call
+    under ``no_grad``."""
     dh = ATTN_E // ATTN_HEADS
     bh = ATTN_B * ATTN_HEADS
+    bf16 = x.dtype == BF16
+    sfx = "_bf16" if bf16 else ""
 
     def heads(t):
         return t.reshape(ATTN_B, ATTN_T, ATTN_HEADS, dh).transpose(1, 2).reshape(
@@ -3949,25 +4039,29 @@ def attention_kernel_cases(mha: MultiheadAttention, x: torch.Tensor, gen: torch.
 
     w, b = mha.in_proj_weight.chunk(3), mha.in_proj_bias.chunk(3)
     q, k, v = (heads(F.linear(x, wi, bi)) for wi, bi in zip(w, b))
-    randn = lambda *shape: torch.randn(shape, device=x.device, generator=gen)
-    shapes = [(f"MHA self-attention {tuple(q.shape)}", q / math.sqrt(dh), k, v)]
+    randn = lambda *shape: torch.randn(shape, device=x.device, generator=gen).to(x.dtype)
+    scale = attention.scale_q if bf16 else lambda t: t / math.sqrt(dh)
+    shapes = [(f"MHA self-attention {tuple(q.shape)}", scale(q), k, v)]
     for tq, tk in ((200, 100), (9, 9)):
-        shapes.append((f"({bh}, {tq} q / {tk} k, {dh})", randn(bh, tq, dh) / math.sqrt(dh),
+        shapes.append((f"({bh}, {tq} q / {tk} k, {dh})", scale(randn(bh, tq, dh)),
                        randn(bh, tk, dh), randn(bh, tk, dh)))
     for label, q, k, v in shapes:
         o, lse = attention.flash_fwd_plain(q, k, v)
         do = randn(*q.shape)
-        fwd_args, bwd_args = (q, k, v), (q, k, v, do, lse, (do * o).sum(-1))
-        cases["flash_fwd"].append((label, lambda a=fwd_args: attention.flash_fwd(*a),
-                                   lambda a=fwd_args: attention.flash_fwd_plain(*a), fwd_args,
-                                   lambda a=fwd_args: (attention.flash_fwd_plain(
-                                       *(t.double() for t in a)),)))
-        cases["flash_bwd_dq"].append((label, lambda a=bwd_args: attention.flash_bwd_dq(*a),
-                                      lambda a=bwd_args: attention.flash_bwd_dq_plain(*a),
-                                      bwd_args, lambda a=bwd_args: flash_bwd_fp64("dq", a)))
-        cases["flash_bwd_dkv"].append((label, lambda a=bwd_args: attention.flash_bwd_dkv(*a),
-                                       lambda a=bwd_args: attention.flash_bwd_dkv_plain(*a),
-                                       bwd_args, lambda a=bwd_args: flash_bwd_fp64("dkv", a)))
+        fwd_args = (q, k, v)
+        bwd_args = (q, k, v, do, lse, (do.float() * o.float()).sum(-1))
+        cases["flash_fwd" + sfx].append((
+            label, lambda a=fwd_args: attention.flash_fwd(*a),
+            lambda a=fwd_args: attention.flash_fwd_plain(*a), fwd_args,
+            lambda a=fwd_args: (attention.flash_fwd_plain(*(t.double() for t in a)),)))
+        cases["flash_bwd_dq" + sfx].append((
+            label, lambda a=bwd_args: attention.flash_bwd_dq(*a),
+            lambda a=bwd_args: attention.flash_bwd_dq_plain(*a), bwd_args,
+            lambda a=bwd_args: flash_bwd_fp64("dq", a)))
+        cases["flash_bwd_dkv" + sfx].append((
+            label, lambda a=bwd_args: attention.flash_bwd_dkv(*a),
+            lambda a=bwd_args: attention.flash_bwd_dkv_plain(*a), bwd_args,
+            lambda a=bwd_args: flash_bwd_fp64("dkv", a)))
 
 
 def flash_bwd_fp64(kernel: str, args) -> tuple:
@@ -4260,18 +4354,20 @@ FLASH_OUTPUTS = {"flash_fwd": ("O", "LSE"), "flash_bwd_dq": ("dQ",),
 
 
 def flash_check(name: str, label: str, got, ref, scales=None) -> None:
-    """Holds one flash case's outputs to FLASH_FP64_REL of their fp64
-    scale: the forward's O and LSE of their largest entry, the backward's of
-    ``scales`` (attention.flash_bwd_magnitudes)."""
-    for i, (what, g, r) in enumerate(zip(FLASH_OUTPUTS[name], got, ref)):
+    """Holds one flash case's outputs to FLASH_FP64_REL (a bf16 form's to
+    FLASH_BF16_FP64_REL) of their fp64 scale: the forward's O and LSE of
+    their largest entry, the backward's of ``scales``
+    (attention.flash_bwd_magnitudes)."""
+    bf16 = name.endswith("_bf16")
+    for i, (what, g, r) in enumerate(zip(FLASH_OUTPUTS[name.removesuffix("_bf16")], got, ref)):
         largest = r.abs().max().item()
         scale = largest if scales is None else scales[i].item()
         err = (g.double() - r).abs().max().item()
+        bar = FLASH_BF16_FP64_REL[what] if bf16 else FLASH_FP64_REL
         print(f"{name} {label}: {what} against fp64, max |ref| {largest:.4g}, scale "
               f"{scale:.4g}; kernel {err:.3e} ({err / scale:.2e} of the scale, "
-              f"{err / largest:.2e} of max |ref|); bar {FLASH_FP64_REL:.0e} of the scale")
-        check(err <= FLASH_FP64_REL * scale,
-              f"{name} {label}: {what} {err:.3e} from fp64 > {FLASH_FP64_REL * scale:.3e}")
+              f"{err / largest:.2e} of max |ref|); bar {bar:.0e} of the scale")
+        check(err <= bar * scale, f"{name} {label}: {what} {err:.3e} from fp64 > {bar * scale:.3e}")
 
 
 def conv_check(label: str, got, ref) -> None:
@@ -4299,21 +4395,24 @@ def conv_ops_ms(args) -> float:
 def flash_ops_ms(name: str, args) -> float:
     """The least time for a flash case's operations: its products (two in
     the forward, three for dQ, four for dK/dV) as three TF32 passes on the
-    tensor cores, fp32-accurate as the kernels run them, and the softmax's
-    elementwise work (4 operations a score) on the fp32 CUDA cores."""
+    tensor cores, fp32-accurate as the kernels run them (one bf16 pass at
+    the bf16 rate in the bf16 forms), and the softmax's elementwise work (4
+    operations a score) on the fp32 CUDA cores."""
     q, k = tensors(args)[:2]
     scores = q.shape[0] * q.shape[1] * k.shape[1]
-    per = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}[name]
-    return (3 * per * scores * q.shape[2] / PEAK_TF32_FLOPS + 4 * scores / PEAK_FP32_FLOPS) * 1e3
+    per = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}[name.removesuffix("_bf16")]
+    dots = (per * scores * q.shape[2] / PEAK_BF16_FLOPS if name.endswith("_bf16")
+            else 3 * per * scores * q.shape[2] / PEAK_TF32_FLOPS)
+    return (dots + 4 * scores / PEAK_FP32_FLOPS) * 1e3
 
 
 def flash_form(m) -> str:
     """A flash kernel's instantiation (head dim D, streamed tile)."""
-    tile = "kBk" if m.group(1) != "flash_bwd_dkv_kernel" else "kBq"
+    tile = "kBq" if "dkv" in m.group(1) else "kBk"
     return f"{m.group(1)}<D={m.group(2)}, {tile}={m.group(3)}>"
 
 
-FLASH_FORMS = (r"(flash_\w+_kernel)ILi(\d+)ELi(\d+)E", flash_form)
+FLASH_FORMS = (r"\d(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_bf16)?_kernel)ILi(\d+)ELi(\d+)E", flash_form)
 # rows 2 and 3: the stem tail's forward per element type and access
 # (16-byte vectors or scalars), and the conv stem's one kernel
 STEM_FORMS = (r"(stem_tail_fwd_kernel)I(f|13__nv_bfloat16)Lb([01])E|(conv_stem_kernel)",
@@ -4472,11 +4571,13 @@ def kernel_results(cases: dict, loso_cases: dict, counts: dict) -> list[dict]:
                                                                  "replaces")})
     # the backward pair against SDPA's backward, which computes dQ, dK and dV
     # in one call (timed beside each case of the two)
-    for label, (dq_ms, sdpa_dq) in case_ms["flash_bwd_dq"].items():
-        dkv_ms, sdpa_dkv = case_ms["flash_bwd_dkv"][label]
-        print(f"flash backward {label}: dQ {dq_ms:.4f} + dK/dV {dkv_ms:.4f} = "
-              f"{dq_ms + dkv_ms:.4f} ms; SDPA's backward {sdpa_dq:.4f} / {sdpa_dkv:.4f} ms "
-              f"(timed beside dQ / dK/dV); pair over SDPA {(dq_ms + dkv_ms) / sdpa_dq:.3f}")
+    for sfx in ("", "_bf16"):
+        for label, (dq_ms, sdpa_dq) in case_ms["flash_bwd_dq" + sfx].items():
+            dkv_ms, sdpa_dkv = case_ms["flash_bwd_dkv" + sfx][label]
+            print(f"flash backward{sfx.replace('_', ' ')} {label}: dQ {dq_ms:.4f} + dK/dV "
+                  f"{dkv_ms:.4f} = {dq_ms + dkv_ms:.4f} ms; SDPA's backward {sdpa_dq:.4f} / "
+                  f"{sdpa_dkv:.4f} ms (timed beside dQ / dK/dV); pair over SDPA "
+                  f"{(dq_ms + dkv_ms) / sdpa_dq:.3f}")
     unlaunched = [name for name, entry in results.items() if not entry["launches"]]
     check(not unlaunched, f"kernels no path launched: {unlaunched}")
     return list(results.values())
@@ -4558,9 +4659,11 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=4) as pool:  # beside the builds, four nvcc more
         reports = {name: pool.submit(ptxas_report, name)
-                   for name in ("flash_attn", "stem_tail", "conv_stem", "fusion_head")}
+                   for name in ("flash_attn", "flash_attn_bf16", "stem_tail", "conv_stem",
+                                "fusion_head")}
         libs = build_all()
         registers = ptxas_registers(reports["flash_attn"].result(), FLASH_FORMS)
+        bf16_registers = ptxas_registers(reports["flash_attn_bf16"].result(), FLASH_FORMS)
         stem_registers = ptxas_registers(reports["stem_tail"].result()
                                          + reports["conv_stem"].result(), STEM_FORMS)
         bwd_registers = ptxas_registers(reports["stem_tail"].result(), STEM_BWD_FORMS)
@@ -4580,6 +4683,16 @@ def main() -> int:
     spilling = [line for line in registers if "bwd" in line and "D=128" not in line
                 and not line.endswith(", 0 bytes spill stores, 0 bytes spill loads")]
     check(not spilling, f"backward flash forms at D <= 64 spill: {spilling}")
+    # the bf16 forms: each kernel at every head dim (16 to 128) and tile
+    bf16_forms = 3 * tiles * len(attention.BF16_HEAD_DIMS)
+    check(len(bf16_registers) == bf16_forms,
+          f"ptxas reported {len(bf16_registers)} of {bf16_forms} bf16 flash kernels")
+    for line in bf16_registers:
+        print(f"ptxas {line}")
+    # every bf16 form keeps its working set in registers, D = 128 included
+    spilling = [line for line in bf16_registers
+                if not line.endswith(", 0 bytes spill stores, 0 bytes spill loads")]
+    check(not spilling, f"bf16 flash forms spill: {spilling}")
     # rows 2 and 3: four forms of the stem tail's forward, one conv stem
     check(len(stem_registers) == 5, f"ptxas reported {len(stem_registers)} of 5 stem forms")
     # rows 12 and 17: twelve forms of the stem tail's backward, eight of the
@@ -4620,6 +4733,7 @@ def main() -> int:
         device)
     memhacl_bf16_counts = memhacl_bf16_phase(encoder, classifier, val)
     attention_counts, mha, x_attn = attention_phase(device)
+    attention_bf16_counts, mha16, x_attn16 = attention_bf16_phase(mha, x_attn)
     checkpoint_counts = checkpoints_phase(trainer, vt, vp, mt, full, smi)
     del vp, mt
     cli_counts = cli_phase(device, smi)
@@ -4643,7 +4757,8 @@ def main() -> int:
     phases = (serve_counts, serve_bf16_counts, serve_v5_counts, serve_bf16_v5_counts,
               export_counts, quantized_counts, train_counts, loso["counts"],
               schedule_counts, bf16_schedule_counts, loso_bf16_counts, b512_counts, phased_counts, simclr_counts,
-              memhacl_counts, memhacl_bf16_counts, attention_counts, checkpoint_counts,
+              memhacl_counts, memhacl_bf16_counts, attention_counts, attention_bf16_counts,
+              checkpoint_counts,
               cli_counts, dsp_counts, parallel_counts)
     counts = {name: sum(c[name] for c in phases) for name in KERNELS}
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -4655,6 +4770,7 @@ def main() -> int:
     schedule_kernel_cases(vt, gen, cases, loso_cases)
     memhacl_kernel_cases(encoder, classifier, val, cases)
     attention_kernel_cases(mha, x_attn, gen, cases)
+    attention_kernel_cases(mha16, x_attn16, gen, cases)
     dsp_kernel_cases(raw_eeg, cases)
     dropout_check(trainer.model, batch, gen)
     mask_check(vt, gen)

@@ -39,6 +39,9 @@ for both: three ``bilstm_gemm``, one ``bilstm_cscan``, one ``bilstm_sweep``.
   ``kernels/attention.py::_bwd_dq_kernel``
 - ``flash_bwd_dkv``: ``attention.flash_bwd_dkv``, ``csrc/flash_attn.cu``,
   ``kernels/attention.py::_bwd_dkv_kernel``
+- ``flash_fwd_bf16``, ``flash_bwd_dq_bf16``, ``flash_bwd_dkv_bf16``: the
+  three flash kernels' bf16 forms, which the same wrappers launch for bf16
+  tensors, ``csrc/flash_attn_bf16.cu``
 - ``fusion_head``: ``fusion_head.fusion_head``, ``csrc/fusion_head.cu``,
   ``kernels/fusion_head.py::_kernel``; its bf16 form ``fusion_head_bf16``
 - the BiLSTM's other schedules (``lstm.fused_bilstm_layer(schedule=)``):
@@ -114,9 +117,12 @@ KERNELS = {
     "bilstm_rec_bf16": lstm.REC_KERNELS[_BF16],
     "bilstm_sweep_bf16": lstm.SWEEP_KERNELS[_BF16],
     "conv_stem": conv_stem.KERNEL,
-    "flash_fwd": attention.FWD_KERNEL,
-    "flash_bwd_dq": attention.DQ_KERNEL,
-    "flash_bwd_dkv": attention.DKV_KERNEL,
+    "flash_fwd": attention.FWD_KERNELS[torch.float32],
+    "flash_bwd_dq": attention.DQ_KERNELS[torch.float32],
+    "flash_bwd_dkv": attention.DKV_KERNELS[torch.float32],
+    "flash_fwd_bf16": attention.FWD_KERNELS[_BF16],
+    "flash_bwd_dq_bf16": attention.DQ_KERNELS[_BF16],
+    "flash_bwd_dkv_bf16": attention.DKV_KERNELS[_BF16],
     "fusion_head": fusion_head.KERNEL,
     "fusion_head_bf16": fusion_head.KERNELS[_BF16],
     "bilstm_fwd_xp": lstm.FWD_XP_KERNEL,

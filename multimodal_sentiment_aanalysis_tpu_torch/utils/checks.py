@@ -12,7 +12,10 @@ Coverage: a hand-written CUDA kernel launches through ``ctypes`` and writes
 into a tensor that ``torch.empty`` allocated, which is no op to the mode; a
 NaN that a kernel writes is caught at the first aten op that reads it, and
 named by that op. On CPU tensors the kernels' plain versions are aten ops
-and are checked one by one.
+and are checked one by one. The allocations (``empty``, ``new_empty`` and
+their kin) are not checked: their contents are whatever the memory held,
+a NaN bit pattern now and then, and no value of the program; the op that
+writes into one is.
 """
 
 from __future__ import annotations
@@ -28,9 +31,17 @@ class NonFiniteError(FloatingPointError):
     """An op produced a NaN or an Inf under :func:`checkified`."""
 
 
+_aten = torch.ops.aten
+# ops whose output is uninitialised memory
+_ALLOCATIONS = {_aten.empty, _aten.empty_like, _aten.empty_strided, _aten.new_empty,
+                _aten.new_empty_strided}
+
+
 class _NonFiniteCheck(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
+        if func.overloadpacket in _ALLOCATIONS:
+            return out
         for t in tree_leaves(out):
             if (isinstance(t, torch.Tensor) and t.is_floating_point() and t.numel()
                     and not bool(torch.isfinite(t).all())):

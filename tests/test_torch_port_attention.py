@@ -9,8 +9,10 @@ the two backward kernels and the gradients of ``flash_mha(force=True)`` at
 of O(1) terms). The port's ``MultiheadAttention`` is held against the flax
 module below and above the length-8 dispatch (1e-5), with no launch on the
 CPU. ``flash_mha`` zero-pads a head dim between the kernels' sizes (held
-against JAX at Dh 48 and 100), runs bf16 in fp32, and refuses a
-second-order gradient.
+against JAX at Dh 48 and 100), runs fp16 in fp32, takes bf16 to the bf16
+forms (their plain versions on the CPU; the bf16 path is held against JAX
+in ``tests/test_torch_port_flash_bf16.py``), and refuses a second-order
+gradient.
 
 The ``gpu``-marked tests hold each CUDA kernel against its plain version
 on the card at ragged shapes (forward 1e-4, backward 1e-3), and against
@@ -138,12 +140,25 @@ def test_flash_mha_pads_other_head_dims_to_jax(dh):
 
 
 def test_flash_mha_half_dtypes_run_in_float32():
-    """bf16 operands are computed in fp32 and come back as bf16."""
-    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(11, 2, 2, 20, 12, 16))
+    """fp16 operands still run in fp32 and come back as fp16; bf16 operands
+    now take the bf16 forms (on the CPU their bf16 plain versions, ``q``
+    scaled in bf16) and come back as bf16, gradients included."""
+    x = _qkv(11, 2, 2, 20, 12, 16)
+    q, k, v = (torch.from_numpy(a).to(torch.float16) for a in x)
+    got = attention.flash_mha(q, k, v)
+    assert got.dtype == torch.float16
+    want = attention.flash_mha(q.float(), k.float(), v.float())
+    assert torch.equal(got, want.to(torch.float16))
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_() for a in x)
     got = attention.flash_mha(q, k, v)
     assert got.dtype == torch.bfloat16
-    want = attention.mha_reference(q.float(), k.float(), v.float())
-    torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(), rtol=0, atol=1e-2)
+    flat = lambda t: t.detach().reshape(4, -1, 16)
+    want, _ = attention.flash_fwd_plain(attention.scale_q(flat(q)), flat(k), flat(v))
+    assert torch.equal(got.reshape(4, 20, 16), want)
+    got.float().sum().backward()
+    assert all(t.grad.dtype == torch.bfloat16 for t in (q, k, v))
+    torch.testing.assert_close(got.float(), attention.mha_reference(*map(torch.from_numpy, x)),
+                               rtol=0, atol=1e-2)
 
 
 def test_flash_mha_refuses_double_backward():

@@ -298,6 +298,24 @@ def test_checkified_names_the_op_that_makes_a_nan():
     assert float(f(torch.full((3,), 3.0))) == 0.0
 
 
+def test_checkified_skips_uninitialised_allocations():
+    """An allocation's contents are whatever the memory held: after a
+    NaN-filled buffer is freed, ``torch.empty`` of its size often returns
+    NaN bits. The audit does not read them, and still names the op that
+    writes a NaN into such a tensor."""
+    def fill_and_sum():
+        y = torch.empty(32)
+        z = y.new_empty_strided((32,), (1,))
+        return y.copy_(torch.ones(32)).sum() + z.fill_(2.0).sum()
+
+    for _ in range(20):
+        buffer = torch.full((32,), float("nan"))
+        del buffer
+        assert float(checkified(fill_and_sum)()) == 96.0
+    with pytest.raises(NonFiniteError, match=r"aten\.fill.* produced a NaN"):
+        checkified(lambda: torch.empty(32).fill_(float("nan")))()
+
+
 def test_checkified_epoch_is_bit_equal_and_catches_a_bad_weight(data):
     """A clean train epoch under the audit (forward, backward, AdamW)
     computes what the unaudited one does; an Inf weight raises at the first

@@ -1,0 +1,476 @@
+"""The bf16 forms of the flash-attention kernels (rows 14-16 in bf16,
+``csrc/flash_attn_bf16.cu``) and the bf16 path of ``flash_mha`` and
+``MultiheadAttention`` above the length-8 dispatch.
+
+On the CPU each wrapper takes its bf16 plain version, which rounds where
+the kernels round (products of bf16 operands summed in fp32, P and dS
+rounded to bf16 for their products, O, dQ, dK and dV returned as bf16, LSE
+fp32). Held against the JAX package on the same numpy inputs, rounded to
+bf16 on both sides:
+
+- the forward against JAX ``_flash_fwd`` in interpret mode at bf16: O
+  within 1e-2 of max |O| (bf16 rounds O to 2^-9 of itself; JAX interpret
+  mode keeps P in fp32 for P V), LSE within 1e-4 relative (both fp32 from
+  exact products);
+- the two backward kernels against JAX ``_flash_bwd`` at bf16: dQ, dK and
+  dV within 2e-2 of each one's scale (``attention.flash_bwd_magnitudes``:
+  JAX's delta is bf16, the port's fp32, and JAX keeps dS in fp32);
+- ``flash_mha(force=True)`` and its gradients against JAX ``flash_mha(...,
+  force=True)`` at bf16, at ragged lengths and at Dh 8 (padded to 16), 32
+  and 48: the output within 1e-2 of max |O|, each gradient within 2e-2 of
+  its largest entry;
+- the port's bf16 ``MultiheadAttention`` (flax parameters imported, then
+  both cast to bf16) against the flax module applied with bf16 parameters,
+  above length 8. On the CPU the flax module takes ``mha_reference``, which
+  rounds the scores and the softmax to bf16: within 3e-2 of max |y|;
+- the bf16 scaling of ``q`` bit for bit against JAX's ``q * scale`` at Dh =
+  32, whose scale 1/sqrt(32) is not exact in bf16.
+
+Against the emulation of the kernels' arithmetic (``torch_flash_emulation``:
+bf16 operands, exact products summed in fp64 and rounded to fp32, P and dS
+rounded to bf16): the forward's O within one bf16 ulp (2^-7 of |O|) plus
+2e-3 of max |O| (the plain version takes P = exp(S - m) at each row's
+final max, the kernel at the running max of its key tile, so P rounds at
+other values; 1.5e-3 measured), LSE within 1e-6 relative; dQ, dK and dV
+within one ulp plus 1e-3 of their scale (the same rounding points, but
+``exp`` and the kernels' ``exp2`` differ in the last fp32 bit, which now and
+then rounds a P or dS to the other bf16 neighbour; 1.8e-4 measured). The emulation against fp64
+meets ``chip_smoke.py``'s bf16 bars (O 1e-2 of max |O|, LSE 1e-5 of max
+|LSE|, dQ, dK and dV 1e-2 of their scale) at the shapes where they were
+set, and the fragment tests put the kernels' ``ldmatrix`` and m16n8k16
+indexing through the hardware's layouts.
+
+The ``gpu``-marked tests hold each bf16 kernel against its plain version
+on the card (O one ulp plus 2e-3, LSE 1e-4, dQ, dK and dV one ulp plus
+2e-3 of their scale) and against fp64 at the bars above, at ragged shapes,
+every head dim and every tile pair, and the bf16 ``MultiheadAttention`` on
+the card against the CPU plain path. They skip without a card:
+``python -m pytest --noconftest -m gpu tests/test_torch_port_flash_bf16.py``.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from multimodal_sentiment_aanalysis_tpu_torch import kernels
+from multimodal_sentiment_aanalysis_tpu_torch.kernels import attention
+from multimodal_sentiment_aanalysis_tpu_torch.models.fusion_model import init_parameters
+from multimodal_sentiment_aanalysis_tpu_torch.models.layers import MultiheadAttention
+from torch_flash_emulation import (
+    ACCURACY_SHAPES,
+    BF16,
+    BF16_CASES,
+    BF16_HEAD_DIMS,
+    c_pairs,
+    emulate_bwd_bf16,
+    emulate_fwd_bf16,
+    lane_row,
+    ldmatrix_x4,
+    mma_m16n8k16,
+)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
+ULP = 2.0 ** -7  # one bf16 ulp, relative: the largest gap between two bf16 values over the smaller
+# against fp64 (chip_smoke.py's FLASH_BF16_FP64_REL): O of max |O|, LSE of
+# max |LSE|, dQ, dK and dV of their scale (attention.flash_bwd_magnitudes)
+FP64_REL = {"O": 1e-2, "LSE": 1e-5, "dQ": 1e-2, "dK": 1e-2, "dV": 1e-2}
+JAX_FWD_REL, JAX_LSE_RTOL, JAX_BWD_REL, JAX_MHA_GRAD_REL, FLAX_MHA_REL = 1e-2, 1e-4, 2e-2, 2e-2, 3e-2
+# the kernels against their plain versions on the card: a bf16 output within
+# one ulp plus this share of its scale (max |O|; flash_bwd_magnitudes), LSE
+# within CARD_LSE_ATOL
+CARD_REL, CARD_LSE_ATOL = 2e-3, 1e-4
+
+
+def _rand(rng, *shape) -> torch.Tensor:
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(BF16)
+
+
+def _qkv(seed, bh, tq, tk, d):
+    """Seeded bf16 ``q`` (scaled in bf16, as ``flash_mha`` scales it), ``k``, ``v``."""
+    rng = np.random.default_rng(seed)
+    return attention.scale_q(_rand(rng, bh, tq, d)), _rand(rng, bh, tk, d), _rand(rng, bh, tk, d)
+
+
+def _bwd_args(q, k, v, seed=5):
+    """The backward's inputs: a seeded bf16 dO, the plain forward's O's LSE,
+    and delta = rowsum(dO * O) in fp32 (as ``_FlashAttention`` takes it)."""
+    do = _rand(np.random.default_rng(seed), *q.shape)
+    o, lse = attention.flash_fwd_plain(q, k, v)
+    return q, k, v, do, lse, (do.float() * o.float()).sum(-1)
+
+
+def _jnp(t: torch.Tensor):
+    import jax.numpy as jnp
+
+    return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+def _np(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a).astype(np.float32)).double()
+
+
+def _rel(got, ref, scale=None) -> float:
+    """max |got - ref| over ``scale`` (max |ref| where None)."""
+    ref = ref.double()
+    scale = ref.abs().max() if scale is None else scale
+    return ((got.double() - ref).abs().max() / scale).item()
+
+
+def _within_ulp(got, ref, atol) -> bool:
+    """|got - ref| <= one bf16 ulp of |ref| plus ``atol``, everywhere."""
+    ref = ref.double()
+    return bool(((got.double() - ref).abs() <= ULP * ref.abs() + atol).all())
+
+
+# --------------------------------------------------------------------------
+# CPU: the bf16 plain versions against the Pallas kernels (interpret mode)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tq,tk", [(128, 128), (73, 73), (200, 100)])
+def test_bf16_fwd_plain_matches_pallas(tq, tk):
+    from multimodal_sentiment_aanalysis_tpu.kernels import attention as ja
+
+    q, k, v = _qkv(0, 8, tq, tk, 32)
+    o_ref, lse_ref = ja._flash_fwd(_jnp(q), _jnp(k), _jnp(v), 64, 64)
+    o, lse = attention.flash_fwd(q, k, v)
+    assert o.dtype == BF16 and lse.dtype == torch.float32 and str(o_ref.dtype) == "bfloat16"
+    assert _rel(o, _np(o_ref)) <= JAX_FWD_REL
+    lse_ref = _np(lse_ref)[:, :tq, 0]
+    assert ((lse.double() - lse_ref).abs() / lse_ref.abs()).max() <= JAX_LSE_RTOL
+
+
+def test_bf16_bwd_plain_matches_pallas():
+    from multimodal_sentiment_aanalysis_tpu.kernels import attention as ja
+
+    q, k, v = _qkv(1, 2, 96, 80, 16)
+    args = _bwd_args(q, k, v, seed=2)
+    o_ref, lse_ref = ja._flash_fwd(_jnp(q), _jnp(k), _jnp(v), 32, 32)
+    want = ja._flash_bwd(_jnp(q), _jnp(k), _jnp(v), o_ref, lse_ref, _jnp(args[3]), 32, 32)
+    got = [attention.flash_bwd_dq(*args), *attention.flash_bwd_dkv(*args)]
+    scales = attention.flash_bwd_magnitudes(*(a.double() for a in args))
+    for g, w, scale in zip(got, want, scales):
+        assert g.dtype == BF16 and str(w.dtype) == "bfloat16"
+        assert _rel(g, _np(w), scale) <= JAX_BWD_REL
+
+
+@pytest.mark.parametrize("tq,tk,dh", [(40, 24, 8), (73, 73, 32), (33, 65, 48), (9, 130, 32)])
+def test_bf16_flash_mha_and_gradients_match_jax(tq, tk, dh):
+    import jax
+    import jax.numpy as jnp
+
+    from multimodal_sentiment_aanalysis_tpu.kernels.attention import flash_mha as jax_flash
+
+    rng = np.random.default_rng(tq + tk + dh)
+    q, k, v = _rand(rng, 1, 2, tq, dh), _rand(rng, 1, 2, tk, dh), _rand(rng, 1, 2, tk, dh)
+
+    def loss(*a):
+        out = jax_flash(*a, block_q=32, block_k=32, force=True)
+        return (out.astype(jnp.float32) ** 2).sum(), out
+
+    (_, want), want_g = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        *map(_jnp, (q, k, v)))
+    tq_, tk_, tv_ = (t.clone().requires_grad_() for t in (q, k, v))
+    out = attention.flash_mha(tq_, tk_, tv_, force=True)
+    assert out.dtype == BF16 and out.shape == (1, 2, tq, dh)
+    (out.float() ** 2).sum().backward()
+    assert _rel(out, _np(want)) <= JAX_FWD_REL
+    for got, ref in zip((tq_.grad, tk_.grad, tv_.grad), want_g):
+        assert got.dtype == BF16 and got.shape == ref.shape
+        assert _rel(got, _np(ref)) <= JAX_MHA_GRAD_REL
+
+
+@pytest.mark.parametrize("tq,tk", [(20, 20), (20, 12)])
+def test_bf16_multihead_attention_matches_flax(tq, tk):
+    import jax
+    import jax.numpy as jnp
+
+    from multimodal_sentiment_aanalysis_tpu.models.layers import (
+        MultiheadAttention as FlaxMHA,
+    )
+
+    e, heads, b = 32, 4, 3
+    rng = np.random.default_rng(6)
+    xq = _rand(rng, b, tq, e)
+    xk = _rand(rng, b, tk, e)
+    flax_mha = FlaxMHA(e, heads)
+    params = flax_mha.init(jax.random.key(0), _jnp(xq), _jnp(xk), _jnp(xk))["params"]
+    params = {n: np.asarray(p, np.float32) + rng.normal(size=p.shape).astype(np.float32) * 0.1
+              for n, p in params.items()}  # nonzero biases
+    flax_bf16 = {n: jnp.asarray(p).astype(jnp.bfloat16) for n, p in params.items()}
+    want = flax_mha.apply({"params": flax_bf16}, _jnp(xq), _jnp(xk), _jnp(xk))
+    assert str(want.dtype) == "bfloat16"
+
+    port = MultiheadAttention(e, heads)
+    port.load_state_dict({"in_proj_weight": torch.from_numpy(params["in_proj_weight"]),
+                          "in_proj_bias": torch.from_numpy(params["in_proj_bias"]),
+                          "out_proj.weight": torch.from_numpy(params["out_proj_weight"]),
+                          "out_proj.bias": torch.from_numpy(params["out_proj_bias"])})
+    port.to(BF16)
+    kernels.reset_launch_counts()
+    xq_in = xq.clone().requires_grad_()
+    got = port(xq_in, xk, xk)
+    got.float().sum().backward()
+    assert got.dtype == BF16 and _rel(got.detach(), _np(want)) <= FLAX_MHA_REL
+    assert xq_in.grad.dtype == BF16 and port.in_proj_weight.grad.dtype == BF16
+    assert all(n == 0 for n in kernels.launch_counts().values())
+
+
+def test_bf16_scale_matches_jax_bitwise():
+    """``scale_q`` at Dh = 32 equals JAX's ``q * scale`` on a bf16 array
+    bit for bit (JAX rounds the scale to bf16 first); scaling after an
+    upcast to fp32, as the fp32 path does, differs from it."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(7)
+    q = _rand(rng, 4, 8, 200, 32)
+    want = np.asarray(_jnp(q) * (1.0 / math.sqrt(32))).view(np.uint16)
+    got = attention.scale_q(q)
+    assert got.dtype == BF16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16), want)
+    upcast = (q.float() * (1.0 / math.sqrt(32))).to(BF16)
+    assert (upcast.view(torch.int16).numpy().view(np.uint16) != want).any()
+    assert str((_jnp(q) * 0.5).dtype) == "bfloat16" and jnp.bfloat16 is not None
+
+
+def test_flash_mha_bf16_scales_q_in_bf16():
+    """``flash_mha`` hands the bf16 Function ``scale_q(q)``: its output is
+    the plain forward of the scaled, flattened operands."""
+    q, k, v = (_rand(np.random.default_rng(8), 1, 2, 30, 32) for _ in range(3))
+    got = attention.flash_mha(q, k, v, force=True)
+    want, _ = attention.flash_fwd_plain(attention.scale_q(q)[0], k[0], v[0])
+    assert torch.equal(got[0], want)
+
+
+# --------------------------------------------------------------------------
+# CPU: the plain versions against the emulation of the kernels' arithmetic
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tq,tk,d", BF16_CASES)
+def test_bf16_plain_matches_emulation(tq, tk, d):
+    q, k, v = _qkv(tq * 1000 + tk, 2, tq, tk, d)
+    o, lse = attention.flash_fwd_plain(q, k, v)
+    o_emu, lse_emu = emulate_fwd_bf16(q, k, v)
+    assert o.dtype == o_emu.dtype == BF16 and o.shape == (2, tq, d)
+    assert _within_ulp(o, o_emu, 2e-3 * o_emu.double().abs().max())
+    assert ((lse.double() - lse_emu.double()).abs() / lse_emu.double().abs().clamp_min(1)).max() <= 1e-6
+    args = _bwd_args(q, k, v)
+    got = [attention.flash_bwd_dq_plain(*args), *attention.flash_bwd_dkv_plain(*args)]
+    scales = attention.flash_bwd_magnitudes(*(a.double() for a in args))
+    for g, e, scale in zip(got, emulate_bwd_bf16(*args), scales):
+        assert g.dtype == e.dtype == BF16
+        assert _within_ulp(g, e, 1e-3 * scale)
+
+
+@pytest.mark.parametrize("shape", sorted(ACCURACY_SHAPES))
+def test_bf16_emulation_meets_the_fp64_bars(shape):
+    """At the attention phase's projections and at 200 queries over 100
+    keys, in bf16, the emulated kernels meet chip_smoke.py's bf16 bars
+    against the fp64 plain versions on the same inputs."""
+    q, k, v = (t.to(BF16) for t in ACCURACY_SHAPES[shape]())
+    o, lse = emulate_fwd_bf16(q, k, v)
+    o64, lse64 = attention.flash_fwd_plain(q.double(), k.double(), v.double())
+    assert _rel(o, o64) <= FP64_REL["O"] and _rel(lse, lse64) <= FP64_REL["LSE"]
+    args = _bwd_args(q, k, v)
+    args64 = [a.double() for a in args]
+    want = [attention.flash_bwd_dq_plain(*args64), *attention.flash_bwd_dkv_plain(*args64)]
+    for name, g, w, scale in zip(("dQ", "dK", "dV"), emulate_bwd_bf16(*args), want,
+                                 attention.flash_bwd_magnitudes(*args64)):
+        assert _rel(g, w, scale) <= FP64_REL[name]
+
+
+def _warp_products(own, x, y, d: int, shared_own: bool):
+    """One warp's two products as ``csrc/flash_attn_bf16.cu`` indexes them:
+    ``own`` (16, d) the warp's own rows, as register pairs (``OwnFrags``) or
+    read with ``ldmatrix`` from a tile (``shared_own``); ``x`` and ``y``
+    (32, d) the streamed rows of the first and second product, at kLd = d +
+    8 a row. The first product, ``own xᵀ`` (16 x 32), takes its B fragments
+    with ``mma_rows``'s plain ``ldmatrix`` at ``lane_row<true>``; the second,
+    ``C y`` (16 x d), feeds the first's accumulator as A (``acc_as_a``) and
+    takes B with ``mma_cols``'s ``.trans`` at ``lane_row<false>``."""
+    kld = d + 8
+    tile = lambda rows: np.concatenate([np.pad(r, (0, 8)) for r in rows])
+    xs, ys, own_s = tile(x), tile(y), tile(own)
+    lanes = [divmod(lane, 4) for lane in range(32)]
+    first = np.zeros((16, 32))
+    for kd in range(d // 16):
+        if shared_own:
+            a = ldmatrix_x4(own_s, [lane_row(l, kld, False) + kd * 16 for l in range(32)], False)
+        else:
+            a = [[(own[r, c], own[r, c + 1]) for r, c in
+                  ((g, kd * 16 + 2 * t), (g + 8, kd * 16 + 2 * t), (g, kd * 16 + 2 * t + 8),
+                   (g + 8, kd * 16 + 2 * t + 8))] for g, t in lanes]
+        for j in range(0, 4, 2):
+            b = ldmatrix_x4(xs, [lane_row(l, kld, True) + j * 8 * kld + kd * 16
+                                 for l in range(32)], False)
+            first[:, j * 8:j * 8 + 8] += mma_m16n8k16(a, [r[:2] for r in b])
+            first[:, j * 8 + 8:j * 8 + 16] += mma_m16n8k16(a, [r[2:] for r in b])
+    second = np.zeros((16, d))
+    for jj in range(2):
+        lo, hi = c_pairs(first[:, 16 * jj:16 * jj + 8]), c_pairs(first[:, 16 * jj + 8:16 * jj + 16])
+        a = [lo[lane] + hi[lane] for lane in range(32)]
+        for nd in range(0, d // 8, 2):
+            b = ldmatrix_x4(ys, [lane_row(l, kld, False) + jj * 16 * kld + nd * 8
+                                 for l in range(32)], True)
+            second[:, nd * 8:nd * 8 + 8] += mma_m16n8k16(a, [r[:2] for r in b])
+            second[:, nd * 8 + 8:nd * 8 + 16] += mma_m16n8k16(a, [r[2:] for r in b])
+    return first, second
+
+
+@pytest.mark.parametrize("shared_own", [False, True])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_bf16_fragment_indexing_gives_the_products(kernel, shared_own):
+    """The forward: own Q, streamed K then V: S = Q Kᵀ, then P V. dQ: own Q
+    (and dO), streamed K for both products: S = Q Kᵀ, then dS K. dK/dV: own
+    K (and V), streamed Q then dO: Sᵀ = K Qᵀ, then Pᵀ dO. At D = 32 (two
+    16-deep steps, two pairs of n8 tiles) over 32 streamed rows; the own
+    operand as register pairs and, as dK/dV keeps it above D = 64, read from
+    shared memory."""
+    rng = np.random.default_rng({"fwd": 3, "dq": 4, "dkv": 5}[kernel])
+    d = 32
+    own, x, y = rng.normal(size=(16, d)), rng.normal(size=(32, d)), rng.normal(size=(32, d))
+    if kernel == "dq":
+        y = x  # dQ's second product reads the same K rows
+    first, second = _warp_products(own, x, y, d, shared_own)
+    np.testing.assert_allclose(first, own @ x.T, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(second, first @ y, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("d", BF16_HEAD_DIMS)
+def test_bf16_shared_memory_fits_every_tile(d):
+    """bf16 tiles are half fp32's bytes: every pair of tiles fits the 227 KB
+    a block may use at every head dim, the forward's 128-key tile at D = 128
+    (which the fp32 form refuses) included; a head dim of 8 is not built."""
+    for bq in attention.TILES:
+        for bk in attention.TILES:
+            for kernel in ("fwd", "dq", "dkv"):
+                assert attention.plan_smem(kernel, d, bq, bk, BF16) <= 227 * 1024
+    with pytest.raises(ValueError, match="head dim"):
+        attention.plan_smem("fwd", 8, 64, 64, BF16)
+    with pytest.raises(ValueError, match="shared memory"):
+        attention.plan_smem("fwd", 128, 64, 128)
+
+
+# --------------------------------------------------------------------------
+# card: the bf16 kernels against their plain versions and fp64
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+# (BH, tq, tk, D, block_q, block_k): partial tiles in both lengths, every
+# head dim, tq != tk both ways, other tiles, the 128-key forward tile at D =
+# 128; and ragged lengths (1, 63, 65) in every pair, the head dims in turn
+CARD_SHAPES = {
+    "t9": (16, 9, 9, 32, 64, 64),
+    "cross": (8, 200, 100, 32, 64, 64),
+    "long_k": (4, 73, 130, 16, 32, 128),
+    "d64": (3, 33, 65, 64, 64, 32),
+    "d128_k128": (4, 70, 150, 128, 64, 128),
+    "d128": (4, 70, 45, 128, 128, 64),
+    **{f"ragged_{tq}_{tk}": (3, tq, tk, BF16_HEAD_DIMS[(a + b) % 4], 64, 64)
+       for a, tq in enumerate((1, 63, 65)) for b, tk in enumerate((1, 63, 65))},
+}
+NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _on(device, *ts):
+    return [t.to(device) for t in ts]
+
+
+def _check_against_fp64(args, got_fwd, got_bwd):
+    q, k, v, do, lse, delta = (a.double() for a in args)
+    o64, lse64 = attention.flash_fwd_plain(q, k, v)
+    assert _rel(got_fwd[0], o64) <= FP64_REL["O"]
+    assert _rel(got_fwd[1], lse64) <= FP64_REL["LSE"]
+    want = [attention.flash_bwd_dq_plain(q, k, v, do, lse, delta),
+            *attention.flash_bwd_dkv_plain(q, k, v, do, lse, delta)]
+    scales = attention.flash_bwd_magnitudes(q, k, v, do, lse, delta)
+    for name, g, w, scale in zip(("dQ", "dK", "dV"), got_bwd, want, scales):
+        assert _rel(g, w, scale) <= FP64_REL[name], name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(CARD_SHAPES))
+def test_bf16_flash_kernels_match_plain(cuda, shape):
+    bh, tq, tk, d, bq, bk = CARD_SHAPES[shape]
+    args = _on(cuda, *_bwd_args(*_qkv(7, bh, tq, tk, d)))
+    q, k, v, do, lse, delta = args
+    before = kernels.launch_counts()
+    o, lse_k = attention.flash_fwd(q, k, v, bq, bk)
+    dq = attention.flash_bwd_dq(*args, bq, bk)
+    dk, dv = attention.flash_bwd_dkv(*args, bq, bk)
+    after = kernels.launch_counts()
+    moved = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    assert moved == {f"{n}_bf16": 1 for n in NAMES}
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == BF16 and lse_k.dtype == torch.float32
+    o_ref, lse_ref = attention.flash_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert _within_ulp(o, o_ref, CARD_REL * o_ref.float().abs().max())
+    assert (lse_k - lse_ref).abs().max() <= CARD_LSE_ATOL
+    scales = attention.flash_bwd_magnitudes(*(a.double() for a in args))
+    want = [attention.flash_bwd_dq_plain(*args), *attention.flash_bwd_dkv_plain(*args)]
+    for g, w, scale in zip((dq, dk, dv), want, scales):
+        assert _within_ulp(g, w, CARD_REL * scale)
+    _check_against_fp64(args, (o, lse_k), (dq, dk, dv))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", BF16_HEAD_DIMS)
+@pytest.mark.parametrize("bq,bk", [(bq, bk) for bq in attention.TILES for bk in attention.TILES])
+def test_bf16_flash_kernels_match_fp64_every_tile(cuda, d, bq, bk):
+    """The three bf16 kernels at ragged lengths (1, 63, 65 queries and keys)
+    against the fp64 plain versions on the same inputs, at every head dim
+    and tile pair."""
+    for tq in (1, 63, 65):
+        for tk in (1, 63, 65):
+            args = _on(cuda, *_bwd_args(*_qkv(tq * 100 + tk, 3, tq, tk, d)))
+            fwd = attention.flash_fwd(*args[:3], bq, bk)
+            bwd = [attention.flash_bwd_dq(*args, bq, bk), *attention.flash_bwd_dkv(*args, bq, bk)]
+            _check_against_fp64(args, fwd, bwd)
+
+
+@pytest.mark.gpu
+def test_bf16_multihead_attention_on_card_matches_cpu(cuda):
+    """T = 20 bf16 self-attention through the three bf16 kernels, none of
+    the fp32 ones: output and gradients against the CPU bf16 plain path."""
+    cpu = MultiheadAttention(64, 8)
+    init_parameters(cpu, torch.Generator().manual_seed(8))
+    cpu.to(BF16)
+    card = MultiheadAttention(64, 8, device=cuda).to(BF16)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(6, 20, 64, generator=torch.Generator().manual_seed(9)).to(BF16)
+    outs = []
+    before = kernels.launch_counts()
+    for m, dev in ((card, cuda), (cpu, torch.device("cpu"))):
+        xi = x.to(dev).requires_grad_()
+        y = m(xi, xi, xi)
+        (y.float() ** 2).sum().backward()
+        outs.append((y.detach().cpu(), xi.grad.cpu(), m.in_proj_weight.grad.cpu()))
+    after = kernels.launch_counts()
+    moved = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    assert moved == {f"{n}_bf16": 1 for n in NAMES}
+    for got, want in zip(*outs):
+        assert got.dtype == BF16 and _rel(got, want) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_bf16_flash_wrappers_raise_on_bad_input(cuda):
+    q, k, v = _on(cuda, *_qkv(10, 2, 12, 12, 32))
+    with pytest.raises(TypeError):  # operands of two dtypes
+        attention.flash_fwd(q, k.float(), v)
+    q8 = torch.zeros(2, 12, 8, device=cuda, dtype=BF16)
+    with pytest.raises(ValueError, match="head dim"):  # flash_mha pads 8 to 16
+        attention.flash_fwd(q8, q8, q8)
+    with pytest.raises(ValueError, match="block_q"):
+        attention.flash_fwd(q, k, v, 48, 64)

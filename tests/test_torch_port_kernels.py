@@ -215,6 +215,8 @@ def test_cpu_tensors_launch_nothing():
                                                0.1).sum().backward()
     q = torch.randn(1, 2, 12, 8, requires_grad=True)
     attention.flash_mha(q, q, q).sum().backward()
+    q16 = q.detach().to(torch.bfloat16).requires_grad_()  # and the bf16 forms
+    attention.flash_mha(q16, q16, q16).float().sum().backward()
     x = torch.randn(5, 16)
     mha, clf = MultiheadAttention(16, 4), MEMHACLClassifier(16, 8)
     init_parameters(mha)
@@ -226,12 +228,14 @@ def test_cpu_tensors_launch_nothing():
         series.append(torch.randn(3, 12, dtype=dtype, requires_grad=True))
         iir.sos_filtfilt(series[-1], sos, torch.ones(1, 2, dtype=dtype), 3).sum().backward()
     assert fwd[0].grad is not None and conv.grad is not None and feats.grad is not None
-    assert q.grad is not None and all(x.grad is not None for x in series)
+    assert q.grad is not None and q16.grad is not None
+    assert all(x.grad is not None for x in series)
     training = ("bilstm_fwd", "bilstm_cbnd", "bilstm_segbwd", "bilstm_gemm", "bilstm_rec",
                 "bilstm_sweep", "stem_tail", "stem_tail_bwd", "infonce")
     assert kernels.launch_counts() == {
         **{name: 0 for name in training}, **{f"{name}_bf16": 0 for name in training},
         "conv_stem": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "flash_fwd_bf16": 0, "flash_bwd_dq_bf16": 0, "flash_bwd_dkv_bf16": 0,
         "fusion_head": 0, "fusion_head_bf16": 0, "bilstm_cscan": 0,
         **{f"{name}{sfx}": 0 for name in ("bilstm_fwd_xp", "bilstm_bwd_xp", "bilstm_cseq",
                                            "bilstm_bwd_split", "bilstm_bwdc", "bilstm_cbndk")
