@@ -20,8 +20,9 @@ It needs a CUDA card and exits non-zero without one. In order, it
    per source, all at once, and beside them prints ptxas's registers and
    spills of each instantiation of the three flash kernels (``nvcc -Xptxas
    -v``), failing if a backward form at D <= 64 spills, and of their bf16
-   forms (``csrc/flash_attn_bf16.cu``, every head dim 16-128 and tile),
-   failing if any spills, and of the stem
+   forms (``csrc/flash_attn_bf16.cu`` and, the backward on wgmma and TMA,
+   ``csrc/flash_bwd_bf16.cu``; every head dim 16-128 and tile), failing if
+   any spills, and of the stem
    tail's forward (its four forms) and the serving conv stem; then the
    ``dsp`` phase (``ops.dsp``, ``ops.features``, ``ops.graph``): prints
    scipy's version; on the synthetic MAHNOB-HCI raw EEG stack (480 x 32 x
@@ -280,7 +281,9 @@ It needs a CUDA card and exits non-zero without one. In order, it
    ``attention_bf16`` phase's bf16 q, k, v and the same two shapes in bf16,
    also against fp64 at bf16 bars: O within 1e-2 of its largest entry,
    LSE 1e-5, dQ, dK and dV 1e-2 of their scale,
-   ``tests/test_torch_port_flash_bf16.py``), and each bf16 form at the
+   ``tests/test_torch_port_flash_bf16.py``; delta as ``attention.
+   flash_delta`` forms it, and each bf16 backward case run twice and held
+   bit-equal, and split into host and device time), and each bf16 form at the
    bf16 paths' shapes (the bf16 serving model's activations, the bf16 LOSO
    trainer's weights cast to bf16 with seeded bf16 activations, and subject
    0 alone), the six kernels of the other BiLSTM schedules and their bf16
@@ -719,8 +722,8 @@ KERNELS = {
     # running max, the plain version's at the row's max; bf16 outputs sum
     # 585 rounded terms), LSE within 1e-2
     "flash_fwd_bf16": (CSRC + "flash_attn_bf16.cu", JAX_KERNELS + "attention.py:67", 1e-2),
-    "flash_bwd_dq_bf16": (CSRC + "flash_attn_bf16.cu", JAX_KERNELS + "attention.py:159", 1e-2),
-    "flash_bwd_dkv_bf16": (CSRC + "flash_attn_bf16.cu", JAX_KERNELS + "attention.py:184", 1e-2),
+    "flash_bwd_dq_bf16": (CSRC + "flash_bwd_bf16.cu", JAX_KERNELS + "attention.py:159", 1e-2),
+    "flash_bwd_dkv_bf16": (CSRC + "flash_bwd_bf16.cu", JAX_KERNELS + "attention.py:184", 1e-2),
     "fusion_head": (CSRC + "fusion_head.cu", JAX_KERNELS + "fusion_head.py:40", HEAD_ATOL),
     # its bf16 form: fp32 arithmetic on bf16 operands, bf16 logits
     "fusion_head_bf16": (CSRC + "fusion_head.cu", JAX_KERNELS + "fusion_head.py:40", HEAD_ATOL),
@@ -4049,7 +4052,7 @@ def attention_kernel_cases(mha: MultiheadAttention, x: torch.Tensor, gen: torch.
         o, lse = attention.flash_fwd_plain(q, k, v)
         do = randn(*q.shape)
         fwd_args = (q, k, v)
-        bwd_args = (q, k, v, do, lse, (do.float() * o.float()).sum(-1))
+        bwd_args = (q, k, v, do, lse, attention.flash_delta(do, o))
         cases["flash_fwd" + sfx].append((
             label, lambda a=fwd_args: attention.flash_fwd(*a),
             lambda a=fwd_args: attention.flash_fwd_plain(*a), fwd_args,
@@ -4062,6 +4065,19 @@ def attention_kernel_cases(mha: MultiheadAttention, x: torch.Tensor, gen: torch.
             label, lambda a=bwd_args: attention.flash_bwd_dkv(*a),
             lambda a=bwd_args: attention.flash_bwd_dkv_plain(*a), bwd_args,
             lambda a=bwd_args: flash_bwd_fp64("dkv", a)))
+
+
+def flash_bwd_bit_equal(cases: dict) -> None:
+    """Runs each bf16 backward case twice and holds the two results bit
+    for bit: one CTA owns each output and sums it in one order, no atomics.
+    Launched after the counted phases, so the counts do not move."""
+    for name in ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"):
+        for label, kern, *_ in cases[name]:
+            first, second = outputs(name, kern()), outputs(name, kern())
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(first, second))
+            print(f"{name} {label}: two runs bit-equal: {same}")
+            check(same, f"{name} {label}: two runs differ")
 
 
 def flash_bwd_fp64(kernel: str, args) -> tuple:
@@ -4610,7 +4626,8 @@ def profile_window(label: str, fn, top: int = 25, show: tuple[str, ...] = (),
 
 
 def host_device_split(name: str, items: list, kernel: str, calls: int = 100) -> None:
-    """Cases of row 2, 12, 13 or 17 split into host and device time: per call, the
+    """Cases of row 2, 12, 13 or 17, or of rows 15-16 in bf16, split into host
+    and device time: per call, the
     CUDA-event time (as the kernel lines time it), the wrapper's host time
     (``perf_counter`` over ``calls`` calls with no sync inside), and under
     torch.profiler the device time of the kernel (device kernels whose name
@@ -4657,13 +4674,14 @@ def main() -> int:
     print(smi)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:  # beside the builds, four nvcc more
+    with ThreadPoolExecutor(max_workers=6) as pool:  # beside the builds, six nvcc more
         reports = {name: pool.submit(ptxas_report, name)
-                   for name in ("flash_attn", "flash_attn_bf16", "stem_tail", "conv_stem",
-                                "fusion_head")}
+                   for name in ("flash_attn", "flash_attn_bf16", "flash_bwd_bf16", "stem_tail",
+                                "conv_stem", "fusion_head")}
         libs = build_all()
         registers = ptxas_registers(reports["flash_attn"].result(), FLASH_FORMS)
-        bf16_registers = ptxas_registers(reports["flash_attn_bf16"].result(), FLASH_FORMS)
+        bf16_registers = ptxas_registers(reports["flash_attn_bf16"].result()
+                                         + reports["flash_bwd_bf16"].result(), FLASH_FORMS)
         stem_registers = ptxas_registers(reports["stem_tail"].result()
                                          + reports["conv_stem"].result(), STEM_FORMS)
         bwd_registers = ptxas_registers(reports["stem_tail"].result(), STEM_BWD_FORMS)
@@ -4771,6 +4789,7 @@ def main() -> int:
     memhacl_kernel_cases(encoder, classifier, val, cases)
     attention_kernel_cases(mha, x_attn, gen, cases)
     attention_kernel_cases(mha16, x_attn16, gen, cases)
+    flash_bwd_bit_equal(cases)
     dsp_kernel_cases(raw_eeg, cases)
     dropout_check(trainer.model, batch, gen)
     mask_check(vt, gen)
@@ -4789,6 +4808,9 @@ def main() -> int:
         host_device_split(name, cases[name] + loso_cases.get(name, []), "stem_tail_bwd")
     for name in ("fusion_head", "fusion_head_bf16"):
         host_device_split(name, cases[name], "fusion_head_kernel")
+    # rows 15 and 16 in bf16: the host's share, four tensor maps a call
+    for name in ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"):
+        host_device_split(name, cases[name], name + "_kernel")
     print(json.dumps({"kernels": kernel_results(cases, loso_cases, counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,63 +1,48 @@
 // Flash attention over (BH, T, D) in bf16: the forward with its per-row
-// log-sum-exp, and the two-kernel backward. The bf16 forms of
-// flash_attn.cu's three kernels.
+// log-sum-exp. The bf16 form of flash_attn.cu's forward; the bf16 backward
+// is flash_bwd_bf16.cu.
 //
 // Replaces multimodal_sentiment_aanalysis_tpu/kernels/attention.py, as the
-// TPU kernels run on bf16 q, k, v and dO (Precision.DEFAULT: one bf16 pass a
-// product, fp32 accumulation, bf16 outputs):
-// - msa_flash_fwd_bf16      -> _fwd_kernel: O = softmax(Q K^T) V by online
-//                              softmax over key tiles, LSE = m + log(l);
-// - msa_flash_bwd_dq_bf16   -> _bwd_dq_kernel: dQ = sum_j dS_ij K_j with
-//                              P = exp(S - LSE) and dS = P (dO V^T - delta);
-// - msa_flash_bwd_dkv_bf16  -> _bwd_dkv_kernel: dV = P^T dO, dK = dS^T Q.
+// TPU kernel runs on bf16 q, k and v (Precision.DEFAULT: one bf16 pass a
+// product, fp32 accumulation, bf16 output):
+// - msa_flash_fwd_bf16 -> _fwd_kernel: O = softmax(Q K^T) V by online
+//                         softmax over key tiles, LSE = m + log(l).
 // Q is pre-scaled by 1/sqrt(D) in bf16 by the wrapper, as the JAX entry
-// scales it; delta = rowsum(dO * O) is taken by the wrapper in fp32 from the
-// bf16 dO and O. The masking is flash_attn.cu's: zero-filled rows past the
-// end, keys past tk at -inf in the forward and dQ, the P of queries past tq
-// set to 0 in dK/dV, no row past the end stored.
+// scales it. The masking is flash_attn.cu's: zero-filled rows past the end,
+// keys past tk at -inf, no row past the end stored.
 //
 // Arithmetic, the TPU's under DEFAULT precision: every product is one
 // mma.sync.m16n8k16 bf16 pass with fp32 accumulation. The forward keeps the
 // online-softmax state (m, l, the O accumulator) in fp32, sums l over the
 // fp32 P, and rounds P to bf16 only as the A operand of P V (the TPU's
 // DEFAULT dot of an fp32 p with a bf16 v rounds p so); O = acc / l in fp32,
-// stored as bf16, LSE fp32. dQ forms dS = P (dP - delta) in fp32 and rounds
-// it to bf16 for dS K; dK/dV rounds P and dS to bf16 for P^T dO and dS^T Q.
-// dQ, dK and dV are stored as bf16.
+// stored as bf16, LSE fp32.
 //
-// What bounds them on the H100: at the attention phase's (BH = 512, T = 585,
-// D = 32) the forward's two products are 22.4 GFLOP, dQ's three 33.6 and
-// dK/dV's four 44.9: 0.023, 0.034 and 0.045 ms at 989 TFLOP/s, plus ~4 fp32
-// operations a score for the softmax, 0.010 ms at 67 TFLOP/s; their bf16
-// operands and outputs are 77-96 MB, 0.023-0.029 ms at 3.35 TB/s. So the
-// products still bound them, at a third of the fp32 forms' three TF32 passes.
+// What bounds it on the H100: at the attention phase's (BH = 512, T = 585,
+// D = 32) its two products are 22.4 GFLOP, 0.023 ms at 989 TFLOP/s, plus ~4
+// fp32 operations a score for the softmax, 0.010 ms at 67 TFLOP/s; its bf16
+// operands and output 77 MB, 0.023 ms at 3.35 TB/s. So the products bound
+// it, at a third of the fp32 form's three TF32 passes.
 //
 // Design: flash_attn.cu's, with one bf16 pass where that file takes three
-// TF32 passes. Each kernel owns a tile of rows (forward and dQ: block_q
-// queries; dK/dV: block_k keys), one warp per 16 of them (the m16 of
-// m16n8k16), and streams the other side's tiles through a 2-3 deep cp.async
-// ring of bf16 rows padded to D + 8 elements: a row is then 16 bytes past a
-// multiple of 128, so the 8 rows one ldmatrix matrix reads hit distinct
-// bank groups. The CTA's own operands are A fragments (packed bf16 pairs)
-// loaded once into registers, but dK/dV's K and V above D = 64, which wait
-// in shared memory (its two fp32 accumulator sets take the registers) and
-// are read with ldmatrix. The streamed operands' B fragments come from
-// ldmatrix: as they lie for S = Q K^T, dP = dO V^T (K, V, Q and dO rows hold
-// a B column's k pairs), transposed (.trans) for P V, dS K, P^T dO and dS^T Q
-// (a B column there runs down the rows). An m16n8k16 accumulator's two n8
-// tiles are exactly the A fragment of the next product's k16 step (a[0], a[1]
-// of tile 2jj, a[2], a[3] of tile 2jj + 1), so S, P and dS go from the
-// accumulator to the next mma.sync as packed bf16 pairs, with no shuffle and
-// no trip through shared memory. The accumulators of O, dQ, dK and dV are
-// fp32 registers summed on the tensor cores over all of T (an fp32 sum of
-// exact bf16 products: no split words to keep apart). The backward takes a
-// streamed tile in sub-tiles of kSub = 32 rows, so that S and dP of one
-// sub-tile are live at a time. wgmma and TMA are later work.
+// TF32 passes. A CTA owns block_q queries, one warp per 16 of them (the m16
+// of m16n8k16), and streams key tiles through a 2-3 deep cp.async ring of
+// bf16 rows padded to D + 8 elements: a row is then 16 bytes past a multiple
+// of 128, so the 8 rows one ldmatrix matrix reads hit distinct bank groups.
+// Q is held as A fragments (packed bf16 pairs) loaded once into registers.
+// The B fragments come from ldmatrix: as K lies for S = Q K^T (a K row holds
+// a B column's k pairs), transposed (.trans) for P V (a B column runs down
+// the V rows). An m16n8k16 accumulator's two n8 tiles are exactly the A
+// fragment of the next product's k16 step (a[0], a[1] of tile 2jj, a[2],
+// a[3] of tile 2jj + 1), so P goes from the accumulator to the next mma.sync
+// as packed bf16 pairs, with no shuffle and no trip through shared memory.
+// The O accumulator is fp32 registers summed on the tensor cores over all of
+// T (an fp32 sum of exact bf16 products). wgmma and TMA for it are later
+// work (csrc/sm90.cuh has the pieces).
 //
 // Shared memory: bf16 tiles are half fp32's bytes, so every pair of head dim
-// and tiles fits the 227 KB a block may use, the forward's 128-key tile at D
-// = 128 included (two stages of 68 KB), and the backward's ring needs no
-// 32-row stage at D = 128.
+// and tiles fits the 227 KB a block may use, the 128-key tile at D = 128
+// included (two stages of 68 KB).
 
 #include <math.h>
 
@@ -65,14 +50,13 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "tf32_mma.cuh"  // cp_async1 and the commit / wait of the cp.async groups
+#include "tf32_mma.cuh"  // the commit / wait of the cp.async groups
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kMaxThreads = 256;  // own rows <= 128, 16 a warp
-constexpr int kSub = 32;          // streamed rows whose S and dP are live at once (backward)
 constexpr float kLog2e = 1.4426950408889634f;
 
 // c += a b: one mma.sync.m16n8k16 bf16 pass, fp32 accumulation. Fragments
@@ -138,52 +122,28 @@ __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool vali
                  : "memory");
 }
 
-// A CTA's own operand (Q or dO; K or V) as A fragments of this warp's 16 rows
-// at every 16-deep step of D: loaded once into registers, or (kShared) kept
-// in the CTA's tile in shared memory and read with ldmatrix (visible after
-// the first barrier of the loop)
-template <int D, bool kShared>
+// The CTA's Q as A fragments of this warp's 16 rows at every 16-deep step
+// of D, loaded once into registers
+template <int D>
 struct OwnFrags {
-    static constexpr int kLd = D + 8, kKSteps = D / 16;
-    uint32_t a[kShared ? 1 : kKSteps][4];
-    const bf16* row;  // this lane's ldmatrix row in the tile, kShared only
+    static constexpr int kKSteps = D / 16;
+    uint32_t a[kKSteps][4];
 
     // src: the operand's rows of this head, n of them; the CTA owns rows row0
-    // on (`rows` of them, this thread r0 and r0 + 8), rows past n are 0
-    __device__ __forceinline__ void load(const bf16* src, int n, int row0, int rows, int r0,
-                                         int t, bf16* tile) {
-        if constexpr (kShared) {
-            constexpr int kVecs = D / 8;
-            for (int e = threadIdx.x; e < rows * kVecs; e += blockDim.x) {
-                const int r = e / kVecs, c = (e % kVecs) * 8;
-                uint4 val = make_uint4(0u, 0u, 0u, 0u);
-                if (row0 + r < n)
-                    val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
-                *reinterpret_cast<uint4*>(tile + r * kLd + c) = val;
-            }
-            row = tile + (threadIdx.x / 32) * 16 * kLd + lane_row<false>(threadIdx.x % 32, kLd);
-        } else {
-            auto pair = [&](int r, int c) {
-                return row0 + r < n
-                           ? *reinterpret_cast<const uint32_t*>(src + static_cast<size_t>(row0 + r) * D + c)
-                           : 0u;
-            };
+    // on (this thread r0 and r0 + 8), rows past n are 0
+    __device__ __forceinline__ void load(const bf16* src, int n, int row0, int r0, int t) {
+        auto pair = [&](int r, int c) {
+            return row0 + r < n
+                       ? *reinterpret_cast<const uint32_t*>(src + static_cast<size_t>(row0 + r) * D + c)
+                       : 0u;
+        };
 #pragma unroll
-            for (int kd = 0; kd < kKSteps; ++kd) {
-                const int c = kd * 16 + 2 * t;
-                a[kd][0] = pair(r0, c);
-                a[kd][1] = pair(r0 + 8, c);
-                a[kd][2] = pair(r0, c + 8);
-                a[kd][3] = pair(r0 + 8, c + 8);
-            }
-        }
-    }
-    __device__ __forceinline__ void frag(int kd, uint32_t (&out)[4]) const {
-        if constexpr (kShared) {
-            ldsm_x4(out, row + kd * 16);
-        } else {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) out[e] = a[kd][e];
+        for (int kd = 0; kd < kKSteps; ++kd) {
+            const int c = kd * 16 + 2 * t;
+            a[kd][0] = pair(r0, c);
+            a[kd][1] = pair(r0 + 8, c);
+            a[kd][2] = pair(r0, c + 8);
+            a[kd][3] = pair(r0 + 8, c + 8);
         }
     }
 };
@@ -295,8 +255,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q,  // (BH, tq, D), pre-scaled
     const bf16* vb = v + static_cast<size_t>(bh) * tk * D;
     const int at_k = lane_row<true>(lane, kLd), at_v = lane_row<false>(lane, kLd);
 
-    OwnFrags<D, false> qf;
-    qf.load(q + static_cast<size_t>(bh) * tq * D, tq, q0, rows, r0, t, nullptr);
+    OwnFrags<D> qf;
+    qf.load(q + static_cast<size_t>(bh) * tq * D, tq, q0, r0, t);
 
     float acc[kDSteps][4] = {};           // O of rows r0, r0 + 8, as C fragments
     float m[2] = {-INFINITY, -INFINITY};  // running max of the two rows
@@ -321,11 +281,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q,  // (BH, tq, D), pre-scaled
         // (row r0) and s[j][2..3] (row r0 + 8)
         float s[kKeySteps][4] = {};
 #pragma unroll
-        for (int kd = 0; kd < kKSteps; ++kd) {
-            uint32_t a[4];
-            qf.frag(kd, a);
-            mma_rows<kKeySteps, kLd>(s, a, ks + at_k + kd * 16);
-        }
+        for (int kd = 0; kd < kKSteps; ++kd)
+            mma_rows<kKeySteps, kLd>(s, qf.a[kd], ks + at_k + kd * 16);
         const int j0 = kt * kBk;
         if (j0 + kBk > tk) {
 #pragma unroll
@@ -387,245 +344,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q,  // (BH, tq, D), pre-scaled
     store_rows(o + static_cast<size_t>(bh) * tq * D, acc, tq, q0, r0, t, inv);
 }
 
-// ---- backward ----
-
-// A backward CTA's shared memory: a ring of kStages stages of the streamed
-// tiles, kBt rows of D + 8 bf16 each (dQ: K and V; dK/dV: Q and dO, then the
-// tile's fp32 LSE and delta), and, for dK/dV above D = 64, the CTA's own K
-// and V tiles
-template <int D, int kBt, bool kDkv>
-struct BwdTile {
-    static constexpr int kLd = D + 8;
-    static constexpr int kStageBytes =
-        2 * kBt * kLd * static_cast<int>(sizeof(bf16)) + (kDkv ? 2 * kBt * 4 : 0);
-    static constexpr int kStages = 3 * kStageBytes <= 120 * 1024 ? 3 : 2;
-    static constexpr bool kOwnShared = kDkv && D > 64;
-    static constexpr size_t smem(int rows) {
-        return static_cast<size_t>(kStages) * kStageBytes +
-               (kOwnShared ? 2 * static_cast<size_t>(rows) * kLd * sizeof(bf16) : 0);
-    }
-};
-
-template <int D, int kBk>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,       // (BH, tq, D), pre-scaled
-                         const bf16* __restrict__ k,       // (BH, tk, D)
-                         const bf16* __restrict__ v,       // (BH, tk, D)
-                         const bf16* __restrict__ dout,    // (BH, tq, D)
-                         const float* __restrict__ lse,    // (BH, tq)
-                         const float* __restrict__ delta,  // (BH, tq)
-                         bf16* __restrict__ dq,            // (BH, tq, D)
-                         int tq, int tk) {
-    using Tile = BwdTile<D, kBk, false>;
-    constexpr int kLd = Tile::kLd, kStages = Tile::kStages;
-    constexpr int kStage = Tile::kStageBytes / static_cast<int>(sizeof(bf16));
-    constexpr int kDSteps = D / 8, kKSteps = D / 16, kSteps = kSub / 8;
-    extern __shared__ float4 dq_bf16_smem[];  // 16-byte aligned
-    bf16* ring = reinterpret_cast<bf16*>(dq_bf16_smem);  // kStages x (K, V) tiles (kBk, kLd)
-    const int rows = blockDim.x / 2;                     // 16 a warp of 32 threads
-    const int bh = blockIdx.x;
-    const int q0 = blockIdx.y * rows;
-    const int lane = threadIdx.x % 32;
-    const int g = lane / 4, t = lane % 4;
-    const int r0 = (threadIdx.x / 32) * 16 + g;  // this thread's tile rows: r0, r0 + 8
-    const size_t head = static_cast<size_t>(bh) * tq;  // this head's first query row
-    const bf16* kb = k + static_cast<size_t>(bh) * tk * D;
-    const bf16* vb = v + static_cast<size_t>(bh) * tk * D;
-    const int at_n = lane_row<true>(lane, kLd), at_k = lane_row<false>(lane, kLd);
-
-    OwnFrags<D, false> qf, dof;
-    qf.load(q + head * D, tq, q0, rows, r0, t, nullptr);
-    dof.load(dout + head * D, tq, q0, rows, r0, t, nullptr);
-    float ml[2], dl[2];  // LSE log2 e and delta of rows r0, r0 + 8
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int i = q0 + r0 + 8 * h;
-        ml[h] = i < tq ? lse[head + i] * kLog2e : 0.0f;
-        dl[h] = i < tq ? delta[head + i] : 0.0f;
-    }
-
-    float acc[kDSteps][4] = {};  // dQ of rows r0, r0 + 8, as C fragments
-    const int nk = (tk + kBk - 1) / kBk;
-#pragma unroll
-    for (int st = 0; st < kStages - 1; ++st) {
-        if (st < nk) load_pair<D>(ring + st * kStage, kBk, kb, vb, st * kBk, tk);
-        cp_async_commit();  // an empty group past the end keeps the count
-    }
-    for (int kt = 0; kt < nk; ++kt) {
-        cp_async_wait<kStages - 2>();  // key tile kt has landed (this thread's copies)
-        __syncthreads();               // (everyone's), and tile kt - 1 is consumed
-        const int next = kt + kStages - 1;
-        if (next < nk) load_pair<D>(ring + (next % kStages) * kStage, kBk, kb, vb, next * kBk, tk);
-        cp_async_commit();
-        const bf16* ks = ring + (kt % kStages) * kStage;
-        const bf16* vs = ks + kBk * kLd;
-#pragma unroll(D <= 32 ? kBk / kSub : 1)
-        for (int sc = 0; sc < kBk / kSub; ++sc) {
-            const int j0 = kt * kBk + sc * kSub;  // the sub-tile's first key
-            if (j0 >= tk) break;                  // the rest of the tile is padding
-            const bf16* kc = ks + sc * kSub * kLd;
-            const bf16* vc = vs + sc * kSub * kLd;
-
-            // S = Q K^T and dP = dO V^T: key tile j holds keys j0 + 8j + 2t,
-            // + 1 in [j][0..1] (row r0) and [j][2..3] (row r0 + 8)
-            float s[kSteps][4] = {}, dp[kSteps][4] = {};
-#pragma unroll
-            for (int kd = 0; kd < kKSteps; ++kd) {
-                uint32_t a[4];
-                qf.frag(kd, a);
-                mma_rows<kSteps, kLd>(s, a, kc + at_n + kd * 16);
-                dof.frag(kd, a);
-                mma_rows<kSteps, kLd>(dp, a, vc + at_n + kd * 16);
-            }
-            if (j0 + kSub > tk) {
-#pragma unroll
-                for (int j = 0; j < kSteps; ++j)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e)
-                        if (j0 + j * 8 + 2 * t + (e & 1) >= tk) s[j][e] = -INFINITY;
-            }
-            // dS = P (dP - delta) in fp32, P = exp(S - LSE) = 2^(S log2 e - LSE log2 e)
-#pragma unroll
-            for (int j = 0; j < kSteps; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    s[j][e] = exp2f(fmaf(s[j][e], kLog2e, -ml[e >> 1])) * (dp[j][e] - dl[e >> 1]);
-
-            // dQ += dS K, dS rounded to bf16
-#pragma unroll
-            for (int jj = 0; jj < kSub / 16; ++jj) {
-                uint32_t a[4];
-                acc_as_a(s, jj, a);
-                mma_cols<kDSteps>(acc, a, kc + at_k + jj * 16 * kLd);
-            }
-        }
-    }
-    cp_async_wait<0>();  // no copy outlives the block
-    const float one[2] = {1.0f, 1.0f};
-    store_rows(dq + head * D, acc, tq, q0, r0, t, one);
-}
-
-template <int D, int kBq>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,       // (BH, tq, D), pre-scaled
-                          const bf16* __restrict__ k,       // (BH, tk, D)
-                          const bf16* __restrict__ v,       // (BH, tk, D)
-                          const bf16* __restrict__ dout,    // (BH, tq, D)
-                          const float* __restrict__ lse,    // (BH, tq)
-                          const float* __restrict__ delta,  // (BH, tq)
-                          bf16* __restrict__ dk,            // (BH, tk, D)
-                          bf16* __restrict__ dv,            // (BH, tk, D)
-                          int tq, int tk) {
-    using Tile = BwdTile<D, kBq, true>;
-    constexpr int kLd = Tile::kLd, kStages = Tile::kStages;
-    constexpr int kStage = Tile::kStageBytes / static_cast<int>(sizeof(bf16));
-    constexpr int kDSteps = D / 8, kKSteps = D / 16, kSteps = kSub / 8;
-    extern __shared__ float4 dkv_bf16_smem[];  // 16-byte aligned
-    // kStages x (Q, dO tiles (kBq, kLd) in bf16, LSE, delta (kBq) in fp32)
-    bf16* ring = reinterpret_cast<bf16*>(dkv_bf16_smem);
-    bf16* own = ring + kStages * kStage;  // K, V tiles (rows, kLd), kOwnShared only
-    const int rows = blockDim.x / 2;      // 16 a warp of 32 threads
-    const int bh = blockIdx.x;
-    const int k0 = blockIdx.y * rows;
-    const int lane = threadIdx.x % 32;
-    const int g = lane / 4, t = lane % 4;
-    const int r0 = (threadIdx.x / 32) * 16 + g;  // this thread's tile rows: r0, r0 + 8
-    const size_t head = static_cast<size_t>(bh) * tq;   // this head's first query row
-    const size_t khead = static_cast<size_t>(bh) * tk;  // and key row
-    const bf16* qb = q + head * D;
-    const bf16* dob = dout + head * D;
-    const int at_n = lane_row<true>(lane, kLd), at_k = lane_row<false>(lane, kLd);
-
-    OwnFrags<D, Tile::kOwnShared> kf, vf;
-    kf.load(k + khead * D, tk, k0, rows, r0, t, own);
-    vf.load(v + khead * D, tk, k0, rows, r0, t, own + rows * kLd);
-    // the copies of query tile it into a stage: Q rows, dO rows, LSE, delta
-    auto load_tile = [&](int it, bf16* stage) {
-        const int i0 = it * kBq;
-        load_pair<D>(stage, kBq, qb, dob, i0, tq);
-        float* ls = reinterpret_cast<float*>(stage + 2 * kBq * kLd);
-        for (int e = threadIdx.x; e < kBq; e += blockDim.x) {
-            const bool real = i0 + e < tq;
-            const size_t at = head + (real ? i0 + e : 0);
-            cp_async1(ls + e, lse + at, real);
-            cp_async1(ls + kBq + e, delta + at, real);
-        }
-    };
-
-    float dka[kDSteps][4] = {}, dva[kDSteps][4] = {};  // dK, dV of rows r0, r0 + 8
-    const int nq = (tq + kBq - 1) / kBq;
-#pragma unroll
-    for (int st = 0; st < kStages - 1; ++st) {
-        if (st < nq) load_tile(st, ring + st * kStage);
-        cp_async_commit();  // an empty group past the end keeps the count
-    }
-    for (int it = 0; it < nq; ++it) {
-        cp_async_wait<kStages - 2>();  // query tile it has landed (this thread's copies)
-        __syncthreads();               // (everyone's), and tile it - 1 is consumed
-        const int next = it + kStages - 1;
-        if (next < nq) load_tile(next, ring + (next % kStages) * kStage);
-        cp_async_commit();
-        const bf16* qs = ring + (it % kStages) * kStage;
-        const bf16* dos = qs + kBq * kLd;
-        const float* ls = reinterpret_cast<const float*>(qs + 2 * kBq * kLd);
-#pragma unroll(D <= 32 ? kBq / kSub : 1)
-        for (int sc = 0; sc < kBq / kSub; ++sc) {
-            const int i0 = it * kBq + sc * kSub;  // the sub-tile's first query
-            if (i0 >= tq) break;                  // the rest of the tile is padding
-            const bf16* qc = qs + sc * kSub * kLd;
-            const bf16* dc = dos + sc * kSub * kLd;
-            const float* lc = ls + sc * kSub;
-
-            // S^T = K Q^T and dP^T = V dO^T: query tile j holds queries i0 +
-            // 8j + 2t, + 1 in [j][0..1] (key r0) and [j][2..3] (key r0 + 8)
-            float s[kSteps][4] = {}, dp[kSteps][4] = {};
-#pragma unroll
-            for (int kd = 0; kd < kKSteps; ++kd) {
-                uint32_t a[4];
-                kf.frag(kd, a);
-                mma_rows<kSteps, kLd>(s, a, qc + at_n + kd * 16);
-                vf.frag(kd, a);
-                mma_rows<kSteps, kLd>(dp, a, dc + at_n + kd * 16);
-            }
-            // P^T = exp(S^T - LSE) with each column's query's LSE, exactly 0
-            // for queries past tq; dS^T = P^T (dP^T - delta), both fp32
-            const bool edge = i0 + kSub > tq;
-#pragma unroll
-            for (int j = 0; j < kSteps; ++j) {
-                const float2 l2 = *reinterpret_cast<const float2*>(lc + j * 8 + 2 * t);
-                const float2 d2 = *reinterpret_cast<const float2*>(lc + kBq + j * 8 + 2 * t);
-                const float mq[2] = {l2.x * kLog2e, l2.y * kLog2e}, dq2[2] = {d2.x, d2.y};
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    float p = exp2f(fmaf(s[j][e], kLog2e, -mq[e & 1]));
-                    if (edge && i0 + j * 8 + 2 * t + (e & 1) >= tq) p = 0.0f;
-                    s[j][e] = p;
-                    dp[j][e] = p * (dp[j][e] - dq2[e & 1]);
-                }
-            }
-
-            // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16:
-            // k16 step jj takes queries i0 + 16jj .. i0 + 16jj + 15
-#pragma unroll
-            for (int jj = 0; jj < kSub / 16; ++jj) {
-                uint32_t a[4];
-                acc_as_a(s, jj, a);
-                mma_cols<kDSteps>(dva, a, dc + at_k + jj * 16 * kLd);
-                acc_as_a(dp, jj, a);
-                mma_cols<kDSteps>(dka, a, qc + at_k + jj * 16 * kLd);
-            }
-        }
-    }
-    cp_async_wait<0>();  // no copy outlives the block
-    const float one[2] = {1.0f, 1.0f};
-    store_rows(dk + khead * D, dka, tk, k0, r0, t, one);
-    store_rows(dv + khead * D, dva, tk, k0, r0, t, one);
-}
-
-// The launchers take `rows` own rows a CTA (a multiple of 16 up to 128, one
+// The launcher takes `rows` own rows a CTA (a multiple of 16 up to 128, one
 // warp per 16) and the wrapper's count of the shared memory
-// (kernels/attention.py::fwd_smem, dq_smem, dkv_smem at bf16), which must
-// equal the launcher's own
+// (kernels/attention.py::fwd_smem at bf16), which must equal its own
 inline bool bad_plan(int rows, size_t smem, int smem_planned) {
     return rows % 16 || rows < 16 || 2 * rows > kMaxThreads ||
            smem != static_cast<size_t>(smem_planned) || smem > 227 * 1024;
@@ -640,34 +361,6 @@ cudaError_t launch_fwd_tile(const bf16* q, const bf16* k, const bf16* v, bf16* o
     if (err != cudaSuccess) return err;
     const dim3 grid(bh, (tq + bq - 1) / bq);
     flash_fwd_bf16_kernel<D, kBk><<<grid, 2 * bq, smem, s>>>(q, k, v, o, lse, tq, tk);
-    return cudaGetLastError();
-}
-
-template <int D, int kBk>
-cudaError_t launch_dq_tile(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                           const float* lse, const float* delta, bf16* dq, int bh, int tq,
-                           int tk, int bq, int smem_planned, cudaStream_t s) {
-    const size_t smem = BwdTile<D, kBk, false>::smem(bq);
-    if (bad_plan(bq, smem, smem_planned)) return cudaErrorInvalidValue;
-    cudaError_t err = allow_dynamic_smem(flash_bwd_dq_bf16_kernel<D, kBk>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(bh, (tq + bq - 1) / bq);
-    flash_bwd_dq_bf16_kernel<D, kBk><<<grid, 2 * bq, smem, s>>>(q, k, v, dout, lse, delta, dq,
-                                                                 tq, tk);
-    return cudaGetLastError();
-}
-
-template <int D, int kBq>
-cudaError_t launch_dkv_tile(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                            const float* lse, const float* delta, bf16* dk, bf16* dv, int bh,
-                            int tq, int tk, int bk, int smem_planned, cudaStream_t s) {
-    const size_t smem = BwdTile<D, kBq, true>::smem(bk);
-    if (bad_plan(bk, smem, smem_planned)) return cudaErrorInvalidValue;
-    cudaError_t err = allow_dynamic_smem(flash_bwd_dkv_bf16_kernel<D, kBq>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(bh, (tk + bk - 1) / bk);
-    flash_bwd_dkv_bf16_kernel<D, kBq><<<grid, 2 * bk, smem, s>>>(q, k, v, dout, lse, delta, dk,
-                                                                  dv, tq, tk);
     return cudaGetLastError();
 }
 
@@ -697,12 +390,9 @@ cudaError_t by_dim(int d, Fn fn) {
 }  // namespace
 
 // D must be 16, 32, 64 or 128 (the wrapper zero-pads a head dim of 8 to 16).
-// Each kernel takes a tile of own rows a CTA (a multiple of 16 up to 128:
-// one warp per 16) and a streamed tile (32, 64 or 128 rows): the forward and
-// dQ block_q query rows and block_k keys a tile, dK/dV block_k key rows and
-// block_q queries a tile; and smem_planned, the wrapper's count of its
-// shared memory. q, k, v, dO and the outputs O, dQ, dK, dV are bf16; LSE and
-// delta fp32.
+// The kernel takes block_q query rows a CTA (a multiple of 16 up to 128: one
+// warp per 16) and block_k keys a tile (32, 64 or 128), and smem_planned, the
+// wrapper's count of its shared memory. q, k, v and O are bf16, LSE fp32.
 extern "C" int msa_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                                   float* lse, int BH, int tq, int tk, int D, int block_q,
                                   int block_k, int smem_planned, int device, void* stream) {
@@ -713,37 +403,6 @@ extern "C" int msa_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, b
         return by_tile(block_k, [&](auto bk) {
             return launch_fwd_tile<decltype(d)::value, decltype(bk)::value>(
                 q, k, v, o, lse, BH, tq, tk, block_q, smem_planned, s);
-        });
-    });
-}
-
-extern "C" int msa_flash_bwd_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                     const bf16* dout, const float* lse, const float* delta,
-                                     bf16* dq, int BH, int tq, int tk, int D, int block_q,
-                                     int block_k, int smem_planned, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return by_dim(D, [&](auto d) {
-        return by_tile(block_k, [&](auto bk) {
-            return launch_dq_tile<decltype(d)::value, decltype(bk)::value>(
-                q, k, v, dout, lse, delta, dq, BH, tq, tk, block_q, smem_planned, s);
-        });
-    });
-}
-
-extern "C" int msa_flash_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                      const bf16* dout, const float* lse, const float* delta,
-                                      bf16* dk, bf16* dv, int BH, int tq, int tk, int D,
-                                      int block_q, int block_k, int smem_planned, int device,
-                                      void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return by_dim(D, [&](auto d) {
-        return by_tile(block_q, [&](auto bq) {
-            return launch_dkv_tile<decltype(d)::value, decltype(bq)::value>(
-                q, k, v, dout, lse, delta, dk, dv, BH, tq, tk, block_k, smem_planned, s);
         });
     });
 }

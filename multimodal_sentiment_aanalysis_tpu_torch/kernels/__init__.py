@@ -41,7 +41,8 @@ for both: three ``bilstm_gemm``, one ``bilstm_cscan``, one ``bilstm_sweep``.
   ``kernels/attention.py::_bwd_dkv_kernel``
 - ``flash_fwd_bf16``, ``flash_bwd_dq_bf16``, ``flash_bwd_dkv_bf16``: the
   three flash kernels' bf16 forms, which the same wrappers launch for bf16
-  tensors, ``csrc/flash_attn_bf16.cu``
+  tensors, ``csrc/flash_attn_bf16.cu`` (forward) and
+  ``csrc/flash_bwd_bf16.cu`` (backward, on ``csrc/sm90.cuh``)
 - ``fusion_head``: ``fusion_head.fusion_head``, ``csrc/fusion_head.cu``,
   ``kernels/fusion_head.py::_kernel``; its bf16 form ``fusion_head_bf16``
 - the BiLSTM's other schedules (``lstm.fused_bilstm_layer(schedule=)``):

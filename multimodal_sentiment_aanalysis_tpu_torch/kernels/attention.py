@@ -15,43 +15,54 @@ bf16 form:
   tiles, saving the per-row log-sum-exp;
 - backward :func:`flash_bwd_dq` (``_bwd_dq_kernel``, by query tile) and
   :func:`flash_bwd_dkv` (``_bwd_dkv_kernel``, by key tile), both
-  recomputing ``P = exp(S - LSE)``; ``delta = rowsum(dO * O)`` is taken
-  here in fp32, as the JAX ``_flash_bwd`` takes it. Two kernels, no
-  atomics: each output is owned by one CTA, so the gradients are
-  deterministic.
+  recomputing ``P = exp(S - LSE)``; ``delta = rowsum(dO * O)`` is formed
+  here by :func:`flash_delta` as the JAX ``_flash_bwd`` forms it, in the
+  operands' dtype (for bf16 a bf16 row sum of the bf16 products, then
+  handed to the kernels as fp32). Two kernels, no atomics: each output is
+  owned by one CTA, so the gradients are deterministic.
 
 The fp32 forms (``csrc/flash_attn.cu``) run their products on the tensor
 cores in three TF32 passes (3xTF32 ``mma.sync``, fp32-accurate), as the
-JAX kernels run fp32 at HIGHEST precision. The bf16 forms
-(``csrc/flash_attn_bf16.cu``) take bf16 q, k, v and dO as the JAX kernels
-take them under ``Precision.DEFAULT``: one bf16 ``mma.sync`` pass a
-product with fp32 accumulation, the softmax state in fp32, P rounded to
-bf16 for P V, dS formed in fp32 and rounded to bf16 for its products, O,
-dQ, dK and dV stored as bf16, LSE and delta fp32. ``flash_mha`` scales a
+JAX kernels run fp32 at HIGHEST precision. The bf16 forms (the forward
+``csrc/flash_attn_bf16.cu``, the backward ``csrc/flash_bwd_bf16.cu``) take
+bf16 q, k, v and dO as the JAX kernels take them under
+``Precision.DEFAULT``: one bf16 pass a product with fp32 accumulation, the
+softmax state in fp32, P rounded to bf16 for P V, dS formed in fp32 and
+rounded to bf16 for its products, O, dQ, dK and dV stored as bf16, LSE and
+delta fp32. ``flash_mha`` scales a
 bf16 ``q`` in bf16, as JAX's ``q * scale`` does. An fp16 input still runs
 in fp32 and comes back as fp16 (no path of either package runs fp16).
 
 What bounds the kernels on the H100 is their products (2, 3 and 4 of
 them): at the attention phase's (512, 585, 32) the fp32 forms' bytes take
 0.05-0.07 ms and their three TF32 passes 0.14-0.27 ms; the bf16 forms'
-bytes 0.02-0.03 ms and their one pass 0.02-0.05 ms. The fp32 design keeps
+bytes 0.02-0.03 ms and their one pass 0.02-0.05 ms, as long as the exp of
+each score (~0.04 ms a kernel at 16 a clock an SM). The fp32 design keeps
 the operands a CTA owns as split TF32 fragments in registers (shared
 memory at the wider heads), streams the other side through a ``cp.async``
 ring, feeds each product's accumulator fragment straight into the next
 ``mma.sync`` and sums only 32 rows (dQ, dK/dV) or one tile (forward) on the
-tensor cores before adding in fp32; the bf16 design keeps that shape with
-bf16 tiles, ``ldmatrix`` B fragments and the accumulators summed on the
-tensor cores over all of T. Each source's head note has the detail.
+tensor cores before adding in fp32; the bf16 forward keeps that shape with
+bf16 tiles, ``ldmatrix`` B fragments and the accumulator summed on the
+tensor cores over all of T. The bf16 backward is Hopper's own: one
+persistent CTA an SM walks blocks of 128 own rows, a producer warpgroup
+streams the tiles by TMA through an mbarrier ring, two consumer warpgroups
+of 64 rows run ``wgmma`` (``csrc/sm90.cuh``), feeding P and dS from the
+accumulators to the next product as its register operand and issuing the
+next sub-tile's products before this one's exp. Each source's head note
+has the detail.
 
 ``block_q`` and ``block_k`` are the kernels' tiles, one pair for the three
 (the Function passes the same to each), multiples of 32 up to 128. A
 kernel owns a tile of rows a CTA (one warp per 16) and streams a tile of
 the other side (32, 64 or 128 rows, :data:`TILES`): the forward and dQ own
 ``block_q`` query rows and stream ``block_k`` keys, dK/dV owns ``block_k``
-key rows and streams ``block_q`` queries. Each kernel's shared memory is
-counted here (:func:`fwd_smem`, :func:`dq_smem`, :func:`dkv_smem`, each
-per form) and passed to its launcher, which refuses a count other than its
-own; a pair that does not fit (the fp32 forward's 128-key tile at D = 128)
+key rows and streams ``block_q`` queries. The bf16 backward takes its own
+side in blocks of 128 rows whatever its own block (each output row is
+independent and summed in one order, so no bit changes). Each kernel's
+shared memory is counted here (:func:`fwd_smem`, :func:`dq_smem`,
+:func:`dkv_smem`, each per form) and passed to its launcher, which refuses
+a count other than its own; a pair that does not fit (the fp32 forward's 128-key tile at D = 128)
 raises ``ValueError`` before any launch. The JAX defaults (512/1024) were
 TPU v5e tunings; the port's are 64/64. Each wrapper takes the plain
 version for a CPU tensor and launches the kernel of the tensor's dtype, or
@@ -74,24 +85,25 @@ from ._build import F32, CudaKernel, check_cuda, ptr, upcast
 BF16 = torch.bfloat16
 
 
-def _forms(symbol: str, pointers: int) -> dict[torch.dtype, CudaKernel]:
+def _forms(symbol: str, pointers: int, bf16_source: str) -> dict[torch.dtype, CudaKernel]:
     """A kernel's fp32 form (``csrc/flash_attn.cu``) and bf16 form
-    (``csrc/flash_attn_bf16.cu``, ``symbol + "_bf16"``), by the operands'
+    (``csrc/<bf16_source>.cu``, ``symbol + "_bf16"``), by the operands'
     dtype, each with its own launch count."""
     argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 7
     return {torch.float32: CudaKernel("flash_attn", symbol, argtypes),
-            BF16: CudaKernel("flash_attn_bf16", symbol + "_bf16", argtypes)}
+            BF16: CudaKernel(bf16_source, symbol + "_bf16", argtypes)}
 
 
-FWD_KERNELS = _forms("msa_flash_fwd", 5)
-DQ_KERNELS = _forms("msa_flash_bwd_dq", 7)
-DKV_KERNELS = _forms("msa_flash_bwd_dkv", 8)
+FWD_KERNELS = _forms("msa_flash_fwd", 5, "flash_attn_bf16")
+DQ_KERNELS = _forms("msa_flash_bwd_dq", 7, "flash_bwd_bf16")
+DKV_KERNELS = _forms("msa_flash_bwd_dkv", 8, "flash_bwd_bf16")
 
 BLOCK_Q = 64
 BLOCK_K = 64
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the fp32 kernels' instantiations
 BF16_HEAD_DIMS = (16, 32, 64, 128)  # the bf16 kernels' (a k16 step: 8 pads to 16)
 MAX_ROWS = 128        # own rows a CTA: kFwdMaxThreads / 2, kBwdMaxThreads / 2
+BF16_BWD_ROWS = 128   # own rows a work item of the bf16 backward: kOwnRows
 TILES = (32, 64, 128)  # streamed rows a tile (kBk, kBt)
 _MAX_SMEM = 227 * 1024
 
@@ -175,7 +187,8 @@ def flash_bwd_magnitudes(q, k, v, do, lse, delta) -> tuple[torch.Tensor, ...]:
 
 def _stages(stage: int) -> int:
     """A ring's depth: 3 stages of ``stage`` bytes, 2 where 3 would pass
-    120 KiB (``kStages`` in ``csrc/flash_attn.cu`` and ``flash_attn_bf16.cu``)."""
+    120 KiB (``kStages`` in ``csrc/flash_attn.cu`` and in the forward of
+    ``flash_attn_bf16.cu``)."""
     return 3 if 3 * stage <= 120 * 1024 else 2
 
 
@@ -191,17 +204,25 @@ def fwd_smem(d: int, block_q: int, block_k: int, dtype: torch.dtype = torch.floa
 
 
 def _bwd_smem(d: int, rows: int, tile: int, dkv: bool, dtype: torch.dtype) -> int:
-    """``BwdTile::smem``: the ring of streamed tiles (``tile`` rows of two
-    operands, and for dK/dV the tile's fp32 LSE and delta) and, where they
-    wait in shared memory, the CTA's own two operands. In fp32 a row is D + 4
-    floats, the own operands wait there above D = 64 (dQ's Q and dO) or D =
-    32 (dK/dV's K and V), and at D = 128 the ring holds two stages of 32 rows
-    whatever the tile, so that 128 own rows fit beside it. In bf16 a row is
-    D + 8 bf16, and only dK/dV's own K and V above D = 64 wait there."""
-    lse = 2 * 4 * tile if dkv else 0
+    """``BwdTile::smem`` (fp32, ``csrc/flash_attn.cu``) or ``BwdPlan::kSmem``
+    (bf16, ``csrc/flash_bwd_bf16.cu``). fp32: the ring of streamed tiles
+    (``tile`` rows of two operands, and for dK/dV the tile's fp32 LSE and
+    delta) and, where they wait in shared memory, the CTA's own two operands;
+    a row is D + 4 floats, the own operands wait there above D = 64 (dQ's Q
+    and dO) or D = 32 (dK/dV's K and V), and at D = 128 the ring holds two
+    stages of 32 rows whatever the tile, so that 128 own rows fit beside it.
+    bf16: 1024 bytes to align the tiles to the 128-byte swizzle's period,
+    the two own tiles of 128 rows (whatever ``rows``), a ring of 2-4 stages
+    of two streamed tiles (as many as fit 64 KiB), unpadded bf16 rows, for
+    dK/dV each stage's fp32 LSE and delta, for dQ the own rows', and 8 bytes
+    an mbarrier (two for the own tiles, two a stage)."""
     if dtype == BF16:
-        stage = 2 * 2 * tile * (d + 8) + lse
-        return _stages(stage) * stage + (2 * 2 * rows * (d + 8) if dkv and d > 64 else 0)
+        stage = 2 * tile * 2 * d
+        stages = min(4, max(2, 65536 // stage))
+        cols, own_cols = (2 * 4 * tile, 0) if dkv else (0, 2 * 4 * BF16_BWD_ROWS)
+        return (1024 + 2 * BF16_BWD_ROWS * 2 * d + stages * (stage + cols) + own_cols
+                + 8 * (2 + 2 * stages))
+    lse = 2 * 4 * tile if dkv else 0
     if d > 64:
         tile, lse = 32, 2 * 4 * 32 if dkv else 0
     stage = 4 * 2 * tile * (d + 4) + lse
@@ -327,6 +348,15 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, block_q: int = BLOCK_Q,
     return dk, dv
 
 
+def flash_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dO * O)`` as the JAX ``_flash_bwd`` forms it, in the
+    operands' dtype: for bf16 ``dO`` and ``O`` the bf16 products summed into
+    a bf16 row sum, returned as fp32 for the kernels; otherwise in fp32."""
+    if do.dtype == BF16:
+        return (do * o).sum(-1).float()
+    return (upcast(do) * upcast(o)).sum(-1)
+
+
 class _FlashAttention(torch.autograd.Function):
     """``(O, LSE)`` of pre-scaled ``q``, ``k``, ``v`` ``(BH, T, D)``; the
     gradient flows through ``O`` only. The backward kernels are not
@@ -349,7 +379,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do, _):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        delta = (upcast(do) * upcast(o)).sum(-1)
+        delta = flash_delta(do, o)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, *ctx.blocks)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, *ctx.blocks)
         return dq, dk, dv, None, None

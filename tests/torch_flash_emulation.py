@@ -17,7 +17,11 @@ The bf16 forms' rounding points: bf16 operands, each product's terms exact
 (a bf16 times a bf16 is exact in fp32) and summed in fp64 here, rounded to
 fp32 as the tensor cores' fp32 accumulators hold them; P and dS rounded to
 bf16 as the A operand of their products; O, dQ, dK and dV rounded to bf16.
-Also the m16n8k16 and ``ldmatrix`` layouts, for the bf16 fragment tests.
+Also the m16n8k16 and ``ldmatrix`` layouts of the bf16 forward, and for the
+bf16 backward (``csrc/flash_bwd_bf16.cu`` on ``csrc/sm90.cuh``) the
+32/64/128-byte swizzled tiles as TMA writes them and K-major and MN-major
+wgmma descriptors read them, the wgmma.m64nNk16 accumulator and register-A
+fragments, and the kernels' address arithmetic, for the index tests.
 """
 
 import math
@@ -234,3 +238,178 @@ def c_pairs(c: np.ndarray) -> list:
     ((g, 2t), (g, 2t + 1)) and ((g + 8, 2t), (g + 8, 2t + 1))."""
     return [[(c[g, 2 * t], c[g, 2 * t + 1]), (c[g + 8, 2 * t], c[g + 8, 2 * t + 1])]
             for g, t in (divmod(lane, 4) for lane in range(32))]
+
+
+# --------------------------------------------------------------------------
+# the bf16 backward on Hopper (csrc/flash_bwd_bf16.cu, csrc/sm90.cuh): the
+# shared-memory layouts TMA writes and wgmma descriptors read, and the
+# wgmma.m64nNk16 register fragments
+# --------------------------------------------------------------------------
+
+OWN_ROWS = 128  # kOwnRows: two consumer warpgroups of 64 rows
+
+
+def span_of(d: int) -> int:
+    """``span_of``: bytes of a tile row, the row's swizzle span (a box of 64
+    columns at D = 128)."""
+    return 2 * d if d < 64 else 128
+
+
+def swizzle(byte, span: int):
+    """Where byte ``byte`` of a tile of ``span``-byte rows lies under TMA's
+    32/64/128-byte swizzle, from a base on the pattern's period: address
+    bits 4.. XORed with bits 7.. (one bit at 32 bytes, two at 64, three at
+    128)."""
+    return byte ^ (((byte >> 7) & (span // 16 - 1)) << 4)
+
+
+def tma_tile(rows: np.ndarray) -> np.ndarray:
+    """Shared memory as ``load_tile`` fills it from a (R, D) bf16 tile (the
+    values held exactly, one per 2-byte slot): each 64-column box (one at D
+    <= 64) after the other, R rows of ``span_of(D)`` bytes each, swizzled."""
+    r, d = rows.shape
+    span = span_of(d)
+    smem = np.full(r * d, np.nan)
+    for row in range(r):
+        for col in range(d):
+            byte = (col // 64) * r * span + row * span + 2 * (col % 64)
+            smem[swizzle(byte, span) // 2] = rows[row, col]
+    return smem
+
+
+def read_kmajor(smem: np.ndarray, start: int, sbo: int, span: int, mn: int) -> np.ndarray:
+    """The (mn, 16) operand a K-major descriptor (start byte, stride byte
+    offset, swizzle) names: row i, column k at start + (i // 8) sbo + (i %
+    8) span + 2k, swizzled."""
+    out = np.empty((mn, 16))
+    for i in range(mn):
+        for k in range(16):
+            out[i, k] = smem[swizzle(start + (i // 8) * sbo + (i % 8) * span + 2 * k, span) // 2]
+    return out
+
+
+def read_mnmajor(smem: np.ndarray, start: int, sbo: int, span: int, n: int) -> np.ndarray:
+    """The (16, n) operand an MN-major descriptor names (the transpose bit;
+    n at most one swizzle span, so the leading byte offset is not read):
+    row k, column j at start + (k // 8) sbo + (k % 8) span + 2j, swizzled."""
+    assert 2 * n <= span
+    out = np.empty((16, n))
+    for k in range(16):
+        for j in range(n):
+            out[k, j] = smem[swizzle(start + (k // 8) * sbo + (k % 8) * span + 2 * j, span) // 2]
+    return out
+
+
+def acc_position(thread: int, reg: int) -> tuple[int, int]:
+    """Row and column of accumulator register ``reg`` of ``thread`` (0-127)
+    of a wgmma.m64nNk16: warp w, lane (g, t): row 16w + g + 8 ((reg % 4) //
+    2), column 8 (reg // 4) + 2t + reg % 2."""
+    w, lane = divmod(thread, 32)
+    g, t = divmod(lane, 4)
+    return 16 * w + g + 8 * ((reg % 4) // 2), 8 * (reg // 4) + 2 * t + reg % 2
+
+
+def a_position(thread: int, reg: int, half: int) -> tuple[int, int]:
+    """Row and column of element ``half`` (0 low, 1 high) of register ``reg``
+    (0-3) of a register A fragment of a wgmma.m64nNk16 (64 x 16): rows 16w +
+    g (reg 0, 2) and + 8 (1, 3), columns 2t + half (0, 1) and + 8 (2, 3)."""
+    w, lane = divmod(thread, 32)
+    g, t = divmod(lane, 4)
+    return 16 * w + g + 8 * (reg % 2), 2 * t + half + 8 * (reg // 2)
+
+
+def to_accumulators(c: np.ndarray) -> np.ndarray:
+    """A (64, N) product as each thread's accumulator registers (128, N / 2)."""
+    n = c.shape[1]
+    return np.array([[c[acc_position(th, r)] for r in range(n // 2)] for th in range(128)])
+
+
+def from_accumulators(regs: np.ndarray) -> np.ndarray:
+    """The (64, N) matrix that the threads' accumulator registers hold."""
+    out = np.full((64, 2 * regs.shape[1]), np.nan)
+    for th in range(128):
+        for r in range(regs.shape[1]):
+            out[acc_position(th, r)] = regs[th, r]
+    return out
+
+
+def from_a_fragments(frags) -> np.ndarray:
+    """The (64, 16) A operand that each thread's four register pairs
+    (``frags[thread][reg] = (low, high)``) hold."""
+    out = np.full((64, 16), np.nan)
+    for th in range(128):
+        for reg in range(4):
+            for half in range(2):
+                out[a_position(th, reg, half)] = frags[th][reg][half]
+    return out
+
+
+def acc_as_a(regs: np.ndarray, kk: int) -> list:
+    """``acc_as_a``: accumulator registers 8kk .. 8kk + 7 of each thread as
+    the A fragment of k16 step kk, a[e] = (c[8kk + 2e], c[8kk + 2e + 1])."""
+    return [[(regs[th, 8 * kk + 2 * e], regs[th, 8 * kk + 2 * e + 1]) for e in range(4)]
+            for th in range(128)]
+
+
+def own_fragments(smem: np.ndarray, d: int, kk: int, own_row: int) -> list:
+    """``own_fragments``: each thread of the warpgroup whose rows start at
+    ``own_row`` (0 or 64), its A fragment of k16 step kk of the own tile
+    (OWN_ROWS rows), read from the swizzled tile: rows r0 = own_row + 16 warp
+    + g, r0 + 8, columns 16kk + 2t (+ 8), a 4-byte pair at the swizzle of row
+    x span + 2 (col % 64), in box col / 64."""
+    span = span_of(d)
+
+    def pair(row, col):
+        byte = swizzle(row * span + 2 * (col % 64), span)
+        base = (col // 64) * OWN_ROWS * span
+        return smem[(base + byte) // 2], smem[(base + byte) // 2 + 1]
+
+    frags = []
+    for th in range(128):
+        w, lane = divmod(th, 32)
+        g, t = divmod(lane, 4)
+        r0, c = own_row + 16 * w + g, 16 * kk + 2 * t
+        frags.append([pair(r0, c), pair(r0 + 8, c), pair(r0, c + 8), pair(r0 + 8, c + 8)])
+    return frags
+
+
+def s_product(own_smem, own_row: int, tile_smem, tile_rows: int, row: int, n: int, d: int,
+              own_in_registers: bool) -> np.ndarray:
+    """S (or dP) of a sub-tile as the warpgroup of own rows ``own_row`` ..
+    own_row + 63 issues it, as its accumulator registers (128, n / 2): per
+    k16 step kk, A the own rows (register fragments from ``own_fragments``,
+    or the own tile K-major at own + box x OWN_ROWS x span + own_row x span +
+    (kk % 4) 32), B the streamed tile K-major at tile + box x tile_rows x
+    span + row x span + (kk % 4) 32, stride byte offset 8 span
+    (``rs_product_k``, ``ss_product``)."""
+    span = span_of(d)
+    acc = np.zeros((64, n))
+    for kk in range(d // 16):
+        box, at = kk // 4, (kk % 4) * 32
+        if own_in_registers:
+            a = from_a_fragments(own_fragments(own_smem, d, kk, own_row))
+        else:
+            a = read_kmajor(own_smem, box * OWN_ROWS * span + own_row * span + at, 8 * span,
+                            span, 64)
+        b = read_kmajor(tile_smem, box * tile_rows * span + row * span + at, 8 * span, span, n)
+        acc += a @ b.T
+    return to_accumulators(acc)
+
+
+def rs_product(frags, tile_smem, tile_rows: int, row: int, d: int) -> np.ndarray:
+    """One accumulating product's k16 step as ``rs_product`` issues it: A
+    the register fragments, B the streamed tile's rows row .. row + 15 read
+    MN-major (tile + row x span, stride byte offset 8 span; at D = 128 one
+    m64n64k16 per box, tile + box x tile_rows x 128): the (64, D) term."""
+    span = span_of(d)
+    a = from_a_fragments(frags)
+    if d <= 64:
+        return a @ read_mnmajor(tile_smem, row * span, 8 * span, span, d)
+    return np.concatenate([a @ read_mnmajor(tile_smem, b * tile_rows * 128 + row * 128, 1024,
+                                            128, 64) for b in range(2)], axis=1)
+
+
+def sub_tile(dkv: bool, d: int) -> int:
+    """``BwdPlan::kSub``: the streamed rows of one S / dP product, 32, or 16
+    for dK/dV at D = 128."""
+    return 16 if dkv and d == 128 else 32
