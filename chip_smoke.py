@@ -4067,11 +4067,12 @@ def attention_kernel_cases(mha: MultiheadAttention, x: torch.Tensor, gen: torch.
             lambda a=bwd_args: flash_bwd_fp64("dkv", a)))
 
 
-def flash_bwd_bit_equal(cases: dict) -> None:
-    """Runs each bf16 backward case twice and holds the two results bit
-    for bit: one CTA owns each output and sums it in one order, no atomics.
-    Launched after the counted phases, so the counts do not move."""
-    for name in ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"):
+def flash_bf16_bit_equal(cases: dict) -> None:
+    """Runs each bf16 forward and backward case twice and holds the two
+    results bit for bit: one CTA owns each output and sums it in one order,
+    no atomics. Launched after the counted phases, so the counts do not
+    move."""
+    for name in ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"):
         for label, kern, *_ in cases[name]:
             first, second = outputs(name, kern()), outputs(name, kern())
             torch.cuda.synchronize()
@@ -4444,6 +4445,10 @@ STEM_BWD_FORMS = (r"(stem_tail_bwd_kernel)I(f|13__nv_bfloat16)Lb([01])ELi(\d)E",
 HEAD_FORMS = (r"(fusion_head_kernel)I(f|13__nv_bfloat16)Li(\d)E",
               lambda m: f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, "
                         f"kNt={m.group(3)}>")
+# the filter: fp32 and fp64 forms per number of sections (1 to 8)
+IIR_FORMS = (r"(sos_filtfilt_kernel)I([fd])Li(\d)E",
+             lambda m: f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}, "
+                       f"S={m.group(3)}>")
 
 
 def ptxas_registers(report: str, forms: tuple) -> list[str]:
@@ -4626,7 +4631,7 @@ def profile_window(label: str, fn, top: int = 25, show: tuple[str, ...] = (),
 
 
 def host_device_split(name: str, items: list, kernel: str, calls: int = 100) -> None:
-    """Cases of row 2, 12, 13 or 17, or of rows 15-16 in bf16, split into host
+    """Cases of row 2, 12, 13 or 17, or of rows 14-16 in bf16, split into host
     and device time: per call, the
     CUDA-event time (as the kernel lines time it), the wrapper's host time
     (``perf_counter`` over ``calls`` calls with no sync inside), and under
@@ -4674,10 +4679,10 @@ def main() -> int:
     print(smi)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=6) as pool:  # beside the builds, six nvcc more
+    with ThreadPoolExecutor(max_workers=7) as pool:  # beside the builds, seven nvcc more
         reports = {name: pool.submit(ptxas_report, name)
                    for name in ("flash_attn", "flash_attn_bf16", "flash_bwd_bf16", "stem_tail",
-                                "conv_stem", "fusion_head")}
+                                "conv_stem", "fusion_head", "iir")}
         libs = build_all()
         registers = ptxas_registers(reports["flash_attn"].result(), FLASH_FORMS)
         bf16_registers = ptxas_registers(reports["flash_attn_bf16"].result()
@@ -4686,6 +4691,7 @@ def main() -> int:
                                          + reports["conv_stem"].result(), STEM_FORMS)
         bwd_registers = ptxas_registers(reports["stem_tail"].result(), STEM_BWD_FORMS)
         head_registers = ptxas_registers(reports["fusion_head"].result(), HEAD_FORMS)
+        iir_registers = ptxas_registers(reports["iir"].result(), IIR_FORMS)
     print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in libs))
     # each kernel at every head dim and tile, but the forward at D = 128 and
@@ -4720,6 +4726,14 @@ def main() -> int:
           f"{len(head_registers)} of 8 head forms")
     for line in stem_registers + bwd_registers + head_registers:
         print(f"ptxas {line}")
+    # the filter: 1 to 8 sections in fp32 and fp64, none spilling
+    check(len(iir_registers) == 2 * iir.MAX_SECTIONS,
+          f"ptxas reported {len(iir_registers)} of {2 * iir.MAX_SECTIONS} filter forms")
+    for line in iir_registers:
+        print(f"ptxas {line}")
+    spilling = [line for line in iir_registers
+                if not line.endswith(", 0 bytes spill stores, 0 bytes spill loads")]
+    check(not spilling, f"filter forms spill: {spilling}")
 
     dsp_counts, raw_eeg = dsp_phase(device, smi)
     model, first, serve_counts, (pool, plan, serve_outs) = serving_phase(device)
@@ -4789,7 +4803,7 @@ def main() -> int:
     memhacl_kernel_cases(encoder, classifier, val, cases)
     attention_kernel_cases(mha, x_attn, gen, cases)
     attention_kernel_cases(mha16, x_attn16, gen, cases)
-    flash_bwd_bit_equal(cases)
+    flash_bf16_bit_equal(cases)
     dsp_kernel_cases(raw_eeg, cases)
     dropout_check(trainer.model, batch, gen)
     mask_check(vt, gen)
@@ -4808,8 +4822,9 @@ def main() -> int:
         host_device_split(name, cases[name] + loso_cases.get(name, []), "stem_tail_bwd")
     for name in ("fusion_head", "fusion_head_bf16"):
         host_device_split(name, cases[name], "fusion_head_kernel")
-    # rows 15 and 16 in bf16: the host's share, four tensor maps a call
-    for name in ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"):
+    # rows 14-16 in bf16: the host's share, three or four tensor maps a
+    # call (encoded once, then taken from the maps' cache)
+    for name in ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"):
         host_device_split(name, cases[name], name + "_kernel")
     print(json.dumps({"kernels": kernel_results(cases, loso_cases, counts)}))
     print(json.dumps({"ok": True, "device": {

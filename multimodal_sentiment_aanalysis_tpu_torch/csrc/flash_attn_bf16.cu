@@ -1,6 +1,7 @@
 // Flash attention over (BH, T, D) in bf16: the forward with its per-row
-// log-sum-exp. The bf16 form of flash_attn.cu's forward; the bf16 backward
-// is flash_bwd_bf16.cu.
+// log-sum-exp, for Hopper, on wgmma, TMA and mbarriers (sm90.cuh,
+// flash_sm90.cuh). The bf16 form of flash_attn.cu's forward; the bf16
+// backward is flash_bwd_bf16.cu, whose shape it shares.
 //
 // Replaces multimodal_sentiment_aanalysis_tpu/kernels/attention.py, as the
 // TPU kernel runs on bf16 q, k and v (Precision.DEFAULT: one bf16 pass a
@@ -8,391 +9,358 @@
 // - msa_flash_fwd_bf16 -> _fwd_kernel: O = softmax(Q K^T) V by online
 //                         softmax over key tiles, LSE = m + log(l).
 // Q is pre-scaled by 1/sqrt(D) in bf16 by the wrapper, as the JAX entry
-// scales it. The masking is flash_attn.cu's: zero-filled rows past the end,
-// keys past tk at -inf, no row past the end stored.
+// scales it. Masking: rows past the end arrive as zeros (TMA's
+// out-of-bounds fill), keys past tk are -inf in the last sub-tile, and no
+// row past the end is stored.
 //
-// Arithmetic, the TPU's under DEFAULT precision: every product is one
-// mma.sync.m16n8k16 bf16 pass with fp32 accumulation. The forward keeps the
-// online-softmax state (m, l, the O accumulator) in fp32, sums l over the
-// fp32 P, and rounds P to bf16 only as the A operand of P V (the TPU's
-// DEFAULT dot of an fp32 p with a bf16 v rounds p so); O = acc / l in fp32,
-// stored as bf16, LSE fp32.
+// Arithmetic, the TPU's under DEFAULT precision: every product is one bf16
+// pass with fp32 accumulation (wgmma). The online-softmax state (the row
+// max m, the row sum l, the O accumulator) is fp32; l sums the fp32 P; P is
+// rounded to bf16 only as the A operand of P V (the TPU's DEFAULT dot of an
+// fp32 p with a bf16 v rounds p so); O = acc / l in fp32, stored as bf16;
+// LSE = m + log(l), fp32.
 //
 // What bounds it on the H100: at the attention phase's (BH = 512, T = 585,
 // D = 32) its two products are 22.4 GFLOP, 0.023 ms at 989 TFLOP/s, plus ~4
 // fp32 operations a score for the softmax, 0.010 ms at 67 TFLOP/s; its bf16
-// operands and output 77 MB, 0.023 ms at 3.35 TB/s. So the products bound
-// it, at a third of the fp32 form's three TF32 passes.
+// operands and output 77 MB, 0.023 ms at 3.35 TB/s. Its 175.2 M exps take
+// ~0.042-0.047 ms at 16 a clock an SM (132 SMs), above both: the exp units
+// set the floor, and the products must run beside them.
 //
-// Design: flash_attn.cu's, with one bf16 pass where that file takes three
-// TF32 passes. A CTA owns block_q queries, one warp per 16 of them (the m16
-// of m16n8k16), and streams key tiles through a 2-3 deep cp.async ring of
-// bf16 rows padded to D + 8 elements: a row is then 16 bytes past a multiple
-// of 128, so the 8 rows one ldmatrix matrix reads hit distinct bank groups.
-// Q is held as A fragments (packed bf16 pairs) loaded once into registers.
-// The B fragments come from ldmatrix: as K lies for S = Q K^T (a K row holds
-// a B column's k pairs), transposed (.trans) for P V (a B column runs down
-// the V rows). An m16n8k16 accumulator's two n8 tiles are exactly the A
-// fragment of the next product's k16 step (a[0], a[1] of tile 2jj, a[2],
-// a[3] of tile 2jj + 1), so P goes from the accumulator to the next mma.sync
-// as packed bf16 pairs, with no shuffle and no trip through shared memory.
-// The O accumulator is fp32 registers summed on the tensor cores over all of
-// T (an fp32 sum of exact bf16 products). wgmma and TMA for it are later
-// work (csrc/sm90.cuh has the pieces).
-//
-// Shared memory: bf16 tiles are half fp32's bytes, so every pair of head dim
-// and tiles fits the 227 KB a block may use, the 128-key tile at D = 128
-// included (two stages of 68 KB).
+// Design: flash_bwd_bf16.cu's. One persistent CTA an SM walks work items of
+// 128 query rows of one head, a head's items adjacent (its K and V come
+// from memory once and from L2 for the rest), whatever the wrapper's
+// block_q. Two consumer warpgroups hold 64 rows each, 16 a warp; a producer
+// warpgroup feeds them (384 threads; setmaxnreg moves the producer's
+// registers to the consumers). Each output row is independent and sums its
+// keys in one order, with no atomics: two runs give the same bits.
+// - TMA: one producer thread loads an item's Q tile (once the consumers
+//   have taken the last item's), then streams the head's K and V tiles of
+//   block_k rows through a ring of 2-4 stages that runs on from item to
+//   item. Each stage is an mbarrier the loads complete (expect_tx) and
+//   another the consumers' eight warps arrive on when its last product has
+//   retired. Each operand is a 3-D map {D, T, BH}, so rows past T arrive
+//   as zeros, not as the next head's.
+// - wgmma: a consumer takes a stage in sub-tiles of kSub keys (64, or 32
+//   for 32-key tiles): S = Q K^T (m64n{kSub}k16; Q as register A fragments
+//   read once an item up to D = 64, through a descriptor of the Q tile at
+//   D = 128; K read K-major), the online softmax on the accumulator, then
+//   O += P V with P packed from the accumulator as the register A operand
+//   (m64n{D}k16, two m64n64k16 at D = 128; V read MN-major through the
+//   transpose bit).
+// - Overlap: the next sub-tile's S is issued before this sub-tile's
+//   softmax (two register sets, one commit group each), so the tensor cores
+//   run it while the warps run the exps; P V follows in its own group, and
+//   every group retires within the sub-tile (a wgmma in flight across a
+//   branch or the loop's back edge makes ptxas serialise every wgmma).
+// - Exps: one ex2.approx.ftz a score, the 1/ln 2 scale folded into one
+//   FFMA with the row max (exp2f's subnormal handling costs three more
+//   instructions); the mask of the last keys only in the last sub-tile.
 
 #include <math.h>
 
 #include <cstdint>
-#include <type_traits>
 
-#include "common.cuh"
-#include "tf32_mma.cuh"  // the commit / wait of the cp.async groups
+#include "flash_sm90.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace flash_sm90;
 
-constexpr int kMaxThreads = 256;  // own rows <= 128, 16 a warp
-constexpr float kLog2e = 1.4426950408889634f;
-
-// c += a b: one mma.sync.m16n8k16 bf16 pass, fp32 accumulation. Fragments
-// (g = lane / 4, t = lane % 4): A (16 x 16, row) a[0] at (g, 2t..2t+1), a[1]
-// (g + 8, 2t..2t+1), a[2] (g, 2t+8..2t+9), a[3] (g + 8, 2t+8..2t+9); B (16 x
-// 8, col) b0 at (k = 2t..2t+1, n = g), b1 (k = 2t+8..2t+9, n = g); C (16 x
-// 8) c[0], c[1] at (g, 2t), (g, 2t + 1), c[2], c[3] at row g + 8. A register
-// holds its lower-indexed element in its low half.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-        "{%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two fp32 values rounded to nearest even into a packed bf16 pair
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Four 8 x 8 matrices of 16-bit elements from shared memory: lane l gives
-// the address of row l % 8 of matrix l / 8 (16 bytes). Plain, lane (g, t)
-// of register i gets row g, elements 2t and 2t + 1 of matrix i; .trans,
-// elements (2t, g) and (2t + 1, g)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(s));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(s));
-}
-
-// A lane's ldmatrix row in a tile of rows of ld elements, for a 16 x 16
-// block whose four 8 x 8 matrices are taken
-// - kRowPairs: rows 0-7, cols 0-7; rows 0-7, cols 8-15; rows 8-15, cols
-//   0-7; rows 8-15, cols 8-15. Plain, the B fragments (b0, b1) of two n8
-//   tiles whose n runs down the rows (K for S = Q K^T): registers 0, 1 of
-//   rows 0-7 and 2, 3 of rows 8-15;
-// - otherwise: rows 0-7, cols 0-7; rows 8-15, cols 0-7; rows 0-7, cols
-//   8-15; rows 8-15, cols 8-15. Plain, an A fragment (a[0..3]) of a 16 x 16
-//   block; .trans, the B fragments (b0, b1) of two n8 tiles whose k runs
-//   down the rows (V for P V): registers 0, 1 of cols 0-7 and 2, 3 of cols
-//   8-15
-template <bool kRowPairs>
-__device__ __forceinline__ int lane_row(int lane, int ld) {
-    const int m = lane >> 3, r = lane & 7;
-    return kRowPairs ? ((m >> 1) * 8 + r) * ld + (m & 1) * 8 : ((m & 1) * 8 + r) * ld + (m >> 1) * 8;
-}
-
-// Copies 16 bytes (or zeros, where !valid) into shared memory, asynchronously
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
-    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-                 "r"(valid ? 16 : 0)
-                 : "memory");
-}
-
-// The CTA's Q as A fragments of this warp's 16 rows at every 16-deep step
-// of D, loaded once into registers
-template <int D>
-struct OwnFrags {
-    static constexpr int kKSteps = D / 16;
-    uint32_t a[kKSteps][4];
-
-    // src: the operand's rows of this head, n of them; the CTA owns rows row0
-    // on (this thread r0 and r0 + 8), rows past n are 0
-    __device__ __forceinline__ void load(const bf16* src, int n, int row0, int r0, int t) {
-        auto pair = [&](int r, int c) {
-            return row0 + r < n
-                       ? *reinterpret_cast<const uint32_t*>(src + static_cast<size_t>(row0 + r) * D + c)
-                       : 0u;
-        };
-#pragma unroll
-        for (int kd = 0; kd < kKSteps; ++kd) {
-            const int c = kd * 16 + 2 * t;
-            a[kd][0] = pair(r0, c);
-            a[kd][1] = pair(r0 + 8, c);
-            a[kd][2] = pair(r0, c + 8);
-            a[kd][3] = pair(r0 + 8, c + 8);
-        }
-    }
+// A forward CTA's shared memory, from a 1024-byte boundary (the 128-byte
+// swizzle's period): the Q tile (kOwnRows rows), a ring of kStages stages
+// of a K tile and a V tile (kBk rows each), then the mbarriers (own_full,
+// own_empty, full[], empty[]). A tile is one box of rows of span_of(D)
+// bytes, two at D = 128. kStages: as many as fit 64 KiB of tiles, 2 to 4
+template <int D, int kBk>
+struct FwdPlan {
+    static constexpr int kSub = kBk < 64 ? kBk : 64;  // keys of one S product
+    static constexpr int kOwnTile = kOwnRows * 2 * D;
+    static constexpr int kTile = kBk * 2 * D;
+    static constexpr int kStage = 2 * kTile;
+    static constexpr int kFit = 65536 / kStage;
+    static constexpr int kStages = kFit < 2 ? 2 : kFit > 4 ? 4 : kFit;
+    static constexpr size_t kSmem = 1024 + kOwnTile + kStages * kStage + 8 * (2 + 2 * kStages);
 };
 
-// c[j] += a b over the n8 tiles j of kTiles: b's B fragments from the
-// streamed tile at `p` (this lane's row, lane_row<true>), two n8 tiles (16
-// rows) an ldmatrix
-template <int kTiles, int kLd>
-__device__ __forceinline__ void mma_rows(float (&c)[kTiles][4], const uint32_t (&a)[4],
-                                         const bf16* p) {
-#pragma unroll
-    for (int j = 0; j < kTiles; j += 2) {
-        uint32_t b[4];
-        ldsm_x4(b, p + j * 8 * kLd);
-        mma_bf16(c[j], a, b[0], b[1]);
-        mma_bf16(c[j + 1], a, b[2], b[3]);
-    }
-}
-
-// acc[nd] += a b over D's n8 tiles: b's B fragments from the streamed tile
-// at `p` (this lane's row, lane_row<false>, at the k16 step's first row),
-// transposed, two n8 tiles (16 columns) an ldmatrix
-template <int kDSteps>
-__device__ __forceinline__ void mma_cols(float (&acc)[kDSteps][4], const uint32_t (&a)[4],
-                                         const bf16* p) {
-#pragma unroll
-    for (int nd = 0; nd < kDSteps; nd += 2) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, p + nd * 8);
-        mma_bf16(acc[nd], a, b[0], b[1]);
-        mma_bf16(acc[nd + 1], a, b[2], b[3]);
-    }
-}
-
-// n8 accumulator tiles 2jj and 2jj + 1 (columns 16jj .. 16jj + 15) as the A
-// fragment of the next product's k16 step, rounded to bf16
-template <int kTiles>
-__device__ __forceinline__ void acc_as_a(const float (&c)[kTiles][4], int jj, uint32_t (&a)[4]) {
-    a[0] = pack_bf16(c[2 * jj][0], c[2 * jj][1]);
-    a[1] = pack_bf16(c[2 * jj][2], c[2 * jj][3]);
-    a[2] = pack_bf16(c[2 * jj + 1][0], c[2 * jj + 1][1]);
-    a[3] = pack_bf16(c[2 * jj + 1][2], c[2 * jj + 1][3]);
-}
-
-// this thread's two rows of acc (times scale[h]) to rows row0 + r0 and row0
-// + r0 + 8 of out (those below n), as bf16
-template <int kDSteps>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[kDSteps][4], int n,
-                                           int row0, int r0, int t, const float (&scale)[2]) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int i = row0 + r0 + 8 * h;
-        if (i >= n) continue;
-        bf16* oi = out + static_cast<size_t>(i) * (kDSteps * 8) + 2 * t;
-#pragma unroll
-        for (int nd = 0; nd < kDSteps; ++nd)
-            *reinterpret_cast<__nv_bfloat162*>(oi + nd * 8) =
-                __floats2bfloat162_rn(acc[nd][2 * h] * scale[h], acc[nd][2 * h + 1] * scale[h]);
-    }
-}
-
-// the copies of `count` rows from row r0 on of two (rows, D) operands into a
-// stage's two tiles of `tile` rows (rows past n zero-filled)
-template <int D>
-__device__ __forceinline__ void load_pair(bf16* stage, int tile, const bf16* a, const bf16* b,
-                                          int r0, int n) {
-    constexpr int kLd = D + 8, kVecs = D / 8;
-    for (int e = threadIdx.x; e < tile * kVecs; e += blockDim.x) {
-        const int r = e / kVecs, c = (e % kVecs) * 8;
-        const bool real = r0 + r < n;
-        const size_t at = static_cast<size_t>(real ? r0 + r : 0) * D + c;
-        cp_async16(stage + r * kLd + c, a + at, real);
-        cp_async16(stage + (tile + r) * kLd + c, b + at, real);
-    }
-}
-
-// ---- forward ----
-
-// A forward CTA's shared memory: a ring of kStages stages of kBk rows of K
-// and of V, D + 8 bf16 each; 3 stages, 2 where 3 would pass 120 KiB
-template <int D, int kBk>
-struct FwdTile {
-    static constexpr int kLd = D + 8;
-    static constexpr int kStage = 2 * kBk * kLd;  // bf16 of one stage
-    static constexpr int kStages = 3 * 2 * kStage <= 120 * 1024 ? 3 : 2;
-    static constexpr size_t kSmem = sizeof(bf16) * kStages * kStage;
+struct FwdSmem {
+    uint8_t *own, *ring;
+    uint64_t *own_full, *own_empty, *full, *empty;
 };
 
-template <int D, int kBk>
-__global__ void __launch_bounds__(kMaxThreads)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q,  // (BH, tq, D), pre-scaled
-                      const bf16* __restrict__ k,  // (BH, tk, D)
-                      const bf16* __restrict__ v,  // (BH, tk, D)
-                      bf16* __restrict__ o,        // (BH, tq, D)
-                      float* __restrict__ lse,     // (BH, tq)
-                      int tq, int tk) {
-    using Tile = FwdTile<D, kBk>;
-    constexpr int kLd = Tile::kLd, kStages = Tile::kStages;
-    constexpr int kKeySteps = kBk / 8, kDSteps = D / 8, kKSteps = D / 16;
-    extern __shared__ float4 fwd_bf16_smem[];  // 16-byte aligned
-    bf16* ring = reinterpret_cast<bf16*>(fwd_bf16_smem);  // kStages x (K, V) tiles (kBk, kLd)
-    const int rows = blockDim.x / 2;                      // 16 a warp of 32 threads
-    const int bh = blockIdx.x;
-    const int q0 = blockIdx.y * rows;
-    const int lane = threadIdx.x % 32;
-    const int g = lane / 4, t = lane % 4;
-    const int r0 = (threadIdx.x / 32) * 16 + g;  // this thread's tile rows: r0, r0 + 8
-    const bf16* kb = k + static_cast<size_t>(bh) * tk * D;
-    const bf16* vb = v + static_cast<size_t>(bh) * tk * D;
-    const int at_k = lane_row<true>(lane, kLd), at_v = lane_row<false>(lane, kLd);
-
-    OwnFrags<D> qf;
-    qf.load(q + static_cast<size_t>(bh) * tq * D, tq, q0, r0, t);
-
-    float acc[kDSteps][4] = {};           // O of rows r0, r0 + 8, as C fragments
-    float m[2] = {-INFINITY, -INFINITY};  // running max of the two rows
-    float l[2] = {0.0f, 0.0f};            // this lane's share of the row sums
-    const int nk = (tk + kBk - 1) / kBk;
-#pragma unroll
-    for (int st = 0; st < kStages - 1; ++st) {
-        if (st < nk) load_pair<D>(ring + st * Tile::kStage, kBk, kb, vb, st * kBk, tk);
-        cp_async_commit();  // an empty group past the end keeps the count
+template <typename Plan>
+__device__ __forceinline__ FwdSmem carve(uint8_t* raw) {
+    uint8_t* base = raw + ((1024 - (sm90::smem_addr(raw) & 1023)) & 1023);
+    FwdSmem m;
+    m.own = base;
+    m.ring = base + Plan::kOwnTile;
+    m.own_full = reinterpret_cast<uint64_t*>(m.ring + Plan::kStages * Plan::kStage);
+    m.own_empty = m.own_full + 1;
+    m.full = m.own_full + 2;
+    m.empty = m.full + Plan::kStages;
+    if (threadIdx.x == 0) {
+        // arrivals: the TMA thread's expect_tx; one a consumer warp
+        sm90::mbar_init(m.own_full, 1);
+        sm90::mbar_init(m.own_empty, 4 * kConsumers);
+        for (int st = 0; st < Plan::kStages; ++st) {
+            sm90::mbar_init(m.full + st, 1);
+            sm90::mbar_init(m.empty + st, 4 * kConsumers);
+        }
+        sm90::fence_barrier_init();
     }
-    for (int kt = 0; kt < nk; ++kt) {
-        cp_async_wait<kStages - 2>();  // key tile kt has landed (this thread's copies)
-        __syncthreads();               // (everyone's), and tile kt - 1 is consumed
-        const int next = kt + kStages - 1;
-        if (next < nk)
-            load_pair<D>(ring + (next % kStages) * Tile::kStage, kBk, kb, vb, next * kBk, tk);
-        cp_async_commit();
-        const bf16* ks = ring + (kt % kStages) * Tile::kStage;
-        const bf16* vs = ks + kBk * kLd;
+    __syncthreads();
+    return m;
+}
 
-        // S = Q K^T: key tile j holds keys 8j + 2t, 8j + 2t + 1 in s[j][0..1]
-        // (row r0) and s[j][2..3] (row r0 + 8)
-        float s[kKeySteps][4] = {};
-#pragma unroll
-        for (int kd = 0; kd < kKSteps; ++kd)
-            mma_rows<kKeySteps, kLd>(s, qf.a[kd], ks + at_k + kd * 16);
-        const int j0 = kt * kBk;
-        if (j0 + kBk > tk) {
-#pragma unroll
-            for (int j = 0; j < kKeySteps; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    if (j0 + j * 8 + 2 * t + (e & 1) >= tk) s[j][e] = -INFINITY;
+// The producer warpgroup: gives up registers; its first thread loads each
+// item's Q tile (once the consumers are done with the last item's) and then
+// the head's n K and V tiles by TMA through the ring
+template <typename Plan, int D, int kBk>
+__device__ __forceinline__ void produce(const FwdSmem& m, const CUtensorMap* q_map,
+                                        const CUtensorMap* k_map, const CUtensorMap* v_map,
+                                        Work w, int n) {
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x != 128 * kConsumers) return;
+    sm90::prefetch_map(k_map);
+    sm90::prefetch_map(v_map);
+    int it = 0, k = 0;
+    for (int item = blockIdx.x; item < w.items; item += gridDim.x, ++k) {
+        const int bh = w.head(item);
+        if (k > 0) sm90::mbar_wait(m.own_empty, (k - 1) & 1);
+        sm90::mbar_expect_tx(m.own_full, Plan::kOwnTile);
+        load_tile<D>(m.own, q_map, m.own_full, w.row0(item), bh, kOwnRows);
+        for (int t = 0; t < n; ++t, ++it) {
+            const int slot = it % Plan::kStages;
+            // the stage's previous tile (it - kStages) has been released
+            if (it >= Plan::kStages)
+                sm90::mbar_wait(m.empty + slot, ((it / Plan::kStages) & 1) ^ 1);
+            uint8_t* stage = m.ring + slot * Plan::kStage;
+            sm90::mbar_expect_tx(m.full + slot, Plan::kStage);
+            load_tile<D>(stage, k_map, m.full + slot, t * kBk, bh, kBk);
+            load_tile<D>(stage + Plan::kTile, v_map, m.full + slot, t * kBk, bh, kBk);
         }
+    }
+}
 
-        // online softmax: every tile has a real key, so the max is finite
-        float mx[2] = {m[0], m[1]};
+// A consumer warpgroup's walk over one item's key sub-tiles (its 64 query
+// rows from own_row; the item's first tile the ring's it0-th). Each
+// body(i) starts with S of sub-tile i retired into s. With kNext it first
+// issues S of i + 1 into sn (waiting for that stage), so that the tensor
+// cores run it beside this sub-tile's exps; then the softmax and P V of i;
+// then it waits for all of it, so that no wgmma is in flight across a
+// branch or the loop's back edge, and releases the stage i finishes. The
+// two register sets alternate, the loop unrolled by two, so that every
+// register index is static
+template <int D, int kBk>
+struct FwdConsumer {
+    using Plan = FwdPlan<D, kBk>;
+    static constexpr int N = Plan::kSub, kRegs = N / 2, kSpt = kBk / N;
+    static constexpr int kStages = Plan::kStages;
+    // up to D = 64 Q waits in registers as A fragments (S then reads only K
+    // from shared memory); at D = 128 A comes from the Q tile
+    static constexpr bool kOwnRegs = D <= 64;
+    const FwdSmem& m;
+    int lane, own_row, it0, tk;
+    uint32_t qa[kOwnRegs ? D / 16 : 1][4];  // Q of this warpgroup's rows, every k16 step
+    uint32_t pa[N / 16][4];                 // P of a sub-tile, as A fragments
+    float acc[D / 2];                       // O of rows 16 warp + g, + 8
+    float mrow[2], lrow[2];                 // their running max, this thread's share of l
+
+    __device__ __forceinline__ const uint8_t* stage(int i) const {
+        return m.ring + ((it0 + i / kSpt) % kStages) * Plan::kStage;
+    }
+    // an item's start: Q's A fragments (up to D = 64), O, m and l reset
+    __device__ __forceinline__ void begin() {
+        if constexpr (kOwnRegs) own_fragments<D>(qa, m.own, 16 * (threadIdx.x / 32) + lane / 4);
 #pragma unroll
-        for (int j = 0; j < kKeySteps; ++j) {
-            mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-            mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+        for (int r = 0; r < D / 2; ++r) acc[r] = 0.0f;
+        sm90::fence_regs(acc);  // the zeros are written here, not sunk between wgmmas
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            mrow[h] = -INFINITY;
+            lrow[h] = 0.0f;
         }
+    }
+    // S of sub-tile i into s, one commit group
+    __device__ __forceinline__ void issue(int i, float (&s)[kRegs]) {
+        sm90::fence_regs(s);
+        sm90::fence_regs(qa);
+        sm90::wgmma_fence();
+        const int row = (i % kSpt) * N;
+        if constexpr (kOwnRegs)
+            rs_product_k<D>(s, qa, stage(i), kBk, row);
+        else
+            ss_product<D>(s, m.own, own_row, stage(i), kBk, row);
+        sm90::wgmma_commit();
+        sm90::fence_regs(s);
+        sm90::fence_regs(qa);
+    }
+    // the online softmax of sub-tile i (register r holds key i N + 8 (r / 4)
+    // + 2t + r % 2 of row (r % 4) / 2; keys past tk -inf where kEdge), then
+    // O += P V, P rounded to bf16: k16 step kk takes the stage's V rows row +
+    // 16kk ..
+    template <bool kEdge>
+    __device__ __forceinline__ void softmax_pv(int i, float (&s)[kRegs]) {
+        const int t = lane % 4;
+        if constexpr (kEdge) {
+            const int keys = tk - i * N - 2 * t;  // real keys from this thread's first
+#pragma unroll
+            for (int r = 0; r < kRegs; ++r)
+                if (8 * (r / 4) + (r & 1) >= keys) s[r] = -INFINITY;
+        }
+        float mx[2] = {mrow[0], mrow[1]};
+#pragma unroll
+        for (int r = 0; r < kRegs; ++r) mx[(r % 4) / 2] = fmaxf(mx[(r % 4) / 2], s[r]);
         float alpha[2], ml[2];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
+            // every sub-tile has a real key, so the max is finite
             mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
             mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-            alpha[h] = exp2f((m[h] - mx[h]) * kLog2e);  // 0 on the first tile (m = -inf)
-            m[h] = mx[h];
-            ml[h] = m[h] * kLog2e;
-            l[h] *= alpha[h];
+            alpha[h] = exp2_ftz((mrow[h] - mx[h]) * kLog2e);  // 0 on the first (m = -inf)
+            mrow[h] = mx[h];
+            ml[h] = mx[h] * kLog2e;
+            lrow[h] *= alpha[h];
         }
         // P = exp(S - m) = 2^(S log2 e - m log2 e) in fp32, summed into l
+        // (skipping the exps of rows past tq or keys past tk measured slower:
+        // the branches cost more issue than the exps they save)
 #pragma unroll
-        for (int j = 0; j < kKeySteps; ++j)
+        for (int r = 0; r < kRegs; ++r) {
+            s[r] = exp2_ftz(fmaf(s[r], kLog2e, -ml[(r % 4) / 2]));
+            lrow[(r % 4) / 2] += s[r];
+        }
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                s[j][e] = exp2f(fmaf(s[j][e], kLog2e, -ml[e >> 1]));
-                l[e >> 1] += s[j][e];
-            }
+        for (int r = 0; r < D / 2; ++r) acc[r] *= alpha[(r % 4) / 2];
+        acc_as_a(s, pa);
+        sm90::fence_regs(pa);
+        sm90::fence_regs(acc);
+        sm90::wgmma_fence();
+        const uint8_t* v = stage(i) + Plan::kTile;
+        const int row = (i % kSpt) * N;
 #pragma unroll
-        for (int nd = 0; nd < kDSteps; ++nd)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e >> 1];
-
-        // acc += P V, P rounded to bf16: k16 step jj takes keys 16jj .. 16jj + 15
-#pragma unroll
-        for (int jj = 0; jj < kBk / 16; ++jj) {
-            uint32_t a[4];
-            acc_as_a(s, jj, a);
-            mma_cols<kDSteps>(acc, a, vs + at_v + jj * 16 * kLd);
+        for (int kk = 0; kk < N / 16; ++kk) rs_product<D>(acc, pa[kk], v, kBk, row + 16 * kk);
+        sm90::wgmma_commit();
+    }
+    template <bool kNext>
+    __device__ __forceinline__ void body(int i, float (&s)[kRegs], float (&sn)[kRegs]) {
+        if constexpr (kNext) {
+            const int tile = it0 + (i + 1) / kSpt;
+            if ((i + 1) % kSpt == 0) sm90::mbar_wait(m.full + tile % kStages, (tile / kStages) & 1);
+            issue(i + 1, sn);
+        }
+        // only the last sub-tile reaches past the last key
+        softmax_pv<!kNext>(i, s);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(pa);
+        sm90::fence_regs(acc);
+        if constexpr (kNext) sm90::fence_regs(sn);
+        // the item's last sub-tile finishes its (perhaps partial) last tile
+        if ((!kNext || (i + 1) % kSpt == 0) && lane == 0)
+            sm90::mbar_arrive(m.empty + (it0 + i / kSpt) % kStages);
+    }
+    __device__ __forceinline__ void run(int nsub) {
+        float s0[kRegs], s1[kRegs];
+        sm90::mbar_wait(m.full + it0 % kStages, (it0 / kStages) & 1);
+        issue(0, s0);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(s0);
+        int i = 0;
+        for (; i + 2 < nsub; i += 2) {
+            body<true>(i, s0, s1);
+            body<true>(i + 1, s1, s0);
+        }
+        if (i + 1 < nsub) {
+            body<true>(i, s0, s1);
+            body<false>(i + 1, s1, s0);
+        } else {
+            body<false>(i, s0, s1);
         }
     }
-    cp_async_wait<0>();  // no copy outlives the block
-
-    float inv[2];
+    // an item's end: l summed over the row's four threads, LSE = m + log(l)
+    // of the rows below tq, O = acc / l stored as bf16
+    __device__ __forceinline__ void finish(bf16* o, float* lse, int tq, int row0) {
+        const int r0 = row0 + 16 * (threadIdx.x / 32) + lane / 4;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-        inv[h] = 1.0f / l[h];
-        const int i = q0 + r0 + 8 * h;
-        if (i < tq && t == 0) lse[static_cast<size_t>(bh) * tq + i] = m[h] + logf(l[h]);
+        for (int h = 0; h < 2; ++h) {
+            lrow[h] += __shfl_xor_sync(0xffffffffu, lrow[h], 1);
+            lrow[h] += __shfl_xor_sync(0xffffffffu, lrow[h], 2);
+            if (r0 + 8 * h < tq && lane % 4 == 0) lse[r0 + 8 * h] = mrow[h] + logf(lrow[h]);
+        }
+#pragma unroll
+        for (int r = 0; r < D / 2; ++r) acc[r] = acc[r] / lrow[(r % 4) / 2];
+        store_rows<D>(o, acc, tq, row0);
     }
-    store_rows(o + static_cast<size_t>(bh) * tq * D, acc, tq, q0, r0, t, inv);
+};
+
+template <int D, int kBk>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,  // (BH, tq, D) pre-scaled
+                      const __grid_constant__ CUtensorMap k_map,  // (BH, tk, D)
+                      const __grid_constant__ CUtensorMap v_map,  // (BH, tk, D)
+                      bf16* __restrict__ o,                       // (BH, tq, D)
+                      float* __restrict__ lse,                    // (BH, tq)
+                      int bh, int tq, int tk) {  // q in own boxes; k, v in kBk rows
+    using Plan = FwdPlan<D, kBk>;
+    extern __shared__ uint8_t fwd_bf16_smem[];
+    const FwdSmem m = carve<Plan>(fwd_bf16_smem);
+    const int blocks = (tq + kOwnRows - 1) / kOwnRows;
+    const Work w{bh * blocks, blocks};
+    const int n = (tk + kBk - 1) / kBk;
+    if (threadIdx.x >= 128 * kConsumers) {
+        produce<Plan, D, kBk>(m, &q_map, &k_map, &v_map, w, n);
+        return;
+    }
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    using Consumer = FwdConsumer<D, kBk>;
+    Consumer c{m, static_cast<int>(threadIdx.x % 32), 64 * static_cast<int>(threadIdx.x / 128),
+               0, tk};
+    const int nsub = (tk + Plan::kSub - 1) / Plan::kSub;
+    int k = 0;
+    for (int item = blockIdx.x; item < w.items; item += gridDim.x, ++k, c.it0 += n) {
+        sm90::mbar_wait(m.own_full, k & 1);
+        c.begin();
+        if (Consumer::kOwnRegs && c.lane == 0) sm90::mbar_arrive(m.own_empty);
+        c.run(nsub);
+        if (!Consumer::kOwnRegs && c.lane == 0) sm90::mbar_arrive(m.own_empty);
+        const size_t head = static_cast<size_t>(w.head(item)) * tq;
+        c.finish(o + head * D, lse + head, tq, w.row0(item));
+    }
 }
 
-// The launcher takes `rows` own rows a CTA (a multiple of 16 up to 128, one
-// warp per 16) and the wrapper's count of the shared memory
-// (kernels/attention.py::fwd_smem at bf16), which must equal its own
+// The wrapper's block_q: 32, 64 or 128 rows (the kernel tiles the queries
+// by kOwnRows); smem_planned, its count of the shared memory
+// (kernels/attention.py::fwd_smem at bf16), must equal the plan's
 inline bool bad_plan(int rows, size_t smem, int smem_planned) {
-    return rows % 16 || rows < 16 || 2 * rows > kMaxThreads ||
-           smem != static_cast<size_t>(smem_planned) || smem > 227 * 1024;
+    return (rows != 32 && rows != 64 && rows != 128) || smem != static_cast<size_t>(smem_planned);
 }
 
 template <int D, int kBk>
 cudaError_t launch_fwd_tile(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
                             int bh, int tq, int tk, int bq, int smem_planned, cudaStream_t s) {
-    const size_t smem = FwdTile<D, kBk>::kSmem;
+    constexpr size_t smem = FwdPlan<D, kBk>::kSmem;
     if (bad_plan(bq, smem, smem_planned)) return cudaErrorInvalidValue;
-    cudaError_t err = allow_dynamic_smem(flash_fwd_bf16_kernel<D, kBk>, smem);
+    CUtensorMap qm, km, vm;
+    cudaError_t err;
+    if ((err = rows_map(&qm, q, D, tq, bh, kOwnRows)) != cudaSuccess ||
+        (err = rows_map(&km, k, D, tk, bh, kBk)) != cudaSuccess ||
+        (err = rows_map(&vm, v, D, tk, bh, kBk)) != cudaSuccess ||
+        (err = allow_dynamic_smem_once(flash_fwd_bf16_kernel<D, kBk>, smem)) != cudaSuccess)
+        return err;
+    unsigned grid;
+    err = persistent_grid(static_cast<long long>(bh) * ((tq + kOwnRows - 1) / kOwnRows), grid);
     if (err != cudaSuccess) return err;
-    const dim3 grid(bh, (tq + bq - 1) / bq);
-    flash_fwd_bf16_kernel<D, kBk><<<grid, 2 * bq, smem, s>>>(q, k, v, o, lse, tq, tk);
+    flash_fwd_bf16_kernel<D, kBk><<<grid, kThreads, smem, s>>>(qm, km, vm, o, lse, bh, tq, tk);
     return cudaGetLastError();
-}
-
-// a streamed tile of 32, 64 or 128 rows: fn(std::integral_constant<int, tile>)
-template <typename Fn>
-cudaError_t by_tile(int tile, Fn fn) {
-    switch (tile) {
-        case 32: return fn(std::integral_constant<int, 32>());
-        case 64: return fn(std::integral_constant<int, 64>());
-        case 128: return fn(std::integral_constant<int, 128>());
-        default: return cudaErrorInvalidValue;
-    }
-}
-
-// a head dim of 16, 32, 64 or 128: fn(std::integral_constant<int, D>)
-template <typename Fn>
-cudaError_t by_dim(int d, Fn fn) {
-    switch (d) {
-        case 16: return fn(std::integral_constant<int, 16>());
-        case 32: return fn(std::integral_constant<int, 32>());
-        case 64: return fn(std::integral_constant<int, 64>());
-        case 128: return fn(std::integral_constant<int, 128>());
-        default: return cudaErrorInvalidValue;
-    }
 }
 
 }  // namespace
 
 // D must be 16, 32, 64 or 128 (the wrapper zero-pads a head dim of 8 to 16).
-// The kernel takes block_q query rows a CTA (a multiple of 16 up to 128: one
-// warp per 16) and block_k keys a tile (32, 64 or 128), and smem_planned, the
-// wrapper's count of its shared memory. q, k, v and O are bf16, LSE fp32.
+// The kernel streams block_k keys a tile (32, 64 or 128); block_q (32, 64
+// or 128) is checked and the queries tiled by 128 rows. smem_planned is the
+// wrapper's count of its shared memory. q, k, v and O are bf16, each on a
+// 16-byte boundary; LSE fp32.
 extern "C" int msa_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                                   float* lse, int BH, int tq, int tk, int D, int block_q,
                                   int block_k, int smem_planned, int device, void* stream) {

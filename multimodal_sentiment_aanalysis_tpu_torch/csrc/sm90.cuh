@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks as plain inline PTX: mbarriers, TMA tile
 // loads through tensor maps built on the host, wgmma descriptors and the
 // warpgroup products (the shapes the kernels use), their fences, commits
-// and waits, and setmaxnreg.
-// First used by the bf16 flash-attention backward (flash_bwd_bf16.cu).
+// and waits, and setmaxnreg; on the host, the tensor maps and the kernels'
+// shared-memory attribute, each cached so that a repeated call sets them up
+// only once. Used by the bf16 flash-attention kernels (flash_sm90.cuh).
 //
 // Shared-memory layouts. A TMA box of R rows by W bf16 columns, W x 2 = 32,
 // 64 or 128 bytes (the row's swizzle span), lands as R rows of W x 2 bytes,
@@ -34,7 +35,12 @@
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_runtime.h>
 
+#include "common.cuh"  // allow_dynamic_smem
+
 #include <cstdint>
+#include <mutex>
+#include <utility>
+#include <vector>
 
 namespace sm90 {
 
@@ -213,6 +219,41 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (+)= a b, m64n64k16: a and b K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= a b, m64n64k16: a in registers, b K-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 // d (+)= a b, m64n32k16: a in registers, b K-major in shared memory
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
                                          int accumulate) {
@@ -259,9 +300,32 @@ inline EncodeTiledFn encode_tiled() {
 
 // A map of a (heads, rows, d) bf16 tensor as 3-D {d, rows, heads}, boxes of
 // box_rows rows by min(d, 64) columns, swizzled by the box row's bytes (32,
-// 64 or 128): rows past `rows` arrive as zeros, never as the next head's
+// 64 or 128): rows past `rows` arrive as zeros, never as the next head's.
+// The encoding is a pure function of (base, d, rows, heads, box_rows), so
+// the last kMapCache encodings are kept, keyed by them, and a call that
+// repeats one copies it instead of encoding it again
 inline cudaError_t rows_map(CUtensorMap* map, const void* base, int d, int rows, int heads,
                             int box_rows) {
+    struct Entry {
+        const void* base;
+        int d, rows, heads, box_rows;
+        CUtensorMap map;
+    };
+    constexpr int kMapCache = 64;  // the bf16 backward's four maps a call, many shapes
+    static Entry cache[kMapCache];
+    static int filled = 0, next = 0;
+    static std::mutex mu;
+    {
+        std::lock_guard<std::mutex> lock(mu);
+        for (int e = 0; e < filled; ++e) {
+            const Entry& c = cache[e];
+            if (c.base == base && c.d == d && c.rows == rows && c.heads == heads &&
+                c.box_rows == box_rows) {
+                *map = c.map;
+                return cudaSuccess;
+            }
+        }
+    }
     const EncodeTiledFn encode = encode_tiled();
     if (encode == nullptr) return cudaErrorNotSupported;
     const int cols = d < 64 ? d : 64;
@@ -278,5 +342,28 @@ inline cudaError_t rows_map(CUtensorMap* map, const void* base, int d, int rows,
                                 dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+    if (res != CUDA_SUCCESS) return cudaErrorInvalidValue;
+    std::lock_guard<std::mutex> lock(mu);
+    cache[next] = Entry{base, d, rows, heads, box_rows, *map};
+    next = (next + 1) % kMapCache;
+    if (filled < kMapCache) ++filled;
+    return cudaSuccess;
+}
+
+// allow_dynamic_smem (common.cuh) once for each kernel and device: the
+// attribute stays set, so later launches skip the call
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem_once(Kernel kernel, size_t bytes) {
+    static std::mutex mu;
+    static std::vector<std::pair<const void*, int>> done;
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    const std::pair<const void*, int> key{reinterpret_cast<const void*>(kernel), device};
+    std::lock_guard<std::mutex> lock(mu);
+    for (const auto& k : done)
+        if (k == key) return cudaSuccess;
+    err = allow_dynamic_smem(kernel, bytes);
+    if (err == cudaSuccess) done.push_back(key);
+    return err;
 }

@@ -42,22 +42,24 @@ the operands a CTA owns as split TF32 fragments in registers (shared
 memory at the wider heads), streams the other side through a ``cp.async``
 ring, feeds each product's accumulator fragment straight into the next
 ``mma.sync`` and sums only 32 rows (dQ, dK/dV) or one tile (forward) on the
-tensor cores before adding in fp32; the bf16 forward keeps that shape with
-bf16 tiles, ``ldmatrix`` B fragments and the accumulator summed on the
-tensor cores over all of T. The bf16 backward is Hopper's own: one
-persistent CTA an SM walks blocks of 128 own rows, a producer warpgroup
-streams the tiles by TMA through an mbarrier ring, two consumer warpgroups
-of 64 rows run ``wgmma`` (``csrc/sm90.cuh``), feeding P and dS from the
-accumulators to the next product as its register operand and issuing the
-next sub-tile's products before this one's exp. Each source's head note
-has the detail.
+tensor cores before adding in fp32. The bf16 forms are Hopper's own, the
+forward and the backward alike (``csrc/flash_sm90.cuh`` on
+``csrc/sm90.cuh``): one persistent CTA an SM walks blocks of 128 own rows
+(a head's blocks adjacent), a producer warpgroup streams the other side's
+tiles by TMA through an mbarrier ring that runs on from block to block,
+two consumer warpgroups of 64 rows run ``wgmma`` with the own rows as
+register A fragments, feed P (and dS) from the accumulators to the next
+product as its register operand, take their exps by ``ex2.approx.ftz`` and
+issue the next sub-tile's products before this one's exps. The tensor maps
+are encoded once for each pointer and shape and then taken from a cache.
+Each source's head note has the detail.
 
 ``block_q`` and ``block_k`` are the kernels' tiles, one pair for the three
 (the Function passes the same to each), multiples of 32 up to 128. A
 kernel owns a tile of rows a CTA (one warp per 16) and streams a tile of
 the other side (32, 64 or 128 rows, :data:`TILES`): the forward and dQ own
 ``block_q`` query rows and stream ``block_k`` keys, dK/dV owns ``block_k``
-key rows and streams ``block_q`` queries. The bf16 backward takes its own
+key rows and streams ``block_q`` queries. The bf16 kernels take their own
 side in blocks of 128 rows whatever its own block (each output row is
 independent and summed in one order, so no bit changes). Each kernel's
 shared memory is counted here (:func:`fwd_smem`, :func:`dq_smem`,
@@ -103,7 +105,7 @@ BLOCK_K = 64
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the fp32 kernels' instantiations
 BF16_HEAD_DIMS = (16, 32, 64, 128)  # the bf16 kernels' (a k16 step: 8 pads to 16)
 MAX_ROWS = 128        # own rows a CTA: kFwdMaxThreads / 2, kBwdMaxThreads / 2
-BF16_BWD_ROWS = 128   # own rows a work item of the bf16 backward: kOwnRows
+BF16_ROWS = 128       # own rows a work item of the bf16 kernels: kOwnRows
 TILES = (32, 64, 128)  # streamed rows a tile (kBk, kBt)
 _MAX_SMEM = 227 * 1024
 
@@ -187,18 +189,29 @@ def flash_bwd_magnitudes(q, k, v, do, lse, delta) -> tuple[torch.Tensor, ...]:
 
 def _stages(stage: int) -> int:
     """A ring's depth: 3 stages of ``stage`` bytes, 2 where 3 would pass
-    120 KiB (``kStages`` in ``csrc/flash_attn.cu`` and in the forward of
-    ``flash_attn_bf16.cu``)."""
+    120 KiB (``kStages`` in ``csrc/flash_attn.cu``)."""
     return 3 if 3 * stage <= 120 * 1024 else 2
 
 
+def _bf16_stages(stage: int) -> int:
+    """The bf16 kernels' ring depth: as many stages of ``stage`` bytes as
+    fit 64 KiB, 2 to 4 (``FwdPlan::kStages``, ``BwdPlan::kStages``)."""
+    return min(4, max(2, 65536 // stage))
+
+
 def fwd_smem(d: int, block_q: int, block_k: int, dtype: torch.dtype = torch.float32) -> int:
-    """Bytes of shared memory of one forward CTA (``FwdTile`` in the
-    dtype's source): the ring of K and V tiles (``block_k`` rows of D + 4
-    floats each, or D + 8 bf16) and, in fp32 at D = 128, the Q tile."""
+    """Bytes of shared memory of one forward CTA. fp32 (``FwdTile``,
+    ``csrc/flash_attn.cu``): the ring of K and V tiles (``block_k`` rows of
+    D + 4 floats each) and, at D = 128, the Q tile. bf16 (``FwdPlan``,
+    ``csrc/flash_attn_bf16.cu``): 1024 bytes to align the tiles to the
+    128-byte swizzle's period, the Q tile of 128 rows (whatever
+    ``block_q``), a ring of 2-4 stages of a K and a V tile of ``block_k``
+    unpadded bf16 rows (as many as fit 64 KiB), and 8 bytes an mbarrier (two
+    for the Q tile, two a stage)."""
     if dtype == BF16:
-        stage = 2 * 2 * block_k * (d + 8)
-        return _stages(stage) * stage
+        stage = 2 * block_k * 2 * d
+        stages = _bf16_stages(stage)
+        return 1024 + BF16_ROWS * 2 * d + stages * stage + 8 * (2 + 2 * stages)
     stage = 4 * 2 * block_k * (d + 4)
     return _stages(stage) * stage + (4 * block_q * (d + 4) if d > 64 else 0)
 
@@ -218,9 +231,9 @@ def _bwd_smem(d: int, rows: int, tile: int, dkv: bool, dtype: torch.dtype) -> in
     an mbarrier (two for the own tiles, two a stage)."""
     if dtype == BF16:
         stage = 2 * tile * 2 * d
-        stages = min(4, max(2, 65536 // stage))
-        cols, own_cols = (2 * 4 * tile, 0) if dkv else (0, 2 * 4 * BF16_BWD_ROWS)
-        return (1024 + 2 * BF16_BWD_ROWS * 2 * d + stages * (stage + cols) + own_cols
+        stages = _bf16_stages(stage)
+        cols, own_cols = (2 * 4 * tile, 0) if dkv else (0, 2 * 4 * BF16_ROWS)
+        return (1024 + 2 * BF16_ROWS * 2 * d + stages * (stage + cols) + own_cols
                 + 8 * (2 + 2 * stages))
     lse = 2 * 4 * tile if dkv else 0
     if d > 64:

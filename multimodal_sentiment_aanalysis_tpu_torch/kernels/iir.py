@@ -10,9 +10,13 @@ their steady-state initial conditions ``zi (S, 2)`` and the odd-extension
 length ``padlen``, and returns the zero-phase filtered ``(N, T)``: the odd
 extension, a forward pass through the S sections from ``zi * ext[0]``, a
 reverse pass from ``zi * y_fwd[-1]``, the central T samples, all in one
-launch of ``csrc/iir.cu`` (one thread per series) for every series of the
-call. ``x``, ``sos`` and ``zi`` share one dtype: fp32 (``msa_sos_filtfilt``)
-or fp64 (``msa_sos_filtfilt_f64``), each form with its own launch count.
+launch of ``csrc/iir.cu`` for every series of the call: a thread per
+series, a warp of 32 series a block, ``x`` and ``y`` moved as coalesced
+rows through a ring of time steps in shared memory, the forward pass's last
+:data:`HOLD_STEPS` steps kept there and the earlier ones in a time-major
+scratch. ``x``, ``sos`` and ``zi`` share one dtype: fp32
+(``msa_sos_filtfilt``) or fp64 (``msa_sos_filtfilt_f64``), each form with
+its own launch count.
 
 Kernel or raise: a CPU tensor takes :func:`sos_filtfilt_plain`, which
 autograd differentiates as JAX differentiates its scan; a CUDA tensor
@@ -33,7 +37,11 @@ from ._build import CudaKernel, check_cuda, ptr
 #: the most sections a kernel call takes (an order-8 band-pass), a template
 #: parameter of ``csrc/iir.cu``
 MAX_SECTIONS = 8
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+#: time steps of the forward pass the kernel keeps in shared memory (its
+#: ring's slots, ``kSlots`` in ``csrc/iir.cu``): the most that keep 4 warps
+#: an SM; the steps before them go to the scratch
+HOLD_STEPS = {torch.float32: 416, torch.float64: 192}
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
 #: fp32 and fp64 forms, by the dtype of ``x``
 KERNELS = {torch.float32: CudaKernel("iir", "msa_sos_filtfilt", _ARGS),
            torch.float64: CudaKernel("iir", "msa_sos_filtfilt_f64", _ARGS)}
@@ -89,6 +97,13 @@ def _check_filter(x: torch.Tensor, sos: torch.Tensor, zi: torch.Tensor, padlen: 
                          f"{x.shape[-1]} (scipy filtfilt's rule)")
 
 
+def scratch_steps(t: int, padlen: int, dtype: torch.dtype) -> int:
+    """Rows of the kernel's time-major scratch: the forward pass's steps
+    before the last :data:`HOLD_STEPS` of the ``T + 2 padlen`` (0 where the
+    ring holds them all). The launcher refuses another count."""
+    return max(t + 2 * padlen - HOLD_STEPS[dtype], 0)
+
+
 def _launch(x: torch.Tensor, sos: torch.Tensor, zi: torch.Tensor, padlen: int) -> torch.Tensor:
     """One launch of the kernel over ``x (N, T)``."""
     device, dtype = x.device, x.dtype
@@ -104,9 +119,10 @@ def _launch(x: torch.Tensor, sos: torch.Tensor, zi: torch.Tensor, padlen: int) -
     y = torch.empty_like(x)
     if n == 0:
         return y
-    scratch = torch.empty(t + 2 * padlen, n, device=device, dtype=dtype)  # the forward pass
+    rows = scratch_steps(t, padlen, dtype)
+    scratch = torch.empty(rows, n, device=device, dtype=dtype) if rows else None  # forward steps
     KERNELS[dtype].launch(device, ptr(x), ptr(y), ptr(scratch), ptr(sos), ptr(zi), n, t, padlen,
-                          s)
+                          s, rows)
     return y
 
 

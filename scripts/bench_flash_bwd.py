@@ -8,7 +8,9 @@ attention phase's (BH 512, T 585, D 32), 200 queries over 100 keys, and 9
 over 9. For each: the time (CUDA events, below) of the forward, dQ and
 dK/dV kernels at the default tiles
 (64/64), and of one ``scaled_dot_product_attention`` backward (dQ, dK and dV
-in one call; timed only, the port never calls it); and the backward's
+in one call; timed only, the port never calls it); each wrapper's host time
+a call (``*_host_us``: ``perf_counter`` over 100 calls, no synchronisation
+inside, so that the tensor maps' encoding shows); and the backward's
 largest error against the fp64 plain versions on the same inputs, over
 each output's scale (``attention.flash_bwd_magnitudes``, where the tree has
 it) and over its largest entry.
@@ -33,6 +35,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SHAPES = {"mha": (512, 585, 585, 32), "200q_100k": (512, 200, 100, 32), "9_9": (512, 9, 9, 32)}
@@ -57,6 +60,21 @@ def time_ms(fn, reps: int, calls: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return sorted(times)[len(times) // 2]
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """The wrapper's host time a call: ``perf_counter`` over ``calls`` calls
+    with no synchronisation inside (the device runs behind)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return seconds * 1e6 / calls
 
 
 def main() -> int:
@@ -106,6 +124,11 @@ def main() -> int:
             out, (qg, kg, vg), do[None], retain_graph=True), args.reps)
         row["pair_ms"] = row["dq_ms"] + row["dkv_ms"]
         with torch.no_grad():
+            for key, fn in (("fwd", lambda: attention.flash_fwd(q, k, v)),
+                            ("dq", lambda: attention.flash_bwd_dq(*bwd)),
+                            ("dkv", lambda: attention.flash_bwd_dkv(*bwd))):
+                row[f"{key}_host_us"] = host_us(fn)
+        with torch.no_grad():
             got = [attention.flash_bwd_dq(*bwd), *attention.flash_bwd_dkv(*bwd)]
             b64 = [t.double() for t in bwd]
             want = [attention.flash_bwd_dq_plain(*b64), *attention.flash_bwd_dkv_plain(*b64)]
@@ -136,6 +159,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"{args.label} {name}: " + ", ".join(
             f"{key} {val:.4f}" if key.endswith("_ms") else
+            f"{key} {val:.1f}" if key.endswith("_us") else
             f"{key} {val:.2e}" if key.endswith(("_max", "_scale")) else f"{key} {val}"
             for key, val in row.items()))
     print(card)

@@ -12,6 +12,12 @@ kernel's plain version (``kernels.iir``), on the CPU.
   ``jax.enable_x64`` at 1e-9 (the same sections, the same order).
 - ``tests/test_ops_dsp.py``'s scipy and numpy goldens, repeated on the
   port at that file's bars.
+- The filter kernel's walk (``csrc/iir.cu``: a warp's ring of time steps,
+  chunks of 32, the forward output split between the ring and a scratch)
+  emulated in torch (``torch_iir_emulation``) equal to
+  ``sos_filtfilt_plain`` bit for bit at every ``KERNEL_SHAPES`` entry, in
+  fp32 and fp64, with every copy landing as early or as late as its wait
+  allows, and at smaller rings.
 - ``batched`` over 3 trials equal to a loop of single trials; the splits'
   indices bit for bit; a graph cache written by either package loaded by
   the other; ``load_electrode_positions`` through a stand-in
@@ -19,8 +25,9 @@ kernel's plain version (``kernels.iir``), on the CPU.
   the plain filter differentiable, its gradient against ``jax.grad``.
 
 The ``gpu``-marked tests hold the CUDA kernel against its plain version on
-the card (fp32 and fp64), count one launch per filter call over a stack,
-and check the refusals. They skip without a card and import no JAX (JAX is
+the card (fp32 and fp64, 1e-4 and 1e-10 of the largest output; one
+recording of 12,000 samples too), count one launch per filter call over a
+stack, and check the refusals. They skip without a card and import no JAX (JAX is
 imported inside the CPU tests), so they run on a machine without it:
 ``python -m pytest --noconftest -m gpu tests/test_torch_port_dsp.py``.
 """
@@ -36,6 +43,7 @@ from multimodal_sentiment_aanalysis_tpu_torch import ops
 from multimodal_sentiment_aanalysis_tpu_torch.data import features as data_features
 from multimodal_sentiment_aanalysis_tpu_torch.kernels import iir
 from multimodal_sentiment_aanalysis_tpu_torch.ops import dsp
+from torch_iir_emulation import Walk
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 FP32_ATOL = 2e-4  # fp32 filters against JAX
@@ -638,6 +646,54 @@ def _sections(order, band, fs, dtype, device):
             torch.as_tensor(signal.sosfilt_zi(sos), dtype=dtype, device=device), padlen)
 
 
+@pytest.mark.parametrize("late", [False, True], ids=["copies_at_issue", "copies_at_wait"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["fp32", "fp64"])
+@pytest.mark.parametrize("shape", sorted(KERNEL_SHAPES))
+def test_kernel_walk_emulation_is_plain_bit_for_bit(shape, dtype, late):
+    """``csrc/iir.cu``'s walk emulated on the CPU (``torch_iir_emulation``:
+    the ring of ``iir.HOLD_STEPS`` slots, chunks of 32 steps, the odd
+    extension copied from mirrored indices, the forward output split
+    between the ring and the scratch, the reverse copies back, the
+    transposed y stores, every copy landing as early or as late as
+    ``cp.async.wait_group`` allows, every read's tag checked) equals
+    ``sos_filtfilt_plain`` bit for bit at every kernel shape: the walk
+    moves the values and the cascade keeps the plain version's operations.
+    The stack's forward pass runs over the ring's edge in both dtypes."""
+    n, t, order, band, fs = KERNEL_SHAPES[shape]
+    x = torch.from_numpy(_trial(16, (n, t))).to(dtype)
+    sos, zi, padlen = _sections(order, band, fs, dtype, CPU)
+    got = Walk(x, sos, zi, padlen, iir.HOLD_STEPS[dtype], late).run()
+    assert torch.equal(got, iir.sos_filtfilt_plain(x, sos, zi, padlen))
+
+
+@pytest.mark.parametrize("slots", [128, 160, 288])
+@pytest.mark.parametrize("shape", ["notch", "order 8"])
+def test_kernel_walk_emulation_at_other_ring_sizes(shape, slots):
+    """The walk's index arithmetic at rings smaller than the kernel's, so
+    that the ragged shapes also run the scratch, a hold edge inside a chunk
+    and reverse copies from the first chunks: still the plain version bit
+    for bit (fp32, copies at the wait)."""
+    n, t, order, band, fs = KERNEL_SHAPES[shape]
+    x = torch.from_numpy(_trial(19, (n, t))).float()
+    sos, zi, padlen = _sections(order, band, fs, torch.float32, CPU)
+    assert 0 < t + 2 * padlen - slots
+    got = Walk(x, sos, zi, padlen, slots, True).run()
+    assert torch.equal(got, iir.sos_filtfilt_plain(x, sos, zi, padlen))
+
+
+def test_hold_steps_keep_four_warps_an_sm():
+    """``HOLD_STEPS`` is the largest multiple of 32 whose rings (33 elements
+    a step, one a warp) fit a block of 4 warps in the 227 KB a block may use
+    on the H100: 128 series an SM, the stack's 480 warps in one wave; the
+    scratch holds the forward steps before them."""
+    for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
+        block = lambda steps: 4 * steps * 33 * size  # noqa: E731
+        hold = iir.HOLD_STEPS[dtype]
+        assert hold % 32 == 0 and block(hold) <= 227 * 1024 < block(hold + 32)
+        assert iir.scratch_steps(585, 27, dtype) == 639 - hold
+        assert iir.scratch_steps(41, 21, dtype) == 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["fp32", "fp64"])
 @pytest.mark.parametrize("shape", sorted(KERNEL_SHAPES))
@@ -649,6 +705,22 @@ def test_kernel_matches_plain(cuda, shape, dtype):
     before = kernel.launches
     got = iir.sos_filtfilt(x, sos, zi, padlen)
     assert kernel.launches == before + 1
+    want = iir.sos_filtfilt_plain(x, sos, zi, padlen)
+    torch.cuda.synchronize()
+    rel = 1e-4 if dtype == torch.float32 else 1e-10
+    torch.testing.assert_close(got, want, rtol=0, atol=rel * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["fp32", "fp64"])
+def test_kernel_long_recording_matches_plain(cuda, dtype):
+    """One recording of 12,000 samples, order 4: the kernel's one warp runs
+    a chain of ~24,000 steps through its ring, most of the forward pass in
+    the scratch."""
+    x = torch.from_numpy(_trial(18, (1, 12000))).to(cuda, dtype)
+    sos, zi, padlen = _sections(4, (1, 70), 256, dtype, cuda)
+    assert iir.scratch_steps(12000, padlen, dtype) > 11000
+    got = iir.sos_filtfilt(x, sos, zi, padlen)
     want = iir.sos_filtfilt_plain(x, sos, zi, padlen)
     torch.cuda.synchronize()
     rel = 1e-4 if dtype == torch.float32 else 1e-10

@@ -41,10 +41,11 @@ within one ulp plus 1e-3 of their scale (the same rounding points, but
 then rounds a P or dS to the other bf16 neighbour; 1.8e-4 measured). The emulation against fp64
 meets ``chip_smoke.py``'s bf16 bars (O 1e-2 of max |O|, LSE 1e-5 of max
 |LSE|, dQ, dK and dV 1e-2 of their scale) at the shapes where they were
-set. The fragment tests put the forward's ``ldmatrix`` and m16n8k16
-indexing through the hardware's layouts, and the backward's TMA tiles,
-wgmma descriptors (K-major and MN-major, 32/64/128-byte swizzles) and
-m64nNk16 fragments through theirs, at every head dim and tile.
+set; with ``ex2.approx.ftz``'s flush of subnormal exps, the forward's still
+meets them. The fragment tests put the Hopper kernels' TMA tiles, wgmma
+descriptors (K-major and MN-major, 32/64/128-byte swizzles) and m64nNk16
+fragments through the hardware's layouts at every head dim and tile, and
+the forward's persistent walk over its items and ring stages.
 
 The ``gpu``-marked tests hold each bf16 kernel against its plain version
 on the card (O one ulp plus 2e-3, LSE 1e-4, dQ, dK and dV one ulp plus
@@ -72,14 +73,10 @@ from torch_flash_emulation import (
     BF16_HEAD_DIMS,
     OWN_ROWS,
     acc_as_a,
-    c_pairs,
     emulate_bwd_bf16,
     emulate_fwd_bf16,
     from_a_fragments,
     from_accumulators,
-    lane_row,
-    ldmatrix_x4,
-    mma_m16n8k16,
     rs_product,
     s_product,
     sub_tile,
@@ -351,61 +348,32 @@ def test_bf16_emulation_meets_the_fp64_bars(shape):
         assert _rel(g, w, scale) <= FP64_REL[name]
 
 
-def _warp_products(own, x, y, d: int, shared_own: bool):
-    """One warp's two products as ``csrc/flash_attn_bf16.cu`` indexes them:
-    ``own`` (16, d) the warp's own rows, as register pairs (``OwnFrags``) or
-    read with ``ldmatrix`` from a tile (``shared_own``); ``x`` and ``y``
-    (32, d) the streamed rows of the first and second product, at kLd = d +
-    8 a row. The first product, ``own xᵀ`` (16 x 32), takes its B fragments
-    with ``mma_rows``'s plain ``ldmatrix`` at ``lane_row<true>``; the second,
-    ``C y`` (16 x d), feeds the first's accumulator as A (``acc_as_a``) and
-    takes B with ``mma_cols``'s ``.trans`` at ``lane_row<false>``."""
-    kld = d + 8
-    tile = lambda rows: np.concatenate([np.pad(r, (0, 8)) for r in rows])
-    xs, ys, own_s = tile(x), tile(y), tile(own)
-    lanes = [divmod(lane, 4) for lane in range(32)]
-    first = np.zeros((16, 32))
-    for kd in range(d // 16):
-        if shared_own:
-            a = ldmatrix_x4(own_s, [lane_row(l, kld, False) + kd * 16 for l in range(32)], False)
-        else:
-            a = [[(own[r, c], own[r, c + 1]) for r, c in
-                  ((g, kd * 16 + 2 * t), (g + 8, kd * 16 + 2 * t), (g, kd * 16 + 2 * t + 8),
-                   (g + 8, kd * 16 + 2 * t + 8))] for g, t in lanes]
-        for j in range(0, 4, 2):
-            b = ldmatrix_x4(xs, [lane_row(l, kld, True) + j * 8 * kld + kd * 16
-                                 for l in range(32)], False)
-            first[:, j * 8:j * 8 + 8] += mma_m16n8k16(a, [r[:2] for r in b])
-            first[:, j * 8 + 8:j * 8 + 16] += mma_m16n8k16(a, [r[2:] for r in b])
-    second = np.zeros((16, d))
-    for jj in range(2):
-        lo, hi = c_pairs(first[:, 16 * jj:16 * jj + 8]), c_pairs(first[:, 16 * jj + 8:16 * jj + 16])
-        a = [lo[lane] + hi[lane] for lane in range(32)]
-        for nd in range(0, d // 8, 2):
-            b = ldmatrix_x4(ys, [lane_row(l, kld, False) + jj * 16 * kld + nd * 8
-                                 for l in range(32)], True)
-            second[:, nd * 8:nd * 8 + 8] += mma_m16n8k16(a, [r[:2] for r in b])
-            second[:, nd * 8 + 8:nd * 8 + 16] += mma_m16n8k16(a, [r[2:] for r in b])
-    return first, second
-
-
 @pytest.mark.parametrize("shared_own", [False, True])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_bf16_fragment_indexing_gives_the_products(kernel, shared_own):
-    """The forward: own Q, streamed K then V: S = Q Kᵀ, then P V. dQ: own Q
-    (and dO), streamed K for both products: S = Q Kᵀ, then dS K. dK/dV: own
-    K (and V), streamed Q then dO: Sᵀ = K Qᵀ, then Pᵀ dO. At D = 32 (two
-    16-deep steps, two pairs of n8 tiles) over 32 streamed rows; the own
-    operand as register pairs and, as dK/dV keeps it above D = 64, read from
-    shared memory."""
+    """One consumer warpgroup's two products as the Hopper kernels index
+    them, at D = 32 (two k16 steps), for both warpgroups (own rows 0-63 and
+    64-127 of the 128-row own tile): the first product from the own rows as
+    register A fragments or (``shared_own``, as at D = 128) read K-major from
+    the swizzled tile, against a streamed sub-tile read K-major; then its
+    accumulator packed as the A fragments of the second, against a streamed
+    tile read MN-major. The forward (``csrc/flash_attn_bf16.cu``): own Q,
+    streamed K then V over a 64-key sub-tile, S = Q Kᵀ then P V. dQ
+    (``csrc/flash_bwd_bf16.cu``): own Q, streamed K for both over 32 keys,
+    S = Q Kᵀ then dS K. dK/dV: own K, streamed Q then dO over 32 queries,
+    Sᵀ = K Qᵀ then Pᵀ dO."""
     rng = np.random.default_rng({"fwd": 3, "dq": 4, "dkv": 5}[kernel])
-    d = 32
-    own, x, y = rng.normal(size=(16, d)), rng.normal(size=(32, d)), rng.normal(size=(32, d))
+    d, n = 32, 64 if kernel == "fwd" else sub_tile(kernel == "dkv", 32)
+    own, x, y = (rng.normal(size=(rows, d)) for rows in (OWN_ROWS, n, n))
     if kernel == "dq":
         y = x  # dQ's second product reads the same K rows
-    first, second = _warp_products(own, x, y, d, shared_own)
-    np.testing.assert_allclose(first, own @ x.T, rtol=1e-12, atol=1e-12)
-    np.testing.assert_allclose(second, first @ y, rtol=1e-12, atol=1e-12)
+    own_s, xs, ys = tma_tile(own), tma_tile(x), tma_tile(y)
+    for own_row in (0, 64):
+        s = s_product(own_s, own_row, xs, n, 0, n, d, not shared_own)
+        first = from_accumulators(s)
+        np.testing.assert_allclose(first, own[own_row:own_row + 64] @ x.T, atol=1e-12)
+        second = sum(rs_product(acc_as_a(s, kk), ys, n, 16 * kk, d) for kk in range(n // 16))
+        np.testing.assert_allclose(second, first @ y, atol=1e-9)
 
 
 @pytest.mark.parametrize("d", BF16_HEAD_DIMS)
@@ -413,12 +381,13 @@ def test_bf16_shared_memory_fits_every_tile(d):
     """bf16 tiles are half fp32's bytes: every pair of tiles fits the 227 KB
     a block may use at every head dim, the forward's 128-key tile at D = 128
     (which the fp32 form refuses) included; a head dim of 8 is not built.
-    The backward's plan (``BwdPlan``): 1024 bytes of alignment, two own
-    tiles of OWN_ROWS rows whatever the own block, a ring of 2-4 stages of
-    two streamed tiles (as many as fit 64 KiB), dK/dV's columns (fp32 LSE
-    and delta a stage) or dQ's own rows' LSE and delta, 8 bytes an mbarrier
-    (two for the own tiles, two a stage); the ring's stages never fewer than
-    two, so that the producer loads one while the consumers read another."""
+    The plans (``FwdPlan``, ``BwdPlan``): 1024 bytes of alignment, the own
+    tiles of OWN_ROWS rows whatever the own block (the forward's Q; the
+    backward's two), a ring of 2-4 stages of two streamed tiles (as many as
+    fit 64 KiB; the forward's K and V), dK/dV's columns (fp32 LSE and delta
+    a stage) or dQ's own rows' LSE and delta, 8 bytes an mbarrier (two for
+    the own tiles, two a stage); the ring's stages never fewer than two, so
+    that the producer loads one while the consumers read another."""
     for bq in attention.TILES:
         for bk in attention.TILES:
             for kernel in ("fwd", "dq", "dkv"):
@@ -426,6 +395,9 @@ def test_bf16_shared_memory_fits_every_tile(d):
     for tile in attention.TILES:
         stage = 2 * tile * 2 * d
         stages = min(4, max(2, 65536 // stage))
+        # the forward (FwdPlan): one own tile (Q), no columns
+        assert {attention.fwd_smem(d, own, tile, BF16) for own in attention.TILES} == {
+            1024 + OWN_ROWS * 2 * d + stages * stage + 8 * (2 + 2 * stages)}
         base = 1024 + 2 * OWN_ROWS * 2 * d + stages * stage + 8 * (2 + 2 * stages)
         assert {attention.dq_smem(d, own, tile, BF16) for own in attention.TILES} == {
             base + 2 * 4 * OWN_ROWS}
@@ -505,6 +477,102 @@ def test_bf16_bwd_index_maps_give_the_products(kernel, d, tile):
         else:
             np.testing.assert_allclose(acc1, (a_rows @ x.T) @ y, atol=1e-9)
             np.testing.assert_allclose(acc2, (b_rows @ y.T) @ x, atol=1e-9)
+
+
+@pytest.mark.parametrize("tile", attention.TILES)
+@pytest.mark.parametrize("d", BF16_HEAD_DIMS)
+def test_bf16_fwd_index_maps_give_the_products(d, tile):
+    """``csrc/flash_attn_bf16.cu``'s address arithmetic over TMA's swizzled
+    tiles, at every head dim and key tile, for both consumer warpgroups
+    (query rows 0-63 and 64-127 of the 128-row Q tile) over every sub-tile
+    of a stage (``FwdPlan::kSub``: 64 keys, 32 for 32-key tiles): S = Q Kᵀ
+    (Q as register fragments up to D = 64, the K-major Q tile at D = 128; K
+    K-major), then the S accumulator packed as the A fragments of O += P V
+    (V MN-major; two m64n64k16 at D = 128). S stands in for P (the softmax
+    between them is elementwise)."""
+    rng = np.random.default_rng(d * 100 + tile)
+    q, k, v = (rng.normal(size=(rows, d)) for rows in (OWN_ROWS, tile, tile))
+    qs, ks, vs = tma_tile(q), tma_tile(k), tma_tile(v)
+    n = min(tile, 64)
+    for own_row in (0, 64):
+        rows = q[own_row:own_row + 64]
+        acc = np.zeros((64, d))
+        for row in range(0, tile, n):
+            s = s_product(qs, own_row, ks, tile, row, n, d, d <= 64)
+            np.testing.assert_allclose(from_accumulators(s), rows @ k[row:row + n].T, atol=1e-12)
+            for kk in range(n // 16):
+                acc += rs_product(acc_as_a(s, kk), vs, tile, row + 16 * kk, d)
+        np.testing.assert_allclose(acc, (rows @ k.T) @ v, atol=1e-9)
+
+
+def _fwd_walk(bh: int, tq: int, tk: int, tile: int, d: int, sms: int = 132):
+    """The forward's persistent walk as ``flash_fwd_bf16_kernel`` runs it:
+    for each CTA (``persistent_grid``: one an SM, at most one an item) the
+    items it takes (``Work``: 128 query rows of one head, a head's blocks
+    adjacent), the producer's ring slots and phases for each K / V tile,
+    and the consumers' for each key sub-tile (``FwdConsumer::stage``, its
+    ``mbar_wait`` parity)."""
+    blocks, n = -(-tq // OWN_ROWS), -(-tk // tile)
+    items, sub = bh * blocks, min(tile, 64)
+    stages = min(4, max(2, 65536 // (2 * tile * 2 * d)))
+    nsub, spt = -(-tk // sub), tile // sub
+    walks = []
+    for cta in range(min(items, sms)):
+        taken, produced, consumed = [], [], []
+        it = 0
+        for item in range(cta, items, min(items, sms)):
+            taken.append((item // blocks, (item % blocks) * OWN_ROWS))
+            for t in range(n):
+                produced.append((it + t, (it + t) % stages, ((it + t) // stages) & 1, t * tile))
+            for i in range(nsub):
+                tl = it + i // spt
+                consumed.append((tl, tl % stages, (tl // stages) & 1,
+                                 (tl - it) * tile + (i % spt) * sub))
+            it += n
+        walks.append((taken, produced, consumed))
+    return walks
+
+
+@pytest.mark.parametrize("bh,tq,tk", [(512, 585, 585), (3, 1, 1), (7, 129, 65), (200, 63, 130),
+                                      (40, 256, 200)])
+def test_bf16_fwd_persistent_walk_covers_every_block_once(bh, tq, tk):
+    """Every (head, 128-row block) is one CTA's item exactly once, ragged
+    lengths included, and its rows cover the head's queries; for every key
+    tile the consumers wait on the slot and phase its producer filled it in
+    and take its sub-tiles at its keys, and the item's sub-tiles reach the
+    last key, at every key tile."""
+    for tile in attention.TILES:
+        seen = []
+        for taken, produced, consumed in _fwd_walk(bh, tq, tk, tile, 32):
+            seen += taken
+            fills = {tl: (slot, phase, key0) for tl, slot, phase, key0 in produced}
+            assert sorted(fills) == sorted({tl for tl, *_ in consumed})
+            for tl, slot, phase, key in consumed:
+                assert fills[tl][:2] == (slot, phase)
+                assert fills[tl][2] <= key < fills[tl][2] + tile
+            assert len(consumed) == len(taken) * -(-tk // min(tile, 64))
+            assert max(key for *_, key in consumed) + min(tile, 64) >= tk
+        assert sorted(seen) == sorted({(h, r) for h in range(bh) for r in range(0, tq, OWN_ROWS)})
+        for h in range(bh):
+            rows = set()
+            for hh, r in seen:
+                if hh == h:
+                    rows |= set(range(r, min(r + OWN_ROWS, tq)))
+            assert rows == set(range(tq))
+
+
+@pytest.mark.parametrize("shape", sorted(ACCURACY_SHAPES))
+def test_bf16_fwd_ftz_emulation_meets_the_fp64_bars(shape):
+    """The Hopper forward's exps are ``ex2.approx.ftz`` (a subnormal result
+    flushes to 0, in P and in the rescale factor): emulated over sub-tiles
+    of 64 and of 32 keys (the 32-key tile), it still meets chip_smoke.py's
+    bf16 bars (O 1e-2 of max |O|, LSE 1e-5) against the fp64 plain
+    version."""
+    q, k, v = (t.to(BF16) for t in ACCURACY_SHAPES[shape]())
+    o64, lse64 = attention.flash_fwd_plain(q.double(), k.double(), v.double())
+    for sub in (32, 64):
+        o, lse = emulate_fwd_bf16(q, k, v, sub, ftz=True)
+        assert _rel(o, o64) <= FP64_REL["O"] and _rel(lse, lse64) <= FP64_REL["LSE"]
 
 
 # --------------------------------------------------------------------------
@@ -602,6 +670,17 @@ def test_bf16_flash_backward_is_deterministic(cuda, d):
     first = [attention.flash_bwd_dq(*args), *attention.flash_bwd_dkv(*args)]
     second = [attention.flash_bwd_dq(*args), *attention.flash_bwd_dkv(*args)]
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", BF16_HEAD_DIMS)
+def test_bf16_flash_forward_is_deterministic(cuda, d):
+    """Two runs of the bf16 forward give the same bits, at every key tile:
+    each output row sums its keys in one order, with no atomics."""
+    q, k, v = _on(cuda, *_qkv(12, 6, 150, 130, d))
+    for bk in attention.TILES:
+        first, second = attention.flash_fwd(q, k, v, 64, bk), attention.flash_fwd(q, k, v, 64, bk)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.gpu

@@ -17,10 +17,10 @@ The bf16 forms' rounding points: bf16 operands, each product's terms exact
 (a bf16 times a bf16 is exact in fp32) and summed in fp64 here, rounded to
 fp32 as the tensor cores' fp32 accumulators hold them; P and dS rounded to
 bf16 as the A operand of their products; O, dQ, dK and dV rounded to bf16.
-Also the m16n8k16 and ``ldmatrix`` layouts of the bf16 forward, and for the
-bf16 backward (``csrc/flash_bwd_bf16.cu`` on ``csrc/sm90.cuh``) the
-32/64/128-byte swizzled tiles as TMA writes them and K-major and MN-major
-wgmma descriptors read them, the wgmma.m64nNk16 accumulator and register-A
+Also, for the bf16 kernels on Hopper (``csrc/flash_attn_bf16.cu`` and
+``csrc/flash_bwd_bf16.cu`` on ``csrc/sm90.cuh``), the 32/64/128-byte
+swizzled tiles as TMA writes them and K-major and MN-major wgmma
+descriptors read them, the wgmma.m64nNk16 accumulator and register-A
 fragments, and the kernels' address arithmetic, for the index tests.
 """
 
@@ -157,12 +157,20 @@ def product_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (bf16(a).double() @ bf16(b).double()).float()
 
 
-def emulate_fwd_bf16(q, k, v, key_tile: int = 64):
+def flush(x: torch.Tensor) -> torch.Tensor:
+    """fp32 results of ``ex2.approx.ftz``: below 2^-126 (subnormal) to 0."""
+    return torch.where(x.abs() < 2.0 ** -126, torch.zeros_like(x), x)
+
+
+def emulate_fwd_bf16(q, k, v, key_tile: int = 64, ftz: bool = False):
     """``(O bf16, LSE fp32)`` of pre-scaled bf16 ``q (BH, Tq, D)`` and ``k,
     v (BH, Tk, D)`` in the bf16 forward's order of operations: per key tile
-    S from one bf16 pass, the online softmax in fp32, the accumulator scaled
-    by exp(m_old - m_new) and then summed on the tensor cores with P V (P
-    rounded to bf16)."""
+    (the Hopper forward's sub-tile of 64 keys, or 32) S from one bf16 pass,
+    the online softmax in fp32, the accumulator scaled by exp(m_old - m_new)
+    and then summed on the tensor cores with P V (P rounded to bf16). With
+    ``ftz`` every exp (P and the rescale factor) flushes a subnormal result
+    to 0, as ``ex2.approx.ftz`` does."""
+    exp = flush if ftz else (lambda x: x)
     bh, tq, d = q.shape
     tk = k.shape[1]
     m = torch.full((bh, tq), -math.inf)
@@ -172,8 +180,8 @@ def emulate_fwd_bf16(q, k, v, key_tile: int = 64):
         kj, vj = k[:, j0:j0 + key_tile], v[:, j0:j0 + key_tile]
         s = product_bf16(q, kj.transpose(1, 2))
         m_new = torch.maximum(m, s.amax(-1))
-        alpha = torch.exp2((m - m_new) * LOG2E)  # 0 on the first tile (m = -inf)
-        p = exp_log2(s, m_new[..., None])
+        alpha = exp(torch.exp2((m - m_new) * LOG2E))  # 0 on the first tile (m = -inf)
+        p = exp(exp_log2(s, m_new[..., None]))
         m, l = m_new, l * alpha + p.sum(-1)
         acc = (acc * alpha[..., None]).double() + bf16(p).double() @ vj.double()
         acc = acc.float()
@@ -192,58 +200,10 @@ def emulate_bwd_bf16(q, k, v, do, lse, delta) -> list[torch.Tensor]:
             product_bf16(p.transpose(1, 2), do).to(BF16)]
 
 
-def lane_row(lane: int, ld: int, row_pairs: bool) -> int:
-    """``lane_row<kRowPairs>`` of ``csrc/flash_attn_bf16.cu``: the offset of
-    the row whose address ``lane`` gives to ``ldmatrix.x4``."""
-    m, r = lane >> 3, lane & 7
-    if row_pairs:
-        return ((m >> 1) * 8 + r) * ld + (m & 1) * 8
-    return ((m & 1) * 8 + r) * ld + (m >> 1) * 8
-
-
-def ldmatrix_x4(tile: np.ndarray, at: list[int], trans: bool) -> list[list]:
-    """Each lane's four registers (two elements each, low half first) of
-    ``ldmatrix.sync.aligned.m8n8.x4[.trans].b16`` over the flat ``tile``,
-    lane l giving the offset ``at[l]`` of row l % 8 of matrix l / 8: plain,
-    lane (g, t) of register i holds row g, elements 2t and 2t + 1 of matrix
-    i; ``trans``, elements (2t, g) and (2t + 1, g)."""
-    mats = [np.array([tile[at[8 * i + r]:at[8 * i + r] + 8] for r in range(8)]) for i in range(4)]
-    regs = []
-    for lane in range(32):
-        g, t = lane // 4, lane % 4
-        if trans:
-            regs.append([(mt[2 * t, g], mt[2 * t + 1, g]) for mt in mats])
-        else:
-            regs.append([(mt[g, 2 * t], mt[g, 2 * t + 1]) for mt in mats])
-    return regs
-
-
-def mma_m16n8k16(a_regs, b_regs) -> np.ndarray:
-    """The 16 x 8 product one ``mma.sync.m16n8k16`` computes from each
-    lane's register pairs (g = lane / 4, t = lane % 4): A a[0] at (g,
-    2t..2t+1), a[1] (g + 8, 2t..), a[2] (g, 2t+8..), a[3] (g + 8, 2t+8..);
-    B b[0] at (k = 2t..2t+1, n = g), b[1] (k = 2t+8.., n = g)."""
-    a, b = np.zeros((16, 16)), np.zeros((16, 8))
-    for lane in range(32):
-        g, t = lane // 4, lane % 4
-        for reg, (row, col) in zip(a_regs[lane], ((g, 0), (g + 8, 0), (g, 8), (g + 8, 8))):
-            a[row, col + 2 * t:col + 2 * t + 2] = reg
-        for reg, k0 in zip(b_regs[lane], (0, 8)):
-            b[k0 + 2 * t:k0 + 2 * t + 2, g] = reg
-    return a @ b
-
-
-def c_pairs(c: np.ndarray) -> list:
-    """Each lane's accumulator registers of a 16 x 8 C as the two pairs
-    ((g, 2t), (g, 2t + 1)) and ((g + 8, 2t), (g + 8, 2t + 1))."""
-    return [[(c[g, 2 * t], c[g, 2 * t + 1]), (c[g + 8, 2 * t], c[g + 8, 2 * t + 1])]
-            for g, t in (divmod(lane, 4) for lane in range(32))]
-
-
 # --------------------------------------------------------------------------
-# the bf16 backward on Hopper (csrc/flash_bwd_bf16.cu, csrc/sm90.cuh): the
-# shared-memory layouts TMA writes and wgmma descriptors read, and the
-# wgmma.m64nNk16 register fragments
+# the bf16 kernels on Hopper (csrc/flash_attn_bf16.cu, csrc/flash_bwd_bf16.cu,
+# csrc/sm90.cuh): the shared-memory layouts TMA writes and wgmma descriptors
+# read, and the wgmma.m64nNk16 register fragments
 # --------------------------------------------------------------------------
 
 OWN_ROWS = 128  # kOwnRows: two consumer warpgroups of 64 rows
